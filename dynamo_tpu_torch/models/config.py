@@ -1,0 +1,242 @@
+"""Model architecture configuration (Llama family + MoE extensions).
+
+Loadable from a HuggingFace ``config.json`` so checkpoints drop in directly.
+Field for field the same dataclass as ``dynamo_tpu.models.config``; the
+dtype resolves to a ``torch.dtype`` instead of a JAX one.
+"""
+
+from __future__ import annotations
+
+import json
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+# Llama-family architectures the unified decoder serves (reference parity:
+# vLLM's model zoo; these cover the reference's example deployments —
+# Llama/R1-Distill, Mistral, Mixtral MoE, Qwen2/3, Phi3, Gemma 1/2).
+SUPPORTED_ARCHITECTURES = {
+    "LlamaForCausalLM",
+    "MistralForCausalLM",
+    "MixtralForCausalLM",
+    "Qwen2ForCausalLM",
+    "Qwen3ForCausalLM",
+    "Qwen3MoeForCausalLM",
+    "Phi3ForCausalLM",
+    "GemmaForCausalLM",
+    "Gemma2ForCausalLM",
+}
+
+
+@dataclass
+class ModelConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 32
+    head_dim: Optional[int] = None  # default hidden_size // num_heads
+    rope_theta: float = 10000.0
+    rms_norm_eps: float = 1e-5
+    max_position_embeddings: int = 4096
+    tie_word_embeddings: bool = False
+    # Qwen2-style QKV projection bias (o_proj stays bias-free)
+    attention_bias: bool = False
+    # Qwen3-style per-head RMSNorm on q and k (over head_dim, before RoPE)
+    qk_norm: bool = False
+    # Uniform sliding-window size (Mistral/Phi3): attention masks keys
+    # older than `window` positions — EXACT HF semantics.  The attention
+    # dispatch applies it only when the static context bound can exceed
+    # the window (ops/paged_attention.py); deployments whose max_model_len
+    # fits inside the window keep the flash kernels (full == windowed
+    # there).  Gemma2's interleaved local/global windows are NOT this
+    # field — from_hf_config nulls it for Gemma2 with a warning.
+    sliding_window: Optional[int] = None
+    # MoE (Mixtral-style); num_experts == 0 → dense MLP
+    num_experts: int = 0
+    num_experts_per_tok: int = 2
+    # renormalize top-k router probs (Mixtral always; Qwen3-MoE flag)
+    norm_topk_prob: bool = True
+    # --- Gemma-family deltas (all default to the Llama behavior) ---
+    # MLP activation on the gate branch: "silu" (Llama) or "gelu_tanh"
+    # (Gemma GeGLU)
+    hidden_activation: str = "silu"
+    # RMSNorm multiplies by (1 + weight): Gemma stores zero-centred scales
+    rmsnorm_unit_offset: bool = False
+    # multiply embeddings by sqrt(hidden_size) after lookup
+    scale_embeddings: bool = False
+    # Gemma2 sandwich norms: extra post-attention / post-MLP RMSNorms
+    post_norms: bool = False
+    # rope_scaling (HF config.json): {"rope_type": "llama3"|"linear", ...}
+    # — Llama-3.1+ checkpoints REQUIRE llama3 frequency scaling; ignoring
+    # it would silently corrupt long-context behavior
+    rope_scaling: Optional[dict] = None
+    # attention sm_scale = query_pre_attn_scalar**-0.5 (None = head_dim)
+    query_pre_attn_scalar: Optional[float] = None
+    # tanh softcaps: scores (Gemma2 attn_logit_softcapping) and final logits
+    attn_logit_softcap: Optional[float] = None
+    final_logit_softcap: Optional[float] = None
+    # runtime
+    dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        if self.head_dim is None:
+            self.head_dim = self.hidden_size // self.num_heads
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
+    @classmethod
+    def tiny(cls, **kw) -> "ModelConfig":
+        """A toy config for tests (fast CPU compile, exercises GQA)."""
+        defaults = dict(
+            vocab_size=256,
+            hidden_size=64,
+            intermediate_size=128,
+            num_layers=2,
+            num_heads=4,
+            num_kv_heads=2,
+            max_position_embeddings=512,
+            dtype="float32",
+        )
+        defaults.update(kw)
+        return cls(**defaults)
+
+    @classmethod
+    def from_hf_config(cls, path_or_dict, dtype: str = "bfloat16") -> "ModelConfig":
+        """Build from a HuggingFace config.json (file, dir, or dict)."""
+        if isinstance(path_or_dict, (str, Path)):
+            p = Path(path_or_dict)
+            if p.is_dir():
+                p = p / "config.json"
+            cfg = json.loads(p.read_text())
+        else:
+            cfg = dict(path_or_dict)
+        archs = cfg.get("architectures") or []
+        arch = archs[0] if archs else "LlamaForCausalLM"
+        if arch not in SUPPORTED_ARCHITECTURES:
+            raise ValueError(
+                f"unsupported architecture {arch!r}; supported: "
+                f"{sorted(SUPPORTED_ARCHITECTURES)}"
+            )
+        gemma = arch in ("GemmaForCausalLM", "Gemma2ForCausalLM")
+        qwen3_moe = arch == "Qwen3MoeForCausalLM"
+        if qwen3_moe and (
+            cfg.get("decoder_sparse_step", 1) != 1 or cfg.get("mlp_only_layers")
+        ):
+            # partially-sparse stacks interleave dense and MoE layers; the
+            # scan-over-layers decoder assumes a uniform layer type
+            raise ValueError(
+                "Qwen3-MoE with decoder_sparse_step != 1 or mlp_only_layers "
+                "is not supported (non-uniform layer stack)"
+            )
+        rs = cfg.get("rope_scaling")
+        if rs:
+            kind = rs.get("rope_type") or rs.get("type")
+            if kind not in ("llama3", "linear", "default", None):
+                # longrope/yarn/dynamic are not implemented — be loud, a
+                # silently-unscaled rope corrupts every long prompt
+                raise ValueError(
+                    f"rope_scaling type {kind!r} not supported "
+                    "(supported: llama3, linear)"
+                )
+        act = cfg.get("hidden_activation") or cfg.get("hidden_act") or "silu"
+        # original Gemma-1 configs say "gelu" but the canonical weights were
+        # trained with tanh-approx GELU (transformers maps it the same way);
+        # unknown activations must fail loudly, not silently run SiLU
+        act_map = {
+            "silu": "silu",
+            "gelu": "gelu_tanh",
+            "gelu_pytorch_tanh": "gelu_tanh",
+            "gelu_tanh": "gelu_tanh",
+        }
+        if act not in act_map:
+            raise ValueError(
+                f"unsupported hidden activation {act!r} for {arch}; "
+                f"supported: {sorted(act_map)}"
+            )
+        sliding = cfg.get("sliding_window")
+        if sliding and arch in ("Qwen2ForCausalLM", "Qwen3ForCausalLM",
+                                "Qwen3MoeForCausalLM"):
+            if not cfg.get("use_sliding_window"):
+                # HF Qwen configs carry sliding_window but gate it behind
+                # use_sliding_window (default False) — honoring the number
+                # without the gate would wrongly window full-attention models
+                sliding = None
+            elif cfg.get("max_window_layers", None) != 0:
+                import logging
+
+                # HF windows only layers >= max_window_layers; a uniform
+                # window over the scan-over-layers decoder would corrupt
+                # the full-attention lower layers — same treatment as
+                # Gemma2's interleave: full attention + a loud warning.
+                # An ABSENT key means the HF default, which is nonzero
+                # (e.g. 28 for Qwen2) — also non-uniform, NOT a uniform
+                # window over all layers (ADVICE r5)
+                logging.getLogger("dynamo_tpu_torch.models").warning(
+                    "%s use_sliding_window with max_window_layers=%s "
+                    "(non-uniform layer windows): served with full "
+                    "attention — outputs match HF only for contexts "
+                    "within the window", arch,
+                    cfg.get("max_window_layers", "absent (HF default)"),
+                )
+                sliding = None
+        if sliding and arch == "Gemma2ForCausalLM":
+            import logging
+
+            # Gemma2 interleaves LOCAL and GLOBAL layers; a uniform window
+            # over the scan-over-layers decoder would corrupt the global
+            # layers, so Gemma2 keeps full attention — exact for contexts
+            # within the window, divergent beyond it
+            logging.getLogger("dynamo_tpu_torch.models").warning(
+                "%s sliding_window=%d: interleaved local/global layers are "
+                "served with full attention — outputs match HF only for "
+                "contexts within the window", arch, sliding,
+            )
+            sliding = None
+        return cls(
+            vocab_size=cfg["vocab_size"],
+            hidden_size=cfg["hidden_size"],
+            # MoE experts use their own width (Qwen3-MoE moe_intermediate_size)
+            intermediate_size=(
+                cfg["moe_intermediate_size"] if qwen3_moe
+                else cfg["intermediate_size"]
+            ),
+            num_layers=cfg["num_hidden_layers"],
+            num_heads=cfg["num_attention_heads"],
+            num_kv_heads=cfg.get("num_key_value_heads", cfg["num_attention_heads"]),
+            head_dim=cfg.get("head_dim"),
+            rope_theta=cfg.get("rope_theta", 10000.0),
+            rms_norm_eps=cfg.get("rms_norm_eps", 1e-5),
+            max_position_embeddings=cfg.get("max_position_embeddings", 4096),
+            # HF Gemma checkpoints tie embeddings and omit the flag
+            tie_word_embeddings=cfg.get("tie_word_embeddings", gemma),
+            # HF Qwen2 attention always carries QKV bias; Llama exposes an
+            # explicit attention_bias flag (default False)
+            attention_bias=cfg.get("attention_bias", arch == "Qwen2ForCausalLM"),
+            qk_norm=arch in ("Qwen3ForCausalLM", "Qwen3MoeForCausalLM"),
+            sliding_window=sliding,
+            num_experts=cfg.get("num_local_experts",
+                                cfg.get("num_experts", 0) if qwen3_moe else 0),
+            num_experts_per_tok=cfg.get("num_experts_per_tok", 2),
+            # HF default differs by family: Mixtral always renormalizes,
+            # Qwen3MoeConfig defaults the flag to False
+            norm_topk_prob=bool(cfg.get("norm_topk_prob", not qwen3_moe)),
+            rope_scaling=dict(rs) if rs else None,
+            hidden_activation=act_map[act],
+            rmsnorm_unit_offset=gemma,
+            scale_embeddings=gemma,
+            post_norms=arch == "Gemma2ForCausalLM",
+            query_pre_attn_scalar=cfg.get("query_pre_attn_scalar"),
+            attn_logit_softcap=cfg.get("attn_logit_softcapping"),
+            final_logit_softcap=cfg.get("final_logit_softcapping"),
+            dtype=dtype,
+        )

@@ -1,0 +1,257 @@
+"""Paged attention over block tables — the engine's core op, in PyTorch.
+
+The KV cache is one tensor ``[L, N, 2, Bs, Hk*D]`` for the whole model: a
+pool of fixed-size blocks per layer, K and V of a block adjacent.  Each
+sequence owns an ordered list of block ids (its *block table*).  A forward
+step first scatters the S new tokens' K/V into the cache, in place, then
+attends over the sequence's context.
+
+This file holds the plain PyTorch ops, the counterparts of
+``dynamo_tpu/ops/paged_attention.py``, and the routing to the CUDA kernels:
+on CUDA tensors decode attention (1 <= S <= ``MQ_MAX_S``) goes to
+``ops/kernels/decode_attention.py`` and prefill attention to
+``ops/kernels/prefill_attention.py``; sliding-window attention whose span
+can exceed the window, and every CPU call, take the plain ops here.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dynamo_tpu_torch.ops.kernels.decode_attention import paged_decode_attention
+from dynamo_tpu_torch.ops.kernels.prefill_attention import paged_prefill_attention
+
+__all__ = [
+    "MQ_MAX_S",
+    "softcap",
+    "write_kv_cache_layer",
+    "paged_attention",
+    "paged_attention_layer",
+    "prefill_attention",
+]
+
+MQ_MAX_S = 8  # decode kernel: trailing-query count it serves
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """Gemma2-style tanh logit softcap (shared by every attention path)."""
+    return torch.tanh(x / cap) * cap
+
+
+def paged_attention_layer(
+    q: torch.Tensor,             # [B, S, H, D]
+    cache: torch.Tensor,         # [L, N, 2, Bs, Hk*D]
+    layer: int,
+    block_tables: torch.Tensor,  # [B, M] int32
+    seq_lens: torch.Tensor,      # [B] int32
+    positions: torch.Tensor,     # [B, S] int32
+    sm_scale: float | None = None,
+    logit_cap: float | None = None,
+    window: int | None = None,
+) -> torch.Tensor:
+    """Attention for layer ``layer`` against the full paged cache.
+
+    On CUDA, 1 <= S <= MQ_MAX_S goes to the decode kernel, which requires
+    each row's positions to be contiguous (``positions[:, j] ==
+    positions[:, 0] + j``) — true for every engine caller.  ``window``
+    (Mistral/Phi3 sliding window) routes to the position-exact plain op only
+    when the table's span (M*Bs) can exceed the window; otherwise full
+    attention is exact.  Everything else takes the plain op.
+    """
+    b, s, h, d = q.shape
+    _, n, _, bs, hkd = cache.shape
+    hk = hkd // d
+    windowed = window is not None and block_tables.shape[1] * bs > window
+    if q.is_cuda and 1 <= s <= MQ_MAX_S and not windowed:
+        return paged_decode_attention(
+            q.contiguous(), cache, layer, block_tables, seq_lens,
+            positions[:, 0].contiguous(), sm_scale=sm_scale, logit_cap=logit_cap,
+        )
+    layer_kv = cache[layer]
+    k_cache = layer_kv[:, 0].reshape(n, bs, hk, d)
+    v_cache = layer_kv[:, 1].reshape(n, bs, hk, d)
+    return paged_attention(
+        q, k_cache, v_cache, block_tables, seq_lens, positions, sm_scale,
+        logit_cap, window=window if windowed else None,
+    )
+
+
+def prefill_attention(
+    q: torch.Tensor,             # [B, S, H, D] — fresh queries (contiguous from `start`)
+    k_new: torch.Tensor,         # [B, S, Hk, D] — this chunk's keys
+    v_new: torch.Tensor,         # [B, S, Hk, D]
+    cache: torch.Tensor,         # [L, N, 2, Bs, Hk*D]
+    layer: int,
+    block_tables: torch.Tensor,  # [B, M] int32
+    seq_lens: torch.Tensor,      # [B] int32 — context length incl. new tokens
+    start: torch.Tensor,         # [B] int32 — absolute position of q[:, 0] (block-aligned)
+    prefix_blocks: int,          # cache blocks holding the cached prefix
+    sm_scale: float | None = None,
+    logit_cap: float | None = None,
+    window: int | None = None,
+) -> torch.Tensor:
+    """Prefill attention without gathering the sequence's whole block table.
+
+    The chunk's own K/V are passed in; only the cached prefix lives in the
+    cache, in its first ``prefix_blocks`` blocks.  Fresh-fresh attention is
+    causal by chunk index, fresh-prefix is full; padding tail rows (index >=
+    seq_len - start) are masked out of everyone's context.  On CUDA with
+    S > 1 the prefill kernel runs, streaming the prefix by its true length
+    ``start``.  Returns [B, S, H, D].
+    """
+    b, s, h, d = q.shape
+    hk = k_new.shape[2]
+    g = h // hk
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    bs = cache.shape[3]
+    windowed = window is not None and prefix_blocks * bs + s > window
+    if not windowed:
+        window = None
+    if q.is_cuda and s > 1 and not windowed:
+        return paged_prefill_attention(
+            q.contiguous(), k_new.contiguous(), v_new.contiguous(), cache, layer,
+            block_tables, seq_lens, start, sm_scale=sm_scale, logit_cap=logit_cap,
+        )
+    qg = q.reshape(b, s, hk, g, d).float()
+    start = start.long()
+    fresh = (seq_lens.long() - start)[:, None, None]  # valid fresh tokens per row
+
+    sf = torch.einsum("bskgd,btkd->bkgst", qg, k_new.float()) * sm_scale
+    if logit_cap is not None:
+        sf = softcap(sf, logit_cap)
+    i = torch.arange(s, device=q.device)
+    allow_f = (i[None, :, None] >= i[None, None, :]) & (i[None, None, :] < fresh)
+    if window is not None:
+        allow_f = allow_f & ((i[None, :, None] - i[None, None, :]) < window)
+    sf = torch.where(allow_f[:, None, None], sf, float("-inf"))
+
+    if prefix_blocks == 0:
+        probs = torch.softmax(sf, dim=-1)
+        out = torch.einsum("bkgst,btkd->bskgd", probs, v_new.float())
+        return out.reshape(b, s, h, d).to(q.dtype)
+
+    t = prefix_blocks * bs
+    ctx = cache[layer][block_tables[:, :prefix_blocks].long()]  # [B, P, 2, Bs, HkD]
+    kp = ctx[:, :, 0].reshape(b, t, hk, d)
+    vp = ctx[:, :, 1].reshape(b, t, hk, d)
+    sp = torch.einsum("bskgd,btkd->bkgst", qg, kp.float()) * sm_scale
+    if logit_cap is not None:
+        sp = softcap(sp, logit_cap)
+    slot = torch.arange(t, device=q.device)
+    allow_p = slot[None, None, :] < start[:, None, None]
+    if window is not None:
+        # prefix slot t IS absolute position t; query i sits at start + i
+        q_pos = start[:, None, None] + i[None, :, None]
+        allow_p = allow_p & ((q_pos - slot[None, None, :]) < window)
+    sp = torch.where(allow_p[:, None, None], sp, float("-inf"))
+
+    probs = torch.softmax(torch.cat([sp, sf], dim=-1), dim=-1)  # [B, Hk, G, S, T+S]
+    out = torch.einsum(
+        "bkgst,btkd->bskgd", probs[..., :t], vp.float()
+    ) + torch.einsum(
+        "bkgst,btkd->bskgd", probs[..., t:], v_new.float()
+    )
+    return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def write_kv_cache_layer(
+    cache: torch.Tensor,     # [L, N, 2, Bs, Hk*D] — the WHOLE paged cache, updated in place
+    layer: int,
+    k_new: torch.Tensor,     # [B, S, Hk, D]
+    v_new: torch.Tensor,     # [B, S, Hk, D]
+    slot_idx: torch.Tensor,  # [B, S] int32  flat slot = block_id * Bs + offset; -1 = drop
+    block_aligned: bool = False,
+) -> torch.Tensor:
+    """Scatter new K/V rows into the multi-layer cache, in place.
+
+    With ``block_aligned=True`` (the engine's prefill layout guarantees it:
+    chunks start block-aligned and rows are contiguous) the scatter works on
+    whole blocks: S/Bs block rows instead of S token rows.  Rows with slot -1
+    inside a partially valid block keep the existing cache content, so the
+    '-1 = drop' contract holds bit for bit.
+
+    Dropped rows never use -1 as an index — it would wrap to the last row.
+    They are sent instead to a row of the other half (a V row during the K
+    write, a K row during the V write) that the same write never targets,
+    and write back that row's current bytes: nothing changes, and no host
+    sync is needed to filter them out.
+    """
+    if not cache.is_contiguous():
+        raise ValueError("the cache must be contiguous")
+    l, n, _, bs, r = cache.shape
+    b, s, hk, d = k_new.shape
+    rows_k = k_new.to(cache.dtype).reshape(b, s, hk * d)
+    rows_v = v_new.to(cache.dtype).reshape(b, s, hk * d)
+    slot_idx = slot_idx.long()
+    if block_aligned and s > 1 and s % bs == 0:
+        nb = s // bs
+        flat = cache.view(l * n * 2, bs, r)
+        first = slot_idx[:, ::bs].reshape(-1)                   # [B*nb] block-leading slot
+        live = first >= 0
+        base = layer * (n * 2) + first.clamp_min(0) // bs * 2   # K block of (layer, bid)
+        valid = (slot_idx >= 0).reshape(b * nb, bs, 1) & live[:, None, None]
+        k_tgt = torch.where(live, base, layer * n * 2 + 1)      # dropped: a V block
+        flat[k_tgt] = torch.where(valid, rows_k.reshape(b * nb, bs, r), flat[k_tgt])
+        v_tgt = torch.where(live, base + 1, layer * n * 2)      # dropped: a K block
+        flat[v_tgt] = torch.where(valid, rows_v.reshape(b * nb, bs, r), flat[v_tgt])
+        return cache
+    flat = cache.view(l * n * 2 * bs, r)
+    idx = slot_idx.reshape(-1)
+    valid = idx >= 0
+    safe = idx.clamp_min(0)
+    # row for (layer, block = idx // bs, kv, offset = idx % bs) in the flat view
+    base = layer * (n * 2 * bs) + safe // bs * (2 * bs) + safe % bs
+    k_tgt = torch.where(valid, base, layer * n * 2 * bs + bs)   # dropped: a V row
+    flat[k_tgt] = torch.where(valid[:, None], rows_k.reshape(-1, r), flat[k_tgt])
+    v_tgt = torch.where(valid, base + bs, layer * n * 2 * bs)   # dropped: a K row
+    flat[v_tgt] = torch.where(valid[:, None], rows_v.reshape(-1, r), flat[v_tgt])
+    return cache
+
+
+def paged_attention(
+    q: torch.Tensor,             # [B, S, H, D]
+    k_cache: torch.Tensor,       # [N, Bs, Hk, D]
+    v_cache: torch.Tensor,       # [N, Bs, Hk, D]
+    block_tables: torch.Tensor,  # [B, M] int32 (entries past the sequence end may be any valid id)
+    seq_lens: torch.Tensor,      # [B] int32 — context length including the new tokens
+    positions: torch.Tensor,     # [B, S] int32 — absolute position of each query token
+    sm_scale: float | None = None,
+    logit_cap: float | None = None,
+    window: int | None = None,
+) -> torch.Tensor:
+    """Attention of S new tokens against their sequence's paged context.
+
+    Causal by absolute position: query at position p sees cache slots 0..p
+    (the new tokens' K/V must already be in the cache).  ``window`` adds
+    sliding-window masking: slot j additionally needs p - j < window.
+    Returns [B, S, H, D].
+    """
+    b, s, h, d = q.shape
+    _, bs, hk, _ = k_cache.shape
+    m = block_tables.shape[1]
+    t = m * bs
+    g = h // hk
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    bt = block_tables.long()
+    k_ctx = k_cache[bt].reshape(b, t, hk, d)
+    v_ctx = v_cache[bt].reshape(b, t, hk, d)
+
+    qg = q.reshape(b, s, hk, g, d).float()
+    scores = torch.einsum("bskgd,btkd->bkgst", qg, k_ctx.float()) * sm_scale
+    if logit_cap is not None:
+        scores = softcap(scores, logit_cap)
+
+    # slot j visible iff j <= position(query) and j < seq_len
+    slot = torch.arange(t, device=q.device)
+    pos = positions.long()
+    lens = seq_lens.long().clamp_min(1)  # keep padded rows numerically sane
+    visible = (slot[None, None, :] <= pos[:, :, None]) & (slot[None, None, :] < lens[:, None, None])
+    if window is not None:
+        visible = visible & ((pos[:, :, None] - slot[None, None, :]) < window)
+    scores = torch.where(visible[:, None, None], scores, float("-inf"))
+
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v_ctx.float())
+    return out.reshape(b, s, h, d).to(q.dtype)
