@@ -9,17 +9,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
 2. build: every ``dynamo_tpu_torch/csrc/*.cu`` compiled with nvcc for sm_90a;
 3. kernels: each CUDA kernel against its plain PyTorch version on the card,
    at Llama-3-8B attention geometry (H=32, Hk=8, D=128, Bs=16, L=32,
-   bf16, layer index 5), then timed at the serving path's shapes beside
-   its plain version, a PyTorch library call on the same work, and its
-   bound on this card;
+   bf16, layer index 5) with NaN in every dead cache slot and padding
+   K/V, then decode and prefill timed at the default path's shapes beside
+   their plain versions, a PyTorch library call on the same work, and
+   their bound on this card;
 4. serving: Llama-3-8B at full width and depth (random weights from a
    seeded generator) behind ``AsyncLLMEngine``, six concurrent greedy
    requests (17 to 1500 prompt tokens, two sharing a 256-token prefix),
-   with both kernels' launch counters zeroed before and read after;
-5. parity: a 2-layer model at full 8B width, one 300-token prompt over a
-   128-token cached prefix then 8 decode steps, on the card (kernels,
-   bf16) and on the CPU (plain PyTorch, f32), last-position logits held
-   to a stated tolerance.
+   twice on the same model: the default path (one-request prefill, decode
+   bursts), then the token-budget path (``prefill_token_budget=1024``,
+   unified mixed dispatch, lookahead bursts).  Every kernel's launch
+   counter is zeroed just before each run and read just after; the ragged
+   kernel is then timed at the largest mixed dispatch the second run made;
+5. parity: a 2-layer model at full 8B width on the card (kernels, bf16) and
+   on the CPU (plain PyTorch, f32): one 300-token prompt over a 128-token
+   cached prefix then 8 decode steps, and one packed prefill then one
+   mixed ragged dispatch (two decode rows, two spans); logits held to a
+   stated tolerance.
 
 Then one ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -28,6 +34,7 @@ Then one ``{"kernels": [...]}`` line, and as the last line
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import json
 import subprocess
 import sys
@@ -49,6 +56,10 @@ LAYER = 5  # a runtime layer index other than 0
 PROMPT_LENS = (17, 300, 640, 1500, 356, 956)
 SHARED_PREFIX = 256
 MAX_TOKENS = 32
+# the two serving configurations, on one model
+DEFAULT_PATH = dict(max_batch_size=8, max_model_len=2048, block_size=16, decode_steps=8)
+BUDGET_PATH = dict(DEFAULT_PATH, prefill_token_budget=1024, unified_token_dispatch=True,
+                   lookahead_dispatch=True)
 
 # bf16 tolerance, kernel vs plain version on identical bf16 inputs, per
 # element: |out - ref| <= KERNEL_ATOL + KERNEL_RTOL * |ref|.  Both sides
@@ -132,6 +143,10 @@ def _tables(torch, lens, m, n_blocks, gen):
     return bt.cuda()
 
 
+def _ints(torch, xs):
+    return torch.tensor(xs, dtype=torch.int32, device="cuda")
+
+
 def compare(torch, what: str, out, ref) -> float:
     """Max abs error of a kernel's output against its plain version;
     fails on a non-finite output or an element outside the tolerance."""
@@ -195,10 +210,57 @@ def prefill_case(torch, gen, starts, fresh, s, geom=(H, HK, D)):
     return err
 
 
+def ragged_layout(rows, region: int, n_pad: int):
+    """Host layout of one ragged dispatch, as the engine packs it: rows are
+    (start, fresh); the leading 1-token rows take one flat slot each in a
+    ``region``-slot decode region, every other row a block-rounded span
+    after it; ``n_pad`` zero padding rows follow the real ones.  Returns
+    (T, starts, seq_lens, row_offsets) as lists over all rows."""
+    n_dec = 0
+    while region and n_dec < len(rows) and rows[n_dec][1] == 1:
+        n_dec += 1
+    offs, off = list(range(n_dec)), region
+    for _, fresh in rows[n_dec:]:
+        offs.append(off)
+        off += -(-fresh // BS) * BS
+    pad = [0] * n_pad
+    return (off, [st for st, _ in rows] + pad, [st + f for st, f in rows] + pad, offs + pad)
+
+
+def ragged_case(torch, gen, rows, region, n_pad, geom=(H, HK, D), logit_cap=None):
+    """The ragged kernel against its plain version on one layout: the pool
+    is NaN except each row's live prefix, and padding K/V is NaN; padding
+    tokens must come out exactly 0."""
+    from dynamo_tpu_torch.ops.kernels.ragged_prefill_attention import (
+        ragged_paged_prefill_attention, ragged_prefill_attention_ref)
+
+    m = 2048 // BS
+    t, starts, lens, offs = ragged_layout(rows, region, n_pad)
+    n_blocks = sum(-(-n // BS) for n in lens) + 8
+    bt = _tables(torch, lens, m, n_blocks, gen)
+    h, hk, d = geom
+    cache = _poisoned_cache(torch, gen, n_blocks, bt.cpu(), starts, hk * d)
+    q = torch.randn((1, t, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+    k_new = torch.randn((1, t, hk, d), generator=gen, device="cuda").to(torch.bfloat16)
+    v_new = torch.randn((1, t, hk, d), generator=gen, device="cuda").to(torch.bfloat16)
+    live = torch.zeros(t, dtype=torch.bool, device="cuda")
+    for st, n, o in zip(starts, lens, offs):
+        live[o:o + n - st] = True
+    k_new[0, ~live] = float("nan")
+    v_new[0, ~live] = float("nan")
+    args = (q, k_new, v_new, cache, LAYER, bt, _ints(torch, lens), _ints(torch, starts),
+            _ints(torch, offs))
+    out = ragged_paged_prefill_attention(*args, logit_cap=logit_cap)
+    err = compare(torch, f"ragged {geom} rows={rows}", out,
+                  ragged_prefill_attention_ref(*args, logit_cap=logit_cap))
+    check(bool((out[0, ~live] == 0).all()), f"ragged {geom}: padding tokens are not 0")
+    return err
+
+
 def kernel_phase(torch) -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    errs = {"decode": 0.0, "prefill": 0.0}
+    errs = {"decode": 0.0, "prefill": 0.0, "ragged": 0.0}
     mixed = [0, 1, 17, 100, 333, 1024, 1500, 2048]
     for s in (1, 4):
         for cap in (None, 50.0):
@@ -215,14 +277,32 @@ def kernel_phase(torch) -> dict:
         p_err = prefill_case(torch, gen, starts=[64], fresh=[90], s=96, geom=geom)
         log(f"kernel (H, Hk, D)={geom}: decode S=2 max abs err {d_err:.3g}, "
             f"prefill start=64 max abs err {p_err:.3g}")
+    # ragged: the unified layout (8 decode rows, contexts 1 to 2047, ahead of
+    # a span from 0 and one from a block-aligned start, then padding rows),
+    # softcap on and off, and a packed prefill as the engine's first dispatch
+    decode_rows = [(n - 1, 1) for n in (1, 17, 100, 333, 1024, 1500, 2047, 64)]
+    unified = decode_rows + [(0, 300), (256, 200)]
+    for cap in (None, 50.0):
+        e = ragged_case(torch, gen, unified, 16, 6, logit_cap=cap)
+        log(f"kernel ragged unified layout (8 decode rows + 2 spans + 6 padding rows) "
+            f"softcap={cap}: max abs err {e:.3g}")
+        errs["ragged"] = max(errs["ragged"], e)
+    e = ragged_case(torch, gen, [(0, 17), (0, 300), (0, 640), (0, 48)], 0, 0)
+    log(f"kernel ragged packed prefill spans 17/300/640/48: max abs err {e:.3g}")
+    errs["ragged"] = max(errs["ragged"], e)
+    # MHA (G = 1, 64-token tiles) and G = 8 (8-token tiles) straddle rows
+    for geom in ((8, 8, 64), (16, 2, 256)):
+        e = ragged_case(torch, gen, [(4, 1), (299, 1), (76, 1), (0, 90), (64, 45)], 16, 3,
+                        geom=geom)
+        log(f"kernel ragged (H, Hk, D)={geom} 3 decode rows + 2 spans: max abs err {e:.3g}")
     return errs
 
 
 def timing_phase(torch, card: str) -> dict:
-    """Each kernel at the serving path's shapes, timed and checked against
-    its plain version there: decode is one layer of a burst step (B = 8
-    slots, S = 1, the six requests mid-generation), and prefill the longest
-    prompt's one dispatch (S = 1504, start = 0)."""
+    """Decode and prefill at the default path's shapes, timed and checked
+    against their plain versions there: decode is one layer of a burst step
+    (B = 8 slots, S = 1, the six requests mid-generation), and prefill the
+    longest prompt's one dispatch (S = 1504, start = 0)."""
     import torch.nn.functional as F
 
     from dynamo_tpu_torch.ops.kernels.decode_attention import (
@@ -307,6 +387,85 @@ def timing_phase(torch, card: str) -> dict:
     return out
 
 
+def ragged_timing(torch, card: str, mixed: dict) -> dict:
+    """The ragged kernel at the largest mixed dispatch the token-budget
+    serving run made (its row table as recorded; random bf16 q, K/V and
+    pool), timed beside its plain version, one SDPA call on the same work
+    laid out dense with a block-diagonal causal mask (the prefix gather
+    excluded), and its bound on this card."""
+    import torch.nn.functional as F
+
+    from dynamo_tpu_torch.ops.kernels.ragged_prefill_attention import (
+        ragged_paged_prefill_attention, ragged_prefill_attention_ref)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    t, bt, lens, starts, offs = (mixed[k] for k in ("t", "bt", "lens", "starts", "offs"))
+    cache = torch.randn((L, int(bt.max()) + 1, 2, BS, HK * D), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+    q = torch.randn((1, t, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+    k = torch.randn((1, t, HK, D), generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn((1, t, HK, D), generator=gen, device="cuda").to(torch.bfloat16)
+    rows = (_ints(torch, lens), _ints(torch, starts), _ints(torch, offs))
+    # successive launches walk the 32 layers, as a serving dispatch does
+    kernel_ms = cuda_time_ms(lambda i: ragged_paged_prefill_attention(
+        q, k, v, cache, i % L, bt, *rows), 32)
+    plain_ms = cuda_time_ms(lambda i: ragged_prefill_attention_ref(
+        q, k, v, cache, i % L, bt, *rows), 3, warmup=1)
+    err = compare(torch, "ragged at the serving dispatch",
+                  ragged_paged_prefill_attention(q, k, v, cache, LAYER, bt, *rows),
+                  ragged_prefill_attention_ref(q, k, v, cache, LAYER, bt, *rows))
+    # what the decode rows cost: each streams its prefix through a whole
+    # 64-row tile with one token's rows live.  The same dispatch with the
+    # decode rows' spans emptied (seq_len = start) runs the spans alone.
+    dec = [r for r, (st, n, o) in enumerate(zip(starts, lens, offs)) if n - st == 1 and o == r]
+    spans_only = [st if r in dec else n for r, (st, n) in enumerate(zip(starts, lens))]
+    spans_rows = (_ints(torch, spans_only), rows[1], rows[2])
+    spans_ms = cuda_time_ms(lambda i: ragged_paged_prefill_attention(
+        q, k, v, cache, i % L, bt, *spans_rows), 32)
+
+    # dense layout: each live row's queries; its prefix then its fresh keys
+    qs, ks, vs, spans = [], [], [], []
+    u = 0
+    for r, (st, n, o) in enumerate(zip(starts, lens, offs)):
+        f = n - st
+        if f <= 0:
+            continue
+        blocks = bt[r, :-(-st // BS)].long()
+        ks += [cache[LAYER, blocks, 0].reshape(-1, HK, D)[:st], k[0, o:o + f]]
+        vs += [cache[LAYER, blocks, 1].reshape(-1, HK, D)[:st], v[0, o:o + f]]
+        qs.append(q[0, o:o + f])
+        spans.append((u, st, f))
+        u += st + f
+    qd = torch.cat(qs).transpose(0, 1)[None].contiguous()
+    kd = torch.cat(ks).transpose(0, 1)[None].contiguous()
+    vd = torch.cat(vs).transpose(0, 1)[None].contiguous()
+    mask = torch.zeros((qd.shape[2], u), dtype=torch.bool, device="cuda")
+    row0 = 0
+    for base, st, f in spans:
+        i = torch.arange(f, device="cuda")
+        mask[row0:row0 + f, base:base + st] = True
+        mask[row0:row0 + f, base + st:base + st + f] = i[None, :] <= i[:, None]
+        row0 += f
+    library_ms = cuda_time_ms(lambda i: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask, enable_gqa=True), 10)
+
+    r_rows, m = bt.shape
+    flops = 4 * H * D * ragged_work(starts, lens)
+    nbytes = (2 * (2 * t * H * D + 2 * t * HK * D) + 2 * 2 * sum(starts) * HK * D
+              + 4 * (r_rows * m + 3 * r_rows))
+    t_ops, t_bytes = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    out = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=1e3 * max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes")
+    log(f"time ragged T={t} rows={len(spans)}, starts {starts}, seq_lens {lens}: kernel "
+        f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+        f"{out['bound_ms']:.4f} ms ({out['bound_by']}), max abs err {err:.3g}; without its "
+        f"{len(dec)} decode rows the kernel takes {spans_ms:.4f} ms ({card})")
+    out["err"] = err
+    return out
+
+
 # ------------------------------------------------------------------ serving
 def llama3_8b(num_layers: int = 32):
     from dynamo_tpu_torch.models.config import ModelConfig
@@ -348,13 +507,121 @@ async def _serve(engine, reqs):
     return await asyncio.gather(*(one(i, t) for i, t in enumerate(reqs)))
 
 
-def serving_phase(torch, card: str) -> dict:
-    from dynamo_tpu_torch.engine import AsyncLLMEngine, EngineConfig, EngineCore
-    from dynamo_tpu_torch.llm.protocols import FinishReason
-    from dynamo_tpu_torch.models.convert import init_params
-    from dynamo_tpu_torch.models.llama import LlamaModel
+def _kernel_wrappers() -> dict:
     from dynamo_tpu_torch.ops.kernels.decode_attention import paged_decode_attention
     from dynamo_tpu_torch.ops.kernels.prefill_attention import paged_prefill_attention
+    from dynamo_tpu_torch.ops.kernels.ragged_prefill_attention import (
+        ragged_paged_prefill_attention)
+
+    return {"decode": paged_decode_attention, "prefill": paged_prefill_attention,
+            "ragged": ragged_paged_prefill_attention}
+
+
+def serve_run(torch, model, config: dict, card: str, label: str, profile: bool = False) -> dict:
+    """Serve the six requests once through ``AsyncLLMEngine`` under one
+    EngineConfig, with every kernel's launch counter zeroed just before and
+    read just after; returns the streams, launches and engine counters."""
+    from dynamo_tpu_torch.engine import AsyncLLMEngine, EngineConfig, EngineCore
+    from dynamo_tpu_torch.llm.protocols import FinishReason
+
+    core = EngineCore(model, EngineConfig(**config), device="cuda")
+    engine = AsyncLLMEngine(core).start()
+    try:
+        # warm-up request: first-launch costs stay out of the measurement
+        asyncio.run(_serve(engine, [list(range(1, 40))]))
+        wrappers = _kernel_wrappers()
+        for fn in wrappers.values():
+            fn.launches = 0
+        before = (core.steps, core.overlap_s, core.read_wait_s)
+        t0 = time.perf_counter()
+        results = asyncio.run(_serve(engine, prompts()))
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        metrics = core.metrics()
+        dispatches = core.steps - before[0]
+        overlap_ms = 1e3 * (core.overlap_s - before[1]) / dispatches
+        wait_ms = 1e3 * (core.read_wait_s - before[2]) / dispatches
+        for i, (_, _, outs) in enumerate(results):
+            toks = [t for o in outs for t in o.token_ids]
+            check(outs[-1].finish_reason is FinishReason.LENGTH,
+                  f"{label} request {i}: finish {outs[-1].finish_reason}, expected length")
+            check(len(toks) == MAX_TOKENS, f"{label} request {i}: {len(toks)} tokens")
+            check(all(0 <= t < model.config.vocab_size for t in toks),
+                  f"{label} request {i}: token out of range")
+        cached = [outs[-1].cached_tokens for _, _, outs in results]
+        check(max(cached[-2:]) >= SHARED_PREFIX,
+              f"{label}: no request reused the shared {SHARED_PREFIX}-token prefix: {cached}")
+        ttfts = [r[0] for r in results]
+        decode_tokens = len(results) * (MAX_TOKENS - 1)
+        decode_window = wall - min(ttfts)
+        counters = {k: metrics[k] for k in (
+            "prefill_dispatches_total", "prefill_batch_occupancy", "unified_dispatches_total",
+            "unified_decode_rows", "unified_prefill_tokens", "lookahead_bursts_total",
+            "lookahead_hits_total", "lookahead_mispredicts_total", "lookahead_commits_total",
+            "lookahead_flushes_total", "device_gets_total")}
+        log(f"serving {label}: {len(results)} requests, wall {wall:.3f} s, TTFT min/median/max "
+            f"{min(ttfts):.3f}/{sorted(ttfts)[len(ttfts) // 2]:.3f}/{max(ttfts):.3f} s, decode "
+            f"{decode_tokens / decode_window:.1f} tok/s over {decode_window:.3f} s, cached {cached}, "
+            f"host gap {metrics['host_gap_ms_per_turn']:.2f} ms/turn, {dispatches} dispatches, "
+            f"per dispatch: overlap-window host work {overlap_ms:.2f} ms, result-read wait "
+            f"{wait_ms:.2f} ms, launches {launches}, counters {json.dumps(counters)} ({card})")
+        if profile:
+            profile_serving(torch, engine, prompts(seed=1), card)
+    finally:
+        engine.shutdown()
+    streams = [[t for o in outs for t in o.token_ids] for _, _, outs in results]
+    return dict(launches=launches, metrics=metrics, streams=streams)
+
+
+@contextlib.contextmanager
+def recorded_ragged_calls():
+    """Record the row table of every ragged attention call the model makes
+    at layer 0 (one per dispatch), by wrapping the routing's reference to
+    the kernel's wrapper; the wrapper itself, and its launch count, are
+    untouched."""
+    from dynamo_tpu_torch.ops import paged_attention as routing
+
+    real = routing.ragged_paged_prefill_attention
+    calls = []
+
+    def recording(q, k_new, v_new, cache, layer, block_tables, seq_lens, starts, row_offsets,
+                  *args, **kw):
+        if layer == 0:
+            calls.append((q.shape[1], block_tables, seq_lens, starts, row_offsets))
+        return real(q, k_new, v_new, cache, layer, block_tables, seq_lens, starts, row_offsets,
+                    *args, **kw)
+
+    routing.ragged_paged_prefill_attention = recording
+    try:
+        yield calls
+    finally:
+        routing.ragged_paged_prefill_attention = real
+
+
+def ragged_work(starts, lens) -> int:
+    """Visible (query, key) pairs of a ragged dispatch: each row's fresh
+    tokens see its whole prefix and their own span causally."""
+    return sum((n - st) * st + (n - st) * (n - st + 1) // 2 for st, n in zip(starts, lens))
+
+
+def largest_mixed(calls) -> dict:
+    """The recorded dispatch with the most attention work among those that
+    mix decode rows (1-token rows at the head of the axis) with spans."""
+    best = None
+    for t, bt, lens, starts, offs in calls:
+        lens, starts, offs = lens.tolist(), starts.tolist(), offs.tolist()
+        fresh = [n - st for n, st in zip(lens, starts)]
+        mixed = fresh and fresh[0] == 1 and offs[0] == 0 and max(fresh) > 1
+        if mixed and (best is None or ragged_work(starts, lens) > ragged_work(best["starts"],
+                                                                               best["lens"])):
+            best = dict(t=t, bt=bt, lens=lens, starts=starts, offs=offs)
+    check(best is not None, "the token-budget run made no mixed dispatch")
+    return best
+
+
+def serving_phase(torch, card: str):
+    from dynamo_tpu_torch.models.convert import init_params
+    from dynamo_tpu_torch.models.llama import LlamaModel
 
     cfg = llama3_8b()
     gen = torch.Generator(device="cuda")
@@ -364,44 +631,24 @@ def serving_phase(torch, card: str) -> dict:
     torch.cuda.synchronize()
     log(f"serving: Llama-3-8B, {cfg.num_layers} layers, random weights in "
         f"{time.perf_counter() - t0:.1f} s")
-    core = EngineCore(model, EngineConfig(max_batch_size=8, max_model_len=2048, block_size=16,
-                                          decode_steps=8), device="cuda")
-    engine = AsyncLLMEngine(core).start()
-    try:
-        # warm-up request: first-launch costs stay out of the measurement
-        asyncio.run(_serve(engine, [list(range(1, 40))]))
-        paged_decode_attention.launches = 0
-        paged_prefill_attention.launches = 0
-        t0 = time.perf_counter()
-        results = asyncio.run(_serve(engine, prompts()))
-        wall = time.perf_counter() - t0
-        launches = {"decode": paged_decode_attention.launches,
-                    "prefill": paged_prefill_attention.launches}
-        metrics = core.metrics()
-        for i, (_, _, outs) in enumerate(results):
-            toks = [t for o in outs for t in o.token_ids]
-            check(outs[-1].finish_reason is FinishReason.LENGTH,
-                  f"request {i}: finish {outs[-1].finish_reason}, expected length")
-            check(len(toks) == MAX_TOKENS, f"request {i}: {len(toks)} tokens, expected {MAX_TOKENS}")
-            check(all(0 <= t < cfg.vocab_size for t in toks), f"request {i}: token out of range")
-        cached = [outs[-1].cached_tokens for _, _, outs in results]
-        check(max(cached[-2:]) >= SHARED_PREFIX,
-              f"no request reused the shared {SHARED_PREFIX}-token prefix: cached {cached}")
-        check(launches["decode"] > 0 and launches["prefill"] > 0,
-              f"a kernel was not launched on the serving path: {launches}")
-        ttfts = [r[0] for r in results]
-        decode_tokens = len(results) * (MAX_TOKENS - 1)
-        decode_window = wall - min(ttfts)
-        log(f"serving: {len(results)} requests, wall {wall:.3f} s, TTFT min/median/max "
-            f"{min(ttfts):.3f}/{sorted(ttfts)[len(ttfts) // 2]:.3f}/{max(ttfts):.3f} s, decode "
-            f"{decode_tokens / decode_window:.1f} tok/s over {decode_window:.3f} s, cached {cached}, "
-            f"host gap {metrics['host_gap_ms_per_turn']:.2f} ms/turn, launches {launches} ({card})")
-        profile_serving(torch, engine, prompts(seed=1), card)
-    finally:
-        engine.shutdown()
-    del engine, core, model
+    default = serve_run(torch, model, DEFAULT_PATH, card, "default path", profile=True)
+    check(default["launches"]["decode"] > 0 and default["launches"]["prefill"] > 0,
+          f"a kernel was not launched on the default path: {default['launches']}")
+    torch.cuda.empty_cache()  # the first engine and its cache are gone
+    with recorded_ragged_calls() as calls:
+        budget = serve_run(torch, model, BUDGET_PATH, card, "token-budget path")
+    m = budget["metrics"]
+    check(budget["launches"]["ragged"] > 0 and budget["launches"]["decode"] > 0,
+          f"a kernel was not launched on the token-budget path: {budget['launches']}")
+    check(m["unified_dispatches_total"] > 0 and m["lookahead_bursts_total"] > 0,
+          f"the token-budget path made no mixed dispatch or no burst: {m}")
+    same = sum(a == b for a, b in zip(default["streams"], budget["streams"]))
+    log(f"serving: {same} of {len(default['streams'])} token-budget streams equal the default "
+        f"path's (informational: the kernels round bf16 at different places) ({card})")
+    mixed = largest_mixed(calls)
+    del model, calls
     torch.cuda.empty_cache()
-    return launches
+    return default, budget, mixed
 
 
 def profile_serving(torch, engine, reqs, card: str) -> None:
@@ -460,6 +707,55 @@ def _forward_logits(torch, model, device, prompt, steps, prefix):
     return torch.cat(logits)
 
 
+def _ragged_logits(torch, model, device, dispatches):
+    """Run ragged dispatches over a fresh cache; each is (rows, region)
+    with rows (tokens, start, block table) laid out by
+    :func:`ragged_layout`.  Returns the logits at every row's last token."""
+    m = 2048 // BS
+    n_blocks = 1 + max(b for rows, _ in dispatches for _, _, table in rows for b in table)
+    cache = model.init_kv_cache(n_blocks, BS)
+    logits = []
+
+    def ints(xs):
+        return torch.tensor(xs, dtype=torch.int32, device=device)
+
+    for rows, region in dispatches:
+        t, starts, lens, offs = ragged_layout([(st, len(toks)) for toks, st, _ in rows], region, 0)
+        tokens = torch.zeros((1, t), dtype=torch.int32)
+        pos = torch.zeros((1, t), dtype=torch.int32)
+        slot = torch.full((1, t), -1, dtype=torch.int32)
+        seq_ids = torch.full((1, t), -1, dtype=torch.int32)
+        bt = torch.zeros((len(rows), m), dtype=torch.int32)
+        for r, ((toks, st, table), o) in enumerate(zip(rows, offs)):
+            n = len(toks)
+            bt[r, :len(table)] = torch.tensor(table, dtype=torch.int32)
+            tokens[0, o:o + n] = torch.tensor(toks, dtype=torch.int32)
+            p = torch.arange(st, st + n)
+            pos[0, o:o + n] = p
+            slot[0, o:o + n] = bt[r, p // BS] * BS + p % BS
+            seq_ids[0, o:o + n] = r
+        max_pb = max(-(-st // BS) for st in starts)
+        pb = 0 if max_pb == 0 else min(m, 1 << (max_pb - 1).bit_length())
+        last = torch.tensor([o + n - st - 1 for st, n, o in zip(starts, lens, offs)])
+        hidden, _ = model.forward(tokens.to(device), pos.to(device), cache, bt.to(device),
+                                  ints(lens), slot.to(device), prefix_blocks=pb,
+                                  ragged=(seq_ids.to(device), ints(starts), ints(offs)),
+                                  ragged_row_tokens=region)
+        logits.append(model.compute_logits(hidden[0, last.to(device)]).float().cpu())
+    return torch.cat(logits)
+
+
+def _hold_logits(torch, what: str, a, b, card: str) -> None:
+    check(bool(torch.isfinite(a).all()), f"{what}: non-finite logits on the card")
+    rel_l2 = ((a - b).norm(dim=-1) / b.norm(dim=-1)).max().item()
+    max_rel = ((a - b).abs().amax(dim=-1) / b.abs().amax(dim=-1)).max().item()
+    agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+    log(f"parity {what}: max rel L2 {rel_l2:.3g} (tol {PARITY_REL_L2}), max |diff|/max|logit| "
+        f"{max_rel:.3g} (tol {PARITY_MAX_REL}), argmax agreement {agree:.3f} ({card})")
+    check(rel_l2 <= PARITY_REL_L2, f"parity {what}: rel L2 {rel_l2} > {PARITY_REL_L2}")
+    check(max_rel <= PARITY_MAX_REL, f"parity {what}: max rel {max_rel} > {PARITY_MAX_REL}")
+
+
 def parity_phase(torch, card: str) -> None:
     import numpy as np
 
@@ -477,17 +773,30 @@ def parity_phase(torch, card: str) -> None:
     rng = np.random.default_rng(1)
     prompt = rng.integers(0, cfg.vocab_size, 300).tolist()
     steps = rng.integers(0, cfg.vocab_size, 8).tolist()
-    a = _forward_logits(torch, gpu, torch.device("cuda"), prompt, steps, prefix=128)
-    b = _forward_logits(torch, cpu, torch.device("cpu"), prompt, steps, prefix=128)
-    check(bool(torch.isfinite(a).all()), "parity: non-finite logits on the card")
-    rel_l2 = ((a - b).norm(dim=-1) / b.norm(dim=-1)).max().item()
-    max_rel = ((a - b).abs().amax(dim=-1) / b.abs().amax(dim=-1)).max().item()
-    agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
-    log(f"parity: 2-layer 8B width, 300-token prompt over a 128-token prefix + 8 decode steps: "
-        f"max rel L2 {rel_l2:.3g} (tol {PARITY_REL_L2}), max |diff|/max|logit| {max_rel:.3g} "
-        f"(tol {PARITY_MAX_REL}), argmax agreement {agree:.3f} ({card})")
-    check(rel_l2 <= PARITY_REL_L2, f"parity: rel L2 {rel_l2} > {PARITY_REL_L2}")
-    check(max_rel <= PARITY_MAX_REL, f"parity: max rel {max_rel} > {PARITY_MAX_REL}")
+    _hold_logits(torch, "default path: 2-layer 8B width, 300-token prompt over a 128-token "
+                 "prefix + 8 decode steps",
+                 _forward_logits(torch, gpu, torch.device("cuda"), prompt, steps, prefix=128),
+                 _forward_logits(torch, cpu, torch.device("cpu"), prompt, steps, prefix=128),
+                 card)
+
+    # a packed prefill of A, B and C's head, then a mixed dispatch: decode
+    # rows for A and B ahead of D from 0 and C's rest from 128
+    a, b, c, d = (rng.integers(0, cfg.vocab_size, n).tolist() for n in (200, 97, 300, 150))
+    x, y = rng.integers(0, cfg.vocab_size, 2).tolist()
+    tables, nxt = [], 1
+    for n in (201, 98, 300, 150):
+        nb = -(-n // BS)
+        tables.append(list(range(nxt, nxt + nb)))
+        nxt += nb
+    dispatches = [
+        ([(a, 0, tables[0]), (b, 0, tables[1]), (c[:128], 0, tables[2])], 0),
+        ([([x], 200, tables[0]), ([y], 97, tables[1]), (d, 0, tables[3]),
+          (c[128:], 128, tables[2])], 16),
+    ]
+    _hold_logits(torch, "ragged: 2-layer 8B width, packed prefill of 3 spans, then 2 decode "
+                 "rows + 2 spans",
+                 _ragged_logits(torch, gpu, torch.device("cuda"), dispatches),
+                 _ragged_logits(torch, cpu, torch.device("cpu"), dispatches), card)
 
 
 # --------------------------------------------------------------------- main
@@ -513,22 +822,31 @@ def main() -> int:
         log(f"build: {time.perf_counter() - t0:.1f} s ({card})")
         errs = kernel_phase(torch)
         times = timing_phase(torch, card)
-        launches = serving_phase(torch, card)
+        default, budget, mixed = serving_phase(torch, card)
+        times["ragged"] = ragged_timing(torch, card, mixed)
+        times["ragged_err"] = times["ragged"].pop("err")
         parity_phase(torch, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    # launches: each kernel's count over the serving run of the path it
+    # carries (decode and prefill: the default path; ragged: the token-budget path)
     kernels = [
         dict(name="paged_decode_attention", route="cuda",
              source="dynamo_tpu_torch/csrc/decode_attention.cu",
              replaces="dynamo_tpu/ops/pallas/decode_attention.py:281",
-             launches=launches["decode"], max_abs_err=max(errs["decode"], times["decode_err"]),
-             **times["decode"]),
+             launches=default["launches"]["decode"],
+             max_abs_err=max(errs["decode"], times["decode_err"]), **times["decode"]),
         dict(name="paged_prefill_attention", route="cuda",
              source="dynamo_tpu_torch/csrc/prefill_attention.cu",
              replaces="dynamo_tpu/ops/pallas/prefill_attention.py:246",
-             launches=launches["prefill"], max_abs_err=max(errs["prefill"], times["prefill_err"]),
-             **times["prefill"]),
+             launches=default["launches"]["prefill"],
+             max_abs_err=max(errs["prefill"], times["prefill_err"]), **times["prefill"]),
+        dict(name="ragged_paged_prefill_attention", route="cuda",
+             source="dynamo_tpu_torch/csrc/ragged_prefill_attention.cu",
+             replaces="dynamo_tpu/ops/pallas/prefill_attention.py:593",
+             launches=budget["launches"]["ragged"],
+             max_abs_err=max(errs["ragged"], times["ragged_err"]), **times["ragged"]),
     ]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,25 +1,36 @@
 """EngineCore — the continuous-batching scheduler + executor, in PyTorch.
 
-The counterpart of ``dynamo_tpu/engine/core.py`` on its default path: one
-request's prefill (or prefill chunk) per dispatch through
-:func:`unified_step`, then multi-step decode bursts for every running slot
-through :func:`multi_decode_step`.  The model's forward handles any [B, S]
-of new tokens against the paged cache, which is one tensor updated in place.
+The counterpart of ``dynamo_tpu/engine/core.py``.  The model's forward
+handles any [B, S] of new tokens against the paged cache, which is one
+tensor updated in place.  Dispatches:
 
-Scheduling policy: admit waiting requests into free slots, run at most one
-prefill step per iteration, otherwise one decode burst for all running
-slots; with chunked prefill the two alternate while both have work.
+* :func:`unified_step` — one request's prefill (or prefill chunk);
+* :func:`ragged_prefill_step` — with ``prefill_token_budget``, several
+  requests' prefill chunks packed as block-aligned spans on one flat axis;
+* :func:`unified_token_step` — with ``unified_token_dispatch``, a mixed
+  turn: every decoding slot's next token (decode rows leading the flat
+  axis) and the ready prefill chunks in ONE dispatch;
+* :func:`unified_burst_step` — with ``lookahead_dispatch``, that mixed turn
+  followed by further decode turns on the device, one result read per
+  burst; while it runs the host prebuilds the next turn's operands;
+* :func:`multi_decode_step` — multi-step decode bursts for every running
+  slot.
+
+Scheduling policy: admit waiting requests into free slots, then one prefill
+turn or one decode burst per iteration (alternating under chunked prefill),
+or, with unified dispatch, one mixed turn when both phases have work.
 Prefix-cache hits shorten prefill via the block manager.
 
-The decode burst is a Python loop on the device (the JAX engine's
-``lax.scan``): forward → sample → feed the token back, ``decode_steps``
-times, with ONE host sync at the end of the burst.
+A burst is a Python loop on the device (the JAX engine's ``lax.scan``):
+forward → sample → feed the token back, with ONE host sync at the end.
+``jax.random.split`` keys become draws from the engine's one
+``torch.Generator``, so temperature > 0 streams differ from the JAX
+engine's; greedy streams are token for token the same.
 
 Not ported yet, and refused at construction (:meth:`EngineCore.
-_check_supported`): token-budget ragged prefill, unified and lookahead
-dispatch, speculative decoding, sequence-parallel prefill, host offload and
-the persistent tier, the int8 cache, meshes, and the profile hook.
-Constrained decoding and per-request ``seed`` streams are refused per
+_check_supported`): speculative decoding, sequence-parallel prefill, host
+offload and the persistent tier, the int8 cache, meshes, and the profile
+hook.  Constrained decoding and per-request ``seed`` streams are refused per
 request with ``FinishReason.ERROR``.
 
 Thread-safety: everything here runs on the engine thread; submit()/abort()
@@ -47,7 +58,8 @@ from dynamo_tpu_torch.tokens import TokenBlockSequence
 
 log = logging.getLogger("dynamo_tpu_torch.engine")
 
-__all__ = ["EngineCore", "unified_step", "multi_decode_step"]
+__all__ = ["EngineCore", "unified_step", "multi_decode_step", "ragged_prefill_step",
+           "unified_token_step", "unified_burst_step"]
 
 
 def _pack(sampled, lp, cids, clps) -> torch.Tensor:
@@ -63,6 +75,53 @@ def _unpack(res: np.ndarray):
     c = (res.shape[-1] - 2) // 2
     return (res[..., 0].astype(np.int64), res[..., 1],
             res[..., 2:2 + c].astype(np.int64), res[..., 2 + c:])
+
+
+def _pen_args(pen) -> tuple:
+    """sample_full's positional penalty arguments from a carried penalty
+    state (pen_tokens, pen_first, pen_cursor, freq_pen, pres_pen)."""
+    return () if pen is None else (pen[0], pen[1], pen[3], pen[4])
+
+
+def _append_sampled(pen, sampled: torch.Tensor):
+    """Append one turn's samples to the carried penalty buffers on the
+    device (in place: the caller owns the buffers), so later turns of a
+    burst penalise mid-burst repeats without a host round trip."""
+    ptoks, pfirst, cur, freq, pres = pen
+    rows = torch.arange(sampled.shape[0], device=sampled.device)
+    t_cap = ptoks.shape[1]
+    seen = (ptoks == sampled[:, None]).any(dim=-1)
+    at = cur.clamp_max(t_cap - 1).long()
+    ptoks[rows, at] = sampled
+    pfirst[rows, at] = ~seen
+    return ptoks, pfirst, (cur + 1).clamp_max(t_cap - 1), freq, pres
+
+
+def _decode_turns(model: LlamaModel, cache, toks, pos, lens, block_tables, limits, generator,
+                  temp, top_k, top_p, pen, extras: dict, num_steps: int, block_size: int,
+                  k_cand: int) -> list[torch.Tensor]:
+    """``num_steps`` decode turns on the device: forward → sample → feed the
+    token back.  A position at/past its row's ``limit`` writes no KV (slot
+    -1) and the context length is clamped at the limit, so the block table
+    is never walked past the row's blocks.  Returns each turn's packed
+    [B, 2 + 2C] result."""
+    m = block_tables.shape[1]
+    outs = []
+    for _ in range(num_steps):
+        blk = (pos // block_size).clamp_max(m - 1)
+        base = torch.gather(block_tables, 1, blk[:, None].long())[:, 0]
+        slot = torch.where(pos < limits, base * block_size + pos % block_size, -1)
+        hidden, _ = model.forward(toks[:, None], pos[:, None], cache, block_tables, lens,
+                                  slot[:, None])
+        logits = model.compute_logits(hidden[:, 0])
+        out = sample_full(logits, generator, temp, top_k, top_p, *_pen_args(pen),
+                          k_cand=k_cand, **extras)
+        if pen is not None:
+            pen = _append_sampled(pen, out[0])
+        outs.append(_pack(*out))
+        lens = torch.minimum(lens + 1, limits)
+        toks, pos = out[0], pos + 1
+    return outs
 
 
 @torch.no_grad()
@@ -90,12 +149,7 @@ def multi_decode_step(model: LlamaModel, cache, last_tokens, positions, block_ta
                       min_p=None, bias_tokens=None, bias_vals=None, *, num_steps: int,
                       block_size: int, k_cand: int = K_MAX):
     """``num_steps`` decode iterations on the device in one dispatch
-    (multi-step scheduling): forward → sample → feed the token back.
-
-    ``limits[i]`` is the max total tokens sequence i has block space for:
-    a position at/past its limit writes no KV (slot -1) and the host
-    discards its samples; the context length is clamped at the limit so
-    the block table is never walked past the row's blocks.  Inactive rows
+    (multi-step scheduling), see :func:`_decode_turns`.  Inactive rows
     have limits=0.
 
     ``pen`` = (pen_tokens [B,T] -1-padded, pen_first, pen_cursor [B],
@@ -103,38 +157,100 @@ def multi_decode_step(model: LlamaModel, cache, last_tokens, positions, block_ta
     so mid-burst repeats are penalised without a host round trip.
 
     Returns the packed [K, B, 2 + 2C] results on the device."""
-    m = block_tables.shape[1]
-    rows = torch.arange(last_tokens.shape[0], device=last_tokens.device)
-    toks, pos, lens = last_tokens, positions, seq_lens
     if pen is not None:
-        ptoks, pfirst, cur, freq, pres = (t.clone() for t in pen)
-        t_cap = ptoks.shape[1]
-    outs = []
-    for _ in range(num_steps):
-        blk = (pos // block_size).clamp_max(m - 1)
-        base = torch.gather(block_tables, 1, blk[:, None].long())[:, 0]
-        slot = torch.where(pos < limits, base * block_size + pos % block_size, -1)
-        hidden, _ = model.forward(toks[:, None], pos[:, None], cache, block_tables, lens,
-                                  slot[:, None])
-        logits = model.compute_logits(hidden[:, 0])
-        out = sample_full(
-            logits, generator, temp, top_k, top_p,
-            *((ptoks, pfirst, freq, pres) if pen is not None else ()),
-            bias_tokens=bias_tokens, bias_vals=bias_vals, min_p=min_p, k_cand=k_cand,
-        )
-        sampled = out[0]
-        if pen is not None:
-            seen = (ptoks == sampled[:, None]).any(dim=-1)
-            at = cur.clamp_max(t_cap - 1).long()
-            ptoks[rows, at] = sampled
-            pfirst[rows, at] = ~seen
-            cur = (cur + 1).clamp_max(t_cap - 1)
-        outs.append(_pack(*out))
-        # past the limit no KV was written: an unclamped length would walk
-        # the block table out of bounds
-        lens = torch.minimum(lens + 1, limits)
-        toks, pos = sampled, pos + 1
-    return torch.stack(outs)
+        pen = tuple(t.clone() for t in pen)
+    extras = dict(min_p=min_p, bias_tokens=bias_tokens, bias_vals=bias_vals)
+    return torch.stack(_decode_turns(
+        model, cache, last_tokens, positions, seq_lens, block_tables, limits, generator,
+        temp, top_k, top_p, pen, extras, num_steps, block_size, k_cand))
+
+
+@torch.no_grad()
+def ragged_prefill_step(model: LlamaModel, cache, tokens, positions, block_tables, seq_lens,
+                        slot_idx, seq_ids, seq_starts, row_offsets, last_idx, generator, temp,
+                        top_k, top_p, prefix_blocks=0, k_cand=K_MAX, min_p=None,
+                        bias_tokens=None, bias_vals=None):
+    """Token-budget ragged prefill: ONE forward over a flat packed token
+    axis ([1, T]) holding several requests' prefill chunks, then a per-ROW
+    sample — ``last_idx`` [R] gathers each row's last fresh hidden state off
+    the flat axis.  The host keeps only final-chunk rows' samples.
+
+    Returns the packed [R, 2 + 2C] result on the device."""
+    hidden, _ = model.forward(tokens, positions, cache, block_tables, seq_lens, slot_idx,
+                              prefix_blocks=prefix_blocks,
+                              ragged=(seq_ids, seq_starts, row_offsets))
+    logits = model.compute_logits(hidden[0, last_idx.long()])  # [R, V] f32
+    return _pack(*sample_full(logits, generator, temp, top_k, top_p, bias_tokens=bias_tokens,
+                              bias_vals=bias_vals, min_p=min_p, k_cand=k_cand))
+
+
+@torch.no_grad()
+def unified_token_step(model: LlamaModel, cache, tokens, positions, block_tables, seq_lens,
+                       slot_idx, seq_ids, seq_starts, row_offsets, last_idx, generator, temp,
+                       top_k, top_p, pen=None, *, row_tokens=0, prefix_blocks=0, k_cand=K_MAX,
+                       min_p=None, bias_tokens=None, bias_vals=None):
+    """Unified mixed prefill+decode step: ONE forward over a flat packed
+    token axis whose first ``row_tokens`` slots hold DECODE rows (one fresh
+    token each, written to the cache per row — their in-block offsets are
+    arbitrary) and whose remainder holds block-aligned prefill spans.  A
+    decode row is a 1-token chunk to the ragged attention, its ``start``
+    the full cached context.
+
+    Decode rows and final-chunk prefill rows sample (penalties over the
+    host-built ``pen`` = (pen_tokens, pen_first, freq_pen, pres_pen), logit
+    bias, min_p, top_logprobs candidates); mid-chunk rows sample garbage
+    the host discards.  Returns the packed [R, 2 + 2C] result."""
+    hidden, _ = model.forward(tokens, positions, cache, block_tables, seq_lens, slot_idx,
+                              prefix_blocks=prefix_blocks,
+                              ragged=(seq_ids, seq_starts, row_offsets),
+                              ragged_row_tokens=row_tokens)
+    logits = model.compute_logits(hidden[0, last_idx.long()])  # [R, V] f32
+    return _pack(*sample_full(logits, generator, temp, top_k, top_p, *(pen or ()),
+                              bias_tokens=bias_tokens, bias_vals=bias_vals, min_p=min_p,
+                              k_cand=k_cand))
+
+
+@torch.no_grad()
+def unified_burst_step(model: LlamaModel, cache, tokens, positions, block_tables, seq_lens,
+                       slot_idx, seq_ids, seq_starts, row_offsets, last_idx, limits, generator,
+                       temp, top_k, top_p, pen=None, min_p=None, bias_tokens=None,
+                       bias_vals=None, *, num_steps: int, block_size: int, row_tokens: int = 0,
+                       prefix_blocks: int = 0, k_cand: int = K_MAX):
+    """Fused multi-turn unified dispatch: turn 0 is exactly
+    :func:`unified_token_step`, then ``num_steps - 1`` further decode turns
+    run on the device over the unified ROW axis (:func:`_decode_turns`),
+    with turn 0's samples fed back — so a burst needs ONE result read.
+
+    Stops are handled on the host after the burst: the device keeps
+    generating past a stop and the host discards a stopped row's tail
+    (a lookahead mispredict).  KV written past a stop lands only in blocks
+    the request still owns and never commits.  Prefill and padding rows
+    are inert in the later turns: ``limits`` is 0 for them, so they write
+    no KV, attend over no context, and sample garbage the host discards.
+
+    ``pen`` = (pen_tokens, pen_first, pen_cursor, freq_pen, pres_pen):
+    every turn's samples are appended on the device (``pen_cursor`` is each
+    row's next write index).  Returns the packed [K, R, 2 + 2C] results,
+    turn 0 first."""
+    hidden, _ = model.forward(tokens, positions, cache, block_tables, seq_lens, slot_idx,
+                              prefix_blocks=prefix_blocks,
+                              ragged=(seq_ids, seq_starts, row_offsets),
+                              ragged_row_tokens=row_tokens)
+    logits = model.compute_logits(hidden[0, last_idx.long()])  # [R, V] f32
+    extras = dict(min_p=min_p, bias_tokens=bias_tokens, bias_vals=bias_vals)
+    if pen is not None:
+        pen = tuple(t.clone() for t in pen)
+    out0 = sample_full(logits, generator, temp, top_k, top_p, *_pen_args(pen),
+                       k_cand=k_cand, **extras)
+    if pen is not None:
+        pen = _append_sampled(pen, out0[0])
+    # the later turns start as the decode turn that would follow: turn 0's
+    # token sits at position seq_lens, the context now includes it (clamped
+    # at the block limit — past it no KV was written)
+    outs = _decode_turns(model, cache, out0[0], seq_lens, torch.minimum(seq_lens + 1, limits),
+                         block_tables, limits, generator, temp, top_k, top_p, pen, extras,
+                         num_steps - 1, block_size, k_cand)
+    return torch.stack([_pack(*out0)] + outs)
 
 
 class EngineCore:
@@ -171,16 +287,45 @@ class EngineCore:
         # perf counters
         self.steps = 0
         self.prefill_steps = 0
+        # prefill batching: dispatches (any path), rows packed over them,
+        # and the token budget offered/used by batched dispatches
         self.prefill_dispatches = 0
         self.prefill_rows_dispatched = 0
+        self.prefill_budget_offered = 0
+        self.prefill_budget_used = 0
         self.decode_steps = 0
         self.tokens_generated = 0
         self.prompt_tokens_computed = 0  # actual prefill work (dedupe-aware)
+        # unified mixed prefill+decode dispatch (unified_token_dispatch)
+        self.unified_dispatches = 0      # mixed dispatches issued
+        self.unified_decode_rows = 0     # decode rows packed over them
+        self.unified_prefill_tokens = 0  # prefill tokens packed over them
+        self.unified_budget_offered = 0  # flat-axis budget offered
+        self.unified_budget_used = 0     # decode rows + prefill tokens
+        # lookahead dispatch: fused bursts, per-row prediction outcomes,
+        # and the speculative next-turn prebuild commit/flush protocol
+        self.lookahead_bursts = 0        # fused multi-turn dispatches
+        self.lookahead_hits = 0          # rows that consumed every sample
+        self.lookahead_mispredicts = 0   # rows whose stop fired mid-burst
+        self.lookahead_commits = 0       # speculative prebuilds committed
+        self.lookahead_flushes = 0       # speculative prebuilds discarded
+        self.lookahead_depth = 0         # device turns per result read (last)
         self.device_gets = 0             # step-loop device->host result reads
         # host time per turn: a step's wall time minus its device waits
         self._host_s = 0.0
         self._wait_s = 0.0
         self._turns = 0
+        # totals: seconds blocked in result reads, and seconds of host work
+        # done between a dispatch's enqueue and its read (the lookahead
+        # overlap window)
+        self.read_wait_s = 0.0
+        self.overlap_s = 0.0
+        # the next unified turn's operands, prebuilt in the overlap window
+        # (committed next turn if the predicted plan held, flushed otherwise)
+        self._spec_next: Optional[dict] = None
+        # cached _unified_penalties host buffers (invalidated on
+        # admission/finish; incremental append between turns)
+        self._pen_cache: Optional[dict] = None
         self._last_was_prefill = False
 
     @staticmethod
@@ -188,9 +333,6 @@ class EngineCore:
         """Refuse the options whose paths are not ported yet, instead of
         serving them on a path that ignores them."""
         unported = {
-            "prefill_token_budget": cfg.prefill_token_budget > 0,
-            "unified_token_dispatch": cfg.unified_token_dispatch,
-            "lookahead_dispatch": cfg.lookahead_dispatch,
             "spec_tokens": cfg.spec_tokens > 0,
             "sp_prefill_threshold": cfg.sp_prefill_threshold > 0,
             "num_host_blocks": cfg.num_host_blocks > 0,
@@ -211,15 +353,27 @@ class EngineCore:
         """The one device->host read of a dispatch's packed results."""
         t0 = time.perf_counter()
         res = packed.cpu().numpy()
-        self._wait_s += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self._wait_s += dt
+        self.read_wait_s += dt
         self.device_gets += 1
         return res
 
+    def _overlap(self, work) -> None:
+        """Host work between a dispatch's enqueue and its result read (the
+        lookahead overlap window).  Eager PyTorch returns from a dispatch
+        only once the host has enqueued every kernel of it, so this work
+        overlaps the card only while the card still runs behind the host."""
+        t0 = time.perf_counter()
+        work()
+        self.overlap_s += time.perf_counter() - t0
+
     def _sampling_extras(self, reqs, rows=None, b=None) -> dict:
         """min_p / logit_bias tensors for one dispatch, or {} when no
-        request uses them.  ``rows``: slot index per request for
-        batch-shaped dispatches (decode); None = requests are the dispatch
-        rows in order (prefill)."""
+        request uses them.  ``rows``: each request's dispatch row (its slot
+        for decode, its packed row for ragged and unified dispatches); None
+        = requests are the dispatch rows in order (prefill).  ``b``
+        overrides the row count (ragged: the padded row axis)."""
         kw = {}
         if b is None:
             b = self.config.max_batch_size if rows is not None else len(reqs)
@@ -281,7 +435,7 @@ class EngineCore:
 
     def metrics(self) -> dict:
         """ForwardPassMetrics equivalent, under the JAX engine's key names
-        (the dispatch paths not ported here report 0)."""
+        (speculative decoding is not ported: its keys report 0)."""
         active = sum(1 for s in self.slots if s is not None)
         return {
             "request_active_slots": active,
@@ -299,17 +453,23 @@ class EngineCore:
                 self.prefill_rows_dispatched / self.prefill_dispatches
                 if self.prefill_dispatches else 0.0
             ),
-            "prefill_budget_utilization": 0.0,
-            "unified_dispatches_total": 0,
-            "unified_decode_rows": 0,
-            "unified_prefill_tokens": 0,
-            "unified_budget_utilization": 0.0,
-            "lookahead_bursts_total": 0,
-            "lookahead_hits_total": 0,
-            "lookahead_mispredicts_total": 0,
-            "lookahead_commits_total": 0,
-            "lookahead_flushes_total": 0,
-            "lookahead_dispatch_depth": 0,
+            "prefill_budget_utilization": (
+                self.prefill_budget_used / self.prefill_budget_offered
+                if self.prefill_budget_offered else 0.0
+            ),
+            "unified_dispatches_total": self.unified_dispatches,
+            "unified_decode_rows": self.unified_decode_rows,
+            "unified_prefill_tokens": self.unified_prefill_tokens,
+            "unified_budget_utilization": (
+                self.unified_budget_used / self.unified_budget_offered
+                if self.unified_budget_offered else 0.0
+            ),
+            "lookahead_bursts_total": self.lookahead_bursts,
+            "lookahead_hits_total": self.lookahead_hits,
+            "lookahead_mispredicts_total": self.lookahead_mispredicts,
+            "lookahead_commits_total": self.lookahead_commits,
+            "lookahead_flushes_total": self.lookahead_flushes,
+            "lookahead_dispatch_depth": self.lookahead_depth,
             "device_gets_total": self.device_gets,
             "host_gap_ms_per_turn": (
                 1e3 * self._host_s / self._turns if self._turns else 0.0
@@ -340,26 +500,70 @@ class EngineCore:
             if r is not None and r.state is RequestState.PREFILL and self._prefill_ready(r)
         ]
         decoding = any(r is not None and r.state is RequestState.RUNNING for r in self.slots)
+        if self._unified_enabled():
+            # unified token-budget scheduler: a mixed turn is ONE ragged
+            # dispatch (decode rows + prefill spans on one flat axis)
+            return self._step_unified(ready, decoding)
         # chunked-prefill interleave: when both phases have work, alternate
-        # one prefill chunk with one decode burst so admissions never stall
-        # the decoders for a whole long prompt
+        # one prefill turn (one chunk, or one ragged token-budget batch)
+        # with one decode burst so admissions never stall the decoders for
+        # a whole long prompt
         if ready and decoding and self.config.prefill_chunk_tokens:
             if self._last_was_prefill:
                 self._last_was_prefill = False
                 self._run_decode()
             else:
                 self._last_was_prefill = True
-                self._run_prefill(ready[0])
+                self._dispatch_prefill(ready)
             return True
         if ready:
             self._last_was_prefill = True
-            self._run_prefill(ready[0])
+            self._dispatch_prefill(ready)
             return True
         if decoding:
             self._last_was_prefill = False
             self._run_decode()
             return True
         return False
+
+    def _unified_enabled(self) -> bool:
+        return (
+            self.config.unified_token_dispatch
+            and self.config.prefill_token_budget > 0
+            and getattr(self.model, "supports_unified_dispatch", False)
+        )
+
+    def _lookahead_enabled(self) -> bool:
+        """Lookahead dispatch is a layer over unified dispatch (the fused
+        burst generalises the unified mixed step), so it engages only where
+        unified dispatch would."""
+        return self.config.lookahead_dispatch and self._unified_enabled()
+
+    def _step_unified(self, ready: list[EngineRequest], decoding: bool) -> bool:
+        """One turn of the unified token-budget scheduler: mixed work runs
+        as ONE dispatch via :meth:`_run_unified`; pure-prefill turns keep
+        the ragged token-budget batch and pure-decode turns the multi-step
+        burst."""
+        if ready and decoding and self._run_unified(ready):
+            return True
+        if ready:
+            self._dispatch_prefill(ready)
+            return True
+        if decoding:
+            self._run_decode()
+            return True
+        return False
+
+    def _dispatch_prefill(self, ready: list[EngineRequest]) -> None:
+        """One prefill turn over the READY requests (slot order): the
+        token-budget ragged batch packs all of them, or, with batching off
+        (prefill_token_budget=0) or a model without the ragged path, the
+        head request prefills alone."""
+        if self.config.prefill_token_budget > 0 and getattr(
+                self.model, "supports_ragged_prefill", False):
+            self._run_prefill_batch(ready)
+        else:
+            self._run_prefill(ready[0])
 
     def _process_aborts(self) -> None:
         while True:
@@ -380,6 +584,8 @@ class EngineCore:
             self._pending_aborts.add(rid)
 
     def _drain_waiting(self) -> None:
+        """Pull the cross-thread waiting queue into ``_admitted``, applying
+        pending aborts (also run in the lookahead overlap window)."""
         while True:
             try:
                 req = self.waiting.get_nowait()
@@ -436,6 +642,7 @@ class EngineCore:
             self.slots[slot] = req
             self._by_id[req.request_id] = req
             self._admitted.remove(req)
+            self._pen_cache = None  # live request set changed
 
     # ---------------------------------------------------------------- prefill
     def _reserve_own(self, req: EngineRequest) -> None:
@@ -539,6 +746,394 @@ class EngineCore:
         self._append_token(req, int(sampled[0]), first=True,
                            logprob=float(lps[0]), cand=(cids[0], clps[0]))
 
+    # ------------------------------------------- token-budget ragged prefill
+    def _plan_spans(self, pending, budget: int):
+        """Pack prefill chunks under a token budget: ``pending`` is
+        [(request, begin)] in slot order; returns ([(request, begin, take,
+        final)], flat tokens used).  Each chunk takes a block-rounded span,
+        and a non-final chunk ends block-aligned so the next one starts
+        block-aligned."""
+        bs = self.config.block_size
+        plan, used = [], 0
+        for req, begin in pending:
+            avail = budget - used
+            if avail < bs:
+                break
+            remaining = req.prompt_len - begin
+            take = min(remaining, self.config.prefill_chunk_tokens or remaining, avail)
+            if take < remaining:
+                take = take // bs * bs
+                if take == 0:
+                    break
+            plan.append((req, begin, take, take == remaining))
+            used += -(-take // bs) * bs
+        return plan, used
+
+    def _prefix_bucket(self, max_pb: int) -> int:
+        """The plain ragged op's cached-prefix gather bound: the rows' most
+        prefix blocks, power-of-two bucketed like the JAX engine's (the
+        kernel streams each row's prefix by its true start instead)."""
+        pb = 0 if max_pb == 0 else 1 << (max_pb - 1).bit_length()
+        return min(pb, self.config.max_blocks_per_seq)
+
+    def _run_prefill_batch(self, reqs: list[EngineRequest]) -> None:
+        """Token-budget ragged prefill: pack up to ``prefill_token_budget``
+        tokens of pending prefill work (several requests' chunks, each a
+        block-aligned span; padding slots are -1 / seq_id -1) onto one flat
+        axis, bucketed by ``config.bucket_for``, with the row axis padded to
+        a power of two, and run ONE ragged dispatch.  Only final-chunk rows'
+        samples are kept; they carry their request's sampling extras."""
+        cfg = self.config
+        budget = cfg.prefill_token_budget
+        plan, used = self._plan_spans([(r, r.computed_tokens) for r in reqs], budget)
+        r_pad = 1 << max(0, (len(plan) - 1).bit_length())
+        arrays = self._alloc_unified_arrays(r_pad, cfg.bucket_for(used))
+        off = max_pb = 0
+        for r, (req, begin, take, _final) in enumerate(plan):
+            off = self._fill_prefill_span(arrays, r, off, req, begin, take)
+            max_pb = max(max_pb, begin // cfg.block_size)
+        (tokens, positions, slot_idx, seq_ids, bt, seq_lens, starts, roff, last_idx,
+         temp, top_k, top_p, _limits) = arrays
+        finals = [(r, req) for r, (req, _, _, fin) in enumerate(plan) if fin]
+        final_reqs = [req for _, req in finals]
+        extras = self._sampling_extras(final_reqs, rows=[r for r, _ in finals], b=r_pad)
+        up = self._up
+        packed = ragged_prefill_step(
+            self.model, self.cache, up(tokens), up(positions), up(bt), up(seq_lens),
+            up(slot_idx), up(seq_ids), up(starts), up(roff), up(last_idx), self._gen,
+            up(temp), up(top_k), up(top_p), prefix_blocks=self._prefix_bucket(max_pb),
+            k_cand=self._k_cand(final_reqs), **extras,
+        )
+        self.steps += 1
+        if self._lookahead_enabled():
+            self._overlap(self._drain_waiting)  # absorb arrivals under compute
+        sampled, lps, cids, clps = _unpack(self._read(packed))
+        take_sum = sum(take for _, _, take, _ in plan)
+        self.prefill_steps += 1
+        self.prompt_tokens_computed += take_sum
+        self.prefill_dispatches += 1
+        self.prefill_rows_dispatched += len(plan)
+        self.prefill_budget_offered += budget
+        self.prefill_budget_used += take_sum
+        for r, (req, _, take, final) in enumerate(plan):
+            req.computed_tokens += take
+            self._commit_prefill_blocks(req)
+            if final:
+                self._complete_prefill(req, sampled[r:r + 1], lps[r:r + 1],
+                                       cids[r:r + 1], clps[r:r + 1])
+
+    # ------------------------------------------------ unified mixed dispatch
+    def _run_unified(self, ready: list[EngineRequest]) -> bool:
+        """ONE mixed dispatch for this turn: every RUNNING slot contributes
+        a decode row (1 fresh token) on the leading row-scatter region of
+        the flat axis, then the READY prefill chunks pack block-aligned
+        spans into the remaining token budget.  With lookahead the dispatch
+        is a fused burst of ``interactive_decode_steps`` turns, and the next
+        turn's prefill operands are prebuilt while it runs.  Returns False
+        when no decode row is dispatchable or no prefill chunk fits (the
+        caller falls back to a pure prefill/decode turn)."""
+        cfg = self.config
+        bs = cfg.block_size
+        # decode region: a fixed block multiple of the flat axis (one slot
+        # per batch slot), so the prefill spans after it stay block-aligned
+        d_region = -(-cfg.max_batch_size // bs) * bs
+        budget = max(bs, cfg.prefill_token_budget - d_region)
+        budget = min(budget, cfg.max_model_len - d_region)
+        if budget < bs:
+            return False  # the flat axis cannot fit a span past the region
+
+        lookahead = self._lookahead_enabled()
+        # mixed turns always have prefill pending, so the interactive burst
+        # length applies; 1 without lookahead keeps the single-turn dispatch
+        k_steps = max(1, cfg.interactive_decode_steps) if lookahead else 1
+        dec: list[EngineRequest] = []
+        dec_limits: list[int] = []
+        for req in self.slots:
+            if req is None or req.state is not RequestState.RUNNING:
+                continue
+            limit = self._grow_blocks(req, k_steps)
+            if limit is None:
+                continue  # no slot for even the current token: LENGTH
+            dec.append(req)
+            dec_limits.append(limit)
+        if not dec:
+            return False
+        sel, used = self._plan_spans([(r, r.computed_tokens) for r in ready], budget)
+        if not sel:
+            return False
+
+        n_dec = len(dec)
+        r_pad = 1 << max(0, (n_dec + len(sel) - 1).bit_length())
+        t_pad = cfg.bucket_for(d_region + used)
+        # speculative-dispatch commit protocol: if last turn's overlap window
+        # prebuilt exactly this plan, reuse its prefill-span arrays; decode
+        # rows advance every turn and are always refilled below.  Any
+        # divergence (a stop fired, an admission or finish changed the slot
+        # map, a chunk resized) mismatches the key: flush and rebuild.
+        arrays = None
+        max_pb = 0
+        if lookahead:
+            spec, self._spec_next = self._spec_next, None
+            if spec is not None:
+                key = (tuple(r.request_id for r in dec),
+                       tuple((rq.request_id, begin, take, fin) for rq, begin, take, fin in sel),
+                       d_region, r_pad, t_pad)
+                if spec["key"] == key:
+                    arrays, max_pb = spec["arrays"], spec["max_pb"]
+                    self.lookahead_commits += 1
+                else:
+                    self.lookahead_flushes += 1
+        if arrays is None:
+            arrays = self._alloc_unified_arrays(r_pad, t_pad)
+            off = d_region
+            for j, (req, begin, take, _final) in enumerate(sel):
+                off = self._fill_prefill_span(arrays, n_dec + j, off, req, begin, take)
+                max_pb = max(max_pb, begin // bs)
+        (tokens, positions, slot_idx, seq_ids, bt, seq_lens, starts, roff, last_idx,
+         temp, top_k, top_p, limits) = arrays
+        for r, req in enumerate(dec):
+            p = req.seq.total_tokens - 1  # uncomputed tail position
+            tokens[0, r] = req.seq.tokens[-1]
+            positions[0, r] = p
+            slot_idx[0, r] = req.block_ids[p // bs] * bs + p % bs
+            seq_ids[0, r] = r
+            bt[r, :len(req.block_ids)] = req.block_ids
+            seq_lens[r] = p + 1
+            starts[r] = p  # the full cached prefix; need NOT be block-aligned
+            roff[r] = r
+            last_idx[r] = r
+            temp[r] = req.sampling.temperature
+            top_k[r] = req.sampling.top_k
+            top_p[r] = req.sampling.top_p
+            limits[r] = dec_limits[r]
+            max_pb = max(max_pb, -(-p // bs))
+
+        # sampling rows: every decode row plus final-chunk prefill rows
+        samp = list(enumerate(dec)) + [
+            (n_dec + j, rq) for j, (rq, _, _, fin) in enumerate(sel) if fin
+        ]
+        samp_reqs = [rq for _, rq in samp]
+        extras = self._sampling_extras(samp_reqs, rows=[r for r, _ in samp], b=r_pad)
+        burst = lookahead and k_steps >= 2
+        pen = self._unified_penalties(samp, r_pad, horizon=k_steps if burst else 1)
+        up = self._up
+        args = (self.model, self.cache, up(tokens), up(positions), up(bt), up(seq_lens),
+                up(slot_idx), up(seq_ids), up(starts), up(roff), up(last_idx))
+        sampling = (self._gen, up(temp), up(top_k), up(top_p))
+        pen = None if pen is None else tuple(up(a) for a in pen)
+        kw = dict(row_tokens=d_region, prefix_blocks=self._prefix_bucket(max_pb),
+                  k_cand=self._k_cand(samp_reqs), **extras)
+        if burst:
+            packed = unified_burst_step(*args, up(limits), *sampling, pen, num_steps=k_steps,
+                                        block_size=bs, **kw)
+        else:
+            packed = unified_token_step(*args, *sampling, pen, **kw)
+        self.steps += 1
+        if lookahead:
+            # overlap window: the dispatch above is enqueued — drain arrivals
+            # and speculatively prebuild the NEXT turn's prefill-span operands
+            # before the result read synchronises with the card
+            def window():
+                self._drain_waiting()
+                self._spec_next = self._prebuild_next(ready, sel, dec, d_region, budget)
+            self._overlap(window)
+        res = self._read(packed)
+        if not burst:
+            res = res[None]
+        sampled, lps, cids, clps = _unpack(res)  # [K, R], [K, R], [K, R, C], [K, R, C]
+        take_sum = sum(take for _, _, take, _ in sel)
+        self.prefill_steps += 1
+        self.decode_steps += k_steps
+        self.prompt_tokens_computed += take_sum
+        self.prefill_dispatches += 1
+        self.prefill_rows_dispatched += len(sel)
+        self.prefill_budget_offered += budget
+        self.prefill_budget_used += take_sum
+        self.unified_dispatches += 1
+        self.unified_decode_rows += n_dec
+        self.unified_prefill_tokens += take_sum
+        self.unified_budget_offered += cfg.prefill_token_budget
+        self.unified_budget_used += n_dec + take_sum
+
+        hits = mis = 0
+        for r, req in enumerate(dec):
+            want_lp = req.sampling.logprobs or req.sampling.top_logprobs > 0
+            row_len = int(seq_lens[r])  # pre-dispatch total (p + 1)
+            # turn 0, then the later turns: positions at/past the row's
+            # block limit wrote no KV on the device, so only `allowed`
+            # samples are real
+            allowed = 1 + max(0, min(k_steps - 1, dec_limits[r] - row_len))
+            consumed = 0
+            for k in range(allowed):
+                if req.state is not RequestState.RUNNING:
+                    break  # a stop fired mid-burst: discard the tail
+                self._append_token(
+                    req, int(sampled[k, r]),
+                    logprob=float(lps[k, r]) if want_lp else None,
+                    cand=(cids[k, r], clps[k, r]) if want_lp else None,
+                )
+                consumed += 1
+            if not burst:
+                continue
+            if req.state is RequestState.RUNNING and allowed < k_steps:
+                # out of block-table room mid-burst: LENGTH, as in a decode burst
+                self._finish_slot(req, FinishReason.LENGTH)
+            if consumed < allowed:
+                mis += 1  # a stop fired: the predicted tail was discarded
+            else:
+                hits += 1
+        if burst:
+            self.lookahead_bursts += 1
+            self.lookahead_hits += hits
+            self.lookahead_mispredicts += mis
+            self.lookahead_depth = k_steps
+        for j, (req, _, take, final) in enumerate(sel):
+            r = n_dec + j
+            req.computed_tokens += take
+            self._commit_prefill_blocks(req)
+            if final:
+                self._complete_prefill(req, sampled[0, r:r + 1], lps[0, r:r + 1],
+                                       cids[0, r:r + 1], clps[0, r:r + 1])
+        return True
+
+    def _alloc_unified_arrays(self, r_pad: int, t_pad: int):
+        """Zero/pad-initialised operands of one ragged or unified dispatch,
+        shared by the live build and :meth:`_prebuild_next`, so a committed
+        speculative build is identical to a fresh one.  Padding rows keep
+        seq_lens = starts = row_offsets = 0: their spans are empty."""
+        m = self.config.max_blocks_per_seq
+        tokens = np.zeros((1, t_pad), np.int32)
+        positions = np.zeros((1, t_pad), np.int32)
+        slot_idx = np.full((1, t_pad), -1, np.int32)
+        seq_ids = np.full((1, t_pad), -1, np.int32)
+        bt = np.zeros((r_pad, m), np.int32)
+        seq_lens = np.zeros(r_pad, np.int32)
+        starts = np.zeros(r_pad, np.int32)
+        roff = np.zeros(r_pad, np.int32)
+        last_idx = np.zeros(r_pad, np.int32)
+        temp = np.zeros(r_pad, np.float32)
+        top_k = np.zeros(r_pad, np.int32)
+        top_p = np.ones(r_pad, np.float32)
+        limits = np.zeros(r_pad, np.int32)
+        return (tokens, positions, slot_idx, seq_ids, bt, seq_lens, starts, roff, last_idx,
+                temp, top_k, top_p, limits)
+
+    def _fill_prefill_span(self, arrays, r: int, off: int, rq: EngineRequest, begin: int,
+                           take: int) -> int:
+        """Fill dispatch row ``r`` with ``rq``'s prefill chunk ``[begin,
+        begin + take)`` from flat offset ``off``; returns the next
+        (block-rounded) span offset.  Safe to run speculatively: it reads
+        only ``rq.prompt`` and ``rq.block_ids``, which do not change while
+        the request sits in PREFILL."""
+        bs = self.config.block_size
+        (tokens, positions, slot_idx, seq_ids, bt, seq_lens, starts, roff, last_idx,
+         temp, top_k, top_p, _limits) = arrays
+        end = begin + take
+        tokens[0, off:off + take] = rq.prompt[begin:end]
+        pos = np.arange(begin, end, dtype=np.int32)
+        positions[0, off:off + take] = pos
+        bt[r, :len(rq.block_ids)] = rq.block_ids
+        slot_idx[0, off:off + take] = bt[r, pos // bs] * bs + pos % bs
+        seq_ids[0, off:off + take] = r
+        seq_lens[r] = end
+        starts[r] = begin
+        roff[r] = off
+        last_idx[r] = off + take - 1
+        temp[r] = rq.sampling.temperature
+        top_k[r] = rq.sampling.top_k
+        top_p[r] = rq.sampling.top_p
+        return off + -(-take // bs) * bs
+
+    def _prebuild_next(self, ready, sel, dec, d_region: int, budget: int) -> Optional[dict]:
+        """Speculatively build the NEXT unified turn's prefill-span operands
+        in the overlap window.
+
+        Prediction: this turn's chunks land (``computed_tokens`` advances by
+        ``take``), every decode row survives, finals join the decode set,
+        and no admission or finish changes the slot map.  The returned
+        ``key`` pins that prediction; the next :meth:`_run_unified` commits
+        the arrays when its plan matches and flushes them otherwise.  Only
+        the prefill spans are prebuilt — decode rows are refilled every
+        turn."""
+        cfg = self.config
+        sel_map = {rq.request_id: (take, fin) for rq, _, take, fin in sel}
+        nxt = []  # (request, predicted next begin), ready order kept
+        for rq in ready:
+            take, fin = sel_map.get(rq.request_id, (0, False))
+            if not fin:
+                nxt.append((rq, rq.computed_tokens + take))
+        plan, used = self._plan_spans(nxt, budget)
+        if not plan:
+            return None  # no prefill survives: the next turn is not mixed
+        dec_ids = {r.request_id for r in dec}
+        fin_ids = {rq.request_id for rq, _, _, fin in sel if fin}
+        pred_dec = [r.request_id for r in self.slots
+                    if r is not None and (r.request_id in dec_ids or r.request_id in fin_ids)]
+        n_dec = len(pred_dec)
+        r_pad = 1 << max(0, (n_dec + len(plan) - 1).bit_length())
+        t_pad = cfg.bucket_for(d_region + used)
+        arrays = self._alloc_unified_arrays(r_pad, t_pad)
+        off = d_region
+        max_pb = 0
+        for j, (rq, begin, take, _fin) in enumerate(plan):
+            off = self._fill_prefill_span(arrays, n_dec + j, off, rq, begin, take)
+            max_pb = max(max_pb, begin // cfg.block_size)
+        key = (tuple(pred_dec), tuple((rq.request_id, b, t, f) for rq, b, t, f in plan),
+               d_region, r_pad, t_pad)
+        return dict(key=key, arrays=arrays, max_pb=max_pb)
+
+    def _unified_penalties(self, samp, r_pad: int, horizon: int = 1):
+        """Penalty buffers for one unified dispatch, keyed by DISPATCH row
+        (cf. :meth:`_penalty_buffers`, keyed by slot), or None when no
+        sampling row uses penalties: (pen_tokens [R_pad, T] -1-padded,
+        pen_first, freq_pen, pres_pen), and for a fused burst (``horizon``
+        > 1) the per-row write cursor after pen_first, with T sized for the
+        burst's appends.
+
+        The host build is cached on (rows, shapes, live request set and
+        penalty strengths): while that holds, only the tokens generated
+        since the previous turn are appended.  Admission and finish drop
+        the cache."""
+        users = [(r, rq) for r, rq in samp
+                 if rq.sampling.frequency_penalty or rq.sampling.presence_penalty]
+        if not users:
+            return None
+        longest = max(rq.seq.total_tokens - rq.prompt_len for _, rq in users)
+        need = longest if horizon <= 1 else longest + horizon
+        t_cap = max(16, 1 << max(0, need - 1).bit_length())
+        t_cap = min(t_cap, max(16, 1 << (self.config.max_model_len - 1).bit_length()))
+        key = (r_pad, t_cap, tuple((rq.request_id, r, rq.sampling.frequency_penalty,
+                                    rq.sampling.presence_penalty) for r, rq in users))
+        pc = self._pen_cache
+        if pc is None or pc["key"] != key:
+            pc = self._pen_cache = dict(
+                key=key, ptoks=np.full((r_pad, t_cap), -1, np.int32),
+                pfirst=np.zeros((r_pad, t_cap), bool), freq=np.zeros(r_pad, np.float32),
+                pres=np.zeros(r_pad, np.float32), seen={}, count={})
+            for r, rq in users:
+                pc["freq"][r] = rq.sampling.frequency_penalty
+                pc["pres"][r] = rq.sampling.presence_penalty
+                pc["seen"][rq.request_id] = set()
+                pc["count"][rq.request_id] = 0
+        ptoks, pfirst = pc["ptoks"], pc["pfirst"]
+        for r, rq in users:
+            gen = rq.seq.tokens[rq.prompt_len:]
+            seen = pc["seen"][rq.request_id]
+            n = min(len(gen), t_cap)
+            for j in range(pc["count"][rq.request_id], n):
+                ptoks[r, j] = gen[j]
+                if gen[j] not in seen:
+                    pfirst[r, j] = True
+                    seen.add(gen[j])
+            pc["count"][rq.request_id] = n
+        if horizon <= 1:
+            return ptoks, pfirst, pc["freq"], pc["pres"]
+        # fused burst: the device appends past this cursor each turn
+        cur = np.zeros(r_pad, np.int32)
+        for r, rq in users:
+            cur[r] = min(rq.seq.total_tokens - rq.prompt_len, t_cap)
+        return ptoks, pfirst, cur, pc["freq"], pc["pres"]
+
     # ----------------------------------------------------------------- decode
     def _grow_blocks(self, req: EngineRequest, extra_tokens: int) -> Optional[int]:
         """Extend ``req``'s block table to cover ``extra_tokens`` more
@@ -613,6 +1208,9 @@ class EngineCore:
             **self._sampling_extras(active, rows=[r.slot for r in active]),
         )
         self.steps += 1
+        if self._lookahead_enabled():
+            # overlap window: absorb arrivals while the device runs the burst
+            self._overlap(self._drain_waiting)
         sampled, lps, cids, clps = _unpack(self._read(packed))  # [K, B], ..., [K, B, C]
         self.decode_steps += sampled.shape[0]
         for req in active:
@@ -714,6 +1312,7 @@ class EngineCore:
                      emitted: bool = False) -> None:
         if req.slot >= 0 and self.slots[req.slot] is req:
             self.slots[req.slot] = None
+        self._pen_cache = None  # live request set changed
         # drop unresolved reservations (commit resolved the rest) so any
         # joiners waiting on us take over instead of hanging
         for h, bid in req.reserved_pairs:

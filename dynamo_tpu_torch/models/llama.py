@@ -29,6 +29,7 @@ from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.ops.paged_attention import (
     paged_attention_layer,
     prefill_attention,
+    ragged_prefill_attention,
     softcap,
     write_kv_cache_layer,
 )
@@ -126,6 +127,14 @@ class LlamaModel(nn.Module):
     model straight from a state dict with :meth:`from_state`.
     """
 
+    # forward() accepts the token-budget ragged prefill layout (the engine
+    # gates its batched prefill scheduler on this)
+    supports_ragged_prefill = True
+    # forward() also accepts the unified mixed layout (decode rows leading
+    # the flat axis, ``ragged_row_tokens``): the engine gates the unified
+    # token-budget scheduler on this
+    supports_unified_dispatch = True
+
     def __init__(self, config: ModelConfig, device=None):
         super().__init__()
         self.config = config
@@ -186,6 +195,8 @@ class LlamaModel(nn.Module):
         seq_lens: torch.Tensor,      # [B] int32 — context length incl. new tokens
         slot_idx: torch.Tensor,      # [B, S] — cache slot per new token, -1 pad
         prefix_blocks: int | None = None,
+        ragged: tuple | None = None,
+        ragged_row_tokens: int = 0,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Returns (hidden [B,S,Dm], kv_cache) — the cache is the same tensor,
         written in place.
@@ -195,13 +206,29 @@ class LlamaModel(nn.Module):
         cached prefix blocks instead of the whole block table.  Requires the
         S tokens of each row to be contiguous from the block-aligned position
         ``positions[:, 0]`` (how the engine lays out prefill).
+
+        ``ragged = (seq_ids, starts, row_offsets)`` switches that fast path
+        to the token-budget ragged form: B is 1 and the S axis packs several
+        rows' chunks, each a contiguous block-aligned span.  ``seq_ids``
+        [1, S] names each token's row (-1 = padding), ``starts`` and
+        ``row_offsets`` [R] give each row's absolute chunk start and flat
+        offset, and ``block_tables``/``seq_lens`` are per row ([R, M] / [R]).
+        Requires ``prefix_blocks``.
+
+        ``ragged_row_tokens`` marks the unified mixed layout: the first that
+        many flat tokens are decode rows, one fresh token each at any
+        in-block slot, so the cache write scatters them per row and only the
+        block-aligned spans after them take the block write.
         """
         cfg = self.config
         b, s = tokens.shape
         dh, hq = cfg.head_dim, cfg.num_heads
-        fast_prefill = prefix_blocks is not None and s > 1
+        ragged_prefill = ragged is not None and prefix_blocks is not None and s > 1
+        fast_prefill = prefix_blocks is not None and s > 1 and not ragged_prefill
         uo = cfg.rmsnorm_unit_offset
         start = positions[:, 0].contiguous() if fast_prefill else None
+        if ragged_prefill:
+            seq_ids, seq_starts, row_offsets = ragged
 
         hidden = self.embed[tokens.long()]
         if cfg.scale_embeddings:  # Gemma multiplies by sqrt(hidden_size)
@@ -213,8 +240,17 @@ class LlamaModel(nn.Module):
             q, k, v = _qkv_proj(cfg, lp, x, b, s)
             q = apply_rope(q, positions, self.inv_freq)
             k = apply_rope(k, positions, self.inv_freq)
-            write_kv_cache_layer(kv_cache, li, k, v, slot_idx, block_aligned=fast_prefill)
-            if fast_prefill:
+            # both prefill layouts are block-aligned contiguous spans
+            write_kv_cache_layer(kv_cache, li, k, v, slot_idx,
+                                 block_aligned=fast_prefill or ragged_prefill,
+                                 row_tokens=ragged_row_tokens if ragged_prefill else 0)
+            if ragged_prefill:
+                attn = ragged_prefill_attention(
+                    q, k, v, kv_cache, li, block_tables, seq_lens, seq_starts, row_offsets,
+                    seq_ids, prefix_blocks, sm_scale=self.sm_scale,
+                    logit_cap=cfg.attn_logit_softcap, window=cfg.sliding_window,
+                )
+            elif fast_prefill:
                 attn = prefill_attention(
                     q, k, v, kv_cache, li, block_tables, seq_lens, start, prefix_blocks,
                     sm_scale=self.sm_scale, logit_cap=cfg.attn_logit_softcap,

@@ -40,6 +40,9 @@ _SIGNATURES = {
     # q, k_new, v_new, cache, block_tables, seq_lens, start, out,
     # B, S, H, Hk, D, N, Bs, M, layer, sm_scale, logit_cap, stream
     "dynamo_prefill_attention": [_P] * 8 + [_I] * 9 + [_F, _F, _P],
+    # q, k_new, v_new, cache, block_tables, seq_lens, starts, row_offsets, out,
+    # T, H, Hk, D, N, Bs, M, R, layer, sm_scale, logit_cap, stream
+    "dynamo_ragged_prefill_attention": [_P] * 9 + [_I] * 9 + [_F, _F, _P],
 }
 
 _lock = threading.Lock()

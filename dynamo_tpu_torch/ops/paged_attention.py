@@ -9,9 +9,11 @@ attends over the sequence's context.
 This file holds the plain PyTorch ops, the counterparts of
 ``dynamo_tpu/ops/paged_attention.py``, and the routing to the CUDA kernels:
 on CUDA tensors decode attention (1 <= S <= ``MQ_MAX_S``) goes to
-``ops/kernels/decode_attention.py`` and prefill attention to
-``ops/kernels/prefill_attention.py``; sliding-window attention whose span
-can exceed the window, and every CPU call, take the plain ops here.
+``ops/kernels/decode_attention.py``, prefill attention to
+``ops/kernels/prefill_attention.py`` and ragged (token-budget) prefill
+attention to ``ops/kernels/ragged_prefill_attention.py``; sliding-window
+attention whose span can exceed the window, and every CPU call, take the
+plain ops here.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 
 from dynamo_tpu_torch.ops.kernels.decode_attention import paged_decode_attention
 from dynamo_tpu_torch.ops.kernels.prefill_attention import paged_prefill_attention
+from dynamo_tpu_torch.ops.kernels.ragged_prefill_attention import ragged_paged_prefill_attention
 
 __all__ = [
     "MQ_MAX_S",
@@ -28,6 +31,7 @@ __all__ = [
     "paged_attention",
     "paged_attention_layer",
     "prefill_attention",
+    "ragged_prefill_attention",
 ]
 
 MQ_MAX_S = 8  # decode kernel: trailing-query count it serves
@@ -155,6 +159,93 @@ def prefill_attention(
     return out.reshape(b, s, h, d).to(q.dtype)
 
 
+def ragged_prefill_attention(
+    q: torch.Tensor,             # [1, T, H, D] — packed fresh queries (flat token axis)
+    k_new: torch.Tensor,         # [1, T, Hk, D] — packed fresh keys
+    v_new: torch.Tensor,         # [1, T, Hk, D]
+    cache: torch.Tensor,         # [L, N, 2, Bs, Hk*D]
+    layer: int,
+    block_tables: torch.Tensor,  # [R, M] int32 — one table per packed row
+    seq_lens: torch.Tensor,      # [R] int32 — context length incl. this chunk
+    starts: torch.Tensor,        # [R] int32 — absolute chunk start
+    row_offsets: torch.Tensor,   # [R] int32 — flat index of each row's first token
+    seq_ids: torch.Tensor,       # [1, T] int32 — owning row per flat token; -1 = pad
+    prefix_blocks: int,          # max cached-prefix blocks over rows
+    sm_scale: float | None = None,
+    logit_cap: float | None = None,
+    window: int | None = None,
+) -> torch.Tensor:
+    """Mixed-chunk ragged attention over one flat token axis: several rows'
+    prefill spans and 1-token decode rows (whose ``start`` = context - 1 need
+    not be block-aligned) packed on [T].  Each token attends its own row's
+    cached prefix ``[0, start)`` and its own row's fresh tokens causally by
+    flat index, never another row.
+
+    On CUDA with T > 1 the ragged kernel runs (it reads the span table and
+    streams each row's prefix by its true ``start``).  Everything else takes
+    the position-exact plain op below, the JAX package's oracle: each token
+    gathers its row's first ``prefix_blocks`` blocks, masked at ``start``,
+    and padding tokens (``seq_ids`` -1) attend only padding.  Returns
+    [1, T, H, D]."""
+    _, t, h, d = q.shape
+    hk = k_new.shape[2]
+    g = h // hk
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    bs = cache.shape[3]
+    windowed = window is not None and prefix_blocks * bs + t > window
+    if not windowed:
+        window = None
+    if q.is_cuda and t > 1 and not windowed:
+        return ragged_paged_prefill_attention(
+            q.contiguous(), k_new.contiguous(), v_new.contiguous(), cache, layer,
+            block_tables, seq_lens, starts, row_offsets, sm_scale=sm_scale,
+            logit_cap=logit_cap,
+        )
+    qg = q[0].reshape(t, hk, g, d).float()
+    sid = seq_ids[0].long()                            # [T]
+    idx = torch.arange(t, device=q.device)
+    allow_f = (sid[:, None] == sid[None, :]) & (idx[None, :] <= idx[:, None])
+    if window is not None:
+        allow_f = allow_f & ((idx[:, None] - idx[None, :]) < window)
+    sf = torch.einsum("skgd,tkd->kgst", qg, k_new[0].float()) * sm_scale
+    if logit_cap is not None:
+        sf = softcap(sf, logit_cap)
+    sf = torch.where(allow_f[None, None], sf, float("-inf"))
+
+    if prefix_blocks == 0:
+        probs = torch.softmax(sf, dim=-1)
+        out = torch.einsum("kgst,tkd->skgd", probs, v_new[0].float())
+        return out.reshape(1, t, h, d).to(q.dtype)
+
+    r_rows = block_tables.shape[0]
+    u = prefix_blocks * bs
+    ctx = cache[layer][block_tables[:, :prefix_blocks].long()]  # [R, P, 2, Bs, HkD]
+    kp = ctx[:, :, 0].reshape(r_rows, u, hk, d)
+    vp = ctx[:, :, 1].reshape(r_rows, u, hk, d)
+    rid = sid.clamp(0, r_rows - 1)
+    starts = starts.long()
+    sp = torch.einsum("skgd,sukd->kgsu", qg, kp[rid].float()) * sm_scale
+    if logit_cap is not None:
+        sp = softcap(sp, logit_cap)
+    slot = torch.arange(u, device=q.device)
+    allow_p = (sid[:, None] >= 0) & (slot[None, :] < starts[rid][:, None])
+    if window is not None:
+        # prefix slot u IS absolute position u; the query sits at its row
+        # start plus its offset within the span
+        q_pos = starts[rid] + idx - row_offsets.long()[rid]
+        allow_p = allow_p & ((q_pos[:, None] - slot[None, :]) < window)
+    sp = torch.where(allow_p[None, None], sp, float("-inf"))
+
+    probs = torch.softmax(torch.cat([sp, sf], dim=-1), dim=-1)  # [Hk, G, T, U+T]
+    out = torch.einsum(
+        "kgsu,sukd->skgd", probs[..., :u], vp[rid].float()
+    ) + torch.einsum(
+        "kgst,tkd->skgd", probs[..., u:], v_new[0].float()
+    )
+    return out.reshape(1, t, h, d).to(q.dtype)
+
+
 def write_kv_cache_layer(
     cache: torch.Tensor,     # [L, N, 2, Bs, Hk*D] — the WHOLE paged cache, updated in place
     layer: int,
@@ -162,6 +253,7 @@ def write_kv_cache_layer(
     v_new: torch.Tensor,     # [B, S, Hk, D]
     slot_idx: torch.Tensor,  # [B, S] int32  flat slot = block_id * Bs + offset; -1 = drop
     block_aligned: bool = False,
+    row_tokens: int = 0,
 ) -> torch.Tensor:
     """Scatter new K/V rows into the multi-layer cache, in place.
 
@@ -171,6 +263,12 @@ def write_kv_cache_layer(
     inside a partially valid block keep the existing cache content, so the
     '-1 = drop' contract holds bit for bit.
 
+    ``row_tokens`` splits the S axis of a ``block_aligned`` write: the first
+    ``row_tokens`` tokens take the per-row scatter (the unified layout's
+    decode rows, one token each at any in-block offset) and only the
+    block-aligned remainder takes the block write.  It must be a block
+    multiple, so the remainder starts on a span boundary.
+
     Dropped rows never use -1 as an index — it would wrap to the last row.
     They are sent instead to a row of the other half (a V row during the K
     write, a K row during the V write) that the same write never targets,
@@ -179,6 +277,13 @@ def write_kv_cache_layer(
     """
     if not cache.is_contiguous():
         raise ValueError("the cache must be contiguous")
+    if block_aligned and 0 < row_tokens < k_new.shape[1]:
+        write_kv_cache_layer(cache, layer, k_new[:, :row_tokens], v_new[:, :row_tokens],
+                             slot_idx[:, :row_tokens])
+        return write_kv_cache_layer(cache, layer, k_new[:, row_tokens:], v_new[:, row_tokens:],
+                                    slot_idx[:, row_tokens:], block_aligned=True)
+    if block_aligned and row_tokens >= k_new.shape[1]:
+        block_aligned = False  # every token is a per-row token
     l, n, _, bs, r = cache.shape
     b, s, hk, d = k_new.shape
     rows_k = k_new.to(cache.dtype).reshape(b, s, hk * d)
