@@ -7,25 +7,35 @@ Phases, in order; any failure ends the run with a non-zero exit:
 
 1. the card's name and power limit, from nvidia-smi;
 2. build: every ``dynamo_tpu_torch/csrc/*.cu`` compiled with nvcc for sm_90a;
-3. kernels: each CUDA kernel against its plain PyTorch version on the card,
-   at Llama-3-8B attention geometry (H=32, Hk=8, D=128, Bs=16, L=32,
-   bf16, layer index 5) with NaN in every dead cache slot and padding
-   K/V, then decode and prefill timed at the default path's shapes beside
-   their plain versions, a PyTorch library call on the same work, and
-   their bound on this card;
+3. kernels: each CUDA kernel against its plain PyTorch version on the card.
+   The attention kernels run at Llama-3-8B attention geometry (H=32, Hk=8,
+   D=128, L=32, layer index 5) and at D = 64 and 256, over a bf16 cache
+   (Bs=16) with NaN in every dead slot and padding K/V, and over an int8
+   cache (Bs=16 and 32) with random codes in every dead slot and NaN in
+   every dead slot's scale and every pad lane of the scale tiles.  The
+   W8A16 matmul runs at every projection shape of Llama-3-8B and its
+   lm_head (f32 out), at M = 6, 8, 300 and 1504, for a [K, N] weight and
+   for the transpose of an [N, K] one.  Then decode, prefill and the
+   matmul are timed at the serving paths' shapes beside their plain
+   versions, a PyTorch library call on the same work, and their bound on
+   this card;
 4. serving: Llama-3-8B at full width and depth (random weights from a
    seeded generator) behind ``AsyncLLMEngine``, six concurrent greedy
    requests (17 to 1500 prompt tokens, two sharing a 256-token prefix),
-   twice on the same model: the default path (one-request prefill, decode
+   twice on the bf16 model: the default path (one-request prefill, decode
    bursts), then the token-budget path (``prefill_token_budget=1024``,
-   unified mixed dispatch, lookahead bursts).  Every kernel's launch
-   counter is zeroed just before each run and read just after; the ragged
-   kernel is then timed at the largest mixed dispatch the second run made;
-5. parity: a 2-layer model at full 8B width on the card (kernels, bf16) and
-   on the CPU (plain PyTorch, f32): one 300-token prompt over a 128-token
-   cached prefix then 8 decode steps, and one packed prefill then one
-   mixed ragged dispatch (two decode rows, two spans); logits held to a
-   stated tolerance.
+   unified mixed dispatch, lookahead bursts); then the bf16 model is freed
+   and the same two runs are made on an int8 model (int8 weights drawn
+   directly, ``cache_dtype="int8"``, ``block_size=32`` as ``bench.py``
+   serves on an accelerator).  Every kernel's launch counter is zeroed just
+   before each run and read just after; the ragged kernels are then timed
+   at the largest mixed dispatch of each token-budget run;
+5. parity: 2-layer models at full 8B width on the card (kernels, bf16) and
+   on the CPU (plain PyTorch, f32), bf16 weights with a bf16 cache and int8
+   weights with an int8 cache: one 300-token prompt over a 128-token cached
+   prefix then 8 decode steps, and one packed prefill then one mixed
+   ragged dispatch (two decode rows, two spans); logits held to a stated
+   tolerance.
 
 Then one ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -36,6 +46,7 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -60,6 +71,16 @@ MAX_TOKENS = 32
 DEFAULT_PATH = dict(max_batch_size=8, max_model_len=2048, block_size=16, decode_steps=8)
 BUDGET_PATH = dict(DEFAULT_PATH, prefill_token_budget=1024, unified_token_dispatch=True,
                    lookahead_dispatch=True)
+# the same two on the int8 model: int8 KV cache in 32-token blocks
+# (bench.py's accelerator defaults)
+BS_Q8 = 32
+INT8_DEFAULT_PATH = dict(DEFAULT_PATH, block_size=BS_Q8, cache_dtype="int8")
+INT8_BUDGET_PATH = dict(BUDGET_PATH, block_size=BS_Q8, cache_dtype="int8")
+# Llama-3-8B's matmuls as the model runs them, [K, N]: the seven
+# projections of a layer (q, k and v are three products) and the lm_head
+PROJECTIONS = {"wq": (4096, 4096), "wk": (4096, 1024), "wv": (4096, 1024), "wo": (4096, 4096),
+               "w_gate": (4096, 14336), "w_up": (4096, 14336), "w_down": (14336, 4096)}
+LM_HEAD = (4096, 128256)
 
 # bf16 tolerance, kernel vs plain version on identical bf16 inputs, per
 # element: |out - ref| <= KERNEL_ATOL + KERNEL_RTOL * |ref|.  Both sides
@@ -70,8 +91,20 @@ BUDGET_PATH = dict(DEFAULT_PATH, prefill_token_budget=1024, unified_token_dispat
 # from N(0, 1)).  RTOL allows two ulps, ATOL the probability rounding.
 KERNEL_ATOL = 1e-2
 KERNEL_RTOL = 2.0 ** -6
+# The int8 kernels are held to the same form and numbers.  Their inputs
+# are int8 codes times f32 scales drawn so the dequantised values are of
+# order 1, as the bf16 inputs are: int8 -> bf16 is exact, the scales apply
+# in f32, and the one extra rounding (the attention kernels round P times
+# the V scale to bf16 for the tensor-core PV product, 2**-9 relative per
+# term) is the probability rounding ATOL already allows.  The W8A16 kernel
+# accumulates exact bf16 x int8 products in f32 in another order than the
+# plain version and rounds once, which RTOL covers.
 # 2-layer model, card (bf16 activations) vs CPU (f32), same bf16 weights:
-# ~a dozen bf16 roundings of 2**-9 relative each compound to ~1e-2
+# ~a dozen bf16 roundings of 2**-9 relative each compound to ~1e-2.  With
+# int8 weights and an int8 cache the weights are the same codes on both
+# sides; the cache quantises bf16 activations on the card and f32 ones on
+# the CPU, so some codes differ by one step (1/127 of a row's amax), which
+# adds noise of the order of the bf16 roundings: the same bounds hold.
 PARITY_REL_L2 = 5e-2
 PARITY_MAX_REL = 1e-1
 
@@ -117,27 +150,56 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 # ------------------------------------------------------------------ kernels
-def _poisoned_cache(torch, gen, n_blocks, tables, lens, hkd):
+def _live_slots(torch, n_blocks, tables, lens, bs):
+    """[N, Bs] bool on the card: the slots some row owns below its length."""
+    live = torch.zeros((n_blocks, bs), dtype=torch.bool)
+    for row, n in zip(tables.tolist(), lens):
+        pos = torch.arange(n)
+        live[torch.tensor(row)[pos // bs], pos % bs] = True
+    return live.cuda()
+
+
+def _poisoned_cache(torch, gen, n_blocks, tables, lens, hkd, bs=BS):
     """A random bf16 cache [L, N, 2, Bs, Hk*D] whose every slot no row
     owns below its length is NaN, in every layer."""
-    cache = torch.randn((L, n_blocks, 2, BS, hkd), generator=gen, device="cuda",
+    cache = torch.randn((L, n_blocks, 2, bs, hkd), generator=gen, device="cuda",
                         dtype=torch.float32).to(torch.bfloat16)
-    live = torch.zeros((n_blocks, BS), dtype=torch.bool, device="cuda")
-    for row, n in zip(tables.tolist(), lens):
-        for j in range(n):
-            live[row[j // BS], j % BS] = True
+    live = _live_slots(torch, n_blocks, tables, lens, bs)
     cache.masked_fill_(~live[None, :, None, :, None], float("nan"))
     return cache
 
 
-def _tables(torch, lens, m, n_blocks, gen):
+def _q8_cache(torch, gen, n_blocks, hk, d, bs, tables=None, lens=None):
+    """A random int8 cache (QuantKvCache) [L, N, 2, Bs, Hk*D]: random codes
+    everywhere, scales that make the dequantised values of order 1 (the
+    codes' standard deviation is about 73.3).  With ``tables`` and
+    ``lens``, every slot no row owns below its length keeps its random
+    codes but gets a NaN scale, and every pad lane of the scale tiles is
+    NaN."""
+    from dynamo_tpu_torch.ops.kv_quant import QuantKvCache, scale_tile
+
+    data = torch.randint(-127, 128, (L, n_blocks, 2, bs, hk * d), generator=gen, device="cuda",
+                         dtype=torch.int8)
+    hp, sp = scale_tile(hk, bs)
+    scale = torch.ones((L, n_blocks, 2, hp, sp), device="cuda")
+    valid = scale[..., :hk, :bs]
+    valid.copy_((0.5 + torch.rand(valid.shape, generator=gen, device="cuda")) / 73.3)
+    if tables is not None:
+        scale[..., hk:, :] = float("nan")
+        scale[..., bs:] = float("nan")
+        live = _live_slots(torch, n_blocks, tables, lens, bs)
+        valid.masked_fill_(~live[None, :, None, None, :], float("nan"))
+    return QuantKvCache(data, scale)
+
+
+def _tables(torch, lens, m, n_blocks, gen, bs=BS):
     """Disjoint random block tables [B, m], 0-filled past each row's
     blocks (the engine's layout)."""
     perm = torch.randperm(n_blocks, generator=gen, device="cuda").tolist()
     bt = torch.zeros((len(lens), m), dtype=torch.int32)
     k = 0
     for i, n in enumerate(lens):
-        nb = -(-n // BS)
+        nb = -(-n // bs)
         bt[i, :nb] = torch.tensor(perm[k:k + nb], dtype=torch.int32)
         k += nb
     return bt.cuda()
@@ -159,40 +221,48 @@ def compare(torch, what: str, out, ref) -> float:
     return diff.max().item()
 
 
-def decode_case(torch, gen, lens, s, logit_cap, geom=(H, HK, D)):
-    from dynamo_tpu_torch.ops.kernels.decode_attention import (
-        decode_attention_ref, paged_decode_attention)
+def _attention_cache(torch, gen, n_blocks, bt, live_lens, hk, d, bs, quant):
+    """The poisoned cache of a kernel check: bf16, or int8 (``quant``)."""
+    if quant:
+        return _q8_cache(torch, gen, n_blocks, hk, d, bs, bt.cpu(), live_lens)
+    return _poisoned_cache(torch, gen, n_blocks, bt.cpu(), live_lens, hk * d, bs)
 
-    m = 2048 // BS
-    n_blocks = sum(-(-n // BS) for n in lens) + 8
-    bt = _tables(torch, lens, m, n_blocks, gen)
+
+def decode_case(torch, gen, lens, s, logit_cap, geom=(H, HK, D), bs=BS, quant=False):
+    from dynamo_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention_ref, paged_decode_attention, paged_decode_attention_q8)
+
+    m = 2048 // bs
+    n_blocks = sum(-(-n // bs) for n in lens) + 8
+    bt = _tables(torch, lens, m, n_blocks, gen, bs)
     h, hk, d = geom
-    cache = _poisoned_cache(torch, gen, n_blocks, bt.cpu(), lens, hk * d)
+    cache = _attention_cache(torch, gen, n_blocks, bt, lens, hk, d, bs, quant)
     b = len(lens)
     q = torch.randn((b, s, h, d), generator=gen, device="cuda").to(torch.bfloat16)
     seq_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
     q0 = (seq_lens - s).clamp_min(0)
     args = (q, cache, LAYER, bt, seq_lens, q0)
-    out = paged_decode_attention(*args, logit_cap=logit_cap)
-    err = compare(torch, f"decode {geom} S={s} cap={logit_cap}", out,
-                  decode_attention_ref(*args, logit_cap=logit_cap))
+    kernel = paged_decode_attention_q8 if quant else paged_decode_attention
+    out = kernel(*args, logit_cap=logit_cap)
+    err = compare(torch, f"decode {'int8 ' if quant else ''}{geom} Bs={bs} S={s} cap={logit_cap}",
+                  out, decode_attention_ref(*args, logit_cap=logit_cap))
     for i, n in enumerate(lens):
         if n == 0:
             check(bool((out[i] == 0).all()), f"decode S={s}: zero-length row {i} is not 0")
     return err
 
 
-def prefill_case(torch, gen, starts, fresh, s, geom=(H, HK, D)):
+def prefill_case(torch, gen, starts, fresh, s, geom=(H, HK, D), bs=BS, quant=False):
     from dynamo_tpu_torch.ops.kernels.prefill_attention import (
-        paged_prefill_attention, prefill_attention_ref)
+        paged_prefill_attention, paged_prefill_attention_q8, prefill_attention_ref)
 
-    m = 2048 // BS
+    m = 2048 // bs
     lens = [st + f for st, f in zip(starts, fresh)]
-    n_blocks = sum(-(-n // BS) for n in lens) + 8
-    bt = _tables(torch, lens, m, n_blocks, gen)
-    # only the cached prefix is live in the cache; fresh slots stay NaN
+    n_blocks = sum(-(-n // bs) for n in lens) + 8
+    bt = _tables(torch, lens, m, n_blocks, gen, bs)
+    # only the cached prefix is live in the cache; fresh slots stay poisoned
     h, hk, d = geom
-    cache = _poisoned_cache(torch, gen, n_blocks, bt.cpu(), starts, hk * d)
+    cache = _attention_cache(torch, gen, n_blocks, bt, starts, hk, d, bs, quant)
     b = len(starts)
     q = torch.randn((b, s, h, d), generator=gen, device="cuda").to(torch.bfloat16)
     k_new = torch.randn((b, s, hk, d), generator=gen, device="cuda").to(torch.bfloat16)
@@ -203,14 +273,16 @@ def prefill_case(torch, gen, starts, fresh, s, geom=(H, HK, D)):
     args = (q, k_new, v_new, cache, LAYER, bt,
             torch.tensor(lens, dtype=torch.int32, device="cuda"),
             torch.tensor(starts, dtype=torch.int32, device="cuda"))
-    out = paged_prefill_attention(*args)
-    err = compare(torch, f"prefill {geom} starts={starts}", out, prefill_attention_ref(*args))
+    kernel = paged_prefill_attention_q8 if quant else paged_prefill_attention
+    out = kernel(*args)
+    err = compare(torch, f"prefill {'int8 ' if quant else ''}{geom} Bs={bs} starts={starts}", out,
+                  prefill_attention_ref(*args))
     for i, f in enumerate(fresh):
         check(bool((out[i, f:] == 0).all()), f"prefill: padding rows of row {i} are not 0")
     return err
 
 
-def ragged_layout(rows, region: int, n_pad: int):
+def ragged_layout(rows, region: int, n_pad: int, bs: int = BS):
     """Host layout of one ragged dispatch, as the engine packs it: rows are
     (start, fresh); the leading 1-token rows take one flat slot each in a
     ``region``-slot decode region, every other row a block-rounded span
@@ -222,24 +294,26 @@ def ragged_layout(rows, region: int, n_pad: int):
     offs, off = list(range(n_dec)), region
     for _, fresh in rows[n_dec:]:
         offs.append(off)
-        off += -(-fresh // BS) * BS
+        off += -(-fresh // bs) * bs
     pad = [0] * n_pad
     return (off, [st for st, _ in rows] + pad, [st + f for st, f in rows] + pad, offs + pad)
 
 
-def ragged_case(torch, gen, rows, region, n_pad, geom=(H, HK, D), logit_cap=None):
+def ragged_case(torch, gen, rows, region, n_pad, geom=(H, HK, D), logit_cap=None, bs=BS,
+                quant=False):
     """The ragged kernel against its plain version on one layout: the pool
-    is NaN except each row's live prefix, and padding K/V is NaN; padding
-    tokens must come out exactly 0."""
+    is poisoned except each row's live prefix, and padding K/V is NaN;
+    padding tokens must come out exactly 0."""
     from dynamo_tpu_torch.ops.kernels.ragged_prefill_attention import (
-        ragged_paged_prefill_attention, ragged_prefill_attention_ref)
+        ragged_paged_prefill_attention, ragged_paged_prefill_attention_q8,
+        ragged_prefill_attention_ref)
 
-    m = 2048 // BS
-    t, starts, lens, offs = ragged_layout(rows, region, n_pad)
-    n_blocks = sum(-(-n // BS) for n in lens) + 8
-    bt = _tables(torch, lens, m, n_blocks, gen)
+    m = 2048 // bs
+    t, starts, lens, offs = ragged_layout(rows, region, n_pad, bs)
+    n_blocks = sum(-(-n // bs) for n in lens) + 8
+    bt = _tables(torch, lens, m, n_blocks, gen, bs)
     h, hk, d = geom
-    cache = _poisoned_cache(torch, gen, n_blocks, bt.cpu(), starts, hk * d)
+    cache = _attention_cache(torch, gen, n_blocks, bt, starts, hk, d, bs, quant)
     q = torch.randn((1, t, h, d), generator=gen, device="cuda").to(torch.bfloat16)
     k_new = torch.randn((1, t, hk, d), generator=gen, device="cuda").to(torch.bfloat16)
     v_new = torch.randn((1, t, hk, d), generator=gen, device="cuda").to(torch.bfloat16)
@@ -250,10 +324,11 @@ def ragged_case(torch, gen, rows, region, n_pad, geom=(H, HK, D), logit_cap=None
     v_new[0, ~live] = float("nan")
     args = (q, k_new, v_new, cache, LAYER, bt, _ints(torch, lens), _ints(torch, starts),
             _ints(torch, offs))
-    out = ragged_paged_prefill_attention(*args, logit_cap=logit_cap)
-    err = compare(torch, f"ragged {geom} rows={rows}", out,
-                  ragged_prefill_attention_ref(*args, logit_cap=logit_cap))
-    check(bool((out[0, ~live] == 0).all()), f"ragged {geom}: padding tokens are not 0")
+    kernel = ragged_paged_prefill_attention_q8 if quant else ragged_paged_prefill_attention
+    out = kernel(*args, logit_cap=logit_cap)
+    what = f"ragged {'int8 ' if quant else ''}{geom} Bs={bs} rows={rows}"
+    err = compare(torch, what, out, ragged_prefill_attention_ref(*args, logit_cap=logit_cap))
+    check(bool((out[0, ~live] == 0).all()), f"{what}: padding tokens are not 0")
     return err
 
 
@@ -295,7 +370,78 @@ def kernel_phase(torch) -> dict:
         e = ragged_case(torch, gen, [(4, 1), (299, 1), (76, 1), (0, 90), (64, 45)], 16, 3,
                         geom=geom)
         log(f"kernel ragged (H, Hk, D)={geom} 3 decode rows + 2 spans: max abs err {e:.3g}")
+    errs.update(q8_kernel_phase(torch, gen))
+    errs["matmul"] = matmul_phase(torch, gen)
     return errs
+
+
+def q8_kernel_phase(torch, gen) -> dict:
+    """The three int8 attention kernels against their plain version, at
+    the bf16 checks' layouts and at both block sizes."""
+    errs = {"decode_q8": 0.0, "prefill_q8": 0.0, "ragged_q8": 0.0}
+    mixed = [0, 1, 17, 100, 333, 1024, 1500, 2048]
+    decode_rows = [(n - 1, 1) for n in (1, 17, 100, 333, 1024, 1500, 2047, 64)]
+    for bs in (16, BS_Q8):
+        for s in (1, 4):
+            for cap in (None, 50.0):
+                e = decode_case(torch, gen, mixed, s, cap, bs=bs, quant=True)
+                log(f"kernel decode int8 Bs={bs} B=8 S={s} softcap={cap}: max abs err {e:.3g}")
+                errs["decode_q8"] = max(errs["decode_q8"], e)
+        e = prefill_case(torch, gen, starts=[0, 256], fresh=[512, 500], s=512, bs=bs, quant=True)
+        log(f"kernel prefill int8 Bs={bs} B=2 S=512 start=[0, 256]: max abs err {e:.3g}")
+        errs["prefill_q8"] = max(errs["prefill_q8"], e)
+        e = prefill_case(torch, gen, starts=[1024, 96], fresh=[300, 45], s=320, bs=bs, quant=True)
+        log(f"kernel prefill int8 Bs={bs} B=2 S=320 start=[1024, 96]: max abs err {e:.3g}")
+        errs["prefill_q8"] = max(errs["prefill_q8"], e)
+        for cap in (None, 50.0):
+            e = ragged_case(torch, gen, decode_rows + [(0, 300), (256, 200)], 16, 6,
+                            logit_cap=cap, bs=bs, quant=True)
+            log(f"kernel ragged int8 Bs={bs} unified layout softcap={cap}: max abs err {e:.3g}")
+            errs["ragged_q8"] = max(errs["ragged_q8"], e)
+        for geom in ((8, 8, 64), (16, 2, 256)):
+            d_err = decode_case(torch, gen, [0, 5, 300], 2, None, geom=geom, bs=bs, quant=True)
+            p_err = prefill_case(torch, gen, starts=[64], fresh=[90], s=96, geom=geom, bs=bs,
+                                 quant=True)
+            r_err = ragged_case(torch, gen, [(4, 1), (299, 1), (76, 1), (0, 90), (64, 45)], 16, 3,
+                                geom=geom, bs=bs, quant=True)
+            log(f"kernel int8 (H, Hk, D)={geom} Bs={bs}: decode S=2 max abs err {d_err:.3g}, "
+                f"prefill start=64 {p_err:.3g}, ragged 3 decode rows + 2 spans {r_err:.3g}")
+    return errs
+
+
+def _q8_weight(torch, gen, k, n, layout):
+    """A random int8 weight [K, N] as the model holds it ("kn"), or as the
+    transpose of a row-major [N, K] one ("nk", the tied embedding), with
+    scales that make x @ w of order 1 for x of order 1."""
+    shape = (k, n) if layout == "kn" else (n, k)
+    wq = torch.randint(-127, 128, shape, generator=gen, device="cuda", dtype=torch.int8)
+    scale = (0.5 + torch.rand(n, generator=gen, device="cuda")) / (73.3 * math.sqrt(k))
+    return (wq if layout == "kn" else wq.t()), scale
+
+
+def matmul_phase(torch, gen) -> float:
+    """The W8A16 kernel against its plain version at every matmul shape of
+    Llama-3-8B, decode and prefill row counts, both weight layouts."""
+    from dynamo_tpu_torch.ops.kernels.int8_matmul import int8_matmul, int8_matmul_ref
+
+    worst = 0.0
+    shapes = dict(PROJECTIONS, lm_head=LM_HEAD)
+    for name, (k, n) in shapes.items():
+        out_dtype = torch.float32 if name == "lm_head" else torch.bfloat16
+        errs = []
+        for layout in ("kn", "nk"):
+            wq, scale = _q8_weight(torch, gen, k, n, layout)
+            for m in (6, 8, 300, 1504):
+                x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+                out = int8_matmul(x, wq, scale, out_dtype)
+                check(out.dtype == out_dtype and out.shape == (m, n), f"matmul {name}: {out.shape}")
+                errs.append(compare(torch, f"matmul {name} [{k}, {n}] {layout} M={m}", out,
+                                    int8_matmul_ref(x, wq, scale, out_dtype)))
+            del wq, scale
+        log(f"kernel matmul {name} [K, N]=[{k}, {n}] M in (6, 8, 300, 1504), both layouts: "
+            f"max abs err {max(errs):.3g}")
+        worst = max(worst, *errs)
+    return worst
 
 
 def timing_phase(torch, card: str) -> dict:
@@ -387,33 +533,223 @@ def timing_phase(torch, card: str) -> dict:
     return out
 
 
-def ragged_timing(torch, card: str, mixed: dict) -> dict:
-    """The ragged kernel at the largest mixed dispatch the token-budget
-    serving run made (its row table as recorded; random bf16 q, K/V and
-    pool), timed beside its plain version, one SDPA call on the same work
-    laid out dense with a block-diagonal causal mask (the prefix gather
-    excluded), and its bound on this card."""
+def _bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take: the larger of the operations
+    over the bf16 tensor-core peak and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def _dequant_rows(torch, cache, rows, n):
+    """The first ``n`` K and V rows [n, Hk, D] (bf16) of blocks ``rows`` of
+    layer LAYER of an int8 cache."""
+    from dynamo_tpu_torch.ops.kv_quant import gather_layer_blocks
+
+    kv = gather_layer_blocks(cache, LAYER, rows, HK).to(torch.bfloat16)
+    return kv[:, 0].reshape(-1, HK, D)[:n], kv[:, 1].reshape(-1, HK, D)[:n]
+
+
+def q8_timing_phase(torch, card: str) -> dict:
+    """The int8 decode and prefill kernels at the int8 default path's
+    shapes (Bs = 32), timed and checked against their plain version there:
+    decode is one layer of a burst step (B = 8 slots, S = 1, the six
+    requests mid-generation) and prefill the dispatch of the request that
+    hits the shared prefix (start = 256, 700 fresh tokens).  The library
+    yardstick is SDPA on K/V dequantised to bf16 beforehand: it reads twice
+    the cache bytes the kernel reads, and the dequantisation is not timed."""
+    import torch.nn.functional as F
+
+    from dynamo_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention_ref, paged_decode_attention_q8)
+    from dynamo_tpu_torch.ops.kernels.prefill_attention import (
+        paged_prefill_attention_q8, prefill_attention_ref)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    bs, m = BS_Q8, 2048 // BS_Q8
+    out = {}
+
+    # decode
+    lens = [n + MAX_TOKENS // 2 for n in PROMPT_LENS] + [0, 0]
+    b = len(lens)
+    n_blocks = sum(-(-n // bs) for n in lens) + 8
+    bt = _tables(torch, lens, m, n_blocks, gen, bs)
+    cache = _q8_cache(torch, gen, n_blocks, HK, D, bs)
+    q = torch.randn((b, 1, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+    seq_lens = _ints(torch, lens)
+    q0 = (seq_lens - 1).clamp_min(0)
+    kernel_ms = cuda_time_ms(lambda i: paged_decode_attention_q8(q, cache, i % L, bt, seq_lens, q0), 64)
+    plain_ms = cuda_time_ms(lambda i: decode_attention_ref(q, cache, i % L, bt, seq_lens, q0), 8)
+    out["decode_q8_err"] = compare(torch, "int8 decode at the serving shapes",
+                                   paged_decode_attention_q8(q, cache, LAYER, bt, seq_lens, q0),
+                                   decode_attention_ref(q, cache, LAYER, bt, seq_lens, q0))
+    t = max(lens)
+    kd = torch.zeros((b, HK, t, D), dtype=torch.bfloat16, device="cuda")
+    vd = torch.zeros_like(kd)
+    for i, n in enumerate(lens):
+        if n:
+            k_rows, v_rows = _dequant_rows(torch, cache, bt[i, :-(-n // bs)], n)
+            kd[i, :, :n], vd[i, :, :n] = k_rows.transpose(0, 1), v_rows.transpose(0, 1)
+    mask = (torch.arange(t, device="cuda")[None, :] < seq_lens[:, None])[:, None, None, :]
+    qd = q.transpose(1, 2).contiguous()
+    library_ms = cuda_time_ms(lambda i: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask, enable_gqa=True), 64)
+    ctx = sum(lens)
+    # q and out bf16; the int8 K/V payload of the live context and the f32
+    # scale of each (token, KV head, K or V) it reads; the tables
+    nbytes = 2 * (2 * b * H * D) + 2 * ctx * HK * D + 2 * ctx * HK * 4 + 4 * (b * m + 2 * b)
+    out["decode_q8"] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                            **_bound(4 * H * D * ctx, nbytes))
+    log(f"time decode int8 B={b} S=1 Bs={bs} ctx={ctx}: kernel {kernel_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, sdpa on bf16 K/V (twice the cache bytes) {library_ms:.4f} ms, bound "
+        f"{out['decode_q8']['bound_ms']:.4f} ms ({out['decode_q8']['bound_by']}), max abs err "
+        f"{out['decode_q8_err']:.3g} ({card})")
+
+    # prefill over a cached prefix
+    start, fresh = SHARED_PREFIX, PROMPT_LENS[-1] - SHARED_PREFIX
+    s = -(-fresh // bs) * bs
+    bt1 = _tables(torch, [start + fresh], m, -(-(start + fresh) // bs) + 8, gen, bs)
+    cache1 = _q8_cache(torch, gen, int(bt1.max()) + 1, HK, D, bs)
+    qp, kp, vp = (torch.randn((1, s, x, D), generator=gen, device="cuda").to(torch.bfloat16)
+                  for x in (H, HK, HK))
+    pargs = (qp, kp, vp, cache1, LAYER, bt1, _ints(torch, [start + fresh]), _ints(torch, [start]))
+    kernel_ms = cuda_time_ms(lambda i: paged_prefill_attention_q8(*pargs), 10)
+    plain_ms = cuda_time_ms(lambda i: prefill_attention_ref(*pargs), 3, warmup=1)
+    out["prefill_q8_err"] = compare(torch, "int8 prefill at the serving shapes",
+                                    paged_prefill_attention_q8(*pargs), prefill_attention_ref(*pargs))
+    k_pre, v_pre = _dequant_rows(torch, cache1, bt1[0, :start // bs], start)
+    ks = torch.cat([k_pre, kp[0, :fresh]]).transpose(0, 1)[None].contiguous()
+    vs = torch.cat([v_pre, vp[0, :fresh]]).transpose(0, 1)[None].contiguous()
+    qs = qp[:, :fresh].transpose(1, 2).contiguous()
+    i = torch.arange(fresh, device="cuda")
+    j = torch.arange(start + fresh, device="cuda")
+    pmask = (j[None, :] < start) | (j[None, :] - start <= i[:, None])
+    library_ms = cuda_time_ms(lambda i: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=pmask, enable_gqa=True), 10)
+    pairs = fresh * start + fresh * (fresh + 1) // 2
+    nbytes = (2 * (2 * fresh * H * D + 2 * fresh * HK * D) + 2 * start * HK * D
+              + 2 * start * HK * 4 + 4 * (m + 2))
+    out["prefill_q8"] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                             **_bound(4 * H * D * pairs, nbytes))
+    log(f"time prefill int8 B=1 S={s} fresh={fresh} start={start} Bs={bs}: kernel {kernel_ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, sdpa on bf16 K/V {library_ms:.4f} ms, bound "
+        f"{out['prefill_q8']['bound_ms']:.4f} ms ({out['prefill_q8']['bound_by']}), max abs err "
+        f"{out['prefill_q8_err']:.3g} ({card})")
+    return out
+
+
+def matmul_timing(torch, card: str) -> dict:
+    """The W8A16 kernel on one decode step's layer of the int8 model: the
+    seven projections at M = 8 rows, in order, with four layers' distinct
+    weights in turn (875 MB, far past the 50 MB L2), beside the plain
+    version, cuBLAS bf16 on the same weights dequantised beforehand (twice
+    the weight bytes; the dequantisation is not timed) and the bound.  Also
+    logged: the same layer at a prefill's M = 1504, and the lm_head at
+    M = 8 with f32 logits."""
+    from dynamo_tpu_torch.ops.kernels.int8_matmul import int8_matmul, int8_matmul_ref
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    layers = [{name: _q8_weight(torch, gen, k, n, "kn") for name, (k, n) in PROJECTIONS.items()}
+              for _ in range(4)]
+    dense = [{name: (wq.to(torch.bfloat16) * scale.to(torch.bfloat16)) for name, (wq, scale)
+              in layer.items()} for layer in layers]
+
+    def rows(m):
+        return {name: torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+                for name, (k, _) in PROJECTIONS.items()}
+
+    def layer_ms(fn, xs, iters, warmup=2):
+        return cuda_time_ms(lambda i: [fn(xs[name], i % 4, name) for name in PROJECTIONS], iters,
+                            warmup)
+
+    def kernel(x, li, name):
+        return int8_matmul(x, *layers[li][name])
+
+    def plain(x, li, name):
+        return int8_matmul_ref(x, *layers[li][name])
+
+    def library(x, li, name):
+        return torch.matmul(x, dense[li][name])
+
+    def layer_bound(m):
+        flops = sum(2 * m * k * n for k, n in PROJECTIONS.values())
+        nbytes = sum(k * n + 2 * m * k + 2 * m * n + 4 * n for k, n in PROJECTIONS.values())
+        return _bound(flops, nbytes)
+
+    out = {}
+    xs = rows(8)
+    out["matmul"] = dict(ms=layer_ms(kernel, xs, 32), plain_ms=layer_ms(plain, xs, 4, 1),
+                         library_ms=layer_ms(library, xs, 32), **layer_bound(8))
+    errs = [compare(torch, f"matmul {name} at M=8", kernel(xs[name], 0, name),
+                    plain(xs[name], 0, name)) for name in PROJECTIONS]
+    out["matmul_err"] = max(errs)
+    r = out["matmul"]
+    log(f"time matmul int8 one layer's 7 projections at M=8: kernel {r['ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.4f} ms, cuBLAS bf16 on dequantised weights (twice the weight bytes) "
+        f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+        f"max abs err {out['matmul_err']:.3g} ({card})")
+    per = {name: cuda_time_ms(lambda i, name=name: kernel(xs[name], i % 4, name), 32)
+           for name in PROJECTIONS}
+    bounds = {name: _bound(2 * 8 * k * n, k * n + 16 * k + 16 * n + 4 * n)["bound_ms"]
+              for name, (k, n) in PROJECTIONS.items()}
+    log("time matmul int8 at M=8 by projection: " + ", ".join(
+        f"{name} [{k}, {n}] {per[name]:.4f} ms (bound {bounds[name]:.4f})"
+        for name, (k, n) in PROJECTIONS.items()) + f" ({card})")
+    xp = rows(1504)
+    pre = dict(ms=layer_ms(kernel, xp, 8), library_ms=layer_ms(library, xp, 8), **layer_bound(1504))
+    log(f"time matmul int8 one layer's 7 projections at M=1504: kernel {pre['ms']:.4f} ms, cuBLAS "
+        f"bf16 {pre['library_ms']:.4f} ms, bound {pre['bound_ms']:.4f} ms ({pre['bound_by']}) ({card})")
+    del layers, dense
+    k, n = LM_HEAD
+    heads = [_q8_weight(torch, gen, k, n, "kn") for _ in range(2)]
+    x = torch.randn((8, k), generator=gen, device="cuda").to(torch.bfloat16)
+    head_ms = cuda_time_ms(lambda i: int8_matmul(x, *heads[i % 2], torch.float32), 16)
+    dense_head = heads[0][0].to(torch.bfloat16) * heads[0][1].to(torch.bfloat16)
+    head_lib = cuda_time_ms(lambda i: torch.mm(x, dense_head, out_dtype=torch.float32), 16)
+    hb = _bound(2 * 8 * k * n, k * n + 16 * k + 32 * n + 4 * n)
+    log(f"time matmul int8 lm_head [{k}, {n}] at M=8, f32 out: kernel {head_ms:.4f} ms, cuBLAS bf16 "
+        f"{head_lib:.4f} ms (one weight, L2-warm for weights under 50 MB), bound {hb['bound_ms']:.4f} ms "
+        f"({hb['bound_by']}) ({card})")
+    return out
+
+
+def ragged_timing(torch, card: str, mixed: dict, quant: bool = False) -> dict:
+    """The ragged kernel at the largest mixed dispatch a token-budget
+    serving run made (its row table and block size as recorded; random bf16
+    q and K/V, a random bf16 or int8 pool), timed beside its plain version,
+    one SDPA call on the same work laid out dense with a block-diagonal
+    causal mask (the prefix gather, and for an int8 pool its dequantisation
+    to bf16, excluded), and its bound on this card."""
     import torch.nn.functional as F
 
     from dynamo_tpu_torch.ops.kernels.ragged_prefill_attention import (
-        ragged_paged_prefill_attention, ragged_prefill_attention_ref)
+        ragged_paged_prefill_attention, ragged_paged_prefill_attention_q8,
+        ragged_prefill_attention_ref)
+    from dynamo_tpu_torch.ops.kv_quant import gather_layer_blocks
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
-    t, bt, lens, starts, offs = (mixed[k] for k in ("t", "bt", "lens", "starts", "offs"))
-    cache = torch.randn((L, int(bt.max()) + 1, 2, BS, HK * D), generator=gen,
-                        device="cuda").to(torch.bfloat16)
+    t, bt, lens, starts, offs, bs = (mixed[k] for k in ("t", "bt", "lens", "starts", "offs", "bs"))
+    n_blocks = int(bt.max()) + 1
+    if quant:
+        cache = _q8_cache(torch, gen, n_blocks, HK, D, bs)
+    else:
+        cache = torch.randn((L, n_blocks, 2, bs, HK * D), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+    kernel = ragged_paged_prefill_attention_q8 if quant else ragged_paged_prefill_attention
     q = torch.randn((1, t, H, D), generator=gen, device="cuda").to(torch.bfloat16)
     k = torch.randn((1, t, HK, D), generator=gen, device="cuda").to(torch.bfloat16)
     v = torch.randn((1, t, HK, D), generator=gen, device="cuda").to(torch.bfloat16)
     rows = (_ints(torch, lens), _ints(torch, starts), _ints(torch, offs))
     # successive launches walk the 32 layers, as a serving dispatch does
-    kernel_ms = cuda_time_ms(lambda i: ragged_paged_prefill_attention(
-        q, k, v, cache, i % L, bt, *rows), 32)
+    kernel_ms = cuda_time_ms(lambda i: kernel(q, k, v, cache, i % L, bt, *rows), 32)
     plain_ms = cuda_time_ms(lambda i: ragged_prefill_attention_ref(
         q, k, v, cache, i % L, bt, *rows), 3, warmup=1)
-    err = compare(torch, "ragged at the serving dispatch",
-                  ragged_paged_prefill_attention(q, k, v, cache, LAYER, bt, *rows),
+    label = "int8 ragged" if quant else "ragged"
+    err = compare(torch, f"{label} at the serving dispatch",
+                  kernel(q, k, v, cache, LAYER, bt, *rows),
                   ragged_prefill_attention_ref(q, k, v, cache, LAYER, bt, *rows))
     # what the decode rows cost: each streams its prefix through a whole
     # 64-row tile with one token's rows live.  The same dispatch with the
@@ -421,8 +757,7 @@ def ragged_timing(torch, card: str, mixed: dict) -> dict:
     dec = [r for r, (st, n, o) in enumerate(zip(starts, lens, offs)) if n - st == 1 and o == r]
     spans_only = [st if r in dec else n for r, (st, n) in enumerate(zip(starts, lens))]
     spans_rows = (_ints(torch, spans_only), rows[1], rows[2])
-    spans_ms = cuda_time_ms(lambda i: ragged_paged_prefill_attention(
-        q, k, v, cache, i % L, bt, *spans_rows), 32)
+    spans_ms = cuda_time_ms(lambda i: kernel(q, k, v, cache, i % L, bt, *spans_rows), 32)
 
     # dense layout: each live row's queries; its prefix then its fresh keys
     qs, ks, vs, spans = [], [], [], []
@@ -431,9 +766,9 @@ def ragged_timing(torch, card: str, mixed: dict) -> dict:
         f = n - st
         if f <= 0:
             continue
-        blocks = bt[r, :-(-st // BS)].long()
-        ks += [cache[LAYER, blocks, 0].reshape(-1, HK, D)[:st], k[0, o:o + f]]
-        vs += [cache[LAYER, blocks, 1].reshape(-1, HK, D)[:st], v[0, o:o + f]]
+        kv = gather_layer_blocks(cache, LAYER, bt[r, :-(-st // bs)], HK).to(torch.bfloat16)
+        ks += [kv[:, 0].reshape(-1, HK, D)[:st], k[0, o:o + f]]
+        vs += [kv[:, 1].reshape(-1, HK, D)[:st], v[0, o:o + f]]
         qs.append(q[0, o:o + f])
         spans.append((u, st, f))
         u += st + f
@@ -452,13 +787,12 @@ def ragged_timing(torch, card: str, mixed: dict) -> dict:
 
     r_rows, m = bt.shape
     flops = 4 * H * D * ragged_work(starts, lens)
-    nbytes = (2 * (2 * t * H * D + 2 * t * HK * D) + 2 * 2 * sum(starts) * HK * D
-              + 4 * (r_rows * m + 3 * r_rows))
-    t_ops, t_bytes = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
-    out = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-               bound_ms=1e3 * max(t_ops, t_bytes),
-               bound_by="operations" if t_ops >= t_bytes else "bytes")
-    log(f"time ragged T={t} rows={len(spans)}, starts {starts}, seq_lens {lens}: kernel "
+    # q, out and the fresh K/V bf16; each row's prefix K/V, bf16 or int8
+    # plus the f32 scale of each (token, KV head, K or V); the tables
+    prefix = 2 * sum(starts) * HK * (D + 4 if quant else 2 * D)
+    nbytes = 2 * (2 * t * H * D + 2 * t * HK * D) + prefix + 4 * (r_rows * m + 3 * r_rows)
+    out = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, **_bound(flops, nbytes))
+    log(f"time {label} T={t} Bs={bs} rows={len(spans)}, starts {starts}, seq_lens {lens}: kernel "
         f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
         f"{out['bound_ms']:.4f} ms ({out['bound_by']}), max abs err {err:.3g}; without its "
         f"{len(dec)} decode rows the kernel takes {spans_ms:.4f} ms ({card})")
@@ -508,13 +842,15 @@ async def _serve(engine, reqs):
 
 
 def _kernel_wrappers() -> dict:
-    from dynamo_tpu_torch.ops.kernels.decode_attention import paged_decode_attention
-    from dynamo_tpu_torch.ops.kernels.prefill_attention import paged_prefill_attention
-    from dynamo_tpu_torch.ops.kernels.ragged_prefill_attention import (
-        ragged_paged_prefill_attention)
+    from dynamo_tpu_torch.ops.kernels import decode_attention as dec
+    from dynamo_tpu_torch.ops.kernels import int8_matmul as mm
+    from dynamo_tpu_torch.ops.kernels import prefill_attention as pre
+    from dynamo_tpu_torch.ops.kernels import ragged_prefill_attention as rag
 
-    return {"decode": paged_decode_attention, "prefill": paged_prefill_attention,
-            "ragged": ragged_paged_prefill_attention}
+    return {"decode": dec.paged_decode_attention, "prefill": pre.paged_prefill_attention,
+            "ragged": rag.ragged_paged_prefill_attention,
+            "decode_q8": dec.paged_decode_attention_q8, "prefill_q8": pre.paged_prefill_attention_q8,
+            "ragged_q8": rag.ragged_paged_prefill_attention_q8, "matmul": mm.int8_matmul}
 
 
 def serve_run(torch, model, config: dict, card: str, label: str, profile: bool = False) -> dict:
@@ -574,28 +910,30 @@ def serve_run(torch, model, config: dict, card: str, label: str, profile: bool =
 
 
 @contextlib.contextmanager
-def recorded_ragged_calls():
+def recorded_ragged_calls(name: str = "ragged_paged_prefill_attention"):
     """Record the row table of every ragged attention call the model makes
     at layer 0 (one per dispatch), by wrapping the routing's reference to
-    the kernel's wrapper; the wrapper itself, and its launch count, are
-    untouched."""
+    the kernel's wrapper ``name`` (the bf16 or the int8 one); the wrapper
+    itself, and its launch count, are untouched."""
     from dynamo_tpu_torch.ops import paged_attention as routing
+    from dynamo_tpu_torch.ops.kv_quant import cache_data
 
-    real = routing.ragged_paged_prefill_attention
+    real = getattr(routing, name)
     calls = []
 
     def recording(q, k_new, v_new, cache, layer, block_tables, seq_lens, starts, row_offsets,
                   *args, **kw):
         if layer == 0:
-            calls.append((q.shape[1], block_tables, seq_lens, starts, row_offsets))
+            calls.append((q.shape[1], block_tables, seq_lens, starts, row_offsets,
+                          cache_data(cache).shape[3]))
         return real(q, k_new, v_new, cache, layer, block_tables, seq_lens, starts, row_offsets,
                     *args, **kw)
 
-    routing.ragged_paged_prefill_attention = recording
+    setattr(routing, name, recording)
     try:
         yield calls
     finally:
-        routing.ragged_paged_prefill_attention = real
+        setattr(routing, name, real)
 
 
 def ragged_work(starts, lens) -> int:
@@ -608,13 +946,13 @@ def largest_mixed(calls) -> dict:
     """The recorded dispatch with the most attention work among those that
     mix decode rows (1-token rows at the head of the axis) with spans."""
     best = None
-    for t, bt, lens, starts, offs in calls:
+    for t, bt, lens, starts, offs, bs in calls:
         lens, starts, offs = lens.tolist(), starts.tolist(), offs.tolist()
         fresh = [n - st for n, st in zip(lens, starts)]
         mixed = fresh and fresh[0] == 1 and offs[0] == 0 and max(fresh) > 1
         if mixed and (best is None or ragged_work(starts, lens) > ragged_work(best["starts"],
                                                                                best["lens"])):
-            best = dict(t=t, bt=bt, lens=lens, starts=starts, offs=offs)
+            best = dict(t=t, bt=bt, lens=lens, starts=starts, offs=offs, bs=bs)
     check(best is not None, "the token-budget run made no mixed dispatch")
     return best
 
@@ -631,24 +969,66 @@ def serving_phase(torch, card: str):
     torch.cuda.synchronize()
     log(f"serving: Llama-3-8B, {cfg.num_layers} layers, random weights in "
         f"{time.perf_counter() - t0:.1f} s")
-    default = serve_run(torch, model, DEFAULT_PATH, card, "default path", profile=True)
-    check(default["launches"]["decode"] > 0 and default["launches"]["prefill"] > 0,
-          f"a kernel was not launched on the default path: {default['launches']}")
-    torch.cuda.empty_cache()  # the first engine and its cache are gone
-    with recorded_ragged_calls() as calls:
-        budget = serve_run(torch, model, BUDGET_PATH, card, "token-budget path")
-    m = budget["metrics"]
-    check(budget["launches"]["ragged"] > 0 and budget["launches"]["decode"] > 0,
-          f"a kernel was not launched on the token-budget path: {budget['launches']}")
-    check(m["unified_dispatches_total"] > 0 and m["lookahead_bursts_total"] > 0,
-          f"the token-budget path made no mixed dispatch or no burst: {m}")
-    same = sum(a == b for a, b in zip(default["streams"], budget["streams"]))
-    log(f"serving: {same} of {len(default['streams'])} token-budget streams equal the default "
-        f"path's (informational: the kernels round bf16 at different places) ({card})")
-    mixed = largest_mixed(calls)
-    del model, calls
+    default, budget, mixed = serve_both(torch, model, card, quant=False)
+    del model
     torch.cuda.empty_cache()
     return default, budget, mixed
+
+
+def serve_both(torch, model, card: str, quant: bool):
+    """The default path then the token-budget path on one model; checks
+    that each run launched its path's kernels and none of the other cache
+    kind's attention kernels.  Returns both runs and the largest mixed
+    dispatch of the second."""
+    tag = "int8 " if quant else ""
+    q8 = "_q8" if quant else ""
+    other = (("decode", "prefill", "ragged") if quant
+             else ("decode_q8", "prefill_q8", "ragged_q8", "matmul"))
+    default = serve_run(torch, model, INT8_DEFAULT_PATH if quant else DEFAULT_PATH, card,
+                        f"{tag}default path", profile=True)
+    need = ["decode" + q8, "prefill" + q8] + (["matmul"] if quant else [])
+    check(all(default["launches"][k] > 0 for k in need) and
+          not any(default["launches"][k] for k in other),
+          f"{tag}default path: launches {default['launches']}, need {need} > 0, {other} = 0")
+    torch.cuda.empty_cache()  # the first engine and its cache are gone
+    with recorded_ragged_calls("ragged_paged_prefill_attention" + q8) as calls:
+        budget = serve_run(torch, model, INT8_BUDGET_PATH if quant else BUDGET_PATH, card,
+                           f"{tag}token-budget path")
+    m = budget["metrics"]
+    need = ["ragged" + q8, "decode" + q8] + (["matmul"] if quant else [])
+    check(all(budget["launches"][k] > 0 for k in need) and
+          not any(budget["launches"][k] for k in other),
+          f"{tag}token-budget path: launches {budget['launches']}, need {need} > 0, {other} = 0")
+    check(m["unified_dispatches_total"] > 0 and m["lookahead_bursts_total"] > 0,
+          f"the {tag}token-budget path made no mixed dispatch or no burst: {m}")
+    same = sum(a == b for a, b in zip(default["streams"], budget["streams"]))
+    log(f"serving: {same} of {len(default['streams'])} {tag}token-budget streams equal the "
+        f"default path's (informational: the kernels round bf16 at different places) ({card})")
+    mixed = largest_mixed(calls)
+    del calls
+    torch.cuda.empty_cache()
+    return default, budget, mixed
+
+
+def serving_phase_q8(torch, card: str):
+    """The two serving runs on Llama-3-8B with int8 weights (drawn directly
+    on the card, the bf16 model never made) and an int8 KV cache."""
+    from dynamo_tpu_torch.models.convert import init_params
+    from dynamo_tpu_torch.models.llama import LlamaModel
+
+    cfg = llama3_8b()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    model = LlamaModel.from_state(cfg, init_params(cfg, gen, device="cuda", quantized=True))
+    torch.cuda.synchronize()
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"serving: Llama-3-8B int8, {cfg.num_layers} layers, {weights / 1e9:.2f} GB of random "
+        f"weights in {time.perf_counter() - t0:.1f} s")
+    out = serve_both(torch, model, card, quant=True)
+    del model
+    torch.cuda.empty_cache()
+    return out
 
 
 def profile_serving(torch, engine, reqs, card: str) -> None:
@@ -674,15 +1054,15 @@ def profile_serving(torch, engine, reqs, card: str) -> None:
 
 
 # ------------------------------------------------------------------- parity
-def _forward_logits(torch, model, device, prompt, steps, prefix):
+def _forward_logits(torch, model, device, prompt, steps, prefix, bs=BS, cache_dtype=None):
     """Prefill ``prompt[:prefix]``, then the rest over that cached prefix
     (prefill kernel with start > 0), then ``steps`` single-token decode
     steps teacher-forced with ``steps`` fixed tokens; returns the logits
     at the last position of each dispatch after the first."""
-    bs, m = BS, 2048 // BS
+    m = 2048 // bs
     n = len(prompt) + len(steps)
     nb = -(-n // bs)
-    cache = model.init_kv_cache(nb + 1, bs)
+    cache = model.init_kv_cache(nb + 1, bs, cache_dtype)
     bt = torch.zeros((1, m), dtype=torch.int32, device=device)
     bt[0, :nb] = torch.arange(1, nb + 1, dtype=torch.int32)
     logits = []
@@ -707,20 +1087,21 @@ def _forward_logits(torch, model, device, prompt, steps, prefix):
     return torch.cat(logits)
 
 
-def _ragged_logits(torch, model, device, dispatches):
+def _ragged_logits(torch, model, device, dispatches, bs=BS, cache_dtype=None):
     """Run ragged dispatches over a fresh cache; each is (rows, region)
     with rows (tokens, start, block table) laid out by
     :func:`ragged_layout`.  Returns the logits at every row's last token."""
-    m = 2048 // BS
+    m = 2048 // bs
     n_blocks = 1 + max(b for rows, _ in dispatches for _, _, table in rows for b in table)
-    cache = model.init_kv_cache(n_blocks, BS)
+    cache = model.init_kv_cache(n_blocks, bs, cache_dtype)
     logits = []
 
     def ints(xs):
         return torch.tensor(xs, dtype=torch.int32, device=device)
 
     for rows, region in dispatches:
-        t, starts, lens, offs = ragged_layout([(st, len(toks)) for toks, st, _ in rows], region, 0)
+        t, starts, lens, offs = ragged_layout([(st, len(toks)) for toks, st, _ in rows], region, 0,
+                                              bs)
         tokens = torch.zeros((1, t), dtype=torch.int32)
         pos = torch.zeros((1, t), dtype=torch.int32)
         slot = torch.full((1, t), -1, dtype=torch.int32)
@@ -732,9 +1113,9 @@ def _ragged_logits(torch, model, device, dispatches):
             tokens[0, o:o + n] = torch.tensor(toks, dtype=torch.int32)
             p = torch.arange(st, st + n)
             pos[0, o:o + n] = p
-            slot[0, o:o + n] = bt[r, p // BS] * BS + p % BS
+            slot[0, o:o + n] = bt[r, p // bs] * bs + p % bs
             seq_ids[0, o:o + n] = r
-        max_pb = max(-(-st // BS) for st in starts)
+        max_pb = max(-(-st // bs) for st in starts)
         pb = 0 if max_pb == 0 else min(m, 1 << (max_pb - 1).bit_length())
         last = torch.tensor([o + n - st - 1 for st, n, o in zip(starts, lens, offs)])
         hidden, _ = model.forward(tokens.to(device), pos.to(device), cache, bt.to(device),
@@ -756,7 +1137,10 @@ def _hold_logits(torch, what: str, a, b, card: str) -> None:
     check(max_rel <= PARITY_MAX_REL, f"parity {what}: max rel {max_rel} > {PARITY_MAX_REL}")
 
 
-def parity_phase(torch, card: str) -> None:
+def parity_phase(torch, card: str, quant: bool = False) -> None:
+    """A 2-layer model at 8B width on the card and on the CPU, the same
+    weights on both: bf16 weights with a bf16 cache (Bs = 16), or int8
+    weights with an int8 cache (``quant``, Bs = 32)."""
     import numpy as np
 
     from dynamo_tpu_torch.models.convert import init_params
@@ -765,18 +1149,23 @@ def parity_phase(torch, card: str) -> None:
     cfg = llama3_8b(2)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    state = init_params(cfg, gen, device="cuda")
+    state = init_params(cfg, gen, device="cuda", quantized=quant)
     gpu = LlamaModel.from_state(cfg, state)
     cpu_cfg = llama3_8b(2)
     cpu_cfg.dtype = "float32"
-    cpu = LlamaModel.from_state(cpu_cfg, {k: v.float().cpu() for k, v in state.items()})
+    # int8 codes and f32 scales as they are; bf16 tensors in f32
+    cpu = LlamaModel.from_state(cpu_cfg, {
+        k: (v if v.dtype in (torch.int8, torch.float32) else v.float()).cpu()
+        for k, v in state.items()})
+    bs, kv = (BS_Q8, "int8") if quant else (BS, None)
+    tag = "int8 weights and cache, " if quant else ""
     rng = np.random.default_rng(1)
     prompt = rng.integers(0, cfg.vocab_size, 300).tolist()
     steps = rng.integers(0, cfg.vocab_size, 8).tolist()
-    _hold_logits(torch, "default path: 2-layer 8B width, 300-token prompt over a 128-token "
-                 "prefix + 8 decode steps",
-                 _forward_logits(torch, gpu, torch.device("cuda"), prompt, steps, prefix=128),
-                 _forward_logits(torch, cpu, torch.device("cpu"), prompt, steps, prefix=128),
+    _hold_logits(torch, f"default path: 2-layer 8B width, {tag}300-token prompt over a "
+                 "128-token prefix + 8 decode steps",
+                 _forward_logits(torch, gpu, torch.device("cuda"), prompt, steps, 128, bs, kv),
+                 _forward_logits(torch, cpu, torch.device("cpu"), prompt, steps, 128, bs, kv),
                  card)
 
     # a packed prefill of A, B and C's head, then a mixed dispatch: decode
@@ -785,18 +1174,20 @@ def parity_phase(torch, card: str) -> None:
     x, y = rng.integers(0, cfg.vocab_size, 2).tolist()
     tables, nxt = [], 1
     for n in (201, 98, 300, 150):
-        nb = -(-n // BS)
+        nb = -(-n // bs)
         tables.append(list(range(nxt, nxt + nb)))
         nxt += nb
     dispatches = [
         ([(a, 0, tables[0]), (b, 0, tables[1]), (c[:128], 0, tables[2])], 0),
         ([([x], 200, tables[0]), ([y], 97, tables[1]), (d, 0, tables[3]),
-          (c[128:], 128, tables[2])], 16),
+          (c[128:], 128, tables[2])], bs),
     ]
-    _hold_logits(torch, "ragged: 2-layer 8B width, packed prefill of 3 spans, then 2 decode "
-                 "rows + 2 spans",
-                 _ragged_logits(torch, gpu, torch.device("cuda"), dispatches),
-                 _ragged_logits(torch, cpu, torch.device("cpu"), dispatches), card)
+    _hold_logits(torch, f"ragged: 2-layer 8B width, {tag}packed prefill of 3 spans, then 2 "
+                 "decode rows + 2 spans",
+                 _ragged_logits(torch, gpu, torch.device("cuda"), dispatches, bs, kv),
+                 _ragged_logits(torch, cpu, torch.device("cpu"), dispatches, bs, kv), card)
+    del gpu, cpu, state
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------- main
@@ -822,15 +1213,22 @@ def main() -> int:
         log(f"build: {time.perf_counter() - t0:.1f} s ({card})")
         errs = kernel_phase(torch)
         times = timing_phase(torch, card)
+        times.update(q8_timing_phase(torch, card))
+        times.update(matmul_timing(torch, card))
         default, budget, mixed = serving_phase(torch, card)
         times["ragged"] = ragged_timing(torch, card, mixed)
         times["ragged_err"] = times["ragged"].pop("err")
+        q8_default, q8_budget, q8_mixed = serving_phase_q8(torch, card)
+        times["ragged_q8"] = ragged_timing(torch, card, q8_mixed, quant=True)
+        times["ragged_q8_err"] = times["ragged_q8"].pop("err")
         parity_phase(torch, card)
+        parity_phase(torch, card, quant=True)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     # launches: each kernel's count over the serving run of the path it
-    # carries (decode and prefill: the default path; ragged: the token-budget path)
+    # carries (decode and prefill: the default path; ragged: the token-budget
+    # path; the int8 kernels: the same paths on the int8 model)
     kernels = [
         dict(name="paged_decode_attention", route="cuda",
              source="dynamo_tpu_torch/csrc/decode_attention.cu",
@@ -847,6 +1245,26 @@ def main() -> int:
              replaces="dynamo_tpu/ops/pallas/prefill_attention.py:593",
              launches=budget["launches"]["ragged"],
              max_abs_err=max(errs["ragged"], times["ragged_err"]), **times["ragged"]),
+        dict(name="paged_decode_attention_q8", route="cuda",
+             source="dynamo_tpu_torch/csrc/decode_attention.cu",
+             replaces="dynamo_tpu/ops/pallas/decode_attention.py:94",
+             launches=q8_default["launches"]["decode_q8"],
+             max_abs_err=max(errs["decode_q8"], times["decode_q8_err"]), **times["decode_q8"]),
+        dict(name="paged_prefill_attention_q8", route="cuda",
+             source="dynamo_tpu_torch/csrc/prefill_attention.cu",
+             replaces="dynamo_tpu/ops/pallas/prefill_attention.py:57",
+             launches=q8_default["launches"]["prefill_q8"],
+             max_abs_err=max(errs["prefill_q8"], times["prefill_q8_err"]), **times["prefill_q8"]),
+        dict(name="ragged_paged_prefill_attention_q8", route="cuda",
+             source="dynamo_tpu_torch/csrc/ragged_prefill_attention.cu",
+             replaces="dynamo_tpu/ops/pallas/prefill_attention.py:384",
+             launches=q8_budget["launches"]["ragged_q8"],
+             max_abs_err=max(errs["ragged_q8"], times["ragged_q8_err"]), **times["ragged_q8"]),
+        dict(name="int8_matmul", route="cuda",
+             source="dynamo_tpu_torch/csrc/int8_matmul.cu",
+             replaces="dynamo_tpu/ops/pallas/int8_matmul.py:64",
+             launches=q8_default["launches"]["matmul"],
+             max_abs_err=max(errs["matmul"], times["matmul_err"]), **times["matmul"]),
     ]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,11 @@
 // Paged decode attention for Hopper (sm_90a).
 //
 // Replaces the TPU kernel dynamo_tpu/ops/pallas/decode_attention.py,
-// paged_decode_attention_mq (bf16 body _kernel -> _kernel_impl): flash
-// decoding over the paged KV cache [L, N, 2, Bs, Hk*D] at a runtime layer
-// index.  Each batch row has S trailing queries at positions q0 .. q0+S-1;
+// paged_decode_attention_mq, both of its bodies: bf16 (_kernel ->
+// _kernel_impl) and int8 (_kernel_quant, over a QuantKvCache: int8 payload
+// [L, N, 2, Bs, Hk*D] plus per-(token, KV head) f32 scales [L, N, 2, Hp, Sp]).
+// Flash decoding over the paged KV cache [L, N, 2, Bs, Hk*D] at a runtime
+// layer index.  Each batch row has S trailing queries at positions q0 .. q0+S-1;
 // query s sees cache slots [0, seq_len) of the row's block table with
 // slot <= q0 + s.  GQA, optional tanh softcap.  Rows with seq_len == 0
 // come out exactly 0.
@@ -28,8 +30,20 @@
 // step were answers to the MXU and to a sequential grid; here blocks run in
 // parallel and the scores are f32 dot products from shared memory.
 //
+// Over an int8 cache the bound is the int8 payload plus the scales of the
+// live context, half the bf16 bytes.  A key's int8 K and V rows are
+// converted and multiplied by their scales as they are staged in f32
+// shared memory, so the scores are (q * sm_scale) . (K * k_scale) and the
+// PV product sums p * (V * v_scale): the TPU kernel's column rescales of S
+// and P in f32, associated differently, and the softmax max and sum (and
+// the split-K partials' l) see the unscaled probabilities.  Dead slots
+// stage zeros and read no scale, so a NaN in a dead slot's scale or pad
+// lane never reaches the output.
+//
 // Not yet done (later work): cp.async/TMA double buffering of the K/V
 // tiles, tensor-core scores for the S > 1 shapes.
+#include <type_traits>
+
 #include "attention_common.cuh"
 
 namespace dynamo {
@@ -86,6 +100,12 @@ __device__ inline void store_bf16x8(const uint4& raw, float scale, float* dst) {
   reinterpret_cast<float4*>(dst)[1] = make_float4(f[4], f[5], f[6], f[7]);
 }
 
+// A cache row's 8 values as f32 times `scale`, into shared memory.
+template <class E>
+__device__ inline void stage8(const E* row, int part, float scale, float* dst) {
+  store_bf16x8(load8_bf16(row, part), scale, dst);
+}
+
 __device__ inline void store_zero8(float* dst) {
   reinterpret_cast<float4*>(dst)[0] = make_float4(0.f, 0.f, 0.f, 0.f);
   reinterpret_cast<float4*>(dst)[1] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -95,7 +115,9 @@ __device__ inline void store_zero8(float* dst) {
 // into the block's rows: load (dead keys as zeros), scores with mask and
 // softcap, online softmax (one warp per row), PV with thread d owning
 // output column d of every row in registers.
-template <int D, int RMAX, class KvPtr>
+// kv_ptr(pos, &k_row, &v_row, &k_scale, &v_scale) gives key pos's rows
+// (bf16 or int8) and their scales (1 for bf16).
+template <int D, int RMAX, class E, class KvPtr>
 __device__ void attend_tile(const Smem<D>& sm, int rows, int group, int t0, int n_live, int q0,
                             float logit_cap, KvPtr kv_ptr, float (&acc)[RMAX]) {
   using G = Geometry<D>;
@@ -104,11 +126,12 @@ __device__ void attend_tile(const Smem<D>& sm, int rows, int group, int t0, int 
     float* kd = sm.k + (size_t)j * G::kStride + part * 8;
     float* vd = sm.v + (size_t)j * G::kStride + part * 8;
     if (j < n_live) {
-      const __nv_bfloat16* kr;
-      const __nv_bfloat16* vr;
-      kv_ptr(t0 + j, &kr, &vr);
-      store_bf16x8(__ldg(reinterpret_cast<const uint4*>(kr) + part), 1.f, kd);
-      store_bf16x8(__ldg(reinterpret_cast<const uint4*>(vr) + part), 1.f, vd);
+      const E* kr;
+      const E* vr;
+      float sk, sv;
+      kv_ptr(t0 + j, &kr, &vr, &sk, &sv);
+      stage8(kr, part, sk, kd);
+      stage8(vr, part, sv, vd);
     } else {
       store_zero8(kd);
       store_zero8(vd);
@@ -187,13 +210,15 @@ __device__ void attend_tile(const Smem<D>& sm, int rows, int group, int t0, int 
 // Pass 1: block (b, head, chunk) attends slots [chunk * split, (chunk + 1) *
 // split) of row b and writes its unnormalised partials: acc [rows][D], m and
 // l [rows], at (b, head, chunk) of the workspace.
-template <int D, int RMAX>
+// E is the cache's element type: __nv_bfloat16, or int8_t with `scale`
+// the int8 cache's scale pool [L, N, 2, Hp, Sp] (unused for bf16).
+template <int D, int RMAX, class E>
 __global__ void __launch_bounds__(D)
-decode_split_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ cache,
-                    const int* __restrict__ block_tables, const int* __restrict__ seq_lens,
-                    const int* __restrict__ q0_pos, float* __restrict__ ws_acc,
-                    float* __restrict__ ws_ml, int S, int H, int Hk, int N, int Bs, int M, int layer,
-                    int split, float sm_scale, float logit_cap) {
+decode_split_kernel(const __nv_bfloat16* __restrict__ q, const E* __restrict__ cache,
+                    const float* __restrict__ scale, const int* __restrict__ block_tables,
+                    const int* __restrict__ seq_lens, const int* __restrict__ q0_pos,
+                    float* __restrict__ ws_acc, float* __restrict__ ws_ml, int S, int H, int Hk, int N,
+                    int Bs, int M, int layer, int Hp, int Sp, int split, float sm_scale, float logit_cap) {
   using G = Geometry<D>;
   extern __shared__ float4 smem_raw[];
   const int b = blockIdx.x, head = blockIdx.y, chunk = blockIdx.z, n_chunks = gridDim.z;
@@ -231,14 +256,20 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   const int* table = block_tables + (size_t)b * M;
   const int last_block = min((seq_len - 1) / Bs, M - 1);
   const int hkd = Hk * D;
-  auto kv = [&](int pos, const __nv_bfloat16** kr, const __nv_bfloat16** vr) {
+  auto kv = [&](int pos, const E** kr, const E** vr, float* sk, float* sv) {
     const int bid = min(max(table[min(pos / Bs, last_block)], 0), N - 1);
     *kr = cache_row(cache, layer, N, Bs, hkd, bid, 0, pos % Bs, head, D);
     *vr = cache_row(cache, layer, N, Bs, hkd, bid, 1, pos % Bs, head, D);
+    if constexpr (std::is_same<E, __nv_bfloat16>::value) {
+      *sk = *sv = 1.f;
+    } else {
+      *sk = cache_scale(scale, layer, N, Hp, Sp, bid, 0, head, pos % Bs);
+      *sv = cache_scale(scale, layer, N, Hp, Sp, bid, 1, head, pos % Bs);
+    }
   };
   const int q0 = q0_pos[b];
   for (int t0 = c0; t0 < c1; t0 += G::kTile)
-    attend_tile<D, RMAX>(sm, rows, group, t0, min(G::kTile, c1 - t0), q0, logit_cap, kv, acc);
+    attend_tile<D, RMAX, E>(sm, rows, group, t0, min(G::kTile, c1 - t0), q0, logit_cap, kv, acc);
 
   float* acc_out = ws_acc + part * rows * D;
 #pragma unroll
@@ -278,11 +309,11 @@ decode_merge_kernel(const float* __restrict__ ws_acc, const float* __restrict__ 
   }
 }
 
-template <int D, int RMAX>
-cudaError_t launch(const void* q, const void* cache, const void* bt, const void* lens, const void* q0,
-                   void* out, void* ws, int B, int S, int H, int Hk, int N, int Bs, int M, int layer,
-                   int split, float sm_scale, float logit_cap, cudaStream_t stream) {
-  auto kernel = decode_split_kernel<D, RMAX>;
+template <int D, int RMAX, class E>
+cudaError_t launch(const void* q, const void* cache, const void* scale, const void* bt, const void* lens,
+                   const void* q0, void* out, void* ws, int B, int S, int H, int Hk, int N, int Bs, int M,
+                   int layer, int Hp, int Sp, int split, float sm_scale, float logit_cap, cudaStream_t stream) {
+  auto kernel = decode_split_kernel<D, RMAX, E>;
   const int rows = S * (H / Hk);
   const size_t smem = Geometry<D>::smem_bytes(rows);
   cudaError_t err = allow_smem(kernel, smem);
@@ -291,9 +322,9 @@ cudaError_t launch(const void* q, const void* cache, const void* bt, const void*
   float* ws_acc = static_cast<float*>(ws);
   float* ws_ml = ws_acc + (size_t)B * Hk * n_chunks * rows * D;
   kernel<<<dim3(B, Hk, n_chunks), Geometry<D>::kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(cache),
+      static_cast<const __nv_bfloat16*>(q), static_cast<const E*>(cache), static_cast<const float*>(scale),
       static_cast<const int*>(bt), static_cast<const int*>(lens), static_cast<const int*>(q0), ws_acc,
-      ws_ml, S, H, Hk, N, Bs, M, layer, split, sm_scale, logit_cap);
+      ws_ml, S, H, Hk, N, Bs, M, layer, Hp, Sp, split, sm_scale, logit_cap);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   decode_merge_kernel<D><<<dim3(B, Hk), D, 0, stream>>>(ws_acc, ws_ml, static_cast<__nv_bfloat16*>(out),
@@ -301,25 +332,42 @@ cudaError_t launch(const void* q, const void* cache, const void* bt, const void*
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_rows(const void* q, const void* cache, const void* bt, const void* lens, const void* q0,
-                        void* out, void* ws, int B, int S, int H, int Hk, int N, int Bs, int M, int layer,
-                        int split, float sm_scale, float logit_cap, cudaStream_t stream) {
+template <int D, class E>
+cudaError_t launch_rows(const void* q, const void* cache, const void* scale, const void* bt, const void* lens,
+                        const void* q0, void* out, void* ws, int B, int S, int H, int Hk, int N, int Bs, int M,
+                        int layer, int Hp, int Sp, int split, float sm_scale, float logit_cap,
+                        cudaStream_t stream) {
   const int rows = S * (H / Hk);
   if (split <= 0 || split % Geometry<D>::kTile) return cudaErrorInvalidValue;
-  if (rows <= 8)
-    return launch<D, 8>(q, cache, bt, lens, q0, out, ws, B, S, H, Hk, N, Bs, M, layer, split, sm_scale,
-                        logit_cap, stream);
-  if (rows <= 16)
-    return launch<D, 16>(q, cache, bt, lens, q0, out, ws, B, S, H, Hk, N, Bs, M, layer, split, sm_scale,
-                         logit_cap, stream);
-  if (rows <= 32)
-    return launch<D, 32>(q, cache, bt, lens, q0, out, ws, B, S, H, Hk, N, Bs, M, layer, split, sm_scale,
-                         logit_cap, stream);
-  if (rows <= kMaxRows)
-    return launch<D, kMaxRows>(q, cache, bt, lens, q0, out, ws, B, S, H, Hk, N, Bs, M, layer, split,
-                               sm_scale, logit_cap, stream);
+#define DYNAMO_DECODE_LAUNCH(RMAX)                                                                          \
+  return launch<D, RMAX, E>(q, cache, scale, bt, lens, q0, out, ws, B, S, H, Hk, N, Bs, M, layer, Hp, Sp, \
+                            split, sm_scale, logit_cap, stream)
+  if (rows <= 8) DYNAMO_DECODE_LAUNCH(8);
+  if (rows <= 16) DYNAMO_DECODE_LAUNCH(16);
+  if (rows <= 32) DYNAMO_DECODE_LAUNCH(32);
+  if (rows <= kMaxRows) DYNAMO_DECODE_LAUNCH(kMaxRows);
+#undef DYNAMO_DECODE_LAUNCH
   return cudaErrorInvalidValue;
+}
+
+template <class E>
+int dispatch(const void* q, const void* cache, const void* scale, const void* bt, const void* lens,
+             const void* q0, void* out, void* ws, int B, int S, int H, int Hk, int D, int N, int Bs, int M,
+             int layer, int Hp, int Sp, int split, float sm_scale, float logit_cap, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64:
+      return launch_rows<64, E>(q, cache, scale, bt, lens, q0, out, ws, B, S, H, Hk, N, Bs, M, layer, Hp, Sp,
+                                split, sm_scale, logit_cap, st);
+    case 128:
+      return launch_rows<128, E>(q, cache, scale, bt, lens, q0, out, ws, B, S, H, Hk, N, Bs, M, layer, Hp, Sp,
+                                 split, sm_scale, logit_cap, st);
+    case 256:
+      return launch_rows<256, E>(q, cache, scale, bt, lens, q0, out, ws, B, S, H, Hk, N, Bs, M, layer, Hp, Sp,
+                                 split, sm_scale, logit_cap, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -335,19 +383,18 @@ extern "C" int dynamo_decode_attention(const void* q, const void* cache, const v
                                        const void* seq_lens, const void* q0_pos, void* out, void* workspace,
                                        int B, int S, int H, int Hk, int D, int N, int Bs, int M, int layer,
                                        int split, float sm_scale, float logit_cap, void* stream) {
-  using namespace dynamo;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64:
-      return launch_rows<64>(q, cache, block_tables, seq_lens, q0_pos, out, workspace, B, S, H, Hk, N, Bs,
-                             M, layer, split, sm_scale, logit_cap, st);
-    case 128:
-      return launch_rows<128>(q, cache, block_tables, seq_lens, q0_pos, out, workspace, B, S, H, Hk, N,
-                              Bs, M, layer, split, sm_scale, logit_cap, st);
-    case 256:
-      return launch_rows<256>(q, cache, block_tables, seq_lens, q0_pos, out, workspace, B, S, H, Hk, N,
-                              Bs, M, layer, split, sm_scale, logit_cap, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return dynamo::dispatch<__nv_bfloat16>(q, cache, nullptr, block_tables, seq_lens, q0_pos, out, workspace, B,
+                                         S, H, Hk, D, N, Bs, M, layer, 0, 0, split, sm_scale, logit_cap, stream);
+}
+
+// The same over an int8 cache: cache [L, N, 2, Bs, Hk*D] int8 and scale
+// [L, N, 2, Hp, Sp] f32 (token-minor, tile-padded; the valid region is
+// [:Hk, :Bs]).  The other arguments as above.
+extern "C" int dynamo_decode_attention_q8(const void* q, const void* cache, const void* scale,
+                                          const void* block_tables, const void* seq_lens, const void* q0_pos,
+                                          void* out, void* workspace, int B, int S, int H, int Hk, int D, int N,
+                                          int Bs, int M, int layer, int split, int Hp, int Sp, float sm_scale,
+                                          float logit_cap, void* stream) {
+  return dynamo::dispatch<int8_t>(q, cache, scale, block_tables, seq_lens, q0_pos, out, workspace, B, S, H, Hk,
+                                  D, N, Bs, M, layer, Hp, Sp, split, sm_scale, logit_cap, stream);
 }

@@ -1,8 +1,14 @@
 // Tensor-core flash-attention building blocks shared by the paged prefill
 // and the ragged prefill kernels: a block of 4 warps owns 64 query rows
-// (16 per warp), K/V tiles are staged in shared memory, and both products
-// run on mma.sync m16n8k16 (bf16 in, f32 accumulate) with the online
-// softmax kept in registers.  See prefill_attention.cu for the design.
+// (16 per warp), K/V tiles are staged in shared memory as bf16, and both
+// products run on mma.sync m16n8k16 (bf16 in, f32 accumulate) with the
+// online softmax kept in registers.  See prefill_attention.cu for the
+// design.  A tile read from an int8 cache is staged as bf16 (exact) with
+// its per-key K and V scales beside it in f32; attend<D, true> applies
+// them as the TPU kernel does: the K scale multiplies the key's score
+// column before the softcap, and the V scale multiplies the key's
+// probability in the PV product only (the softmax max and sum see the
+// unscaled probabilities).
 #pragma once
 
 #include "attention_common.cuh"
@@ -32,9 +38,7 @@ __device__ inline void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_
 
 __device__ inline uint32_t ld32(const __nv_bfloat16* p) { return *reinterpret_cast<const uint32_t*>(p); }
 
-__device__ inline uint32_t pack(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
+__device__ inline uint32_t pack(__nv_bfloat16 lo, __nv_bfloat16 hi) { return pack_bf16(lo, hi); }
 
 __device__ inline uint32_t pack(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -42,9 +46,9 @@ __device__ inline uint32_t pack(float lo, float hi) {
 }
 
 // Stage the K and V rows of a tile (row_ptr(j, &k, &v) points at key j's
-// bf16 rows) into shared memory; keys for which live(j) is false are zeros
-// and are never read from memory.
-template <int D, class Live, class RowPtr>
+// rows, bf16 or int8) into shared memory as bf16; keys for which live(j) is
+// false are zeros and are never read from memory.
+template <int D, class E, class Live, class RowPtr>
 __device__ void stage_kv_if(__nv_bfloat16* ks, __nv_bfloat16* vs, Live live, RowPtr row_ptr) {
   using T = Tile<D>;
   constexpr int kChunks = D / 8;
@@ -52,11 +56,11 @@ __device__ void stage_kv_if(__nv_bfloat16* ks, __nv_bfloat16* vs, Live live, Row
     const int j = c / kChunks, part = c % kChunks;
     uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
     if (live(j)) {
-      const __nv_bfloat16* kr;
-      const __nv_bfloat16* vr;
+      const E* kr;
+      const E* vr;
       row_ptr(j, &kr, &vr);
-      kv = __ldg(reinterpret_cast<const uint4*>(kr) + part);
-      vv = __ldg(reinterpret_cast<const uint4*>(vr) + part);
+      kv = load8_bf16(kr, part);
+      vv = load8_bf16(vr, part);
     }
     *reinterpret_cast<uint4*>(ks + j * T::kStride + part * 8) = kv;
     *reinterpret_cast<uint4*>(vs + j * T::kStride + part * 8) = vv;
@@ -64,9 +68,21 @@ __device__ void stage_kv_if(__nv_bfloat16* ks, __nv_bfloat16* vs, Live live, Row
 }
 
 // The first n_live keys of a tile live, the rest zeros.
-template <int D, class RowPtr>
+template <int D, class E, class RowPtr>
 __device__ void stage_kv(__nv_bfloat16* ks, __nv_bfloat16* vs, int n_live, RowPtr row_ptr) {
-  stage_kv_if<D>(ks, vs, [&](int j) { return j < n_live; }, row_ptr);
+  stage_kv_if<D, E>(ks, vs, [&](int j) { return j < n_live; }, row_ptr);
+}
+
+// The per-key K and V scales of an int8 tile (scale(j, &k, &v)); dead keys
+// get 0, so a NaN in a dead slot's scale never reaches the PV product.
+template <int D, class Scale>
+__device__ void stage_scales(float* sck, float* scv, int n_live, Scale scale) {
+  for (int j = threadIdx.x; j < Tile<D>::kKeys; j += kThreads) {
+    float k = 0.f, v = 0.f;
+    if (j < n_live) scale(j, &k, &v);
+    sck[j] = k;
+    scv[j] = v;
+  }
 }
 
 // Per-warp flash state: 16 query rows; this thread holds rows g and g + 8
@@ -88,10 +104,12 @@ struct WarpState {
 
 // One K/V tile already staged: scores, mask, online softmax, PV.
 // visible(half, key) says whether this thread's row g + 8 * half sees tile
-// key `key` (0 .. kKeys-1).
-template <int D, class Visible>
+// key `key` (0 .. kKeys-1).  With kScaled, sck and scv are the tile's
+// per-key K and V scales (an int8 tile); otherwise they are not read.
+template <int D, bool kScaled, class Visible>
 __device__ void attend(WarpState<D>& st, const __nv_bfloat16* qs, const __nv_bfloat16* ks,
-                       const __nv_bfloat16* vs, float sm_scale, float logit_cap, Visible visible) {
+                       const __nv_bfloat16* vs, const float* sck, const float* scv, float sm_scale,
+                       float logit_cap, Visible visible) {
   using T = Tile<D>;
   constexpr int kN = T::kKeys / 8;  // score fragments per row block
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -118,6 +136,7 @@ __device__ void attend(WarpState<D>& st, const __nv_bfloat16* qs, const __nv_bfl
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float x = s[n][e] * sm_scale;
+      if constexpr (kScaled) x *= sck[n * 8 + 2 * t + (e & 1)];
       if (logit_cap > 0.f) x = tanhf(x / logit_cap) * logit_cap;
       x = visible(e / 2, n * 8 + 2 * t + (e & 1)) ? x : -INFINITY;
       s[n][e] = x;
@@ -155,13 +174,19 @@ __device__ void attend(WarpState<D>& st, const __nv_bfloat16* qs, const __nv_bfl
     st.o[n][3] *= alpha[1];
   }
 
-  // PV: the score fragments of keys 16kk .. 16kk+15 are the A fragment
+  // PV: the score fragments of keys 16kk .. 16kk+15 are the A fragment,
+  // each probability times its key's V scale for an int8 tile
+  auto pv = [&](int n, int e) {
+    float p = s[n][e];
+    if constexpr (kScaled) p *= scv[n * 8 + 2 * t + (e & 1)];
+    return p;
+  };
 #pragma unroll
   for (int kk = 0; kk < kN / 2; ++kk) {
-    const uint32_t a0 = pack(s[2 * kk][0], s[2 * kk][1]);
-    const uint32_t a1 = pack(s[2 * kk][2], s[2 * kk][3]);
-    const uint32_t a2 = pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-    const uint32_t a3 = pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    const uint32_t a0 = pack(pv(2 * kk, 0), pv(2 * kk, 1));
+    const uint32_t a1 = pack(pv(2 * kk, 2), pv(2 * kk, 3));
+    const uint32_t a2 = pack(pv(2 * kk + 1, 0), pv(2 * kk + 1, 1));
+    const uint32_t a3 = pack(pv(2 * kk + 1, 2), pv(2 * kk + 1, 3));
     const __nv_bfloat16* v0 = vs + (16 * kk + 2 * t) * T::kStride + g;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n) {

@@ -1,8 +1,10 @@
 """Engine configuration: batching, cache sizing, bucketing, sharding.
 
 The same dataclass as ``dynamo_tpu.engine.config``, so one configuration
-drives either engine.  The PyTorch core serves the default path and refuses
-at construction the options whose paths it does not carry yet
+drives either engine.  The PyTorch core serves the default path and the
+token-budget paths, with the model's cache dtype or an int8 KV cache
+(``cache_dtype="int8"``, ``ops/kv_quant.py``), and refuses at construction
+the options whose paths it does not carry yet
 (``EngineCore._check_supported``)."""
 
 from __future__ import annotations

@@ -27,11 +27,18 @@ forward → sample → feed the token back, with ONE host sync at the end.
 ``torch.Generator``, so temperature > 0 streams differ from the JAX
 engine's; greedy streams are token for token the same.
 
+The cache is the model's dtype or, with ``cache_dtype="int8"``, a
+:class:`~dynamo_tpu_torch.ops.kv_quant.QuantKvCache` (int8 payload and
+scales, quantised as it is written); every dispatch above takes either.
+Int8 weights come with the model (``init_params(quantized=True)`` or
+``params_from_jax`` of a quantised tree).
+
 Not ported yet, and refused at construction (:meth:`EngineCore.
 _check_supported`): speculative decoding, sequence-parallel prefill, host
-offload and the persistent tier, the int8 cache, meshes, and the profile
-hook.  Constrained decoding and per-request ``seed`` streams are refused per
-request with ``FinishReason.ERROR``.
+offload and the persistent tier, cache dtypes other than int8 and the
+model's, meshes, and the profile hook.  Constrained decoding and
+per-request ``seed`` streams are refused per request with
+``FinishReason.ERROR``.
 
 Thread-safety: everything here runs on the engine thread; submit()/abort()
 are the only cross-thread entry points and only touch thread-safe queues.
@@ -272,8 +279,11 @@ class EngineCore:
             config.num_blocks, config.block_size,
             enable_prefix_reuse=config.enable_prefix_reuse,
         )
-        # one tensor for the whole model, updated in place by every step
-        self.cache = model.init_kv_cache(config.num_blocks, config.block_size)
+        # one tensor for the whole model (or an int8 payload and its scale
+        # pool), updated in place by every step
+        cache_dtype = config.cache_dtype or model.config.dtype
+        self.cache_quant = str(cache_dtype) == "int8"
+        self.cache = model.init_kv_cache(config.num_blocks, config.block_size, cache_dtype)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(config.seed)
 
@@ -337,7 +347,7 @@ class EngineCore:
             "sp_prefill_threshold": cfg.sp_prefill_threshold > 0,
             "num_host_blocks": cfg.num_host_blocks > 0,
             "kv_persist_dir": bool(cfg.kv_persist_dir),
-            "cache_dtype": cfg.cache_dtype not in (None, model.config.dtype),
+            "cache_dtype": cfg.cache_dtype not in (None, "int8", model.config.dtype),
             "mesh_shape": tuple(cfg.mesh_shape) != (1, 1),
             "profile_dir": bool(cfg.profile_dir),
         }

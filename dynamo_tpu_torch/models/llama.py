@@ -8,10 +8,16 @@ The counterpart of ``dynamo_tpu/models/llama.py`` (dense path):
     and layouts as the JAX params tree (``wq`` is ``[L, Dm, H*D]`` and the
     product is ``x @ wq[l]``), so a JAX checkpoint carries over by
     ``models/convert.py::params_from_jax``;
-  * bf16 weights and activations, f32 norms, rotary angles and logits.
+  * bf16 weights and activations, f32 norms, rotary angles and logits;
+  * or int8 weight-only serving (``quantized``): every projection, the
+    lm_head and the embedding are int8 with per-output-channel f32 scales
+    (``models/quant.py``), held as ``<name>`` int8 and ``<name>_scale``
+    f32 state-dict entries in the JAX package's shapes, and the KV cache may
+    be int8 too (``init_kv_cache(dtype="int8")``).
 
-The large projections are ``torch.matmul`` calls (cuBLAS on the card), as
-the JAX package leaves them to XLA; attention is the package's own kernels.
+The large dense projections are ``torch.matmul`` calls (cuBLAS on the card),
+as the JAX package leaves them to XLA; int8 projections are the package's
+W8A16 kernel and attention is the package's own kernels.
 """
 
 from __future__ import annotations
@@ -26,6 +32,8 @@ from torch import nn
 
 from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.models.config import ModelConfig
+from dynamo_tpu_torch.models.quant import CHANNEL_AXES, QTensor, matmul, take_rows
+from dynamo_tpu_torch.ops.kv_quant import QuantKvCache, scale_tile
 from dynamo_tpu_torch.ops.paged_attention import (
     paged_attention_layer,
     prefill_attention,
@@ -34,7 +42,9 @@ from dynamo_tpu_torch.ops.paged_attention import (
     write_kv_cache_layer,
 )
 
-__all__ = ["LlamaModel", "param_shapes", "rms_norm", "rope_inv_freq", "apply_rope"]
+__all__ = ["LlamaModel", "param_shapes", "param_dtypes", "rms_norm", "rope_inv_freq", "apply_rope"]
+
+SCALE = "_scale"  # state-dict suffix of a quantised weight's scale
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
@@ -83,9 +93,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
+def param_shapes(cfg: ModelConfig, quantized: bool = False) -> dict[str, tuple[int, ...]]:
     """Every parameter's name and shape: the JAX params tree flattened with
-    ``layers.`` before the stacked per-layer names (dense Llama family)."""
+    ``layers.`` before the stacked per-layer names (dense Llama family).
+
+    ``quantized`` adds ``<name>_scale`` beside every int8 weight, in the
+    JAX QTensor's scale shape: ``[L, 1, N]`` for a stacked ``[L, K, N]``
+    projection, ``[1, V]`` for the lm_head, ``[V, 1]`` for the per-row
+    embedding."""
     if cfg.is_moe:
         raise NotImplementedError("MoE layers are not ported yet")
     dm, hq, hk, dh, f = (cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
@@ -116,7 +131,29 @@ def param_shapes(cfg: ModelConfig) -> dict[str, tuple[int, ...]]:
         shapes["layers.k_norm"] = (L, dh)
     if not cfg.tie_word_embeddings:
         shapes["lm_head"] = (dm, cfg.vocab_size)
+    if quantized:
+        for name, shape in list(shapes.items()):
+            base = name.split(".", 1)[-1]
+            if base in CHANNEL_AXES:
+                axes = {a % len(shape) for a in CHANNEL_AXES[base]}
+                if name.startswith("layers."):
+                    axes.add(0)  # a scale per layer
+                shapes[name + SCALE] = tuple(n if i in axes else 1 for i, n in enumerate(shape))
     return shapes
+
+
+def param_dtypes(cfg: ModelConfig, quantized: bool = False) -> dict[str, torch.dtype]:
+    """Each parameter's dtype: the model's, or int8 weights and f32 scales."""
+    shapes = param_shapes(cfg, quantized)
+    out = {}
+    for name in shapes:
+        if name.endswith(SCALE):
+            out[name] = torch.float32
+        elif name + SCALE in shapes:
+            out[name] = torch.int8
+        else:
+            out[name] = cfg.torch_dtype
+    return out
 
 
 class LlamaModel(nn.Module):
@@ -124,7 +161,8 @@ class LlamaModel(nn.Module):
 
     Parameters are allocated uninitialised on ``device`` (cuda unless the
     caller names another); fill them with ``load_state_dict`` or build the
-    model straight from a state dict with :meth:`from_state`.
+    model straight from a state dict with :meth:`from_state`.  With
+    ``quantized`` the matmul weights are int8 with f32 scales.
     """
 
     # forward() accepts the token-budget ragged prefill layout (the engine
@@ -135,14 +173,16 @@ class LlamaModel(nn.Module):
     # token-budget scheduler on this
     supports_unified_dispatch = True
 
-    def __init__(self, config: ModelConfig, device=None):
+    def __init__(self, config: ModelConfig, device=None, quantized: bool = False):
         super().__init__()
         self.config = config
+        self.quantized = quantized
         dev = resolve_device(device)
-        dt = config.torch_dtype
+        dtypes = param_dtypes(config, quantized)
         self.layers = nn.ParameterDict()
-        for name, shape in param_shapes(config).items():
-            p = nn.Parameter(torch.empty(shape, dtype=dt, device=dev), requires_grad=False)
+        for name, shape in param_shapes(config, quantized).items():
+            p = nn.Parameter(torch.empty(shape, dtype=dtypes[name], device=dev),
+                             requires_grad=False)
             if name.startswith("layers."):
                 self.layers[name.split(".", 1)[1]] = p
             else:
@@ -159,11 +199,12 @@ class LlamaModel(nn.Module):
     @classmethod
     def from_state(cls, config: ModelConfig, state: dict[str, torch.Tensor]) -> "LlamaModel":
         """A model whose parameters ARE the given tensors (no copy); they
-        must all lie on one device, which becomes the model's."""
+        must all lie on one device, which becomes the model's.  A state with
+        ``embed_scale`` is an int8 model."""
         devices = {t.device for t in state.values()}
         if len(devices) != 1:
             raise ValueError(f"state tensors span devices {devices}")
-        model = cls(config, device="meta")
+        model = cls(config, device="meta", quantized="embed" + SCALE in state)
         model.load_state_dict(state, assign=True)
         for p in model.parameters():
             p.requires_grad_(False)
@@ -177,11 +218,22 @@ class LlamaModel(nn.Module):
         return self.embed.device
 
     # --------------------------------------------------------------- kv cache
-    def init_kv_cache(self, num_blocks: int, block_size: int) -> torch.Tensor:
+    def init_kv_cache(self, num_blocks: int, block_size: int, dtype=None):
         """One tensor for the whole model: [L, N, 2, Bs, Hk*D], K and V of
-        a block adjacent — the layout of the JAX package's cache."""
+        a block adjacent — the layout of the JAX package's cache.
+
+        ``dtype="int8"`` gives a :class:`QuantKvCache`: an int8 payload of
+        that layout and a scale pool ``[L, N, 2, Hp, Sp]`` of ones."""
         cfg = self.config
         shape = (cfg.num_layers, num_blocks, 2, block_size, cfg.num_kv_heads * cfg.head_dim)
+        if str(dtype) in ("int8", "torch.int8"):
+            hp, sp = scale_tile(cfg.num_kv_heads, block_size)
+            return QuantKvCache(
+                torch.zeros(shape, dtype=torch.int8, device=self.device),
+                torch.ones((cfg.num_layers, num_blocks, 2, hp, sp), dtype=torch.float32,
+                           device=self.device))
+        if dtype is not None and str(dtype).replace("torch.", "") != cfg.dtype:
+            raise ValueError(f"a KV cache is int8 or the model's dtype {cfg.dtype}, not {dtype}")
         return torch.zeros(shape, dtype=cfg.torch_dtype, device=self.device)
 
     # ---------------------------------------------------------------- forward
@@ -190,7 +242,7 @@ class LlamaModel(nn.Module):
         self,
         tokens: torch.Tensor,        # [B, S] int
         positions: torch.Tensor,     # [B, S] int (absolute; padding rows may be 0)
-        kv_cache: torch.Tensor,      # [L, N, 2, Bs, Hk*D], updated in place
+        kv_cache,                    # [L, N, 2, Bs, Hk*D] or a QuantKvCache, updated in place
         block_tables: torch.Tensor,  # [B, M] int32
         seq_lens: torch.Tensor,      # [B] int32 — context length incl. new tokens
         slot_idx: torch.Tensor,      # [B, S] — cache slot per new token, -1 pad
@@ -230,12 +282,11 @@ class LlamaModel(nn.Module):
         if ragged_prefill:
             seq_ids, seq_starts, row_offsets = ragged
 
-        hidden = self.embed[tokens.long()]
+        hidden = take_rows(self._weight("embed"), tokens, cfg.torch_dtype)
         if cfg.scale_embeddings:  # Gemma multiplies by sqrt(hidden_size)
             hidden = hidden * torch.tensor(math.sqrt(cfg.hidden_size), dtype=hidden.dtype)
-        lp_all = self.layers
         for li in range(cfg.num_layers):
-            lp = {name: p[li] for name, p in lp_all.items()}
+            lp = self._layer(li)
             x = rms_norm(hidden, lp["attn_norm"], cfg.rms_norm_eps, uo)
             q, k, v = _qkv_proj(cfg, lp, x, b, s)
             q = apply_rope(q, positions, self.inv_freq)
@@ -262,7 +313,7 @@ class LlamaModel(nn.Module):
                     sm_scale=self.sm_scale, logit_cap=cfg.attn_logit_softcap,
                     window=cfg.sliding_window,
                 )
-            attn_out = attn.reshape(b, s, hq * dh) @ lp["wo"]
+            attn_out = matmul(attn.reshape(b, s, hq * dh), lp["wo"])
             if cfg.post_norms:  # Gemma2 sandwich: norm the residual branch
                 attn_out = rms_norm(attn_out, lp["post_attn_norm"], cfg.rms_norm_eps, uo)
             hidden = hidden + attn_out
@@ -275,20 +326,41 @@ class LlamaModel(nn.Module):
         hidden = rms_norm(hidden, self.final_norm, cfg.rms_norm_eps, uo)
         return hidden, kv_cache
 
+    def _weight(self, name: str):
+        """Top-level parameter ``name`` as a matmul operand: a
+        :class:`QTensor` of its codes and scale in an int8 model."""
+        p, scale = getattr(self, name), getattr(self, name + SCALE, None)
+        return p if scale is None else QTensor(p, scale)
+
+    def _layer(self, li: int) -> dict:
+        """Layer ``li``'s parameters by their JAX names; int8 weights as
+        QTensors of their codes and scales."""
+        lp = {}
+        for name, p in self.layers.items():
+            scale = self.layers.get(name + SCALE)
+            if not name.endswith(SCALE):
+                lp[name] = p[li] if scale is None else QTensor(p[li], scale[li])
+        return lp
+
     @torch.no_grad()
     def compute_logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """hidden [B, Dm] -> logits [B, V] in f32.
 
         On the card the product runs in the weights' dtype with f32
         accumulation and an f32 result — casting the vocab matrix to f32
-        would copy the largest tensor in the model every step."""
-        w = self.embed.t() if self.config.tie_word_embeddings else self.lm_head
-        h = hidden.to(w.dtype)
-        if w.is_cuda and w.dtype != torch.float32:
-            logits = torch.mm(h, w, out_dtype=torch.float32)
+        would copy the largest tensor in the model every step.  An int8
+        lm_head (or tied int8 embedding, read as its transpose in place) is
+        the W8A16 kernel with an f32 output."""
+        cfg = self.config
+        # a tied embedding's per-row scales become per-column lm_head scales
+        w = self._weight("embed").t() if cfg.tie_word_embeddings else self._weight("lm_head")
+        if isinstance(w, QTensor):
+            logits = matmul(hidden, w, out_dtype=torch.float32)
+        elif w.is_cuda and w.dtype != torch.float32:
+            logits = torch.mm(hidden.to(w.dtype), w, out_dtype=torch.float32)
         else:
-            logits = h.float() @ w.float()
-        cap = self.config.final_logit_softcap
+            logits = hidden.to(w.dtype).float() @ w.float()
+        cap = cfg.final_logit_softcap
         if cap:  # Gemma2 final logit softcap
             logits = softcap(logits, float(cap))
         return logits
@@ -297,7 +369,7 @@ class LlamaModel(nn.Module):
 def _qkv_proj(cfg: ModelConfig, lp: dict, x: torch.Tensor, b: int, s: int):
     """QKV projections (+ Qwen2 bias / Qwen3 per-head q-k norms)."""
     dh, hq, hk = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
-    q, k, v = x @ lp["wq"], x @ lp["wk"], x @ lp["wv"]
+    q, k, v = matmul(x, lp["wq"]), matmul(x, lp["wk"]), matmul(x, lp["wv"])
     if cfg.attention_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
     q = q.reshape(b, s, hq, dh)
@@ -317,4 +389,4 @@ def _act(cfg: ModelConfig, gate: torch.Tensor) -> torch.Tensor:
 
 def _dense_mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
     """Gated MLP: act(x·Wg) * (x·Wu) · Wd."""
-    return (_act(cfg, x @ lp["w_gate"]) * (x @ lp["w_up"])) @ lp["w_down"]
+    return matmul(_act(cfg, matmul(x, lp["w_gate"])) * matmul(x, lp["w_up"]), lp["w_down"])

@@ -1,16 +1,19 @@
-"""Paged prefill attention: the CUDA kernel, its wrapper and its plain version.
+"""Paged prefill attention: the CUDA kernels, their wrappers, their plain version.
 
-The kernel (``csrc/prefill_attention.cu``) replaces the TPU kernel
-``dynamo_tpu/ops/pallas/prefill_attention.py::paged_prefill_attention``:
-each of B rows has S fresh queries from the block-aligned position
-``start``; they attend the cached prefix ``[0, start)`` in full, read from
+The kernels (``csrc/prefill_attention.cu``) replace the TPU kernel
+``dynamo_tpu/ops/pallas/prefill_attention.py::paged_prefill_attention``,
+its bf16 and its int8 body (the cached prefix read from a
+:class:`QuantKvCache`, the fresh K/V unquantised): each of B rows has S
+fresh queries from the block-aligned position ``start``; they attend the cached prefix ``[0, start)`` in full, read from
 the paged cache ``[L, N, 2, Bs, Hk*D]`` at a runtime layer index, and their
 own fresh K/V causally, masked at ``seq_len - start``.  Padding query rows
 (index ``>= seq_len - start``) give 0.
 
-:func:`paged_prefill_attention` launches the kernel for CUDA tensors and
-takes :func:`prefill_attention_ref` only for CPU tensors; on any other
-device it raises.  ``paged_prefill_attention.launches`` counts launches.
+:func:`paged_prefill_attention` (a bf16 cache) and
+:func:`paged_prefill_attention_q8` (an int8 one) launch their kernel for
+CUDA tensors and take :func:`prefill_attention_ref` only for CPU tensors; on
+any other device they raise.  Each wrapper's ``launches`` counts its
+launches.
 """
 
 from __future__ import annotations
@@ -18,8 +21,9 @@ from __future__ import annotations
 import torch
 
 from dynamo_tpu_torch.ops.kernels import build
+from dynamo_tpu_torch.ops.kv_quant import QuantKvCache, cache_data, check_quant_cache, gather_layer_blocks
 
-__all__ = ["paged_prefill_attention", "prefill_attention_ref"]
+__all__ = ["paged_prefill_attention", "paged_prefill_attention_q8", "prefill_attention_ref"]
 
 HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 64  # query heads per KV head one thread block can hold
@@ -29,7 +33,7 @@ def prefill_attention_ref(
     q: torch.Tensor,             # [B, S, H, D]
     k_new: torch.Tensor,         # [B, S, Hk, D]
     v_new: torch.Tensor,         # [B, S, Hk, D]
-    cache: torch.Tensor,         # [L, N, 2, Bs, Hk*D]
+    cache,                       # [L, N, 2, Bs, Hk*D], or a QuantKvCache
     layer: int,
     block_tables: torch.Tensor,  # [B, M] int32, prefix blocks leading
     seq_lens: torch.Tensor,      # [B] int32 — context incl. fresh tokens
@@ -37,12 +41,12 @@ def prefill_attention_ref(
     sm_scale: float | None = None,
     logit_cap: float | None = None,
 ) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: the prefix is the row's whole
-    table masked at ``start``, everything in f32, returns ``q.dtype``.  Dead
-    prefix slots and fresh padding have their V zeroed; padding query rows
-    see nothing and give 0."""
+    """Plain PyTorch version of both kernels: the prefix is the row's whole
+    table (dequantised in f32 for an int8 cache) masked at ``start``,
+    everything in f32, returns ``q.dtype``.  Dead prefix slots and fresh
+    padding have their V zeroed; padding query rows see nothing and give 0."""
     b, s, h, d = q.shape
-    _, _, _, bs, hkd = cache.shape
+    _, _, _, bs, hkd = cache_data(cache).shape
     hk = hkd // d
     g = h // hk
     m = block_tables.shape[1]
@@ -51,7 +55,7 @@ def prefill_attention_ref(
         sm_scale = d ** -0.5
     start = start.long()
     fresh = seq_lens.long() - start                                     # [B]
-    kv = cache[layer][block_tables.long()]                              # [B, M, 2, Bs, HkD]
+    kv = gather_layer_blocks(cache, layer, block_tables, hk)            # [B, M, 2, Bs, HkD]
     kp = kv[:, :, 0].reshape(b, t, hk, d).float()
     vp = kv[:, :, 1].reshape(b, t, hk, d).float()
     slot = torch.arange(t, device=q.device)
@@ -78,14 +82,16 @@ def prefill_attention_ref(
 
 
 def _check(q, k_new, v_new, cache, layer, block_tables, seq_lens, start) -> None:
-    tensors = {"q": q, "k_new": k_new, "v_new": v_new, "cache": cache,
+    quant = isinstance(cache, QuantKvCache)
+    data = cache_data(cache)
+    tensors = {"q": q, "k_new": k_new, "v_new": v_new, "cache": data,
                "block_tables": block_tables, "seq_lens": seq_lens, "start": start}
     for name, x in tensors.items():
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name in ("q", "k_new", "v_new", "cache"):
+    for name in ("q", "k_new", "v_new") + (() if quant else ("cache",)):
         if tensors[name].dtype != torch.bfloat16:
             raise TypeError(f"{name} must be bfloat16, got {tensors[name].dtype}")
         if tensors[name].data_ptr() % 16:
@@ -94,10 +100,12 @@ def _check(q, k_new, v_new, cache, layer, block_tables, seq_lens, start) -> None
         if tensors[name].dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {tensors[name].dtype}")
     b, s, h, d = q.shape
-    l, _, two, _, hkd = cache.shape
+    l, _, two, _, hkd = data.shape
     hk = hkd // d if d else 0
     if two != 2 or d not in HEAD_DIMS or hkd % d or h % hk or h // hk > MAX_GROUP:
-        raise ValueError(f"unsupported shapes q {tuple(q.shape)} cache {tuple(cache.shape)}")
+        raise ValueError(f"unsupported shapes q {tuple(q.shape)} cache {tuple(data.shape)}")
+    if quant:
+        check_quant_cache(cache, hk)
     if k_new.shape != (b, s, hk, d) or v_new.shape != (b, s, hk, d):
         raise ValueError("k_new and v_new must be [B, S, Hk, D]")
     if block_tables.dim() != 2 or block_tables.shape[0] != b:
@@ -106,6 +114,32 @@ def _check(q, k_new, v_new, cache, layer, block_tables, seq_lens, start) -> None
         raise ValueError("seq_lens and start must be [B]")
     if not 0 <= layer < l:
         raise ValueError(f"layer {layer} out of range [0, {l})")
+
+
+def _launch(q, k_new, v_new, cache, layer, block_tables, seq_lens, start, sm_scale,
+            logit_cap) -> torch.Tensor:
+    """Check and launch the kernel for ``cache``'s kind; returns the output."""
+    layer = int(layer)
+    _check(q, k_new, v_new, cache, layer, block_tables, seq_lens, start)
+    b, s, h, d = q.shape
+    _, n, _, bs, hkd = cache_data(cache).shape
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    out = torch.empty_like(q)
+    lib = build.library()
+    dims = (b, s, h, hkd // d, d, n, bs, block_tables.shape[1], layer)
+    tail = (float(sm_scale), float(logit_cap or 0.0), torch.cuda.current_stream(q.device).cuda_stream)
+    rows = (block_tables.data_ptr(), seq_lens.data_ptr(), start.data_ptr(), out.data_ptr())
+    fresh = (q.data_ptr(), k_new.data_ptr(), v_new.data_ptr())
+    if isinstance(cache, QuantKvCache):
+        rc = lib.dynamo_prefill_attention_q8(
+            *fresh, cache.data.data_ptr(), cache.scale.data_ptr(), *rows, *dims,
+            *cache.scale.shape[3:], *tail)
+        build.check(rc, "dynamo_prefill_attention_q8")
+    else:
+        rc = lib.dynamo_prefill_attention(*fresh, cache.data_ptr(), *rows, *dims, *tail)
+        build.check(rc, "dynamo_prefill_attention")
+    return out
 
 
 def paged_prefill_attention(
@@ -120,31 +154,46 @@ def paged_prefill_attention(
     sm_scale: float | None = None,
     logit_cap: float | None = None,
 ) -> torch.Tensor:
-    """Flash prefill for S fresh tokens against fresh K/V + cached prefix.
-    Returns [B, S, H, D]."""
+    """Flash prefill for S fresh tokens against fresh K/V + a cached prefix
+    in the bf16 cache.  Returns [B, S, H, D]."""
     if q.device.type == "cpu":
         return prefill_attention_ref(q, k_new, v_new, cache, layer, block_tables,
                                      seq_lens, start, sm_scale, logit_cap)
     if q.device.type != "cuda":
         raise ValueError(f"paged_prefill_attention runs on cuda or cpu, not {q.device}")
-    layer = int(layer)
-    _check(q, k_new, v_new, cache, layer, block_tables, seq_lens, start)
-    b, s, h, d = q.shape
-    _, n, _, bs, hkd = cache.shape
-    if sm_scale is None:
-        sm_scale = d ** -0.5
-    out = torch.empty_like(q)
-    lib = build.library()
-    rc = lib.dynamo_prefill_attention(
-        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), cache.data_ptr(),
-        block_tables.data_ptr(), seq_lens.data_ptr(), start.data_ptr(), out.data_ptr(),
-        b, s, h, hkd // d, d, n, bs, block_tables.shape[1], layer,
-        float(sm_scale), float(logit_cap or 0.0),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    build.check(rc, "dynamo_prefill_attention")
+    if isinstance(cache, QuantKvCache):
+        raise TypeError("paged_prefill_attention takes a bf16 cache; an int8 one goes to "
+                        "paged_prefill_attention_q8")
+    out = _launch(q, k_new, v_new, cache, layer, block_tables, seq_lens, start, sm_scale, logit_cap)
     paged_prefill_attention.launches += 1
     return out
 
 
+def paged_prefill_attention_q8(
+    q: torch.Tensor,             # [B, S, H, D] bf16
+    k_new: torch.Tensor,         # [B, S, Hk, D] bf16
+    v_new: torch.Tensor,         # [B, S, Hk, D] bf16
+    cache: QuantKvCache,         # data [L, N, 2, Bs, Hk*D] int8, scale [L, N, 2, Hp, Sp] f32
+    layer: int,
+    block_tables: torch.Tensor,  # [B, M] int32
+    seq_lens: torch.Tensor,      # [B] int32
+    start: torch.Tensor,         # [B] int32
+    sm_scale: float | None = None,
+    logit_cap: float | None = None,
+) -> torch.Tensor:
+    """Flash prefill for S fresh tokens against fresh K/V + a cached prefix
+    in an int8 cache.  Returns [B, S, H, D]."""
+    if q.device.type == "cpu":
+        return prefill_attention_ref(q, k_new, v_new, cache, layer, block_tables,
+                                     seq_lens, start, sm_scale, logit_cap)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_prefill_attention_q8 runs on cuda or cpu, not {q.device}")
+    if not isinstance(cache, QuantKvCache):
+        raise TypeError("paged_prefill_attention_q8 takes a QuantKvCache")
+    out = _launch(q, k_new, v_new, cache, layer, block_tables, seq_lens, start, sm_scale, logit_cap)
+    paged_prefill_attention_q8.launches += 1
+    return out
+
+
 paged_prefill_attention.launches = 0
+paged_prefill_attention_q8.launches = 0

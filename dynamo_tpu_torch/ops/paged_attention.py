@@ -14,15 +14,37 @@ on CUDA tensors decode attention (1 <= S <= ``MQ_MAX_S``) goes to
 attention to ``ops/kernels/ragged_prefill_attention.py``; sliding-window
 attention whose span can exceed the window, and every CPU call, take the
 plain ops here.
+
+Every op also takes an int8 cache (:class:`~dynamo_tpu_torch.ops.kv_quant.
+QuantKvCache`): the write quantises the fresh rows, the plain ops
+dequantise the blocks they gather, and on CUDA each op's int8 kernel runs
+(``*_q8``), for any block size the bf16 kernels take.  Fresh chunk K/V are
+never quantised by attention.
 """
 
 from __future__ import annotations
 
 import torch
 
-from dynamo_tpu_torch.ops.kernels.decode_attention import paged_decode_attention
-from dynamo_tpu_torch.ops.kernels.prefill_attention import paged_prefill_attention
-from dynamo_tpu_torch.ops.kernels.ragged_prefill_attention import ragged_paged_prefill_attention
+from dynamo_tpu_torch.ops.kernels.decode_attention import (
+    paged_decode_attention,
+    paged_decode_attention_q8,
+)
+from dynamo_tpu_torch.ops.kernels.prefill_attention import (
+    paged_prefill_attention,
+    paged_prefill_attention_q8,
+)
+from dynamo_tpu_torch.ops.kernels.ragged_prefill_attention import (
+    ragged_paged_prefill_attention,
+    ragged_paged_prefill_attention_q8,
+)
+from dynamo_tpu_torch.ops.kv_quant import (
+    cache_data,
+    dequant_layer_slice,
+    gather_layer_blocks,
+    is_quant,
+    quantize_kv_rows,
+)
 
 __all__ = [
     "MQ_MAX_S",
@@ -44,7 +66,7 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
 
 def paged_attention_layer(
     q: torch.Tensor,             # [B, S, H, D]
-    cache: torch.Tensor,         # [L, N, 2, Bs, Hk*D]
+    cache,                       # [L, N, 2, Bs, Hk*D], or a QuantKvCache
     layer: int,
     block_tables: torch.Tensor,  # [B, M] int32
     seq_lens: torch.Tensor,      # [B] int32
@@ -63,15 +85,20 @@ def paged_attention_layer(
     attention is exact.  Everything else takes the plain op.
     """
     b, s, h, d = q.shape
-    _, n, _, bs, hkd = cache.shape
+    quant = is_quant(cache)
+    _, n, _, bs, hkd = cache_data(cache).shape
     hk = hkd // d
     windowed = window is not None and block_tables.shape[1] * bs > window
     if q.is_cuda and 1 <= s <= MQ_MAX_S and not windowed:
-        return paged_decode_attention(
+        kernel = paged_decode_attention_q8 if quant else paged_decode_attention
+        return kernel(
             q.contiguous(), cache, layer, block_tables, seq_lens,
             positions[:, 0].contiguous(), sm_scale=sm_scale, logit_cap=logit_cap,
         )
-    layer_kv = cache[layer]
+    if quant:
+        layer_kv = dequant_layer_slice(cache.data[layer], cache.scale[layer], hk)
+    else:
+        layer_kv = cache[layer]
     k_cache = layer_kv[:, 0].reshape(n, bs, hk, d)
     v_cache = layer_kv[:, 1].reshape(n, bs, hk, d)
     return paged_attention(
@@ -84,7 +111,7 @@ def prefill_attention(
     q: torch.Tensor,             # [B, S, H, D] — fresh queries (contiguous from `start`)
     k_new: torch.Tensor,         # [B, S, Hk, D] — this chunk's keys
     v_new: torch.Tensor,         # [B, S, Hk, D]
-    cache: torch.Tensor,         # [L, N, 2, Bs, Hk*D]
+    cache,                       # [L, N, 2, Bs, Hk*D], or a QuantKvCache
     layer: int,
     block_tables: torch.Tensor,  # [B, M] int32
     seq_lens: torch.Tensor,      # [B] int32 — context length incl. new tokens
@@ -108,12 +135,13 @@ def prefill_attention(
     g = h // hk
     if sm_scale is None:
         sm_scale = d ** -0.5
-    bs = cache.shape[3]
+    bs = cache_data(cache).shape[3]
     windowed = window is not None and prefix_blocks * bs + s > window
     if not windowed:
         window = None
     if q.is_cuda and s > 1 and not windowed:
-        return paged_prefill_attention(
+        kernel = paged_prefill_attention_q8 if is_quant(cache) else paged_prefill_attention
+        return kernel(
             q.contiguous(), k_new.contiguous(), v_new.contiguous(), cache, layer,
             block_tables, seq_lens, start, sm_scale=sm_scale, logit_cap=logit_cap,
         )
@@ -136,7 +164,7 @@ def prefill_attention(
         return out.reshape(b, s, h, d).to(q.dtype)
 
     t = prefix_blocks * bs
-    ctx = cache[layer][block_tables[:, :prefix_blocks].long()]  # [B, P, 2, Bs, HkD]
+    ctx = gather_layer_blocks(cache, layer, block_tables[:, :prefix_blocks], hk)  # [B, P, 2, Bs, HkD]
     kp = ctx[:, :, 0].reshape(b, t, hk, d)
     vp = ctx[:, :, 1].reshape(b, t, hk, d)
     sp = torch.einsum("bskgd,btkd->bkgst", qg, kp.float()) * sm_scale
@@ -163,7 +191,7 @@ def ragged_prefill_attention(
     q: torch.Tensor,             # [1, T, H, D] — packed fresh queries (flat token axis)
     k_new: torch.Tensor,         # [1, T, Hk, D] — packed fresh keys
     v_new: torch.Tensor,         # [1, T, Hk, D]
-    cache: torch.Tensor,         # [L, N, 2, Bs, Hk*D]
+    cache,                       # [L, N, 2, Bs, Hk*D], or a QuantKvCache
     layer: int,
     block_tables: torch.Tensor,  # [R, M] int32 — one table per packed row
     seq_lens: torch.Tensor,      # [R] int32 — context length incl. this chunk
@@ -192,12 +220,14 @@ def ragged_prefill_attention(
     g = h // hk
     if sm_scale is None:
         sm_scale = d ** -0.5
-    bs = cache.shape[3]
+    bs = cache_data(cache).shape[3]
     windowed = window is not None and prefix_blocks * bs + t > window
     if not windowed:
         window = None
     if q.is_cuda and t > 1 and not windowed:
-        return ragged_paged_prefill_attention(
+        kernel = (ragged_paged_prefill_attention_q8 if is_quant(cache)
+                  else ragged_paged_prefill_attention)
+        return kernel(
             q.contiguous(), k_new.contiguous(), v_new.contiguous(), cache, layer,
             block_tables, seq_lens, starts, row_offsets, sm_scale=sm_scale,
             logit_cap=logit_cap,
@@ -220,7 +250,7 @@ def ragged_prefill_attention(
 
     r_rows = block_tables.shape[0]
     u = prefix_blocks * bs
-    ctx = cache[layer][block_tables[:, :prefix_blocks].long()]  # [R, P, 2, Bs, HkD]
+    ctx = gather_layer_blocks(cache, layer, block_tables[:, :prefix_blocks], hk)  # [R, P, 2, Bs, HkD]
     kp = ctx[:, :, 0].reshape(r_rows, u, hk, d)
     vp = ctx[:, :, 1].reshape(r_rows, u, hk, d)
     rid = sid.clamp(0, r_rows - 1)
@@ -247,14 +277,14 @@ def ragged_prefill_attention(
 
 
 def write_kv_cache_layer(
-    cache: torch.Tensor,     # [L, N, 2, Bs, Hk*D] — the WHOLE paged cache, updated in place
+    cache,                   # [L, N, 2, Bs, Hk*D] — the WHOLE paged cache, or a QuantKvCache; in place
     layer: int,
     k_new: torch.Tensor,     # [B, S, Hk, D]
     v_new: torch.Tensor,     # [B, S, Hk, D]
     slot_idx: torch.Tensor,  # [B, S] int32  flat slot = block_id * Bs + offset; -1 = drop
     block_aligned: bool = False,
     row_tokens: int = 0,
-) -> torch.Tensor:
+):
     """Scatter new K/V rows into the multi-layer cache, in place.
 
     With ``block_aligned=True`` (the engine's prefill layout guarantees it:
@@ -269,14 +299,17 @@ def write_kv_cache_layer(
     block-aligned remainder takes the block write.  It must be a block
     multiple, so the remainder starts on a span boundary.
 
+    For a :class:`QuantKvCache` the fresh rows are quantised here (one scale
+    per row per KV head) and payload and scales scatter with the same base
+    indices; only the valid ``[:Hk, :Bs]`` region of a scale tile is
+    written, pad lanes keep their bytes.
+
     Dropped rows never use -1 as an index — it would wrap to the last row.
     They are sent instead to a row of the other half (a V row during the K
     write, a K row during the V write) that the same write never targets,
     and write back that row's current bytes: nothing changes, and no host
     sync is needed to filter them out.
     """
-    if not cache.is_contiguous():
-        raise ValueError("the cache must be contiguous")
     if block_aligned and 0 < row_tokens < k_new.shape[1]:
         write_kv_cache_layer(cache, layer, k_new[:, :row_tokens], v_new[:, :row_tokens],
                              slot_idx[:, :row_tokens])
@@ -284,12 +317,32 @@ def write_kv_cache_layer(
                                     slot_idx[:, row_tokens:], block_aligned=True)
     if block_aligned and row_tokens >= k_new.shape[1]:
         block_aligned = False  # every token is a per-row token
-    l, n, _, bs, r = cache.shape
     b, s, hk, d = k_new.shape
-    rows_k = k_new.to(cache.dtype).reshape(b, s, hk * d)
-    rows_v = v_new.to(cache.dtype).reshape(b, s, hk * d)
+    blocks = block_aligned and s > 1 and s % cache_data(cache).shape[3] == 0
+    if is_quant(cache):
+        kq, ks = quantize_kv_rows(k_new)
+        vq, vs = quantize_kv_rows(v_new)
+        _write_layer_rows(cache.data, layer, kq.reshape(b, s, hk * d), vq.reshape(b, s, hk * d),
+                          slot_idx, blocks)
+        _write_layer_scales(cache.scale, layer, ks, vs, slot_idx, blocks, cache.data.shape[3])
+        return cache
+    _write_layer_rows(cache, layer, k_new.reshape(b, s, hk * d), v_new.reshape(b, s, hk * d),
+                      slot_idx, blocks)
+    return cache
+
+
+def _write_layer_rows(cache: torch.Tensor, layer: int, rows_k: torch.Tensor,
+                      rows_v: torch.Tensor, slot_idx: torch.Tensor, blocks: bool) -> None:
+    """The payload write of :func:`write_kv_cache_layer`: rows [B, S, R]
+    into the cache [L, N, 2, Bs, R], by whole blocks when ``blocks``."""
+    if not cache.is_contiguous():
+        raise ValueError("the cache must be contiguous")
+    l, n, _, bs, r = cache.shape
+    b, s, _ = rows_k.shape
+    rows_k = rows_k.to(cache.dtype)
+    rows_v = rows_v.to(cache.dtype)
     slot_idx = slot_idx.long()
-    if block_aligned and s > 1 and s % bs == 0:
+    if blocks:
         nb = s // bs
         flat = cache.view(l * n * 2, bs, r)
         first = slot_idx[:, ::bs].reshape(-1)                   # [B*nb] block-leading slot
@@ -300,7 +353,7 @@ def write_kv_cache_layer(
         flat[k_tgt] = torch.where(valid, rows_k.reshape(b * nb, bs, r), flat[k_tgt])
         v_tgt = torch.where(live, base + 1, layer * n * 2)      # dropped: a K block
         flat[v_tgt] = torch.where(valid, rows_v.reshape(b * nb, bs, r), flat[v_tgt])
-        return cache
+        return
     flat = cache.view(l * n * 2 * bs, r)
     idx = slot_idx.reshape(-1)
     valid = idx >= 0
@@ -311,7 +364,45 @@ def write_kv_cache_layer(
     flat[k_tgt] = torch.where(valid[:, None], rows_k.reshape(-1, r), flat[k_tgt])
     v_tgt = torch.where(valid, base + bs, layer * n * 2 * bs)   # dropped: a K row
     flat[v_tgt] = torch.where(valid[:, None], rows_v.reshape(-1, r), flat[v_tgt])
-    return cache
+
+
+def _write_layer_scales(scale: torch.Tensor, layer: int, ks: torch.Tensor, vs: torch.Tensor,
+                        slot_idx: torch.Tensor, blocks: bool, bs: int) -> None:
+    """The scale write of :func:`write_kv_cache_layer`: per-token scales
+    [B, S, Hk] into the token-minor pool [L, N, 2, Hp, Sp], index for index
+    with the payload write.  The block path rewrites whole tiles (the valid
+    region folded into the tile as read); the row path writes
+    ``(tile, :Hk, lane)``.  Dropped rows write back what they read from a
+    tile of the other half, as in :func:`_write_layer_rows`."""
+    if not scale.is_contiguous():
+        raise ValueError("the scale pool must be contiguous")
+    l, n, _, hp, sp = scale.shape
+    b, s, hk = ks.shape
+    flat = scale.view(l * n * 2, hp, sp)
+    slot_idx = slot_idx.long()
+    if blocks:
+        nb = s // bs
+        first = slot_idx[:, ::bs].reshape(-1)
+        live = first >= 0
+        base = layer * (n * 2) + first.clamp_min(0) // bs * 2
+        valid = (slot_idx >= 0).reshape(b * nb, 1, bs) & live[:, None, None]
+        for new, tgt in ((ks, torch.where(live, base, layer * n * 2 + 1)),
+                         (vs, torch.where(live, base + 1, layer * n * 2))):
+            tiles = flat[tgt]                                   # [B*nb, Hp, Sp], a copy
+            fresh = new.to(scale.dtype).reshape(b * nb, bs, hk).transpose(1, 2)
+            tiles[:, :hk, :bs] = torch.where(valid, fresh, tiles[:, :hk, :bs])
+            flat[tgt] = tiles
+        return
+    idx = slot_idx.reshape(-1)
+    valid = idx >= 0
+    safe = idx.clamp_min(0)
+    tile = layer * (n * 2) + safe // bs * 2
+    lane = (safe % bs)[:, None]
+    heads = torch.arange(hk, device=scale.device)[None, :]
+    for new, tgt in ((ks, torch.where(valid, tile, layer * n * 2 + 1)),
+                     (vs, torch.where(valid, tile + 1, layer * n * 2))):
+        at = (tgt[:, None], heads, lane)
+        flat[at] = torch.where(valid[:, None], new.to(scale.dtype).reshape(-1, hk), flat[at])
 
 
 def paged_attention(
