@@ -14,8 +14,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    cache (Bs=16 and 32) with random codes in every dead slot and NaN in
    every dead slot's scale and every pad lane of the scale tiles.  The
    W8A16 matmul runs at every projection shape of Llama-3-8B and its
-   lm_head (f32 out), at M = 6, 8, 300 and 1504, for a [K, N] weight and
-   for the transpose of an [N, K] one.  Then decode, prefill and the
+   lm_head (f32 out), at M = 1 to 1504 across both regimes' edges, for a
+   [K, N] weight and for the transpose of an [N, K] one, then at ragged
+   shapes (N = 32002 or 1000, K = 4104), and a split-K launch is run twice
+   and must give the same bits.  Then decode, prefill and the
    matmul are timed at the serving paths' shapes beside their plain
    versions, a PyTorch library call on the same work, and their bound on
    this card;
@@ -53,7 +55,12 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+if not (ROOT / "dynamo_tpu_torch").is_dir():
+    sys.exit("chip_smoke: dynamo_tpu_torch/ is not beside this script")
 sys.path.insert(0, str(ROOT))
+
+from dynamo_tpu_torch.tools.cuda_timing import (  # noqa: E402
+    LM_HEAD, PROJECTIONS, card_line, cuda_time_ms, graph_time_ms)
 
 # published peaks of one H100 SXM (dense): HBM bytes/s and bf16 tensor FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -76,11 +83,12 @@ BUDGET_PATH = dict(DEFAULT_PATH, prefill_token_budget=1024, unified_token_dispat
 BS_Q8 = 32
 INT8_DEFAULT_PATH = dict(DEFAULT_PATH, block_size=BS_Q8, cache_dtype="int8")
 INT8_BUDGET_PATH = dict(BUDGET_PATH, block_size=BS_Q8, cache_dtype="int8")
-# Llama-3-8B's matmuls as the model runs them, [K, N]: the seven
-# projections of a layer (q, k and v are three products) and the lm_head
-PROJECTIONS = {"wq": (4096, 4096), "wk": (4096, 1024), "wv": (4096, 1024), "wo": (4096, 4096),
-               "w_gate": (4096, 14336), "w_up": (4096, 14336), "w_down": (14336, 4096)}
-LM_HEAD = (4096, 128256)
+# the W8A16 checks' row counts: both regimes' edges, decode and prefill
+MATMUL_ROWS = (1, 6, 8, 16, 17, 64, 65, 128, 129, 300, 1504)
+# [K, N] with rows off 16 bytes in one layout or both (a 32002-token
+# vocabulary, a depth of 4104), at row counts of both regimes
+RAGGED_MATMULS = ((4096, 32002), (4104, 32002), (4104, 1000))
+RAGGED_MATMUL_ROWS = (1, 8, 16, 17, 300)
 
 # bf16 tolerance, kernel vs plain version on identical bf16 inputs, per
 # element: |out - ref| <= KERNEL_ATOL + KERNEL_RTOL * |ref|.  Both sides
@@ -122,31 +130,40 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
+def sass_check(torch, lib_path) -> None:
+    """The redesigned kernels as compiled: the wgmma kernels (B5 above 16
+    rows, B2) issue HGMMA, and they and B5's decode kernel copy with
+    LDGSTS (cp.async), except B5's instantiations for rows off 16 bytes
+    (template flag VEC = false), which copy element by element.  Logged
+    per kernel; a missing instruction fails."""
+    import re
+    import shutil
 
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True, text=True, timeout=300)
+    check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr.strip()[:500]}")
+    counts, name = {}, None
+    for line in sass.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts[name] = [0, 0]
+        elif name is not None:
+            counts[name][0] += "HGMMA" in line
+            counts[name][1] += "LDGSTS" in line
 
-def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean time of one call on the card, by CUDA events around ``iters``
-    calls (``fn(i)`` gets the call index, so callers can rotate inputs
-    past the 50 MB L2)."""
-    import torch
+    def copies_async(n):  # B5's last template argument is VEC
+        m = re.search(r"w8a16_\w+?_kernelI(.*?)EE", n)
+        return m is None or m.group(1).endswith("Lb1")
 
-    for i in range(warmup):
-        fn(i)
-    torch.cuda.synchronize()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(iters):
-        fn(i)
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
+    want = {"w8a16_wgmma_kernel": True, "wgmma_prefill_kernel": True, "w8a16_decode_kernel": False}
+    for key, needs_hgmma in want.items():
+        found = {n: c for n, c in counts.items() if key in n}
+        check(bool(found), f"sass: no {key} in the library")
+        for n, (hgmma, ldgsts) in found.items():
+            check((ldgsts > 0 or not copies_async(n)) and (hgmma > 0 or not needs_hgmma),
+                  f"sass: {n[:80]} has HGMMA {hgmma}, LDGSTS {ldgsts}")
+        log(f"sass {key}: {len(found)} instantiations, HGMMA "
+            f"{sorted({c[0] for c in found.values()})}, LDGSTS {sorted({c[1] for c in found.values()})}")
 
 
 # ------------------------------------------------------------------ kernels
@@ -252,7 +269,7 @@ def decode_case(torch, gen, lens, s, logit_cap, geom=(H, HK, D), bs=BS, quant=Fa
     return err
 
 
-def prefill_case(torch, gen, starts, fresh, s, geom=(H, HK, D), bs=BS, quant=False):
+def prefill_case(torch, gen, starts, fresh, s, geom=(H, HK, D), bs=BS, quant=False, logit_cap=None):
     from dynamo_tpu_torch.ops.kernels.prefill_attention import (
         paged_prefill_attention, paged_prefill_attention_q8, prefill_attention_ref)
 
@@ -274,9 +291,9 @@ def prefill_case(torch, gen, starts, fresh, s, geom=(H, HK, D), bs=BS, quant=Fal
             torch.tensor(lens, dtype=torch.int32, device="cuda"),
             torch.tensor(starts, dtype=torch.int32, device="cuda"))
     kernel = paged_prefill_attention_q8 if quant else paged_prefill_attention
-    out = kernel(*args)
-    err = compare(torch, f"prefill {'int8 ' if quant else ''}{geom} Bs={bs} starts={starts}", out,
-                  prefill_attention_ref(*args))
+    out = kernel(*args, logit_cap=logit_cap)
+    err = compare(torch, f"prefill {'int8 ' if quant else ''}{geom} Bs={bs} starts={starts} fresh={fresh} "
+                  f"cap={logit_cap}", out, prefill_attention_ref(*args, logit_cap=logit_cap))
     for i, f in enumerate(fresh):
         check(bool((out[i, f:] == 0).all()), f"prefill: padding rows of row {i} are not 0")
     return err
@@ -352,6 +369,21 @@ def kernel_phase(torch) -> dict:
         p_err = prefill_case(torch, gen, starts=[64], fresh=[90], s=96, geom=geom)
         log(f"kernel (H, Hk, D)={geom}: decode S=2 max abs err {d_err:.3g}, "
             f"prefill start=64 max abs err {p_err:.3g}")
+    # the bf16 kernel's tile edges: softcap; fresh lengths off the token tile
+    # (128 / G tokens); a start that is block-aligned but not 64-aligned, so
+    # a 64-key tile crosses it into poisoned slots; G = 64 (two tokens per
+    # block); each at D = 64, 128 and 256
+    for starts, fresh, s, geom, cap in (
+            ([0, 80], [77, 301], 320, (H, HK, D), 50.0),
+            ([80, 1040], [45, 1], 64, (H, HK, D), None),
+            ([80], [45], 48, (64, 1, 128), None),
+            ([48], [33], 48, (64, 1, 64), 50.0),
+            ([80, 16], [100, 7], 112, (16, 2, 256), 50.0),
+            ([0], [129], 144, (8, 8, 64), None)):
+        e = prefill_case(torch, gen, starts=starts, fresh=fresh, s=s, geom=geom, logit_cap=cap)
+        log(f"kernel prefill (H, Hk, D)={geom} S={s} start={starts} fresh={fresh} softcap={cap}: "
+            f"max abs err {e:.3g}")
+        errs["prefill"] = max(errs["prefill"], e)
     # ragged: the unified layout (8 decode rows, contexts 1 to 2047, ahead of
     # a span from 0 and one from a block-aligned start, then padding rows),
     # softcap on and off, and a packed prefill as the engine's first dispatch
@@ -421,7 +453,11 @@ def _q8_weight(torch, gen, k, n, layout):
 
 def matmul_phase(torch, gen) -> float:
     """The W8A16 kernel against its plain version at every matmul shape of
-    Llama-3-8B, decode and prefill row counts, both weight layouts."""
+    Llama-3-8B, both weight layouts, at row counts on both sides of the
+    decode regime's limit (16) and of the wgmma regime's 128-row tiles, and
+    at the serving paths' decode and prefill counts; then at ragged shapes
+    (rows off 16 bytes: a 32002-token vocabulary, a depth of 4104), and a
+    split-K launch run twice, which must give the same bits."""
     from dynamo_tpu_torch.ops.kernels.int8_matmul import int8_matmul, int8_matmul_ref
 
     worst = 0.0
@@ -431,16 +467,37 @@ def matmul_phase(torch, gen) -> float:
         errs = []
         for layout in ("kn", "nk"):
             wq, scale = _q8_weight(torch, gen, k, n, layout)
-            for m in (6, 8, 300, 1504):
+            for m in MATMUL_ROWS:
                 x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
                 out = int8_matmul(x, wq, scale, out_dtype)
                 check(out.dtype == out_dtype and out.shape == (m, n), f"matmul {name}: {out.shape}")
                 errs.append(compare(torch, f"matmul {name} [{k}, {n}] {layout} M={m}", out,
                                     int8_matmul_ref(x, wq, scale, out_dtype)))
             del wq, scale
-        log(f"kernel matmul {name} [K, N]=[{k}, {n}] M in (6, 8, 300, 1504), both layouts: "
+        log(f"kernel matmul {name} [K, N]=[{k}, {n}] M in {MATMUL_ROWS}, both layouts: "
             f"max abs err {max(errs):.3g}")
         worst = max(worst, *errs)
+    for k, n in RAGGED_MATMULS:
+        errs = []
+        for layout in ("kn", "nk"):
+            wq, scale = _q8_weight(torch, gen, k, n, layout)
+            for m in RAGGED_MATMUL_ROWS:
+                x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+                errs.append(compare(torch, f"matmul [{k}, {n}] {layout} M={m}", int8_matmul(x, wq, scale),
+                                    int8_matmul_ref(x, wq, scale)))
+            del wq, scale
+        log(f"kernel matmul ragged [K, N]=[{k}, {n}] M in {RAGGED_MATMUL_ROWS}, both layouts: "
+            f"max abs err {max(errs):.3g}")
+        worst = max(worst, *errs)
+    # wk splits K 64 ways at M = 8 (decode regime), 16 ways at M = 64
+    # (wgmma regime): the same bits twice
+    for name, m in (("wk", 8), ("wk", 64)):
+        k, n = PROJECTIONS[name]
+        wq, scale = _q8_weight(torch, gen, k, n, "kn")
+        x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+        check(torch.equal(int8_matmul(x, wq, scale), int8_matmul(x, wq, scale)),
+              f"matmul {name} M={m}: two runs of the split-K launch differ")
+    log("kernel matmul split K, wk at M=8 and M=64: two runs bit-identical")
     return worst
 
 
@@ -644,9 +701,12 @@ def matmul_timing(torch, card: str) -> dict:
     seven projections at M = 8 rows, in order, with four layers' distinct
     weights in turn (875 MB, far past the 50 MB L2), beside the plain
     version, cuBLAS bf16 on the same weights dequantised beforehand (twice
-    the weight bytes; the dequantisation is not timed) and the bound.  Also
-    logged: the same layer at a prefill's M = 1504, and the lm_head at
-    M = 8 with f32 logits."""
+    the weight bytes; the dequantisation is not timed) and the bound.  Each
+    is timed as a CUDA graph of the calls (the card's time; at M = 8 the
+    host launches slower than the card runs, so eager timing measures the
+    host) and, for the log, eagerly.  Also logged: each projection at M = 8,
+    the layer at a prefill's M = 1504, and the lm_head at M = 8 with f32
+    logits."""
     from dynamo_tpu_torch.ops.kernels.int8_matmul import int8_matmul, int8_matmul_ref
 
     gen = torch.Generator(device="cuda")
@@ -660,10 +720,6 @@ def matmul_timing(torch, card: str) -> dict:
         return {name: torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
                 for name, (k, _) in PROJECTIONS.items()}
 
-    def layer_ms(fn, xs, iters, warmup=2):
-        return cuda_time_ms(lambda i: [fn(xs[name], i % 4, name) for name in PROJECTIONS], iters,
-                            warmup)
-
     def kernel(x, li, name):
         return int8_matmul(x, *layers[li][name])
 
@@ -673,6 +729,17 @@ def matmul_timing(torch, card: str) -> dict:
     def library(x, li, name):
         return torch.matmul(x, dense[li][name])
 
+    def layer_calls(fn, xs, names=tuple(PROJECTIONS)):
+        return [lambda li=li, name=name: fn(xs[name], li, name) for li in range(4) for name in names]
+
+    def layer_ms(fn, xs, iters):
+        """One layer's time: a graph of four layers' calls, per layer."""
+        return graph_time_ms(layer_calls(fn, xs), iters) / 4
+
+    def eager_ms(fn, xs, iters):
+        calls = layer_calls(fn, xs)
+        return cuda_time_ms(lambda i: [c() for c in calls], iters) / 4
+
     def layer_bound(m):
         flops = sum(2 * m * k * n for k, n in PROJECTIONS.values())
         nbytes = sum(k * n + 2 * m * k + 2 * m * n + 4 * n for k, n in PROJECTIONS.values())
@@ -680,37 +747,40 @@ def matmul_timing(torch, card: str) -> dict:
 
     out = {}
     xs = rows(8)
-    out["matmul"] = dict(ms=layer_ms(kernel, xs, 32), plain_ms=layer_ms(plain, xs, 4, 1),
-                         library_ms=layer_ms(library, xs, 32), **layer_bound(8))
+    out["matmul"] = dict(ms=layer_ms(kernel, xs, 40), plain_ms=layer_ms(plain, xs, 8),
+                         library_ms=layer_ms(library, xs, 40), **layer_bound(8))
     errs = [compare(torch, f"matmul {name} at M=8", kernel(xs[name], 0, name),
                     plain(xs[name], 0, name)) for name in PROJECTIONS]
     out["matmul_err"] = max(errs)
     r = out["matmul"]
-    log(f"time matmul int8 one layer's 7 projections at M=8: kernel {r['ms']:.4f} ms, plain "
+    log(f"time matmul int8 one layer's 7 projections at M=8 (CUDA graph): kernel {r['ms']:.4f} ms, plain "
         f"{r['plain_ms']:.4f} ms, cuBLAS bf16 on dequantised weights (twice the weight bytes) "
-        f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+        f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); launched eagerly: "
+        f"kernel {eager_ms(kernel, xs, 16):.4f} ms, cuBLAS {eager_ms(library, xs, 16):.4f} ms; "
         f"max abs err {out['matmul_err']:.3g} ({card})")
-    per = {name: cuda_time_ms(lambda i, name=name: kernel(xs[name], i % 4, name), 32)
-           for name in PROJECTIONS}
+    per = {name: graph_time_ms(layer_calls(kernel, xs, (name,)), 40) / 4 for name in PROJECTIONS}
     bounds = {name: _bound(2 * 8 * k * n, k * n + 16 * k + 16 * n + 4 * n)["bound_ms"]
               for name, (k, n) in PROJECTIONS.items()}
-    log("time matmul int8 at M=8 by projection: " + ", ".join(
+    log("time matmul int8 at M=8 by projection (CUDA graph): " + ", ".join(
         f"{name} [{k}, {n}] {per[name]:.4f} ms (bound {bounds[name]:.4f})"
         for name, (k, n) in PROJECTIONS.items()) + f" ({card})")
     xp = rows(1504)
     pre = dict(ms=layer_ms(kernel, xp, 8), library_ms=layer_ms(library, xp, 8), **layer_bound(1504))
-    log(f"time matmul int8 one layer's 7 projections at M=1504: kernel {pre['ms']:.4f} ms, cuBLAS "
-        f"bf16 {pre['library_ms']:.4f} ms, bound {pre['bound_ms']:.4f} ms ({pre['bound_by']}) ({card})")
+    per = {name: graph_time_ms(layer_calls(kernel, xp, (name,)), 8) / 4 for name in PROJECTIONS}
+    log(f"time matmul int8 one layer's 7 projections at M=1504 (CUDA graph): kernel {pre['ms']:.4f} ms, "
+        f"cuBLAS bf16 {pre['library_ms']:.4f} ms, bound {pre['bound_ms']:.4f} ms ({pre['bound_by']}); by "
+        f"projection " + ", ".join(f"{name} {v:.4f}" for name, v in per.items()) + f" ({card})")
     del layers, dense
     k, n = LM_HEAD
     heads = [_q8_weight(torch, gen, k, n, "kn") for _ in range(2)]
     x = torch.randn((8, k), generator=gen, device="cuda").to(torch.bfloat16)
-    head_ms = cuda_time_ms(lambda i: int8_matmul(x, *heads[i % 2], torch.float32), 16)
+    head_ms = graph_time_ms([lambda i=i: int8_matmul(x, *heads[i], torch.float32) for i in range(2)],
+                            20) / 2
     dense_head = heads[0][0].to(torch.bfloat16) * heads[0][1].to(torch.bfloat16)
     head_lib = cuda_time_ms(lambda i: torch.mm(x, dense_head, out_dtype=torch.float32), 16)
     hb = _bound(2 * 8 * k * n, k * n + 16 * k + 32 * n + 4 * n)
-    log(f"time matmul int8 lm_head [{k}, {n}] at M=8, f32 out: kernel {head_ms:.4f} ms, cuBLAS bf16 "
-        f"{head_lib:.4f} ms (one weight, L2-warm for weights under 50 MB), bound {hb['bound_ms']:.4f} ms "
+    log(f"time matmul int8 lm_head [{k}, {n}] at M=8, f32 out (CUDA graph): kernel {head_ms:.4f} ms, cuBLAS "
+        f"bf16 {head_lib:.4f} ms (one weight, L2-warm for weights under 50 MB), bound {hb['bound_ms']:.4f} ms "
         f"({hb['bound_by']}) ({card})")
     return out
 
@@ -1192,9 +1262,6 @@ def parity_phase(torch, card: str, quant: bool = False) -> None:
 
 # --------------------------------------------------------------------- main
 def main() -> int:
-    if not (ROOT / "dynamo_tpu_torch").is_dir():
-        print("chip_smoke: dynamo_tpu_torch/ is not beside this script", file=sys.stderr)
-        return 2
     import torch
 
     if not torch.cuda.is_available():
@@ -1208,9 +1275,10 @@ def main() -> int:
         card = card_line()
         log(card)
         t0 = time.perf_counter()
-        build.build_library(verbose=True)
+        lib_path = build.build_library(verbose=True)
         build.library()
         log(f"build: {time.perf_counter() - t0:.1f} s ({card})")
+        sass_check(torch, lib_path)
         errs = kernel_phase(torch)
         times = timing_phase(torch, card)
         times.update(q8_timing_phase(torch, card))
@@ -1223,7 +1291,7 @@ def main() -> int:
         times["ragged_q8_err"] = times["ragged_q8"].pop("err")
         parity_phase(torch, card)
         parity_phase(torch, card, quant=True)
-    except SmokeFailure as e:
+    except (SmokeFailure, RuntimeError) as e:  # a failed check, build or nvidia-smi
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     # launches: each kernel's count over the serving run of the path it

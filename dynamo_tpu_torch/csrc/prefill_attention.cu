@@ -12,56 +12,55 @@
 // payload plus per-(token, KV head) f32 scales; the fresh K/V stay bf16.
 //
 // What bounds it on this card: at long S, tensor-core flops.  A block's
-// query tile reuses every K/V byte it reads 64 times (its 64 query rows),
-// so past a few hundred tokens the least time is
-// (4 * H * D * visible (query, key) pairs) / 989 TFLOP/s (bf16); at short S
-// it is the bytes of q, K/V and the prefix.
+// query tile reuses every K/V byte it reads once per query row, so past a
+// few hundred tokens the least time is (4 * H * D * visible (query, key)
+// pairs) / 989 TFLOP/s (bf16); at short S it is the bytes of q, K/V and
+// the prefix.
 //
-// What the design does about that: both products run on the tensor cores
-// (mma.sync m16n8k16, bf16 in, f32 accumulate), FlashAttention-2 style.
-// One block of 4 warps owns (row b, a tile of TQ = 64 / G query tokens,
-// KV head k): its 64 query rows are the G query heads of k for each token,
-// so the G heads that share a KV head share each K/V tile read.  Each warp
-// owns 16 rows; scores, the online softmax and the output stay in
-// registers, and the probabilities feed the PV product straight from the
-// score fragments.  K/V tiles of 64 keys (32 at D = 256) are staged in
-// shared memory with rows padded by 8 bf16, which makes every fragment load
-// bank-conflict free.  The causal walk stops at the tile's last query, and
-// tiles made only of padding rows write zeros and stop.  Dead keys (past
-// `start` in the prefix, past seq_len - start in the fresh chunk) are
-// staged as zeros, so NaN in the pool or in padding K/V never reaches a
-// live lane.  An int8 prefix tile is converted to bf16 as it is staged
-// (exact) and its K and V scales are staged beside it (zero for dead
-// slots); the scores take the K scale before the softcap and the PV
-// product takes the V scale on the probabilities (mma_attention.cuh), so
-// the int8 cache reads half the prefix bytes through the same tile code.
+// The bf16 kernel (wgmma_attention.cuh) is built for Hopper's tensor-core
+// rate: one block owns (row b, TQ = 128 / G query tokens, KV head k), 128
+// query rows in two consumer warpgroups that run both products as wgmma,
+// so the G heads that share a KV head share each K/V tile read.  S = Q K^T
+// takes Q from registers (up to D = 128) and K by descriptor from shared
+// memory; O += P V takes P from registers and V from shared memory.  A
+// producer warpgroup streams K/V tiles (64 keys; 32 at D = 256, where the
+// O accumulator alone takes 128 registers) through a 3-stage cp.async ring
+// with mbarriers, so loads overlap the products; dead keys are zero-filled
+// rather than read, which keeps NaN in the pool or in padding K/V out of
+// both products.  Each warpgroup runs tile i's S while tile i - 1's P V is
+// on the tensor cores, and tile i's softmax while that P V finishes.  The
+// softmax runs in base 2, masks only the tiles that cross `start` or the
+// diagonal, and skips a warpgroup's tiles past its last token.  The grid
+// walks the causal tiles longest first.  The shared-memory opt-in is set
+// once per instantiation, not per launch.
 //
-// Not yet done (later work): cp.async/TMA double buffering of the K/V
-// tiles, ldmatrix fragment loads, wgmma with 64-row warpgroup tiles.
-#include <type_traits>
-
+// The int8 kernel keeps the earlier mma.sync body (mma_attention.cuh):
+// 64-row tiles, K/V staged through registers, int8 rows converted to bf16
+// as they are staged (exact) with their K and V scales beside them (zero
+// for dead slots); the scores take the K scale before the softcap and the
+// PV product takes the V scale on the probabilities.  It moves to the
+// wgmma tile in a later change.
 #include "mma_attention.cuh"
+#include "wgmma_attention.cuh"
 
 namespace dynamo {
 namespace {
 
-// E is the cache's element type: __nv_bfloat16, or int8_t with `scale`
-// the int8 cache's scale pool [L, N, 2, Hp, Sp] (unused for bf16).
-template <int D, class E>
+// Over an int8 cache: `scale` is its scale pool [L, N, 2, Hp, Sp].
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 prefill_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k_new,
-               const __nv_bfloat16* __restrict__ v_new, const E* __restrict__ cache,
+               const __nv_bfloat16* __restrict__ v_new, const int8_t* __restrict__ cache,
                const float* __restrict__ scale, const int* __restrict__ block_tables,
                const int* __restrict__ seq_lens, const int* __restrict__ starts,
                __nv_bfloat16* __restrict__ out, int S, int H, int Hk, int N, int Bs, int M, int layer,
                int Hp, int Sp, int TQ, float sm_scale, float logit_cap) {
   using T = Tile<D>;
-  constexpr bool kQuant = !std::is_same<E, __nv_bfloat16>::value;
   extern __shared__ uint4 smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* ks = qs + kRows * T::kStride;
   __nv_bfloat16* vs = ks + T::kKeys * T::kStride;
-  __shared__ float sck[kQuant ? T::kKeys : 1], scv[kQuant ? T::kKeys : 1];
+  __shared__ float sck[T::kKeys], scv[T::kKeys];
 
   const int b = blockIdx.x, i0 = blockIdx.y * TQ, head = blockIdx.z;
   const int group = H / Hk, rows = TQ * group;
@@ -98,20 +97,18 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
     for (int t0 = 0; t0 < start; t0 += T::kKeys) {
       const int n_live = min(T::kKeys, start - t0);
       __syncthreads();  // the previous tile's readers are done
-      stage_kv<D, E>(ks, vs, n_live, [&](int j, const E** kr, const E** vr) {
+      stage_kv<D, int8_t>(ks, vs, n_live, [&](int j, const int8_t** kr, const int8_t** vr) {
         const int pos = t0 + j, bid = block_of(pos);
         *kr = cache_row(cache, layer, N, Bs, hkd, bid, 0, pos % Bs, head, D);
         *vr = cache_row(cache, layer, N, Bs, hkd, bid, 1, pos % Bs, head, D);
       });
-      if constexpr (kQuant) {
-        stage_scales<D>(sck, scv, n_live, [&](int j, float* k, float* v) {
-          const int pos = t0 + j, bid = block_of(pos);
-          *k = cache_scale(scale, layer, N, Hp, Sp, bid, 0, head, pos % Bs);
-          *v = cache_scale(scale, layer, N, Hp, Sp, bid, 1, head, pos % Bs);
-        });
-      }
+      stage_scales<D>(sck, scv, n_live, [&](int j, float* k, float* v) {
+        const int pos = t0 + j, bid = block_of(pos);
+        *k = cache_scale(scale, layer, N, Hp, Sp, bid, 0, head, pos % Bs);
+        *v = cache_scale(scale, layer, N, Hp, Sp, bid, 1, head, pos % Bs);
+      });
       __syncthreads();
-      attend<D, kQuant>(st, qs, ks, vs, sck, scv, sm_scale, logit_cap,
+      attend<D, true>(st, qs, ks, vs, sck, scv, sm_scale, logit_cap,
                         [&](int h, int key) { return t0 + key < start && tok[h] < fresh; });
     }
 
@@ -139,7 +136,7 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   });
 }
 
-template <int D, class E>
+template <int D>
 cudaError_t launch(const void* q, const void* k_new, const void* v_new, const void* cache, const void* scale,
                    const void* bt, const void* lens, const void* starts, void* out, int B, int S, int H,
                    int Hk, int N, int Bs, int M, int layer, int Hp, int Sp, float sm_scale, float logit_cap,
@@ -147,33 +144,32 @@ cudaError_t launch(const void* q, const void* k_new, const void* v_new, const vo
   const int group = H / Hk;
   if (group > kRows) return cudaErrorInvalidValue;
   const int tq = kRows / group;
-  auto kernel = prefill_kernel<D, E>;
+  auto kernel = prefill_kernel<D>;
   const size_t smem = Tile<D>::smem_bytes();
-  cudaError_t err = allow_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
+  static const cudaError_t attr = allow_smem(kernel, smem);  // once per instantiation
+  if (attr != cudaSuccess) return attr;
   const dim3 grid(B, (S + tq - 1) / tq, Hk);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_new),
-      static_cast<const __nv_bfloat16*>(v_new), static_cast<const E*>(cache), static_cast<const float*>(scale),
+      static_cast<const __nv_bfloat16*>(v_new), static_cast<const int8_t*>(cache), static_cast<const float*>(scale),
       static_cast<const int*>(bt), static_cast<const int*>(lens), static_cast<const int*>(starts),
       static_cast<__nv_bfloat16*>(out), S, H, Hk, N, Bs, M, layer, Hp, Sp, tq, sm_scale, logit_cap);
   return cudaGetLastError();
 }
 
-template <class E>
 int dispatch(const void* q, const void* k_new, const void* v_new, const void* cache, const void* scale,
              const void* bt, const void* lens, const void* start, void* out, int B, int S, int H, int Hk, int D,
              int N, int Bs, int M, int layer, int Hp, int Sp, float sm_scale, float logit_cap, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch<64, E>(q, k_new, v_new, cache, scale, bt, lens, start, out, B, S, H, Hk, N, Bs, M, layer,
+      return launch<64>(q, k_new, v_new, cache, scale, bt, lens, start, out, B, S, H, Hk, N, Bs, M, layer,
                            Hp, Sp, sm_scale, logit_cap, st);
     case 128:
-      return launch<128, E>(q, k_new, v_new, cache, scale, bt, lens, start, out, B, S, H, Hk, N, Bs, M, layer,
+      return launch<128>(q, k_new, v_new, cache, scale, bt, lens, start, out, B, S, H, Hk, N, Bs, M, layer,
                             Hp, Sp, sm_scale, logit_cap, st);
     case 256:
-      return launch<256, E>(q, k_new, v_new, cache, scale, bt, lens, start, out, B, S, H, Hk, N, Bs, M, layer,
+      return launch<256>(q, k_new, v_new, cache, scale, bt, lens, start, out, B, S, H, Hk, N, Bs, M, layer,
                             Hp, Sp, sm_scale, logit_cap, st);
     default:
       return cudaErrorInvalidValue;
@@ -185,15 +181,45 @@ int dispatch(const void* q, const void* k_new, const void* v_new, const void* ca
 
 // q [B, S, H, D], k_new, v_new [B, S, Hk, D] bf16; cache [L, N, 2, Bs, Hk*D]
 // bf16; block_tables [B, M] int32 (the prefix blocks lead the table);
-// seq_lens, start [B] int32; out [B, S, H, D] bf16.  logit_cap <= 0 turns
-// the softcap off.  Returns the launch's cudaGetLastError().
+// seq_lens, start [B] int32; out [B, S, H, D] bf16.  All 16-byte aligned.
+// logit_cap <= 0 turns the softcap off.  The launch is the caller's plan
+// (launch_geometry.cuh): a grid of (Hk, B, tiles) blocks, each holding `tq`
+// query tokens times the H / Hk query heads of its KV head, which must fit
+// a block's rows and cover S once.  Returns the launch's
+// cudaGetLastError(), or cudaErrorInvalidValue for a plan that does not fit
+// the shapes.
 extern "C" int dynamo_prefill_attention(const void* q, const void* k_new, const void* v_new,
                                         const void* cache, const void* block_tables, const void* seq_lens,
                                         const void* start, void* out, int B, int S, int H, int Hk, int D,
-                                        int N, int Bs, int M, int layer, float sm_scale, float logit_cap,
-                                        void* stream) {
-  return dynamo::dispatch<__nv_bfloat16>(q, k_new, v_new, cache, nullptr, block_tables, seq_lens, start, out,
-                                         B, S, H, Hk, D, N, Bs, M, layer, 0, 0, sm_scale, logit_cap, stream);
+                                        int N, int Bs, int M, int layer, int tq, int tiles, float sm_scale,
+                                        float logit_cap, void* stream) {
+  using namespace dynamo;
+  if (B < 1 || S < 1 || Hk < 1 || H % Hk || tq < 1 || (long long)tq * (H / Hk) > wg::kRows ||
+      (long long)tiles * tq < S || (long long)(tiles - 1) * tq >= S)
+    return cudaErrorInvalidValue;
+  const dim3 grid(Hk, B, tiles);
+  auto go = [&](auto kernel, size_t bytes) -> int {
+    kernel<<<grid, wg::kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_new),
+        static_cast<const __nv_bfloat16*>(v_new), static_cast<const __nv_bfloat16*>(cache),
+        static_cast<const int*>(block_tables), static_cast<const int*>(seq_lens), static_cast<const int*>(start),
+        static_cast<__nv_bfloat16*>(out), S, H, Hk, N, Bs, M, layer, tq, sm_scale, logit_cap);
+    return cudaGetLastError();
+  };
+  // the opt-in above 48 KB, once per instantiation
+  static const cudaError_t attr64 = allow_smem(wgmma_prefill_kernel<64>, wg::Geometry<64>::kSmem);
+  static const cudaError_t attr128 = allow_smem(wgmma_prefill_kernel<128>, wg::Geometry<128>::kSmem);
+  static const cudaError_t attr256 = allow_smem(wgmma_prefill_kernel<256>, wg::Geometry<256>::kSmem);
+  switch (D) {
+    case 64:
+      return attr64 != cudaSuccess ? attr64 : go(wgmma_prefill_kernel<64>, wg::Geometry<64>::kSmem);
+    case 128:
+      return attr128 != cudaSuccess ? attr128 : go(wgmma_prefill_kernel<128>, wg::Geometry<128>::kSmem);
+    case 256:
+      return attr256 != cudaSuccess ? attr256 : go(wgmma_prefill_kernel<256>, wg::Geometry<256>::kSmem);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // The same over an int8 cache: cache [L, N, 2, Bs, Hk*D] int8 and scale
@@ -204,6 +230,6 @@ extern "C" int dynamo_prefill_attention_q8(const void* q, const void* k_new, con
                                            const void* seq_lens, const void* start, void* out, int B, int S,
                                            int H, int Hk, int D, int N, int Bs, int M, int layer, int Hp, int Sp,
                                            float sm_scale, float logit_cap, void* stream) {
-  return dynamo::dispatch<int8_t>(q, k_new, v_new, cache, scale, block_tables, seq_lens, start, out, B, S, H,
+  return dynamo::dispatch(q, k_new, v_new, cache, scale, block_tables, seq_lens, start, out, B, S, H,
                                   Hk, D, N, Bs, M, layer, Hp, Sp, sm_scale, logit_cap, stream);
 }

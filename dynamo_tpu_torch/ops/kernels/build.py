@@ -7,20 +7,26 @@ with a plain C interface, and loaded with ``ctypes``.  The library lands in
 and flags, so an edited source rebuilds and an unchanged tree loads the
 existing library.  Nothing here runs at import time: the first kernel launch
 builds.  A failed build raises.
+
+:func:`geometry` reads ``csrc/launch_geometry.cuh``, the launch geometry the
+redesigned kernels compile with, so the wrappers plan their launches from
+the same numbers.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
 from pathlib import Path
 
-__all__ = ["library", "build_library", "check", "NVCC_FLAGS"]
+__all__ = ["library", "build_library", "check", "geometry", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -38,8 +44,8 @@ _SIGNATURES = {
     # B, S, H, Hk, D, N, Bs, M, layer, split, sm_scale, logit_cap, stream
     "dynamo_decode_attention": [_P] * 7 + [_I] * 10 + [_F, _F, _P],
     # q, k_new, v_new, cache, block_tables, seq_lens, start, out,
-    # B, S, H, Hk, D, N, Bs, M, layer, sm_scale, logit_cap, stream
-    "dynamo_prefill_attention": [_P] * 8 + [_I] * 9 + [_F, _F, _P],
+    # B, S, H, Hk, D, N, Bs, M, layer, tq, tiles, sm_scale, logit_cap, stream
+    "dynamo_prefill_attention": [_P] * 8 + [_I] * 11 + [_F, _F, _P],
     # q, k_new, v_new, cache, block_tables, seq_lens, starts, row_offsets, out,
     # T, H, Hk, D, N, Bs, M, R, layer, sm_scale, logit_cap, stream
     "dynamo_ragged_prefill_attention": [_P] * 9 + [_I] * 9 + [_F, _F, _P],
@@ -55,12 +61,21 @@ _SIGNATURES = {
     # row_offsets, out, T, H, Hk, D, N, Bs, M, R, layer, Hp, Sp, sm_scale,
     # logit_cap, stream
     "dynamo_ragged_prefill_attention_q8": [_P] * 10 + [_I] * 11 + [_F, _F, _P],
-    # x, w, scale, out, partial, M, N, K, w_nk, out_f32, k_steps, splits, stream
-    "dynamo_int8_matmul": [_P] * 5 + [_I] * 7 + [_P],
+    # x, w, scale, out, partials, tickets, M, N, K, w_nk, out_f32, grid_n,
+    # grid_m, splits, k_steps, stream
+    "dynamo_int8_matmul": [_P] * 6 + [_I] * 9 + [_P],
 }
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+
+
+@functools.lru_cache(maxsize=None)
+def geometry() -> dict[str, int]:
+    """The ``#define DYN_<NAME> <integer>`` lines of
+    ``csrc/launch_geometry.cuh``, by NAME."""
+    text = (CSRC / "launch_geometry.cuh").read_text()
+    return {m[1]: int(m[2]) for m in re.finditer(r"^#define DYN_(\w+) (\d+)\b", text, re.M)}
 
 
 def _nvcc() -> str:

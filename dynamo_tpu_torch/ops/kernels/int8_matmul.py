@@ -9,6 +9,15 @@ output dtype (bf16, or f32 for logits).  The weight may be a row-major
 ``[K, N]`` tensor or the transpose view of a row-major ``[N, K]`` one (the
 tied embedding as the lm_head), which the kernel reads as it lies.
 
+The kernel has two regimes chosen by M: up to 16 rows a weight-streaming
+mma.sync kernel with the operands swapped, above that a wgmma kernel fed by
+a cp.async ring.  Both split K when the output tiles alone cannot fill the
+card and finish the split in the same launch, in a fixed order (the same
+result on every run).  :func:`plan` is the launch, from the geometry the
+kernels compile with (``csrc/launch_geometry.cuh``); the C entry point
+launches that plan and refuses one that does not fit the shapes.  Any M, N
+and K; rows off 16 bytes take a slower element-wise copy in the kernel.
+
 :func:`int8_matmul` launches the kernel for CUDA tensors and takes
 :func:`int8_matmul_ref` only for CPU tensors; on any other device it raises.
 ``int8_matmul.launches`` counts calls that launched.
@@ -17,15 +26,13 @@ tied embedding as the lm_head), which the kernel reads as it lies.
 from __future__ import annotations
 
 import functools
+from dataclasses import dataclass
 
 import torch
 
 from dynamo_tpu_torch.ops.kernels import build
 
-__all__ = ["int8_matmul", "int8_matmul_ref", "BN", "BK", "MAX_SPLITS"]
-
-BN, BK = 64, 64   # the kernel's output columns per block and depth per step
-MAX_SPLITS = 16   # most blocks one output tile's K range is split over
+__all__ = ["int8_matmul", "int8_matmul_ref", "MatmulPlan", "plan", "ticket_capacity"]
 
 
 def int8_matmul_ref(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
@@ -37,8 +44,50 @@ def int8_matmul_ref(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
     return (y * scale.float()).to(out_dtype or x.dtype)
 
 
-def _block_m(m: int) -> int:
-    return 16 if m <= 16 else 32 if m <= 32 else 64
+@dataclass(frozen=True)
+class MatmulPlan:
+    """One launch: ``grid`` = (N tiles, M tiles, splits) blocks of
+    ``threads`` with ``smem`` bytes of dynamic shared memory; split z covers
+    depth [z * k_steps * bk, (z + 1) * k_steps * bk); output tiles of ``bm``
+    rows by ``bn`` channels.  With splits > 1 the kernel takes a scratch of
+    ``scratch`` floats, the splits' f32 sums [splits, M, N rounded up to 4],
+    and one ticket per output tile."""
+    regime: str
+    bm: int
+    bn: int
+    bk: int
+    k_steps: int
+    splits: int
+    grid: tuple[int, int, int]
+    threads: int
+    smem: int
+    scratch: int
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(m: int, n: int, k: int, sms: int) -> MatmulPlan:
+    """The launch for x [m, k] @ w [k, n] on a card with ``sms`` SMs.  The
+    regime follows M.  While the output tiles leave the card's block slots
+    (what fits per SM by shared memory) idle, K is split into as many ranges
+    as fill the slots in one wave, and no more."""
+    g = build.geometry()
+    bk = g["B5_BK"]
+    if m <= g["B5_DECODE_MAX_M"]:
+        regime, bm, pre = "decode", (8 if m <= 8 else 16), "B5_DC_"
+        grid_m = 1
+    else:
+        regime, bm, pre = "prefill", g["B5_PF_TOKENS"], "B5_PF_"
+        grid_m = -(-m // bm)
+    bn = g[pre + "CHANNELS"]
+    grid_n = -(-n // bn)
+    tiles = grid_n * grid_m
+    steps = -(-k // bk)
+    want = max(1, min(steps, g[pre + "BLOCKS_PER_SM"] * sms // tiles))
+    per = -(-steps // want)
+    splits = -(-steps // per)
+    scratch = splits * m * (-(-n // 4) * 4) if splits > 1 else 0
+    return MatmulPlan(regime, bm, bn, bk, per, splits, (grid_n, grid_m, splits), g[pre + "THREADS"],
+                      g[pre + "SMEM"], scratch)
 
 
 @functools.lru_cache(maxsize=None)
@@ -46,14 +95,25 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def split_plan(m: int, n: int, k: int, sms: int) -> tuple[int, int]:
-    """(64-deep K steps per split, splits): split K only as far as needed
-    to put about two blocks on every SM."""
-    tiles = -(-m // _block_m(m)) * -(-n // BN)
-    k_steps = -(-k // BK)
-    want = max(1, min(MAX_SPLITS, k_steps, -(-2 * sms // tiles)))
-    per = -(-k_steps // want)
-    return per, -(-k_steps // per)
+def ticket_capacity(sms: int) -> int:
+    """Output tiles a split launch can have: K is split only while the
+    tiles leave block slots idle, and the decode regime has the most."""
+    return build.geometry()["B5_DC_BLOCKS_PER_SM"] * sms
+
+
+_tickets: dict[tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _stream_tickets(device: torch.device, stream: int) -> torch.Tensor:
+    """The zeroed split-K tickets of ``stream``: one per output tile, left
+    zeroed by every launch.  Launches on one stream run in order, so they
+    never hold a ticket at once; the buffer lives as long as the process,
+    so a CUDA graph captured on the stream may keep its address."""
+    buf = _tickets.get((device, stream))
+    if buf is None:
+        buf = torch.zeros(ticket_capacity(_sm_count(device.index or 0)), dtype=torch.int32, device=device)
+        _tickets[(device, stream)] = buf
+    return buf
 
 
 def _weight_layout(wq: torch.Tensor) -> tuple[torch.Tensor, int]:
@@ -95,15 +155,15 @@ def int8_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0:
         return out
-    per, splits = split_plan(m, n, k, _sm_count(x.device.index or 0))
-    # f32 partial sums of the K ranges; dropped when this returns, reused by
-    # the allocator only for work queued after the kernels on this stream
-    partial = (torch.empty(splits * m * n, dtype=torch.float32, device=x.device)
-               if splits > 1 else out)
+    p = plan(m, n, k, _sm_count(x.device.index or 0))
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    partials = tickets = None
+    if p.splits > 1:  # the splits' sums, per call from the caching allocator (stream-ordered)
+        partials = torch.empty(p.scratch, dtype=torch.float32, device=x.device).data_ptr()
+        tickets = _stream_tickets(x.device, stream).data_ptr()
     rc = build.library().dynamo_int8_matmul(
-        x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(), partial.data_ptr(),
-        m, n, k, nk, int(out_dtype == torch.float32), per, splits,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(), partials, tickets,
+        m, n, k, nk, int(out_dtype == torch.float32), p.grid[0], p.grid[1], p.splits, p.k_steps, stream,
     )
     build.check(rc, "dynamo_int8_matmul")
     int8_matmul.launches += 1

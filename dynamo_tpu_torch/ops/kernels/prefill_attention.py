@@ -9,6 +9,12 @@ the paged cache ``[L, N, 2, Bs, Hk*D]`` at a runtime layer index, and their
 own fresh K/V causally, masked at ``seq_len - start``.  Padding query rows
 (index ``>= seq_len - start``) give 0.
 
+The bf16 kernel is built for Hopper (wgmma products fed by a cp.async ring
+and a producer warpgroup, ``csrc/wgmma_attention.cuh``); :func:`plan` is
+its launch, from the geometry it compiles with
+(``csrc/launch_geometry.cuh``), and the C entry point launches that plan.
+The int8 kernel keeps the mma.sync tile of ``csrc/mma_attention.cuh``.
+
 :func:`paged_prefill_attention` (a bf16 cache) and
 :func:`paged_prefill_attention_q8` (an int8 one) launch their kernel for
 CUDA tensors and take :func:`prefill_attention_ref` only for CPU tensors; on
@@ -18,15 +24,46 @@ launches.
 
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
+
 import torch
 
 from dynamo_tpu_torch.ops.kernels import build
 from dynamo_tpu_torch.ops.kv_quant import QuantKvCache, cache_data, check_quant_cache, gather_layer_blocks
 
-__all__ = ["paged_prefill_attention", "paged_prefill_attention_q8", "prefill_attention_ref"]
+__all__ = ["paged_prefill_attention", "paged_prefill_attention_q8", "prefill_attention_ref",
+           "PrefillPlan", "plan"]
 
 HEAD_DIMS = (64, 128, 256)
 MAX_GROUP = 64  # query heads per KV head one thread block can hold
+
+
+@dataclass(frozen=True)
+class PrefillPlan:
+    """The bf16 kernel's launch: ``grid`` = (KV heads, rows, query tiles)
+    blocks of ``threads`` with ``smem`` bytes of dynamic shared memory;
+    block z holds tokens ``[tq * (tiles - 1 - z), +tq)`` (the longest causal
+    tiles first) times the ``group`` query heads of its KV head, K/V
+    streamed ``keys`` at a time."""
+    tq: int
+    group: int
+    keys: int
+    grid: tuple[int, int, int]
+    threads: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(b: int, s: int, h: int, hk: int, d: int) -> PrefillPlan:
+    """The bf16 kernel's launch for q [b, s, h, d] over hk KV heads."""
+    g = build.geometry()
+    group = h // hk
+    tq = g["B2_ROWS"] // group
+    grid = (hk, b, -(-s // tq))
+    if max(grid[1:]) > 65535:
+        raise ValueError(f"grid {grid} exceeds CUDA's limit of 65535 blocks on y and z")
+    return PrefillPlan(tq, group, g[f"B2_KEYS_D{d}"], grid, g["B2_THREADS"], g[f"B2_SMEM_D{d}"])
 
 
 def prefill_attention_ref(
@@ -123,11 +160,12 @@ def _launch(q, k_new, v_new, cache, layer, block_tables, seq_lens, start, sm_sca
     _check(q, k_new, v_new, cache, layer, block_tables, seq_lens, start)
     b, s, h, d = q.shape
     _, n, _, bs, hkd = cache_data(cache).shape
+    hk = hkd // d
     if sm_scale is None:
         sm_scale = d ** -0.5
     out = torch.empty_like(q)
     lib = build.library()
-    dims = (b, s, h, hkd // d, d, n, bs, block_tables.shape[1], layer)
+    dims = (b, s, h, hk, d, n, bs, block_tables.shape[1], layer)
     tail = (float(sm_scale), float(logit_cap or 0.0), torch.cuda.current_stream(q.device).cuda_stream)
     rows = (block_tables.data_ptr(), seq_lens.data_ptr(), start.data_ptr(), out.data_ptr())
     fresh = (q.data_ptr(), k_new.data_ptr(), v_new.data_ptr())
@@ -137,7 +175,8 @@ def _launch(q, k_new, v_new, cache, layer, block_tables, seq_lens, start, sm_sca
             *cache.scale.shape[3:], *tail)
         build.check(rc, "dynamo_prefill_attention_q8")
     else:
-        rc = lib.dynamo_prefill_attention(*fresh, cache.data_ptr(), *rows, *dims, *tail)
+        p = plan(b, s, h, hk, d)
+        rc = lib.dynamo_prefill_attention(*fresh, cache.data_ptr(), *rows, *dims, p.tq, p.grid[2], *tail)
         build.check(rc, "dynamo_prefill_attention")
     return out
 

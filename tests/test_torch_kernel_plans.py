@@ -1,0 +1,125 @@
+"""Launch planning of the W8A16 matmul (B5) and bf16 paged prefill (B2) kernels.
+
+The wrappers decide in plain Python how each CUDA kernel is launched, from
+the geometry the kernels compile with (``csrc/launch_geometry.cuh``, read
+by ``build.geometry``): B5's regime (decode below 17 rows, wgmma above),
+its tiles, its split of K and its scratch; B2's grid of (KV head, row,
+query tile) blocks and its K/V tile.  These tests hold those plans, on the
+CPU, at every Llama-3-8B matmul shape, at ragged shapes, and at the head
+geometries the prefill wrapper accepts: every output element is covered by
+exactly one tile and every depth by exactly one split, no split is empty,
+the grid is within CUDA's limits, the scratch holds every split's sums and
+the stream's tickets cover the tiles, and each block's shared memory, as the geometry states it,
+fits the card.
+"""
+
+from __future__ import annotations
+
+import pytest
+import torch
+
+from dynamo_tpu_torch.ops.kernels import build
+from dynamo_tpu_torch.ops.kernels import int8_matmul as mm
+from dynamo_tpu_torch.ops.kernels import prefill_attention as pa
+
+SMS = 132  # an H100 SXM
+SMEM_LIMIT = 232_448  # shared memory one block may use on Hopper
+GRID_X_MAX, GRID_YZ_MAX = 2 ** 31 - 1, 65535
+
+# Llama-3-8B's matmuls as the model runs them, [K, N], and ragged ones
+# (a 32002-token vocabulary, a depth off 16)
+SHAPES = {"wq": (4096, 4096), "wk": (4096, 1024), "wv": (4096, 1024), "wo": (4096, 4096),
+          "w_gate": (4096, 14336), "w_up": (4096, 14336), "w_down": (14336, 4096),
+          "lm_head": (4096, 128256), "vocab_32002": (4096, 32002), "ragged": (4104, 1000)}
+LLAMA_SHAPES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "lm_head")
+ROWS = (1, 6, 8, 16, 17, 64, 65, 300, 1504, 2048)
+
+
+def _partitions(starts: list[int], width: int, total: int) -> bool:
+    """Whether ranges [s, s + width) clipped to [0, total) cover it once."""
+    covered = 0
+    for s in sorted(starts):
+        if s != covered or s >= total:
+            return False
+        covered = min(total, s + width)
+    return covered == total
+
+
+@pytest.mark.parametrize("layout", ["kn", "nk"])
+@pytest.mark.parametrize("m", ROWS)
+@pytest.mark.parametrize("name", list(SHAPES))
+def test_int8_matmul_plan(name, m, layout):
+    k, n = SHAPES[name]
+    # the kernel reads a [K, N] weight, or the transpose of an [N, K] one, in place
+    w = torch.empty((k, n) if layout == "kn" else (n, k), dtype=torch.int8, device="meta")
+    lay, nk = mm._weight_layout(w if layout == "kn" else w.t())
+    assert nk == (layout == "nk") and lay.is_contiguous()
+
+    p = mm.plan(m, n, k, SMS)
+    g = build.geometry()
+    assert p.regime == ("decode" if m <= g["B5_DECODE_MAX_M"] else "prefill")
+    gx, gy, gz = p.grid
+    assert 1 <= gx <= GRID_X_MAX and 1 <= gy <= GRID_YZ_MAX and 1 <= gz <= GRID_YZ_MAX
+    assert gz == p.splits and p.threads <= 1024 and p.threads % 128 == 0
+    # output tiles: N by bn columns, M by bm rows (the decode kernel holds
+    # every row of M <= 16 in its token fragments)
+    assert _partitions([x * p.bn for x in range(gx)], p.bn, n)
+    if p.regime == "decode":
+        assert gy == 1 and m <= p.bm <= 16
+    else:
+        assert _partitions([y * p.bm for y in range(gy)], p.bm, m)
+    # depth: the splits partition [0, K) and none is empty
+    span = p.k_steps * p.bk
+    assert _partitions([z * span for z in range(gz)], span, k)
+    assert (gz - 1) * span < k
+    # enough blocks for the card: at least two per SM in the decode regime
+    # (every Llama-3-8B shape); K split only while the tiles leave block
+    # slots idle (four per SM decoding, one in the wgmma regime), and never
+    # past one wave of them
+    slots = (4 if p.regime == "decode" else 1) * SMS
+    if p.regime == "decode" and name in LLAMA_SHAPES:
+        assert gx * gz >= 2 * SMS
+    if gz > 1:
+        assert gx * gy < slots and gx * gy * gz <= slots
+    # split K: one f32 slice [M, N rounded up to 4] per split, none
+    # without a split, and a ticket per output tile in the stream's buffer
+    assert p.scratch == (gz * m * (-(-n // 4) * 4) if gz > 1 else 0)
+    if gz > 1:
+        assert gx * gy <= mm.ticket_capacity(SMS)
+    assert p.smem == g["B5_DC_SMEM" if p.regime == "decode" else "B5_PF_SMEM"] <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("s", [1, 17, 1504])
+@pytest.mark.parametrize("d", pa.HEAD_DIMS)
+@pytest.mark.parametrize("group", [1, 4, 8, 64])
+def test_prefill_attention_plan(group, d, s):
+    hk, b = 8 if group < 64 else 1, 3
+    p = pa.plan(b, s, group * hk, hk, d)
+    gx, gy, gz = p.grid
+    assert (gx, gy) == (hk, b) and 1 <= gz <= GRID_YZ_MAX and p.threads <= 1024
+    # a block's rows are its tq tokens times the group's query heads
+    g = build.geometry()
+    assert p.group == group and 1 <= p.tq * group <= g["B2_ROWS"]
+    # block z holds tokens [tq * (tiles - 1 - z), + tq): the longest causal
+    # tile first, and the tiles cover the S tokens exactly once
+    firsts = [p.tq * (gz - 1 - z) for z in range(gz)]
+    assert firsts == sorted(firsts, reverse=True)
+    assert _partitions(firsts, p.tq, s)
+    # K/V tiles: whole 16-key wgmma steps; fewer keys at D = 256
+    assert p.keys % 16 == 0 and p.keys == (32 if d == 256 else 64)
+    assert p.smem == g[f"B2_SMEM_D{d}"] <= SMEM_LIMIT
+
+
+def test_prefill_plan_covers_every_group_the_wrapper_takes():
+    for group in range(1, pa.MAX_GROUP + 1):
+        p = pa.plan(1, 1000, group, 1, 128)
+        assert p.tq >= 1 and p.tq * group <= build.geometry()["B2_ROWS"]
+        assert _partitions([p.tq * z for z in range(p.grid[2])], p.tq, 1000)
+
+
+def test_geometry_reads_every_define():
+    """The planners see every number the kernels compile with: each
+    ``#define`` of the geometry header parses as one integer entry."""
+    text = (build.CSRC / "launch_geometry.cuh").read_text()
+    defines = [line for line in text.splitlines() if line.startswith("#define")]
+    assert len(defines) == len(build.geometry()) > 0
