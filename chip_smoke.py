@@ -13,14 +13,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (Bs=16) with NaN in every dead slot and padding K/V, and over an int8
    cache (Bs=16 and 32) with random codes in every dead slot and NaN in
    every dead slot's scale and every pad lane of the scale tiles.  The
+   ragged kernels also run at their block edges (G = 1, 4 and 8 at D =
+   64, 128 and 256; spans cut by and ending on span-block boundaries; a
+   full 16-row decode region with contexts 1 to 2047; starts inside a
+   64-key tile; softcap on and off; bf16, and int8 at Bs = 16 and 32), and
+   every ragged launch is run twice and must give the same bits.  The
    W8A16 matmul runs at every projection shape of Llama-3-8B and its
    lm_head (f32 out), at M = 1 to 1504 across both regimes' edges, for a
    [K, N] weight and for the transpose of an [N, K] one, then at ragged
    shapes (N = 32002 or 1000, K = 4104), and a split-K launch is run twice
    and must give the same bits.  Then decode, prefill and the
    matmul are timed at the serving paths' shapes beside their plain
-   versions, a PyTorch library call on the same work, and their bound on
-   this card;
+   versions, a PyTorch library call on the same work (the median of three
+   readings), and their bound on this card;
 4. serving: Llama-3-8B at full width and depth (random weights from a
    seeded generator) behind ``AsyncLLMEngine``, six concurrent greedy
    requests (17 to 1500 prompt tokens, two sharing a 256-token prefix),
@@ -31,7 +36,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    directly, ``cache_dtype="int8"``, ``block_size=32`` as ``bench.py``
    serves on an accelerator).  Every kernel's launch counter is zeroed just
    before each run and read just after; the ragged kernels are then timed
-   at the largest mixed dispatch of each token-budget run;
+   at the largest mixed dispatch of each token-budget run, with its decode
+   rows and without them;
 5. parity: 2-layer models at full 8B width on the card (kernels, bf16) and
    on the CPU (plain PyTorch, f32), bf16 weights with a bf16 cache and int8
    weights with an int8 cache: one 300-token prompt over a 128-token cached
@@ -60,7 +66,7 @@ if not (ROOT / "dynamo_tpu_torch").is_dir():
 sys.path.insert(0, str(ROOT))
 
 from dynamo_tpu_torch.tools.cuda_timing import (  # noqa: E402
-    LM_HEAD, PROJECTIONS, card_line, cuda_time_ms, graph_time_ms)
+    LM_HEAD, PROJECTIONS, card_line, cuda_time_ms, graph_time_ms, median_ms, ragged_layout)
 
 # published peaks of one H100 SXM (dense): HBM bytes/s and bf16 tensor FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -132,10 +138,11 @@ def log(msg: str) -> None:
 
 def sass_check(torch, lib_path) -> None:
     """The redesigned kernels as compiled: the wgmma kernels (B5 above 16
-    rows, B2) issue HGMMA, and they and B5's decode kernel copy with
-    LDGSTS (cp.async), except B5's instantiations for rows off 16 bytes
-    (template flag VEC = false), which copy element by element.  Logged
-    per kernel; a missing instruction fails."""
+    rows, B2, and every ragged instantiation, B3 and B4c) issue HGMMA, and
+    they and B5's decode kernel copy with LDGSTS (cp.async), except B5's
+    instantiations for rows off 16 bytes (template flag VEC = false), which
+    copy element by element.  Logged per kernel; a missing instruction
+    fails."""
     import re
     import shutil
 
@@ -155,7 +162,8 @@ def sass_check(torch, lib_path) -> None:
         m = re.search(r"w8a16_\w+?_kernelI(.*?)EE", n)
         return m is None or m.group(1).endswith("Lb1")
 
-    want = {"w8a16_wgmma_kernel": True, "wgmma_prefill_kernel": True, "w8a16_decode_kernel": False}
+    want = {"w8a16_wgmma_kernel": True, "wgmma_prefill_kernel": True, "ragged_kernel": True,
+            "w8a16_decode_kernel": False}
     for key, needs_hgmma in want.items():
         found = {n: c for n, c in counts.items() if key in n}
         check(bool(found), f"sass: no {key} in the library")
@@ -299,28 +307,12 @@ def prefill_case(torch, gen, starts, fresh, s, geom=(H, HK, D), bs=BS, quant=Fal
     return err
 
 
-def ragged_layout(rows, region: int, n_pad: int, bs: int = BS):
-    """Host layout of one ragged dispatch, as the engine packs it: rows are
-    (start, fresh); the leading 1-token rows take one flat slot each in a
-    ``region``-slot decode region, every other row a block-rounded span
-    after it; ``n_pad`` zero padding rows follow the real ones.  Returns
-    (T, starts, seq_lens, row_offsets) as lists over all rows."""
-    n_dec = 0
-    while region and n_dec < len(rows) and rows[n_dec][1] == 1:
-        n_dec += 1
-    offs, off = list(range(n_dec)), region
-    for _, fresh in rows[n_dec:]:
-        offs.append(off)
-        off += -(-fresh // bs) * bs
-    pad = [0] * n_pad
-    return (off, [st for st, _ in rows] + pad, [st + f for st, f in rows] + pad, offs + pad)
-
-
 def ragged_case(torch, gen, rows, region, n_pad, geom=(H, HK, D), logit_cap=None, bs=BS,
                 quant=False):
     """The ragged kernel against its plain version on one layout: the pool
     is poisoned except each row's live prefix, and padding K/V is NaN;
-    padding tokens must come out exactly 0."""
+    padding tokens must come out exactly 0, and a second launch must give
+    the same bits."""
     from dynamo_tpu_torch.ops.kernels.ragged_prefill_attention import (
         ragged_paged_prefill_attention, ragged_paged_prefill_attention_q8,
         ragged_prefill_attention_ref)
@@ -346,6 +338,7 @@ def ragged_case(torch, gen, rows, region, n_pad, geom=(H, HK, D), logit_cap=None
     what = f"ragged {'int8 ' if quant else ''}{geom} Bs={bs} rows={rows}"
     err = compare(torch, what, out, ragged_prefill_attention_ref(*args, logit_cap=logit_cap))
     check(bool((out[0, ~live] == 0).all()), f"{what}: padding tokens are not 0")
+    check(torch.equal(out, kernel(*args, logit_cap=logit_cap)), f"{what}: two launches differ")
     return err
 
 
@@ -403,6 +396,8 @@ def kernel_phase(torch) -> dict:
                         geom=geom)
         log(f"kernel ragged (H, Hk, D)={geom} 3 decode rows + 2 spans: max abs err {e:.3g}")
     errs.update(q8_kernel_phase(torch, gen))
+    for key, e in ragged_edge_phase(torch, gen).items():
+        errs[key] = max(errs[key], e)
     errs["matmul"] = matmul_phase(torch, gen)
     return errs
 
@@ -438,6 +433,41 @@ def q8_kernel_phase(torch, gen) -> dict:
                                 geom=geom, bs=bs, quant=True)
             log(f"kernel int8 (H, Hk, D)={geom} Bs={bs}: decode S=2 max abs err {d_err:.3g}, "
                 f"prefill start=64 {p_err:.3g}, ragged 3 decode rows + 2 spans {r_err:.3g}")
+    return errs
+
+
+# The ragged kernels' block edges.  (H, Hk, D): G = 1, 4 and 8 (span blocks
+# of 128, 32 and 16 tokens) at D = 64, 128 and 256.  Layouts (rows, decode
+# region, padding rows): spans that end on a 128-, 32- and 16-token block
+# boundary and spans that a boundary cuts; a full 16-row decode region with
+# contexts 1 to 2047 (64 k and 64 k + 1 keys among them) ahead of a span;
+# spans from starts inside a 64-key tile, one at a flat offset inside one.
+RAGGED_EDGE_GEOMS = ((8, 8, 64), (32, 8, 128), (16, 2, 256))
+RAGGED_EDGE_LAYOUTS = {
+    "block boundaries": ([(0, 128), (48, 96), (0, 200)], 0, 2),
+    "full decode region": ([(n - 1, 1) for n in (1, 2, 17, 63, 64, 65, 100, 128, 129, 333, 640, 1024,
+                                                 1025, 1500, 2000, 2047)] + [(0, 90)], 16, 1),
+    "misaligned starts": ([(5, 1), (80, 150), (16, 45)], 16, 2),
+}
+
+
+def ragged_edge_phase(torch, gen) -> dict:
+    """Both ragged kernels at every edge geometry and layout, bf16 and int8
+    at Bs = 16 and 32, softcap on for every other case; each case also
+    checks that padding tokens are 0 and two launches give the same bits."""
+    errs = {"ragged": 0.0, "ragged_q8": 0.0}
+    i = 0
+    for geom in RAGGED_EDGE_GEOMS:
+        for name, (rows, region, n_pad) in RAGGED_EDGE_LAYOUTS.items():
+            for quant, bs in ((False, BS), (True, 16), (True, BS_Q8)):
+                cap = 50.0 if i % 2 else None
+                i += 1
+                e = ragged_case(torch, gen, rows, region, n_pad, geom=geom, logit_cap=cap, bs=bs,
+                                quant=quant)
+                key = "ragged_q8" if quant else "ragged"
+                errs[key] = max(errs[key], e)
+                log(f"kernel ragged edges {'int8' if quant else 'bf16'} Bs={bs} (H, Hk, D)={geom} {name} "
+                    f"softcap={cap}: max abs err {e:.3g}, two launches bit-identical")
     return errs
 
 
@@ -543,8 +573,8 @@ def timing_phase(torch, card: str) -> dict:
         vd[i, :, :n] = cache[LAYER, rows, 1].reshape(-1, HK, D)[:n].transpose(0, 1)
     mask = (torch.arange(t, device="cuda")[None, :] < seq_lens[:, None])[:, None, None, :]
     qd = q.transpose(1, 2).contiguous()
-    library_ms = cuda_time_ms(lambda i: F.scaled_dot_product_attention(
-        qd, kd, vd, attn_mask=mask, enable_gqa=True), 64)
+    library_ms = median_ms(lambda: cuda_time_ms(lambda i: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask, enable_gqa=True), 64))
     ctx = sum(lens)
     dec_bytes = 2 * (2 * b * H * D) + 2 * ctx * HK * D * 2 + 4 * (b * m + 2 * b)
     dec_flops = 4 * H * D * ctx
@@ -575,8 +605,8 @@ def timing_phase(torch, card: str) -> dict:
     qs = qp[:, :fresh].transpose(1, 2).contiguous()
     ks = kp[:, :fresh].transpose(1, 2).contiguous()
     vs = vp[:, :fresh].transpose(1, 2).contiguous()
-    library_ms = cuda_time_ms(lambda i: F.scaled_dot_product_attention(
-        qs, ks, vs, is_causal=True, enable_gqa=True), 10)
+    library_ms = median_ms(lambda: cuda_time_ms(lambda i: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True, enable_gqa=True), 10))
     pairs = fresh * (fresh + 1) // 2
     pre_flops = 4 * H * D * pairs
     pre_bytes = 2 * (2 * fresh * H * D + 2 * fresh * HK * D) + 4 * (m + 2)
@@ -650,8 +680,8 @@ def q8_timing_phase(torch, card: str) -> dict:
             kd[i, :, :n], vd[i, :, :n] = k_rows.transpose(0, 1), v_rows.transpose(0, 1)
     mask = (torch.arange(t, device="cuda")[None, :] < seq_lens[:, None])[:, None, None, :]
     qd = q.transpose(1, 2).contiguous()
-    library_ms = cuda_time_ms(lambda i: F.scaled_dot_product_attention(
-        qd, kd, vd, attn_mask=mask, enable_gqa=True), 64)
+    library_ms = median_ms(lambda: cuda_time_ms(lambda i: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask, enable_gqa=True), 64))
     ctx = sum(lens)
     # q and out bf16; the int8 K/V payload of the live context and the f32
     # scale of each (token, KV head, K or V) it reads; the tables
@@ -682,8 +712,8 @@ def q8_timing_phase(torch, card: str) -> dict:
     i = torch.arange(fresh, device="cuda")
     j = torch.arange(start + fresh, device="cuda")
     pmask = (j[None, :] < start) | (j[None, :] - start <= i[:, None])
-    library_ms = cuda_time_ms(lambda i: F.scaled_dot_product_attention(
-        qs, ks, vs, attn_mask=pmask, enable_gqa=True), 10)
+    library_ms = median_ms(lambda: cuda_time_ms(lambda i: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=pmask, enable_gqa=True), 10))
     pairs = fresh * start + fresh * (fresh + 1) // 2
     nbytes = (2 * (2 * fresh * H * D + 2 * fresh * HK * D) + 2 * start * HK * D
               + 2 * start * HK * 4 + 4 * (m + 2))
@@ -748,7 +778,7 @@ def matmul_timing(torch, card: str) -> dict:
     out = {}
     xs = rows(8)
     out["matmul"] = dict(ms=layer_ms(kernel, xs, 40), plain_ms=layer_ms(plain, xs, 8),
-                         library_ms=layer_ms(library, xs, 40), **layer_bound(8))
+                         library_ms=median_ms(lambda: layer_ms(library, xs, 40)), **layer_bound(8))
     errs = [compare(torch, f"matmul {name} at M=8", kernel(xs[name], 0, name),
                     plain(xs[name], 0, name)) for name in PROJECTIONS]
     out["matmul_err"] = max(errs)
@@ -756,7 +786,8 @@ def matmul_timing(torch, card: str) -> dict:
     log(f"time matmul int8 one layer's 7 projections at M=8 (CUDA graph): kernel {r['ms']:.4f} ms, plain "
         f"{r['plain_ms']:.4f} ms, cuBLAS bf16 on dequantised weights (twice the weight bytes) "
         f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); launched eagerly: "
-        f"kernel {eager_ms(kernel, xs, 16):.4f} ms, cuBLAS {eager_ms(library, xs, 16):.4f} ms; "
+        f"kernel {eager_ms(kernel, xs, 16):.4f} ms, "
+        f"cuBLAS {median_ms(lambda: eager_ms(library, xs, 16)):.4f} ms; "
         f"max abs err {out['matmul_err']:.3g} ({card})")
     per = {name: graph_time_ms(layer_calls(kernel, xs, (name,)), 40) / 4 for name in PROJECTIONS}
     bounds = {name: _bound(2 * 8 * k * n, k * n + 16 * k + 16 * n + 4 * n)["bound_ms"]
@@ -765,7 +796,8 @@ def matmul_timing(torch, card: str) -> dict:
         f"{name} [{k}, {n}] {per[name]:.4f} ms (bound {bounds[name]:.4f})"
         for name, (k, n) in PROJECTIONS.items()) + f" ({card})")
     xp = rows(1504)
-    pre = dict(ms=layer_ms(kernel, xp, 8), library_ms=layer_ms(library, xp, 8), **layer_bound(1504))
+    pre = dict(ms=layer_ms(kernel, xp, 8), library_ms=median_ms(lambda: layer_ms(library, xp, 8)),
+               **layer_bound(1504))
     per = {name: graph_time_ms(layer_calls(kernel, xp, (name,)), 8) / 4 for name in PROJECTIONS}
     log(f"time matmul int8 one layer's 7 projections at M=1504 (CUDA graph): kernel {pre['ms']:.4f} ms, "
         f"cuBLAS bf16 {pre['library_ms']:.4f} ms, bound {pre['bound_ms']:.4f} ms ({pre['bound_by']}); by "
@@ -777,7 +809,8 @@ def matmul_timing(torch, card: str) -> dict:
     head_ms = graph_time_ms([lambda i=i: int8_matmul(x, *heads[i], torch.float32) for i in range(2)],
                             20) / 2
     dense_head = heads[0][0].to(torch.bfloat16) * heads[0][1].to(torch.bfloat16)
-    head_lib = cuda_time_ms(lambda i: torch.mm(x, dense_head, out_dtype=torch.float32), 16)
+    head_lib = median_ms(lambda: cuda_time_ms(
+        lambda i: torch.mm(x, dense_head, out_dtype=torch.float32), 16))
     hb = _bound(2 * 8 * k * n, k * n + 16 * k + 32 * n + 4 * n)
     log(f"time matmul int8 lm_head [{k}, {n}] at M=8, f32 out (CUDA graph): kernel {head_ms:.4f} ms, cuBLAS "
         f"bf16 {head_lib:.4f} ms (one weight, L2-warm for weights under 50 MB), bound {hb['bound_ms']:.4f} ms "
@@ -821,9 +854,8 @@ def ragged_timing(torch, card: str, mixed: dict, quant: bool = False) -> dict:
     err = compare(torch, f"{label} at the serving dispatch",
                   kernel(q, k, v, cache, LAYER, bt, *rows),
                   ragged_prefill_attention_ref(q, k, v, cache, LAYER, bt, *rows))
-    # what the decode rows cost: each streams its prefix through a whole
-    # 64-row tile with one token's rows live.  The same dispatch with the
-    # decode rows' spans emptied (seq_len = start) runs the spans alone.
+    # what the decode rows cost: the same dispatch with the decode rows'
+    # spans emptied (seq_len = start) runs the span blocks alone.
     dec = [r for r, (st, n, o) in enumerate(zip(starts, lens, offs)) if n - st == 1 and o == r]
     spans_only = [st if r in dec else n for r, (st, n) in enumerate(zip(starts, lens))]
     spans_rows = (_ints(torch, spans_only), rows[1], rows[2])
@@ -852,8 +884,8 @@ def ragged_timing(torch, card: str, mixed: dict, quant: bool = False) -> dict:
         mask[row0:row0 + f, base:base + st] = True
         mask[row0:row0 + f, base + st:base + st + f] = i[None, :] <= i[:, None]
         row0 += f
-    library_ms = cuda_time_ms(lambda i: F.scaled_dot_product_attention(
-        qd, kd, vd, attn_mask=mask, enable_gqa=True), 10)
+    library_ms = median_ms(lambda: cuda_time_ms(lambda i: F.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask, enable_gqa=True), 10))
 
     r_rows, m = bt.shape
     flops = 4 * H * D * ragged_work(starts, lens)

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks written as inline PTX, shared by the
-// W8A16 matmul (int8_matmul.cu) and the bf16 paged prefill attention
-// (wgmma_attention.cuh): 16-byte cp.async with zero fill, mbarriers, the
-// async-proxy fence, named barriers, shared-memory matrix descriptors for
-// the 128-byte swizzled layouts, and wgmma.mma_async (bf16 in, f32
+// W8A16 matmul (int8_matmul.cu) and the paged and ragged prefill attention
+// (wgmma_attention.cuh): 16- and 4-byte cp.async with zero fill, mbarriers,
+// the async-proxy fence, named barriers, shared-memory matrix descriptors
+// for the 128-byte swizzled layouts, the exact int8 -> bf16 convert, the
+// warp-level mma.sync m16n8k16, and wgmma.mma_async (bf16 in, f32
 // accumulate) for the tile widths the kernels use.  Plain PTX instead of
 // CuTe keeps the build to seconds.
 //
@@ -34,6 +35,11 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // read, the rest of the 16 is written as zeros.
 __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+// 4-byte global -> shared copy (an f32 scale); src_bytes 0 writes a zero.
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
@@ -93,9 +99,34 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// Two int8 values, at bits [0, 8) and [16, 24) of t (other bits ignored),
+// as bf16x2, exactly and without a float convert: 0x4300 | (v & 127) is the
+// bf16 128 + (v & 127); subtracting 128 (v >= 0) or 256 (v < 0, whose low
+// seven bits are v + 128) leaves v.  Four integer/bf16 operations per pair
+// instead of two I2F and a pack, which the conversion units run at a
+// fraction of the rate.
+__device__ __forceinline__ uint32_t i8x2_to_bf16x2(uint32_t t) {
+  const uint32_t mag = (t & 0x007f007fu) | 0x43004300u;
+  const uint32_t off = (t & 0x00800080u) | 0x43004300u;
+  const __nv_bfloat162 r =
+      __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&mag), *reinterpret_cast<const __nv_bfloat162*>(&off));
+  return *reinterpret_cast<const uint32_t*>(&r);
+}
+
 // Barrier `id` (1..15; 0 is __syncthreads) over `count` threads.
 __device__ __forceinline__ void named_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// C[16 x 8] += A[16 x 16] B[16 x 8] on one warp's tensor cores (mma.sync
+// m16n8k16, bf16 in, f32 accumulate), fragments in registers.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
 // Shared-memory matrix descriptor, 128-byte swizzle; offsets in bytes.

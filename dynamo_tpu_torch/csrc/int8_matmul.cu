@@ -73,9 +73,9 @@
 // split K up to 64 ways.
 #include <tuple>
 
+#include "attention_common.cuh"
 #include "hopper.cuh"
 #include "launch_geometry.cuh"
-#include "mma_attention.cuh"
 
 namespace dynamo {
 namespace {
@@ -85,20 +85,6 @@ using namespace hopper;
 constexpr int kBK = DYN_B5_BK;                    // contracted depth per stage, both regimes
 constexpr int kDecodeMaxM = DYN_B5_DECODE_MAX_M;  // crossover: M at or below runs the decode regime
 static_assert(kBK == 64 && kDecodeMaxM == 16, "the copy and fragment mappings below are written for these");
-
-// Two int8 values, at bits [0, 8) and [16, 24) of t (other bits ignored),
-// as bf16x2, exactly and without a float convert: 0x4300 | (v & 127) is the
-// bf16 128 + (v & 127); subtracting 128 (v >= 0) or 256 (v < 0, whose low
-// seven bits are v + 128) leaves v.  Four integer/bf16 operations per pair
-// instead of two I2F and a pack, which the conversion units run at a
-// fraction of the rate.
-__device__ __forceinline__ uint32_t i8x2_to_bf16x2(uint32_t t) {
-  const uint32_t mag = (t & 0x007f007fu) | 0x43004300u;
-  const uint32_t off = (t & 0x00800080u) | 0x43004300u;
-  const __nv_bfloat162 r =
-      __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&mag), *reinterpret_cast<const __nv_bfloat162*>(&off));
-  return *reinterpret_cast<const uint32_t*>(&r);
-}
 
 // Bytes (a, b) of the eight in (lo, hi), selected as __byte_perm does, as bf16x2.
 template <int A, int B>

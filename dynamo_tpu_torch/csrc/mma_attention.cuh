@@ -1,5 +1,6 @@
-// Tensor-core flash-attention building blocks shared by the paged prefill
-// and the ragged prefill kernels: a block of 4 warps owns 64 query rows
+// Tensor-core flash-attention building blocks of the int8 paged prefill
+// kernel (prefill_attention.cu, dynamo_prefill_attention_q8, B4b), the one
+// kernel still on this mma.sync tile: a block of 4 warps owns 64 query rows
 // (16 per warp), K/V tiles are staged in shared memory as bf16, and both
 // products run on mma.sync m16n8k16 (bf16 in, f32 accumulate) with the
 // online softmax kept in registers.  See prefill_attention.cu for the
@@ -12,9 +13,12 @@
 #pragma once
 
 #include "attention_common.cuh"
+#include "hopper.cuh"
 
 namespace dynamo {
 namespace {
+
+using hopper::mma_bf16;
 
 constexpr int kWarps = 4;
 constexpr int kRows = 16 * kWarps;  // query rows per block
@@ -27,15 +31,6 @@ struct Tile {
   static size_t smem_bytes() { return sizeof(__nv_bfloat16) * (size_t)(kRows + 2 * kKeys) * kStride; }
 };
 
-__device__ inline void mma_bf16(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
-                                uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
 __device__ inline uint32_t ld32(const __nv_bfloat16* p) { return *reinterpret_cast<const uint32_t*>(p); }
 
 __device__ inline uint32_t pack(__nv_bfloat16 lo, __nv_bfloat16 hi) { return pack_bf16(lo, hi); }
@@ -46,16 +41,16 @@ __device__ inline uint32_t pack(float lo, float hi) {
 }
 
 // Stage the K and V rows of a tile (row_ptr(j, &k, &v) points at key j's
-// rows, bf16 or int8) into shared memory as bf16; keys for which live(j) is
-// false are zeros and are never read from memory.
-template <int D, class E, class Live, class RowPtr>
-__device__ void stage_kv_if(__nv_bfloat16* ks, __nv_bfloat16* vs, Live live, RowPtr row_ptr) {
+// rows, bf16 or int8) into shared memory as bf16; the first n_live keys
+// live, the rest zeros that are never read from memory.
+template <int D, class E, class RowPtr>
+__device__ void stage_kv(__nv_bfloat16* ks, __nv_bfloat16* vs, int n_live, RowPtr row_ptr) {
   using T = Tile<D>;
   constexpr int kChunks = D / 8;
   for (int c = threadIdx.x; c < T::kKeys * kChunks; c += kThreads) {
     const int j = c / kChunks, part = c % kChunks;
     uint4 kv = make_uint4(0, 0, 0, 0), vv = make_uint4(0, 0, 0, 0);
-    if (live(j)) {
+    if (j < n_live) {
       const E* kr;
       const E* vr;
       row_ptr(j, &kr, &vr);
@@ -65,12 +60,6 @@ __device__ void stage_kv_if(__nv_bfloat16* ks, __nv_bfloat16* vs, Live live, Row
     *reinterpret_cast<uint4*>(ks + j * T::kStride + part * 8) = kv;
     *reinterpret_cast<uint4*>(vs + j * T::kStride + part * 8) = vv;
   }
-}
-
-// The first n_live keys of a tile live, the rest zeros.
-template <int D, class E, class RowPtr>
-__device__ void stage_kv(__nv_bfloat16* ks, __nv_bfloat16* vs, int n_live, RowPtr row_ptr) {
-  stage_kv_if<D, E>(ks, vs, [&](int j) { return j < n_live; }, row_ptr);
 }
 
 // The per-key K and V scales of an int8 tile (scale(j, &k, &v)); dead keys

@@ -47,8 +47,8 @@ _SIGNATURES = {
     # B, S, H, Hk, D, N, Bs, M, layer, tq, tiles, sm_scale, logit_cap, stream
     "dynamo_prefill_attention": [_P] * 8 + [_I] * 11 + [_F, _F, _P],
     # q, k_new, v_new, cache, block_tables, seq_lens, starts, row_offsets, out,
-    # T, H, Hk, D, N, Bs, M, R, layer, sm_scale, logit_cap, stream
-    "dynamo_ragged_prefill_attention": [_P] * 9 + [_I] * 9 + [_F, _F, _P],
+    # T, H, Hk, D, N, Bs, M, R, layer, tq, span_blocks, sm_scale, logit_cap, stream
+    "dynamo_ragged_prefill_attention": [_P] * 9 + [_I] * 11 + [_F, _F, _P],
     # the three over an int8 cache: its scale pool follows the cache
     # pointer, and Hp, Sp (the scale tile) follow the ints
     # q, cache, scale, block_tables, seq_lens, q0_pos, out, workspace,
@@ -58,9 +58,9 @@ _SIGNATURES = {
     # B, S, H, Hk, D, N, Bs, M, layer, Hp, Sp, sm_scale, logit_cap, stream
     "dynamo_prefill_attention_q8": [_P] * 9 + [_I] * 11 + [_F, _F, _P],
     # q, k_new, v_new, cache, scale, block_tables, seq_lens, starts,
-    # row_offsets, out, T, H, Hk, D, N, Bs, M, R, layer, Hp, Sp, sm_scale,
-    # logit_cap, stream
-    "dynamo_ragged_prefill_attention_q8": [_P] * 10 + [_I] * 11 + [_F, _F, _P],
+    # row_offsets, out, T, H, Hk, D, N, Bs, M, R, layer, Hp, Sp, tq,
+    # span_blocks, sm_scale, logit_cap, stream
+    "dynamo_ragged_prefill_attention_q8": [_P] * 10 + [_I] * 13 + [_F, _F, _P],
     # x, w, scale, out, partials, tickets, M, N, K, w_nk, out_f32, grid_n,
     # grid_m, splits, k_steps, stream
     "dynamo_int8_matmul": [_P] * 6 + [_I] * 9 + [_P],

@@ -12,6 +12,13 @@ at a runtime layer index, and its own row's fresh K/V causally by flat
 index; it never sees another row.  Tokens in no span, and rows with an empty
 span (the engine's power-of-two padding rows, all zeros), give 0.
 
+Both kernels run on the warpgroup tile of ``csrc/wgmma_attention.cuh`` in
+one launch of two kinds of block: span blocks of ``128 / G`` flat tokens
+per KV head, and one decode-row block per (KV head, row) that computes a
+1-token row's G query rows alone.  :func:`plan` is the launch, from the
+geometry the kernels compile with (``csrc/launch_geometry.cuh``); the C
+entry points launch that plan.
+
 :func:`ragged_paged_prefill_attention` (a bf16 cache) and
 :func:`ragged_paged_prefill_attention_q8` (an int8 one) launch their kernel
 for CUDA tensors and take :func:`ragged_prefill_attention_ref` only for CPU
@@ -21,6 +28,9 @@ counts its launches.
 
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
+
 import torch
 
 from dynamo_tpu_torch.ops.kernels import build
@@ -28,7 +38,43 @@ from dynamo_tpu_torch.ops.kernels.prefill_attention import HEAD_DIMS, MAX_GROUP
 from dynamo_tpu_torch.ops.kv_quant import QuantKvCache, cache_data, check_quant_cache, gather_layer_blocks
 
 __all__ = ["ragged_paged_prefill_attention", "ragged_paged_prefill_attention_q8",
-           "ragged_prefill_attention_ref"]
+           "ragged_prefill_attention_ref", "RaggedPlan", "plan"]
+
+
+@dataclass(frozen=True)
+class RaggedPlan:
+    """Both kernels' launch: ``grid`` = (KV heads, decode-row blocks + span
+    blocks) blocks of ``threads`` with ``smem`` bytes of dynamic shared
+    memory.  Block y < ``decode_blocks`` computes row y if that row has one
+    fresh token (a decode row) and exits otherwise; span block y holds flat
+    tokens ``[tq * (grid[1] - 1 - y), +tq)`` (the last tile first) times the
+    ``group`` query heads of its KV head, decode rows' tokens excluded.  K/V
+    are streamed ``keys`` at a time."""
+    tq: int
+    group: int
+    keys: int
+    decode_blocks: int
+    span_blocks: int
+    grid: tuple[int, int]
+    threads: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(t: int, r: int, h: int, hk: int, d: int, quant: bool = False) -> RaggedPlan:
+    """The launch for q [1, t, h, d] over hk KV heads and r rows, over a
+    bf16 cache or an int8 one (``quant``)."""
+    g = build.geometry()
+    group = h // hk
+    if group > g["B3_DECODE_ROWS"]:
+        raise ValueError(f"{group} query heads per KV head exceed a decode-row block's "
+                         f"{g['B3_DECODE_ROWS']} rows")
+    tq = g["B3_ROWS"] // group
+    spans = -(-t // tq)
+    if r + spans > 65535:
+        raise ValueError(f"{r + spans} blocks exceed CUDA's limit of 65535 on grid y")
+    smem = g[f"B3_Q8_SMEM_D{d}" if quant else f"B3_SMEM_D{d}"]
+    return RaggedPlan(tq, group, g[f"B3_KEYS_D{d}"], r, spans, (hk, r + spans), g["B3_THREADS"], smem)
 
 
 def ragged_prefill_attention_ref(
@@ -129,14 +175,18 @@ def _launch(q, k_new, v_new, cache, layer, block_tables, seq_lens, starts, row_o
     _, n, _, bs, hkd = cache_data(cache).shape
     if sm_scale is None:
         sm_scale = d ** -0.5
+    quant = isinstance(cache, QuantKvCache)
+    r = block_tables.shape[0]
+    p = plan(t, r, h, hkd // d, d, quant)
     out = torch.empty_like(q)
     lib = build.library()
     rows = (block_tables.data_ptr(), seq_lens.data_ptr(), starts.data_ptr(), row_offsets.data_ptr(),
             out.data_ptr())
-    dims = (t, h, hkd // d, d, n, bs, block_tables.shape[1], block_tables.shape[0], layer)
-    tail = (float(sm_scale), float(logit_cap or 0.0), torch.cuda.current_stream(q.device).cuda_stream)
+    dims = (t, h, hkd // d, d, n, bs, block_tables.shape[1], r, layer)
+    tail = (p.tq, p.span_blocks, float(sm_scale), float(logit_cap or 0.0),
+            torch.cuda.current_stream(q.device).cuda_stream)
     fresh = (q.data_ptr(), k_new.data_ptr(), v_new.data_ptr())
-    if isinstance(cache, QuantKvCache):
+    if quant:
         rc = lib.dynamo_ragged_prefill_attention_q8(
             *fresh, cache.data.data_ptr(), cache.scale.data_ptr(), *rows, *dims,
             *cache.scale.shape[3:], *tail)

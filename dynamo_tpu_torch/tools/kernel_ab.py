@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the W8A16 matmul (B5) and bf16 paged prefill (B2) kernels of two checkouts on one card.
+"""Time the B5, B2, B3 and B4c kernels (matmul, paged and ragged prefill) of two checkouts on one card.
 
     python3 dynamo_tpu_torch/tools/kernel_ab.py --base DIR [--change DIR]
 
@@ -18,6 +18,11 @@ its power limit.  The shapes are Llama-3-8B's as the serving paths run them:
   Python, which at M = 8 measures the host as much as the card.
 - B2: the 1500-token prompt (S = 1504, start 0) and a 700-token prompt over
   a 256-token cached prefix, one layer (H = 32, Hk = 8, D = 128, Bs = 16).
+- B3 and B4c: the ragged kernel over a bf16 cache (Bs = 16) and an int8
+  one (Bs = 32) at two row tables (``cuda_timing.py``): the packed prefill
+  17/300/640/48 and a mixed dispatch of T = 1024, eight decode rows ahead
+  of two spans, and that dispatch with the decode rows emptied (the spans
+  alone); successive calls walk the 32 layers.
 - host cost: microseconds of host time per wrapper call, launches queued
   faster than the card runs them.
 
@@ -37,7 +42,8 @@ from pathlib import Path
 # the timers and shapes chip_smoke.py uses; run as a script, this file's
 # directory is on the path, so this loads without the package (whose
 # kernels come from the tree under test)
-from cuda_timing import LM_HEAD, PROJECTIONS, card_line, cuda_time_ms, graph_time_ms
+from cuda_timing import (LM_HEAD, PROJECTIONS, RAGGED_MIXED, RAGGED_PACKED, card_line, cuda_time_ms,
+                         graph_time_ms, ragged_layout)
 
 ROWS = (8, 16, 17, 64, 300, 1504)
 
@@ -48,6 +54,9 @@ def _measure(tag: str) -> dict:
     from dynamo_tpu_torch.ops.kernels import build
     from dynamo_tpu_torch.ops.kernels.int8_matmul import int8_matmul
     from dynamo_tpu_torch.ops.kernels.prefill_attention import paged_prefill_attention
+    from dynamo_tpu_torch.ops.kernels.ragged_prefill_attention import (
+        ragged_paged_prefill_attention, ragged_paged_prefill_attention_q8)
+    from dynamo_tpu_torch.ops.kv_quant import QuantKvCache, scale_tile
 
     build.library()
     gen = torch.Generator(device="cuda")
@@ -94,10 +103,46 @@ def _measure(tag: str) -> dict:
     out["b2_s1504"] = cuda_time_ms(prefill_case(1504, 0, 1500), 20)
     out["b2_s704_start256"] = cuda_time_ms(prefill_case(704, 256, 700), 20)
 
+    def ragged_case(rows, region, quant, spans_only=False):
+        """The ragged kernel at one row table, rows' blocks contiguous in a
+        fresh pool (int8 with Bs = 32, or bf16 with Bs = 16)."""
+        rbs = 32 if quant else 16
+        t, starts, lens, offs = ragged_layout(rows, region, 0, rbs)
+        blocks = [-(-n // rbs) for n in lens]
+        bt = torch.zeros((len(lens), 2048 // rbs), dtype=torch.int32)
+        for i, nb in enumerate(blocks):
+            bt[i, :nb] = torch.arange(1 + sum(blocks[:i]), 1 + sum(blocks[:i + 1]), dtype=torch.int32)
+        n_blocks = 1 + sum(blocks)
+        if quant:
+            data = torch.randint(-127, 128, (n_layers, n_blocks, 2, rbs, hk * d), generator=gen,
+                                 device="cuda", dtype=torch.int8)
+            hp, sp = scale_tile(hk, rbs)
+            pool = QuantKvCache(data, (0.5 + torch.rand((n_layers, n_blocks, 2, hp, sp), generator=gen,
+                                                        device="cuda")) / 73.3)
+        else:
+            pool = torch.randn((n_layers, n_blocks, 2, rbs, hk * d), generator=gen,
+                               device="cuda").to(torch.bfloat16)
+        q = torch.randn((1, t, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+        k = torch.randn((1, t, hk, d), generator=gen, device="cuda").to(torch.bfloat16)
+        v = torch.randn((1, t, hk, d), generator=gen, device="cuda").to(torch.bfloat16)
+        if spans_only:  # the decode rows' spans emptied (seq_len = start)
+            lens = [st if n - st == 1 else n for st, n in zip(starts, lens)]
+        ints = [torch.tensor(x, dtype=torch.int32, device="cuda") for x in (lens, starts, offs)]
+        bt = bt.cuda()
+        kernel = ragged_paged_prefill_attention_q8 if quant else ragged_paged_prefill_attention
+        return lambda i=0: kernel(q, k, v, pool, i % n_layers, bt, *ints)
+
+    for tag, quant in (("b3", False), ("b4c", True)):
+        out[f"{tag}_packed"] = cuda_time_ms(ragged_case(*RAGGED_PACKED, quant), 32)
+        out[f"{tag}_mixed"] = cuda_time_ms(ragged_case(*RAGGED_MIXED, quant), 32)
+        out[f"{tag}_mixed_spans"] = cuda_time_ms(ragged_case(*RAGGED_MIXED, quant, spans_only=True), 32)
+
     xs8 = torch.randn((8, 4096), generator=gen, device="cuda").to(torch.bfloat16)
     w1 = weight(4096, 1024)
     small = prefill_case(64, 0, 64)
-    for key, fn in (("host_us_b5_call", lambda: int8_matmul(xs8, *w1)), ("host_us_b2_call", small)):
+    small_ragged = ragged_case([(0, 64)], 0, False)
+    for key, fn in (("host_us_b5_call", lambda: int8_matmul(xs8, *w1)), ("host_us_b2_call", small),
+                    ("host_us_b3_call", small_ragged)):
         fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()

@@ -1,10 +1,11 @@
-"""Launch planning of the W8A16 matmul (B5) and bf16 paged prefill (B2) kernels.
+"""Launch planning of the W8A16 matmul (B5), bf16 paged prefill (B2) and ragged prefill (B3, B4c) kernels.
 
 The wrappers decide in plain Python how each CUDA kernel is launched, from
 the geometry the kernels compile with (``csrc/launch_geometry.cuh``, read
 by ``build.geometry``): B5's regime (decode below 17 rows, wgmma above),
 its tiles, its split of K and its scratch; B2's grid of (KV head, row,
-query tile) blocks and its K/V tile.  These tests hold those plans, on the
+query tile) blocks and its K/V tile; the ragged kernels' grid of decode-row
+and span blocks.  These tests hold those plans, on the
 CPU, at every Llama-3-8B matmul shape, at ragged shapes, and at the head
 geometries the prefill wrapper accepts: every output element is covered by
 exactly one tile and every depth by exactly one split, no split is empty,
@@ -21,6 +22,8 @@ import torch
 from dynamo_tpu_torch.ops.kernels import build
 from dynamo_tpu_torch.ops.kernels import int8_matmul as mm
 from dynamo_tpu_torch.ops.kernels import prefill_attention as pa
+from dynamo_tpu_torch.ops.kernels import ragged_prefill_attention as ra
+from dynamo_tpu_torch.tools.cuda_timing import RAGGED_MIXED, RAGGED_PACKED, ragged_layout
 
 SMS = 132  # an H100 SXM
 SMEM_LIMIT = 232_448  # shared memory one block may use on Hopper
@@ -115,6 +118,76 @@ def test_prefill_plan_covers_every_group_the_wrapper_takes():
         p = pa.plan(1, 1000, group, 1, 128)
         assert p.tq >= 1 and p.tq * group <= build.geometry()["B2_ROWS"]
         assert _partitions([p.tq * z for z in range(p.grid[2])], p.tq, 1000)
+
+
+# ragged row tables (rows [(start, fresh)], decode region): the serving
+# tables kernel_ab.py times, the unified layout with padding rows, spans
+# cut by block boundaries, a full 16-row decode region, a 1-token row
+# outside the decode region
+RAGGED_TABLES = {
+    "packed": RAGGED_PACKED,
+    "mixed": RAGGED_MIXED,
+    "unified": ([(n - 1, 1) for n in (1, 17, 100, 333, 1024, 1500, 2047, 64)] + [(0, 300), (256, 200)], 16),
+    "block-boundaries": ([(0, 128), (48, 96), (0, 200)], 0),
+    "full-decode-region": ([(n - 1, 1) for n in (1, 2, 17, 63, 64, 65, 100, 128, 129, 333, 640, 1024,
+                                                 1025, 1500, 2000, 2047)] + [(0, 90)], 16),
+    "one-token-span": ([(5, 1), (80, 150), (160, 1), (16, 45)], 16),
+}
+
+
+def _ragged_blocks(p, starts, lens, offs, t):
+    """Which blocks compute each flat token, as the kernel assigns them:
+    decode-row block y computes row y's token when the row has one fresh
+    token; span block y the tokens [tq * (grid y - 1 - y), + tq) that
+    belong to rows of two or more fresh tokens."""
+    owner = {}
+    for r, (st, n, o) in enumerate(zip(starts, lens, offs)):
+        for tok in range(o, o + n - st):
+            owner[tok] = r
+    blocks = {tok: [] for tok in owner}
+    for y in range(p.grid[1]):
+        if y < p.decode_blocks:
+            if y < len(lens) and lens[y] - starts[y] == 1:
+                blocks[offs[y]].append(y)
+            continue
+        i0 = p.tq * (p.grid[1] - 1 - y)
+        for tok in range(i0, min(i0 + p.tq, t)):
+            r = owner.get(tok)
+            if r is not None and lens[r] - starts[r] > 1:
+                blocks[tok].append(y)
+    return blocks
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("group", [1, 4, 8, 64])
+@pytest.mark.parametrize("table", sorted(RAGGED_TABLES))
+def test_ragged_attention_plan(table, group, quant):
+    rows, region = RAGGED_TABLES[table]
+    bs = 32 if quant else 16
+    t, starts, lens, offs = ragged_layout(rows, region, 3, bs)
+    hk = 8 if group < 64 else 1
+    g = build.geometry()
+    for d in pa.HEAD_DIMS:
+        p = ra.plan(t, len(lens), group * hk, hk, d, quant)
+        assert p.grid == (hk, p.decode_blocks + p.span_blocks) and p.grid[1] <= GRID_YZ_MAX
+        assert p.decode_blocks == len(lens) and p.threads == g["B3_THREADS"] <= 1024
+        # a span block's rows are its tq tokens times the group's query heads
+        assert p.group == group and 1 <= p.tq * group <= g["B3_ROWS"]
+        assert _partitions([p.tq * z for z in range(p.span_blocks)], p.tq, t)
+        assert p.keys % 16 == 0 and p.keys == (32 if d == 256 else 64)
+        key = f"B3_Q8_SMEM_D{d}" if quant else f"B3_SMEM_D{d}"
+        assert p.smem == g[key] <= SMEM_LIMIT
+    # every live token is computed by exactly one block, and a decode row's
+    # token by its own decode-row block and by no span block
+    for tok, blocks in _ragged_blocks(p, starts, lens, offs, t).items():
+        assert len(blocks) == 1, (tok, blocks)
+        r = [i for i, (st, n, o) in enumerate(zip(starts, lens, offs)) if o <= tok < o + n - st][0]
+        assert (blocks[0] < p.decode_blocks) == (lens[r] - starts[r] == 1)
+
+
+def test_ragged_plan_refuses_groups_past_a_decode_block():
+    with pytest.raises(ValueError, match="decode-row block"):
+        ra.plan(64, 4, 65, 1, 128)
 
 
 def test_geometry_reads_every_define():

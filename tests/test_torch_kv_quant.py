@@ -356,3 +356,81 @@ def test_ragged_q8_ref_matches_pallas_interpret(bs, cap):
     torch.testing.assert_close(ragged_paged_prefill_attention_q8(*args, logit_cap=cap), out,
                                rtol=0, atol=0)
     assert ragged_paged_prefill_attention_q8.launches == before
+
+
+# The card's ragged edge layouts (chip_smoke.py) at tiny widths over an
+# int8 cache: name: (H, Hk, rows [(start, fresh)], decode region).  The
+# card's span blocks hold 128 / G tokens: a G = 1 span cut by a block
+# boundary; G = 8 boundaries at a span end and mid-span; a full 16-row
+# decode region with contexts across 64-key tiles (64 and 65 among them);
+# spans from starts inside a 64-key tile, at a flat offset inside one.
+Q8_EDGE_LAYOUTS = {
+    "g1-boundary-mid-span": (4, 4, [(0, 100), (16, 60)], 0),
+    "g8-boundaries": (16, 2, [(8, 1), (0, 16), (24, 20)], 16),
+    "full-decode-region": (8, 2, [(n - 1, 1) for n in (1, 2, 17, 63, 64, 65, 100, 128, 129, 150, 200,
+                                                        255, 256, 257, 300, 319)] + [(0, 20)], 16),
+    "misaligned-starts": (8, 2, [(5, 1), (80, 50), (16, 45)], 8),
+}
+
+
+def _q8_edge_data(layout, bs):
+    """One edge layout's inputs (seeded numpy) and the JAX package's
+    outputs on them: the dequantising plain op on a clean pool, and the
+    Pallas int8 body in interpret mode on a pool with NaN in every dead
+    slot's scale and every pad lane, and NaN padding K/V."""
+    h, hk, rows, region = Q8_EDGE_LAYOUTS[layout]
+    d = 32
+    rng = np.random.default_rng(20 + sorted(Q8_EDGE_LAYOUTS).index(layout))
+    m = 320 // bs
+    n = sum(-(-(st + f) // bs) for st, f in rows) + 4
+    t, seq_ids, bt, lens, starts, roff = _ragged_layout(rows, bs, m, n, rng, region)
+    live = seq_ids[0] >= 0
+    data, scale = _quant_cache(rng, n, bs, hk, d)
+    q, k_new, v_new = (rng.normal(size=(1, t, x, d)).astype(np.float32) for x in (h, hk, hk))
+    max_pb = max(-(-int(s) // bs) for s in starts)
+    pb = 0 if max_pb == 0 else min(m, 1 << (max_pb - 1).bit_length())
+    oracle = np.asarray(jax_ragged(
+        jnp.asarray(q), jnp.asarray(k_new), jnp.asarray(v_new), _jq(data, scale), jnp.int32(1),
+        jnp.asarray(bt), jnp.asarray(lens), jnp.asarray(starts), jnp.asarray(roff),
+        jnp.asarray(seq_ids), pb))
+    scale_p = _poison_scales(scale, bt, starts, hk, bs)
+    k_p, v_p = k_new.copy(), v_new.copy()
+    k_p[0, ~live] = np.nan
+    v_p[0, ~live] = np.nan
+    pallas = np.asarray(pallas_ragged(
+        jnp.asarray(q), jnp.asarray(k_p), jnp.asarray(v_p), _jq(data, scale_p), jnp.int32(1),
+        jnp.asarray(bt), jnp.asarray(lens), jnp.asarray(starts), jnp.asarray(roff),
+        rows_per_chunk=8, blocks_per_chunk=2, interpret=True))
+    return dict(q=q, k_new=k_new, v_new=v_new, data=data, scale=scale, rows=(bt, lens, starts, roff),
+                live=live, scale_p=scale_p, k_p=k_p, v_p=v_p, oracle=oracle, pallas=pallas)
+
+
+@pytest.fixture(scope="module")
+def q8_edge_data():
+    """Every int8 edge case's inputs and JAX outputs, made once in the
+    module's set-up: compiling the JAX op and the Pallas body at each
+    layout's shapes is most of a case's time."""
+    return {(layout, bs): _q8_edge_data(layout, bs) for layout in Q8_EDGE_LAYOUTS for bs in (16, 32)}
+
+
+@pytest.mark.parametrize("bs", [16, 32])
+@pytest.mark.parametrize("layout", sorted(Q8_EDGE_LAYOUTS))
+def test_ragged_q8_edges_match_jax_and_pallas_interpret(q8_edge_data, layout, bs):
+    """The int8 plain version at each edge layout against the JAX package's
+    dequantising plain op and, on the poisoned pool, against the Pallas
+    int8 body; padding tokens give exactly 0, and the wrapper on CPU
+    tensors is the plain version."""
+    x = q8_edge_data[layout, bs]
+    live = x["live"]
+    rows = tuple(_t(a) for a in x["rows"])
+    plain = ragged_prefill_attention_ref(_t(x["q"]), _t(x["k_new"]), _t(x["v_new"]),
+                                         _tq(x["data"], x["scale"]), 1, *rows).numpy()
+    np.testing.assert_allclose(plain[0][live], x["oracle"][0][live], atol=ATOL)
+    args = (_t(x["q"]), _t(x["k_p"]), _t(x["v_p"]), _tq(x["data"], x["scale_p"]), 1, *rows)
+    out = ragged_prefill_attention_ref(*args)
+    assert torch.isfinite(out).all()
+    assert (out[0][~torch.from_numpy(live)] == 0).all()  # padding tokens give exactly 0
+    np.testing.assert_allclose(out.numpy()[0][live], x["pallas"][0][live], atol=ATOL)
+    before = ragged_paged_prefill_attention_q8.launches
+    torch.testing.assert_close(ragged_paged_prefill_attention_q8(*args), out, rtol=0, atol=0)
+    assert ragged_paged_prefill_attention_q8.launches == before

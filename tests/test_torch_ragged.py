@@ -117,11 +117,31 @@ CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_ragged_attention_matches_jax_oracle_and_pallas(case):
-    h, hk, d, rows, n_pad, region, cap, tq, c = CASES[case]
-    bs, m, n_blocks = 8, 12, 48
-    rng = np.random.default_rng(sorted(CASES).index(case))
+# The card's kernel checks' layouts at tiny widths (chip_smoke.py, ragged
+# edges), with the pool and tables they need: name: (H, Hk, D, rows,
+# padding rows, decode region, softcap, TQ, C, Bs, M, blocks).  The card's
+# span blocks hold 128 / G tokens: G = 1, 4 and 8 put a block boundary
+# mid-span and at a span end; a full 16-row decode region with contexts
+# across several 64-key tiles (64 and 65 among them); decode contexts
+# crossing key tiles; spans from starts inside a 64-key tile at flat
+# offsets inside one.
+EDGE_CASES = {
+    "g1-boundary-mid-span": (4, 4, 32, [(0, 100), (16, 60)], 1, 0, None, 16, 2, 8, 16, 40),
+    "g4-boundary-at-span-end": (8, 2, 32, [(0, 64), (40, 20), (0, 30)], 1, 0, 30.0, 16, 2, 8, 12, 40),
+    "g8-both-boundaries": (16, 2, 32, [(8, 1), (0, 16), (24, 20)], 0, 16, None, 8, 2, 8, 12, 40),
+    "full-decode-region": (8, 2, 32, [(n - 1, 1) for n in (1, 2, 9, 63, 64, 65, 100, 128, 129, 150, 200,
+                                                            255, 256, 257, 300, 319)] + [(0, 20)],
+                           1, 16, None, 8, 4, 8, 40, 320),
+    "decode-crossing-key-tiles": (8, 2, 32, [(199, 1), (130, 1), (64, 40)], 1, 8, 30.0, 8, 4, 8, 32, 80),
+    "misaligned-starts": (8, 2, 32, [(5, 1), (80, 50), (16, 45)], 2, 8, None, 8, 2, 8, 20, 48),
+}
+
+
+def _case_data(h, hk, d, rows, n_pad, region, cap, tq, c, seed, bs=8, m=12, n_blocks=48):
+    """One layout's inputs (seeded numpy) and the JAX package's outputs on
+    them: the oracle on a clean pool, and the Pallas kernel in interpret
+    mode on a NaN-poisoned pool with NaN padding K/V."""
+    rng = np.random.default_rng(seed)
     t, seq_ids, bt, seq_lens, starts, roff = _layout(rows, bs, m, len(rows) + n_pad, n_blocks,
                                                      rng, decode_region=region)
     live = seq_ids[0] >= 0
@@ -131,21 +151,10 @@ def test_ragged_attention_matches_jax_oracle_and_pallas(case):
     v_new = rng.normal(size=(1, t, hk, d)).astype(np.float32)
     max_pb = max(-(-int(s) // bs) for s in starts)
     pb = 0 if max_pb == 0 else min(m, 1 << (max_pb - 1).bit_length())
-
-    # the port's plain op and the kernel's plain version vs the JAX oracle
     oracle = np.asarray(jax_ragged(
         jnp.asarray(q), jnp.asarray(k_new), jnp.asarray(v_new), jnp.asarray(cache),
         jnp.int32(LAYER), jnp.asarray(bt), jnp.asarray(seq_lens), jnp.asarray(starts),
         jnp.asarray(roff), jnp.asarray(seq_ids), pb, logit_cap=cap))
-    args = (_t(q), _t(k_new), _t(v_new), _t(cache), LAYER, _t(bt), _t(seq_lens), _t(starts),
-            _t(roff))
-    op = ops.ragged_prefill_attention(*args, _t(seq_ids), pb, logit_cap=cap).numpy()
-    np.testing.assert_allclose(op[0][live], oracle[0][live], atol=ATOL)
-    ref = ragged_prefill_attention_ref(*args, logit_cap=cap).numpy()
-    np.testing.assert_allclose(ref[0][live], oracle[0][live], atol=ATOL)
-
-    # the kernel's plain version vs the Pallas kernel, on a NaN-poisoned
-    # pool and NaN padding K/V
     cache_p = _poison(cache, bt, starts, bs)
     k_p, v_p = k_new.copy(), v_new.copy()
     k_p[0, ~live] = np.nan
@@ -155,18 +164,58 @@ def test_ragged_attention_matches_jax_oracle_and_pallas(case):
         jnp.int32(LAYER), jnp.asarray(bt), jnp.asarray(seq_lens), jnp.asarray(starts),
         jnp.asarray(roff), logit_cap=cap, rows_per_chunk=tq, blocks_per_chunk=c,
         interpret=True))
-    pargs = (_t(q), _t(k_p), _t(v_p), _t(cache_p), LAYER, _t(bt), _t(seq_lens), _t(starts),
-             _t(roff))
+    return dict(q=q, k_new=k_new, v_new=v_new, cache=cache, bt=bt, seq_lens=seq_lens,
+                starts=starts, roff=roff, seq_ids=seq_ids, pb=pb, cap=cap, live=live,
+                cache_p=cache_p, k_p=k_p, v_p=v_p, oracle=oracle, pallas=pallas)
+
+
+def _check_port(x):
+    """The port's plain op and the kernel's plain version against the JAX
+    oracle, the plain version against the Pallas kernel on the poisoned
+    pool (padding tokens exactly 0), and the wrapper on CPU tensors against
+    the plain version."""
+    live, cap = x["live"], x["cap"]
+    rows = (_t(x["bt"]), _t(x["seq_lens"]), _t(x["starts"]), _t(x["roff"]))
+    args = (_t(x["q"]), _t(x["k_new"]), _t(x["v_new"]), _t(x["cache"]), LAYER, *rows)
+    op = ops.ragged_prefill_attention(*args, _t(x["seq_ids"]), x["pb"], logit_cap=cap).numpy()
+    np.testing.assert_allclose(op[0][live], x["oracle"][0][live], atol=ATOL)
+    ref = ragged_prefill_attention_ref(*args, logit_cap=cap).numpy()
+    np.testing.assert_allclose(ref[0][live], x["oracle"][0][live], atol=ATOL)
+
+    pargs = (_t(x["q"]), _t(x["k_p"]), _t(x["v_p"]), _t(x["cache_p"]), LAYER, *rows)
     ref_p = ragged_prefill_attention_ref(*pargs, logit_cap=cap)
     assert torch.isfinite(ref_p).all()
     assert (ref_p[0][~torch.from_numpy(live)] == 0).all()  # padding tokens give exactly 0
-    np.testing.assert_allclose(ref_p.numpy()[0][live], pallas[0][live], atol=ATOL)
+    np.testing.assert_allclose(ref_p.numpy()[0][live], x["pallas"][0][live], atol=ATOL)
 
     # on CPU tensors the wrapper is the plain version: same bits, no launch
     before = ragged_paged_prefill_attention.launches
     torch.testing.assert_close(ragged_paged_prefill_attention(*pargs, logit_cap=cap), ref_p,
                                rtol=0, atol=0)
     assert ragged_paged_prefill_attention.launches == before
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_ragged_attention_matches_jax_oracle_and_pallas(case):
+    _check_port(_case_data(*CASES[case], seed=sorted(CASES).index(case)))
+
+
+@pytest.fixture(scope="module")
+def edge_data():
+    """Every edge case's inputs and JAX outputs, made once in the module's
+    set-up: compiling the JAX oracle and the Pallas kernel at each layout's
+    shapes is most of a case's time."""
+    out = {}
+    for i, case in enumerate(sorted(EDGE_CASES)):
+        h, hk, d, rows, n_pad, region, cap, tq, c, bs, m, n_blocks = EDGE_CASES[case]
+        out[case] = _case_data(h, hk, d, rows, n_pad, region, cap, tq, c, seed=100 + i, bs=bs, m=m,
+                               n_blocks=n_blocks)
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(EDGE_CASES))
+def test_ragged_attention_edges_match_jax_oracle_and_pallas(edge_data, case):
+    _check_port(edge_data[case])
 
 
 @pytest.mark.parametrize("window", [12, 200])

@@ -100,19 +100,29 @@ def _run(core, request_cls, proto, specs, head, stagger, abort=None):
                   [o.cached_tokens for o in v]) for rid, v in outs.items()}
 
 
-def _both(models, specs, head, stagger, abort=None, **cfg_kw):
-    jmodel, jparams, model = models
-    kw = {**BASE, **cfg_kw}
-    jcore = JaxEngineCore(jmodel, jparams, JaxEngineConfig(**kw), eos_token_ids=[EOS])
-    core = EngineCore(model, EngineConfig(**kw), eos_token_ids=[EOS], device="cpu")
+def _jax_run(models, specs, head, stagger, abort=None, **cfg_kw):
+    """One JAX engine run: its streams, its metrics() and the prompt tokens
+    it computed."""
+    jmodel, jparams, _ = models
+    jcore = JaxEngineCore(jmodel, jparams, JaxEngineConfig(**{**BASE, **cfg_kw}), eos_token_ids=[EOS])
     ref = _run(jcore, JaxEngineRequest, jax_protocols, specs, head, stagger, abort)
-    out = _run(core, EngineRequest, protocols, specs, head, stagger, abort)
-    return ref, out, jcore, core
+    return ref, jcore.metrics(), jcore.prompt_tokens_computed
 
 
-def _assert_counters_match(jcore, core):
-    jm, pm = jcore.metrics(), core.metrics()
-    assert {k: pm[k] for k in COUNTERS} == {k: jm[k] for k in COUNTERS}
+def _both(models, jax_refs, case):
+    """The JAX reference of ``case`` (made in set-up) and the port's run of
+    the same case: (reference, port streams, JAX metrics, JAX prompt
+    tokens computed, the port's core)."""
+    specs, head, stagger, abort, cfg_kw = RUNS[case]
+    ref, jmetrics, jtokens = jax_refs[case]
+    core = EngineCore(models[2], EngineConfig(**{**BASE, **cfg_kw}), eos_token_ids=[EOS], device="cpu")
+    out = _run(core, EngineRequest, protocols, specs(), head, stagger, abort)
+    return ref, out, jmetrics, jtokens, core
+
+
+def _assert_counters_match(jmetrics, core):
+    pm = core.metrics()
+    assert {k: pm[k] for k in COUNTERS} == {k: jmetrics[k] for k in COUNTERS}
 
 
 def _mixed_specs():
@@ -129,13 +139,48 @@ def _mixed_specs():
     ]
 
 
+def _prefix_specs():
+    rng = np.random.RandomState(3)
+    prompt = _prompt(rng, 41)
+    return [("deco", _prompt(rng, 8), dict(temperature=0.0), 20),
+            ("a", prompt, dict(temperature=0.0), 4),
+            ("b", prompt, dict(temperature=0.0), 4)]
+
+
+def _abort_specs():
+    rng = np.random.RandomState(4)
+    return [("deco", _prompt(rng, 8), dict(temperature=0.0), 40),
+            ("victim", _prompt(rng, 48), dict(temperature=0.0), 4),
+            ("other", _prompt(rng, 12), dict(temperature=0.0), 4)]
+
+
+# every engine run of the module: (specs, head, stagger, abort, EngineConfig
+# options) by (test, config)
+RUNS = {
+    **{("greedy", c): (_mixed_specs, 2, 4, None, CONFIGS[c]) for c in CONFIGS},
+    **{("prefix_join", c): (_prefix_specs, 1, 3, None, CONFIGS[c]) for c in ("budget", "unified")},
+    **{("abort", c): (_abort_specs, 1, 3, "victim", dict(CONFIGS[c], prefill_token_budget=32))
+       for c in ("unified", "lookahead")},
+}
+
+
+@pytest.fixture(scope="module")
+def jax_refs(models):
+    """The JAX engine's run of every case, made once in the module's
+    set-up.  Compiling the JAX engine's step functions is most of this
+    file's time; a test's own time is then the port's run and the
+    comparison."""
+    return {case: _jax_run(models, specs(), head, stagger, abort, **cfg_kw)
+            for case, (specs, head, stagger, abort, cfg_kw) in RUNS.items()}
+
+
 @pytest.mark.parametrize("config", sorted(CONFIGS))
-def test_greedy_streams_and_counters_match_jax(models, config):
+def test_greedy_streams_and_counters_match_jax(models, jax_refs, config):
     kw = CONFIGS[config]
-    ref, out, jcore, core = _both(models, _mixed_specs(), head=2, stagger=4, **kw)
+    ref, out, jmetrics, _, core = _both(models, jax_refs, ("greedy", config))
     assert out == ref
     assert all(reason == "length" for _, reason, _ in out.values())
-    _assert_counters_match(jcore, core)
+    _assert_counters_match(jmetrics, core)
     m = core.metrics()
     assert m["prefill_batch_occupancy"] > 1.0  # several prompts packed per dispatch
     if kw.get("unified_token_dispatch") or kw.get("lookahead_dispatch"):
@@ -146,37 +191,27 @@ def test_greedy_streams_and_counters_match_jax(models, config):
 
 
 @pytest.mark.parametrize("config", ["budget", "unified"])
-def test_prefix_join_matches_jax(models, config):
+def test_prefix_join_matches_jax(models, jax_refs, config):
     """Identical prompts submitted while another request decodes: the second
     joins the first's in-flight blocks instead of packing duplicate compute
     into the dispatch."""
-    rng = np.random.RandomState(3)
-    prompt = _prompt(rng, 41)
-    specs = [("deco", _prompt(rng, 8), dict(temperature=0.0), 20),
-             ("a", prompt, dict(temperature=0.0), 4),
-             ("b", prompt, dict(temperature=0.0), 4)]
-    ref, out, jcore, core = _both(models, specs, head=1, stagger=3, **CONFIGS[config])
+    ref, out, jmetrics, jtokens, core = _both(models, jax_refs, ("prefix_join", config))
     assert out == ref
     assert out["a"][0] == out["b"][0]
     assert out["b"][2][0] == 40  # five 8-token blocks came from the joined owner
-    assert core.prompt_tokens_computed == jcore.prompt_tokens_computed == 8 + 41 + 1
-    _assert_counters_match(jcore, core)
+    assert core.prompt_tokens_computed == jtokens == 8 + 41 + 1
+    _assert_counters_match(jmetrics, core)
 
 
 @pytest.mark.parametrize("config", ["unified", "lookahead"])
-def test_mid_batch_abort_of_prefill_row_matches_jax(models, config):
+def test_mid_batch_abort_of_prefill_row_matches_jax(models, jax_refs, config):
     """A prefill row aborted while mid-chunk finishes CANCELLED; the decoding
     request and the other prompt stream on as in the JAX engine."""
-    rng = np.random.RandomState(4)
-    specs = [("deco", _prompt(rng, 8), dict(temperature=0.0), 40),
-             ("victim", _prompt(rng, 48), dict(temperature=0.0), 4),
-             ("other", _prompt(rng, 12), dict(temperature=0.0), 4)]
-    kw = dict(CONFIGS[config], prefill_token_budget=32)
-    ref, out, jcore, core = _both(models, specs, head=1, stagger=3, abort="victim", **kw)
+    ref, out, jmetrics, _, core = _both(models, jax_refs, ("abort", config))
     assert out == ref
     assert out["victim"][1] == "cancelled"
     assert core.metrics()["unified_dispatches_total"] > 0
-    _assert_counters_match(jcore, core)
+    _assert_counters_match(jmetrics, core)
 
 
 def test_engine_accepts_the_token_budget_options(models):
