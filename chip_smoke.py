@@ -18,14 +18,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
    full 16-row decode region with contexts 1 to 2047; starts inside a
    64-key tile; softcap on and off; bf16, and int8 at Bs = 16 and 32), and
    every ragged launch is run twice and must give the same bits.  The
+   int8 decode and prefill kernels also run at their edges (G = 1, 4 and 8
+   at D = 64, 128 and 256, Bs = 16 and 32; decode at S = 1 and 8 with
+   contexts 0 to 2048 either side of its chunks and tiles, each launch run
+   twice for the same bits; prefill from a start inside a key tile).  The
    W8A16 matmul runs at every projection shape of Llama-3-8B and its
    lm_head (f32 out), at M = 1 to 1504 across both regimes' edges, for a
    [K, N] weight and for the transpose of an [N, K] one, then at ragged
    shapes (N = 32002 or 1000, K = 4104), and a split-K launch is run twice
    and must give the same bits.  Then decode, prefill and the
-   matmul are timed at the serving paths' shapes beside their plain
+   matmul are timed at the serving paths' shapes (decode and the matmul as
+   CUDA graphs, the card's time, and eagerly for the log) beside their plain
    versions, a PyTorch library call on the same work (the median of three
-   readings), and their bound on this card;
+   readings, timed as its kernel is: decode's SDPA also as a CUDA graph),
+   and their bound on this card;
 4. serving: Llama-3-8B at full width and depth (random weights from a
    seeded generator) behind ``AsyncLLMEngine``, six concurrent greedy
    requests (17 to 1500 prompt tokens, two sharing a 256-token prefix),
@@ -136,10 +142,18 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# kernels whose every instantiation must be in the library: the paged
+# prefill kernel at three head dims over bf16 and int8 caches; the int8
+# decode kernel at D = 64 and 128 with 4, 8 or 16 query rows and at D = 256
+# with 4 or 8
+SASS_INSTANTIATIONS = {"wgmma_prefill_kernel": 6, "decode_q8_kernel": 8}
+
+
 def sass_check(torch, lib_path) -> None:
     """The redesigned kernels as compiled: the wgmma kernels (B5 above 16
-    rows, B2, and every ragged instantiation, B3 and B4c) issue HGMMA, and
-    they and B5's decode kernel copy with LDGSTS (cp.async), except B5's
+    rows, the paged prefill kernels B2 and B4b, and every ragged
+    instantiation, B3 and B4c) issue HGMMA, and they, B5's decode kernel and
+    the int8 decode kernel (B4a) copy with LDGSTS (cp.async), except B5's
     instantiations for rows off 16 bytes (template flag VEC = false), which
     copy element by element.  Logged per kernel; a missing instruction
     fails."""
@@ -163,13 +177,15 @@ def sass_check(torch, lib_path) -> None:
         return m is None or m.group(1).endswith("Lb1")
 
     want = {"w8a16_wgmma_kernel": True, "wgmma_prefill_kernel": True, "ragged_kernel": True,
-            "w8a16_decode_kernel": False}
+            "w8a16_decode_kernel": False, "decode_q8_kernel": False}
     for key, needs_hgmma in want.items():
         found = {n: c for n, c in counts.items() if key in n}
         check(bool(found), f"sass: no {key} in the library")
         for n, (hgmma, ldgsts) in found.items():
             check((ldgsts > 0 or not copies_async(n)) and (hgmma > 0 or not needs_hgmma),
                   f"sass: {n[:80]} has HGMMA {hgmma}, LDGSTS {ldgsts}")
+        check(len(found) >= SASS_INSTANTIATIONS.get(key, 1),
+              f"sass: {len(found)} instantiations of {key}, expected {SASS_INSTANTIATIONS.get(key, 1)}")
         log(f"sass {key}: {len(found)} instantiations, HGMMA "
             f"{sorted({c[0] for c in found.values()})}, LDGSTS {sorted({c[1] for c in found.values()})}")
 
@@ -269,11 +285,13 @@ def decode_case(torch, gen, lens, s, logit_cap, geom=(H, HK, D), bs=BS, quant=Fa
     args = (q, cache, LAYER, bt, seq_lens, q0)
     kernel = paged_decode_attention_q8 if quant else paged_decode_attention
     out = kernel(*args, logit_cap=logit_cap)
-    err = compare(torch, f"decode {'int8 ' if quant else ''}{geom} Bs={bs} S={s} cap={logit_cap}",
-                  out, decode_attention_ref(*args, logit_cap=logit_cap))
+    what = f"decode {'int8 ' if quant else ''}{geom} Bs={bs} S={s} cap={logit_cap} lens={lens}"
+    err = compare(torch, what, out, decode_attention_ref(*args, logit_cap=logit_cap))
     for i, n in enumerate(lens):
         if n == 0:
             check(bool((out[i] == 0).all()), f"decode S={s}: zero-length row {i} is not 0")
+    if quant:  # the split-K merge is in chunk order: the same bits every launch
+        check(torch.equal(out, kernel(*args, logit_cap=logit_cap)), f"{what}: two launches differ")
     return err
 
 
@@ -404,7 +422,8 @@ def kernel_phase(torch) -> dict:
 
 def q8_kernel_phase(torch, gen) -> dict:
     """The three int8 attention kernels against their plain version, at
-    the bf16 checks' layouts and at both block sizes."""
+    the bf16 checks' layouts and at both block sizes, then the int8 decode
+    and prefill kernels at their edges."""
     errs = {"decode_q8": 0.0, "prefill_q8": 0.0, "ragged_q8": 0.0}
     mixed = [0, 1, 17, 100, 333, 1024, 1500, 2048]
     decode_rows = [(n - 1, 1) for n in (1, 17, 100, 333, 1024, 1500, 2047, 64)]
@@ -433,6 +452,42 @@ def q8_kernel_phase(torch, gen) -> dict:
                                 geom=geom, bs=bs, quant=True)
             log(f"kernel int8 (H, Hk, D)={geom} Bs={bs}: decode S=2 max abs err {d_err:.3g}, "
                 f"prefill start=64 {p_err:.3g}, ragged 3 decode rows + 2 spans {r_err:.3g}")
+    for key, e in q8_edge_phase(torch, gen).items():
+        errs[key] = max(errs[key], e)
+    return errs
+
+
+# The int8 decode (B4a) and prefill (B4b) kernels' edges, at G = 1, 4 and 8
+# (H, Hk, D below) and Bs = 16 and 32.  B4a: contexts 0 and 1, either side
+# of its 64-token chunks and 16-key tiles, and the whole 2048-token table,
+# at S = 1 and 8 (8 x G query rows: one to eight row groups), each launched
+# twice for the same bits.  B4b: a start inside a key tile (block-aligned,
+# not tile-aligned), fresh lengths off the token tile (128 / G tokens).
+Q8_EDGE_GEOMS = ((8, 8, 64), (32, 8, 128), (16, 2, 256))
+DECODE_EDGE_LENS = [0, 1, 15, 17, 63, 64, 65, 127, 129, 2047, 2048]
+
+
+def q8_edge_phase(torch, gen) -> dict:
+    errs = {"decode_q8": 0.0, "prefill_q8": 0.0}
+    i = 0
+    for geom in Q8_EDGE_GEOMS:
+        keys = 32 if geom[2] == 256 else 64  # the prefill kernel's key tile
+        for bs in (16, BS_Q8):
+            for s in (1, 8):
+                cap = 50.0 if i % 2 else None
+                i += 1
+                e = decode_case(torch, gen, DECODE_EDGE_LENS, s, cap, geom=geom, bs=bs, quant=True)
+                errs["decode_q8"] = max(errs["decode_q8"], e)
+                log(f"kernel decode int8 edges (H, Hk, D)={geom} Bs={bs} S={s} softcap={cap} contexts "
+                    f"{DECODE_EDGE_LENS}: max abs err {e:.3g}, two launches bit-identical")
+            start = next((st for st in range(bs, 4 * keys, bs) if st % keys), bs)
+            cap = 50.0 if i % 2 else None
+            i += 1
+            e = prefill_case(torch, gen, starts=[start, 0], fresh=[155, 77], s=160, geom=geom, bs=bs,
+                             quant=True, logit_cap=cap)
+            errs["prefill_q8"] = max(errs["prefill_q8"], e)
+            log(f"kernel prefill int8 edges (H, Hk, D)={geom} Bs={bs} start=[{start}, 0] fresh=[155, 77] "
+                f"softcap={cap}: max abs err {e:.3g}")
     return errs
 
 
@@ -531,11 +586,32 @@ def matmul_phase(torch, gen) -> float:
     return worst
 
 
+def _sdpa_decode_ms(torch, q, lens, dense_kv) -> tuple[float, float]:
+    """SDPA on one decode step's layer, the decode kernels' library
+    yardstick: q [B, 1, H, D] over each layer's K/V laid out dense
+    beforehand (``dense_kv(layer)`` gives [B, Hk, T, D] twice), successive
+    calls walking the 32 layers as the kernels do.  Timed as the kernels
+    are, as a CUDA graph of the 32 calls (the card's time) and launched
+    eagerly; medians of three readings."""
+    import torch.nn.functional as F
+
+    kvs = [dense_kv(layer) for layer in range(L)]
+    seq = torch.tensor(lens, device="cuda")
+    mask = (torch.arange(kvs[0][0].shape[2], device="cuda")[None, :] < seq[:, None])[:, None, None, :]
+    qd = q.transpose(1, 2).contiguous()
+    calls = [lambda kv=kv: F.scaled_dot_product_attention(qd, *kv, attn_mask=mask, enable_gqa=True)
+             for kv in kvs]
+    graph_ms = median_ms(lambda: graph_time_ms(calls, 20) / L)
+    eager_ms = median_ms(lambda: cuda_time_ms(lambda i: calls[i % L](), 64))
+    return graph_ms, eager_ms
+
+
 def timing_phase(torch, card: str) -> dict:
     """Decode and prefill at the default path's shapes, timed and checked
     against their plain versions there: decode is one layer of a burst step
-    (B = 8 slots, S = 1, the six requests mid-generation), and prefill the
-    longest prompt's one dispatch (S = 1504, start = 0)."""
+    (B = 8 slots, S = 1, the six requests mid-generation; timed as a CUDA
+    graph, as the int8 decode kernel is), and prefill the longest prompt's
+    one dispatch (S = 1504, start = 0)."""
     import torch.nn.functional as F
 
     from dynamo_tpu_torch.ops.kernels.decode_attention import (
@@ -558,23 +634,26 @@ def timing_phase(torch, card: str) -> dict:
     seq_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
     q0 = (seq_lens - 1).clamp_min(0)
     # successive launches walk the 32 layers, as a decode step does, so
-    # the context is not served from L2
-    kernel_ms = cuda_time_ms(lambda i: paged_decode_attention(q, cache, i % L, bt, seq_lens, q0), 64)
+    # the context is not served from L2; timed as a CUDA graph of the 32
+    # calls (the card's time) and, for the log, launched eagerly
+    calls = [lambda i=i: paged_decode_attention(q, cache, i, bt, seq_lens, q0) for i in range(L)]
+    kernel_ms = graph_time_ms(calls, 20) / L
+    eager_ms = cuda_time_ms(lambda i: calls[i % L](), 64)
     plain_ms = cuda_time_ms(lambda i: decode_attention_ref(q, cache, i % L, bt, seq_lens, q0), 8)
     out["decode_err"] = compare(torch, "decode at the serving shapes",
                                 paged_decode_attention(q, cache, LAYER, bt, seq_lens, q0),
                                 decode_attention_ref(q, cache, LAYER, bt, seq_lens, q0))
-    t = max(lens)
-    kd = torch.zeros((b, HK, t, D), dtype=torch.bfloat16, device="cuda")
-    vd = torch.zeros_like(kd)
-    for i, n in enumerate(lens):
-        rows = bt[i, :-(-n // BS)].long()
-        kd[i, :, :n] = cache[LAYER, rows, 0].reshape(-1, HK, D)[:n].transpose(0, 1)
-        vd[i, :, :n] = cache[LAYER, rows, 1].reshape(-1, HK, D)[:n].transpose(0, 1)
-    mask = (torch.arange(t, device="cuda")[None, :] < seq_lens[:, None])[:, None, None, :]
-    qd = q.transpose(1, 2).contiguous()
-    library_ms = median_ms(lambda: cuda_time_ms(lambda i: F.scaled_dot_product_attention(
-        qd, kd, vd, attn_mask=mask, enable_gqa=True), 64))
+
+    def dense_kv(layer):
+        kd = torch.zeros((b, HK, max(lens), D), dtype=torch.bfloat16, device="cuda")
+        vd = torch.zeros_like(kd)
+        for i, n in enumerate(lens):
+            rows = bt[i, :-(-n // BS)].long()
+            kd[i, :, :n] = cache[layer, rows, 0].reshape(-1, HK, D)[:n].transpose(0, 1)
+            vd[i, :, :n] = cache[layer, rows, 1].reshape(-1, HK, D)[:n].transpose(0, 1)
+        return kd, vd
+
+    library_ms, library_eager_ms = _sdpa_decode_ms(torch, q, lens, dense_kv)
     ctx = sum(lens)
     dec_bytes = 2 * (2 * b * H * D) + 2 * ctx * HK * D * 2 + 4 * (b * m + 2 * b)
     dec_flops = 4 * H * D * ctx
@@ -582,8 +661,9 @@ def timing_phase(torch, card: str) -> dict:
                          bound_ms=1e3 * max(dec_bytes / HBM_BYTES_PER_S, dec_flops / BF16_FLOP_PER_S),
                          bound_by="bytes" if dec_bytes / HBM_BYTES_PER_S >= dec_flops / BF16_FLOP_PER_S
                          else "operations")
-    log(f"time decode  B={b} S=1 ctx={ctx}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"sdpa {library_ms:.4f} ms, bound {out['decode']['bound_ms']:.4f} ms, "
+    log(f"time decode  B={b} S=1 ctx={ctx}: kernel {kernel_ms:.4f} ms (CUDA graph; eager {eager_ms:.4f}), "
+        f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms (CUDA graph; eager {library_eager_ms:.4f}), "
+        f"bound {out['decode']['bound_ms']:.4f} ms, "
         f"max abs err {out['decode_err']:.3g} ({card})")
 
     # prefill
@@ -628,12 +708,12 @@ def _bound(flops: float, nbytes: float) -> dict:
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
-def _dequant_rows(torch, cache, rows, n):
+def _dequant_rows(torch, cache, rows, n, layer=LAYER):
     """The first ``n`` K and V rows [n, Hk, D] (bf16) of blocks ``rows`` of
-    layer LAYER of an int8 cache."""
+    ``layer`` of an int8 cache."""
     from dynamo_tpu_torch.ops.kv_quant import gather_layer_blocks
 
-    kv = gather_layer_blocks(cache, LAYER, rows, HK).to(torch.bfloat16)
+    kv = gather_layer_blocks(cache, layer, rows, HK).to(torch.bfloat16)
     return kv[:, 0].reshape(-1, HK, D)[:n], kv[:, 1].reshape(-1, HK, D)[:n]
 
 
@@ -641,10 +721,13 @@ def q8_timing_phase(torch, card: str) -> dict:
     """The int8 decode and prefill kernels at the int8 default path's
     shapes (Bs = 32), timed and checked against their plain version there:
     decode is one layer of a burst step (B = 8 slots, S = 1, the six
-    requests mid-generation) and prefill the dispatch of the request that
+    requests mid-generation; a CUDA graph of the 32 layers' calls, the
+    card's time, since the kernel is shorter than a launch from Python) and
+    prefill the dispatch of the request that
     hits the shared prefix (start = 256, 700 fresh tokens).  The library
-    yardstick is SDPA on K/V dequantised to bf16 beforehand: it reads twice
-    the cache bytes the kernel reads, and the dequantisation is not timed."""
+    yardstick is SDPA on K/V dequantised to bf16 beforehand (for decode,
+    each layer's, timed as the kernel is): it reads twice the cache bytes
+    the kernel reads, and the dequantisation is not timed."""
     import torch.nn.functional as F
 
     from dynamo_tpu_torch.ops.kernels.decode_attention import (
@@ -666,32 +749,48 @@ def q8_timing_phase(torch, card: str) -> dict:
     q = torch.randn((b, 1, H, D), generator=gen, device="cuda").to(torch.bfloat16)
     seq_lens = _ints(torch, lens)
     q0 = (seq_lens - 1).clamp_min(0)
-    kernel_ms = cuda_time_ms(lambda i: paged_decode_attention_q8(q, cache, i % L, bt, seq_lens, q0), 64)
+    calls = [lambda i=i: paged_decode_attention_q8(q, cache, i, bt, seq_lens, q0) for i in range(L)]
+    kernel_ms = graph_time_ms(calls, 20) / L  # the card's time: the kernel is shorter than its launch
+    eager_ms = cuda_time_ms(lambda i: calls[i % L](), 64)
     plain_ms = cuda_time_ms(lambda i: decode_attention_ref(q, cache, i % L, bt, seq_lens, q0), 8)
     out["decode_q8_err"] = compare(torch, "int8 decode at the serving shapes",
                                    paged_decode_attention_q8(q, cache, LAYER, bt, seq_lens, q0),
                                    decode_attention_ref(q, cache, LAYER, bt, seq_lens, q0))
-    t = max(lens)
-    kd = torch.zeros((b, HK, t, D), dtype=torch.bfloat16, device="cuda")
-    vd = torch.zeros_like(kd)
-    for i, n in enumerate(lens):
-        if n:
-            k_rows, v_rows = _dequant_rows(torch, cache, bt[i, :-(-n // bs)], n)
-            kd[i, :, :n], vd[i, :, :n] = k_rows.transpose(0, 1), v_rows.transpose(0, 1)
-    mask = (torch.arange(t, device="cuda")[None, :] < seq_lens[:, None])[:, None, None, :]
-    qd = q.transpose(1, 2).contiguous()
-    library_ms = median_ms(lambda: cuda_time_ms(lambda i: F.scaled_dot_product_attention(
-        qd, kd, vd, attn_mask=mask, enable_gqa=True), 64))
+    # captured in a CUDA graph as it is (its tickets reset themselves), the
+    # kernel replays the eager launch's bits
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        eager = paged_decode_attention_q8(q, cache, LAYER, bt, seq_lens, q0)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            captured = paged_decode_attention_q8(q, cache, LAYER, bt, seq_lens, q0)
+        for _ in range(3):
+            graph.replay()
+    torch.cuda.synchronize()
+    check(torch.equal(captured, eager), "int8 decode: a CUDA graph replay differs from the eager launch")
+
+    def dense_kv(layer):
+        kd = torch.zeros((b, HK, max(lens), D), dtype=torch.bfloat16, device="cuda")
+        vd = torch.zeros_like(kd)
+        for i, n in enumerate(lens):
+            if n:
+                k_rows, v_rows = _dequant_rows(torch, cache, bt[i, :-(-n // bs)], n, layer)
+                kd[i, :, :n], vd[i, :, :n] = k_rows.transpose(0, 1), v_rows.transpose(0, 1)
+        return kd, vd
+
+    library_ms, library_eager_ms = _sdpa_decode_ms(torch, q, lens, dense_kv)
     ctx = sum(lens)
     # q and out bf16; the int8 K/V payload of the live context and the f32
     # scale of each (token, KV head, K or V) it reads; the tables
     nbytes = 2 * (2 * b * H * D) + 2 * ctx * HK * D + 2 * ctx * HK * 4 + 4 * (b * m + 2 * b)
     out["decode_q8"] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                             **_bound(4 * H * D * ctx, nbytes))
-    log(f"time decode int8 B={b} S=1 Bs={bs} ctx={ctx}: kernel {kernel_ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, sdpa on bf16 K/V (twice the cache bytes) {library_ms:.4f} ms, bound "
+    log(f"time decode int8 B={b} S=1 Bs={bs} ctx={ctx}: kernel {kernel_ms:.4f} ms (CUDA graph; eager "
+        f"{eager_ms:.4f}), plain "
+        f"{plain_ms:.4f} ms, sdpa on bf16 K/V (twice the cache bytes) {library_ms:.4f} ms (CUDA graph; eager "
+        f"{library_eager_ms:.4f}), bound "
         f"{out['decode_q8']['bound_ms']:.4f} ms ({out['decode_q8']['bound_by']}), max abs err "
-        f"{out['decode_q8_err']:.3g} ({card})")
+        f"{out['decode_q8_err']:.3g}, a CUDA graph replay bit-identical to the eager launch ({card})")
 
     # prefill over a cached prefix
     start, fresh = SHARED_PREFIX, PROMPT_LENS[-1] - SHARED_PREFIX

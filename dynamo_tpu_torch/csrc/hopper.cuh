@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks written as inline PTX, shared by the
-// W8A16 matmul (int8_matmul.cu) and the paged and ragged prefill attention
-// (wgmma_attention.cuh): 16- and 4-byte cp.async with zero fill, mbarriers,
+// W8A16 matmul (int8_matmul.cu), the paged and ragged prefill attention
+// (wgmma_attention.cuh) and the int8 decode attention (decode_attention.cu):
+// 16- and 4-byte cp.async with zero fill, mbarriers,
 // the async-proxy fence, named barriers, shared-memory matrix descriptors
 // for the 128-byte swizzled layouts, the exact int8 -> bf16 convert, the
 // warp-level mma.sync m16n8k16, and wgmma.mma_async (bf16 in, f32

@@ -76,8 +76,8 @@ static_assert(sizeof(RaggedTable) == DYN_B3_TABLE, "DYN_B3_TABLE must be the row
 template <int D, bool kQuant>
 struct RaggedGeometry {
   using G = wg::Geometry<D>;
-  static constexpr int kStage8 = kQuant ? wg::kStages * G::kStage8 : 0;       // int8 K/V staging
-  static constexpr int kScales = kQuant ? 2 * wg::kStages * 2 * G::kKeys * 4 : 0;  // f32 scales, two rings
+  static constexpr int kStage8 = kQuant ? G::kStage8Ring : 0;  // int8 K/V staging
+  static constexpr int kScales = kQuant ? G::kScaleBytes : 0;   // f32 scales, two rings
   static constexpr int kBarriers = 2 * wg::kStages * 8;
   static constexpr size_t kSmem =
       kQuant ? (D == 64 ? DYN_B3_Q8_SMEM_D64 : D == 128 ? DYN_B3_Q8_SMEM_D128 : DYN_B3_Q8_SMEM_D256)
@@ -94,6 +94,7 @@ struct RaggedGeometry {
 // its RaggedTable, or a decode-row block's.
 template <int D>
 struct RaggedSched {
+  static constexpr bool kPrefill = false;
   static constexpr int kKeys = wg::Geometry<D>::kKeys;
   static constexpr int kWgRows = DYN_B3_DECODE_ROWS;  // a decode block's G rows sit in each warpgroup
   const RaggedTable* tb;
@@ -240,10 +241,10 @@ ragged_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   constexpr bool kQuant = !std::is_same<E, __nv_bfloat16>::value;
   using G = wg::Geometry<D>;
   using RG = RaggedGeometry<D, kQuant>;
-  // setmaxnreg, 128 x producer + 256 x consumer <= 384 x 168: the int8
-  // producer converts, and the D = 256 consumer holds 128 accumulators
-  constexpr int kProducerRegs = kQuant ? (D == 64 ? 72 : D == 128 ? 80 : 64) : (D == 256 ? 48 : 64);
-  constexpr int kConsumerRegs = kQuant ? (D == 256 ? 216 : 208) : (D == 256 ? 224 : 216);
+  // setmaxnreg, 128 x producer + 256 x consumer <= 384 x 168: the D = 256
+  // consumer holds 128 accumulators; over an int8 cache the split is B4b's
+  constexpr int kProducerRegs = kQuant ? wg::Q8Regs<D>::kProducer : (D == 256 ? 48 : 64);
+  constexpr int kConsumerRegs = kQuant ? wg::Q8Regs<D>::kConsumer : (D == 256 ? 224 : 216);
   static_assert(128 * kProducerRegs + 256 * kConsumerRegs <= 384 * 168, "registers the block does not hold");
 
   extern __shared__ uint4 smem_raw[];

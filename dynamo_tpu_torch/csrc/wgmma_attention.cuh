@@ -1,8 +1,7 @@
-// Warpgroup (wgmma) flash-attention tile shared by the bf16 paged prefill
-// kernel (prefill_attention.cu, dynamo_prefill_attention) and the ragged
-// prefill kernels (ragged_prefill_attention.cu, bf16 and int8 caches).  See
-// those files for the designs; the int8 paged prefill kernel still uses
-// mma_attention.cuh.
+// Warpgroup (wgmma) flash-attention tile shared by the paged prefill
+// kernels (prefill_attention.cu: B2 over a bf16 cache, B4b over an int8 one)
+// and the ragged prefill kernels (ragged_prefill_attention.cu: B3 and B4c).
+// See those files for the designs.
 //
 // A block holds 128 query rows, (token, query head of the KV head's group)
 // pairs, in two consumer warpgroups of 64 rows, plus one producer
@@ -46,8 +45,21 @@
 //                              fresh keys lo .. tok;
 //   row_offset(r), row_live(r) where row r's query and output lie (-1: no
 //                              row), and whether it is stored as computed
-//                              or as 0.
+//                              or as 0;
+//   kPrefill, n_active(wgi)    (compile time) the paged prefill walk, in
+//                              place of active(): every block row belongs
+//                              to one row, and each warpgroup computes
+//                              exactly the first n_active(wgi) tiles.  The consumer then runs
+//                              one counted loop with the row's own masks
+//                              (start, diagonal), and addresses the Q and
+//                              output rows from the block's row, tokens and
+//                              S directly (row_offset without a sentinel,
+//                              no row_live): through the general
+//                              row_offset / row_live, B2 ran 4% slower
+//                              (PERF.md §6).
 #pragma once
+
+#include <type_traits>
 
 #include "attention_common.cuh"
 #include "hopper.cuh"
@@ -75,12 +87,25 @@ struct Geometry {
   static constexpr int kQBytes = kPanels * kQPanel;
   static constexpr int kRing = kStages * 2 * kTile;   // bytes of the bf16 K/V ring
   static constexpr int kStage8 = 2 * kKeys * D;       // bytes of one tile's int8 K and V rows
+  static constexpr int kStage8Ring = kStages * kStage8;  // an int8 cache's staging slots
+  static constexpr int kScaleBytes = 2 * kStages * 2 * kKeys * 4;  // f32 K and V scales: tiles, then staging
   // the paged prefill kernel's dynamic shared memory: alignment, Q, the ring, 2 x kStages mbarriers
   static constexpr size_t kSmem = D == 64 ? DYN_B2_SMEM_D64 : D == 128 ? DYN_B2_SMEM_D128 : DYN_B2_SMEM_D256;
   static_assert(1024 + kQBytes + (size_t)kRing + 2 * kStages * sizeof(uint64_t) == kSmem,
                 "DYN_B2_SMEM_D* must be the shared memory this layout takes");
   static_assert(D == 64 || D == 128 || D == 256, "head dims 64, 128 and 256");
   static_assert(kKeys == 32 || kKeys == 64, "the S product is wgmma m64n32 or m64n64");
+};
+
+// setmaxnreg split of the kernels over an int8 cache (B4b, B4c), 128 x
+// producer + 256 x consumer <= 384 x 168: the producer converts, the D = 256
+// consumer holds 128 accumulators.  Chosen for B4c from a same-call sweep of
+// six splits.
+template <int D>
+struct Q8Regs {
+  static constexpr int kProducer = D == 64 ? 72 : D == 128 ? 80 : 64;
+  static constexpr int kConsumer = D == 256 ? 216 : 208;
+  static_assert(128 * kProducer + 256 * kConsumer <= 384 * 168, "registers the block does not hold");
 };
 
 // Byte offset of 16-byte chunk `part` (of D / 8) of row `row` in a
@@ -307,9 +332,16 @@ __device__ __forceinline__ void consume(const Sched& sched, uint8_t* qs, uint8_t
 
   for (int c = tid; c < wg::kRows * kParts; c += 256) {
     const int r = c / kParts, part = c % kParts;
-    const long off = sched.row_offset(r);
-    const bool live = off >= 0 && sched.row_live(r);
-    cp_async_16(smem_u32(qs + wg::sw_off(r, part, G::kQPanel)), live ? q + off + part * 8 : q, live ? 16 : 0);
+    if constexpr (Sched::kPrefill) {  // rows past S are 0
+      const int tok = sched.i0 + r / sched.group;
+      const bool live = r < sched.rows && tok < sched.S;
+      const __nv_bfloat16* src = q + sched.row_offset(r) + part * 8;
+      cp_async_16(smem_u32(qs + wg::sw_off(r, part, G::kQPanel)), live ? src : q, live ? 16 : 0);
+    } else {
+      const long off = sched.row_offset(r);
+      const bool live = off >= 0 && sched.row_live(r);
+      cp_async_16(smem_u32(qs + wg::sw_off(r, part, G::kQPanel)), live ? q + off + part * 8 : q, live ? 16 : 0);
+    }
   }
   cp_async_commit();
   cp_async_wait<0>();
@@ -377,7 +409,12 @@ __device__ __forceinline__ void consume(const Sched& sched, uint8_t* qs, uint8_t
       if (mask) {
         const int key = t.t0 + key_col(i);
         const ThreadRow& w = tr[(i >> 1) & 1];
-        if (prefix ? (w.own != t.row || key >= t.start) : (key < w.lo || key > w.tok)) x = -INFINITY;
+        bool dead;
+        if constexpr (Sched::kPrefill)  // one row: its start, and the diagonal
+          dead = prefix ? key >= t.start : key > w.tok;
+        else
+          dead = prefix ? (w.own != t.row || key >= t.start) : (key < w.lo || key > w.tok);
+        if (dead) x = -INFINITY;
       }
       sc[i] = x;
       mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
@@ -435,26 +472,12 @@ __device__ __forceinline__ void consume(const Sched& sched, uint8_t* qs, uint8_t
     release(it);
   };
 
-  // the first active tile at or after `from` (n_tiles if none)
-  auto next_active = [&](int from) {
-    int j = from;
-    while (j < sched.n_tiles && !sched.active(j, sched.tile(j), wgi)) ++j;
-    return j;
-  };
-
-  // The active tiles come in runs of consecutive tiles.  Inside a run, tile
-  // it's S runs on the tensor cores while tile it - 1's P V does, and tile
-  // it's softmax while that P V finishes.  A run ends with its last P V
-  // done and its stage freed, before the tiles up to the next run are
-  // waited on and freed (their stages may need the run's).  Each run's
-  // length is found first, so its loop is counted, as a single run's is.
-  const int n = sched.n_tiles;
-  int done = 0;  // the tiles this warpgroup has freed
+  // One run of consecutive active tiles [first, end).  Tile it's S runs on
+  // the tensor cores while tile it - 1's P V does, and tile it's softmax
+  // while that P V finishes.  The run ends with its last P V done and its
+  // stage freed.
   float alpha[2];
-  for (int first = next_active(0); first < n; first = next_active(done)) {
-    int end = first + 1;
-    while (end < n && sched.active(end, sched.tile(end), wgi)) ++end;
-    for (; done < first; ++done) skip(done);
+  auto run = [&](int first, int end) {
     KvTile t = sched.tile(first);
     scores(first);
     wgmma_wait<0>();
@@ -479,9 +502,32 @@ __device__ __forceinline__ void consume(const Sched& sched, uint8_t* qs, uint8_t
     reg_fence(o);
     reg_fence(pf);
     release(end - 1);
-    done = end;
+  };
+
+  const int n = sched.n_tiles;
+  if constexpr (Sched::kPrefill) {
+    const int n_act = sched.n_active(wgi);
+    if (n_act > 0) run(0, n_act);
+    for (int it = n_act; it < n; ++it) skip(it);
+  } else {
+    // The active tiles come in runs.  A run ends before the tiles up to the
+    // next one are waited on and freed (their stages may need the run's).
+    // Each run's length is found first, so its loop is counted.
+    auto next_active = [&](int from) {  // the first active tile at or after `from` (n if none)
+      int j = from;
+      while (j < n && !sched.active(j, sched.tile(j), wgi)) ++j;
+      return j;
+    };
+    int done = 0;  // the tiles this warpgroup has freed
+    for (int first = next_active(0); first < n; first = next_active(done)) {
+      int end = first + 1;
+      while (end < n && sched.active(end, sched.tile(end), wgi)) ++end;
+      for (; done < first; ++done) skip(done);
+      run(first, end);
+      done = end;
+    }
+    for (; done < n; ++done) skip(done);
   }
-  for (; done < n; ++done) skip(done);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
@@ -500,10 +546,19 @@ __device__ __forceinline__ void store_rows(const Sched& sched, __nv_bfloat16* __
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = ra + 8 * h;
-    const long off = sched.row_offset(r);
-    if (off < 0) continue;
-    __nv_bfloat16* dst = out + off + 2 * t4;
-    const bool live = sched.row_live(r);
+    __nv_bfloat16* dst;
+    bool live;
+    if constexpr (Sched::kPrefill) {
+      const int tok = sched.i0 + r / sched.group;
+      if (r >= sched.rows || tok >= sched.S) continue;
+      dst = out + sched.row_offset(r) + 2 * t4;
+      live = tok < sched.fresh;
+    } else {
+      const long off = sched.row_offset(r);
+      if (off < 0) continue;
+      dst = out + off + 2 * t4;
+      live = sched.row_live(r);
+    }
     const float inv = 1.f / fmaxf(l[h], 1e-9f);
 #pragma unroll
     for (int i = 0; i < D / 2; i += 4) {
@@ -514,12 +569,13 @@ __device__ __forceinline__ void store_rows(const Sched& sched, __nv_bfloat16* __
   }
 }
 
-// The paged prefill kernel's schedule: block (KV head, row b, query tile
+// The paged prefill kernels' schedule: block (KV head, row b, query tile
 // z) holds tokens i0 .. i0 + TQ - 1 of row b; its tiles are the row's
 // cached prefix [0, start), then its fresh keys up to the block's last live
 // token.
 template <int D>
 struct PrefillSched {
+  static constexpr bool kPrefill = true;
   static constexpr int kKeys = wg::Geometry<D>::kKeys;
   int b, head, i0, group, rows, start, fresh, key_end, n_pre, n_tiles, S, H;
   int tok_lo[2], tok_hi[2];  // each warpgroup's live tokens (none when tok_hi < tok_lo)
@@ -536,33 +592,50 @@ struct PrefillSched {
     }
   }
   // every prefix tile, and the fresh tiles that start at or before the
-  // warpgroup's last live token
-  __device__ bool active(int, const KvTile& t, int wgi) const {
+  // warpgroup's last live token: the first n_active(wgi) tiles
+  __device__ int n_active(int wgi) const {
     const int lo = wgi ? tok_lo[1] : tok_lo[0], hi = wgi ? tok_hi[1] : tok_hi[0];
-    return hi >= lo && (t.row >= 0 || t.t0 <= hi);
+    return hi < lo ? 0 : n_pre + min(n_tiles - n_pre, hi / kKeys + 1);
   }
   __device__ bool masked(int, const KvTile& t, int wgi) const {
     return t.row >= 0 ? t.t0 + kKeys > start : t.t0 + kKeys - 1 > (wgi ? tok_lo[1] : tok_lo[0]);
   }
   __device__ ThreadRow thread_row(int r) const { return ThreadRow{b, 0, i0 + r / group}; }
-  __device__ long row_offset(int r) const {
-    const int tok = i0 + r / group;
-    return r < rows && tok < S ? (((long)b * S + tok) * H + (long)head * group + r % group) * D : -1;
+  // block row r's query and output, for r < rows and a token below S
+  __device__ size_t row_offset(int r) const {
+    return (((size_t)b * S + i0 + r / group) * H + (size_t)head * group + r % group) * D;
   }
-  __device__ bool row_live(int r) const { return i0 + r / group < fresh; }
 };
 
-template <int D>
+// The paged prefill kernels' dynamic shared memory: alignment, Q, the ring,
+// over an int8 cache its staging slots and scales, then 2 x kStages mbarriers.
+template <int D, bool kQuant>
+struct PrefillSmem {
+  using G = wg::Geometry<D>;
+  static constexpr size_t kBytes =
+      kQuant ? (D == 64 ? DYN_B2_Q8_SMEM_D64 : D == 128 ? DYN_B2_Q8_SMEM_D128 : DYN_B2_Q8_SMEM_D256) : G::kSmem;
+  static_assert(1024 + (size_t)G::kQBytes + G::kRing + (kQuant ? G::kStage8Ring + G::kScaleBytes : 0) +
+                        2 * wg::kStages * sizeof(uint64_t) == kBytes,
+                "DYN_B2_*SMEM_D* must be the shared memory this layout takes");
+};
+
+// E is the cache's element type: __nv_bfloat16 (B2), or int8_t (B4b) with
+// `scale` the int8 cache's scale pool [L, N, 2, Hp, Sp] (unused for bf16).
+template <int D, class E>
 __global__ void __launch_bounds__(wg::kThreads, 1)
 wgmma_prefill_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k_new,
-                     const __nv_bfloat16* __restrict__ v_new, const __nv_bfloat16* __restrict__ cache,
-                     const int* __restrict__ block_tables, const int* __restrict__ seq_lens,
-                     const int* __restrict__ starts, __nv_bfloat16* __restrict__ out, int S, int H, int Hk, int N,
-                     int Bs, int M, int layer, int TQ, float sm_scale, float logit_cap) {
+                     const __nv_bfloat16* __restrict__ v_new, const E* __restrict__ cache,
+                     const float* __restrict__ scale, const int* __restrict__ block_tables,
+                     const int* __restrict__ seq_lens, const int* __restrict__ starts, __nv_bfloat16* __restrict__ out,
+                     int S, int H, int Hk, int N, int Bs, int M, int layer, int Hp, int Sp, int TQ, float sm_scale,
+                     float logit_cap) {
   using namespace hopper;
+  constexpr bool kQuant = !std::is_same<E, __nv_bfloat16>::value;
   using G = wg::Geometry<D>;
   constexpr int kKeys = G::kKeys;
-  constexpr int kProducerRegs = 40, kConsumerRegs = 232;  // setmaxnreg: 128 x 40 + 256 x 232 <= 384 x 168
+  // setmaxnreg: bf16 128 x 40 + 256 x 232 <= 384 x 168; int8 as B4c
+  constexpr int kProducerRegs = kQuant ? wg::Q8Regs<D>::kProducer : 40;
+  constexpr int kConsumerRegs = kQuant ? wg::Q8Regs<D>::kConsumer : 232;
 
   PrefillSched<D> ps;
   ps.head = blockIdx.x;
@@ -589,11 +662,14 @@ wgmma_prefill_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   ps.n_tiles = ps.n_pre + (ps.key_end + kKeys - 1) / kKeys;
   ps.set_warpgroups();
 
-  extern __shared__ uint4 smem_raw[];  // the declaration mma_attention.cuh's kernels share
+  extern __shared__ uint4 smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint8_t* qs = smem;
   uint8_t* ring = smem + G::kQBytes;
-  uint64_t* full = reinterpret_cast<uint64_t*>(ring + G::kRing);
+  int8_t* stage8 = reinterpret_cast<int8_t*>(ring + G::kRing);
+  float* scales = reinterpret_cast<float*>(ring + G::kRing + (kQuant ? G::kStage8Ring : 0));
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(ring + G::kRing + (kQuant ? G::kStage8Ring + G::kScaleBytes : 0));
   uint64_t* empty = full + wg::kStages;
   if (tid == 0) {
     for (int s = 0; s < wg::kStages; ++s) {
@@ -606,13 +682,17 @@ wgmma_prefill_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 
   if (tid >= 256) {
     regs_dealloc<kProducerRegs>();
-    produce<D>(ps, ring, full, empty, k_new, v_new, cache, block_tables, Hk, N, Bs, M, layer, tid - 256);
+    if constexpr (kQuant)
+      produce_q8<D>(ps, ring, stage8, scales, full, empty, k_new, v_new, cache, scale, block_tables, Hk, N, Bs, M,
+                    layer, Hp, Sp, tid - 256);
+    else
+      produce<D>(ps, ring, full, empty, k_new, v_new, cache, block_tables, Hk, N, Bs, M, layer, tid - 256);
   } else {
     regs_alloc<kConsumerRegs>();
     float o[D / 2], l[2] = {0.f, 0.f}, m[2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-    consume<D, false>(ps, qs, ring, nullptr, full, empty, q, sm_scale, logit_cap, o, l, m);
+    consume<D, kQuant>(ps, qs, ring, scales, full, empty, q, sm_scale, logit_cap, o, l, m);
     store_rows<D>(ps, out, o, l);
   }
 }

@@ -26,7 +26,7 @@ import tempfile
 import threading
 from pathlib import Path
 
-__all__ = ["library", "build_library", "check", "geometry", "NVCC_FLAGS"]
+__all__ = ["library", "build_library", "check", "geometry", "sm_count", "NVCC_FLAGS"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -50,13 +50,14 @@ _SIGNATURES = {
     # T, H, Hk, D, N, Bs, M, R, layer, tq, span_blocks, sm_scale, logit_cap, stream
     "dynamo_ragged_prefill_attention": [_P] * 9 + [_I] * 11 + [_F, _F, _P],
     # the three over an int8 cache: its scale pool follows the cache
-    # pointer, and Hp, Sp (the scale tile) follow the ints
-    # q, cache, scale, block_tables, seq_lens, q0_pos, out, workspace,
-    # B, S, H, Hk, D, N, Bs, M, layer, split, Hp, Sp, sm_scale, logit_cap, stream
-    "dynamo_decode_attention_q8": [_P] * 8 + [_I] * 12 + [_F, _F, _P],
+    # pointer, and Hp, Sp (the scale tile) follow the shapes
+    # q, cache, scale, block_tables, seq_lens, q0_pos, out, workspace, tickets,
+    # B, S, H, Hk, D, N, Bs, M, layer, Hp, Sp, chunk, n_chunks, rows,
+    # row_groups, sm_scale, logit_cap, stream
+    "dynamo_decode_attention_q8": [_P] * 9 + [_I] * 15 + [_F, _F, _P],
     # q, k_new, v_new, cache, scale, block_tables, seq_lens, start, out,
-    # B, S, H, Hk, D, N, Bs, M, layer, Hp, Sp, sm_scale, logit_cap, stream
-    "dynamo_prefill_attention_q8": [_P] * 9 + [_I] * 11 + [_F, _F, _P],
+    # B, S, H, Hk, D, N, Bs, M, layer, Hp, Sp, tq, tiles, sm_scale, logit_cap, stream
+    "dynamo_prefill_attention_q8": [_P] * 9 + [_I] * 13 + [_F, _F, _P],
     # q, k_new, v_new, cache, scale, block_tables, seq_lens, starts,
     # row_offsets, out, T, H, Hk, D, N, Bs, M, R, layer, Hp, Sp, tq,
     # span_blocks, sm_scale, logit_cap, stream
@@ -76,6 +77,15 @@ def geometry() -> dict[str, int]:
     ``csrc/launch_geometry.cuh``, by NAME."""
     text = (CSRC / "launch_geometry.cuh").read_text()
     return {m[1]: int(m[2]) for m in re.finditer(r"^#define DYN_(\w+) (\d+)\b", text, re.M)}
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (the planners
+    size split work by it)."""
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _nvcc() -> str:

@@ -10,26 +10,121 @@ runtime layer index.  Rows with ``seq_len == 0`` give 0.
 :func:`paged_decode_attention` (a bf16 cache) and
 :func:`paged_decode_attention_q8` (a :class:`QuantKvCache`) launch their
 kernel for CUDA tensors and take :func:`decode_attention_ref` only for CPU
-tensors; on any other device they raise.  One call is two launches on the
-current stream (the split-K pass and the merge of its partials, whose f32
-workspace the wrapper allocates); each wrapper's ``launches`` counts its
-calls that launched.
+tensors; on any other device they raise.  Each wrapper's ``launches``
+counts its calls that launched.
+
+The bf16 call is two launches on the current stream (the split-K pass and
+the merge of its partials, whose f32 workspace the wrapper allocates).  The
+int8 call is one launch of the pipelined split-K kernel: :func:`plan` is
+its launch, from the geometry it compiles with
+(``csrc/launch_geometry.cuh``); the last chunk of each (row, KV head, row
+group) to finish merges the chunks' partials, counted by a ticket that the
+launch leaves zeroed.  The partials and the tickets are one buffer each per
+stream (:func:`_stream_scratch`), so a call allocates nothing but its
+output.
 """
 
 from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
 
 import torch
 
 from dynamo_tpu_torch.ops.kernels import build
 from dynamo_tpu_torch.ops.kv_quant import QuantKvCache, cache_data, check_quant_cache, gather_layer_blocks
 
-__all__ = ["paged_decode_attention", "paged_decode_attention_q8", "decode_attention_ref", "MAX_ROWS"]
+__all__ = ["paged_decode_attention", "paged_decode_attention_q8", "decode_attention_ref", "MAX_ROWS",
+           "DecodePlan", "plan"]
 
 MAX_ROWS = 64  # S * (H / Hk) query rows one thread block holds
 HEAD_DIMS = (64, 128, 256)
-# context tokens per thread block (flash-decoding split-K); a multiple of
-# the kernel's key tile (64, or 32 at D = 256)
+# context tokens per thread block of the bf16 kernel (flash-decoding
+# split-K); a multiple of its key tile (64, or 32 at D = 256)
 SPLIT_TOKENS = 256
+ROW_GROUPS = (4, 8, 16)  # query rows an int8 block holds, as compiled
+
+
+@dataclass(frozen=True)
+class DecodePlan:
+    """The int8 kernel's launch: ``grid`` = (KV heads x row groups, rows of
+    the batch, chunks) blocks of ``threads`` with ``smem`` bytes of dynamic
+    shared memory.  Block (x, b, c) attends context slots ``[c * chunk,
+    (c + 1) * chunk)`` of row b for query rows ``[rows * (x % row_groups),
+    + rows)`` of KV head ``x // row_groups`` (row = token s * G + group
+    head g); the chunk is the slowest axis, so every row's first chunks are
+    dispatched first; the ``n_chunks`` chunks cover the table's ``M * Bs`` slots once,
+    the row groups the ``S * G`` query rows once.  ``workspace`` floats hold
+    one partial (``rows * (D + 2)``) per (row, KV head, row group, chunk);
+    ``tickets`` ints one counter per (row, KV head, row group)."""
+    chunk: int
+    n_chunks: int
+    rows: int
+    row_groups: int
+    grid: tuple[int, int, int]
+    threads: int
+    smem: int
+    workspace: int
+    tickets: int
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(b: int, s: int, h: int, hk: int, d: int, m: int, bs: int, sms: int) -> DecodePlan:
+    """The int8 kernel's launch for q [b, s, h, d] over hk KV heads and a
+    block table of m blocks of bs slots, on a card of ``sms`` SMs.  A row's
+    context is known only on the card: a row of n tokens puts ceil(n /
+    chunk) blocks per (KV head, row group) to work, and the rest exit at
+    once.  Chunks are a whole number of the kernel's shortest
+    (``B4A_CHUNK`` tokens, one 16-key tile per warp), as short as keeps the
+    grid of a full table within ``B4A_BLOCKS_PER_SM`` blocks per SM (about
+    two waves: rows are seldom full, and a short row then still spreads
+    over many blocks while long rows do not queue for a third wave), and
+    long enough that a row has at most ``B4A_MAX_CHUNKS`` partials to merge."""
+    g = build.geometry()
+    width = m * bs
+    q_rows = s * (h // hk)
+    rows = next(x for x in ROW_GROUPS if x >= min(q_rows, g[f"B4A_ROWS_D{d}"]))
+    groups = -(-q_rows // rows)
+    base = g["B4A_CHUNK"]
+    per_chunk = b * hk * groups  # blocks per chunk of the table
+    chunk = base * max(1, -(-width // (base * g["B4A_MAX_CHUNKS"])),
+                       -(-per_chunk * width // (base * g["B4A_BLOCKS_PER_SM"] * sms)))
+    n_chunks = -(-width // chunk)
+    grid = (hk * groups, b, n_chunks)
+    if max(grid[1:]) > 65535:
+        raise ValueError(f"grid {grid} exceeds CUDA's limit of 65535 blocks on y and z")
+    return DecodePlan(chunk, n_chunks, rows, groups, grid, g["B4A_THREADS"], g[f"B4A_SMEM_D{d}_R{rows}"],
+                      b * hk * groups * n_chunks * rows * (d + 2), b * hk * groups)
+
+
+# per (device, stream): [workspace, tickets, whether a CUDA graph captured them]
+_scratch: dict[tuple[torch.device, int], list] = {}
+# buffers a CUDA graph captured before its stream's buffers grew: its
+# replays still write them, so they are never freed
+_retired: list[tuple[torch.Tensor, torch.Tensor]] = []
+
+
+def _stream_scratch(device: torch.device, stream: int, p: DecodePlan,
+                    capturing: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The int8 kernel's partials and zeroed tickets on ``stream``, grown to
+    ``p``'s sizes.  Launches on one stream run in order, so they never use
+    the buffers at once, and the kernel leaves the tickets zeroed, so a CUDA
+    graph captured on the stream (``capturing``) takes the buffers as they
+    are.  When a later plan needs more room, buffers that a graph captured
+    are kept alive for its replays rather than freed; buffers first needed
+    inside a capture come from that graph's memory pool and stay held here.
+    A graph replays with its capture stream's buffers, so it must not replay
+    while launches on that stream are in flight elsewhere."""
+    entry = _scratch.get((device, stream))
+    if entry is None or entry[0].numel() < p.workspace or entry[1].numel() < p.tickets:
+        if entry is not None and entry[2]:
+            _retired.append((entry[0], entry[1]))
+        old_ws, old_t = (entry[0].numel(), entry[1].numel()) if entry is not None else (0, 0)
+        entry = [torch.empty(max(p.workspace, old_ws), dtype=torch.float32, device=device),
+                 torch.zeros(max(p.tickets, old_t), dtype=torch.int32, device=device), False]
+        _scratch[(device, stream)] = entry
+    entry[2] = entry[2] or capturing
+    return entry[0], entry[1]
 
 
 def decode_attention_ref(
@@ -102,7 +197,7 @@ def _check(q, cache, layer, block_tables, seq_lens, q0_pos) -> None:
         check_quant_cache(cache, hkd // d)
     if s * (h // (hkd // d)) > MAX_ROWS:
         raise ValueError(f"S * H / Hk = {s * h // (hkd // d)} exceeds {MAX_ROWS}")
-    if block_tables.dim() != 2 or block_tables.shape[0] != b:
+    if block_tables.dim() != 2 or block_tables.shape[0] != b or block_tables.shape[1] < 1:
         raise ValueError(f"block_tables shape {tuple(block_tables.shape)}")
     if seq_lens.shape != (b,) or q0_pos.shape != (b,):
         raise ValueError("seq_lens and q0_pos must be [B]")
@@ -120,26 +215,30 @@ def _launch(q, cache, layer, block_tables, seq_lens, q0_pos, sm_scale, logit_cap
         sm_scale = d ** -0.5
     hk, m = hkd // d, block_tables.shape[1]
     out = torch.empty_like(q)
-    # per (row, kv head, chunk): unnormalised acc [S*G, D], then m and l
-    # [S*G].  Dropped when this returns: the caching allocator hands the
-    # memory out again only to work queued after the kernels on this stream.
-    n_chunks = -(-m * bs // SPLIT_TOKENS)
-    workspace = torch.empty(b * hk * n_chunks * s * (h // hk) * (d + 2),
-                            dtype=torch.float32, device=q.device)
     lib = build.library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    dims = (b, s, h, hk, d, n, bs, m, layer, SPLIT_TOKENS)
+    dims = (b, s, h, hk, d, n, bs, m, layer)
+    tail = (float(sm_scale), float(logit_cap or 0.0), stream)
     if isinstance(cache, QuantKvCache):
+        p = plan(b, s, h, hk, d, m, bs, build.sm_count(q.device.index or 0))
+        capturing = torch.cuda.is_current_stream_capturing()
+        workspace, tickets = _stream_scratch(q.device, stream, p, capturing)
         rc = lib.dynamo_decode_attention_q8(
             q.data_ptr(), cache.data.data_ptr(), cache.scale.data_ptr(), block_tables.data_ptr(),
             seq_lens.data_ptr(), q0_pos.data_ptr(), out.data_ptr(), workspace.data_ptr(),
-            *dims, *cache.scale.shape[3:], float(sm_scale), float(logit_cap or 0.0), stream)
+            tickets.data_ptr(), *dims, *cache.scale.shape[3:], p.chunk, p.n_chunks, p.rows,
+            p.row_groups, *tail)
         build.check(rc, "dynamo_decode_attention_q8")
     else:
+        # per (row, kv head, chunk): unnormalised acc [S*G, D], then m and l
+        # [S*G].  Dropped when this returns: the caching allocator hands the
+        # memory out again only to work queued after the kernels on this stream.
+        n_chunks = -(-m * bs // SPLIT_TOKENS)
+        workspace = torch.empty(b * hk * n_chunks * s * (h // hk) * (d + 2),
+                                dtype=torch.float32, device=q.device)
         rc = lib.dynamo_decode_attention(
             q.data_ptr(), cache.data_ptr(), block_tables.data_ptr(), seq_lens.data_ptr(),
-            q0_pos.data_ptr(), out.data_ptr(), workspace.data_ptr(),
-            *dims, float(sm_scale), float(logit_cap or 0.0), stream)
+            q0_pos.data_ptr(), out.data_ptr(), workspace.data_ptr(), *dims, SPLIT_TOKENS, *tail)
         build.check(rc, "dynamo_decode_attention")
     return out
 

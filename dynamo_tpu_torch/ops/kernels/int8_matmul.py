@@ -90,11 +90,6 @@ def plan(m: int, n: int, k: int, sms: int) -> MatmulPlan:
                       g[pre + "SMEM"], scratch)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def ticket_capacity(sms: int) -> int:
     """Output tiles a split launch can have: K is split only while the
     tiles leave block slots idle, and the decode regime has the most."""
@@ -111,7 +106,7 @@ def _stream_tickets(device: torch.device, stream: int) -> torch.Tensor:
     so a CUDA graph captured on the stream may keep its address."""
     buf = _tickets.get((device, stream))
     if buf is None:
-        buf = torch.zeros(ticket_capacity(_sm_count(device.index or 0)), dtype=torch.int32, device=device)
+        buf = torch.zeros(ticket_capacity(build.sm_count(device.index or 0)), dtype=torch.int32, device=device)
         _tickets[(device, stream)] = buf
     return buf
 
@@ -155,7 +150,7 @@ def int8_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0:
         return out
-    p = plan(m, n, k, _sm_count(x.device.index or 0))
+    p = plan(m, n, k, build.sm_count(x.device.index or 0))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     partials = tickets = None
     if p.splits > 1:  # the splits' sums, per call from the caching allocator (stream-ordered)

@@ -9,11 +9,11 @@ the paged cache ``[L, N, 2, Bs, Hk*D]`` at a runtime layer index, and their
 own fresh K/V causally, masked at ``seq_len - start``.  Padding query rows
 (index ``>= seq_len - start``) give 0.
 
-The bf16 kernel is built for Hopper (wgmma products fed by a cp.async ring
-and a producer warpgroup, ``csrc/wgmma_attention.cuh``); :func:`plan` is
-its launch, from the geometry it compiles with
-(``csrc/launch_geometry.cuh``), and the C entry point launches that plan.
-The int8 kernel keeps the mma.sync tile of ``csrc/mma_attention.cuh``.
+Both kernels are built for Hopper on one tile (wgmma products fed by a
+cp.async ring and a producer warpgroup, ``csrc/wgmma_attention.cuh``; over
+an int8 cache the producer converts the prefix to bf16 as it stages it);
+:func:`plan` is the launch of both, from the geometry they compile with
+(``csrc/launch_geometry.cuh``), and the C entry points launch that plan.
 
 :func:`paged_prefill_attention` (a bf16 cache) and
 :func:`paged_prefill_attention_q8` (an int8 one) launch their kernel for
@@ -41,7 +41,7 @@ MAX_GROUP = 64  # query heads per KV head one thread block can hold
 
 @dataclass(frozen=True)
 class PrefillPlan:
-    """The bf16 kernel's launch: ``grid`` = (KV heads, rows, query tiles)
+    """A kernel's launch: ``grid`` = (KV heads, rows, query tiles)
     blocks of ``threads`` with ``smem`` bytes of dynamic shared memory;
     block z holds tokens ``[tq * (tiles - 1 - z), +tq)`` (the longest causal
     tiles first) times the ``group`` query heads of its KV head, K/V
@@ -55,15 +55,17 @@ class PrefillPlan:
 
 
 @functools.lru_cache(maxsize=4096)
-def plan(b: int, s: int, h: int, hk: int, d: int) -> PrefillPlan:
-    """The bf16 kernel's launch for q [b, s, h, d] over hk KV heads."""
+def plan(b: int, s: int, h: int, hk: int, d: int, quant: bool = False) -> PrefillPlan:
+    """The launch for q [b, s, h, d] over hk KV heads, over a bf16 cache or
+    (``quant``) an int8 one: the same blocks, more shared memory."""
     g = build.geometry()
     group = h // hk
     tq = g["B2_ROWS"] // group
     grid = (hk, b, -(-s // tq))
     if max(grid[1:]) > 65535:
         raise ValueError(f"grid {grid} exceeds CUDA's limit of 65535 blocks on y and z")
-    return PrefillPlan(tq, group, g[f"B2_KEYS_D{d}"], grid, g["B2_THREADS"], g[f"B2_SMEM_D{d}"])
+    smem = g[f"B2_Q8_SMEM_D{d}" if quant else f"B2_SMEM_D{d}"]
+    return PrefillPlan(tq, group, g[f"B2_KEYS_D{d}"], grid, g["B2_THREADS"], smem)
 
 
 def prefill_attention_ref(
@@ -170,9 +172,10 @@ def _launch(q, k_new, v_new, cache, layer, block_tables, seq_lens, start, sm_sca
     rows = (block_tables.data_ptr(), seq_lens.data_ptr(), start.data_ptr(), out.data_ptr())
     fresh = (q.data_ptr(), k_new.data_ptr(), v_new.data_ptr())
     if isinstance(cache, QuantKvCache):
+        p = plan(b, s, h, hk, d, quant=True)
         rc = lib.dynamo_prefill_attention_q8(
             *fresh, cache.data.data_ptr(), cache.scale.data_ptr(), *rows, *dims,
-            *cache.scale.shape[3:], *tail)
+            *cache.scale.shape[3:], p.tq, p.grid[2], *tail)
         build.check(rc, "dynamo_prefill_attention_q8")
     else:
         p = plan(b, s, h, hk, d)

@@ -15,6 +15,11 @@ PROJECTIONS = {"wq": (4096, 4096), "wk": (4096, 1024), "wv": (4096, 1024), "wo":
                "w_gate": (4096, 14336), "w_up": (4096, 14336), "w_down": (14336, 4096)}
 LM_HEAD = (4096, 128256)
 
+# one decode step of the default paths' serving run: the six requests
+# (prompts of 17, 300, 640, 1500, 356 and 956 tokens) mid-generation, 16
+# tokens in, and two empty slots of the 8
+DECODE_LENS = [33, 316, 656, 1516, 372, 972, 0, 0]
+
 # ragged attention row tables, (start, fresh) per row: the token-budget
 # path's first dispatch (prompts of 17, 300 and 640 tokens and the first 48
 # of a 1500-token one, from 0), and a mixed dispatch of T = 1024 (eight

@@ -1,10 +1,10 @@
-"""Launch planning of the W8A16 matmul (B5), bf16 paged prefill (B2) and ragged prefill (B3, B4c) kernels.
+"""Launch planning of the W8A16 matmul (B5), paged prefill (B2, B4b) and ragged prefill (B3, B4c) kernels.
 
 The wrappers decide in plain Python how each CUDA kernel is launched, from
 the geometry the kernels compile with (``csrc/launch_geometry.cuh``, read
 by ``build.geometry``): B5's regime (decode below 17 rows, wgmma above),
 its tiles, its split of K and its scratch; B2's grid of (KV head, row,
-query tile) blocks and its K/V tile; the ragged kernels' grid of decode-row
+query tile) blocks and its K/V tile, which B4b launches too; the ragged kernels' grid of decode-row
 and span blocks.  These tests hold those plans, on the
 CPU, at every Llama-3-8B matmul shape, at ragged shapes, and at the head
 geometries the prefill wrapper accepts: every output element is covered by
@@ -118,6 +118,22 @@ def test_prefill_plan_covers_every_group_the_wrapper_takes():
         p = pa.plan(1, 1000, group, 1, 128)
         assert p.tq >= 1 and p.tq * group <= build.geometry()["B2_ROWS"]
         assert _partitions([p.tq * z for z in range(p.grid[2])], p.tq, 1000)
+
+
+@pytest.mark.parametrize("d", pa.HEAD_DIMS)
+def test_int8_prefill_takes_the_bf16_plan(d):
+    """B4b launches B2's plan for every group the wrapper accepts: the same
+    blocks and tiles; only the shared memory grows by the int8 staging."""
+    g = build.geometry()
+    for group in range(1, pa.MAX_GROUP + 1):
+        for s in (1, 704, 1504):
+            p, p8 = pa.plan(2, s, group, 1, d), pa.plan(2, s, group, 1, d, quant=True)
+            assert (p8.tq, p8.group, p8.keys, p8.grid, p8.threads) == (p.tq, p.group, p.keys, p.grid, p.threads)
+            assert p8.smem == g[f"B2_Q8_SMEM_D{d}"] <= SMEM_LIMIT
+            # a prefix tile's int8 K and V rows, and the K and V scales of the
+            # ring's tiles and of the staging slots
+            extra = g["B2_STAGES"] * (2 * p.keys * d + 2 * 2 * p.keys * 4)
+            assert p8.smem == p.smem + extra
 
 
 # ragged row tables (rows [(start, fresh)], decode region): the serving
