@@ -18,17 +18,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
    full 16-row decode region with contexts 1 to 2047; starts inside a
    64-key tile; softcap on and off; bf16, and int8 at Bs = 16 and 32), and
    every ragged launch is run twice and must give the same bits.  The
-   int8 decode and prefill kernels also run at their edges (G = 1, 4 and 8
-   at D = 64, 128 and 256, Bs = 16 and 32; decode at S = 1 and 8 with
-   contexts 0 to 2048 either side of its chunks and tiles, each launch run
-   twice for the same bits; prefill from a start inside a key tile).  The
+   decode kernel over both caches and the int8 prefill kernel also run at
+   their edges (G = 1, 4 and 8 at D = 64, 128 and 256, Bs = 16 and 32;
+   decode at S = 1 and 8 with contexts 0 to 2048 either side of its chunks
+   and tiles; prefill from a start inside a key tile), and every decode
+   launch is run twice and must give the same bits.  The
    W8A16 matmul runs at every projection shape of Llama-3-8B and its
    lm_head (f32 out), at M = 1 to 1504 across both regimes' edges, for a
    [K, N] weight and for the transpose of an [N, K] one, then at ragged
    shapes (N = 32002 or 1000, K = 4104), and a split-K launch is run twice
    and must give the same bits.  Then decode, prefill and the
    matmul are timed at the serving paths' shapes (decode and the matmul as
-   CUDA graphs, the card's time, and eagerly for the log) beside their plain
+   CUDA graphs, the card's time, and eagerly for the log; a graph replay of
+   each decode kernel must give the eager launch's bits) beside their plain
    versions, a PyTorch library call on the same work (the median of three
    readings, timed as its kernel is: decode's SDPA also as a CUDA graph),
    and their bound on this card;
@@ -143,20 +145,22 @@ def log(msg: str) -> None:
 
 
 # kernels whose every instantiation must be in the library: the paged
-# prefill kernel at three head dims over bf16 and int8 caches; the int8
-# decode kernel at D = 64 and 128 with 4, 8 or 16 query rows and at D = 256
-# with 4 or 8
-SASS_INSTANTIATIONS = {"wgmma_prefill_kernel": 6, "decode_q8_kernel": 8}
+# prefill kernel at three head dims over bf16 and int8 caches; the decode
+# kernel over each cache (its mangled name's first template argument:
+# __nv_bfloat16 for B1, `a`, signed char, for B4a) at D = 64 and 128 with
+# 4, 8 or 16 query rows and at D = 256 with 4 or 8
+DECODE_BF16, DECODE_INT8 = "13decode_kernelI13__nv_bfloat16", "13decode_kernelIa"
+SASS_INSTANTIATIONS = {"wgmma_prefill_kernel": 6, DECODE_BF16: 8, DECODE_INT8: 8}
 
 
 def sass_check(torch, lib_path) -> None:
     """The redesigned kernels as compiled: the wgmma kernels (B5 above 16
     rows, the paged prefill kernels B2 and B4b, and every ragged
     instantiation, B3 and B4c) issue HGMMA, and they, B5's decode kernel and
-    the int8 decode kernel (B4a) copy with LDGSTS (cp.async), except B5's
-    instantiations for rows off 16 bytes (template flag VEC = false), which
-    copy element by element.  Logged per kernel; a missing instruction
-    fails."""
+    the decode attention kernel over each cache (B1, B4a) copy with LDGSTS
+    (cp.async), except B5's instantiations for rows off 16 bytes (template
+    flag VEC = false), which copy element by element.  Logged per kernel
+    with its instructions' counts; a missing instruction fails."""
     import re
     import shutil
 
@@ -177,7 +181,7 @@ def sass_check(torch, lib_path) -> None:
         return m is None or m.group(1).endswith("Lb1")
 
     want = {"w8a16_wgmma_kernel": True, "wgmma_prefill_kernel": True, "ragged_kernel": True,
-            "w8a16_decode_kernel": False, "decode_q8_kernel": False}
+            "w8a16_decode_kernel": False, DECODE_BF16: False, DECODE_INT8: False}
     for key, needs_hgmma in want.items():
         found = {n: c for n, c in counts.items() if key in n}
         check(bool(found), f"sass: no {key} in the library")
@@ -290,8 +294,8 @@ def decode_case(torch, gen, lens, s, logit_cap, geom=(H, HK, D), bs=BS, quant=Fa
     for i, n in enumerate(lens):
         if n == 0:
             check(bool((out[i] == 0).all()), f"decode S={s}: zero-length row {i} is not 0")
-    if quant:  # the split-K merge is in chunk order: the same bits every launch
-        check(torch.equal(out, kernel(*args, logit_cap=logit_cap)), f"{what}: two launches differ")
+    # the split-K merge is in chunk order: the same bits every launch
+    check(torch.equal(out, kernel(*args, logit_cap=logit_cap)), f"{what}: two launches differ")
     return err
 
 
@@ -414,6 +418,8 @@ def kernel_phase(torch) -> dict:
                         geom=geom)
         log(f"kernel ragged (H, Hk, D)={geom} 3 decode rows + 2 spans: max abs err {e:.3g}")
     errs.update(q8_kernel_phase(torch, gen))
+    for key, e in edge_phase(torch, gen).items():
+        errs[key] = max(errs[key], e)
     for key, e in ragged_edge_phase(torch, gen).items():
         errs[key] = max(errs[key], e)
     errs["matmul"] = matmul_phase(torch, gen)
@@ -422,8 +428,7 @@ def kernel_phase(torch) -> dict:
 
 def q8_kernel_phase(torch, gen) -> dict:
     """The three int8 attention kernels against their plain version, at
-    the bf16 checks' layouts and at both block sizes, then the int8 decode
-    and prefill kernels at their edges."""
+    the bf16 checks' layouts and at both block sizes."""
     errs = {"decode_q8": 0.0, "prefill_q8": 0.0, "ragged_q8": 0.0}
     mixed = [0, 1, 17, 100, 333, 1024, 1500, 2048]
     decode_rows = [(n - 1, 1) for n in (1, 17, 100, 333, 1024, 1500, 2047, 64)]
@@ -452,34 +457,36 @@ def q8_kernel_phase(torch, gen) -> dict:
                                 geom=geom, bs=bs, quant=True)
             log(f"kernel int8 (H, Hk, D)={geom} Bs={bs}: decode S=2 max abs err {d_err:.3g}, "
                 f"prefill start=64 {p_err:.3g}, ragged 3 decode rows + 2 spans {r_err:.3g}")
-    for key, e in q8_edge_phase(torch, gen).items():
-        errs[key] = max(errs[key], e)
     return errs
 
 
-# The int8 decode (B4a) and prefill (B4b) kernels' edges, at G = 1, 4 and 8
-# (H, Hk, D below) and Bs = 16 and 32.  B4a: contexts 0 and 1, either side
-# of its 64-token chunks and 16-key tiles, and the whole 2048-token table,
-# at S = 1 and 8 (8 x G query rows: one to eight row groups), each launched
-# twice for the same bits.  B4b: a start inside a key tile (block-aligned,
-# not tile-aligned), fresh lengths off the token tile (128 / G tokens).
-Q8_EDGE_GEOMS = ((8, 8, 64), (32, 8, 128), (16, 2, 256))
+# The decode kernel's edges over both caches (B1 bf16, B4a int8) and the
+# int8 prefill kernel's (B4b), at G = 1, 4 and 8 (H, Hk, D below) and Bs =
+# 16 and 32.  Decode: contexts 0 and 1, either side of its 64-token chunks
+# and 16-key tiles, and the whole 2048-token table, at S = 1 and 8 (8 x G
+# query rows: one to eight row groups), each launched twice for the same
+# bits.  B4b: a start inside a key tile (block-aligned, not tile-aligned),
+# fresh lengths off the token tile (128 / G tokens).
+EDGE_GEOMS = ((8, 8, 64), (32, 8, 128), (16, 2, 256))
 DECODE_EDGE_LENS = [0, 1, 15, 17, 63, 64, 65, 127, 129, 2047, 2048]
 
 
-def q8_edge_phase(torch, gen) -> dict:
-    errs = {"decode_q8": 0.0, "prefill_q8": 0.0}
+def edge_phase(torch, gen) -> dict:
+    errs = {"decode": 0.0, "decode_q8": 0.0, "prefill_q8": 0.0}
     i = 0
-    for geom in Q8_EDGE_GEOMS:
+    for geom in EDGE_GEOMS:
         keys = 32 if geom[2] == 256 else 64  # the prefill kernel's key tile
         for bs in (16, BS_Q8):
             for s in (1, 8):
                 cap = 50.0 if i % 2 else None
                 i += 1
-                e = decode_case(torch, gen, DECODE_EDGE_LENS, s, cap, geom=geom, bs=bs, quant=True)
-                errs["decode_q8"] = max(errs["decode_q8"], e)
-                log(f"kernel decode int8 edges (H, Hk, D)={geom} Bs={bs} S={s} softcap={cap} contexts "
-                    f"{DECODE_EDGE_LENS}: max abs err {e:.3g}, two launches bit-identical")
+                for quant in (False, True):
+                    e = decode_case(torch, gen, DECODE_EDGE_LENS, s, cap, geom=geom, bs=bs, quant=quant)
+                    key = "decode_q8" if quant else "decode"
+                    errs[key] = max(errs[key], e)
+                    log(f"kernel decode {'int8' if quant else 'bf16'} edges (H, Hk, D)={geom} Bs={bs} S={s} "
+                        f"softcap={cap} contexts {DECODE_EDGE_LENS}: max abs err {e:.3g}, two launches "
+                        f"bit-identical")
             start = next((st for st in range(bs, 4 * keys, bs) if st % keys), bs)
             cap = 50.0 if i % 2 else None
             i += 1
@@ -606,12 +613,28 @@ def _sdpa_decode_ms(torch, q, lens, dense_kv) -> tuple[float, float]:
     return graph_ms, eager_ms
 
 
+def _check_graph_replay(torch, call, what: str) -> None:
+    """A decode call captured in a CUDA graph as it is (the kernel's
+    tickets reset themselves) replays the eager launch's bits."""
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        eager = call()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=stream):
+            captured = call()
+        for _ in range(3):
+            graph.replay()
+    torch.cuda.synchronize()
+    check(torch.equal(captured, eager), f"{what}: a CUDA graph replay differs from the eager launch")
+
+
 def timing_phase(torch, card: str) -> dict:
     """Decode and prefill at the default path's shapes, timed and checked
     against their plain versions there: decode is one layer of a burst step
     (B = 8 slots, S = 1, the six requests mid-generation; timed as a CUDA
-    graph, as the int8 decode kernel is), and prefill the longest prompt's
-    one dispatch (S = 1504, start = 0)."""
+    graph, as the int8 decode kernel is, and a graph replay held to the
+    eager launch's bits), and prefill the longest prompt's one dispatch
+    (S = 1504, start = 0)."""
     import torch.nn.functional as F
 
     from dynamo_tpu_torch.ops.kernels.decode_attention import (
@@ -643,6 +666,7 @@ def timing_phase(torch, card: str) -> dict:
     out["decode_err"] = compare(torch, "decode at the serving shapes",
                                 paged_decode_attention(q, cache, LAYER, bt, seq_lens, q0),
                                 decode_attention_ref(q, cache, LAYER, bt, seq_lens, q0))
+    _check_graph_replay(torch, lambda: paged_decode_attention(q, cache, LAYER, bt, seq_lens, q0), "decode")
 
     def dense_kv(layer):
         kd = torch.zeros((b, HK, max(lens), D), dtype=torch.bfloat16, device="cuda")
@@ -664,7 +688,7 @@ def timing_phase(torch, card: str) -> dict:
     log(f"time decode  B={b} S=1 ctx={ctx}: kernel {kernel_ms:.4f} ms (CUDA graph; eager {eager_ms:.4f}), "
         f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms (CUDA graph; eager {library_eager_ms:.4f}), "
         f"bound {out['decode']['bound_ms']:.4f} ms, "
-        f"max abs err {out['decode_err']:.3g} ({card})")
+        f"max abs err {out['decode_err']:.3g}, a CUDA graph replay bit-identical to the eager launch ({card})")
 
     # prefill
     s = -(-max(PROMPT_LENS) // BS) * BS
@@ -756,18 +780,8 @@ def q8_timing_phase(torch, card: str) -> dict:
     out["decode_q8_err"] = compare(torch, "int8 decode at the serving shapes",
                                    paged_decode_attention_q8(q, cache, LAYER, bt, seq_lens, q0),
                                    decode_attention_ref(q, cache, LAYER, bt, seq_lens, q0))
-    # captured in a CUDA graph as it is (its tickets reset themselves), the
-    # kernel replays the eager launch's bits
-    stream = torch.cuda.Stream()
-    with torch.cuda.stream(stream):
-        eager = paged_decode_attention_q8(q, cache, LAYER, bt, seq_lens, q0)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=stream):
-            captured = paged_decode_attention_q8(q, cache, LAYER, bt, seq_lens, q0)
-        for _ in range(3):
-            graph.replay()
-    torch.cuda.synchronize()
-    check(torch.equal(captured, eager), "int8 decode: a CUDA graph replay differs from the eager launch")
+    _check_graph_replay(torch, lambda: paged_decode_attention_q8(q, cache, LAYER, bt, seq_lens, q0),
+                        "int8 decode")
 
     def dense_kv(layer):
         kd = torch.zeros((b, HK, max(lens), D), dtype=torch.bfloat16, device="cuda")

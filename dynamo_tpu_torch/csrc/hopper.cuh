@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks written as inline PTX, shared by the
 // W8A16 matmul (int8_matmul.cu), the paged and ragged prefill attention
-// (wgmma_attention.cuh) and the int8 decode attention (decode_attention.cu):
+// (wgmma_attention.cuh) and the decode attention (decode_attention.cu):
 // 16- and 4-byte cp.async with zero fill, mbarriers,
 // the async-proxy fence, named barriers, shared-memory matrix descriptors
 // for the 128-byte swizzled layouts, the exact int8 -> bf16 convert, the

@@ -1,7 +1,7 @@
 // Launch geometry of the W8A16 matmul (int8_matmul.cu), the paged prefill
 // attention and the ragged prefill attention (wgmma_attention.cuh,
-// prefill_attention.cu, ragged_prefill_attention.cu) and the int8 paged
-// decode attention (decode_attention.cu), written once.  The kernels
+// prefill_attention.cu, ragged_prefill_attention.cu) and the paged decode
+// attention (decode_attention.cu), written once.  The kernels
 // compile with these numbers and the Python wrappers read this file
 // (ops/kernels/build.py, geometry()) to plan their launches and size their
 // scratch, so a launch and its kernel cannot disagree.  The kernels
@@ -66,12 +66,14 @@
 #define DYN_B3_Q8_SMEM_D128 188012
 #define DYN_B3_Q8_SMEM_D256 219244
 
-// int8 paged decode attention (B4a): a block of 4 warps computes one
-// chunk of one row's context for up to ROWS query rows of one KV head; each
-// warp walks every 4th 16-key tile of the chunk through its own 3-stage
-// cp.async ring, so a 64-token chunk is one tile per warp.  Chunks are a
-// multiple of CHUNK tokens: the fewest that keep a full table's grid within
-// BLOCKS_PER_SM blocks per SM and a row at MAX_CHUNKS chunks.
+// paged decode attention (B4a int8, B1 bf16; one kernel over either
+// cache): a block of 4 warps computes one chunk of one row's context for up
+// to ROWS query rows of one KV head; each warp walks every 4th 16-key tile
+// of the chunk through its own STAGES-stage cp.async ring, so a 64-token
+// chunk is one tile per warp.  Chunks are a multiple of CHUNK tokens: the
+// fewest that keep a full table's grid within BLOCKS_PER_SM blocks per SM
+// and a row at MAX_CHUNKS chunks.  THREADS, KEYS, CHUNK and MAX_CHUNKS
+// hold for both caches.
 #define DYN_B4A_THREADS 128
 #define DYN_B4A_KEYS 16             // keys per warp tile
 #define DYN_B4A_STAGES 3            // tiles in each warp's ring
@@ -92,3 +94,20 @@
 #define DYN_B4A_SMEM_D128_R16 67152
 #define DYN_B4A_SMEM_D256_R4 106016
 #define DYN_B4A_SMEM_D256_R8 112176
+// bf16 (B1): a bf16 row is twice an int8 one, so a ring of B4a's 3 stages
+// would fit only 2 blocks on an SM at D = 128; 2 stages fit 3
+#define DYN_B1_STAGES 2
+#define DYN_B1_BLOCKS_PER_SM 12     // a full table's grid, at most: four waves of the 3 that fit at D = 128
+#define DYN_B1_ROWS_D64 16
+#define DYN_B1_ROWS_D128 16
+#define DYN_B1_ROWS_D256 8
+// f32 Q rows + 4 warps x 2 stages of bf16 K and V + each warp's f32
+// probabilities + the m and l of MAX_CHUNKS partials and 1 / l + a flag
+#define DYN_B1_SMEM_D64_R4 35872
+#define DYN_B1_SMEM_D64_R8 38960
+#define DYN_B1_SMEM_D64_R16 45136
+#define DYN_B1_SMEM_D128_R4 69664
+#define DYN_B1_SMEM_D128_R8 73776
+#define DYN_B1_SMEM_D128_R16 82000
+#define DYN_B1_SMEM_D256_R4 137248
+#define DYN_B1_SMEM_D256_R8 143408

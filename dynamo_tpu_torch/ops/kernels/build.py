@@ -40,9 +40,10 @@ _F = ctypes.c_float
 # the C entry points and their argument types (pointers and the stream as
 # c_void_p, so ctypes never truncates them to 32 bits)
 _SIGNATURES = {
-    # q, cache, block_tables, seq_lens, q0_pos, out, workspace,
-    # B, S, H, Hk, D, N, Bs, M, layer, split, sm_scale, logit_cap, stream
-    "dynamo_decode_attention": [_P] * 7 + [_I] * 10 + [_F, _F, _P],
+    # q, cache, block_tables, seq_lens, q0_pos, out, workspace, tickets,
+    # B, S, H, Hk, D, N, Bs, M, layer, chunk, n_chunks, rows, row_groups,
+    # sm_scale, logit_cap, stream
+    "dynamo_decode_attention": [_P] * 8 + [_I] * 13 + [_F, _F, _P],
     # q, k_new, v_new, cache, block_tables, seq_lens, start, out,
     # B, S, H, Hk, D, N, Bs, M, layer, tq, tiles, sm_scale, logit_cap, stream
     "dynamo_prefill_attention": [_P] * 8 + [_I] * 11 + [_F, _F, _P],

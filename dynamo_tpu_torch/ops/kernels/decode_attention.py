@@ -1,6 +1,6 @@
-"""Paged decode attention: the CUDA kernels, their wrappers, their plain version.
+"""Paged decode attention: the CUDA kernel, its wrappers, its plain version.
 
-The kernels (``csrc/decode_attention.cu``) replace the TPU kernel
+The kernel (``csrc/decode_attention.cu``) replaces the TPU kernel
 ``dynamo_tpu/ops/pallas/decode_attention.py::paged_decode_attention_mq``,
 its bf16 and its int8 body: each of B rows has S trailing queries at
 positions ``q0 .. q0+S-1`` that attend causally over slots ``[0, seq_len)``
@@ -8,20 +8,20 @@ of the row's block table in the paged cache ``[L, N, 2, Bs, Hk*D]``, at a
 runtime layer index.  Rows with ``seq_len == 0`` give 0.
 
 :func:`paged_decode_attention` (a bf16 cache) and
-:func:`paged_decode_attention_q8` (a :class:`QuantKvCache`) launch their
+:func:`paged_decode_attention_q8` (a :class:`QuantKvCache`) launch the
 kernel for CUDA tensors and take :func:`decode_attention_ref` only for CPU
 tensors; on any other device they raise.  Each wrapper's ``launches``
 counts its calls that launched.
 
-The bf16 call is two launches on the current stream (the split-K pass and
-the merge of its partials, whose f32 workspace the wrapper allocates).  The
-int8 call is one launch of the pipelined split-K kernel: :func:`plan` is
+One design serves both caches: a call is one launch of the pipelined
+split-K kernel, compiled for each cache's element type.  :func:`plan` is
 its launch, from the geometry it compiles with
-(``csrc/launch_geometry.cuh``); the last chunk of each (row, KV head, row
-group) to finish merges the chunks' partials, counted by a ticket that the
-launch leaves zeroed.  The partials and the tickets are one buffer each per
+(``csrc/launch_geometry.cuh``, whose stages, block budget and shared memory
+differ by cache); the last chunk of each (row, KV head, row group) to
+finish merges the chunks' partials, counted by a ticket that the launch
+leaves zeroed.  The partials and the tickets are one buffer each per
 stream (:func:`_stream_scratch`), so a call allocates nothing but its
-output.
+output, and a CUDA graph can capture it as it is.
 """
 
 from __future__ import annotations
@@ -39,15 +39,12 @@ __all__ = ["paged_decode_attention", "paged_decode_attention_q8", "decode_attent
 
 MAX_ROWS = 64  # S * (H / Hk) query rows one thread block holds
 HEAD_DIMS = (64, 128, 256)
-# context tokens per thread block of the bf16 kernel (flash-decoding
-# split-K); a multiple of its key tile (64, or 32 at D = 256)
-SPLIT_TOKENS = 256
-ROW_GROUPS = (4, 8, 16)  # query rows an int8 block holds, as compiled
+ROW_GROUPS = (4, 8, 16)  # query rows a block holds, as compiled
 
 
 @dataclass(frozen=True)
 class DecodePlan:
-    """The int8 kernel's launch: ``grid`` = (KV heads x row groups, rows of
+    """The kernel's launch: ``grid`` = (KV heads x row groups, rows of
     the batch, chunks) blocks of ``threads`` with ``smem`` bytes of dynamic
     shared memory.  Block (x, b, c) attends context slots ``[c * chunk,
     (c + 1) * chunk)`` of row b for query rows ``[rows * (x % row_groups),
@@ -69,31 +66,34 @@ class DecodePlan:
 
 
 @functools.lru_cache(maxsize=4096)
-def plan(b: int, s: int, h: int, hk: int, d: int, m: int, bs: int, sms: int) -> DecodePlan:
-    """The int8 kernel's launch for q [b, s, h, d] over hk KV heads and a
-    block table of m blocks of bs slots, on a card of ``sms`` SMs.  A row's
-    context is known only on the card: a row of n tokens puts ceil(n /
-    chunk) blocks per (KV head, row group) to work, and the rest exit at
-    once.  Chunks are a whole number of the kernel's shortest
-    (``B4A_CHUNK`` tokens, one 16-key tile per warp), as short as keeps the
-    grid of a full table within ``B4A_BLOCKS_PER_SM`` blocks per SM (about
-    two waves: rows are seldom full, and a short row then still spreads
-    over many blocks while long rows do not queue for a third wave), and
-    long enough that a row has at most ``B4A_MAX_CHUNKS`` partials to merge."""
+def plan(b: int, s: int, h: int, hk: int, d: int, m: int, bs: int, sms: int, quant: bool) -> DecodePlan:
+    """The kernel's launch for q [b, s, h, d] over hk KV heads and a block
+    table of m blocks of bs slots, over an int8 cache (``quant``, B4a) or a
+    bf16 one (B1), on a card of ``sms`` SMs.  A row's context is known only
+    on the card: a row of n tokens puts ceil(n / chunk) blocks per (KV head,
+    row group) to work, and the rest exit at once.  Chunks are a whole
+    number of the kernel's shortest (``B4A_CHUNK`` tokens, one 16-key tile
+    per warp), as short as keeps the grid of a full table within the cache
+    kind's ``BLOCKS_PER_SM`` blocks per SM (a few waves of the blocks that
+    fit, two for int8 and four for bf16, as timed on the card: rows are
+    seldom full, and a short row then still spreads over many blocks while
+    long rows do not queue for many more waves), and long enough that a row
+    has at most ``B4A_MAX_CHUNKS`` partials to merge."""
     g = build.geometry()
+    kind = "B4A" if quant else "B1"
     width = m * bs
     q_rows = s * (h // hk)
-    rows = next(x for x in ROW_GROUPS if x >= min(q_rows, g[f"B4A_ROWS_D{d}"]))
+    rows = next(x for x in ROW_GROUPS if x >= min(q_rows, g[f"{kind}_ROWS_D{d}"]))
     groups = -(-q_rows // rows)
     base = g["B4A_CHUNK"]
     per_chunk = b * hk * groups  # blocks per chunk of the table
     chunk = base * max(1, -(-width // (base * g["B4A_MAX_CHUNKS"])),
-                       -(-per_chunk * width // (base * g["B4A_BLOCKS_PER_SM"] * sms)))
+                       -(-per_chunk * width // (base * g[f"{kind}_BLOCKS_PER_SM"] * sms)))
     n_chunks = -(-width // chunk)
     grid = (hk * groups, b, n_chunks)
     if max(grid[1:]) > 65535:
         raise ValueError(f"grid {grid} exceeds CUDA's limit of 65535 blocks on y and z")
-    return DecodePlan(chunk, n_chunks, rows, groups, grid, g["B4A_THREADS"], g[f"B4A_SMEM_D{d}_R{rows}"],
+    return DecodePlan(chunk, n_chunks, rows, groups, grid, g["B4A_THREADS"], g[f"{kind}_SMEM_D{d}_R{rows}"],
                       b * hk * groups * n_chunks * rows * (d + 2), b * hk * groups)
 
 
@@ -106,15 +106,16 @@ _retired: list[tuple[torch.Tensor, torch.Tensor]] = []
 
 def _stream_scratch(device: torch.device, stream: int, p: DecodePlan,
                     capturing: bool) -> tuple[torch.Tensor, torch.Tensor]:
-    """The int8 kernel's partials and zeroed tickets on ``stream``, grown to
-    ``p``'s sizes.  Launches on one stream run in order, so they never use
-    the buffers at once, and the kernel leaves the tickets zeroed, so a CUDA
-    graph captured on the stream (``capturing``) takes the buffers as they
-    are.  When a later plan needs more room, buffers that a graph captured
-    are kept alive for its replays rather than freed; buffers first needed
-    inside a capture come from that graph's memory pool and stay held here.
-    A graph replays with its capture stream's buffers, so it must not replay
-    while launches on that stream are in flight elsewhere."""
+    """The kernel's partials and zeroed tickets on ``stream``, grown to
+    ``p``'s sizes (one pair serves both cache kinds).  Launches on one
+    stream run in order, so they never use the buffers at once, and the
+    kernel leaves the tickets zeroed, so a CUDA graph captured on the stream
+    (``capturing``) takes the buffers as they are.  When a later plan needs
+    more room, buffers that a graph captured are kept alive for its replays
+    rather than freed; buffers first needed inside a capture come from that
+    graph's memory pool and stay held here.  A graph replays with its
+    capture stream's buffers, so it must not replay while launches on that
+    stream are in flight elsewhere."""
     entry = _scratch.get((device, stream))
     if entry is None or entry[0].numel() < p.workspace or entry[1].numel() < p.tickets:
         if entry is not None and entry[2]:
@@ -217,29 +218,18 @@ def _launch(q, cache, layer, block_tables, seq_lens, q0_pos, sm_scale, logit_cap
     out = torch.empty_like(q)
     lib = build.library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    dims = (b, s, h, hk, d, n, bs, m, layer)
-    tail = (float(sm_scale), float(logit_cap or 0.0), stream)
-    if isinstance(cache, QuantKvCache):
-        p = plan(b, s, h, hk, d, m, bs, build.sm_count(q.device.index or 0))
-        capturing = torch.cuda.is_current_stream_capturing()
-        workspace, tickets = _stream_scratch(q.device, stream, p, capturing)
-        rc = lib.dynamo_decode_attention_q8(
-            q.data_ptr(), cache.data.data_ptr(), cache.scale.data_ptr(), block_tables.data_ptr(),
-            seq_lens.data_ptr(), q0_pos.data_ptr(), out.data_ptr(), workspace.data_ptr(),
-            tickets.data_ptr(), *dims, *cache.scale.shape[3:], p.chunk, p.n_chunks, p.rows,
-            p.row_groups, *tail)
-        build.check(rc, "dynamo_decode_attention_q8")
-    else:
-        # per (row, kv head, chunk): unnormalised acc [S*G, D], then m and l
-        # [S*G].  Dropped when this returns: the caching allocator hands the
-        # memory out again only to work queued after the kernels on this stream.
-        n_chunks = -(-m * bs // SPLIT_TOKENS)
-        workspace = torch.empty(b * hk * n_chunks * s * (h // hk) * (d + 2),
-                                dtype=torch.float32, device=q.device)
-        rc = lib.dynamo_decode_attention(
-            q.data_ptr(), cache.data_ptr(), block_tables.data_ptr(), seq_lens.data_ptr(),
-            q0_pos.data_ptr(), out.data_ptr(), workspace.data_ptr(), *dims, SPLIT_TOKENS, *tail)
-        build.check(rc, "dynamo_decode_attention")
+    quant = isinstance(cache, QuantKvCache)
+    p = plan(b, s, h, hk, d, m, bs, build.sm_count(q.device.index or 0), quant)
+    workspace, tickets = _stream_scratch(q.device, stream, p, torch.cuda.is_current_stream_capturing())
+    # the int8 entry point takes the scale pool after the cache, and its
+    # tile (Hp, Sp) after the shapes
+    ptrs = (q.data_ptr(), cache_data(cache).data_ptr(), *((cache.scale.data_ptr(),) if quant else ()),
+            block_tables.data_ptr(), seq_lens.data_ptr(), q0_pos.data_ptr(), out.data_ptr(),
+            workspace.data_ptr(), tickets.data_ptr())
+    dims = (b, s, h, hk, d, n, bs, m, layer, *(cache.scale.shape[3:] if quant else ()))
+    name = "dynamo_decode_attention_q8" if quant else "dynamo_decode_attention"
+    build.check(getattr(lib, name)(*ptrs, *dims, p.chunk, p.n_chunks, p.rows, p.row_groups, float(sm_scale),
+                                   float(logit_cap or 0.0), stream), name)
     return out
 
 

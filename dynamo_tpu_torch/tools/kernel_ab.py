@@ -28,15 +28,16 @@ power limit.  The shapes are Llama-3-8B's as the serving paths run them:
   shape (``DECODE_LENS``: B = 8 slots, six requests mid-generation and two
   empty, 3,865 context tokens, S = 1; bf16 with Bs = 16, int8 with Bs = 32
   in a 2048-token table), as a CUDA graph (the card's time) and eagerly
-  (B4a is shorter than a launch from Python, so eager timing reads the
-  host); B4a also at 8 rows of 2,000 tokens and 2 rows of 300 (graph).
+  (both are shorter than a launch from Python, so eager timing reads the
+  host); both also at 8 rows of 2,000 tokens and 2 rows of 300 (graph).
   B4b: the int8 default path's prefix hit (start 256, 700 fresh, S = 704,
   Bs = 32).
 - yardsticks: SDPA on the same work, K/V laid out dense in bf16 beforehand
   (for the int8 kernels dequantised, twice the bytes they read), timed as
   the kernel is: decode (B1 and B4a) as a CUDA graph and eagerly, each
-  layer's K/V its own; B2 at S = 1504 and at 704 over 256 (the latter also
-  B4b's) eagerly.  Graph is compared with graph, eager with eager.
+  layer's K/V its own, and at 8 x 2,000 and 2 x 300 as a graph; B2 at S =
+  1504 and at 704 over 256 (the latter also B4b's) eagerly.  Graph is
+  compared with graph, eager with eager.
 - B3 and B4c: the ragged kernel over a bf16 cache (Bs = 16) and an int8
   one (Bs = 32) at two row tables (``cuda_timing.py``): the packed prefill
   17/300/640/48 and a mixed dispatch of T = 1024, eight decode rows ahead
@@ -185,21 +186,21 @@ def _measure(tag: str, repeat: int, only: set[str]) -> dict:
         read(f"{name}_decode_eager", lambda: cuda_time_ms(lambda i: calls[i % n_layers](), 64))
         host[name] = calls[0]
         del calls
-    if "b4a" in only:
-        for key, lens in (("b4a_8x2000", [2000] * 8), ("b4a_2x300", [300, 300])):
-            calls = decode_calls(lens, 32, True)
+        for key, lens in ((f"{name}_8x2000", [2000] * 8), (f"{name}_2x300", [300, 300])):
+            calls = decode_calls(lens, bsz, quant)
             read(key, lambda: graph_time_ms(calls, 20) / n_layers)
             del calls
     if only & {"b1", "b4a"}:
-        t = max(DECODE_LENS)
-        lens = torch.tensor(DECODE_LENS, device="cuda")
-        mask = (torch.arange(t, device="cuda")[None, :] < lens[:, None])[:, None, None, :]
-        qd = bf16(len(DECODE_LENS), h, 1, d)
-        kvs = [(bf16(len(DECODE_LENS), hk, t, d), bf16(len(DECODE_LENS), hk, t, d)) for _ in range(n_layers)]
-        calls = [lambda kv=kv: sdpa(qd, *kv, mask) for kv in kvs]
-        read("sdpa_decode", lambda: graph_time_ms(calls, 20) / n_layers)
-        read("sdpa_decode_eager", lambda: cuda_time_ms(lambda i: calls[i % n_layers](), 64))
-        del calls, kvs
+        for key, lens in (("sdpa_decode", DECODE_LENS), ("sdpa_8x2000", [2000] * 8), ("sdpa_2x300", [300, 300])):
+            t = max(lens)
+            mask = (torch.arange(t, device="cuda")[None, :] < ints(lens)[:, None])[:, None, None, :]
+            qd = bf16(len(lens), h, 1, d)
+            kvs = [(bf16(len(lens), hk, t, d), bf16(len(lens), hk, t, d)) for _ in range(n_layers)]
+            calls = [lambda kv=kv: sdpa(qd, *kv, mask) for kv in kvs]
+            read(key, lambda: graph_time_ms(calls, 20) / n_layers)
+            if key == "sdpa_decode":
+                read("sdpa_decode_eager", lambda: cuda_time_ms(lambda i: calls[i % n_layers](), 64))
+            del calls, kvs
 
     if "b4b" in only:
         start, fresh, bsz = 256, 700, 32

@@ -1,11 +1,14 @@
-"""The int8 decode attention kernel's (B4a) launch plan and its algorithm, on the CPU.
+"""The decode attention kernel's launch plan and its algorithm, on the CPU.
 
-The CUDA kernel cannot run here, so what surrounds it is held in Python:
+One kernel serves a bf16 cache (B1) and an int8 one (B4a), compiled for
+each with its own stages, block budget and shared memory; every test here
+runs for both cache kinds.  The CUDA kernel cannot run here, so what
+surrounds it is held in Python:
 
 * the planner (``decode_attention.plan``, from ``csrc/launch_geometry.cuh``)
   at Bs 16 and 32, D 64/128/256, 1 to 64 rows and tables of 2048 to 32768
-  slots: the chunk is the shortest whose full-table grid fits the card's
-  block budget and whose rows merge at most MAX_CHUNKS partials; the
+  slots: the chunk is the shortest whose full-table grid fits the cache
+  kind's block budget and whose rows merge at most MAX_CHUNKS partials; the
   chunks a row's blocks compute (the kernel's ``ceil(ctx / chunk)`` rule) cover every live token of the row exactly
   once, for contexts 0, 1, a chunk edge -1/0/+1 and the table's width; the
   ticket of each (row, KV head, row group) counts ``ceil(seq_len / chunk)``
@@ -15,12 +18,13 @@ The CUDA kernel cannot run here, so what surrounds it is held in Python:
 * the per-stream partials and tickets: bounded at any table width, reused
   while large enough, and kept alive once a CUDA graph captured them;
 * a plain f32 emulation of the kernel's arithmetic, tile by tile: each
-  warp's online softmax in base 2 over its tiles (the K scale on the score
-  before the softcap, the V scale on P, dead keys zero-filled), the warps'
-  merge, then the chunks' partials merged in chunk order.  It matches
-  ``decode_attention_ref`` within 1e-5, with rows of context 0, chunks
-  that some query rows see nothing of (S > 1), softcap, and NaN in every
-  dead slot's scale and every pad lane of the scale tiles.
+  warp's online softmax in base 2 over its tiles (over an int8 cache the K
+  scale on the score before the softcap and the V scale on P; dead keys
+  zero-filled), the warps' merge, then the chunks' partials merged in
+  chunk order.  It matches ``decode_attention_ref`` within 1e-5, with rows
+  of context 0, chunks that some query rows see nothing of (S > 1),
+  softcap, and NaN in every dead slot (bf16) or in every dead slot's scale
+  and every pad lane of the scale tiles (int8).
 """
 
 from __future__ import annotations
@@ -41,6 +45,12 @@ HEAD_DIMS = (64, 128, 256)
 WARPS = 4
 TILE = 16
 LOG2E = 1.4426950408889634
+# the cache kinds: int8 (B4a) and bf16 (B1), by their geometry's prefix
+KINDS = pytest.mark.parametrize("quant", [True, False], ids=["int8", "bf16"])
+
+
+def _kind(quant: bool) -> str:
+    return "B4A" if quant else "B1"
 
 
 def live_chunks(seq_len: int, p, width: int) -> list[tuple[int, int]]:
@@ -62,16 +72,17 @@ def _covers_once(ranges, total) -> bool:
     return edge == total
 
 
+@KINDS
 @pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("bs", [16, 32])
 @pytest.mark.parametrize("max_model_len", [2048, 4096, 32768])
 @pytest.mark.parametrize("b", [1, 2, 8, 64])
-def test_decode_q8_plan_covers_each_live_token_once(b, max_model_len, bs, d):
-    g = build.geometry()
+def test_decode_q8_plan_covers_each_live_token_once(b, max_model_len, bs, d, quant):
+    g, kind = build.geometry(), _kind(quant)
     m = max_model_len // bs
     width = m * bs
-    p = da.plan(b, 1, 32, 8, d, m, bs, SMS)
-    base, cap = g["B4A_CHUNK"], g["B4A_BLOCKS_PER_SM"] * SMS
+    p = da.plan(b, 1, 32, 8, d, m, bs, SMS, quant)
+    base, cap = g["B4A_CHUNK"], g[f"{kind}_BLOCKS_PER_SM"] * SMS
     assert p.chunk % base == 0 and p.chunk >= base
     assert 1 <= p.n_chunks <= g["B4A_MAX_CHUNKS"]
     assert (p.n_chunks - 1) * p.chunk < width <= p.n_chunks * p.chunk
@@ -84,7 +95,7 @@ def test_decode_q8_plan_covers_each_live_token_once(b, max_model_len, bs, d):
     if shorter:
         n = -(-width // shorter)
         assert n > g["B4A_MAX_CHUNKS"] or per_chunk * width > cap * shorter
-    assert p.smem == g[f"B4A_SMEM_D{d}_R{p.rows}"] <= SMEM_LIMIT
+    assert p.smem == g[f"{kind}_SMEM_D{d}_R{p.rows}"] <= SMEM_LIMIT
     c = p.chunk
     for ctx in sorted(x for x in {0, 1, c - 1, c, c + 1, 2 * c - 1, 2 * c + 1, width - 1, width} if x <= width):
         chunks = live_chunks(ctx, p, width)
@@ -104,50 +115,54 @@ def test_decode_q8_plan_covers_each_live_token_once(b, max_model_len, bs, d):
     assert live_chunks(width + 5, p, width) == live_chunks(width, p, width)
 
 
+@KINDS
 @pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("group", [1, 4, 8, 64])
-def test_decode_q8_plan_row_groups(group, d):
-    g = build.geometry()
+def test_decode_q8_plan_row_groups(group, d, quant):
+    g, kind = build.geometry(), _kind(quant)
     for s in range(1, 9):
         if s * group > da.MAX_ROWS:
             continue
-        p = da.plan(3, s, group * 2, 2, d, 64, 32, SMS)
+        p = da.plan(3, s, group * 2, 2, d, 64, 32, SMS, quant)
         q_rows = s * group
-        assert p.rows in da.ROW_GROUPS and p.rows <= g[f"B4A_ROWS_D{d}"]
+        assert p.rows in da.ROW_GROUPS and p.rows <= g[f"{kind}_ROWS_D{d}"]
         assert (p.row_groups - 1) * p.rows < q_rows <= p.row_groups * p.rows
-        assert p.rows >= min(q_rows, g[f"B4A_ROWS_D{d}"])  # the fewest blocks the kernel holds
+        assert p.rows >= min(q_rows, g[f"{kind}_ROWS_D{d}"])  # the fewest blocks the kernel holds
         assert p.workspace == 3 * 2 * p.row_groups * p.n_chunks * p.rows * (d + 2)
         assert p.tickets == 3 * 2 * p.row_groups
-        # a warp's partial fits its ring, which the kernel reuses for it
-        ring = g["B4A_STAGES"] * 2 * g["B4A_KEYS"] * d
+        # a warp's partial fits its ring (of raw int8 or bf16 rows), which
+        # the kernel reuses for it
+        ring = g[f"{kind}_STAGES"] * 2 * g["B4A_KEYS"] * d * (1 if quant else 2)
         assert p.rows * (d + 2) * 4 <= ring
 
 
+@KINDS
 @pytest.mark.parametrize("d", HEAD_DIMS)
 @pytest.mark.parametrize("bs", [16, 32])
-def test_decode_q8_scratch_is_bounded_by_the_widest_table(bs, d):
+def test_decode_q8_scratch_is_bounded_by_the_widest_table(bs, d, quant):
     """Whatever the table's width, a plan's partials stay within MAX_CHUNKS
     chunks of the query rows rounded up to whole row groups, and its tickets
     at one per (row, KV head, row group)."""
     g = build.geometry()
     for group, s in ((1, 1), (4, 1), (4, 8), (8, 8), (64, 1)):
         for m in (1, 2, 64, 2048, 32768 // bs):
-            p = da.plan(5, s, 2 * group, 2, d, m, bs, SMS)
+            p = da.plan(5, s, 2 * group, 2, d, m, bs, SMS, quant)
             padded = p.row_groups * p.rows
             assert padded < s * group + p.rows and padded <= da.MAX_ROWS
             assert p.workspace <= 5 * 2 * g["B4A_MAX_CHUNKS"] * padded * (d + 2)
             assert p.tickets == 5 * 2 * p.row_groups
 
 
-def test_decode_q8_stream_scratch_keeps_what_a_graph_captured(monkeypatch):
+@KINDS
+def test_decode_q8_stream_scratch_keeps_what_a_graph_captured(monkeypatch, quant):
     """Each stream has one workspace and one zeroed ticket buffer, reused
     while large enough; when a plan needs more, buffers a CUDA graph
     captured are kept alive for its replays and others are dropped."""
     monkeypatch.setattr(da, "_scratch", {})
     monkeypatch.setattr(da, "_retired", [])
     cpu = torch.device("cpu")
-    small = da.plan(2, 1, 32, 8, 128, 64, 32, SMS)
-    wide = da.plan(8, 1, 32, 8, 128, 64, 32, SMS)
+    small = da.plan(2, 1, 32, 8, 128, 64, 32, SMS, quant)
+    wide = da.plan(8, 2, 32, 8, 128, 64, 32, SMS, quant)
     assert wide.workspace > small.workspace and wide.tickets > small.tickets
     ws, tickets = da._stream_scratch(cpu, 1, small, False)
     assert ws.numel() == small.workspace and torch.equal(tickets, torch.zeros(small.tickets, dtype=torch.int32))
@@ -157,36 +172,44 @@ def test_decode_q8_stream_scratch_keeps_what_a_graph_captured(monkeypatch):
     ws2, tickets2 = da._stream_scratch(cpu, 1, wide, False)  # grown, the old dropped
     assert ws2.numel() == wide.workspace and tickets2.numel() == wide.tickets and da._retired == []
     assert da._stream_scratch(cpu, 1, small, True)[0] is ws2  # captured as they are
-    wider = da.plan(16, 1, 32, 8, 128, 64, 32, SMS)
+    wider = da.plan(16, 4, 32, 8, 128, 64, 32, SMS, quant)
     ws3, _ = da._stream_scratch(cpu, 1, wider, False)
     assert ws3 is not ws2 and len(da._retired) == 1 and da._retired[0][0] is ws2
-    da._stream_scratch(cpu, 1, da.plan(32, 1, 32, 8, 128, 64, 32, SMS), False)
+    da._stream_scratch(cpu, 1, da.plan(32, 8, 64, 8, 128, 64, 32, SMS, quant), False)
     assert len(da._retired) == 1  # ws3 was never captured
 
 
-def test_geometry_of_the_decode_kernel_adds_up():
+@KINDS
+def test_geometry_of_the_decode_kernel_adds_up(quant):
     """The shared memory the header states is the layout the kernel carves,
-    for every (head dim, rows) instantiation."""
-    g = build.geometry()
-    warps, keys, stages = g["B4A_THREADS"] // 32, g["B4A_KEYS"], g["B4A_STAGES"]
+    for every (head dim, rows) instantiation over the cache kind: f32 Q
+    rows, each warp's ring of raw K and V rows (1 or 2 bytes a value) and,
+    over an int8 cache, their f32 scales, each warp's f32 probabilities,
+    the chunks' m and l and 1 / l, and a flag."""
+    g, kind = build.geometry(), _kind(quant)
+    warps, keys, stages = g["B4A_THREADS"] // 32, g["B4A_KEYS"], g[f"{kind}_STAGES"]
     assert warps * keys == g["B4A_CHUNK"]
     n = 0
     for d in HEAD_DIMS:
-        for rows in (x for x in da.ROW_GROUPS if x <= g[f"B4A_ROWS_D{d}"]):
-            total = (rows * d * 4 + warps * stages * 2 * keys * d + warps * stages * 2 * keys * 4
-                     + warps * rows * keys * 4 + (2 * g["B4A_MAX_CHUNKS"] + 1) * rows * 4 + 16)
-            assert total == g[f"B4A_SMEM_D{d}_R{rows}"] <= SMEM_LIMIT
+        for rows in (x for x in da.ROW_GROUPS if x <= g[f"{kind}_ROWS_D{d}"]):
+            ring = warps * stages * 2 * keys * d * (1 if quant else 2)
+            scales = warps * stages * 2 * keys * 4 if quant else 0
+            total = (rows * d * 4 + ring + scales + warps * rows * keys * 4
+                     + (2 * g["B4A_MAX_CHUNKS"] + 1) * rows * 4 + 16)
+            assert total == g[f"{kind}_SMEM_D{d}_R{rows}"] <= SMEM_LIMIT
             n += 1
-    assert n == sum(1 for k in g if k.startswith("B4A_SMEM_"))
+    assert n == sum(1 for k in g if k.startswith(f"{kind}_SMEM_"))
 
 
 # ------------------------------------------------------------------ emulation
 def _emulate(q, cache, layer, bt, seq_lens, q0_pos, p, logit_cap=None):
-    """The int8 kernel's arithmetic in f32: per (row, KV head, chunk), each
-    warp's online softmax (base 2) over its 16-key tiles, the warps merged,
-    then the chunks' partials merged in chunk order."""
+    """The kernel's arithmetic in f32 over a bf16 cache or an int8 one (a
+    QuantKvCache): per (row, KV head, chunk), each warp's online softmax
+    (base 2) over its 16-key tiles, the warps merged, then the chunks'
+    partials merged in chunk order."""
     b, s, h, d = q.shape
-    data, scale = cache
+    quant = isinstance(cache, kv_quant.QuantKvCache)
+    data = kv_quant.cache_data(cache)
     _, _, _, bs, hkd = data.shape
     hk = hkd // d
     group = h // hk
@@ -198,10 +221,11 @@ def _emulate(q, cache, layer, bt, seq_lens, q0_pos, p, logit_cap=None):
     out = torch.zeros((b, s, h, d), dtype=torch.float32)
 
     def key(pos, kv, head):
-        """Key pos's int8 row and scale; nothing is read for a dead key."""
+        """Key pos's row and scale (1 over a bf16 cache); nothing is read
+        for a dead key."""
         blk = int(bt[row, min(pos // bs, m - 1)])
         vals = data[layer, blk, kv, pos % bs, head * d:(head + 1) * d].float()
-        return vals, scale[layer, blk, kv, head, pos % bs].item()
+        return vals, cache.scale[layer, blk, kv, head, pos % bs].item() if quant else 1.0
 
     for row in range(b):
         ctx = min(int(seq_lens[row]), width)
@@ -260,7 +284,9 @@ def _emulate(q, cache, layer, bt, seq_lens, q0_pos, p, logit_cap=None):
     return out
 
 
-def _case(rng, lens, s, h, hk, d, bs, m):
+def _case(rng, lens, s, h, hk, d, bs, m, quant):
+    """A decode case: random int8 codes with NaN scales in every dead slot
+    and pad lane, or a random bf16 cache with NaN in every dead slot."""
     n = sum(-(-x // bs) for x in lens) + 3
     perm = rng.permutation(n)
     bt = np.zeros((len(lens), m), np.int32)
@@ -269,33 +295,39 @@ def _case(rng, lens, s, h, hk, d, bs, m):
         nb = -(-x // bs)
         bt[i, :nb] = perm[k:k + nb]
         k += nb
-    data = rng.integers(-127, 128, size=(2, n, 2, bs, hk * d)).astype(np.int8)
-    hp, sp = kv_quant.scale_tile(hk, bs)
-    scale = np.full((2, n, 2, hp, sp), np.nan, np.float32)  # pad lanes and dead slots NaN
     live = np.zeros((n, bs), bool)
     for row, x in zip(bt, lens):
         for j in range(x):
             live[row[j // bs], j % bs] = True
-    sc = (rng.random((2, n, 2, hk, bs)) * 0.02 + 0.005).astype(np.float32)
-    scale[..., :hk, :bs] = np.where(live[None, :, None, None, :], sc, np.nan)
+    if quant:
+        data = rng.integers(-127, 128, size=(2, n, 2, bs, hk * d)).astype(np.int8)
+        hp, sp = kv_quant.scale_tile(hk, bs)
+        scale = np.full((2, n, 2, hp, sp), np.nan, np.float32)  # pad lanes and dead slots NaN
+        sc = (rng.random((2, n, 2, hk, bs)) * 0.02 + 0.005).astype(np.float32)
+        scale[..., :hk, :bs] = np.where(live[None, :, None, None, :], sc, np.nan)
+        cache = kv_quant.QuantKvCache(torch.from_numpy(data), torch.from_numpy(scale))
+    else:
+        data = rng.normal(size=(2, n, 2, bs, hk * d)).astype(np.float32)
+        data = np.where(live[None, :, None, :, None], data, np.nan)
+        cache = torch.from_numpy(data).to(torch.bfloat16)
     q = rng.normal(size=(len(lens), s, h, d)).astype(np.float32)
     seq = np.array(lens, np.int32)
     q0 = np.maximum(seq - s, 0).astype(np.int32)
-    cache = kv_quant.QuantKvCache(torch.from_numpy(data), torch.from_numpy(scale))
     return torch.from_numpy(q), cache, torch.from_numpy(bt), torch.from_numpy(seq), torch.from_numpy(q0)
 
 
+@KINDS
 @pytest.mark.parametrize("s,cap", [(1, None), (4, None), (4, 30.0), (8, 30.0)])
 @pytest.mark.parametrize("bs", [16, 32])
-def test_chunked_partials_merge_to_the_plain_version(bs, s, cap):
+def test_chunked_partials_merge_to_the_plain_version(bs, s, cap, quant):
     rng = np.random.default_rng(11 + s + bs)
     h, hk, d = 4, 2, 64
     m = 160 // bs
     # context 0, 1, chunk edges -1/0/+1 (65 at S = 4: query rows 0-2 see
     # nothing of the second chunk), a row filling the table
     lens = [0, 1, 63, 64, 65, 130, m * bs]
-    q, cache, bt, seq, q0 = _case(rng, lens, s, h, hk, d, bs, m)
-    p = da.plan(len(lens), s, h, hk, d, m, bs, SMS)
+    q, cache, bt, seq, q0 = _case(rng, lens, s, h, hk, d, bs, m, quant)
+    p = da.plan(len(lens), s, h, hk, d, m, bs, SMS, quant)
     assert p.chunk == 64 and p.n_chunks == -(-m * bs // 64)
     out = _emulate(q, cache, 1, bt, seq, q0, p, cap)
     ref = da.decode_attention_ref(q, cache, 1, bt, seq, q0, logit_cap=cap)
