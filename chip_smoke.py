@@ -45,13 +45,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
    serves on an accelerator).  Every kernel's launch counter is zeroed just
    before each run and read just after; the ragged kernels are then timed
    at the largest mixed dispatch of each token-budget run, with its decode
-   rows and without them;
+   rows and without them.  Before the bf16 model is freed it also serves
+   the six prompts as token-id completions through the port's HTTP service
+   (concurrent, streamed): TTFT at the client beside the direct run's;
 5. parity: 2-layer models at full 8B width on the card (kernels, bf16) and
    on the CPU (plain PyTorch, f32), bf16 weights with a bf16 cache and int8
    weights with an int8 cache: one 300-token prompt over a 128-token cached
    prefix then 8 decode steps, and one packed prefill then one mixed
    ragged dispatch (two decode rows, two spans); logits held to a stated
-   tolerance.
+   tolerance;
+6. front door: a 2-layer HF checkpoint at Llama-3-8B width (random bf16
+   weights from a seeded generator, two safetensors shards and an index, a
+   word-level tokenizer of 128,256 ids and a chat template), written into
+   the git-ignored ``_frontdoor/`` beside this script and removed at the
+   end.  ``python3 -m dynamo_tpu_torch run in=http out=gpu`` serves it as a
+   subprocess: unary, streamed, chat (through the template), n = 2,
+   logprobs, stop-string and unknown-model requests, ``/metrics``, a clean
+   exit on SIGTERM.  Then ``build_local_engine`` loads it in this process,
+   bf16 on the default path and int8 (weights and cache, Bs = 32) on the
+   token-budget path, each behind the port's ``HttpService``: the loaded
+   tensors against the shards, and each answer, one request at a time,
+   against a fresh engine's greedy tokens; the bf16 server must launch the
+   decode and prefill kernels, the int8 one the int8 decode, int8 ragged and
+   W8A16 kernels.
 
 Then one ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -1121,7 +1137,8 @@ def serve_run(torch, model, config: dict, card: str, label: str, profile: bool =
     finally:
         engine.shutdown()
     streams = [[t for o in outs for t in o.token_ids] for _, _, outs in results]
-    return dict(launches=launches, metrics=metrics, streams=streams)
+    return dict(launches=launches, metrics=metrics, streams=streams, ttfts=ttfts,
+                decode_tok_s=decode_tokens / decode_window)
 
 
 @contextlib.contextmanager
@@ -1185,6 +1202,7 @@ def serving_phase(torch, card: str):
     log(f"serving: Llama-3-8B, {cfg.num_layers} layers, random weights in "
         f"{time.perf_counter() - t0:.1f} s")
     default, budget, mixed = serve_both(torch, model, card, quant=False)
+    http_serving_run(torch, model, default, card)
     del model
     torch.cuda.empty_cache()
     return default, budget, mixed
@@ -1405,6 +1423,490 @@ def parity_phase(torch, card: str, quant: bool = False) -> None:
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------- front door
+# A 2-layer HF checkpoint at Llama-3-8B width (3.0 GB in bf16), written by
+# this script into a git-ignored directory beside it and removed at the end
+FRONT_DIR = ROOT / "_frontdoor"
+FRONT_LAYERS = 2
+FRONT_MODEL = "front"
+FRONT_MAX_TOKENS = 16
+# the word-level tokenizer's special tokens, at Llama 3's ids; ids 0-2 are
+# the chat roles and 3-127999 the words w3 ... w127999
+SPECIALS = {"<|begin_of_text|>": 128000, "<|end_of_text|>": 128001, "<unk>": 128002,
+            "<|start_header_id|>": 128006, "<|end_header_id|>": 128007, "<|eot_id|>": 128009}
+ROLES = ("system", "user", "assistant")
+EOS_IDS = [128001, 128009]
+# Llama 3's chat layout, spaced for a whitespace tokenizer; it emits BOS
+# itself, so the preprocessor must not add a second one
+CHAT_TEMPLATE = (
+    "{{ bos_token }}{% for m in messages %}<|start_header_id|> {{ m['role'] }} <|end_header_id|> "
+    "{{ m['content'] }} <|eot_id|> {% endfor %}"
+    "{% if add_generation_prompt %}<|start_header_id|> assistant <|end_header_id|>{% endif %}")
+FRONT_CHAT = [{"role": "system", "content": "w5 w6"}, {"role": "user", "content": "w7 w8 w9"}]
+# BOS, then 6 + 7 tokens of the two turns and 3 of the generation prompt
+FRONT_CHAT_TOKENS = 17
+# (port name, HF name with {i} for the layer, whether HF stores it [out, in])
+FRONT_NAMES = {
+    "embed": ("model.embed_tokens.weight", False), "final_norm": ("model.norm.weight", False),
+    "lm_head": ("lm_head.weight", True),
+    "layers.attn_norm": ("model.layers.{i}.input_layernorm.weight", False),
+    "layers.mlp_norm": ("model.layers.{i}.post_attention_layernorm.weight", False),
+    "layers.wq": ("model.layers.{i}.self_attn.q_proj.weight", True),
+    "layers.wk": ("model.layers.{i}.self_attn.k_proj.weight", True),
+    "layers.wv": ("model.layers.{i}.self_attn.v_proj.weight", True),
+    "layers.wo": ("model.layers.{i}.self_attn.o_proj.weight", True),
+    "layers.w_gate": ("model.layers.{i}.mlp.gate_proj.weight", True),
+    "layers.w_up": ("model.layers.{i}.mlp.up_proj.weight", True),
+    "layers.w_down": ("model.layers.{i}.mlp.down_proj.weight", True),
+}
+# the in-process servers' bf16 flags, and the int8 token-budget ones
+FRONT_FLAGS = ["--max-model-len", "2048", "--num-blocks", "256"]
+FRONT_INT8_FLAGS = FRONT_FLAGS + ["--quantize", "int8", "--kv-cache-dtype", "int8",
+                                  "--block-size", "32", "--prefill-token-budget", "1024",
+                                  "--unified-token-dispatch", "--lookahead-dispatch"]
+
+
+def write_tokenizer(d: Path) -> None:
+    """A word-level tokenizer of Llama 3's 128,256 ids (BOS added on
+    encode) and a tokenizer_config.json with the chat template."""
+    from tokenizers import Tokenizer, models, pre_tokenizers, processors
+
+    vocab = {r: i for i, r in enumerate(ROLES)}
+    vocab.update({f"w{i}": i for i in range(len(ROLES), 128000)})
+    vocab.update(SPECIALS)
+    vocab.update({f"<|reserved_special_token_{i}|>": i for i in range(128000, 128256)
+                  if i not in SPECIALS.values()})
+    tk = Tokenizer(models.WordLevel(vocab=vocab, unk_token="<unk>"))
+    tk.pre_tokenizer = pre_tokenizers.WhitespaceSplit()
+    tk.add_special_tokens([t for t, i in sorted(vocab.items(), key=lambda x: x[1]) if i >= 128000])
+    tk.post_processor = processors.TemplateProcessing(
+        single="<|begin_of_text|> $A", special_tokens=[("<|begin_of_text|>", 128000)])
+    d.mkdir(parents=True, exist_ok=True)
+    tk.save(str(d / "tokenizer.json"))
+    (d / "tokenizer_config.json").write_text(json.dumps({
+        "chat_template": CHAT_TEMPLATE, "bos_token": "<|begin_of_text|>",
+        "eos_token": "<|eot_id|>"}))
+
+
+def write_checkpoint(torch, d: Path) -> float:
+    """The 2-layer checkpoint: config.json and random bf16 weights from a
+    seeded generator (matrices N(0, 1/fan_in), norms 1 + N(0, 0.1^2)) in
+    two safetensors shards with an index.  Returns the bytes written."""
+    from safetensors.torch import save_file
+
+    cfg = llama3_8b(FRONT_LAYERS)
+    dm, hd, f = cfg.hidden_size, cfg.head_dim, cfg.intermediate_size
+    (d / "config.json").write_text(json.dumps({
+        "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+        "vocab_size": cfg.vocab_size, "hidden_size": dm, "intermediate_size": f,
+        "num_hidden_layers": FRONT_LAYERS, "num_attention_heads": cfg.num_heads,
+        "num_key_value_heads": cfg.num_kv_heads, "rope_theta": cfg.rope_theta,
+        "max_position_embeddings": cfg.max_position_embeddings, "rms_norm_eps": 1e-5,
+        "hidden_act": "silu", "tie_word_embeddings": False, "bos_token_id": 128000,
+        "eos_token_id": EOS_IDS, "torch_dtype": "bfloat16"}))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+
+    def matrix(rows, cols):  # HF layout [out, in]
+        w = torch.randn((rows, cols), generator=gen, device="cuda", dtype=torch.float32)
+        return w.div_(math.sqrt(cols)).to(torch.bfloat16).cpu()
+
+    def norm():
+        w = 1 + 0.1 * torch.randn((dm,), generator=gen, device="cuda", dtype=torch.float32)
+        return w.to(torch.bfloat16).cpu()
+
+    def layer(i):
+        p = f"model.layers.{i}."
+        return {p + "input_layernorm.weight": norm(), p + "post_attention_layernorm.weight": norm(),
+                p + "self_attn.q_proj.weight": matrix(cfg.num_heads * hd, dm),
+                p + "self_attn.k_proj.weight": matrix(cfg.num_kv_heads * hd, dm),
+                p + "self_attn.v_proj.weight": matrix(cfg.num_kv_heads * hd, dm),
+                p + "self_attn.o_proj.weight": matrix(dm, cfg.num_heads * hd),
+                p + "mlp.gate_proj.weight": matrix(f, dm), p + "mlp.up_proj.weight": matrix(f, dm),
+                p + "mlp.down_proj.weight": matrix(dm, f)}
+
+    shards = [{"model.embed_tokens.weight": matrix(cfg.vocab_size, dm), **layer(0)},
+              {**layer(1), "model.norm.weight": norm(), "lm_head.weight": matrix(cfg.vocab_size, dm)}]
+    weight_map, total = {}, 0
+    for k, shard in enumerate(shards):
+        name = f"model-{k + 1:05d}-of-{len(shards):05d}.safetensors"
+        save_file(shard, str(d / name), metadata={"format": "pt"})
+        weight_map.update({t: name for t in shard})
+        total += sum(t.numel() * t.element_size() for t in shard.values())
+    (d / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": total}, "weight_map": weight_map}))
+    return total
+
+
+def check_loaded(torch, model, d: Path, label: str) -> None:
+    """Every parameter the loader built equals the shards' tensor,
+    transposed where HF stores [out, in] and stacked over the layers:
+    exactly in bf16; for int8 weights, the codes and scales equal the
+    quantisation of the shards' bf16 tensor."""
+    from safetensors import safe_open
+
+    from dynamo_tpu_torch.models.quant import quantize
+
+    index = json.loads((d / "model.safetensors.index.json").read_text())["weight_map"]
+    state = model.state_dict()
+    n = 0
+    for name, (fmt, transpose) in FRONT_NAMES.items():
+        for i in (range(FRONT_LAYERS) if name.startswith("layers.") else [None]):
+            key = fmt.format(i=i)
+            with safe_open(d / index[key], framework="pt", device="cuda") as f:
+                w = f.get_tensor(key)
+            w = w.t() if transpose else w
+            got = state[name] if i is None else state[name][i]
+            if name + "_scale" in state:
+                qt = quantize(w, (0,) if name == "embed" else (-1,))
+                scale = state[name + "_scale"] if i is None else state[name + "_scale"][i]
+                same = torch.equal(got, qt.q) and torch.equal(scale, qt.scale)
+            else:
+                same = got.dtype == w.dtype and torch.equal(got, w)
+            check(same, f"front door {label}: {name}[{i}] differs from the checkpoint's {key}")
+            n += 1
+    log(f"front door {label}: {n} loaded tensors equal the checkpoint's shards")
+
+
+async def _post(session, url: str, body: dict) -> tuple:
+    """(status, JSON body or the SSE events' data, seconds to the first SSE
+    event that carries text or a finish)."""
+    t0 = time.perf_counter()
+    async with session.post(url, json=body) as r:
+        if r.headers.get("Content-Type", "").split(";")[0] != "text/event-stream":
+            return r.status, await r.json(), None
+        events, first = [], None
+        async for raw in r.content:
+            line = raw.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            data = line[6:]
+            ev = data if data == "[DONE]" else json.loads(data)
+            if first is None and ev != "[DONE]" and ev["choices"] and (
+                    ev["choices"][0].get("text") or ev["choices"][0].get("delta", {}).get("content")
+                    or ev["choices"][0].get("finish_reason")):
+                first = time.perf_counter() - t0
+            events.append(ev)
+        return r.status, events, first
+
+
+def _text(events) -> str:
+    """The text of one choice's SSE events (completion or chat)."""
+    return "".join(e["choices"][0].get("text") or e["choices"][0].get("delta", {}).get("content")
+                   or "" for e in events if e != "[DONE]" and e["choices"])
+
+
+def _front_requests() -> list[tuple[str, dict]]:
+    """The requests a server answers one at a time and a fresh engine
+    replays: (path, body), all greedy."""
+    base = {"model": FRONT_MODEL, "max_tokens": FRONT_MAX_TOKENS, "temperature": 0}
+    words = " ".join(f"w{i}" for i in range(1000, 1030))
+    return [
+        ("/v1/completions", {**base, "prompt": words}),
+        ("/v1/completions", {**base, "prompt": list(range(2000, 2300)), "stream": True}),
+        ("/v1/chat/completions", {**base, "messages": FRONT_CHAT, "stream": True}),
+        ("/v1/completions", {**base, "prompt": words[:60], "logprobs": 3}),
+    ]
+
+
+def _detok(tokenizer, toks) -> str:
+    """Tokens to text as the serving path's detokenizer streams them (a
+    special token in the middle drops the space before the next word,
+    where ``decode`` of the whole list keeps it)."""
+    stream = tokenizer.decode_stream()
+    return "".join(stream.step(t) for t in toks)
+
+
+def _answer_text(answer) -> str:
+    if isinstance(answer, list):
+        return _text(answer)
+    c = answer["choices"][0]
+    return c["text"] if "text" in c else c["message"]["content"]
+
+
+def cli_phase(card: str) -> None:
+    """``python3 -m dynamo_tpu_torch run in=http out=gpu`` on the
+    checkpoint, as a user starts it: every request kind, /metrics, and a
+    clean exit on SIGTERM."""
+    import signal
+    import socket
+
+    import aiohttp
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    log_path = FRONT_DIR / "cli.log"
+    t0 = time.perf_counter()
+    with open(log_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "dynamo_tpu_torch", "run", "in=http", "out=gpu",
+             "--model-path", str(FRONT_DIR), "--model-name", FRONT_MODEL, "--http-port",
+             str(port)], cwd=str(ROOT), stdout=err, stderr=subprocess.STDOUT)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        async def go():
+            async with aiohttp.ClientSession() as s:
+                while True:
+                    try:
+                        async with s.get(f"{base}/health") as r:
+                            health = await r.json()
+                        break
+                    except aiohttp.ClientConnectionError:
+                        check(proc.poll() is None and time.perf_counter() - t0 < 300,
+                              "the CLI server did not come up: " + log_path.read_text()[-3000:])
+                        await asyncio.sleep(0.25)
+                ready = time.perf_counter() - t0
+                check(health["models"] == [FRONT_MODEL], f"CLI /health: {health}")
+                base_body = {"model": FRONT_MODEL, "max_tokens": FRONT_MAX_TOKENS,
+                             "temperature": 0}
+                words = " ".join(f"w{i}" for i in range(3000, 3020))
+                answers = {}
+                for kind, path, body in [
+                    ("unary", "/v1/completions", {**base_body, "prompt": words}),
+                    ("stream", "/v1/completions", {**base_body, "prompt": words, "stream": True}),
+                    ("chat", "/v1/chat/completions", {**base_body, "messages": FRONT_CHAT,
+                                                      "stream": True}),
+                    ("n2", "/v1/completions", {**base_body, "prompt": words, "n": 2}),
+                    ("logprobs", "/v1/completions", {**base_body, "prompt": words, "logprobs": 2}),
+                    ("stop", "/v1/completions", {**base_body, "prompt": words, "stop": [" "]}),
+                    ("404", "/v1/completions", {**base_body, "model": "nope", "prompt": words}),
+                ]:
+                    answers[kind] = await _post(s, base + path, body)
+                async with s.get(f"{base}/metrics") as r:
+                    metrics = await r.text()
+            return ready, answers, metrics
+
+        ready, answers, metrics = asyncio.run(go())
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+    check(rc == 0, f"the CLI server exited with {rc} on SIGTERM: {log_path.read_text()[-3000:]}")
+
+    def finished(c, usage_tokens):
+        return (c["finish_reason"] == "length" and usage_tokens == FRONT_MAX_TOKENS) or (
+            c["finish_reason"] == "stop" and 1 <= usage_tokens <= FRONT_MAX_TOKENS)
+
+    status, body, _ = answers["unary"]
+    check(status == 200 and finished(body["choices"][0], body["usage"]["completion_tokens"]),
+          f"CLI unary completion: {status} {body}")
+    status, events, _ = answers["stream"]
+    check(status == 200 and events[-1] == "[DONE]" and
+          events[-2]["choices"][0]["finish_reason"] in ("length", "stop"),
+          f"CLI streamed completion: {status} {events[-3:]}")
+    status, events, _ = answers["chat"]
+    check(status == 200 and events[0]["choices"][0]["delta"].get("role") == "assistant" and
+          events[-1] == "[DONE]" and events[-2]["usage"]["prompt_tokens"] == FRONT_CHAT_TOKENS,
+          f"CLI streamed chat (expected {FRONT_CHAT_TOKENS} prompt tokens through the template, "
+          f"one BOS): {status} {events[:1]} {events[-2:]}")
+    status, body, _ = answers["n2"]
+    check(status == 200 and [c["index"] for c in body["choices"]] == [0, 1],
+          f"CLI n=2: {status} {body}")
+    status, body, _ = answers["logprobs"]
+    lp = body["choices"][0]["logprobs"] if status == 200 else {}
+    check(status == 200 and len(lp["tokens"]) == body["usage"]["completion_tokens"] and
+          all(math.isfinite(v) and v <= 0 for v in lp["token_logprobs"]) and
+          all(len(t) <= 2 for t in lp["top_logprobs"]), f"CLI logprobs: {status} {body}")
+    status, body, _ = answers["stop"]
+    c = body["choices"][0] if status == 200 else {}
+    check(status == 200 and c["finish_reason"] == "stop" and " " not in c["text"],
+          f"CLI stop string: {status} {body}")
+    status, body, _ = answers["404"]
+    check(status == 404 and body["error"]["type"] == "model_not_found", f"CLI 404: {status} {body}")
+    from dynamo_tpu_torch.obs.metric_names import HttpMetric
+
+    rows = dict(line.rsplit(" ", 1) for line in metrics.splitlines() if not line.startswith("#"))
+    done = {ep: int(rows.get(f'{HttpMetric.REQUESTS_TOTAL}{{model="{FRONT_MODEL}",'
+                             f'endpoint="{ep}",status="success"}}', 0))
+            for ep in ("completions", "chat_completions")}
+    check(done == {"completions": 5, "chat_completions": 1} and
+          int(rows.get(f'{HttpMetric.OUTPUT_TOKENS_TOTAL}{{model="{FRONT_MODEL}"}}', 0)) > 0,
+          f"CLI /metrics: requests {done}")
+    log(f"front door CLI: `python3 -m dynamo_tpu_torch run in=http out=gpu` on the "
+        f"{FRONT_LAYERS}-layer checkpoint answered /health after {ready:.1f} s, then unary, "
+        f"streamed, chat, n=2, logprobs, stop-string and 404 requests, /metrics counted "
+        f"{done}; exit 0 on SIGTERM ({card})")
+
+
+def front_server(torch, flags: list[str], card: str, label: str, need: list[str],
+                 none: list[str]) -> None:
+    """``build_local_engine`` on the checkpoint with ``flags`` behind the
+    port's HttpService on port 0: the loaded tensors against the shards,
+    then the requests one at a time with every kernel counter zeroed just
+    before and read just after (the kernels in ``need`` must have
+    launched, those in ``none`` not), then each answer against a fresh
+    engine's greedy tokens on the same model and config, one at a time."""
+    import aiohttp
+
+    from dynamo_tpu_torch.cli import build_local_engine, parse_args
+    from dynamo_tpu_torch.engine import AsyncLLMEngine, EngineCore
+    from dynamo_tpu_torch.llm.engines import build_serving_pipeline
+    from dynamo_tpu_torch.llm.http import HttpService
+    from dynamo_tpu_torch.llm.openai import parse_request
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    args = parse_args(["run", "in=http", "out=gpu", "--model-path", str(FRONT_DIR),
+                       "--model-name", FRONT_MODEL, *flags])
+    engine, mcard = build_local_engine(args)
+    model, config = engine.core.model, engine.core.config
+    reqs = _front_requests()
+    try:
+        check_loaded(torch, model, FRONT_DIR, label)
+        wrappers = _kernel_wrappers()
+
+        async def serve():
+            svc = HttpService(port=0, core=engine.core)
+            svc.manager.add_model(FRONT_MODEL, build_serving_pipeline(engine, mcard), mcard)
+            await svc.start()
+            try:
+                async with aiohttp.ClientSession() as s:
+                    url = f"http://127.0.0.1:{svc.port}"
+                    return [await _post(s, url + path, body) for path, body in reqs]
+            finally:
+                await svc.stop()
+
+        for fn in wrappers.values():
+            fn.launches = 0
+        answers = asyncio.run(serve())
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+    finally:
+        engine.shutdown()
+    check(all(a[0] == 200 for a in answers), f"front door {label}: statuses {[a[0] for a in answers]}")
+    check(all(launches[k] > 0 for k in need) and not any(launches[k] for k in none),
+          f"front door {label}: launches {launches}, need {need} > 0, {none} = 0")
+
+    fresh = AsyncLLMEngine(EngineCore(model, config, eos_token_ids=mcard.eos_token_ids or None,
+                                      device="cuda")).start()
+    pre = OpenAIPreprocessor(mcard)
+    try:
+        async def direct():
+            out = []
+            for path, body in reqs:
+                ctx = await pre.forward(Context(parse_request(body, chat="chat" in path)))
+                toks = [t async for o in fresh.generate(Context(ctx.data)) for t in o.token_ids]
+                out.append(_detok(pre.tokenizer, toks))
+            return out
+
+        texts = asyncio.run(direct())
+    finally:
+        fresh.shutdown()
+    got = [_answer_text(a[1]) for a in answers]
+    check(got == texts, f"front door {label}: HTTP answers {got} != a fresh engine's {texts}")
+    log(f"front door {label}: build_local_engine({' '.join(flags)}) behind HttpService; "
+        f"{len(reqs)} requests one at a time (unary, streamed token-id prompt, streamed chat, "
+        f"logprobs) equal a fresh engine's greedy text; launches {launches} ({card})")
+
+
+def front_door_phase(torch, card: str) -> None:
+    t0 = time.perf_counter()
+    nbytes = write_checkpoint(torch, FRONT_DIR)
+    log(f"front door: wrote a {FRONT_LAYERS}-layer Llama-3-8B-width checkpoint, "
+        f"{nbytes / 1e9:.2f} GB in two shards, in {time.perf_counter() - t0:.1f} s")
+    cli_phase(card)
+    front_server(torch, FRONT_FLAGS, card, "bf16 default path", ["decode", "prefill"],
+                 ["decode_q8", "prefill_q8", "ragged", "ragged_q8", "matmul"])
+    torch.cuda.empty_cache()
+    front_server(torch, FRONT_INT8_FLAGS, card, "int8 token-budget path",
+                 ["decode_q8", "ragged_q8", "matmul"], ["decode", "prefill", "ragged"])
+    torch.cuda.empty_cache()
+    log(f"front door: phase wall {time.perf_counter() - t0:.1f} s ({card})")
+
+
+def _http_run(model, mcard) -> tuple[list, float]:
+    """One HTTP run on a fresh default-path engine: a warm-up request, then
+    the six prompts concurrently; returns the answers and the wall time.
+    Every stream must end on the length limit and the server must count
+    MAX_TOKENS tokens out for each request, so that decode tok/s counts
+    the tokens the streams carried."""
+    import aiohttp
+
+    from dynamo_tpu_torch.engine import AsyncLLMEngine, EngineConfig, EngineCore
+    from dynamo_tpu_torch.llm.engines import build_serving_pipeline
+    from dynamo_tpu_torch.llm.http import HttpService
+
+    engine = AsyncLLMEngine(EngineCore(model, EngineConfig(**DEFAULT_PATH), device="cuda")).start()
+
+    async def go():
+        svc = HttpService(port=0, core=engine.core)
+        svc.manager.add_model(mcard.name, build_serving_pipeline(engine, mcard), mcard)
+        await svc.start()
+        try:
+            async with aiohttp.ClientSession() as s:
+                url = f"http://127.0.0.1:{svc.port}/v1/completions"
+
+                def body(toks):
+                    return {"model": mcard.name, "prompt": toks, "max_tokens": MAX_TOKENS,
+                            "temperature": 0, "stream": True}
+
+                await _post(s, url, body(list(range(1, 40))))  # warm-up, as the direct run
+                t0 = time.perf_counter()
+                out = await asyncio.gather(*(_post(s, url, body(p)) for p in prompts()))
+                return out, time.perf_counter() - t0, svc.metrics.tokens_out[mcard.name]
+        finally:
+            await svc.stop()
+
+    try:
+        answers, wall, n_out = asyncio.run(go())
+    finally:
+        engine.shutdown()
+    check(all(a[0] == 200 and a[1][-1] == "[DONE]" for a in answers),
+          f"32-layer HTTP run: {[a[0] for a in answers]}")
+    finishes = [[e["choices"][0]["finish_reason"] for e in a[1] if e != "[DONE]" and e["choices"]
+                 and e["choices"][0].get("finish_reason")] for a in answers]
+    check(all(f == ["length"] for f in finishes) and n_out == (len(answers) + 1) * MAX_TOKENS,
+          f"32-layer HTTP run: finish reasons {finishes}, {n_out} tokens out for "
+          f"{len(answers) + 1} requests of {MAX_TOKENS}")
+    return answers, wall
+
+
+def http_serving_run(torch, model, direct: dict, card: str) -> None:
+    """The serving phase's 32-layer model behind the port's HttpService
+    with the word-level tokenizer: the six prompts as token-id completions,
+    concurrent and streamed, 32 greedy tokens each; TTFT at the client
+    (first SSE event with text).  The host's speed drifts within a call, so
+    the HTTP runs alternate with direct runs (direct, HTTP, direct, HTTP,
+    direct, the first direct run being the default path's) and the front
+    door's cost is the median of the HTTP runs' TTFT medians minus that of
+    the direct runs'."""
+    import statistics
+
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.llm.tokenizer import TokenizerWrapper
+
+    mcard = ModelDeploymentCard(name="llama3-8b", tokenizer_path=str(FRONT_DIR / "tokenizer.json"),
+                                context_length=8192)
+    tok = TokenizerWrapper.from_file(FRONT_DIR)
+    runs = {"direct": [direct], "http": []}
+    for turn in range(2):
+        answers, wall = _http_run(model, mcard)
+        ttfts = [a[2] for a in answers]
+        runs["http"].append(dict(ttfts=ttfts, decode_tok_s=len(answers) * (MAX_TOKENS - 1) /
+                                 (wall - min(ttfts))))
+        same = sum(_text(a[1]) == _detok(tok, s) for a, s in zip(answers, direct["streams"]))
+        log(f"serving over HTTP, run {turn + 1}: Llama-3-8B {model.config.num_layers} layers, "
+            f"default path, the six prompts as token-id completions, concurrent, streamed, "
+            f"{MAX_TOKENS} greedy tokens: wall {wall:.3f} s, TTFT min/median/max "
+            f"{min(ttfts):.3f}/{sorted(ttfts)[len(ttfts) // 2]:.3f}/{max(ttfts):.3f} s at the client, "
+            f"decode {runs['http'][-1]['decode_tok_s']:.1f} tok/s; {same} of {len(answers)} texts "
+            f"equal the first direct run's (informational: batch timing differs) ({card})")
+        runs["direct"].append(serve_run(torch, model, DEFAULT_PATH, card,
+                                        f"default path beside HTTP, run {turn + 2}"))
+    # a run's median as the serving lines print it (the upper of the six's two)
+    med = {k: [sorted(r["ttfts"])[len(r["ttfts"]) // 2] for r in v] for k, v in runs.items()}
+    tps = {k: [r["decode_tok_s"] for r in v] for k, v in runs.items()}
+    cost = statistics.median(med["http"]) - statistics.median(med["direct"])
+    log(f"front-door cost: TTFT medians over HTTP {[round(x, 3) for x in med['http']]} s, direct "
+        f"{[round(x, 3) for x in med['direct']]} s: {1e3 * cost:.1f} ms per request (median of "
+        f"the HTTP runs minus median of the direct runs); decode tok/s over HTTP "
+        f"{[round(x, 1) for x in tps['http']]}, direct {[round(x, 1) for x in tps['direct']]} "
+        f"({card})")
+
+
 # --------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -1414,8 +1916,11 @@ def main() -> int:
         return 3
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    import shutil
+
     from dynamo_tpu_torch.ops.kernels import build
 
+    shutil.rmtree(FRONT_DIR, ignore_errors=True)
     try:
         card = card_line()
         log(card)
@@ -1428,6 +1933,7 @@ def main() -> int:
         times = timing_phase(torch, card)
         times.update(q8_timing_phase(torch, card))
         times.update(matmul_timing(torch, card))
+        write_tokenizer(FRONT_DIR)
         default, budget, mixed = serving_phase(torch, card)
         times["ragged"] = ragged_timing(torch, card, mixed)
         times["ragged_err"] = times["ragged"].pop("err")
@@ -1436,9 +1942,12 @@ def main() -> int:
         times["ragged_q8_err"] = times["ragged_q8"].pop("err")
         parity_phase(torch, card)
         parity_phase(torch, card, quant=True)
+        front_door_phase(torch, card)
     except (SmokeFailure, RuntimeError) as e:  # a failed check, build or nvidia-smi
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        shutil.rmtree(FRONT_DIR, ignore_errors=True)
     # launches: each kernel's count over the serving run of the path it
     # carries (decode and prefill: the default path; ragged: the token-budget
     # path; the int8 kernels: the same paths on the int8 model)

@@ -56,6 +56,7 @@ import torch
 
 from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.engine.config import EngineConfig
+from dynamo_tpu_torch.engine.counters import LookaheadCounters, PrefillCounters
 from dynamo_tpu_torch.engine.request import EngineRequest, RequestState
 from dynamo_tpu_torch.engine.sampling import K_MAX, sample_full
 from dynamo_tpu_torch.llm.kv.block_manager import KvBlockManager, NoFreeBlocks
@@ -297,29 +298,15 @@ class EngineCore:
         # perf counters
         self.steps = 0
         self.prefill_steps = 0
-        # prefill batching: dispatches (any path), rows packed over them,
-        # and the token budget offered/used by batched dispatches
-        self.prefill_dispatches = 0
-        self.prefill_rows_dispatched = 0
-        self.prefill_budget_offered = 0
-        self.prefill_budget_used = 0
+        # prefill batching and unified mixed dispatch (dispatches, rows and
+        # tokens packed, budget offered/used), and lookahead bursts with the
+        # speculative next-turn prebuild commit/flush protocol: what
+        # metrics() reports and the HTTP service's /metrics renders
+        self.prefill_counters = PrefillCounters()
+        self.lookahead_counters = LookaheadCounters()
         self.decode_steps = 0
         self.tokens_generated = 0
         self.prompt_tokens_computed = 0  # actual prefill work (dedupe-aware)
-        # unified mixed prefill+decode dispatch (unified_token_dispatch)
-        self.unified_dispatches = 0      # mixed dispatches issued
-        self.unified_decode_rows = 0     # decode rows packed over them
-        self.unified_prefill_tokens = 0  # prefill tokens packed over them
-        self.unified_budget_offered = 0  # flat-axis budget offered
-        self.unified_budget_used = 0     # decode rows + prefill tokens
-        # lookahead dispatch: fused bursts, per-row prediction outcomes,
-        # and the speculative next-turn prebuild commit/flush protocol
-        self.lookahead_bursts = 0        # fused multi-turn dispatches
-        self.lookahead_hits = 0          # rows that consumed every sample
-        self.lookahead_mispredicts = 0   # rows whose stop fired mid-burst
-        self.lookahead_commits = 0       # speculative prebuilds committed
-        self.lookahead_flushes = 0       # speculative prebuilds discarded
-        self.lookahead_depth = 0         # device turns per result read (last)
         self.device_gets = 0             # step-loop device->host result reads
         # host time per turn: a step's wall time minus its device waits
         self._host_s = 0.0
@@ -447,6 +434,7 @@ class EngineCore:
         """ForwardPassMetrics equivalent, under the JAX engine's key names
         (speculative decoding is not ported: its keys report 0)."""
         active = sum(1 for s in self.slots if s is not None)
+        pc, lc = self.prefill_counters, self.lookahead_counters
         return {
             "request_active_slots": active,
             "request_total_slots": self.config.max_batch_size,
@@ -458,28 +446,19 @@ class EngineCore:
             "spec_steps": 0,
             "spec_proposed": 0,
             "spec_accepted": 0,
-            "prefill_dispatches_total": self.prefill_dispatches,
-            "prefill_batch_occupancy": (
-                self.prefill_rows_dispatched / self.prefill_dispatches
-                if self.prefill_dispatches else 0.0
-            ),
-            "prefill_budget_utilization": (
-                self.prefill_budget_used / self.prefill_budget_offered
-                if self.prefill_budget_offered else 0.0
-            ),
-            "unified_dispatches_total": self.unified_dispatches,
-            "unified_decode_rows": self.unified_decode_rows,
-            "unified_prefill_tokens": self.unified_prefill_tokens,
-            "unified_budget_utilization": (
-                self.unified_budget_used / self.unified_budget_offered
-                if self.unified_budget_offered else 0.0
-            ),
-            "lookahead_bursts_total": self.lookahead_bursts,
-            "lookahead_hits_total": self.lookahead_hits,
-            "lookahead_mispredicts_total": self.lookahead_mispredicts,
-            "lookahead_commits_total": self.lookahead_commits,
-            "lookahead_flushes_total": self.lookahead_flushes,
-            "lookahead_dispatch_depth": self.lookahead_depth,
+            "prefill_dispatches_total": pc.dispatches_total,
+            "prefill_batch_occupancy": pc.batch_occupancy,
+            "prefill_budget_utilization": pc.budget_utilization,
+            "unified_dispatches_total": pc.unified_dispatches_total,
+            "unified_decode_rows": pc.unified_decode_rows_total,
+            "unified_prefill_tokens": pc.unified_prefill_tokens_total,
+            "unified_budget_utilization": pc.unified_budget_utilization,
+            "lookahead_bursts_total": lc.bursts_total,
+            "lookahead_hits_total": lc.hits_total,
+            "lookahead_mispredicts_total": lc.mispredicts_total,
+            "lookahead_commits_total": lc.commits_total,
+            "lookahead_flushes_total": lc.flushes_total,
+            "lookahead_dispatch_depth": lc.dispatch_depth,
             "device_gets_total": self.device_gets,
             "host_gap_ms_per_turn": (
                 1e3 * self._host_s / self._turns if self._turns else 0.0
@@ -723,8 +702,7 @@ class EngineCore:
         self.steps += 1
         sampled, lps, cids, clps = _unpack(self._read(packed))
         self.prefill_steps += 1
-        self.prefill_dispatches += 1
-        self.prefill_rows_dispatched += 1
+        self.prefill_counters.record(rows=1, tokens=take)
         self.prompt_tokens_computed += take
         req.computed_tokens = end
         self._commit_prefill_blocks(req)
@@ -821,10 +799,7 @@ class EngineCore:
         take_sum = sum(take for _, _, take, _ in plan)
         self.prefill_steps += 1
         self.prompt_tokens_computed += take_sum
-        self.prefill_dispatches += 1
-        self.prefill_rows_dispatched += len(plan)
-        self.prefill_budget_offered += budget
-        self.prefill_budget_used += take_sum
+        self.prefill_counters.record(rows=len(plan), tokens=take_sum, budget=budget)
         for r, (req, _, take, final) in enumerate(plan):
             req.computed_tokens += take
             self._commit_prefill_blocks(req)
@@ -890,9 +865,9 @@ class EngineCore:
                        d_region, r_pad, t_pad)
                 if spec["key"] == key:
                     arrays, max_pb = spec["arrays"], spec["max_pb"]
-                    self.lookahead_commits += 1
+                    self.lookahead_counters.record_commit()
                 else:
-                    self.lookahead_flushes += 1
+                    self.lookahead_counters.record_flush()
         if arrays is None:
             arrays = self._alloc_unified_arrays(r_pad, t_pad)
             off = d_region
@@ -955,15 +930,10 @@ class EngineCore:
         self.prefill_steps += 1
         self.decode_steps += k_steps
         self.prompt_tokens_computed += take_sum
-        self.prefill_dispatches += 1
-        self.prefill_rows_dispatched += len(sel)
-        self.prefill_budget_offered += budget
-        self.prefill_budget_used += take_sum
-        self.unified_dispatches += 1
-        self.unified_decode_rows += n_dec
-        self.unified_prefill_tokens += take_sum
-        self.unified_budget_offered += cfg.prefill_token_budget
-        self.unified_budget_used += n_dec + take_sum
+        self.prefill_counters.record(rows=len(sel), tokens=take_sum, budget=budget)
+        self.prefill_counters.record_unified(
+            decode_rows=n_dec, prefill_tokens=take_sum,
+            budget=cfg.prefill_token_budget)
 
         hits = mis = 0
         for r, req in enumerate(dec):
@@ -993,10 +963,7 @@ class EngineCore:
             else:
                 hits += 1
         if burst:
-            self.lookahead_bursts += 1
-            self.lookahead_hits += hits
-            self.lookahead_mispredicts += mis
-            self.lookahead_depth = k_steps
+            self.lookahead_counters.record_burst(k_steps, hits, mis)
         for j, (req, _, take, final) in enumerate(sel):
             r = n_dec + j
             req.computed_tokens += take

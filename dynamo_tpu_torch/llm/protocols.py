@@ -95,6 +95,9 @@ class LLMEngineOutput:
     logprobs: Optional[list[float]] = None
     # per-token top-N candidates as (token_id, logprob) pairs
     top_logprobs: Optional[list[list[tuple]]] = None
+    # display-form logprobs (token strings + bytes), filled by the Backend:
+    # [{token, logprob, bytes, top_logprobs: [{token, logprob, bytes}]}]
+    logprob_content: Optional[list[dict]] = None
 
     def __post_init__(self):
         if isinstance(self.finish_reason, str):

@@ -1,0 +1,194 @@
+"""HuggingFace checkpoint directory → the port's state dict.
+
+The counterpart of ``dynamo_tpu/models/loader.py``: HF Llama-family weight
+names map onto the layout of ``models/llama.py::param_shapes`` (matrices
+transposed to ``[in, out]`` and stacked on a leading L axis), so
+``LlamaModel.from_state`` serves the result.  The directory's
+``*.safetensors`` files are read lazily with ``framework="pt"`` onto the
+target device, one tensor at a time (bf16 never passes through float32 and
+the checkpoint is never whole in host memory), from one file or from shards
+listed in ``model.safetensors.index.json``.  Phi-3's fused ``qkv_proj`` and
+``gate_up_proj`` are split, tied embeddings leave out ``lm_head``, and with
+``quantize`` each matmul weight is quantised to int8 layer by layer as it is
+read (``models/quant.py``, the arithmetic of the JAX package's
+``quantize_params`` on the loaded tree), so the dense model is never made.
+MoE and DeepSeek directories raise ``NotImplementedError``: those models are
+not ported yet.
+"""
+
+from __future__ import annotations
+
+import json
+from pathlib import Path
+
+import torch
+
+from dynamo_tpu_torch.device import resolve_device
+from dynamo_tpu_torch.models.config import ModelConfig
+from dynamo_tpu_torch.models.llama import SCALE, param_shapes
+from dynamo_tpu_torch.models.quant import CHANNEL_AXES, quantize, stacked_channel_axes
+
+__all__ = ["SafetensorsDir", "load_state_from_dir", "load_model_dir", "is_deepseek_dir"]
+
+
+class SafetensorsDir:
+    """The tensors of every ``*.safetensors`` file in a directory, by name,
+    each read on demand onto ``device``."""
+
+    def __init__(self, model_dir: str | Path, device: torch.device):
+        from safetensors import safe_open
+
+        self._open = safe_open
+        self._device = str(device)
+        d = Path(model_dir)
+        self.files: dict[str, Path] = {}
+        index = d / "model.safetensors.index.json"
+        if index.exists():
+            for name, fname in json.loads(index.read_text())["weight_map"].items():
+                self.files[name] = d / fname
+        else:
+            for f in sorted(d.glob("*.safetensors")):
+                with safe_open(f, framework="pt") as sf:
+                    for name in sf.keys():
+                        self.files[name] = f
+        if not self.files:
+            raise FileNotFoundError(f"no safetensors files in {d}")
+
+    def __contains__(self, name: str) -> bool:
+        return name in self.files
+
+    def get(self, name: str) -> torch.Tensor:
+        with self._open(self.files[name], framework="pt", device=self._device) as sf:
+            return sf.get_tensor(name)
+
+
+def _hf_names(cfg: ModelConfig) -> dict[str, tuple[str, bool]]:
+    """Port parameter name -> (HF name, with ``{i}`` for the layer; whether
+    the HF matrix is transposed), for every parameter but the fused ones."""
+    lay = "model.layers.{i}."
+    names = {
+        "embed": ("model.embed_tokens.weight", False),
+        "final_norm": ("model.norm.weight", False),
+        "lm_head": ("lm_head.weight", True),
+        "layers.attn_norm": (lay + "input_layernorm.weight", False),
+        "layers.wq": (lay + "self_attn.q_proj.weight", True),
+        "layers.wk": (lay + "self_attn.k_proj.weight", True),
+        "layers.wv": (lay + "self_attn.v_proj.weight", True),
+        "layers.wo": (lay + "self_attn.o_proj.weight", True),
+        # Gemma2 renames the pre-MLP norm and adds sandwich norms; in the
+        # Llama family post_attention_layernorm IS the pre-MLP norm
+        "layers.mlp_norm": (lay + ("pre_feedforward_layernorm.weight" if cfg.post_norms
+                                   else "post_attention_layernorm.weight"), False),
+        "layers.post_attn_norm": (lay + "post_attention_layernorm.weight", False),
+        "layers.post_mlp_norm": (lay + "post_feedforward_layernorm.weight", False),
+        "layers.bq": (lay + "self_attn.q_proj.bias", False),
+        "layers.bk": (lay + "self_attn.k_proj.bias", False),
+        "layers.bv": (lay + "self_attn.v_proj.bias", False),
+        "layers.q_norm": (lay + "self_attn.q_norm.weight", False),
+        "layers.k_norm": (lay + "self_attn.k_norm.weight", False),
+        "layers.w_gate": (lay + "mlp.gate_proj.weight", True),
+        "layers.w_up": (lay + "mlp.up_proj.weight", True),
+        "layers.w_down": (lay + "mlp.down_proj.weight", True),
+    }
+    return names
+
+
+# Phi-3 fuses these into one HF matrix each: (HF name, parts in order)
+_FUSED = {
+    "model.layers.{i}.self_attn.qkv_proj.weight": ("layers.wq", "layers.wk", "layers.wv"),
+    "model.layers.{i}.mlp.gate_up_proj.weight": ("layers.w_gate", "layers.w_up"),
+}
+
+
+class _Writer:
+    """The state dict being filled: each parameter allocated once on the
+    device in its dtype (int8 codes and f32 scales when it is quantised),
+    filled one layer (or one whole unstacked tensor) at a time."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device, dtype: torch.dtype, quant: bool):
+        self.shapes = param_shapes(cfg, quant)
+        self.device, self.dtype, self.quant = device, dtype, quant
+        self.state: dict[str, torch.Tensor] = {}
+        for name, shape in self.shapes.items():
+            dt = (torch.float32 if name.endswith(SCALE)
+                  else torch.int8 if name + SCALE in self.shapes else dtype)
+            self.state[name] = torch.empty(shape, dtype=dt, device=device)
+
+    def put(self, name: str, w: torch.Tensor, layer: int | None) -> None:
+        """Write ``w`` (already ``[in, out]``) as the whole parameter or its
+        layer ``layer``, rounding to the model dtype first, then quantising
+        when the parameter is int8."""
+        w = w.to(self.dtype)
+        if name + SCALE not in self.shapes:
+            (self.state[name] if layer is None else self.state[name][layer]).copy_(w)
+            return
+        base = name.split(".", 1)[-1]
+        axes = CHANNEL_AXES[base] if base == "embed" else stacked_channel_axes(w.ndim,
+                                                                              CHANNEL_AXES[base])
+        qt = quantize(w, axes)
+        q, s = ((self.state[name], self.state[name + SCALE]) if layer is None else
+                (self.state[name][layer], self.state[name + SCALE][layer]))
+        q.copy_(qt.q)
+        s.copy_(qt.scale)
+
+
+def load_state_from_dir(cfg: ModelConfig, model_dir: str | Path, device=None,
+                        quantize: bool = False) -> dict[str, torch.Tensor]:
+    """The state dict of the checkpoint in ``model_dir`` for ``cfg`` (whose
+    dtype the dense parameters take), on ``device`` (cuda unless named)."""
+    dev = resolve_device(device)
+    files = SafetensorsDir(model_dir, dev)
+    out = _Writer(cfg, dev, cfg.torch_dtype, quantize)
+    hf = _hf_names(cfg)
+    dh = cfg.head_dim
+    sizes = {"layers.wq": cfg.num_heads * dh, "layers.wk": cfg.num_kv_heads * dh,
+             "layers.wv": cfg.num_kv_heads * dh, "layers.w_gate": cfg.intermediate_size,
+             "layers.w_up": cfg.intermediate_size}
+    fused = {}
+    for fmt, parts in _FUSED.items():
+        if fmt.format(i=0) in files:
+            fused[fmt] = parts
+    done = {p for parts in fused.values() for p in parts}
+    for fmt, parts in fused.items():
+        for i in range(cfg.num_layers):
+            # one read of each layer's fused [sum(sizes), in] matrix
+            w = files.get(fmt.format(i=i))
+            off = 0
+            for name in parts:
+                out.put(name, w[off:off + sizes[name]].t(), i)
+                off += sizes[name]
+    for name in out.shapes:
+        if name.endswith(SCALE) or name in done:
+            continue
+        fmt, transpose = hf[name]
+        if name.startswith("layers."):
+            for i in range(cfg.num_layers):
+                w = files.get(fmt.format(i=i))
+                out.put(name, w.t() if transpose else w, i)
+        else:
+            w = files.get(fmt)
+            out.put(name, w.t() if transpose else w, None)
+    return out.state
+
+
+def is_deepseek_dir(model_dir: str | Path) -> bool:
+    """True when config.json declares a DeepSeek architecture."""
+    p = Path(model_dir) / "config.json"
+    if not p.exists():
+        return False
+    try:
+        archs = json.loads(p.read_text()).get("architectures") or []
+    except (OSError, ValueError):
+        return False
+    return any(str(a).startswith("Deepseek") for a in archs)
+
+
+def load_model_dir(model_dir: str | Path, dtype: str = "bfloat16", device=None,
+                   quantize: bool = False) -> tuple[ModelConfig, dict[str, torch.Tensor]]:
+    """(ModelConfig, state dict) from a local HF model directory."""
+    if is_deepseek_dir(model_dir):
+        raise NotImplementedError("DeepSeek (MLA) models are not ported yet")
+    cfg = ModelConfig.from_hf_config(model_dir, dtype=dtype)
+    if cfg.is_moe:
+        raise NotImplementedError("MoE layers are not ported yet")
+    return cfg, load_state_from_dir(cfg, model_dir, device=device, quantize=quantize)

@@ -34,6 +34,16 @@ class Context(Generic[T]):
         # free-form per-request annotations
         self.annotations: dict[str, Any] = {}
 
+    def map(self, data: U) -> "Context[U]":
+        """New payload, same identity, annotations and cancellation."""
+        ctx: Context[U] = Context.__new__(Context)
+        ctx.data = data
+        ctx.id = self.id
+        ctx._stop = self._stop
+        ctx._kill = self._kill
+        ctx.annotations = self.annotations
+        return ctx
+
     def stop_generating(self) -> None:
         self._stop.set()
 
