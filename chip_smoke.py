@@ -26,14 +26,26 @@ Phases, in order; any failure ends the run with a non-zero exit:
    W8A16 matmul runs at every projection shape of Llama-3-8B and its
    lm_head (f32 out), at M = 1 to 1504 across both regimes' edges, for a
    [K, N] weight and for the transpose of an [N, K] one, then at ragged
-   shapes (N = 32002 or 1000, K = 4104), and a split-K launch is run twice
-   and must give the same bits.  Then decode, prefill and the
-   matmul are timed at the serving paths' shapes (decode and the matmul as
-   CUDA graphs, the card's time, and eagerly for the log; a graph replay of
+   shapes (N = 32002 or 1000, K = 4104) and at Qwen3-30B-A3B's attention
+   projections and lm_head (K = 2048 to N = 4096, 512 and 151,936; 4096 to
+   2048), and a split-K launch is run twice and must give the same bits.
+   The grouped expert matmul (E1 over bf16 experts, E2 over int8 ones) runs
+   at Qwen3-30B-A3B's expert shapes (128 experts, top 8, [2048, 768] and
+   [768, 2048]) for 1, 8, 1,504 and 3,765 tokens and at one Mixtral-8x7B
+   layer's stack (8 experts, top 2, [4096, 14336] and [14336, 4096]) for 8
+   and 1,504 tokens, with uniform routing and with every row on one expert,
+   and at shapes off its tiles (K = 144, N = 200 and 208), each launch
+   twice for the same bits; the MoE MLP as a whole (router,
+   sort, grouped launches, combine) is held to the dense oracle.  Then
+   decode, prefill, the matmul and one MoE layer's three grouped launches
+   (T = 8 and 1,504) are timed at the serving paths' shapes (decode, the
+   matmul and the grouped launches as CUDA graphs, the card's time, and
+   eagerly for the log; a graph replay of
    each decode kernel must give the eager launch's bits) beside their plain
    versions, a PyTorch library call on the same work (the median of three
-   readings, timed as its kernel is: decode's SDPA also as a CUDA graph),
-   and their bound on this card;
+   readings, timed as its kernel is: decode's SDPA also as a CUDA graph;
+   for the grouped launches ``torch._grouped_mm`` and a per-expert cuBLAS
+   loop, both as CUDA graphs), and their bound on this card;
 4. serving: Llama-3-8B at full width and depth (random weights from a
    seeded generator) behind ``AsyncLLMEngine``, six concurrent greedy
    requests (17 to 1500 prompt tokens, two sharing a 256-token prefix),
@@ -67,7 +79,23 @@ Phases, in order; any failure ends the run with a non-zero exit:
    tensors against the shards, and each answer, one request at a time,
    against a fresh engine's greedy tokens; the bf16 server must launch the
    decode and prefill kernels, the int8 one the int8 decode, int8 ragged and
-   W8A16 kernels.
+   W8A16 kernels;
+7. mixture of experts, serving: Qwen3-30B-A3B at full width and depth (48
+   layers, 128 experts, random weights from a seeded generator) behind
+   ``AsyncLLMEngine``, the six requests on bf16 weights and the default
+   path (decode, prefill and E1 kernels), then on int8 weights and an int8
+   cache (Bs = 32) on the token-budget path (int8 decode, int8 ragged,
+   W8A16 and E2 kernels), each run profiled;
+8. mixture of experts, parity: phase 5's four logit checks on a 2-layer
+   model at Qwen3-30B-A3B width;
+9. mixture of experts, front door: a 2-layer Qwen3-MoE checkpoint at
+   Qwen3-30B-A3B width under the real checkpoint's tensor names (3.7 GB,
+   384 expert tensors a layer) with a word-level tokenizer of 151,936 ids,
+   served by the CLI (bf16, then ``--quantize int8``) and by
+   ``build_local_engine`` as in phase 6 (bf16 default path: decode, prefill
+   and E1; int8 token-budget path: int8 decode, int8 ragged, W8A16 and E2),
+   the loaded tensors held to the shards and the answers to a fresh
+   engine's.
 
 Then one ``{"kernels": [...]}`` line, and as the last line
 ``{"ok": true, "device": {...}}``.
@@ -118,6 +146,9 @@ MATMUL_ROWS = (1, 6, 8, 16, 17, 64, 65, 128, 129, 300, 1504)
 # [K, N] with rows off 16 bytes in one layout or both (a 32002-token
 # vocabulary, a depth of 4104), at row counts of both regimes
 RAGGED_MATMULS = ((4096, 32002), (4104, 32002), (4104, 1000))
+# Qwen3-30B-A3B's int8 attention projections and lm_head, [K, N]
+QWEN3_MOE_MATMULS = {"wq": (2048, 4096), "wk/wv": (2048, 512), "wo": (4096, 2048),
+                     "lm_head": (2048, 151936)}
 RAGGED_MATMUL_ROWS = (1, 8, 16, 17, 300)
 
 # bf16 tolerance, kernel vs plain version on identical bf16 inputs, per
@@ -145,6 +176,17 @@ KERNEL_RTOL = 2.0 ** -6
 # adds noise of the order of the bf16 roundings: the same bounds hold.
 PARITY_REL_L2 = 5e-2
 PARITY_MAX_REL = 1e-1
+# An MoE router picks experts by comparing logits, so the card (bf16 hidden
+# states, logits rounded to bf16) and the CPU (f32) can pick a different
+# expert for a token whose k-th and (k+1)-th logits nearly tie, and then
+# that token's output differs by a whole expert's share, far past the
+# bounds above.  The logits are therefore compared with the CPU routed as
+# the card routed (its own f32 logits weighting the card's experts); and
+# where its own choice differs, the CPU's logits of the card's expert and
+# of its own k-th must lie within ROUTE_TIE: about five times the card's
+# logit error on unit-variance logits (hidden states ~1% off after a layer,
+# plus the bf16 rounding of the logit, 2**-8 relative).
+ROUTE_TIE = 0.1
 
 
 class SmokeFailure(RuntimeError):
@@ -166,14 +208,16 @@ def log(msg: str) -> None:
 # __nv_bfloat16 for B1, `a`, signed char, for B4a) at D = 64 and 128 with
 # 4, 8 or 16 query rows and at D = 256 with 4 or 8
 DECODE_BF16, DECODE_INT8 = "13decode_kernelI13__nv_bfloat16", "13decode_kernelIa"
-SASS_INSTANTIATIONS = {"wgmma_prefill_kernel": 6, DECODE_BF16: 8, DECODE_INT8: 8}
+SASS_INSTANTIATIONS = {"wgmma_prefill_kernel": 6, DECODE_BF16: 8, DECODE_INT8: 8,
+                       "grouped_matmul_kernel": 4}
 
 
 def sass_check(torch, lib_path) -> None:
     """The redesigned kernels as compiled: the wgmma kernels (B5 above 16
     rows, the paged prefill kernels B2 and B4b, and every ragged
-    instantiation, B3 and B4c) issue HGMMA, and they, B5's decode kernel and
-    the decode attention kernel over each cache (B1, B4a) copy with LDGSTS
+    instantiation, B3 and B4c) issue HGMMA, and they, B5's decode kernel,
+    the decode attention kernel over each cache (B1, B4a) and the grouped
+    expert kernel (E1, E2; all four instantiations) copy with LDGSTS
     (cp.async), except B5's instantiations for rows off 16 bytes (template
     flag VEC = false), which copy element by element.  Logged per kernel
     with its instructions' counts; a missing instruction fails."""
@@ -197,7 +241,8 @@ def sass_check(torch, lib_path) -> None:
         return m is None or m.group(1).endswith("Lb1")
 
     want = {"w8a16_wgmma_kernel": True, "wgmma_prefill_kernel": True, "ragged_kernel": True,
-            "w8a16_decode_kernel": False, DECODE_BF16: False, DECODE_INT8: False}
+            "w8a16_decode_kernel": False, DECODE_BF16: False, DECODE_INT8: False,
+            "grouped_matmul_kernel": False}
     for key, needs_hgmma in want.items():
         found = {n: c for n, c in counts.items() if key in n}
         check(bool(found), f"sass: no {key} in the library")
@@ -439,6 +484,7 @@ def kernel_phase(torch) -> dict:
     for key, e in ragged_edge_phase(torch, gen).items():
         errs[key] = max(errs[key], e)
     errs["matmul"] = matmul_phase(torch, gen)
+    errs.update(moe_kernel_phase(torch, gen))
     return errs
 
 
@@ -564,7 +610,8 @@ def matmul_phase(torch, gen) -> float:
     Llama-3-8B, both weight layouts, at row counts on both sides of the
     decode regime's limit (16) and of the wgmma regime's 128-row tiles, and
     at the serving paths' decode and prefill counts; then at ragged shapes
-    (rows off 16 bytes: a 32002-token vocabulary, a depth of 4104), and a
+    (rows off 16 bytes: a 32002-token vocabulary, a depth of 4104), at
+    Qwen3-30B-A3B's attention projections and lm_head, and a
     split-K launch run twice, which must give the same bits."""
     from dynamo_tpu_torch.ops.kernels.int8_matmul import int8_matmul, int8_matmul_ref
 
@@ -595,6 +642,17 @@ def matmul_phase(torch, gen) -> float:
                                     int8_matmul_ref(x, wq, scale)))
             del wq, scale
         log(f"kernel matmul ragged [K, N]=[{k}, {n}] M in {RAGGED_MATMUL_ROWS}, both layouts: "
+            f"max abs err {max(errs):.3g}")
+        worst = max(worst, *errs)
+    for name, (k, n) in QWEN3_MOE_MATMULS.items():
+        out_dtype = torch.float32 if name == "lm_head" else torch.bfloat16
+        wq, scale = _q8_weight(torch, gen, k, n, "kn")
+        errs = [compare(torch, f"matmul Qwen3-30B-A3B {name} [{k}, {n}] M={m}",
+                        int8_matmul(x, wq, scale, out_dtype), int8_matmul_ref(x, wq, scale, out_dtype))
+                for m in MATMUL_ROWS
+                for x in [torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)]]
+        del wq, scale
+        log(f"kernel matmul Qwen3-30B-A3B {name} [K, N]=[{k}, {n}] M in {MATMUL_ROWS}: "
             f"max abs err {max(errs):.3g}")
         worst = max(worst, *errs)
     # wk splits K 64 ways at M = 8 (decode regime), 16 ways at M = 64
@@ -1031,6 +1089,233 @@ def ragged_timing(torch, card: str, mixed: dict, quant: bool = False) -> dict:
     return out
 
 
+# --------------------------------------------------------- mixture of experts
+# (experts, top k, hidden, expert width): Qwen3-30B-A3B (Qwen/Qwen3-30B-A3B
+# config.json), served below, and Mixtral-8x7B (mistralai/Mixtral-8x7B-v0.1
+# config.json), 93 GB in bf16, so only one layer's expert stack is checked
+MOE_GEOMS = {"Qwen3-30B-A3B": (128, 8, 2048, 768), "Mixtral-8x7B": (8, 2, 4096, 14336)}
+# tokens per check: one decode row, a decode step at 8 slots, the longest
+# prompt, and a dispatch of 3,765 tokens (the six prompts' total)
+MOE_TOKENS = {"Qwen3-30B-A3B": (1, 8, 1504, 3765), "Mixtral-8x7B": (8, 1504)}
+# the grouped kernel's edges: 5 experts of [144, N] and [N, 144] (a depth
+# off the 64-deep stage, N off the 128-channel tile: 200 takes bf16's
+# 8-channel copies, 208 int8's 16), top 2 of 37 and 300 tokens (both row
+# tiles)
+MOE_EDGE = dict(experts=5, k=2, depth=144, n={False: 200, True: 208}, tokens=(37, 300))
+
+
+def qwen3_30b_a3b(num_layers: int = 48):
+    from dynamo_tpu_torch.models.config import ModelConfig
+
+    return ModelConfig(vocab_size=151936, hidden_size=2048, intermediate_size=768,
+                       num_layers=num_layers, num_heads=32, num_kv_heads=4, head_dim=128,
+                       rope_theta=1e6, rms_norm_eps=1e-6, max_position_embeddings=40960,
+                       qk_norm=True, num_experts=128, num_experts_per_tok=8, norm_topk_prob=True,
+                       dtype="bfloat16")
+
+
+def _moe_offsets(torch, gen, t, experts, k, routing):
+    """Group offsets [E + 1] int32 on the card for t tokens' top-k rows
+    sorted by expert: "uniform" (each token's k distinct experts drawn at
+    random) or "one" (every row on one expert, every other expert empty)."""
+    counts = torch.zeros(experts, dtype=torch.int64, device="cuda")
+    if routing == "one":
+        counts[experts // 3] = t * k
+    else:
+        topi = torch.rand((t, experts), generator=gen, device="cuda").argsort(dim=-1)[:, :k]
+        counts += torch.bincount(topi.flatten(), minlength=experts)
+    offsets = torch.zeros(experts + 1, dtype=torch.int32, device="cuda")
+    offsets[1:] = counts.cumsum(0)
+    return offsets
+
+
+def _expert_stack(torch, gen, experts, k, n, quant):
+    """Random experts [E, K, N]: bf16 N(0, 1/K), or int8 codes (a QTensor)
+    with scales [E, 1, N] that give the same spread."""
+    from dynamo_tpu_torch.models.quant import QTensor
+
+    if quant:
+        wq = torch.randint(-127, 128, (experts, k, n), generator=gen, device="cuda", dtype=torch.int8)
+        scale = (0.5 + torch.rand((experts, 1, n), generator=gen, device="cuda")) / (73.3 * math.sqrt(k))
+        return QTensor(wq, scale)
+    out = torch.empty((experts, k, n), dtype=torch.bfloat16, device="cuda")
+    for e in range(experts):  # one expert's f32 draw at a time
+        out[e] = torch.randn((k, n), generator=gen, device="cuda").div_(math.sqrt(k))
+    return out
+
+
+def _grouped(quant):
+    """(kernel, plain version) of E2 (``quant``) or E1, taking (x, w, offsets)
+    with w a QTensor for E2."""
+    from dynamo_tpu_torch.ops.kernels import grouped_matmul as g
+
+    if quant:
+        return (lambda x, w, o: g.grouped_matmul_q8(x, w.q, w.scale, o),
+                lambda x, w, o: g.grouped_matmul_q8_ref(x, w.q, w.scale, o))
+    return g.grouped_matmul, g.grouped_matmul_ref
+
+
+def moe_kernel_phase(torch, gen) -> dict:
+    """The grouped expert kernels (E1 bf16, E2 int8) against their plain
+    versions at Qwen3-30B-A3B's expert shapes ([2048, 768] gate/up, [768,
+    2048] down) for 1, 8, 1,504 and 3,765 tokens of top-8 rows, and at one
+    Mixtral-8x7B layer's ([4096, 14336], [14336, 4096]) for 8 and 1,504
+    tokens of top-2 rows, each with uniform routing and with every row on
+    one expert (the others empty), and at the tile edges (``MOE_EDGE``);
+    every launch run twice for the same bits.  Then the MoE MLP as a whole (router, sort, three grouped
+    launches, combine) against the dense oracle, bf16 and int8."""
+    errs = {"moe": 0.0, "moe_q8": 0.0}
+    for model, (experts, k, dm, f) in MOE_GEOMS.items():
+        for quant in (False, True):
+            key = "moe_q8" if quant else "moe"
+            kernel, plain = _grouped(quant)
+            stacks = {"gate/up": (dm, _expert_stack(torch, gen, experts, dm, f, quant)),
+                      "down": (f, _expert_stack(torch, gen, experts, f, dm, quant))}
+            worst = 0.0
+            for t in MOE_TOKENS[model]:
+                for routing in ("uniform", "one"):
+                    offsets = _moe_offsets(torch, gen, t, experts, k, routing)
+                    for name, (kdim, w) in stacks.items():
+                        x = torch.randn((t * k, kdim), generator=gen, device="cuda").to(torch.bfloat16)
+                        what = f"{key} {model} {name} T={t} ({t * k} rows) {routing}"
+                        out = kernel(x, w, offsets)
+                        check(torch.equal(out, kernel(x, w, offsets)), f"{what}: two launches differ")
+                        worst = max(worst, compare(torch, what, out, plain(x, w, offsets)))
+            log(f"kernel {key} {model} ({experts} experts, top {k}, [{dm}, {f}] and [{f}, {dm}]) "
+                f"T in {MOE_TOKENS[model]}, uniform and one-expert routing: max abs err {worst:.3g}, "
+                f"every launch twice bit-identical")
+            errs[key] = max(errs[key], worst)
+            del stacks
+            torch.cuda.empty_cache()
+    for quant in (False, True):
+        kernel, plain = _grouped(quant)
+        e, k, kd, n = MOE_EDGE["experts"], MOE_EDGE["k"], MOE_EDGE["depth"], MOE_EDGE["n"][quant]
+        worst = 0.0
+        for a, b in ((kd, n), (n, kd)):
+            w = _expert_stack(torch, gen, e, a, b, quant)
+            for t in MOE_EDGE["tokens"]:
+                offsets = _moe_offsets(torch, gen, t, e, k, "uniform")
+                x = torch.randn((t * k, a), generator=gen, device="cuda").to(torch.bfloat16)
+                what = f"{'moe_q8' if quant else 'moe'} edge [{a}, {b}] T={t}"
+                out = kernel(x, w, offsets)
+                check(torch.equal(out, kernel(x, w, offsets)), f"{what}: two launches differ")
+                worst = max(worst, compare(torch, what, out, plain(x, w, offsets)))
+        log(f"kernel {'moe_q8' if quant else 'moe'} edges: {e} experts, [{kd}, {n}] and [{n}, {kd}], "
+            f"T in {MOE_EDGE['tokens']}: max abs err {worst:.3g}, every launch twice bit-identical")
+        errs["moe_q8" if quant else "moe"] = max(errs["moe_q8" if quant else "moe"], worst)
+    moe_mlp_check(torch, gen)
+    return errs
+
+
+def moe_mlp_check(torch, gen) -> None:
+    """``_moe_mlp_grouped`` (the serving path: router, stable sort, the
+    grouped kernel, the inverse-permutation combine) against
+    ``_moe_mlp_dense`` (every expert on every token, cuBLAS) on the card at
+    Qwen3-30B-A3B width, bf16 and int8 experts, one layer."""
+    from dynamo_tpu_torch.models.llama import _moe_mlp_dense, _moe_mlp_grouped
+
+    cfg = qwen3_30b_a3b(1)
+    experts, _, dm, f = MOE_GEOMS["Qwen3-30B-A3B"]
+    router = (torch.randn((dm, experts), generator=gen, device="cuda") / math.sqrt(dm)).to(torch.bfloat16)
+    for quant in (False, True):
+        lp = {"router": router, "w_gate": _expert_stack(torch, gen, experts, dm, f, quant),
+              "w_up": _expert_stack(torch, gen, experts, dm, f, quant),
+              "w_down": _expert_stack(torch, gen, experts, f, dm, quant)}
+        errs = []
+        for t in (1, 8, 64):
+            x = torch.randn((1, t, dm), generator=gen, device="cuda").to(torch.bfloat16)
+            got = _moe_mlp_grouped(cfg, lp, x)
+            check(torch.equal(got, _moe_mlp_grouped(cfg, lp, x)), f"moe MLP T={t}: two runs differ")
+            errs.append(compare(torch, f"moe MLP {'int8' if quant else 'bf16'} T={t}", got,
+                                _moe_mlp_dense(cfg, lp, x)))
+        log(f"kernel moe MLP (router + grouped dispatch + combine) vs the dense oracle, Qwen3-30B-A3B "
+            f"width, {'int8' if quant else 'bf16'} experts, T = 1, 8, 64: max abs err {max(errs):.3g}, "
+            f"two runs bit-identical")
+        del lp
+    torch.cuda.empty_cache()
+
+
+def moe_timing(torch, card: str) -> dict:
+    """One Qwen3-30B-A3B layer's three grouped launches (gate and up on the
+    sorted rows, down on the activations), uniform routing, at a decode
+    step (T = 8: 64 rows) and at the longest prompt's prefill (T = 1,504:
+    12,032 rows), two layers' stacks in turn (past the 50 MB L2): the kernel
+    as a CUDA graph (the card's time) and eagerly, the plain version, the
+    per-expert cuBLAS loop over the same groups as a CUDA graph (int8: on
+    the experts dequantised beforehand), ``torch._grouped_mm`` where this
+    torch has it (the ``library_ms``; int8: on dequantised experts), and
+    the bound: the weight bytes of the experts the rows route to (counted),
+    x and every launch's input and output once, against 2 R K N per
+    launch."""
+    from dynamo_tpu_torch.models.quant import dequantize
+
+    experts, k, dm, f = MOE_GEOMS["Qwen3-30B-A3B"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    names = {"w_gate": (dm, f), "w_up": (dm, f), "w_down": (f, dm)}
+    out = {}
+    for quant in (False, True):
+        key = "moe_q8" if quant else "moe"
+        kernel, plain = _grouped(quant)
+        layers = [{n: _expert_stack(torch, gen, experts, kd, nd, quant) for n, (kd, nd) in names.items()}
+                  for _ in range(2)]
+        dense = [{n: dequantize(w, torch.bfloat16) for n, w in layer.items()} for layer in layers]
+        for t in (8, 1504):
+            r = t * k
+            offsets = _moe_offsets(torch, gen, t, experts, k, "uniform")
+            bounds = offsets.tolist()
+            groups = [(e, bounds[e], bounds[e + 1]) for e in range(experts) if bounds[e + 1] > bounds[e]]
+            xs = {"w_gate": torch.randn((r, dm), generator=gen, device="cuda").to(torch.bfloat16)}
+            xs["w_up"] = xs["w_gate"]
+            xs["w_down"] = torch.randn((r, f), generator=gen, device="cuda").to(torch.bfloat16)
+            outs = {n: torch.empty((r, nd), dtype=torch.bfloat16, device="cuda") for n, (_, nd) in names.items()}
+
+            def calls(fn):
+                return [lambda li=li, n=n: fn(xs[n], layers[li][n], offsets) for li in range(2) for n in names]
+
+            def cublas():
+                for li in range(2):
+                    for n in names:
+                        for e, lo, hi in groups:
+                            torch.matmul(xs[n][lo:hi], dense[li][n][e], out=outs[n][lo:hi])
+
+            iters = 20 if t == 8 else 5
+            ms = graph_time_ms(calls(kernel), iters) / 2
+            eager = cuda_time_ms(lambda i: [c() for c in calls(kernel)], iters) / 2
+            plain_ms = cuda_time_ms(lambda i: [c() for c in calls(plain)], 3) / 2
+            loop_ms = median_ms(lambda: graph_time_ms([cublas], iters) / 2)
+            lib_ms = None
+            if hasattr(torch, "_grouped_mm"):
+                ends = offsets[1:].contiguous()
+                try:
+                    lib_ms = median_ms(lambda: graph_time_ms([
+                        lambda li=li, n=n: torch._grouped_mm(xs[n], dense[li][n], offs=ends)
+                        for li in range(2) for n in names], iters) / 2)
+                except RuntimeError as e:  # a yardstick this torch cannot run is recorded, not used
+                    log(f"time {key}: torch._grouped_mm did not run here: {str(e)[:200]}")
+            err = max(compare(torch, f"{key} timing {n} T={t}", calls(kernel)[i](), calls(plain)[i]())
+                      for i, n in enumerate(names))
+            wb = 1 if quant else 2
+            nbytes = (len(groups) * sum(kd * nd for kd, nd in names.values()) * wb
+                      + (len(groups) * sum(nd for _, nd in names.values()) * 4 if quant else 0)
+                      + sum(2 * r * (kd + nd) for kd, nd in names.values()))
+            flops = sum(2 * r * kd * nd for kd, nd in names.values())
+            b = _bound(flops, nbytes)
+            row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **b)
+            log(f"time {key} one Qwen3-30B-A3B layer's 3 grouped launches at T={t} ({r} rows, "
+                f"{len(groups)} of {experts} experts routed to): kernel {ms:.4f} ms (CUDA graph), "
+                f"eager {eager:.4f} ms, plain {plain_ms:.4f} ms, per-expert cuBLAS loop "
+                f"{'on dequantised experts ' if quant else ''}{loop_ms:.4f} ms (CUDA graph), "
+                f"torch._grouped_mm {'not available' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+                f"{b['bound_ms']:.4f} ms ({b['bound_by']}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); "
+                f"max abs err {err:.3g} ({card})")
+            if t == 8:
+                out[key], out[key + "_err"] = row, err
+        del layers, dense
+        torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------------------------------------ serving
 def llama3_8b(num_layers: int = 32):
     from dynamo_tpu_torch.models.config import ModelConfig
@@ -1074,6 +1359,7 @@ async def _serve(engine, reqs):
 
 def _kernel_wrappers() -> dict:
     from dynamo_tpu_torch.ops.kernels import decode_attention as dec
+    from dynamo_tpu_torch.ops.kernels import grouped_matmul as gmm
     from dynamo_tpu_torch.ops.kernels import int8_matmul as mm
     from dynamo_tpu_torch.ops.kernels import prefill_attention as pre
     from dynamo_tpu_torch.ops.kernels import ragged_prefill_attention as rag
@@ -1081,7 +1367,8 @@ def _kernel_wrappers() -> dict:
     return {"decode": dec.paged_decode_attention, "prefill": pre.paged_prefill_attention,
             "ragged": rag.ragged_paged_prefill_attention,
             "decode_q8": dec.paged_decode_attention_q8, "prefill_q8": pre.paged_prefill_attention_q8,
-            "ragged_q8": rag.ragged_paged_prefill_attention_q8, "matmul": mm.int8_matmul}
+            "ragged_q8": rag.ragged_paged_prefill_attention_q8, "matmul": mm.int8_matmul,
+            "moe": gmm.grouped_matmul, "moe_q8": gmm.grouped_matmul_q8}
 
 
 def serve_run(torch, model, config: dict, card: str, label: str, profile: bool = False) -> dict:
@@ -1215,8 +1502,8 @@ def serve_both(torch, model, card: str, quant: bool):
     dispatch of the second."""
     tag = "int8 " if quant else ""
     q8 = "_q8" if quant else ""
-    other = (("decode", "prefill", "ragged") if quant
-             else ("decode_q8", "prefill_q8", "ragged_q8", "matmul"))
+    other = (("decode", "prefill", "ragged", "moe", "moe_q8") if quant
+             else ("decode_q8", "prefill_q8", "ragged_q8", "matmul", "moe", "moe_q8"))
     default = serve_run(torch, model, INT8_DEFAULT_PATH if quant else DEFAULT_PATH, card,
                         f"{tag}default path", profile=True)
     need = ["decode" + q8, "prefill" + q8] + (["matmul"] if quant else [])
@@ -1262,6 +1549,46 @@ def serving_phase_q8(torch, card: str):
     del model
     torch.cuda.empty_cache()
     return out
+
+
+def moe_serving_phase(torch, card: str) -> tuple[dict, dict]:
+    """Qwen3-30B-A3B at full width and depth (48 layers, random weights from
+    a seeded generator, drawn on the card one layer at a time) behind
+    ``AsyncLLMEngine``, the six requests once per configuration, each run
+    profiled: bf16 on the default path (B1, B2, E1), then, the bf16 model
+    freed, int8 weights with an int8 KV cache (Bs = 32) on the token-budget
+    path (B4a, B4c, B5, E2).  Every Llama model and engine is gone before:
+    61 GB of bf16 weights leave about 18 GB of the card."""
+    from dynamo_tpu_torch.models.convert import init_params
+    from dynamo_tpu_torch.models.llama import LlamaModel
+
+    cfg = qwen3_30b_a3b()
+    runs = []
+    for quant, config, label, need, none in (
+            (False, DEFAULT_PATH, "Qwen3-30B-A3B bf16 default path", ["decode", "prefill", "moe"],
+             ["decode_q8", "prefill_q8", "ragged", "ragged_q8", "matmul", "moe_q8"]),
+            (True, INT8_BUDGET_PATH, "Qwen3-30B-A3B int8 token-budget path",
+             ["decode_q8", "ragged_q8", "matmul", "moe_q8"], ["decode", "prefill", "ragged", "moe"])):
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        t0 = time.perf_counter()
+        model = LlamaModel.from_state(cfg, init_params(cfg, gen, device="cuda", quantized=quant))
+        torch.cuda.synchronize()
+        weights = sum(p.numel() * p.element_size() for p in model.parameters())
+        log(f"serving: Qwen3-30B-A3B{' int8' if quant else ''}, {cfg.num_layers} layers, "
+            f"{weights / 1e9:.2f} GB of random weights in {time.perf_counter() - t0:.1f} s")
+        run = serve_run(torch, model, config, card, label, profile=True)
+        check(all(run["launches"][k] > 0 for k in need) and not any(run["launches"][k] for k in none),
+              f"{label}: launches {run['launches']}, need {need} > 0, {none} = 0")
+        if quant:
+            m = run["metrics"]
+            check(m["unified_dispatches_total"] > 0 and m["lookahead_bursts_total"] > 0,
+                  f"the {label} made no mixed dispatch or no burst: {m}")
+        runs.append(run)
+        del model
+    torch.cuda.empty_cache()
+    return runs[0], runs[1]
 
 
 def profile_serving(torch, engine, reqs, card: str) -> None:
@@ -1310,6 +1637,7 @@ def _forward_logits(torch, model, device, prompt, steps, prefix, bs=BS, cache_dt
         slot = torch.full((1, pad), -1, dtype=torch.int32, device=device)
         slot[0, :s] = bt[0, pos[0, :s].long() // bs] * bs + pos[0, :s] % bs
         lens = torch.tensor([start + s], dtype=torch.int32, device=device)
+        LIVE_TOKENS["mask"] = slot.reshape(-1) >= 0
         hidden, _ = model.forward(t, pos, cache, bt, lens, slot, prefix_blocks=prefix_blocks)
         return model.compute_logits(hidden[:, s - 1]).float().cpu()
 
@@ -1351,12 +1679,78 @@ def _ragged_logits(torch, model, device, dispatches, bs=BS, cache_dtype=None):
         max_pb = max(-(-st // bs) for st in starts)
         pb = 0 if max_pb == 0 else min(m, 1 << (max_pb - 1).bit_length())
         last = torch.tensor([o + n - st - 1 for st, n, o in zip(starts, lens, offs)])
+        LIVE_TOKENS["mask"] = slot.reshape(-1) >= 0
         hidden, _ = model.forward(tokens.to(device), pos.to(device), cache, bt.to(device),
                                   ints(lens), slot.to(device), prefix_blocks=pb,
                                   ragged=(seq_ids.to(device), ints(starts), ints(offs)),
                                   ragged_row_tokens=region)
         logits.append(model.compute_logits(hidden[0, last.to(device)]).float().cpu())
     return torch.cat(logits)
+
+
+# the live (non-padding) tokens of the dispatch being run, flat, for
+# moe_routes: a padding token's hidden state is nobody's output and may
+# differ between the kernels and the plain versions
+LIVE_TOKENS = {"mask": None}
+
+
+@contextlib.contextmanager
+def moe_routes(torch, replay=None):
+    """Within the block every MoE router call's expert ids are recorded
+    (``replay`` None; the yielded list fills in call order), or replaced
+    by the recorded ones (``replay``: that list), the replaying side
+    weighting them by its own logits as the router does.  On replay the
+    yielded dict counts the live (token, layer) routes whose own choice
+    agreed and the largest logit gap of a disagreeing one (see
+    ROUTE_TIE)."""
+    from dynamo_tpu_torch.models import llama as mod
+
+    real = mod._moe_router
+    recorded = [] if replay is None else iter(replay)
+    stats = {"routes": 0, "same": 0, "max_gap": 0.0}
+
+    def routed(cfg, lp, xf):
+        weights, topi = real(cfg, lp, xf)
+        if replay is None:
+            recorded.append(topi.cpu())
+            return weights, topi
+        pinned = next(recorded).to(topi.device)
+        logits = (xf @ lp["router"]).float()
+        live = LIVE_TOKENS["mask"].to(topi.device)
+        same = (topi.sort(-1).values == pinned.sort(-1).values).all(-1)[live]
+        kth = logits.gather(-1, topi[:, -1:])  # this side's k-th largest
+        gap = (kth - logits.gather(-1, pinned)).clamp_min(0).amax(-1)[live]
+        stats["routes"] += len(same)
+        stats["same"] += int(same.sum())
+        stats["max_gap"] = max(stats["max_gap"], float(gap.max()))
+        return mod.router_weights(cfg, logits, pinned), pinned
+
+    mod._moe_router = routed
+    try:
+        yield recorded if replay is None else stats
+    finally:
+        mod._moe_router = real
+
+
+def _hold_card_to_cpu(torch, what: str, on_card, on_cpu, card: str) -> None:
+    """The card's logits (``on_card()``) held to the CPU's; an MoE model's
+    CPU run routes as the card's did, and its own routes are held to
+    ROUTE_TIE."""
+    with moe_routes(torch) as routes:
+        got = on_card()
+    with moe_routes(torch, routes) as stats:
+        ref = on_cpu()
+    if stats["routes"]:
+        _hold_routes(what, stats, card)
+    _hold_logits(torch, what, got, ref, card)
+
+
+def _hold_routes(what: str, stats: dict, card: str) -> None:
+    log(f"parity {what}: {stats['same']} of {stats['routes']} (token, layer) routes chose the card's "
+        f"experts on the CPU too; the largest logit gap of one that did not: {stats['max_gap']:.3g} "
+        f"(tol {ROUTE_TIE}) ({card})")
+    check(stats["max_gap"] <= ROUTE_TIE,
+          f"parity {what}: a route differs by a logit gap of {stats['max_gap']} > {ROUTE_TIE}")
 
 
 def _hold_logits(torch, what: str, a, b, card: str) -> None:
@@ -1370,21 +1764,24 @@ def _hold_logits(torch, what: str, a, b, card: str) -> None:
     check(max_rel <= PARITY_MAX_REL, f"parity {what}: max rel {max_rel} > {PARITY_MAX_REL}")
 
 
-def parity_phase(torch, card: str, quant: bool = False) -> None:
-    """A 2-layer model at 8B width on the card and on the CPU, the same
-    weights on both: bf16 weights with a bf16 cache (Bs = 16), or int8
-    weights with an int8 cache (``quant``, Bs = 32)."""
+def parity_phase(torch, card: str, quant: bool = False, make_cfg=None, width: str = "8B") -> None:
+    """A 2-layer model at full width (``make_cfg``: Llama-3-8B's unless
+    named) on the card and on the CPU, the same weights on both: bf16
+    weights with a bf16 cache (Bs = 16), or int8 weights with an int8 cache
+    (``quant``, Bs = 32).  An MoE model's CPU run takes the card's expert
+    choices (``moe_routes``)."""
     import numpy as np
 
     from dynamo_tpu_torch.models.convert import init_params
     from dynamo_tpu_torch.models.llama import LlamaModel
 
-    cfg = llama3_8b(2)
+    make_cfg = make_cfg or llama3_8b
+    cfg = make_cfg(2)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     state = init_params(cfg, gen, device="cuda", quantized=quant)
     gpu = LlamaModel.from_state(cfg, state)
-    cpu_cfg = llama3_8b(2)
+    cpu_cfg = make_cfg(2)
     cpu_cfg.dtype = "float32"
     # int8 codes and f32 scales as they are; bf16 tensors in f32
     cpu = LlamaModel.from_state(cpu_cfg, {
@@ -1395,11 +1792,11 @@ def parity_phase(torch, card: str, quant: bool = False) -> None:
     rng = np.random.default_rng(1)
     prompt = rng.integers(0, cfg.vocab_size, 300).tolist()
     steps = rng.integers(0, cfg.vocab_size, 8).tolist()
-    _hold_logits(torch, f"default path: 2-layer 8B width, {tag}300-token prompt over a "
-                 "128-token prefix + 8 decode steps",
-                 _forward_logits(torch, gpu, torch.device("cuda"), prompt, steps, 128, bs, kv),
-                 _forward_logits(torch, cpu, torch.device("cpu"), prompt, steps, 128, bs, kv),
-                 card)
+    _hold_card_to_cpu(
+        torch, f"default path: 2-layer {width} width, {tag}300-token prompt over a 128-token "
+        "prefix + 8 decode steps",
+        lambda: _forward_logits(torch, gpu, torch.device("cuda"), prompt, steps, 128, bs, kv),
+        lambda: _forward_logits(torch, cpu, torch.device("cpu"), prompt, steps, 128, bs, kv), card)
 
     # a packed prefill of A, B and C's head, then a mixed dispatch: decode
     # rows for A and B ahead of D from 0 and C's rest from 128
@@ -1415,10 +1812,11 @@ def parity_phase(torch, card: str, quant: bool = False) -> None:
         ([([x], 200, tables[0]), ([y], 97, tables[1]), (d, 0, tables[3]),
           (c[128:], 128, tables[2])], bs),
     ]
-    _hold_logits(torch, f"ragged: 2-layer 8B width, {tag}packed prefill of 3 spans, then 2 "
-                 "decode rows + 2 spans",
-                 _ragged_logits(torch, gpu, torch.device("cuda"), dispatches, bs, kv),
-                 _ragged_logits(torch, cpu, torch.device("cpu"), dispatches, bs, kv), card)
+    _hold_card_to_cpu(
+        torch, f"ragged: 2-layer {width} width, {tag}packed prefill of 3 spans, then 2 decode "
+        "rows + 2 spans",
+        lambda: _ragged_logits(torch, gpu, torch.device("cuda"), dispatches, bs, kv),
+        lambda: _ragged_logits(torch, cpu, torch.device("cpu"), dispatches, bs, kv), card)
     del gpu, cpu, state
     torch.cuda.empty_cache()
 
@@ -1430,12 +1828,22 @@ FRONT_DIR = ROOT / "_frontdoor"
 FRONT_LAYERS = 2
 FRONT_MODEL = "front"
 FRONT_MAX_TOKENS = 16
-# the word-level tokenizer's special tokens, at Llama 3's ids; ids 0-2 are
-# the chat roles and 3-127999 the words w3 ... w127999
+# the word-level tokenizer's special tokens, at Llama 3's ids (128,000 on)
+# or, for a larger vocabulary, at the same places in its last 256 ids; ids
+# 0-2 are the chat roles and the rest up to the specials the words w3 ...
 SPECIALS = {"<|begin_of_text|>": 128000, "<|end_of_text|>": 128001, "<unk>": 128002,
             "<|start_header_id|>": 128006, "<|end_header_id|>": 128007, "<|eot_id|>": 128009}
 ROLES = ("system", "user", "assistant")
-EOS_IDS = [128001, 128009]
+LLAMA3_VOCAB = 128256
+
+
+def specials(vocab: int = LLAMA3_VOCAB) -> dict[str, int]:
+    return {t: i + vocab - LLAMA3_VOCAB for t, i in SPECIALS.items()}
+
+
+def eos_ids(vocab: int = LLAMA3_VOCAB) -> list[int]:
+    sp = specials(vocab)
+    return [sp["<|end_of_text|>"], sp["<|eot_id|>"]]
 # Llama 3's chat layout, spaced for a whitespace tokenizer; it emits BOS
 # itself, so the preprocessor must not add a second one
 CHAT_TEMPLATE = (
@@ -1466,21 +1874,24 @@ FRONT_INT8_FLAGS = FRONT_FLAGS + ["--quantize", "int8", "--kv-cache-dtype", "int
                                   "--unified-token-dispatch", "--lookahead-dispatch"]
 
 
-def write_tokenizer(d: Path) -> None:
-    """A word-level tokenizer of Llama 3's 128,256 ids (BOS added on
-    encode) and a tokenizer_config.json with the chat template."""
+def write_tokenizer(d: Path, size: int = LLAMA3_VOCAB) -> None:
+    """A word-level tokenizer of ``size`` ids (Llama 3's 128,256 unless
+    named; BOS added on encode) and a tokenizer_config.json with the chat
+    template."""
     from tokenizers import Tokenizer, models, pre_tokenizers, processors
 
+    sp, first = specials(size), size - 256
     vocab = {r: i for i, r in enumerate(ROLES)}
-    vocab.update({f"w{i}": i for i in range(len(ROLES), 128000)})
-    vocab.update(SPECIALS)
-    vocab.update({f"<|reserved_special_token_{i}|>": i for i in range(128000, 128256)
-                  if i not in SPECIALS.values()})
+    vocab.update({f"w{i}": i for i in range(len(ROLES), first)})
+    vocab.update(sp)
+    vocab.update({f"<|reserved_special_token_{i}|>": i for i in range(first, size)
+                  if i not in sp.values()})
     tk = Tokenizer(models.WordLevel(vocab=vocab, unk_token="<unk>"))
     tk.pre_tokenizer = pre_tokenizers.WhitespaceSplit()
-    tk.add_special_tokens([t for t, i in sorted(vocab.items(), key=lambda x: x[1]) if i >= 128000])
+    tk.add_special_tokens([t for t, i in sorted(vocab.items(), key=lambda x: x[1]) if i >= first])
+    bos = sp["<|begin_of_text|>"]
     tk.post_processor = processors.TemplateProcessing(
-        single="<|begin_of_text|> $A", special_tokens=[("<|begin_of_text|>", 128000)])
+        single="<|begin_of_text|> $A", special_tokens=[("<|begin_of_text|>", bos)])
     d.mkdir(parents=True, exist_ok=True)
     tk.save(str(d / "tokenizer.json"))
     (d / "tokenizer_config.json").write_text(json.dumps({
@@ -1503,7 +1914,7 @@ def write_checkpoint(torch, d: Path) -> float:
         "num_key_value_heads": cfg.num_kv_heads, "rope_theta": cfg.rope_theta,
         "max_position_embeddings": cfg.max_position_embeddings, "rms_norm_eps": 1e-5,
         "hidden_act": "silu", "tie_word_embeddings": False, "bos_token_id": 128000,
-        "eos_token_id": EOS_IDS, "torch_dtype": "bfloat16"}))
+        "eos_token_id": eos_ids(), "torch_dtype": "bfloat16"}))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
 
@@ -1538,11 +1949,13 @@ def write_checkpoint(torch, d: Path) -> float:
     return total
 
 
-def check_loaded(torch, model, d: Path, label: str) -> None:
+def check_loaded(torch, model, d: Path, label: str, names: dict = FRONT_NAMES,
+                 experts: int = 0) -> None:
     """Every parameter the loader built equals the shards' tensor,
-    transposed where HF stores [out, in] and stacked over the layers:
-    exactly in bf16; for int8 weights, the codes and scales equal the
-    quantisation of the shards' bf16 tensor."""
+    transposed where HF stores [out, in] and stacked over the layers (and
+    the ``experts`` of a name with ``{e}``): exactly in bf16; for int8
+    weights, the codes and scales equal the quantisation of the shards'
+    bf16 tensor."""
     from safetensors import safe_open
 
     from dynamo_tpu_torch.models.quant import quantize
@@ -1550,20 +1963,23 @@ def check_loaded(torch, model, d: Path, label: str) -> None:
     index = json.loads((d / "model.safetensors.index.json").read_text())["weight_map"]
     state = model.state_dict()
     n = 0
-    for name, (fmt, transpose) in FRONT_NAMES.items():
-        for i in (range(FRONT_LAYERS) if name.startswith("layers.") else [None]):
-            key = fmt.format(i=i)
+    for name, (fmt, transpose) in names.items():
+        slots = [()]
+        if name.startswith("layers."):
+            slots = [(i, e) for i in range(FRONT_LAYERS) for e in range(experts)] if "{e}" in fmt else [
+                (i,) for i in range(FRONT_LAYERS)]
+        for slot in slots:
+            key = fmt.format(i=slot[0], e=slot[-1]) if slot else fmt
             with safe_open(d / index[key], framework="pt", device="cuda") as f:
                 w = f.get_tensor(key)
             w = w.t() if transpose else w
-            got = state[name] if i is None else state[name][i]
+            got = state[name][slot]
             if name + "_scale" in state:
                 qt = quantize(w, (0,) if name == "embed" else (-1,))
-                scale = state[name + "_scale"] if i is None else state[name + "_scale"][i]
-                same = torch.equal(got, qt.q) and torch.equal(scale, qt.scale)
+                same = torch.equal(got, qt.q) and torch.equal(state[name + "_scale"][slot], qt.scale)
             else:
                 same = got.dtype == w.dtype and torch.equal(got, w)
-            check(same, f"front door {label}: {name}[{i}] differs from the checkpoint's {key}")
+            check(same, f"front door {label}: {name}{list(slot)} differs from the checkpoint's {key}")
             n += 1
     log(f"front door {label}: {n} loaded tensors equal the checkpoint's shards")
 
@@ -1624,10 +2040,10 @@ def _answer_text(answer) -> str:
     return c["text"] if "text" in c else c["message"]["content"]
 
 
-def cli_phase(card: str) -> None:
+def cli_phase(card: str, flags: tuple = (), label: str = "Llama-3-8B-width") -> None:
     """``python3 -m dynamo_tpu_torch run in=http out=gpu`` on the
-    checkpoint, as a user starts it: every request kind, /metrics, and a
-    clean exit on SIGTERM."""
+    checkpoint (with ``flags``), as a user starts it: every request kind,
+    /metrics, and a clean exit on SIGTERM."""
     import signal
     import socket
 
@@ -1642,7 +2058,7 @@ def cli_phase(card: str) -> None:
         proc = subprocess.Popen(
             [sys.executable, "-m", "dynamo_tpu_torch", "run", "in=http", "out=gpu",
              "--model-path", str(FRONT_DIR), "--model-name", FRONT_MODEL, "--http-port",
-             str(port)], cwd=str(ROOT), stdout=err, stderr=subprocess.STDOUT)
+             str(port), *flags], cwd=str(ROOT), stdout=err, stderr=subprocess.STDOUT)
     base = f"http://127.0.0.1:{port}"
     try:
         async def go():
@@ -1726,14 +2142,14 @@ def cli_phase(card: str) -> None:
     check(done == {"completions": 5, "chat_completions": 1} and
           int(rows.get(f'{HttpMetric.OUTPUT_TOKENS_TOTAL}{{model="{FRONT_MODEL}"}}', 0)) > 0,
           f"CLI /metrics: requests {done}")
-    log(f"front door CLI: `python3 -m dynamo_tpu_torch run in=http out=gpu` on the "
-        f"{FRONT_LAYERS}-layer checkpoint answered /health after {ready:.1f} s, then unary, "
+    log(f"front door CLI: `python3 -m dynamo_tpu_torch run in=http out=gpu{''.join(' ' + f for f in flags)}` "
+        f"on the {FRONT_LAYERS}-layer {label} checkpoint answered /health after {ready:.1f} s, then unary, "
         f"streamed, chat, n=2, logprobs, stop-string and 404 requests, /metrics counted "
         f"{done}; exit 0 on SIGTERM ({card})")
 
 
 def front_server(torch, flags: list[str], card: str, label: str, need: list[str],
-                 none: list[str]) -> None:
+                 none: list[str], names: dict = FRONT_NAMES, experts: int = 0) -> None:
     """``build_local_engine`` on the checkpoint with ``flags`` behind the
     port's HttpService on port 0: the loaded tensors against the shards,
     then the requests one at a time with every kernel counter zeroed just
@@ -1756,7 +2172,7 @@ def front_server(torch, flags: list[str], card: str, label: str, need: list[str]
     model, config = engine.core.model, engine.core.config
     reqs = _front_requests()
     try:
-        check_loaded(torch, model, FRONT_DIR, label)
+        check_loaded(torch, model, FRONT_DIR, label, names, experts)
         wrappers = _kernel_wrappers()
 
         async def serve():
@@ -1809,12 +2225,114 @@ def front_door_phase(torch, card: str) -> None:
         f"{nbytes / 1e9:.2f} GB in two shards, in {time.perf_counter() - t0:.1f} s")
     cli_phase(card)
     front_server(torch, FRONT_FLAGS, card, "bf16 default path", ["decode", "prefill"],
-                 ["decode_q8", "prefill_q8", "ragged", "ragged_q8", "matmul"])
+                 ["decode_q8", "prefill_q8", "ragged", "ragged_q8", "matmul", "moe", "moe_q8"])
     torch.cuda.empty_cache()
     front_server(torch, FRONT_INT8_FLAGS, card, "int8 token-budget path",
-                 ["decode_q8", "ragged_q8", "matmul"], ["decode", "prefill", "ragged"])
+                 ["decode_q8", "ragged_q8", "matmul"], ["decode", "prefill", "ragged", "moe", "moe_q8"])
     torch.cuda.empty_cache()
     log(f"front door: phase wall {time.perf_counter() - t0:.1f} s ({card})")
+
+
+# The Qwen3-MoE checkpoint: Qwen3-30B-A3B's width and tensor names, cut to
+# 2 layers (3.7 GB: 384 expert tensors a layer), its 151,936-id vocabulary
+MOE_FRONT_NAMES = {
+    **{k: v for k, v in FRONT_NAMES.items() if k not in ("layers.w_gate", "layers.w_up", "layers.w_down")},
+    "layers.q_norm": ("model.layers.{i}.self_attn.q_norm.weight", False),
+    "layers.k_norm": ("model.layers.{i}.self_attn.k_norm.weight", False),
+    "layers.router": ("model.layers.{i}.mlp.gate.weight", True),
+    "layers.w_gate": ("model.layers.{i}.mlp.experts.{e}.gate_proj.weight", True),
+    "layers.w_up": ("model.layers.{i}.mlp.experts.{e}.up_proj.weight", True),
+    "layers.w_down": ("model.layers.{i}.mlp.experts.{e}.down_proj.weight", True),
+}
+
+
+def write_moe_checkpoint(torch, d: Path) -> float:
+    """The 2-layer Qwen3-MoE checkpoint: config.json as Qwen3-30B-A3B's with
+    2 layers, and random bf16 weights from a seeded generator (matrices
+    N(0, 1/fan_in), norms 1 + N(0, 0.1^2)) under the real checkpoint's
+    names, in two safetensors shards with an index.  Returns the bytes
+    written."""
+    from safetensors.torch import save_file
+
+    cfg = qwen3_30b_a3b(FRONT_LAYERS)
+    dm, hd, f, e = cfg.hidden_size, cfg.head_dim, cfg.intermediate_size, cfg.num_experts
+    sp = specials(cfg.vocab_size)
+    (d / "config.json").write_text(json.dumps({
+        "architectures": ["Qwen3MoeForCausalLM"], "model_type": "qwen3_moe",
+        "vocab_size": cfg.vocab_size, "hidden_size": dm, "intermediate_size": 6144,
+        "moe_intermediate_size": f, "num_hidden_layers": FRONT_LAYERS,
+        "num_attention_heads": cfg.num_heads, "num_key_value_heads": cfg.num_kv_heads,
+        "head_dim": hd, "num_experts": e, "num_experts_per_tok": cfg.num_experts_per_tok,
+        "norm_topk_prob": True, "decoder_sparse_step": 1, "mlp_only_layers": [],
+        "rope_theta": cfg.rope_theta, "max_position_embeddings": cfg.max_position_embeddings,
+        "rms_norm_eps": cfg.rms_norm_eps, "hidden_act": "silu", "tie_word_embeddings": False,
+        "bos_token_id": sp["<|begin_of_text|>"], "eos_token_id": eos_ids(cfg.vocab_size),
+        "torch_dtype": "bfloat16"}))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+
+    def matrix(rows, cols):  # HF layout [out, in]
+        w = torch.randn((rows, cols), generator=gen, device="cuda", dtype=torch.float32)
+        return w.div_(math.sqrt(cols)).to(torch.bfloat16).cpu()
+
+    def norm(n=dm):
+        w = 1 + 0.1 * torch.randn((n,), generator=gen, device="cuda", dtype=torch.float32)
+        return w.to(torch.bfloat16).cpu()
+
+    def layer(i):
+        p = f"model.layers.{i}."
+        out = {p + "input_layernorm.weight": norm(), p + "post_attention_layernorm.weight": norm(),
+               p + "self_attn.q_proj.weight": matrix(cfg.num_heads * hd, dm),
+               p + "self_attn.k_proj.weight": matrix(cfg.num_kv_heads * hd, dm),
+               p + "self_attn.v_proj.weight": matrix(cfg.num_kv_heads * hd, dm),
+               p + "self_attn.o_proj.weight": matrix(dm, cfg.num_heads * hd),
+               p + "self_attn.q_norm.weight": norm(hd), p + "self_attn.k_norm.weight": norm(hd),
+               p + "mlp.gate.weight": matrix(e, dm)}
+        for j in range(e):
+            q = f"{p}mlp.experts.{j}."
+            out.update({q + "gate_proj.weight": matrix(f, dm), q + "up_proj.weight": matrix(f, dm),
+                        q + "down_proj.weight": matrix(dm, f)})
+        return out
+
+    shards = [{"model.embed_tokens.weight": matrix(cfg.vocab_size, dm), **layer(0)},
+              {**layer(1), "model.norm.weight": norm(), "lm_head.weight": matrix(cfg.vocab_size, dm)}]
+    weight_map, total = {}, 0
+    for k, shard in enumerate(shards):
+        name = f"model-{k + 1:05d}-of-{len(shards):05d}.safetensors"
+        save_file(shard, str(d / name), metadata={"format": "pt"})
+        weight_map.update({t: name for t in shard})
+        total += sum(t.numel() * t.element_size() for t in shard.values())
+    (d / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": total}, "weight_map": weight_map}))
+    return total
+
+
+def moe_front_door_phase(torch, card: str) -> None:
+    """The front door on the 2-layer Qwen3-MoE checkpoint: the CLI server
+    (bf16, then ``--quantize int8``), then ``build_local_engine`` in this
+    process, bf16 on the default path (B1, B2, E1) and int8 weights and
+    cache on the token-budget path (B4a, B4c, B5, E2)."""
+    import shutil
+
+    t0 = time.perf_counter()
+    shutil.rmtree(FRONT_DIR, ignore_errors=True)
+    cfg = qwen3_30b_a3b(FRONT_LAYERS)
+    write_tokenizer(FRONT_DIR, cfg.vocab_size)
+    nbytes = write_moe_checkpoint(torch, FRONT_DIR)
+    n_files = len(json.loads((FRONT_DIR / "model.safetensors.index.json").read_text())["weight_map"])
+    log(f"front door: wrote a {FRONT_LAYERS}-layer Qwen3-30B-A3B-width Qwen3-MoE checkpoint, "
+        f"{nbytes / 1e9:.2f} GB, {n_files} tensors in two shards, in {time.perf_counter() - t0:.1f} s")
+    cli_phase(card, (), "Qwen3-MoE")
+    cli_phase(card, ("--quantize", "int8"), "Qwen3-MoE")
+    front_server(torch, FRONT_FLAGS, card, "Qwen3-MoE bf16 default path", ["decode", "prefill", "moe"],
+                 ["decode_q8", "prefill_q8", "ragged", "ragged_q8", "matmul", "moe_q8"],
+                 MOE_FRONT_NAMES, cfg.num_experts)
+    torch.cuda.empty_cache()
+    front_server(torch, FRONT_INT8_FLAGS, card, "Qwen3-MoE int8 token-budget path",
+                 ["decode_q8", "ragged_q8", "matmul", "moe_q8"], ["decode", "prefill", "ragged", "moe"],
+                 MOE_FRONT_NAMES, cfg.num_experts)
+    torch.cuda.empty_cache()
+    log(f"front door Qwen3-MoE: phase wall {time.perf_counter() - t0:.1f} s ({card})")
 
 
 def _http_run(model, mcard) -> tuple[list, float]:
@@ -1933,6 +2451,7 @@ def main() -> int:
         times = timing_phase(torch, card)
         times.update(q8_timing_phase(torch, card))
         times.update(matmul_timing(torch, card))
+        times.update(moe_timing(torch, card))
         write_tokenizer(FRONT_DIR)
         default, budget, mixed = serving_phase(torch, card)
         times["ragged"] = ragged_timing(torch, card, mixed)
@@ -1943,6 +2462,10 @@ def main() -> int:
         parity_phase(torch, card)
         parity_phase(torch, card, quant=True)
         front_door_phase(torch, card)
+        moe_default, moe_budget = moe_serving_phase(torch, card)
+        parity_phase(torch, card, make_cfg=qwen3_30b_a3b, width="Qwen3-30B-A3B")
+        parity_phase(torch, card, quant=True, make_cfg=qwen3_30b_a3b, width="Qwen3-30B-A3B")
+        moe_front_door_phase(torch, card)
     except (SmokeFailure, RuntimeError) as e:  # a failed check, build or nvidia-smi
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1950,7 +2473,8 @@ def main() -> int:
         shutil.rmtree(FRONT_DIR, ignore_errors=True)
     # launches: each kernel's count over the serving run of the path it
     # carries (decode and prefill: the default path; ragged: the token-budget
-    # path; the int8 kernels: the same paths on the int8 model)
+    # path; the int8 kernels: the same paths on the int8 model; the grouped
+    # expert kernels: Qwen3-30B-A3B's bf16 default and int8 token-budget runs)
     kernels = [
         dict(name="paged_decode_attention", route="cuda",
              source="dynamo_tpu_torch/csrc/decode_attention.cu",
@@ -1987,6 +2511,16 @@ def main() -> int:
              replaces="dynamo_tpu/ops/pallas/int8_matmul.py:64",
              launches=q8_default["launches"]["matmul"],
              max_abs_err=max(errs["matmul"], times["matmul_err"]), **times["matmul"]),
+        dict(name="grouped_matmul", route="cuda",
+             source="dynamo_tpu_torch/csrc/grouped_matmul.cu",
+             replaces="dynamo_tpu/models/llama.py:631",
+             launches=moe_default["launches"]["moe"],
+             max_abs_err=max(errs["moe"], times["moe_err"]), **times["moe"]),
+        dict(name="grouped_matmul_q8", route="cuda",
+             source="dynamo_tpu_torch/csrc/grouped_matmul.cu",
+             replaces="dynamo_tpu/models/llama.py:631",
+             launches=moe_budget["launches"]["moe_q8"],
+             max_abs_err=max(errs["moe_q8"], times["moe_q8_err"]), **times["moe_q8"]),
     ]
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

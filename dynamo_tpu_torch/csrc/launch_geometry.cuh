@@ -1,7 +1,8 @@
 // Launch geometry of the W8A16 matmul (int8_matmul.cu), the paged prefill
 // attention and the ragged prefill attention (wgmma_attention.cuh,
 // prefill_attention.cu, ragged_prefill_attention.cu) and the paged decode
-// attention (decode_attention.cu), written once.  The kernels
+// attention (decode_attention.cu) and the grouped expert matmul
+// (grouped_matmul.cu), written once.  The kernels
 // compile with these numbers and the Python wrappers read this file
 // (ops/kernels/build.py, geometry()) to plan their launches and size their
 // scratch, so a launch and its kernel cannot disagree.  The kernels
@@ -111,3 +112,18 @@
 #define DYN_B1_SMEM_D128_R16 82000
 #define DYN_B1_SMEM_D256_R4 137248
 #define DYN_B1_SMEM_D256_R8 143408
+// grouped expert matmul (E1 bf16 experts, E2 int8 experts)
+#define DYN_GMM_CHANNELS 128        // output channels per block: 4 warps x 32
+#define DYN_GMM_BK 64               // contracted depth per pipeline stage
+#define DYN_GMM_STAGES 3
+#define DYN_GMM_THREADS 128
+#define DYN_GMM_ROWS_SMALL 16       // rows per tile while groups are sparse (decode)
+#define DYN_GMM_ROWS_LARGE 64       // rows per tile once the groups average LARGE_FROM rows
+#define DYN_GMM_LARGE_FROM 32
+#define DYN_GMM_MAX_EXPERTS 1024    // what the in-kernel tile search walks, at most
+// 3 stages x (the x rows [rows, 64] bf16 + the weight tile [64, 128]: bf16,
+// or int8 and then one bf16 copy of it outside the ring)
+#define DYN_GMM_SMEM_BF16_R16 55296
+#define DYN_GMM_SMEM_BF16_R64 73728
+#define DYN_GMM_SMEM_Q8_R16 47104
+#define DYN_GMM_SMEM_Q8_R64 65536

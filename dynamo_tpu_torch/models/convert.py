@@ -70,11 +70,13 @@ def init_params(config: ModelConfig, generator: torch.Generator,
     scales — zero for Gemma's ``1 + w`` norms — and zero biases), drawn
     from ``generator``, which must live on ``device``.  Stacked tensors are
     drawn one layer at a time so the f32 draw never holds more than one
-    layer's matrix.
+    layer's matrix (an MoE layer's expert stack: 805 MB at Qwen3-30B-A3B).
+    An MoE router is drawn dense, quantised or not, as in the JAX init.
 
     ``quantized`` draws every matmul weight as int8 codes directly, with
     the scale that gives the dense init's standard deviation, as the JAX
-    package's ``init_params(quantized=True)`` does: the bf16 model is never
+    package's ``init_params(quantized=True)`` does (an expert stack has a
+    scale per layer, expert and output channel): the bf16 model is never
     made."""
     dev = resolve_device(device)
     dt = config.torch_dtype

@@ -1,6 +1,6 @@
 """Llama-family decoder in PyTorch, built for paged serving.
 
-The counterpart of ``dynamo_tpu/models/llama.py`` (dense path):
+The counterpart of ``dynamo_tpu/models/llama.py``:
   * one forward serves prefill, chunked prefill and decode — the S new
     tokens of each sequence scatter K/V into the paged cache, in place, then
     attend over their context (ops/paged_attention.py);
@@ -13,11 +13,16 @@ The counterpart of ``dynamo_tpu/models/llama.py`` (dense path):
     lm_head and the embedding are int8 with per-output-channel f32 scales
     (``models/quant.py``), held as ``<name>`` int8 and ``<name>_scale``
     f32 state-dict entries in the JAX package's shapes, and the KV cache may
-    be int8 too (``init_kv_cache(dtype="int8")``).
+    be int8 too (``init_kv_cache(dtype="int8")``);
+  * mixture-of-experts layers (Mixtral, Qwen3-MoE: ``cfg.is_moe``): a dense
+    f32-logit router picks each token's top-k experts, and the experts'
+    three projections run as grouped products over the tokens sorted by
+    expert (:func:`grouped_expert_dispatch`), bf16 or int8 stacks alike.
 
 The large dense projections are ``torch.matmul`` calls (cuBLAS on the card),
 as the JAX package leaves them to XLA; int8 projections are the package's
-W8A16 kernel and attention is the package's own kernels.
+W8A16 kernel, the experts' products its grouped expert kernel, and
+attention its own kernels.
 """
 
 from __future__ import annotations
@@ -32,7 +37,8 @@ from torch import nn
 
 from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.models.config import ModelConfig
-from dynamo_tpu_torch.models.quant import CHANNEL_AXES, QTensor, matmul, take_rows
+from dynamo_tpu_torch.models.quant import (
+    CHANNEL_AXES, QTensor, dequantize, grouped_matmul, matmul, stacked_channel_axes, take_rows)
 from dynamo_tpu_torch.ops.kv_quant import QuantKvCache, scale_tile
 from dynamo_tpu_torch.ops.paged_attention import (
     paged_attention_layer,
@@ -42,7 +48,8 @@ from dynamo_tpu_torch.ops.paged_attention import (
     write_kv_cache_layer,
 )
 
-__all__ = ["LlamaModel", "param_shapes", "param_dtypes", "rms_norm", "rope_inv_freq", "apply_rope"]
+__all__ = ["LlamaModel", "param_shapes", "param_dtypes", "rms_norm", "rope_inv_freq", "apply_rope",
+           "grouped_expert_dispatch", "router_weights"]
 
 SCALE = "_scale"  # state-dict suffix of a quantised weight's scale
 
@@ -95,14 +102,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 def param_shapes(cfg: ModelConfig, quantized: bool = False) -> dict[str, tuple[int, ...]]:
     """Every parameter's name and shape: the JAX params tree flattened with
-    ``layers.`` before the stacked per-layer names (dense Llama family).
+    ``layers.`` before the stacked per-layer names.  An MoE model has the
+    router ``[L, Dm, E]`` and expert stacks ``[L, E, Dm, F]`` (gate, up) and
+    ``[L, E, F, Dm]`` (down) in place of the dense MLP.
 
     ``quantized`` adds ``<name>_scale`` beside every int8 weight, in the
     JAX QTensor's scale shape: ``[L, 1, N]`` for a stacked ``[L, K, N]``
-    projection, ``[1, V]`` for the lm_head, ``[V, 1]`` for the per-row
-    embedding."""
-    if cfg.is_moe:
-        raise NotImplementedError("MoE layers are not ported yet")
+    projection, ``[L, E, 1, N]`` for an expert stack, ``[1, V]`` for the
+    lm_head, ``[V, 1]`` for the per-row embedding."""
     dm, hq, hk, dh, f = (cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
                          cfg.head_dim, cfg.intermediate_size)
     L = cfg.num_layers
@@ -115,10 +122,14 @@ def param_shapes(cfg: ModelConfig, quantized: bool = False) -> dict[str, tuple[i
         "layers.wv": (L, dm, hk * dh),
         "layers.wo": (L, hq * dh, dm),
         "layers.mlp_norm": (L, dm),
-        "layers.w_gate": (L, dm, f),
-        "layers.w_up": (L, dm, f),
-        "layers.w_down": (L, f, dm),
     }
+    if cfg.is_moe:
+        e = cfg.num_experts
+        shapes.update({"layers.router": (L, dm, e), "layers.w_gate": (L, e, dm, f),
+                       "layers.w_up": (L, e, dm, f), "layers.w_down": (L, e, f, dm)})
+    else:
+        shapes.update({"layers.w_gate": (L, dm, f), "layers.w_up": (L, dm, f),
+                       "layers.w_down": (L, f, dm)})
     if cfg.post_norms:  # Gemma2 sandwich norms
         shapes["layers.post_attn_norm"] = (L, dm)
         shapes["layers.post_mlp_norm"] = (L, dm)
@@ -135,9 +146,10 @@ def param_shapes(cfg: ModelConfig, quantized: bool = False) -> dict[str, tuple[i
         for name, shape in list(shapes.items()):
             base = name.split(".", 1)[-1]
             if base in CHANNEL_AXES:
-                axes = {a % len(shape) for a in CHANNEL_AXES[base]}
-                if name.startswith("layers."):
-                    axes.add(0)  # a scale per layer
+                # a scale per layer (and expert) and output channel; per row for embed
+                axes = CHANNEL_AXES[base] if base == "embed" else stacked_channel_axes(
+                    len(shape), CHANNEL_AXES[base])
+                axes = {a % len(shape) for a in axes}
                 shapes[name + SCALE] = tuple(n if i in axes else 1 for i, n in enumerate(shape))
     return shapes
 
@@ -157,7 +169,8 @@ def param_dtypes(cfg: ModelConfig, quantized: bool = False) -> dict[str, torch.d
 
 
 class LlamaModel(nn.Module):
-    """Dense Llama-family decoder over the paged KV cache.
+    """Llama-family decoder (dense or mixture-of-experts) over the paged KV
+    cache.
 
     Parameters are allocated uninitialised on ``device`` (cuda unless the
     caller names another); fill them with ``load_state_dict`` or build the
@@ -319,7 +332,7 @@ class LlamaModel(nn.Module):
             hidden = hidden + attn_out
 
             x = rms_norm(hidden, lp["mlp_norm"], cfg.rms_norm_eps, uo)
-            mlp_out = _dense_mlp(cfg, lp, x)
+            mlp_out = _moe_mlp_grouped(cfg, lp, x) if cfg.is_moe else _dense_mlp(cfg, lp, x)
             if cfg.post_norms:
                 mlp_out = rms_norm(mlp_out, lp["post_mlp_norm"], cfg.rms_norm_eps, uo)
             hidden = hidden + mlp_out
@@ -390,3 +403,87 @@ def _act(cfg: ModelConfig, gate: torch.Tensor) -> torch.Tensor:
 def _dense_mlp(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
     """Gated MLP: act(x·Wg) * (x·Wu) · Wd."""
     return matmul(_act(cfg, matmul(x, lp["w_gate"])) * matmul(x, lp["w_up"]), lp["w_down"])
+
+
+def _moe_router(cfg: ModelConfig, lp: dict, xf: torch.Tensor):
+    """Each token's top-k experts and their weights, for both dispatch
+    paths.  xf [T, Dm] -> (weights [T, k] f32, topi [T, k] int64).
+
+    The logits are ``xf @ router`` in the model dtype, then f32.  The top k
+    come from a stable descending sort, so tied logits (common in bf16 at
+    128 experts) keep the lower expert first, as ``jax.lax.top_k`` does;
+    ``torch.topk`` promises no order on ties."""
+    logits = (xf @ lp["router"]).float()  # [T, E]
+    topi = torch.sort(logits, dim=-1, descending=True, stable=True).indices
+    topi = topi[:, :cfg.num_experts_per_tok]
+    return router_weights(cfg, logits, topi), topi
+
+
+def router_weights(cfg: ModelConfig, logits: torch.Tensor, topi: torch.Tensor) -> torch.Tensor:
+    """The weights of experts ``topi`` [T, k] from router ``logits`` [T, E]
+    (f32): a softmax over their logits (``norm_topk_prob``, the top k
+    renormalised), or the full softmax taken at them (Qwen3-MoE with
+    ``norm_topk_prob`` false)."""
+    if cfg.norm_topk_prob:
+        return torch.softmax(logits.gather(-1, topi), dim=-1)
+    return torch.softmax(logits, dim=-1).gather(-1, topi)
+
+
+def grouped_expert_dispatch(xf: torch.Tensor, weights: torch.Tensor, topi: torch.Tensor,
+                            num_experts: int, w_gate, w_up, w_down, act) -> torch.Tensor:
+    """The grouped-MoE core, shared across model families: sort the
+    (token, expert) assignments by expert, gather their rows, run each
+    projection as ONE grouped product over every expert, then weight, unsort
+    and sum each token's k rows.  ``xf`` [T, Dm]; ``weights``/``topi``
+    [T, k]; ``w_*`` stacks ``[E, Dm, F]`` / ``[E, F, Dm]``, dense or int8
+    QTensors; ``act`` maps the gate.
+
+    Deterministic and free of host syncs: the group sizes are an integer
+    ``scatter_add_`` into a fixed [E] buffer and a prefix sum, both on the
+    device; the sort is stable; the combine gathers by the inverse
+    permutation and sums the k rows of each token (no float scatter-add)."""
+    t, d = xf.shape
+    k = topi.shape[1]
+    flat_e = topi.reshape(t * k)
+    order = torch.argsort(flat_e, stable=True)  # ties keep token order, as jnp.argsort
+    xs = xf[order // k]  # [T*k, Dm]: each sorted row's source token
+    counts = torch.zeros(num_experts, dtype=torch.int32, device=xf.device)
+    counts.scatter_add_(0, flat_e, torch.ones_like(flat_e, dtype=torch.int32))
+    offsets = torch.zeros(num_experts + 1, dtype=torch.int32, device=xf.device)
+    offsets[1:] = torch.cumsum(counts, 0, dtype=torch.int32)
+    gate = grouped_matmul(xs, w_gate, offsets)
+    up = grouped_matmul(xs, w_up, offsets)
+    out = grouped_matmul(act(gate) * up, w_down, offsets)  # [T*k, Dm]
+    out = out * weights.reshape(t * k)[order, None].to(out.dtype)
+    inverse = torch.empty_like(order)
+    inverse[order] = torch.arange(t * k, device=order.device)
+    return out[inverse].reshape(t, k, d).sum(dim=1)
+
+
+def _moe_mlp_grouped(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
+    """The MoE MLP on the serving path: route, then the grouped dispatch.
+    Its intermediates are [T*k, F] and its products cover only the k
+    experts each token chose."""
+    b, s, d = x.shape
+    xf = x.reshape(b * s, d)
+    weights, topi = _moe_router(cfg, lp, xf)
+    out = grouped_expert_dispatch(xf, weights, topi, cfg.num_experts, lp["w_gate"], lp["w_up"],
+                                  lp["w_down"], lambda g: _act(cfg, g))
+    return out.reshape(b, s, d)
+
+
+def _moe_mlp_dense(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
+    """Dense MoE oracle for the tests: every expert computes every token,
+    weighted by its router probability (zero off the top k).  It has no
+    permutation logic, so it checks the grouped path's; nothing on the
+    serving path calls it."""
+    b, s, d = x.shape
+    weights, topi = _moe_router(cfg, lp, x.reshape(b * s, d))
+    onehot = F.one_hot(topi, cfg.num_experts).float()  # [T, k, E]
+    probs = torch.einsum("tke,tk->te", onehot, weights)
+    xf = x.reshape(b * s, d)
+    w_gate, w_up, w_down = (dequantize(lp[n], x.dtype) for n in ("w_gate", "w_up", "w_down"))
+    up = torch.einsum("td,edf->tef", xf, w_up)
+    gate = torch.einsum("td,edf->tef", xf, w_gate)
+    out = torch.einsum("tef,efd->ted", _act(cfg, gate) * up, w_down)
+    return torch.einsum("ted,te->td", out, probs.to(out.dtype)).reshape(b, s, d)

@@ -12,7 +12,12 @@ listed in ``model.safetensors.index.json``.  Phi-3's fused ``qkv_proj`` and
 ``quantize`` each matmul weight is quantised to int8 layer by layer as it is
 read (``models/quant.py``, the arithmetic of the JAX package's
 ``quantize_params`` on the loaded tree), so the dense model is never made.
-MoE and DeepSeek directories raise ``NotImplementedError``: those models are
+Mixture-of-experts checkpoints load under both HF namings, Qwen3-MoE's
+``mlp.gate`` / ``mlp.experts.{e}.{gate,up,down}_proj`` and Mixtral's
+``block_sparse_moe.gate`` / ``experts.{e}.w1,w3,w2``: each expert's
+``[F, Dm]`` tensor goes, transposed, into its slot of the stacked ``[L, E,
+Dm, F]`` (quantised as it arrives: an expert's scales depend on its own
+tensor only).  DeepSeek directories raise ``NotImplementedError``: MLA is
 not ported yet.
 """
 
@@ -62,9 +67,11 @@ class SafetensorsDir:
             return sf.get_tensor(name)
 
 
-def _hf_names(cfg: ModelConfig) -> dict[str, tuple[str, bool]]:
-    """Port parameter name -> (HF name, with ``{i}`` for the layer; whether
-    the HF matrix is transposed), for every parameter but the fused ones."""
+def _hf_names(cfg: ModelConfig, qwen3_moe: bool = False) -> dict[str, tuple[str, bool]]:
+    """Port parameter name -> (HF name, with ``{i}`` for the layer and
+    ``{e}`` for an expert; whether the HF matrix is transposed), for every
+    parameter but the fused ones.  ``qwen3_moe`` picks Qwen3-MoE's expert
+    names over Mixtral's."""
     lay = "model.layers.{i}."
     names = {
         "embed": ("model.embed_tokens.weight", False),
@@ -90,6 +97,17 @@ def _hf_names(cfg: ModelConfig) -> dict[str, tuple[str, bool]]:
         "layers.w_up": (lay + "mlp.up_proj.weight", True),
         "layers.w_down": (lay + "mlp.down_proj.weight", True),
     }
+    if cfg.is_moe:  # ``{e}`` for the expert
+        moe = (("mlp.gate", "mlp.experts.{e}.", "gate_proj", "up_proj", "down_proj")
+               if qwen3_moe else
+               ("block_sparse_moe.gate", "block_sparse_moe.experts.{e}.", "w1", "w3", "w2"))
+        gate, expert, wg, wu, wd = moe
+        names.update({
+            "layers.router": (lay + gate + ".weight", True),
+            "layers.w_gate": (lay + expert + wg + ".weight", True),
+            "layers.w_up": (lay + expert + wu + ".weight", True),
+            "layers.w_down": (lay + expert + wd + ".weight", True),
+        })
     return names
 
 
@@ -114,22 +132,20 @@ class _Writer:
                   else torch.int8 if name + SCALE in self.shapes else dtype)
             self.state[name] = torch.empty(shape, dtype=dt, device=device)
 
-    def put(self, name: str, w: torch.Tensor, layer: int | None) -> None:
+    def put(self, name: str, w: torch.Tensor, *index: int) -> None:
         """Write ``w`` (already ``[in, out]``) as the whole parameter or its
-        layer ``layer``, rounding to the model dtype first, then quantising
-        when the parameter is int8."""
+        slot ``index`` (a layer, or a layer and an expert), rounding to the
+        model dtype first, then quantising when the parameter is int8."""
         w = w.to(self.dtype)
         if name + SCALE not in self.shapes:
-            (self.state[name] if layer is None else self.state[name][layer]).copy_(w)
+            self.state[name][index].copy_(w)
             return
         base = name.split(".", 1)[-1]
         axes = CHANNEL_AXES[base] if base == "embed" else stacked_channel_axes(w.ndim,
                                                                               CHANNEL_AXES[base])
         qt = quantize(w, axes)
-        q, s = ((self.state[name], self.state[name + SCALE]) if layer is None else
-                (self.state[name][layer], self.state[name + SCALE][layer]))
-        q.copy_(qt.q)
-        s.copy_(qt.scale)
+        self.state[name][index].copy_(qt.q)
+        self.state[name + SCALE][index].copy_(qt.scale)
 
 
 def load_state_from_dir(cfg: ModelConfig, model_dir: str | Path, device=None,
@@ -139,7 +155,7 @@ def load_state_from_dir(cfg: ModelConfig, model_dir: str | Path, device=None,
     dev = resolve_device(device)
     files = SafetensorsDir(model_dir, dev)
     out = _Writer(cfg, dev, cfg.torch_dtype, quantize)
-    hf = _hf_names(cfg)
+    hf = _hf_names(cfg, qwen3_moe="model.layers.0.mlp.gate.weight" in files)
     dh = cfg.head_dim
     sizes = {"layers.wq": cfg.num_heads * dh, "layers.wk": cfg.num_kv_heads * dh,
              "layers.wv": cfg.num_kv_heads * dh, "layers.w_gate": cfg.intermediate_size,
@@ -157,17 +173,22 @@ def load_state_from_dir(cfg: ModelConfig, model_dir: str | Path, device=None,
             for name in parts:
                 out.put(name, w[off:off + sizes[name]].t(), i)
                 off += sizes[name]
+    experts = range(cfg.num_experts) if cfg.is_moe else ()
     for name in out.shapes:
         if name.endswith(SCALE) or name in done:
             continue
         fmt, transpose = hf[name]
-        if name.startswith("layers."):
+        if "{e}" in fmt:  # one expert's tensor at a time into its slot
+            for i in range(cfg.num_layers):
+                for e in experts:
+                    out.put(name, files.get(fmt.format(i=i, e=e)).t(), i, e)
+        elif name.startswith("layers."):
             for i in range(cfg.num_layers):
                 w = files.get(fmt.format(i=i))
                 out.put(name, w.t() if transpose else w, i)
         else:
             w = files.get(fmt)
-            out.put(name, w.t() if transpose else w, None)
+            out.put(name, w.t() if transpose else w)
     return out.state
 
 
@@ -189,6 +210,4 @@ def load_model_dir(model_dir: str | Path, dtype: str = "bfloat16", device=None,
     if is_deepseek_dir(model_dir):
         raise NotImplementedError("DeepSeek (MLA) models are not ported yet")
     cfg = ModelConfig.from_hf_config(model_dir, dtype=dtype)
-    if cfg.is_moe:
-        raise NotImplementedError("MoE layers are not ported yet")
     return cfg, load_state_from_dir(cfg, model_dir, device=device, quantize=quantize)

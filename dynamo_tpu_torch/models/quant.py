@@ -22,6 +22,14 @@ int8).
   (f32 with ``out_dtype=torch.float32``), then the scale multiplies in the
   product's dtype.  :func:`take_rows` likewise converts the rows to the
   model dtype and multiplies by the scale in that dtype.
+* :func:`grouped_matmul` takes a mixture-of-experts stack, bf16 ``[E, K,
+  N]`` or a QTensor with one scale per (expert, output channel), ``[E, 1,
+  N]``, to the grouped expert kernel (``ops/kernels/grouped_matmul.py``),
+  which reads int8 experts as int8 and, like the W8A16 kernel, scales the
+  f32 accumulator; on CPU tensors an int8 stack is dequantised to the
+  activation dtype before the product, as the JAX package does.  The MoE
+  router stays dense, as in the JAX package: it is small, and its logits
+  choose the experts.
 """
 
 from __future__ import annotations
@@ -30,10 +38,11 @@ import dataclasses
 
 import torch
 
+from dynamo_tpu_torch.ops.kernels import grouped_matmul as gmm
 from dynamo_tpu_torch.ops.kernels.int8_matmul import int8_matmul
 
-__all__ = ["QTensor", "stacked_channel_axes", "quantize", "dequantize", "matmul", "take_rows",
-           "quantize_params", "random_qtensor", "CHANNEL_AXES"]
+__all__ = ["QTensor", "stacked_channel_axes", "quantize", "dequantize", "matmul", "grouped_matmul",
+           "take_rows", "quantize_params", "random_qtensor", "CHANNEL_AXES"]
 
 
 def stacked_channel_axes(ndim: int, channel_axes=(-1,)) -> tuple[int, ...]:
@@ -99,6 +108,17 @@ def matmul(x: torch.Tensor, w, out_dtype: torch.dtype | None = None) -> torch.Te
     return y * s.to(dt)
 
 
+def grouped_matmul(x: torch.Tensor, w, offsets: torch.Tensor) -> torch.Tensor:
+    """Rows of ``x`` sorted by expert times their expert of the stack ``w``
+    (``[E, K, N]``, dense or a QTensor with scale ``[E, 1, N]``);
+    ``offsets`` [E + 1] int32 bounds each expert's rows."""
+    if isinstance(w, QTensor):
+        if x.device.type == "cpu":  # the JAX package's order: dequantise, then the product
+            return gmm.grouped_matmul(x, dequantize(w, x.dtype), offsets)
+        return gmm.grouped_matmul_q8(x, w.q, w.scale, offsets)
+    return gmm.grouped_matmul(x, w, offsets)
+
+
 def take_rows(w, idx: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """Row lookup (the embedding): ``w[idx]`` in ``dtype``; a QTensor's
     scale must be per row (``[V, 1]``)."""
@@ -109,7 +129,8 @@ def take_rows(w, idx: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 # quantised parameter names (the JAX tree's leaf names) and their channel
-# axes; norms and biases stay dense
+# axes (an MoE stack [L, E, K, N] also keeps its layer and expert axes);
+# norms, biases and the MoE router stay dense
 CHANNEL_AXES = {
     "wq": (-1,), "wk": (-1,), "wv": (-1,), "wo": (-1,),
     "w_gate": (-1,), "w_up": (-1,), "w_down": (-1,),

@@ -1,11 +1,14 @@
-"""Launch planning of the W8A16 matmul (B5), paged prefill (B2, B4b) and ragged prefill (B3, B4c) kernels.
+"""Launch planning of the W8A16 matmul (B5), paged prefill (B2, B4b), ragged prefill (B3, B4c) and grouped expert matmul (E1, E2) kernels.
 
 The wrappers decide in plain Python how each CUDA kernel is launched, from
 the geometry the kernels compile with (``csrc/launch_geometry.cuh``, read
 by ``build.geometry``): B5's regime (decode below 17 rows, wgmma above),
 its tiles, its split of K and its scratch; B2's grid of (KV head, row,
 query tile) blocks and its K/V tile, which B4b launches too; the ragged kernels' grid of decode-row
-and span blocks.  These tests hold those plans, on the
+and span blocks; the grouped kernels' row tile and their fixed bound of
+row tiles, which each block maps to (expert, first row) by searching the
+device offsets (``grouped_matmul.tile_schedule`` is that search in Python).
+These tests hold those plans, on the
 CPU, at every Llama-3-8B matmul shape, at ragged shapes, and at the head
 geometries the prefill wrapper accepts: every output element is covered by
 exactly one tile and every depth by exactly one split, no split is empty,
@@ -20,6 +23,7 @@ import pytest
 import torch
 
 from dynamo_tpu_torch.ops.kernels import build
+from dynamo_tpu_torch.ops.kernels import grouped_matmul as gmm
 from dynamo_tpu_torch.ops.kernels import int8_matmul as mm
 from dynamo_tpu_torch.ops.kernels import prefill_attention as pa
 from dynamo_tpu_torch.ops.kernels import ragged_prefill_attention as ra
@@ -212,3 +216,81 @@ def test_geometry_reads_every_define():
     text = (build.CSRC / "launch_geometry.cuh").read_text()
     defines = [line for line in text.splitlines() if line.startswith("#define")]
     assert len(defines) == len(build.geometry()) > 0
+
+
+# the grouped expert matmul at Qwen3-30B-A3B's and Mixtral-8x7B's expert
+# shapes: (experts, top k, K, N)
+GROUPED_SHAPES = {"qwen3-gate/up": (128, 8, 2048, 768), "qwen3-down": (128, 8, 768, 2048),
+                  "mixtral-gate/up": (8, 2, 4096, 14336), "mixtral-down": (8, 2, 14336, 4096)}
+
+
+def _grouping(routing: str, tokens: int, experts: int, k: int) -> list[int]:
+    """Rows per expert: uniform (each token's k distinct experts at random),
+    every row on one expert, rows on the last expert and one other only, or
+    every group one row past a multiple of 16 (the most tiles R rows can
+    take, short of the bound's slack)."""
+    import numpy as np
+
+    rng = np.random.default_rng(tokens * experts)
+    r = tokens * k
+    if routing == "uniform":
+        topi = np.argsort(rng.random((tokens, experts)), axis=1)[:, :k]
+        return np.bincount(topi.ravel(), minlength=experts).tolist()
+    counts = [0] * experts
+    if routing == "one":
+        counts[experts // 3] = r
+    elif routing == "two":
+        counts[1], counts[-1] = r // 2, r - r // 2
+    else:  # "ragged": 16 q + 1 rows each while rows last, the rest on expert 0
+        left = r
+        for e in range(experts):
+            take = min(left, 16 * (e % 3) + 1)
+            counts[e], left = take, left - take
+        counts[0] += left
+    return counts
+
+
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("routing", ["uniform", "one", "two", "ragged"])
+@pytest.mark.parametrize("tokens", [1, 8, 1504, 3765])
+@pytest.mark.parametrize("name", list(GROUPED_SHAPES))
+def test_grouped_matmul_plan(name, tokens, routing, quant):
+    """Every (expert, row) is computed by exactly one tile of its own
+    expert, the fixed bound ceil(R / rows) + E holds the tiles of any
+    grouping (blocks past the last tile only at its end), the grid is
+    within CUDA's limits and the block's shared memory fits."""
+    experts, k, kd, n = GROUPED_SHAPES[name]
+    counts = _grouping(routing, tokens, experts, k)
+    r = tokens * k
+    assert sum(counts) == r
+    p = gmm.plan(r, experts, n, kd, quant)
+    assert p.rows == (64 if r >= 32 * experts else 16)
+    assert p.grid == (-(-n // p.channels), -(-r // p.rows) + experts)
+    assert p.grid[1] <= GRID_YZ_MAX and p.smem <= SMEM_LIMIT
+    assert _partitions([p.channels * i for i in range(p.grid[0])], p.channels, n)
+    sched = gmm.tile_schedule(counts, p.rows, p.grid[1])
+    live = [t for t in sched if t is not None]
+    assert sched[len(live):] == [None] * (len(sched) - len(live))
+    assert len(live) == sum(-(-c // p.rows) for c in counts) <= p.grid[1]
+    owner = [e for e, c in enumerate(counts) for _ in range(c)]
+    seen = [0] * r
+    for e, row0, rows in live:
+        assert 1 <= rows <= p.rows
+        for row in range(row0, row0 + rows):
+            assert owner[row] == e
+            seen[row] += 1
+    assert seen == [1] * r
+
+
+def test_grouped_bound_covers_the_worst_grouping():
+    """Every group one row past a multiple of the tile takes (R - E) / rows
+    + E tiles: past ceil(R / rows) by E (rows - 1) / rows, so nearly all of
+    the bound's E extra tiles are needed, and the bound still holds."""
+    experts, rows = 128, 16
+    counts = [rows * (e % 4) + 1 for e in range(experts)]
+    r = sum(counts)
+    bound = -(-r // rows) + experts
+    sched = gmm.tile_schedule(counts, rows, bound)
+    tiles = len([t for t in sched if t is not None])
+    assert tiles == (r - experts) // rows + experts <= bound
+    assert tiles - -(-r // rows) >= experts * (rows - 1) // rows - 1

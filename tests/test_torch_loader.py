@@ -3,7 +3,11 @@
 Tiny Llama checkpoints are written here (``make_tiny_hf_checkpoint``, no
 download): one ``model.safetensors``, the same tensors as two shards with a
 ``model.safetensors.index.json``, a tied-embedding checkpoint, and one with
-Phi-3's fused ``qkv_proj`` / ``gate_up_proj``.  The port's state dict must
+Phi-3's fused ``qkv_proj`` / ``gate_up_proj``; and two mixture-of-experts
+checkpoints made by transformers, Mixtral's naming (``block_sparse_moe``,
+``w1``/``w3``/``w2``) and Qwen3-MoE's (``mlp.gate``, ``gate/up/down_proj``,
+``norm_topk_prob`` false), whose ``ModelConfig.from_hf_config`` must also
+equal the JAX package's.  The port's state dict must
 equal ``params_from_jax`` of the JAX loader's params exactly (f32, so the
 comparison has no rounding to hide behind); with ``quantize`` its int8
 codes must equal the JAX ``quantize_params`` of those params exactly and
@@ -20,7 +24,9 @@ import pytest
 import torch
 
 from dynamo_tpu.models import quant as jax_quant
+from dynamo_tpu.models.config import ModelConfig as JaxModelConfig
 from dynamo_tpu.models.loader import load_model_dir as jax_load_model_dir
+from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.models.convert import params_from_jax
 from dynamo_tpu_torch.models.llama import LlamaModel
 from dynamo_tpu_torch.models.loader import is_deepseek_dir, load_model_dir
@@ -94,7 +100,54 @@ def dirs(tmp_path_factory):
             [fsd.pop(p + f"mlp.{x}_proj.weight") for x in ("gate", "up")])
     _save(fused / "model.safetensors", fsd)
     return {"single": (single, hf), "sharded": (sharded, hf), "tied": (tied, hf_tied),
-            "fused": (fused, hf)}
+            "fused": (fused, hf), "mixtral": _moe_checkpoint(root / "mixtral", "mixtral", 5),
+            "qwen3-moe": _moe_checkpoint(root / "qwen3-moe", "qwen3-moe", 6)}
+
+
+def _moe_hf(family: str):
+    """A tiny transformers config of ``family`` and its config.json dict."""
+    from transformers import MixtralConfig, Qwen3MoeConfig
+
+    if family == "mixtral":
+        cfg = MixtralConfig(vocab_size=128, hidden_size=64, intermediate_size=96,
+                            num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+                            num_local_experts=4, num_experts_per_tok=2,
+                            max_position_embeddings=256, tie_word_embeddings=False)
+        arch = "MixtralForCausalLM"
+    else:
+        cfg = Qwen3MoeConfig(vocab_size=128, hidden_size=64, intermediate_size=128,
+                             moe_intermediate_size=48, num_hidden_layers=2, num_attention_heads=4,
+                             num_key_value_heads=2, head_dim=16, num_experts=4,
+                             num_experts_per_tok=2, norm_topk_prob=False,
+                             max_position_embeddings=256, tie_word_embeddings=False)
+        arch = "Qwen3MoeForCausalLM"
+    d = cfg.to_dict()
+    d["architectures"] = [arch]
+    for key in ("bos_token_id", "eos_token_id", "pad_token_id"):
+        d.pop(key, None)  # no stop token: greedy streams run to their length
+    return cfg, d
+
+
+def _moe_checkpoint(dst, family: str, seed: int):
+    """(directory, transformers model) of a tiny MoE checkpoint with a
+    word-level tokenizer of its 128 ids."""
+    from tokenizers import Tokenizer
+    from tokenizers import models as tkm
+    from tokenizers import pre_tokenizers
+    from transformers import MixtralForCausalLM, Qwen3MoeForCausalLM
+
+    dst.mkdir(parents=True)
+    cfg, d = _moe_hf(family)
+    (dst / "config.json").write_text(json.dumps(d))
+    torch.manual_seed(seed)
+    hf = (MixtralForCausalLM if family == "mixtral" else Qwen3MoeForCausalLM)(cfg).eval()
+    _save(dst / "model.safetensors", hf.state_dict())
+    vocab = {f"w{i}": i for i in range(127)}
+    vocab["[UNK]"] = 127
+    tok = Tokenizer(tkm.WordLevel(vocab=vocab, unk_token="[UNK]"))
+    tok.pre_tokenizer = pre_tokenizers.Whitespace()
+    tok.save(str(dst / "tokenizer.json"))
+    return dst, hf
 
 
 def _jax_state(path, cfg, quantize=False):
@@ -105,7 +158,7 @@ def _jax_state(path, cfg, quantize=False):
     return params_from_jax(tree, cfg, device="cpu")
 
 
-@pytest.mark.parametrize("kind", ["single", "sharded", "tied", "fused"])
+@pytest.mark.parametrize("kind", ["single", "sharded", "tied", "fused", "mixtral", "qwen3-moe"])
 def test_state_equals_jax_loader(dirs, kind):
     path, _ = dirs[kind]
     cfg, state = load_model_dir(path, dtype="float32", device="cpu")
@@ -124,7 +177,7 @@ def test_sharded_and_fused_equal_single(dirs):
         assert all(torch.equal(other[k], v) for k, v in single.items()), kind
 
 
-@pytest.mark.parametrize("kind", ["single", "tied"])
+@pytest.mark.parametrize("kind", ["single", "tied", "mixtral", "qwen3-moe"])
 def test_quantized_load_equals_jax_quantize_params(dirs, kind):
     path, _ = dirs[kind]
     cfg, state = load_model_dir(path, dtype="float32", device="cpu", quantize=True)
@@ -143,7 +196,7 @@ def test_quantized_load_equals_jax_quantize_params(dirs, kind):
     assert model.quantized
 
 
-@pytest.mark.parametrize("kind", ["single", "tied"])
+@pytest.mark.parametrize("kind", ["single", "tied", "mixtral", "qwen3-moe"])
 def test_logits_match_transformers(dirs, kind):
     path, hf = dirs[kind]
     cfg, state = load_model_dir(path, dtype="float32", device="cpu")
@@ -163,6 +216,9 @@ def test_logits_match_transformers(dirs, kind):
 
 
 def test_deepseek_and_moe_dirs_raise(tmp_path):
+    """A DeepSeek directory raises NotImplementedError (MLA is not
+    ported); an MoE directory is no longer refused, so one without weights
+    raises only for the missing safetensors."""
     ds = tmp_path / "ds"
     ds.mkdir()
     (ds / "config.json").write_text(json.dumps({"architectures": ["DeepseekV2ForCausalLM"]}))
@@ -175,5 +231,77 @@ def test_deepseek_and_moe_dirs_raise(tmp_path):
         "architectures": ["MixtralForCausalLM"], "vocab_size": 64, "hidden_size": 32,
         "intermediate_size": 64, "num_hidden_layers": 1, "num_attention_heads": 4,
         "num_key_value_heads": 2, "num_local_experts": 4}))
-    with pytest.raises(NotImplementedError, match="MoE"):
+    assert not is_deepseek_dir(moe)
+    with pytest.raises(FileNotFoundError, match="no safetensors"):
         load_model_dir(moe, device="cpu")
+
+
+@pytest.mark.parametrize("family", ["mixtral", "qwen3-moe"])
+def test_moe_config_matches_jax(family):
+    """``from_hf_config`` on MoE dicts equals the JAX package's, field for
+    field: experts, top k, the expert width (Qwen3-MoE's
+    ``moe_intermediate_size``), ``norm_topk_prob`` as given and by each
+    family's default (Mixtral renormalises, Qwen3-MoE does not), and the
+    refusal of a stack with dense layers."""
+    import dataclasses
+
+    d = _moe_hf(family)[1]
+    for variant in (d, {k: v for k, v in d.items() if k != "norm_topk_prob"}):
+        port = dataclasses.asdict(ModelConfig.from_hf_config(variant, dtype="float32"))
+        ref = dataclasses.asdict(JaxModelConfig.from_hf_config(variant, dtype="float32"))
+        assert port == ref
+        assert port["num_experts"] == 4 and port["num_experts_per_tok"] == 2
+    assert ModelConfig.from_hf_config(
+        {k: v for k, v in d.items() if k != "norm_topk_prob"}).norm_topk_prob == (family == "mixtral")
+    if family == "qwen3-moe":
+        assert ModelConfig.from_hf_config(d).intermediate_size == 48
+        for bad in ({"decoder_sparse_step": 2}, {"mlp_only_layers": [0]}):
+            for cls in (ModelConfig, JaxModelConfig):
+                with pytest.raises(ValueError, match="non-uniform"):
+                    cls.from_hf_config({**d, **bad})
+
+
+def test_moe_dir_served_through_the_front_door(dirs):
+    """``build_local_engine`` on the Qwen3-MoE directory (CPU, f32) behind
+    the port's ``HttpService``: a greedy completion of a token-id prompt
+    equals transformers' greedy generation on the same checkpoint."""
+    import asyncio
+
+    import aiohttp
+
+    from dynamo_tpu_torch.cli import build_local_engine, parse_args
+    from dynamo_tpu_torch.llm.engines import build_serving_pipeline
+    from dynamo_tpu_torch.llm.http import HttpService
+
+    path, hf = dirs["qwen3-moe"]
+    prompt = np.random.default_rng(3).integers(0, 127, 11).tolist()
+    with torch.no_grad():
+        ref = hf.float().generate(torch.tensor([prompt]), max_new_tokens=6, do_sample=False,
+                                  eos_token_id=None, pad_token_id=0)[0, len(prompt):].tolist()
+    engine, card = build_local_engine(parse_args([
+        "run", "in=http", "out=gpu", "--device", "cpu", "--dtype", "float32",
+        "--model-path", str(path), "--model-name", "moe", "--max-model-len", "64",
+        "--num-blocks", "16", "--max-batch-size", "2"]))
+
+    async def serve():
+        svc = HttpService(port=0, core=engine.core)
+        svc.manager.add_model("moe", build_serving_pipeline(engine, card), card)
+        await svc.start()
+        try:
+            async with aiohttp.ClientSession() as s:
+                async with s.post(f"http://127.0.0.1:{svc.port}/v1/completions", json={
+                        "model": "moe", "prompt": prompt, "max_tokens": 6,
+                        "temperature": 0}) as r:
+                    return r.status, await r.json()
+        finally:
+            await svc.stop()
+
+    loop = asyncio.new_event_loop()
+    try:
+        status, body = loop.run_until_complete(serve())
+    finally:
+        loop.close()
+        engine.shutdown()
+    assert engine.core.model.config.is_moe
+    assert status == 200 and body["choices"][0]["finish_reason"] == "length"
+    assert body["choices"][0]["text"].split() == [f"w{t}" for t in ref]
