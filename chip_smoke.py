@@ -97,8 +97,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the loaded tensors held to the shards and the answers to a fresh
    engine's.
 
-Then one ``{"kernels": [...]}`` line, and as the last line
-``{"ok": true, "device": {...}}``.
+Then one ``{"kernels": [...]}`` line (the grouped kernels' rows hold
+their T = 8 reading and, under ``t1504``, their T = 1,504 one), and as the
+last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -107,6 +108,7 @@ import asyncio
 import contextlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -118,7 +120,8 @@ if not (ROOT / "dynamo_tpu_torch").is_dir():
 sys.path.insert(0, str(ROOT))
 
 from dynamo_tpu_torch.tools.cuda_timing import (  # noqa: E402
-    LM_HEAD, PROJECTIONS, card_line, cuda_time_ms, graph_time_ms, median_ms, ragged_layout)
+    LM_HEAD, MOE_EXPERTS, MOE_LAUNCHES, MOE_TOKENS, MOE_TOP_K, PROJECTIONS, card_line, cuda_time_ms,
+    graph_time_ms, median_ms, moe_layer_work, moe_offsets, moe_stack, ragged_layout)
 
 # published peaks of one H100 SXM (dense): HBM bytes/s and bf16 tensor FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -206,22 +209,28 @@ def log(msg: str) -> None:
 # prefill kernel at three head dims over bf16 and int8 caches; the decode
 # kernel over each cache (its mangled name's first template argument:
 # __nv_bfloat16 for B1, `a`, signed char, for B4a) at D = 64 and 128 with
-# 4, 8 or 16 query rows and at D = 256 with 4 or 8
+# 4, 8 or 16 query rows and at D = 256 with 4 or 8; the grouped expert
+# kernel at 8, 32 and 128 rows a tile over bf16 and int8 experts
 DECODE_BF16, DECODE_INT8 = "13decode_kernelI13__nv_bfloat16", "13decode_kernelIa"
-SASS_INSTANTIATIONS = {"wgmma_prefill_kernel": 6, DECODE_BF16: 8, DECODE_INT8: 8,
-                       "grouped_matmul_kernel": 4}
+GROUPED = "grouped_wgmma_kernel"
+SASS_INSTANTIATIONS = {"wgmma_prefill_kernel": 6, DECODE_BF16: 8, DECODE_INT8: 8, GROUPED: 6}
+# SASS of the instructions counted per kernel: the wgmma, the cp.async
+# copy, the TMA tile load and a 16-byte shared-memory store
+SASS_OPS = {"hgmma": "HGMMA", "ldgsts": "LDGSTS", "tma": "UTMALDG", "sts128": "STS.128"}
 
 
 def sass_check(torch, lib_path) -> None:
     """The redesigned kernels as compiled: the wgmma kernels (B5 above 16
-    rows, the paged prefill kernels B2 and B4b, and every ragged
-    instantiation, B3 and B4c) issue HGMMA, and they, B5's decode kernel,
-    the decode attention kernel over each cache (B1, B4a) and the grouped
-    expert kernel (E1, E2; all four instantiations) copy with LDGSTS
-    (cp.async), except B5's instantiations for rows off 16 bytes (template
-    flag VEC = false), which copy element by element.  Logged per kernel
-    with its instructions' counts; a missing instruction fails."""
-    import re
+    rows, the paged prefill kernels B2 and B4b, every ragged instantiation,
+    B3 and B4c, and every grouped expert instantiation, E1 and E2) issue
+    HGMMA; they, B5's decode kernel and the decode attention kernel over
+    each cache (B1, B4a) copy with LDGSTS (cp.async), except B5's
+    instantiations for rows off 16 bytes (template flag VEC = false), which
+    copy element by element, and the grouped kernels, which copy with TMA
+    (UTMALDG) and store no 16-byte vector to shared memory: E2 writes no
+    bf16 copy of its int8 weight tile (its A operand is converted in
+    registers).  Logged per kernel with its instructions' counts; a missing
+    instruction fails."""
     import shutil
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -231,28 +240,28 @@ def sass_check(torch, lib_path) -> None:
     for line in sass.stdout.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            counts[name] = [0, 0]
+            counts[name] = dict.fromkeys(SASS_OPS, 0)
         elif name is not None:
-            counts[name][0] += "HGMMA" in line
-            counts[name][1] += "LDGSTS" in line
+            for op, text in SASS_OPS.items():
+                counts[name][op] += text in line
 
     def copies_async(n):  # B5's last template argument is VEC
         m = re.search(r"w8a16_\w+?_kernelI(.*?)EE", n)
         return m is None or m.group(1).endswith("Lb1")
 
     want = {"w8a16_wgmma_kernel": True, "wgmma_prefill_kernel": True, "ragged_kernel": True,
-            "w8a16_decode_kernel": False, DECODE_BF16: False, DECODE_INT8: False,
-            "grouped_matmul_kernel": False}
+            "w8a16_decode_kernel": False, DECODE_BF16: False, DECODE_INT8: False, GROUPED: True}
     for key, needs_hgmma in want.items():
         found = {n: c for n, c in counts.items() if key in n}
         check(bool(found), f"sass: no {key} in the library")
-        for n, (hgmma, ldgsts) in found.items():
-            check((ldgsts > 0 or not copies_async(n)) and (hgmma > 0 or not needs_hgmma),
-                  f"sass: {n[:80]} has HGMMA {hgmma}, LDGSTS {ldgsts}")
+        for n, c in found.items():
+            copies = (c["tma"] > 0 and c["sts128"] == 0) if key == GROUPED else (
+                c["ldgsts"] > 0 or not copies_async(n))
+            check(copies and (c["hgmma"] > 0 or not needs_hgmma), f"sass: {n[:80]} has {c}")
         check(len(found) >= SASS_INSTANTIATIONS.get(key, 1),
               f"sass: {len(found)} instantiations of {key}, expected {SASS_INSTANTIATIONS.get(key, 1)}")
-        log(f"sass {key}: {len(found)} instantiations, HGMMA "
-            f"{sorted({c[0] for c in found.values()})}, LDGSTS {sorted({c[1] for c in found.values()})}")
+        log(f"sass {key}: {len(found)} instantiations, " + ", ".join(
+            f"{SASS_OPS[op]} {sorted({c[op] for c in found.values()})}" for op in SASS_OPS))
 
 
 # ------------------------------------------------------------------ kernels
@@ -1093,15 +1102,16 @@ def ragged_timing(torch, card: str, mixed: dict, quant: bool = False) -> dict:
 # (experts, top k, hidden, expert width): Qwen3-30B-A3B (Qwen/Qwen3-30B-A3B
 # config.json), served below, and Mixtral-8x7B (mistralai/Mixtral-8x7B-v0.1
 # config.json), 93 GB in bf16, so only one layer's expert stack is checked
-MOE_GEOMS = {"Qwen3-30B-A3B": (128, 8, 2048, 768), "Mixtral-8x7B": (8, 2, 4096, 14336)}
+MOE_GEOMS = {"Qwen3-30B-A3B": (MOE_EXPERTS, MOE_TOP_K, *MOE_LAUNCHES["w_gate"]),
+             "Mixtral-8x7B": (8, 2, 4096, 14336)}
 # tokens per check: one decode row, a decode step at 8 slots, the longest
 # prompt, and a dispatch of 3,765 tokens (the six prompts' total)
-MOE_TOKENS = {"Qwen3-30B-A3B": (1, 8, 1504, 3765), "Mixtral-8x7B": (8, 1504)}
+MOE_CHECK_TOKENS = {"Qwen3-30B-A3B": (1, 8, 1504, 3765), "Mixtral-8x7B": (8, 1504)}
 # the grouped kernel's edges: 5 experts of [144, N] and [N, 144] (a depth
-# off the 64-deep stage, N off the 128-channel tile: 200 takes bf16's
-# 8-channel copies, 208 int8's 16), top 2 of 37 and 300 tokens (both row
-# tiles)
-MOE_EDGE = dict(experts=5, k=2, depth=144, n={False: 200, True: 208}, tokens=(37, 300))
+# off the 64-deep sub-tile, N off the 128-channel tile and bf16's 64-channel
+# TMA box: 200 is a multiple of 8, as bf16 needs, 208 of 16, as int8
+# needs), top 2 of 5, 37 and 300 tokens (the 8-, 32- and 128-row tiles)
+MOE_EDGE = dict(experts=5, k=2, depth=144, n={False: 200, True: 208}, tokens=(5, 37, 300))
 
 
 def qwen3_30b_a3b(num_layers: int = 48):
@@ -1114,34 +1124,12 @@ def qwen3_30b_a3b(num_layers: int = 48):
                        dtype="bfloat16")
 
 
-def _moe_offsets(torch, gen, t, experts, k, routing):
-    """Group offsets [E + 1] int32 on the card for t tokens' top-k rows
-    sorted by expert: "uniform" (each token's k distinct experts drawn at
-    random) or "one" (every row on one expert, every other expert empty)."""
-    counts = torch.zeros(experts, dtype=torch.int64, device="cuda")
-    if routing == "one":
-        counts[experts // 3] = t * k
-    else:
-        topi = torch.rand((t, experts), generator=gen, device="cuda").argsort(dim=-1)[:, :k]
-        counts += torch.bincount(topi.flatten(), minlength=experts)
-    offsets = torch.zeros(experts + 1, dtype=torch.int32, device="cuda")
-    offsets[1:] = counts.cumsum(0)
-    return offsets
-
-
 def _expert_stack(torch, gen, experts, k, n, quant):
-    """Random experts [E, K, N]: bf16 N(0, 1/K), or int8 codes (a QTensor)
-    with scales [E, 1, N] that give the same spread."""
+    """``cuda_timing.moe_stack``, an int8 stack as a QTensor."""
     from dynamo_tpu_torch.models.quant import QTensor
 
-    if quant:
-        wq = torch.randint(-127, 128, (experts, k, n), generator=gen, device="cuda", dtype=torch.int8)
-        scale = (0.5 + torch.rand((experts, 1, n), generator=gen, device="cuda")) / (73.3 * math.sqrt(k))
-        return QTensor(wq, scale)
-    out = torch.empty((experts, k, n), dtype=torch.bfloat16, device="cuda")
-    for e in range(experts):  # one expert's f32 draw at a time
-        out[e] = torch.randn((k, n), generator=gen, device="cuda").div_(math.sqrt(k))
-    return out
+    w = moe_stack(gen, experts, k, n, quant)
+    return QTensor(*w) if quant else w
 
 
 def _grouped(quant):
@@ -1172,9 +1160,9 @@ def moe_kernel_phase(torch, gen) -> dict:
             stacks = {"gate/up": (dm, _expert_stack(torch, gen, experts, dm, f, quant)),
                       "down": (f, _expert_stack(torch, gen, experts, f, dm, quant))}
             worst = 0.0
-            for t in MOE_TOKENS[model]:
+            for t in MOE_CHECK_TOKENS[model]:
                 for routing in ("uniform", "one"):
-                    offsets = _moe_offsets(torch, gen, t, experts, k, routing)
+                    offsets = moe_offsets(gen, t, experts, k, routing)
                     for name, (kdim, w) in stacks.items():
                         x = torch.randn((t * k, kdim), generator=gen, device="cuda").to(torch.bfloat16)
                         what = f"{key} {model} {name} T={t} ({t * k} rows) {routing}"
@@ -1182,7 +1170,7 @@ def moe_kernel_phase(torch, gen) -> dict:
                         check(torch.equal(out, kernel(x, w, offsets)), f"{what}: two launches differ")
                         worst = max(worst, compare(torch, what, out, plain(x, w, offsets)))
             log(f"kernel {key} {model} ({experts} experts, top {k}, [{dm}, {f}] and [{f}, {dm}]) "
-                f"T in {MOE_TOKENS[model]}, uniform and one-expert routing: max abs err {worst:.3g}, "
+                f"T in {MOE_CHECK_TOKENS[model]}, uniform and one-expert routing: max abs err {worst:.3g}, "
                 f"every launch twice bit-identical")
             errs[key] = max(errs[key], worst)
             del stacks
@@ -1194,7 +1182,7 @@ def moe_kernel_phase(torch, gen) -> dict:
         for a, b in ((kd, n), (n, kd)):
             w = _expert_stack(torch, gen, e, a, b, quant)
             for t in MOE_EDGE["tokens"]:
-                offsets = _moe_offsets(torch, gen, t, e, k, "uniform")
+                offsets = moe_offsets(gen, t, e, k, "uniform")
                 x = torch.randn((t * k, a), generator=gen, device="cuda").to(torch.bfloat16)
                 what = f"{'moe_q8' if quant else 'moe'} edge [{a}, {b}] T={t}"
                 out = kernel(x, w, offsets)
@@ -1236,38 +1224,39 @@ def moe_mlp_check(torch, gen) -> None:
 
 
 def moe_timing(torch, card: str) -> dict:
-    """One Qwen3-30B-A3B layer's three grouped launches (gate and up on the
-    sorted rows, down on the activations), uniform routing, at a decode
-    step (T = 8: 64 rows) and at the longest prompt's prefill (T = 1,504:
-    12,032 rows), two layers' stacks in turn (past the 50 MB L2): the kernel
-    as a CUDA graph (the card's time) and eagerly, the plain version, the
-    per-expert cuBLAS loop over the same groups as a CUDA graph (int8: on
-    the experts dequantised beforehand), ``torch._grouped_mm`` where this
-    torch has it (the ``library_ms``; int8: on dequantised experts), and
-    the bound: the weight bytes of the experts the rows route to (counted),
-    x and every launch's input and output once, against 2 R K N per
-    launch."""
+    """One Qwen3-30B-A3B layer's three grouped launches (``cuda_timing.
+    MOE_LAUNCHES``: gate and up on the sorted rows, down on the
+    activations), uniform routing, at a decode step (T = 8: 64 rows) and at
+    the longest prompt's prefill (T = 1,504: 12,032 rows), two layers'
+    stacks in turn (past the 50 MB L2): the kernel as a CUDA graph (the
+    card's time) and eagerly, the plain version, the per-expert cuBLAS loop
+    over the same groups as a CUDA graph (int8: on the experts dequantised
+    beforehand), ``torch._grouped_mm`` where this torch has it (the
+    ``library_ms``; int8: on dequantised experts), and the bound: the
+    weight bytes of the experts the rows route to (counted), x and every
+    launch's input and output once, against 2 R K N per launch
+    (``cuda_timing.moe_layer_work``).  Returns each kernel's T = 8 row, with
+    its T = 1,504 row under ``t1504``."""
     from dynamo_tpu_torch.models.quant import dequantize
 
-    experts, k, dm, f = MOE_GEOMS["Qwen3-30B-A3B"]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
-    names = {"w_gate": (dm, f), "w_up": (dm, f), "w_down": (f, dm)}
+    names = MOE_LAUNCHES
     out = {}
     for quant in (False, True):
         key = "moe_q8" if quant else "moe"
         kernel, plain = _grouped(quant)
-        layers = [{n: _expert_stack(torch, gen, experts, kd, nd, quant) for n, (kd, nd) in names.items()}
+        layers = [{n: _expert_stack(torch, gen, MOE_EXPERTS, kd, nd, quant) for n, (kd, nd) in names.items()}
                   for _ in range(2)]
         dense = [{n: dequantize(w, torch.bfloat16) for n, w in layer.items()} for layer in layers]
-        for t in (8, 1504):
-            r = t * k
-            offsets = _moe_offsets(torch, gen, t, experts, k, "uniform")
+        for t in MOE_TOKENS:
+            r = t * MOE_TOP_K
+            offsets = moe_offsets(gen, t)
             bounds = offsets.tolist()
-            groups = [(e, bounds[e], bounds[e + 1]) for e in range(experts) if bounds[e + 1] > bounds[e]]
-            xs = {"w_gate": torch.randn((r, dm), generator=gen, device="cuda").to(torch.bfloat16)}
+            groups = [(e, bounds[e], bounds[e + 1]) for e in range(MOE_EXPERTS) if bounds[e + 1] > bounds[e]]
+            xs = {"w_gate": torch.randn((r, names["w_gate"][0]), generator=gen, device="cuda").to(torch.bfloat16)}
             xs["w_up"] = xs["w_gate"]
-            xs["w_down"] = torch.randn((r, f), generator=gen, device="cuda").to(torch.bfloat16)
+            xs["w_down"] = torch.randn((r, names["w_down"][0]), generator=gen, device="cuda").to(torch.bfloat16)
             outs = {n: torch.empty((r, nd), dtype=torch.bfloat16, device="cuda") for n, (_, nd) in names.items()}
 
             def calls(fn):
@@ -1295,22 +1284,21 @@ def moe_timing(torch, card: str) -> dict:
                     log(f"time {key}: torch._grouped_mm did not run here: {str(e)[:200]}")
             err = max(compare(torch, f"{key} timing {n} T={t}", calls(kernel)[i](), calls(plain)[i]())
                       for i, n in enumerate(names))
-            wb = 1 if quant else 2
-            nbytes = (len(groups) * sum(kd * nd for kd, nd in names.values()) * wb
-                      + (len(groups) * sum(nd for _, nd in names.values()) * 4 if quant else 0)
-                      + sum(2 * r * (kd + nd) for kd, nd in names.values()))
-            flops = sum(2 * r * kd * nd for kd, nd in names.values())
+            flops, nbytes = moe_layer_work(r, len(groups), quant)
             b = _bound(flops, nbytes)
             row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **b)
             log(f"time {key} one Qwen3-30B-A3B layer's 3 grouped launches at T={t} ({r} rows, "
-                f"{len(groups)} of {experts} experts routed to): kernel {ms:.4f} ms (CUDA graph), "
+                f"{len(groups)} of {MOE_EXPERTS} experts routed to): kernel {ms:.4f} ms (CUDA graph), "
                 f"eager {eager:.4f} ms, plain {plain_ms:.4f} ms, per-expert cuBLAS loop "
                 f"{'on dequantised experts ' if quant else ''}{loop_ms:.4f} ms (CUDA graph), "
                 f"torch._grouped_mm {'not available' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
                 f"{b['bound_ms']:.4f} ms ({b['bound_by']}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); "
                 f"max abs err {err:.3g} ({card})")
-            if t == 8:
+            if t == MOE_TOKENS[0]:
                 out[key], out[key + "_err"] = row, err
+            else:
+                out[key][f"t{t}"] = row
+                out[key + "_err"] = max(out[key + "_err"], err)
         del layers, dense
         torch.cuda.empty_cache()
     return out
@@ -1611,6 +1599,19 @@ def profile_serving(torch, engine, reqs, card: str) -> None:
     top = ", ".join(f"{e.key[:48]} {dev_us(e) / 1e3:.1f} ms x{e.count}" for e in events[:6])
     log(f"profile: device busy {busy_s:.3f} s of {wall:.3f} s wall ({100 * busy_s / wall:.1f}%); "
         f"top kernels: {top} ({card})")
+    grouped = {}  # the grouped expert kernel's device time by (E1 or E2, rows a tile)
+    for e in events:
+        m = re.search(r"grouped_wgmma_kernel<(\d+), (true|false)>", e.key)
+        if m:
+            kind = "E2" if m.group(2) == "true" else "E1"
+            ms, n = grouped.get((kind, int(m.group(1))), (0.0, 0))
+            grouped[(kind, int(m.group(1)))] = (ms + dev_us(e) / 1e3, n + e.count)
+    for kind in ("E1", "E2"):
+        rows = sorted((r, v) for (k, r), v in grouped.items() if k == kind)
+        if rows:
+            log(f"profile: {kind} device time {sum(v[0] for _, v in rows):.1f} ms over "
+                f"{sum(v[1] for _, v in rows)} launches; by rows a tile: " + ", ".join(
+                    f"{r}: {ms:.1f} ms x{n}" for r, (ms, n) in rows) + f" ({card})")
 
 
 # ------------------------------------------------------------------- parity

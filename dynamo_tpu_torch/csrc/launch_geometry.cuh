@@ -112,18 +112,54 @@
 #define DYN_B1_SMEM_D128_R16 82000
 #define DYN_B1_SMEM_D256_R4 137248
 #define DYN_B1_SMEM_D256_R8 143408
-// grouped expert matmul (E1 bf16 experts, E2 int8 experts)
-#define DYN_GMM_CHANNELS 128        // output channels per block: 4 warps x 32
-#define DYN_GMM_BK 64               // contracted depth per pipeline stage
-#define DYN_GMM_STAGES 3
-#define DYN_GMM_THREADS 128
-#define DYN_GMM_ROWS_SMALL 16       // rows per tile while groups are sparse (decode)
-#define DYN_GMM_ROWS_LARGE 64       // rows per tile once the groups average LARGE_FROM rows
-#define DYN_GMM_LARGE_FROM 32
-#define DYN_GMM_MAX_EXPERTS 1024    // what the in-kernel tile search walks, at most
-// 3 stages x (the x rows [rows, 64] bf16 + the weight tile [64, 128]: bf16,
-// or int8 and then one bf16 copy of it outside the ring)
-#define DYN_GMM_SMEM_BF16_R16 55296
-#define DYN_GMM_SMEM_BF16_R64 73728
-#define DYN_GMM_SMEM_Q8_R16 47104
-#define DYN_GMM_SMEM_Q8_R64 65536
+// grouped expert matmul (E1 bf16 experts, E2 int8 experts): a persistent
+// grid of blocks, each two consumer warpgroups (64 output channels each)
+// and a producer warp, walking work items of one expert's tile of ROWS
+// rows (the wgmma N extent) by CHANNELS output channels over the whole
+// depth
+#define DYN_GMM_CHANNELS 128
+#define DYN_GMM_BK 64               // contracted depth per sub-tile
+#define DYN_GMM_THREADS 288         // two consumer warpgroups and a producer warp
+#define DYN_GMM_MAX_EXPERTS 1024    // the block's offset and tile tables in shared memory hold E + 1 each
+#define DYN_GMM_ROWS_DECODE 8       // rows per tile, by the mean group R / E: below MID_FROM
+#define DYN_GMM_ROWS_MID 32         // from MID_FROM
+#define DYN_GMM_ROWS_PREFILL 128    // from PREFILL_FROM
+#define DYN_GMM_MID_FROM 4
+#define DYN_GMM_PREFILL_FROM 32
+// blocks per SM (what fits by shared memory and registers) and stages of
+// each block's ring (a stage: SUBS sub-tiles, each the weight tile [64,
+// 128], bf16 or int8, and the x rows [ROWS, 64] bf16), by weight type and
+// row tile.  At 8 and 32
+// rows one block's pipeline cannot keep its SM's share of the weight
+// stream moving (E2 least: its consumers convert every weight), so several
+// blocks run side by side; E1 at 8 rows runs two blocks of 6 stages (three
+// of 3 stages were no faster and less steady on an H100, PERF.md)
+#define DYN_GMM_BLOCKS_PER_SM_BF16_R8 2
+#define DYN_GMM_BLOCKS_PER_SM_BF16_R32 2
+#define DYN_GMM_BLOCKS_PER_SM_BF16_R128 1
+#define DYN_GMM_BLOCKS_PER_SM_Q8_R8 3
+#define DYN_GMM_BLOCKS_PER_SM_Q8_R32 2
+#define DYN_GMM_BLOCKS_PER_SM_Q8_R128 1
+#define DYN_GMM_STAGES_BF16_R8 6
+#define DYN_GMM_STAGES_BF16_R32 5
+#define DYN_GMM_STAGES_BF16_R128 6
+#define DYN_GMM_STAGES_Q8_R8 3
+#define DYN_GMM_STAGES_Q8_R32 8
+#define DYN_GMM_STAGES_Q8_R128 8
+// 64-deep sub-tiles a stage holds: one mbarrier round trip a stage, so E2
+// at 8 rows, whose 8 KB sub-tiles pass quickest, takes two a stage (4.6%
+// faster than one on an H100, PERF.md)
+#define DYN_GMM_SUBS_BF16_R8 1
+#define DYN_GMM_SUBS_BF16_R32 1
+#define DYN_GMM_SUBS_BF16_R128 1
+#define DYN_GMM_SUBS_Q8_R8 2
+#define DYN_GMM_SUBS_Q8_R32 1
+#define DYN_GMM_SUBS_Q8_R128 1
+// shared memory per block: 1024 (alignment) + the ring + 2 mbarriers a
+// stage + the two tables (8 x (MAX_EXPERTS + 1))
+#define DYN_GMM_SMEM_BF16_R8 113768
+#define DYN_GMM_SMEM_BF16_R32 111704
+#define DYN_GMM_SMEM_BF16_R128 205928
+#define DYN_GMM_SMEM_Q8_R8 64568
+#define DYN_GMM_SMEM_Q8_R32 107656
+#define DYN_GMM_SMEM_Q8_R128 205960

@@ -66,7 +66,7 @@ _SIGNATURES = {
     # x, w, scale, out, partials, tickets, M, N, K, w_nk, out_f32, grid_n,
     # grid_m, splits, k_steps, stream
     "dynamo_int8_matmul": [_P] * 6 + [_I] * 9 + [_P],
-    # x, w, scale, offsets, out, R, N, K, E, quant, rows, grid_n, grid_m, stream
+    # x, w, scale, offsets, out, R, N, K, E, quant, rows, grid_n, blocks, stream
     "dynamo_grouped_matmul": [_P] * 5 + [_I] * 8 + [_P],
 }
 

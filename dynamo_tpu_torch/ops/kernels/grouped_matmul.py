@@ -11,10 +11,11 @@ N]`` per (expert, output channel) (E2, :func:`grouped_matmul_q8`), applied
 to the f32 accumulator before the one rounding to bf16.
 
 The wrappers never read the group sizes on the host: :func:`plan` sizes the
-launch from R, E, N and K alone (``ceil(R / rows) + E`` row tiles, the bound
-every grouping fits) and each block finds its expert on the device
-(:func:`tile_schedule` is that search in Python).  So a call costs no host
-sync, and a CUDA graph can hold it.
+launch from R, E, N and K alone (the row tile from the mean group R / E, a
+persistent grid of a few blocks per SM, or fewer when no grouping of R rows
+makes as many work items), and each block finds its work items from the
+device offsets (:func:`tile_schedule` is that walk in Python).  So a call
+costs no host sync, and a CUDA graph can hold it.
 
 For CUDA tensors the wrappers launch the kernel or raise; for CPU tensors
 they take the plain versions, a per-expert loop of ``torch.matmul`` over the
@@ -29,6 +30,7 @@ that launched.
 
 from __future__ import annotations
 
+import bisect
 import functools
 from dataclasses import dataclass
 
@@ -67,44 +69,70 @@ def grouped_matmul_q8_ref(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor
 
 @dataclass(frozen=True)
 class GroupedPlan:
-    """One launch: ``grid`` = (column tiles of ``channels``, row tiles of
-    ``rows``) blocks of ``threads`` with ``smem`` bytes of dynamic shared
-    memory."""
+    """One launch: ``blocks`` persistent blocks of ``threads`` with ``smem``
+    bytes of dynamic shared memory, walking work items of one expert's tile
+    of ``rows`` rows by ``channels`` output channels (``grid_n`` column
+    tiles cover N).  ``max_tiles`` is the most row tiles any grouping of R
+    rows over E experts takes."""
     rows: int
     channels: int
-    grid: tuple[int, int]
+    grid_n: int
+    max_tiles: int
+    blocks: int
     threads: int
     smem: int
 
 
 @functools.lru_cache(maxsize=1024)
-def plan(r: int, e: int, n: int, k: int, quant: bool) -> GroupedPlan:
-    """The launch for R sorted rows over E experts of [K, N] weights.  A
-    tile is 16 rows while the groups are sparse (decode: most experts get
-    one or two rows) and 64 once they average ``GMM_LARGE_FROM`` rows; the
-    row tiles are ``ceil(R / rows) + E``, enough for any grouping of R
-    rows, since a group of g rows takes at most g / rows + 1 tiles."""
+def plan(r: int, e: int, n: int, k: int, quant: bool, sms: int) -> GroupedPlan:
+    """The launch for R sorted rows over E experts of [K, N] weights on a
+    card with ``sms`` SMs.  The row tile follows the mean group R / E: 8
+    rows while most groups hold one or two (decode), 32 from ``MID_FROM``
+    rows a group, 128 from ``PREFILL_FROM``.  A group of c rows takes
+    ceil(c / rows) <= (c + rows - 1) / rows tiles and at most min(E, R)
+    groups have rows, so no grouping takes more than
+    (R + min(E, R) (rows - 1)) // rows row tiles; the grid is
+    ``GMM_BLOCKS_PER_SM_<type>_R<rows>`` blocks per SM, or that many items
+    if fewer."""
     g = build.geometry()
-    rows = g["GMM_ROWS_LARGE"] if r >= g["GMM_LARGE_FROM"] * e else g["GMM_ROWS_SMALL"]
+    if r >= g["GMM_PREFILL_FROM"] * e:
+        rows = g["GMM_ROWS_PREFILL"]
+    elif r >= g["GMM_MID_FROM"] * e:
+        rows = g["GMM_ROWS_MID"]
+    else:
+        rows = g["GMM_ROWS_DECODE"]
     ch = g["GMM_CHANNELS"]
-    grid = (-(-n // ch), -(-r // rows) + e)
-    smem = g[f"GMM_SMEM_{'Q8' if quant else 'BF16'}_R{rows}"]
-    return GroupedPlan(rows, ch, grid, g["GMM_THREADS"], smem)
+    grid_n = -(-n // ch)
+    max_tiles = (r + min(e, r) * (rows - 1)) // rows
+    kind = f"{'Q8' if quant else 'BF16'}_R{rows}"
+    blocks = min(g[f"GMM_BLOCKS_PER_SM_{kind}"] * sms, max_tiles * grid_n)
+    return GroupedPlan(rows, ch, grid_n, max_tiles, blocks, g["GMM_THREADS"], g[f"GMM_SMEM_{kind}"])
 
 
-def tile_schedule(counts: list[int], rows: int, grid_m: int) -> list[tuple[int, int, int] | None]:
-    """What each of the ``grid_m`` row tiles computes, as the kernel's
-    search finds it: (expert, first row, row count), or None for a block
-    past the last tile.  Tiles are numbered expert by expert, ceil(count /
-    rows) for each."""
-    out: list[tuple[int, int, int] | None] = []
-    starts = [0]
+def tile_schedule(counts: list[int], rows: int, grid_n: int, blocks: int,
+                  channels: int = 128) -> list[list[tuple[int, int, int, int]]]:
+    """What each of the ``blocks`` persistent blocks computes, as the kernel
+    walks it: block b takes items b, b + blocks, ... of (row tile, column
+    tile), the column tiles of a row tile adjacent; row tiles are numbered
+    expert by expert, ceil(count / rows) each, and an item's expert is the
+    last whose first row tile is at or below the item's (the kernel's binary
+    search).  Returns, per block, its items as (expert, first row, row
+    count, first channel)."""
+    first, starts = [0], [0]
     for c in counts:
+        first.append(first[-1] + -(-c // rows))
         starts.append(starts[-1] + c)
-    for e, c in enumerate(counts):
-        for i in range(-(-c // rows)):
-            out.append((e, starts[e] + i * rows, min(rows, c - i * rows)))
-    return (out + [None] * grid_m)[:grid_m]
+    items = first[-1] * grid_n
+    out: list[list[tuple[int, int, int, int]]] = []
+    for b in range(blocks):
+        mine = []
+        for item in range(b, items, blocks):
+            rt = item // grid_n
+            e = bisect.bisect_right(first, rt) - 1
+            row0 = starts[e] + (rt - first[e]) * rows
+            mine.append((e, row0, min(rows, starts[e + 1] - row0), (item - rt * grid_n) * channels))
+        out.append(mine)
+    return out
 
 
 def _check(x, w, scale, offsets, quant: bool) -> None:
@@ -140,11 +168,11 @@ def _launch(x, w, scale, offsets, quant: bool, wrapper) -> torch.Tensor:
     out = torch.empty((r, n), dtype=torch.bfloat16, device=x.device)
     if r == 0:
         return out
-    p = plan(r, e, n, k, quant)
+    p = plan(r, e, n, k, quant, build.sm_count(x.device.index or 0))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = build.library().dynamo_grouped_matmul(
         x.data_ptr(), w.data_ptr(), scale.data_ptr() if quant else None, offsets.data_ptr(),
-        out.data_ptr(), r, n, k, e, int(quant), p.rows, p.grid[0], p.grid[1], stream)
+        out.data_ptr(), r, n, k, e, int(quant), p.rows, p.grid_n, p.blocks, stream)
     build.check(rc, "dynamo_grouped_matmul")
     wrapper.launches += 1
     return out

@@ -1,5 +1,6 @@
-"""Timing on one CUDA card, the Llama-3-8B matmul shapes and the ragged
-attention row tables, shared by ``chip_smoke.py`` and ``tools/kernel_ab.py``.
+"""Timing on one CUDA card, the Llama-3-8B matmul shapes, the ragged
+attention row tables and one Qwen3-30B-A3B MoE layer's grouped launches,
+shared by ``chip_smoke.py`` and ``tools/kernel_ab.py``.
 
 It imports nothing of the package, so ``kernel_ab.py`` can load it beside
 another checkout's kernels; ``torch`` is imported when a timer runs.
@@ -7,6 +8,7 @@ another checkout's kernels; ``torch`` is imported when a timer runs.
 
 from __future__ import annotations
 
+import math
 import subprocess
 
 # Llama-3-8B's matmuls as the model runs them, [K, N]: the seven
@@ -28,6 +30,60 @@ DECODE_LENS = [33, 316, 656, 1516, 372, 972, 0, 0]
 RAGGED_PACKED = ([(0, 17), (0, 300), (0, 640), (0, 48)], 0)
 RAGGED_MIXED = ([(n - 1, 1) for n in (33, 316, 656, 1516, 372, 972, 100, 2000)] + [(256, 700), (0, 300)],
                 16)
+
+
+# one Qwen3-30B-A3B MoE layer (Qwen/Qwen3-30B-A3B config.json: 128
+# experts, top 8, hidden 2048, expert width 768) as the grouped expert
+# kernels run it: three launches, [K, N] per expert (gate and up on the
+# sorted rows, down on the activations), at a decode step's 8 tokens and
+# the longest prompt's 1,504
+MOE_EXPERTS, MOE_TOP_K = 128, 8
+MOE_LAUNCHES = {"w_gate": (2048, 768), "w_up": (2048, 768), "w_down": (768, 2048)}
+MOE_TOKENS = (8, 1504)
+
+
+def moe_offsets(gen, t: int, experts: int = MOE_EXPERTS, k: int = MOE_TOP_K, routing: str = "uniform"):
+    """Group offsets [E + 1] int32 on the card for t tokens' top-k rows
+    sorted by expert: "uniform" (each token's k distinct experts drawn at
+    random) or "one" (every row on one expert, every other expert empty)."""
+    import torch
+
+    counts = torch.zeros(experts, dtype=torch.int64, device="cuda")
+    if routing == "one":
+        counts[experts // 3] = t * k
+    else:
+        topi = torch.rand((t, experts), generator=gen, device="cuda").argsort(dim=-1)[:, :k]
+        counts += torch.bincount(topi.flatten(), minlength=experts)
+    offsets = torch.zeros(experts + 1, dtype=torch.int32, device="cuda")
+    offsets[1:] = counts.cumsum(0)
+    return offsets
+
+
+def moe_stack(gen, experts: int, k: int, n: int, quant: bool):
+    """Random experts [E, K, N] on the card: bf16 N(0, 1/K), or (int8
+    codes, f32 scales [E, 1, N]) that give the same spread."""
+    import torch
+
+    if quant:
+        wq = torch.randint(-127, 128, (experts, k, n), generator=gen, device="cuda", dtype=torch.int8)
+        scale = (0.5 + torch.rand((experts, 1, n), generator=gen, device="cuda")) / (73.3 * math.sqrt(k))
+        return wq, scale
+    out = torch.empty((experts, k, n), dtype=torch.bfloat16, device="cuda")
+    for e in range(experts):  # one expert's f32 draw at a time
+        out[e] = torch.randn((k, n), generator=gen, device="cuda").div_(math.sqrt(k))
+    return out
+
+
+def moe_layer_work(r: int, live: int, quant: bool) -> tuple[float, float]:
+    """(operations, bytes) of one MoE layer's three grouped launches over r
+    rows routed to ``live`` experts: 2 r K N per launch; the live experts'
+    weights (int8 with their f32 scales, or bf16) and every launch's input
+    and output rows once."""
+    wb = 1 if quant else 2
+    nbytes = (live * sum(k * n for k, n in MOE_LAUNCHES.values()) * wb
+              + (live * sum(n for _, n in MOE_LAUNCHES.values()) * 4 if quant else 0)
+              + sum(2 * r * (k + n) for k, n in MOE_LAUNCHES.values()))
+    return sum(2 * r * k * n for k, n in MOE_LAUNCHES.values()), nbytes
 
 
 def ragged_layout(rows, region: int, n_pad: int, bs: int = 16):

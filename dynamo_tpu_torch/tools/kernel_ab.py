@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the seven kernels (matmul, decode, paged and ragged prefill attention) of checkouts on one card.
+"""Time the kernels (matmul, decode, paged and ragged prefill attention, grouped experts) of checkouts on one card.
 
     python3 dynamo_tpu_torch/tools/kernel_ab.py --base DIR [--change DIR] [--repeat N] [--only K,...]
     python3 dynamo_tpu_torch/tools/kernel_ab.py --trees ROOT:TAG [ROOT:TAG ...] [--repeat N] [--only K,...]
@@ -12,8 +12,9 @@ over both; with ``--trees``, in the order given (list each tree more than
 once and in turns, a b b a, to the same end; throwaway trees of one edit
 each bisect a change in one call).  Each metric is read ``--repeat`` times
 (default 1) in every run; ``--only`` keeps the named kernels (b1, b2, b3,
-b4a, b4b, b4c, b5) and their yardsticks.  Every line names the card and its
-power limit.  The shapes are Llama-3-8B's as the serving paths run them:
+b4a, b4b, b4c, b5, e1, e2) and their yardsticks.  Every line names the card
+and its power limit.  The shapes are Llama-3-8B's as the serving paths run
+them, and Qwen3-30B-A3B's for the grouped expert kernels:
 
 - B5: one layer's seven projections ([K, N] int8 weights, four layers'
   weights in turn, past the 50 MB L2) at M = 8 (a decode step), 16 and 17
@@ -43,6 +44,11 @@ power limit.  The shapes are Llama-3-8B's as the serving paths run them:
   17/300/640/48 and a mixed dispatch of T = 1024, eight decode rows ahead
   of two spans, and that dispatch with the decode rows emptied (the spans
   alone).
+- E1 and E2: one Qwen3-30B-A3B MoE layer's three grouped launches
+  (``cuda_timing.MOE_LAUNCHES``, bf16 or int8 experts) at T = 8 and 1,504
+  tokens of top-8 rows, uniform routing, two layers' stacks in turn past
+  the L2, as a CUDA graph; yardstick ``torch._grouped_mm`` on the same
+  groups (E2's on its experts dequantised beforehand), timed the same way.
 - host cost: microseconds of host time per wrapper call, launches queued
   faster than the card runs them.
 
@@ -67,11 +73,12 @@ from pathlib import Path
 # the timers and shapes chip_smoke.py uses; run as a script, this file's
 # directory is on the path, so this loads without the package (whose
 # kernels come from the tree under test)
-from cuda_timing import (DECODE_LENS, LM_HEAD, PROJECTIONS, RAGGED_MIXED, RAGGED_PACKED, card_line,
-                         cuda_time_ms, graph_time_ms, ragged_layout)
+from cuda_timing import (DECODE_LENS, LM_HEAD, MOE_EXPERTS, MOE_LAUNCHES, MOE_TOKENS, MOE_TOP_K, PROJECTIONS,
+                         RAGGED_MIXED, RAGGED_PACKED, card_line, cuda_time_ms, graph_time_ms, moe_offsets, moe_stack,
+                         ragged_layout)
 
 ROWS = (8, 16, 17, 64, 300, 1504)
-KERNELS = ("b1", "b2", "b3", "b4a", "b4b", "b4c", "b5")
+KERNELS = ("b1", "b2", "b3", "b4a", "b4b", "b4c", "b5", "e1", "e2")
 
 
 def _measure(tag: str, repeat: int, only: set[str]) -> dict:
@@ -80,6 +87,7 @@ def _measure(tag: str, repeat: int, only: set[str]) -> dict:
 
     from dynamo_tpu_torch.ops.kernels import build
     from dynamo_tpu_torch.ops.kernels.decode_attention import paged_decode_attention, paged_decode_attention_q8
+    from dynamo_tpu_torch.ops.kernels.grouped_matmul import grouped_matmul, grouped_matmul_q8
     from dynamo_tpu_torch.ops.kernels.int8_matmul import int8_matmul
     from dynamo_tpu_torch.ops.kernels.prefill_attention import paged_prefill_attention, paged_prefill_attention_q8
     from dynamo_tpu_torch.ops.kernels.ragged_prefill_attention import (
@@ -235,6 +243,35 @@ def _measure(tag: str, repeat: int, only: set[str]) -> dict:
             call = ragged_call(*case)
             read(f"{name}_{key}", lambda: cuda_time_ms(call, 32))
         host[name] = ragged_call([(0, 64)], 0, quant)
+
+    for name, quant in (("e1", False), ("e2", True)):
+        if name not in only:
+            continue
+        layers = [{n: moe_stack(gen, MOE_EXPERTS, k, nd, quant) for n, (k, nd) in MOE_LAUNCHES.items()}
+                  for _ in range(2)]
+        dense = [{n: (w[0].to(torch.bfloat16) * w[1].to(torch.bfloat16)) if quant else w
+                  for n, w in layer.items()} for layer in layers]
+        for t in MOE_TOKENS:
+            r = t * MOE_TOP_K
+            offsets = moe_offsets(gen, t)
+            ends = offsets[1:].contiguous()
+            xs = {n: bf16(r, k) for n, (k, _) in MOE_LAUNCHES.items()}
+            if quant:
+                calls = [lambda li=li, n=n: grouped_matmul_q8(xs[n], *layers[li][n], offsets)
+                         for li in range(2) for n in MOE_LAUNCHES]
+            else:
+                calls = [lambda li=li, n=n: grouped_matmul(xs[n], layers[li][n], offsets)
+                         for li in range(2) for n in MOE_LAUNCHES]
+            lib = [lambda li=li, n=n: torch._grouped_mm(xs[n], dense[li][n], offs=ends)
+                   for li in range(2) for n in MOE_LAUNCHES]
+            iters = 20 if t == 8 else 5
+            read(f"{name}_layer_t{t}", lambda: graph_time_ms(calls, iters) / 2)
+            read(f"{name}_grouped_mm_t{t}", lambda: graph_time_ms(lib, iters) / 2)
+            if t == 8:  # one launch at a decode step, its arguments bound now
+                w0 = layers[0]["w_gate"]
+                host[name] = ((lambda a=(xs["w_gate"], *w0, offsets): grouped_matmul_q8(*a)) if quant
+                              else (lambda a=(xs["w_gate"], w0, offsets): grouped_matmul(*a)))
+        del layers, dense, calls, lib
 
     for name, fn in host.items():
         def host_us():

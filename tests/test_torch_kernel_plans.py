@@ -5,9 +5,9 @@ the geometry the kernels compile with (``csrc/launch_geometry.cuh``, read
 by ``build.geometry``): B5's regime (decode below 17 rows, wgmma above),
 its tiles, its split of K and its scratch; B2's grid of (KV head, row,
 query tile) blocks and its K/V tile, which B4b launches too; the ragged kernels' grid of decode-row
-and span blocks; the grouped kernels' row tile and their fixed bound of
-row tiles, which each block maps to (expert, first row) by searching the
-device offsets (``grouped_matmul.tile_schedule`` is that search in Python).
+and span blocks; the grouped kernels' row tile and their persistent grid,
+whose blocks walk work items they find from the device offsets
+(``grouped_matmul.tile_schedule`` is that walk in Python).
 These tests hold those plans, on the
 CPU, at every Llama-3-8B matmul shape, at ragged shapes, and at the head
 geometries the prefill wrapper accepts: every output element is covered by
@@ -255,42 +255,62 @@ def _grouping(routing: str, tokens: int, experts: int, k: int) -> list[int]:
 @pytest.mark.parametrize("tokens", [1, 8, 1504, 3765])
 @pytest.mark.parametrize("name", list(GROUPED_SHAPES))
 def test_grouped_matmul_plan(name, tokens, routing, quant):
-    """Every (expert, row) is computed by exactly one tile of its own
-    expert, the fixed bound ceil(R / rows) + E holds the tiles of any
-    grouping (blocks past the last tile only at its end), the grid is
-    within CUDA's limits and the block's shared memory fits."""
+    """Every (row, channel) is computed by exactly one work item, of its
+    own expert, over the whole depth (the kernel does not split K); the row
+    tile follows the mean group; no grouping makes more row tiles than the
+    plan's bound, which sizes the grid; the persistent grid is at most the
+    blocks per SM the geometry gives this row tile, walks every item once, and leaves no block idle while any
+    other has two items more than it; the grid is within CUDA's limits and
+    the block's shared memory fits."""
     experts, k, kd, n = GROUPED_SHAPES[name]
     counts = _grouping(routing, tokens, experts, k)
     r = tokens * k
     assert sum(counts) == r
-    p = gmm.plan(r, experts, n, kd, quant)
-    assert p.rows == (64 if r >= 32 * experts else 16)
-    assert p.grid == (-(-n // p.channels), -(-r // p.rows) + experts)
-    assert p.grid[1] <= GRID_YZ_MAX and p.smem <= SMEM_LIMIT
-    assert _partitions([p.channels * i for i in range(p.grid[0])], p.channels, n)
-    sched = gmm.tile_schedule(counts, p.rows, p.grid[1])
-    live = [t for t in sched if t is not None]
-    assert sched[len(live):] == [None] * (len(sched) - len(live))
-    assert len(live) == sum(-(-c // p.rows) for c in counts) <= p.grid[1]
+    p = gmm.plan(r, experts, n, kd, quant, SMS)
+    g = build.geometry()
+    want_rows = (g["GMM_ROWS_PREFILL"] if r >= g["GMM_PREFILL_FROM"] * experts else
+                 g["GMM_ROWS_MID"] if r >= g["GMM_MID_FROM"] * experts else g["GMM_ROWS_DECODE"])
+    assert p.rows == want_rows
+    assert p.grid_n == -(-n // p.channels)
+    assert _partitions([p.channels * i for i in range(p.grid_n)], p.channels, n)
+    tiles = sum(-(-c // p.rows) for c in counts)
+    assert tiles <= p.max_tiles
+    assert p.blocks == min(g[f"GMM_BLOCKS_PER_SM_{'Q8' if quant else 'BF16'}_R{p.rows}"] * SMS,
+                            p.max_tiles * p.grid_n)
+    assert 1 <= p.blocks <= GRID_X_MAX
+    assert p.smem <= SMEM_LIMIT and p.threads == g["GMM_THREADS"]
+    sched = gmm.tile_schedule(counts, p.rows, p.grid_n, p.blocks, p.channels)
+    assert len(sched) == p.blocks
+    loads = [len(mine) for mine in sched]
+    assert sum(loads) == tiles * p.grid_n and max(loads) - min(loads) <= 1
     owner = [e for e, c in enumerate(counts) for _ in range(c)]
-    seen = [0] * r
-    for e, row0, rows in live:
-        assert 1 <= rows <= p.rows
-        for row in range(row0, row0 + rows):
-            assert owner[row] == e
-            seen[row] += 1
-    assert seen == [1] * r
+    seen = [[0] * p.grid_n for _ in range(r)]
+    for mine in sched:
+        for e, row0, rows, n0 in mine:
+            assert 1 <= rows <= p.rows and n0 % p.channels == 0 and 0 <= n0 < n
+            for row in range(row0, row0 + rows):
+                assert owner[row] == e
+                seen[row][n0 // p.channels] += 1
+    assert seen == [[1] * p.grid_n for _ in range(r)]
 
 
 def test_grouped_bound_covers_the_worst_grouping():
-    """Every group one row past a multiple of the tile takes (R - E) / rows
-    + E tiles: past ceil(R / rows) by E (rows - 1) / rows, so nearly all of
-    the bound's E extra tiles are needed, and the bound still holds."""
-    experts, rows = 128, 16
-    counts = [rows * (e % 4) + 1 for e in range(experts)]
-    r = sum(counts)
-    bound = -(-r // rows) + experts
-    sched = gmm.tile_schedule(counts, rows, bound)
-    tiles = len([t for t in sched if t is not None])
-    assert tiles == (r - experts) // rows + experts <= bound
-    assert tiles - -(-r // rows) >= experts * (rows - 1) // rows - 1
+    """Groups one row past a multiple of the tile take the most tiles R rows
+    can: here a quarter of the experts hold rows + 1 rows and the rest one,
+    (R - E) / rows + E tiles, which is the plan's bound (R + E (rows - 1))
+    // rows at each of the three row tiles (the mean group 1 + rows / 4
+    picks that tile): the bound holds and is reached.  With fewer rows than
+    experts it is R (a tile a row), which one row on each of R experts
+    reaches."""
+    experts = 128
+    g = build.geometry()
+    for rows in (g["GMM_ROWS_DECODE"], g["GMM_ROWS_MID"], g["GMM_ROWS_PREFILL"]):
+        counts = [rows * (e % 4 == 0) + 1 for e in range(experts)]
+        r = sum(counts)
+        tiles = len(gmm.tile_schedule(counts, rows, 1, 1)[0])
+        p = gmm.plan(r, experts, 768, 2048, True, SMS)
+        assert p.rows == rows
+        assert tiles == (r - experts) // rows + experts == p.max_tiles
+    p = gmm.plan(64, experts, 768, 2048, True, SMS)
+    assert p.rows == g["GMM_ROWS_DECODE"] and p.max_tiles == 64
+    assert len(gmm.tile_schedule([1] * 64 + [0] * 64, p.rows, 1, 1)[0]) == p.max_tiles

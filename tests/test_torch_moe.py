@@ -214,6 +214,9 @@ def test_wrappers_raise_off_cuda_and_cpu():
 
 
 # -------------------------------------------------------------- no host read
+_SMS = 132  # an H100 SXM
+
+
 class _Library:
     """Stands in for the CUDA library: checks the launch it is given and
     writes the product into ``out``, computed from the tensors by device
@@ -223,10 +226,11 @@ class _Library:
         self.launches, self.tensors = [], None
 
     def dynamo_grouped_matmul(self, x, w, scale, offsets, out, r, n, k, e, quant, rows, grid_n,
-                              grid_m, stream):
+                              blocks, stream):
         xt, wt, st, ot = self.tensors
         assert (x, w, offsets) == (xt.data_ptr(), wt.data_ptr(), ot.data_ptr())
-        assert grid_m == -(-r // rows) + e and grid_n == -(-n // 128)
+        assert (rows, grid_n, blocks) == (lambda p: (p.rows, p.grid_n, p.blocks))(
+            gmm.plan(r, e, n, k, bool(quant), _SMS))
         row_expert = torch.searchsorted(ot[1:], torch.arange(r, dtype=torch.int32), right=True)
         wf = wt.float() * st if quant else wt.float()
         y = torch.bmm(xt.float()[:, None, :], wf[row_expert])[:, 0].to(torch.bfloat16).contiguous()
@@ -270,6 +274,7 @@ def test_routing_and_launch_make_no_host_read(monkeypatch, quantized):
 
     launches = (gmm.grouped_matmul.launches, gmm.grouped_matmul_q8.launches)
     monkeypatch.setattr(build, "library", lambda: lib)
+    monkeypatch.setattr(build, "sm_count", lambda index: _SMS)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: types.SimpleNamespace(cuda_stream=0))
     monkeypatch.setattr(gmm, "grouped_matmul", cuda_branch(False, gmm.grouped_matmul))
     monkeypatch.setattr(gmm, "grouped_matmul_q8", cuda_branch(True, gmm.grouped_matmul_q8))
