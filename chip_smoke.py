@@ -43,9 +43,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    eagerly for the log; a graph replay of
    each decode kernel must give the eager launch's bits) beside their plain
    versions, a PyTorch library call on the same work (the median of three
-   readings, timed as its kernel is: decode's SDPA also as a CUDA graph;
-   for the grouped launches ``torch._grouped_mm`` and a per-expert cuBLAS
-   loop, both as CUDA graphs), and their bound on this card;
+   readings; every SDPA yardstick as a CUDA graph, the card's time, and
+   eagerly for the log; for the grouped launches ``torch._grouped_mm`` and
+   a per-expert cuBLAS loop, both as CUDA graphs), and their bound on this
+   card;
 4. serving: Llama-3-8B at full width and depth (random weights from a
    seeded generator) behind ``AsyncLLMEngine``, six concurrent greedy
    requests (17 to 1500 prompt tokens, two sharing a 256-token prefix),
@@ -95,11 +96,32 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``build_local_engine`` as in phase 6 (bf16 default path: decode, prefill
    and E1; int8 token-budget path: int8 decode, int8 ragged, W8A16 and E2),
    the loaded tensors held to the shards and the answers to a fresh
-   engine's.
+   engine's;
+10. DeepSeek-V2, serving: DeepSeek-V2-Lite at full width and depth (27
+   layers, MLA with the absorbed latent cache, 64 routed experts top 6 and
+   2 shared, random weights from a seeded generator; its YaRN
+   ``rope_scaling`` dropped, as neither package implements it) behind
+   ``AsyncLLMEngine``, the six requests on the default path with a bf16
+   cache (profiled) and with an int8 cache (Bs = 32): E1 and no other
+   kernel (MLA attention is the plain op, as in the JAX package);
+11. DeepSeek-V2, parity: phase 5's default-path check (bf16 and int8
+   cache) on a 2-layer model at DeepSeek-V2-Lite width (the dense layer and
+   one MoE layer) and on one DeepSeek-V2 MoE layer (q-LoRA 1,536, 128
+   heads, 160 experts, group-limited routing 8 / 3, routed scaling 16);
+12. DeepSeek-V2, front door: a 2-layer checkpoint at DeepSeek-V2-Lite's
+   width and tensor names (2.2 GB, 216 tensors) with a word-level tokenizer
+   of 102,400 ids, served by the CLI and by ``build_local_engine`` with a
+   bf16 and with an int8 cache (E1); ``--quantize int8`` refused with the
+   JAX CLI's message.
 
-Then one ``{"kernels": [...]}`` line (the grouped kernels' rows hold
-their T = 8 reading and, under ``t1504``, their T = 1,504 one), and as the
-last line ``{"ok": true, "device": {...}}``.
+The kernel timings also time E1 at one DeepSeek-V2-Lite MoE layer's
+launches (64 experts, top 6, [2048, 1408] and [1408, 2048]), and the MLA
+latent attention (the plain op) at B1's decode step and B2's prefill,
+each beside its bound and SDPA on the same latent K/V.  Then one
+``{"mla": [...]}`` line, one ``{"kernels": [...]}`` line (the grouped
+kernels' rows hold their T = 8 reading and, under ``t1504``, their T =
+1,504 one; E1's also its DeepSeek-V2-Lite readings and launches), and as
+the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -120,8 +142,8 @@ if not (ROOT / "dynamo_tpu_torch").is_dir():
 sys.path.insert(0, str(ROOT))
 
 from dynamo_tpu_torch.tools.cuda_timing import (  # noqa: E402
-    LM_HEAD, MOE_EXPERTS, MOE_LAUNCHES, MOE_TOKENS, MOE_TOP_K, PROJECTIONS, card_line, cuda_time_ms,
-    graph_time_ms, median_ms, moe_layer_work, moe_offsets, moe_stack, ragged_layout)
+    DECODE_LENS, LM_HEAD, MOE_EXPERTS, MOE_LAUNCHES, MOE_TOKENS, MOE_TOP_K, PROJECTIONS, card_line,
+    cuda_time_ms, graph_time_ms, median_ms, moe_layer_work, moe_offsets, moe_stack, ragged_layout)
 
 # published peaks of one H100 SXM (dense): HBM bytes/s and bf16 tensor FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -180,10 +202,11 @@ KERNEL_RTOL = 2.0 ** -6
 PARITY_REL_L2 = 5e-2
 PARITY_MAX_REL = 1e-1
 # An MoE router picks experts by comparing logits, so the card (bf16 hidden
-# states, logits rounded to bf16) and the CPU (f32) can pick a different
-# expert for a token whose k-th and (k+1)-th logits nearly tie, and then
-# that token's output differs by a whole expert's share, far past the
-# bounds above.  The logits are therefore compared with the CPU routed as
+# states; Qwen3's logits rounded to bf16, DeepSeek's f32) and the CPU (f32)
+# can pick a different expert for a token whose k-th and (k+1)-th logits
+# nearly tie (or, under group-limited routing, whose groups' best logits
+# do), and then that token's output differs by a whole expert's share, far
+# past the bounds above.  The logits are therefore compared with the CPU routed as
 # the card routed (its own f32 logits weighting the card's experts); and
 # where its own choice differs, the CPU's logits of the card's expert and
 # of its own k-th must lie within ROUTE_TIE: about five times the card's
@@ -676,24 +699,31 @@ def matmul_phase(torch, gen) -> float:
     return worst
 
 
-def _sdpa_decode_ms(torch, q, lens, dense_kv) -> tuple[float, float]:
+def _sdpa_decode_ms(torch, q, lens, dense_kv, layers: int = L) -> tuple[float, float]:
     """SDPA on one decode step's layer, the decode kernels' library
     yardstick: q [B, 1, H, D] over each layer's K/V laid out dense
     beforehand (``dense_kv(layer)`` gives [B, Hk, T, D] twice), successive
-    calls walking the 32 layers as the kernels do.  Timed as the kernels
-    are, as a CUDA graph of the 32 calls (the card's time) and launched
-    eagerly; medians of three readings."""
+    calls walking the ``layers`` layers (32 unless named) as the kernels
+    do.  Timed as the kernels are, as a CUDA graph of the calls (the card's
+    time) and launched eagerly; medians of three readings."""
     import torch.nn.functional as F
 
-    kvs = [dense_kv(layer) for layer in range(L)]
+    kvs = [dense_kv(layer) for layer in range(layers)]
     seq = torch.tensor(lens, device="cuda")
     mask = (torch.arange(kvs[0][0].shape[2], device="cuda")[None, :] < seq[:, None])[:, None, None, :]
     qd = q.transpose(1, 2).contiguous()
     calls = [lambda kv=kv: F.scaled_dot_product_attention(qd, *kv, attn_mask=mask, enable_gqa=True)
              for kv in kvs]
-    graph_ms = median_ms(lambda: graph_time_ms(calls, 20) / L)
-    eager_ms = median_ms(lambda: cuda_time_ms(lambda i: calls[i % L](), 64))
+    graph_ms = median_ms(lambda: graph_time_ms(calls, 20) / layers)
+    eager_ms = median_ms(lambda: cuda_time_ms(lambda i: calls[i % layers](), 64))
     return graph_ms, eager_ms
+
+
+def _sdpa_ms(call, iters: int = 10) -> tuple[float, float]:
+    """An SDPA yardstick as a CUDA graph (the card's time, as the kernels
+    beside it are compared) and launched eagerly: medians of three readings."""
+    return (median_ms(lambda: graph_time_ms([call], iters)),
+            median_ms(lambda: cuda_time_ms(lambda i: call(), iters)))
 
 
 def _check_graph_replay(torch, call, what: str) -> None:
@@ -786,14 +816,15 @@ def timing_phase(torch, card: str) -> dict:
     st1 = torch.zeros(1, dtype=torch.int32, device="cuda")
     pargs = (qp, kp, vp, cache1, LAYER, bt1, lens1, st1)
     kernel_ms = cuda_time_ms(lambda i: paged_prefill_attention(*pargs), 10)
+    kernel_graph_ms = graph_time_ms([lambda: paged_prefill_attention(*pargs)], 10)
     plain_ms = cuda_time_ms(lambda i: prefill_attention_ref(*pargs), 3, warmup=1)
     out["prefill_err"] = compare(torch, "prefill at the serving shapes",
                                  paged_prefill_attention(*pargs), prefill_attention_ref(*pargs))
     qs = qp[:, :fresh].transpose(1, 2).contiguous()
     ks = kp[:, :fresh].transpose(1, 2).contiguous()
     vs = vp[:, :fresh].transpose(1, 2).contiguous()
-    library_ms = median_ms(lambda: cuda_time_ms(lambda i: F.scaled_dot_product_attention(
-        qs, ks, vs, is_causal=True, enable_gqa=True), 10))
+    library_ms, library_eager_ms = _sdpa_ms(
+        lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True))
     pairs = fresh * (fresh + 1) // 2
     pre_flops = 4 * H * D * pairs
     pre_bytes = 2 * (2 * fresh * H * D + 2 * fresh * HK * D) + 4 * (m + 2)
@@ -801,8 +832,10 @@ def timing_phase(torch, card: str) -> dict:
                           bound_ms=1e3 * max(pre_flops / BF16_FLOP_PER_S, pre_bytes / HBM_BYTES_PER_S),
                           bound_by="operations" if pre_flops / BF16_FLOP_PER_S >= pre_bytes / HBM_BYTES_PER_S
                           else "bytes")
-    log(f"time prefill B=1 S={s} fresh={fresh} start=0: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"sdpa {library_ms:.4f} ms, bound {out['prefill']['bound_ms']:.4f} ms, "
+    log(f"time prefill B=1 S={s} fresh={fresh} start=0: kernel {kernel_ms:.4f} ms (CUDA graph "
+        f"{kernel_graph_ms:.4f}), plain {plain_ms:.4f} ms, "
+        f"sdpa {library_ms:.4f} ms (CUDA graph; eager {library_eager_ms:.4f}), "
+        f"bound {out['prefill']['bound_ms']:.4f} ms, "
         f"max abs err {out['prefill_err']:.3g} ({card})")
     return out
 
@@ -898,6 +931,7 @@ def q8_timing_phase(torch, card: str) -> dict:
                   for x in (H, HK, HK))
     pargs = (qp, kp, vp, cache1, LAYER, bt1, _ints(torch, [start + fresh]), _ints(torch, [start]))
     kernel_ms = cuda_time_ms(lambda i: paged_prefill_attention_q8(*pargs), 10)
+    kernel_graph_ms = graph_time_ms([lambda: paged_prefill_attention_q8(*pargs)], 10)
     plain_ms = cuda_time_ms(lambda i: prefill_attention_ref(*pargs), 3, warmup=1)
     out["prefill_q8_err"] = compare(torch, "int8 prefill at the serving shapes",
                                     paged_prefill_attention_q8(*pargs), prefill_attention_ref(*pargs))
@@ -908,15 +942,17 @@ def q8_timing_phase(torch, card: str) -> dict:
     i = torch.arange(fresh, device="cuda")
     j = torch.arange(start + fresh, device="cuda")
     pmask = (j[None, :] < start) | (j[None, :] - start <= i[:, None])
-    library_ms = median_ms(lambda: cuda_time_ms(lambda i: F.scaled_dot_product_attention(
-        qs, ks, vs, attn_mask=pmask, enable_gqa=True), 10))
+    library_ms, library_eager_ms = _sdpa_ms(
+        lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=pmask, enable_gqa=True))
     pairs = fresh * start + fresh * (fresh + 1) // 2
     nbytes = (2 * (2 * fresh * H * D + 2 * fresh * HK * D) + 2 * start * HK * D
               + 2 * start * HK * 4 + 4 * (m + 2))
     out["prefill_q8"] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                              **_bound(4 * H * D * pairs, nbytes))
-    log(f"time prefill int8 B=1 S={s} fresh={fresh} start={start} Bs={bs}: kernel {kernel_ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, sdpa on bf16 K/V {library_ms:.4f} ms, bound "
+    log(f"time prefill int8 B=1 S={s} fresh={fresh} start={start} Bs={bs}: kernel {kernel_ms:.4f} ms "
+        f"(CUDA graph {kernel_graph_ms:.4f}), "
+        f"plain {plain_ms:.4f} ms, sdpa on bf16 K/V {library_ms:.4f} ms (CUDA graph; eager "
+        f"{library_eager_ms:.4f}), bound "
         f"{out['prefill_q8']['bound_ms']:.4f} ms ({out['prefill_q8']['bound_by']}), max abs err "
         f"{out['prefill_q8_err']:.3g} ({card})")
     return out
@@ -1102,11 +1138,17 @@ def ragged_timing(torch, card: str, mixed: dict, quant: bool = False) -> dict:
 # (experts, top k, hidden, expert width): Qwen3-30B-A3B (Qwen/Qwen3-30B-A3B
 # config.json), served below, and Mixtral-8x7B (mistralai/Mixtral-8x7B-v0.1
 # config.json), 93 GB in bf16, so only one layer's expert stack is checked
+# one DeepSeek-V2-Lite MoE layer (deepseek-ai/DeepSeek-V2-Lite config.json:
+# 64 routed experts, top 6, hidden 2048, expert width 1408): (experts, top
+# k, its three launches' [K, N])
+V2_LITE_MOE = (64, 6, {"w_gate": (2048, 1408), "w_up": (2048, 1408), "w_down": (1408, 2048)})
 MOE_GEOMS = {"Qwen3-30B-A3B": (MOE_EXPERTS, MOE_TOP_K, *MOE_LAUNCHES["w_gate"]),
-             "Mixtral-8x7B": (8, 2, 4096, 14336)}
+             "Mixtral-8x7B": (8, 2, 4096, 14336),
+             "DeepSeek-V2-Lite": (*V2_LITE_MOE[:2], *V2_LITE_MOE[2]["w_gate"])}
 # tokens per check: one decode row, a decode step at 8 slots, the longest
 # prompt, and a dispatch of 3,765 tokens (the six prompts' total)
-MOE_CHECK_TOKENS = {"Qwen3-30B-A3B": (1, 8, 1504, 3765), "Mixtral-8x7B": (8, 1504)}
+MOE_CHECK_TOKENS = {"Qwen3-30B-A3B": (1, 8, 1504, 3765), "Mixtral-8x7B": (8, 1504),
+                    "DeepSeek-V2-Lite": (1, 8, 1504)}
 # the grouped kernel's edges: 5 experts of [144, N] and [N, 144] (a depth
 # off the 64-deep sub-tile, N off the 128-channel tile and bf16's 64-channel
 # TMA box: 200 is a multiple of 8, as bf16 needs, 208 of 16, as int8
@@ -1224,83 +1266,96 @@ def moe_mlp_check(torch, gen) -> None:
 
 
 def moe_timing(torch, card: str) -> dict:
-    """One Qwen3-30B-A3B layer's three grouped launches (``cuda_timing.
-    MOE_LAUNCHES``: gate and up on the sorted rows, down on the
-    activations), uniform routing, at a decode step (T = 8: 64 rows) and at
-    the longest prompt's prefill (T = 1,504: 12,032 rows), two layers'
-    stacks in turn (past the 50 MB L2): the kernel as a CUDA graph (the
-    card's time) and eagerly, the plain version, the per-expert cuBLAS loop
-    over the same groups as a CUDA graph (int8: on the experts dequantised
-    beforehand), ``torch._grouped_mm`` where this torch has it (the
-    ``library_ms``; int8: on dequantised experts), and the bound: the
-    weight bytes of the experts the rows route to (counted), x and every
-    launch's input and output once, against 2 R K N per launch
-    (``cuda_timing.moe_layer_work``).  Returns each kernel's T = 8 row, with
-    its T = 1,504 row under ``t1504``."""
-    from dynamo_tpu_torch.models.quant import dequantize
-
+    """One MoE layer's three grouped launches (gate and up on the sorted
+    rows, down on the activations), uniform routing, at a decode step (T =
+    8) and at the longest prompt's prefill (T = 1,504), two layers' stacks
+    in turn (past the 50 MB L2): E1 and E2 at Qwen3-30B-A3B's launches
+    (``cuda_timing.MOE_LAUNCHES``: 64 and 12,032 rows), and E1 at
+    DeepSeek-V2-Lite's (``V2_LITE_MOE``: 48 and 9,024 rows).  The kernel as
+    a CUDA graph (the card's time) and eagerly, the plain version, the
+    per-expert cuBLAS loop over the same groups as a CUDA graph (int8: on
+    the experts dequantised beforehand), ``torch._grouped_mm`` where this
+    torch has it (the ``library_ms``; int8: on dequantised experts), and the
+    bound: the weight bytes of the experts the rows route to (counted), x
+    and every launch's input and output once, against 2 R K N per launch
+    (``cuda_timing.moe_layer_work``).  Returns each kernel's Qwen3 T = 8
+    row, with its T = 1,504 row under ``t1504`` and E1's DeepSeek-V2-Lite
+    rows under ``deepseek_v2_lite``."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
-    names = MOE_LAUNCHES
     out = {}
     for quant in (False, True):
         key = "moe_q8" if quant else "moe"
-        kernel, plain = _grouped(quant)
-        layers = [{n: _expert_stack(torch, gen, MOE_EXPERTS, kd, nd, quant) for n, (kd, nd) in names.items()}
-                  for _ in range(2)]
-        dense = [{n: dequantize(w, torch.bfloat16) for n, w in layer.items()} for layer in layers]
-        for t in MOE_TOKENS:
-            r = t * MOE_TOP_K
-            offsets = moe_offsets(gen, t)
-            bounds = offsets.tolist()
-            groups = [(e, bounds[e], bounds[e + 1]) for e in range(MOE_EXPERTS) if bounds[e + 1] > bounds[e]]
-            xs = {"w_gate": torch.randn((r, names["w_gate"][0]), generator=gen, device="cuda").to(torch.bfloat16)}
-            xs["w_up"] = xs["w_gate"]
-            xs["w_down"] = torch.randn((r, names["w_down"][0]), generator=gen, device="cuda").to(torch.bfloat16)
-            outs = {n: torch.empty((r, nd), dtype=torch.bfloat16, device="cuda") for n, (_, nd) in names.items()}
+        rows = _moe_layer_times(torch, card, gen, quant, "Qwen3-30B-A3B", MOE_EXPERTS, MOE_TOP_K,
+                                MOE_LAUNCHES)
+        (row8, err8), (row1504, err1504) = (rows[t] for t in MOE_TOKENS)
+        out[key] = dict(row8, t1504=row1504)
+        out[key + "_err"] = max(err8, err1504)
+    rows = _moe_layer_times(torch, card, gen, False, "DeepSeek-V2-Lite", *V2_LITE_MOE)
+    out["moe"]["deepseek_v2_lite"] = {f"t{t}": row for t, (row, _) in rows.items()}
+    out["moe_err"] = max(out["moe_err"], *(err for _, err in rows.values()))
+    return out
 
-            def calls(fn):
-                return [lambda li=li, n=n: fn(xs[n], layers[li][n], offsets) for li in range(2) for n in names]
 
-            def cublas():
-                for li in range(2):
-                    for n in names:
-                        for e, lo, hi in groups:
-                            torch.matmul(xs[n][lo:hi], dense[li][n][e], out=outs[n][lo:hi])
+def _moe_layer_times(torch, card: str, gen, quant: bool, model: str, experts: int, top_k: int,
+                     names: dict) -> dict:
+    """``moe_timing`` for one kernel at one model's launches ``names``
+    (name -> [K, N]): {T: (row, max abs err)} for T in MOE_TOKENS."""
+    from dynamo_tpu_torch.models.quant import dequantize
 
-            iters = 20 if t == 8 else 5
-            ms = graph_time_ms(calls(kernel), iters) / 2
-            eager = cuda_time_ms(lambda i: [c() for c in calls(kernel)], iters) / 2
-            plain_ms = cuda_time_ms(lambda i: [c() for c in calls(plain)], 3) / 2
-            loop_ms = median_ms(lambda: graph_time_ms([cublas], iters) / 2)
-            lib_ms = None
-            if hasattr(torch, "_grouped_mm"):
-                ends = offsets[1:].contiguous()
-                try:
-                    lib_ms = median_ms(lambda: graph_time_ms([
-                        lambda li=li, n=n: torch._grouped_mm(xs[n], dense[li][n], offs=ends)
-                        for li in range(2) for n in names], iters) / 2)
-                except RuntimeError as e:  # a yardstick this torch cannot run is recorded, not used
-                    log(f"time {key}: torch._grouped_mm did not run here: {str(e)[:200]}")
-            err = max(compare(torch, f"{key} timing {n} T={t}", calls(kernel)[i](), calls(plain)[i]())
-                      for i, n in enumerate(names))
-            flops, nbytes = moe_layer_work(r, len(groups), quant)
-            b = _bound(flops, nbytes)
-            row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **b)
-            log(f"time {key} one Qwen3-30B-A3B layer's 3 grouped launches at T={t} ({r} rows, "
-                f"{len(groups)} of {MOE_EXPERTS} experts routed to): kernel {ms:.4f} ms (CUDA graph), "
-                f"eager {eager:.4f} ms, plain {plain_ms:.4f} ms, per-expert cuBLAS loop "
-                f"{'on dequantised experts ' if quant else ''}{loop_ms:.4f} ms (CUDA graph), "
-                f"torch._grouped_mm {'not available' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
-                f"{b['bound_ms']:.4f} ms ({b['bound_by']}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); "
-                f"max abs err {err:.3g} ({card})")
-            if t == MOE_TOKENS[0]:
-                out[key], out[key + "_err"] = row, err
-            else:
-                out[key][f"t{t}"] = row
-                out[key + "_err"] = max(out[key + "_err"], err)
-        del layers, dense
-        torch.cuda.empty_cache()
+    key = "moe_q8" if quant else "moe"
+    kernel, plain = _grouped(quant)
+    layers = [{n: _expert_stack(torch, gen, experts, kd, nd, quant) for n, (kd, nd) in names.items()}
+              for _ in range(2)]
+    dense = [{n: dequantize(w, torch.bfloat16) for n, w in layer.items()} for layer in layers]
+    out = {}
+    for t in MOE_TOKENS:
+        r = t * top_k
+        offsets = moe_offsets(gen, t, experts, top_k)
+        bounds = offsets.tolist()
+        groups = [(e, bounds[e], bounds[e + 1]) for e in range(experts) if bounds[e + 1] > bounds[e]]
+        xs = {"w_gate": torch.randn((r, names["w_gate"][0]), generator=gen, device="cuda").to(torch.bfloat16)}
+        xs["w_up"] = xs["w_gate"]
+        xs["w_down"] = torch.randn((r, names["w_down"][0]), generator=gen, device="cuda").to(torch.bfloat16)
+        outs = {n: torch.empty((r, nd), dtype=torch.bfloat16, device="cuda") for n, (_, nd) in names.items()}
+
+        def calls(fn):
+            return [lambda li=li, n=n: fn(xs[n], layers[li][n], offsets) for li in range(2) for n in names]
+
+        def cublas():
+            for li in range(2):
+                for n in names:
+                    for e, lo, hi in groups:
+                        torch.matmul(xs[n][lo:hi], dense[li][n][e], out=outs[n][lo:hi])
+
+        iters = 20 if t == 8 else 5
+        ms = graph_time_ms(calls(kernel), iters) / 2
+        eager = cuda_time_ms(lambda i: [c() for c in calls(kernel)], iters) / 2
+        plain_ms = cuda_time_ms(lambda i: [c() for c in calls(plain)], 3) / 2
+        loop_ms = median_ms(lambda: graph_time_ms([cublas], iters) / 2)
+        lib_ms = None
+        if hasattr(torch, "_grouped_mm"):
+            ends = offsets[1:].contiguous()
+            try:
+                lib_ms = median_ms(lambda: graph_time_ms([
+                    lambda li=li, n=n: torch._grouped_mm(xs[n], dense[li][n], offs=ends)
+                    for li in range(2) for n in names], iters) / 2)
+            except RuntimeError as e:  # a yardstick this torch cannot run is recorded, not used
+                log(f"time {key}: torch._grouped_mm did not run here: {str(e)[:200]}")
+        err = max(compare(torch, f"{key} {model} timing {n} T={t}", calls(kernel)[i](), calls(plain)[i]())
+                  for i, n in enumerate(names))
+        flops, nbytes = moe_layer_work(r, len(groups), quant, names)
+        b = _bound(flops, nbytes)
+        out[t] = (dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **b), err)
+        log(f"time {key} one {model} layer's 3 grouped launches at T={t} ({r} rows, "
+            f"{len(groups)} of {experts} experts routed to): kernel {ms:.4f} ms (CUDA graph), "
+            f"eager {eager:.4f} ms, plain {plain_ms:.4f} ms, per-expert cuBLAS loop "
+            f"{'on dequantised experts ' if quant else ''}{loop_ms:.4f} ms (CUDA graph), "
+            f"torch._grouped_mm {'not available' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP); "
+            f"max abs err {err:.3g} ({card})")
+    del layers, dense
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1313,18 +1368,25 @@ def llama3_8b(num_layers: int = 32):
                        max_position_embeddings=8192, rope_theta=500000.0, dtype="bfloat16")
 
 
-def prompts(seed: int = 0) -> list[list[int]]:
+def prompts(seed: int = 0, vocab: int = 128256) -> list[list[int]]:
+    """The six prompts, token ids below ``vocab`` (Llama 3's unless named)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    shared = rng.integers(0, 128256, SHARED_PREFIX).tolist()
+    shared = rng.integers(0, vocab, SHARED_PREFIX).tolist()
     out = []
     for i, n in enumerate(PROMPT_LENS):
         if i >= len(PROMPT_LENS) - 2:  # the two sharing a prefix
-            out.append(shared + rng.integers(0, 128256, n - SHARED_PREFIX).tolist())
+            out.append(shared + rng.integers(0, vocab, n - SHARED_PREFIX).tolist())
         else:
-            out.append(rng.integers(0, 128256, n).tolist())
+            out.append(rng.integers(0, vocab, n).tolist())
     return out
+
+
+def model_prompts(model, seed: int = 0) -> list[list[int]]:
+    """The six prompts for ``model``: Llama 3's ids, or below a smaller
+    vocabulary (DeepSeek's 102,400)."""
+    return prompts(seed, min(LLAMA3_VOCAB, model.config.vocab_size))
 
 
 async def _serve(engine, reqs):
@@ -1376,7 +1438,7 @@ def serve_run(torch, model, config: dict, card: str, label: str, profile: bool =
             fn.launches = 0
         before = (core.steps, core.overlap_s, core.read_wait_s)
         t0 = time.perf_counter()
-        results = asyncio.run(_serve(engine, prompts()))
+        results = asyncio.run(_serve(engine, model_prompts(model)))
         wall = time.perf_counter() - t0
         launches = {name: fn.launches for name, fn in wrappers.items()}
         metrics = core.metrics()
@@ -1408,7 +1470,7 @@ def serve_run(torch, model, config: dict, card: str, label: str, profile: bool =
             f"per dispatch: overlap-window host work {overlap_ms:.2f} ms, result-read wait "
             f"{wait_ms:.2f} ms, launches {launches}, counters {json.dumps(counters)} ({card})")
         if profile:
-            profile_serving(torch, engine, prompts(seed=1), card)
+            profile_serving(torch, engine, model_prompts(model, seed=1), card)
     finally:
         engine.shutdown()
     streams = [[t for o in outs for t in o.token_ids] for _, _, outs in results]
@@ -1700,37 +1762,65 @@ def moe_routes(torch, replay=None):
     """Within the block every MoE router call's expert ids are recorded
     (``replay`` None; the yielded list fills in call order), or replaced
     by the recorded ones (``replay``: that list), the replaying side
-    weighting them by its own logits as the router does.  On replay the
-    yielded dict counts the live (token, layer) routes whose own choice
-    agreed and the largest logit gap of a disagreeing one (see
-    ROUTE_TIE)."""
-    from dynamo_tpu_torch.models import llama as mod
+    weighting them by its own logits as the router does.  Both families'
+    routers are covered: the Llama family's (Mixtral, Qwen3-MoE) and
+    DeepSeek's, whose group-limited routing also records the groups it
+    kept.  On replay the yielded dict counts the live (token, layer)
+    routes whose own choice agreed and the largest logit gap of a
+    disagreeing one (see ROUTE_TIE and :func:`_route_gap`)."""
+    from dynamo_tpu_torch.models import deepseek, llama
 
-    real = mod._moe_router
+    real = {mod: mod._moe_router for mod in (llama, deepseek)}
     recorded = [] if replay is None else iter(replay)
     stats = {"routes": 0, "same": 0, "max_gap": 0.0}
 
-    def routed(cfg, lp, xf):
-        weights, topi = real(cfg, lp, xf)
-        if replay is None:
-            recorded.append(topi.cpu())
-            return weights, topi
-        pinned = next(recorded).to(topi.device)
-        logits = (xf @ lp["router"]).float()
-        live = LIVE_TOKENS["mask"].to(topi.device)
-        same = (topi.sort(-1).values == pinned.sort(-1).values).all(-1)[live]
-        kth = logits.gather(-1, topi[:, -1:])  # this side's k-th largest
-        gap = (kth - logits.gather(-1, pinned)).clamp_min(0).amax(-1)[live]
-        stats["routes"] += len(same)
-        stats["same"] += int(same.sum())
-        stats["max_gap"] = max(stats["max_gap"], float(gap.max()))
-        return mod.router_weights(cfg, logits, pinned), pinned
+    def router(mod):
+        def routed(cfg, lp, xf):
+            weights, topi = real[mod](cfg, lp, xf)
+            logits = deepseek.router_logits(lp, xf) if mod is deepseek else (xf @ lp["router"]).float()
+            grouped = getattr(cfg, "topk_method", None) == "group_limited_greedy"
+            if replay is None:
+                groups = deepseek.limited_groups(cfg, torch.softmax(logits, -1)) if grouped else None
+                recorded.append((topi.cpu(), None if groups is None else groups.cpu()))
+                return weights, topi
+            pinned, groups = (None if x is None else x.to(topi.device) for x in next(recorded))
+            live = LIVE_TOKENS["mask"].to(topi.device)
+            same = (topi.sort(-1).values == pinned.sort(-1).values).all(-1)[live]
+            gap = _route_gap(torch, cfg, logits, pinned, groups)[live]
+            stats["routes"] += len(same)
+            stats["same"] += int(same.sum())
+            stats["max_gap"] = max(stats["max_gap"], float(gap.max()))
+            return mod.router_weights(cfg, logits, pinned), pinned
+        return routed
 
-    mod._moe_router = routed
+    for mod in real:
+        mod._moe_router = router(mod)
     try:
         yield recorded if replay is None else stats
     finally:
-        mod._moe_router = real
+        for mod, fn in real.items():
+            mod._moe_router = fn
+
+
+def _route_gap(torch, cfg, logits, pinned, groups=None):
+    """Per token, how far this side's logits [T, E] are from choosing the
+    pinned experts [T, k]: the k-th largest logit minus a pinned expert's,
+    at most over the pinned (0 where they are this side's top k).  Under
+    group-limited routing (``groups``: the pinned side's kept groups [T,
+    topk_group]) the k-th largest is taken within those groups, and the
+    group choice adds its own gap: this side's ``topk_group``-th group best
+    minus the best of a group the pinned side kept."""
+    k = pinned.shape[1]
+    if groups is not None:
+        t, per = logits.shape[0], cfg.n_routed_experts // cfg.n_group
+        best = logits.reshape(t, cfg.n_group, per).amax(-1)                  # [T, G]
+        kth_group = best.sort(-1, descending=True).values[:, cfg.topk_group - 1:cfg.topk_group]
+        group_gap = (kth_group - best.gather(-1, groups)).clamp_min(0).amax(-1)
+        allowed = torch.zeros_like(best, dtype=torch.bool).scatter_(1, groups, True)
+        logits = logits.masked_fill(~allowed.repeat_interleave(per, dim=-1), float("-inf"))
+    kth = logits.sort(-1, descending=True).values[:, k - 1:k]
+    gap = (kth - logits.gather(-1, pinned)).clamp_min(0).amax(-1)
+    return gap if groups is None else gap.maximum(group_gap)
 
 
 def _hold_card_to_cpu(torch, what: str, on_card, on_cpu, card: str) -> None:
@@ -1951,12 +2041,14 @@ def write_checkpoint(torch, d: Path) -> float:
 
 
 def check_loaded(torch, model, d: Path, label: str, names: dict = FRONT_NAMES,
-                 experts: int = 0) -> None:
+                 experts: int = 0, first_layer: dict | None = None) -> None:
     """Every parameter the loader built equals the shards' tensor,
-    transposed where HF stores [out, in] and stacked over the layers (and
-    the ``experts`` of a name with ``{e}``): exactly in bf16; for int8
-    weights, the codes and scales equal the quantisation of the shards'
-    bf16 tensor."""
+    transposed where HF stores [out, in] and stacked over the layers of its
+    group (``layers.``, or DeepSeek's ``dense_layers.`` / ``moe_layers.``,
+    whose slot j is HF layer ``first_layer[group] + j``) and the
+    ``experts`` of a name with ``{e}``: exactly in bf16; for int8 weights,
+    the codes and scales equal the quantisation of the shards' bf16
+    tensor."""
     from safetensors import safe_open
 
     from dynamo_tpu_torch.models.quant import quantize
@@ -1966,11 +2058,14 @@ def check_loaded(torch, model, d: Path, label: str, names: dict = FRONT_NAMES,
     n = 0
     for name, (fmt, transpose) in names.items():
         slots = [()]
-        if name.startswith("layers."):
-            slots = [(i, e) for i in range(FRONT_LAYERS) for e in range(experts)] if "{e}" in fmt else [
-                (i,) for i in range(FRONT_LAYERS)]
+        group = name.rpartition(".")[0]
+        if group:
+            depth = state[name].shape[0]
+            slots = [(i, e) for i in range(depth) for e in range(experts)] if "{e}" in fmt else [
+                (i,) for i in range(depth)]
+        first = (first_layer or {}).get(group, 0)
         for slot in slots:
-            key = fmt.format(i=slot[0], e=slot[-1]) if slot else fmt
+            key = fmt.format(i=first + slot[0], e=slot[-1]) if slot else fmt
             with safe_open(d / index[key], framework="pt", device="cuda") as f:
                 w = f.get_tensor(key)
             w = w.t() if transpose else w
@@ -2150,7 +2245,8 @@ def cli_phase(card: str, flags: tuple = (), label: str = "Llama-3-8B-width") -> 
 
 
 def front_server(torch, flags: list[str], card: str, label: str, need: list[str],
-                 none: list[str], names: dict = FRONT_NAMES, experts: int = 0) -> None:
+                 none: list[str], names: dict = FRONT_NAMES, experts: int = 0,
+                 first_layer: dict | None = None) -> None:
     """``build_local_engine`` on the checkpoint with ``flags`` behind the
     port's HttpService on port 0: the loaded tensors against the shards,
     then the requests one at a time with every kernel counter zeroed just
@@ -2173,7 +2269,7 @@ def front_server(torch, flags: list[str], card: str, label: str, need: list[str]
     model, config = engine.core.model, engine.core.config
     reqs = _front_requests()
     try:
-        check_loaded(torch, model, FRONT_DIR, label, names, experts)
+        check_loaded(torch, model, FRONT_DIR, label, names, experts, first_layer)
         wrappers = _kernel_wrappers()
 
         async def serve():
@@ -2426,7 +2522,371 @@ def http_serving_run(torch, model, direct: dict, card: str) -> None:
         f"({card})")
 
 
+# ----------------------------------------------------------------- DeepSeek
+def deepseek_v2_lite(num_layers: int = 27):
+    """DeepSeek-V2-Lite (deepseek-ai/DeepSeek-V2-Lite config.json) at full
+    width: no q-LoRA, kv_lora 512, nope 128, rope 64, v 128, 16 heads, 64
+    routed experts top 6 of width 1,408 and 2 shared, greedy routing, the
+    first layer dense (FFN 10,944).  Its YaRN ``rope_scaling`` is dropped:
+    neither package implements it (``DeepseekConfig.from_hf`` refuses it)."""
+    from dynamo_tpu_torch.models.deepseek import DeepseekConfig
+
+    return DeepseekConfig(vocab_size=102400, hidden_size=2048, num_layers=num_layers, num_heads=16,
+                          qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128,
+                          kv_lora_rank=512, q_lora_rank=None, intermediate_size=10944,
+                          moe_intermediate_size=1408, n_routed_experts=64, num_experts_per_tok=6,
+                          n_shared_experts=2, routed_scaling_factor=1.0, topk_method="greedy",
+                          first_k_dense_replace=1, rms_norm_eps=1e-6, rope_theta=10000.0,
+                          max_position_embeddings=163840, dtype="bfloat16")
+
+
+def deepseek_v2_moe_layer():
+    """One DeepSeek-V2 MoE layer (deepseek-ai/DeepSeek-V2 config.json) as a
+    1-layer model: hidden 5,120, q-LoRA 1,536, 128 heads, 160 routed experts
+    top 6 of width 1,536 and 2 shared, group-limited routing (8 groups, top
+    3), routed scaling 16; 7.55 GB of experts.  The model (236 B) does not
+    fit one card; ``rope_scaling`` dropped as for V2-Lite."""
+    from dynamo_tpu_torch.models.deepseek import DeepseekConfig
+
+    return DeepseekConfig(vocab_size=102400, hidden_size=5120, num_layers=1, num_heads=128,
+                          qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128,
+                          kv_lora_rank=512, q_lora_rank=1536, intermediate_size=12288,
+                          moe_intermediate_size=1536, n_routed_experts=160, num_experts_per_tok=6,
+                          n_shared_experts=2, routed_scaling_factor=16.0,
+                          topk_method="group_limited_greedy", n_group=8, topk_group=3,
+                          first_k_dense_replace=0, rms_norm_eps=1e-6, rope_theta=10000.0,
+                          max_position_embeddings=163840, dtype="bfloat16")
+
+
+def _deepseek_model(torch, cfg, seed: int = 0):
+    """A DeepseekModel of ``cfg`` on the card, random weights from a seeded
+    generator (``deepseek_init_params``, one layer's draw at a time)."""
+    from dynamo_tpu_torch.models.convert import deepseek_init_params
+    from dynamo_tpu_torch.models.deepseek import DeepseekModel
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return DeepseekModel.from_state(cfg, deepseek_init_params(cfg, gen, device="cuda"))
+
+
+def deepseek_serving_phase(torch, card: str) -> tuple[dict, dict]:
+    """DeepSeek-V2-Lite at full width and depth behind ``AsyncLLMEngine``,
+    the six requests on the default path: a bf16 cache (profiled), then an
+    int8 cache in 32-token blocks.  Each run launches E1 and nothing else:
+    no B kernel (MLA attention is the plain op) and no E2 (no int8
+    weights).  Every Qwen3 model is gone before: 31.4 GB of weights."""
+    t0 = time.perf_counter()
+    cfg = deepseek_v2_lite()
+    model = _deepseek_model(torch, cfg)
+    torch.cuda.synchronize()
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"serving: DeepSeek-V2-Lite, {cfg.num_layers} layers, {weights / 1e9:.2f} GB of random "
+        f"weights in {time.perf_counter() - t0:.1f} s")
+    none = [k for k in _kernel_wrappers() if k != "moe"]
+    runs = []
+    for config, label, profile in (
+            (DEFAULT_PATH, "DeepSeek-V2-Lite bf16 cache, default path", True),
+            (INT8_DEFAULT_PATH, "DeepSeek-V2-Lite int8 cache (Bs 32), default path", False)):
+        run = serve_run(torch, model, config, card, label, profile=profile)
+        check(run["launches"]["moe"] > 0 and not any(run["launches"][k] for k in none),
+              f"{label}: launches {run['launches']}, need moe > 0, {none} = 0")
+        runs.append(run)
+        torch.cuda.empty_cache()
+    same = sum(a == b for a, b in zip(runs[0]["streams"], runs[1]["streams"]))
+    log(f"serving: {same} of {len(runs[0]['streams'])} DeepSeek-V2-Lite int8-cache streams equal the "
+        f"bf16 cache's (informational: the cache rounds to int8) ({card})")
+    del model
+    torch.cuda.empty_cache()
+    return runs[0], runs[1]
+
+
+def deepseek_parity_phase(torch, card: str) -> None:
+    """Phase 5's default-path check (a 300-token prompt over a 128-token
+    cached prefix, then 8 decode steps) on the card (bf16 weights) and on
+    the CPU (f32, the same weights), with a bf16 cache (Bs 16) and an int8
+    one (Bs 32): a 2-layer model at DeepSeek-V2-Lite width (the dense layer
+    and one MoE layer), and one DeepSeek-V2 MoE layer.  The CPU routes as
+    the card routed (``moe_routes``)."""
+    import numpy as np
+
+    from dynamo_tpu_torch.models.deepseek import DeepseekModel
+
+    for make_cfg, width in ((lambda: deepseek_v2_lite(2), "2-layer DeepSeek-V2-Lite width"),
+                            (deepseek_v2_moe_layer, "1 DeepSeek-V2 MoE layer")):
+        cfg = make_cfg()
+        gpu = _deepseek_model(torch, cfg)
+        cpu_cfg = make_cfg()
+        cpu_cfg.dtype = "float32"
+        cpu = DeepseekModel.from_state(cpu_cfg, {k: v.cpu().float() for k, v in gpu.state_dict().items()})
+        rng = np.random.default_rng(1)
+        prompt = rng.integers(0, cfg.vocab_size, 300).tolist()
+        steps = rng.integers(0, cfg.vocab_size, 8).tolist()
+        for bs, kv, tag in ((BS, None, "bf16 cache"), (BS_Q8, "int8", "int8 cache")):
+            _hold_card_to_cpu(
+                torch, f"default path: {width}, {tag}, 300-token prompt over a 128-token prefix "
+                "+ 8 decode steps",
+                lambda: _forward_logits(torch, gpu, torch.device("cuda"), prompt, steps, 128, bs, kv),
+                lambda: _forward_logits(torch, cpu, torch.device("cpu"), prompt, steps, 128, bs, kv),
+                card)
+        del gpu, cpu
+        torch.cuda.empty_cache()
+
+
+def mla_timing(torch, card: str) -> list[dict]:
+    """One DeepSeek-V2-Lite layer's latent attention, the plain op the model
+    runs (``DeepseekModel._paged`` over a bf16 cache of 576-wide latent
+    rows, one KV head, G = 16), as a CUDA graph: decode at B1's row shape
+    (B = 8, S = 1, ``cuda_timing.DECODE_LENS``, 3,865 context tokens; the
+    graph walks 27 layers' caches, past the L2, as a decode step does) and
+    prefill at B2's (S = 1,504 from 0 over a 2,048-slot table).  Beside
+    each: SDPA on the same latent K/V (laid out dense beforehand, V the
+    whole row as the plain op reads it) timed the same way, held to the
+    plain op, and the bound: one latent row per context token read once,
+    q and the 512-wide output, against 2 H (576 + 512) operations per
+    visible (query, key) pair.  Returns the ``mla`` line's rows."""
+    import torch.nn.functional as F
+
+    from dynamo_tpu_torch.models.deepseek import DeepseekModel
+
+    cfg = deepseek_v2_lite()
+    layers = cfg.num_layers
+    model = DeepseekModel(cfg, device="meta")  # _paged reads only the config
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    # the latent row (576) of one KV head, the part that is attended (512), the heads (16)
+    m, d, latent, h = 2048 // BS, cfg.head_dim, cfg.kv_lora_rank, cfg.num_heads
+    rows = []
+
+    def work(pairs, q_rows, ctx_rows, what):
+        nbytes = 2 * ctx_rows * d + 2 * q_rows * h * (d + latent)
+        return dict(name=what, **_bound(2 * h * (d + latent) * pairs, nbytes))
+
+    # decode
+    lens = list(DECODE_LENS)
+    b = len(lens)
+    n_blocks = sum(-(-n // BS) for n in lens) + 8
+    bt = _tables(torch, lens, m, n_blocks, gen)
+    cache = torch.randn((layers, n_blocks, 1, BS, d), generator=gen, device="cuda").to(torch.bfloat16)
+    cache = cache.expand(-1, -1, 2, -1, -1).contiguous()  # the latent row in both planes, as written
+    q = torch.randn((b, 1, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+    seq_lens = _ints(torch, lens)
+    pos = (seq_lens - 1).clamp_min(0)[:, None].contiguous()
+    calls = [lambda li=li: model._paged(q, cache, li, bt, seq_lens, pos) for li in range(layers)]
+    ms = median_ms(lambda: graph_time_ms(calls, 10) / layers)
+    eager = cuda_time_ms(lambda i: calls[i % layers](), 27)
+    live = [i for i, n in enumerate(lens) if n]
+
+    def dense_kv(layer):
+        kd = torch.zeros((b, 1, max(lens), d), dtype=torch.bfloat16, device="cuda")
+        for i, n in enumerate(lens):
+            kd[i, 0, :n] = cache[layer, bt[i, :-(-n // BS)].long(), 0].reshape(-1, d)[:n]
+        return kd, kd
+
+    lib_ms, lib_eager = _sdpa_decode_ms(torch, q, lens, dense_kv, layers)
+    kd, _ = dense_kv(LAYER)
+    mask = (torch.arange(max(lens), device="cuda")[None, :] < seq_lens[:, None])[:, None, None, :]
+    sdpa = F.scaled_dot_product_attention(q.transpose(1, 2), kd, kd, attn_mask=mask, enable_gqa=True,
+                                          scale=model.sm_scale).transpose(1, 2)
+    err = compare(torch, "mla decode: the plain op vs SDPA", model._paged(q, cache, LAYER, bt, seq_lens, pos)[live],
+                  sdpa[live])
+    row = work(sum(lens), b, sum(lens), "mla_decode")
+    rows.append(dict(row, shape=f"B={b} S=1 ctx={sum(lens)}", ms=ms, library_ms=lib_ms, max_abs_err=err))
+    log(f"time mla decode B={b} S=1 ctx={sum(lens)} (one DeepSeek-V2-Lite layer, latent {d}, G={h}): "
+        f"plain op {ms:.4f} ms (CUDA graph; eager {eager:.4f}), sdpa {lib_ms:.4f} ms (CUDA graph; "
+        f"eager {lib_eager:.4f}), bound {row['bound_ms']:.4f} ms ({row['bound_by']}), plain op vs "
+        f"sdpa max abs err {err:.3g} ({card})")
+    del cache
+
+    # prefill from 0
+    fresh = max(PROMPT_LENS)
+    s = -(-fresh // BS) * BS
+    bt1 = _tables(torch, [fresh], m, -(-fresh // BS) + 8, gen)
+    cache1 = torch.randn((1, int(bt1.max()) + 1, 1, BS, d), generator=gen, device="cuda").to(torch.bfloat16)
+    cache1 = cache1.expand(-1, -1, 2, -1, -1).contiguous()
+    q1 = torch.randn((1, s, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+    lens1 = _ints(torch, [fresh])
+    pos1 = torch.zeros((1, s), dtype=torch.int32, device="cuda")
+    pos1[0, :fresh] = torch.arange(fresh, dtype=torch.int32, device="cuda")
+    call = lambda: model._paged(q1, cache1, 0, bt1, lens1, pos1)  # noqa: E731
+    ms = median_ms(lambda: graph_time_ms([call], 5))
+    eager = cuda_time_ms(lambda i: call(), 5)
+    k1 = cache1[0, bt1[0, :-(-fresh // BS)].long(), 0].reshape(-1, d)[:fresh][None, None]
+    qs = q1[:, :fresh].transpose(1, 2).contiguous()
+
+    def sdpa1():
+        return F.scaled_dot_product_attention(qs, k1, k1, is_causal=True, enable_gqa=True,
+                                              scale=model.sm_scale)
+
+    lib_ms, lib_eager = _sdpa_ms(sdpa1)
+    err = compare(torch, "mla prefill: the plain op vs SDPA", call()[:, :fresh], sdpa1().transpose(1, 2))
+    row = work(fresh * (fresh + 1) // 2, fresh, fresh, "mla_prefill")
+    rows.append(dict(row, shape=f"B=1 S={s} fresh={fresh} start=0", ms=ms, library_ms=lib_ms,
+                     max_abs_err=err))
+    log(f"time mla prefill B=1 S={s} fresh={fresh} start=0 (one DeepSeek-V2-Lite layer): plain op "
+        f"{ms:.4f} ms (CUDA graph; eager {eager:.4f}), sdpa {lib_ms:.4f} ms (CUDA graph; eager "
+        f"{lib_eager:.4f}), bound {row['bound_ms']:.4f} ms ({row['bound_by']}), plain op vs sdpa max "
+        f"abs err {err:.3g} ({card})")
+    del cache1
+    torch.cuda.empty_cache()
+    return rows
+
+
+# The DeepSeek checkpoint: DeepSeek-V2-Lite's width and tensor names, cut
+# to 2 layers (the dense one and one MoE layer: 216 tensors, 2.2 GB)
+DEEPSEEK_ATTN_NAMES = {
+    "attn_norm": ("input_layernorm.weight", False),
+    "mlp_norm": ("post_attention_layernorm.weight", False),
+    "wq": ("self_attn.q_proj.weight", True),
+    "kv_a": ("self_attn.kv_a_proj_with_mqa.weight", True),
+    "kv_a_norm": ("self_attn.kv_a_layernorm.weight", False),
+    "kv_b": ("self_attn.kv_b_proj.weight", True),
+    "wo": ("self_attn.o_proj.weight", True),
+}
+DEEPSEEK_FRONT_NAMES = {
+    "embed": ("model.embed_tokens.weight", False), "final_norm": ("model.norm.weight", False),
+    "lm_head": ("lm_head.weight", True),
+    **{f"{g}.{k}": ("model.layers.{i}." + hf, t) for g in ("dense_layers", "moe_layers")
+       for k, (hf, t) in DEEPSEEK_ATTN_NAMES.items()},
+    "dense_layers.w_gate": ("model.layers.{i}.mlp.gate_proj.weight", True),
+    "dense_layers.w_up": ("model.layers.{i}.mlp.up_proj.weight", True),
+    "dense_layers.w_down": ("model.layers.{i}.mlp.down_proj.weight", True),
+    "moe_layers.router": ("model.layers.{i}.mlp.gate.weight", True),
+    "moe_layers.w_gate": ("model.layers.{i}.mlp.experts.{e}.gate_proj.weight", True),
+    "moe_layers.w_up": ("model.layers.{i}.mlp.experts.{e}.up_proj.weight", True),
+    "moe_layers.w_down": ("model.layers.{i}.mlp.experts.{e}.down_proj.weight", True),
+    "moe_layers.shared_gate": ("model.layers.{i}.mlp.shared_experts.gate_proj.weight", True),
+    "moe_layers.shared_up": ("model.layers.{i}.mlp.shared_experts.up_proj.weight", True),
+    "moe_layers.shared_down": ("model.layers.{i}.mlp.shared_experts.down_proj.weight", True),
+}
+QUANTIZE_REFUSED = "--quantize int8 is not wired for this model family yet"  # the JAX CLI's words
+
+
+def write_deepseek_checkpoint(torch, d: Path) -> float:
+    """The 2-layer DeepSeek checkpoint: config.json as DeepSeek-V2-Lite's
+    with 2 layers and no ``rope_scaling``, and random bf16 weights from a
+    seeded generator (matrices N(0, 1/fan_in), norms 1 + N(0, 0.1^2)) under
+    the real checkpoint's names, in two safetensors shards with an index.
+    Returns the bytes written."""
+    from safetensors.torch import save_file
+
+    cfg = deepseek_v2_lite(FRONT_LAYERS)
+    dm, h, e = cfg.hidden_size, cfg.num_heads, cfg.n_routed_experts
+    r, rope, fm = cfg.kv_lora_rank, cfg.qk_rope_head_dim, cfg.moe_intermediate_size
+    sp = specials(cfg.vocab_size)
+    (d / "config.json").write_text(json.dumps({
+        "architectures": ["DeepseekV2ForCausalLM"], "model_type": "deepseek_v2",
+        "vocab_size": cfg.vocab_size, "hidden_size": dm, "intermediate_size": cfg.intermediate_size,
+        "moe_intermediate_size": fm, "num_hidden_layers": FRONT_LAYERS, "num_attention_heads": h,
+        "num_key_value_heads": h, "n_routed_experts": e, "num_experts_per_tok": cfg.num_experts_per_tok,
+        "n_shared_experts": cfg.n_shared_experts, "routed_scaling_factor": cfg.routed_scaling_factor,
+        "kv_lora_rank": r, "q_lora_rank": None, "qk_nope_head_dim": cfg.qk_nope_head_dim,
+        "qk_rope_head_dim": rope, "v_head_dim": cfg.v_head_dim, "topk_method": "greedy",
+        "n_group": 1, "topk_group": 1, "norm_topk_prob": False, "scoring_func": "softmax",
+        "first_k_dense_replace": 1, "moe_layer_freq": 1, "rope_theta": cfg.rope_theta,
+        "rope_scaling": None, "max_position_embeddings": cfg.max_position_embeddings,
+        "rms_norm_eps": cfg.rms_norm_eps, "hidden_act": "silu", "attention_bias": False,
+        "tie_word_embeddings": False, "bos_token_id": sp["<|begin_of_text|>"],
+        "eos_token_id": eos_ids(cfg.vocab_size), "torch_dtype": "bfloat16"}))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+
+    def matrix(rows, cols):  # HF layout [out, in]
+        w = torch.randn((rows, cols), generator=gen, device="cuda", dtype=torch.float32)
+        return w.div_(math.sqrt(cols)).to(torch.bfloat16).cpu()
+
+    def norm(n=dm):
+        w = 1 + 0.1 * torch.randn((n,), generator=gen, device="cuda", dtype=torch.float32)
+        return w.to(torch.bfloat16).cpu()
+
+    def layer(i):
+        p = f"model.layers.{i}."
+        out = {p + "input_layernorm.weight": norm(), p + "post_attention_layernorm.weight": norm(),
+               p + "self_attn.q_proj.weight": matrix(h * cfg.qk_head_dim, dm),
+               p + "self_attn.kv_a_proj_with_mqa.weight": matrix(r + rope, dm),
+               p + "self_attn.kv_a_layernorm.weight": norm(r),
+               p + "self_attn.kv_b_proj.weight": matrix(h * (cfg.qk_nope_head_dim + cfg.v_head_dim), r),
+               p + "self_attn.o_proj.weight": matrix(dm, h * cfg.v_head_dim)}
+        if i < cfg.first_k_dense_replace:
+            f = cfg.intermediate_size
+            out.update({p + "mlp.gate_proj.weight": matrix(f, dm), p + "mlp.up_proj.weight": matrix(f, dm),
+                        p + "mlp.down_proj.weight": matrix(dm, f)})
+            return out
+        fs = fm * cfg.n_shared_experts
+        out[p + "mlp.gate.weight"] = matrix(e, dm)
+        for j in range(e):
+            q = f"{p}mlp.experts.{j}."
+            out.update({q + "gate_proj.weight": matrix(fm, dm), q + "up_proj.weight": matrix(fm, dm),
+                        q + "down_proj.weight": matrix(dm, fm)})
+        out.update({p + "mlp.shared_experts.gate_proj.weight": matrix(fs, dm),
+                    p + "mlp.shared_experts.up_proj.weight": matrix(fs, dm),
+                    p + "mlp.shared_experts.down_proj.weight": matrix(dm, fs)})
+        return out
+
+    shards = [{"model.embed_tokens.weight": matrix(cfg.vocab_size, dm), **layer(0)},
+              {**layer(1), "model.norm.weight": norm(), "lm_head.weight": matrix(cfg.vocab_size, dm)}]
+    weight_map, total = {}, 0
+    for k, shard in enumerate(shards):
+        name = f"model-{k + 1:05d}-of-{len(shards):05d}.safetensors"
+        save_file(shard, str(d / name), metadata={"format": "pt"})
+        weight_map.update({t: name for t in shard})
+        total += sum(t.numel() * t.element_size() for t in shard.values())
+    (d / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": total}, "weight_map": weight_map}))
+    return total
+
+
+def deepseek_front_door_phase(torch, card: str) -> None:
+    """The front door on the 2-layer DeepSeek checkpoint: the CLI server
+    (bf16 cache), ``--quantize int8`` refused with the JAX CLI's message,
+    then ``build_local_engine`` in this process with a bf16 cache and with
+    an int8 one (Bs 32), each launching E1 and nothing else, the loaded
+    tensors held to the shards and the answers to a fresh engine's."""
+    import shutil
+
+    t0 = time.perf_counter()
+    shutil.rmtree(FRONT_DIR, ignore_errors=True)
+    cfg = deepseek_v2_lite(FRONT_LAYERS)
+    write_tokenizer(FRONT_DIR, cfg.vocab_size)
+    nbytes = write_deepseek_checkpoint(torch, FRONT_DIR)
+    n_files = len(json.loads((FRONT_DIR / "model.safetensors.index.json").read_text())["weight_map"])
+    log(f"front door: wrote a {FRONT_LAYERS}-layer DeepSeek-V2-Lite-width checkpoint, "
+        f"{nbytes / 1e9:.2f} GB, {n_files} tensors in two shards, in {time.perf_counter() - t0:.1f} s")
+    cli_phase(card, (), "DeepSeek-V2-Lite")
+    refused = subprocess.run(
+        [sys.executable, "-m", "dynamo_tpu_torch", "run", "in=text:w5 w6", "out=gpu", "--model-path",
+         str(FRONT_DIR), "--quantize", "int8"], cwd=str(ROOT), capture_output=True, text=True,
+        timeout=300)
+    check(refused.returncode != 0 and QUANTIZE_REFUSED in refused.stderr and not refused.stdout,
+          f"front door DeepSeek: --quantize int8 exited {refused.returncode}, stderr "
+          f"{refused.stderr[-1000:]!r}")
+    log(f"front door CLI: `--quantize int8` on the DeepSeek checkpoint exits {refused.returncode} with "
+        f"{QUANTIZE_REFUSED!r} ({card})")
+    none = [k for k in _kernel_wrappers() if k != "moe"]
+    first = {"moe_layers": cfg.first_k_dense_replace}
+    for flags, label in ((FRONT_FLAGS, "DeepSeek bf16 cache"),
+                         (FRONT_FLAGS + ["--kv-cache-dtype", "int8", "--block-size", str(BS_Q8)],
+                          "DeepSeek int8 cache")):
+        front_server(torch, flags, card, label, ["moe"], none, DEEPSEEK_FRONT_NAMES,
+                     cfg.n_routed_experts, first)
+        torch.cuda.empty_cache()
+    log(f"front door DeepSeek: phase wall {time.perf_counter() - t0:.1f} s ({card})")
+
+
 # --------------------------------------------------------------------- main
+def phase_clock():
+    """A function that logs, under a phase's name, the seconds since its
+    last call and since the clock was made: where the run's time goes."""
+    start = last = time.perf_counter()
+
+    def mark(name: str) -> None:
+        nonlocal last
+        now = time.perf_counter()
+        log(f"phase {name}: {now - last:.1f} s (run {now - start:.1f} s)")
+        last = now
+
+    return mark
+
+
 def main() -> int:
     import torch
 
@@ -2440,6 +2900,7 @@ def main() -> int:
     from dynamo_tpu_torch.ops.kernels import build
 
     shutil.rmtree(FRONT_DIR, ignore_errors=True)
+    mark = phase_clock()
     try:
         card = card_line()
         log(card)
@@ -2447,26 +2908,43 @@ def main() -> int:
         lib_path = build.build_library(verbose=True)
         build.library()
         log(f"build: {time.perf_counter() - t0:.1f} s ({card})")
+        mark("build")
         sass_check(torch, lib_path)
         errs = kernel_phase(torch)
+        mark("kernel checks")
         times = timing_phase(torch, card)
         times.update(q8_timing_phase(torch, card))
         times.update(matmul_timing(torch, card))
         times.update(moe_timing(torch, card))
+        mla = mla_timing(torch, card)
+        mark("kernel timings")
         write_tokenizer(FRONT_DIR)
         default, budget, mixed = serving_phase(torch, card)
         times["ragged"] = ragged_timing(torch, card, mixed)
         times["ragged_err"] = times["ragged"].pop("err")
+        mark("Llama-3-8B bf16 serving")
         q8_default, q8_budget, q8_mixed = serving_phase_q8(torch, card)
         times["ragged_q8"] = ragged_timing(torch, card, q8_mixed, quant=True)
         times["ragged_q8_err"] = times["ragged_q8"].pop("err")
+        mark("Llama-3-8B int8 serving")
         parity_phase(torch, card)
         parity_phase(torch, card, quant=True)
+        mark("Llama-3-8B parity")
         front_door_phase(torch, card)
+        mark("Llama-3-8B front door")
         moe_default, moe_budget = moe_serving_phase(torch, card)
+        mark("Qwen3-30B-A3B serving")
         parity_phase(torch, card, make_cfg=qwen3_30b_a3b, width="Qwen3-30B-A3B")
         parity_phase(torch, card, quant=True, make_cfg=qwen3_30b_a3b, width="Qwen3-30B-A3B")
+        mark("Qwen3-30B-A3B parity")
         moe_front_door_phase(torch, card)
+        mark("Qwen3-MoE front door")
+        ds_default, ds_q8 = deepseek_serving_phase(torch, card)
+        mark("DeepSeek-V2-Lite serving")
+        deepseek_parity_phase(torch, card)
+        mark("DeepSeek parity")
+        deepseek_front_door_phase(torch, card)
+        mark("DeepSeek front door")
     except (SmokeFailure, RuntimeError) as e:  # a failed check, build or nvidia-smi
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2475,7 +2953,10 @@ def main() -> int:
     # launches: each kernel's count over the serving run of the path it
     # carries (decode and prefill: the default path; ragged: the token-budget
     # path; the int8 kernels: the same paths on the int8 model; the grouped
-    # expert kernels: Qwen3-30B-A3B's bf16 default and int8 token-budget runs)
+    # expert kernels: Qwen3-30B-A3B's bf16 default and int8 token-budget runs;
+    # E1 also DeepSeek-V2-Lite's two default-path runs, bf16 and int8 cache)
+    times["moe"]["deepseek_v2_lite"].update(
+        launches=ds_default["launches"]["moe"], launches_int8_cache=ds_q8["launches"]["moe"])
     kernels = [
         dict(name="paged_decode_attention", route="cuda",
              source="dynamo_tpu_torch/csrc/decode_attention.cu",
@@ -2523,6 +3004,7 @@ def main() -> int:
              launches=moe_budget["launches"]["moe_q8"],
              max_abs_err=max(errs["moe_q8"], times["moe_q8_err"]), **times["moe_q8"]),
     ]
+    log(json.dumps({"mla": mla}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                           "count": torch.cuda.device_count()}}))

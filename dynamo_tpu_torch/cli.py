@@ -8,8 +8,10 @@ pipeline frontend → preprocessor → engine → detokenizer from a HuggingFace
 checkpoint directory and serves it over OpenAI HTTP (``in=http``), answers
 one prompt (``in=text:``), one prompt per line (``in=stdin``) or a JSONL
 file of prompts (``in=batch:``).  ``out=gpu`` serves the checkpoint on the
-PyTorch engine, on the GPU: with no GPU present it fails rather than run on
-the CPU (``--device cpu`` is the plain PyTorch path the tests take);
+PyTorch engine, on the GPU: a Llama-family directory (Mixtral and Qwen3-MoE
+included) or a DeepSeek-V2 one (``models/deepseek.py``; ``--quantize int8``
+is refused for it, as in the JAX CLI).  With no GPU present it fails rather
+than run on the CPU (``--device cpu`` is the plain PyTorch path the tests take);
 ``out=echo`` echoes the prompt's tokens back with no model.  One engine
 option the PyTorch engine does not carry yet, ``--spec-tokens``, is accepted
 here and refused by the engine with its own message
@@ -51,8 +53,9 @@ def build_local_engine(args) -> tuple[object, object]:
 
     from dynamo_tpu_torch.device import resolve_device
     from dynamo_tpu_torch.engine import AsyncLLMEngine, EngineConfig, EngineCore
+    from dynamo_tpu_torch.models.deepseek import DeepseekModel
     from dynamo_tpu_torch.models.llama import LlamaModel
-    from dynamo_tpu_torch.models.loader import load_model_dir
+    from dynamo_tpu_torch.models.loader import is_deepseek_dir, load_deepseek_dir, load_model_dir
 
     try:
         # before the weights move: with no GPU and no --device this raises
@@ -71,12 +74,21 @@ def build_local_engine(args) -> tuple[object, object]:
         unified_token_dispatch=args.unified_token_dispatch,
         lookahead_dispatch=args.lookahead_dispatch,
     )
+    quantize = args.quantize == "int8"
+    dtype = args.dtype or "bfloat16"
     t0 = time.perf_counter()
-    mcfg, state = load_model_dir(args.model_path, dtype=args.dtype or "bfloat16",
-                                 device=device, quantize=args.quantize == "int8")
-    model = LlamaModel.from_state(mcfg, state)
-    log.info("loaded %s (%d layers%s) on %s in %.1f s", args.model_path, mcfg.num_layers,
-             ", int8 weights" if model.quantized else "", device, time.perf_counter() - t0)
+    if is_deepseek_dir(args.model_path):  # the MLA family, as the JAX CLI dispatches it
+        if quantize:
+            raise SystemExit("--quantize int8 is not wired for this model family yet")
+        mcfg, state = load_deepseek_dir(args.model_path, dtype=dtype, device=device)
+        model = DeepseekModel.from_state(mcfg, state)
+    else:
+        mcfg, state = load_model_dir(args.model_path, dtype=dtype, device=device,
+                                     quantize=quantize)
+        model = LlamaModel.from_state(mcfg, state)
+    log.info("loaded %s (%s, %d layers%s) on %s in %.1f s", args.model_path,
+             type(model).__name__, mcfg.num_layers, ", int8 weights" if quantize else "", device,
+             time.perf_counter() - t0)
     try:
         core = EngineCore(model, cfg, eos_token_ids=card.eos_token_ids or None, device=device)
     except ValueError as e:  # an option the PyTorch engine refuses

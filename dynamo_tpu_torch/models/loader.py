@@ -17,8 +17,10 @@ Mixture-of-experts checkpoints load under both HF namings, Qwen3-MoE's
 ``block_sparse_moe.gate`` / ``experts.{e}.w1,w3,w2``: each expert's
 ``[F, Dm]`` tensor goes, transposed, into its slot of the stacked ``[L, E,
 Dm, F]`` (quantised as it arrives: an expert's scales depend on its own
-tensor only).  DeepSeek directories raise ``NotImplementedError``: MLA is
-not ported yet.
+tensor only).  DeepSeek-V2 directories load through
+:func:`load_deepseek_dir` into ``models/deepseek.py``'s layout (the CLI picks
+it by :func:`is_deepseek_dir`, as the JAX package's does); given to
+:func:`load_model_dir` they raise.
 """
 
 from __future__ import annotations
@@ -30,10 +32,13 @@ import torch
 
 from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.models.config import ModelConfig
+from dynamo_tpu_torch.models.deepseek import DeepseekConfig
+from dynamo_tpu_torch.models.deepseek import param_shapes as deepseek_param_shapes
 from dynamo_tpu_torch.models.llama import SCALE, param_shapes
 from dynamo_tpu_torch.models.quant import CHANNEL_AXES, quantize, stacked_channel_axes
 
-__all__ = ["SafetensorsDir", "load_state_from_dir", "load_model_dir", "is_deepseek_dir"]
+__all__ = ["SafetensorsDir", "load_state_from_dir", "load_model_dir", "is_deepseek_dir",
+           "load_deepseek_dir"]
 
 
 class SafetensorsDir:
@@ -208,6 +213,74 @@ def load_model_dir(model_dir: str | Path, dtype: str = "bfloat16", device=None,
                    quantize: bool = False) -> tuple[ModelConfig, dict[str, torch.Tensor]]:
     """(ModelConfig, state dict) from a local HF model directory."""
     if is_deepseek_dir(model_dir):
-        raise NotImplementedError("DeepSeek (MLA) models are not ported yet")
+        raise ValueError(f"{model_dir} is a DeepSeek (MLA) checkpoint: load it with "
+                         "load_deepseek_dir")
     cfg = ModelConfig.from_hf_config(model_dir, dtype=dtype)
     return cfg, load_state_from_dir(cfg, model_dir, device=device, quantize=quantize)
+
+
+def _deepseek_hf_names() -> dict[str, tuple[str, bool]]:
+    """DeepSeek parameter name -> (HF name, with ``{i}`` for the layer and
+    ``{e}`` for an expert; whether the HF matrix is transposed)."""
+    lay = "model.layers.{i}."
+    attn = {"attn_norm": ("input_layernorm.weight", False),
+            "mlp_norm": ("post_attention_layernorm.weight", False),
+            "kv_a": ("self_attn.kv_a_proj_with_mqa.weight", True),
+            "kv_a_norm": ("self_attn.kv_a_layernorm.weight", False),
+            "kv_b": ("self_attn.kv_b_proj.weight", True),
+            "wo": ("self_attn.o_proj.weight", True),
+            "wq": ("self_attn.q_proj.weight", True),
+            "q_a": ("self_attn.q_a_proj.weight", True),
+            "q_a_norm": ("self_attn.q_a_layernorm.weight", False),
+            "q_b": ("self_attn.q_b_proj.weight", True)}
+    dense = {"w_gate": ("mlp.gate_proj.weight", True), "w_up": ("mlp.up_proj.weight", True),
+             "w_down": ("mlp.down_proj.weight", True)}
+    moe = {"router": ("mlp.gate.weight", True),
+           "w_gate": ("mlp.experts.{e}.gate_proj.weight", True),
+           "w_up": ("mlp.experts.{e}.up_proj.weight", True),
+           "w_down": ("mlp.experts.{e}.down_proj.weight", True),
+           "shared_gate": ("mlp.shared_experts.gate_proj.weight", True),
+           "shared_up": ("mlp.shared_experts.up_proj.weight", True),
+           "shared_down": ("mlp.shared_experts.down_proj.weight", True)}
+    names = {"embed": ("model.embed_tokens.weight", False),
+             "final_norm": ("model.norm.weight", False), "lm_head": ("lm_head.weight", True)}
+    for group, own in (("dense_layers", dense), ("moe_layers", moe)):
+        names.update({f"{group}.{k}": (lay + hf, t) for k, (hf, t) in {**attn, **own}.items()})
+    return names
+
+
+def load_deepseek_dir(model_dir: str | Path, dtype: str = "bfloat16",
+                      device=None) -> tuple[DeepseekConfig, dict[str, torch.Tensor]]:
+    """(DeepseekConfig, state dict) from a DeepSeek-V2 HF directory, on
+    ``device`` (cuda unless named): each HF ``[out, in]`` matrix transposed
+    into its layer's slot of the layer group's stack, the dense layers
+    first (``first_k_dense_replace``) and the MoE layers after them, each
+    expert's tensor into its slot of the ``[L, E, K, N]`` stack, read one
+    tensor at a time as :func:`load_state_from_dir` reads."""
+    cfg = DeepseekConfig.from_hf(json.loads((Path(model_dir) / "config.json").read_text()))
+    cfg.dtype = dtype
+    dev = resolve_device(device)
+    files = SafetensorsDir(model_dir, dev)
+    hf = _deepseek_hf_names()
+
+    def read(name: str, transpose: bool) -> torch.Tensor:
+        w = files.get(name)
+        return (w.t() if transpose else w).to(cfg.torch_dtype)
+
+    state = {}
+    for name, shape in deepseek_param_shapes(cfg).items():
+        fmt, transpose = hf[name]
+        out = torch.empty(shape, dtype=cfg.torch_dtype, device=dev)
+        group = name.rpartition(".")[0]
+        if not group:
+            out.copy_(read(fmt, transpose))
+        else:  # the group's j-th layer is HF layer first + j
+            first = cfg.first_k_dense_replace if group == "moe_layers" else 0
+            for j in range(shape[0]):
+                if "{e}" in fmt:
+                    for e in range(shape[1]):
+                        out[j, e].copy_(read(fmt.format(i=first + j, e=e), transpose))
+                else:
+                    out[j].copy_(read(fmt.format(i=first + j), transpose))
+        state[name] = out
+    return cfg, state

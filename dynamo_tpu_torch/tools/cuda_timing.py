@@ -74,16 +74,16 @@ def moe_stack(gen, experts: int, k: int, n: int, quant: bool):
     return out
 
 
-def moe_layer_work(r: int, live: int, quant: bool) -> tuple[float, float]:
-    """(operations, bytes) of one MoE layer's three grouped launches over r
-    rows routed to ``live`` experts: 2 r K N per launch; the live experts'
-    weights (int8 with their f32 scales, or bf16) and every launch's input
-    and output rows once."""
+def moe_layer_work(r: int, live: int, quant: bool, launches: dict = MOE_LAUNCHES) -> tuple[float, float]:
+    """(operations, bytes) of one MoE layer's three grouped launches (name
+    -> [K, N], Qwen3-30B-A3B's unless named) over r rows routed to ``live``
+    experts: 2 r K N per launch; the live experts' weights (int8 with their
+    f32 scales, or bf16) and every launch's input and output rows once."""
     wb = 1 if quant else 2
-    nbytes = (live * sum(k * n for k, n in MOE_LAUNCHES.values()) * wb
-              + (live * sum(n for _, n in MOE_LAUNCHES.values()) * 4 if quant else 0)
-              + sum(2 * r * (k + n) for k, n in MOE_LAUNCHES.values()))
-    return sum(2 * r * k * n for k, n in MOE_LAUNCHES.values()), nbytes
+    nbytes = (live * sum(k * n for k, n in launches.values()) * wb
+              + (live * sum(n for _, n in launches.values()) * 4 if quant else 0)
+              + sum(2 * r * (k + n) for k, n in launches.values()))
+    return sum(2 * r * k * n for k, n in launches.values()), nbytes
 
 
 def ragged_layout(rows, region: int, n_pad: int, bs: int = 16):

@@ -12,7 +12,9 @@ against the port model's own greedy decode).  ``in=stdin`` and
 completion over a real socket and exits cleanly on SIGTERM; ``out=gpu``
 without ``--device`` on a machine with no GPU fails with the device error,
 and an engine option the PyTorch engine refuses fails with the engine's
-message.
+message.  On a tiny DeepSeek-V2 checkpoint ``build_local_engine`` (``--device
+cpu``) answers a greedy completion with transformers' greedy tokens, and
+``--quantize int8`` exits with the JAX CLI's message.
 """
 
 import json
@@ -33,6 +35,7 @@ from dynamo_tpu_torch.llm.tokenizer import TokenizerWrapper
 from dynamo_tpu_torch.models.llama import LlamaModel
 from dynamo_tpu_torch.models.loader import load_model_dir
 from tests.conftest import make_tiny_hf_checkpoint
+from tests.test_torch_loader import deepseek_checkpoint
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = dynamo_tpu_torch.__name__
@@ -192,3 +195,53 @@ def test_refused_engine_option_fails_with_the_engine_message(model_dir):
     assert "EngineConfig options not supported by the PyTorch engine: ['spec_tokens']" \
         in out.stderr
     assert out.stdout.strip() == ""
+
+
+@pytest.fixture(scope="module")
+def deepseek_dir(tmp_path_factory):
+    """(directory, transformers model) of a tiny DeepSeek-V2 checkpoint."""
+    return deepseek_checkpoint(tmp_path_factory.mktemp("cli") / "deepseek", 11)
+
+
+def test_build_local_engine_serves_deepseek(deepseek_dir):
+    import asyncio
+
+    from dynamo_tpu_torch.cli import build_local_engine, parse_args
+    from dynamo_tpu_torch.llm.engines import build_serving_pipeline
+    from dynamo_tpu_torch.llm.openai import parse_request
+    from dynamo_tpu_torch.models.deepseek import DeepseekModel
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    path, hf = deepseek_dir
+    prompt = [5, 6, 7, 8, 9, 10, 11, 12]
+    with torch.no_grad():
+        ref = hf.generate(torch.tensor([prompt]), max_new_tokens=MAX_TOKENS, do_sample=False,
+                          eos_token_id=None, pad_token_id=0)[0, len(prompt):].tolist()
+    engine, card = build_local_engine(parse_args([
+        "run", "in=http", "out=gpu", "--device", "cpu", "--model-path", str(path),
+        "--model-name", "ds", "--kv-cache-dtype", "model", *ENGINE_FLAGS]))
+    try:
+        assert isinstance(engine.core.model, DeepseekModel)
+        pipeline = build_serving_pipeline(engine, card)
+        request = parse_request({"model": "ds", "prompt": prompt, "max_tokens": MAX_TOKENS,
+                                 "temperature": 0}, chat=False)
+
+        async def answer():
+            return [out async for out in pipeline.generate(Context(request))]
+
+        outs = asyncio.run(answer())
+    finally:
+        engine.shutdown()
+    assert [t for o in outs for t in o.token_ids] == ref
+    assert outs[-1].finish_reason.value == "length"
+
+
+def test_quantize_int8_refused_for_deepseek_as_in_jax(deepseek_dir):
+    path, _ = deepseek_dir
+    msg = "--quantize int8 is not wired for this model family yet"
+    out = _run(PKG, ["run", "in=text:w5 w6", "out=gpu", "--device", "cpu", "--model-path",
+                     str(path), "--quantize", "int8", *ENGINE_FLAGS])
+    assert out.returncode != 0 and msg in out.stderr and out.stdout == ""
+    ref = _run("dynamo_tpu.cli", ["run", "in=text:w5 w6", "out=tpu", "--model-path", str(path),
+                                  "--quantize", "int8", *ENGINE_FLAGS])
+    assert ref.returncode != 0 and msg in ref.stderr

@@ -7,7 +7,10 @@ Phi-3's fused ``qkv_proj`` / ``gate_up_proj``; and two mixture-of-experts
 checkpoints made by transformers, Mixtral's naming (``block_sparse_moe``,
 ``w1``/``w3``/``w2``) and Qwen3-MoE's (``mlp.gate``, ``gate/up/down_proj``,
 ``norm_topk_prob`` false), whose ``ModelConfig.from_hf_config`` must also
-equal the JAX package's.  The port's state dict must
+equal the JAX package's; and a tiny DeepSeek-V2 checkpoint made by
+transformers, whose ``load_deepseek_dir`` must equal the JAX package's
+``load_deepseek_dir`` (f32 and bf16) and whose logits must match
+transformers' ``DeepseekV2ForCausalLM``.  The port's state dict must
 equal ``params_from_jax`` of the JAX loader's params exactly (f32, so the
 comparison has no rounding to hide behind); with ``quantize`` its int8
 codes must equal the JAX ``quantize_params`` of those params exactly and
@@ -25,14 +28,18 @@ import torch
 
 from dynamo_tpu.models import quant as jax_quant
 from dynamo_tpu.models.config import ModelConfig as JaxModelConfig
+from dynamo_tpu.models.loader import load_deepseek_dir as jax_load_deepseek_dir
 from dynamo_tpu.models.loader import load_model_dir as jax_load_model_dir
+from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
 from dynamo_tpu_torch.models.config import ModelConfig
-from dynamo_tpu_torch.models.convert import params_from_jax
+from dynamo_tpu_torch.models.convert import deepseek_params_from_jax, params_from_jax
+from dynamo_tpu_torch.models.deepseek import DeepseekModel
 from dynamo_tpu_torch.models.llama import LlamaModel
-from dynamo_tpu_torch.models.loader import is_deepseek_dir, load_model_dir
+from dynamo_tpu_torch.models.loader import is_deepseek_dir, load_deepseek_dir, load_model_dir
 from tests.conftest import make_tiny_hf_checkpoint
 
 LOGIT_ATOL = 1e-4
+DEEPSEEK_LOGIT_ATOL = 2e-4  # tests/test_deepseek.py's bound against transformers
 SCALE_RTOL = 1e-6
 BS = 8
 
@@ -101,7 +108,8 @@ def dirs(tmp_path_factory):
     _save(fused / "model.safetensors", fsd)
     return {"single": (single, hf), "sharded": (sharded, hf), "tied": (tied, hf_tied),
             "fused": (fused, hf), "mixtral": _moe_checkpoint(root / "mixtral", "mixtral", 5),
-            "qwen3-moe": _moe_checkpoint(root / "qwen3-moe", "qwen3-moe", 6)}
+            "qwen3-moe": _moe_checkpoint(root / "qwen3-moe", "qwen3-moe", 6),
+            "deepseek": deepseek_checkpoint(root / "deepseek", 8)}
 
 
 def _moe_hf(family: str):
@@ -131,9 +139,6 @@ def _moe_hf(family: str):
 def _moe_checkpoint(dst, family: str, seed: int):
     """(directory, transformers model) of a tiny MoE checkpoint with a
     word-level tokenizer of its 128 ids."""
-    from tokenizers import Tokenizer
-    from tokenizers import models as tkm
-    from tokenizers import pre_tokenizers
     from transformers import MixtralForCausalLM, Qwen3MoeForCausalLM
 
     dst.mkdir(parents=True)
@@ -142,11 +147,51 @@ def _moe_checkpoint(dst, family: str, seed: int):
     torch.manual_seed(seed)
     hf = (MixtralForCausalLM if family == "mixtral" else Qwen3MoeForCausalLM)(cfg).eval()
     _save(dst / "model.safetensors", hf.state_dict())
-    vocab = {f"w{i}": i for i in range(127)}
-    vocab["[UNK]"] = 127
+    _word_tokenizer(dst, 128)
+    return dst, hf
+
+
+def _word_tokenizer(dst, size: int) -> None:
+    """A word-level tokenizer.json: ``w0`` ... and ``[UNK]`` as the last id."""
+    from tokenizers import Tokenizer
+    from tokenizers import models as tkm
+    from tokenizers import pre_tokenizers
+
+    vocab = {f"w{i}": i for i in range(size - 1)}
+    vocab["[UNK]"] = size - 1
     tok = Tokenizer(tkm.WordLevel(vocab=vocab, unk_token="[UNK]"))
     tok.pre_tokenizer = pre_tokenizers.Whitespace()
     tok.save(str(dst / "tokenizer.json"))
+
+
+# a tiny DeepSeek-V2: tests/test_deepseek.py's widths, with q-LoRA and
+# group-limited routing, so every tensor name of the family is in the file
+DEEPSEEK_HF = dict(vocab_size=96, hidden_size=64, intermediate_size=96, moe_intermediate_size=32,
+                   num_hidden_layers=3, num_attention_heads=4, num_key_value_heads=4,
+                   n_routed_experts=8, num_experts_per_tok=2, n_shared_experts=2,
+                   routed_scaling_factor=1.5, kv_lora_rank=16, q_lora_rank=24,
+                   qk_nope_head_dim=32, qk_rope_head_dim=16, v_head_dim=32,
+                   topk_method="group_limited_greedy", n_group=4, topk_group=2,
+                   norm_topk_prob=False, first_k_dense_replace=1, moe_layer_freq=1,
+                   max_position_embeddings=256, attention_bias=False, aux_loss_alpha=0.0)
+
+
+def deepseek_checkpoint(dst, seed: int):
+    """(directory, transformers model) of a tiny DeepSeek-V2 checkpoint, f32
+    safetensors and a word-level tokenizer of its 96 ids, no stop token."""
+    from transformers import DeepseekV2Config, DeepseekV2ForCausalLM
+
+    dst.mkdir(parents=True)
+    cfg = DeepseekV2Config(**DEEPSEEK_HF)
+    d = cfg.to_dict()
+    d["architectures"] = ["DeepseekV2ForCausalLM"]
+    for key in ("bos_token_id", "eos_token_id", "pad_token_id"):
+        d.pop(key, None)  # no stop token: greedy streams run to their length
+    (dst / "config.json").write_text(json.dumps(d))
+    torch.manual_seed(seed)
+    hf = DeepseekV2ForCausalLM(cfg).eval()
+    _save(dst / "model.safetensors", hf.state_dict())
+    _word_tokenizer(dst, DEEPSEEK_HF["vocab_size"])
     return dst, hf
 
 
@@ -216,15 +261,25 @@ def test_logits_match_transformers(dirs, kind):
 
 
 def test_deepseek_and_moe_dirs_raise(tmp_path):
-    """A DeepSeek directory raises NotImplementedError (MLA is not
-    ported); an MoE directory is no longer refused, so one without weights
-    raises only for the missing safetensors."""
+    """A DeepSeek directory is refused by ``load_model_dir`` (the CLI sends
+    it to ``load_deepseek_dir``), and one with YaRN ``rope_scaling`` is
+    refused by ``load_deepseek_dir`` with the JAX package's error; an MoE
+    directory is no longer refused, so one without weights raises only for
+    the missing safetensors."""
     ds = tmp_path / "ds"
     ds.mkdir()
     (ds / "config.json").write_text(json.dumps({"architectures": ["DeepseekV2ForCausalLM"]}))
     assert is_deepseek_dir(ds)
-    with pytest.raises(NotImplementedError, match="DeepSeek"):
+    with pytest.raises(ValueError, match="load_deepseek_dir"):
         load_model_dir(ds, device="cpu")
+    (ds / "config.json").write_text(json.dumps({
+        "architectures": ["DeepseekV2ForCausalLM"], **DEEPSEEK_HF,
+        "rope_scaling": {"type": "yarn", "factor": 40, "mscale": 0.707}}))
+    with pytest.raises(NotImplementedError, match="rope_scaling") as err:
+        load_deepseek_dir(ds, device="cpu")
+    with pytest.raises(NotImplementedError) as ref:
+        jax_load_deepseek_dir(ds)
+    assert str(err.value) == str(ref.value)
     moe = tmp_path / "moe"
     moe.mkdir()
     (moe / "config.json").write_text(json.dumps({
@@ -305,3 +360,42 @@ def test_moe_dir_served_through_the_front_door(dirs):
     assert engine.core.model.config.is_moe
     assert status == 200 and body["choices"][0]["finish_reason"] == "length"
     assert body["choices"][0]["text"].split() == [f"w{t}" for t in ref]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_deepseek_dir_equals_jax_loader(dirs, dtype):
+    """``load_deepseek_dir`` against the JAX package's ``load_deepseek_dir``:
+    the same config, and every tensor equal (HF ``[out, in]`` transposed,
+    the dense layer and the MoE layers in their groups, experts stacked),
+    in f32 and rounded to bf16 alike; the card reads the directory."""
+    import dataclasses
+
+    path, _ = dirs["deepseek"]
+    cfg, state = load_deepseek_dir(path, dtype=dtype, device="cpu")
+    jcfg, params = jax_load_deepseek_dir(path, dtype=dtype)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    ref = deepseek_params_from_jax(jax.tree.map(np.asarray, params), cfg, device="cpu")
+    assert set(state) == set(ref)
+    for name, r in ref.items():
+        assert state[name].dtype == r.dtype == cfg.torch_dtype, name
+        assert torch.equal(state[name], r), name
+    card = ModelDeploymentCard.from_hf_dir(path)
+    assert card.context_length == 256 and card.tokenizer_path and card.eos_token_ids == []
+
+
+def test_deepseek_logits_match_transformers(dirs):
+    path, hf = dirs["deepseek"]
+    cfg, state = load_deepseek_dir(path, dtype="float32", device="cpu")
+    model = DeepseekModel.from_state(cfg, state)
+    prompt = np.random.default_rng(7).integers(0, cfg.vocab_size, 21)
+    n = len(prompt)
+    cache = model.init_kv_cache(8, BS)
+    bt = torch.tensor([[2, 5, 0, 7]], dtype=torch.int32)
+    pos = torch.arange(n)[None]
+    slot = (bt[0, pos // BS].long() * BS + pos % BS).to(torch.int32)
+    h, _ = model.forward(torch.tensor(prompt[None], dtype=torch.int32), pos.to(torch.int32),
+                         cache, bt, torch.tensor([n], dtype=torch.int32), slot)
+    with torch.no_grad():
+        ref = hf(torch.tensor(prompt[None])).logits[0]
+    np.testing.assert_allclose(model.compute_logits(h[0]).numpy(), ref.numpy(),
+                               atol=DEEPSEEK_LOGIT_ATOL)
