@@ -60,7 +60,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
    at the largest mixed dispatch of each token-budget run, with its decode
    rows and without them.  Before the bf16 model is freed it also serves
    the six prompts as token-id completions through the port's HTTP service
-   (concurrent, streamed): TTFT at the client beside the direct run's;
+   (concurrent, streamed): TTFT at the client beside the direct run's; and
+   it runs the ``grammar`` phase: a 128,256-token vocabulary of bytes from
+   a seed (ids 3-258 the single bytes, the rest printable strings of 2 to
+   8 bytes) and its JSON tables; ``grammar_mask`` / ``grammar_advance`` on
+   the card equal to the CPU's at reachable states of a JSON + choice +
+   regex composite, the seeded noise bit-equal; their times at B = 8
+   beside their bound; then the six prompts as a constrained mix (two
+   greedy JSON-mode rows, a seeded JSON-mode row at temperature 1, a
+   seeded free row, a guided choice and a guided regex) on the default
+   path (B1, B2) and on the token-budget path (B3, B1), each row held to
+   its grammar, and the seeded rows again with one decode turn a dispatch
+   and other companions for the same streams;
 5. parity: 2-layer models at full 8B width on the card (kernels, bf16) and
    on the CPU (plain PyTorch, f32), bf16 weights with a bf16 cache and int8
    weights with an int8 cache: one 300-token prompt over a 128-token cached
@@ -80,7 +91,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    tensors against the shards, and each answer, one request at a time,
    against a fresh engine's greedy tokens; the bf16 server must launch the
    decode and prefill kernels, the int8 one the int8 decode, int8 ragged and
-   W8A16 kernels;
+   W8A16 kernels.  With a byte-level tokenizer beside the same weights the
+   CLI also answers a ``json_schema`` chat (JSON of the schema's shape, or
+   cut inside it at max_tokens), a ``guided_regex`` completion (replayed
+   through its tables) and one seeded completion twice (the same text);
 7. mixture of experts, serving: Qwen3-30B-A3B at full width and depth (48
    layers, 128 experts, random weights from a seeded generator) behind
    ``AsyncLLMEngine``, the six requests on bf16 weights and the default
@@ -117,8 +131,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
 The kernel timings also time E1 at one DeepSeek-V2-Lite MoE layer's
 launches (64 experts, top 6, [2048, 1408] and [1408, 2048]), and the MLA
 latent attention (the plain op) at B1's decode step and B2's prefill,
-each beside its bound and SDPA on the same latent K/V.  Then one
-``{"mla": [...]}`` line, one ``{"kernels": [...]}`` line (the grouped
+each beside its bound and SDPA on the same latent K/V.  Phase 4 prints
+one ``{"grammar": {...}}`` line (the grammar ops' and the seeded noise's
+times, launches and bounds, the table sizes, the constrained serving
+readings beside the unconstrained ones).  At the end one ``{"mla": [...]}``
+line, one ``{"kernels": [...]}`` line (the grouped
 kernels' rows hold their T = 8 reading and, under ``t1504``, their T =
 1,504 one; E1's also its DeepSeek-V2-Lite readings and launches), and as
 the last line ``{"ok": true, "device": {...}}``.
@@ -148,6 +165,7 @@ from dynamo_tpu_torch.tools.cuda_timing import (  # noqa: E402
 # published peaks of one H100 SXM (dense): HBM bytes/s and bf16 tensor FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+F32_FLOP_PER_S = 67e12  # outside the tensor cores
 
 # Llama-3-8B attention geometry
 H, HK, D, BS, L = 32, 8, 128, 16, 32
@@ -1389,14 +1407,18 @@ def model_prompts(model, seed: int = 0) -> list[list[int]]:
     return prompts(seed, min(LLAMA3_VOCAB, model.config.vocab_size))
 
 
-async def _serve(engine, reqs):
+async def _serve(engine, reqs, sampling=None):
+    """Each request of ``reqs`` (token ids) concurrently, greedy or with
+    ``sampling[i]`` (SamplingOptions fields), MAX_TOKENS tokens at most:
+    [(TTFT, seconds to the end, outputs)]."""
     from dynamo_tpu_torch.llm.protocols import BackendInput, SamplingOptions, StopConditions
     from dynamo_tpu_torch.runtime.engine import Context
 
     async def one(i, toks):
         t0 = time.perf_counter()
         first, outs = None, []
-        ctx = Context(BackendInput(token_ids=toks, sampling=SamplingOptions(temperature=0.0),
+        opts = SamplingOptions(**(sampling[i] if sampling else {"temperature": 0.0}))
+        ctx = Context(BackendInput(token_ids=toks, sampling=opts,
                                    stops=StopConditions(max_tokens=MAX_TOKENS)), id=f"req-{i}")
         async for out in engine.generate(ctx):
             if first is None and out.token_ids:
@@ -1540,6 +1562,7 @@ def serving_phase(torch, card: str):
         f"{time.perf_counter() - t0:.1f} s")
     default, budget, mixed = serve_both(torch, model, card, quant=False)
     http_serving_run(torch, model, default, card)
+    grammar_phase(torch, model, default, card)
     del model
     torch.cuda.empty_cache()
     return default, budget, mixed
@@ -2136,10 +2159,13 @@ def _answer_text(answer) -> str:
     return c["text"] if "text" in c else c["message"]["content"]
 
 
-def cli_phase(card: str, flags: tuple = (), label: str = "Llama-3-8B-width") -> None:
-    """``python3 -m dynamo_tpu_torch run in=http out=gpu`` on the
-    checkpoint (with ``flags``), as a user starts it: every request kind,
-    /metrics, and a clean exit on SIGTERM."""
+@contextlib.contextmanager
+def cli_server(model_dir: Path, flags=()):
+    """``python3 -m dynamo_tpu_torch run in=http out=gpu`` on ``model_dir``
+    (with ``flags``) as a subprocess, as a user starts it; yields (its base
+    URL, a coroutine function waiting for /health that returns the seconds
+    it took), then stops it with SIGTERM, which must exit 0.  Its log is
+    ``_frontdoor/cli.log`` while it runs."""
     import signal
     import socket
 
@@ -2153,23 +2179,45 @@ def cli_phase(card: str, flags: tuple = (), label: str = "Llama-3-8B-width") -> 
     with open(log_path, "w") as err:
         proc = subprocess.Popen(
             [sys.executable, "-m", "dynamo_tpu_torch", "run", "in=http", "out=gpu",
-             "--model-path", str(FRONT_DIR), "--model-name", FRONT_MODEL, "--http-port",
+             "--model-path", str(model_dir), "--model-name", FRONT_MODEL, "--http-port",
              str(port), *flags], cwd=str(ROOT), stdout=err, stderr=subprocess.STDOUT)
     base = f"http://127.0.0.1:{port}"
+
+    async def ready(s) -> float:
+        while True:
+            try:
+                async with s.get(f"{base}/health") as r:
+                    health = await r.json()
+                break
+            except aiohttp.ClientConnectionError:
+                check(proc.poll() is None and time.perf_counter() - t0 < 300,
+                      "the CLI server did not come up: " + log_path.read_text()[-3000:])
+                await asyncio.sleep(0.25)
+        check(health["models"] == [FRONT_MODEL], f"CLI /health: {health}")
+        return time.perf_counter() - t0
+
     try:
+        yield base, ready
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+    check(rc == 0, f"the CLI server exited with {rc} on SIGTERM: {log_path.read_text()[-3000:]}")
+
+
+def cli_phase(card: str, flags: tuple = (), label: str = "Llama-3-8B-width") -> None:
+    """``python3 -m dynamo_tpu_torch run in=http out=gpu`` on the
+    checkpoint (with ``flags``), as a user starts it: every request kind,
+    /metrics, and a clean exit on SIGTERM."""
+    import aiohttp
+
+    with cli_server(FRONT_DIR, flags) as (base, wait_ready):
         async def go():
             async with aiohttp.ClientSession() as s:
-                while True:
-                    try:
-                        async with s.get(f"{base}/health") as r:
-                            health = await r.json()
-                        break
-                    except aiohttp.ClientConnectionError:
-                        check(proc.poll() is None and time.perf_counter() - t0 < 300,
-                              "the CLI server did not come up: " + log_path.read_text()[-3000:])
-                        await asyncio.sleep(0.25)
-                ready = time.perf_counter() - t0
-                check(health["models"] == [FRONT_MODEL], f"CLI /health: {health}")
+                ready = await wait_ready(s)
                 base_body = {"model": FRONT_MODEL, "max_tokens": FRONT_MAX_TOKENS,
                              "temperature": 0}
                 words = " ".join(f"w{i}" for i in range(3000, 3020))
@@ -2190,14 +2238,6 @@ def cli_phase(card: str, flags: tuple = (), label: str = "Llama-3-8B-width") -> 
             return ready, answers, metrics
 
         ready, answers, metrics = asyncio.run(go())
-    finally:
-        proc.send_signal(signal.SIGTERM)
-        try:
-            rc = proc.wait(timeout=60)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            rc = proc.wait()
-    check(rc == 0, f"the CLI server exited with {rc} on SIGTERM: {log_path.read_text()[-3000:]}")
 
     def finished(c, usage_tokens):
         return (c["finish_reason"] == "length" and usage_tokens == FRONT_MAX_TOKENS) or (
@@ -2242,6 +2282,94 @@ def cli_phase(card: str, flags: tuple = (), label: str = "Llama-3-8B-width") -> 
         f"on the {FRONT_LAYERS}-layer {label} checkpoint answered /health after {ready:.1f} s, then unary, "
         f"streamed, chat, n=2, logprobs, stop-string and 404 requests, /metrics counted "
         f"{done}; exit 0 on SIGTERM ({card})")
+
+
+GRAMMAR_DIR = FRONT_DIR / "bytes"
+GRAMMAR_SCHEMA = {"type": "object", "properties": {"ok": {"type": "boolean"},
+                                                   "n": {"type": "integer"}},
+                  "required": ["ok", "n"]}
+
+
+def write_byte_tokenizer(d: Path, size: int = LLAMA3_VOCAB) -> None:
+    """A byte-level BPE with no merges (so every text is one token per
+    byte and the grammar compiler sees real bytes): the 256 bytes in
+    GPT-2's printable alphabet at ids 3-258, Llama 3's special tokens at
+    their ids, filler entries up to ``size``; and a tokenizer_config.json
+    with the chat template."""
+    from tokenizers import Tokenizer, decoders, models, pre_tokenizers
+
+    from dynamo_tpu_torch.engine.grammar import _gpt2_unicode_to_bytes
+
+    sp = specials(size)
+    vocab = {r: i for i, r in enumerate(ROLES)}
+    vocab.update({ch: 3 + b for ch, b in _gpt2_unicode_to_bytes().items()})
+    vocab.update(sp)
+    vocab.update({f"<|filler_{i}|>": i for i in range(259, size) if i not in sp.values()})
+    tk = Tokenizer(models.BPE(vocab=vocab, merges=[], unk_token="<unk>"))
+    tk.pre_tokenizer = pre_tokenizers.ByteLevel(add_prefix_space=False)
+    tk.decoder = decoders.ByteLevel()
+    tk.add_special_tokens(list(sp))
+    d.mkdir(parents=True, exist_ok=True)
+    tk.save(str(d / "tokenizer.json"))
+    (d / "tokenizer_config.json").write_text(json.dumps({
+        "chat_template": CHAT_TEMPLATE, "bos_token": "<|begin_of_text|>",
+        "eos_token": "<|eot_id|>"}))
+
+
+def grammar_cli_phase(card: str) -> None:
+    """The front-door checkpoint with a byte-level tokenizer, served by
+    ``python3 -m dynamo_tpu_torch run in=http out=gpu``: a chat with a
+    ``json_schema`` response format answers JSON of the schema's shape (or
+    stops at max_tokens inside it), a ``guided_regex`` completion replays
+    through the regex's tables, and one seeded completion sent twice gives
+    the same text."""
+    import aiohttp
+
+    from dynamo_tpu_torch.engine.grammar import (
+        compile_regex_vocab, compile_vocab, json_schema_to_regex)
+
+    for f in FRONT_DIR.iterdir():
+        if f.suffix in (".json", ".safetensors") and not f.name.startswith("tokenizer"):
+            (GRAMMAR_DIR / f.name).parent.mkdir(parents=True, exist_ok=True)
+            (GRAMMAR_DIR / f.name).symlink_to(f)
+    write_byte_tokenizer(GRAMMAR_DIR)
+    base_body = {"model": FRONT_MODEL, "max_tokens": 48}
+    schema_format = {"type": "json_schema", "json_schema": {"name": "r", "schema": GRAMMAR_SCHEMA}}
+    seeded = {**base_body, "prompt": "Once upon a time", "temperature": 0.9, "seed": 7}
+    with cli_server(GRAMMAR_DIR) as (base, wait_ready):
+        async def go():
+            async with aiohttp.ClientSession() as s:
+                ready = await wait_ready(s)
+                answers = [await _post(s, base + path, body) for path, body in [
+                    ("/v1/chat/completions", {**base_body, "temperature": 0,
+                                              "messages": [{"role": "user", "content": "Report."}],
+                                              "response_format": schema_format}),
+                    ("/v1/completions", {**base_body, "temperature": 0, "prompt": "Phone: ",
+                                         "guided_regex": GRAMMAR_REGEX}),
+                    ("/v1/completions", seeded), ("/v1/completions", seeded)]]
+            return ready, answers
+
+        ready, answers = asyncio.run(go())
+    check(all(a[0] == 200 for a in answers), f"grammar CLI: statuses {[a[:2] for a in answers]}")
+    bytes_vocab = [bytes([b]) for b in range(256)]
+    texts = [_answer_text(a[1]) for a in answers]
+    reasons = [a[1]["choices"][0]["finish_reason"] for a in answers]
+    schema_rx = json_schema_to_regex(GRAMMAR_SCHEMA)
+    for i, (rx, text, reason) in enumerate(zip((schema_rx, GRAMMAR_REGEX), texts, reasons)):
+        tables = compile_regex_vocab(bytes_vocab, rx)
+        check(_replays(tables, list(text.encode()), ()) and (
+            reason == "length" or re.fullmatch(rx, text)),
+            f"grammar CLI answer {i} ({reason}): {text!r} is outside {rx}")
+    if reasons[0] == "stop":
+        json.loads(texts[0])
+    check(_replays(compile_vocab(bytes_vocab), list(texts[0].encode()), ()),
+          f"grammar CLI: the schema answer {texts[0]!r} leaves the JSON grammar")
+    check(texts[2] == texts[3], f"grammar CLI: one seeded request gave {texts[2]!r} then "
+                                f"{texts[3]!r}")
+    log(f"grammar CLI: `python3 -m dynamo_tpu_torch run in=http out=gpu` on the {FRONT_LAYERS}-layer "
+        f"checkpoint with a byte-level tokenizer answered /health after {ready:.1f} s; json_schema "
+        f"chat {reasons[0]} {texts[0][:60]!r}, guided_regex {reasons[1]} {texts[1]!r}, the seeded "
+        f"completion twice {texts[2][:40]!r}; exit 0 on SIGTERM ({card})")
 
 
 def front_server(torch, flags: list[str], card: str, label: str, need: list[str],
@@ -2321,6 +2449,7 @@ def front_door_phase(torch, card: str) -> None:
     log(f"front door: wrote a {FRONT_LAYERS}-layer Llama-3-8B-width checkpoint, "
         f"{nbytes / 1e9:.2f} GB in two shards, in {time.perf_counter() - t0:.1f} s")
     cli_phase(card)
+    grammar_cli_phase(card)
     front_server(torch, FRONT_FLAGS, card, "bf16 default path", ["decode", "prefill"],
                  ["decode_q8", "prefill_q8", "ragged", "ragged_q8", "matmul", "moe", "moe_q8"])
     torch.cuda.empty_cache()
@@ -2520,6 +2649,339 @@ def http_serving_run(torch, model, direct: dict, card: str) -> None:
         f"the HTTP runs minus median of the direct runs); decode tok/s over HTTP "
         f"{[round(x, 1) for x in tps['http']]}, direct {[round(x, 1) for x in tps['direct']]} "
         f"({card})")
+
+
+# ------------------------------------------------------------------ grammar
+GRAMMAR_CHOICES = ["alpha", "beta", "gamma"]
+GRAMMAR_REGEX = "[0-9][0-9][0-9]-[0-9][0-9][0-9][0-9]"
+# the constrained mix, one row per serving prompt; the seeded rows sit on
+# prompts that share no prefix, so their prefill never depends on another
+# request's cached blocks
+GRAMMAR_TRAFFIC = (
+    dict(temperature=0.0, json_mode=True),
+    dict(temperature=1.0, seed=1234, json_mode=True),
+    dict(temperature=0.9, top_p=0.9, seed=4321),
+    dict(temperature=0.0, json_mode=True),
+    dict(temperature=0.0, guided_choice=GRAMMAR_CHOICES),
+    dict(temperature=0.0, guided_regex=GRAMMAR_REGEX),
+)
+GRAMMAR_SEEDED = (1, 2)
+GRAMMAR_B = 8  # rows of the grammar and seeded-noise checks and timings: max_batch_size
+
+
+def grammar_vocab(seed: int = 0, vocab: int = LLAMA3_VOCAB) -> list:
+    """Token bytes of a ``vocab``-entry vocabulary made from a seed: ids
+    3-258 the single bytes, the rest below Llama 3's specials printable
+    ASCII strings of 2 to 8 bytes; ids 0-2 and the specials (EOS among
+    them) None."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    first = vocab - 256
+    lens = rng.integers(2, 9, size=first)
+    chars = rng.integers(0x20, 0x7F, size=(first, 8)).astype(np.uint8)
+    toks: list = [None] * vocab
+    for i in range(259, first):
+        toks[i] = chars[i, :lens[i]].tobytes()
+    for b in range(256):
+        toks[3 + b] = bytes([b])
+    return toks
+
+
+def _replays(tables, ids, eos) -> bool:
+    """Every token of ``ids`` up to an EOS is one the tables allow where
+    it was sampled (request-relative states from the initial one)."""
+    from dynamo_tpu_torch.engine.grammar import INIT_STATE
+
+    s, d, st = INIT_STATE, 0, 0
+    for t in ids:
+        if t in eos:
+            return True
+        if not tables.valid_mask(s, d, st)[t]:
+            return False
+        s, d, st = tables.advance(s, d, st, t)
+    return True
+
+
+def grammar_ops(torch, grammar, toks, card: str) -> dict:
+    """The device half of constrained decoding and the seeded noise on the
+    card against the CPU, then their times.
+
+    ``grammar_mask`` / ``grammar_advance`` over a composite of the JSON
+    grammar, a choice set and a regex at 128,256 tokens: four rounds of 8
+    rows at states reached by random walks on the host tables (one row
+    unconstrained), masked logits and advanced states equal to the CPU's
+    exactly.  ``seeded_uniform`` on 512 random (seed, step, token)
+    triples: bit-equal to the CPU's, ``seeded_gumbel`` within 2 f32 ulps.
+    Then each op at B = 8 as a CUDA graph (the card's time) and eagerly,
+    its kernel launches per call, and its bound."""
+    import numpy as np
+
+    from dynamo_tpu_torch.engine.grammar import (
+        INIT_STATE, compile_choice_vocab, compile_regex_vocab, compose_tables, device_tables,
+        grammar_advance, grammar_mask)
+    from dynamo_tpu_torch.engine.sampling import K_MAX, seeded_gumbel, seeded_uniform
+
+    eos = eos_ids()
+    parts = [grammar.tables, compile_choice_vocab(toks, GRAMMAR_CHOICES, eos),
+             compile_regex_vocab(toks, GRAMMAR_REGEX, eos)]
+    comp, offs = compose_tables(parts)
+    v, b = LLAMA3_VOCAB, GRAMMAR_B
+    t0 = time.perf_counter()
+    gt = device_tables(comp, v, "cuda")
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    gt_cpu = device_tables(comp, v, "cpu")
+    rng = np.random.default_rng(0)
+
+    def walk():
+        """A random part's initial state, then up to 24 random valid tokens
+        (a third of them opening a container where one may open)."""
+        part = int(rng.integers(0, 3))
+        s, d, st = INIT_STATE if part == 0 else 1 + offs[part], 0, 0
+        for _ in range(int(rng.integers(0, 25))):
+            ok = np.flatnonzero(comp.valid_mask(s, d, st))
+            ok = ok[~np.isin(ok, eos)]
+            push = ok[comp.npush[s, ok] > 0]
+            if push.size and rng.random() < 0.3:
+                ok = push
+            if not ok.size:
+                break
+            s, d, st = comp.advance(s, d, st, int(rng.choice(ok)))
+        return s, d, st
+
+    depths = []
+    for rnd in range(4):
+        state, depth, stack = (np.asarray(x, np.int32) for x in zip(*(walk() for _ in range(b))))
+        depths += depth.tolist()
+        jrows = np.arange(b) != rnd  # one row unconstrained
+        logits = rng.normal(size=(b, v)).astype(np.float32)
+        cpu = [torch.from_numpy(a) for a in (logits, jrows, state, depth, stack)]
+        dev = [a.cuda() for a in cpu]
+        masked_cpu = grammar_mask(cpu[0], gt_cpu, *cpu[1:])
+        masked = grammar_mask(dev[0], gt, *dev[1:])
+        check(torch.equal(masked.cpu(), masked_cpu),
+              f"grammar_mask on the card differs from the CPU's (round {rnd})")
+        picks = np.zeros(b, np.int32)
+        for i in range(b):
+            ok = np.flatnonzero(masked_cpu[i].numpy() > -1e29)
+            picks[i] = rng.choice(ok) if ok.size else eos[0]
+        adv_cpu = grammar_advance(gt_cpu, *cpu[1:], torch.from_numpy(picks))
+        adv = grammar_advance(gt, *dev[1:], torch.from_numpy(picks).cuda())
+        check(all(torch.equal(a.cpu(), r) for a, r in zip(adv, adv_cpu)),
+              f"grammar_advance on the card differs from the CPU's (round {rnd})")
+    seeds = torch.from_numpy(rng.integers(0, 2 ** 31, size=b).astype(np.int32))
+    steps = torch.from_numpy(rng.integers(0, 1 << 17, size=b).astype(np.int32))
+    ids = torch.from_numpy(rng.integers(0, v, size=(b, K_MAX)).astype(np.int64))
+    u_cpu, g_cpu = seeded_uniform(seeds, steps, ids), seeded_gumbel(seeds, steps, ids)
+    u = seeded_uniform(seeds.cuda(), steps.cuda(), ids.cuda()).cpu()
+    g = seeded_gumbel(seeds.cuda(), steps.cuda(), ids.cuda()).cpu()
+    check(torch.equal(u.view(torch.int32), u_cpu.view(torch.int32)),
+          "seeded uniforms on the card are not bit-equal to the CPU's")
+    ulps = ((g - g_cpu).abs() / torch.finfo(torch.float32).eps / g_cpu.abs().clamp_min(1.0)).max()
+    check(float(ulps) <= 2.0, f"seeded Gumbel noise on the card is {float(ulps):.2f} ulps off")
+
+    # times at B = 8 on the last round's operands
+    from torch.profiler import ProfilerActivity, profile
+
+    sampled = torch.from_numpy(picks).cuda()
+    sd, sp, cid = seeds.cuda(), steps.cuda(), ids.cuda()
+    calls = {"grammar_mask": lambda: grammar_mask(dev[0], gt, *dev[1:]),
+             "grammar_advance": lambda: grammar_advance(gt, *dev[1:], sampled),
+             "seeded_gumbel": lambda: seeded_gumbel(sd, sp, cid)}
+    # bytes each op must move: the four [S, V] table rows at each row's
+    # state (int16 + 3 int8) and the f32 logits read and written; the
+    # advance's five table entries and three int32 states in and out a
+    # row; the noise's int32 seeds and steps and int64 ids in, f32 out.
+    # The noise's operations are 32-bit integer and f32 ALU work (about 290
+    # a value: three threefry blocks of 20 rounds and their key schedule),
+    # counted against the f32 rate outside the tensor cores.
+    work = {"grammar_mask": (0.0, b * v * (2 + 3 + 4 + 4) + v),
+            "grammar_advance": (0.0, b * (2 + 4 + 4 * 4 + 3 * 4)),
+            "seeded_gumbel": (290.0 * b * K_MAX, b * 8 + b * K_MAX * (8 + 4))}
+    out = {}
+    for name, fn in calls.items():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n_launch = sum(e.count for e in prof.key_averages()
+                       if (getattr(e, "self_device_time_total", None)
+                           or getattr(e, "self_cuda_time_total", 0.0)) > 0)
+        ops, nbytes = work[name]
+        t_ops, t_bytes = ops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+        out[name] = dict(graph_ms=graph_time_ms([fn], 200), eager_ms=cuda_time_ms(lambda i: fn(), 200),
+                         launches_per_call=n_launch, bound_ms=1e3 * max(t_ops, t_bytes),
+                         bound_by="operations" if t_ops > t_bytes else "bytes")
+    log(f"grammar ops: mask/advance on the card equal the CPU's exactly over 4 x {b} rows "
+        f"at reachable states (depths up to {max(depths)}) of a {comp.n_states}-state composite "
+        f"(json {parts[0].n_states}, choice {parts[1].n_states}, regex {parts[2].n_states}; "
+        f"{gt.nbytes / 1e6:.1f} MB on the card, uploaded in {upload_s:.3f} s); seeded uniforms "
+        f"bit-equal on {b * K_MAX} triples, Gumbel within {float(ulps):.2f} ulps; per call at "
+        f"B = {b}, V = {v}: " + "; ".join(
+            f"{k} graph {r['graph_ms']:.4f} ms, eager {r['eager_ms']:.4f} ms, "
+            f"{r['launches_per_call']} launches, bound {r['bound_ms']:.6f} ms ({r['bound_by']})"
+            for k, r in out.items()) + f" ({card})")
+    return dict(ops=out, composite_mb=gt.nbytes / 1e6, composite_states=comp.n_states,
+                upload_s=upload_s)
+
+
+@contextlib.contextmanager
+def counted_grammar_calls():
+    """Count the engine's calls of ``grammar_mask`` and ``grammar_advance``
+    in a serving run, by wrapping the engine module's references to them
+    (the functions themselves are untouched)."""
+    from dynamo_tpu_torch.engine import core as engine_core
+
+    counts = {"grammar_mask": 0, "grammar_advance": 0}
+    real = {name: getattr(engine_core, name) for name in counts}
+
+    def counting(name):
+        def call(*args):
+            counts[name] += 1
+            return real[name](*args)
+        return call
+
+    for name in counts:
+        setattr(engine_core, name, counting(name))
+    try:
+        yield counts
+    finally:
+        for name, fn in real.items():
+            setattr(engine_core, name, fn)
+
+
+def grammar_serve_run(torch, model, grammar, toks, config: dict, card: str, label: str,
+                      traffic=GRAMMAR_TRAFFIC, reqs=None) -> dict:
+    """The constrained mix (``traffic``, one row per prompt of ``reqs``:
+    the six serving prompts unless named) once through ``AsyncLLMEngine``
+    under ``config``, every kernel counter zeroed just before and read just
+    after; each row held to its grammar: a JSON row that ended on EOS
+    parses, one cut at max_tokens replays through the JSON tables; the
+    choice row's text is a choice; the regex row replays through its tables
+    (and, ended, fullmatches)."""
+    from dynamo_tpu_torch.engine import AsyncLLMEngine, EngineConfig, EngineCore
+    from dynamo_tpu_torch.engine.grammar import compile_regex_vocab
+    from dynamo_tpu_torch.llm.protocols import FinishReason
+
+    eos = eos_ids()
+    core = EngineCore(model, EngineConfig(**config), eos_token_ids=eos, device="cuda",
+                      grammar=grammar)
+    engine = AsyncLLMEngine(core).start()
+    reqs = reqs or prompts()
+    try:
+        asyncio.run(_serve(engine, [list(range(1, 40))]))  # warm-up, unconstrained
+        wrappers = _kernel_wrappers()
+        for fn in wrappers.values():
+            fn.launches = 0
+        with counted_grammar_calls() as calls:
+            t0 = time.perf_counter()
+            results = asyncio.run(_serve(engine, reqs, list(traffic)))
+            wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        metrics = core.metrics()
+    finally:
+        engine.shutdown()
+    streams = [[t for o in outs for t in o.token_ids] for _, _, outs in results]
+    reasons = [outs[-1].finish_reason for _, _, outs in results]
+    regex_tables = compile_regex_vocab(toks, GRAMMAR_REGEX, eos_ids=eos)
+    texts = []
+    for i, (opts, ids, reason) in enumerate(zip(traffic, streams, reasons)):
+        text = b"".join(toks[t] for t in ids if toks[t] is not None)
+        texts.append(text)
+        check(reason in (FinishReason.EOS, FinishReason.LENGTH) and 0 < len(ids) <= MAX_TOKENS,
+              f"grammar {label} row {i}: finish {reason} after {len(ids)} tokens")
+        if opts.get("guided_regex"):
+            check(_replays(regex_tables, ids, eos) and (
+                reason is FinishReason.LENGTH or re.fullmatch(GRAMMAR_REGEX, text.decode())),
+                f"grammar {label} row {i}: {text!r} is outside {GRAMMAR_REGEX}")
+        elif opts.get("json_mode"):
+            if reason is FinishReason.EOS:
+                try:  # the JSON grammar does not check UTF-8 inside strings
+                    json.loads(text.decode("utf-8", errors="replace"))
+                except ValueError as e:
+                    raise SmokeFailure(f"grammar {label} row {i}: {text!r} is not JSON: {e}")
+            check(_replays(grammar.tables, ids, eos),
+                  f"grammar {label} row {i}: {text!r} leaves the JSON grammar")
+        elif opts.get("guided_choice"):
+            check(reason is FinishReason.EOS and text.decode() in GRAMMAR_CHOICES,
+                  f"grammar {label} row {i}: {text!r} is not one of {GRAMMAR_CHOICES}")
+    ttfts = [r[0] for r in results]
+    decode_tokens = sum(len(x) - 1 for x in streams)
+    decode_window = wall - min(ttfts)
+    kinds = [("json" if o.get("json_mode") else "choice" if o.get("guided_choice") else
+              "regex" if o.get("guided_regex") else "free") + (" seeded" if "seed" in o else "")
+             for o in traffic]
+    log(f"grammar serving {label}: {len(results)} requests ({', '.join(kinds)}), wall {wall:.3f} s, TTFT min/median/max {min(ttfts):.3f}/"
+        f"{sorted(ttfts)[len(ttfts) // 2]:.3f}/{max(ttfts):.3f} s, decode "
+        f"{decode_tokens / decode_window:.1f} tok/s over {decode_window:.3f} s, host gap "
+        f"{metrics['host_gap_ms_per_turn']:.2f} ms/turn, device reads {metrics['device_gets_total']}, "
+        f"finish {[r.value for r in reasons]}, texts {[t[:40] for t in texts]}, grammar calls "
+        f"{calls}, launches {launches} ({card})")
+    return dict(streams=streams, launches=launches, metrics=metrics, ttfts=ttfts, wall=wall,
+                decode_tok_s=decode_tokens / decode_window, calls=dict(calls))
+
+
+def grammar_phase(torch, model, plain: dict, card: str) -> None:
+    """Constrained decoding and per-request seeds on the serving phase's
+    bf16 Llama-3-8B: a 128,256-token vocabulary from a seed and its JSON
+    tables; the device ops against the CPU and their times
+    (:func:`grammar_ops`); the constrained mix on the default path (B1, B2)
+    and on the token-budget path (B3, B1); then the two seeded requests
+    again, with one decode turn a dispatch and other companions, for the
+    same streams.  Its serving line stands beside the unconstrained
+    default run's (``plain``)."""
+    from dynamo_tpu_torch.engine.grammar import JsonGrammar
+
+    t_phase = time.perf_counter()
+    toks = grammar_vocab()
+    t0 = time.perf_counter()
+    grammar = JsonGrammar.from_token_bytes(toks, eos_ids=eos_ids())
+    compile_s = time.perf_counter() - t0
+    log(f"grammar: JSON tables, {grammar.tables.n_states} states x {grammar.tables.vocab_size} "
+        f"tokens, compiled in {compile_s:.2f} s on the host ({card})")
+    ops = grammar_ops(torch, grammar, toks, card)
+    torch.cuda.empty_cache()
+    default = grammar_serve_run(torch, model, grammar, toks, DEFAULT_PATH, card, "default path")
+    check(default["launches"]["decode"] > 0 and default["launches"]["prefill"] > 0,
+          f"grammar default path: launches {default['launches']}, need decode and prefill > 0")
+    torch.cuda.empty_cache()
+    budget = grammar_serve_run(torch, model, grammar, toks, BUDGET_PATH, card, "token-budget path")
+    check(budget["launches"]["ragged"] > 0 and budget["launches"]["decode"] > 0,
+          f"grammar token-budget path: launches {budget['launches']}, need ragged and decode > 0")
+    torch.cuda.empty_cache()
+    # the seeded requests again: one decode turn a dispatch, and two
+    # unconstrained greedy companions in place of the other four rows
+    base = prompts()
+    others = prompts(seed=3)[:2]
+    again = grammar_serve_run(
+        torch, model, grammar, toks, dict(DEFAULT_PATH, decode_steps=1), card,
+        "seeded again, decode_steps=1, other companions",
+        traffic=[GRAMMAR_TRAFFIC[i] for i in GRAMMAR_SEEDED] + [dict(temperature=0.0)] * 2,
+        reqs=[base[i] for i in GRAMMAR_SEEDED] + others)
+    for j, i in enumerate(GRAMMAR_SEEDED):
+        check(again["streams"][j] == default["streams"][i],
+              f"grammar: seeded request {i} gave {again['streams'][j]} with decode_steps=1 and "
+              f"other companions, {default['streams'][i]} in the constrained run")
+    torch.cuda.empty_cache()
+    pm = plain["metrics"]
+    log(f"grammar beside plain (default path, the same six prompts): constrained wall "
+        f"{default['wall']:.3f} s, TTFT median/max {sorted(default['ttfts'])[3]:.3f}/"
+        f"{max(default['ttfts']):.3f} s, decode {default['decode_tok_s']:.1f} tok/s, host gap "
+        f"{default['metrics']['host_gap_ms_per_turn']:.2f} ms/turn; unconstrained TTFT "
+        f"median/max {sorted(plain['ttfts'])[3]:.3f}/{max(plain['ttfts']):.3f} s, decode "
+        f"{plain['decode_tok_s']:.1f} tok/s, host gap {pm['host_gap_ms_per_turn']:.2f} ms/turn; "
+        f"tok/s share {default['decode_tok_s'] / plain['decode_tok_s']:.3f} ({card})")
+    log(json.dumps({"grammar": dict(
+        ops["ops"], composite_mb=ops["composite_mb"], composite_states=ops["composite_states"],
+        upload_s=ops["upload_s"], json_compile_s=compile_s,
+        launches={k: default["calls"][k] for k in ("grammar_mask", "grammar_advance")},
+        constrained=dict(wall=default["wall"], ttft_median=sorted(default["ttfts"])[3],
+                         ttft_max=max(default["ttfts"]), decode_tok_s=default["decode_tok_s"],
+                         host_gap_ms=default["metrics"]["host_gap_ms_per_turn"]),
+        plain=dict(ttft_median=sorted(plain["ttfts"])[3], ttft_max=max(plain["ttfts"]),
+                   decode_tok_s=plain["decode_tok_s"], host_gap_ms=pm["host_gap_ms_per_turn"]),
+        card=card)}))
+    log(f"phase grammar (inside the bf16 serving phase): {time.perf_counter() - t_phase:.1f} s")
 
 
 # ----------------------------------------------------------------- DeepSeek

@@ -22,10 +22,18 @@ or, with unified dispatch, one mixed turn when both phases have work.
 Prefix-cache hits shorten prefill via the block manager.
 
 A burst is a Python loop on the device (the JAX engine's ``lax.scan``):
-forward → sample → feed the token back, with ONE host sync at the end.
-``jax.random.split`` keys become draws from the engine's one
-``torch.Generator``, so temperature > 0 streams differ from the JAX
-engine's; greedy streams are token for token the same.
+forward → (grammar mask) → sample → (grammar advance) → feed the token
+back, with ONE host sync at the end.  Unseeded rows' ``jax.random.split``
+keys become draws from the engine's one ``torch.Generator``, so their
+temperature > 0 streams differ from the JAX engine's; greedy rows and rows
+with a per-request ``seed`` (:func:`~dynamo_tpu_torch.engine.sampling.
+seeded_gumbel`) give the JAX engine's streams token for token.
+
+Constrained decoding (``json_mode``, ``guided_choice``, ``guided_regex``,
+and a JSON schema through its regex) masks each constrained row's logits
+with its grammar's tables (:mod:`dynamo_tpu_torch.engine.grammar`) and
+advances the row's automaton state on the device inside the burst; the
+host mirrors the state in :meth:`EngineCore._append_token`.
 
 The cache is the model's dtype or, with ``cache_dtype="int8"``, a
 :class:`~dynamo_tpu_torch.ops.kv_quant.QuantKvCache` (int8 payload and
@@ -36,9 +44,7 @@ Int8 weights come with the model (``init_params(quantized=True)`` or
 Not ported yet, and refused at construction (:meth:`EngineCore.
 _check_supported`): speculative decoding, sequence-parallel prefill, host
 offload and the persistent tier, cache dtypes other than int8 and the
-model's, meshes, and the profile hook.  Constrained decoding and
-per-request ``seed`` streams are refused per request with
-``FinishReason.ERROR``.
+model's, meshes, and the profile hook.
 
 Thread-safety: everything here runs on the engine thread; submit()/abort()
 are the only cross-thread entry points and only touch thread-safe queues.
@@ -57,7 +63,11 @@ import torch
 from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.engine.config import EngineConfig
 from dynamo_tpu_torch.engine.counters import LookaheadCounters, PrefillCounters
-from dynamo_tpu_torch.engine.request import EngineRequest, RequestState
+from dynamo_tpu_torch.engine.grammar import (
+    JsonGrammar, compile_choice_vocab, compile_regex_vocab, compose_tables, device_tables,
+    grammar_advance, grammar_mask,
+)
+from dynamo_tpu_torch.engine.request import INIT_STATE, EngineRequest, RequestState
 from dynamo_tpu_torch.engine.sampling import K_MAX, sample_full
 from dynamo_tpu_torch.llm.kv.block_manager import KvBlockManager, NoFreeBlocks
 from dynamo_tpu_torch.llm.protocols import FinishReason, LLMEngineOutput
@@ -105,14 +115,38 @@ def _append_sampled(pen, sampled: torch.Tensor):
     return ptoks, pfirst, (cur + 1).clamp_max(t_cap - 1), freq, pres
 
 
+def _sample(logits, generator, temp, top_k, top_p, pen_args: tuple, extras: dict, gram,
+            steps, k_cand: int):
+    """One turn's sampling: mask the constrained rows' logits with their
+    grammar, then sample.  ``gram`` is a dispatch's grammar state, (tables,
+    jrows, state, depth, stack) in the argument order of ``grammar_mask``
+    and ``grammar_advance`` (see :meth:`EngineCore._gram_kwargs`), or None
+    when no row is constrained; ``steps`` [B] is each row's seed fold index
+    (the absolute position of the token being sampled)."""
+    if gram is not None:
+        logits = grammar_mask(logits, *gram)
+    if extras.get("seeds") is not None:
+        extras = dict(extras, seed_steps=steps)
+    return sample_full(logits, generator, temp, top_k, top_p, *pen_args, k_cand=k_cand,
+                       **extras)
+
+
+def _advance(gram, sampled):
+    """Advance the carried grammar state by one turn's samples, on the
+    device."""
+    return None if gram is None else gram[:2] + grammar_advance(*gram, sampled)
+
+
 def _decode_turns(model: LlamaModel, cache, toks, pos, lens, block_tables, limits, generator,
-                  temp, top_k, top_p, pen, extras: dict, num_steps: int, block_size: int,
+                  temp, top_k, top_p, pen, extras: dict, gram, num_steps: int, block_size: int,
                   k_cand: int) -> list[torch.Tensor]:
     """``num_steps`` decode turns on the device: forward → sample → feed the
     token back.  A position at/past its row's ``limit`` writes no KV (slot
     -1) and the context length is clamped at the limit, so the block table
-    is never walked past the row's blocks.  Returns each turn's packed
-    [B, 2 + 2C] result."""
+    is never walked past the row's blocks.  The grammar state ``gram`` (see
+    :func:`_sample`) and the penalty buffers advance on the device each turn;
+    a seeded row folds on ``pos + 1``, its sampled token's position.
+    Returns each turn's packed [B, 2 + 2C] result."""
     m = block_tables.shape[1]
     outs = []
     for _ in range(num_steps):
@@ -122,10 +156,11 @@ def _decode_turns(model: LlamaModel, cache, toks, pos, lens, block_tables, limit
         hidden, _ = model.forward(toks[:, None], pos[:, None], cache, block_tables, lens,
                                   slot[:, None])
         logits = model.compute_logits(hidden[:, 0])
-        out = sample_full(logits, generator, temp, top_k, top_p, *_pen_args(pen),
-                          k_cand=k_cand, **extras)
+        out = _sample(logits, generator, temp, top_k, top_p, _pen_args(pen), extras, gram,
+                      pos + 1, k_cand)
         if pen is not None:
             pen = _append_sampled(pen, out[0])
+        gram = _advance(gram, out[0])
         outs.append(_pack(*out))
         lens = torch.minimum(lens + 1, limits)
         toks, pos = out[0], pos + 1
@@ -135,9 +170,11 @@ def _decode_turns(model: LlamaModel, cache, toks, pos, lens, block_tables, limit
 @torch.no_grad()
 def unified_step(model: LlamaModel, cache, tokens, positions, block_tables, seq_lens,
                  slot_idx, last_idx, generator, temp, top_k, top_p, prefix_blocks=None,
-                 k_cand=K_MAX, min_p=None, bias_tokens=None, bias_vals=None):
+                 k_cand=K_MAX, min_p=None, bias_tokens=None, bias_vals=None, seeds=None,
+                 seed_rows=None, gram=None):
     """The serving step: forward over the paged cache (written in place),
-    gather each row's last hidden state, project to logits, sample.
+    gather each row's last hidden state, project to logits, mask the
+    constrained rows, sample (a seeded row folds on ``seq_lens``).
 
     Returns the packed [B, 2 + 2C] result (see :func:`_pack`) on the
     device; nothing here synchronises with it."""
@@ -146,57 +183,66 @@ def unified_step(model: LlamaModel, cache, tokens, positions, block_tables, seq_
     b = tokens.shape[0]
     last_h = hidden[torch.arange(b, device=hidden.device), last_idx.long()]  # [B, Dm]
     logits = model.compute_logits(last_h)  # [B, V] f32
-    out = sample_full(logits, generator, temp, top_k, top_p, bias_tokens=bias_tokens,
-                      bias_vals=bias_vals, min_p=min_p, k_cand=k_cand)
-    return _pack(*out)
+    extras = dict(min_p=min_p, bias_tokens=bias_tokens, bias_vals=bias_vals, seeds=seeds,
+                  seed_rows=seed_rows)
+    return _pack(*_sample(logits, generator, temp, top_k, top_p, (), extras, gram, seq_lens,
+                          k_cand))
 
 
 @torch.no_grad()
 def multi_decode_step(model: LlamaModel, cache, last_tokens, positions, block_tables,
                       seq_lens, limits, generator, temp, top_k, top_p, pen=None,
-                      min_p=None, bias_tokens=None, bias_vals=None, *, num_steps: int,
-                      block_size: int, k_cand: int = K_MAX):
+                      min_p=None, bias_tokens=None, bias_vals=None, seeds=None, seed_rows=None,
+                      gram=None, *, num_steps: int, block_size: int, k_cand: int = K_MAX):
     """``num_steps`` decode iterations on the device in one dispatch
     (multi-step scheduling), see :func:`_decode_turns`.  Inactive rows
     have limits=0.
 
     ``pen`` = (pen_tokens [B,T] -1-padded, pen_first, pen_cursor [B],
     freq_pen, pres_pen): each newly sampled token is appended on the device
-    so mid-burst repeats are penalised without a host round trip.
+    so mid-burst repeats are penalised without a host round trip; the
+    constrained rows' grammar state ``gram`` advances on the device the
+    same way.
 
     Returns the packed [K, B, 2 + 2C] results on the device."""
     if pen is not None:
         pen = tuple(t.clone() for t in pen)
-    extras = dict(min_p=min_p, bias_tokens=bias_tokens, bias_vals=bias_vals)
+    extras = dict(min_p=min_p, bias_tokens=bias_tokens, bias_vals=bias_vals, seeds=seeds,
+                  seed_rows=seed_rows)
     return torch.stack(_decode_turns(
         model, cache, last_tokens, positions, seq_lens, block_tables, limits, generator,
-        temp, top_k, top_p, pen, extras, num_steps, block_size, k_cand))
+        temp, top_k, top_p, pen, extras, gram, num_steps, block_size, k_cand))
 
 
 @torch.no_grad()
 def ragged_prefill_step(model: LlamaModel, cache, tokens, positions, block_tables, seq_lens,
                         slot_idx, seq_ids, seq_starts, row_offsets, last_idx, generator, temp,
                         top_k, top_p, prefix_blocks=0, k_cand=K_MAX, min_p=None,
-                        bias_tokens=None, bias_vals=None):
+                        bias_tokens=None, bias_vals=None, seeds=None, seed_rows=None,
+                        gram=None):
     """Token-budget ragged prefill: ONE forward over a flat packed token
     axis ([1, T]) holding several requests' prefill chunks, then a per-ROW
     sample — ``last_idx`` [R] gathers each row's last fresh hidden state off
-    the flat axis.  The host keeps only final-chunk rows' samples.
+    the flat axis.  The host keeps only final-chunk rows' samples; a seeded
+    row folds on its ``seq_lens``.
 
     Returns the packed [R, 2 + 2C] result on the device."""
     hidden, _ = model.forward(tokens, positions, cache, block_tables, seq_lens, slot_idx,
                               prefix_blocks=prefix_blocks,
                               ragged=(seq_ids, seq_starts, row_offsets))
     logits = model.compute_logits(hidden[0, last_idx.long()])  # [R, V] f32
-    return _pack(*sample_full(logits, generator, temp, top_k, top_p, bias_tokens=bias_tokens,
-                              bias_vals=bias_vals, min_p=min_p, k_cand=k_cand))
+    extras = dict(min_p=min_p, bias_tokens=bias_tokens, bias_vals=bias_vals, seeds=seeds,
+                  seed_rows=seed_rows)
+    return _pack(*_sample(logits, generator, temp, top_k, top_p, (), extras, gram, seq_lens,
+                          k_cand))
 
 
 @torch.no_grad()
 def unified_token_step(model: LlamaModel, cache, tokens, positions, block_tables, seq_lens,
                        slot_idx, seq_ids, seq_starts, row_offsets, last_idx, generator, temp,
                        top_k, top_p, pen=None, *, row_tokens=0, prefix_blocks=0, k_cand=K_MAX,
-                       min_p=None, bias_tokens=None, bias_vals=None):
+                       min_p=None, bias_tokens=None, bias_vals=None, seeds=None, seed_rows=None,
+                       gram=None):
     """Unified mixed prefill+decode step: ONE forward over a flat packed
     token axis whose first ``row_tokens`` slots hold DECODE rows (one fresh
     token each, written to the cache per row — their in-block offsets are
@@ -206,23 +252,26 @@ def unified_token_step(model: LlamaModel, cache, tokens, positions, block_tables
 
     Decode rows and final-chunk prefill rows sample (penalties over the
     host-built ``pen`` = (pen_tokens, pen_first, freq_pen, pres_pen), logit
-    bias, min_p, top_logprobs candidates); mid-chunk rows sample garbage
-    the host discards.  Returns the packed [R, 2 + 2C] result."""
+    bias, min_p, grammar masks, seeds folded on ``seq_lens``, top_logprobs
+    candidates); mid-chunk rows sample garbage the host discards.  Returns
+    the packed [R, 2 + 2C] result."""
     hidden, _ = model.forward(tokens, positions, cache, block_tables, seq_lens, slot_idx,
                               prefix_blocks=prefix_blocks,
                               ragged=(seq_ids, seq_starts, row_offsets),
                               ragged_row_tokens=row_tokens)
     logits = model.compute_logits(hidden[0, last_idx.long()])  # [R, V] f32
-    return _pack(*sample_full(logits, generator, temp, top_k, top_p, *(pen or ()),
-                              bias_tokens=bias_tokens, bias_vals=bias_vals, min_p=min_p,
-                              k_cand=k_cand))
+    extras = dict(min_p=min_p, bias_tokens=bias_tokens, bias_vals=bias_vals, seeds=seeds,
+                  seed_rows=seed_rows)
+    return _pack(*_sample(logits, generator, temp, top_k, top_p, pen or (), extras, gram,
+                          seq_lens, k_cand))
 
 
 @torch.no_grad()
 def unified_burst_step(model: LlamaModel, cache, tokens, positions, block_tables, seq_lens,
                        slot_idx, seq_ids, seq_starts, row_offsets, last_idx, limits, generator,
                        temp, top_k, top_p, pen=None, min_p=None, bias_tokens=None,
-                       bias_vals=None, *, num_steps: int, block_size: int, row_tokens: int = 0,
+                       bias_vals=None, seeds=None, seed_rows=None, gram=None, *,
+                       num_steps: int, block_size: int, row_tokens: int = 0,
                        prefix_blocks: int = 0, k_cand: int = K_MAX):
     """Fused multi-turn unified dispatch: turn 0 is exactly
     :func:`unified_token_step`, then ``num_steps - 1`` further decode turns
@@ -238,26 +287,30 @@ def unified_burst_step(model: LlamaModel, cache, tokens, positions, block_tables
 
     ``pen`` = (pen_tokens, pen_first, pen_cursor, freq_pen, pres_pen):
     every turn's samples are appended on the device (``pen_cursor`` is each
-    row's next write index).  Returns the packed [K, R, 2 + 2C] results,
-    turn 0 first."""
+    row's next write index), and grammar states advance there too.  Seeded
+    rows fold on the absolute position (turn 0: ``seq_lens``; later turns:
+    ``pos + 1``), so their streams equal the single-turn dispatches'.
+    Returns the packed [K, R, 2 + 2C] results, turn 0 first."""
     hidden, _ = model.forward(tokens, positions, cache, block_tables, seq_lens, slot_idx,
                               prefix_blocks=prefix_blocks,
                               ragged=(seq_ids, seq_starts, row_offsets),
                               ragged_row_tokens=row_tokens)
     logits = model.compute_logits(hidden[0, last_idx.long()])  # [R, V] f32
-    extras = dict(min_p=min_p, bias_tokens=bias_tokens, bias_vals=bias_vals)
+    extras = dict(min_p=min_p, bias_tokens=bias_tokens, bias_vals=bias_vals, seeds=seeds,
+                  seed_rows=seed_rows)
     if pen is not None:
         pen = tuple(t.clone() for t in pen)
-    out0 = sample_full(logits, generator, temp, top_k, top_p, *_pen_args(pen),
-                       k_cand=k_cand, **extras)
+    out0 = _sample(logits, generator, temp, top_k, top_p, _pen_args(pen), extras, gram,
+                   seq_lens, k_cand)
     if pen is not None:
         pen = _append_sampled(pen, out0[0])
+    gram = _advance(gram, out0[0])
     # the later turns start as the decode turn that would follow: turn 0's
     # token sits at position seq_lens, the context now includes it (clamped
     # at the block limit — past it no KV was written)
     outs = _decode_turns(model, cache, out0[0], seq_lens, torch.minimum(seq_lens + 1, limits),
                          block_tables, limits, generator, temp, top_k, top_p, pen, extras,
-                         num_steps - 1, block_size, k_cand)
+                         gram, num_steps - 1, block_size, k_cand)
     return torch.stack([_pack(*out0)] + outs)
 
 
@@ -268,6 +321,7 @@ class EngineCore:
         config: EngineConfig,
         eos_token_ids: Optional[list[int]] = None,
         device=None,
+        grammar: Optional[JsonGrammar] = None,
     ):
         self.device = resolve_device(device)
         if model.device != self.device:
@@ -276,6 +330,14 @@ class EngineCore:
         self.model = model
         self.config = config
         self.eos_token_ids = set(eos_token_ids or [])
+        # constrained decoding: the JSON grammar's host tables (compiled
+        # from the tokenizer lazily on the first constrained request, see
+        # attach_grammar_tokenizer), the choice/regex tables by key, and
+        # the device composites by dispatch key set
+        self._grammar = grammar
+        self._grammar_tok = None
+        self._choice_tables: dict[tuple, object] = {}
+        self._gdev_cache: dict[tuple, tuple] = {}
         self.block_manager = KvBlockManager(
             config.num_blocks, config.block_size,
             enable_prefix_reuse=config.enable_prefix_reuse,
@@ -365,12 +427,161 @@ class EngineCore:
         work()
         self.overlap_s += time.perf_counter() - t0
 
+    # ------------------------------------------------------- grammar tables
+    def attach_grammar_tokenizer(self, tokenizer, eos_ids=None) -> None:
+        """Provide the tokenizer the grammar tables are compiled from; the
+        compile itself runs lazily on the first constrained request."""
+        if self._grammar is None:
+            self._grammar_tok = (tokenizer, tuple(eos_ids or self.eos_token_ids))
+
+    def _ensure_grammar(self) -> Optional[JsonGrammar]:
+        if self._grammar is None and self._grammar_tok is not None:
+            tok, eos = self._grammar_tok
+            self._grammar_tok = None
+            self._grammar = JsonGrammar.from_tokenizer(tok, eos_ids=eos)
+            log.info("compiled JSON grammar tables (%d states x %d tokens)",
+                     self._grammar.tables.n_states, self._grammar.tables.vocab_size)
+        return self._grammar
+
+    def _grammar_usable(self) -> bool:
+        g = self._ensure_grammar()
+        return g is not None and any(
+            0 <= e < self.model.config.vocab_size for e in g.tables.eos_ids)
+
+    @staticmethod
+    def _grammar_key(req: EngineRequest):
+        """None | "json" | ("choice", ...) | ("regex", ...) — which grammar
+        (if any) constrains this request.  guided_regex wins over json_mode:
+        schema requests carry both, the regex enforcing the schema's shape
+        and json_mode serving as the fallback if that regex turns out
+        uncompilable."""
+        if req.sampling.guided_regex:
+            return ("regex", req.sampling.guided_regex)
+        if req.sampling.json_mode:
+            return "json"
+        if req.sampling.guided_choice:
+            return ("choice",) + tuple(req.sampling.guided_choice)
+        return None
+
+    # composite state budget: a dispatch's composed tables must stay well
+    # inside int16 ids; requests that would exceed it wait for slots to
+    # free (same backpressure shape as NoFreeBlocks)
+    GRAMMAR_STATE_BUDGET = 16384
+
+    def _grammar_states_bound(self, key) -> int:
+        """Upper bound on a grammar's state count.  Regex grammars compile
+        (and cache) their tables here — the DFA size is not knowable from
+        the pattern text, and admission must refuse or stall BEFORE a
+        dispatch composes an overflowing table."""
+        if key == "json":
+            return 128  # the JSON pushdown automaton is ~90 states
+        if key[0] == "regex":
+            return self._tables_for(key).n_states
+        return sum(len(c.encode("utf-8")) for c in key[1:]) + 2
+
+    def _active_grammar_budget_ok(self, new_key) -> bool:
+        keys = {self._grammar_key(r) for r in self.slots if r is not None}
+        keys.discard(None)
+        keys.add(new_key)
+        return sum(self._grammar_states_bound(k) for k in keys) <= self.GRAMMAR_STATE_BUDGET
+
+    def _tables_for(self, key):
+        """Host VocabTables for one grammar key (request-relative state
+        space).  Choice and regex tables compile on first use and are cached
+        by key; a compile failure is cached too (bounded), so a resubmitted
+        bad pattern does not pay the compile again."""
+        if key == "json":
+            return self._grammar.tables
+        if key in self._choice_tables:
+            cached = self._choice_tables[key]
+            if isinstance(cached, Exception):
+                raise cached
+            return cached
+        try:
+            if key[0] == "regex":
+                tables = compile_regex_vocab(self._grammar.token_bytes, key[1],
+                                             eos_ids=self._grammar.tables.eos_ids)
+            else:
+                tables = compile_choice_vocab(self._grammar.token_bytes, list(key[1:]),
+                                              eos_ids=self._grammar.tables.eos_ids)
+        except Exception as e:
+            # varied bad patterns must not grow the cache without limit or
+            # starve live tables
+            failures = [k for k, v in self._choice_tables.items() if isinstance(v, Exception)]
+            if len(failures) >= 32:
+                self._choice_tables.pop(failures[0])
+            self._choice_tables[key] = e
+            raise
+        cap = max(16, self.config.max_batch_size)
+        if len(self._choice_tables) >= cap:
+            # evict a set no active request is using — in-flight grammars
+            # stay resident or every dispatch would recompile them
+            active = {self._grammar_key(r) for r in self.slots if r is not None}
+            victim = next((k for k, v in self._choice_tables.items()
+                           if k not in active and not isinstance(v, Exception)), None)
+            if victim is not None:
+                self._choice_tables.pop(victim)
+                self._gdev_cache.clear()  # composites may reference it
+        self._choice_tables[key] = tables
+        return tables
+
+    def _composite_for(self, keys: tuple):
+        """(device tables, {key: state offset}) for a dispatch whose
+        constrained rows use exactly ``keys`` (json first — the pushdown
+        sentinel resolves against offset-0 ids).  A new key set costs one
+        upload of its composite, made while the dispatch's operands are
+        built; at most 8 composites stay on the device."""
+        if keys not in self._gdev_cache:
+            comp, offs = compose_tables([self._tables_for(k) for k in keys])
+            if len(self._gdev_cache) >= 8:
+                self._gdev_cache.clear()
+            self._gdev_cache[keys] = (
+                device_tables(comp, self.model.config.vocab_size, self.device),
+                dict(zip(keys, offs)),
+            )
+        return self._gdev_cache[keys]
+
+    def _dispatch_keys(self, reqs) -> tuple:
+        """Ordered grammar keys for one dispatch: json first (pushdown
+        sentinel constraint), then the others in a canonical order, so
+        identical grammar sets hit the same cached composite whatever the
+        arrival order."""
+        keys = {self._grammar_key(r) for r in reqs}
+        keys.discard(None)
+        return tuple(sorted(keys, key=lambda k: (k != "json", k)))
+
+    def _gram_kwargs(self, samp, b: int) -> dict:
+        """The grammar operand ``gram`` of one dispatch whose sampling rows
+        are ``samp`` = [(dispatch row, request)] out of ``b`` rows: the
+        composite tables, which rows are constrained, and each row's
+        (state, depth, stack) in composite ids; {} when no row is
+        constrained."""
+        if not any(self._grammar_key(rq) for _, rq in samp) or self._ensure_grammar() is None:
+            return {}
+        keys = self._dispatch_keys([rq for _, rq in samp])
+        gdev, offs = self._composite_for(keys)
+        jrows = np.zeros(b, bool)
+        jstate = np.full(b, INIT_STATE, np.int32)
+        jdepth = np.zeros(b, np.int32)
+        jstack = np.zeros(b, np.int32)
+        for r, rq in samp:
+            key = self._grammar_key(rq)
+            if key is None:
+                continue
+            jrows[r] = True
+            gs, gd, gk = rq.gstate
+            # request-relative state id -> composite id
+            jstate[r] = gs + offs[key] if gs > 0 else gs
+            jdepth[r], jstack[r] = gd, gk
+        return dict(gram=(gdev, *(self._up(a) for a in (jrows, jstate, jdepth, jstack))))
+
     def _sampling_extras(self, reqs, rows=None, b=None) -> dict:
-        """min_p / logit_bias tensors for one dispatch, or {} when no
-        request uses them.  ``rows``: each request's dispatch row (its slot
-        for decode, its packed row for ragged and unified dispatches); None
-        = requests are the dispatch rows in order (prefill).  ``b``
-        overrides the row count (ragged: the padded row axis)."""
+        """min_p / per-request seed / logit_bias / grammar tensors for one
+        dispatch, or {} when no request uses them.  ``rows``: each request's
+        dispatch row (its slot for decode, its packed row for ragged and
+        unified dispatches); None = requests are the dispatch rows in order
+        (prefill).  ``b`` overrides the row count (ragged: the padded row
+        axis)."""
         kw = {}
         if b is None:
             b = self.config.max_batch_size if rows is not None else len(reqs)
@@ -380,6 +591,15 @@ class EngineCore:
             for i, r in enumerate(reqs):
                 mp[at(i)] = r.sampling.min_p
             kw["min_p"] = self._up(mp)
+        if any(r.sampling.seed is not None and not r.sampling.greedy for r in reqs):
+            sd = np.zeros(b, np.int32)
+            sr = np.zeros(b, bool)
+            for i, r in enumerate(reqs):
+                if r.sampling.seed is not None and not r.sampling.greedy:
+                    sd[at(i)] = int(r.sampling.seed) & 0x7FFFFFFF
+                    sr[at(i)] = True
+            kw["seeds"] = self._up(sd)
+            kw["seed_rows"] = self._up(sr)
         if any(r.sampling.logit_bias for r in reqs):
             longest = max(len(r.sampling.logit_bias or {}) for r in reqs)
             nb = max(8, 1 << (longest - 1).bit_length())
@@ -391,13 +611,16 @@ class EngineCore:
                     vals[at(i), j] = float(v)
             kw["bias_tokens"] = self._up(toks)
             kw["bias_vals"] = self._up(vals)
+        kw.update(self._gram_kwargs([(at(i), r) for i, r in enumerate(reqs)], b))
         return kw
 
     @staticmethod
     def _k_cand(reqs) -> int:
         """Candidate-set width: K_MAX, widened (power-of-two, at most 1024)
         when a request asks for top_k beyond it, so a large top_k never
-        silently truncates."""
+        silently truncates.  ``torch.topk`` is always exact, so seeded rows
+        need no switch to an exact candidate set as in the JAX engine; their
+        window caps at K_MAX inside ``sample_full``."""
         want = max((r.sampling.top_k for r in reqs), default=0)
         return min(1 << (want - 1).bit_length(), 1024) if want > K_MAX else K_MAX
 
@@ -585,15 +808,6 @@ class EngineCore:
                 req.abort_requested = True
             self._admitted.append(req)
 
-    @staticmethod
-    def _unservable(req: EngineRequest) -> bool:
-        """Requests whose sampling needs a path this engine does not carry:
-        constrained decoding, and per-request seed streams (``torch`` cannot
-        reproduce ``jax.random``'s seeded bits)."""
-        s = req.sampling
-        return bool(s.json_mode or s.guided_choice or s.guided_regex
-                    or (s.seed is not None and not s.greedy))
-
     def _admit(self) -> None:
         self._drain_waiting()
         # leftovers after a full drain can never match (finished/unknown ids)
@@ -606,7 +820,7 @@ class EngineCore:
             slot = next((i for i, s in enumerate(self.slots) if s is None), None)
             if slot is None:
                 break
-            if req.prompt_len == 0 or self._unservable(req):
+            if req.prompt_len == 0:
                 self._admitted.remove(req)
                 self._finish(req, FinishReason.ERROR)
                 continue
@@ -614,6 +828,41 @@ class EngineCore:
                 self._admitted.remove(req)
                 self._finish(req, FinishReason.LENGTH)
                 continue
+            gkey = self._grammar_key(req)
+            if gkey is not None and not (
+                self._grammar_usable()
+                and (gkey == "json" or self._grammar.token_bytes is not None)
+            ):
+                # constrained decoding needs tokenizer-compiled tables AND a
+                # model-vocab EOS id (terminal states are EOS-only; without
+                # one the mask would go all -inf on completion)
+                self._admitted.remove(req)
+                self._finish(req, FinishReason.ERROR)
+                continue
+            if gkey is not None:
+                try:
+                    budget_ok = self._active_grammar_budget_ok(gkey)
+                except Exception:
+                    if gkey[0] == "regex" and req.sampling.json_mode:
+                        # a schema-derived regex overflowed the DFA cap:
+                        # fall back to the generic JSON grammar
+                        log.warning("schema regex uncompilable for %s; falling back to "
+                                    "generic JSON mode", req.request_id)
+                        req.sampling.guided_regex = None
+                        gkey = "json"
+                        budget_ok = self._active_grammar_budget_ok(gkey)
+                    else:
+                        # bad pattern / oversized DFA with no fallback: fail
+                        # the request, not the engine step
+                        log.exception("grammar compile failed for %s", req.request_id)
+                        self._admitted.remove(req)
+                        self._finish(req, FinishReason.ERROR)
+                        continue
+                if not budget_ok:
+                    # the composed tables must stay inside int16 state ids:
+                    # wait for constrained slots to free (backpressure, not
+                    # an error)
+                    break
             req.seq = TokenBlockSequence(req.prompt, self.config.block_size)
             try:
                 alloc = self.block_manager.allocate(req.seq.sequence_hashes(), req.prompt_len)
@@ -689,6 +938,7 @@ class EngineCore:
         bt[0, :len(req.block_ids)] = req.block_ids
         slot_idx[0, :take] = bt[0, pos // bs] * bs + pos % bs
 
+        # only the final chunk's sample is kept, so only it is masked
         extras = self._sampling_extras([req]) if final else {}
         packed = unified_step(
             self.model, self.cache, self._up(tokens), self._up(positions), self._up(bt),
@@ -1261,6 +1511,11 @@ class EngineCore:
         req.seq.append(token)
         req.generated += 1
         self.tokens_generated += 1
+        gkey = self._grammar_key(req)
+        if gkey is not None and self._grammar is not None:
+            # host mirror of the device's grammar advance (same tables, same
+            # sampled token; request-relative state ids)
+            req.gstate = self._tables_for(gkey).advance(*req.gstate, token)
 
         finish: Optional[FinishReason] = None
         st = req.stops

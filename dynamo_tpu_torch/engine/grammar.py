@@ -1,0 +1,1416 @@
+"""Grammar-constrained decoding: JSON mode, guided choice and guided regex
+that run inside the decode burst, in PyTorch.
+
+The counterpart of ``dynamo_tpu/engine/grammar.py``.  The host half —
+the JSON pushdown automaton, the per-vocabulary table compiler, the
+choice trie, the bounded regex compiler, the JSON-schema-to-regex
+translation and table composition — is that module's numpy code, kept
+under the same names so the two packages' tables can be compared table
+for table.  The device half is plain torch:
+
+* A byte-level DFA for the JSON lexical grammar whose states carry the
+  *current container context* (top-level / object / array), plus a
+  bounded pushdown for bracket matching: depth counter + an int32
+  bit-stack (1 bit per nesting level: OBJ or ARR, max depth 24).
+* Per tokenizer, every (state, token) transition is precomputed by
+  composing the token's bytes symbolically (pops/pushes normalise to
+  "pop a prefix, then push a suffix").  The result is dense ``[S, V]``
+  tables — next state (int16: composed grammars exceed 127 states), pop
+  count/bits, push count/bits (int8) — 6 bytes per entry, uploaded once
+  per grammar set by :func:`device_tables`.
+* At each decode step the valid-token mask for a row is pure tensor
+  arithmetic (:func:`grammar_mask`): a table-row gather + bit compares
+  against the row's (state, depth, stack), with no host read, so
+  constrained rows ride the multi-step decode burst.  After sampling,
+  :func:`grammar_advance` moves each row's automaton state by gathers on
+  the device.
+* Tokens whose byte behaviour would depend on stack content *below* the
+  levels they pop (e.g. ``},`` — the comma's meaning depends on the
+  container we pop into) are conservatively masked; every JSON
+  construct remains expressible through shorter tokens (all single-byte
+  JSON punctuation exists in any BPE vocab).
+"""
+
+from __future__ import annotations
+
+import json
+from dataclasses import dataclass
+from typing import NamedTuple, Optional, Sequence
+
+import numpy as np
+import torch
+
+__all__ = [
+    "JsonGrammar", "VocabTables", "token_bytes_map", "MAX_DEPTH",
+    "INIT_STATE", "DEAD", "compile_choice_vocab", "compile_regex_vocab",
+    "compose_tables", "json_schema_to_regex", "GrammarTables", "device_tables",
+    "grammar_mask", "grammar_advance",
+]
+
+MAX_DEPTH = 24          # nesting levels the int32 bit-stack holds
+MAX_TOKEN_OPS = 7       # per-token pop/push bound (3 bits each in tables)
+# next_state value meaning "landed in a popped-into container whose type the
+# runtime resolves against the stack".  Negative so it can never collide
+# with a composed grammar's (positive, offset-shifted) state ids.
+SENTINEL = -1
+
+# --------------------------------------------------------------------------
+# state space
+#
+# Contexts: T (top level), O (inside object), A (inside array).  U is the
+# transient "popped into unknown container" context — it only appears
+# mid-token or as a sentinel end-state that the runtime resolves against
+# the real stack.
+DEAD = 0
+
+_CONTEXTS = ("T", "O", "A")
+_NAMES: list[str] = ["DEAD"]
+
+
+def _st(name: str) -> int:
+    _NAMES.append(name)
+    return len(_NAMES) - 1
+
+
+# value-position states, per context
+EXPECT_VALUE = {c: _st(f"EXPECT_VALUE_{c}") for c in _CONTEXTS}
+AFTER_VALUE = {c: _st(f"AFTER_VALUE_{c}") for c in _CONTEXTS}
+AFTER_VALUE_U = _st("AFTER_VALUE_U")  # sentinel: context resolved at runtime
+# strings (value position), per context
+IN_STR = {c: _st(f"IN_STR_{c}") for c in _CONTEXTS}
+STR_ESC = {c: _st(f"STR_ESC_{c}") for c in _CONTEXTS}
+STR_U = {c: [_st(f"STR_U{i}_{c}") for i in range(1, 5)] for c in _CONTEXTS}
+# numbers, per context
+NUM_MINUS = {c: _st(f"NUM_MINUS_{c}") for c in _CONTEXTS}
+NUM_ZERO = {c: _st(f"NUM_ZERO_{c}") for c in _CONTEXTS}
+NUM_INT = {c: _st(f"NUM_INT_{c}") for c in _CONTEXTS}
+NUM_DOT = {c: _st(f"NUM_DOT_{c}") for c in _CONTEXTS}
+NUM_FRAC = {c: _st(f"NUM_FRAC_{c}") for c in _CONTEXTS}
+NUM_E = {c: _st(f"NUM_E_{c}") for c in _CONTEXTS}
+NUM_ESIGN = {c: _st(f"NUM_ESIGN_{c}") for c in _CONTEXTS}
+NUM_EXP = {c: _st(f"NUM_EXP_{c}") for c in _CONTEXTS}
+# literals true/false/null: one state per remaining-suffix position
+_LITS = {"true": "rue", "false": "alse", "null": "ull"}
+LIT = {
+    c: {w: [_st(f"LIT_{w}{i}_{c}") for i in range(len(suf))]
+        for w, suf in _LITS.items()}
+    for c in _CONTEXTS
+}
+# object structure (context is implicitly O)
+OBJ_OPEN = _st("OBJ_OPEN")          # after '{': key or '}'
+OBJ_EXPECT_KEY = _st("OBJ_EXPECT_KEY")  # after ',': key only
+IN_KEY = _st("IN_KEY")
+KEY_ESC = _st("KEY_ESC")
+KEY_U = [_st(f"KEY_U{i}") for i in range(1, 5)]
+AFTER_KEY = _st("AFTER_KEY")        # expect ':'
+# array structure (context is implicitly A)
+ARR_OPEN = _st("ARR_OPEN")          # after '[': value or ']'
+
+N_STATES = len(_NAMES)
+INIT_STATE = EXPECT_VALUE["T"]
+
+# stack symbols (1 bit per level)
+SYM_OBJ, SYM_ARR = 1, 0
+
+# byte-transition ops
+OP_NONE, OP_PUSH_OBJ, OP_PUSH_ARR, OP_POP = 0, 1, 2, 3
+
+_WS = b" \t\n\r"
+_DIGITS = b"0123456789"
+_HEX = b"0123456789abcdefABCDEF"
+
+
+def _build_delta() -> tuple[np.ndarray, np.ndarray]:
+    """(delta_state [S,256] int16, delta_op [S,256] int8); DEAD = invalid."""
+    ds = np.zeros((N_STATES, 256), np.int16)  # DEAD
+    op = np.zeros((N_STATES, 256), np.int8)
+
+    def t(s: int, byte: int, ns: int, o: int = OP_NONE) -> None:
+        ds[s, byte], op[s, byte] = ns, o
+
+    def ws_loop(s: int) -> None:
+        for b in _WS:
+            t(s, b, s)
+
+    def value_start(s: int, c: str) -> None:
+        """Transitions for a value-start position whose *new* values live
+        in context c (i.e. pushes land the state in the opened container,
+        scalars land in c's string/number states)."""
+        t(s, ord("{"), OBJ_OPEN, OP_PUSH_OBJ)
+        t(s, ord("["), ARR_OPEN, OP_PUSH_ARR)
+        t(s, ord('"'), IN_STR[c])
+        t(s, ord("-"), NUM_MINUS[c])
+        t(s, ord("0"), NUM_ZERO[c])
+        for b in _DIGITS[1:]:
+            t(s, b, NUM_INT[c])
+        for w, suf in _LITS.items():
+            t(s, ord(w[0]), LIT[c][w][0])
+
+    def value_end(s: int, c: str) -> None:
+        """Transitions available where a value has just ended in context
+        c: ',' continues the container, '}'/']' pop it."""
+        if c == "O":
+            t(s, ord(","), OBJ_EXPECT_KEY)
+            t(s, ord("}"), AFTER_VALUE_U, OP_POP)
+        elif c == "A":
+            t(s, ord(","), EXPECT_VALUE["A"])
+            t(s, ord("]"), AFTER_VALUE_U, OP_POP)
+        # c == "T": nothing to continue; EOS only (runtime eos_ok)
+
+    for c in _CONTEXTS:
+        ev, av = EXPECT_VALUE[c], AFTER_VALUE[c]
+        ws_loop(ev)
+        value_start(ev, c)
+        ws_loop(av)
+        value_end(av, c)
+        # strings: any byte >= 0x20 except '"' and '\' stays (UTF-8
+        # continuation bytes included; JSON forbids raw control chars)
+        for s_in, s_esc, s_u, done in (
+            (IN_STR[c], STR_ESC[c], STR_U[c], av),
+        ):
+            for b in range(0x20, 256):
+                t(s_in, b, s_in)
+            t(s_in, ord("\\"), s_esc)
+            t(s_in, ord('"'), done)
+            for b in b'"\\/bfnrt':
+                t(s_esc, b, s_in)
+            t(s_esc, ord("u"), s_u[0])
+            for i in range(4):
+                nxt = s_in if i == 3 else s_u[i + 1]
+                for b in _HEX:
+                    t(s_u[i], b, nxt)
+        # numbers
+        for b in _DIGITS[1:]:
+            t(NUM_MINUS[c], b, NUM_INT[c])
+        t(NUM_MINUS[c], ord("0"), NUM_ZERO[c])
+        for s_num in (NUM_ZERO[c], NUM_INT[c], NUM_FRAC[c], NUM_EXP[c]):
+            # implicit number end: whitespace or container punctuation
+            for b in _WS:
+                t(s_num, b, av)
+            value_end(s_num, c)
+        for b in _DIGITS:
+            t(NUM_INT[c], b, NUM_INT[c])
+            t(NUM_DOT[c], b, NUM_FRAC[c])
+            t(NUM_FRAC[c], b, NUM_FRAC[c])
+            t(NUM_ESIGN[c], b, NUM_EXP[c])
+            t(NUM_E[c], b, NUM_EXP[c])
+            t(NUM_EXP[c], b, NUM_EXP[c])
+        for s_num in (NUM_ZERO[c], NUM_INT[c]):
+            t(s_num, ord("."), NUM_DOT[c])
+        for s_num in (NUM_ZERO[c], NUM_INT[c], NUM_FRAC[c]):
+            t(s_num, ord("e"), NUM_E[c])
+            t(s_num, ord("E"), NUM_E[c])
+        for b in b"+-":
+            t(NUM_E[c], b, NUM_ESIGN[c])
+        # literals
+        for w, suf in _LITS.items():
+            chain = LIT[c][w]
+            for i, ch in enumerate(suf):
+                nxt = av if i == len(suf) - 1 else chain[i + 1]
+                t(chain[i], ord(ch), nxt)
+
+    # object keys
+    ws_loop(OBJ_OPEN)
+    t(OBJ_OPEN, ord('"'), IN_KEY)
+    t(OBJ_OPEN, ord("}"), AFTER_VALUE_U, OP_POP)
+    ws_loop(OBJ_EXPECT_KEY)
+    t(OBJ_EXPECT_KEY, ord('"'), IN_KEY)
+    for b in range(0x20, 256):
+        t(IN_KEY, b, IN_KEY)
+    t(IN_KEY, ord("\\"), KEY_ESC)
+    t(IN_KEY, ord('"'), AFTER_KEY)
+    for b in b'"\\/bfnrt':
+        t(KEY_ESC, b, IN_KEY)
+    t(KEY_ESC, ord("u"), KEY_U[0])
+    for i in range(4):
+        nxt = IN_KEY if i == 3 else KEY_U[i + 1]
+        for b in _HEX:
+            t(KEY_U[i], b, nxt)
+    ws_loop(AFTER_KEY)
+    t(AFTER_KEY, ord(":"), EXPECT_VALUE["O"])
+
+    # arrays
+    ws_loop(ARR_OPEN)
+    value_start(ARR_OPEN, "A")
+    t(ARR_OPEN, ord("]"), AFTER_VALUE_U, OP_POP)
+
+    # sentinel context: only whitespace and further pops are
+    # context-independent; anything else mid-token is conservatively dead
+    ws_loop(AFTER_VALUE_U)
+    t(AFTER_VALUE_U, ord("}"), AFTER_VALUE_U, OP_POP)
+    t(AFTER_VALUE_U, ord("]"), AFTER_VALUE_U, OP_POP)
+
+    return ds, op
+
+
+_DELTA_STATE, _DELTA_OP = _build_delta()
+
+# states where a complete top-level JSON value has been produced: EOS is
+# the only allowed continuation (no whitespace padding after completion)
+_EOS_OK = np.zeros(N_STATES, bool)
+_EOS_OK[AFTER_VALUE["T"]] = True
+for _s in (NUM_ZERO["T"], NUM_INT["T"], NUM_FRAC["T"], NUM_EXP["T"]):
+    _EOS_OK[_s] = True
+# completed-value states: once reached at top level, every byte mask goes
+# dead (enforced at runtime via eos-only override rather than in delta,
+# because mid-token trailing whitespace like '0\n' must still compose)
+_TERMINAL_ONLY = np.zeros(N_STATES, bool)
+_TERMINAL_ONLY[AFTER_VALUE["T"]] = True
+
+
+@dataclass
+class VocabTables:
+    """Per-tokenizer compiled transition tables (host numpy; the engine
+    uploads them to device on first use)."""
+
+    next_state: np.ndarray   # [S, V] int16; DEAD = token invalid from state
+    npops: np.ndarray        # [S, V] int8
+    popbits: np.ndarray      # [S, V] int8  (bit npops-1-i = i-th pop, top first)
+    npush: np.ndarray        # [S, V] int8
+    pushbits: np.ndarray     # [S, V] int8  (bit j = j-th push, bottom first)
+    eos_ok: np.ndarray       # [S] bool
+    terminal_only: np.ndarray  # [S] bool
+    eos_ids: tuple[int, ...]
+
+    @property
+    def n_states(self) -> int:
+        return self.next_state.shape[0]
+
+    @property
+    def vocab_size(self) -> int:
+        return self.next_state.shape[1]
+
+    # ------------------------------------------------------------- host side
+    def valid_mask(self, state: int, depth: int, stack: int) -> np.ndarray:
+        """[V] bool valid-token mask for one row (host mirror of the
+        device computation; used by tests and the host fallback)."""
+        ns = self.next_state[state]
+        np_ = self.npops[state].astype(np.int32)
+        nq = self.npush[state].astype(np.int32)
+        pb = self.popbits[state].astype(np.int32)
+        ok = ns != DEAD
+        ok &= np_ <= depth
+        rem = np.maximum(depth - np_, 0)
+        ok &= ((stack >> rem) & ((1 << np_) - 1)) == pb
+        ok &= rem + nq <= MAX_DEPTH
+        if self.terminal_only[state]:
+            ok &= False
+        for e in self.eos_ids:
+            ok[e] = bool(self.eos_ok[state])
+        return ok
+
+    def advance(self, state: int, depth: int, stack: int, token: int
+                ) -> tuple[int, int, int]:
+        """Apply one sampled token to (state, depth, stack) — host mirror
+        of the device update (:func:`grammar_advance`)."""
+        if token in self.eos_ids:
+            return state, depth, stack
+        ns = int(self.next_state[state, token])
+        np_ = int(self.npops[state, token])
+        nq = int(self.npush[state, token])
+        qb = int(self.pushbits[state, token])
+        d1 = max(depth - np_, 0)
+        stack = (stack & ((1 << d1) - 1)) | (qb << d1)
+        depth = d1 + nq
+        if ns == SENTINEL:
+            # pushdown grammars sit at composite offset 0, so the resolved
+            # AFTER_VALUE ids need no shift (compose_tables enforces this)
+            if depth == 0:
+                ns = AFTER_VALUE["T"]
+            elif (stack >> (depth - 1)) & 1 == SYM_OBJ:
+                ns = AFTER_VALUE["O"]
+            else:
+                ns = AFTER_VALUE["A"]
+        return ns, depth, stack
+
+
+def compile_vocab(
+    token_bytes: Sequence[Optional[bytes]],
+    eos_ids: Sequence[int] = (),
+) -> VocabTables:
+    """Compose every token's bytes from every start state (vectorised over
+    the [S, V] grid, one pass per byte position).  ~1s for a 128k vocab."""
+    v = len(token_bytes)
+    max_len = max((len(t) for t in token_bytes if t), default=1)
+    # pad byte matrix with sentinel 256 = "past end of token"
+    bmat = np.full((v, max_len), 256, np.int16)
+    for i, tb in enumerate(token_bytes):
+        if tb:
+            bmat[i, : len(tb)] = np.frombuffer(tb, np.uint8)
+
+    state = np.broadcast_to(
+        np.arange(N_STATES, dtype=np.int16)[:, None], (N_STATES, v)
+    ).copy()
+    alive = np.ones((N_STATES, v), bool)
+    # specials / empty tokens are never valid in constrained mode
+    for i, tb in enumerate(token_bytes):
+        if not tb:
+            alive[:, i] = False
+    npops = np.zeros((N_STATES, v), np.int8)
+    popbits = np.zeros((N_STATES, v), np.int8)
+    npush = np.zeros((N_STATES, v), np.int8)
+    pushbits = np.zeros((N_STATES, v), np.int8)
+
+    for l in range(max_len):
+        byte = bmat[:, l]                     # [V] int16
+        has = byte != 256
+        act = alive & has[None, :]
+        if not act.any():
+            break
+        b_idx = np.where(has, byte, 0).astype(np.int64)
+        ns = _DELTA_STATE[state, b_idx[None, :]]   # [S, V]
+        op = _DELTA_OP[state, b_idx[None, :]]
+        alive &= ~(act & (ns == DEAD))
+        act = alive & has[None, :]
+
+        # pushes
+        for o, sym in ((OP_PUSH_OBJ, SYM_OBJ), (OP_PUSH_ARR, SYM_ARR)):
+            m = act & (op == o)
+            over = m & (npush >= MAX_TOKEN_OPS)
+            alive &= ~over
+            m &= ~over
+            pushbits[m] |= (sym << npush[m]).astype(np.int8)
+            npush[m] += 1
+        # pops
+        m = act & (op == OP_POP)
+        if m.any():
+            sym = np.where(byte == ord("}"), SYM_OBJ, SYM_ARR)  # [V]
+            symg = np.broadcast_to(sym[None, :], m.shape)
+            # pop an in-token push when one exists
+            mi = m & (npush > 0)
+            top = (pushbits[mi] >> (npush[mi] - 1)) & 1
+            bad = top != symg[mi]
+            # mismatched close of an in-token container -> dead
+            if bad.any():
+                idx = np.where(mi)
+                alive[idx[0][bad], idx[1][bad]] = False
+                mi_ok = mi.copy()
+                mi_ok[idx[0][bad], idx[1][bad]] = False
+                mi = mi_ok
+            npush[mi] -= 1
+            pushbits[mi] &= ~(1 << npush[mi]).astype(np.int8)
+            # context after the pop: remaining in-token push, or unknown
+            has_rem = mi & (npush > 0)
+            if has_rem.any():
+                topsym = (pushbits[has_rem] >> (npush[has_rem] - 1)) & 1
+                ns[has_rem] = np.where(
+                    topsym == SYM_OBJ, AFTER_VALUE["O"], AFTER_VALUE["A"]
+                )
+            # pop from the outer (runtime) stack
+            mo = m & alive & ~mi
+            over = mo & (npops >= MAX_TOKEN_OPS)
+            alive &= ~over
+            mo &= ~over
+            popbits[mo] = ((popbits[mo].astype(np.int16) << 1)
+                           | symg[mo]).astype(np.int8)
+            npops[mo] += 1
+        state = np.where(alive & has[None, :], ns, state)
+
+    next_state = np.where(alive, state, DEAD).astype(np.int16)
+    # the AFTER_VALUE_U end-state becomes the runtime SENTINEL value (-1):
+    # composed grammars shift positive state ids, and a shifted id must
+    # never be mistaken for the resolve-against-the-stack marker
+    next_state = np.where(next_state == AFTER_VALUE_U, SENTINEL, next_state)
+    # a token ending exactly at DEAD id 0 can't be conflated: state ids
+    # start at 1, DEAD==0 only means invalid.  int16: composed tables
+    # (JSON + choice grammars, compose_tables) exceed 127 states.
+    return VocabTables(
+        next_state=next_state,
+        npops=np.where(alive, npops, 0).astype(np.int8),
+        popbits=np.where(alive, popbits, 0).astype(np.int8),
+        npush=np.where(alive, npush, 0).astype(np.int8),
+        pushbits=np.where(alive, pushbits, 0).astype(np.int8),
+        eos_ok=_EOS_OK.copy(),
+        terminal_only=_TERMINAL_ONLY.copy(),
+        eos_ids=tuple(int(e) for e in eos_ids),
+    )
+
+
+# --------------------------------------------------------------------------
+# tokenizer byte mapping
+
+# GPT-2 byte-level BPE printable-unicode <-> byte table (the tokenizers
+# crate's ByteLevel pretokenizer; Llama-3 and GPT vocabs use it)
+def _gpt2_unicode_to_bytes() -> dict[str, int]:
+    bs = (list(range(ord("!"), ord("~") + 1))
+          + list(range(0xA1, 0xAD)) + list(range(0xAE, 0x100)))
+    cs = bs[:]
+    n = 0
+    for b in range(256):
+        if b not in bs:
+            bs.append(b)
+            cs.append(256 + n)
+            n += 1
+    return {chr(c): b for b, c in zip(bs, cs)}
+
+
+def token_bytes_map(tokenizer) -> list[Optional[bytes]]:
+    """token id -> raw bytes (None for special/unmappable tokens).
+
+    Handles the two HF conventions: GPT-2 byte-level BPE (Ġ/Ċ unicode
+    remap) and sentencepiece (▁ space marker + <0xNN> byte tokens).
+    Accepts a ``TokenizerWrapper`` or a raw ``tokenizers.Tokenizer``.
+    """
+    tk = getattr(tokenizer, "_tk", tokenizer)
+    vocab: dict[str, int] = tk.get_vocab()
+    size = max(vocab.values()) + 1 if vocab else 0
+    out: list[Optional[bytes]] = [None] * size
+    byte_level = any(t.startswith(("Ġ", "Ċ")) for t in vocab)
+    u2b = _gpt2_unicode_to_bytes() if byte_level else None
+    special = set()
+    try:
+        special = {t.content for t in tk.get_added_tokens_decoder().values()
+                   if getattr(t, "special", False)}
+    except Exception:
+        pass
+    for tok, i in vocab.items():
+        if i >= size or tok in special:
+            continue
+        if tok.startswith("<") and tok.endswith(">") and len(tok) > 2:
+            if tok.startswith("<0x") and len(tok) == 6:
+                try:
+                    out[i] = bytes([int(tok[3:5], 16)])
+                except ValueError:
+                    pass
+            continue  # other <...> tokens treated as special
+        if byte_level:
+            try:
+                out[i] = bytes(u2b[ch] for ch in tok)
+            except KeyError:
+                out[i] = tok.encode("utf-8")
+        else:
+            out[i] = tok.replace("▁", " ").encode("utf-8")
+    return out
+
+
+# --------------------------------------------------------------------------
+# choice grammars + composition (guided_choice)
+
+
+def compile_choice_vocab(
+    token_bytes: Sequence[Optional[bytes]],
+    choices: Sequence[str],
+    eos_ids: Sequence[int] = (),
+) -> VocabTables:
+    """Tables for "the output is exactly one of ``choices``": a byte trie
+    over the candidate strings, composed against the vocab.  No pushdown —
+    pops/pushes stay zero, so these tables compose with the JSON grammar's
+    via :func:`compose_tables`.  EOS is allowed exactly at complete
+    choices; a complete choice that is no other choice's prefix becomes
+    terminal (EOS only)."""
+    if not choices:
+        raise ValueError("guided_choice needs at least one choice")
+    enc = [c.encode("utf-8") for c in choices]
+    # trie over byte prefixes; state 0 = DEAD, 1 = root
+    nodes: dict[bytes, int] = {b"": 1}
+    for c in enc:
+        for i in range(1, len(c) + 1):
+            nodes.setdefault(c[:i], len(nodes) + 1)
+    n_states = len(nodes) + 1  # + DEAD
+    delta = np.zeros((n_states, 256), np.int16)  # DEAD
+    for prefix, sid in nodes.items():
+        for c in enc:
+            if c[: len(prefix)] == prefix and len(c) > len(prefix):
+                delta[sid, c[len(prefix)]] = nodes[c[: len(prefix) + 1]]
+    eos_ok = np.zeros(n_states, bool)
+    terminal_only = np.zeros(n_states, bool)
+    for c in enc:
+        sid = nodes[c]
+        eos_ok[sid] = True
+        terminal_only[sid] = not delta[sid].any()
+    return _compose_dfa_vocab(delta, token_bytes, eos_ok, terminal_only,
+                              eos_ids)
+
+
+def _regex_escape(text: str) -> str:
+    out = []
+    for ch in text:
+        if ch in r"\.()[]|*+?{}^$/-'" + '"':
+            out.append("\\" + ch)
+        else:
+            out.append(ch)
+    return "".join(out)
+
+
+# regex fragments for JSON primitives (match the JSON grammar's lexing)
+# strings forbid RAW control bytes and restrict escapes to the legal set
+# (matching the JSON pushdown grammar's lexing — the lax `\\.` / [^"\\]
+# form let schema mode emit invalid JSON)
+_RX_STRING = (r'"([^"\\\x00-\x1f]|\\(["\\/bfnrt]|u'
+              + "[0-9a-fA-F]" * 4 + r'))*"')
+_RX_INT = r"-?(0|[1-9][0-9]*)"
+_RX_NUMBER = _RX_INT + r"(\.[0-9]+)?([eE][-+]?[0-9]+)?"
+_RX_BOOL = r"(true|false)"
+_RX_WS = r"[ \n\t]*"
+
+
+def _digits_range_rx(lo: str, hi: str) -> str:
+    """Regex for decimal integers with the SAME digit count in [lo, hi]
+    (recursive digit-prefix construction; no {n} quantifier — the bounded
+    engine supports only * + ?, so fixed repeats are spelled out)."""
+    if lo == hi:
+        return lo
+    if len(lo) == 1:
+        return f"[{lo}-{hi}]"
+    if lo[0] == hi[0]:
+        return lo[0] + _digits_range_rx(lo[1:], hi[1:])
+    n = len(lo) - 1
+    rest_min, rest_max = "0" * n, "9" * n
+    parts = []
+    start = lo[0]
+    if lo[1:] != rest_min:
+        parts.append(lo[0] + _digits_range_rx(lo[1:], rest_max))
+        start = chr(ord(lo[0]) + 1)
+    end = hi[0]
+    if hi[1:] != rest_max:
+        parts.append(hi[0] + _digits_range_rx(rest_min, hi[1:]))
+        end = chr(ord(hi[0]) - 1)
+    if start <= end:
+        first = f"[{start}-{end}]" if start != end else start
+        parts.append(first + "[0-9]" * n)
+    return "(" + "|".join(parts) + ")"
+
+
+def _uint_range_rx(a: int, b: Optional[int]) -> str:
+    """Regex for non-negative integers in [a, b] (b=None → unbounded),
+    canonical JSON form (no leading zeros, no sign)."""
+    alts = []
+    if a == 0:
+        alts.append("0")
+        a = 1
+        if b == 0:
+            return "0"
+    if b is None:
+        la = len(str(a))
+        alts.append(_digits_range_rx(str(a), "9" * la))
+        # any number with MORE digits than a is > a
+        alts.append("[1-9]" + "[0-9]" * (la - 1) + "[0-9]+")
+        return "(" + "|".join(alts) + ")"
+    for length in range(len(str(a)), len(str(b)) + 1):
+        lo = max(a, 10 ** (length - 1))
+        hi = min(b, 10 ** length - 1)
+        if lo <= hi:
+            alts.append(_digits_range_rx(str(lo), str(hi)))
+    return "(" + "|".join(alts) + ")"
+
+
+def _int_range_rx(lo: Optional[int], hi: Optional[int]) -> Optional[str]:
+    """Regex for integers in [lo, hi]; either side may be None
+    (unbounded).  Returns None for an empty range."""
+    if lo is not None and hi is not None and lo > hi:
+        return None
+    parts = []
+    if lo is None or lo < 0:  # negative side: -(magnitude)
+        mag_lo = 1 if hi is None or hi >= 0 else -hi
+        mag_hi = None if lo is None else -lo
+        parts.append("-" + _uint_range_rx(mag_lo, mag_hi))
+    if hi is None or hi >= 0:  # non-negative side
+        parts.append(_uint_range_rx(max(lo or 0, 0), hi))
+    return "(" + "|".join(parts) + ")"
+
+
+_BOUND_KEYS = ("minimum", "maximum", "exclusiveMinimum", "exclusiveMaximum")
+_MAX_BOUND = 10 ** 18  # beyond ~18 digits any range regex blows the 4096 cap
+
+
+def _schema_int_bounds(schema: dict):
+    """(ok, lo, hi): inclusive integer bounds from minimum/maximum/
+    exclusiveMinimum/exclusiveMaximum (numeric draft-2020 form; the
+    draft-4 boolean form adjusts minimum/maximum).  Schemas are UNTRUSTED
+    request bodies: non-numeric, non-finite, or astronomically large
+    bounds return ok=False (caller falls back to the generic grammar)
+    instead of raising — and the magnitude cap also stops a tiny request
+    from provoking a megabyte-sized range regex."""
+    import math
+
+    def num(v):
+        # bool is an int subclass but "minimum: true" is not a bound
+        if isinstance(v, bool) or not isinstance(v, (int, float)):
+            return None
+        if isinstance(v, float) and not math.isfinite(v):
+            return None
+        if abs(v) > _MAX_BOUND:
+            return None
+        return v
+
+    lo = schema.get("minimum")
+    hi = schema.get("maximum")
+    xlo = schema.get("exclusiveMinimum")
+    xhi = schema.get("exclusiveMaximum")
+    if isinstance(xlo, bool):  # draft-4: exclusiveMinimum: true + minimum
+        xlo = lo if xlo else None
+        lo = None if xlo is not None else lo
+    if isinstance(xhi, bool):
+        xhi = hi if xhi else None
+        hi = None if xhi is not None else hi
+    for v in (lo, hi, xlo, xhi):
+        if v is not None and num(v) is None:
+            return False, None, None
+    if xlo is not None:
+        v = math.floor(xlo) + 1
+        lo = v if lo is None else max(lo, v)
+    if xhi is not None:
+        v = math.ceil(xhi) - 1
+        hi = v if hi is None else min(hi, v)
+    lo = None if lo is None else math.ceil(lo)
+    hi = None if hi is None else math.floor(hi)
+    return True, lo, hi
+
+
+def json_schema_to_regex(schema: dict, _depth: int = 0) -> Optional[str]:
+    """Translate a JSON-Schema SUBSET into a pattern for the bounded regex
+    engine, so ``response_format: json_schema`` enforces the schema's
+    SHAPE at decode time (not just syntactic JSON + prompt steering).
+
+    Supported: type string/integer/number/boolean/null (and a list of
+    those), integer minimum/maximum/exclusive* bounds (exact digit-range
+    regex), enum/const of scalars, anyOf/oneOf of supported branches
+    (oneOf is treated as anyOf — branches are assumed disjoint), object
+    with ``properties`` in declared order — required ones mandatory,
+    up to 5 optional ones may be independently omitted (``required``
+    absent keeps the historical all-required emission), array of a
+    supported item type.  Returns None when the schema uses anything
+    else — notably bounds on non-integer numbers, which a regex cannot
+    enforce exactly — and the caller falls back to the generic JSON
+    grammar + prompt steering.
+    """
+    if _depth > 6 or not isinstance(schema, dict):
+        return None
+    if "enum" in schema:
+        vals = schema["enum"]
+        if not isinstance(vals, list) or not vals:
+            return None
+        if any(k in schema for k in _BOUND_KEYS):
+            return None  # enum ∩ numeric bounds: conjoin semantics, bail
+        t = schema.get("type")
+        if t is not None:
+            # keywords CONJOIN: a sibling type narrows the enum.  Only a
+            # plain scalar type name is narrowed here; a type LIST (or
+            # any other shape — schemas are untrusted) falls back.
+            if not isinstance(t, str):
+                return None
+            chk = {"string": str, "boolean": bool, "null": type(None),
+                   "integer": int, "number": (int, float)}.get(t)
+            if chk is None:
+                return None  # enum under object/array types: bail
+            vals = [v for v in vals
+                    if isinstance(v, chk)
+                    and not (chk is not bool and isinstance(v, bool))]
+            if not vals:
+                return None
+        alts = []
+        for v in vals:
+            if isinstance(v, str):
+                # json.dumps first: quotes/backslashes/control chars must
+                # appear ESCAPED in the emitted JSON, not raw
+                alts.append(_regex_escape(json.dumps(v)))
+            elif isinstance(v, bool):
+                alts.append("true" if v else "false")
+            elif isinstance(v, (int, float)):
+                alts.append(_regex_escape(json.dumps(v)))
+            elif v is None:
+                alts.append("null")
+            else:
+                return None
+        return "(" + "|".join(alts) + ")"
+    if "const" in schema:
+        return json_schema_to_regex(
+            {k: v for k, v in schema.items() if k != "const"}
+            | {"enum": [schema["const"]]}, _depth)
+    for key in ("anyOf", "oneOf"):
+        branches = schema.get(key)
+        if branches is not None:
+            # JSON Schema keywords conjoin: a sibling type/enum/bound next
+            # to anyOf would be DROPPED by a plain union — fall back to the
+            # generic grammar rather than emit a false guarantee.
+            # (Annotation-only siblings are harmless.)
+            sib = set(schema) - {key, "title", "description", "default",
+                                 "examples", "$schema", "$id", "$comment"}
+            if sib:
+                return None
+            if not isinstance(branches, list) or not branches:
+                return None
+            subs = [json_schema_to_regex(b, _depth + 1) for b in branches]
+            if any(s is None for s in subs):
+                return None
+            return "(" + "|".join(subs) + ")"
+    t = schema.get("type")
+    if isinstance(t, list):  # type union == anyOf of the member types
+        if not t:
+            return None
+        subs = [
+            json_schema_to_regex(dict(schema, type=x), _depth + 1) for x in t
+        ]
+        if any(s is None for s in subs):
+            return None
+        return "(" + "|".join(subs) + ")"
+    if t == "string":
+        return _RX_STRING
+    if t == "integer":
+        ok, lo, hi = _schema_int_bounds(schema)
+        if not ok:
+            return None
+        if lo is None and hi is None:
+            return _RX_INT
+        return _int_range_rx(lo, hi)
+    if t == "number":
+        if any(k in schema for k in _BOUND_KEYS):
+            return None  # real-valued bounds can't be regex-enforced
+        return _RX_NUMBER
+    if t == "boolean":
+        return _RX_BOOL
+    if t == "null":
+        return "null"
+    if t == "array":
+        item = json_schema_to_regex(schema.get("items", {}), _depth + 1)
+        if item is None:
+            return None
+        w = _RX_WS
+        return (r"\[" + w + "(" + item + "(" + w + "," + w + item + ")*"
+                + w + r")?\]")
+    if t == "object":
+        props = schema.get("properties")
+        if not isinstance(props, dict) or not props:
+            return None
+        keys = list(props.keys())
+        required = schema.get("required")
+        # historical behaviour: no ``required`` -> emit every property
+        # (always schema-valid).
+        # ``required`` must be a list of strings — anything else in an
+        # untrusted schema falls back rather than raising (or treating a
+        # string as its characters).
+        if required is not None and (
+            not isinstance(required, list)
+            or not all(isinstance(k, str) for k in required)
+        ):
+            return None
+        req_set = set(keys) if required is None else set(required)
+        if not req_set <= set(keys):
+            return None  # a required key with no declared schema
+        if len(keys) - len(req_set) > 5:
+            # the ordered-subsequence expansion below doubles per optional
+            # key; past ~5 the generic JSON grammar is the better tool
+            return None
+        w = _RX_WS
+        pats = []
+        for k in keys:
+            sub = json_schema_to_regex(props[k], _depth + 1)
+            if sub is None:
+                return None
+            pats.append(_regex_escape(json.dumps(k)) + w + ":" + w + sub + w)
+
+        # ordered-subsequence emission: properties appear in declared
+        # order, required ones always, optional ones independently
+        # omittable, commas only between present ones.  suffix(i, emitted)
+        # = pattern for items i.. given whether anything was emitted yet
+        # ("" = epsilon); memoised so shared suffixes are computed once.
+        from functools import lru_cache
+
+        @lru_cache(maxsize=None)
+        def suffix(i: int, emitted: bool) -> str:
+            if i == len(pats):
+                return ""
+            head = ("," + w if emitted else "") + pats[i]
+            with_i = head + suffix(i + 1, True)
+            if keys[i] in req_set:
+                return with_i
+            without = suffix(i + 1, emitted)
+            if without == "":
+                return "(" + with_i + ")?"
+            return "((" + with_i + ")|(" + without + "))"
+
+        return r"\{" + w + suffix(0, False) + r"\}"
+    return None
+
+
+MAX_REGEX_STATES = 2048
+
+
+class RegexError(ValueError):
+    pass
+
+
+def _parse_regex(pattern: str):
+    """Parse a bounded regex subset into an NFA (Thompson construction
+    over BYTES).  Supported: literals (UTF-8, escapes), '.', character
+    classes [a-z0-9_] (ASCII ranges, negation), groups (), alternation |,
+    quantifiers * + ?.  Fullmatch semantics (implicit anchors), matching
+    vLLM's guided_regex.  Unsupported syntax raises RegexError.
+
+    NFA representation: list of nodes; node = (eps: list[int],
+    edges: list[(bool[256], int)]).
+    """
+    # fullmatch semantics: a leading ^ / trailing $ are redundant no-ops
+    # (the common anchored form); anywhere else they are rejected below
+    if pattern.startswith("^"):
+        pattern = pattern[1:]
+    if pattern.endswith("$"):
+        bs_run = len(pattern) - 1 - len(pattern[:-1].rstrip("\\"))
+        if bs_run % 2 == 0:  # even backslashes -> the $ is a real anchor
+            pattern = pattern[:-1]
+
+    eps: list[list[int]] = []
+    edges: list[list] = []
+
+    def new_node() -> int:
+        eps.append([])
+        edges.append([])
+        return len(eps) - 1
+
+    i = 0
+    n = len(pattern)
+
+    def class_endpoint():
+        r"""One class member: returns an ASCII byte, or a mask for \d-style
+        escapes (which cannot anchor a range)."""
+        nonlocal i
+        c = pattern[i]
+        if c == "\\":
+            if i + 1 >= n:
+                raise RegexError("trailing backslash in class")
+            i += 1
+            if pattern[i] == "x":  # \xNN byte escape (class endpoints)
+                if i + 2 >= n:
+                    raise RegexError("truncated \\x escape")
+                try:
+                    b = int(pattern[i + 1:i + 3], 16)
+                except ValueError:
+                    raise RegexError("bad \\x escape")
+                i += 3
+                return b
+            b = _escape_byte(pattern[i])
+            if b is None:
+                if pattern[i] in "DWS":
+                    # char-level complements inside a byte-level class
+                    # would be wrong for multi-byte chars — be loud
+                    raise RegexError(
+                        f"negated class escape \\{pattern[i]} not "
+                        "supported inside [...]"
+                    )
+                m = _class_escape(pattern[i])
+                i += 1
+                return m
+            i += 1
+            return b
+        bs = c.encode("utf-8")
+        if len(bs) != 1:
+            raise RegexError("non-ASCII in character class")
+        i += 1
+        return bs[0]
+
+    def parse_class() -> tuple[np.ndarray, bool]:
+        """Returns (ascii mask, negated?).  Negation is resolved by the
+        caller at the character level (multi-byte chars count)."""
+        nonlocal i
+        assert pattern[i] == "["
+        i += 1
+        mask = np.zeros(256, bool)
+        negate = i < n and pattern[i] == "^"
+        if negate:
+            i += 1
+        first = True
+        while i < n and (pattern[i] != "]" or first):
+            first = False
+            lo = class_endpoint()
+            if isinstance(lo, np.ndarray):
+                mask |= lo
+                continue
+            if i + 1 < n and pattern[i] == "-" and pattern[i + 1] != "]":
+                i += 1
+                hi = class_endpoint()
+                if isinstance(hi, np.ndarray) or hi < lo:
+                    raise RegexError("bad character range in class")
+                mask[lo:hi + 1] = True
+            else:
+                mask[lo] = True
+        if i >= n:
+            raise RegexError("unterminated character class")
+        i += 1  # ']'
+        return mask, negate
+
+    def char_fragment(ascii_mask: np.ndarray):
+        """One CHARACTER matching ascii_mask for single-byte chars plus
+        every multi-byte UTF-8 character — '.' and negated classes are
+        char-level (vLLM semantics), and must never emit lone
+        continuation bytes (invalid UTF-8 output)."""
+        a, b = new_node(), new_node()
+        m = ascii_mask.copy()
+        m[0x80:] = False
+        edges[a].append((m, b))
+
+        def seq(*byte_ranges):
+            cur = a
+            for j, (lo, hi) in enumerate(byte_ranges):
+                nxt = b if j == len(byte_ranges) - 1 else new_node()
+                mm = np.zeros(256, bool)
+                mm[lo:hi + 1] = True
+                edges[cur].append((mm, nxt))
+                cur = nxt
+
+        cont = (0x80, 0xBF)
+        seq((0xC2, 0xDF), cont)
+        seq((0xE0, 0xE0), (0xA0, 0xBF), cont)
+        seq((0xE1, 0xEC), cont, cont)
+        seq((0xED, 0xED), (0x80, 0x9F), cont)
+        seq((0xEE, 0xEF), cont, cont)
+        seq((0xF0, 0xF0), (0x90, 0xBF), cont, cont)
+        seq((0xF1, 0xF3), cont, cont, cont)
+        seq((0xF4, 0xF4), (0x80, 0x8F), cont, cont)
+        return a, b
+
+    def atom():
+        """Returns (start, end) NFA fragment for one atom."""
+        nonlocal i
+        if i >= n:
+            raise RegexError("unexpected end of pattern")
+        c = pattern[i]
+        if c == "(":
+            i += 1
+            frag = alternation()
+            if i >= n or pattern[i] != ")":
+                raise RegexError("unbalanced group")
+            i += 1
+            return frag
+        if c == "[":
+            mask, negate = parse_class()
+            if negate:
+                inv = ~mask
+                inv[:0x09] = False  # raw control noise stays excluded
+                return char_fragment(inv)
+            a, b = new_node(), new_node()
+            edges[a].append((mask, b))
+            return a, b
+        if c == ".":
+            i += 1
+            any_ascii = np.ones(256, bool)
+            any_ascii[ord("\n")] = False
+            return char_fragment(any_ascii)
+        if c == "\\":
+            i += 1
+            if i >= n:
+                raise RegexError("trailing backslash")
+            esc = pattern[i]
+            i += 1
+            byte = _escape_byte(esc)
+            if byte is None:
+                if esc in "DWS":
+                    inv = ~_class_escape(esc.lower())
+                    inv[:0x09] = False
+                    return char_fragment(inv)
+                mask = _class_escape(esc)
+                a, b = new_node(), new_node()
+                edges[a].append((mask, b))
+                return a, b
+            return _literal_bytes(bytes([byte]))
+        if c in ")|*+?{}^$":
+            # {m,n} quantifiers and mid-pattern anchors are unsupported —
+            # reject rather than silently matching literal chars
+            raise RegexError(f"unexpected {c!r}")
+        i += 1
+        return _literal_bytes(c.encode("utf-8"))
+
+    def _literal_bytes(bs: bytes):
+        start = new_node()
+        cur = start
+        for byte in bs:
+            nxt = new_node()
+            mask = np.zeros(256, bool)
+            mask[byte] = True
+            edges[cur].append((mask, nxt))
+            cur = nxt
+        return start, cur
+
+    def piece():
+        nonlocal i
+        a, b = atom()
+        while i < n and pattern[i] in "*+?":
+            q = pattern[i]
+            i += 1
+            s2, e2 = new_node(), new_node()
+            eps[s2].append(a)
+            eps[b].append(e2)
+            if q in "*?":
+                eps[s2].append(e2)
+            if q in "*+":
+                eps[b].append(a)
+            a, b = s2, e2
+        return a, b
+
+    def concat():
+        nonlocal i
+        a, b = piece()
+        while i < n and pattern[i] not in ")|":
+            a2, b2 = piece()
+            eps[b].append(a2)
+            b = b2
+        return a, b
+
+    def alternation():
+        nonlocal i
+        frags = [concat()]
+        while i < n and pattern[i] == "|":
+            i += 1
+            frags.append(concat())
+        if len(frags) == 1:
+            return frags[0]
+        a, b = new_node(), new_node()
+        for fa, fb in frags:
+            eps[a].append(fa)
+            eps[fb].append(b)
+        return a, b
+
+    start, accept = alternation()
+    if i != n:
+        raise RegexError(f"unexpected {pattern[i]!r} at {i}")
+    return eps, edges, start, accept
+
+
+def _escape_byte(c: str):
+    simple = {"n": 0x0A, "t": 0x09, "r": 0x0D, "\\": 0x5C, ".": 0x2E,
+              "(": 0x28, ")": 0x29, "[": 0x5B, "]": 0x5D, "|": 0x7C,
+              "*": 0x2A, "+": 0x2B, "?": 0x3F, "^": 0x5E, "$": 0x24,
+              "{": 0x7B, "}": 0x7D, "/": 0x2F, '"': 0x22, "'": 0x27,
+              "-": 0x2D}
+    if c in simple:
+        return simple[c]
+    if c in "dwsDWS":
+        return None  # class escape
+    if len(c.encode("utf-8")) == 1 and not c.isalnum():
+        return c.encode("utf-8")[0]
+    raise RegexError(f"unsupported escape \\{c}")
+
+
+def _class_escape(c: str) -> np.ndarray:
+    mask = np.zeros(256, bool)
+    if c == "d":
+        mask[ord("0"):ord("9") + 1] = True
+    elif c == "w":
+        mask[ord("0"):ord("9") + 1] = True
+        mask[ord("a"):ord("z") + 1] = True
+        mask[ord("A"):ord("Z") + 1] = True
+        mask[ord("_")] = True
+    elif c == "s":
+        for b in b" \t\n\r\f\v":
+            mask[b] = True
+    else:
+        # D/W/S are resolved by the caller at the character level
+        raise RegexError(f"unsupported class escape \\{c}")
+    return mask
+
+
+def compile_regex_vocab(
+    token_bytes: Sequence[Optional[bytes]],
+    pattern: str,
+    eos_ids: Sequence[int] = (),
+) -> VocabTables:
+    """Tables for "the output fullmatches ``pattern``" (bounded regex
+    subset; see :func:`_parse_regex`).  NFA -> DFA by subset construction,
+    capped at MAX_REGEX_STATES, then composed against the vocab like the
+    choice grammars."""
+    eps, edges, start, accept = _parse_regex(pattern)
+    n_nfa = len(edges)
+    if n_nfa > 8192:
+        # the closure matrix is O(n_nfa^2): bound it loudly (patterns this
+        # large exceed the DFA cap anyway)
+        raise RegexError(f"regex NFA too large ({n_nfa} nodes)")
+
+    # precomputed per-node epsilon closures as a bool matrix: subset states
+    # become bool VECTORS (bytes-keyed), and closure-of-set is one OR-
+    # reduction — Python set/frozenset bookkeeping on large NFAs cost tens
+    # of seconds for enum-style alternations
+    nclo = np.eye(n_nfa, dtype=bool)
+    for node in range(n_nfa):
+        stack = [node]
+        while stack:
+            s0 = stack.pop()
+            for t in eps[s0]:
+                if not nclo[node, t]:
+                    nclo[node, t] = True
+                    stack.append(t)
+
+    # per-node outgoing edges, stacked once: masks [E, 256], targets [E],
+    # source node per edge [E] (sparse — an [n_nfa, E] ownership matrix
+    # costs hundreds of MB at the size cap)
+    edge_masks = []
+    edge_targets = []
+    edge_src = []
+    for s0, elist in enumerate(edges):
+        for mask, t in elist:
+            edge_masks.append(mask)
+            edge_targets.append(t)
+            edge_src.append(s0)
+    edge_masks = (np.stack(edge_masks) if edge_masks
+                  else np.zeros((0, 256), bool))
+    edge_targets = np.asarray(edge_targets, np.int64)
+    edge_src = np.asarray(edge_src, np.int64)
+
+    init_vec = nclo[start].copy()
+    dfa_ids: dict[bytes, int] = {init_vec.tobytes(): 1}  # 0 = DEAD
+    order = [init_vec]
+    accept_flags = {1: bool(init_vec[accept])}
+    delta_rows = {1: np.zeros(256, np.int16)}
+    qi = 0
+    while qi < len(order):
+        cur = order[qi]
+        qi += 1
+        sid = dfa_ids[cur.tobytes()]
+        row = delta_rows[sid]
+        live = cur[edge_src]  # [E] bool: edges leaving this subset
+        if not live.any():
+            continue
+        # [256, E_live] per-byte edge activation -> unique target classes
+        m = edge_masks[live].T  # [256, E_live]
+        tgts = edge_targets[live]
+        uniq, inv = np.unique(m, axis=0, return_inverse=True)
+        for u in range(uniq.shape[0]):
+            hit = tgts[uniq[u]]
+            if hit.size == 0:
+                continue
+            vec = nclo[hit].any(axis=0)
+            key = vec.tobytes()
+            if key not in dfa_ids:
+                if len(dfa_ids) >= MAX_REGEX_STATES:
+                    raise RegexError(
+                        f"regex needs more than {MAX_REGEX_STATES} DFA states"
+                    )
+                dfa_ids[key] = len(dfa_ids) + 1
+                accept_flags[dfa_ids[key]] = bool(vec[accept])
+                delta_rows[dfa_ids[key]] = np.zeros(256, np.int16)
+                order.append(vec)
+            row[inv == u] = dfa_ids[key]
+    n_states = len(dfa_ids) + 1
+    delta = np.zeros((n_states, 256), np.int16)
+    for sid, row in delta_rows.items():
+        delta[sid] = row
+    eos_ok = np.zeros(n_states, bool)
+    terminal_only = np.zeros(n_states, bool)
+    for sid, is_accept in accept_flags.items():
+        if is_accept:
+            eos_ok[sid] = True
+            terminal_only[sid] = not delta[sid].any()
+    return _compose_dfa_vocab(delta, token_bytes, eos_ok, terminal_only,
+                              eos_ids)
+
+
+def _compose_dfa_vocab(
+    delta: np.ndarray,  # [S, 256] int16 byte transitions, DEAD = invalid
+    token_bytes: Sequence[Optional[bytes]],
+    eos_ok: np.ndarray,
+    terminal_only: np.ndarray,
+    eos_ids: Sequence[int],
+) -> VocabTables:
+    """Compose a plain (pushdown-free) byte DFA against the vocab."""
+    v = len(token_bytes)
+    n_states = delta.shape[0]
+    max_len = max((len(t) for t in token_bytes if t), default=1)
+    bmat = np.full((v, max_len), 256, np.int16)
+    for i, tb in enumerate(token_bytes):
+        if tb:
+            bmat[i, : len(tb)] = np.frombuffer(tb, np.uint8)
+    state = np.broadcast_to(
+        np.arange(n_states, dtype=np.int16)[:, None], (n_states, v)
+    ).copy()
+    alive = np.ones((n_states, v), bool)
+    for i, tb in enumerate(token_bytes):
+        if not tb:
+            alive[:, i] = False
+    for col in range(max_len):
+        byte = bmat[:, col]
+        has = byte != 256
+        act = alive & has[None, :]
+        if not act.any():
+            break
+        ns = delta[state, np.where(has, byte, 0).astype(np.int64)[None, :]]
+        alive &= ~(act & (ns == DEAD))
+        state = np.where(alive & has[None, :], ns, state)
+    zeros = np.zeros((n_states, v), np.int8)
+    return VocabTables(
+        next_state=np.where(alive, state, DEAD).astype(np.int16),
+        npops=zeros, popbits=zeros, npush=zeros, pushbits=zeros.copy(),
+        eos_ok=np.asarray(eos_ok, bool),
+        terminal_only=np.asarray(terminal_only, bool),
+        eos_ids=tuple(int(e) for e in eos_ids),
+    )
+
+
+def compose_tables(parts: Sequence[VocabTables]) -> tuple[VocabTables, list[int]]:
+    """Stack several grammars into one table set for mixed-grammar batches.
+
+    Returns (composite, offsets): grammar i's state ``s`` lives at
+    ``s + offsets[i]`` in the composite (DEAD stays 0 and is shared).
+    Rows carry per-request composite state; stack ops are offset-free.
+    """
+    if not parts:
+        raise ValueError("compose_tables needs at least one grammar")
+    v = parts[0].vocab_size
+    eos = parts[0].eos_ids
+    for t in parts:
+        if t.vocab_size != v or t.eos_ids != eos:
+            raise ValueError("grammars must share vocab and eos ids")
+    if len(parts) == 1:
+        return parts[0], [0]
+    offsets: list[int] = []
+    ns_rows, misc = [], {k: [] for k in
+                         ("npops", "popbits", "npush", "pushbits")}
+    eos_ok, term = [], []
+    off = 0
+    for i, t in enumerate(parts):
+        offsets.append(off)
+        if i > 0 and (t.next_state == SENTINEL).any():
+            # the sentinel resolves to the JSON grammar's absolute
+            # AFTER_VALUE ids, which are only correct at offset 0
+            raise ValueError("a pushdown (JSON) grammar must be the first "
+                             "part of a composite")
+        shifted = t.next_state.astype(np.int32)
+        shifted = np.where(shifted > DEAD, shifted + off, shifted)
+        ns_rows.append(shifted)
+        for k in misc:
+            misc[k].append(getattr(t, k))
+        eos_ok.append(t.eos_ok)
+        term.append(t.terminal_only)
+        off += t.n_states
+    if off > np.iinfo(np.int16).max:
+        raise ValueError(f"composite grammar too large ({off} states)")
+    return VocabTables(
+        next_state=np.concatenate(ns_rows).astype(np.int16),
+        npops=np.concatenate(misc["npops"]),
+        popbits=np.concatenate(misc["popbits"]),
+        npush=np.concatenate(misc["npush"]),
+        pushbits=np.concatenate(misc["pushbits"]),
+        eos_ok=np.concatenate(eos_ok),
+        terminal_only=np.concatenate(term),
+        eos_ids=eos,
+    ), offsets
+
+
+
+# --------------------------------------------------------------------------
+# device side (torch) — called inside the decode burst on every device
+
+
+class GrammarTables(NamedTuple):
+    """Device-resident transition tables of one grammar set."""
+
+    next_state: torch.Tensor  # [S, V] int16
+    npops: torch.Tensor       # [S, V] int8
+    popbits: torch.Tensor     # [S, V] int8
+    npush: torch.Tensor       # [S, V] int8
+    pushbits: torch.Tensor    # [S, V] int8
+    eos_ok: torch.Tensor      # [S] bool
+    terminal_only: torch.Tensor  # [S] bool
+    eos_cols: torch.Tensor    # [V] bool
+
+    @property
+    def nbytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self)
+
+
+def device_tables(tables: VocabTables, vocab_size: Optional[int], device) -> GrammarTables:
+    """Upload compiled tables to ``device``, padding/truncating the vocab
+    axis to the model's logit width (tokenizer vocab can differ from model
+    vocab)."""
+    v = vocab_size or tables.vocab_size
+
+    def fit(a: np.ndarray) -> np.ndarray:
+        if a.shape[1] == v:
+            return a
+        out = np.zeros((a.shape[0], v), a.dtype)
+        out[:, : min(v, a.shape[1])] = a[:, :v]
+        return out
+
+    def up(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    eos_cols = np.zeros(v, bool)
+    for e in tables.eos_ids:
+        if 0 <= e < v:
+            eos_cols[e] = True
+    return GrammarTables(
+        next_state=up(fit(tables.next_state)),
+        npops=up(fit(tables.npops)),
+        popbits=up(fit(tables.popbits)),
+        npush=up(fit(tables.npush)),
+        pushbits=up(fit(tables.pushbits)),
+        eos_ok=up(tables.eos_ok),
+        terminal_only=up(tables.terminal_only),
+        eos_cols=up(eos_cols),
+    )
+
+
+def grammar_mask(logits: torch.Tensor, gt: GrammarTables, jrows: torch.Tensor,
+                 state: torch.Tensor, depth: torch.Tensor, stack: torch.Tensor) -> torch.Tensor:
+    """Mask invalid-next-token logits for grammar-constrained rows.
+
+    logits [B, V] f32; jrows [B] bool (row uses the grammar); state/depth/
+    stack [B] int32.  Gathers at each row's state, then int32 bit
+    arithmetic; nothing here synchronises with the device."""
+    s = state.long()
+    ns = gt.next_state[s]                        # [B, V] int16
+    np_ = gt.npops[s].to(torch.int32)
+    nq = gt.npush[s].to(torch.int32)
+    pb = gt.popbits[s].to(torch.int32)
+    d = depth.to(torch.int32)[:, None]
+    st = stack.to(torch.int32)[:, None]
+    rem = (d - np_).clamp_min(0)
+    ok = (ns != DEAD) & (np_ <= d)
+    ok &= ((st >> rem) & ((1 << np_) - 1)) == pb
+    ok &= rem + nq <= MAX_DEPTH
+    ok &= ~gt.terminal_only[s][:, None]
+    ok = torch.where(gt.eos_cols[None, :], gt.eos_ok[s][:, None], ok)
+    return torch.where(jrows[:, None] & ~ok, -1e30, logits)
+
+
+def grammar_advance(gt: GrammarTables, jrows: torch.Tensor, state: torch.Tensor,
+                    depth: torch.Tensor, stack: torch.Tensor, sampled: torch.Tensor):
+    """Advance each constrained row's (state, depth, stack) by its sampled
+    token (gathers on the device; mirrors :meth:`VocabTables.advance`).
+    Returns int32 (state, depth, stack)."""
+    s, t = state.long(), sampled.long()
+    ns = gt.next_state[s, t].to(torch.int32)
+    np_ = gt.npops[s, t].to(torch.int32)
+    nq = gt.npush[s, t].to(torch.int32)
+    qb = gt.pushbits[s, t].to(torch.int32)
+    depth, stack = depth.to(torch.int32), stack.to(torch.int32)
+    d1 = (depth - np_).clamp(0, MAX_DEPTH)
+    stack1 = (stack & ((1 << d1) - 1)) | (qb << d1)
+    depth1 = (d1 + nq).clamp(0, MAX_DEPTH + MAX_TOKEN_OPS)
+    exposed = (stack1 >> (depth1 - 1).clamp_min(0)) & 1
+    in_obj = torch.where(exposed == SYM_OBJ, AFTER_VALUE["O"], AFTER_VALUE["A"])
+    resolved = torch.where(depth1 == 0, AFTER_VALUE["T"], in_obj).to(torch.int32)
+    ns = torch.where(ns == SENTINEL, resolved, ns)
+    upd = jrows & ~gt.eos_cols[t]
+    return (
+        torch.where(upd, ns, state.to(torch.int32)),
+        torch.where(upd, depth1, depth),
+        torch.where(upd, stack1, stack),
+    )
+
+
+class JsonGrammar:
+    """Facade: compile once per tokenizer, share across requests.  Keeps
+    the token byte map so per-request choice grammars (guided_choice)
+    compile against the same vocab."""
+
+    def __init__(self, tables: VocabTables,
+                 token_bytes: Optional[Sequence[Optional[bytes]]] = None):
+        self.tables = tables
+        self.token_bytes = list(token_bytes) if token_bytes is not None else None
+
+    @classmethod
+    def from_tokenizer(cls, tokenizer, eos_ids: Sequence[int] = ()) -> "JsonGrammar":
+        tb = token_bytes_map(tokenizer)
+        return cls(compile_vocab(tb, eos_ids), tb)
+
+    @classmethod
+    def from_token_bytes(
+        cls, token_bytes: Sequence[Optional[bytes]], eos_ids: Sequence[int] = ()
+    ) -> "JsonGrammar":
+        return cls(compile_vocab(token_bytes, eos_ids), token_bytes)
+
+    @staticmethod
+    def validate(text: str) -> bool:
+        try:
+            json.loads(text)
+            return True
+        except Exception:
+            return False

@@ -6,6 +6,7 @@ import enum
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
+from dynamo_tpu_torch.engine.grammar import INIT_STATE
 from dynamo_tpu_torch.llm.protocols import (
     FinishReason,
     LLMEngineOutput,
@@ -15,11 +16,6 @@ from dynamo_tpu_torch.llm.protocols import (
 from dynamo_tpu_torch.tokens import TokenBlockSequence
 
 __all__ = ["RequestState", "EngineRequest", "INIT_STATE"]
-
-# initial state of the JSON-mode grammar automaton (the ``EXPECT_VALUE``
-# state of the top-level context); constrained decoding is not ported yet,
-# the field keeps the request's shape
-INIT_STATE = 1
 
 
 class RequestState(enum.Enum):

@@ -12,11 +12,14 @@ Logprobs are log-softmax over the *penalised* logits (temperature- and
 top-k/p-independent): the chosen token's logprob plus the candidate set's
 ids/logprobs for top_logprobs slicing on the host.
 
-Randomness is Gumbel noise drawn from the caller's ``torch.Generator`` (the
-engine owns one, seeded from ``EngineConfig.seed``).  ``torch.Generator``
-and ``jax.random`` draw different bits, so sampled streams at temperature >
-0 differ from the JAX engine's; greedy rows are deterministic.  Per-request
-``seed`` streams are not ported: the engine refuses such requests.
+Randomness is Gumbel noise.  An unseeded row's is drawn from the caller's
+``torch.Generator`` (the engine owns one, seeded from ``EngineConfig.seed``);
+``torch.Generator`` and ``jax.random`` draw different bits, so those rows'
+streams at temperature > 0 differ from the JAX engine's.  A row with a
+per-request ``seed`` (OpenAI ``seed``) draws its noise from
+:func:`seeded_gumbel`, a pure function of (seed, position, token id) that
+reproduces the JAX engine's ``jax.random`` draw bit for bit, so seeded
+streams match the JAX engine's as greedy streams do.
 """
 
 from __future__ import annotations
@@ -25,7 +28,59 @@ import torch
 
 K_MAX = 64
 
-__all__ = ["sample_full", "K_MAX"]
+__all__ = ["sample_full", "seeded_uniform", "seeded_gumbel", "K_MAX"]
+
+_M32 = 0xFFFFFFFF
+_THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_TINY = torch.finfo(torch.float32).tiny
+
+
+def _threefry2x32(k0, k1, x0, x1):
+    """Threefry-2x32 (20 rounds) of the counter words (x0, x1) under the
+    key words (k0, k1), as ``jax.random``'s threefry PRNG computes it.
+    Every word is an int64 tensor holding an unsigned 32-bit value (torch's
+    uint32 support is partial), masked back to 32 bits after each add and
+    shift; the four broadcast together."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + k0) & _M32
+    x1 = (x1 + k1) & _M32
+    for i in range(5):
+        for r in _THREEFRY_ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = x0 ^ (((x1 << r) & _M32) | (x1 >> (32 - r)))
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return x0, x1
+
+
+def seeded_uniform(seeds: torch.Tensor, steps: torch.Tensor,
+                   token_ids: torch.Tensor) -> torch.Tensor:
+    """[B, K] f32 uniforms in [tiny, 1): for row b and candidate k, the draw
+    ``jax.random.uniform(fold_in(fold_in(PRNGKey(seeds[b]), steps[b]),
+    token_ids[b, k]), minval=tiny, maxval=1)``, bit for bit.
+
+    ``PRNGKey(s)`` is the key (0, s) for a seed in [0, 2**31); ``fold_in(key,
+    x)`` is threefry of the counter (0, x) under ``key``; a scalar draw is
+    ``hi ^ lo`` of threefry at counter (0, 0), which is the partitionable
+    form that JAX >= 0.5 uses by default (``jax_threefry_partitionable``;
+    older releases such as 0.4.37 default to the other form and draw other
+    bits).  The top 23 bits fill an f32 mantissa in [1, 2), minus 1, then
+    the affine map to [tiny, 1)."""
+    seed = seeds.long()[:, None] & 0x7FFFFFFF
+    zero = torch.zeros_like(seed)
+    k0, k1 = _threefry2x32(zero, seed, zero, steps.long()[:, None] & _M32)
+    k0, k1 = _threefry2x32(k0, k1, zero, token_ids.long() & _M32)
+    hi, lo = _threefry2x32(k0, k1, zero, zero)
+    mant = ((hi ^ lo) >> 9) | 0x3F800000
+    u = mant.to(torch.int32).view(torch.float32) - 1.0
+    return (u * (1.0 - _TINY) + _TINY).clamp_min(_TINY)
+
+
+def seeded_gumbel(seeds: torch.Tensor, steps: torch.Tensor,
+                  token_ids: torch.Tensor) -> torch.Tensor:
+    """[B, K] Gumbel noise ``-log(-log(u))`` of :func:`seeded_uniform`: the
+    JAX engine's seeded noise for (seed, position, token id)."""
+    return -torch.log(-torch.log(seeded_uniform(seeds, steps, token_ids)))
 
 
 def _scatter_add_rows(logits: torch.Tensor, tokens: torch.Tensor,
@@ -68,6 +123,9 @@ def sample_full(
     bias_tokens: torch.Tensor | None = None,  # [B, Nb] int32 (-1 pad)
     bias_vals: torch.Tensor | None = None,    # [B, Nb] f32
     min_p: torch.Tensor | None = None,        # [B] f32; 0 → disabled
+    seeds: torch.Tensor | None = None,        # [B] int32 per-request seeds
+    seed_rows: torch.Tensor | None = None,    # [B] bool — row uses its seed
+    seed_steps: torch.Tensor | None = None,   # [B] int32 fold index (position)
     *,
     k_cand: int = K_MAX,
     gumbel: torch.Tensor | None = None,       # [B, k_cand] noise; drawn when None
@@ -78,7 +136,9 @@ def sample_full(
 
     ``gumbel`` lets a test feed the same noise to this sampler and to the
     JAX one; the engine leaves it None and the noise comes from
-    ``generator``.  Nothing here synchronises with the device."""
+    ``generator``.  Seeded rows (``seed_rows``) take :func:`seeded_gumbel`
+    noise instead, keyed by the candidate's token id, so their streams do
+    not depend on the batch.  Nothing here synchronises with the device."""
     b, v = logits.shape
     k_cand = min(k_cand, v)
     logits = logits.float()
@@ -114,12 +174,28 @@ def sample_full(
         # max_prob; the first (max) candidate always survives
         keep = keep & (probs >= min_p[:, None] * probs[:, :1])
 
+    if seeds is not None:
+        # a seeded row's whole pipeline (softmax normalisation, top-p
+        # cutoff, min-p floor) runs over the true top-K_MAX, so a companion
+        # widening k_cand cannot shift its kept set: a seeded request's
+        # effective top_k caps at K_MAX
+        kb = keep_base & (rank < min(K_MAX, k_cand))
+        probs_s = torch.softmax(torch.where(kb, scaled, float("-inf")), dim=-1)
+        cum_s = torch.cumsum(probs_s, dim=-1)
+        keep_s = kb & ((cum_s - probs_s) < top_p[:, None])
+        if min_p is not None:
+            keep_s = keep_s & (probs_s >= min_p[:, None] * probs_s[:, :1])
+        keep = torch.where(seed_rows[:, None], keep_s, keep)
+
     masked = torch.where(keep, scaled, float("-inf"))
     if gumbel is None:
-        tiny = torch.finfo(torch.float32).tiny
         u = torch.rand((b, k_cand), generator=generator, device=logits.device,
                        dtype=torch.float32)
-        gumbel = -torch.log(-torch.log(u.clamp_(min=tiny)))
+        gumbel = -torch.log(-torch.log(u.clamp_(min=_TINY)))
+    if seeds is not None:
+        # keyed by TOKEN ID, not candidate rank: the stream is the same
+        # across runs, burst boundaries and batch compositions
+        gumbel = torch.where(seed_rows[:, None], seeded_gumbel(seeds, seed_steps, idx), gumbel)
     choice_sampled = torch.argmax(masked + gumbel, dim=-1)
     choice = torch.where(greedy, 0, choice_sampled)  # top-k output is sorted
     sampled = torch.gather(idx, 1, choice[:, None])[:, 0]

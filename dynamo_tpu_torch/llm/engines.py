@@ -80,4 +80,9 @@ def build_serving_pipeline(
 ) -> AsyncEngine:
     """frontend-ready pipeline: ParsedRequest → preprocess → engine → detok."""
     pre = OpenAIPreprocessor(card, tokenizer)
+    # constrained decoding: the core compiles grammar tables from this
+    # tokenizer lazily on the first constrained request
+    core = getattr(engine, "core", None)
+    if core is not None and hasattr(core, "attach_grammar_tokenizer"):
+        core.attach_grammar_tokenizer(pre.tokenizer, card.eos_token_ids)
     return build_pipeline(engine, pre, Backend(pre.tokenizer))

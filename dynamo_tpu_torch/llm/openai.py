@@ -4,10 +4,9 @@ Covers /v1/chat/completions and /v1/completions (streaming and unary),
 including the ``nvext`` extension fields (ignore_eos, annotations), which
 are accepted under both "nvext" and "ext" keys.  The counterpart of
 ``dynamo_tpu/llm/openai.py``: the same validation, messages and bodies.
-Two request fields need the grammar compiler, which is not ported yet
-(``engine/grammar.py``): a ``json_schema`` response format and
-``guided_regex`` are refused with a 400 here, where the JAX package
-validates and enforces them.
+A ``json_schema`` response format is translated to a schema regex and a
+``guided_regex`` is parsed here (``engine/grammar.py``), so a bad pattern
+is a 400 rather than an engine error.
 """
 
 from __future__ import annotations
@@ -169,8 +168,16 @@ def parse_request(body: dict, chat: bool) -> ParsedRequest:
             js = rf.get("json_schema")
             _require(isinstance(js, dict) and isinstance(js.get("schema"), dict),
                      "'response_format.json_schema.schema' is required")
-            raise OpenAIError("'json_schema' response_format is not supported by "
-                              "this server yet (no schema grammar compiler)")
+            req.response_format = rft
+            req.json_schema = js
+            # enforce the schema's SHAPE when it translates to the bounded
+            # regex engine; otherwise the generic JSON grammar and the
+            # preprocessor's schema instruction apply
+            from dynamo_tpu_torch.engine.grammar import json_schema_to_regex
+
+            req.schema_regex = json_schema_to_regex(js["schema"])
+            if req.schema_regex and len(req.schema_regex) > 4096:
+                req.schema_regex = None  # generic JSON grammar instead
         elif rft == "json_object":
             req.response_format = rft
 
@@ -199,8 +206,12 @@ def parse_request(body: dict, chat: bool) -> ParsedRequest:
         _require(rf is None and guided_choice is None,
                  "'guided_regex' cannot be combined with 'response_format' "
                  "or 'guided_choice'")
-        raise OpenAIError("'guided_regex' is not supported by this server yet "
-                          "(no regex grammar compiler)")
+        from dynamo_tpu_torch.engine.grammar import RegexError, _parse_regex
+
+        try:
+            _parse_regex(guided_regex)
+        except RegexError as e:
+            raise OpenAIError(f"'guided_regex': {e}")
 
     req.sampling = SamplingOptions(
         temperature=1.0 if temperature is None else float(temperature),
@@ -209,12 +220,15 @@ def parse_request(body: dict, chat: bool) -> ParsedRequest:
         min_p=min_p,
         logit_bias=logit_bias or None,
         guided_choice=guided_choice,
-        guided_regex=None,
+        guided_regex=guided_regex or req.schema_regex,
         seed=seed,
         frequency_penalty=freq_pen,
         presence_penalty=pres_pen,
         logprobs=want_lp,
         top_logprobs=top_lp,
+        # json_mode stays set alongside a schema regex: the engine prefers
+        # the regex grammar and falls back to generic JSON if its DFA
+        # exceeds the cap
         json_mode=req.response_format is not None,
     )
 

@@ -10,6 +10,7 @@ the same token ids for the same request.
 
 from __future__ import annotations
 
+import json
 from typing import Optional
 
 from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
@@ -132,6 +133,18 @@ class OpenAIPreprocessor(Operator):
                     }
                 ] + list(messages)
                 tools = None
+            if parsed.response_format == "json_schema" and parsed.json_schema:
+                # the grammar guarantees *syntactic* JSON; steer the model
+                # toward the schema's shape with an injected instruction
+                schema = parsed.json_schema.get("schema", {})
+                messages = [
+                    {
+                        "role": "system",
+                        "content": "Respond ONLY with a JSON value matching "
+                        "this JSON Schema:\n"
+                        + json.dumps(schema, indent=2),
+                    }
+                ] + list(messages)
             prompt = self.formatter.render(messages, tools=tools)
             # a template that already emitted BOS must not get a second
             # one from the tokenizer's special-token post-processor

@@ -17,7 +17,9 @@ shared), f32 on both sides, the same seeded numpy inputs:
   the same greedy token as the f32 cache;
 * ``EngineCore`` greedy streams token-identical to the JAX engine's with an
   f32 cache, an int8 cache, and ``prefill_token_budget`` (which this family
-  serves on the per-request path in both packages);
+  serves on the per-request path in both packages), and JSON-mode, choice,
+  regex and seeded streams on a 2-layer model identical to the JAX
+  engine's;
 * ``deepseek_params_from_jax`` carries the JAX init tree over exactly and
   refuses a wrong name or shape; ``deepseek_init_params`` draws the same
   names, shapes and spread.
@@ -350,6 +352,68 @@ def test_engine_streams_match_jax(engine_models, config):
         # one request per prefill dispatch: "long" (48) and "a" (35) in two
         # chunks of up to 32 each, "short" in one, "b" past its cached prefix in one
         assert pm["prefill_dispatches_total"] == 6
+
+
+def _grammar_specs():
+    """(id, prompt, sampling options, max_tokens): JSON mode greedy and
+    seeded, a seeded choice, a greedy regex and a seeded free row."""
+    rng = np.random.RandomState(11)
+    p = lambda n: [int(v) for v in rng.randint(3, 96, size=n)]  # noqa: E731
+    return [("json", p(20), dict(temperature=0.0, json_mode=True), 12),
+            ("json_s", p(9), dict(temperature=1.0, seed=5, json_mode=True), 12),
+            ("choice", p(14), dict(temperature=1.0, seed=9, guided_choice=["yes", "no"]), 6),
+            ("regex", p(6), dict(temperature=0.0, guided_regex=r"[0-9][0-9]?-[a-z]+"), 8),
+            ("free", p(11), dict(temperature=0.8, seed=3, top_p=0.9), 10)]
+
+
+def _grammar_run(core, request_cls, proto, specs):
+    outs = {rid: [] for rid, *_ in specs}
+    for rid, prompt, sampling, n in specs:
+        core.submit(request_cls(request_id=rid, prompt=prompt,
+                                sampling=proto.SamplingOptions(**sampling),
+                                stops=proto.StopConditions(max_tokens=n), emit=outs[rid].append))
+    for _ in range(1000):
+        if not core.step():
+            break
+    return {rid: ([t for o in v for t in o.token_ids], v[-1].finish_reason.value)
+            for rid, v in outs.items()}
+
+
+# ids 3..95 are the printable bytes '!'..'}' (JSON needs no whitespace)
+GRAMMAR_TOKENS = [None] * 3 + [bytes([c]) for c in range(33, 126)]
+
+
+@pytest.fixture(scope="module")
+def grammar_refs():
+    """A 2-layer model (one dense layer, one MoE layer) and the JAX
+    engine's streams of ``_grammar_specs``, made once."""
+    from dynamo_tpu.engine.grammar import JsonGrammar as JaxJsonGrammar
+
+    jcfg, cfg = _configs(num_hidden_layers=2)
+    tree = _perturbed_tree(jcfg, 6)
+    jcore = JaxEngineCore(jds.DeepseekModel(jcfg), jax.tree.map(jnp.asarray, tree),
+                          JaxEngineConfig(**BASE), eos_token_ids=[EOS],
+                          grammar=JaxJsonGrammar.from_token_bytes(GRAMMAR_TOKENS, [EOS]))
+    try:
+        ref = _grammar_run(jcore, JaxEngineRequest, jax_protocols, _grammar_specs())
+    finally:
+        jcore.close()
+    return _port(cfg, tree), ref
+
+
+def test_grammar_and_seeded_streams_match_jax(grammar_refs):
+    """DeepSeek's per-request path serves constrained and seeded requests:
+    the same tokens and finish reasons as the JAX engine."""
+    from dynamo_tpu_torch.engine.grammar import JsonGrammar
+
+    model, ref = grammar_refs
+    core = EngineCore(model, EngineConfig(**BASE), eos_token_ids=[EOS], device="cpu",
+                      grammar=JsonGrammar.from_token_bytes(GRAMMAR_TOKENS, [EOS]))
+    out = _grammar_run(core, EngineRequest, protocols, _grammar_specs())
+    assert out == ref
+    assert all(reason != "error" for _, reason in out.values())
+    if out["choice"][1] == "eos":
+        assert b"".join(GRAMMAR_TOKENS[t] for t in out["choice"][0][:-1]) in (b"yes", b"no")
 
 
 # --------------------------------------------------------------- parameters

@@ -2,8 +2,9 @@
 
 * model card: ``from_hf_dir`` dicts and ``mdcsum`` equal;
 * ``parse_request``: the parsed fields, or the error status and body, equal
-  over a table of request bodies (the grammar-backed ``json_schema`` and
-  ``guided_regex`` fields are refused by the port with a 400);
+  over a table of request bodies (``json_schema`` response formats that
+  translate to a schema regex, that do not, or whose regex is over the
+  4,096-character cap; good and bad ``guided_regex`` patterns);
 * the preprocessor: rendered prompts and token ids equal for completions,
   token-id prompts, chats, tool injection and the chat-template cases of
   ``tests/test_chat_templates.py``;
@@ -18,7 +19,12 @@
   engine families are the served engine's own counters;
 * an engine's own ``prefill_counters`` and ``lookahead_counters`` equal
   the JAX package's process-global pair after the same default-path and
-  token-budget engine runs.
+  token-budget engine runs;
+* constrained and seeded requests over HTTP on a byte-level tokenizer:
+  both packages' services give the same bodies for a ``json_object`` chat,
+  a ``json_schema`` chat, ``guided_regex`` and ``guided_choice``
+  completions and a seeded completion, and the JSON answers parse (or,
+  cut at max_tokens, are a prefix the JSON grammar accepts).
 """
 
 import asyncio
@@ -147,6 +153,16 @@ def test_card_from_hf_dir_matches_jax(tmp_path, tokenizer_file):
 TOOLS = [{"type": "function", "function": {"name": "get_weather", "description": "weather",
                                            "parameters": {"type": "object"}}}]
 CHAT = [{"role": "user", "content": "w7 w8"}]
+SCHEMA = {"type": "object", "properties": {"ok": {"type": "boolean"}, "n": {"type": "integer"}},
+          "required": ["ok", "n"]}
+# translates, but to a regex over the 4,096-character cap
+LONG_SCHEMA = {"type": "string", "enum": ["x" * 200 + str(i) for i in range(30)]}
+
+
+def _schema_format(schema):
+    return {"type": "json_schema", "json_schema": {"name": "r", "schema": schema}}
+
+
 REQUEST_BODIES = [
     (False, {"model": "m", "prompt": "w7 w8"}),
     (False, {"model": "m", "prompt": [7, 8, 9], "max_tokens": 4, "echo": True}),
@@ -208,6 +224,21 @@ REQUEST_BODIES = [
     (True, {"model": "m", "messages": CHAT, "top_logprobs": 4}),
     (True, {"model": "m", "messages": CHAT, "logprobs": True, "top_logprobs": 25}),
     (True, {"model": "m", "messages": CHAT, "response_format": {"type": "json_schema"}}),
+    (True, {"model": "m", "messages": CHAT, "response_format": _schema_format(SCHEMA)}),
+    (True, {"model": "m", "messages": CHAT,
+            "response_format": _schema_format({"type": "object"})}),
+    (True, {"model": "m", "messages": CHAT, "response_format": _schema_format(LONG_SCHEMA)}),
+    (True, {"model": "m", "messages": CHAT,
+            "response_format": _schema_format({"type": "integer", "minimum": "5"})}),
+    (True, {"model": "m", "messages": CHAT,
+            "response_format": {"type": "json_schema", "json_schema": {"schema": [1]}}}),
+    (True, {"model": "m", "messages": CHAT, "response_format": {
+        "type": "json_schema", "json_schema": {"schema": {"type": "object"}}}}),
+    (False, {"model": "m", "prompt": "x", "guided_regex": "[a-z]+"}),
+    (False, {"model": "m", "prompt": "x", "guided_regex": r"(up|down) [0-9][0-9]?%"}),
+    (False, {"model": "m", "prompt": "x", "guided_regex": "(unclosed"}),
+    (False, {"model": "m", "prompt": "x", "guided_regex": "a{2,5}"}),
+    (False, {"model": "m", "prompt": "x", "guided_regex": 5}),
     (True, {"model": "m", "messages": CHAT, "response_format": {"type": "json_object"},
             "guided_choice": ["a"]}),
 ]
@@ -226,19 +257,17 @@ def test_parse_request_matches_jax(i):
     assert _parse(openai, body, chat) == _parse(jax_openai, body, chat)
 
 
-@pytest.mark.parametrize("chat, body", [
-    (True, {"model": "m", "messages": CHAT, "response_format": {
-        "type": "json_schema", "json_schema": {"schema": {"type": "object"}}}}),
-    (False, {"model": "m", "prompt": "x", "guided_regex": "[a-z]+"}),
-])
-def test_grammar_fields_are_refused(chat, body):
-    """The JAX package compiles these into a grammar; the port has no
-    grammar compiler yet, so it answers 400 instead of serving them
-    unconstrained."""
-    assert jax_openai.parse_request(body, chat=chat)
-    with pytest.raises(openai.OpenAIError, match="not supported") as e:
-        openai.parse_request(body, chat=chat)
-    assert e.value.status == 400
+def test_schema_fields_parse_as_in_jax():
+    """The schema regex rides ``guided_regex`` with ``json_mode`` kept as
+    the engine's fallback; an untranslatable or over-long schema leaves
+    the generic JSON grammar."""
+    for schema, translated in ((SCHEMA, True), ({"type": "object"}, False),
+                               (LONG_SCHEMA, False)):
+        req = openai.parse_request({"model": "m", "messages": CHAT,
+                                    "response_format": _schema_format(schema)}, chat=True)
+        assert req.sampling.json_mode and req.json_schema["schema"] == schema
+        assert (req.schema_regex is not None) == translated
+        assert req.sampling.guided_regex == req.schema_regex
 
 
 # ------------------------------------------------------------ preprocessor
@@ -253,6 +282,8 @@ PRE_CASES = [
     (True, {"model": "m", "messages": CHAT, "tools": TOOLS, "tool_choice": "required",
             "nvext": {"annotations": ["formatted_prompt"]}}),
     (True, {"model": "m", "messages": CHAT, "tools": TOOLS, "tool_choice": "none"}),
+    (True, {"model": "m", "messages": CHAT, "response_format": _schema_format(SCHEMA),
+            "nvext": {"annotations": ["formatted_prompt"]}}),
 ]
 TEMPLATES = {
     "default": (None, None, None),
@@ -475,11 +506,12 @@ async def _serve(service_cls, manager_cls, pipeline, card, reqs, **svc_kw):
         await svc.stop()
 
 
-def _served_by_jax(jmodel, jparams, tokenizer_file, reqs):
-    core = JaxEngineCore(jmodel, jparams, JaxEngineConfig(**ENGINE), eos_token_ids=[EOS])
+def _served_by_jax(jmodel, jparams, tokenizer_file, reqs, engine=ENGINE):
+    core = JaxEngineCore(jmodel, jparams, JaxEngineConfig(**engine), eos_token_ids=[EOS])
     eng = JaxAsyncLLMEngine(core).start()
     card = jax_card.ModelDeploymentCard(name=MODEL, tokenizer_path=tokenizer_file,
-                                        context_length=128, eos_token_ids=[EOS])
+                                        context_length=engine["max_model_len"],
+                                        eos_token_ids=[EOS])
     try:
         return _run(_serve(JaxHttpService, JaxModelManager,
                            jax_engines.build_serving_pipeline(eng, card), card, reqs))
@@ -487,11 +519,12 @@ def _served_by_jax(jmodel, jparams, tokenizer_file, reqs):
         eng.shutdown()
 
 
-def _served_by_port(model, tokenizer_file, reqs):
-    core = EngineCore(model, EngineConfig(**ENGINE), eos_token_ids=[EOS], device="cpu")
+def _served_by_port(model, tokenizer_file, reqs, engine=ENGINE):
+    core = EngineCore(model, EngineConfig(**engine), eos_token_ids=[EOS], device="cpu")
     eng = AsyncLLMEngine(core).start()
     card = model_card.ModelDeploymentCard(name=MODEL, tokenizer_path=tokenizer_file,
-                                          context_length=128, eos_token_ids=[EOS])
+                                          context_length=engine["max_model_len"],
+                                          eos_token_ids=[EOS])
     try:
         return _run(_serve(HttpService, ModelManager,
                            engines.build_serving_pipeline(eng, card), card, reqs, core=core))
@@ -689,3 +722,106 @@ def test_engine_counters_match_jax(jax_counter_runs, run):
     assert out[0]["dispatches_total"] > 0
     if run == "token-budget":
         assert out[0]["unified_dispatches_total"] > 0 and out[1]["bursts_total"] > 0
+
+
+# ------------------------------------------ constrained and seeded, HTTP
+BYTE_VOCAB = 320
+# one token per byte: the chat template and the schema instruction take
+# several hundred
+BYTE_ENGINE = dict(ENGINE, max_model_len=1024, num_blocks=160,
+                   prefill_buckets=[64, 128, 256, 512, 1024])
+
+
+@pytest.fixture(scope="module")
+def byte_tokenizer_file(tmp_path_factory):
+    """A byte-level BPE with no merges: three specials, then the 256 bytes
+    in GPT-2's printable alphabet (id 3 + byte), so every text is one token
+    per byte and ``token_bytes_map`` sees real bytes."""
+    from tokenizers import Tokenizer, decoders, models, pre_tokenizers
+
+    from dynamo_tpu_torch.engine.grammar import _gpt2_unicode_to_bytes
+
+    vocab = {"<unk>": 0, "<s>": 1, "</s>": 2}
+    vocab.update({ch: 3 + b for ch, b in _gpt2_unicode_to_bytes().items()})
+    tk = Tokenizer(models.BPE(vocab=vocab, merges=[], unk_token="<unk>"))
+    tk.pre_tokenizer = pre_tokenizers.ByteLevel(add_prefix_space=False)
+    tk.decoder = decoders.ByteLevel()
+    tk.add_special_tokens(["<s>", "</s>"])
+    path = tmp_path_factory.mktemp("bytetok") / "tokenizer.json"
+    tk.save(str(path))
+    return str(path)
+
+
+def _grammar_requests():
+    chat = [{"role": "user", "content": "Give me a JSON object."}]
+    c = {"model": MODEL, "prompt": "Phone: ", "max_tokens": 12}
+    return [
+        ("POST", "/v1/chat/completions", {"model": MODEL, "messages": chat, "max_tokens": 24,
+                                          "response_format": {"type": "json_object"},
+                                          **GREEDY}, {}),
+        ("POST", "/v1/chat/completions", {"model": MODEL, "messages": chat, "max_tokens": 24,
+                                          "response_format": _schema_format(SCHEMA), **GREEDY},
+         {}),
+        ("POST", "/v1/completions", {**c, "guided_regex": "[0-9][0-9][0-9]-[0-9][0-9]",
+                                     **GREEDY}, {}),
+        ("POST", "/v1/completions", {**c, "guided_choice": ["red", "green"], "temperature": 1.0,
+                                     "seed": 4}, {}),
+        ("POST", "/v1/completions", {**c, "temperature": 0.9, "seed": 11}, {}),
+        ("POST", "/v1/completions", {**c, "temperature": 0.9, "seed": 11, "stream": True}, {}),
+        ("POST", "/v1/completions", {**c, "guided_regex": "(bad"}, {}),
+    ]
+
+
+@pytest.fixture(scope="module")
+def served_grammar(byte_tokenizer_file):
+    """``_grammar_requests`` answered by each package's service over one
+    tiny f32 model: (JAX answers, port answers)."""
+    jmodel = JaxLlamaModel(JaxModelConfig.tiny(vocab_size=BYTE_VOCAB))
+    jparams = jmodel.init_params(jax.random.PRNGKey(1))
+    cfg = ModelConfig.tiny(vocab_size=BYTE_VOCAB)
+    model = LlamaModel.from_state(cfg, params_from_jax(jax.tree.map(np.asarray, jparams), cfg,
+                                                       device="cpu"))
+    reqs = _grammar_requests()
+    ref, _ = _served_by_jax(jmodel, jparams, byte_tokenizer_file, reqs, BYTE_ENGINE)
+    out, _ = _served_by_port(model, byte_tokenizer_file, reqs, BYTE_ENGINE)
+    return ref, out
+
+
+@pytest.mark.parametrize("i", range(len(_grammar_requests())))
+def test_http_constrained_and_seeded_match_jax(served_grammar, i):
+    ref, out = served_grammar
+    (status, _, ctype, body), (jstatus, _, jctype, jbody) = out[i], ref[i]
+    assert (status, ctype) == (jstatus, jctype)
+    _close(_strip(body), _strip(jbody))
+
+
+def test_http_json_answers_are_json(served_grammar):
+    """A ``json_object`` chat answers JSON — or, stopped at max_tokens, a
+    prefix the JSON grammar accepts byte by byte; the schema chat's answer
+    has the schema's shape; the seeded completion repeats itself."""
+    import re
+
+    from dynamo_tpu_torch.engine.grammar import INIT_STATE, compile_vocab, json_schema_to_regex
+
+    _, out = served_grammar
+    tables = compile_vocab([bytes([b]) for b in range(256)], eos_ids=[])
+    for i in (0, 1):
+        assert "choices" in out[i][3], out[i]
+        choice = out[i][3]["choices"][0]
+        text = choice["message"]["content"]
+        if choice["finish_reason"] == "stop":
+            json.loads(text)
+        else:
+            assert choice["finish_reason"] == "length"
+            s, d, st = INIT_STATE, 0, 0
+            for b in text.encode():
+                assert tables.valid_mask(s, d, st)[b], text
+                s, d, st = tables.advance(s, d, st, b)
+    schema_text = out[1][3]["choices"][0]["message"]["content"]
+    if out[1][3]["choices"][0]["finish_reason"] == "stop":
+        assert re.fullmatch(json_schema_to_regex(SCHEMA), schema_text)
+    assert re.fullmatch("[0-9][0-9][0-9]-[0-9][0-9]", out[2][3]["choices"][0]["text"])
+    assert out[3][3]["choices"][0]["text"] in ("red", "green")
+    streamed = "".join(e["choices"][0]["text"] for e in out[5][3] if e != "[DONE]")
+    assert streamed == out[4][3]["choices"][0]["text"]
+    assert out[6][0] == 400

@@ -8,8 +8,17 @@ top-p, min-p — shows up as the same sampled token.  The JAX side runs with
 ``exact=True`` (its ``approx_max_k`` has no counterpart in the port, whose
 ``torch.topk`` is exact).
 
+Rows with a per-request seed need no such hand-over: ``seeded_uniform``
+reproduces the JAX engine's seeded draw
+``uniform(fold_in(fold_in(PRNGKey(seed), step), token_id))`` bit for bit
+(threefry in its partitionable form, the default since JAX 0.5, pinned
+here with ``jax.threefry_partitionable(True)``), and ``sample_full`` with
+``seeds`` picks the JAX sampler's ids from its own noise.
+
 Tolerance: sampled and candidate ids exactly equal; logprobs atol 1e-5 (f32
-log-softmax over the same logits, summation order aside).
+log-softmax over the same logits, summation order aside); seeded uniforms
+bit-equal; seeded Gumbel values within 2.4e-7 x max(1, |g|) (two f32 logs,
+one ulp each).
 """
 
 import jax
@@ -19,7 +28,7 @@ import pytest
 import torch
 
 from dynamo_tpu.engine.sampling import sample_full as jax_sample_full
-from dynamo_tpu_torch.engine.sampling import K_MAX, sample_full
+from dynamo_tpu_torch.engine.sampling import K_MAX, sample_full, seeded_gumbel, seeded_uniform
 
 LP_ATOL = 1e-5
 B, V = 16, 512
@@ -117,3 +126,72 @@ def test_generator_noise_is_seeded_and_greedy_ignores_it():
     np.testing.assert_array_equal(draw(7), draw(7))
     greedy = temp <= 0
     np.testing.assert_array_equal(draw(8)[greedy], logits[greedy].argmax(-1))
+
+
+def _triples(n, seed):
+    """Random (seed, step, token id) triples, the extremes of each range
+    included."""
+    rng = np.random.default_rng(seed)
+    seeds = rng.integers(0, 2 ** 31, size=n).astype(np.int32)
+    steps = rng.integers(0, 1 << 17, size=n).astype(np.int32)
+    toks = rng.integers(0, 152_064, size=n).astype(np.int32)
+    seeds[:3], steps[:3], toks[:3] = [0, 2 ** 31 - 1, 1], [0, 1, (1 << 17) - 1], [0, 1, 128_255]
+    return seeds, steps, toks
+
+
+def _jax_seeded(seeds, steps, toks):
+    tiny = jnp.finfo(jnp.float32).tiny
+
+    def one(seed, step, tok):
+        key = jax.random.fold_in(jax.random.fold_in(jax.random.PRNGKey(seed), step), tok)
+        return (jax.random.uniform(key, (), minval=tiny, maxval=1.0),
+                jax.random.gumbel(key, (), dtype=jnp.float32))
+
+    with jax.threefry_partitionable(True):
+        u, g = jax.vmap(one)(jnp.asarray(seeds), jnp.asarray(steps), jnp.asarray(toks))
+    return np.asarray(u), np.asarray(g)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_seeded_noise_matches_jax(seed):
+    seeds, steps, toks = _triples(2048, seed)
+    ref_u, ref_g = _jax_seeded(seeds, steps, toks)
+    # [B, K] layout as the sampler calls it: one seed and step per row
+    args = (torch.from_numpy(seeds), torch.from_numpy(steps), torch.from_numpy(toks)[:, None])
+    u = seeded_uniform(*args)[:, 0].numpy()
+    g = seeded_gumbel(*args)[:, 0].numpy()
+    np.testing.assert_array_equal(u.view(np.int32), ref_u.view(np.int32))
+    assert np.all(np.abs(g - ref_g) <= 2.4e-7 * np.maximum(1.0, np.abs(ref_g)))
+
+
+@pytest.mark.parametrize("k_cand", [K_MAX, 128])
+def test_seeded_rows_match_jax(k_cand):
+    """Half the rows seeded (the same seed on two rows, steps apart):
+    seeded rows draw their own noise in both samplers, unseeded rows are
+    handed the JAX sampler's key noise.  At k_cand 128 a seeded row's
+    window still caps at K_MAX."""
+    rng, logits, temp, top_k, top_p, min_p = _inputs(6 + k_cand)
+    temp = np.where(temp > 0, temp, 0.8).astype(np.float32)  # greedy rows ignore seeds
+    seed_rows = np.arange(B) % 2 == 0
+    seeds = np.where(seed_rows, rng.integers(0, 2 ** 31, size=B), 0).astype(np.int32)
+    seeds[2] = seeds[0]
+    steps = rng.integers(0, 4096, size=B).astype(np.int32)
+    if k_cand > K_MAX:
+        top_k[:4] = 100
+    key = jax.random.PRNGKey(6)
+    with jax.threefry_partitionable(True):
+        ref = jax_sample_full(jnp.asarray(logits), key, jnp.asarray(temp), jnp.asarray(top_k),
+                              jnp.asarray(top_p), min_p=jnp.asarray(min_p),
+                              seeds=jnp.asarray(seeds), seed_rows=jnp.asarray(seed_rows),
+                              seed_steps=jnp.asarray(steps), k_cand=k_cand, exact=True)
+        noise = np.array(jax.random.gumbel(key, (B, k_cand), dtype=jnp.float32))
+    t = torch.from_numpy
+    out = sample_full(t(logits), None, t(temp), t(top_k), t(top_p), min_p=t(min_p), seeds=t(seeds),
+                      seed_rows=t(seed_rows), seed_steps=t(steps), k_cand=k_cand,
+                      gumbel=t(noise))
+    _assert_same([np.asarray(r) for r in ref], [o.numpy() for o in out])
+    # the seeded picks do not depend on the hand-over noise
+    out2 = sample_full(t(logits), None, t(temp), t(top_k), t(top_p), min_p=t(min_p),
+                       seeds=t(seeds), seed_rows=t(seed_rows), seed_steps=t(steps),
+                       k_cand=k_cand, gumbel=t(noise[::-1].copy()))
+    np.testing.assert_array_equal(out2[0].numpy()[seed_rows], out[0].numpy()[seed_rows])
