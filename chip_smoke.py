@@ -22,7 +22,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    their edges (G = 1, 4 and 8 at D = 64, 128 and 256, Bs = 16 and 32;
    decode at S = 1 and 8 with contexts 0 to 2048 either side of its chunks
    and tiles; prefill from a start inside a key tile), and every decode
-   launch is run twice and must give the same bits.  The
+   launch is run twice and must give the same bits; the decode kernel over
+   both caches also at the speculative verify's S = 5 and 8, with every
+   query live and with rows of fewer live queries than S.  The
    W8A16 matmul runs at every projection shape of Llama-3-8B and its
    lm_head (f32 out), at M = 1 to 1504 across both regimes' edges, for a
    [K, N] weight and for the transpose of an [N, K] one, then at ragged
@@ -46,7 +48,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    readings; every SDPA yardstick as a CUDA graph, the card's time, and
    eagerly for the log; for the grouped launches ``torch._grouped_mm`` and
    a per-expert cuBLAS loop, both as CUDA graphs), and their bound on this
-   card;
+   card; the decode kernel over both caches also at the verify's S = 5 and
+   8 and the matmul at its M = 40;
 4. serving: Llama-3-8B at full width and depth (random weights from a
    seeded generator) behind ``AsyncLLMEngine``, six concurrent greedy
    requests (17 to 1500 prompt tokens, two sharing a 256-token prefix),
@@ -71,13 +74,26 @@ Phases, in order; any failure ends the run with a non-zero exit:
    seeded free row, a guided choice and a guided regex) on the default
    path (B1, B2) and on the token-budget path (B3, B1), each row held to
    its grammar, and the seeded rows again with one decode turn a dispatch
-   and other companions for the same streams;
+   and other companions for the same streams.  Last on the bf16 model, the
+   ``spec`` phase: speculative decoding on the copy task (each prompt a
+   seeded 32-token segment repeated to its length, 64 tokens each, five
+   greedy rows and one seeded at temperature 0.9, top_p 0.9) with
+   speculation off, n-gram lookup at k = 4 and 7, the model as its own
+   draft and a Llama-3.2-1B-width draft (random weights from a seed), k = 4;
+   and on the int8 model off and n-gram at k = 4.  Each run: every request
+   64 tokens at ``length``, the decode kernel launched at S = k + 1 (B1, or
+   B4a on int8), no plain-op attention call but a draft's ingest, the
+   self-draft accepting more than the 1B draft, and every stream that parts
+   from speculation off's parting at a near-tie (the common prefix
+   re-scored on the card; ``SPEC_TIE_EPS``).  It prints each run's
+   readings and one ``{"spec": [...]}`` line at the end;
 5. parity: 2-layer models at full 8B width on the card (kernels, bf16) and
    on the CPU (plain PyTorch, f32), bf16 weights with a bf16 cache and int8
    weights with an int8 cache: one 300-token prompt over a 128-token cached
    prefix then 8 decode steps, and one packed prefill then one mixed
-   ragged dispatch (two decode rows, two spans); logits held to a stated
-   tolerance;
+   ragged dispatch (two decode rows, two spans); on bf16 also one
+   speculative verify dispatch at S = 5 over three prefixes (5, 3 and 1
+   live queries); logits held to a stated tolerance;
 6. front door: a 2-layer HF checkpoint at Llama-3-8B width (random bf16
    weights from a seeded generator, two safetensors shards and an index, a
    word-level tokenizer of 128,256 ids and a chat template), written into
@@ -145,6 +161,7 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import gc
 import json
 import math
 import re
@@ -384,7 +401,11 @@ def _attention_cache(torch, gen, n_blocks, bt, live_lens, hk, d, bs, quant):
     return _poisoned_cache(torch, gen, n_blocks, bt.cpu(), live_lens, hk * d, bs)
 
 
-def decode_case(torch, gen, lens, s, logit_cap, geom=(H, HK, D), bs=BS, quant=False):
+def decode_case(torch, gen, lens, s, logit_cap, geom=(H, HK, D), bs=BS, quant=False, live=None):
+    """B1 or B4a (``quant``) against its plain version over a poisoned pool;
+    ``live`` gives each row's live queries (S unless named: a verify row
+    with fewer proposals than k), the queries past them are padding at
+    q0 + j as the engine lays them out."""
     from dynamo_tpu_torch.ops.kernels.decode_attention import (
         decode_attention_ref, paged_decode_attention, paged_decode_attention_q8)
 
@@ -396,11 +417,12 @@ def decode_case(torch, gen, lens, s, logit_cap, geom=(H, HK, D), bs=BS, quant=Fa
     b = len(lens)
     q = torch.randn((b, s, h, d), generator=gen, device="cuda").to(torch.bfloat16)
     seq_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
-    q0 = (seq_lens - s).clamp_min(0)
+    q0 = (seq_lens - torch.tensor(live or [s] * b, dtype=torch.int32, device="cuda")).clamp_min(0)
     args = (q, cache, LAYER, bt, seq_lens, q0)
     kernel = paged_decode_attention_q8 if quant else paged_decode_attention
     out = kernel(*args, logit_cap=logit_cap)
-    what = f"decode {'int8 ' if quant else ''}{geom} Bs={bs} S={s} cap={logit_cap} lens={lens}"
+    what = (f"decode {'int8 ' if quant else ''}{geom} Bs={bs} S={s} cap={logit_cap} lens={lens}"
+            f"{f' live={live}' if live else ''}")
     err = compare(torch, what, out, decode_attention_ref(*args, logit_cap=logit_cap))
     for i, n in enumerate(lens):
         if n == 0:
@@ -485,6 +507,11 @@ def kernel_phase(torch) -> dict:
             e = decode_case(torch, gen, mixed, s, cap)
             log(f"kernel decode  B=8 S={s} softcap={cap}: max abs err {e:.3g}")
             errs["decode"] = max(errs["decode"], e)
+    for s in SPEC_VERIFY_S:
+        for live in (None, verify_live(mixed, s)):
+            e = decode_case(torch, gen, mixed, s, None, live=live)
+            log(f"kernel decode  B=8 S={s} (verify) live queries {live or s}: max abs err {e:.3g}")
+            errs["decode"] = max(errs["decode"], e)
     e = prefill_case(torch, gen, starts=[0, 256], fresh=[512, 500], s=512)
     log(f"kernel prefill B=2 S=512 start=[0, 256] fresh=[512, 500]: max abs err {e:.3g}")
     errs["prefill"] = e
@@ -549,6 +576,12 @@ def q8_kernel_phase(torch, gen) -> dict:
             for cap in (None, 50.0):
                 e = decode_case(torch, gen, mixed, s, cap, bs=bs, quant=True)
                 log(f"kernel decode int8 Bs={bs} B=8 S={s} softcap={cap}: max abs err {e:.3g}")
+                errs["decode_q8"] = max(errs["decode_q8"], e)
+        for s in SPEC_VERIFY_S:
+            for live in (None, verify_live(mixed, s)):
+                e = decode_case(torch, gen, mixed, s, None, bs=bs, quant=True, live=live)
+                log(f"kernel decode int8 Bs={bs} B=8 S={s} (verify) live queries {live or s}: max "
+                    f"abs err {e:.3g}")
                 errs["decode_q8"] = max(errs["decode_q8"], e)
         e = prefill_case(torch, gen, starts=[0, 256], fresh=[512, 500], s=512, bs=bs, quant=True)
         log(f"kernel prefill int8 Bs={bs} B=2 S=512 start=[0, 256]: max abs err {e:.3g}")
@@ -717,18 +750,23 @@ def matmul_phase(torch, gen) -> float:
     return worst
 
 
-def _sdpa_decode_ms(torch, q, lens, dense_kv, layers: int = L) -> tuple[float, float]:
+def _sdpa_decode_ms(torch, q, lens, dense_kv, layers: int = L, q0=None) -> tuple[float, float]:
     """SDPA on one decode step's layer, the decode kernels' library
-    yardstick: q [B, 1, H, D] over each layer's K/V laid out dense
+    yardstick: q [B, S, H, D] over each layer's K/V laid out dense
     beforehand (``dense_kv(layer)`` gives [B, Hk, T, D] twice), successive
     calls walking the ``layers`` layers (32 unless named) as the kernels
-    do.  Timed as the kernels are, as a CUDA graph of the calls (the card's
-    time) and launched eagerly; medians of three readings."""
+    do; for S > 1 query j of row i sees keys up to ``q0[i] + j``.  Timed as
+    the kernels are, as a CUDA graph of the calls (the card's time) and
+    launched eagerly; medians of three readings."""
     import torch.nn.functional as F
 
     kvs = [dense_kv(layer) for layer in range(layers)]
     seq = torch.tensor(lens, device="cuda")
-    mask = (torch.arange(kvs[0][0].shape[2], device="cuda")[None, :] < seq[:, None])[:, None, None, :]
+    t = torch.arange(kvs[0][0].shape[2], device="cuda")
+    mask = (t[None, :] < seq[:, None])[:, None, None, :]
+    if q0 is not None:
+        qpos = q0[:, None].long() + torch.arange(q.shape[1], device="cuda")[None, :]
+        mask = mask & (t[None, None, :] <= qpos[:, :, None])[:, None]
     qd = q.transpose(1, 2).contiguous()
     calls = [lambda kv=kv: F.scaled_dot_product_attention(qd, *kv, attn_mask=mask, enable_gqa=True)
              for kv in kvs]
@@ -799,16 +837,8 @@ def timing_phase(torch, card: str) -> dict:
                                 decode_attention_ref(q, cache, LAYER, bt, seq_lens, q0))
     _check_graph_replay(torch, lambda: paged_decode_attention(q, cache, LAYER, bt, seq_lens, q0), "decode")
 
-    def dense_kv(layer):
-        kd = torch.zeros((b, HK, max(lens), D), dtype=torch.bfloat16, device="cuda")
-        vd = torch.zeros_like(kd)
-        for i, n in enumerate(lens):
-            rows = bt[i, :-(-n // BS)].long()
-            kd[i, :, :n] = cache[layer, rows, 0].reshape(-1, HK, D)[:n].transpose(0, 1)
-            vd[i, :, :n] = cache[layer, rows, 1].reshape(-1, HK, D)[:n].transpose(0, 1)
-        return kd, vd
-
-    library_ms, library_eager_ms = _sdpa_decode_ms(torch, q, lens, dense_kv)
+    library_ms, library_eager_ms = _sdpa_decode_ms(
+        torch, q, lens, lambda layer: _dense_kv(torch, cache, bt, lens, layer, BS))
     ctx = sum(lens)
     dec_bytes = 2 * (2 * b * H * D) + 2 * ctx * HK * D * 2 + 4 * (b * m + 2 * b)
     dec_flops = 4 * H * D * ctx
@@ -875,6 +905,27 @@ def _dequant_rows(torch, cache, rows, n, layer=LAYER):
     return kv[:, 0].reshape(-1, HK, D)[:n], kv[:, 1].reshape(-1, HK, D)[:n]
 
 
+def _dense_kv(torch, cache, bt, lens, layer: int, bs: int):
+    """Layer ``layer``'s K and V of each row's live context, laid out dense
+    for SDPA ([B, Hk, T, D] bf16 each; an int8 cache dequantised)."""
+    from dynamo_tpu_torch.ops.kv_quant import is_quant
+
+    quant = is_quant(cache)
+    kd = torch.zeros((len(lens), HK, max(lens), D), dtype=torch.bfloat16, device="cuda")
+    vd = torch.zeros_like(kd)
+    for i, n in enumerate(lens):
+        if not n:
+            continue
+        if quant:
+            k_rows, v_rows = _dequant_rows(torch, cache, bt[i, :-(-n // bs)], n, layer)
+        else:
+            rows = bt[i, :-(-n // bs)].long()
+            k_rows = cache[layer, rows, 0].reshape(-1, HK, D)[:n]
+            v_rows = cache[layer, rows, 1].reshape(-1, HK, D)[:n]
+        kd[i, :, :n], vd[i, :, :n] = k_rows.transpose(0, 1), v_rows.transpose(0, 1)
+    return kd, vd
+
+
 def q8_timing_phase(torch, card: str) -> dict:
     """The int8 decode and prefill kernels at the int8 default path's
     shapes (Bs = 32), timed and checked against their plain version there:
@@ -917,16 +968,8 @@ def q8_timing_phase(torch, card: str) -> dict:
     _check_graph_replay(torch, lambda: paged_decode_attention_q8(q, cache, LAYER, bt, seq_lens, q0),
                         "int8 decode")
 
-    def dense_kv(layer):
-        kd = torch.zeros((b, HK, max(lens), D), dtype=torch.bfloat16, device="cuda")
-        vd = torch.zeros_like(kd)
-        for i, n in enumerate(lens):
-            if n:
-                k_rows, v_rows = _dequant_rows(torch, cache, bt[i, :-(-n // bs)], n, layer)
-                kd[i, :, :n], vd[i, :, :n] = k_rows.transpose(0, 1), v_rows.transpose(0, 1)
-        return kd, vd
-
-    library_ms, library_eager_ms = _sdpa_decode_ms(torch, q, lens, dense_kv)
+    library_ms, library_eager_ms = _sdpa_decode_ms(
+        torch, q, lens, lambda layer: _dense_kv(torch, cache, bt, lens, layer, bs))
     ctx = sum(lens)
     # q and out bf16; the int8 K/V payload of the live context and the f32
     # scale of each (token, KV head, K or V) it reads; the tables
@@ -1045,6 +1088,19 @@ def matmul_timing(torch, card: str) -> dict:
     log("time matmul int8 at M=8 by projection (CUDA graph): " + ", ".join(
         f"{name} [{k}, {n}] {per[name]:.4f} ms (bound {bounds[name]:.4f})"
         for name, (k, n) in PROJECTIONS.items()) + f" ({card})")
+    # the verify's rows: B = 8 slots x S = k + 1 = 5
+    m_verify = 8 * (SPEC_VERIFY_S[0])
+    xv = rows(m_verify)
+    out["matmul_verify"] = dict(m=m_verify, ms=layer_ms(kernel, xv, 40),
+                                plain_ms=layer_ms(plain, xv, 8),
+                                library_ms=median_ms(lambda: layer_ms(library, xv, 40)),
+                                **layer_bound(m_verify))
+    v = out["matmul_verify"]
+    log(f"time matmul int8 one layer's 7 projections at M={m_verify} (the verify at S=5, CUDA "
+        f"graph): kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, cuBLAS bf16 on dequantised "
+        f"weights {v['library_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms ({v['bound_by']}); "
+        f"max abs err {max(compare(torch, f'matmul {n} at M={m_verify}', kernel(xv[n], 0, n), plain(xv[n], 0, n)) for n in PROJECTIONS):.3g} "
+        f"({card})")
     xp = rows(1504)
     pre = dict(ms=layer_ms(kernel, xp, 8), library_ms=median_ms(lambda: layer_ms(library, xp, 8)),
                **layer_bound(1504))
@@ -1065,6 +1121,64 @@ def matmul_timing(torch, card: str) -> dict:
     log(f"time matmul int8 lm_head [{k}, {n}] at M=8, f32 out (CUDA graph): kernel {head_ms:.4f} ms, cuBLAS "
         f"bf16 {head_lib:.4f} ms (one weight, L2-warm for weights under 50 MB), bound {hb['bound_ms']:.4f} ms "
         f"({hb['bound_by']}) ({card})")
+    return out
+
+
+def verify_timing(torch, card: str) -> dict:
+    """B1 (Bs 16) and B4a (Bs 32, the int8 path's block) at the verify shape:
+    one layer of a verify over the eight slots (the six requests
+    mid-generation, 3,865 tokens, and two empty rows) at S = 5 and 8 (k = 4
+    and 7), a CUDA graph of the 32 layers' calls (the card's time), beside
+    the plain version, SDPA on dense K/V (bf16; dequantised for the int8
+    cache) timed the same way, and the bound.  Returns {"decode_verify":
+    {S: reading}, "decode_q8_verify": {S: reading}}."""
+    from dynamo_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention_ref, paged_decode_attention, paged_decode_attention_q8)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    lens = [n + MAX_TOKENS // 2 for n in PROMPT_LENS] + [0, 0]
+    b = len(lens)
+    seq_lens = _ints(torch, lens)
+    out = {}
+    for quant in (False, True):
+        bs = BS_Q8 if quant else BS
+        m = 2048 // bs
+        n_blocks = sum(-(-n // bs) for n in lens) + 8
+        bt = _tables(torch, lens, m, n_blocks, gen, bs)
+        if quant:
+            cache = _q8_cache(torch, gen, n_blocks, HK, D, bs)
+        else:
+            cache = torch.randn((L, n_blocks, 2, bs, HK * D), generator=gen,
+                                device="cuda").to(torch.bfloat16)
+        kernel = paged_decode_attention_q8 if quant else paged_decode_attention
+
+        key = "decode_q8_verify" if quant else "decode_verify"
+        out[key] = {}
+        for s in SPEC_VERIFY_S:
+            q = torch.randn((b, s, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+            q0 = (seq_lens - s).clamp_min(0)
+            calls = [lambda i=i: kernel(q, cache, i, bt, seq_lens, q0) for i in range(L)]
+            kernel_ms = graph_time_ms(calls, 20) / L
+            eager_ms = cuda_time_ms(lambda i: calls[i % L](), 64)
+            plain_ms = cuda_time_ms(lambda i: decode_attention_ref(q, cache, i % L, bt, seq_lens, q0), 8)
+            err = compare(torch, f"{key} S={s}", kernel(q, cache, LAYER, bt, seq_lens, q0),
+                          decode_attention_ref(q, cache, LAYER, bt, seq_lens, q0))
+            library_ms, library_eager_ms = _sdpa_decode_ms(
+                torch, q, lens, lambda layer: _dense_kv(torch, cache, bt, lens, layer, bs), q0=q0)
+            ctx = sum(lens)
+            pairs = sum(min(n, max(n - s, 0) + j + 1) for n in lens for j in range(s))
+            kv_bytes = 2 * ctx * HK * D * (1 if quant else 2) + (2 * ctx * HK * 4 if quant else 0)
+            nbytes = 2 * (2 * b * s * H * D) + kv_bytes + 4 * (b * m + 2 * b)
+            out[key][f"S={s}"] = r = dict(ms=kernel_ms, eager_ms=eager_ms, plain_ms=plain_ms,
+                                          library_ms=library_ms, max_abs_err=err,
+                                          **_bound(4 * H * D * pairs, nbytes))
+            log(f"time decode {'int8 Bs=32' if quant else 'bf16 Bs=16'} B={b} S={s} (verify) "
+                f"ctx={ctx}: kernel {kernel_ms:.4f} ms (CUDA graph; eager {eager_ms:.4f}), plain "
+                f"{plain_ms:.4f} ms, sdpa{' on bf16 K/V' if quant else ''} {library_ms:.4f} ms "
+                f"(CUDA graph; eager {library_eager_ms:.4f}), bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}), max abs err {err:.3g} ({card})")
+        del cache
     return out
 
 
@@ -1407,9 +1521,11 @@ def model_prompts(model, seed: int = 0) -> list[list[int]]:
     return prompts(seed, min(LLAMA3_VOCAB, model.config.vocab_size))
 
 
-async def _serve(engine, reqs, sampling=None):
+async def _serve(engine, reqs, sampling=None, max_tokens: int = MAX_TOKENS, tag: str = "req"):
     """Each request of ``reqs`` (token ids) concurrently, greedy or with
-    ``sampling[i]`` (SamplingOptions fields), MAX_TOKENS tokens at most:
+    ``sampling[i]`` (SamplingOptions fields), ``max_tokens`` tokens at most,
+    as ids ``{tag}-{i}`` (a warm-up takes another tag: the engine may apply
+    a late abort of a finished id to the next request of that id):
     [(TTFT, seconds to the end, outputs)]."""
     from dynamo_tpu_torch.llm.protocols import BackendInput, SamplingOptions, StopConditions
     from dynamo_tpu_torch.runtime.engine import Context
@@ -1419,7 +1535,7 @@ async def _serve(engine, reqs, sampling=None):
         first, outs = None, []
         opts = SamplingOptions(**(sampling[i] if sampling else {"temperature": 0.0}))
         ctx = Context(BackendInput(token_ids=toks, sampling=opts,
-                                   stops=StopConditions(max_tokens=MAX_TOKENS)), id=f"req-{i}")
+                                   stops=StopConditions(max_tokens=max_tokens)), id=f"{tag}-{i}")
         async for out in engine.generate(ctx):
             if first is None and out.token_ids:
                 first = time.perf_counter() - t0
@@ -1454,7 +1570,7 @@ def serve_run(torch, model, config: dict, card: str, label: str, profile: bool =
     engine = AsyncLLMEngine(core).start()
     try:
         # warm-up request: first-launch costs stay out of the measurement
-        asyncio.run(_serve(engine, [list(range(1, 40))]))
+        asyncio.run(_serve(engine, [list(range(1, 40))], tag="warm-up"))
         wrappers = _kernel_wrappers()
         for fn in wrappers.values():
             fn.launches = 0
@@ -1563,9 +1679,12 @@ def serving_phase(torch, card: str):
     default, budget, mixed = serve_both(torch, model, card, quant=False)
     http_serving_run(torch, model, default, card)
     grammar_phase(torch, model, default, card)
+    t0 = time.perf_counter()
+    spec = spec_phase(torch, model, card)
+    log(f"spec phase (bf16): {time.perf_counter() - t0:.1f} s")
     del model
     torch.cuda.empty_cache()
-    return default, budget, mixed
+    return default, budget, mixed, spec
 
 
 def serve_both(torch, model, card: str, quant: bool):
@@ -1619,9 +1738,348 @@ def serving_phase_q8(torch, card: str):
     log(f"serving: Llama-3-8B int8, {cfg.num_layers} layers, {weights / 1e9:.2f} GB of random "
         f"weights in {time.perf_counter() - t0:.1f} s")
     out = serve_both(torch, model, card, quant=True)
+    t0 = time.perf_counter()
+    spec = spec_phase_q8(torch, model, card)
+    log(f"spec phase (int8): {time.perf_counter() - t0:.1f} s")
     del model
     torch.cuda.empty_cache()
+    return out + (spec,)
+
+
+# ------------------------------------------------------------- speculation
+# The copy task of benchmarks/bench_spec.py: each of the six prompts repeats
+# a seeded 32-token segment to its length, so prompt lookup matches from
+# the first turn; 64 tokens each, five rows greedy and one seeded.
+SPEC_SEGMENT = 32
+SPEC_MAX_TOKENS = 64
+SPEC_SEEDED_ROW = 5
+SPEC_SEEDED = dict(temperature=0.9, top_p=0.9, seed=1234)
+SPEC_VERIFY_S = (5, 8)  # S = k + 1 for k = 4 and 7
+# A verify and a burst compute the same logits through other kernels (the
+# projections at 8 x S rows, the decode kernel at S > 1), so bf16 rounding
+# can flip a greedy pick where two tokens nearly tie, and nowhere else.
+# Each card computation's logits lie within eps = PARITY_MAX_REL x max|logit|
+# of the exact ones (phase 5's card-vs-CPU bound): two tokens that two runs
+# order differently lie within 2 eps of each other exactly, hence within 4
+# eps in a third card computation, the re-scoring prefill.  A seeded row
+# compares its noisy scores l / T + g the same way, within 4 eps / T.
+SPEC_TIE_EPS = 4
+
+
+def verify_live(lens, s: int) -> list[int]:
+    """Live queries of each row of a verify whose rows proposed fewer than
+    k tokens (1 to S), cut at the row's context."""
+    pattern = (1, s, 2, s - 3, s, 3, s - 1, 1)
+    return [min(n, pattern[i % len(pattern)]) for i, n in enumerate(lens)]
+
+
+def llama32_1b():
+    """Llama-3.2-1B's published geometry (meta-llama/Llama-3.2-1B
+    config.json): Llama 3's tokenizer, so a draft for Llama-3-8B."""
+    from dynamo_tpu_torch.models.config import ModelConfig
+
+    return ModelConfig(vocab_size=LLAMA3_VOCAB, hidden_size=2048, intermediate_size=8192,
+                       num_layers=16, num_heads=32, num_kv_heads=8, head_dim=64,
+                       max_position_embeddings=131072, rope_theta=500000.0,
+                       rope_scaling={"rope_type": "llama3", "factor": 32.0,
+                                     "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                                     "original_max_position_embeddings": 8192},
+                       tie_word_embeddings=True, dtype="bfloat16")
+
+
+def spec_prompts(seed: int = 2) -> list[list[int]]:
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for n in PROMPT_LENS:
+        seg = rng.integers(0, LLAMA3_VOCAB, SPEC_SEGMENT).tolist()
+        out.append((seg * -(-n // SPEC_SEGMENT))[:n])
     return out
+
+
+def spec_sampling() -> list[dict]:
+    return [SPEC_SEEDED if i == SPEC_SEEDED_ROW else {"temperature": 0.0}
+            for i in range(len(PROMPT_LENS))]
+
+
+@contextlib.contextmanager
+def recorded_attention(torch, draft=None):
+    """Count the decode kernel's calls by wrapper and S, and time every call
+    of the plain attention op with CUDA events, by wrapping the routing's
+    references (the wrappers and their launch counts are untouched).  A
+    plain-op call made inside the draft's dispatch is marked: its k - 1
+    steps run at S = 1, so only its ingest can make one."""
+    from dynamo_tpu_torch.ops import paged_attention as routing
+
+    names = ("paged_decode_attention", "paged_decode_attention_q8", "paged_attention")
+    real = {n: getattr(routing, n) for n in names}
+    rec = dict(decode={}, plain=[])
+    in_draft = [False]
+
+    def decode(name):
+        def call(q, *args, **kw):
+            key = f"{'B4a' if name.endswith('q8') else 'B1'} S={q.shape[1]}"
+            rec["decode"][key] = rec["decode"].get(key, 0) + 1
+            return real[name](q, *args, **kw)
+        return call
+
+    def plain(q, *args, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real["paged_attention"](q, *args, **kw)
+        end.record()
+        rec["plain"].append((q.shape[1], in_draft[0], start, end))
+        return out
+
+    if draft is not None:
+        real_impl = draft._impl
+
+        def impl(*args, **kw):
+            in_draft[0] = True
+            try:
+                return real_impl(*args, **kw)
+            finally:
+                in_draft[0] = False
+        draft._impl = impl
+    for n in names[:2]:
+        setattr(routing, n, decode(n))
+    routing.paged_attention = plain
+    try:
+        yield rec
+    finally:
+        for n in names:
+            setattr(routing, n, real[n])
+        if draft is not None:
+            del draft._impl
+
+
+def spec_run(torch, model, config: dict, card: str, label: str, draft=None) -> dict:
+    """The spec cell's six requests once through ``AsyncLLMEngine`` under
+    one EngineConfig (a draft model when named), every launch counter zeroed
+    just before and read just after; each decode turn timed on the host (a
+    verify turn, the draft's dispatch included, or a burst), the decode
+    kernel's calls split by S, the plain op's calls timed."""
+    from dynamo_tpu_torch.engine import AsyncLLMEngine, EngineConfig, EngineCore
+    from dynamo_tpu_torch.llm.protocols import FinishReason
+
+    core = EngineCore(model, EngineConfig(**config), device="cuda", draft=draft)
+    turns = {"verify": [], "burst": []}
+    real_decode = core._run_decode
+
+    def run_decode():
+        t0, s0, d0, g0 = time.perf_counter(), core.spec_steps, core.decode_steps, core.tokens_generated
+        real_decode()
+        kind = "verify" if core.spec_steps > s0 else "burst"
+        turns[kind].append((time.perf_counter() - t0, core.decode_steps - d0,
+                            core.tokens_generated - g0))
+
+    core._run_decode = run_decode
+    engine = AsyncLLMEngine(core).start()
+    try:
+        asyncio.run(_serve(engine, [list(range(1, 40))], max_tokens=8, tag="warm-up"))
+        wrappers = _kernel_wrappers()
+        for fn in wrappers.values():
+            fn.launches = 0
+        for v in turns.values():
+            v.clear()
+        keys = ("spec_steps", "spec_proposed", "spec_accepted", "device_gets_total")
+        before = {k: core.metrics()[k] for k in keys}
+        host0, turns0 = core._host_s, core._turns
+        dispatches0 = core.draft.dispatches if core.draft is not None else 0
+        with recorded_attention(torch, core.draft) as rec:
+            t0 = time.perf_counter()
+            results = asyncio.run(_serve(engine, spec_prompts(), spec_sampling(),
+                                         max_tokens=SPEC_MAX_TOKENS))
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        counts = {k: core.metrics()[k] - before[k] for k in keys}
+        host_gap_ms = 1e3 * (core._host_s - host0) / max(1, core._turns - turns0)
+        draft_dispatches = (core.draft.dispatches - dispatches0) if core.draft is not None else 0
+    finally:
+        engine.shutdown()
+        # the wrapper closes over the core: without this the core, its cache,
+        # its model and its draft wait for the cycle collector
+        del core._run_decode
+    for i, (_, _, outs) in enumerate(results):
+        toks = [t for o in outs for t in o.token_ids]
+        check(outs[-1].finish_reason is FinishReason.LENGTH,
+              f"spec {label} request {i}: finish {outs[-1].finish_reason}, expected length")
+        check(len(toks) == SPEC_MAX_TOKENS, f"spec {label} request {i}: {len(toks)} tokens")
+    plain = [(s, ingest, start.elapsed_time(end)) for s, ingest, start, end in rec["plain"]]
+    ttfts = sorted(r[0] for r in results)
+    decode_window = wall - ttfts[0]
+    share = counts["spec_accepted"] / counts["spec_proposed"] if counts["spec_proposed"] else 0.0
+    verify_tokens = sum(t for _, _, t in turns["verify"])
+    verify_ms = [1e3 * dt for dt, _, _ in turns["verify"]]
+    burst_step_ms = [1e3 * dt / n for dt, n, _ in turns["burst"] if n]
+    out = dict(
+        label=label, wall_s=wall, ttft_median_s=ttfts[len(ttfts) // 2], ttft_max_s=ttfts[-1],
+        decode_tok_s=len(results) * (SPEC_MAX_TOKENS - 1) / decode_window,
+        host_gap_ms_per_turn=host_gap_ms, **counts, accepted_share=share,
+        tokens_per_verify=verify_tokens / counts["spec_steps"] if counts["spec_steps"] else 0.0,
+        verify_turns=len(verify_ms), verify_turn_ms=sorted(verify_ms)[len(verify_ms) // 2]
+        if verify_ms else None, bursts=len(burst_step_ms),
+        burst_step_ms=sorted(burst_step_ms)[len(burst_step_ms) // 2] if burst_step_ms else None,
+        draft_dispatches=draft_dispatches, decode_calls_by_s=rec["decode"],
+        plain_calls=len(plain), plain_calls_outside_draft=sum(1 for _, ing, _ in plain if not ing),
+        plain_ms=sum(ms for _, _, ms in plain), plain_s=sorted({s for s, _, _ in plain}),
+        launches=launches)
+    log(f"spec {label}: wall {wall:.3f} s, TTFT median/max {out['ttft_median_s']:.3f}/"
+        f"{out['ttft_max_s']:.3f} s, decode {out['decode_tok_s']:.1f} tok/s, host gap "
+        f"{host_gap_ms:.2f} ms/turn; verify turns {out['verify_turns']} (median "
+        f"{out['verify_turn_ms'] or 0:.2f} ms), bursts {out['bursts']} (median "
+        f"{out['burst_step_ms'] or 0:.2f} ms a step); spec_steps {counts['spec_steps']}, "
+        f"proposed {counts['spec_proposed']}, accepted {counts['spec_accepted']} (share "
+        f"{share:.3f}), tokens emitted per verify {out['tokens_per_verify']:.2f} (6 rows); draft "
+        f"dispatches {draft_dispatches}; decode kernel calls by S {rec['decode']}; plain-op calls "
+        f"{len(plain)} (S {out['plain_s']}, outside the draft {out['plain_calls_outside_draft']}) "
+        f"{out['plain_ms']:.3f} ms; device reads {counts['device_gets_total']} ({card})")
+    out["streams"] = [[t for o in outs for t in o.token_ids] for _, _, outs in results]
+    return out
+
+
+def _rescore(torch, model, seq, bs, cache_dtype):
+    """The logits after ``seq`` from one prefill over a fresh cache."""
+    n = len(seq)
+    pad = -(-n // bs) * bs
+    nb = pad // bs
+    cache = model.init_kv_cache(nb + 1, bs, cache_dtype)
+    bt = torch.zeros((1, 2048 // bs), dtype=torch.int32, device="cuda")
+    bt[0, :nb] = torch.arange(1, nb + 1, dtype=torch.int32)
+    t = torch.zeros((1, pad), dtype=torch.int32, device="cuda")
+    t[0, :n] = torch.tensor(seq, dtype=torch.int32)
+    pos = torch.zeros((1, pad), dtype=torch.int32, device="cuda")
+    pos[0, :n] = torch.arange(n, dtype=torch.int32)
+    slot = torch.full((1, pad), -1, dtype=torch.int32, device="cuda")
+    slot[0, :n] = bt[0, pos[0, :n].long() // bs] * bs + pos[0, :n] % bs
+    hidden, _ = model.forward(t, pos, cache, bt, torch.tensor([n], dtype=torch.int32,
+                                                               device="cuda"), slot,
+                              prefix_blocks=0)
+    return model.compute_logits(hidden[:, n - 1])[0].float().cpu()
+
+
+def spec_near_ties(torch, model, base: dict, run: dict, card: str, bs=BS, cache_dtype=None) -> int:
+    """Hold ``run``'s streams to ``base``'s (speculation off): where a row
+    parts, re-score the common prefix on the card and require the two
+    tokens' logits (a seeded row: its noisy scores) within SPEC_TIE_EPS x
+    PARITY_MAX_REL x max|logit| (/ T).  Returns the rows that parted."""
+    from dynamo_tpu_torch.engine.sampling import K_MAX, seeded_gumbel
+
+    prompts, sampling = spec_prompts(), spec_sampling()
+    parted = 0
+    for i, (a, b) in enumerate(zip(base["streams"], run["streams"])):
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        parted += 1
+        logits = _rescore(torch, model, prompts[i] + a[:j], bs, cache_dtype)
+        tol = SPEC_TIE_EPS * PARITY_MAX_REL * float(logits.abs().max())
+        la, lb = float(logits[a[j]]), float(logits[b[j]])
+        samp = sampling[i]
+        if samp.get("seed") is None:
+            gap, what = abs(la - lb), "logit gap"
+        else:
+            t = samp["temperature"]
+            g = seeded_gumbel(torch.tensor([samp["seed"] & 0x7FFFFFFF], dtype=torch.int32),
+                              torch.tensor([len(prompts[i]) + j], dtype=torch.int32),
+                              torch.tensor([[a[j], b[j]]], dtype=torch.int32))[0]
+            gap, what, tol = abs((la - lb) / t + float(g[0] - g[1])), "noisy-score gap", tol / t
+        top = torch.topk(logits, 2).values
+        ranks = [int((logits > logits[tok]).sum()) for tok in (a[j], b[j])]
+        edge = ""
+        if samp.get("top_p", 1.0) < 1.0:
+            # the probability mass ranked above each token (the top-K_MAX
+            # candidates at T): a token near top_p sits at the kept set's edge
+            probs = torch.softmax(torch.topk(logits, K_MAX).values / samp["temperature"], -1)
+            before = (torch.cumsum(probs, -1) - probs).tolist()
+            edge = (f", mass ranked above them {', '.join(f'{before[r]:.4f}' if r < K_MAX else '-' for r in ranks)} "
+                    f"(top_p {samp['top_p']})")
+        log(f"spec {run['label']} vs off: request {i} parts at token {j} ({a[j]} vs {b[j]}, logit "
+            f"ranks {ranks[0]} and {ranks[1]}{edge}), re-scored {what} {gap:.4g} (tol {tol:.4g}; "
+            f"top-2 margin there {float(top[0] - top[1]):.4g}) ({card})")
+        check(gap <= tol, f"spec {run['label']}: request {i} parts at token {j} by a {what} of "
+              f"{gap} > {tol}: not a near-tie")
+    log(f"spec {run['label']}: {len(base['streams']) - parted} of {len(base['streams'])} streams "
+        f"equal speculation off's ({card})")
+    return parted
+
+
+def spec_checks(runs: dict, quant: bool = False) -> None:
+    """Each speculative run verified, at S = k + 1 on the decode kernel, and
+    made plain-op calls only in a draft's ingest (none without a draft)."""
+    kernel = "B4a" if quant else "B1"
+    for label, r in runs.items():
+        k = r.get("k", 0)
+        if not k:
+            check(r["spec_steps"] == 0, f"spec {label}: {r['spec_steps']} verifies with spec off")
+            continue
+        check(r["spec_steps"] > 0, f"spec {label}: no verify turn")
+        check(r["decode_calls_by_s"].get(f"{kernel} S={k + 1}", 0) > 0,
+              f"spec {label}: {kernel} never launched at S={k + 1}: {r['decode_calls_by_s']}")
+        if r["draft"]:
+            check(r["plain_calls_outside_draft"] == 0,
+                  f"spec {label}: {r['plain_calls_outside_draft']} plain-op calls outside the "
+                  "draft's ingest")
+        else:
+            check(r["plain_calls"] == 0, f"spec {label}: {r['plain_calls']} plain-op calls")
+
+
+def spec_phase(torch, model, card: str) -> dict:
+    """Speculative decoding on the loaded Llama-3-8B bf16 model: the spec
+    cell's requests with speculation off, n-gram lookup at k = 4 and 7, the
+    model as its own draft (its weights, a cache of its own) and a
+    Llama-3.2-1B-width draft (random weights from a seed), k = 4."""
+    from dynamo_tpu_torch.models.convert import init_params
+    from dynamo_tpu_torch.models.llama import LlamaModel
+
+    t0 = time.perf_counter()
+    cfg = llama32_1b()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    draft = LlamaModel.from_state(cfg, init_params(cfg, gen, device="cuda"))
+    n_params = sum(p.numel() for p in draft.parameters())
+    log(f"spec: Llama-3.2-1B-width draft, {n_params / 1e9:.3f} B parameters, "
+        f"{2 * n_params / 1e9:.2f} GB bf16, random weights in {time.perf_counter() - t0:.1f} s")
+    plan = (("off", 0, None), ("ngram k=4", 4, None), ("ngram k=7", 7, None),
+            ("self-draft k=4", 4, model), ("1B draft k=4", 4, draft))
+    runs = {}
+    for label, k, d in plan:
+        runs[label] = spec_run(torch, model, dict(DEFAULT_PATH, spec_tokens=k), card, label,
+                               draft=d)
+        runs[label].update(k=k, draft=d is not None)
+        torch.cuda.empty_cache()
+    del draft
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec_checks(runs)
+    for label, r in runs.items():
+        if r["k"]:
+            r["parted"] = spec_near_ties(torch, model, runs["off"], r, card)
+    self_share = runs["self-draft k=4"]["accepted_share"]
+    small_share = runs["1B draft k=4"]["accepted_share"]
+    check(self_share > small_share, f"spec: the self-draft accepted {self_share:.3f}, not more "
+          f"than the 1B draft's {small_share:.3f}")
+    log(f"spec: accepted share, self-draft {self_share:.3f} against the 1B draft's "
+        f"{small_share:.3f} ({card})")
+    return runs
+
+
+def spec_phase_q8(torch, model, card: str) -> dict:
+    """Speculation off and n-gram lookup at k = 4 on the int8 model (int8
+    weights and cache, Bs = 32): the verify on B4a and B5."""
+    runs = {}
+    for label, k in (("int8 off", 0), ("int8 ngram k=4", 4)):
+        runs[label] = spec_run(torch, model, dict(INT8_DEFAULT_PATH, spec_tokens=k), card, label)
+        runs[label].update(k=k, draft=False)
+        gc.collect()
+        torch.cuda.empty_cache()
+    spec_checks(runs, quant=True)
+    check(runs["int8 ngram k=4"]["launches"]["matmul"] > 0, "spec int8: B5 never launched")
+    runs["int8 ngram k=4"]["parted"] = spec_near_ties(
+        torch, model, runs["int8 off"], runs["int8 ngram k=4"], card, bs=BS_Q8, cache_dtype="int8")
+    return runs
 
 
 def moe_serving_phase(torch, card: str) -> tuple[dict, dict]:
@@ -1651,7 +2109,10 @@ def moe_serving_phase(torch, card: str) -> tuple[dict, dict]:
         weights = sum(p.numel() * p.element_size() for p in model.parameters())
         log(f"serving: Qwen3-30B-A3B{' int8' if quant else ''}, {cfg.num_layers} layers, "
             f"{weights / 1e9:.2f} GB of random weights in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
         run = serve_run(torch, model, config, card, label, profile=True)
+        log(f"serving: the {label} run, its warm-up and its profile took "
+            f"{time.perf_counter() - t0:.1f} s on the host")
         check(all(run["launches"][k] > 0 for k in need) and not any(run["launches"][k] for k in none),
               f"{label}: launches {run['launches']}, need {need} > 0, {none} = 0")
         if quant:
@@ -1676,21 +2137,28 @@ def profile_serving(torch, engine, reqs, card: str) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
-
-    events = sorted(prof.key_averages(), key=dev_us, reverse=True)
-    busy_s = sum(dev_us(e) for e in events) / 1e6
-    top = ", ".join(f"{e.key[:48]} {dev_us(e) / 1e3:.1f} ms x{e.count}" for e in events[:6])
+    # device time and launches by kernel name, summed over the raw events:
+    # key_averages() builds a Python object for each of a run's ~10^5
+    # launches and took up to 160 s for one Qwen3-30B-A3B run
+    t0 = time.perf_counter()
+    per_name: dict[str, tuple[float, int]] = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            us, n = per_name.get(e.name(), (0.0, 0))
+            per_name[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+    events = sorted(per_name.items(), key=lambda kv: kv[1][0], reverse=True)
+    busy_s = sum(us for us, _ in per_name.values()) / 1e6
+    top = ", ".join(f"{name[:48]} {us / 1e3:.1f} ms x{n}" for name, (us, n) in events[:6])
     log(f"profile: device busy {busy_s:.3f} s of {wall:.3f} s wall ({100 * busy_s / wall:.1f}%); "
-        f"top kernels: {top} ({card})")
+        f"top kernels: {top}; {len(events)} device event names summed in "
+        f"{time.perf_counter() - t0:.1f} s ({card})")
     grouped = {}  # the grouped expert kernel's device time by (E1 or E2, rows a tile)
-    for e in events:
-        m = re.search(r"grouped_wgmma_kernel<(\d+), (true|false)>", e.key)
+    for name, (us, count) in events:
+        m = re.search(r"grouped_wgmma_kernel<(\d+), (true|false)>", name)
         if m:
             kind = "E2" if m.group(2) == "true" else "E1"
             ms, n = grouped.get((kind, int(m.group(1))), (0.0, 0))
-            grouped[(kind, int(m.group(1)))] = (ms + dev_us(e) / 1e3, n + e.count)
+            grouped[(kind, int(m.group(1)))] = (ms + us / 1e3, n + count)
     for kind in ("E1", "E2"):
         rows = sorted((r, v) for (k, r), v in grouped.items() if k == kind)
         if rows:
@@ -1878,12 +2346,60 @@ def _hold_logits(torch, what: str, a, b, card: str) -> None:
     check(max_rel <= PARITY_MAX_REL, f"parity {what}: max rel {max_rel} > {PARITY_MAX_REL}")
 
 
-def parity_phase(torch, card: str, quant: bool = False, make_cfg=None, width: str = "8B") -> None:
+def _verify_logits(torch, model, device, rows, bs=BS, cache_dtype=None):
+    """Prefill each row's prefix (its own dispatch), then ONE speculative
+    verify dispatch [B, S]: row i's live tokens at its prefix length on,
+    padding past them (positions 0, no cache write), as the engine lays a
+    verify out.  Returns the logits at every live verify position."""
+    m = 2048 // bs
+    s = max(len(toks) for _, toks in rows)
+    b = len(rows)
+    cache = model.init_kv_cache(1 + sum(-(-(len(p) + s) // bs) for p, _ in rows), bs, cache_dtype)
+    host_bt = torch.zeros((b, m), dtype=torch.int32)
+    nxt = 1
+    for i, (prefix, _) in enumerate(rows):
+        nb = -(-(len(prefix) + s) // bs)
+        host_bt[i, :nb] = torch.arange(nxt, nxt + nb, dtype=torch.int32)
+        nxt += nb
+    bt = host_bt.to(device)
+    for i, (prefix, _) in enumerate(rows):  # prefill each prefix
+        n = len(prefix)
+        pad = -(-n // bs) * bs
+        t = torch.zeros((1, pad), dtype=torch.int32)
+        t[0, :n] = torch.tensor(prefix, dtype=torch.int32)
+        pos = torch.zeros((1, pad), dtype=torch.int32)
+        pos[0, :n] = torch.arange(n, dtype=torch.int32)
+        slot = torch.full((1, pad), -1, dtype=torch.int32)
+        slot[0, :n] = host_bt[i, pos[0, :n].long() // bs] * bs + pos[0, :n] % bs
+        LIVE_TOKENS["mask"] = (slot.reshape(-1) >= 0).to(device)
+        model.forward(t.to(device), pos.to(device), cache, bt[i:i + 1],
+                      torch.tensor([n], dtype=torch.int32, device=device), slot.to(device),
+                      prefix_blocks=0)
+    tokens = torch.zeros((b, s), dtype=torch.int32)
+    pos = torch.zeros((b, s), dtype=torch.int32)
+    slot = torch.full((b, s), -1, dtype=torch.int32)
+    lens = torch.zeros(b, dtype=torch.int32)
+    for i, (prefix, toks) in enumerate(rows):
+        n, p = len(toks), len(prefix)
+        tokens[i, :n] = torch.tensor(toks, dtype=torch.int32)
+        pos[i, :n] = torch.arange(p, p + n, dtype=torch.int32)
+        slot[i, :n] = host_bt[i, pos[i, :n].long() // bs] * bs + pos[i, :n] % bs
+        lens[i] = p + n
+    LIVE_TOKENS["mask"] = (slot.reshape(-1) >= 0).to(device)
+    hidden, _ = model.forward(tokens.to(device), pos.to(device), cache, bt, lens.to(device),
+                              slot.to(device))
+    live = (slot >= 0).to(device)
+    return model.compute_logits(hidden[live]).float().cpu()
+
+
+def parity_phase(torch, card: str, quant: bool = False, make_cfg=None, width: str = "8B",
+                 verify: bool = False) -> None:
     """A 2-layer model at full width (``make_cfg``: Llama-3-8B's unless
     named) on the card and on the CPU, the same weights on both: bf16
     weights with a bf16 cache (Bs = 16), or int8 weights with an int8 cache
     (``quant``, Bs = 32).  An MoE model's CPU run takes the card's expert
-    choices (``moe_routes``)."""
+    choices (``moe_routes``).  With ``verify``, also a speculative verify
+    dispatch at S = 5 (the decode kernel on the card)."""
     import numpy as np
 
     from dynamo_tpu_torch.models.convert import init_params
@@ -1931,6 +2447,18 @@ def parity_phase(torch, card: str, quant: bool = False, make_cfg=None, width: st
         "rows + 2 spans",
         lambda: _ragged_logits(torch, gpu, torch.device("cuda"), dispatches, bs, kv),
         lambda: _ragged_logits(torch, cpu, torch.device("cpu"), dispatches, bs, kv), card)
+    if verify:
+        # three rows: all five verify tokens live, three, and one (a row
+        # whose proposal is empty)
+        s = SPEC_VERIFY_S[0]
+        rows = [(rng.integers(0, cfg.vocab_size, n).tolist(),
+                 rng.integers(0, cfg.vocab_size, live).tolist())
+                for n, live in ((300, s), (97, 3), (640, 1))]
+        _hold_card_to_cpu(
+            torch, f"verify: 2-layer {width} width, {tag}one S={s} dispatch over prefixes of "
+            "300, 97 and 640 tokens, 5, 3 and 1 live queries",
+            lambda: _verify_logits(torch, gpu, torch.device("cuda"), rows, bs, kv),
+            lambda: _verify_logits(torch, cpu, torch.device("cpu"), rows, bs, kv), card)
     del gpu, cpu, state
     torch.cuda.empty_cache()
 
@@ -2869,7 +3397,7 @@ def grammar_serve_run(torch, model, grammar, toks, config: dict, card: str, labe
     engine = AsyncLLMEngine(core).start()
     reqs = reqs or prompts()
     try:
-        asyncio.run(_serve(engine, [list(range(1, 40))]))  # warm-up, unconstrained
+        asyncio.run(_serve(engine, [list(range(1, 40))], tag="warm-up"))  # unconstrained
         wrappers = _kernel_wrappers()
         for fn in wrappers.values():
             fn.launches = 0
@@ -3377,19 +3905,20 @@ def main() -> int:
         times = timing_phase(torch, card)
         times.update(q8_timing_phase(torch, card))
         times.update(matmul_timing(torch, card))
+        times.update(verify_timing(torch, card))
         times.update(moe_timing(torch, card))
         mla = mla_timing(torch, card)
         mark("kernel timings")
         write_tokenizer(FRONT_DIR)
-        default, budget, mixed = serving_phase(torch, card)
+        default, budget, mixed, spec = serving_phase(torch, card)
         times["ragged"] = ragged_timing(torch, card, mixed)
         times["ragged_err"] = times["ragged"].pop("err")
         mark("Llama-3-8B bf16 serving")
-        q8_default, q8_budget, q8_mixed = serving_phase_q8(torch, card)
+        q8_default, q8_budget, q8_mixed, q8_spec = serving_phase_q8(torch, card)
         times["ragged_q8"] = ragged_timing(torch, card, q8_mixed, quant=True)
         times["ragged_q8_err"] = times["ragged_q8"].pop("err")
         mark("Llama-3-8B int8 serving")
-        parity_phase(torch, card)
+        parity_phase(torch, card, verify=True)
         parity_phase(torch, card, quant=True)
         mark("Llama-3-8B parity")
         front_door_phase(torch, card)
@@ -3419,12 +3948,20 @@ def main() -> int:
     # E1 also DeepSeek-V2-Lite's two default-path runs, bf16 and int8 cache)
     times["moe"]["deepseek_v2_lite"].update(
         launches=ds_default["launches"]["moe"], launches_int8_cache=ds_q8["launches"]["moe"])
+    # the verify shape: each decode kernel's readings at S = 5 and 8 and its
+    # launches at S = k + 1 over the spec runs; B5's at the verify's M = 40
+    spec.update(q8_spec)
+    verify_launches = {kernel: {label: r["decode_calls_by_s"].get(f"{kernel} S={r['k'] + 1}", 0)
+                                for label, r in spec.items()
+                                if r["k"] and label.startswith("int8") == (kernel == "B4a")}
+                       for kernel in ("B1", "B4a")}
     kernels = [
         dict(name="paged_decode_attention", route="cuda",
              source="dynamo_tpu_torch/csrc/decode_attention.cu",
              replaces="dynamo_tpu/ops/pallas/decode_attention.py:281",
              launches=default["launches"]["decode"],
-             max_abs_err=max(errs["decode"], times["decode_err"]), **times["decode"]),
+             max_abs_err=max(errs["decode"], times["decode_err"]), **times["decode"],
+             verify=dict(times["decode_verify"], launches=verify_launches["B1"])),
         dict(name="paged_prefill_attention", route="cuda",
              source="dynamo_tpu_torch/csrc/prefill_attention.cu",
              replaces="dynamo_tpu/ops/pallas/prefill_attention.py:246",
@@ -3439,7 +3976,8 @@ def main() -> int:
              source="dynamo_tpu_torch/csrc/decode_attention.cu",
              replaces="dynamo_tpu/ops/pallas/decode_attention.py:94",
              launches=q8_default["launches"]["decode_q8"],
-             max_abs_err=max(errs["decode_q8"], times["decode_q8_err"]), **times["decode_q8"]),
+             max_abs_err=max(errs["decode_q8"], times["decode_q8_err"]), **times["decode_q8"],
+             verify=dict(times["decode_q8_verify"], launches=verify_launches["B4a"])),
         dict(name="paged_prefill_attention_q8", route="cuda",
              source="dynamo_tpu_torch/csrc/prefill_attention.cu",
              replaces="dynamo_tpu/ops/pallas/prefill_attention.py:57",
@@ -3454,7 +3992,9 @@ def main() -> int:
              source="dynamo_tpu_torch/csrc/int8_matmul.cu",
              replaces="dynamo_tpu/ops/pallas/int8_matmul.py:64",
              launches=q8_default["launches"]["matmul"],
-             max_abs_err=max(errs["matmul"], times["matmul_err"]), **times["matmul"]),
+             max_abs_err=max(errs["matmul"], times["matmul_err"]), **times["matmul"],
+             verify=dict(times["matmul_verify"],
+                         launches=spec["int8 ngram k=4"]["launches"]["matmul"])),
         dict(name="grouped_matmul", route="cuda",
              source="dynamo_tpu_torch/csrc/grouped_matmul.cu",
              replaces="dynamo_tpu/models/llama.py:631",
@@ -3466,6 +4006,8 @@ def main() -> int:
              launches=moe_budget["launches"]["moe_q8"],
              max_abs_err=max(errs["moe_q8"], times["moe_q8_err"]), **times["moe_q8"]),
     ]
+    log(json.dumps({"spec": [{k: v for k, v in r.items() if k != "streams"}
+                             for r in spec.values()]}))
     log(json.dumps({"mla": mla}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,11 +12,12 @@ PyTorch engine, on the GPU: a Llama-family directory (Mixtral and Qwen3-MoE
 included) or a DeepSeek-V2 one (``models/deepseek.py``; ``--quantize int8``
 is refused for it, as in the JAX CLI).  With no GPU present it fails rather
 than run on the CPU (``--device cpu`` is the plain PyTorch path the tests take);
-``out=echo`` echoes the prompt's tokens back with no model.  One engine
-option the PyTorch engine does not carry yet, ``--spec-tokens``, is accepted
-here and refused by the engine with its own message
-(``EngineCore._check_supported``); the JAX CLI's other unported options are
-not flags of this command.
+``out=echo`` echoes the prompt's tokens back with no model.
+``--spec-tokens N`` turns on speculative decoding (prompt-lookup n-grams),
+and ``--spec-draft-model DIR`` proposes with a small same-tokenizer model
+instead, loaded unquantised as the target is loaded; a configuration the
+engine refuses (a draft of another vocabulary) exits with the engine's
+message.  The JAX CLI's unported options are not flags of this command.
 """
 
 from __future__ import annotations
@@ -69,28 +70,39 @@ def build_local_engine(args) -> tuple[object, object]:
         num_blocks=args.num_blocks,
         cache_dtype="int8" if args.kv_cache_dtype == "int8" else None,
         spec_tokens=args.spec_tokens,
+        draft_num_blocks=args.spec_draft_num_blocks,
         prefill_chunk_tokens=args.prefill_chunk_tokens,
         prefill_token_budget=args.prefill_token_budget,
         unified_token_dispatch=args.unified_token_dispatch,
         lookahead_dispatch=args.lookahead_dispatch,
     )
+    if args.spec_draft_model and cfg.spec_tokens <= 0:
+        raise SystemExit("--spec-draft-model requires --spec-tokens > 0")
     quantize = args.quantize == "int8"
     dtype = args.dtype or "bfloat16"
-    t0 = time.perf_counter()
-    if is_deepseek_dir(args.model_path):  # the MLA family, as the JAX CLI dispatches it
-        if quantize:
-            raise SystemExit("--quantize int8 is not wired for this model family yet")
-        mcfg, state = load_deepseek_dir(args.model_path, dtype=dtype, device=device)
-        model = DeepseekModel.from_state(mcfg, state)
-    else:
-        mcfg, state = load_model_dir(args.model_path, dtype=dtype, device=device,
-                                     quantize=quantize)
-        model = LlamaModel.from_state(mcfg, state)
-    log.info("loaded %s (%s, %d layers%s) on %s in %.1f s", args.model_path,
-             type(model).__name__, mcfg.num_layers, ", int8 weights" if quantize else "", device,
-             time.perf_counter() - t0)
+
+    def load(path, quantize):
+        t0 = time.perf_counter()
+        if is_deepseek_dir(path):  # the MLA family, as the JAX CLI dispatches it
+            if quantize:
+                raise SystemExit("--quantize int8 is not wired for this model family yet")
+            mcfg, state = load_deepseek_dir(path, dtype=dtype, device=device)
+            model = DeepseekModel.from_state(mcfg, state)
+        else:
+            mcfg, state = load_model_dir(path, dtype=dtype, device=device, quantize=quantize)
+            model = LlamaModel.from_state(mcfg, state)
+        log.info("loaded %s (%s, %d layers%s) on %s in %.1f s", path, type(model).__name__,
+                 mcfg.num_layers, ", int8 weights" if quantize else "", device,
+                 time.perf_counter() - t0)
+        return model
+
+    model = load(args.model_path, quantize)
+    # draft-model speculation: a small same-tokenizer model proposes, the
+    # target verifies (engine/draft.py); loaded unquantised, as in the JAX CLI
+    draft = load(args.spec_draft_model, False) if args.spec_draft_model else None
     try:
-        core = EngineCore(model, cfg, eos_token_ids=card.eos_token_ids or None, device=device)
+        core = EngineCore(model, cfg, eos_token_ids=card.eos_token_ids or None, device=device,
+                          draft=draft)
     except ValueError as e:  # an option the PyTorch engine refuses
         raise SystemExit(str(e)) from None
     return AsyncLLMEngine(core).start(), card
@@ -236,10 +248,17 @@ def _parser() -> argparse.ArgumentParser:
                      help="fuse mixed turns into bursts with one result read, and "
                      "prebuild the next turn while the card computes (implies "
                      "--unified-token-dispatch)")
-    # the one JAX engine option kept on the command line although the
-    # PyTorch engine refuses it (with its own message) until it is ported
     run.add_argument("--spec-tokens", type=int, default=0,
-                     help="n-gram speculative decoding (not ported: the engine refuses N > 0)")
+                     help="speculative decoding: verify up to N proposed "
+                     "tokens per dispatch (rejection-sampled — exact at "
+                     "any temperature); proposals come from prompt-lookup "
+                     "n-grams, or a draft model with --spec-draft-model")
+    run.add_argument("--spec-draft-model", default=None,
+                     help="small same-tokenizer model dir: draft-model "
+                     "speculation instead of n-gram lookup")
+    run.add_argument("--spec-draft-num-blocks", type=int, default=0,
+                     help="draft cache block count (0 = same as "
+                     "--num-blocks; shrink on HBM-tight deployments)")
     run.add_argument("--max-tokens", type=int, default=128,
                      help="tokens per answer for in=text:, stdin and batch:")
     run.add_argument("--host", default="127.0.0.1")

@@ -78,11 +78,12 @@ class EngineConfig:
     # (decode_steps * ITL ≈ 760ms at 64 steps) before its first chunk —
     # the dominant term in VERDICT r2's TTFT miss.  0 = min(8, decode_steps).
     interactive_decode_steps: int = 0
-    # prompt-lookup speculative decoding (engine/spec.py): propose up to
+    # speculative decoding (engine/spec.py, engine/draft.py): propose up to
     # spec_tokens continuation tokens by n-gram match against the sequence
-    # itself and verify them in ONE dispatch.  Greedy-exact; engages only
-    # for dispatches where every active request is plain greedy (no
-    # penalties/logprobs/bias/min_p/JSON mode).  0 = off.
+    # itself (or from a draft model) and verify them in ONE dispatch.
+    # Rejection-sampled, so exact at any temperature; engages only for
+    # dispatches where no active request uses penalties, logprobs,
+    # logit_bias, a grammar or top_k > K_MAX.  0 = off.
     spec_tokens: int = 0
     spec_ngram: int = 3
     # draft-model speculation (engine/draft.py): block count of the

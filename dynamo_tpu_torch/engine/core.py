@@ -14,7 +14,16 @@ tensor updated in place.  Dispatches:
   followed by further decode turns on the device, one result read per
   burst; while it runs the host prebuilds the next turn's operands;
 * :func:`multi_decode_step` — multi-step decode bursts for every running
-  slot.
+  slot;
+* :func:`spec_verify_step` — with ``spec_tokens = k``, speculative decoding:
+  each running slot's last token and up to k proposed tokens (prompt-lookup
+  n-grams, :mod:`~dynamo_tpu_torch.engine.spec`, or a draft model,
+  :mod:`~dynamo_tpu_torch.engine.draft`) verified in ONE S = k + 1 forward
+  that samples every position; the host keeps the agreeing prefix and one
+  more token.  It is tried first on every decode turn (the unified
+  scheduler's pure-decode turns included); a batch it does not suit takes
+  the burst.  On the card the verify takes the decode kernel for S <= 8
+  (``MQ_MAX_S``) and the plain attention op beyond, as in the JAX package.
 
 Scheduling policy: admit waiting requests into free slots, then one prefill
 turn or one decode burst per iteration (alternating under chunked prefill),
@@ -42,9 +51,9 @@ Int8 weights come with the model (``init_params(quantized=True)`` or
 ``params_from_jax`` of a quantised tree).
 
 Not ported yet, and refused at construction (:meth:`EngineCore.
-_check_supported`): speculative decoding, sequence-parallel prefill, host
-offload and the persistent tier, cache dtypes other than int8 and the
-model's, meshes, and the profile hook.
+_check_supported`): sequence-parallel prefill, host offload and the
+persistent tier, cache dtypes other than int8 and the model's, meshes, and
+the profile hook.
 
 Thread-safety: everything here runs on the engine thread; submit()/abort()
 are the only cross-thread entry points and only touch thread-safe queues.
@@ -63,6 +72,7 @@ import torch
 from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.engine.config import EngineConfig
 from dynamo_tpu_torch.engine.counters import LookaheadCounters, PrefillCounters
+from dynamo_tpu_torch.engine.draft import DraftProposer
 from dynamo_tpu_torch.engine.grammar import (
     JsonGrammar, compile_choice_vocab, compile_regex_vocab, compose_tables, device_tables,
     grammar_advance, grammar_mask,
@@ -77,7 +87,7 @@ from dynamo_tpu_torch.tokens import TokenBlockSequence
 log = logging.getLogger("dynamo_tpu_torch.engine")
 
 __all__ = ["EngineCore", "unified_step", "multi_decode_step", "ragged_prefill_step",
-           "unified_token_step", "unified_burst_step"]
+           "unified_token_step", "unified_burst_step", "spec_verify_step"]
 
 
 def _pack(sampled, lp, cids, clps) -> torch.Tensor:
@@ -215,6 +225,39 @@ def multi_decode_step(model: LlamaModel, cache, last_tokens, positions, block_ta
 
 
 @torch.no_grad()
+def spec_verify_step(model: LlamaModel, cache, tokens, positions, block_tables, seq_lens,
+                     slot_idx, generator, temp, top_k, top_p, min_p=None, seeds=None,
+                     seed_rows=None, *, k_cand: int = K_MAX) -> torch.Tensor:
+    """Speculative verify: forward S tokens per row against the paged
+    cache (KV scattered as a decode step scatters it) and SAMPLE at every
+    position with that position's own noise — the host accepts the proposal
+    prefix the samples agree with.
+
+    This is exact rejection sampling for a point-mass proposal: "sample
+    from the target and accept iff it matches" accepts with probability
+    p(x), and on mismatch the drawn sample is already distributed as the
+    renormalised residual, so every emitted token is distributed exactly as
+    plain decoding, at any temperature.  Greedy rows reduce to argmax;
+    seeded rows fold on each sampled token's absolute position
+    (``positions + 1``), so their streams are the same with speculation on
+    or off.  Each row's options are repeated over its S positions.
+
+    Returns the sampled tokens [B, S] int32 on the device."""
+    hidden, _ = model.forward(tokens, positions, cache, block_tables, seq_lens, slot_idx)
+    b, s = tokens.shape
+    logits = model.compute_logits(hidden.reshape(b * s, -1))  # [B*S, V] f32
+
+    def rep(a):
+        return None if a is None else a.repeat_interleave(s)
+
+    sampled = sample_full(
+        logits, generator, rep(temp), rep(top_k), rep(top_p), min_p=rep(min_p),
+        seeds=rep(seeds), seed_rows=rep(seed_rows),
+        seed_steps=None if seeds is None else positions.reshape(b * s) + 1, k_cand=k_cand)[0]
+    return sampled.reshape(b, s)
+
+
+@torch.no_grad()
 def ragged_prefill_step(model: LlamaModel, cache, tokens, positions, block_tables, seq_lens,
                         slot_idx, seq_ids, seq_starts, row_offsets, last_idx, generator, temp,
                         top_k, top_p, prefix_blocks=0, k_cand=K_MAX, min_p=None,
@@ -322,6 +365,7 @@ class EngineCore:
         eos_token_ids: Optional[list[int]] = None,
         device=None,
         grammar: Optional[JsonGrammar] = None,
+        draft: Optional[LlamaModel] = None,
     ):
         self.device = resolve_device(device)
         if model.device != self.device:
@@ -329,6 +373,23 @@ class EngineCore:
         self._check_supported(model, config)
         self.model = model
         self.config = config
+        # draft-model speculation: a model (its weights in the module) with
+        # the same tokenizer/vocab as the target — proposals come from the
+        # draft (engine/draft.py) instead of n-gram lookup; the verify pass
+        # is unchanged (greedy point-mass proposals keep it exact)
+        self.draft = None
+        if draft is not None:
+            if config.spec_tokens <= 0:
+                # a silently-inactive draft would be a lie to the operator
+                raise ValueError(
+                    "a draft model requires spec_tokens > 0 (--spec-tokens) to ever propose")
+            if draft.config.vocab_size != model.config.vocab_size:
+                raise ValueError(
+                    "draft model must share the target's vocab "
+                    f"({draft.config.vocab_size} != {model.config.vocab_size})")
+            if draft.device != self.device:
+                raise ValueError(f"the draft lives on {draft.device}, the engine on {self.device}")
+            self.draft = DraftProposer(draft, config, num_blocks=config.draft_num_blocks or None)
         self.eos_token_ids = set(eos_token_ids or [])
         # constrained decoding: the JSON grammar's host tables (compiled
         # from the tokenizer lazily on the first constrained request, see
@@ -367,6 +428,9 @@ class EngineCore:
         self.prefill_counters = PrefillCounters()
         self.lookahead_counters = LookaheadCounters()
         self.decode_steps = 0
+        self.spec_steps = 0              # speculative verify dispatches
+        self.spec_proposed = 0           # tokens proposed (n-gram lookup or draft)
+        self.spec_accepted = 0           # proposals the model agreed with
         self.tokens_generated = 0
         self.prompt_tokens_computed = 0  # actual prefill work (dedupe-aware)
         self.device_gets = 0             # step-loop device->host result reads
@@ -392,7 +456,6 @@ class EngineCore:
         """Refuse the options whose paths are not ported yet, instead of
         serving them on a path that ignores them."""
         unported = {
-            "spec_tokens": cfg.spec_tokens > 0,
             "sp_prefill_threshold": cfg.sp_prefill_threshold > 0,
             "num_host_blocks": cfg.num_host_blocks > 0,
             "kv_persist_dir": bool(cfg.kv_persist_dir),
@@ -654,8 +717,7 @@ class EngineCore:
                 break
 
     def metrics(self) -> dict:
-        """ForwardPassMetrics equivalent, under the JAX engine's key names
-        (speculative decoding is not ported: its keys report 0)."""
+        """ForwardPassMetrics equivalent, under the JAX engine's key names."""
         active = sum(1 for s in self.slots if s is not None)
         pc, lc = self.prefill_counters, self.lookahead_counters
         return {
@@ -666,9 +728,9 @@ class EngineCore:
             "num_requests_waiting": self.waiting.qsize() + len(self._admitted),
             "kv_usage_perc": self.block_manager.usage,
             "tokens_generated": self.tokens_generated,
-            "spec_steps": 0,
-            "spec_proposed": 0,
-            "spec_accepted": 0,
+            "spec_steps": self.spec_steps,
+            "spec_proposed": self.spec_proposed,
+            "spec_accepted": self.spec_accepted,
             "prefill_dispatches_total": pc.dispatches_total,
             "prefill_batch_occupancy": pc.batch_occupancy,
             "prefill_budget_utilization": pc.budget_utilization,
@@ -1380,14 +1442,151 @@ class EngineCore:
                     return None
         return min(len(req.block_ids) * cfg.block_size, cfg.max_model_len)
 
+    # ----------------------------------------------------- speculative decode
+    @staticmethod
+    def _spec_eligible(reqs) -> bool:
+        """Speculation composes with plain sampling (greedy, temperature,
+        top_k <= K_MAX, top_p, min_p, per-request seeds — the verify pass
+        samples each position with its own noise, see
+        :func:`spec_verify_step`).  Still excluded: penalties (the verify
+        forward doesn't thread the generated-token buffers through accepted
+        positions), logprobs (not returned per verified position),
+        logit_bias, and grammar modes (mask state advances once per emitted
+        token on the decode path).  top_k > K_MAX keeps the burst, as in the
+        JAX engine."""
+        return all(
+            (r.sampling.greedy or r.sampling.top_k <= K_MAX)
+            and not r.sampling.frequency_penalty
+            and not r.sampling.presence_penalty
+            and not r.sampling.logprobs
+            and not r.sampling.top_logprobs
+            and not r.sampling.logit_bias
+            and not r.sampling.json_mode
+            and not r.sampling.guided_choice
+            and not r.sampling.guided_regex
+            for r in reqs
+        )
+
+    def _try_spec_decode(self) -> bool:
+        """Speculative dispatch: verify up to ``spec_tokens`` proposed
+        continuations per row in ONE forward (:func:`spec_verify_step`) and
+        emit the matching prefix + one bonus token.  Proposals come from the
+        draft model when there is one (one draft dispatch for the batch) and
+        from n-gram lookup for the rows it cannot serve.  Returns False when
+        no row has a proposal, or when bursts are configured and fewer than
+        half the rows propose (the caller falls back to the burst).
+
+        The block table is sliced to the batch's live context (power-of-two
+        bucketed), which is what bounds the plain op's gather; the decode
+        kernel streams only each row's live blocks either way."""
+        from dynamo_tpu_torch.engine.spec import propose_ngram
+
+        cfg = self.config
+        k = cfg.spec_tokens
+        b, m = cfg.max_batch_size, cfg.max_blocks_per_seq
+        s = k + 1
+        active = [r for r in self.slots if r is not None and r.state is RequestState.RUNNING]
+        if not active or not self._spec_eligible(active):
+            return False
+
+        tokens = np.zeros((b, s), np.int32)
+        positions = np.zeros((b, s), np.int32)
+        slot_idx = np.full((b, s), -1, np.int32)
+        bt = np.zeros((b, m), np.int32)
+        seq_lens = np.zeros(b, np.int32)
+        limits = np.zeros(b, np.int32)
+        temp = np.zeros(b, np.float32)  # inactive rows: greedy, ignored
+        top_k = np.zeros(b, np.int32)
+        top_p = np.ones(b, np.float32)
+        props: dict[int, list[int]] = {}
+        rows: list[EngineRequest] = []
+        any_prop = False
+        # draft-model proposals for the whole batch in one dispatch; rows
+        # the draft can't serve fall back to n-gram lookup below
+        draft_props = self.draft.propose(active, k, m) if self.draft is not None else {}
+        for req in active:
+            i = req.slot
+            temp[i] = req.sampling.temperature
+            top_k[i] = req.sampling.top_k
+            top_p[i] = req.sampling.top_p
+            p = req.seq.total_tokens - 1  # position of the uncomputed tail
+            limit = self._grow_blocks(req, s)
+            if limit is None:
+                continue
+            prop = draft_props.get(i) or propose_ngram(req.seq.tokens, cfg.spec_ngram, k)
+            prop = prop[:max(0, limit - (p + 1))]  # KV positions stay in range
+            props[i] = prop
+            any_prop = any_prop or bool(prop)
+            rows.append(req)
+            row_tokens = [req.seq.tokens[-1]] + prop
+            n = len(row_tokens)
+            # live queries only: positions past a row's n stay 0 and its pad
+            # queries' samples are discarded
+            tokens[i, :n] = row_tokens
+            positions[i, :n] = np.arange(p, p + n, dtype=np.int32)
+            blk = positions[i, :n] // cfg.block_size
+            slot_idx[i, :n] = (np.asarray(req.block_ids, np.int32)[blk] * cfg.block_size
+                               + positions[i, :n] % cfg.block_size)
+            bt[i, :len(req.block_ids)] = req.block_ids
+            seq_lens[i] = p + n
+            limits[i] = limit
+        if not any_prop or not rows:
+            return False
+        # a speculative dispatch emits 1 token for every non-proposing row
+        # (vs up to decode_steps in a burst): one repetitive request must
+        # not collapse the whole batch's throughput, so speculate only when
+        # proposals cover at least half the rows (single-row batches always
+        # qualify — speculation is the latency lever there)
+        proposing = sum(1 for r in rows if props.get(r.slot))
+        if cfg.decode_steps > 1 and proposing * 2 < len(rows):
+            return False
+
+        # slice the block table to the batch's live context, pow2-bucketed
+        blocks_used = max(1, -(-int(seq_lens.max()) // cfg.block_size))
+        m_used = min(m, 1 << (blocks_used - 1).bit_length())
+        up = self._up
+        extras = self._sampling_extras(rows, rows=[r.slot for r in rows])
+        packed = spec_verify_step(
+            self.model, self.cache, up(tokens), up(positions), up(bt[:, :m_used]), up(seq_lens),
+            up(slot_idx), self._gen, up(temp), up(top_k), up(top_p), min_p=extras.get("min_p"),
+            seeds=extras.get("seeds"), seed_rows=extras.get("seed_rows"),
+            k_cand=self._k_cand(rows))
+        verified = self._read(packed)
+        self.steps += 1
+        self.decode_steps += 1
+        self.spec_steps += 1
+        for req in rows:
+            i = req.slot
+            prop = props.get(i, [])
+            # accept the proposal prefix the verify samples agree with, then
+            # the bonus token from the first disagreeing (or final) position
+            # — each emitted token is that position's own sample
+            a = 0
+            while a < len(prop) and prop[a] == int(verified[i, a]):
+                a += 1
+            emit = [int(verified[i, j]) for j in range(a + 1)]
+            self.spec_proposed += len(prop)
+            self.spec_accepted += a
+            allowed = min(len(emit), int(limits[i] - (req.seq.total_tokens - 1)))
+            for t in emit[:allowed]:
+                if req.state is not RequestState.RUNNING:
+                    break  # EOS/stop/max_tokens mid-acceptance
+                self._append_token(req, t)
+            if req.state is RequestState.RUNNING and allowed < len(emit):
+                self._finish_slot(req, FinishReason.LENGTH)
+        return True
+
     def _run_decode(self) -> None:
         """One decode dispatch = up to ``config.decode_steps`` tokens per
         active sequence (``interactive_decode_steps`` while prefill work is
         pending), generated on the device with one host sync per burst.
         Blocks for the whole burst are allocated up front; a sequence that
         runs out of block space stops writing KV at its ``limit`` and is
-        finished at LENGTH once its allowed samples are consumed."""
+        finished at LENGTH once its allowed samples are consumed.  With
+        ``spec_tokens`` a speculative verify is tried first."""
         cfg = self.config
+        if cfg.spec_tokens > 0 and self._try_spec_decode():
+            return
         b, m = cfg.max_batch_size, cfg.max_blocks_per_seq
         can_admit = (
             any(s is None for s in self.slots) and self.block_manager.free_blocks > 0
@@ -1544,6 +1743,8 @@ class EngineCore:
                      emitted: bool = False) -> None:
         if req.slot >= 0 and self.slots[req.slot] is req:
             self.slots[req.slot] = None
+            if self.draft is not None:
+                self.draft.release(req.slot)
         self._pen_cache = None  # live request set changed
         # drop unresolved reservations (commit resolved the rest) so any
         # joiners waiting on us take over instead of hanging

@@ -77,9 +77,13 @@ def paged_attention_layer(
 ) -> torch.Tensor:
     """Attention for layer ``layer`` against the full paged cache.
 
-    On CUDA, 1 <= S <= MQ_MAX_S goes to the decode kernel, which requires
-    each row's positions to be contiguous (``positions[:, j] ==
-    positions[:, 0] + j``) — true for every engine caller.  ``window``
+    On CUDA, 1 <= S <= MQ_MAX_S goes to the decode kernel, which reads only
+    ``positions[:, 0]`` and puts query j at ``positions[:, 0] + j``: every
+    engine caller's LIVE queries are contiguous that way, and a pad query
+    past a row's live ones (the speculative verify leaves its positions 0)
+    gives output nobody reads, position-exact here and at q0 + j there.
+    Longer S (a verify with ``spec_tokens`` >= 8, a draft's ingest of more
+    than 8 tokens) takes the plain op, as in the JAX package.  ``window``
     (Mistral/Phi3 sliding window) routes to the position-exact plain op only
     when the table's span (M*Bs) can exceed the window; otherwise full
     attention is exact.  Everything else takes the plain op.

@@ -11,8 +11,11 @@ against the port model's own greedy decode).  ``in=stdin`` and
 ``in=batch:`` run with ``out=echo``; ``in=http`` answers a greedy
 completion over a real socket and exits cleanly on SIGTERM; ``out=gpu``
 without ``--device`` on a machine with no GPU fails with the device error,
-and an engine option the PyTorch engine refuses fails with the engine's
-message.  On a tiny DeepSeek-V2 checkpoint ``build_local_engine`` (``--device
+and a configuration the PyTorch engine refuses (a draft model of another
+vocabulary) fails with the engine's message.  ``--spec-tokens 2`` serves the
+greedy text, n-gram lookup alone and with ``--spec-draft-model`` (the
+checkpoint as its own draft), and ``--spec-draft-model`` without
+``--spec-tokens`` exits with the JAX CLI's message.  On a tiny DeepSeek-V2 checkpoint ``build_local_engine`` (``--device
 cpu``) answers a greedy completion with transformers' greedy tokens, and
 ``--quantize int8`` exits with the JAX CLI's message.
 """
@@ -188,13 +191,60 @@ def test_out_gpu_without_a_gpu_fails(model_dir):
     assert out.stdout == ""
 
 
-def test_refused_engine_option_fails_with_the_engine_message(model_dir):
+@pytest.fixture(scope="module")
+def other_vocab_dir(tmp_path_factory):
+    """A tiny checkpoint of 96 ids, a draft the 128-id model cannot take."""
+    d = tmp_path_factory.mktemp("cli") / "other"
+    make_tiny_hf_checkpoint(d, vocab_size=96, seed=1)
+    return d
+
+
+def test_refused_engine_option_fails_with_the_engine_message(model_dir, other_vocab_dir):
     out = _run(PKG, ["run", "in=text:hello", "out=gpu", "--device", "cpu", "--model-path",
-                     str(model_dir), "--spec-tokens", "2", *ENGINE_FLAGS])
+                     str(model_dir), "--spec-tokens", "2", "--spec-draft-model",
+                     str(other_vocab_dir), *ENGINE_FLAGS])
     assert out.returncode != 0
-    assert "EngineConfig options not supported by the PyTorch engine: ['spec_tokens']" \
-        in out.stderr
+    assert "draft model must share the target's vocab (96 != 128)" in out.stderr
     assert out.stdout.strip() == ""
+
+
+@pytest.mark.parametrize("draft", [False, True], ids=["ngram", "draft"])
+def test_run_text_with_speculation(model_dir, draft):
+    prompt = "w1 w2 w1 w2 w1 w2"
+    cfg, state = load_model_dir(model_dir, dtype="float32", device="cpu")
+    greedy, margin = _greedy(LlamaModel.from_state(cfg, state),
+                             TokenizerWrapper.from_file(model_dir), prompt)
+    assert margin > MIN_MARGIN, margin
+    flags = ["--spec-tokens", "2"] + (["--spec-draft-model", str(model_dir)] if draft else [])
+    out = _run(PKG, ["run", f"in=text:{prompt}", "out=gpu", "--device", "cpu", "--model-path",
+                     str(model_dir), "--max-tokens", str(MAX_TOKENS), *flags, *ENGINE_FLAGS])
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == greedy
+
+
+def test_draft_model_without_spec_tokens_exits(model_dir):
+    out = _run(PKG, ["run", "in=text:hello", "out=gpu", "--device", "cpu", "--model-path",
+                     str(model_dir), "--spec-draft-model", str(model_dir), *ENGINE_FLAGS])
+    assert out.returncode != 0
+    assert "--spec-draft-model requires --spec-tokens > 0" in out.stderr
+    assert out.stdout.strip() == ""
+
+
+def test_build_local_engine_attaches_the_draft(model_dir):
+    from dynamo_tpu_torch.cli import build_local_engine, parse_args
+
+    engine, _ = build_local_engine(parse_args([
+        "run", "in=http", "out=gpu", "--device", "cpu", "--model-path", str(model_dir),
+        "--spec-tokens", "3", "--spec-draft-model", str(model_dir), "--spec-draft-num-blocks",
+        "8", *ENGINE_FLAGS]))
+    try:
+        core = engine.core
+        assert core.config.spec_tokens == 3 and core.config.draft_num_blocks == 8
+        assert core.draft is not None and core.draft.model is not core.model
+        assert len(core.draft._free) == 8
+        assert core.draft.model.config.vocab_size == core.model.config.vocab_size
+    finally:
+        engine.shutdown()
 
 
 @pytest.fixture(scope="module")

@@ -74,8 +74,8 @@ def test_entry_points_raise_without_a_device(no_cuda):
 def test_engine_refuses_unported_options():
     cfg = ModelConfig.tiny()
     model = LlamaModel.from_state(cfg, init_params(cfg, torch.Generator(), device="cpu"))
-    with pytest.raises(ValueError, match="spec_tokens"):
-        EngineCore(model, EngineConfig(max_model_len=64, num_blocks=8, spec_tokens=2),
+    with pytest.raises(ValueError, match="num_host_blocks"):
+        EngineCore(model, EngineConfig(max_model_len=64, num_blocks=8, num_host_blocks=4),
                    device="cpu")
 
 
