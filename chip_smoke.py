@@ -86,7 +86,35 @@ Phases, in order; any failure ends the run with a non-zero exit:
    self-draft accepting more than the 1B draft, and every stream that parts
    from speculation off's parting at a near-tie (the common prefix
    re-scored on the card; ``SPEC_TIE_EPS``).  It prints each run's
-   readings and one ``{"spec": [...]}`` line at the end;
+   readings and one ``{"spec": [...]}`` line at the end.  Then the
+   ``disagg`` phase on each model: disaggregated prefill/decode as
+   ``examples/llm/components/colocated_worker.py`` serves it, a
+   ``CoordinatorServer`` in this process, a decode engine behind a
+   ``DecodeWorker`` that sends every prompt to the prefill queue
+   (``max_local_prefill_length=0``) and a prefill engine behind a
+   ``PrefillWorker``, both on the default path and sharing the model.  On
+   bf16: the colocated path (blocks copied on the card), the six prompts
+   one at a time (a1) and concurrently (a); (b) over TCP
+   (``DYN_KV_TRANSFER_FORCE_TCP=1``), concurrently; (c) the streamed
+   layer-wise handoff over TCP (a prefill engine in 256-token chunks); (e)
+   two requests one at a time through the port's ``HttpService`` over
+   ``build_serving_pipeline(decode_worker, card)``; on int8 (weights and
+   cache, Bs = 32): over TCP, one at a time (d1) and concurrently (d).
+   Each run on a fresh engine pair: its blocks moved only on its path
+   (``transfer.stats``), (c) sent
+   layers without a fallback, (d)'s parts int8 + float32, the decode
+   engine made no prefill dispatch and the prefill engine no decode turn,
+   the launches are its model's default-path kernels and no other, every
+   handoff's blocks equal the prefill engine's held blocks bit for bit, no
+   block stays held, streams served one at a time equal a local engine's
+   one at a time, and concurrent ones part from the default path's run
+   only at near-ties.  One ``{"disagg": ...}`` line gives each run's TTFT
+   and decode tok/s beside the local engine's (one at a time, or the
+   default path's concurrent run), the blocks and bytes moved,
+   the handoff time from queue push to notify, MB/s per path, and beside
+   them a device-to-device and a pinned device-to-host copy of one
+   handoff's mean bytes (each path's bound) and the block gather + scatter
+   of those bytes;
 5. parity: 2-layer models at full 8B width on the card (kernels, bf16) and
    on the CPU (plain PyTorch, f32), bf16 weights with a bf16 cache and int8
    weights with an int8 cache: one 300-token prompt over a 128-token cached
@@ -151,7 +179,9 @@ each beside its bound and SDPA on the same latent K/V.  Phase 4 prints
 one ``{"grammar": {...}}`` line (the grammar ops' and the seeded noise's
 times, launches and bounds, the table sizes, the constrained serving
 readings beside the unconstrained ones).  At the end one ``{"mla": [...]}``
-line, one ``{"kernels": [...]}`` line (the grouped
+line, the ``{"disagg": ...}`` line, one ``{"kernels": [...]}`` line (each
+kernel's row also holds its launches over the disaggregated runs under
+``launches_disagg``; the grouped
 kernels' rows hold their T = 8 reading and, under ``t1504``, their T =
 1,504 one; E1's also its DeepSeek-V2-Lite readings and launches), and as
 the last line ``{"ok": true, "device": {...}}``.
@@ -1682,9 +1712,12 @@ def serving_phase(torch, card: str):
     t0 = time.perf_counter()
     spec = spec_phase(torch, model, card)
     log(f"spec phase (bf16): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    disagg = disagg_phase(torch, model, default, card)
+    log(f"disagg phase (bf16): {time.perf_counter() - t0:.1f} s")
     del model
     torch.cuda.empty_cache()
-    return default, budget, mixed, spec
+    return default, budget, mixed, spec, disagg
 
 
 def serve_both(torch, model, card: str, quant: bool):
@@ -1741,9 +1774,12 @@ def serving_phase_q8(torch, card: str):
     t0 = time.perf_counter()
     spec = spec_phase_q8(torch, model, card)
     log(f"spec phase (int8): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    disagg = disagg_phase(torch, model, out[0], card, quant=True)
+    log(f"disagg phase (int8): {time.perf_counter() - t0:.1f} s")
     del model
     torch.cuda.empty_cache()
-    return out + (spec,)
+    return out + (spec, disagg)
 
 
 # ------------------------------------------------------------- speculation
@@ -1960,14 +1996,18 @@ def _rescore(torch, model, seq, bs, cache_dtype):
     return model.compute_logits(hidden[:, n - 1])[0].float().cpu()
 
 
-def spec_near_ties(torch, model, base: dict, run: dict, card: str, bs=BS, cache_dtype=None) -> int:
+def spec_near_ties(torch, model, base: dict, run: dict, card: str, bs=BS, cache_dtype=None,
+                   prompts=None, sampling=None) -> int:
     """Hold ``run``'s streams to ``base``'s (speculation off): where a row
     parts, re-score the common prefix on the card and require the two
     tokens' logits (a seeded row: its noisy scores) within SPEC_TIE_EPS x
-    PARITY_MAX_REL x max|logit| (/ T).  Returns the rows that parted."""
+    PARITY_MAX_REL x max|logit| (/ T).  Returns the rows that parted.  The
+    rows are the spec phase's unless ``prompts`` and ``sampling`` (each
+    row's SamplingOptions fields) are given."""
     from dynamo_tpu_torch.engine.sampling import K_MAX, seeded_gumbel
 
-    prompts, sampling = spec_prompts(), spec_sampling()
+    prompts = spec_prompts() if prompts is None else prompts
+    sampling = spec_sampling() if sampling is None else sampling
     parted = 0
     for i, (a, b) in enumerate(zip(base["streams"], run["streams"])):
         j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
@@ -3179,6 +3219,387 @@ def http_serving_run(torch, model, direct: dict, card: str) -> None:
         f"({card})")
 
 
+# ---------------------------------------------------- disaggregated serving
+# The prefill engine of the streamed run prefills in chunks of this many
+# tokens (the six prompts: 1 to 6 chunks), so its first chunks' layers are
+# on the wire while later chunks compute.
+DISAGG_STREAM_CHUNK = 256
+DISAGG_HTTP_REQUESTS = 2
+# tokens a request when served one at a time (M = 1 decode turns are the
+# slowest a token; the token-for-token check needs no more)
+DISAGG_ONE_BY_ONE_TOKENS = 16
+
+
+def _bits(torch, t):
+    """``t``'s bits as integers of its width, so equality is bitwise (NaN
+    pad included)."""
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def _parts(cache) -> tuple:
+    return tuple(cache) if isinstance(cache, tuple) else (cache,)
+
+
+def _checked_scatter(torch, dec_core, pre_core, record: dict):
+    """Wrap the decode engine's ``scatter_external`` on its instance: after
+    each handoff lands, the decode cache's blocks are held to the prefill
+    engine's held blocks (the prefill worker releases them only after this
+    write's reply), bit for bit, on the card without a sync; the results
+    are read after the run.  Returns the function that removes the wrap."""
+    real = dec_core.scatter_external
+
+    def checking(block_ids, blocks, request_id=None):
+        real(block_ids, blocks, request_id)
+        held = pre_core.held_blocks(request_id)
+        src = pre_core.gather_blocks_device(held[len(held) - len(block_ids):])
+        dst = dec_core.gather_blocks_device(block_ids)
+        record["differ"].append(torch.stack([(_bits(torch, a) != _bits(torch, b)).any()
+                                             for a, b in zip(_parts(src), _parts(dst))]).any())
+        record["blocks"] += len(block_ids)
+        record["parts"].append([str(p.dtype).replace("torch.", "") for p in _parts(blocks)])
+
+    dec_core.scatter_external = checking
+
+    def unwrap():
+        del dec_core.scatter_external  # no cycle keeps the engine alive
+
+    return unwrap
+
+
+async def _one_by_one(engine, reqs, tag: str) -> list:
+    """``_serve`` of each request alone, in turn, DISAGG_ONE_BY_ONE_TOKENS
+    tokens each: [(TTFT, seconds, outputs)]."""
+    out = []
+    for i, r in enumerate(reqs):
+        out += await _serve(engine, [r], max_tokens=DISAGG_ONE_BY_ONE_TOKENS, tag=f"{tag}{i}")
+    return out
+
+
+def _streams(results) -> list:
+    return [[t for o in outs for t in o.token_ids] for _, _, outs in results]
+
+
+def _readings(results, wall: float, one_by_one: bool) -> dict:
+    """Streams, TTFTs and decode tok/s of a ``_serve`` run: over the window
+    from the first first token to the end, or, one request at a time, over
+    the sum of each request's time after its first token."""
+    ttfts = [r[0] for r in results]
+    window = sum(r[1] - r[0] for r in results) if one_by_one else wall - min(ttfts)
+    tokens = DISAGG_ONE_BY_ONE_TOKENS if one_by_one else MAX_TOKENS
+    return dict(streams=_streams(results), ttfts=ttfts,
+                decode_tok_s=len(results) * (tokens - 1) / window)
+
+
+def local_one_by_one(torch, model, config: dict, label: str) -> dict:
+    """The six prompts one at a time on a fresh local engine (the default
+    path), after a warm-up: the streams a remote-prefill run serving them
+    one at a time must equal, and the TTFT and tok/s it is read beside."""
+    from dynamo_tpu_torch.engine import AsyncLLMEngine, EngineConfig, EngineCore
+
+    engine = AsyncLLMEngine(EngineCore(model, EngineConfig(**config), device="cuda")).start()
+    try:
+        asyncio.run(_serve(engine, [list(range(1, 40))], tag=f"{label}-warm-up"))
+        t0 = time.perf_counter()
+        results = asyncio.run(_one_by_one(engine, model_prompts(model), f"{label}-"))
+        return _readings(results, time.perf_counter() - t0, True)
+    finally:
+        engine.shutdown()
+
+
+async def _disagg_serve(torch, model, config: dict, label: str, *, stream: bool,
+                        one_by_one: bool, http: bool) -> dict:
+    """One disaggregated run: a coordinator in this process, a decode
+    engine behind a DecodeWorker that sends every prompt to the prefill
+    queue, and a prefill engine behind a PrefillWorker (its prefill in
+    DISAGG_STREAM_CHUNK-token chunks when ``stream``), sharing ``model``.
+    A warm-up request, then every launch counter zeroed and the six prompts
+    served concurrently (``one_by_one``: one at a time), or with ``http``
+    DISAGG_HTTP_REQUESTS of them one at a time through the port's
+    HttpService over ``build_serving_pipeline(decode_worker, card)``."""
+    from dynamo_tpu_torch.engine import AsyncLLMEngine, EngineConfig, EngineCore
+    from dynamo_tpu_torch.engine.counters import kv_stream_counters
+    from dynamo_tpu_torch.llm.disagg_router import DisaggregatedRouter, DisaggRouterConf
+    from dynamo_tpu_torch.llm.kv import transfer
+    from dynamo_tpu_torch.llm.workers import DecodeWorker, PrefillWorker
+    from dynamo_tpu_torch.obs.costs import transfer_costs
+    from dynamo_tpu_torch.runtime.transports.coordinator import CoordinatorClient, CoordinatorServer
+
+    dec = EngineCore(model, EngineConfig(**config), device="cuda")
+    pre = EngineCore(model, EngineConfig(**(dict(config, prefill_chunk_tokens=DISAGG_STREAM_CHUNK)
+                                            if stream else config)), device="cuda")
+    dec_engine, pre_engine = AsyncLLMEngine(dec).start(), AsyncLLMEngine(pre).start()
+    srv = await CoordinatorServer(port=0).start()
+    clients, unwrap, out = [], None, {}
+    try:
+        c_dec = await CoordinatorClient(srv.url).connect()
+        c_pre = await CoordinatorClient(srv.url).connect()
+        clients += [c_dec, c_pre]
+        worker = DecodeWorker(dec_engine, coordinator=c_dec, namespace=label,
+                              router=DisaggregatedRouter(
+                                  DisaggRouterConf(max_local_prefill_length=0), namespace=label))
+        await worker.start()
+        prefill = PrefillWorker(pre_engine, c_pre, label, stream=stream)
+        prefill_task = asyncio.ensure_future(prefill.run())
+        try:
+            await _serve(worker, [list(range(1, 40))], tag=f"{label}-warm-up")
+            # each request's queue push and the arrival of its notify
+            pushed, notified = {}, {}
+            real_push, real_notify = worker.queue.push, worker._transfer.notify_cb
+
+            async def timed_push(rpr):
+                pushed[rpr.request_id] = time.perf_counter()
+                return await real_push(rpr)
+
+            async def timed_notify(rid, first_token, error):
+                notified[rid] = time.perf_counter()
+                return await real_notify(rid, first_token, error)
+
+            worker.queue.push, worker._transfer.notify_cb = timed_push, timed_notify
+            record = dict(differ=[], blocks=0, parts=[])
+            unwrap = _checked_scatter(torch, dec, pre, record)
+            wrappers = _kernel_wrappers()
+            for fn in wrappers.values():
+                fn.launches = 0
+            for k in transfer.stats:
+                transfer.stats[k] = 0
+            transfer_costs.reset()
+            kv_stream_counters.reset()
+            before = (dec.metrics()["prefill_dispatches_total"], pre.decode_steps)
+            reqs = model_prompts(model)
+            t0 = time.perf_counter()
+            if http:
+                out["http"] = await _disagg_http(worker, dec, reqs[:DISAGG_HTTP_REQUESTS], label)
+            elif one_by_one:
+                out.update(_readings(await _one_by_one(worker, reqs, f"{label}-"),
+                                     time.perf_counter() - t0, True))
+            else:
+                results = await _serve(worker, reqs, tag=label)
+                out.update(_readings(results, time.perf_counter() - t0, False))
+            out["launches"] = {name: fn.launches for name, fn in wrappers.items()}
+            out["stats"] = dict(transfer.stats)
+            out["costs"] = {path: dict(e) for (_, _, path), e in transfer_costs.snapshot().items()}
+            out["stream"] = dict(sessions=kv_stream_counters.sessions_total,
+                                 layers_sent=kv_stream_counters.layers_sent_total,
+                                 bytes=kv_stream_counters.bytes_total,
+                                 fallbacks=kv_stream_counters.fallbacks_total,
+                                 overlap_ratio=kv_stream_counters.overlap_ratio)
+            out["decode_prefill_dispatches"] = dec.metrics()["prefill_dispatches_total"] - before[0]
+            out["prefill_decode_steps"] = pre.decode_steps - before[1]
+            out["handoff_ms"] = sorted(1e3 * (notified[r] - pushed[r]) for r in pushed if r in notified
+                                       and "warm-up" not in r)
+            torch.cuda.synchronize()
+            out["blocks_checked"] = record["blocks"]
+            out["blocks_differ"] = int(sum(bool(d) for d in record["differ"]))
+            out["handoffs_checked"] = len(record["differ"])
+            out["parts"] = record["parts"]
+            out["kv_bytes_per_block"] = dec.kv_bytes_per_block()
+        finally:
+            prefill.request_stop()
+            await prefill_task
+            await worker.stop()
+        out["held_after"] = len(pre._held)
+        return out
+    finally:
+        if unwrap is not None:
+            unwrap()
+        for c in clients:
+            await c.close()
+        await srv.stop()
+        dec_engine.shutdown()
+        pre_engine.shutdown()
+
+
+async def _disagg_http(worker, dec, reqs, label: str) -> list:
+    """``reqs`` one at a time as streamed token-id completions through the
+    port's HttpService over the decode worker: [(status, events, TTFT)]."""
+    import aiohttp
+
+    from dynamo_tpu_torch.llm.engines import build_serving_pipeline
+    from dynamo_tpu_torch.llm.http import HttpService
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+
+    mcard = ModelDeploymentCard(name="llama3-8b", tokenizer_path=str(FRONT_DIR / "tokenizer.json"),
+                                context_length=8192)
+    svc = HttpService(port=0, core=dec)
+    svc.manager.add_model(mcard.name, build_serving_pipeline(worker, mcard), mcard)
+    await svc.start()
+    try:
+        async with aiohttp.ClientSession() as s:
+            url = f"http://127.0.0.1:{svc.port}/v1/completions"
+            return [await _post(s, url, {"model": mcard.name, "prompt": toks,
+                                         "max_tokens": DISAGG_ONE_BY_ONE_TOKENS,
+                                         "temperature": 0, "stream": True}) for toks in reqs]
+    finally:
+        await svc.stop()
+
+
+def copy_yardsticks(torch, nbytes: int) -> dict:
+    """The bound of each handoff path, timed on the card for ``nbytes``:
+    a plain device-to-device copy (the colocated path moves the blocks so)
+    and a device-to-host copy into pinned memory (the least the TCP path
+    does), as MB/s; and the port's block gather + scatter of that many
+    bytes of 2 MiB blocks (the colocated path's two copies) in ms."""
+    from dynamo_tpu_torch.ops.block_copy import gather_blocks, scatter_blocks_inplace
+
+    n = nbytes // 2
+    src = torch.randn(n, device="cuda").to(torch.bfloat16)
+    dst = torch.empty_like(src)
+    host = torch.empty(n, dtype=torch.bfloat16, pin_memory=True)
+    d2d = median_ms(lambda: cuda_time_ms(lambda i: dst.copy_(src), 10))
+    d2h = median_ms(lambda: cuda_time_ms(lambda i: host.copy_(src, non_blocking=True), 5))
+    del src, dst, host
+    # blocks of Llama-3-8B's cache: [32, N, 2, 16, 1024] bf16, 2 MiB each
+    blocks = max(1, nbytes // (32 * 2 * 16 * 1024 * 2))
+    pool = torch.zeros((32, 2 * blocks + 1, 2, 16, 1024), dtype=torch.bfloat16, device="cuda")
+    ids, to = list(range(1, blocks + 1)), list(range(blocks + 1, 2 * blocks + 1))
+    block_ms = median_ms(lambda: cuda_time_ms(
+        lambda i: scatter_blocks_inplace(pool, to, gather_blocks(pool, ids)), 5))
+    del pool
+    torch.cuda.empty_cache()
+    return dict(bytes=nbytes, d2d_mb_s=nbytes / d2d / 1e3, d2h_pinned_mb_s=nbytes / d2h / 1e3,
+                d2d_ms=d2d, d2h_ms=d2h, block_copy_ms=block_ms, block_copy_blocks=blocks)
+
+
+DISAGG_RUNS = {
+    # label: (cache, path, streamed, one request at a time, through HttpService);
+    # every run on a fresh engine pair, so no run hits another's prefix cache
+    "a1": ("bf16", "colocated", False, True, False),
+    "a": ("bf16", "colocated", False, False, False),
+    "b": ("bf16", "tcp", False, False, False),
+    "c": ("bf16", "tcp", True, False, False),
+    "e": ("bf16", "colocated", False, True, True),
+    "d1": ("int8", "tcp", False, True, False),
+    "d": ("int8", "tcp", False, False, False),
+}
+
+
+def disagg_phase(torch, model, local: dict, card: str, quant: bool = False) -> dict:
+    """Disaggregated prefill/decode on the loaded Llama-3-8B: the bf16 runs
+    of DISAGG_RUNS on the bf16 model, the int8 ones on the int8 model.
+    Checks: each run's handoffs moved only on its path (the transfer
+    stats), the streamed run sent layers and never fell back, the int8
+    runs' parts are int8 + float32, the decode engine made no prefill
+    dispatch and the prefill engine no decode turn, the launches are the
+    default path's kernels of this model and no other, the moved blocks
+    equal the prefill engine's held blocks bit for bit, no block stays
+    held, the streams served one at a time equal a local engine's one at a
+    time, and concurrent streams part from ``local`` (the default path's
+    run of this call) only at near-ties.  Returns the runs' readings, each
+    beside the local run it is read against."""
+    import os
+
+    config = INT8_DEFAULT_PATH if quant else DEFAULT_PATH
+    labels = [k for k, v in DISAGG_RUNS.items() if (v[0] == "int8") == quant]
+    need = ["decode_q8", "prefill_q8", "matmul"] if quant else ["decode", "prefill"]
+    alone = local_one_by_one(torch, model, config, f"disagg-local-{'int8' if quant else 'bf16'}")
+    tok = None
+    runs = {}
+    for label in labels:
+        cache, path, stream, one_by_one, http = DISAGG_RUNS[label]
+        if path == "tcp":
+            os.environ["DYN_KV_TRANSFER_FORCE_TCP"] = "1"
+        t0 = time.perf_counter()
+        try:
+            r = asyncio.run(_disagg_serve(torch, model, config, f"disagg-{label}", stream=stream,
+                                          one_by_one=one_by_one, http=http))
+        finally:
+            os.environ.pop("DYN_KV_TRANSFER_FORCE_TCP", None)
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = alone if one_by_one else local
+        lt = sorted(base["ttfts"][:len(r["http"])] if http else base["ttfts"])
+        r.update(label=f"disagg ({label})", cache=cache, path=path, streamed=stream,
+                 one_by_one=one_by_one, seconds=time.perf_counter() - t0,
+                 local=dict(one_by_one=one_by_one, ttft_median_s=lt[len(lt) // 2],
+                            ttft_max_s=lt[-1], decode_tok_s=base["decode_tok_s"]))
+        name = f"disagg ({label}, {cache}, {path}{', streamed' if stream else ''})"
+        st = r["stats"]
+        if path == "colocated":
+            check(st["local_write_calls"] > 0 and st["tcp_write_calls"] == 0,
+                  f"{name}: blocks did not move only on the card: {st}")
+        elif not stream:
+            check(st["tcp_write_calls"] > 0 and st["local_write_calls"] == 0,
+                  f"{name}: blocks did not move only over TCP: {st}")
+        if stream:
+            check(r["stream"]["layers_sent"] > 0 and r["stream"]["fallbacks"] == 0
+                  and st["local_write_calls"] == 0 and st["tcp_write_calls"] == 0,
+                  f"{name}: no streamed layers or a fallback: {r['stream']}, {st}")
+        want = ["int8", "float32"] if quant else ["bfloat16"]
+        check(r["parts"] and all(p == want for p in r["parts"]),
+              f"{name}: handed-over parts {r['parts'][:3]}, expected {want}")
+        check(r["decode_prefill_dispatches"] == 0 and r["prefill_decode_steps"] == 0,
+              f"{name}: the decode engine made {r['decode_prefill_dispatches']} prefill dispatches "
+              f"and the prefill engine {r['prefill_decode_steps']} decode turns")
+        check(all(r["launches"][k] > 0 for k in need) and
+              not any(v for k, v in r["launches"].items() if k not in need),
+              f"{name}: launches {r['launches']}, need {need} > 0 and no other")
+        check(r["handoffs_checked"] > 0 and r["blocks_differ"] == 0,
+              f"{name}: {r['blocks_differ']} of {r['handoffs_checked']} handoffs' blocks differ "
+              "from the prefill engine's held blocks")
+        check(r["held_after"] == 0, f"{name}: {r['held_after']} requests' blocks still held")
+        if http:
+            from dynamo_tpu_torch.llm.tokenizer import TokenizerWrapper
+
+            tok = tok or TokenizerWrapper.from_file(FRONT_DIR)
+            texts = [_text(a[1]) for a in r["http"]]
+            check(all(a[0] == 200 for a in r["http"]) and
+                  texts == [_detok(tok, s) for s in alone["streams"][:len(texts)]],
+                  f"{name}: HTTP statuses {[a[0] for a in r['http']]}, texts differ from the "
+                  "local engine's one at a time")
+            r["ttfts"] = [a[2] for a in r["http"]]
+        elif one_by_one:
+            same = [a == b for a, b in zip(r["streams"], alone["streams"])]
+            check(all(same), f"{name}: served one at a time, streams {same} equal the local "
+                  "engine's one at a time")
+        else:
+            r["parted"] = spec_near_ties(torch, model, local, r, card, bs=config["block_size"],
+                                         cache_dtype=config.get("cache_dtype"),
+                                         prompts=model_prompts(model),
+                                         sampling=[{"temperature": 0.0}] * len(PROMPT_LENS))
+        runs[label] = r
+        log(f"{name}: {r['seconds']:.1f} s, TTFT median/max "
+            f"{sorted(r['ttfts'])[len(r['ttfts']) // 2]:.3f}/{max(r['ttfts']):.3f} s"
+            + (f", decode {r['decode_tok_s']:.1f} tok/s" if "decode_tok_s" in r else "")
+            + f" (local default path{', one at a time' if one_by_one else ''}: TTFT median/max "
+            f"{r['local']['ttft_median_s']:.3f}/{r['local']['ttft_max_s']:.3f} s, decode "
+            f"{r['local']['decode_tok_s']:.1f} tok/s), "
+            f"{r['blocks_checked']} blocks in "
+            f"{r['handoffs_checked']} handoffs equal the prefill engine's, handoff push-to-notify "
+            f"ms median/max {r['handoff_ms'][len(r['handoff_ms']) // 2]:.1f}/"
+            f"{r['handoff_ms'][-1]:.1f}, transfer {r['stats']}, costs {r['costs']}, "
+            f"stream {r['stream']}, launches {r['launches']} ({card})")
+    return runs
+
+
+def disagg_line(torch, runs: dict, card: str) -> dict:
+    """The ``{"disagg": ...}`` line: each run's readings beside the local
+    default path's of the same call and each path's copy yardstick, timed
+    on the mean bytes one handoff moved."""
+    rows = []
+    per_handoff = []
+    for r in runs.values():
+        if r["handoffs_checked"]:
+            per_handoff.append(r["blocks_checked"] * r["kv_bytes_per_block"]
+                               / r["handoffs_checked"])
+    yard = copy_yardsticks(torch, int(sum(per_handoff) / len(per_handoff)))
+    for label, r in runs.items():
+        ttfts = sorted(r["ttfts"])
+        moved = r["blocks_checked"] * r["kv_bytes_per_block"]
+        rows.append(dict(
+            run=label, cache=r["cache"], path=r["path"], streamed=r["streamed"],
+            one_by_one=r["one_by_one"], http="http" in r,
+            ttft_median_s=ttfts[len(ttfts) // 2], ttft_max_s=ttfts[-1],
+            decode_tok_s=r.get("decode_tok_s"), local=r.get("local"),
+            blocks=r["blocks_checked"], bytes=moved, handoffs=r["handoffs_checked"],
+            handoff_ms_median=r["handoff_ms"][len(r["handoff_ms"]) // 2],
+            handoff_ms_max=r["handoff_ms"][-1],
+            mb_s={path: e["bytes"] / e["seconds"] / 1e6 for path, e in r["costs"].items()},
+            mb_s_ewma={path: e["ewma_mbps"] for path, e in r["costs"].items()},
+            stream=r["stream"] if r["streamed"] else None, parted=r.get("parted"),
+            launches=r["launches"], seconds=r["seconds"]))
+    return dict(runs=rows, yardstick=yard, card=card)
+
+
 # ------------------------------------------------------------------ grammar
 GRAMMAR_CHOICES = ["alpha", "beta", "gamma"]
 GRAMMAR_REGEX = "[0-9][0-9][0-9]-[0-9][0-9][0-9][0-9]"
@@ -3910,13 +4331,15 @@ def main() -> int:
         mla = mla_timing(torch, card)
         mark("kernel timings")
         write_tokenizer(FRONT_DIR)
-        default, budget, mixed, spec = serving_phase(torch, card)
+        default, budget, mixed, spec, disagg = serving_phase(torch, card)
         times["ragged"] = ragged_timing(torch, card, mixed)
         times["ragged_err"] = times["ragged"].pop("err")
         mark("Llama-3-8B bf16 serving")
-        q8_default, q8_budget, q8_mixed, q8_spec = serving_phase_q8(torch, card)
+        q8_default, q8_budget, q8_mixed, q8_spec, q8_disagg = serving_phase_q8(torch, card)
         times["ragged_q8"] = ragged_timing(torch, card, q8_mixed, quant=True)
         times["ragged_q8_err"] = times["ragged_q8"].pop("err")
+        disagg.update(q8_disagg)
+        disagg_out = disagg_line(torch, disagg, card)
         mark("Llama-3-8B int8 serving")
         parity_phase(torch, card, verify=True)
         parity_phase(torch, card, quant=True)
@@ -3955,43 +4378,53 @@ def main() -> int:
                                 for label, r in spec.items()
                                 if r["k"] and label.startswith("int8") == (kernel == "B4a")}
                        for kernel in ("B1", "B4a")}
+    # each kernel's launches over the disaggregated runs, (a)-(e)
+    disagg_launches = {k: sum(r["launches"][k] for r in disagg.values())
+                       for k in _kernel_wrappers()}
     kernels = [
         dict(name="paged_decode_attention", route="cuda",
              source="dynamo_tpu_torch/csrc/decode_attention.cu",
              replaces="dynamo_tpu/ops/pallas/decode_attention.py:281",
              launches=default["launches"]["decode"],
+             launches_disagg=disagg_launches["decode"],
              max_abs_err=max(errs["decode"], times["decode_err"]), **times["decode"],
              verify=dict(times["decode_verify"], launches=verify_launches["B1"])),
         dict(name="paged_prefill_attention", route="cuda",
              source="dynamo_tpu_torch/csrc/prefill_attention.cu",
              replaces="dynamo_tpu/ops/pallas/prefill_attention.py:246",
              launches=default["launches"]["prefill"],
+             launches_disagg=disagg_launches["prefill"],
              max_abs_err=max(errs["prefill"], times["prefill_err"]), **times["prefill"]),
         dict(name="ragged_paged_prefill_attention", route="cuda",
              source="dynamo_tpu_torch/csrc/ragged_prefill_attention.cu",
              replaces="dynamo_tpu/ops/pallas/prefill_attention.py:593",
              launches=budget["launches"]["ragged"],
+             launches_disagg=disagg_launches["ragged"],
              max_abs_err=max(errs["ragged"], times["ragged_err"]), **times["ragged"]),
         dict(name="paged_decode_attention_q8", route="cuda",
              source="dynamo_tpu_torch/csrc/decode_attention.cu",
              replaces="dynamo_tpu/ops/pallas/decode_attention.py:94",
              launches=q8_default["launches"]["decode_q8"],
+             launches_disagg=disagg_launches["decode_q8"],
              max_abs_err=max(errs["decode_q8"], times["decode_q8_err"]), **times["decode_q8"],
              verify=dict(times["decode_q8_verify"], launches=verify_launches["B4a"])),
         dict(name="paged_prefill_attention_q8", route="cuda",
              source="dynamo_tpu_torch/csrc/prefill_attention.cu",
              replaces="dynamo_tpu/ops/pallas/prefill_attention.py:57",
              launches=q8_default["launches"]["prefill_q8"],
+             launches_disagg=disagg_launches["prefill_q8"],
              max_abs_err=max(errs["prefill_q8"], times["prefill_q8_err"]), **times["prefill_q8"]),
         dict(name="ragged_paged_prefill_attention_q8", route="cuda",
              source="dynamo_tpu_torch/csrc/ragged_prefill_attention.cu",
              replaces="dynamo_tpu/ops/pallas/prefill_attention.py:384",
              launches=q8_budget["launches"]["ragged_q8"],
+             launches_disagg=disagg_launches["ragged_q8"],
              max_abs_err=max(errs["ragged_q8"], times["ragged_q8_err"]), **times["ragged_q8"]),
         dict(name="int8_matmul", route="cuda",
              source="dynamo_tpu_torch/csrc/int8_matmul.cu",
              replaces="dynamo_tpu/ops/pallas/int8_matmul.py:64",
              launches=q8_default["launches"]["matmul"],
+             launches_disagg=disagg_launches["matmul"],
              max_abs_err=max(errs["matmul"], times["matmul_err"]), **times["matmul"],
              verify=dict(times["matmul_verify"],
                          launches=spec["int8 ngram k=4"]["launches"]["matmul"])),
@@ -3999,16 +4432,19 @@ def main() -> int:
              source="dynamo_tpu_torch/csrc/grouped_matmul.cu",
              replaces="dynamo_tpu/models/llama.py:631",
              launches=moe_default["launches"]["moe"],
+             launches_disagg=disagg_launches["moe"],
              max_abs_err=max(errs["moe"], times["moe_err"]), **times["moe"]),
         dict(name="grouped_matmul_q8", route="cuda",
              source="dynamo_tpu_torch/csrc/grouped_matmul.cu",
              replaces="dynamo_tpu/models/llama.py:631",
              launches=moe_budget["launches"]["moe_q8"],
+             launches_disagg=disagg_launches["moe_q8"],
              max_abs_err=max(errs["moe_q8"], times["moe_q8_err"]), **times["moe_q8"]),
     ]
     log(json.dumps({"spec": [{k: v for k, v in r.items() if k != "streams"}
                              for r in spec.values()]}))
     log(json.dumps({"mla": mla}))
+    log(json.dumps({"disagg": disagg_out}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                           "count": torch.cuda.device_count()}}))

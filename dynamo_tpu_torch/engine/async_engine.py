@@ -7,6 +7,11 @@ loop.call_soon_threadsafe into per-request asyncio queues.
 
 Cancellation: a stopped/killed Context aborts the request in the core at
 the next step boundary.
+
+Disaggregation: :meth:`AsyncLLMEngine.generate_ex` takes the remote
+prefill / remote decode flags, and :meth:`AsyncLLMEngine.run_on_engine`
+runs a function on the engine thread at a step boundary (the KV scatter,
+gather and prefill-done notify of ``llm/workers.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from typing import AsyncIterator
 from dynamo_tpu_torch.engine.core import EngineCore
 from dynamo_tpu_torch.engine.request import EngineRequest
 from dynamo_tpu_torch.llm.protocols import BackendInput, LLMEngineOutput
+from dynamo_tpu_torch.obs import tracing
 from dynamo_tpu_torch.runtime.engine import AsyncEngine, Context
 
 log = logging.getLogger("dynamo_tpu_torch.engine")
@@ -63,11 +69,41 @@ class AsyncLLMEngine(AsyncEngine):
                 self._wake.wait(timeout=0.05)
                 self._wake.clear()
 
+    async def run_on_engine(self, fn):
+        """Run ``fn`` on the engine thread at a step boundary (cache/block
+        bookkeeping must stay single-writer); await its result."""
+        fut = self.core.run_on_step(fn)
+        self._wake.set()
+        return await asyncio.wrap_future(fut)
+
     # ---------------------------------------------------------------- generate
     def generate(self, request: Context[BackendInput]) -> AsyncIterator[LLMEngineOutput]:
         return self._generate(request)
 
-    async def _generate(self, request: Context[BackendInput]) -> AsyncIterator[LLMEngineOutput]:
+    def generate_ex(
+        self,
+        request: Context[BackendInput],
+        *,
+        remote_prefill: bool = False,
+        remote_decode: bool = False,
+        on_allocated=None,
+    ) -> AsyncIterator[LLMEngineOutput]:
+        """generate() with the disaggregation flags: ``remote_prefill``
+        stalls the request until a prefill worker delivers its KV;
+        ``remote_decode`` runs the prefill only and holds the blocks for
+        transfer-out; ``on_allocated(req)`` is called on the engine thread
+        once the request's blocks are allocated."""
+        return self._generate(request, remote_prefill=remote_prefill,
+                              remote_decode=remote_decode, on_allocated=on_allocated)
+
+    async def _generate(
+        self,
+        request: Context[BackendInput],
+        *,
+        remote_prefill: bool = False,
+        remote_decode: bool = False,
+        on_allocated=None,
+    ) -> AsyncIterator[LLMEngineOutput]:
         inp = request.data
         loop = asyncio.get_running_loop()
         out_q: asyncio.Queue[LLMEngineOutput] = asyncio.Queue()
@@ -75,13 +111,23 @@ class AsyncLLMEngine(AsyncEngine):
         def emit(out: LLMEngineOutput) -> None:
             loop.call_soon_threadsafe(out_q.put_nowait, out)
 
+        # one span per engine-side generation, parented on the caller's
+        # context; the engine thread has no ambient context, so req.trace
+        # carries the pair
+        span = tracing.start_span("engine.generate", attrs={"request_id": request.id})
         req = EngineRequest(
             request_id=request.id,
             prompt=list(inp.token_ids),
             sampling=inp.sampling,
             stops=inp.stops,
             emit=emit,
+            remote_prefill=remote_prefill,
+            remote_decode=remote_decode,
+            on_allocated=on_allocated,
+            trace=span.context(),
         )
+        if tracing.enabled():
+            tracing.collector.bind_request(request.id, span.trace_id)
         self.core.submit(req)
         self._wake.set()
 
@@ -120,3 +166,5 @@ class AsyncLLMEngine(AsyncEngine):
                 # consumer dropped the stream mid-generation
                 self.core.abort(req.request_id)
                 self._wake.set()
+            span.set(finish=str(req.finish_reason) if req.finish_reason else "",
+                     queue_wait_s=req.queue_wait_s or 0.0).end()

@@ -50,21 +50,36 @@ scales, quantised as it is written); every dispatch above takes either.
 Int8 weights come with the model (``init_params(quantized=True)`` or
 ``params_from_jax`` of a quantised tree).
 
+Disaggregated serving (``llm/workers.py``): a request with
+``remote_prefill`` is admitted with its blocks allocated and waits in
+``REMOTE_PREFILL`` until a prefill worker's KV lands
+(:meth:`EngineCore.scatter_external`) and its first token arrives
+(:meth:`EngineCore.complete_remote_prefill`); a request with
+``remote_decode`` stops after its prefill, emits its first token and holds
+its blocks (:meth:`EngineCore.held_blocks`) until the worker has moved them
+out (:meth:`EngineCore.gather_blocks_device` on the card for a colocated
+decode engine, :meth:`EngineCore.gather_blocks_np` through the host for
+TCP) and released them.  Commit hooks fire per committed prefill chunk for
+the streamed handoff (``llm/kv/stream.py``).
+
 Not ported yet, and refused at construction (:meth:`EngineCore.
 _check_supported`): sequence-parallel prefill, host offload and the
 persistent tier, cache dtypes other than int8 and the model's, meshes, and
 the profile hook.
 
 Thread-safety: everything here runs on the engine thread; submit()/abort()
-are the only cross-thread entry points and only touch thread-safe queues.
+and run_on_step() are the only cross-thread entry points and only touch
+thread-safe queues (the routing probes prefix_hit_tokens and
+kv_bytes_per_block only read).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import logging
 import queue
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -82,6 +97,8 @@ from dynamo_tpu_torch.engine.sampling import K_MAX, sample_full
 from dynamo_tpu_torch.llm.kv.block_manager import KvBlockManager, NoFreeBlocks
 from dynamo_tpu_torch.llm.protocols import FinishReason, LLMEngineOutput
 from dynamo_tpu_torch.models.llama import LlamaModel
+from dynamo_tpu_torch.ops.block_copy import gather_blocks_padded, scatter_blocks_inplace
+from dynamo_tpu_torch.ops.kv_quant import QuantKvCache
 from dynamo_tpu_torch.tokens import TokenBlockSequence
 
 log = logging.getLogger("dynamo_tpu_torch.engine")
@@ -418,6 +435,17 @@ class EngineCore:
         self._abort_q: "queue.SimpleQueue[str]" = queue.SimpleQueue()
         # aborts that arrived before their request was even admitted
         self._pending_aborts: set[str] = set()
+        # ops enqueued by other threads, run on the engine thread at the next
+        # step boundary (KV scatter/gather, remote-prefill completion, ...)
+        self._ops: "queue.SimpleQueue[tuple[Callable, concurrent.futures.Future]]" = (
+            queue.SimpleQueue())
+        # prefill-side held blocks: finished remote-decode prefills whose
+        # blocks must survive until the transfer out completes
+        self._held: dict[str, list[int]] = {}
+        # streamed-handoff commit hooks (llm/kv/stream.py): per request,
+        # fn(committed_block_ids, done) fired on the engine thread at each
+        # committed prefill chunk and once more with done=True at the end
+        self._commit_hooks: dict[str, Callable[[list[int], bool], None]] = {}
         # perf counters
         self.steps = 0
         self.prefill_steps = 0
@@ -695,10 +723,20 @@ class EngineCore:
     def abort(self, request_id: str) -> None:
         self._abort_q.put(request_id)
 
+    def run_on_step(self, fn: Callable) -> "concurrent.futures.Future":
+        """Enqueue ``fn`` to run on the engine thread at the next step
+        boundary; the returned future resolves with its result.  This is the
+        only safe way for other threads to touch the cache or the block
+        manager (one writer)."""
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        self._ops.put((fn, fut))
+        return fut
+
     def has_work(self) -> bool:
         return (
             not self.waiting.empty()
             or bool(self._admitted)
+            or not self._ops.empty()
             or any(s is not None for s in self.slots)
         )
 
@@ -762,12 +800,15 @@ class EngineCore:
         return did_work
 
     def _step_inner(self) -> bool:
+        self._process_ops()
         self._process_aborts()
         self._admit()
-        # slots not yet decoding (mid-chunked-prefill): honour aborts here —
-        # _append_token never runs for them
+        # slots not yet decoding (waiting on external KV, or mid-chunked-
+        # prefill): honour aborts here — _append_token never runs for them
         for req in self.slots:
-            if req is not None and req.state is RequestState.PREFILL and req.abort_requested:
+            if (req is not None
+                    and req.state in (RequestState.REMOTE_PREFILL, RequestState.PREFILL)
+                    and req.abort_requested):
                 self._finish_slot(req, FinishReason.CANCELLED)
         ready = [
             r for r in self.slots
@@ -838,6 +879,19 @@ class EngineCore:
             self._run_prefill_batch(ready)
         else:
             self._run_prefill(ready[0])
+
+    def _process_ops(self) -> None:
+        while True:
+            try:
+                fn, fut = self._ops.get_nowait()
+            except queue.Empty:
+                break
+            if not fut.set_running_or_notify_cancel():
+                continue
+            try:
+                fut.set_result(fn())
+            except Exception as e:  # handed to the caller through the future
+                fut.set_exception(e)
 
     def _process_aborts(self) -> None:
         while True:
@@ -938,11 +992,20 @@ class EngineCore:
             req.slot = slot
             if req.submitted_at:
                 req.queue_wait_s = time.perf_counter() - req.submitted_at
-            req.state = RequestState.PREFILL
+            req.state = (RequestState.REMOTE_PREFILL if req.remote_prefill
+                         else RequestState.PREFILL)
             self.slots[slot] = req
             self._by_id[req.request_id] = req
             self._admitted.remove(req)
             self._pen_cache = None  # live request set changed
+            if req.on_allocated is not None:
+                try:
+                    req.on_allocated(req)
+                except Exception:
+                    # a dying caller (closed event loop) must not take down
+                    # every other request via step() -> fail_all()
+                    log.exception("on_allocated callback failed for %s", req.request_id)
+                    req.abort_requested = True
 
     # ---------------------------------------------------------------- prefill
     def _reserve_own(self, req: EngineRequest) -> None:
@@ -1033,6 +1096,7 @@ class EngineCore:
                 blk.parent_sequence_hash, list(blk.tokens),
             )
         req.committed_upto = done * bs
+        self._fire_commit_hook(req, done=False)
 
     def _complete_prefill(self, req, sampled, lps, cids, clps) -> None:
         # a completed prefill must not count against the next arrival: reset
@@ -1043,6 +1107,22 @@ class EngineCore:
         ):
             self._last_was_prefill = False
         req.state = RequestState.RUNNING
+        if req.remote_decode:
+            # prefill-only request: emit the first sampled token, hold the
+            # blocks for transfer-out, free the slot
+            self._held[req.request_id] = list(req.block_ids)
+            # done=True covers ALL blocks, the partial tail block
+            # _commit_prefill_blocks never reaches included
+            self._fire_commit_hook(req, done=True)
+            self.slots[req.slot] = None
+            self._by_id.pop(req.request_id, None)
+            req.state = RequestState.FINISHED
+            req.finish_reason = FinishReason.STOP
+            self.tokens_generated += 1
+            req.emit(LLMEngineOutput(token_ids=[int(sampled[0])],
+                                     finish_reason=FinishReason.STOP,
+                                     cached_tokens=req.cached_tokens))
+            return
         self._append_token(req, int(sampled[0]), first=True,
                            logprob=float(lps[0]), cand=(cids[0], clps[0]))
 
@@ -1591,9 +1671,13 @@ class EngineCore:
         can_admit = (
             any(s is None for s in self.slots) and self.block_manager.free_blocks > 0
         ) or any(r is not None and r.abort_requested for r in self.slots)
+        # REMOTE_PREFILL counts too: the disaggregated first token arrives
+        # through the ops queue, processed only between dispatches
         prefill_pending = (
             ((bool(self._admitted) or not self.waiting.empty()) and can_admit)
-            or any(r is not None and r.state is RequestState.PREFILL for r in self.slots)
+            or any(r is not None
+                   and r.state in (RequestState.PREFILL, RequestState.REMOTE_PREFILL)
+                   for r in self.slots)
         )
         k_steps = max(1, cfg.interactive_decode_steps if prefill_pending else cfg.decode_steps)
         tokens = np.zeros(b, np.int32)
@@ -1765,3 +1849,137 @@ class EngineCore:
         req.state = RequestState.FINISHED
         req.finish_reason = reason
         req.emit(LLMEngineOutput(token_ids=[], finish_reason=reason))
+
+    # ------------------------------------------------- disaggregation support
+    # All of these run on the engine thread (call them through run_on_step
+    # from elsewhere) but the routing probes prefix_hit_tokens and
+    # kv_bytes_per_block, which only read.
+
+    def held_blocks(self, request_id: str) -> list[int]:
+        """Block ids of a finished remote-decode prefill, still resident."""
+        return list(self._held.get(request_id, ()))
+
+    def release_held(self, request_id: str) -> None:
+        """Transfer-out done: drop the prefill-side block references."""
+        ids = self._held.pop(request_id, None)
+        if ids:
+            self.block_manager.release(ids)
+
+    def register_commit_hook(self, request_id: str,
+                             fn: Callable[[list[int], bool], None]) -> None:
+        """Streamed handoff (llm/kv/stream.py): call ``fn(block_ids, done)``
+        on the engine thread after each prefill chunk commits —
+        ``block_ids`` is the CUMULATIVE list of this request's committed
+        block ids, ``done=True`` on the final call (which includes the
+        partial tail block).  The hook unregisters itself after that call."""
+        self._commit_hooks[request_id] = fn
+
+    def unregister_commit_hook(self, request_id: str) -> None:
+        self._commit_hooks.pop(request_id, None)
+
+    def _fire_commit_hook(self, req: EngineRequest, done: bool) -> None:
+        fn = self._commit_hooks.get(req.request_id)
+        if fn is None:
+            return
+        bs = self.config.block_size
+        n = len(req.block_ids) if done else req.committed_upto // bs
+        try:
+            fn([int(b) for b in req.block_ids[:n]], done)
+        except Exception:  # a producer's fault must not fail the engine step
+            log.exception("commit hook failed for %s", req.request_id)
+        if done:
+            self._commit_hooks.pop(req.request_id, None)
+
+    def gather_blocks_device(self, block_ids: list[int]):
+        """Gather blocks WITHOUT leaving the device: ``[L, n, 2, Bs, HkD]``
+        (a QuantKvCache of both parts for the int8 cache).  The colocated
+        handoff hands this straight to the decode engine's scatter, an
+        on-card copy.  Both engines' threads launch on the device's current
+        stream, so the stream orders this gather before that scatter and
+        before any later write into these blocks."""
+        return gather_blocks_padded(self.cache, block_ids)
+
+    def gather_blocks_np(self, block_ids: list[int]):
+        """Stage blocks to host memory for the wire: ``[L, n, 2, Bs, HkD]``
+        CPU tensors (a (data, scale) pair for the int8 cache), one batched
+        device-to-host copy per part into pinned memory on the card."""
+        out = gather_blocks_padded(self.cache, block_ids)
+        parts = tuple(out) if isinstance(out, QuantKvCache) else (out,)
+        if self.device.type == "cuda":
+            host = []
+            for part in parts:
+                buf = torch.empty(part.shape, dtype=part.dtype, pin_memory=True)
+                buf.copy_(part)  # synchronous: the bytes are on the host on return
+                host.append(buf)
+            parts = tuple(host)
+        return parts if len(parts) > 1 else parts[0]
+
+    def scatter_external(self, block_ids: list[int], blocks,
+                         request_id: Optional[str] = None) -> None:
+        """Write transferred blocks into this engine's cache, in place.
+        ``blocks`` mirrors the cache: one tensor or numpy array, or the int8
+        cache's (data, scale) pair, on the host or on the card.
+
+        When ``request_id`` is given (remote-prefill ingest), the write is
+        validated against that request's live block ownership: if the
+        request was aborted meanwhile its blocks may already belong to
+        someone else, and a late write is dropped, not applied."""
+        if request_id is not None:
+            req = self._by_id.get(request_id)
+            if (req is None or req.state is not RequestState.REMOTE_PREFILL
+                    or not set(block_ids) <= set(req.block_ids)):
+                log.warning("dropping stale KV write for %s (request gone or blocks reassigned)",
+                            request_id)
+                return
+        parts = tuple(blocks) if isinstance(blocks, (tuple, list)) else (blocks,)
+        # one upload per part (a no-op for blocks already on the card)
+        parts = tuple((torch.from_numpy(np.ascontiguousarray(b)) if isinstance(b, np.ndarray)
+                       else b).to(self.device) for b in parts)
+        if self.cache_quant:
+            if len(parts) != 2:
+                raise ValueError("an int8 cache takes (data, scale) blocks")
+            parts = QuantKvCache(*parts)
+        elif len(parts) != 1:
+            raise ValueError(f"a {self.model.config.dtype} cache takes one block tensor, "
+                             f"not {len(parts)} parts")
+        else:
+            parts = parts[0]
+        scatter_blocks_inplace(self.cache, block_ids, parts)
+
+    def complete_remote_prefill(self, request_id: str, first_token: int,
+                                error: Optional[str] = None) -> None:
+        """Prefill-done notification: the request's KV is now resident in
+        this engine's cache; commit its blocks, append the prefill-sampled
+        first token and enter decode."""
+        req = self._by_id.get(request_id)
+        if req is None or req.state is not RequestState.REMOTE_PREFILL:
+            return  # cancelled/finished while prefill ran elsewhere
+        if error is not None:
+            self._finish_slot(req, FinishReason.ERROR)
+            return
+        req.computed_tokens = req.prompt_len
+        req.state = RequestState.RUNNING
+        for blk in req.seq.blocks:
+            bid = req.block_ids[blk.position]
+            self.block_manager.commit(bid, blk.sequence_hash, blk.parent_sequence_hash,
+                                      list(blk.tokens))
+        self._append_token(req, int(first_token), first=True)
+
+    def prefix_hit_tokens(self, seq_hashes: list[int], prompt_len: int) -> int:
+        """How many prompt tokens would hit the local prefix cache — the
+        disagg router's prefix_hit_length input.  Read-only dict probes,
+        safe from any thread; a concurrently-mutating engine can make the
+        answer slightly stale, which only perturbs the routing heuristic."""
+        return len(self.block_manager.match_prefix(seq_hashes, prompt_len)) * \
+            self.config.block_size
+
+    def persist_hit_blocks(self, seq_hashes: list[int]) -> int:
+        """How many prompt blocks the persist tier could restore locally:
+        always 0, as the port has no persist tier yet."""
+        return 0
+
+    def kv_bytes_per_block(self) -> int:
+        """Wire bytes one KV block occupies (all layers, K and V, both parts
+        of the int8 cache) — the router's transfer-cost size input."""
+        parts = tuple(self.cache) if self.cache_quant else (self.cache,)
+        return sum(p[:, 0].numel() * p.element_size() for p in parts)

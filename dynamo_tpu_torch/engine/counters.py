@@ -1,4 +1,5 @@
-"""Prefill-batching and lookahead counters, one pair per engine.
+"""Prefill-batching and lookahead counters, one pair per engine, and the
+streamed KV handoff's counters, one per process.
 
 The counterpart of the two families of ``dynamo_tpu/engine/counters.py``
 that the PyTorch engine feeds.  The JAX package keeps one process-global
@@ -26,7 +27,7 @@ one process do not add into each other.  The names rendered:
 
 from __future__ import annotations
 
-__all__ = ["PrefillCounters", "LookaheadCounters"]
+__all__ = ["PrefillCounters", "LookaheadCounters", "KvStreamCounters", "kv_stream_counters"]
 
 
 class PrefillCounters:
@@ -143,3 +144,57 @@ class LookaheadCounters:
 
     def record_flush(self) -> None:
         self.flushes_total += 1
+
+
+class KvStreamCounters:
+    """Streamed KV handoff (llm/kv/stream.py) counters, under the JAX
+    package's names (``obs/metric_names.py`` ``KvStreamMetric``):
+
+        dynamo_tpu_kv_stream_sessions_total     counter (STREAM_BEGINs sent)
+        dynamo_tpu_kv_stream_layers_sent_total  counter (WRITE_LAYER frames)
+        dynamo_tpu_kv_stream_bytes_total        counter (layer payload bytes)
+        dynamo_tpu_kv_stream_fallbacks_total    counter (sessions that fell
+                                                back to the whole-cache push)
+        dynamo_tpu_kv_stream_overlap_ratio      gauge
+
+    ``overlap_ratio`` is transfer seconds HIDDEN under prefill compute
+    (frames sent while later chunks were still computing) over total
+    streamed transfer seconds.  One per process, as in the JAX package: a
+    prefill worker's producer records, whichever engine it serves.
+    """
+
+    def __init__(self) -> None:
+        self.reset()
+
+    def record_session(self) -> None:
+        self.sessions_total += 1
+
+    def record_layer(self, nbytes: int, seconds: float, hidden: bool) -> None:
+        """One WRITE_LAYER frame acked: ``hidden`` marks frames sent while
+        the producer's prefill was still computing."""
+        self.layers_sent_total += 1
+        self.bytes_total += nbytes
+        self.transfer_seconds_total += seconds
+        if hidden:
+            self.hidden_seconds_total += seconds
+
+    def record_fallback(self) -> None:
+        self.fallbacks_total += 1
+
+    @property
+    def overlap_ratio(self) -> float:
+        if self.transfer_seconds_total <= 0:
+            return 0.0
+        return self.hidden_seconds_total / self.transfer_seconds_total
+
+    def reset(self) -> None:
+        """Test isolation hook — the counters are process-global."""
+        self.sessions_total = 0
+        self.layers_sent_total = 0
+        self.bytes_total = 0
+        self.fallbacks_total = 0
+        self.transfer_seconds_total = 0.0
+        self.hidden_seconds_total = 0.0
+
+
+kv_stream_counters = KvStreamCounters()

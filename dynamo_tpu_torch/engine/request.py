@@ -35,6 +35,18 @@ class EngineRequest:
     # called from the engine thread with each LLMEngineOutput delta
     emit: Callable[[LLMEngineOutput], None] = lambda out: None
 
+    # --- disaggregation flags (the JAX package's, after the vllm patch's
+    # RemotePrefillParams.is_remote_prefill / is_remote_decode) ---
+    # decode side: blocks are allocated up front and the request stalls in
+    # REMOTE_PREFILL until a prefill worker writes KV and notifies
+    remote_prefill: bool = False
+    # prefill side: stop after the prefill step + first sampled token, keep
+    # blocks held (not released) until the worker has transferred them out
+    remote_decode: bool = False
+    # called on the engine thread right after blocks are allocated (decode
+    # side uses this to learn the block ids to hand to the prefill worker)
+    on_allocated: Optional[Callable[["EngineRequest"], None]] = None
+
     state: RequestState = RequestState.WAITING
     seq: Optional[TokenBlockSequence] = None  # prompt + generated tokens
     block_ids: list[int] = field(default_factory=list)
@@ -62,6 +74,9 @@ class EngineRequest:
     # (perf_counter); _admit computes queue_wait_s at slot assignment
     submitted_at: float = 0.0
     queue_wait_s: Optional[float] = None
+    # tracing context (trace_id, span_id) of the request's engine.generate
+    # span (obs/tracing.py), or None when tracing is off
+    trace: Optional[tuple] = None
 
     @property
     def prompt_len(self) -> int:

@@ -3,8 +3,10 @@
 The counterpart of ``dynamo_tpu/llm/http/metrics.py`` for the families the
 port feeds: request counters by model/endpoint/status, the inflight gauge
 with its guard, output tokens, the TTFT, inter-token, queue-wait and
-request-duration histograms, and the served engine's prefill,
-unified-dispatch and lookahead counters (``engine/counters.py``).  Every
+request-duration histograms, the served engine's prefill,
+unified-dispatch and lookahead counters (``engine/counters.py``), the
+streamed KV handoff's counters and the measured KV-transfer edges
+(``obs/costs.py``, rendered once an edge has a sample).  Every
 name comes from ``obs/metric_names.py`` and every line is rendered as the
 JAX package renders it.  No prometheus client dependency — the text format
 is trivial to emit.
@@ -17,9 +19,13 @@ import time
 from collections import defaultdict
 from typing import Iterator
 
-from dynamo_tpu_torch.engine.counters import LookaheadCounters, PrefillCounters
+from dynamo_tpu_torch.engine.counters import (LookaheadCounters, PrefillCounters,
+                                              kv_stream_counters)
+from dynamo_tpu_torch.obs.costs import transfer_costs
 from dynamo_tpu_torch.obs.metric_names import EngineMetric as EM
 from dynamo_tpu_torch.obs.metric_names import HttpMetric as HM
+from dynamo_tpu_torch.obs.metric_names import KvStreamMetric as STM
+from dynamo_tpu_torch.obs.metric_names import KvTransferMetric as KM
 
 __all__ = ["Histogram", "Metrics", "InflightGuard"]
 
@@ -129,9 +135,29 @@ class Metrics:
                  lc.mispredicts_total),
                 (EM.LOOKAHEAD_COMMITS_TOTAL, "counter", lc.commits_total),
                 (EM.LOOKAHEAD_FLUSHES_TOTAL, "counter", lc.flushes_total),
-                (EM.LOOKAHEAD_DISPATCH_DEPTH, "gauge", lc.dispatch_depth)):
+                (EM.LOOKAHEAD_DISPATCH_DEPTH, "gauge", lc.dispatch_depth),
+                # streamed KV handoff (llm/kv/stream.py): layer frames sent,
+                # and how often a stream fell back to the whole-cache push
+                (STM.SESSIONS_TOTAL, "counter", kv_stream_counters.sessions_total),
+                (STM.LAYERS_SENT_TOTAL, "counter", kv_stream_counters.layers_sent_total),
+                (STM.BYTES_TOTAL, "counter", kv_stream_counters.bytes_total),
+                (STM.FALLBACKS_TOTAL, "counter", kv_stream_counters.fallbacks_total),
+                (STM.OVERLAP_RATIO, "gauge", round(kv_stream_counters.overlap_ratio, 6))):
             lines.append(f"# TYPE {name} {typ}")
             lines.append(f"{name} {val}")
+        # measured KV-transfer costs per (src, dst, path) edge
+        costs = transfer_costs.snapshot()
+        if costs:
+            for name, typ in ((KM.CALLS_TOTAL, "counter"), (KM.BYTES_TOTAL, "counter"),
+                              (KM.SECONDS_TOTAL, "counter"), (KM.MBPS, "gauge"),
+                              (KM.LATENCY_MS, "gauge")):
+                lines.append(f"# TYPE {name} {typ}")
+                for (src, dst, path), e in sorted(costs.items()):
+                    val = {KM.CALLS_TOTAL: e["calls"], KM.BYTES_TOTAL: e["bytes"],
+                           KM.SECONDS_TOTAL: round(e["seconds"], 6),
+                           KM.MBPS: round(e["ewma_mbps"], 6),
+                           KM.LATENCY_MS: round(e["ewma_latency_s"] * 1e3, 6)}[name]
+                    lines.append(f'{name}{{src="{src}",dst="{dst}",path="{path}"}} {val}')
         return "\n".join(lines) + "\n"
 
 

@@ -2,13 +2,14 @@
 
 A subset of ``dynamo_tpu/obs/metric_names.py``, spelled exactly as there,
 so a dashboard or scraper reads either package's endpoint: the HTTP
-service plane and the engine's prefill-batching, unified-dispatch and
-lookahead families.  Every name is a full literal, never composed.
+service plane, the engine's prefill-batching, unified-dispatch and
+lookahead families, the measured KV-transfer edges and the streamed KV
+handoff.  Every name is a full literal, never composed.
 """
 
 from __future__ import annotations
 
-__all__ = ["HttpMetric", "EngineMetric"]
+__all__ = ["HttpMetric", "EngineMetric", "KvTransferMetric", "KvStreamMetric"]
 
 
 class HttpMetric:
@@ -41,3 +42,23 @@ class EngineMetric:
     LOOKAHEAD_COMMITS_TOTAL = "dynamo_tpu_engine_lookahead_commits_total"
     LOOKAHEAD_FLUSHES_TOTAL = "dynamo_tpu_engine_lookahead_flushes_total"
     LOOKAHEAD_DISPATCH_DEPTH = "dynamo_tpu_engine_lookahead_dispatch_depth"
+
+
+class KvTransferMetric:
+    """Measured KV-transfer cost edges (``obs/costs.py``)."""
+
+    CALLS_TOTAL = "dynamo_tpu_kv_transfer_calls_total"
+    BYTES_TOTAL = "dynamo_tpu_kv_transfer_bytes_total"
+    SECONDS_TOTAL = "dynamo_tpu_kv_transfer_seconds_total"
+    MBPS = "dynamo_tpu_kv_transfer_mbps"
+    LATENCY_MS = "dynamo_tpu_kv_transfer_latency_ms"
+
+
+class KvStreamMetric:
+    """Streamed KV handoff (``llm/kv/stream.py`` counters)."""
+
+    SESSIONS_TOTAL = "dynamo_tpu_kv_stream_sessions_total"
+    LAYERS_SENT_TOTAL = "dynamo_tpu_kv_stream_layers_sent_total"
+    BYTES_TOTAL = "dynamo_tpu_kv_stream_bytes_total"
+    FALLBACKS_TOTAL = "dynamo_tpu_kv_stream_fallbacks_total"
+    OVERLAP_RATIO = "dynamo_tpu_kv_stream_overlap_ratio"

@@ -27,6 +27,7 @@ output, and a CUDA graph can capture it as it is.
 from __future__ import annotations
 
 import functools
+import threading
 from dataclasses import dataclass
 
 import torch
@@ -102,6 +103,9 @@ _scratch: dict[tuple[torch.device, int], list] = {}
 # buffers a CUDA graph captured before its stream's buffers grew: its
 # replays still write them, so they are never freed
 _retired: list[tuple[torch.Tensor, torch.Tensor]] = []
+# a colocated prefill and decode engine launch from two threads on one
+# stream: the check-and-grow below is one step under this lock
+_scratch_lock = threading.Lock()
 
 
 def _stream_scratch(device: torch.device, stream: int, p: DecodePlan,
@@ -116,16 +120,17 @@ def _stream_scratch(device: torch.device, stream: int, p: DecodePlan,
     graph's memory pool and stay held here.  A graph replays with its
     capture stream's buffers, so it must not replay while launches on that
     stream are in flight elsewhere."""
-    entry = _scratch.get((device, stream))
-    if entry is None or entry[0].numel() < p.workspace or entry[1].numel() < p.tickets:
-        if entry is not None and entry[2]:
-            _retired.append((entry[0], entry[1]))
-        old_ws, old_t = (entry[0].numel(), entry[1].numel()) if entry is not None else (0, 0)
-        entry = [torch.empty(max(p.workspace, old_ws), dtype=torch.float32, device=device),
-                 torch.zeros(max(p.tickets, old_t), dtype=torch.int32, device=device), False]
-        _scratch[(device, stream)] = entry
-    entry[2] = entry[2] or capturing
-    return entry[0], entry[1]
+    with _scratch_lock:  # engines on two threads may share a stream
+        entry = _scratch.get((device, stream))
+        if entry is None or entry[0].numel() < p.workspace or entry[1].numel() < p.tickets:
+            if entry is not None and entry[2]:
+                _retired.append((entry[0], entry[1]))
+            old_ws, old_t = (entry[0].numel(), entry[1].numel()) if entry is not None else (0, 0)
+            entry = [torch.empty(max(p.workspace, old_ws), dtype=torch.float32, device=device),
+                     torch.zeros(max(p.tickets, old_t), dtype=torch.int32, device=device), False]
+            _scratch[(device, stream)] = entry
+        entry[2] = entry[2] or capturing
+        return entry[0], entry[1]
 
 
 def decode_attention_ref(

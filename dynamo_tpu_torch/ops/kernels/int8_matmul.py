@@ -26,6 +26,7 @@ and K; rows off 16 bytes take a slower element-wise copy in the kernel.
 from __future__ import annotations
 
 import functools
+import threading
 from dataclasses import dataclass
 
 import torch
@@ -97,6 +98,7 @@ def ticket_capacity(sms: int) -> int:
 
 
 _tickets: dict[tuple[torch.device, int], torch.Tensor] = {}
+_tickets_lock = threading.Lock()
 
 
 def _stream_tickets(device: torch.device, stream: int) -> torch.Tensor:
@@ -104,11 +106,13 @@ def _stream_tickets(device: torch.device, stream: int) -> torch.Tensor:
     zeroed by every launch.  Launches on one stream run in order, so they
     never hold a ticket at once; the buffer lives as long as the process,
     so a CUDA graph captured on the stream may keep its address."""
-    buf = _tickets.get((device, stream))
-    if buf is None:
-        buf = torch.zeros(ticket_capacity(build.sm_count(device.index or 0)), dtype=torch.int32, device=device)
-        _tickets[(device, stream)] = buf
-    return buf
+    with _tickets_lock:  # engines on two threads may share a stream
+        buf = _tickets.get((device, stream))
+        if buf is None:
+            buf = torch.zeros(ticket_capacity(build.sm_count(device.index or 0)), dtype=torch.int32,
+                              device=device)
+            _tickets[(device, stream)] = buf
+        return buf
 
 
 def _weight_layout(wq: torch.Tensor) -> tuple[torch.Tensor, int]:
@@ -144,6 +148,11 @@ def int8_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"int8_matmul runs on cuda or cpu, not {x.device}")
     out_dtype = out_dtype or x.dtype
     _check(x, wq, scale, out_dtype)
+    return _launch(x, wq, scale, out_dtype)
+
+
+def _launch(x, wq, scale, out_dtype) -> torch.Tensor:
+    """Plan and launch the kernel on the current stream; returns the output."""
     w, nk = _weight_layout(wq)
     m, k = x.shape
     n = wq.shape[1]
@@ -152,14 +161,20 @@ def int8_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
         return out
     p = plan(m, n, k, build.sm_count(x.device.index or 0))
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    partials = tickets = None
-    if p.splits > 1:  # the splits' sums, per call from the caching allocator (stream-ordered)
-        partials = torch.empty(p.scratch, dtype=torch.float32, device=x.device).data_ptr()
+    scratch = partials = tickets = None
+    if p.splits > 1:
+        # the splits' sums, per call from the caching allocator (stream-ordered).
+        # Held until the launch is enqueued: freed before it, the block could go
+        # to a tensor another thread (a second engine) enqueues work on ahead of
+        # this launch on the same stream, and the partials would overwrite it
+        scratch = torch.empty(p.scratch, dtype=torch.float32, device=x.device)
+        partials = scratch.data_ptr()
         tickets = _stream_tickets(x.device, stream).data_ptr()
     rc = build.library().dynamo_int8_matmul(
         x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(), partials, tickets,
         m, n, k, nk, int(out_dtype == torch.float32), p.grid[0], p.grid[1], p.splits, p.k_steps, stream,
     )
+    del scratch  # enqueued: a later allocation's work runs after this launch
     build.check(rc, "dynamo_int8_matmul")
     int8_matmul.launches += 1
     return out

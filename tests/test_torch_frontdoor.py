@@ -64,7 +64,8 @@ from dynamo_tpu_torch.llm.http.metrics import Metrics
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.models.convert import params_from_jax
 from dynamo_tpu_torch.models.llama import LlamaModel
-from dynamo_tpu_torch.obs.metric_names import EngineMetric, HttpMetric
+from dynamo_tpu_torch.obs.metric_names import (EngineMetric, HttpMetric, KvStreamMetric,
+                                                KvTransferMetric)
 from dynamo_tpu_torch.runtime.engine import Context
 from tests.test_chat_templates import LLAMA3_TEMPLATE, MISTRAL_TEMPLATE
 
@@ -633,9 +634,13 @@ def test_http_metrics_match_jax(served):
     assert out[EngineMetric.PREFILL_DISPATCHES_TOTAL] > 0
     assert out[EngineMetric.PREFILL_TOKENS_TOTAL] > 0
     families = {l.split()[2] for l in out_text.splitlines() if l.startswith("# TYPE")}
-    assert families == set(HttpMetric.__dict__[k] for k in vars(HttpMetric)
-                           if k.isupper()) | set(EngineMetric.__dict__[k]
-                                                 for k in vars(EngineMetric) if k.isupper())
+
+    def names(cls):
+        return {v for k, v in vars(cls).items() if k.isupper()}
+
+    # the transfer-cost families render once an edge has a sample
+    assert families - names(KvTransferMetric) == (
+        names(HttpMetric) | names(EngineMetric) | names(KvStreamMetric))
 
 
 def test_metrics_latency_histograms():

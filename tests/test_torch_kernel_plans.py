@@ -96,6 +96,46 @@ def test_int8_matmul_plan(name, m, layout):
     assert p.smem == g["B5_DC_SMEM" if p.regime == "decode" else "B5_PF_SMEM"] <= SMEM_LIMIT
 
 
+def test_int8_matmul_split_k_scratch_lives_through_the_launch(monkeypatch):
+    """A split-K launch's partials are held by a live tensor when the
+    kernel is enqueued.  Freed before it, the caching allocator could give
+    the block to a tensor another thread (a second engine on the same
+    stream) enqueues work on ahead of the launch, and the partials would
+    overwrite it.  The CUDA branch runs here on CPU tensors against a
+    stand-in library that checks the pointer's owner is alive."""
+    import weakref
+
+    m, (k, n) = 8, SHAPES["wq"]
+    p = mm.plan(m, n, k, SMS)
+    assert p.splits > 1
+    scratches = []
+    real_empty = torch.empty
+
+    def empty(*shape, **kw):
+        t = real_empty(*shape, **kw)
+        if shape == (p.scratch,) and kw.get("dtype") is torch.float32:
+            scratches.append(weakref.ref(t))
+        return t
+
+    class Library:
+        def dynamo_int8_matmul(self, x, w, scale, out, partials, tickets, *dims):
+            (owner,) = scratches
+            assert owner() is not None and owner().data_ptr() == partials
+            launched.append(dims)
+            return 0
+
+    launched = []
+    monkeypatch.setattr(torch, "empty", empty)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: type(
+        "Stream", (), {"cuda_stream": 0})())
+    monkeypatch.setattr(build, "sm_count", lambda index=0: SMS)
+    monkeypatch.setattr(build, "library", Library)
+    x = torch.zeros((m, k), dtype=torch.bfloat16)
+    w = torch.zeros((k, n), dtype=torch.int8)
+    mm._launch(x, w, torch.ones(n), torch.bfloat16)
+    assert len(launched) == 1 and launched[0][-3] == p.splits
+
+
 @pytest.mark.parametrize("s", [1, 17, 1504])
 @pytest.mark.parametrize("d", pa.HEAD_DIMS)
 @pytest.mark.parametrize("group", [1, 4, 8, 64])
