@@ -114,7 +114,35 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the handoff time from queue push to notify, MB/s per path, and beside
    them a device-to-device and a pinned device-to-host copy of one
    handoff's mean bytes (each path's bound) and the block gather + scatter
-   of those bytes;
+   of those bytes.  Last on each model, the ``tier`` phase: the multi-tier
+   KV cache with a device pool too small for the traffic (192 blocks of
+   16 tokens on bf16, 96 of 32 on int8) over a host pool of 1,024 blocks
+   (512 on int8; pinned) and a shared prefix P of 1,024 tokens.  On bf16:
+   (h1) P + a 256-token suffix cold, (h2) P + another suffix, a device
+   hit, (h3) P's blocks kept as the reference, then three distinct
+   1,500-token prompts that push P off the device and a flush of the
+   offload queue, (h4) P + a third suffix, restored from the host: P off
+   the device after the churn, at least its 64 blocks stored and then
+   restored, cached tokens >= 1,024, the restored blocks P's bits, and the
+   stream that of P + the third suffix on a second engine with no host tier
+   and P warm on its device; (h5) h1, h2 and h4 on three fresh prefixes;
+   (p) an engine with a persist directory (the git-ignored ``_kvpersist/``)
+   serves P and the churn and is closed, and a new engine over the
+   directory restores P from disk (>= 64 persist hits) with h4's stream;
+   (r) two engines on the model, each behind the worker wiring
+   (``cli.attach_worker_publishers``: event and metrics publishers on a
+   coordinator), a ``KvRouter`` and its subscriber: three requests over a
+   1,024-token prefix A and three over B in turn, each later one routed to
+   the engine that served its prefix first (overlap >= 64 blocks, cached >=
+   1,024), and after the flush the index holds each engine's registered
+   blocks.  On int8 (q): h1, h3 and h4, with the data and scale blocks
+   bit-equal and the second engine's stream.  One ``{"tier": ...}`` line
+   gives TTFT cold, device hit, host and persist restore, the blocks and
+   bytes offloaded and restored, the copies' GB/s (offload timed on the
+   offload thread, by CUDA events on its stream) beside a pinned
+   device-to-host and host-to-device copy of P's bytes, persist spill and
+   load MB/s and the host gap per turn of h2 and h4; one ``{"router":
+   ...}`` line the decisions, overlaps and the time of one decision;
 5. parity: 2-layer models at full 8B width on the card (kernels, bf16) and
    on the CPU (plain PyTorch, f32), bf16 weights with a bf16 cache and int8
    weights with an int8 cache: one 300-token prompt over a 128-token cached
@@ -179,12 +207,14 @@ each beside its bound and SDPA on the same latent K/V.  Phase 4 prints
 one ``{"grammar": {...}}`` line (the grammar ops' and the seeded noise's
 times, launches and bounds, the table sizes, the constrained serving
 readings beside the unconstrained ones).  At the end one ``{"mla": [...]}``
-line, the ``{"disagg": ...}`` line, one ``{"kernels": [...]}`` line (each
-kernel's row also holds its launches over the disaggregated runs under
-``launches_disagg``; the grouped
+line, the ``{"disagg": ...}`` line, the ``{"tier": ...}`` and
+``{"router": ...}`` lines, one ``{"kernels": [...]}`` line (each kernel's
+row also holds its launches over the disaggregated runs under
+``launches_disagg`` and over the KV-tier runs under ``launches_tier``; the grouped
 kernels' rows hold their T = 8 reading and, under ``t1504``, their T =
 1,504 one; E1's also its DeepSeek-V2-Lite readings and launches), and as
-the last line ``{"ok": true, "device": {...}}``.
+the last line ``{"ok": true, "device": {...}}``.  Every line it logs is
+also written to ``chiprun_out/chip_smoke.log`` beside the script.
 """
 
 from __future__ import annotations
@@ -289,8 +319,19 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+# the whole run's log, beside the script (the console keeps only its end)
+LOG_PATH = ROOT / "chiprun_out" / "chip_smoke.log"
+_log_file = None
+
+
 def log(msg: str) -> None:
+    global _log_file
     print(msg, flush=True)
+    if _log_file is None:
+        LOG_PATH.parent.mkdir(exist_ok=True)
+        _log_file = open(LOG_PATH, "w")
+    _log_file.write(msg + "\n")
+    _log_file.flush()
 
 
 # kernels whose every instantiation must be in the library: the paged
@@ -1715,9 +1756,10 @@ def serving_phase(torch, card: str):
     t0 = time.perf_counter()
     disagg = disagg_phase(torch, model, default, card)
     log(f"disagg phase (bf16): {time.perf_counter() - t0:.1f} s")
+    tier = tier_phase(torch, model, card)
     del model
     torch.cuda.empty_cache()
-    return default, budget, mixed, spec, disagg
+    return default, budget, mixed, spec, disagg, tier
 
 
 def serve_both(torch, model, card: str, quant: bool):
@@ -1777,9 +1819,10 @@ def serving_phase_q8(torch, card: str):
     t0 = time.perf_counter()
     disagg = disagg_phase(torch, model, out[0], card, quant=True)
     log(f"disagg phase (int8): {time.perf_counter() - t0:.1f} s")
+    tier = tier_phase_q8(torch, model, card)
     del model
     torch.cuda.empty_cache()
-    return out + (spec, disagg)
+    return out + (spec, disagg, tier)
 
 
 # ------------------------------------------------------------- speculation
@@ -3600,6 +3643,418 @@ def disagg_line(torch, runs: dict, card: str) -> dict:
     return dict(runs=rows, yardstick=yard, card=card)
 
 
+# ------------------------------------------------------------- KV tiers
+# The multi-tier KV cache on Llama-3-8B: a device pool too small for the
+# traffic (192 blocks of 16 tokens, 384 MiB), a host pool of 1,024 blocks
+# (2 GiB, pinned) and a shared prefix P of 1,024 tokens (64 blocks): long
+# shared system prompts and multi-turn chats whose prefixes outlive the
+# device pool.
+TIER_BLOCKS = 192
+TIER_HOST_BLOCKS = 1024
+TIER_PREFIX = 1024
+TIER_SUFFIX = 256
+TIER_CHURN = 1500      # three distinct prompts that push P off the device
+TIER_CHURN_TOKENS = 2  # the churn only has to allocate
+TIER_REPEATS = 3
+TIER_PATH = dict(DEFAULT_PATH, num_blocks=TIER_BLOCKS, num_host_blocks=TIER_HOST_BLOCKS)
+# the int8 run in its 32-token blocks: the same tokens in half the blocks
+INT8_TIER_PATH = dict(INT8_DEFAULT_PATH, num_blocks=TIER_BLOCKS // 2,
+                      num_host_blocks=TIER_HOST_BLOCKS // 2)
+PERSIST_DIR = ROOT / "_kvpersist"
+# the router run: two engines, prefixes A and B of 1,024 tokens, three
+# requests over each in turn, each with its own 64-token suffix
+ROUTER_PREFIX = 1024
+ROUTER_SUFFIX = 64
+ROUTER_TOKENS = 8
+ROUTER_NS = "tier-router"
+
+
+def tier_prompts(seed: int) -> dict:
+    """A prefix P (1,024 tokens), P + each of three suffixes, and three
+    churn prompts, from a seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def ids(n):
+        return rng.integers(0, LLAMA3_VOCAB, n).tolist()
+
+    p = ids(TIER_PREFIX)
+    return dict(s1=p + ids(TIER_SUFFIX), s2=p + ids(TIER_SUFFIX), s3=p + ids(TIER_SUFFIX),
+                churn=[ids(TIER_CHURN) for _ in range(3)])
+
+
+def _on_engine(engine, fn):
+    """``fn()`` on the engine thread, at a step boundary."""
+    return asyncio.run(engine.run_on_engine(fn))
+
+
+def _one(engine, toks, tag: str, max_tokens: int = MAX_TOKENS) -> dict:
+    """One request alone, greedy: its TTFT, stream, cached tokens and the
+    engine's host gap per turn over it."""
+    core = engine.core
+    host0, turns0 = core._host_s, core._turns
+    ((ttft, _, outs),) = asyncio.run(_serve(engine, [toks], max_tokens=max_tokens, tag=tag))
+    turns = core._turns - turns0
+    return dict(ttft=ttft, stream=[t for o in outs for t in o.token_ids],
+                cached=outs[-1].cached_tokens,
+                host_gap_ms=1e3 * (core._host_s - host0) / turns if turns else 0.0)
+
+
+def _prefix_blocks(core, toks) -> list:
+    """The device blocks registered for P's sequence hashes (None where one
+    is not on the device)."""
+    from dynamo_tpu_torch.tokens import sequence_hashes
+
+    bs = core.config.block_size
+    return [core.block_manager.lookup(h) for h in sequence_hashes(toks, bs)[:TIER_PREFIX // bs]]
+
+
+def _p_on_device(engine, toks) -> int:
+    """How many of ``toks``'s tokens would hit the device cache."""
+    from dynamo_tpu_torch.tokens import sequence_hashes
+
+    core = engine.core
+    return _on_engine(engine, lambda: core.prefix_hit_tokens(
+        sequence_hashes(toks, core.config.block_size), len(toks)))
+
+
+def _same_bits(torch, a, b) -> bool:
+    return all(torch.equal(_bits(torch, x), _bits(torch, y)) for x, y in zip(_parts(a), _parts(b)))
+
+
+def _churn(engine, ps: dict, tag: str) -> None:
+    """The three churn prompts in turn, then every offload landed."""
+    for i, toks in enumerate(ps["churn"]):
+        _one(engine, toks, f"{tag}-churn{i}", max_tokens=TIER_CHURN_TOKENS)
+    _on_engine(engine, engine.core.flush_host_offload)
+
+
+def _tier_engine(model, config: dict):
+    from dynamo_tpu_torch.engine import AsyncLLMEngine, EngineConfig, EngineCore
+
+    return AsyncLLMEngine(EngineCore(model, EngineConfig(**config), device="cuda")).start()
+
+
+def _close(torch, engine) -> None:
+    engine.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def tier_run(torch, model, config: dict, ps: dict, label: str, reference: bool = True) -> dict:
+    """h1 (cold), h2 (device hit, unless ``ps`` has no s2), h3 (P's blocks
+    kept as the reference, then the churn that pushes P off the device) and
+    h4 (host restore) on one engine.  Checks: h2 hit P on the device; after
+    the churn P is off the device and the host stored at least its blocks;
+    h4 restored them from the host, with P's bits; with ``reference``, h4's
+    stream is that of P + s3 on a second engine with no host tier and P
+    warm on its device (whose prefill of P gave the same bits)."""
+    n_p = TIER_PREFIX // config["block_size"]
+    engine = _tier_engine(model, config)
+    core = engine.core
+    try:
+        runs = {"h1": _one(engine, ps["s1"], f"{label}-h1")}
+        if "s2" in ps:
+            runs["h2"] = _one(engine, ps["s2"], f"{label}-h2")
+            check(runs["h2"]["cached"] >= TIER_PREFIX,
+                  f"{label} h2: cached {runs['h2']['cached']} < {TIER_PREFIX}")
+        ids = _prefix_blocks(core, ps["s1"])
+        check(None not in ids, f"{label}: P is not all on the device after h1")
+        ref = _on_engine(engine, lambda: core.gather_blocks_np(ids))
+        t0 = time.perf_counter()
+        _churn(engine, ps, label)
+        churn_s = time.perf_counter() - t0
+        m = core.metrics()
+        check(_p_on_device(engine, ps["s3"]) == 0, f"{label} h3: P is still on the device")
+        check(m["host_blocks_stored"] >= n_p,
+              f"{label} h3: the host stored {m['host_blocks_stored']} < {n_p} blocks")
+        restored0 = m["host_blocks_restored"]
+        runs["h4"] = _one(engine, ps["s3"], f"{label}-h4")
+        m = core.metrics()
+        check(runs["h4"]["cached"] >= TIER_PREFIX,
+              f"{label} h4: cached {runs['h4']['cached']} < {TIER_PREFIX}")
+        check(m["host_blocks_restored"] - restored0 >= n_p,
+              f"{label} h4: restored {m['host_blocks_restored'] - restored0} < {n_p} blocks")
+        ids4 = _prefix_blocks(core, ps["s3"])
+        check(None not in ids4, f"{label} h4: P is not registered after the restore")
+        got = _on_engine(engine, lambda: core.gather_blocks_np(ids4))
+        check(_same_bits(torch, ref, got), f"{label} h4: the restored blocks are not P's bits")
+        stats, metrics = dict(core.tier_stats), m
+    finally:
+        del core
+        _close(torch, engine)
+    if reference:
+        plain = _tier_engine(model, dict(config, num_host_blocks=0))
+        try:
+            _one(plain, ps["s1"], f"{label}-ref-warm")
+            ids = _prefix_blocks(plain.core, ps["s1"])
+            warm = _on_engine(plain, lambda: plain.core.gather_blocks_np(ids))
+            check(_same_bits(torch, ref, warm),
+                  f"{label}: the second engine's prefill of P gave other bits")
+            stream = _one(plain, ps["s3"], f"{label}-ref-h4")["stream"]
+        finally:
+            _close(torch, plain)
+        check(runs["h4"]["stream"] == stream,
+              f"{label} h4: the host-restored stream differs from the device-hit stream")
+    log(f"tier {label}: TTFT " + ", ".join(f"{k} {1e3 * v['ttft']:.1f} ms" for k, v in runs.items())
+        + f"; cached {[v['cached'] for v in runs.values()]}, churn {churn_s:.2f} s, "
+        f"host stored {metrics['host_blocks_stored']} restored {metrics['host_blocks_restored']}, "
+        f"{stats}")
+    return dict(runs=runs, stats=stats, metrics=metrics)
+
+
+def persist_run(torch, model, ps: dict, h4_stream: list, label: str = "p") -> dict:
+    """(p): an engine with a persist directory serves P + s1 and the churn,
+    flushes and is closed; a new engine over the directory serves P + s3.
+    Checks: the disk held P, the new engine restored at least P's blocks
+    from it (persist hits), and its stream is h4's."""
+    import shutil
+
+    from dynamo_tpu_torch.engine.counters import persist_counters
+
+    n_p = TIER_PREFIX // BS
+    shutil.rmtree(PERSIST_DIR, ignore_errors=True)
+    config = dict(TIER_PATH, kv_persist_dir=str(PERSIST_DIR))
+    try:
+        engine = _tier_engine(model, config)
+        try:
+            _one(engine, ps["s1"], f"{label}-cold")
+            _churn(engine, ps, label)
+            spill = dict(engine.core.tier_stats)
+            files = engine.core.persist_store.stats()
+        finally:
+            _close(torch, engine)
+        persist_counters.reset()
+        engine = _tier_engine(model, config)
+        try:
+            check(engine.core.persist_store.stats()["persist_blocks"] >= n_p,
+                  f"{label}: the restarted engine found {files} on disk")
+            warm = _one(engine, ps["s3"], f"{label}-warm")
+            load = dict(engine.core.tier_stats)
+        finally:
+            _close(torch, engine)
+    finally:
+        shutil.rmtree(PERSIST_DIR, ignore_errors=True)
+    check(persist_counters.hits_total >= n_p,
+          f"{label}: {persist_counters.hits_total} persist hits < {n_p}")
+    check(warm["cached"] >= TIER_PREFIX, f"{label}: cached {warm['cached']} < {TIER_PREFIX}")
+    check(warm["stream"] == h4_stream, f"{label}: the persist-restored stream differs from h4's")
+    log(f"tier {label}: persist restore TTFT {1e3 * warm['ttft']:.1f} ms, cached "
+        f"{warm['cached']}, {persist_counters.hits_total} persist hits, files {files}")
+    return dict(warm=warm, files=files, hits=persist_counters.hits_total,
+                spill_bytes=spill["spill_bytes"], spill_s=spill["spill_s"],
+                load_bytes=load["load_bytes"], load_s=load["load_s"])
+
+
+def tier_yardsticks(torch, nbytes: int) -> dict:
+    """A pinned device-to-host and host-to-device copy of ``nbytes``, timed on
+    the card: what an offload and a restore of that many bytes could take."""
+    n = nbytes // 2
+    dev = torch.zeros(n, dtype=torch.bfloat16, device="cuda")
+    host = torch.zeros(n, dtype=torch.bfloat16, pin_memory=True)
+    d2h = median_ms(lambda: cuda_time_ms(lambda i: host.copy_(dev, non_blocking=True), 5))
+    h2d = median_ms(lambda: cuda_time_ms(lambda i: dev.copy_(host, non_blocking=True), 5))
+    del dev, host
+    torch.cuda.empty_cache()
+    return dict(bytes=nbytes, d2h_pinned_ms=d2h, h2d_pinned_ms=h2d,
+                d2h_pinned_gb_s=nbytes / d2h / 1e6, h2d_pinned_gb_s=nbytes / h2d / 1e6)
+
+
+class _Runtime:
+    """The duck-typed runtime the worker wiring takes: an instance id, a
+    coordinator client and the stops to await at shutdown."""
+
+    def __init__(self, coordinator, instance_id: int):
+        self.coordinator = coordinator
+        self.instance_id = instance_id
+        self.stops = []
+
+    def on_shutdown(self, fn) -> None:
+        self.stops.append(fn)
+
+    async def shutdown(self) -> None:
+        for fn in reversed(self.stops):
+            await fn()
+
+
+def router_run(torch, model, card: str) -> dict:
+    """(r): two engines on the one model, each behind the worker wiring
+    (event and metrics publishers), a coordinator, a KvRouter and its
+    subscriber; three requests over prefix A and three over prefix B in
+    turn, each sent where the router says.  Checks: each prefix's later
+    requests go to the worker that served its first, with an overlap of at
+    least P's blocks, and hit them there (cached tokens); after the flush,
+    the index holds each engine's registered blocks."""
+    import random
+
+    import numpy as np
+
+    from dynamo_tpu_torch.cli import attach_worker_publishers
+    from dynamo_tpu_torch.llm.kv_router import DefaultWorkerSelector, KvRouter
+    from dynamo_tpu_torch.llm.kv_router.metrics_aggregator import KvRouterSubscriber
+    from dynamo_tpu_torch.runtime.transports.coordinator import CoordinatorClient, CoordinatorServer
+
+    rng = np.random.default_rng(7)
+    prefixes = {"A": rng.integers(0, LLAMA3_VOCAB, ROUTER_PREFIX).tolist(),
+                "B": rng.integers(0, LLAMA3_VOCAB, ROUTER_PREFIX).tolist()}
+    reqs = [(name, prefixes[name] + rng.integers(0, LLAMA3_VOCAB, ROUTER_SUFFIX).tolist())
+            for name in "ABABAB"]
+    engines = {w: _tier_engine(model, DEFAULT_PATH) for w in (1, 2)}
+
+    async def go():
+        srv = await CoordinatorServer(port=0).start()
+        clients = [await CoordinatorClient(srv.url).connect() for _ in range(3)]
+        runtimes = {w: _Runtime(clients[i], w) for i, w in enumerate(engines)}
+        subscriber = None
+        try:
+            for w, engine in engines.items():
+                attach_worker_publishers(runtimes[w], engine, ROUTER_NS)
+            router = KvRouter(block_size=BS, selector=DefaultWorkerSelector(random.Random(0)))
+            subscriber = await KvRouterSubscriber(router, clients[2], namespace=ROUTER_NS).start()
+            for _ in range(500):
+                if len(router.scheduler.workers()) == 2:
+                    break
+                await asyncio.sleep(0.01)
+            check(len(router.scheduler.workers()) == 2, "router: the workers' metrics never came")
+            rows = []
+            for i, (name, toks) in enumerate(reqs):
+                d = router.schedule(toks)
+                ((ttft, _, outs),) = await _serve(engines[d.worker_id], [toks],
+                                                  max_tokens=ROUTER_TOKENS, tag=f"router-{i}")
+                rows.append(dict(prefix=name, worker=d.worker_id, overlap_blocks=d.overlap_blocks,
+                                 cached=outs[-1].cached_tokens, ttft_ms=1e3 * ttft))
+                await asyncio.sleep(0.2)  # the publishers flush every 50 ms
+            index = {w: router.indexer.worker_blocks(w) for w in engines}
+            registered = {w: len(e.core.block_manager._table) for w, e in engines.items()}
+            # one routing decision: hash the prompt, match, score, pick
+            t0 = time.perf_counter()
+            for _ in range(50):
+                router.schedule(reqs[0][1])
+            schedule_ms = 1e3 * (time.perf_counter() - t0) / 50
+            return rows, index, registered, schedule_ms
+        finally:
+            if subscriber is not None:
+                await subscriber.stop()
+            for rt in runtimes.values():
+                await rt.shutdown()
+            for c in clients:
+                await c.close()
+            await srv.stop()
+
+    try:
+        rows, index, registered, schedule_ms = asyncio.run(go())
+    finally:
+        for e in engines.values():
+            _close(torch, e)
+    first = {}
+    for i, r in enumerate(rows):
+        if r["prefix"] not in first:
+            first[r["prefix"]] = r["worker"]
+            continue
+        check(r["worker"] == first[r["prefix"]],
+              f"router: request {i} over {r['prefix']} went to worker {r['worker']}, "
+              f"not to {first[r['prefix']]}: {rows}")
+        check(r["overlap_blocks"] >= ROUTER_PREFIX // BS and r["cached"] >= ROUTER_PREFIX,
+              f"router: request {i}: overlap {r['overlap_blocks']}, cached {r['cached']}")
+    check(index == registered, f"router: the index holds {index}, the engines {registered}")
+    log(f"router: {rows}; index {index}, one decision {schedule_ms:.3f} ms ({card})")
+    return dict(decisions=rows, index_blocks=index, registered_blocks=registered,
+                decision_ms=schedule_ms, card=card)
+
+
+def tier_phase(torch, model, card: str) -> dict:
+    """The KV tiers on the bf16 Llama-3-8B: h1-h4 on prefix 0 (with the
+    second engine's reference stream), h1, h2 and h4 again on three fresh
+    prefixes (h5), the persist restart (p), the router (r), and the pinned
+    copy yardsticks of P's bytes; each kernel's launches over all of it."""
+    wrappers = _kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    ps = tier_prompts(0)
+    first = tier_run(torch, model, TIER_PATH, ps, "h")
+    repeats = [tier_run(torch, model, TIER_PATH, tier_prompts(1 + i), f"h5.{i}", reference=False)
+               for i in range(TIER_REPEATS)]
+    persist = persist_run(torch, model, ps, first["runs"]["h4"]["stream"])
+    router = router_run(torch, model, card)
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    check(launches["decode"] > 0 and launches["prefill"] > 0 and not any(
+        launches[k] for k in ("decode_q8", "prefill_q8", "ragged", "ragged_q8", "matmul")),
+          f"tier phase: launches {launches}")
+    yard = tier_yardsticks(torch, TIER_PREFIX // BS * first["stats"]["offload_bytes"]
+                           // max(1, first["stats"]["offload_blocks"]))
+    log(f"tier phase (bf16): {time.perf_counter() - t0:.1f} s, launches {launches} ({card})")
+    return dict(first=first, repeats=repeats, persist=persist, router=router, yard=yard,
+                launches=launches)
+
+
+def tier_phase_q8(torch, model, card: str) -> dict:
+    """(q): h1, h3 and h4 on the int8 model with an int8 cache (32-token
+    blocks): the restored data and scale blocks bit-equal, the stream that
+    of a second engine with P warm on its device."""
+    wrappers = _kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    ps = {k: v for k, v in tier_prompts(0).items() if k != "s2"}
+    run = tier_run(torch, model, INT8_TIER_PATH, ps, "q")
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    check(all(launches[k] for k in ("decode_q8", "prefill_q8", "matmul")),
+          f"int8 tier phase: launches {launches}")
+    log(f"tier phase (int8): {time.perf_counter() - t0:.1f} s, launches {launches} ({card})")
+    return dict(run=run, launches=launches)
+
+
+def _gb_s(nbytes, seconds):
+    return nbytes / seconds / 1e9 if seconds else None
+
+
+def tier_line(bf16: dict, q8: dict, card: str) -> dict:
+    """The ``{"tier": ...}`` line: TTFT cold, device hit, host restore and
+    persist restore (the first run's and the repeats' median), blocks and
+    bytes offloaded and restored, the copies' GB/s beside the pinned-copy
+    yardsticks, persist spill and load MB/s, and h2's and h4's host gap."""
+    runs = [bf16["first"]] + bf16["repeats"]
+
+    def ttfts(key):
+        return [1e3 * r["runs"][key]["ttft"] for r in runs]
+
+    def median(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    st = {k: sum(r["stats"][k] for r in runs) for k in runs[0]["stats"]}
+    p = bf16["persist"]
+    q = q8["run"]
+    return dict(
+        card=card,
+        ttft_ms={k: ttfts(h) for k, h in (("cold", "h1"), ("device_hit", "h2"),
+                                           ("host_restore", "h4"))},
+        ttft_median_ms={k: median(ttfts(h)[1:]) for k, h in (("cold", "h1"), ("device_hit", "h2"),
+                                                             ("host_restore", "h4"))},
+        ttft_persist_restore_ms=1e3 * p["warm"]["ttft"],
+        host_gap_ms_per_turn={"h2": [r["runs"]["h2"]["host_gap_ms"] for r in runs],
+                              "h4": [r["runs"]["h4"]["host_gap_ms"] for r in runs]},
+        offloaded=dict(blocks=st["offload_blocks"], bytes=st["offload_bytes"]),
+        restored=dict(blocks=st["restore_blocks"], bytes=st["restore_bytes"]),
+        offload_gb_s=_gb_s(st["offload_bytes"], st["offload_copy_s"]),
+        offload_store_gb_s=_gb_s(st["offload_bytes"], st["offload_store_s"]),
+        restore_gb_s=_gb_s(st["restore_bytes"], st["restore_copy_s"]),
+        restore_wall_gb_s=_gb_s(st["restore_bytes"], st["restore_wall_s"]),
+        persist=dict(spill_mb_s=1e3 * (_gb_s(p["spill_bytes"], p["spill_s"]) or 0.0),
+                     load_mb_s=1e3 * (_gb_s(p["load_bytes"], p["load_s"]) or 0.0),
+                     spill_bytes=p["spill_bytes"], load_bytes=p["load_bytes"], hits=p["hits"],
+                     files=p["files"]["persist_files"]),
+        yardsticks=bf16["yard"],
+        int8=dict(ttft_ms={k: 1e3 * v["ttft"] for k, v in q["runs"].items()},
+                  cached={k: v["cached"] for k, v in q["runs"].items()},
+                  offloaded_blocks=q["stats"]["offload_blocks"],
+                  restored_blocks=q["stats"]["restore_blocks"],
+                  offload_gb_s=_gb_s(q["stats"]["offload_bytes"], q["stats"]["offload_copy_s"]),
+                  restore_gb_s=_gb_s(q["stats"]["restore_bytes"], q["stats"]["restore_copy_s"])),
+        launches=bf16["launches"], launches_int8=q8["launches"])
+
+
 # ------------------------------------------------------------------ grammar
 GRAMMAR_CHOICES = ["alpha", "beta", "gamma"]
 GRAMMAR_REGEX = "[0-9][0-9][0-9]-[0-9][0-9][0-9][0-9]"
@@ -4311,10 +4766,14 @@ def main() -> int:
     from dynamo_tpu_torch.ops.kernels import build
 
     shutil.rmtree(FRONT_DIR, ignore_errors=True)
+    shutil.rmtree(PERSIST_DIR, ignore_errors=True)
     mark = phase_clock()
     try:
         card = card_line()
         log(card)
+        # the host RAM the KV tiers' pinned pools come out of
+        log("free -g: " + " | ".join(subprocess.run(["free", "-g"], capture_output=True,
+                                                    text=True).stdout.strip().splitlines()))
         t0 = time.perf_counter()
         lib_path = build.build_library(verbose=True)
         build.library()
@@ -4331,15 +4790,17 @@ def main() -> int:
         mla = mla_timing(torch, card)
         mark("kernel timings")
         write_tokenizer(FRONT_DIR)
-        default, budget, mixed, spec, disagg = serving_phase(torch, card)
+        default, budget, mixed, spec, disagg, tier = serving_phase(torch, card)
         times["ragged"] = ragged_timing(torch, card, mixed)
         times["ragged_err"] = times["ragged"].pop("err")
         mark("Llama-3-8B bf16 serving")
-        q8_default, q8_budget, q8_mixed, q8_spec, q8_disagg = serving_phase_q8(torch, card)
+        q8_default, q8_budget, q8_mixed, q8_spec, q8_disagg, q8_tier = serving_phase_q8(torch,
+                                                                                       card)
         times["ragged_q8"] = ragged_timing(torch, card, q8_mixed, quant=True)
         times["ragged_q8_err"] = times["ragged_q8"].pop("err")
         disagg.update(q8_disagg)
         disagg_out = disagg_line(torch, disagg, card)
+        tier_out = tier_line(tier, q8_tier, card)
         mark("Llama-3-8B int8 serving")
         parity_phase(torch, card, verify=True)
         parity_phase(torch, card, quant=True)
@@ -4364,6 +4825,7 @@ def main() -> int:
         return 1
     finally:
         shutil.rmtree(FRONT_DIR, ignore_errors=True)
+        shutil.rmtree(PERSIST_DIR, ignore_errors=True)
     # launches: each kernel's count over the serving run of the path it
     # carries (decode and prefill: the default path; ragged: the token-budget
     # path; the int8 kernels: the same paths on the int8 model; the grouped
@@ -4381,12 +4843,15 @@ def main() -> int:
     # each kernel's launches over the disaggregated runs, (a)-(e)
     disagg_launches = {k: sum(r["launches"][k] for r in disagg.values())
                        for k in _kernel_wrappers()}
+    # and over the KV-tier runs (bf16 and int8 models, the router's included)
+    tier_launches = {k: tier["launches"][k] + q8_tier["launches"][k] for k in _kernel_wrappers()}
     kernels = [
         dict(name="paged_decode_attention", route="cuda",
              source="dynamo_tpu_torch/csrc/decode_attention.cu",
              replaces="dynamo_tpu/ops/pallas/decode_attention.py:281",
              launches=default["launches"]["decode"],
              launches_disagg=disagg_launches["decode"],
+             launches_tier=tier_launches["decode"],
              max_abs_err=max(errs["decode"], times["decode_err"]), **times["decode"],
              verify=dict(times["decode_verify"], launches=verify_launches["B1"])),
         dict(name="paged_prefill_attention", route="cuda",
@@ -4394,18 +4859,21 @@ def main() -> int:
              replaces="dynamo_tpu/ops/pallas/prefill_attention.py:246",
              launches=default["launches"]["prefill"],
              launches_disagg=disagg_launches["prefill"],
+             launches_tier=tier_launches["prefill"],
              max_abs_err=max(errs["prefill"], times["prefill_err"]), **times["prefill"]),
         dict(name="ragged_paged_prefill_attention", route="cuda",
              source="dynamo_tpu_torch/csrc/ragged_prefill_attention.cu",
              replaces="dynamo_tpu/ops/pallas/prefill_attention.py:593",
              launches=budget["launches"]["ragged"],
              launches_disagg=disagg_launches["ragged"],
+             launches_tier=tier_launches["ragged"],
              max_abs_err=max(errs["ragged"], times["ragged_err"]), **times["ragged"]),
         dict(name="paged_decode_attention_q8", route="cuda",
              source="dynamo_tpu_torch/csrc/decode_attention.cu",
              replaces="dynamo_tpu/ops/pallas/decode_attention.py:94",
              launches=q8_default["launches"]["decode_q8"],
              launches_disagg=disagg_launches["decode_q8"],
+             launches_tier=tier_launches["decode_q8"],
              max_abs_err=max(errs["decode_q8"], times["decode_q8_err"]), **times["decode_q8"],
              verify=dict(times["decode_q8_verify"], launches=verify_launches["B4a"])),
         dict(name="paged_prefill_attention_q8", route="cuda",
@@ -4413,18 +4881,21 @@ def main() -> int:
              replaces="dynamo_tpu/ops/pallas/prefill_attention.py:57",
              launches=q8_default["launches"]["prefill_q8"],
              launches_disagg=disagg_launches["prefill_q8"],
+             launches_tier=tier_launches["prefill_q8"],
              max_abs_err=max(errs["prefill_q8"], times["prefill_q8_err"]), **times["prefill_q8"]),
         dict(name="ragged_paged_prefill_attention_q8", route="cuda",
              source="dynamo_tpu_torch/csrc/ragged_prefill_attention.cu",
              replaces="dynamo_tpu/ops/pallas/prefill_attention.py:384",
              launches=q8_budget["launches"]["ragged_q8"],
              launches_disagg=disagg_launches["ragged_q8"],
+             launches_tier=tier_launches["ragged_q8"],
              max_abs_err=max(errs["ragged_q8"], times["ragged_q8_err"]), **times["ragged_q8"]),
         dict(name="int8_matmul", route="cuda",
              source="dynamo_tpu_torch/csrc/int8_matmul.cu",
              replaces="dynamo_tpu/ops/pallas/int8_matmul.py:64",
              launches=q8_default["launches"]["matmul"],
              launches_disagg=disagg_launches["matmul"],
+             launches_tier=tier_launches["matmul"],
              max_abs_err=max(errs["matmul"], times["matmul_err"]), **times["matmul"],
              verify=dict(times["matmul_verify"],
                          launches=spec["int8 ngram k=4"]["launches"]["matmul"])),
@@ -4433,18 +4904,22 @@ def main() -> int:
              replaces="dynamo_tpu/models/llama.py:631",
              launches=moe_default["launches"]["moe"],
              launches_disagg=disagg_launches["moe"],
+             launches_tier=tier_launches["moe"],
              max_abs_err=max(errs["moe"], times["moe_err"]), **times["moe"]),
         dict(name="grouped_matmul_q8", route="cuda",
              source="dynamo_tpu_torch/csrc/grouped_matmul.cu",
              replaces="dynamo_tpu/models/llama.py:631",
              launches=moe_budget["launches"]["moe_q8"],
              launches_disagg=disagg_launches["moe_q8"],
+             launches_tier=tier_launches["moe_q8"],
              max_abs_err=max(errs["moe_q8"], times["moe_q8_err"]), **times["moe_q8"]),
     ]
     log(json.dumps({"spec": [{k: v for k, v in r.items() if k != "streams"}
                              for r in spec.values()]}))
     log(json.dumps({"mla": mla}))
     log(json.dumps({"disagg": disagg_out}))
+    log(json.dumps({"tier": tier_out}))
+    log(json.dumps({"router": tier["router"]}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                           "count": torch.cuda.device_count()}}))

@@ -13,6 +13,9 @@ included) or a DeepSeek-V2 one (``models/deepseek.py``; ``--quantize int8``
 is refused for it, as in the JAX CLI).  With no GPU present it fails rather
 than run on the CPU (``--device cpu`` is the plain PyTorch path the tests take);
 ``out=echo`` echoes the prompt's tokens back with no model.
+``--num-host-blocks N`` adds the host-RAM KV offload tier and
+``--kv-persist-dir DIR`` (with ``--kv-persist-max-bytes``, ``--kv-persist-ttl``)
+the persistent tier below it, with the JAX CLI's defaults.
 ``--spec-tokens N`` turns on speculative decoding (prompt-lookup n-grams),
 and ``--spec-draft-model DIR`` proposes with a small same-tokenizer model
 instead, loaded unquantised as the target is loaded; a configuration the
@@ -34,7 +37,7 @@ from typing import Optional
 
 log = logging.getLogger("dynamo_tpu_torch.cli")
 
-__all__ = ["build_local_engine", "parse_args", "main"]
+__all__ = ["build_local_engine", "attach_worker_publishers", "parse_args", "main"]
 
 
 def build_local_engine(args) -> tuple[object, object]:
@@ -68,6 +71,11 @@ def build_local_engine(args) -> tuple[object, object]:
         max_model_len=args.max_model_len,
         block_size=args.block_size,
         num_blocks=args.num_blocks,
+        num_host_blocks=int(args.num_host_blocks or 0),
+        # persistent prefix-cache tier (llm/kv/persist.py): default off
+        kv_persist_dir=args.kv_persist_dir or None,
+        kv_persist_max_bytes=int(args.kv_persist_max_bytes or 0),
+        kv_persist_ttl_s=float(args.kv_persist_ttl or 0),
         cache_dtype="int8" if args.kv_cache_dtype == "int8" else None,
         spec_tokens=args.spec_tokens,
         draft_num_blocks=args.spec_draft_num_blocks,
@@ -106,6 +114,46 @@ def build_local_engine(args) -> tuple[object, object]:
     except ValueError as e:  # an option the PyTorch engine refuses
         raise SystemExit(str(e)) from None
     return AsyncLLMEngine(core).start(), card
+
+
+def attach_worker_publishers(runtime, engine, namespace: str) -> None:
+    """Publish a serving engine's KV events and ForwardPassMetrics so a KV
+    router sees this worker, and replicate its persistent tier through the
+    coordinator.  ``runtime`` is duck-typed as in the JAX CLI:
+    ``.instance_id`` (the worker id), ``.coordinator`` (a connected
+    ``CoordinatorClient``) and ``.on_shutdown(coro_fn)``, which must await
+    each stop.  Call it on the event loop.  A no-op for engines without a
+    core (echo); pipeline (``._engine``) and decode-worker (``.engine``)
+    wrappers are unwrapped until an EngineCore surfaces."""
+    core = None
+    seen = set()
+    while engine is not None and id(engine) not in seen:
+        seen.add(id(engine))
+        core = getattr(engine, "core", None)
+        if core is not None:
+            break
+        engine = getattr(engine, "_engine", None) or getattr(engine, "engine", None)
+    if core is None or not hasattr(core, "block_manager"):
+        return
+    from dynamo_tpu_torch.llm.kv_router.publisher import KvEventPublisher, KvMetricsPublisher
+
+    wid = runtime.instance_id
+    events = KvEventPublisher(runtime.coordinator, wid, namespace).start()
+    core.block_manager.event_sink = events.sink
+    metrics = KvMetricsPublisher(runtime.coordinator, wid, core.metrics, namespace).start()
+    # both publishers' flush loops must die with the runtime
+    runtime.on_shutdown(events.stop)
+    runtime.on_shutdown(metrics.stop)
+    # persistent tier replication: sync the content-addressed block store
+    # with the coordinator index (boot-time pull = scale-up pre-warm;
+    # periodic publish shares this worker's prefixes)
+    store = getattr(core, "persist_store", None)
+    if store is not None:
+        from dynamo_tpu_torch.llm.kv.persist import PersistReplicator
+
+        replicator = PersistReplicator(runtime.coordinator, store, namespace)
+        replicator.start_soon()
+        runtime.on_shutdown(replicator.stop)
 
 
 def _shutdown(engine) -> None:
@@ -232,6 +280,23 @@ def _parser() -> argparse.ArgumentParser:
     run.add_argument("--max-model-len", type=int, default=4096)
     run.add_argument("--block-size", type=int, default=16)
     run.add_argument("--num-blocks", type=int, default=512)
+    run.add_argument("--num-host-blocks", type=int, default=0,
+                     help="host-RAM KV offload tier (0 = disabled): "
+                     "evicted device blocks park in host memory and "
+                     "restore on prefix re-arrival")
+    run.add_argument("--kv-persist-dir", default=None,
+                     help="persistent prefix-cache tier (default off): "
+                     "directory for the content-addressed KV block store "
+                     "(llm/kv/persist.py).  Host-published blocks spill "
+                     "here; restarts and coordinator-replicated peers "
+                     "restore warm prefixes as cached_tokens.  Requires "
+                     "--num-host-blocks > 0")
+    run.add_argument("--kv-persist-max-bytes", type=int, default=0,
+                     help="size cap for --kv-persist-dir (LRU by "
+                     "last-touch; 0 = unbounded)")
+    run.add_argument("--kv-persist-ttl", type=float, default=0,
+                     help="TTL in seconds for persisted block groups "
+                     "since last touch (0 = no expiry)")
     run.add_argument("--kv-cache-dtype", choices=["model", "int8"], default="model",
                      help="int8 = quantised KV cache (ops/kv_quant.py)")
     run.add_argument("--quantize", choices=["none", "int8"], default="none",

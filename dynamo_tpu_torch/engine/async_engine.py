@@ -51,6 +51,8 @@ class AsyncLLMEngine(AsyncEngine):
         self._wake.set()
         if self._thread is not None:
             self._thread.join(timeout=10)
+        if hasattr(self.core, "close"):
+            self.core.close()  # stop the kv-offload thread, if any
 
     def _run(self) -> None:
         # the engine thread launches on the core's device

@@ -62,22 +62,37 @@ decode engine, :meth:`EngineCore.gather_blocks_np` through the host for
 TCP) and released them.  Commit hooks fire per committed prefill chunk for
 the streamed handoff (``llm/kv/stream.py``).
 
+KV tiers below the device cache (``num_host_blocks``, ``kv_persist_dir``):
+a block the block manager evicts is snapshotted on the card (a gather,
+dispatched before anything can overwrite the block) and copied to the
+pinned host pool (``llm/kv/host_pool.py``) on the ``kv-offload`` thread,
+on a side stream that waits on an event recorded after the gather; the
+queue item holds the snapshot until that copy has completed.  With a
+persist directory each stored batch is also written through to the disk
+store (``llm/kv/persist.py``) on that thread.  Admission restores a
+request's host-resident (or, below them, disk-resident) prefix blocks
+into its fresh device blocks — one asynchronous upload per run of pool
+rows, from the pinned pool, on the current stream — and counts them as
+cached, so prefill starts after them.
+
 Not ported yet, and refused at construction (:meth:`EngineCore.
-_check_supported`): sequence-parallel prefill, host offload and the
-persistent tier, cache dtypes other than int8 and the model's, meshes, and
-the profile hook.
+_check_supported`): sequence-parallel prefill, cache dtypes other than int8
+and the model's, meshes, and the profile hook.
 
 Thread-safety: everything here runs on the engine thread; submit()/abort()
 and run_on_step() are the only cross-thread entry points and only touch
-thread-safe queues (the routing probes prefix_hit_tokens and
-kv_bytes_per_block only read).
+thread-safe queues (the routing probes prefix_hit_tokens,
+persist_hit_blocks and kv_bytes_per_block only read).  The kv-offload
+thread shares the host pool under ``_offload_lock``.
 """
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import logging
 import queue
+import threading
 import time
 from typing import Callable, Optional
 
@@ -86,7 +101,7 @@ import torch
 
 from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.engine.config import EngineConfig
-from dynamo_tpu_torch.engine.counters import LookaheadCounters, PrefillCounters
+from dynamo_tpu_torch.engine.counters import LookaheadCounters, PrefillCounters, persist_counters
 from dynamo_tpu_torch.engine.draft import DraftProposer
 from dynamo_tpu_torch.engine.grammar import (
     JsonGrammar, compile_choice_vocab, compile_regex_vocab, compose_tables, device_tables,
@@ -95,6 +110,8 @@ from dynamo_tpu_torch.engine.grammar import (
 from dynamo_tpu_torch.engine.request import INIT_STATE, EngineRequest, RequestState
 from dynamo_tpu_torch.engine.sampling import K_MAX, sample_full
 from dynamo_tpu_torch.llm.kv.block_manager import KvBlockManager, NoFreeBlocks
+from dynamo_tpu_torch.llm.kv.events import TIER_PERSIST, KvRemovedEvent, KvStoredEvent
+from dynamo_tpu_torch.llm.kv.host_pool import HostKvPool, flatten_blocks, unflatten_blocks
 from dynamo_tpu_torch.llm.protocols import FinishReason, LLMEngineOutput
 from dynamo_tpu_torch.models.llama import LlamaModel
 from dynamo_tpu_torch.ops.block_copy import gather_blocks_padded, scatter_blocks_inplace
@@ -425,6 +442,7 @@ class EngineCore:
         cache_dtype = config.cache_dtype or model.config.dtype
         self.cache_quant = str(cache_dtype) == "int8"
         self.cache = model.init_kv_cache(config.num_blocks, config.block_size, cache_dtype)
+        self._init_tiers(model, config, cache_dtype)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(config.seed)
 
@@ -485,8 +503,6 @@ class EngineCore:
         serving them on a path that ignores them."""
         unported = {
             "sp_prefill_threshold": cfg.sp_prefill_threshold > 0,
-            "num_host_blocks": cfg.num_host_blocks > 0,
-            "kv_persist_dir": bool(cfg.kv_persist_dir),
             "cache_dtype": cfg.cache_dtype not in (None, "int8", model.config.dtype),
             "mesh_shape": tuple(cfg.mesh_shape) != (1, 1),
             "profile_dir": bool(cfg.profile_dir),
@@ -786,6 +802,8 @@ class EngineCore:
             "host_gap_ms_per_turn": (
                 1e3 * self._host_s / self._turns if self._turns else 0.0
             ),
+            **(self.host_pool.stats() if self.host_pool is not None else {}),
+            **(self.persist_store.stats() if self.persist_store is not None else {}),
         }
 
     # -------------------------------------------------------------- main loop
@@ -800,6 +818,7 @@ class EngineCore:
         return did_work
 
     def _step_inner(self) -> bool:
+        self._drain_offload()  # evictions from the previous step's tail
         self._process_ops()
         self._process_aborts()
         self._admit()
@@ -986,6 +1005,15 @@ class EngineCore:
                 break  # retry next step once blocks free up
             req.block_ids = alloc.block_ids
             req.cached_tokens = alloc.cached_tokens
+            if self.host_pool is not None:
+                # allocation may have evicted registered blocks: snapshot
+                # their content BEFORE restore (or this step's prefill)
+                # writes into the same ids.  With joined in-flight blocks a
+                # restore would write host content into blocks their owner
+                # is writing — skip it; the owner's compute is arriving.
+                self._drain_offload()
+                if alloc.joined_tokens == 0:
+                    self._restore_from_host(req)
             req.computed_tokens = req.cached_tokens
             req.wait_upto = req.cached_tokens + alloc.joined_tokens
             self._reserve_own(req)
@@ -1293,6 +1321,9 @@ class EngineCore:
         extras = self._sampling_extras(samp_reqs, rows=[r for r, _ in samp], b=r_pad)
         burst = lookahead and k_steps >= 2
         pen = self._unified_penalties(samp, r_pad, horizon=k_steps if burst else 1)
+        # growth allocations above may have evicted registered blocks that
+        # this very dispatch writes into — offload them first
+        self._drain_offload()
         up = self._up
         args = (self.model, self.cache, up(tokens), up(positions), up(bt), up(seq_lens),
                 up(slot_idx), up(seq_ids), up(starts), up(roff), up(last_idx))
@@ -1624,6 +1655,7 @@ class EngineCore:
         # slice the block table to the batch's live context, pow2-bucketed
         blocks_used = max(1, -(-int(seq_lens.max()) // cfg.block_size))
         m_used = min(m, 1 << (blocks_used - 1).bit_length())
+        self._drain_offload()
         up = self._up
         extras = self._sampling_extras(rows, rows=[r.slot for r in rows])
         packed = spec_verify_step(
@@ -1708,6 +1740,9 @@ class EngineCore:
             top_p[i] = req.sampling.top_p
         if not active:
             return
+        # growth allocations above may have evicted registered blocks that
+        # this very dispatch writes into — offload them first
+        self._drain_offload()
         pen = self._penalty_buffers(active, k_steps)
         packed = multi_decode_step(
             self.model, self.cache, self._up(tokens), self._up(positions), self._up(bt),
@@ -1890,6 +1925,373 @@ class EngineCore:
         if done:
             self._commit_hooks.pop(req.request_id, None)
 
+    # ------------------------------------------------------------- KV tiers
+    def _init_tiers(self, model, config: EngineConfig, cache_dtype) -> None:
+        """The host-RAM offload tier and, below it, the persistent tier."""
+        self.host_pool = None
+        self.persist_store = None
+        self._offload_thread = None
+        # (device bid, seq_hash) of evicted blocks not yet snapshotted
+        self._pending_offload: list[tuple[int, int]] = []
+        self._persist_events: "collections.deque" = collections.deque()
+        # copy timings the tier's own readings are made from (not metrics():
+        # the JAX engine has no such keys): offload is timed on the
+        # kv-offload thread, restore and persist load on the engine thread
+        self.tier_stats = dict(offload_blocks=0, offload_bytes=0, offload_copy_s=0.0,
+                               offload_store_s=0.0, restore_blocks=0, restore_bytes=0,
+                               restore_copy_s=0.0, restore_wall_s=0.0, spill_bytes=0,
+                               spill_s=0.0, load_bytes=0, load_s=0.0)
+        if config.num_host_blocks > 0:
+            if not config.enable_prefix_reuse:
+                log.warning("num_host_blocks=%d ignored: host offload needs "
+                            "enable_prefix_reuse=True (blocks are keyed by prefix hash)",
+                            config.num_host_blocks)
+            else:
+                self.host_pool = HostKvPool(config.num_host_blocks,
+                                            pin_memory=self.device.type == "cuda")
+                pending = self._pending_offload  # the sink holds the list, not the engine
+                self.block_manager.offload_sink = (
+                    lambda bid, seq_hash, parent: pending.append((bid, seq_hash)))
+                # async store: the engine thread only dispatches the on-card
+                # gather (ordered before any overwrite of the evicted ids);
+                # the device→host copy and the host store run on this
+                # thread, so a request never pays another conversation's
+                # offload in its own TTFT.  Each queued batch pins its
+                # snapshot on the card until its copy completes, so the
+                # queue is bounded by total queued BLOCKS (config budget):
+                # past it a batch is stored synchronously (backpressure).
+                self._offload_lock = threading.Lock()
+                self._offload_closed = False
+                self._offload_inflight_blocks = 0
+                self._offload_q: queue.Queue = queue.Queue(maxsize=4)
+                # the copy stream (a side stream that waits on the gather's
+                # event) and the reused pinned staging rows it copies into
+                self._offload_stream = (torch.cuda.Stream(device=self.device)
+                                        if self.device.type == "cuda" else None)
+                self._stage: Optional[list[torch.Tensor]] = None
+                self._stage_lock = threading.Lock()
+                self._offload_thread = threading.Thread(
+                    target=self._offload_worker, name="kv-offload", daemon=True)
+                self._offload_thread.start()
+        if config.kv_persist_dir:
+            if self.host_pool is None:
+                log.warning("kv_persist_dir=%s ignored: the persistent tier stages through "
+                            "the host pool (set num_host_blocks > 0 and keep "
+                            "enable_prefix_reuse on)", config.kv_persist_dir)
+            else:
+                from dynamo_tpu_torch.llm.kv.persist import PersistentKvStore
+
+                self.persist_store = PersistentKvStore(
+                    config.kv_persist_dir,
+                    generation=self._persist_generation(model, cache_dtype),
+                    max_bytes=config.kv_persist_max_bytes,
+                    ttl_s=config.kv_persist_ttl_s,
+                )
+                resident = self.persist_store.resident_hashes()
+                if resident:
+                    # announce what a restart found on disk, so the router
+                    # index learns this worker's persist tier once a
+                    # publisher attaches (events drain on the engine thread)
+                    self._persist_events.append(
+                        KvStoredEvent(block_hashes=resident, tier=TIER_PERSIST))
+
+    @staticmethod
+    def _persist_generation(model, cache_dtype) -> str:
+        """Generation tag for the persistent KV tier: a stable hash of
+        everything that determines block-file layout and validity — model
+        architecture/dtype, cache dtype, block size.  Any change opens a
+        fresh store generation and invalidates the old one.  The JAX
+        engine's tag for the same config and cache dtype, so both packages
+        share a directory."""
+        import hashlib
+        import json as _json
+
+        mc = getattr(model, "config", None)
+        if mc is not None and hasattr(mc, "__dict__"):
+            ident = {k: repr(v) for k, v in sorted(vars(mc).items())}
+        else:
+            ident = {"model": repr(mc)}
+        ident["__cache_dtype"] = str(cache_dtype)
+        ident["__model_cls"] = type(model).__name__
+        blob = _json.dumps(ident, sort_keys=True).encode()
+        return hashlib.sha256(blob).hexdigest()[:16]
+
+    def _flush_persist_events(self) -> None:
+        """Forward queued persist-tier router events (engine thread only; the
+        kv-offload thread enqueues, this drains into the publisher's sink)."""
+        if self.persist_store is None:
+            return
+        sink = self.block_manager.event_sink
+        while self._persist_events:
+            ev = self._persist_events.popleft()
+            if sink is not None:
+                sink(ev)
+
+    def _spill_to_persist(self, hashes: list[int], blocks) -> None:
+        """Mirror a host-pool store batch into the persistent tier (on the
+        kv-offload thread — fsync never blocks the engine loop)."""
+        t0 = time.perf_counter()
+        try:
+            wrote = self.persist_store.spill(hashes, blocks)
+        except Exception:  # disk full etc.: the tier degrades, serving goes on
+            log.exception("persist spill failed; tier continues without it")
+            return
+        self.tier_stats["spill_bytes"] += wrote
+        self.tier_stats["spill_s"] += time.perf_counter() - t0
+        if wrote:
+            self._persist_events.append(KvStoredEvent(block_hashes=list(hashes),
+                                                      tier=TIER_PERSIST))
+        removed = self.persist_store.drain_removed()
+        if removed:
+            self._persist_events.append(KvRemovedEvent(block_hashes=removed, tier=TIER_PERSIST))
+
+    def _promote_from_persist(self, hashes: list[int]) -> int:
+        """Load a persist-tier prefix host-side so the ordinary host-pool
+        restore picks it up; returns how many blocks were promoted."""
+        t0 = time.perf_counter()
+        try:
+            phit = self.persist_store.match_prefix(hashes)
+            if not phit:
+                return 0
+            blocks = self.persist_store.load(phit)
+        except KeyError:
+            return 0  # raced an eviction / corrupt file — plain miss
+        except Exception:  # keep admission alive
+            log.exception("persist restore failed; treating as miss")
+            return 0
+        self.tier_stats["load_bytes"] += sum(p.numel() * p.element_size()
+                                             for p in flatten_blocks(blocks)[1])
+        self.tier_stats["load_s"] += time.perf_counter() - t0
+        with self._offload_lock:
+            self.host_pool.store(phit, blocks)
+        return len(phit)
+
+    def _drain_offload(self) -> None:
+        """Offload just-evicted device blocks to the host pool.
+
+        The on-card gather MUST be enqueued before anything overwrites the
+        evicted block ids: it runs on the engine thread's stream, which
+        orders it before every later write into them.  The device→host
+        copy and the host store run on the kv-offload thread."""
+        if self.host_pool is None:
+            return
+        self._flush_persist_events()
+        if not self._pending_offload:
+            return
+        pending = list(self._pending_offload)
+        self._pending_offload.clear()
+        with self._offload_lock:
+            # re-evictions of host-resident content only need an LRU
+            # refresh — skip the gather for them
+            self.host_pool.touch([h for _, h in pending if h in self.host_pool])
+            fresh = [(b, h) for b, h in pending if h not in self.host_pool]
+        if not fresh:
+            return
+        bids = [b for b, _ in fresh]
+        hashes = [h for _, h in fresh]
+        snap = self._snapshot(bids)  # on-card, block-major
+        ready = None
+        if self._offload_stream is not None:
+            ready = torch.cuda.Event()
+            ready.record()  # on this thread's stream, after the gather
+        queued = False
+        with self._offload_lock:
+            # flag check + enqueue are atomic with close()'s flag set, so a
+            # batch can never land behind the shutdown sentinel
+            budget = self.config.offload_inflight_blocks
+            if not self._offload_closed and (
+                self._offload_inflight_blocks + len(bids) <= budget
+                # never starve: an oversized single batch may queue alone
+                or self._offload_inflight_blocks == 0
+            ):
+                try:
+                    self._offload_q.put_nowait((hashes, snap, ready))
+                    self._offload_inflight_blocks += len(bids)
+                    queued = True
+                except queue.Full:
+                    pass  # backpressure: queued snapshots pin device memory
+        if not queued:
+            # closed, full, or over the block budget — store synchronously so
+            # no batch is lost and no further device memory is pinned
+            self._store_offload_batch(hashes, snap, ready)
+
+    def _snapshot(self, block_ids: list[int]):
+        """The blocks gathered block-major, ``[n, L, 2, Bs, HkD]`` per part
+        (one gather kernel a part, through the cache's ``[N, L, ...]``
+        view), so the copy to the host is one contiguous memcpy a part."""
+        ids = torch.as_tensor(block_ids, dtype=torch.long, device=self.device)
+        structure, parts = flatten_blocks(self.cache)
+        return unflatten_blocks(structure, [p.movedim(1, 0).index_select(0, ids) for p in parts])
+
+    def _staging(self, parts: list[torch.Tensor], n: int) -> list[torch.Tensor]:
+        """``n`` reused pinned rows per part (hold ``_stage_lock``)."""
+        specs = [(tuple(p.shape[1:]), p.dtype) for p in parts]
+        if (self._stage is None or self._stage[0].shape[0] < n
+                or [(tuple(t.shape[1:]), t.dtype) for t in self._stage] != specs):
+            rows = 1 << max(4, (n - 1).bit_length())
+            self._stage = [torch.empty((rows,) + shape, dtype=dt, pin_memory=True)
+                           for shape, dt in specs]
+        return [t[:n] for t in self._stage]
+
+    def _store_offload_batch(self, hashes: list[int], snap, ready) -> None:
+        """Copy a block-major snapshot to the host and store it (on the
+        kv-offload thread, or inline under backpressure / close).
+
+        On the card the copy runs on the offload stream, after ``ready``
+        (recorded after the gather), into pinned staging rows, and this
+        thread waits for it; the snapshot is referenced until then.  Then
+        the three-phase store: reserve (lock), write (NO lock — the host
+        memcpy must not stall the engine thread's drain/restore), publish
+        (lock)."""
+        t0 = time.perf_counter()
+        structure, parts = flatten_blocks(snap)
+        n = len(hashes)
+        with self._stage_lock:
+            if self._offload_stream is None:
+                host = parts  # already on the host
+                copy_s = 0.0
+            else:
+                host = self._staging(parts, n)
+                s = self._offload_stream
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                with torch.cuda.stream(s):
+                    s.wait_event(ready)
+                    start.record(s)
+                    for h, p in zip(host, parts):
+                        p.record_stream(s)
+                        h.copy_(p, non_blocking=True)
+                    end.record(s)
+                end.synchronize()
+                copy_s = start.elapsed_time(end) / 1e3
+            del snap, parts  # the copy has completed: the snapshot may go
+            blocks = unflatten_blocks(structure, host)
+            st = self.tier_stats
+            st["offload_blocks"] += n
+            st["offload_bytes"] += sum(h.numel() * h.element_size() for h in host)
+            st["offload_copy_s"] += copy_s
+            with self._offload_lock:
+                hids, rows = self.host_pool.reserve(hashes, blocks)
+            if hids:
+                try:
+                    self.host_pool.write_rows(hids, blocks, rows)
+                except BaseException:
+                    with self._offload_lock:
+                        self.host_pool.abort(hids)  # don't leak reserved capacity
+                    raise
+                with self._offload_lock:
+                    self.host_pool.publish(hids, [hashes[r] for r in rows])
+                if self.persist_store is not None:
+                    # write-through: published content spills to disk here,
+                    # so a restart (or a replica pulling the coordinator
+                    # index) can restore it
+                    self._spill_to_persist(hashes, blocks)
+            st["offload_store_s"] += time.perf_counter() - t0
+
+    def _offload_worker(self) -> None:
+        if self._offload_stream is not None:
+            torch.cuda.set_device(self.device)
+        while True:
+            item = self._offload_q.get()
+            try:
+                if item is None:
+                    return
+                self._store_offload_batch(*item)
+            except Exception:  # keep the tier alive
+                log.exception("async KV offload store failed")
+            finally:
+                if item is not None:
+                    # the snapshot is released whether or not the store
+                    # succeeded — retire its blocks from the budget even on
+                    # failure, else every later store degrades to sync
+                    with self._offload_lock:
+                        self._offload_inflight_blocks -= len(item[0])
+                    item = None
+                self._offload_q.task_done()
+
+    def flush_host_offload(self) -> None:
+        """Block until every queued offload store has landed (tests and
+        benches that assert on host-pool contents).  Engine thread only."""
+        if self.host_pool is None:
+            return
+        self._drain_offload()
+        self._offload_q.join()
+
+    def close(self) -> None:
+        """Stop the kv-offload thread (idempotent).  Without this an
+        abandoned engine's daemon thread would pin the whole instance —
+        model, cache, host pool — for the process's lifetime."""
+        t = getattr(self, "_offload_thread", None)
+        if t is not None and t.is_alive():
+            # flag first (under the lock _drain_offload enqueues under):
+            # after this, drains store inline — nothing can land behind the
+            # sentinel.  The sentinel put happens OUTSIDE the lock: it may
+            # block on a full queue until the worker drains, and the worker
+            # needs the lock for its store phases.
+            with self._offload_lock:
+                self._offload_closed = True
+            self._offload_q.put(None)
+            t.join(timeout=30.0)
+        self._offload_thread = None
+        if getattr(self, "persist_store", None) is not None:
+            self.persist_store.close()
+
+    def _restore_from_host(self, req: EngineRequest) -> None:
+        """Upload host-resident prefix blocks into the request's fresh device
+        blocks, register them, and extend the cached prefix — a device
+        cache miss turned into a host hit.  Host-pool misses fall through
+        to the persistent tier: matched blocks are promoted host-side
+        first, then ride the same upload/scatter/commit path."""
+        bs = self.config.block_size
+        dev = req.cached_tokens // bs
+        max_blocks = (req.prompt_len - 1) // bs  # >=1 token must remain
+        want = [b.sequence_hash for b in req.seq.blocks[dev:max_blocks]]
+        if not want:
+            return
+        with self._offload_lock:
+            host_hit = len(self.host_pool.match_prefix(want))
+        promoted = 0
+        if self.persist_store is not None and host_hit < len(want):
+            promoted = self._promote_from_persist(want[host_hit:])
+            if not promoted:
+                persist_counters.record_miss()
+        t0 = time.perf_counter()
+        with self._offload_lock:
+            # the kv-offload thread stores/evicts concurrently; a block still
+            # in flight to the pool just misses here (re-prefilled).  match
+            # and upload under ONE lock hold: a matched row must not be
+            # evicted and rewritten before the upload has read it.
+            hit = self.host_pool.match_prefix(want)
+            if not hit:
+                return
+            if self.device.type == "cuda":
+                out = [torch.empty((len(hit),) + shape, dtype=dt, device=self.device)
+                       for shape, dt in self.host_pool.part_specs()]
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                blocks = self.host_pool.gather(hit, out=out)  # async, from pinned rows
+                end.record()
+                end.synchronize()  # the rows are read before the lock is released
+                self.tier_stats["restore_copy_s"] += start.elapsed_time(end) / 1e3
+            else:
+                blocks = self.host_pool.gather(hit)  # [n, L, 2, Bs, HkD] per part
+        structure, parts = flatten_blocks(blocks)
+        st = self.tier_stats
+        st["restore_blocks"] += len(hit)
+        st["restore_bytes"] += sum(p.numel() * p.element_size() for p in parts)
+        st["restore_wall_s"] += time.perf_counter() - t0
+        if promoted:
+            restored = max(0, len(hit) - host_hit)
+            if restored:
+                persist_counters.record_restore(restored, restored * bs)
+        target = req.block_ids[dev:dev + len(hit)]
+        self.scatter_external(target, unflatten_blocks(
+            structure, [p.movedim(0, 1) for p in parts]))
+        for i in range(len(hit)):
+            blk = req.seq.blocks[dev + i]
+            self.block_manager.commit(target[i], blk.sequence_hash, blk.parent_sequence_hash,
+                                      list(blk.tokens))
+        req.cached_tokens += len(hit) * bs
+
     def gather_blocks_device(self, block_ids: list[int]):
         """Gather blocks WITHOUT leaving the device: ``[L, n, 2, Bs, HkD]``
         (a QuantKvCache of both parts for the int8 cache).  The colocated
@@ -1974,9 +2376,16 @@ class EngineCore:
             self.config.block_size
 
     def persist_hit_blocks(self, seq_hashes: list[int]) -> int:
-        """How many prompt blocks the persist tier could restore locally:
-        always 0, as the port has no persist tier yet."""
-        return 0
+        """How many prompt blocks the persist tier could restore locally —
+        the transfer-aware router's stream-vs-restore cost input.  0 when
+        no persist tier is configured.  Same staleness caveat as
+        :meth:`prefix_hit_tokens`: a heuristic input, not a guarantee."""
+        if self.persist_store is None or not seq_hashes:
+            return 0
+        try:
+            return len(self.persist_store.match_prefix(list(seq_hashes)))
+        except Exception:  # a probe must never raise
+            return 0
 
     def kv_bytes_per_block(self) -> int:
         """Wire bytes one KV block occupies (all layers, K and V, both parts

@@ -1,5 +1,5 @@
 """Prefill-batching and lookahead counters, one pair per engine, and the
-streamed KV handoff's counters, one per process.
+persistent tier's and the streamed KV handoff's counters, one per process.
 
 The counterpart of the two families of ``dynamo_tpu/engine/counters.py``
 that the PyTorch engine feeds.  The JAX package keeps one process-global
@@ -23,11 +23,16 @@ one process do not add into each other.  The names rendered:
     dynamo_tpu_engine_lookahead_commits_total      counter
     dynamo_tpu_engine_lookahead_flushes_total      counter
     dynamo_tpu_engine_lookahead_dispatch_depth     gauge (turns/result read)
+
+The persistent tier's family (:class:`PersistCounters`) is process-global,
+as in the JAX package: the store records its spills and residency where
+it has no engine at hand.
 """
 
 from __future__ import annotations
 
-__all__ = ["PrefillCounters", "LookaheadCounters", "KvStreamCounters", "kv_stream_counters"]
+__all__ = ["PrefillCounters", "LookaheadCounters", "PersistCounters", "persist_counters",
+           "KvStreamCounters", "kv_stream_counters"]
 
 
 class PrefillCounters:
@@ -144,6 +149,50 @@ class LookaheadCounters:
 
     def record_flush(self) -> None:
         self.flushes_total += 1
+
+
+class PersistCounters:
+    """Persistent prefix-cache tier (``llm/kv/persist.py``) counters.
+
+        dynamo_tpu_engine_persist_hits_total            counter (blocks)
+        dynamo_tpu_engine_persist_misses_total          counter (lookups
+                                                        that restored
+                                                        nothing)
+        dynamo_tpu_engine_persist_restored_tokens_total counter
+        dynamo_tpu_engine_persist_spill_bytes_total     counter
+        dynamo_tpu_engine_persist_resident_bytes        gauge
+
+    The store records spill volume and residency; the engine's restore
+    path records hits/misses/restored tokens at commit time, so a match
+    that failed to land on the device never counts as a hit.
+    """
+
+    def __init__(self) -> None:
+        self.reset()
+
+    def record_restore(self, blocks: int, tokens: int) -> None:
+        self.hits_total += blocks
+        self.restored_tokens_total += tokens
+
+    def record_miss(self) -> None:
+        self.misses_total += 1
+
+    def record_spill(self, nbytes: int) -> None:
+        self.spill_bytes_total += nbytes
+
+    def set_resident(self, nbytes: int) -> None:
+        self.resident_bytes = nbytes
+
+    def reset(self) -> None:
+        """Test isolation hook — the counters are process-global."""
+        self.hits_total = 0
+        self.misses_total = 0
+        self.restored_tokens_total = 0
+        self.spill_bytes_total = 0
+        self.resident_bytes = 0
+
+
+persist_counters = PersistCounters()
 
 
 class KvStreamCounters:

@@ -5,7 +5,7 @@ port feeds: request counters by model/endpoint/status, the inflight gauge
 with its guard, output tokens, the TTFT, inter-token, queue-wait and
 request-duration histograms, the served engine's prefill,
 unified-dispatch and lookahead counters (``engine/counters.py``), the
-streamed KV handoff's counters and the measured KV-transfer edges
+persistent KV tier's and the streamed KV handoff's counters and the measured KV-transfer edges
 (``obs/costs.py``, rendered once an edge has a sample).  Every
 name comes from ``obs/metric_names.py`` and every line is rendered as the
 JAX package renders it.  No prometheus client dependency — the text format
@@ -20,7 +20,7 @@ from collections import defaultdict
 from typing import Iterator
 
 from dynamo_tpu_torch.engine.counters import (LookaheadCounters, PrefillCounters,
-                                              kv_stream_counters)
+                                              kv_stream_counters, persist_counters)
 from dynamo_tpu_torch.obs.costs import transfer_costs
 from dynamo_tpu_torch.obs.metric_names import EngineMetric as EM
 from dynamo_tpu_torch.obs.metric_names import HttpMetric as HM
@@ -136,6 +136,15 @@ class Metrics:
                 (EM.LOOKAHEAD_COMMITS_TOTAL, "counter", lc.commits_total),
                 (EM.LOOKAHEAD_FLUSHES_TOTAL, "counter", lc.flushes_total),
                 (EM.LOOKAHEAD_DISPATCH_DEPTH, "gauge", lc.dispatch_depth),
+                # persistent prefix-cache tier (llm/kv/persist.py): blocks and
+                # tokens restored from disk instead of re-prefilled, spill
+                # volume, and the store's footprint
+                (EM.PERSIST_HITS_TOTAL, "counter", persist_counters.hits_total),
+                (EM.PERSIST_MISSES_TOTAL, "counter", persist_counters.misses_total),
+                (EM.PERSIST_RESTORED_TOKENS_TOTAL, "counter",
+                 persist_counters.restored_tokens_total),
+                (EM.PERSIST_SPILL_BYTES_TOTAL, "counter", persist_counters.spill_bytes_total),
+                (EM.PERSIST_RESIDENT_BYTES, "gauge", persist_counters.resident_bytes),
                 # streamed KV handoff (llm/kv/stream.py): layer frames sent,
                 # and how often a stream fell back to the whole-cache push
                 (STM.SESSIONS_TOTAL, "counter", kv_stream_counters.sessions_total),

@@ -1,1 +1,2 @@
-"""KV cache bookkeeping: block pool, prefix reuse, cache events."""
+"""KV cache bookkeeping: block pool, prefix reuse, cache events, the host and
+persistent tiers, and the transfer plane."""

@@ -60,6 +60,11 @@ class KvBlockManager:
         self.num_blocks = num_blocks
         self.block_size = block_size
         self.event_sink = event_sink
+        # called (bid, seq_hash, parent_hash) as a block's content is about
+        # to be dropped — the engine's host-offload tier hooks in here.  The
+        # device data is still intact then; the consumer must snapshot it
+        # before the next dispatch overwrites the block.
+        self.offload_sink: Optional[Callable[[int, int, Optional[int]], None]] = None
         self.enable_prefix_reuse = enable_prefix_reuse
         self._blocks = [_Block() for _ in range(num_blocks)]
         self._free: deque[int] = deque(range(num_blocks))
@@ -229,6 +234,8 @@ class KvBlockManager:
     def _unregister(self, bid: int) -> None:
         blk = self._blocks[bid]
         if blk.seq_hash is not None:
+            if self.offload_sink is not None:
+                self.offload_sink(bid, blk.seq_hash, blk.parent_hash)
             self._table.pop(blk.seq_hash, None)
             if self.event_sink:
                 self.event_sink(KvRemovedEvent(block_hashes=[blk.seq_hash]))

@@ -114,11 +114,12 @@ def _arr_nbytes(arr) -> int:
 
 
 # the wire name of a bf16 part, carried as 2-byte words; every other part's
-# dtype name is numpy's own
+# dtype name is numpy's own.  The persistent tier's files (persist.py) use
+# the same two functions, so both formats are the JAX package's bytes.
 _BF16 = "bfloat16"
 
 
-def _wire_part(p) -> tuple[dict, np.ndarray]:
+def wire_part(p) -> tuple[dict, np.ndarray]:
     """One part -> (its header entry, a contiguous numpy view of its bytes)."""
     if isinstance(p, torch.Tensor):
         t = p.detach().to("cpu").contiguous()
@@ -130,7 +131,7 @@ def _wire_part(p) -> tuple[dict, np.ndarray]:
     return {"dtype": a.dtype.name, "shape": list(a.shape)}, a
 
 
-def _from_wire(meta: dict, payload, off: int = 0) -> tuple[torch.Tensor, int]:
+def part_from_wire(meta: dict, payload, off: int = 0) -> tuple[torch.Tensor, int]:
     """One part's CPU tensor read from ``payload`` at ``off`` (a view of the
     received bytes, no copy), and the offset after it."""
     name, shape = meta["dtype"], [int(x) for x in meta["shape"]]
@@ -153,7 +154,7 @@ def pack_blocks(arr) -> tuple[dict, bytes]:
     cache's (data, scale) pair — the multi-part header keeps the wire format
     self-describing so mixed-precision workers interoperate explicitly.
     """
-    parts = [_wire_part(p) for p in (arr if isinstance(arr, (tuple, list)) else [arr])]
+    parts = [wire_part(p) for p in (arr if isinstance(arr, (tuple, list)) else [arr])]
     if len(parts) == 1:
         # the JAX package's single-array header (what its older receivers read)
         meta, a = parts[0]
@@ -167,10 +168,10 @@ def unpack_blocks(header: dict, payload: bytes):
     header."""
     metas = header.get("parts")
     if metas is None:
-        return _from_wire(header, payload)[0]
+        return part_from_wire(header, payload)[0]
     out, off = [], 0
     for m in metas:
-        t, off = _from_wire(m, payload, off)
+        t, off = part_from_wire(m, payload, off)
         out.append(t)
     return out[0] if len(out) == 1 else tuple(out)
 

@@ -2,8 +2,8 @@
 
 A subset of ``dynamo_tpu/obs/metric_names.py``, spelled exactly as there,
 so a dashboard or scraper reads either package's endpoint: the HTTP
-service plane, the engine's prefill-batching, unified-dispatch and
-lookahead families, the measured KV-transfer edges and the streamed KV
+service plane, the engine's prefill-batching, unified-dispatch,
+lookahead and persistent-tier families, the measured KV-transfer edges and the streamed KV
 handoff.  Every name is a full literal, never composed.
 """
 
@@ -25,8 +25,8 @@ class HttpMetric:
 
 
 class EngineMetric:
-    """Engine plane: prefill batching, unified dispatch and lookahead
-    (``engine/counters.py``)."""
+    """Engine plane: prefill batching, unified dispatch, lookahead and the
+    persistent tier (``engine/counters.py``)."""
 
     PREFILL_DISPATCHES_TOTAL = "dynamo_tpu_engine_prefill_dispatches_total"
     PREFILL_TOKENS_TOTAL = "dynamo_tpu_engine_prefill_tokens_total"
@@ -42,6 +42,11 @@ class EngineMetric:
     LOOKAHEAD_COMMITS_TOTAL = "dynamo_tpu_engine_lookahead_commits_total"
     LOOKAHEAD_FLUSHES_TOTAL = "dynamo_tpu_engine_lookahead_flushes_total"
     LOOKAHEAD_DISPATCH_DEPTH = "dynamo_tpu_engine_lookahead_dispatch_depth"
+    PERSIST_HITS_TOTAL = "dynamo_tpu_engine_persist_hits_total"
+    PERSIST_MISSES_TOTAL = "dynamo_tpu_engine_persist_misses_total"
+    PERSIST_RESTORED_TOKENS_TOTAL = "dynamo_tpu_engine_persist_restored_tokens_total"
+    PERSIST_SPILL_BYTES_TOTAL = "dynamo_tpu_engine_persist_spill_bytes_total"
+    PERSIST_RESIDENT_BYTES = "dynamo_tpu_engine_persist_resident_bytes"
 
 
 class KvTransferMetric:

@@ -26,6 +26,8 @@ __all__ = [
     "compute_hash",
     "compute_block_hash",
     "compute_seq_hash",
+    "block_hashes",
+    "sequence_hashes",
     "TokenBlock",
     "PartialTokenBlock",
     "TokenBlockSequence",
@@ -51,6 +53,31 @@ def compute_seq_hash(parent: Optional[int], tokens: Sequence[int], salt: int = 0
     mix in the parent's sequence hash."""
     prefix = np.uint64(salt if parent is None else parent).tobytes()
     return compute_hash(prefix + _tokens_to_bytes(tokens))
+
+
+def block_hashes(tokens: Sequence[int], block_size: int) -> list[int]:
+    """Local hashes for each *complete* block of ``tokens``."""
+    toks = np.asarray(tokens, dtype=np.uint32)
+    n_full = len(toks) // block_size
+    raw = toks[: n_full * block_size].tobytes()
+    bs = block_size * 4
+    return [compute_hash(raw[i * bs:(i + 1) * bs]) for i in range(n_full)]
+
+
+def sequence_hashes(tokens: Sequence[int], block_size: int, salt: int = 0) -> list[int]:
+    """Chained sequence hashes for each complete block — what the router
+    hashes every request with (no TokenBlock objects)."""
+    toks = np.asarray(tokens, dtype=np.uint32)
+    n_full = len(toks) // block_size
+    out: list[int] = []
+    parent: Optional[int] = None
+    raw = toks[: n_full * block_size].tobytes()
+    bs = block_size * 4
+    for i in range(n_full):
+        prefix = np.uint64(salt if parent is None else parent).tobytes()
+        parent = compute_hash(prefix + raw[i * bs:(i + 1) * bs])
+        out.append(parent)
+    return out
 
 
 @dataclass(frozen=True)
