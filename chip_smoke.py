@@ -55,7 +55,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    requests (17 to 1500 prompt tokens, two sharing a 256-token prefix),
    twice on the bf16 model: the default path (one-request prefill, decode
    bursts), then the token-budget path (``prefill_token_budget=1024``,
-   unified mixed dispatch, lookahead bursts); then the bf16 model is freed
+   unified mixed dispatch, lookahead bursts); each default-path run prints
+   one ``{"timeline": ...}`` line: its engine's step timeline over the
+   run (the phases' ms a busy step, each dispatch kind's count and ms
+   beside the perf model's prediction, and the host gap, wall - dispatch -
+   overlap - readback, beside the earlier definition, wall - the blocking
+   result reads); then the bf16 model is freed
    and the same two runs are made on an int8 model (int8 weights drawn
    directly, ``cache_dtype="int8"``, ``block_size=32`` as ``bench.py``
    serves on an accelerator).  Every kernel's launch counter is zeroed just
@@ -166,9 +171,22 @@ Phases, in order; any failure ends the run with a non-zero exit:
    W8A16 kernels.  With a byte-level tokenizer beside the same weights the
    CLI also answers a ``json_schema`` chat (JSON of the schema's shape, or
    cut inside it at max_tokens), a ``guided_regex`` completion (replayed
-   through its tables) and one seeded completion twice (the same text);
-7. mixture of experts, serving: Qwen3-30B-A3B at full width and depth (48
-   layers, 128 experts, random weights from a seeded generator) behind
+   through its tables) and one seeded completion twice (the same text).
+   Then ``run --trace --profile-dir D --profile-steps 4``'s engine behind
+   ``HttpService`` answers one traced completion: the profile window's
+   Chrome trace must hold B1's and B2's kernels, and ``/debug/traces/{id}``
+   fetched by the ``trace`` command must be one trace id with
+   ``engine.step`` spans and their phases (one ``{"profile": ...}`` line).
+   Last, the distributed runtime: a coordinator on port 0 in this
+   process, ``run in=dyn://dynamo.backend.generate out=gpu`` on the
+   checkpoint as a process of its own, ``models add`` and the ``http``
+   frontend, which discovers the model; the bf16 requests one at a time
+   over HTTP must equal the fresh engine's greedy texts, the worker must
+   have loaded on CUDA, and every process exits 0 on SIGTERM (one
+   ``{"dyn": ...}`` line: remote seconds to the first text beside the
+   in-process server's);
+7. mixture of experts, serving: Qwen3-30B-A3B at full width, cut to 16 of
+   its 48 layers (128 experts, random weights from a seeded generator) behind
    ``AsyncLLMEngine``, the six requests on bf16 weights and the default
    path (decode, prefill and E1 kernels), then on int8 weights and an int8
    cache (Bs = 32) on the token-budget path (int8 decode, int8 ragged,
@@ -1630,10 +1648,55 @@ def _kernel_wrappers() -> dict:
             "moe": gmm.grouped_matmul, "moe_q8": gmm.grouped_matmul_q8}
 
 
-def serve_run(torch, model, config: dict, card: str, label: str, profile: bool = False) -> dict:
+def _timeline_state(core) -> dict:
+    snap = core.timeline.snapshot()
+    snap["host_gap_s"] = core.timeline.host_gap_s_total
+    return snap
+
+
+def timeline_line(core, before: dict, dispatches: int, label: str, card: str) -> dict:
+    """The step timeline over one serving run (the engine's timeline read
+    before and after it): the phases' ms a busy step, each dispatch kind's
+    count and ms beside the perf model's prediction, and the host gap as
+    the timeline defines it (wall - dispatch - overlap - readback) beside
+    the definition it replaced (wall - the blocking result reads).  Logged
+    as one ``{"timeline": ...}`` line."""
+    after = _timeline_state(core)
+    busy = after["busy_steps_total"] - before["busy_steps_total"]
+    wall = after["wall_seconds_total"] - before["wall_seconds_total"]
+    phases = {p: after["phases"][p] - before["phases"][p] for p in after["phases"]}
+    kinds = {}
+    for k, v in after["dispatch_kinds"].items():
+        b = before["dispatch_kinds"].get(k, {"seconds": 0.0, "count": 0})
+        n = v["count"] - b["count"]
+        if n:
+            ms = 1e3 * (v["seconds"] - b["seconds"]) / n
+            pred = core.perf_model.predicted_ms(k)
+            kinds[k] = dict(count=n, ms=round(ms, 4), predicted_ms=pred,
+                            predicted_over_measured=pred / ms if pred and ms else None)
+    check(busy > 0 and sum(v["count"] for v in kinds.values()) == dispatches,
+          f"{label} timeline: {busy} busy steps, kinds {kinds}, {dispatches} dispatches")
+    check(abs(sum(phases.values()) - wall) <= 1e-3 * wall + 1e-6,
+          f"{label} timeline: phases sum to {sum(phases.values())} s of {wall} s wall")
+    out = dict(label=label, steps=after["steps_total"] - before["steps_total"], busy_steps=busy,
+               wall_ms_per_busy_step=round(1e3 * wall / busy, 4),
+               phase_ms_per_busy_step={p: round(1e3 * v / busy, 4) for p, v in phases.items()},
+               kinds=kinds,
+               host_gap_ms_per_turn=round(1e3 * (after["host_gap_s"] - before["host_gap_s"]) / busy,
+                                          4),
+               host_gap_old_ms_per_turn=round(1e3 * (wall - phases["readback"]) / busy, 4),
+               card=card)
+    log(json.dumps({"timeline": out}))
+    return out
+
+
+def serve_run(torch, model, config: dict, card: str, label: str, profile: bool = False,
+              timeline: bool = False) -> dict:
     """Serve the six requests once through ``AsyncLLMEngine`` under one
     EngineConfig, with every kernel's launch counter zeroed just before and
-    read just after; returns the streams, launches and engine counters."""
+    read just after; returns the streams, launches and engine counters
+    (and, with ``timeline``, the run's step timeline line, the perf model
+    priced on the run's own first dispatch of each kind)."""
     from dynamo_tpu_torch.engine import AsyncLLMEngine, EngineConfig, EngineCore
     from dynamo_tpu_torch.llm.protocols import FinishReason
 
@@ -1645,13 +1708,18 @@ def serve_run(torch, model, config: dict, card: str, label: str, profile: bool =
         wrappers = _kernel_wrappers()
         for fn in wrappers.values():
             fn.launches = 0
+        core.perf_model.reset()
+        before_tl = _timeline_state(core)
         before = (core.steps, core.overlap_s, core.read_wait_s)
         t0 = time.perf_counter()
         results = asyncio.run(_serve(engine, model_prompts(model)))
         wall = time.perf_counter() - t0
         launches = {name: fn.launches for name, fn in wrappers.items()}
+        # a step boundary: the run's last step has ended on the timeline
+        asyncio.run(engine.run_on_engine(lambda: None))
         metrics = core.metrics()
         dispatches = core.steps - before[0]
+        tl = timeline_line(core, before_tl, dispatches, label, card) if timeline else None
         overlap_ms = 1e3 * (core.overlap_s - before[1]) / dispatches
         wait_ms = 1e3 * (core.read_wait_s - before[2]) / dispatches
         for i, (_, _, outs) in enumerate(results):
@@ -1684,7 +1752,7 @@ def serve_run(torch, model, config: dict, card: str, label: str, profile: bool =
         engine.shutdown()
     streams = [[t for o in outs for t in o.token_ids] for _, _, outs in results]
     return dict(launches=launches, metrics=metrics, streams=streams, ttfts=ttfts,
-                decode_tok_s=decode_tokens / decode_window)
+                decode_tok_s=decode_tokens / decode_window, timeline=tl)
 
 
 @contextlib.contextmanager
@@ -1772,7 +1840,7 @@ def serve_both(torch, model, card: str, quant: bool):
     other = (("decode", "prefill", "ragged", "moe", "moe_q8") if quant
              else ("decode_q8", "prefill_q8", "ragged_q8", "matmul", "moe", "moe_q8"))
     default = serve_run(torch, model, INT8_DEFAULT_PATH if quant else DEFAULT_PATH, card,
-                        f"{tag}default path", profile=True)
+                        f"{tag}default path", profile=True, timeline=True)
     need = ["decode" + q8, "prefill" + q8] + (["matmul"] if quant else [])
     check(all(default["launches"][k] > 0 for k in need) and
           not any(default["launches"][k] for k in other),
@@ -1964,7 +2032,7 @@ def spec_run(torch, model, config: dict, card: str, label: str, draft=None) -> d
             v.clear()
         keys = ("spec_steps", "spec_proposed", "spec_accepted", "device_gets_total")
         before = {k: core.metrics()[k] for k in keys}
-        host0, turns0 = core._host_s, core._turns
+        host0, turns0 = core.timeline.host_gap_s_total, core.timeline.busy_steps_total
         dispatches0 = core.draft.dispatches if core.draft is not None else 0
         with recorded_attention(torch, core.draft) as rec:
             t0 = time.perf_counter()
@@ -1974,7 +2042,9 @@ def spec_run(torch, model, config: dict, card: str, label: str, draft=None) -> d
             torch.cuda.synchronize()
         launches = {name: fn.launches for name, fn in wrappers.items()}
         counts = {k: core.metrics()[k] - before[k] for k in keys}
-        host_gap_ms = 1e3 * (core._host_s - host0) / max(1, core._turns - turns0)
+        asyncio.run(engine.run_on_engine(lambda: None))  # the last step has ended
+        host_gap_ms = 1e3 * (core.timeline.host_gap_s_total - host0) / max(
+            1, core.timeline.busy_steps_total - turns0)
         draft_dispatches = (core.draft.dispatches - dispatches0) if core.draft is not None else 0
     finally:
         engine.shutdown()
@@ -2165,18 +2235,24 @@ def spec_phase_q8(torch, model, card: str) -> dict:
     return runs
 
 
+# Qwen3-30B-A3B's serving runs at 16 of its 48 layers: the same widths,
+# experts and kernels, a third of the forward, so the whole script keeps
+# its margin to the time limit on a slow host
+QWEN3_SERVING_LAYERS = 16
+
+
 def moe_serving_phase(torch, card: str) -> tuple[dict, dict]:
-    """Qwen3-30B-A3B at full width and depth (48 layers, random weights from
-    a seeded generator, drawn on the card one layer at a time) behind
+    """Qwen3-30B-A3B at full width, QWEN3_SERVING_LAYERS of its 48 layers
+    (random weights from a seeded generator, drawn on the card one layer at a time) behind
     ``AsyncLLMEngine``, the six requests once per configuration, each run
     profiled: bf16 on the default path (B1, B2, E1), then, the bf16 model
     freed, int8 weights with an int8 KV cache (Bs = 32) on the token-budget
-    path (B4a, B4c, B5, E2).  Every Llama model and engine is gone before:
-    61 GB of bf16 weights leave about 18 GB of the card."""
+    path (B4a, B4c, B5, E2).  Every Llama model and engine is gone before
+    (all 48 layers' 61 GB of bf16 weights fit, leaving about 18 GB)."""
     from dynamo_tpu_torch.models.convert import init_params
     from dynamo_tpu_torch.models.llama import LlamaModel
 
-    cfg = qwen3_30b_a3b()
+    cfg = qwen3_30b_a3b(QWEN3_SERVING_LAYERS)
     runs = []
     for quant, config, label, need, none in (
             (False, DEFAULT_PATH, "Qwen3-30B-A3B bf16 default path", ["decode", "prefill", "moe"],
@@ -2736,21 +2812,34 @@ async def _post(session, url: str, body: dict) -> tuple:
         return r.status, events, first
 
 
+async def _timed_post(session, url: str, body: dict) -> tuple:
+    """``_post``, with the seconds to the first text for a streamed answer
+    and to the whole answer for a unary one."""
+    t0 = time.perf_counter()
+    status, answer, first = await _post(session, url, body)
+    return status, answer, first if first is not None else time.perf_counter() - t0
+
+
 def _text(events) -> str:
     """The text of one choice's SSE events (completion or chat)."""
     return "".join(e["choices"][0].get("text") or e["choices"][0].get("delta", {}).get("content")
                    or "" for e in events if e != "[DONE]" and e["choices"])
 
 
-def _front_requests() -> list[tuple[str, dict]]:
+def _front_requests(shift: int = 0) -> list[tuple[str, dict]]:
     """The requests a server answers one at a time and a fresh engine
-    replays: (path, body), all greedy."""
+    replays: (path, body), all greedy.  ``shift`` moves every prompt's
+    words and ids (the same shapes, no shared prefix: a warm-up pass)."""
     base = {"model": FRONT_MODEL, "max_tokens": FRONT_MAX_TOKENS, "temperature": 0}
-    words = " ".join(f"w{i}" for i in range(1000, 1030))
+    words = " ".join(f"w{i}" for i in range(1000 + shift, 1030 + shift))
+    chat = [{"role": m["role"], "content": " ".join(f"w{int(w[1:]) + shift}"
+                                                    for w in m["content"].split())}
+            for m in FRONT_CHAT]
     return [
         ("/v1/completions", {**base, "prompt": words}),
-        ("/v1/completions", {**base, "prompt": list(range(2000, 2300)), "stream": True}),
-        ("/v1/chat/completions", {**base, "messages": FRONT_CHAT, "stream": True}),
+        ("/v1/completions", {**base, "prompt": list(range(2000 + shift, 2300 + shift)),
+                             "stream": True}),
+        ("/v1/chat/completions", {**base, "messages": chat, "stream": True}),
         ("/v1/completions", {**base, "prompt": words[:60], "logprobs": 3}),
     ]
 
@@ -2985,13 +3074,15 @@ def grammar_cli_phase(card: str) -> None:
 
 def front_server(torch, flags: list[str], card: str, label: str, need: list[str],
                  none: list[str], names: dict = FRONT_NAMES, experts: int = 0,
-                 first_layer: dict | None = None) -> None:
+                 first_layer: dict | None = None) -> tuple[list[str], list[float]]:
     """``build_local_engine`` on the checkpoint with ``flags`` behind the
     port's HttpService on port 0: the loaded tensors against the shards,
     then the requests one at a time with every kernel counter zeroed just
     before and read just after (the kernels in ``need`` must have
     launched, those in ``none`` not), then each answer against a fresh
-    engine's greedy tokens on the same model and config, one at a time."""
+    engine's greedy tokens on the same model and config, one at a time.
+    Returns the fresh engine's texts and each HTTP answer's seconds to its
+    first text (``_timed_post``)."""
     import aiohttp
 
     from dynamo_tpu_torch.cli import build_local_engine, parse_args
@@ -3018,7 +3109,7 @@ def front_server(torch, flags: list[str], card: str, label: str, need: list[str]
             try:
                 async with aiohttp.ClientSession() as s:
                     url = f"http://127.0.0.1:{svc.port}"
-                    return [await _post(s, url + path, body) for path, body in reqs]
+                    return [await _timed_post(s, url + path, body) for path, body in reqs]
             finally:
                 await svc.stop()
 
@@ -3052,6 +3143,7 @@ def front_server(torch, flags: list[str], card: str, label: str, need: list[str]
     log(f"front door {label}: build_local_engine({' '.join(flags)}) behind HttpService; "
         f"{len(reqs)} requests one at a time (unary, streamed token-id prompt, streamed chat, "
         f"logprobs) equal a fresh engine's greedy text; launches {launches} ({card})")
+    return texts, [a[2] for a in answers]
 
 
 def front_door_phase(torch, card: str) -> None:
@@ -3061,13 +3153,242 @@ def front_door_phase(torch, card: str) -> None:
         f"{nbytes / 1e9:.2f} GB in two shards, in {time.perf_counter() - t0:.1f} s")
     cli_phase(card)
     grammar_cli_phase(card)
-    front_server(torch, FRONT_FLAGS, card, "bf16 default path", ["decode", "prefill"],
-                 ["decode_q8", "prefill_q8", "ragged", "ragged_q8", "matmul", "moe", "moe_q8"])
+    texts, local_ttfts = front_server(
+        torch, FRONT_FLAGS, card, "bf16 default path", ["decode", "prefill"],
+        ["decode_q8", "prefill_q8", "ragged", "ragged_q8", "matmul", "moe", "moe_q8"])
     torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    profile_phase(torch, card)
+    torch.cuda.empty_cache()
+    dyn_phase(card, texts, local_ttfts)
+    log(f"front door: profile and dyn:// phases {time.perf_counter() - t1:.1f} s ({card})")
     front_server(torch, FRONT_INT8_FLAGS, card, "int8 token-budget path",
                  ["decode_q8", "ragged_q8", "matmul"], ["decode", "prefill", "ragged", "moe", "moe_q8"])
     torch.cuda.empty_cache()
     log(f"front door: phase wall {time.perf_counter() - t0:.1f} s ({card})")
+
+
+PROFILE_STEPS = 4
+# the kernel symbols the profile window must show: B1 (the decode kernel
+# over a bf16 cache) and B2 (the paged prefill kernel)
+PROFILE_KERNELS = {"B1": "decode_kernel<__nv_bfloat16", "B2": "wgmma_prefill_kernel<"}
+
+
+def profile_phase(torch, card: str) -> None:
+    """``run --trace --profile-dir D --profile-steps 4``'s engine
+    (``build_local_engine`` on the front-door checkpoint) behind
+    HttpService: one traced completion long enough for the window's four
+    dispatches; the window's Chrome trace must exist and hold B1's and B2's
+    kernels, and ``/debug/traces/{id}``, fetched by the port's ``trace``
+    command, must be one trace id whose ``engine.step`` spans carry their
+    phases.  Logs one ``{"profile": ...}`` line."""
+    import shutil
+
+    import aiohttp
+
+    from dynamo_tpu_torch.cli import build_local_engine, parse_args
+    from dynamo_tpu_torch.llm.engines import build_serving_pipeline
+    from dynamo_tpu_torch.llm.http import HttpService
+    from dynamo_tpu_torch.obs import tracing
+
+    prof_dir = FRONT_DIR / "profile"
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    args = parse_args(["run", "in=http", "out=gpu", "--model-path", str(FRONT_DIR),
+                       "--model-name", FRONT_MODEL, *FRONT_FLAGS, "--trace", "--profile-dir",
+                       str(prof_dir), "--profile-steps", str(PROFILE_STEPS)])
+    was = tracing.enabled()
+    tracing.enable(args.trace)  # what main() does for --trace
+    tracing.collector.reset()
+    engine, mcard = build_local_engine(args)
+    rid = "profile-1"
+    body = {"model": FRONT_MODEL, "prompt": " ".join(f"w{i}" for i in range(1100, 1400)),
+            "max_tokens": 40, "temperature": 0}
+    try:
+        async def go():
+            svc = HttpService(port=0, core=engine.core)
+            svc.manager.add_model(FRONT_MODEL, build_serving_pipeline(engine, mcard), mcard)
+            await svc.start()
+            base = f"http://127.0.0.1:{svc.port}"
+            try:
+                async with aiohttp.ClientSession() as s:
+                    async with s.post(f"{base}/v1/completions", json=body,
+                                      headers={"x-request-id": rid}) as r:
+                        answer = (r.status, await r.json())
+                await engine.run_on_engine(lambda: None)  # the last step's span is in
+                # the trace command, as a user runs it against this server
+                proc = await asyncio.create_subprocess_exec(
+                    sys.executable, "-m", "dynamo_tpu_torch", "trace", rid, "--url", base,
+                    cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+                out, err = await asyncio.wait_for(proc.communicate(), 120)
+                return answer, proc.returncode, out, err
+            finally:
+                await svc.stop()
+
+        t0 = time.perf_counter()
+        (status, answer), rc, out, err = asyncio.run(go())
+        wall = time.perf_counter() - t0
+        steps = engine.core.steps
+    finally:
+        engine.shutdown()
+        tracing.enable(was)
+    check(status == 200 and answer["choices"][0]["finish_reason"] == "length",
+          f"profile: completion {status} {answer}")
+    check(rc == 0, f"profile: the trace command exited {rc}: {err.decode()[-2000:]}")
+    doc = json.loads(out)
+    spans = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    trace_ids = {e["args"]["trace_id"] for e in spans}
+    step_spans = [e for e in spans if e["name"] == "engine.step"]
+    check(len(trace_ids) == 1 and step_spans and all(e["args"].get("phases_ms")
+                                                    for e in step_spans),
+          f"profile: /debug/traces/{rid}: {len(trace_ids)} trace ids, "
+          f"{len(step_spans)} engine.step spans")
+    windows = sorted(prof_dir.iterdir())
+    check([w.name for w in windows] == ["steps-000000"] and (windows[0] / "trace.json").exists(),
+          f"profile: windows {[w.name for w in windows]}")
+    trace_path = windows[0] / "trace.json"
+    chrome = json.loads(trace_path.read_text())
+    kernels = [e for e in chrome["traceEvents"] if e.get("cat") == "kernel"]
+    found = {}
+    for b, sym in PROFILE_KERNELS.items():
+        hits = [e for e in kernels if sym in e.get("name", "")]
+        found[b] = dict(events=len(hits), device_ms=round(sum(e.get("dur", 0) for e in hits) / 1e3,
+                                                          4))
+    check(all(v["events"] > 0 for v in found.values()),
+          f"profile: kernel events {found} in {len(kernels)} kernel events")
+    line = dict(window=f"{windows[0].name}/trace.json", trace_mb=round(
+        trace_path.stat().st_size / 1e6, 3), dispatches=steps, profile_steps=PROFILE_STEPS,
+        kernel_events=len(kernels), kernels=found, trace_spans=len(spans),
+        engine_step_spans=len(step_spans), phases_ms_first_step=step_spans[0]["args"]["phases_ms"],
+        wall_s=round(wall, 3), card=card)
+    log(json.dumps({"profile": line}))
+    shutil.rmtree(prof_dir, ignore_errors=True)
+
+
+@contextlib.contextmanager
+def background_coordinator():
+    """A CoordinatorServer on port 0, served by an event loop on a thread
+    of its own; yields its URL and stops it on exit."""
+    import threading
+
+    from dynamo_tpu_torch.runtime.transports.coordinator import CoordinatorServer
+
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, name="coordinator", daemon=True)
+    thread.start()
+    srv = asyncio.run_coroutine_threadsafe(
+        CoordinatorServer(host="127.0.0.1", port=0).start(), loop).result(30)
+    try:
+        yield srv.url
+    finally:
+        asyncio.run_coroutine_threadsafe(srv.stop(), loop).result(30)
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(timeout=30)
+        loop.close()
+
+
+DYN_ENDPOINT = "dyn://dynamo.backend.generate"
+
+
+def dyn_phase(card: str, texts: list[str], local_ttfts: list[float]) -> None:
+    """The distributed runtime as a user starts it: a coordinator (port 0,
+    in this process), ``run in=dyn://dynamo.backend.generate out=gpu`` on
+    the front-door checkpoint as a process of its own, ``models add``, and
+    the ``http`` frontend, which discovers the model; the front-door
+    requests one at a time over HTTP must answer the fresh engine's greedy
+    texts of the bf16 front-door run, the worker must have loaded on a
+    CUDA device, and every process must exit 0 on SIGTERM.  A warm-up pass
+    of the same shapes (other words, no shared prefix) runs first, as the
+    worker is a fresh process whose first calls pay the library loads and
+    first cuBLAS calls.  Logs one ``{"dyn": ...}`` line with the remote
+    seconds to first text, both passes, beside the in-process server's."""
+    import signal
+    import socket
+    import statistics
+
+    import aiohttp
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        http_port = sk.getsockname()[1]
+    logs = {name: FRONT_DIR / f"{name}.log" for name in ("worker", "http")}
+    procs = {}
+    t0 = time.perf_counter()
+    with background_coordinator() as coord:
+        def spawn(name, *args):
+            with open(logs[name], "w") as f:
+                procs[name] = subprocess.Popen(
+                    [sys.executable, "-m", "dynamo_tpu_torch", *args, "--coordinator", coord],
+                    cwd=str(ROOT), stdout=f, stderr=subprocess.STDOUT)
+
+        try:
+            spawn("worker", "run", f"in={DYN_ENDPOINT}", "out=gpu", "--model-path",
+                  str(FRONT_DIR), "--model-name", FRONT_MODEL, *FRONT_FLAGS)
+            spawn("http", "http", "--http-port", str(http_port))
+            added = subprocess.run(
+                [sys.executable, "-m", "dynamo_tpu_torch", "models", "add", FRONT_MODEL,
+                 DYN_ENDPOINT, "--model-path", str(FRONT_DIR), "--coordinator", coord],
+                cwd=str(ROOT), capture_output=True, text=True, timeout=120)
+            check(added.returncode == 0, f"dyn: models add: {added.stdout} {added.stderr}")
+            while "serving front at" not in logs["worker"].read_text():
+                check(all(p.poll() is None for p in procs.values())
+                      and time.perf_counter() - t0 < 300,
+                      "dyn: the worker did not come up: " + logs["worker"].read_text()[-3000:])
+                time.sleep(0.25)
+            worker_up = time.perf_counter() - t0
+            base = f"http://127.0.0.1:{http_port}"
+
+            async def go():
+                async with aiohttp.ClientSession() as s:
+                    while True:  # the frontend up, and the model discovered
+                        try:
+                            async with s.get(f"{base}/v1/models") as r:
+                                if [m["id"] for m in (await r.json())["data"]] == [FRONT_MODEL]:
+                                    break
+                        except aiohttp.ClientConnectionError:
+                            pass
+                        check(procs["http"].poll() is None and time.perf_counter() - t0 < 300,
+                              "dyn: no model at the frontend: " + logs["http"].read_text()[-3000:])
+                        await asyncio.sleep(0.25)
+                    warm = [await _timed_post(s, base + path, body)
+                            for path, body in _front_requests(shift=5000)]
+                    return warm, [await _timed_post(s, base + path, body)
+                                  for path, body in _front_requests()]
+
+            warm, answers = asyncio.run(go())
+        finally:
+            for name in ("http", "worker"):
+                if name in procs and procs[name].poll() is None:
+                    procs[name].send_signal(signal.SIGTERM)
+            rcs = {}
+            for name, proc in procs.items():
+                try:
+                    rcs[name] = proc.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    rcs[name] = proc.wait()
+    worker_log = logs["worker"].read_text()
+    check(all(rc == 0 for rc in rcs.values()),
+          f"dyn: exit codes {rcs}: worker {worker_log[-2000:]} http "
+          f"{logs['http'].read_text()[-2000:]}")
+    check(all(a[0] == 200 for a in warm + answers),
+          f"dyn: statuses {[a[0] for a in warm + answers]}")
+    got = [_answer_text(a[1]) for a in answers]
+    check(got == texts, f"dyn: answers {got} != a fresh engine's {texts}")
+    loaded = [ln for ln in worker_log.splitlines() if "loaded" in ln and " on cuda" in ln]
+    check(bool(loaded), "dyn: the worker's log names no CUDA device: " + worker_log[-2000:])
+    remote = [a[2] for a in answers]
+    line = dict(endpoint=DYN_ENDPOINT, requests=len(answers), worker_up_s=round(worker_up, 3),
+                remote_ttft_median_s=round(statistics.median(remote), 4),
+                remote_ttft_max_s=round(max(remote), 4),
+                local_ttft_median_s=round(statistics.median(local_ttfts), 4),
+                local_ttft_max_s=round(max(local_ttfts), 4),
+                remote_ttft_s=[round(x, 4) for x in remote],
+                remote_warm_up_ttft_s=[round(a[2], 4) for a in warm],
+                local_ttft_s=[round(x, 4) for x in local_ttfts],
+                worker_device=loaded[0].split(" on ", 1)[1], exit_codes=rcs, card=card)
+    log(json.dumps({"dyn": line}))
+    for path in logs.values():
+        path.unlink(missing_ok=True)
 
 
 # The Qwen3-MoE checkpoint: Qwen3-30B-A3B's width and tensor names, cut to
@@ -3692,13 +4013,14 @@ def _on_engine(engine, fn):
 def _one(engine, toks, tag: str, max_tokens: int = MAX_TOKENS) -> dict:
     """One request alone, greedy: its TTFT, stream, cached tokens and the
     engine's host gap per turn over it."""
-    core = engine.core
-    host0, turns0 = core._host_s, core._turns
+    tl = engine.core.timeline
+    host0, turns0 = tl.host_gap_s_total, tl.busy_steps_total
     ((ttft, _, outs),) = asyncio.run(_serve(engine, [toks], max_tokens=max_tokens, tag=tag))
-    turns = core._turns - turns0
+    asyncio.run(engine.run_on_engine(lambda: None))  # the last step has ended
+    turns = tl.busy_steps_total - turns0
     return dict(ttft=ttft, stream=[t for o in outs for t in o.token_ids],
                 cached=outs[-1].cached_tokens,
-                host_gap_ms=1e3 * (core._host_s - host0) / turns if turns else 0.0)
+                host_gap_ms=1e3 * (tl.host_gap_s_total - host0) / turns if turns else 0.0)
 
 
 def _prefix_blocks(core, toks) -> list:

@@ -1,9 +1,11 @@
-"""The port's command line: ``run``.
+"""The port's command line: ``run``, ``coordinator``, ``http``, ``router``,
+``models`` and ``trace``.
 
-    python -m dynamo_tpu_torch run in=<http|text:PROMPT|stdin|batch:FILE> out=<gpu|echo> \\
-        --model-path DIR [options]
+    python -m dynamo_tpu_torch run in=<http|text:PROMPT|stdin|batch:FILE|dyn://NS.COMP.EP> \\
+        out=<gpu|echo|dyn://NS.COMP.EP> --model-path DIR [options]
 
-The counterpart of ``dynamo_tpu/cli.py``'s ``run``: it builds the local
+The counterpart of ``dynamo_tpu/cli.py``'s commands of the same names.
+``run`` builds the local
 pipeline frontend → preprocessor → engine → detokenizer from a HuggingFace
 checkpoint directory and serves it over OpenAI HTTP (``in=http``), answers
 one prompt (``in=text:``), one prompt per line (``in=stdin``) or a JSONL
@@ -20,7 +22,31 @@ the persistent tier below it, with the JAX CLI's defaults.
 and ``--spec-draft-model DIR`` proposes with a small same-tokenizer model
 instead, loaded unquantised as the target is loaded; a configuration the
 engine refuses (a draft of another vocabulary) exits with the engine's
-message.  The JAX CLI's unported options are not flags of this command.
+message.  ``--trace`` turns the tracing plane on (``/debug/traces``), and
+``--profile-dir DIR --profile-steps N`` wraps the engine's first N
+dispatching steps in one ``torch.profiler`` window written under DIR.
+The JAX CLI's unported options are not flags of this command.
+
+The distributed runtime (``runtime/distributed.py``, over a coordinator
+given by ``--coordinator tcp://HOST:PORT``, namespace ``--namespace``):
+
+* ``coordinator`` runs the control plane (discovery, leases, events);
+* ``run in=dyn://NS.COMP.EP out=gpu`` is a worker: it serves the engine at
+  that endpoint and publishes its KV events and load for a KV router;
+* ``run in=... out=dyn://NS.COMP.EP --model-path DIR`` answers through a
+  remote worker, preprocessing and detokenizing here with DIR's tokenizer;
+* ``models add NAME dyn://NS.COMP.EP --model-path DIR`` registers a model
+  under ``{ns}/models/``, ``models list|remove`` read and drop them;
+* ``http`` is an OpenAI frontend that discovers the registered models and
+  serves each through its worker endpoint;
+* ``router`` serves KV-aware routing decisions at ``dyn://NS.router.generate``;
+* ``trace REQUEST_ID --url URL`` fetches one request's Chrome trace from a
+  frontend's ``/debug/traces``.
+
+A worker serves the engine itself (tokens in, tokens out), which is what
+a frontend's preprocessing pipeline sends it; the JAX CLI's worker serves
+its text pipeline instead, which its own ``http`` frontend cannot call.
+The JAX CLI's ``models push|pull`` are not ported.
 """
 
 from __future__ import annotations
@@ -37,7 +63,10 @@ from typing import Optional
 
 log = logging.getLogger("dynamo_tpu_torch.cli")
 
-__all__ = ["build_local_engine", "attach_worker_publishers", "parse_args", "main"]
+__all__ = ["build_local_engine", "attach_worker_publishers", "start_router_service",
+           "parse_args", "main"]
+
+MODELS_PREFIX = "models/"  # under {namespace}/
 
 
 def build_local_engine(args) -> tuple[object, object]:
@@ -54,6 +83,8 @@ def build_local_engine(args) -> tuple[object, object]:
         return EchoEngineCore(), card
     if args.out != "gpu":
         raise SystemExit(f"unknown out={args.out}")
+
+    import torch
 
     from dynamo_tpu_torch.device import resolve_device
     from dynamo_tpu_torch.engine import AsyncLLMEngine, EngineConfig, EngineCore
@@ -83,6 +114,10 @@ def build_local_engine(args) -> tuple[object, object]:
         prefill_token_budget=args.prefill_token_budget,
         unified_token_dispatch=args.unified_token_dispatch,
         lookahead_dispatch=args.lookahead_dispatch,
+        # profile hook: one torch.profiler window over the first
+        # profile_steps dispatching steps
+        profile_dir=args.profile_dir or None,
+        profile_steps=args.profile_steps or 8,
     )
     if args.spec_draft_model and cfg.spec_tokens <= 0:
         raise SystemExit("--spec-draft-model requires --spec-tokens > 0")
@@ -99,8 +134,9 @@ def build_local_engine(args) -> tuple[object, object]:
         else:
             mcfg, state = load_model_dir(path, dtype=dtype, device=device, quantize=quantize)
             model = LlamaModel.from_state(mcfg, state)
-        log.info("loaded %s (%s, %d layers%s) on %s in %.1f s", path, type(model).__name__,
+        log.info("loaded %s (%s, %d layers%s) on %s%s in %.1f s", path, type(model).__name__,
                  mcfg.num_layers, ", int8 weights" if quantize else "", device,
+                 f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "",
                  time.perf_counter() - t0)
         return model
 
@@ -119,10 +155,10 @@ def build_local_engine(args) -> tuple[object, object]:
 def attach_worker_publishers(runtime, engine, namespace: str) -> None:
     """Publish a serving engine's KV events and ForwardPassMetrics so a KV
     router sees this worker, and replicate its persistent tier through the
-    coordinator.  ``runtime`` is duck-typed as in the JAX CLI:
-    ``.instance_id`` (the worker id), ``.coordinator`` (a connected
-    ``CoordinatorClient``) and ``.on_shutdown(coro_fn)``, which must await
-    each stop.  Call it on the event loop.  A no-op for engines without a
+    coordinator.  ``runtime`` is the worker's ``DistributedRuntime`` (or
+    anything with its ``.instance_id``, ``.coordinator`` and
+    ``.on_shutdown``), whose shutdown stops the publishers.  Call it on the
+    event loop.  A no-op for engines without a
     core (echo); pipeline (``._engine``) and decode-worker (``.engine``)
     wrappers are unwrapped until an EngineCore surfaces."""
     core = None
@@ -164,14 +200,65 @@ def _shutdown(engine) -> None:
 # ------------------------------------------------------------------- run ------
 
 
+def _runtime_config(args):
+    from dynamo_tpu_torch.runtime.config import RuntimeConfig
+
+    kw = {}
+    if args.coordinator:
+        kw["coordinator_url"] = args.coordinator
+    if args.namespace:
+        kw["namespace"] = args.namespace
+    return RuntimeConfig(**kw)
+
+
+async def _until_signalled() -> None:
+    """Return on SIGINT or SIGTERM (a long-running command then stops
+    cleanly, exit 0)."""
+    stop = asyncio.Event()
+    loop = asyncio.get_running_loop()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        loop.add_signal_handler(sig, stop.set)
+    await stop.wait()
+
+
 async def _cmd_run(args) -> None:
     from dynamo_tpu_torch.llm.engines import build_serving_pipeline
+    from dynamo_tpu_torch.runtime import serde
+    from dynamo_tpu_torch.runtime.protocols import parse_endpoint_url
 
-    raw, card = build_local_engine(args)
+    serde.register_llm_types()
+    if args.inp.startswith("dyn://") and args.out.startswith("dyn://"):
+        raise SystemExit("in=dyn:// serves a local engine: out= must be gpu or echo")
+    runtime = raw = None
     try:
-        engine = build_serving_pipeline(raw, card)
+        if args.out.startswith("dyn://") or args.inp.startswith("dyn://"):
+            from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+
+            runtime = await DistributedRuntime.connect(_runtime_config(args))
+        if args.out.startswith("dyn://"):
+            # a remote worker: preprocess and detokenize here
+            from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+
+            if args.model_path is None:
+                raise SystemExit("out=dyn:// needs --model-path (the tokenizer and chat template)")
+            card = ModelDeploymentCard.from_hf_dir(args.model_path, name=args.model_name)
+            ns, comp, ep = parse_endpoint_url(args.out)
+            client = await runtime.namespace(ns).component(comp).endpoint(ep).client()
+            engine = build_serving_pipeline(client, card)
+        else:
+            raw, card = build_local_engine(args)
+            engine = build_serving_pipeline(raw, card)
         model_name = args.model_name or card.name
-        if args.inp == "http":
+        if args.inp.startswith("dyn://"):
+            # worker mode: serve the engine (tokens in, tokens out) at the
+            # endpoint; a frontend's pipeline preprocesses and detokenizes
+            ns, comp, ep = parse_endpoint_url(args.inp)
+            await runtime.namespace(ns).component(comp).endpoint(ep).serve(raw)
+            attach_worker_publishers(runtime, raw, ns)
+            log.info("serving %s at %s as instance %x — ctrl-c or SIGTERM to stop", model_name,
+                     args.inp, runtime.instance_id)
+            await _until_signalled()
+        elif args.inp == "http":
             from dynamo_tpu_torch.llm.http.service import HttpService
 
             svc = HttpService(host=args.host, port=args.http_port,
@@ -179,12 +266,8 @@ async def _cmd_run(args) -> None:
             svc.manager.add_model(model_name, engine, card)
             await svc.start()
             log.info("OpenAI server on %s:%s — ctrl-c or SIGTERM to stop", svc.host, svc.port)
-            stop = asyncio.Event()
-            loop = asyncio.get_running_loop()
-            for sig in (signal.SIGINT, signal.SIGTERM):
-                loop.add_signal_handler(sig, stop.set)
             try:
-                await stop.wait()
+                await _until_signalled()
             finally:
                 await svc.stop()
         elif args.inp.startswith("text:"):
@@ -199,7 +282,10 @@ async def _cmd_run(args) -> None:
         else:
             raise SystemExit(f"unknown in={args.inp}")
     finally:
-        _shutdown(raw)
+        if runtime is not None:
+            await runtime.shutdown()
+        if raw is not None:
+            _shutdown(raw)
 
 
 async def _one_prompt(engine, model_name: str, prompt: str, args) -> None:
@@ -259,15 +345,186 @@ async def _batch(engine, model_name: str, path: Path, args) -> None:
     }))
 
 
+# ------------------------------------------------------- distributed runtime --
+
+
+async def _cmd_coordinator(args) -> None:
+    """Run the control/event/queue-plane coordinator."""
+    from dynamo_tpu_torch.runtime.transports.coordinator import CoordinatorServer
+
+    server = await CoordinatorServer(host=args.host, port=args.port,
+                                     data_dir=args.data_dir).start()
+    log.info("coordinator on %s (durable=%s)", server.url, bool(args.data_dir))
+    try:
+        await _until_signalled()
+    finally:
+        await server.stop()
+
+
+async def _cmd_http(args) -> None:
+    """Standalone OpenAI frontend: discovers the model records under
+    ``{ns}/models/`` on the coordinator and serves each through a
+    preprocessing pipeline around its worker endpoint's client."""
+    from dynamo_tpu_torch.llm.engines import build_serving_pipeline
+    from dynamo_tpu_torch.llm.http.service import HttpService
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.runtime import serde
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.runtime.protocols import parse_endpoint_url
+
+    serde.register_llm_types()
+    runtime = await DistributedRuntime.connect(_runtime_config(args))
+    svc = HttpService(host=args.host, port=args.http_port)
+    ns = args.namespace or "dynamo"
+    # discovery-event tasks, retained so a failed add_model (bad entry,
+    # unreachable endpoint) is logged instead of vanishing with the task
+    add_tasks: set[asyncio.Task] = set()
+
+    def _add_done(task: asyncio.Task) -> None:
+        add_tasks.discard(task)
+        if not task.cancelled() and task.exception() is not None:
+            log.error("add_model failed", exc_info=task.exception())
+
+    async def add_model(name: str, entry: dict) -> None:
+        e_ns, comp, ep = parse_endpoint_url(entry["endpoint"])
+        client = await runtime.namespace(e_ns).component(comp).endpoint(ep).client()
+        card = (ModelDeploymentCard.from_hf_dir(entry["model_path"], name=name)
+                if entry.get("model_path")
+                else ModelDeploymentCard.from_dict(entry.get("card", {"name": name})))
+        svc.manager.add_model(name, build_serving_pipeline(client, card), card)
+        log.info("model %s -> %s", name, entry["endpoint"])
+
+    def on_event(event: str, key: str, value) -> None:
+        name = key.rsplit("/", 1)[-1]
+        if event == "put":
+            task = asyncio.ensure_future(add_model(name, value))
+            add_tasks.add(task)
+            task.add_done_callback(_add_done)
+        elif event == "delete":
+            svc.manager.remove_model(name)
+
+    try:
+        _, snapshot = await runtime.coordinator.watch(f"{ns}/{MODELS_PREFIX}", on_event)
+        for key, value in snapshot.items():
+            try:
+                await add_model(key.rsplit("/", 1)[-1], value)
+            except Exception:
+                # one bad registration must not take down the whole frontend
+                log.exception("add_model %s failed at startup", key)
+        await svc.start()
+        log.info("OpenAI frontend on %s:%s (namespace %s)", svc.host, svc.port, ns)
+        try:
+            await _until_signalled()
+        finally:
+            await svc.stop()
+    finally:
+        for task in list(add_tasks):
+            task.cancel()
+        await runtime.shutdown()
+
+
+async def start_router_service(runtime, namespace: str = "default", block_size: int = 16,
+                               workers_endpoint: Optional[str] = None):
+    """Wire a live KvRouter behind ``dyn://{ns}.router.generate`` (shared by
+    the ``router`` command and tests).  Returns the router.
+
+    ``workers_endpoint`` ("component/endpoint", e.g. "backend/generate")
+    watches that endpoint's discovery prefix so a dead worker's delete
+    event evicts it from the router's candidate set immediately."""
+    from dynamo_tpu_torch.llm.kv_router.metrics_aggregator import KvRouterSubscriber
+    from dynamo_tpu_torch.llm.kv_router.router import KvRouter
+
+    workers_prefix = None
+    if workers_endpoint:
+        comp, _, ep = workers_endpoint.partition("/")
+        workers_prefix = f"{namespace}/components/{comp}/endpoints/{ep or 'generate'}/"
+    router = KvRouter(block_size=block_size)
+    sub = await KvRouterSubscriber(router, runtime.coordinator, namespace,
+                                   workers_prefix=workers_prefix).start()
+    # the subscriber's tasks must die with the runtime
+    runtime.on_shutdown(sub.stop)
+    # KvRouter IS the endpoint engine: its generate() yields one
+    # wire-serializable decision dict per request
+    await runtime.namespace(namespace).component("router").endpoint("generate").serve(router)
+    return router
+
+
+async def _cmd_router(args) -> None:
+    """Standalone KV-aware router service: serves routing decisions at
+    ``dyn://{ns}.router.generate`` and keeps its prefix index and load
+    view live off the coordinator's KV-event and metrics subjects."""
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+
+    runtime = await DistributedRuntime.connect(_runtime_config(args))
+    ns = args.namespace or "default"
+    try:
+        await start_router_service(runtime, ns, args.block_size,
+                                   workers_endpoint=args.workers_endpoint)
+        log.info("router service up: dyn://%s.router.generate", ns)
+        await _until_signalled()
+    finally:
+        await runtime.shutdown()
+
+
+async def _cmd_models(args) -> None:
+    """Manage the model records on the coordinator that ``http``
+    frontends discover."""
+    from dynamo_tpu_torch.runtime.transports.coordinator import CoordinatorClient
+
+    ns = args.namespace or "dynamo"
+    coord = await CoordinatorClient(args.coordinator or "tcp://127.0.0.1:6180").connect()
+    try:
+        if args.action == "add":
+            if not args.name or not args.endpoint:
+                raise SystemExit("usage: models add NAME dyn://NS.COMP.EP [--model-path DIR]")
+            entry = {"endpoint": args.endpoint, "model_path": args.model_path}
+            await coord.kv_put(f"{ns}/{MODELS_PREFIX}{args.name}", entry)
+            print(f"added {args.name} -> {args.endpoint}")
+        elif args.action == "remove":
+            ok = await coord.kv_delete(f"{ns}/{MODELS_PREFIX}{args.name}")
+            print(f"removed {args.name}" if ok else f"no such model {args.name}")
+        else:  # list
+            items = await coord.kv_get_prefix(f"{ns}/{MODELS_PREFIX}")
+            for key, value in sorted(items.items()):
+                print(f"{key.rsplit('/', 1)[-1]}\t{value.get('endpoint')}")
+    finally:
+        await coord.close()
+
+
+async def _cmd_trace(args) -> None:
+    """Fetch one request's Chrome trace-event JSON from a frontend's
+    ``/debug/traces/{request_id}``.  The output loads in chrome://tracing
+    and https://ui.perfetto.dev; the serving processes must run with
+    tracing on (``--trace`` or ``DYNAMO_TRACE=1``)."""
+    from aiohttp import ClientSession
+
+    url = f"{args.url.rstrip('/')}/debug/traces/{args.request_id}"
+    async with ClientSession() as s:
+        async with s.get(url) as resp:
+            body = await resp.text()
+            if resp.status != 200:
+                raise SystemExit(f"trace fetch failed ({resp.status}): {body}")
+    if args.out:
+        Path(args.out).write_text(body)
+        print(args.out)
+    else:
+        print(body)
+
+
 # ------------------------------------------------------------------ parser ----
 
 
 def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m dynamo_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    def common(sp):
+        sp.add_argument("--coordinator", default=None, help="tcp://host:port")
+        sp.add_argument("--namespace", default=None)
+
     run = sub.add_parser("run", help="serve a checkpoint or answer prompts")
-    run.add_argument("inout", nargs="+", help="in=<http|text:PROMPT|stdin|batch:FILE> "
-                     "out=<gpu|echo>")
+    run.add_argument("inout", nargs="+", help="in=<http|text:PROMPT|stdin|batch:FILE|"
+                     "dyn://NS.COMP.EP> out=<gpu|echo|dyn://NS.COMP.EP>")
     run.add_argument("--model-path", default=None, help="HuggingFace checkpoint directory")
     run.add_argument("--model-name", default=None, help="served name (default: the "
                      "directory's name)")
@@ -328,22 +585,75 @@ def _parser() -> argparse.ArgumentParser:
                      help="tokens per answer for in=text:, stdin and batch:")
     run.add_argument("--host", default="127.0.0.1")
     run.add_argument("--http-port", type=int, default=8080)
+    run.add_argument("--trace", action="store_true",
+                     help="turn the tracing plane on (same as DYNAMO_TRACE=1): per-request "
+                     "spans, exported as Chrome trace JSON at /debug/traces/{request_id}")
+    run.add_argument("--profile-dir", default=None,
+                     help="wrap the engine's first --profile-steps dispatching steps in one "
+                     "torch.profiler window written under this directory (keyed by first "
+                     "step id)")
+    run.add_argument("--profile-steps", type=int, default=8)
+    common(run)
+
+    http = sub.add_parser("http", help="standalone OpenAI frontend with discovery")
+    http.add_argument("--host", default="127.0.0.1")
+    http.add_argument("--http-port", type=int, default=8080)
+    common(http)
+
+    coord = sub.add_parser("coordinator", help="run the coordinator service")
+    coord.add_argument("--host", default="0.0.0.0")
+    coord.add_argument("--port", type=int, default=6180)
+    coord.add_argument("--data-dir", default=None,
+                       help="WAL directory: KV + queues survive restarts")
+
+    router = sub.add_parser("router", help="standalone KV-aware router service")
+    router.add_argument("--block-size", type=int, default=16)
+    router.add_argument("--workers-endpoint", default="backend/generate",
+                        help="component/endpoint whose discovery deletes evict workers "
+                        "from the router")
+    common(router)
+
+    models = sub.add_parser("models", help="manage model registrations")
+    models.add_argument("action", choices=["add", "list", "remove"])
+    models.add_argument("name", nargs="?")
+    models.add_argument("endpoint", nargs="?", help="dyn://ns.component.endpoint (add)")
+    models.add_argument("--model-path", default=None)
+    common(models)
+
+    trace = sub.add_parser("trace", help="fetch one request's Chrome trace-event JSON from a "
+                           "frontend's /debug/traces endpoint (server must run with --trace "
+                           "or DYNAMO_TRACE=1)")
+    trace.add_argument("request_id", help="response id or the caller's x-request-id")
+    trace.add_argument("--url", default="http://127.0.0.1:8080", help="frontend base URL")
+    trace.add_argument("-o", "--out", default=None,
+                       help="write the JSON here instead of stdout")
     return p
 
 
 def parse_args(argv: Optional[list[str]] = None) -> argparse.Namespace:
-    """The parsed command line, with ``in=``/``out=`` as ``inp``/``out``."""
+    """The parsed command line; for ``run``, with ``in=``/``out=`` as
+    ``inp``/``out``."""
     args = _parser().parse_args(argv)
-    kv = dict(item.split("=", 1) for item in args.inout if "=" in item)
-    if "in" not in kv or "out" not in kv:
-        raise SystemExit("run needs in=<...> and out=<...>")
-    args.inp, args.out = kv["in"], kv["out"]
+    if args.cmd == "run":
+        kv = dict(item.split("=", 1) for item in args.inout if "=" in item)
+        if "in" not in kv or "out" not in kv:
+            raise SystemExit("run needs in=<...> and out=<...>")
+        args.inp, args.out = kv["in"], kv["out"]
     return args
+
+
+_COMMANDS = {"run": _cmd_run, "http": _cmd_http, "coordinator": _cmd_coordinator,
+             "router": _cmd_router, "models": _cmd_models, "trace": _cmd_trace}
 
 
 def main(argv: Optional[list[str]] = None) -> None:
     logging.basicConfig(level=logging.INFO, stream=sys.stderr)
-    asyncio.run(_cmd_run(parse_args(argv)))
+    args = parse_args(argv)
+    if getattr(args, "trace", False) is True:
+        from dynamo_tpu_torch.obs import tracing
+
+        tracing.enable(True)
+    asyncio.run(_COMMANDS[args.cmd](args))
 
 
 if __name__ == "__main__":

@@ -75,9 +75,18 @@ into its fresh device blocks — one asynchronous upload per run of pool
 rows, from the pinned pool, on the current stream — and counts them as
 cached, so prefill starts after them.
 
+Each core owns a step timeline (``obs/timeline.py``: ``step`` is wrapped
+in ``begin``/``end`` and every phase boundary marks, at the JAX engine's
+sites and with its dispatch kinds) and a perf model (``obs/perfmodel.py``:
+each dispatch kind priced at its first offer); ``metrics()`` reads its
+host gap from the timeline.  With ``profile_dir`` set, the first
+``profile_steps`` dispatching steps run under one ``torch.profiler``
+window (CPU, and CUDA on the card) whose Chrome trace lands under
+``profile_dir/steps-NNNNNN/``, keyed by the starting step id.
+
 Not ported yet, and refused at construction (:meth:`EngineCore.
 _check_supported`): sequence-parallel prefill, cache dtypes other than int8
-and the model's, meshes, and the profile hook.
+and the model's, and meshes.
 
 Thread-safety: everything here runs on the engine thread; submit()/abort()
 and run_on_step() are the only cross-thread entry points and only touch
@@ -91,6 +100,7 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import logging
+import os
 import queue
 import threading
 import time
@@ -114,6 +124,8 @@ from dynamo_tpu_torch.llm.kv.events import TIER_PERSIST, KvRemovedEvent, KvStore
 from dynamo_tpu_torch.llm.kv.host_pool import HostKvPool, flatten_blocks, unflatten_blocks
 from dynamo_tpu_torch.llm.protocols import FinishReason, LLMEngineOutput
 from dynamo_tpu_torch.models.llama import LlamaModel
+from dynamo_tpu_torch.obs.perfmodel import PerfModel, model_shapes, visible_pairs
+from dynamo_tpu_torch.obs.timeline import StepTimeline
 from dynamo_tpu_torch.ops.block_copy import gather_blocks_padded, scatter_blocks_inplace
 from dynamo_tpu_torch.ops.kv_quant import QuantKvCache
 from dynamo_tpu_torch.tokens import TokenBlockSequence
@@ -480,10 +492,17 @@ class EngineCore:
         self.tokens_generated = 0
         self.prompt_tokens_computed = 0  # actual prefill work (dedupe-aware)
         self.device_gets = 0             # step-loop device->host result reads
-        # host time per turn: a step's wall time minus its device waits
-        self._host_s = 0.0
-        self._wait_s = 0.0
-        self._turns = 0
+        # this core's step timeline and roofline (obs/): one per core,
+        # since several engine threads may share the process
+        self.perf_model = PerfModel()
+        self.timeline = StepTimeline(perf_model=self.perf_model)
+        self._perf_shapes = None
+        # profile hook: one torch.profiler window over the first
+        # config.profile_steps dispatching steps, keyed by starting step id
+        self._profiler = None
+        self._profile_done = False
+        self._profile_from_step = 0
+        self._profile_path = ""
         # totals: seconds blocked in result reads, and seconds of host work
         # done between a dispatch's enqueue and its read (the lookahead
         # overlap window)
@@ -505,7 +524,6 @@ class EngineCore:
             "sp_prefill_threshold": cfg.sp_prefill_threshold > 0,
             "cache_dtype": cfg.cache_dtype not in (None, "int8", model.config.dtype),
             "mesh_shape": tuple(cfg.mesh_shape) != (1, 1),
-            "profile_dir": bool(cfg.profile_dir),
         }
         bad = [name for name, on in unported.items() if on]
         if bad:
@@ -519,9 +537,7 @@ class EngineCore:
         """The one device->host read of a dispatch's packed results."""
         t0 = time.perf_counter()
         res = packed.cpu().numpy()
-        dt = time.perf_counter() - t0
-        self._wait_s += dt
-        self.read_wait_s += dt
+        self.read_wait_s += time.perf_counter() - t0
         self.device_gets += 1
         return res
 
@@ -799,29 +815,101 @@ class EngineCore:
             "lookahead_flushes_total": lc.flushes_total,
             "lookahead_dispatch_depth": lc.dispatch_depth,
             "device_gets_total": self.device_gets,
-            "host_gap_ms_per_turn": (
-                1e3 * self._host_s / self._turns if self._turns else 0.0
-            ),
+            "host_gap_ms_per_turn": self.timeline.host_gap_ms_per_turn,
             **(self.host_pool.stats() if self.host_pool is not None else {}),
             **(self.persist_store.stats() if self.persist_store is not None else {}),
         }
 
     # -------------------------------------------------------------- main loop
     def step(self) -> bool:
-        """Run one scheduling iteration.  Returns False when idle."""
-        t0 = time.perf_counter()
-        self._wait_s = 0.0
-        did_work = self._step_inner()
-        if did_work:
-            self._host_s += time.perf_counter() - t0 - self._wait_s
-            self._turns += 1
-        return did_work
+        """Run one scheduling iteration.  Returns False when idle.
+
+        The body is wrapped in the step timeline: ``begin()`` opens the
+        step, the scheduler and every dispatch ``mark()`` their phase
+        boundaries, ``end()`` attributes the residue — so per-phase wall
+        time sums to step wall time by construction."""
+        self._maybe_profile_start()
+        self.timeline.begin()
+        try:
+            return self._step_inner()
+        finally:
+            self.timeline.end(trace=self._active_trace())
+            self._maybe_profile_stop()
+
+    def _active_trace(self):
+        """(trace_id, span_id) of any traced request currently in a slot —
+        parents the per-step ``engine.step`` span under a live request
+        trace.  None when tracing is off or no slotted request carries a
+        trace."""
+        from dynamo_tpu_torch.obs import tracing
+
+        if not tracing.enabled():
+            return None
+        for req in self.slots:
+            trace = getattr(req, "trace", None)
+            if trace:
+                return trace
+        return None
+
+    def _maybe_profile_start(self) -> None:
+        cfg = self.config
+        if not cfg.profile_dir or self._profile_done or self._profiler is not None:
+            return
+        from torch.profiler import ProfilerActivity, profile
+
+        path = os.path.join(cfg.profile_dir, f"steps-{self.steps:06d}")
+        os.makedirs(path, exist_ok=True)
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        self._profiler = profile(activities=acts)
+        self._profiler.start()
+        self._profile_path = path
+        self._profile_from_step = self.steps
+
+    def _maybe_profile_stop(self, force: bool = False) -> None:
+        if self._profiler is None:
+            return
+        if force or self.steps - self._profile_from_step >= max(1, self.config.profile_steps):
+            prof, self._profiler = self._profiler, None
+            self._profile_done = True
+            prof.stop()
+            prof.export_chrome_trace(os.path.join(self._profile_path, "trace.json"))
+            log.info("profile of steps %d-%d written to %s", self._profile_from_step,
+                     self.steps - 1, self._profile_path)
+
+    def _shapes(self):
+        """The model's roofline shapes (``obs/perfmodel.py``), read once;
+        None for a model they cannot be read off (the offer then records
+        no prediction: monitoring never breaks a dispatch)."""
+        if self._perf_shapes is None:
+            try:
+                self._perf_shapes = model_shapes(
+                    self.model, self.kv_bytes_per_block() // self.config.block_size)
+            except Exception:
+                log.debug("no roofline shapes for %s", type(self.model).__name__,
+                          exc_info=True)
+                self._perf_shapes = False
+        return self._perf_shapes or None
+
+    @staticmethod
+    def _decode_work(seq_lens, k: int) -> dict:
+        """A ``k``-step decode of rows whose contexts (current token
+        included) are ``seq_lens``: each step's token sees its row's
+        context so far."""
+        n = len(seq_lens)
+        pairs = sum(k * int(c) + k * (k - 1) // 2 for c in seq_lens)
+        return dict(tokens=n * k, sampled=n * k, pairs=pairs, kv_tokens=pairs - n * k, steps=k)
 
     def _step_inner(self) -> bool:
+        tl = self.timeline
         self._drain_offload()  # evictions from the previous step's tail
+        tl.mark("kv_spill_restore")
         self._process_ops()
         self._process_aborts()
+        tl.mark("host_ops")
         self._admit()
+        tl.mark("admission")
         # slots not yet decoding (waiting on external KV, or mid-chunked-
         # prefill): honour aborts here — _append_token never runs for them
         for req in self.slots:
@@ -1093,17 +1181,26 @@ class EngineCore:
 
         # only the final chunk's sample is kept, so only it is masked
         extras = self._sampling_extras([req]) if final else {}
-        packed = unified_step(
-            self.model, self.cache, self._up(tokens), self._up(positions), self._up(bt),
-            self._up(np.asarray([end], np.int32)), self._up(slot_idx),
-            self._up(np.asarray([take - 1], np.int32)), self._gen,
-            self._up(np.asarray([req.sampling.temperature], np.float32)),
-            self._up(np.asarray([req.sampling.top_k], np.int32)),
-            self._up(np.asarray([req.sampling.top_p], np.float32)),
-            prefix_blocks=req.computed_tokens // bs, k_cand=self._k_cand([req]), **extras,
-        )
+        k_cand = self._k_cand([req])
+        tl = self.timeline
+        tl.mark("host_build")
+        up = self._up
+        args = (up(tokens), up(positions), up(bt), up(np.asarray([end], np.int32)),
+                up(slot_idx), up(np.asarray([take - 1], np.int32)))
+        samp = (up(np.asarray([req.sampling.temperature], np.float32)),
+                up(np.asarray([req.sampling.top_k], np.int32)),
+                up(np.asarray([req.sampling.top_p], np.float32)))
+        tl.mark("upload")
+        if self.perf_model.wants("step"):
+            begin = req.computed_tokens
+            self.perf_model.offer("step", self._shapes(), tokens=take, sampled=1,
+                                  pairs=visible_pairs([begin], [end]), kv_tokens=begin)
+        packed = unified_step(self.model, self.cache, *args, self._gen, *samp,
+                              prefix_blocks=req.computed_tokens // bs, k_cand=k_cand, **extras)
+        tl.mark("dispatch", kind="step")
         self.steps += 1
         sampled, lps, cids, clps = _unpack(self._read(packed))
+        tl.mark("readback")
         self.prefill_steps += 1
         self.prefill_counters.record(rows=1, tokens=take)
         self.prompt_tokens_computed += take
@@ -1205,17 +1302,30 @@ class EngineCore:
         finals = [(r, req) for r, (req, _, _, fin) in enumerate(plan) if fin]
         final_reqs = [req for _, req in finals]
         extras = self._sampling_extras(final_reqs, rows=[r for r, _ in finals], b=r_pad)
+        k_cand = self._k_cand(final_reqs)
+        tl = self.timeline
+        tl.mark("host_build")
         up = self._up
-        packed = ragged_prefill_step(
-            self.model, self.cache, up(tokens), up(positions), up(bt), up(seq_lens),
-            up(slot_idx), up(seq_ids), up(starts), up(roff), up(last_idx), self._gen,
-            up(temp), up(top_k), up(top_p), prefix_blocks=self._prefix_bucket(max_pb),
-            k_cand=self._k_cand(final_reqs), **extras,
-        )
+        args = (up(tokens), up(positions), up(bt), up(seq_lens), up(slot_idx), up(seq_ids),
+                up(starts), up(roff), up(last_idx))
+        samp = (up(temp), up(top_k), up(top_p))
+        tl.mark("upload")
+        if self.perf_model.wants("prefill_ragged"):
+            begins = [begin for _, begin, _, _ in plan]
+            self.perf_model.offer(
+                "prefill_ragged", self._shapes(), tokens=sum(t for _, _, t, _ in plan),
+                sampled=len(plan), kv_tokens=sum(begins),
+                pairs=visible_pairs(begins, [b + t for _, b, t, _ in plan]))
+        packed = ragged_prefill_step(self.model, self.cache, *args, self._gen, *samp,
+                                     prefix_blocks=self._prefix_bucket(max_pb), k_cand=k_cand,
+                                     **extras)
+        tl.mark("dispatch", kind="prefill_ragged")
         self.steps += 1
         if self._lookahead_enabled():
             self._overlap(self._drain_waiting)  # absorb arrivals under compute
+            tl.mark("overlap")
         sampled, lps, cids, clps = _unpack(self._read(packed))
+        tl.mark("readback")
         take_sum = sum(take for _, _, take, _ in plan)
         self.prefill_steps += 1
         self.prompt_tokens_computed += take_sum
@@ -1321,21 +1431,42 @@ class EngineCore:
         extras = self._sampling_extras(samp_reqs, rows=[r for r, _ in samp], b=r_pad)
         burst = lookahead and k_steps >= 2
         pen = self._unified_penalties(samp, r_pad, horizon=k_steps if burst else 1)
+        kw = dict(row_tokens=d_region, prefix_blocks=self._prefix_bucket(max_pb),
+                  k_cand=self._k_cand(samp_reqs), **extras)
         # growth allocations above may have evicted registered blocks that
         # this very dispatch writes into — offload them first
+        tl = self.timeline
+        tl.mark("host_build")
         self._drain_offload()
+        tl.mark("kv_spill_restore")
         up = self._up
         args = (self.model, self.cache, up(tokens), up(positions), up(bt), up(seq_lens),
                 up(slot_idx), up(seq_ids), up(starts), up(roff), up(last_idx))
         sampling = (self._gen, up(temp), up(top_k), up(top_p))
         pen = None if pen is None else tuple(up(a) for a in pen)
-        kw = dict(row_tokens=d_region, prefix_blocks=self._prefix_bucket(max_pb),
-                  k_cand=self._k_cand(samp_reqs), **extras)
+        kind = "unified_burst" if burst else "unified"
         if burst:
-            packed = unified_burst_step(*args, up(limits), *sampling, pen, num_steps=k_steps,
+            args += (up(limits),)
+        tl.mark("upload")
+        if self.perf_model.wants(kind):
+            dec_lens = [int(seq_lens[r]) for r in range(n_dec)]
+            later = self._decode_work([c + 1 for c in dec_lens], k_steps - 1) if burst else dict(
+                tokens=0, sampled=0, pairs=0, kv_tokens=0)
+            begins = [rq_begin for _, rq_begin, _, _ in sel]
+            fresh = sum(t for _, _, t, _ in sel)
+            self.perf_model.offer(
+                kind, self._shapes(), steps=k_steps,
+                tokens=n_dec + fresh + later["tokens"],
+                sampled=len(samp) + later["sampled"],
+                pairs=sum(dec_lens) + visible_pairs(begins, [b + t for _, b, t, _ in sel])
+                + later["pairs"],
+                kv_tokens=sum(dec_lens) - n_dec + sum(begins) + later["kv_tokens"])
+        if burst:
+            packed = unified_burst_step(*args, *sampling, pen, num_steps=k_steps,
                                         block_size=bs, **kw)
         else:
             packed = unified_token_step(*args, *sampling, pen, **kw)
+        tl.mark("dispatch", kind=kind)
         self.steps += 1
         if lookahead:
             # overlap window: the dispatch above is enqueued — drain arrivals
@@ -1345,7 +1476,9 @@ class EngineCore:
                 self._drain_waiting()
                 self._spec_next = self._prebuild_next(ready, sel, dec, d_region, budget)
             self._overlap(window)
+            tl.mark("overlap")
         res = self._read(packed)
+        tl.mark("readback")
         if not burst:
             res = res[None]
         sampled, lps, cids, clps = _unpack(res)  # [K, R], [K, R], [K, R, C], [K, R, C]
@@ -1655,15 +1788,29 @@ class EngineCore:
         # slice the block table to the batch's live context, pow2-bucketed
         blocks_used = max(1, -(-int(seq_lens.max()) // cfg.block_size))
         m_used = min(m, 1 << (blocks_used - 1).bit_length())
+        tl = self.timeline
+        tl.mark("host_build")
         self._drain_offload()
+        tl.mark("kv_spill_restore")
         up = self._up
         extras = self._sampling_extras(rows, rows=[r.slot for r in rows])
+        k_cand = self._k_cand(rows)
+        tl.mark("host_build")
+        args = (up(tokens), up(positions), up(bt[:, :m_used]), up(seq_lens), up(slot_idx))
+        samp = (up(temp), up(top_k), up(top_p))
+        tl.mark("upload")
+        if self.perf_model.wants("spec_verify"):
+            ps = [r.seq.total_tokens - 1 for r in rows]
+            ns = [1 + len(props.get(r.slot, [])) for r in rows]
+            self.perf_model.offer("spec_verify", self._shapes(), tokens=sum(ns), sampled=sum(ns),
+                                  pairs=visible_pairs(ps, [p + n for p, n in zip(ps, ns)]),
+                                  kv_tokens=sum(ps))
         packed = spec_verify_step(
-            self.model, self.cache, up(tokens), up(positions), up(bt[:, :m_used]), up(seq_lens),
-            up(slot_idx), self._gen, up(temp), up(top_k), up(top_p), min_p=extras.get("min_p"),
-            seeds=extras.get("seeds"), seed_rows=extras.get("seed_rows"),
-            k_cand=self._k_cand(rows))
+            self.model, self.cache, *args, self._gen, *samp, min_p=extras.get("min_p"),
+            seeds=extras.get("seeds"), seed_rows=extras.get("seed_rows"), k_cand=k_cand)
+        tl.mark("dispatch", kind="spec_verify")
         verified = self._read(packed)
+        tl.mark("readback")
         self.steps += 1
         self.decode_steps += 1
         self.spec_steps += 1
@@ -1742,21 +1889,33 @@ class EngineCore:
             return
         # growth allocations above may have evicted registered blocks that
         # this very dispatch writes into — offload them first
+        tl = self.timeline
+        tl.mark("host_build")
         self._drain_offload()
+        tl.mark("kv_spill_restore")
         pen = self._penalty_buffers(active, k_steps)
-        packed = multi_decode_step(
-            self.model, self.cache, self._up(tokens), self._up(positions), self._up(bt),
-            self._up(seq_lens), self._up(limits), self._gen, self._up(temp),
-            self._up(top_k), self._up(top_p),
-            pen=None if pen is None else tuple(self._up(a) for a in pen),
-            num_steps=k_steps, block_size=cfg.block_size, k_cand=self._k_cand(active),
-            **self._sampling_extras(active, rows=[r.slot for r in active]),
-        )
+        k_cand = self._k_cand(active)
+        extras = self._sampling_extras(active, rows=[r.slot for r in active])
+        tl.mark("host_build")
+        up = self._up
+        args = (up(tokens), up(positions), up(bt), up(seq_lens), up(limits))
+        samp = (up(temp), up(top_k), up(top_p))
+        pen = None if pen is None else tuple(up(a) for a in pen)
+        tl.mark("upload")
+        if self.perf_model.wants("decode_multi"):
+            self.perf_model.offer("decode_multi", self._shapes(), **self._decode_work(
+                [int(seq_lens[r.slot]) for r in active], k_steps))
+        packed = multi_decode_step(self.model, self.cache, *args, self._gen, *samp, pen=pen,
+                                   num_steps=k_steps, block_size=cfg.block_size, k_cand=k_cand,
+                                   **extras)
+        tl.mark("dispatch", kind="decode_multi")
         self.steps += 1
         if self._lookahead_enabled():
             # overlap window: absorb arrivals while the device runs the burst
             self._overlap(self._drain_waiting)
+            tl.mark("overlap")
         sampled, lps, cids, clps = _unpack(self._read(packed))  # [K, B], ..., [K, B, C]
+        tl.mark("readback")
         self.decode_steps += sampled.shape[0]
         for req in active:
             slot = req.slot
@@ -2220,6 +2379,9 @@ class EngineCore:
         """Stop the kv-offload thread (idempotent).  Without this an
         abandoned engine's daemon thread would pin the whole instance —
         model, cache, host pool — for the process's lifetime."""
+        # a profile window still open (fewer dispatches than profile_steps)
+        # is closed and written
+        self._maybe_profile_stop(force=True)
         t = getattr(self, "_offload_thread", None)
         if t is not None and t.is_alive():
             # flag first (under the lock _drain_offload enqueues under):

@@ -5,8 +5,11 @@ port feeds: request counters by model/endpoint/status, the inflight gauge
 with its guard, output tokens, the TTFT, inter-token, queue-wait and
 request-duration histograms, the served engine's prefill,
 unified-dispatch and lookahead counters (``engine/counters.py``), the
-persistent KV tier's and the streamed KV handoff's counters and the measured KV-transfer edges
-(``obs/costs.py``, rendered once an edge has a sample).  Every
+persistent KV tier's and the streamed KV handoff's counters, the served
+engine's step timeline (``obs/timeline.py``), the measured KV-transfer
+edges (``obs/costs.py``, rendered once an edge has a sample) and the
+served engine's predicted-vs-measured dispatch rows (``obs/perfmodel.py``,
+rendered once a kind has been dispatched).  Every
 name comes from ``obs/metric_names.py`` and every line is rendered as the
 JAX package renders it.  No prometheus client dependency — the text format
 is trivial to emit.
@@ -26,6 +29,8 @@ from dynamo_tpu_torch.obs.metric_names import EngineMetric as EM
 from dynamo_tpu_torch.obs.metric_names import HttpMetric as HM
 from dynamo_tpu_torch.obs.metric_names import KvStreamMetric as STM
 from dynamo_tpu_torch.obs.metric_names import KvTransferMetric as KM
+from dynamo_tpu_torch.obs.metric_names import PerfMetric as PM
+from dynamo_tpu_torch.obs.timeline import PHASES, StepTimeline
 
 __all__ = ["Histogram", "Metrics", "InflightGuard"]
 
@@ -154,6 +159,27 @@ class Metrics:
                 (STM.OVERLAP_RATIO, "gauge", round(kv_stream_counters.overlap_ratio, 6))):
             lines.append(f"# TYPE {name} {typ}")
             lines.append(f"{name} {val}")
+        # the served engine's step timeline: per-phase wall attribution plus
+        # the host gap a dispatching step spends outside dispatch, overlap
+        # and readback
+        tl = (self.core.timeline if self.core is not None else StepTimeline()).snapshot()
+        lines.append(f"# TYPE {EM.STEPS_TOTAL} counter")
+        lines.append(f"{EM.STEPS_TOTAL} {tl['steps_total']}")
+        lines.append(f"# TYPE {EM.BUSY_STEPS_TOTAL} counter")
+        lines.append(f"{EM.BUSY_STEPS_TOTAL} {tl['busy_steps_total']}")
+        lines.append(f"# TYPE {EM.STEP_WALL_SECONDS_TOTAL} counter")
+        lines.append(f"{EM.STEP_WALL_SECONDS_TOTAL} {round(tl['wall_seconds_total'], 6)}")
+        lines.append(f"# TYPE {EM.STEP_PHASE_SECONDS_TOTAL} counter")
+        for ph in PHASES:
+            lines.append(f'{EM.STEP_PHASE_SECONDS_TOTAL}{{phase="{ph}"}} '
+                         f"{round(tl['phases'][ph], 6)}")
+        lines.append(f"# TYPE {EM.HOST_GAP_MS_PER_TURN} gauge")
+        lines.append(f"{EM.HOST_GAP_MS_PER_TURN} {round(tl['host_gap_ms_per_turn'], 6)}")
+        # smoothed per-step companions to the lifetime means above
+        lines.append(f"# TYPE {EM.STEP_WALL_MS_EWMA} gauge")
+        lines.append(f"{EM.STEP_WALL_MS_EWMA} {round(tl['ewma_wall_ms'], 6)}")
+        lines.append(f"# TYPE {EM.HOST_GAP_MS_EWMA} gauge")
+        lines.append(f"{EM.HOST_GAP_MS_EWMA} {round(tl['ewma_host_gap_ms'], 6)}")
         # measured KV-transfer costs per (src, dst, path) edge
         costs = transfer_costs.snapshot()
         if costs:
@@ -167,6 +193,20 @@ class Metrics:
                            KM.MBPS: round(e["ewma_mbps"], 6),
                            KM.LATENCY_MS: round(e["ewma_latency_s"] * 1e3, 6)}[name]
                     lines.append(f'{name}{{src="{src}",dst="{dst}",path="{path}"}} {val}')
+        # the served engine's roofline against its measured dispatch phase,
+        # per dispatch kind
+        recon = (self.core.perf_model.reconcile(self.core.timeline)
+                 if self.core is not None else [])
+        for name, field, typ in ((PM.PREDICTED_DISPATCH_MS, "predicted_ms", "gauge"),
+                                 (PM.MEASURED_DISPATCH_MS, "measured_ms", "gauge"),
+                                 (PM.DISPATCHES_TOTAL, "dispatches", "counter"),
+                                 (PM.MODEL_ERROR_RATIO, "error_ratio", "gauge")):
+            rendered = [r for r in recon if r.get(field) is not None]
+            if not rendered:
+                continue
+            lines.append(f"# TYPE {name} {typ}")
+            for r in rendered:
+                lines.append(f'{name}{{kind="{r["kind"]}"}} {r[field]}')
         return "\n".join(lines) + "\n"
 
 

@@ -7,13 +7,16 @@ bodies and SSE framing:
   POST /v1/completions        — streaming (SSE) and unary, n > 1, logprobs
   GET  /v1/models
   GET  /metrics               — Prometheus text format
+  GET  /debug/traces/{request_id} — one request's Chrome trace-event JSON
   GET  /health, /live, /ready
 
 A caller's ``x-request-id`` becomes the engine-side request id and is
-echoed on the response.  Models are served through a ModelManager registry.
-Client disconnects kill the request context so engines stop generating.
-Tracing spans and ``/debug/traces``, admission control, session affinity
-and mid-stream migration are not ported yet.
+echoed on the response.  Every request opens an ``http.request`` root
+span (``obs/tracing.py``; a no-op unless tracing is on), findable under
+the response id and the caller's id.  Models are served through a
+ModelManager registry.  Client disconnects kill the request context so
+engines stop generating.  Admission control, session affinity and
+mid-stream migration are not ported yet.
 """
 
 from __future__ import annotations
@@ -45,6 +48,8 @@ from dynamo_tpu_torch.llm.openai import (
 )
 from dynamo_tpu_torch.llm.protocols import FinishReason, LLMEngineOutput
 from dynamo_tpu_torch.llm.tool_calls import ToolCallParser
+from dynamo_tpu_torch.obs import tracing
+from dynamo_tpu_torch.obs.export import trace_for_request
 from dynamo_tpu_torch.runtime.engine import AsyncEngine, Context
 
 log = logging.getLogger("dynamo_tpu_torch.http")
@@ -81,6 +86,9 @@ class ModelManager:
             raise OpenAIError(f"model '{name}' not found", status=404, err_type="model_not_found")
         return entry
 
+    def remove_model(self, name: str) -> None:
+        self._models.pop(name, None)
+
     def list_models(self) -> list[str]:
         return sorted(self._models)
 
@@ -100,6 +108,7 @@ class HttpService:
         self.app.router.add_post("/v1/completions", self._completions)
         self.app.router.add_get("/v1/models", self._models)
         self.app.router.add_get("/metrics", self._metrics)
+        self.app.router.add_get("/debug/traces/{request_id}", self._debug_trace)
         for p in ("/health", "/live", "/ready"):
             self.app.router.add_get(p, self._health)
 
@@ -138,6 +147,19 @@ class HttpService:
     async def _metrics(self, request: web.Request) -> web.Response:
         return web.Response(text=self.metrics.render(), content_type="text/plain")
 
+    async def _debug_trace(self, request: web.Request) -> web.Response:
+        """Chrome trace-event JSON for one request id (the response id,
+        or the caller's ``x-request-id`` when it sent one).  Load the
+        body in chrome://tracing or ui.perfetto.dev."""
+        rid = request.match_info["request_id"]
+        doc = trace_for_request(rid)
+        if doc is None:
+            return web.json_response(
+                {"error": f"no trace recorded for {rid!r}"
+                          " (is DYNAMO_TRACE=1 set?)"},
+                status=404)
+        return web.json_response(doc)
+
     async def _chat(self, request: web.Request) -> web.StreamResponse:
         return await self._serve(request, chat=True)
 
@@ -156,11 +178,19 @@ class HttpService:
         # client-supplied correlation id: accepted, propagated as the
         # engine-side request id, and echoed back on every response
         xrid = request.headers.get("x-request-id") or ""
+        # tracing root: every downstream span (engine, coordinator hop,
+        # remote worker, KV transfer) parents under this one trace
+        span = tracing.start_span("http.request", attrs={"endpoint": endpoint, "request_id": xrid})
         try:
             parsed = parse_request(body, chat=chat)
             entry = self.manager.get(parsed.model)
             guard = self.metrics.guard(parsed.model, endpoint)
             rid = new_id("chatcmpl" if chat else "cmpl")
+            if tracing.enabled():
+                # findable under both the response id and the caller's id
+                tracing.collector.bind_request(rid, span.trace_id)
+                if xrid:
+                    tracing.collector.bind_request(xrid, span.trace_id)
             # n>1: independent generations of the same prompt; the engine's
             # reserved-block registry lets them share one prefill
             if parsed.n > 1 and parsed.sampling.seed is not None:
@@ -194,6 +224,7 @@ class HttpService:
         finally:
             if guard:
                 guard.close()
+            span.end()
 
     # ------------------------------------------------------------- responders
     def _chunk(

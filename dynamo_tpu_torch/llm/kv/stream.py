@@ -512,7 +512,7 @@ def choose_handoff_path(
     prefill's transfer: the persist index says the prefix is already
     resident, so restoring it costs a shared-store read instead).
     Costs come from the measured EWMA tables (``obs.costs.cost_s``),
-    falling back to the cold-edge priors (``obs.costs.PRIORS``).  The
+    falling back to the cold-edge priors (``obs.topology.prior_cost_s``).  The
     persist path only competes for the fraction of blocks it actually
     holds — a partial persist hit still pays the wire for the rest.
     """

@@ -57,6 +57,10 @@ class ModelDeploymentCard:
             "extra": self.extra,
         }
 
+    @classmethod
+    def from_dict(cls, d: dict) -> "ModelDeploymentCard":
+        return cls(**d)
+
     # -------------------------------------------------------------- loading
     @classmethod
     def from_hf_dir(cls, model_dir: str | Path, name: Optional[str] = None) -> "ModelDeploymentCard":

@@ -25,10 +25,10 @@ transfer-aware disagg routing needs (`overlap − kv_usage − slot_usage
 Process-global singleton, same idiom as ``engine/counters.py``: the
 kv layer records, the http layer renders, benchmarks read.
 
-A copy of the JAX package's ``obs/costs.py`` but for its cold-edge priors,
-which the JAX package draws from its TPU topology table: here they are
-:data:`PRIORS`, the H100's published HBM rate for the on-card copy and
-assumed link rates for the others.
+A copy of the JAX package's ``obs/costs.py``; its cold-edge priors come
+from the port's ``obs/topology.py`` (the H100's published HBM rate for the
+on-card copy, assumed link rates for the others), as the JAX package draws
+them from its own topology table.
 """
 
 from __future__ import annotations
@@ -37,28 +37,7 @@ import threading
 import time
 from typing import Callable
 
-__all__ = ["PRIORS", "TransferCostTable", "prior_cost_s", "transfer_costs"]
-
-# Cold-edge priors per path: (bytes/s, latency s).  "ici": an on-card copy
-# reads and writes each byte once, so half the H100's published 3.35 TB/s
-# of HBM; "dcn": an assumed 25 Gbps NIC; "persist": an assumed 1 GB/s
-# shared-store read.  None of these is a measurement: the first recorded
-# transfer on an edge replaces its prior.
-PRIORS = {
-    "ici": (3.35e12 / 2, 10e-6),
-    "dcn": (3.125e9, 50e-6),
-    "persist": (1e9, 1e-3),
-}
-# derate on the priors: real transfers pay serialization and host hops
-# that a link rate ignores, so a prior under-promises
-_PRIOR_EFFICIENCY = 0.6
-
-
-def prior_cost_s(path: str, nbytes: int) -> float:
-    """Heuristic seconds to move ``nbytes`` over a never-measured path:
-    latency floor + derated-rate term (unknown paths get the slowest)."""
-    bw, lat = PRIORS.get(path, PRIORS["persist"])
-    return lat + nbytes / (bw * _PRIOR_EFFICIENCY)
+__all__ = ["TransferCostTable", "transfer_costs"]
 
 
 class TransferCostTable:
@@ -106,8 +85,8 @@ class TransferCostTable:
         """Predicted seconds to move ``nbytes`` over an edge.
 
         Measured edges use the EWMA throughput.  Never-observed edges
-        fall back to the prior (derated link rate + latency,
-        :func:`prior_cost_s`) so transfer-aware
+        fall back to the topology prior (derated link rate + latency,
+        ``obs.topology.prior_cost_s``) so transfer-aware
         routing always has a finite cost instead of a cold-miss
         surprise; the first real transfer replaces the prior.  Use
         :meth:`measured` to distinguish the two.
@@ -115,12 +94,14 @@ class TransferCostTable:
         with self._lock:
             e = self.table.get((src, dst, path))
             if e is None or e["ewma_mbps"] <= 0:
+                from dynamo_tpu_torch.obs.topology import prior_cost_s
+
                 return prior_cost_s(path, nbytes)
             return nbytes / (e["ewma_mbps"] * 1e6)
 
     def measured(self, src: str, dst: str, path: str) -> bool:
         """True when the edge has at least one recorded transfer (so
-        ``cost_s`` is measurement, not the prior)."""
+        ``cost_s`` is measurement, not the topology prior)."""
         with self._lock:
             return (src, dst, path) in self.table
 

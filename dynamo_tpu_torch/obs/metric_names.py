@@ -3,13 +3,17 @@
 A subset of ``dynamo_tpu/obs/metric_names.py``, spelled exactly as there,
 so a dashboard or scraper reads either package's endpoint: the HTTP
 service plane, the engine's prefill-batching, unified-dispatch,
-lookahead and persistent-tier families, the measured KV-transfer edges and the streamed KV
-handoff.  Every name is a full literal, never composed.
+lookahead and persistent-tier families and its step timeline, the
+measured KV-transfer edges, the streamed KV handoff and the perf model's
+predicted-vs-measured rows (all but the JAX package's
+``dynamo_tpu_perf_predicted_step_ms``, which it reads from a committed
+perf manifest the port does not have).  Every name is a full literal,
+never composed.
 """
 
 from __future__ import annotations
 
-__all__ = ["HttpMetric", "EngineMetric", "KvTransferMetric", "KvStreamMetric"]
+__all__ = ["HttpMetric", "EngineMetric", "KvTransferMetric", "KvStreamMetric", "PerfMetric"]
 
 
 class HttpMetric:
@@ -25,8 +29,9 @@ class HttpMetric:
 
 
 class EngineMetric:
-    """Engine plane: prefill batching, unified dispatch, lookahead and the
-    persistent tier (``engine/counters.py``)."""
+    """Engine plane: prefill batching, unified dispatch, lookahead, the
+    persistent tier (``engine/counters.py``) and the step timeline
+    (``obs/timeline.py``)."""
 
     PREFILL_DISPATCHES_TOTAL = "dynamo_tpu_engine_prefill_dispatches_total"
     PREFILL_TOKENS_TOTAL = "dynamo_tpu_engine_prefill_tokens_total"
@@ -47,6 +52,13 @@ class EngineMetric:
     PERSIST_RESTORED_TOKENS_TOTAL = "dynamo_tpu_engine_persist_restored_tokens_total"
     PERSIST_SPILL_BYTES_TOTAL = "dynamo_tpu_engine_persist_spill_bytes_total"
     PERSIST_RESIDENT_BYTES = "dynamo_tpu_engine_persist_resident_bytes"
+    STEPS_TOTAL = "dynamo_tpu_engine_steps_total"
+    BUSY_STEPS_TOTAL = "dynamo_tpu_engine_busy_steps_total"
+    STEP_WALL_SECONDS_TOTAL = "dynamo_tpu_engine_step_wall_seconds_total"
+    STEP_PHASE_SECONDS_TOTAL = "dynamo_tpu_engine_step_phase_seconds_total"
+    HOST_GAP_MS_PER_TURN = "dynamo_tpu_engine_host_gap_ms_per_turn"
+    STEP_WALL_MS_EWMA = "dynamo_tpu_engine_step_wall_ms_ewma"
+    HOST_GAP_MS_EWMA = "dynamo_tpu_engine_host_gap_ms_ewma"
 
 
 class KvTransferMetric:
@@ -67,3 +79,12 @@ class KvStreamMetric:
     BYTES_TOTAL = "dynamo_tpu_kv_stream_bytes_total"
     FALLBACKS_TOTAL = "dynamo_tpu_kv_stream_fallbacks_total"
     OVERLAP_RATIO = "dynamo_tpu_kv_stream_overlap_ratio"
+
+
+class PerfMetric:
+    """Runtime predicted-vs-measured dispatch rows (``obs/perfmodel.py``)."""
+
+    PREDICTED_DISPATCH_MS = "dynamo_tpu_perf_predicted_dispatch_ms"
+    MEASURED_DISPATCH_MS = "dynamo_tpu_perf_measured_dispatch_ms"
+    DISPATCHES_TOTAL = "dynamo_tpu_perf_dispatches_total"
+    MODEL_ERROR_RATIO = "dynamo_tpu_perf_model_error_ratio"

@@ -18,19 +18,21 @@ __all__ = ["Context", "AsyncEngine"]
 
 
 class Context(Generic[T]):
-    """A request envelope: payload + id + cancellation.
+    """A request envelope: payload + id + hierarchical cancellation.
 
     ``stop_generating()`` asks the engine to finish gracefully;
-    ``kill()`` demands immediate abort.
+    ``kill()`` demands immediate abort.  Cancellation propagates to
+    children (created via :meth:`child`).
     """
 
-    __slots__ = ("data", "id", "_stop", "_kill", "annotations")
+    __slots__ = ("data", "id", "_stop", "_kill", "_children", "annotations")
 
     def __init__(self, data: T = None, id: Optional[str] = None):
         self.data = data
         self.id = id or uuid.uuid4().hex
         self._stop = asyncio.Event()
         self._kill = asyncio.Event()
+        self._children: list["Context"] = []
         # free-form per-request annotations
         self.annotations: dict[str, Any] = {}
 
@@ -41,15 +43,31 @@ class Context(Generic[T]):
         ctx.id = self.id
         ctx._stop = self._stop
         ctx._kill = self._kill
+        ctx._children = self._children
         ctx.annotations = self.annotations
+        return ctx
+
+    def child(self, data: U = None) -> "Context[U]":
+        """A child scope: killed/stopped when the parent is, but may be
+        cancelled independently without affecting the parent."""
+        ctx: Context[U] = Context(data, id=self.id)
+        self._children.append(ctx)
+        if self._stop.is_set():
+            ctx._stop.set()
+        if self._kill.is_set():
+            ctx._kill.set()
         return ctx
 
     def stop_generating(self) -> None:
         self._stop.set()
+        for c in self._children:
+            c.stop_generating()
 
     def kill(self) -> None:
         self._kill.set()
         self._stop.set()
+        for c in self._children:
+            c.kill()
 
     @property
     def is_stopped(self) -> bool:

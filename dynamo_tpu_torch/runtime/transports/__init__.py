@@ -8,4 +8,6 @@ other byte for byte.
   framing.py       two-part frames: JSON header + raw payload
   net.py           the connection factory (real sockets)
   protocol.py      the op literals both sides put on the wire
+  tcp.py           the request plane: an AsyncEngine served over one
+                   duplex socket per client, multiplexed by request id
 """

@@ -65,7 +65,7 @@ from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.models.convert import params_from_jax
 from dynamo_tpu_torch.models.llama import LlamaModel
 from dynamo_tpu_torch.obs.metric_names import (EngineMetric, HttpMetric, KvStreamMetric,
-                                                KvTransferMetric)
+                                                KvTransferMetric, PerfMetric)
 from dynamo_tpu_torch.runtime.engine import Context
 from tests.test_chat_templates import LLAMA3_TEMPLATE, MISTRAL_TEMPLATE
 
@@ -633,14 +633,22 @@ def test_http_metrics_match_jax(served):
     # the served engine prefilled every request: its counters, not zeros
     assert out[EngineMetric.PREFILL_DISPATCHES_TOTAL] > 0
     assert out[EngineMetric.PREFILL_TOKENS_TOTAL] > 0
+    # and its step timeline: every busy step dispatched a kind the perf
+    # family counts (a step still open when /metrics read has its dispatch
+    # counted and is not yet a busy step)
+    busy = out[EngineMetric.BUSY_STEPS_TOTAL]
+    assert 0 < busy <= out[EngineMetric.STEPS_TOTAL]
+    dispatches = sum(v for k, v in out.items() if k.startswith(PerfMetric.DISPATCHES_TOTAL))
+    assert busy <= dispatches <= busy + 1
     families = {l.split()[2] for l in out_text.splitlines() if l.startswith("# TYPE")}
 
     def names(cls):
         return {v for k, v in vars(cls).items() if k.isupper()}
 
-    # the transfer-cost families render once an edge has a sample
+    # the transfer-cost families render once an edge has a sample, the perf
+    # family once a kind has been dispatched
     assert families - names(KvTransferMetric) == (
-        names(HttpMetric) | names(EngineMetric) | names(KvStreamMetric))
+        names(HttpMetric) | names(EngineMetric) | names(KvStreamMetric) | names(PerfMetric))
 
 
 def test_metrics_latency_histograms():

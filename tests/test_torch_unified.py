@@ -40,8 +40,9 @@ CONFIGS = {
     "lookahead": dict(prefill_chunk_tokens=16, prefill_token_budget=64,
                       lookahead_dispatch=True, decode_steps=8),
 }
-# every counter metrics() reports, both engines; host_gap_ms_per_turn is a
-# wall-clock reading and measures a different span in each engine
+# every counter metrics() reports, both engines; host_gap_ms_per_turn, the
+# step timeline's wall - dispatch - overlap - readback per busy step, is the
+# same span in both engines but a wall-clock reading
 COUNTERS = ("prefill_dispatches_total", "prefill_batch_occupancy", "prefill_budget_utilization",
             "unified_dispatches_total", "unified_decode_rows", "unified_prefill_tokens",
             "unified_budget_utilization", "lookahead_bursts_total", "lookahead_hits_total",
