@@ -99,12 +99,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (``max_local_prefill_length=0``) and a prefill engine behind a
    ``PrefillWorker``, both on the default path and sharing the model.  On
    bf16: the colocated path (blocks copied on the card), the six prompts
-   one at a time (a1) and concurrently (a); (b) over TCP
-   (``DYN_KV_TRANSFER_FORCE_TCP=1``), concurrently; (c) the streamed
-   layer-wise handoff over TCP (a prefill engine in 256-token chunks); (e)
-   two requests one at a time through the port's ``HttpService`` over
-   ``build_serving_pipeline(decode_worker, card)``; on int8 (weights and
-   cache, Bs = 32): over TCP, one at a time (d1) and concurrently (d).
+   one at a time (a1) and concurrently (a); (c) the streamed layer-wise
+   handoff over TCP (``DYN_KV_TRANSFER_FORCE_TCP=1``, a prefill engine in
+   256-token chunks); on int8 (weights and cache, Bs = 32): over TCP, one
+   at a time (d1) and concurrently (d).  The blocking bf16 handoff over TCP
+   and HTTP through a decode worker are the front-door phase's ``graphs``
+   run, where the prefill worker is a process of its own.
    Each run on a fresh engine pair: its blocks moved only on its path
    (``transfer.stats``), (c) sent
    layers without a fallback, (d)'s parts int8 + float32, the decode
@@ -184,7 +184,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
    over HTTP must equal the fresh engine's greedy texts, the worker must
    have loaded on CUDA, and every process exits 0 on SIGTERM (one
    ``{"dyn": ...}`` line: remote seconds to the first text beside the
-   in-process server's);
+   in-process server's).  Then the ``graphs`` phase: the port's
+   ``examples/llm/configs/disagg.yaml`` on the checkpoint (int8 weights, a
+   cache in the model's dtype) with a local-prefill threshold that sends
+   some prompts to the prefill worker and keeps the rest, served by
+   ``DYNTPU_GPUS=0,0 python3 -m dynamo_tpu_torch serve
+   dynamo_tpu_torch.examples.llm.graphs.disagg:Frontend`` against a
+   coordinator in this process: four processes (Frontend, Processor, a
+   GpuWorker with remote prefill, a PrefillWorker), the two workers sharing
+   the card.  A warm-up pass of other words, the front-door requests and
+   six token-id prompts one at a time, then six others concurrently; the
+   one-at-a-time texts must equal an in-process engine's, built by the
+   worker's own ``build_engine`` from the same block and decoded as the
+   Processor decodes each delta, whose launches must be B1, B2 and B5 and
+   no other kernel, and the concurrent answers that engine's one at a time
+   but at a near tie; each worker process's ``status`` (read through a
+   ``ServiceClient``) must count its own launches over those requests, B1,
+   B2 and B5 in the GpuWorker, B2 and B5 in the PrefillWorker and no other
+   kernel, and the PrefillWorker's must count the prompts above the
+   threshold; both workers' logs must name a CUDA device; and on SIGTERM
+   every process drains and exits 0 (one ``{"graphs": ...}`` line, logged
+   at the end: boot seconds, remote and local seconds to the first text,
+   one at a time and concurrent, the remote prefills, each worker's
+   launches, exit codes);
 7. mixture of experts, serving: Qwen3-30B-A3B at full width, cut to 16 of
    its 48 layers (128 experts, random weights from a seeded generator) behind
    ``AsyncLLMEngine``, the six requests on bf16 weights and the default
@@ -226,9 +248,11 @@ one ``{"grammar": {...}}`` line (the grammar ops' and the seeded noise's
 times, launches and bounds, the table sizes, the constrained serving
 readings beside the unconstrained ones).  At the end one ``{"mla": [...]}``
 line, the ``{"disagg": ...}`` line, the ``{"tier": ...}`` and
-``{"router": ...}`` lines, one ``{"kernels": [...]}`` line (each kernel's
-row also holds its launches over the disaggregated runs under
-``launches_disagg`` and over the KV-tier runs under ``launches_tier``; the grouped
+``{"router": ...}`` and ``{"graphs": ...}`` lines, one ``{"kernels":
+[...]}`` line (each kernel's row also holds its launches over the
+disaggregated runs under ``launches_disagg``, over the KV-tier runs under
+``launches_tier`` and in the ``graphs`` phase's two worker processes
+under ``launches_graphs``; the grouped
 kernels' rows hold their T = 8 reading and, under ``t1504``, their T =
 1,504 one; E1's also its DeepSeek-V2-Lite readings and launches), and as
 the last line ``{"ok": true, "device": {...}}``.  Every line it logs is
@@ -1635,17 +1659,9 @@ async def _serve(engine, reqs, sampling=None, max_tokens: int = MAX_TOKENS, tag:
 
 
 def _kernel_wrappers() -> dict:
-    from dynamo_tpu_torch.ops.kernels import decode_attention as dec
-    from dynamo_tpu_torch.ops.kernels import grouped_matmul as gmm
-    from dynamo_tpu_torch.ops.kernels import int8_matmul as mm
-    from dynamo_tpu_torch.ops.kernels import prefill_attention as pre
-    from dynamo_tpu_torch.ops.kernels import ragged_prefill_attention as rag
+    from dynamo_tpu_torch.ops.kernels import wrappers
 
-    return {"decode": dec.paged_decode_attention, "prefill": pre.paged_prefill_attention,
-            "ragged": rag.ragged_paged_prefill_attention,
-            "decode_q8": dec.paged_decode_attention_q8, "prefill_q8": pre.paged_prefill_attention_q8,
-            "ragged_q8": rag.ragged_paged_prefill_attention_q8, "matmul": mm.int8_matmul,
-            "moe": gmm.grouped_matmul, "moe_q8": gmm.grouped_matmul_q8}
+    return wrappers()
 
 
 def _timeline_state(core) -> dict:
@@ -2110,13 +2126,14 @@ def _rescore(torch, model, seq, bs, cache_dtype):
 
 
 def spec_near_ties(torch, model, base: dict, run: dict, card: str, bs=BS, cache_dtype=None,
-                   prompts=None, sampling=None) -> int:
-    """Hold ``run``'s streams to ``base``'s (speculation off): where a row
-    parts, re-score the common prefix on the card and require the two
-    tokens' logits (a seeded row: its noisy scores) within SPEC_TIE_EPS x
-    PARITY_MAX_REL x max|logit| (/ T).  Returns the rows that parted.  The
-    rows are the spec phase's unless ``prompts`` and ``sampling`` (each
-    row's SamplingOptions fields) are given."""
+                   prompts=None, sampling=None, against: str = "off") -> int:
+    """Hold ``run``'s streams to ``base``'s (speculation off, unless
+    ``against`` names another base): where a row parts, re-score the common
+    prefix on the card and require the two tokens' logits (a seeded row:
+    its noisy scores) within SPEC_TIE_EPS x PARITY_MAX_REL x max|logit|
+    (/ T).  Returns the rows that parted.  The rows are the spec phase's
+    unless ``prompts`` and ``sampling`` (each row's SamplingOptions fields)
+    are given."""
     from dynamo_tpu_torch.engine.sampling import K_MAX, seeded_gumbel
 
     prompts = spec_prompts() if prompts is None else prompts
@@ -2149,13 +2166,13 @@ def spec_near_ties(torch, model, base: dict, run: dict, card: str, bs=BS, cache_
             before = (torch.cumsum(probs, -1) - probs).tolist()
             edge = (f", mass ranked above them {', '.join(f'{before[r]:.4f}' if r < K_MAX else '-' for r in ranks)} "
                     f"(top_p {samp['top_p']})")
-        log(f"spec {run['label']} vs off: request {i} parts at token {j} ({a[j]} vs {b[j]}, logit "
+        log(f"spec {run['label']} vs {against}: request {i} parts at token {j} ({a[j]} vs {b[j]}, logit "
             f"ranks {ranks[0]} and {ranks[1]}{edge}), re-scored {what} {gap:.4g} (tol {tol:.4g}; "
             f"top-2 margin there {float(top[0] - top[1]):.4g}) ({card})")
         check(gap <= tol, f"spec {run['label']}: request {i} parts at token {j} by a {what} of "
               f"{gap} > {tol}: not a near-tie")
     log(f"spec {run['label']}: {len(base['streams']) - parted} of {len(base['streams'])} streams "
-        f"equal speculation off's ({card})")
+        f"equal {'speculation off' if against == 'off' else against}'s ({card})")
     return parted
 
 
@@ -2860,13 +2877,57 @@ def _answer_text(answer) -> str:
 
 
 @contextlib.contextmanager
+def served_process(name: str, args, log_path: Path, env=None, grace_s: float = 90):
+    """``python3 -m dynamo_tpu_torch ARGS`` as a user starts it, in a
+    process group of its own, its output in ``log_path``.  Yields a
+    namespace: ``proc``, ``tail()`` (the log's end) and ``alive(what, t0,
+    limit)``, which fails the phase with the log when the process has
+    exited or ``limit`` seconds have passed since ``t0``.  On leaving:
+    SIGTERM to the process alone (a supervisor stops its own workers),
+    ``grace_s`` to exit, then SIGKILL to whatever is left of its group; it
+    must have exited 0 with nothing left."""
+    import os
+    import signal
+    from types import SimpleNamespace
+
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-m", "dynamo_tpu_torch", *args], cwd=str(ROOT),
+                                env=env, stdout=f, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+
+    def tail() -> str:
+        return log_path.read_text()[-3000:]
+
+    def alive(what: str, t0: float, limit: float = 300.0) -> None:
+        check(proc.poll() is None and time.perf_counter() - t0 < limit, f"{name}: {what}: " + tail())
+
+    try:
+        yield SimpleNamespace(proc=proc, tail=tail, alive=alive)
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=grace_s)
+        except subprocess.TimeoutExpired:
+            rc = None
+        try:  # whatever is left of the process group (nothing, on the normal path)
+            os.killpg(proc.pid, signal.SIGKILL)
+            leftover = True
+        except ProcessLookupError:
+            leftover = False
+        if rc is None:
+            rc = proc.wait()
+    check(rc == 0 and not leftover,
+          f"{name} exited {rc} on SIGTERM, processes left: {leftover}: " + tail())
+
+
+@contextlib.contextmanager
 def cli_server(model_dir: Path, flags=()):
     """``python3 -m dynamo_tpu_torch run in=http out=gpu`` on ``model_dir``
     (with ``flags``) as a subprocess, as a user starts it; yields (its base
     URL, a coroutine function waiting for /health that returns the seconds
     it took), then stops it with SIGTERM, which must exit 0.  Its log is
     ``_frontdoor/cli.log`` while it runs."""
-    import signal
     import socket
 
     import aiohttp
@@ -2874,38 +2935,25 @@ def cli_server(model_dir: Path, flags=()):
     with socket.socket() as sk:
         sk.bind(("127.0.0.1", 0))
         port = sk.getsockname()[1]
-    log_path = FRONT_DIR / "cli.log"
     t0 = time.perf_counter()
-    with open(log_path, "w") as err:
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "dynamo_tpu_torch", "run", "in=http", "out=gpu",
-             "--model-path", str(model_dir), "--model-name", FRONT_MODEL, "--http-port",
-             str(port), *flags], cwd=str(ROOT), stdout=err, stderr=subprocess.STDOUT)
     base = f"http://127.0.0.1:{port}"
+    with served_process("the CLI server", [
+            "run", "in=http", "out=gpu", "--model-path", str(model_dir), "--model-name",
+            FRONT_MODEL, "--http-port", str(port), *flags], FRONT_DIR / "cli.log",
+            grace_s=60) as server:
+        async def ready(s) -> float:
+            while True:
+                try:
+                    async with s.get(f"{base}/health") as r:
+                        health = await r.json()
+                    break
+                except aiohttp.ClientConnectionError:
+                    server.alive("did not come up", t0)
+                    await asyncio.sleep(0.25)
+            check(health["models"] == [FRONT_MODEL], f"CLI /health: {health}")
+            return time.perf_counter() - t0
 
-    async def ready(s) -> float:
-        while True:
-            try:
-                async with s.get(f"{base}/health") as r:
-                    health = await r.json()
-                break
-            except aiohttp.ClientConnectionError:
-                check(proc.poll() is None and time.perf_counter() - t0 < 300,
-                      "the CLI server did not come up: " + log_path.read_text()[-3000:])
-                await asyncio.sleep(0.25)
-        check(health["models"] == [FRONT_MODEL], f"CLI /health: {health}")
-        return time.perf_counter() - t0
-
-    try:
         yield base, ready
-    finally:
-        proc.send_signal(signal.SIGTERM)
-        try:
-            rc = proc.wait(timeout=60)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            rc = proc.wait()
-    check(rc == 0, f"the CLI server exited with {rc} on SIGTERM: {log_path.read_text()[-3000:]}")
 
 
 def cli_phase(card: str, flags: tuple = (), label: str = "Llama-3-8B-width") -> None:
@@ -3146,7 +3194,7 @@ def front_server(torch, flags: list[str], card: str, label: str, need: list[str]
     return texts, [a[2] for a in answers]
 
 
-def front_door_phase(torch, card: str) -> None:
+def front_door_phase(torch, card: str) -> dict:
     t0 = time.perf_counter()
     nbytes = write_checkpoint(torch, FRONT_DIR)
     log(f"front door: wrote a {FRONT_LAYERS}-layer Llama-3-8B-width checkpoint, "
@@ -3162,10 +3210,13 @@ def front_door_phase(torch, card: str) -> None:
     torch.cuda.empty_cache()
     dyn_phase(card, texts, local_ttfts)
     log(f"front door: profile and dyn:// phases {time.perf_counter() - t1:.1f} s ({card})")
+    graphs = graphs_phase(card)
+    torch.cuda.empty_cache()
     front_server(torch, FRONT_INT8_FLAGS, card, "int8 token-budget path",
                  ["decode_q8", "ragged_q8", "matmul"], ["decode", "prefill", "ragged", "moe", "moe_q8"])
     torch.cuda.empty_cache()
     log(f"front door: phase wall {time.perf_counter() - t0:.1f} s ({card})")
+    return graphs
 
 
 PROFILE_STEPS = 4
@@ -3301,7 +3352,6 @@ def dyn_phase(card: str, texts: list[str], local_ttfts: list[float]) -> None:
     worker is a fresh process whose first calls pay the library loads and
     first cuBLAS calls.  Logs one ``{"dyn": ...}`` line with the remote
     seconds to first text, both passes, beside the in-process server's."""
-    import signal
     import socket
     import statistics
 
@@ -3313,63 +3363,46 @@ def dyn_phase(card: str, texts: list[str], local_ttfts: list[float]) -> None:
     logs = {name: FRONT_DIR / f"{name}.log" for name in ("worker", "http")}
     procs = {}
     t0 = time.perf_counter()
-    with background_coordinator() as coord:
+    # the stack stops the http frontend, then the worker, then the coordinator
+    with background_coordinator() as coord, contextlib.ExitStack() as stack:
         def spawn(name, *args):
-            with open(logs[name], "w") as f:
-                procs[name] = subprocess.Popen(
-                    [sys.executable, "-m", "dynamo_tpu_torch", *args, "--coordinator", coord],
-                    cwd=str(ROOT), stdout=f, stderr=subprocess.STDOUT)
+            procs[name] = stack.enter_context(served_process(
+                f"dyn: the {name}", [*args, "--coordinator", coord], logs[name], grace_s=60))
 
-        try:
-            spawn("worker", "run", f"in={DYN_ENDPOINT}", "out=gpu", "--model-path",
-                  str(FRONT_DIR), "--model-name", FRONT_MODEL, *FRONT_FLAGS)
-            spawn("http", "http", "--http-port", str(http_port))
-            added = subprocess.run(
-                [sys.executable, "-m", "dynamo_tpu_torch", "models", "add", FRONT_MODEL,
-                 DYN_ENDPOINT, "--model-path", str(FRONT_DIR), "--coordinator", coord],
-                cwd=str(ROOT), capture_output=True, text=True, timeout=120)
-            check(added.returncode == 0, f"dyn: models add: {added.stdout} {added.stderr}")
-            while "serving front at" not in logs["worker"].read_text():
-                check(all(p.poll() is None for p in procs.values())
-                      and time.perf_counter() - t0 < 300,
-                      "dyn: the worker did not come up: " + logs["worker"].read_text()[-3000:])
-                time.sleep(0.25)
-            worker_up = time.perf_counter() - t0
-            base = f"http://127.0.0.1:{http_port}"
+        spawn("worker", "run", f"in={DYN_ENDPOINT}", "out=gpu", "--model-path",
+              str(FRONT_DIR), "--model-name", FRONT_MODEL, *FRONT_FLAGS)
+        spawn("http", "http", "--http-port", str(http_port))
+        added = subprocess.run(
+            [sys.executable, "-m", "dynamo_tpu_torch", "models", "add", FRONT_MODEL,
+             DYN_ENDPOINT, "--model-path", str(FRONT_DIR), "--coordinator", coord],
+            cwd=str(ROOT), capture_output=True, text=True, timeout=120)
+        check(added.returncode == 0, f"dyn: models add: {added.stdout} {added.stderr}")
+        while "serving front at" not in logs["worker"].read_text():
+            for p in procs.values():
+                p.alive("the worker did not come up", t0)
+            time.sleep(0.25)
+        worker_up = time.perf_counter() - t0
+        base = f"http://127.0.0.1:{http_port}"
 
-            async def go():
-                async with aiohttp.ClientSession() as s:
-                    while True:  # the frontend up, and the model discovered
-                        try:
-                            async with s.get(f"{base}/v1/models") as r:
-                                if [m["id"] for m in (await r.json())["data"]] == [FRONT_MODEL]:
-                                    break
-                        except aiohttp.ClientConnectionError:
-                            pass
-                        check(procs["http"].poll() is None and time.perf_counter() - t0 < 300,
-                              "dyn: no model at the frontend: " + logs["http"].read_text()[-3000:])
-                        await asyncio.sleep(0.25)
-                    warm = [await _timed_post(s, base + path, body)
-                            for path, body in _front_requests(shift=5000)]
-                    return warm, [await _timed_post(s, base + path, body)
-                                  for path, body in _front_requests()]
+        async def go():
+            async with aiohttp.ClientSession() as s:
+                while True:  # the frontend up, and the model discovered
+                    try:
+                        async with s.get(f"{base}/v1/models") as r:
+                            if [m["id"] for m in (await r.json())["data"]] == [FRONT_MODEL]:
+                                break
+                    except aiohttp.ClientConnectionError:
+                        pass
+                    procs["http"].alive("no model at the frontend", t0)
+                    await asyncio.sleep(0.25)
+                warm = [await _timed_post(s, base + path, body)
+                        for path, body in _front_requests(shift=5000)]
+                return warm, [await _timed_post(s, base + path, body)
+                              for path, body in _front_requests()]
 
-            warm, answers = asyncio.run(go())
-        finally:
-            for name in ("http", "worker"):
-                if name in procs and procs[name].poll() is None:
-                    procs[name].send_signal(signal.SIGTERM)
-            rcs = {}
-            for name, proc in procs.items():
-                try:
-                    rcs[name] = proc.wait(timeout=60)
-                except subprocess.TimeoutExpired:
-                    proc.kill()
-                    rcs[name] = proc.wait()
+        warm, answers = asyncio.run(go())
+    rcs = {name: p.proc.returncode for name, p in procs.items()}
     worker_log = logs["worker"].read_text()
-    check(all(rc == 0 for rc in rcs.values()),
-          f"dyn: exit codes {rcs}: worker {worker_log[-2000:]} http "
-          f"{logs['http'].read_text()[-2000:]}")
     check(all(a[0] == 200 for a in warm + answers),
           f"dyn: statuses {[a[0] for a in warm + answers]}")
     got = [_answer_text(a[1]) for a in answers]
@@ -3389,6 +3422,291 @@ def dyn_phase(card: str, texts: list[str], local_ttfts: list[float]) -> None:
     log(json.dumps({"dyn": line}))
     for path in logs.values():
         path.unlink(missing_ok=True)
+
+
+GRAPH = "dynamo_tpu_torch.examples.llm.graphs.disagg:Frontend"
+GRAPH_CONFIG = ROOT / "dynamo_tpu_torch" / "examples" / "llm" / "configs" / "disagg.yaml"
+# the config's max-local-prefill-length here: of the front-door requests the
+# 300-token one prefills remotely and the rest (9 to 31 tokens) locally; of
+# each set of six token-id prompts all but the 17-token one prefill remotely
+GRAPH_LOCAL_PREFILL = 64
+# each service's component and one endpoint: the graph is up once all four
+# are discovered (the Frontend registers after its HTTP server listens)
+GRAPH_ENDPOINTS = {"frontend": "info", "processor": "process", "gpuworker": "generate",
+                   "prefillworker": "status"}
+GRAPH_WORKERS = ("Frontend", "Processor", "GpuWorker", "PrefillWorker")
+GRAPH_BOOT_LIMIT_S = 300
+# the kernels each worker process must launch over the measured requests,
+# and no other: the decode worker decodes and prefills the short prompts,
+# the prefill worker only prefills
+GRAPH_KERNELS = {"GpuWorker": ("decode", "prefill", "matmul"),
+                 "PrefillWorker": ("prefill", "matmul")}
+# the words of the checkpoint's tokenizer (write_tokenizer); its specials
+# decode to nothing
+GRAPH_WORDS = re.compile("|".join(ROLES) + r"|w\d+")
+
+
+def graph_prompts(seed: int = 11) -> list[list[int]]:
+    """Six token-id prompts of PROMPT_LENS tokens, no two sharing a block."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, LLAMA3_VOCAB, n).tolist() for n in PROMPT_LENS]
+
+
+def _seconds(xs: list) -> dict:
+    import statistics
+
+    return dict(n=len(xs), median_s=round(statistics.median(xs), 4) if xs else None,
+                max_s=round(max(xs), 4) if xs else None, all_s=[round(x, 4) for x in xs])
+
+
+def graph_stream(text: str, base: list[int], tok) -> list[int]:
+    """An answer's token ids read from its text against ``base``, the ids
+    the in-process engine gave for the same prompt: ``base`` itself while
+    the words agree, else ``base`` up to the first word that differs and
+    the answer's id there.  A special token decodes to nothing, so a parting
+    at one lands on the next word and then fails the near-tie check."""
+    got = [tok.token_to_id(w) for w in GRAPH_WORDS.findall(text)]
+    shown = [(j, t) for j, t in enumerate(base) if tok.decode([t])]
+    for k, (j, t) in enumerate(shown):
+        check(k < len(got), f"graphs: the answer {text!r} ends before the in-process engine's "
+              f"ids {base}")
+        if got[k] != t:
+            return base[:j] + [got[k]]
+    if len(got) > len(shown):
+        j = shown[-1][0] + 1 if shown else 0
+        check(j < len(base), f"graphs: the answer {text!r} runs past the in-process engine's "
+              f"ids {base}")
+        return base[:j] + [got[len(shown)]]
+    return list(base)
+
+
+def graphs_phase(card: str) -> dict:
+    """The disaggregated serving graph as a user starts it:
+    ``DYNTPU_GPUS=0,0 python3 -m dynamo_tpu_torch serve GRAPH -f CONFIG``
+    against a coordinator in this process, CONFIG the port's
+    ``configs/disagg.yaml`` with the checkpoint, GRAPH_LOCAL_PREFILL, the
+    checkpoint's tokenizer in the Processor and a free HTTP port.  Four
+    processes; the GpuWorker and the PrefillWorker share card 0.  Requests,
+    all streamed: a warm-up pass of the front-door requests' shapes over
+    other words, then the measured ones: the front-door requests and six
+    token-id prompts one at a time, then six other token-id prompts at once.
+    Checks: the one-at-a-time texts equal an in-process engine's (the
+    worker's ``build_engine`` on the same block, each delta decoded as the
+    Processor decodes it), whose launches are B1, B2 and B5 and no other
+    kernel; the concurrent answers equal that engine's one at a time but
+    at a near tie; each worker process's own ``status`` counts its kernel
+    launches over the measured requests, GRAPH_KERNELS and no other; the
+    PrefillWorker's ``status`` counts every prompt above the threshold;
+    both workers' logs name a CUDA device; on SIGTERM every process drains
+    and exits 0.  The in-process engine then serves six prompts at once
+    itself, every prefill local, as the one-process reading beside the
+    graph's, on six other prompts of the same lengths (the concurrent ones
+    are in its prefix cache by then).  Returns the ``{"graphs": ...}``
+    line."""
+    import os
+    import socket
+
+    import aiohttp
+    import torch
+    import yaml
+
+    from dynamo_tpu_torch.examples.llm.components.frontend import processor_request
+    from dynamo_tpu_torch.examples.llm.components.prefill_worker import PrefillWorker
+    from dynamo_tpu_torch.examples.llm.components.processor import with_text, worker_payload
+    from dynamo_tpu_torch.examples.llm.components.worker import (
+        GpuWorker, backend_input, build_engine, wire_output)
+    from dynamo_tpu_torch.llm.openai import parse_request
+    from dynamo_tpu_torch.llm.preprocessor import PromptFormatter
+    from dynamo_tpu_torch.llm.tokenizer import TokenizerWrapper
+    from dynamo_tpu_torch.runtime.config import RuntimeConfig
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.runtime.engine import Context
+    from dynamo_tpu_torch.sdk.config import ServiceConfig
+    from dynamo_tpu_torch.sdk.service import ServiceClient
+
+    t_phase = time.perf_counter()
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        http_port = sk.getsockname()[1]
+    cfg = yaml.safe_load(GRAPH_CONFIG.read_text())
+    cfg["Common"]["model-path"] = str(FRONT_DIR)
+    cfg["GpuWorker"]["max-local-prefill-length"] = GRAPH_LOCAL_PREFILL
+    cfg["Processor"]["tokenizer"] = str(FRONT_DIR / "tokenizer.json")
+    cfg["Frontend"]["port"] = http_port
+    cfg_path = FRONT_DIR / "disagg.yaml"
+    cfg_path.write_text(yaml.safe_dump(cfg))
+    served = cfg["Frontend"]["served_model_name"]
+
+    def named(reqs):  # all streamed, so that each answer has its seconds to the first text
+        return [(path, {**body, "model": served, "stream": True}) for path, body in reqs]
+
+    def token_requests(seed):
+        return named([("/v1/completions", {"prompt": toks, "max_tokens": FRONT_MAX_TOKENS,
+                                           "temperature": 0}) for toks in graph_prompts(seed)])
+
+    warm = named(_front_requests(shift=5000))
+    one = named(_front_requests()) + token_requests(12)
+    concurrent = token_requests(11)
+    tok, fmt = TokenizerWrapper.from_file(FRONT_DIR), PromptFormatter(None)
+
+    def payload(path, body) -> dict:  # what the Frontend and Processor send the worker
+        return worker_payload(processor_request(parse_request(body, chat="chat" in path), fmt),
+                              tok)
+
+    def remote(reqs) -> list[bool]:
+        return [len(payload(*r)["token_ids"]) > GRAPH_LOCAL_PREFILL for r in reqs]
+
+    expected = sum(remote(warm) + remote(one) + remote(concurrent))
+    check(any(remote(one)) and not all(remote(one)) and any(remote(concurrent)),
+          f"graphs: threshold {GRAPH_LOCAL_PREFILL} does not split the prompts: "
+          f"{remote(one)} {remote(concurrent)}")
+    log_path = FRONT_DIR / "graphs.log"
+    t0 = time.perf_counter()
+    with background_coordinator() as coord, served_process(
+            "graphs: serve", ["serve", GRAPH, "-f", str(cfg_path), "--coordinator", coord],
+            log_path, env=dict(os.environ, DYNTPU_GPUS="0,0")) as serve:
+        async def drive():
+            rt = await DistributedRuntime.connect(RuntimeConfig(coordinator_url=coord))
+            try:
+                for comp, ep in GRAPH_ENDPOINTS.items():
+                    client = await rt.namespace("dynamo").component(comp).endpoint(ep).client()
+                    while not client.instance_ids():
+                        serve.alive(f"{comp} did not come up", t0, GRAPH_BOOT_LIMIT_S)
+                        await asyncio.sleep(0.25)
+                    await client.close()
+                boot = time.perf_counter() - t0
+                workers = {"GpuWorker": ServiceClient(rt, GpuWorker),
+                           "PrefillWorker": ServiceClient(rt, PrefillWorker)}
+
+                async def status():
+                    return {w: [x async for x in c.status({})][0] for w, c in workers.items()}
+
+                base = f"http://127.0.0.1:{http_port}"
+                async with aiohttp.ClientSession() as s:
+                    warm_answers = [await _timed_post(s, base + p, b) for p, b in warm]
+                    before = await status()
+                    answers = [await _timed_post(s, base + p, b) for p, b in one]
+                    t1 = time.perf_counter()
+                    together = await asyncio.gather(*(_timed_post(s, base + p, b)
+                                                      for p, b in concurrent))
+                    wall = time.perf_counter() - t1
+                deadline = time.perf_counter() + 30
+                while True:  # handled counts after the queue ack, which trails the answer
+                    after = await status()
+                    if (after["PrefillWorker"]["handled"] >= expected
+                            or time.perf_counter() > deadline):
+                        break
+                    await asyncio.sleep(0.1)
+                for c in workers.values():
+                    await c.close()
+                launches = {w: {k: after[w]["launches"][k] - before[w]["launches"][k]
+                                for k in after[w]["launches"]} for w in workers}
+                return (boot, warm_answers, answers, together, wall,
+                        after["PrefillWorker"]["handled"], launches)
+            finally:
+                await rt.shutdown()
+
+        boot, warm_answers, answers, together, wall, handled, worker_launches = \
+            asyncio.run(drive())
+    serve_log = log_path.read_text()
+    codes_line = [ln for ln in serve_log.splitlines() if "worker exit codes" in ln]
+    codes = json.loads(codes_line[-1].split("worker exit codes ", 1)[1]) if codes_line else {}
+    check(codes == {f"{w}:0": 0 for w in GRAPH_WORKERS}, f"graphs: worker exit codes {codes}")
+    check("did not drain" not in serve_log and all(
+        f"[{w}] INFO dynamo_tpu_torch.serve_worker: {w} drained and stopped" in serve_log
+        for w in GRAPH_WORKERS), "graphs: a worker did not drain: " + serve_log[-3000:])
+    devices = {}
+    for w in ("GpuWorker", "PrefillWorker"):
+        loaded = [ln for ln in serve_log.splitlines()
+                  if ln.startswith(f"[{w}]") and "loaded" in ln and " on cuda" in ln]
+        check(bool(loaded), f"graphs: the {w} log names no CUDA device: " + serve_log[-3000:])
+        devices[w] = loaded[0].split(" on ", 1)[1]
+    statuses = [a[0] for a in warm_answers + answers + together]
+    check(all(st == 200 for st in statuses), f"graphs: statuses {statuses}")
+    check(handled == expected, f"graphs: the PrefillWorker handled {handled} prompts, "
+          f"{expected} are above the threshold {GRAPH_LOCAL_PREFILL}")
+    for w, need in GRAPH_KERNELS.items():
+        got = worker_launches[w]
+        check(all(got[k] > 0 for k in need) and not any(v for k, v in got.items() if k not in need),
+              f"graphs: the {w} process launched {got}, need {need} > 0 and no other")
+
+    # the in-process twin: the worker's engine from the same block, each
+    # delta decoded on its own as the Processor decodes it
+    block = ServiceConfig(cfg).for_service("GpuWorker")
+    engine, _ = build_engine(block)
+    wrappers = _kernel_wrappers()
+    try:
+        async def alone(path, body):
+            outs = [with_text(wire_output(o), tok) async for o in
+                    engine.generate(Context(backend_input(payload(path, body))))]
+            return "".join(o.get("text", "") for o in outs), [t for o in outs
+                                                              for t in o["token_ids"]]
+
+        async def twin():
+            one_twin = [await alone(*r) for r in one]
+            base = [await alone(*r) for r in concurrent]
+            # six prompts of the concurrent ones' lengths at once on the one
+            # engine, every prefill local and none a prefix hit: what the
+            # graph's concurrent seconds are read against
+            return one_twin, base, await _serve(
+                engine, [payload(*r)["token_ids"] for r in token_requests(13)],
+                max_tokens=FRONT_MAX_TOKENS, tag="graphs-twin")
+
+        for fn in wrappers.values():
+            fn.launches = 0
+        one_twin, base, twin_together = asyncio.run(twin())
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        got = [_answer_text(a[1]) for a in answers]
+        texts = [t for t, _ in one_twin]
+        check(got == texts, f"graphs: answers {got} != the in-process engine's {texts}")
+        need = ("decode", "prefill", "matmul")
+        check(all(launches[k] > 0 for k in need) and not any(
+            v for k, v in launches.items() if k not in need),
+              f"graphs: the in-process engine's launches {launches}, need {need} > 0 and no other")
+        # the concurrent answers: the twin's one at a time, but at a near tie
+        # (the decode batch differs), re-scored on the twin's model
+        streams = [ids for _, ids in base]
+        parted = spec_near_ties(
+            torch, engine.core.model,
+            dict(streams=streams),
+            dict(streams=[graph_stream(_answer_text(a[1]), ids, tok)
+                          for a, ids in zip(together, streams)], label="graphs concurrent"),
+            card, bs=int(block.get("block-size", 16)),
+            prompts=[payload(*r)["token_ids"] for r in concurrent],
+            sampling=[{"temperature": 0.0}] * len(concurrent), against="one at a time")
+    finally:
+        engine.shutdown()
+
+    def split(reqs, results):
+        flags = remote(reqs)
+        return dict(remote=_seconds([r[2] for r, f in zip(results, flags) if f]),
+                    local=_seconds([r[2] for r, f in zip(results, flags) if not f]))
+
+    line = dict(graph=GRAPH, config=str(GRAPH_CONFIG.relative_to(ROOT)),
+                changed={"model-path": "the 2-layer checkpoint",
+                         "GpuWorker.max-local-prefill-length": GRAPH_LOCAL_PREFILL,
+                         "Processor.tokenizer": "the checkpoint's tokenizer.json",
+                         "Frontend.port": "a free port"},
+                gpus="0,0", processes=list(GRAPH_WORKERS), boot_s=round(boot, 3),
+                one_at_a_time=split(one, answers), concurrent=split(concurrent, together),
+                concurrent_wall_s=round(wall, 3), concurrent_parted=parted,
+                warm_up=split(warm, warm_answers),
+                twin_concurrent=split(concurrent, [(None, None, r[0]) for r in twin_together]),
+                prompt_tokens=dict(one=[len(payload(*r)["token_ids"]) for r in one],
+                                   concurrent=[len(payload(*r)["token_ids"]) for r in concurrent]),
+                remote_prefills=handled, expected_remote_prefills=expected,
+                exit_codes=codes, worker_devices=devices, worker_launches=worker_launches,
+                twin_launches=launches, seconds=round(time.perf_counter() - t_phase, 3),
+                card=card)
+    log(f"graphs: {GRAPH} up in {boot:.1f} s; {len(one)} requests one at a time equal the "
+        f"in-process engine's texts, {len(concurrent) - parted} of {len(concurrent)} concurrent "
+        f"ones too (the rest at a near tie), {handled} remote prefills, worker launches "
+        f"{worker_launches}, exit codes {codes} ({card})")
+    for path in (log_path, cfg_path):
+        path.unlink(missing_ok=True)
+    return line
 
 
 # The Qwen3-MoE checkpoint: Qwen3-30B-A3B's width and tensor names, cut to
@@ -3588,7 +3906,6 @@ def http_serving_run(torch, model, direct: dict, card: str) -> None:
 # tokens (the six prompts: 1 to 6 chunks), so its first chunks' layers are
 # on the wire while later chunks compute.
 DISAGG_STREAM_CHUNK = 256
-DISAGG_HTTP_REQUESTS = 2
 # tokens a request when served one at a time (M = 1 decode turns are the
 # slowest a token; the token-for-token check needs no more)
 DISAGG_ONE_BY_ONE_TOKENS = 16
@@ -3671,15 +3988,13 @@ def local_one_by_one(torch, model, config: dict, label: str) -> dict:
 
 
 async def _disagg_serve(torch, model, config: dict, label: str, *, stream: bool,
-                        one_by_one: bool, http: bool) -> dict:
+                        one_by_one: bool) -> dict:
     """One disaggregated run: a coordinator in this process, a decode
     engine behind a DecodeWorker that sends every prompt to the prefill
     queue, and a prefill engine behind a PrefillWorker (its prefill in
     DISAGG_STREAM_CHUNK-token chunks when ``stream``), sharing ``model``.
     A warm-up request, then every launch counter zeroed and the six prompts
-    served concurrently (``one_by_one``: one at a time), or with ``http``
-    DISAGG_HTTP_REQUESTS of them one at a time through the port's
-    HttpService over ``build_serving_pipeline(decode_worker, card)``."""
+    served concurrently (``one_by_one``: one at a time)."""
     from dynamo_tpu_torch.engine import AsyncLLMEngine, EngineConfig, EngineCore
     from dynamo_tpu_torch.engine.counters import kv_stream_counters
     from dynamo_tpu_torch.llm.disagg_router import DisaggregatedRouter, DisaggRouterConf
@@ -3731,9 +4046,7 @@ async def _disagg_serve(torch, model, config: dict, label: str, *, stream: bool,
             before = (dec.metrics()["prefill_dispatches_total"], pre.decode_steps)
             reqs = model_prompts(model)
             t0 = time.perf_counter()
-            if http:
-                out["http"] = await _disagg_http(worker, dec, reqs[:DISAGG_HTTP_REQUESTS], label)
-            elif one_by_one:
+            if one_by_one:
                 out.update(_readings(await _one_by_one(worker, reqs, f"{label}-"),
                                      time.perf_counter() - t0, True))
             else:
@@ -3773,30 +4086,6 @@ async def _disagg_serve(torch, model, config: dict, label: str, *, stream: bool,
         pre_engine.shutdown()
 
 
-async def _disagg_http(worker, dec, reqs, label: str) -> list:
-    """``reqs`` one at a time as streamed token-id completions through the
-    port's HttpService over the decode worker: [(status, events, TTFT)]."""
-    import aiohttp
-
-    from dynamo_tpu_torch.llm.engines import build_serving_pipeline
-    from dynamo_tpu_torch.llm.http import HttpService
-    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
-
-    mcard = ModelDeploymentCard(name="llama3-8b", tokenizer_path=str(FRONT_DIR / "tokenizer.json"),
-                                context_length=8192)
-    svc = HttpService(port=0, core=dec)
-    svc.manager.add_model(mcard.name, build_serving_pipeline(worker, mcard), mcard)
-    await svc.start()
-    try:
-        async with aiohttp.ClientSession() as s:
-            url = f"http://127.0.0.1:{svc.port}/v1/completions"
-            return [await _post(s, url, {"model": mcard.name, "prompt": toks,
-                                         "max_tokens": DISAGG_ONE_BY_ONE_TOKENS,
-                                         "temperature": 0, "stream": True}) for toks in reqs]
-    finally:
-        await svc.stop()
-
-
 def copy_yardsticks(torch, nbytes: int) -> dict:
     """The bound of each handoff path, timed on the card for ``nbytes``:
     a plain device-to-device copy (the colocated path moves the blocks so)
@@ -3825,15 +4114,13 @@ def copy_yardsticks(torch, nbytes: int) -> dict:
 
 
 DISAGG_RUNS = {
-    # label: (cache, path, streamed, one request at a time, through HttpService);
-    # every run on a fresh engine pair, so no run hits another's prefix cache
-    "a1": ("bf16", "colocated", False, True, False),
-    "a": ("bf16", "colocated", False, False, False),
-    "b": ("bf16", "tcp", False, False, False),
-    "c": ("bf16", "tcp", True, False, False),
-    "e": ("bf16", "colocated", False, True, True),
-    "d1": ("int8", "tcp", False, True, False),
-    "d": ("int8", "tcp", False, False, False),
+    # label: (cache, path, streamed, one request at a time); every run on a
+    # fresh engine pair, so no run hits another's prefix cache
+    "a1": ("bf16", "colocated", False, True),
+    "a": ("bf16", "colocated", False, False),
+    "c": ("bf16", "tcp", True, False),
+    "d1": ("int8", "tcp", False, True),
+    "d": ("int8", "tcp", False, False),
 }
 
 
@@ -3856,22 +4143,21 @@ def disagg_phase(torch, model, local: dict, card: str, quant: bool = False) -> d
     labels = [k for k, v in DISAGG_RUNS.items() if (v[0] == "int8") == quant]
     need = ["decode_q8", "prefill_q8", "matmul"] if quant else ["decode", "prefill"]
     alone = local_one_by_one(torch, model, config, f"disagg-local-{'int8' if quant else 'bf16'}")
-    tok = None
     runs = {}
     for label in labels:
-        cache, path, stream, one_by_one, http = DISAGG_RUNS[label]
+        cache, path, stream, one_by_one = DISAGG_RUNS[label]
         if path == "tcp":
             os.environ["DYN_KV_TRANSFER_FORCE_TCP"] = "1"
         t0 = time.perf_counter()
         try:
             r = asyncio.run(_disagg_serve(torch, model, config, f"disagg-{label}", stream=stream,
-                                          one_by_one=one_by_one, http=http))
+                                          one_by_one=one_by_one))
         finally:
             os.environ.pop("DYN_KV_TRANSFER_FORCE_TCP", None)
         gc.collect()
         torch.cuda.empty_cache()
         base = alone if one_by_one else local
-        lt = sorted(base["ttfts"][:len(r["http"])] if http else base["ttfts"])
+        lt = sorted(base["ttfts"])
         r.update(label=f"disagg ({label})", cache=cache, path=path, streamed=stream,
                  one_by_one=one_by_one, seconds=time.perf_counter() - t0,
                  local=dict(one_by_one=one_by_one, ttft_median_s=lt[len(lt) // 2],
@@ -3901,17 +4187,7 @@ def disagg_phase(torch, model, local: dict, card: str, quant: bool = False) -> d
               f"{name}: {r['blocks_differ']} of {r['handoffs_checked']} handoffs' blocks differ "
               "from the prefill engine's held blocks")
         check(r["held_after"] == 0, f"{name}: {r['held_after']} requests' blocks still held")
-        if http:
-            from dynamo_tpu_torch.llm.tokenizer import TokenizerWrapper
-
-            tok = tok or TokenizerWrapper.from_file(FRONT_DIR)
-            texts = [_text(a[1]) for a in r["http"]]
-            check(all(a[0] == 200 for a in r["http"]) and
-                  texts == [_detok(tok, s) for s in alone["streams"][:len(texts)]],
-                  f"{name}: HTTP statuses {[a[0] for a in r['http']]}, texts differ from the "
-                  "local engine's one at a time")
-            r["ttfts"] = [a[2] for a in r["http"]]
-        elif one_by_one:
+        if one_by_one:
             same = [a == b for a, b in zip(r["streams"], alone["streams"])]
             check(all(same), f"{name}: served one at a time, streams {same} equal the local "
                   "engine's one at a time")
@@ -3951,7 +4227,7 @@ def disagg_line(torch, runs: dict, card: str) -> dict:
         moved = r["blocks_checked"] * r["kv_bytes_per_block"]
         rows.append(dict(
             run=label, cache=r["cache"], path=r["path"], streamed=r["streamed"],
-            one_by_one=r["one_by_one"], http="http" in r,
+            one_by_one=r["one_by_one"],
             ttft_median_s=ttfts[len(ttfts) // 2], ttft_max_s=ttfts[-1],
             decode_tok_s=r.get("decode_tok_s"), local=r.get("local"),
             blocks=r["blocks_checked"], bytes=moved, handoffs=r["handoffs_checked"],
@@ -5127,7 +5403,7 @@ def main() -> int:
         parity_phase(torch, card, verify=True)
         parity_phase(torch, card, quant=True)
         mark("Llama-3-8B parity")
-        front_door_phase(torch, card)
+        graphs = front_door_phase(torch, card)
         mark("Llama-3-8B front door")
         moe_default, moe_budget = moe_serving_phase(torch, card)
         mark("Qwen3-30B-A3B serving")
@@ -5162,11 +5438,14 @@ def main() -> int:
                                 for label, r in spec.items()
                                 if r["k"] and label.startswith("int8") == (kernel == "B4a")}
                        for kernel in ("B1", "B4a")}
-    # each kernel's launches over the disaggregated runs, (a)-(e)
+    # each kernel's launches over the disaggregated runs (DISAGG_RUNS)
     disagg_launches = {k: sum(r["launches"][k] for r in disagg.values())
                        for k in _kernel_wrappers()}
     # and over the KV-tier runs (bf16 and int8 models, the router's included)
     tier_launches = {k: tier["launches"][k] + q8_tier["launches"][k] for k in _kernel_wrappers()}
+    # and in the serving graph's two worker processes, as each one's status read them
+    graph_launches = {k: sum(w[k] for w in graphs["worker_launches"].values())
+                      for k in _kernel_wrappers()}
     kernels = [
         dict(name="paged_decode_attention", route="cuda",
              source="dynamo_tpu_torch/csrc/decode_attention.cu",
@@ -5174,6 +5453,7 @@ def main() -> int:
              launches=default["launches"]["decode"],
              launches_disagg=disagg_launches["decode"],
              launches_tier=tier_launches["decode"],
+             launches_graphs=graph_launches["decode"],
              max_abs_err=max(errs["decode"], times["decode_err"]), **times["decode"],
              verify=dict(times["decode_verify"], launches=verify_launches["B1"])),
         dict(name="paged_prefill_attention", route="cuda",
@@ -5182,6 +5462,7 @@ def main() -> int:
              launches=default["launches"]["prefill"],
              launches_disagg=disagg_launches["prefill"],
              launches_tier=tier_launches["prefill"],
+             launches_graphs=graph_launches["prefill"],
              max_abs_err=max(errs["prefill"], times["prefill_err"]), **times["prefill"]),
         dict(name="ragged_paged_prefill_attention", route="cuda",
              source="dynamo_tpu_torch/csrc/ragged_prefill_attention.cu",
@@ -5189,6 +5470,7 @@ def main() -> int:
              launches=budget["launches"]["ragged"],
              launches_disagg=disagg_launches["ragged"],
              launches_tier=tier_launches["ragged"],
+             launches_graphs=graph_launches["ragged"],
              max_abs_err=max(errs["ragged"], times["ragged_err"]), **times["ragged"]),
         dict(name="paged_decode_attention_q8", route="cuda",
              source="dynamo_tpu_torch/csrc/decode_attention.cu",
@@ -5196,6 +5478,7 @@ def main() -> int:
              launches=q8_default["launches"]["decode_q8"],
              launches_disagg=disagg_launches["decode_q8"],
              launches_tier=tier_launches["decode_q8"],
+             launches_graphs=graph_launches["decode_q8"],
              max_abs_err=max(errs["decode_q8"], times["decode_q8_err"]), **times["decode_q8"],
              verify=dict(times["decode_q8_verify"], launches=verify_launches["B4a"])),
         dict(name="paged_prefill_attention_q8", route="cuda",
@@ -5204,6 +5487,7 @@ def main() -> int:
              launches=q8_default["launches"]["prefill_q8"],
              launches_disagg=disagg_launches["prefill_q8"],
              launches_tier=tier_launches["prefill_q8"],
+             launches_graphs=graph_launches["prefill_q8"],
              max_abs_err=max(errs["prefill_q8"], times["prefill_q8_err"]), **times["prefill_q8"]),
         dict(name="ragged_paged_prefill_attention_q8", route="cuda",
              source="dynamo_tpu_torch/csrc/ragged_prefill_attention.cu",
@@ -5211,6 +5495,7 @@ def main() -> int:
              launches=q8_budget["launches"]["ragged_q8"],
              launches_disagg=disagg_launches["ragged_q8"],
              launches_tier=tier_launches["ragged_q8"],
+             launches_graphs=graph_launches["ragged_q8"],
              max_abs_err=max(errs["ragged_q8"], times["ragged_q8_err"]), **times["ragged_q8"]),
         dict(name="int8_matmul", route="cuda",
              source="dynamo_tpu_torch/csrc/int8_matmul.cu",
@@ -5218,6 +5503,7 @@ def main() -> int:
              launches=q8_default["launches"]["matmul"],
              launches_disagg=disagg_launches["matmul"],
              launches_tier=tier_launches["matmul"],
+             launches_graphs=graph_launches["matmul"],
              max_abs_err=max(errs["matmul"], times["matmul_err"]), **times["matmul"],
              verify=dict(times["matmul_verify"],
                          launches=spec["int8 ngram k=4"]["launches"]["matmul"])),
@@ -5227,6 +5513,7 @@ def main() -> int:
              launches=moe_default["launches"]["moe"],
              launches_disagg=disagg_launches["moe"],
              launches_tier=tier_launches["moe"],
+             launches_graphs=graph_launches["moe"],
              max_abs_err=max(errs["moe"], times["moe_err"]), **times["moe"]),
         dict(name="grouped_matmul_q8", route="cuda",
              source="dynamo_tpu_torch/csrc/grouped_matmul.cu",
@@ -5234,6 +5521,7 @@ def main() -> int:
              launches=moe_budget["launches"]["moe_q8"],
              launches_disagg=disagg_launches["moe_q8"],
              launches_tier=tier_launches["moe_q8"],
+             launches_graphs=graph_launches["moe_q8"],
              max_abs_err=max(errs["moe_q8"], times["moe_q8_err"]), **times["moe_q8"]),
     ]
     log(json.dumps({"spec": [{k: v for k, v in r.items() if k != "streams"}
@@ -5242,6 +5530,7 @@ def main() -> int:
     log(json.dumps({"disagg": disagg_out}))
     log(json.dumps({"tier": tier_out}))
     log(json.dumps({"router": tier["router"]}))
+    log(json.dumps({"graphs": graphs}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                           "count": torch.cuda.device_count()}}))

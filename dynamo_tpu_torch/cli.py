@@ -1,5 +1,5 @@
 """The port's command line: ``run``, ``coordinator``, ``http``, ``router``,
-``models`` and ``trace``.
+``models``, ``trace``, ``serve`` and ``package``.
 
     python -m dynamo_tpu_torch run in=<http|text:PROMPT|stdin|batch:FILE|dyn://NS.COMP.EP> \\
         out=<gpu|echo|dyn://NS.COMP.EP> --model-path DIR [options]
@@ -47,6 +47,20 @@ A worker serves the engine itself (tokens in, tokens out), which is what
 a frontend's preprocessing pipeline sends it; the JAX CLI's worker serves
 its text pipeline instead, which its own ``http`` frontend cannot call.
 The JAX CLI's ``models push|pull`` are not ported.
+
+Serving graphs (``sdk/``, ``examples/llm/graphs/``):
+
+* ``serve GRAPH -f CONFIG`` starts one process per service of the graph
+  (``module:EntryService``, e.g.
+  ``dynamo_tpu_torch.examples.llm.graphs.disagg:Frontend``) under a
+  supervisor that restarts crashed workers; SIGTERM or ctrl-c drains and
+  stops them all.  GPU services take their cards from the ``DYNTPU_GPUS``
+  pool ("0,1"; "0,0" puts two one-card workers on card 0).  With
+  ``--package NAME[:VER]`` the graph comes from an api-store
+  (``--api-store URL``), unpacked into ``--package-cache``;
+* ``package build SRC --entry module:Service --name NAME -o FILE`` archives
+  a graph's sources; ``package push|pull|list`` talk to an api-store over
+  HTTP (the store itself is the JAX package's; the port's is ROADMAP A17).
 """
 
 from __future__ import annotations
@@ -55,6 +69,7 @@ import argparse
 import asyncio
 import json
 import logging
+import os
 import signal
 import sys
 import time
@@ -67,6 +82,9 @@ __all__ = ["build_local_engine", "attach_worker_publishers", "start_router_servi
            "parse_args", "main"]
 
 MODELS_PREFIX = "models/"  # under {namespace}/
+API_STORE = "http://127.0.0.1:7180"
+# unpacked packages, one directory per (name, version)
+PACKAGE_CACHE = Path("~/.cache/dynamo_tpu_torch/packages").expanduser()
 
 
 def build_local_engine(args) -> tuple[object, object]:
@@ -511,6 +529,123 @@ async def _cmd_trace(args) -> None:
         print(body)
 
 
+# ------------------------------------------------------------------ serve -----
+
+
+async def _cmd_serve(args) -> None:
+    """Run a graph under the supervisor until SIGINT/SIGTERM or until every
+    worker has exited; then stop the workers (each drains) and exit
+    non-zero if any of them did."""
+    from dynamo_tpu_torch.sdk.config import ServiceConfig
+    from dynamo_tpu_torch.sdk.serving import ServeSupervisor
+
+    graph = args.graph
+    if args.package:
+        # packaged-graph deploy (the reference's bento flow): pull the
+        # archive from the api-store, verify + unpack into the cache,
+        # and serve its manifest entry with the package root importable
+        # (sys.path for the supervisor's entry load, PYTHONPATH for the
+        # worker processes it spawns)
+        manifest, src_root = await _pull_package(args.package, args.api_store,
+                                                 args.package_cache)
+        graph = graph if graph not in (None, "-") else manifest["entry"]
+        sys.path.insert(0, str(src_root))
+        prev = os.environ.get("PYTHONPATH")
+        # no trailing separator when PYTHONPATH was unset: an empty
+        # component means cwd, which packaged deploys must not import
+        os.environ["PYTHONPATH"] = f"{src_root}{os.pathsep}{prev}" if prev else str(src_root)
+        log.info("serving package %s entry %s from %s", args.package, graph, src_root)
+    elif graph in (None, "-"):
+        raise SystemExit("serve needs GRAPH (module:EntryService) or --package NAME[:VER]")
+    config = ServiceConfig.from_yaml(args.config) if args.config else ServiceConfig()
+    sup = ServeSupervisor(graph, config, coordinator_url=args.coordinator)
+    await sup.start()
+    watch = asyncio.ensure_future(sup.watch())
+    signalled = asyncio.ensure_future(_until_signalled())
+    try:
+        done, _ = await asyncio.wait({watch, signalled}, return_when=asyncio.FIRST_COMPLETED)
+        if watch in done:
+            watch.result()  # a supervisor fault surfaces here
+    finally:
+        for task in (watch, signalled):
+            task.cancel()
+        await asyncio.gather(watch, signalled, return_exceptions=True)
+        codes = await sup.stop()
+        log.info("serve: worker exit codes %s", json.dumps(codes))
+    if any(codes.values()):
+        raise SystemExit(f"serve: workers exited {codes}")
+
+
+# ---------------------------------------------------------------- package -----
+
+
+def _split_pkg_ref(ref: str) -> tuple[str, Optional[str]]:
+    name, _, ver = ref.partition(":")
+    return name, (ver or None)
+
+
+async def _pull_package(ref: str, api_store: str, cache_root: str):
+    """Resolve name[:version], reuse the local cache when it already
+    holds that version, else download + unpack.  Returns (manifest,
+    src_root)."""
+    from aiohttp import ClientSession
+
+    from dynamo_tpu_torch.deploy.packaging import cache_lookup, cached_unpack
+
+    name, ver = _split_pkg_ref(ref)
+    async with ClientSession() as s:
+        if ver is None:
+            # cheap metadata GET resolves "latest" BEFORE any archive
+            # transfer, so a cache hit skips the download entirely
+            async with s.get(f"{api_store}/api/v1/packages/{name}/latest") as resp:
+                if resp.status == 404:
+                    raise SystemExit(f"package {ref!r} not found in {api_store}")
+                resp.raise_for_status()
+                ver = str((await resp.json())["version"])
+        version = int(ver)
+        hit = cache_lookup(cache_root, name, version)
+        if hit is not None:
+            return hit
+        url = f"{api_store}/api/v1/packages/{name}/{version}/archive"
+        async with s.get(url) as resp:
+            if resp.status == 404:
+                raise SystemExit(f"package {ref!r} not found in {api_store}")
+            resp.raise_for_status()
+            archive = await resp.read()
+    return cached_unpack(archive, cache_root, name, version)
+
+
+async def _cmd_package(args) -> None:
+    from dynamo_tpu_torch.deploy.packaging import build_package, read_manifest
+
+    if args.pkg_cmd == "build":
+        manifest = build_package(args.src, args.entry, args.name, args.out)
+        print(json.dumps({"name": manifest["name"], "entry": manifest["entry"],
+                          "files": len(manifest["files"]), "out": args.out}))
+    elif args.pkg_cmd == "push":
+        from aiohttp import ClientSession
+
+        data = Path(args.pkg).read_bytes()
+        read_manifest(data)  # fail client-side with a good message
+        async with ClientSession() as s:
+            async with s.post(f"{args.api_store}/api/v1/packages", data=data) as resp:
+                body = await resp.text()
+                if resp.status != 201:
+                    raise SystemExit(f"push failed ({resp.status}): {body}")
+                print(body)
+    elif args.pkg_cmd == "pull":
+        manifest, src_root = await _pull_package(args.ref, args.api_store, args.out)
+        print(json.dumps({"name": manifest["name"], "entry": manifest["entry"],
+                          "src": str(src_root)}))
+    elif args.pkg_cmd == "list":
+        from aiohttp import ClientSession
+
+        async with ClientSession() as s:
+            async with s.get(f"{args.api_store}/api/v1/packages") as resp:
+                resp.raise_for_status()
+                print(json.dumps(await resp.json()))
+
+
 # ------------------------------------------------------------------ parser ----
 
 
@@ -627,6 +762,35 @@ def _parser() -> argparse.ArgumentParser:
     trace.add_argument("--url", default="http://127.0.0.1:8080", help="frontend base URL")
     trace.add_argument("-o", "--out", default=None,
                        help="write the JSON here instead of stdout")
+
+    serve = sub.add_parser("serve", help="serve a graph of @service components, one process "
+                           "per service worker")
+    serve.add_argument("graph", nargs="?", default="-",
+                       help="module.path:EntryService (optional with --package: defaults to "
+                       "the manifest entry)")
+    serve.add_argument("-f", "--config", default=None, help="YAML ServiceConfig")
+    serve.add_argument("--package", default=None, metavar="NAME[:VER]",
+                       help="serve a packaged graph pulled from the api-store")
+    serve.add_argument("--api-store", default=API_STORE, dest="api_store")
+    serve.add_argument("--package-cache", default=str(PACKAGE_CACHE), dest="package_cache")
+    common(serve)
+
+    pkg = sub.add_parser("package", help="build/push/pull packaged serving graphs")
+    pkg_sub = pkg.add_subparsers(dest="pkg_cmd", required=True)
+    pb = pkg_sub.add_parser("build", help="archive a graph source tree")
+    pb.add_argument("src", help="directory of graph sources")
+    pb.add_argument("--entry", required=True, help="module:Service relative to the package root")
+    pb.add_argument("--name", required=True)
+    pb.add_argument("-o", "--out", required=True, help="output .tar.gz")
+    pp = pkg_sub.add_parser("push", help="upload a package to the api-store")
+    pp.add_argument("pkg", help="package .tar.gz")
+    pp.add_argument("--api-store", default=API_STORE, dest="api_store")
+    pl = pkg_sub.add_parser("pull", help="download + unpack a package")
+    pl.add_argument("ref", help="name[:version]")
+    pl.add_argument("--api-store", default=API_STORE, dest="api_store")
+    pl.add_argument("-o", "--out", default=str(PACKAGE_CACHE))
+    pls = pkg_sub.add_parser("list", help="list packages in the api-store")
+    pls.add_argument("--api-store", default=API_STORE, dest="api_store")
     return p
 
 
@@ -643,7 +807,8 @@ def parse_args(argv: Optional[list[str]] = None) -> argparse.Namespace:
 
 
 _COMMANDS = {"run": _cmd_run, "http": _cmd_http, "coordinator": _cmd_coordinator,
-             "router": _cmd_router, "models": _cmd_models, "trace": _cmd_trace}
+             "router": _cmd_router, "models": _cmd_models, "trace": _cmd_trace,
+             "serve": _cmd_serve, "package": _cmd_package}
 
 
 def main(argv: Optional[list[str]] = None) -> None:

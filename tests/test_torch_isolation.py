@@ -1,8 +1,11 @@
 """The PyTorch port stands alone and never drops quietly to the CPU.
 
 * No module of the port, and not the root ``chip_smoke.py``, imports JAX
-  or anything of the JAX package (an AST walk over the files, found
-  through the imported package, not through a path spelled out here).
+  or anything of the JAX package, nor the root ``examples`` graph library,
+  which imports the JAX package (an AST walk over the files, found through
+  the imported package, not through a path spelled out here).
+* The port's serving graphs resolve to the port's components only, and its
+  supervisor spawns the port's worker entry.
 * The entry points raise when no device is named and no CUDA device
   exists.
 * Each kernel wrapper takes its plain version only for CPU tensors; on any
@@ -11,6 +14,9 @@
 """
 
 import ast
+import asyncio
+import importlib
+import sys
 from pathlib import Path
 
 import pytest
@@ -25,7 +31,7 @@ from dynamo_tpu_torch.ops.kernels.decode_attention import paged_decode_attention
 from dynamo_tpu_torch.ops.kernels.prefill_attention import paged_prefill_attention
 
 PKG = Path(dynamo_tpu_torch.__file__).resolve().parent
-FORBIDDEN = {"jax", "jaxlib", "dynamo_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "dynamo_tpu", "examples"}
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -95,3 +101,45 @@ def test_kernel_wrappers_raise_off_cuda_and_cpu():
         paged_prefill_attention(_meta(b, s, h, d), _meta(b, s, hk, d), _meta(b, s, hk, d),
                                 cache, 1, bt, lens, lens)
     assert (paged_decode_attention.launches, paged_prefill_attention.launches) == before
+
+
+GRAPHS = sorted(p.stem for p in (PKG / "examples" / "llm" / "graphs").glob("*.py")
+                if p.stem != "__init__")
+
+
+def test_graphs_resolve_to_port_components():
+    from dynamo_tpu_torch.sdk.service import DynamoService
+
+    assert GRAPHS == ["agg", "agg_router", "disagg", "disagg_colocated", "disagg_router"]
+    for name in GRAPHS:
+        mod = f"{dynamo_tpu_torch.__name__}.examples.llm.graphs.{name}"
+        closure = importlib.import_module(mod).Frontend.closure(mod)
+        assert len(closure) >= 3
+        for svc in closure:
+            assert type(svc) is DynamoService, (name, svc)
+            assert svc.inner.__module__.startswith(
+                f"{dynamo_tpu_torch.__name__}.examples.llm.components."), (name,
+                                                                           svc.inner.__module__)
+
+
+def test_supervisor_spawns_the_port_worker(monkeypatch):
+    from dynamo_tpu_torch.sdk import serving
+
+    spawned = []
+
+    class Spawned:
+        pid = 0
+
+        def __init__(self, cmd, env):
+            spawned.append((cmd, env))
+
+    monkeypatch.setattr(serving.subprocess, "Popen", Spawned)
+    monkeypatch.setenv("DYNTPU_GPUS", "0,0")
+    graph = f"{dynamo_tpu_torch.__name__}.examples.llm.graphs.disagg:Frontend"
+    sup = serving.ServeSupervisor(graph, coordinator_url="tcp://127.0.0.1:1")
+    asyncio.run(sup.start())
+    names = ["PrefillWorker", "GpuWorker", "Processor", "Frontend"]
+    assert [cmd for cmd, _ in spawned] == [
+        [sys.executable, "-m", f"{dynamo_tpu_torch.__name__}.sdk.serve_worker", graph, name]
+        for name in names]
+    assert [env["CUDA_VISIBLE_DEVICES"] for _, env in spawned] == ["0", "0", "", ""]
