@@ -83,12 +83,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``spec`` phase: speculative decoding on the copy task (each prompt a
    seeded 32-token segment repeated to its length, 64 tokens each, five
    greedy rows and one seeded at temperature 0.9, top_p 0.9) with
-   speculation off, n-gram lookup at k = 4 and 7, the model as its own
-   draft and a Llama-3.2-1B-width draft (random weights from a seed), k = 4;
-   and on the int8 model off and n-gram at k = 4.  Each run: every request
-   64 tokens at ``length``, the decode kernel launched at S = k + 1 (B1, or
-   B4a on int8), no plain-op attention call but a draft's ingest, the
-   self-draft accepting more than the 1B draft, and every stream that parts
+   speculation off, n-gram lookup at k = 4 and 7 and a Llama-3.2-1B-width
+   draft (random weights from a seed), k = 4 (the model as its own draft
+   is no longer run, to keep the script inside its time limit); and on the
+   int8 model off and n-gram at k = 4.  Each run: every request 64 tokens
+   at ``length``, the decode kernel launched at S = k + 1 (B1, or B4a on
+   int8), no plain-op attention call but the draft's ingest, and every stream that parts
    from speculation off's parting at a near-tie (the common prefix
    re-scored on the card; ``SPEC_TIE_EPS``).  It prints each run's
    readings and one ``{"spec": [...]}`` line at the end.  Then the
@@ -147,7 +147,28 @@ Phases, in order; any failure ends the run with a non-zero exit:
    offload thread, by CUDA events on its stream) beside a pinned
    device-to-host and host-to-device copy of P's bytes, persist spill and
    load MB/s and the host gap per turn of h2 and h4; one ``{"router":
-   ...}`` line the decisions, overlaps and the time of one decision;
+   ...}`` line the decisions, overlaps and the time of one decision.
+   Between the ``disagg`` and ``tier`` phases on the bf16 model, the
+   ``fault`` phase: two workers of this process, each its own engine on
+   the model (default path), at ``dyn://dynamo.backend.generate`` behind a
+   coordinator, and an ``HttpService`` over a ``MigratingClient`` with an
+   ``AdmissionController`` and (from (c) on) a ``HealthMonitor``: (a) the
+   1,500-token prompt streamed, 32 tokens, its worker's transport cut as
+   its 8th item frame goes out (``FaultInjector.sever_after``): the stream
+   ends with 32 tokens and ``: x-migrated 1``, one migration, the
+   survivor's one prefill of the prompt plus the 7 tokens delivered, its
+   launches B1 and B2 only, the cut engine holding no block, the tokens
+   equal to a fresh engine's unbroken stream or parting at a near tie;
+   (b) the same cut with ``x-migration-limit: 0`` ends in an error,
+   unmigrated; (d) six requests of one tenant against a bucket of two: four
+   429s with ``Retry-After``, counted in the shed family, two answered;
+   (c) one worker's request plane killed: suspect within the monitor's
+   fail_threshold x interval_s (plus a probe timeout), the suspect gauge
+   1 on ``/metrics``, the next three requests on the survivor alone, then
+   the survivor drained with two streams live, both finished (one
+   ``{"fault": ...}`` line, logged at the end: the migration's gap between
+   the cut worker's last token and the survivor's first, the tokens
+   re-prefilled, the survivor's launches, seconds to suspect, the 429s);
 5. parity: 2-layer models at full 8B width on the card (kernels, bf16) and
    on the CPU (plain PyTorch, f32), bf16 weights with a bf16 cache and int8
    weights with an int8 cache: one 300-token prompt over a 128-token cached
@@ -206,7 +227,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
    every process drains and exits 0 (one ``{"graphs": ...}`` line, logged
    at the end: boot seconds, remote and local seconds to the first text,
    one at a time and concurrent, the remote prefills, each worker's
-   launches, exit codes);
+   launches, exit codes).  Last, the ``formats`` phase, in process, into
+   the git-ignored ``_formats/``: ``quantize`` writes the checkpoint as a
+   native int8 checkpoint, whose tensors must equal ``--quantize int8``'s
+   load of the directory bit for bit and whose greedy request must equal
+   that load's (B5 launched; its load time beside the HF load plus
+   quantisation); the same weights as a Q8_0 GGUF file with its vocabulary
+   (packed on the card, checked against ``llm/gguf.py``'s writer), served
+   through the checkpoint dispatch (B1 and B2, no B5), its card logits
+   held to the CPU's as in phase 5; ``models push`` of the directory to a
+   coordinator on a thread of this process, ``dyn://models/front`` pulled
+   into a fresh cache (each file's sha256 equal to the source's, the
+   pull's MB/s) and served through ``--model-path dyn://models/front`` as
+   the directory serves (one ``{"formats": ...}`` line, logged at the
+   end);
 7. mixture of experts, serving: Qwen3-30B-A3B at full width, cut to 16 of
    its 48 layers (128 experts, random weights from a seeded generator) behind
    ``AsyncLLMEngine``, the six requests on bf16 weights and the default
@@ -248,11 +282,13 @@ one ``{"grammar": {...}}`` line (the grammar ops' and the seeded noise's
 times, launches and bounds, the table sizes, the constrained serving
 readings beside the unconstrained ones).  At the end one ``{"mla": [...]}``
 line, the ``{"disagg": ...}`` line, the ``{"tier": ...}`` and
-``{"router": ...}`` and ``{"graphs": ...}`` lines, one ``{"kernels":
-[...]}`` line (each kernel's row also holds its launches over the
-disaggregated runs under ``launches_disagg``, over the KV-tier runs under
-``launches_tier`` and in the ``graphs`` phase's two worker processes
-under ``launches_graphs``; the grouped
+``{"router": ...}``, ``{"graphs": ...}``, ``{"fault": ...}`` and
+``{"formats": ...}`` lines, one ``{"kernels": [...]}`` line (each
+kernel's row also holds its launches over the disaggregated runs under
+``launches_disagg``, over the KV-tier runs under ``launches_tier``, in the
+``graphs`` phase's two worker processes under ``launches_graphs``, over
+the fault phase's migrated request under ``launches_fault`` and over the
+formats phase's five requests under ``launches_formats``; the grouped
 kernels' rows hold their T = 8 reading and, under ``t1504``, their T =
 1,504 one; E1's also its DeepSeek-V2-Lite readings and launches), and as
 the last line ``{"ok": true, "device": {...}}``.  Every line it logs is
@@ -1840,10 +1876,11 @@ def serving_phase(torch, card: str):
     t0 = time.perf_counter()
     disagg = disagg_phase(torch, model, default, card)
     log(f"disagg phase (bf16): {time.perf_counter() - t0:.1f} s")
+    fault = fault_phase(torch, model, card)
     tier = tier_phase(torch, model, card)
     del model
     torch.cuda.empty_cache()
-    return default, budget, mixed, spec, disagg, tier
+    return default, budget, mixed, spec, disagg, tier, fault
 
 
 def serve_both(torch, model, card: str, quant: bool):
@@ -2198,9 +2235,8 @@ def spec_checks(runs: dict, quant: bool = False) -> None:
 
 def spec_phase(torch, model, card: str) -> dict:
     """Speculative decoding on the loaded Llama-3-8B bf16 model: the spec
-    cell's requests with speculation off, n-gram lookup at k = 4 and 7, the
-    model as its own draft (its weights, a cache of its own) and a
-    Llama-3.2-1B-width draft (random weights from a seed), k = 4."""
+    cell's requests with speculation off, n-gram lookup at k = 4 and 7 and
+    a Llama-3.2-1B-width draft (random weights from a seed), k = 4."""
     from dynamo_tpu_torch.models.convert import init_params
     from dynamo_tpu_torch.models.llama import LlamaModel
 
@@ -2213,7 +2249,7 @@ def spec_phase(torch, model, card: str) -> dict:
     log(f"spec: Llama-3.2-1B-width draft, {n_params / 1e9:.3f} B parameters, "
         f"{2 * n_params / 1e9:.2f} GB bf16, random weights in {time.perf_counter() - t0:.1f} s")
     plan = (("off", 0, None), ("ngram k=4", 4, None), ("ngram k=7", 7, None),
-            ("self-draft k=4", 4, model), ("1B draft k=4", 4, draft))
+            ("1B draft k=4", 4, draft))
     runs = {}
     for label, k, d in plan:
         runs[label] = spec_run(torch, model, dict(DEFAULT_PATH, spec_tokens=k), card, label,
@@ -2227,12 +2263,8 @@ def spec_phase(torch, model, card: str) -> dict:
     for label, r in runs.items():
         if r["k"]:
             r["parted"] = spec_near_ties(torch, model, runs["off"], r, card)
-    self_share = runs["self-draft k=4"]["accepted_share"]
-    small_share = runs["1B draft k=4"]["accepted_share"]
-    check(self_share > small_share, f"spec: the self-draft accepted {self_share:.3f}, not more "
-          f"than the 1B draft's {small_share:.3f}")
-    log(f"spec: accepted share, self-draft {self_share:.3f} against the 1B draft's "
-        f"{small_share:.3f} ({card})")
+    log(f"spec: accepted share, the 1B draft's {runs['1B draft k=4']['accepted_share']:.3f} "
+        f"({card})")
     return runs
 
 
@@ -3215,8 +3247,9 @@ def front_door_phase(torch, card: str) -> dict:
     front_server(torch, FRONT_INT8_FLAGS, card, "int8 token-budget path",
                  ["decode_q8", "ragged_q8", "matmul"], ["decode", "prefill", "ragged", "moe", "moe_q8"])
     torch.cuda.empty_cache()
+    formats = formats_phase(torch, card)
     log(f"front door: phase wall {time.perf_counter() - t0:.1f} s ({card})")
-    return graphs
+    return graphs, formats
 
 
 PROFILE_STEPS = 4
@@ -5336,6 +5369,683 @@ def deepseek_front_door_phase(torch, card: str) -> None:
     log(f"front door DeepSeek: phase wall {time.perf_counter() - t0:.1f} s ({card})")
 
 
+# --------------------------------------------------------------- fault plane
+# two workers, each its own engine on the loaded Llama-3-8B, behind a
+# MigratingClient with a HealthMonitor and an AdmissionController in front
+FAULT_PROMPT = PROMPT_LENS.index(1500)  # the 1,500-token prompt
+FAULT_CUT_ITEMS = 8  # the serving worker's transport is cut as its 8th item frame goes out
+FAULT_HEALTH = dict(interval_s=0.25, timeout_s=1.0, fail_threshold=2)
+FAULT_BURST, FAULT_BUCKET = 6, 2  # one tenant's burst against a bucket of two
+FAULT_NEXT = 3  # requests after the kill, each of which must land on the survivor
+FAULT_SHORT_TOKENS = 8
+FAULT_ENDPOINT = ("dynamo", "backend", "generate")
+
+
+@contextlib.contextmanager
+def launches_by_thread():
+    """Count the attention kernels' calls by the thread that made them (each
+    AsyncLLMEngine steps its core on a thread of its own), by wrapping the
+    routing's references to the wrappers; the wrappers and their launch
+    counts are untouched."""
+    import threading
+
+    from dynamo_tpu_torch.ops import paged_attention as routing
+
+    names = {"decode": "paged_decode_attention", "prefill": "paged_prefill_attention",
+             "ragged": "ragged_paged_prefill_attention",
+             "decode_q8": "paged_decode_attention_q8", "prefill_q8": "paged_prefill_attention_q8",
+             "ragged_q8": "ragged_paged_prefill_attention_q8"}
+    real = {k: getattr(routing, n) for k, n in names.items()}
+    rec: dict[int, dict[str, int]] = {}
+
+    def wrap(k):
+        def call(*args, **kw):
+            per = rec.setdefault(threading.get_ident(), {})
+            per[k] = per.get(k, 0) + 1
+            return real[k](*args, **kw)
+        return call
+
+    for k, n in names.items():
+        setattr(routing, n, wrap(k))
+    try:
+        yield rec
+    finally:
+        for k, n in names.items():
+            setattr(routing, n, real[k])
+
+
+def _hops(client) -> dict:
+    """Wrap the client's ``direct`` on the instance: every item the
+    MigratingClient receives is recorded, per request id, as (host time,
+    instance id, token ids).  Returns the record; ``del client.direct``
+    removes the wrap."""
+    real = client.direct
+    rec: dict[str, list] = {}
+
+    def direct(request, iid):
+        async def gen():
+            async for item in real(request, iid):
+                if getattr(item, "token_ids", None):
+                    rec.setdefault(request.id, []).append(
+                        (time.perf_counter(), iid, list(item.token_ids)))
+                yield item
+        return gen()
+
+    client.direct = direct
+    return rec
+
+
+async def _fault_post(session, url: str, prompt: list[int], rid: str, max_tokens: int,
+                      stream: bool = True, headers: dict | None = None) -> dict:
+    """One completion of token ids as ``rid`` (also its tenant): status,
+    Retry-After, SSE comments and finish reasons (a stream) or the body."""
+    body = {"model": "fault", "prompt": prompt, "max_tokens": max_tokens, "temperature": 0,
+            "stream": stream}
+    hdrs = {"x-request-id": rid, "x-tenant": rid, **(headers or {})}
+    async with session.post(url + "/v1/completions", json=body, headers=hdrs) as r:
+        out = dict(status=r.status, retry_after=r.headers.get("Retry-After"),
+                   migrated=r.headers.get("x-migrated"), comments=[], finishes=[])
+        if not stream or r.status != 200:
+            out["body"] = await r.json()
+            return out
+        async for raw in r.content:
+            line = raw.decode().strip()
+            if line.startswith(": "):
+                out["comments"].append(line[2:])
+            elif line.startswith("data: ") and line != "data: [DONE]":
+                out["finishes"] += [c.get("finish_reason") for c in json.loads(line[6:])["choices"]]
+        return out
+
+
+def _metric(text: str, name: str) -> float:
+    """The sum of a family's samples on a /metrics page."""
+    return sum(float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+               if line.startswith(name) and line[len(name)] in " {")
+
+
+async def _wait_idle(engine, limit_s: float = 10.0) -> int:
+    """Step boundaries until the engine's core holds no block (an aborted
+    request's release lands on the engine thread): its active blocks."""
+    t0 = time.perf_counter()
+    while True:
+        held = await engine.run_on_engine(lambda: engine.core.block_manager.active_blocks)
+        if held == 0 or time.perf_counter() - t0 > limit_s:
+            return held
+        await asyncio.sleep(0.05)
+
+
+async def _fault_serve(torch, model, card: str) -> dict:
+    """The fault phase's serving: (a) a streamed request whose worker is cut
+    at its FAULT_CUT_ITEMS-th item migrates; (b) the same cut with
+    ``x-migration-limit: 0`` ends in an error; (d) a burst of FAULT_BURST
+    from one tenant against a bucket of FAULT_BUCKET; (c) the first
+    worker's request plane killed, suspect, the next requests on the
+    survivor, then the survivor drained under two live streams."""
+    import aiohttp
+
+    from dynamo_tpu_torch.engine import AsyncLLMEngine, EngineConfig, EngineCore
+    from dynamo_tpu_torch.fault import FaultInjector, HealthMonitor, MigratingClient
+    from dynamo_tpu_torch.fault.counters import counters
+    from dynamo_tpu_torch.llm.engines import build_serving_pipeline
+    from dynamo_tpu_torch.llm.http import HttpService, ModelManager
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.obs.metric_names import FaultMetric as FM
+    from dynamo_tpu_torch.obs.metric_names import HttpMetric as HM
+    from dynamo_tpu_torch.planner import AdmissionConfig, AdmissionController
+    from dynamo_tpu_torch.runtime import serde
+    from dynamo_tpu_torch.runtime.config import RuntimeConfig
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.runtime.transports.coordinator import CoordinatorServer
+
+    serde.register_llm_types()
+    counters.reset()
+    ns, comp, ep = FAULT_ENDPOINT
+    engines = [AsyncLLMEngine(EngineCore(model, EngineConfig(**DEFAULT_PATH), device="cuda")).start()
+               for _ in range(2)]
+    srv = await CoordinatorServer(port=0).start()
+    runtimes, client, mon, http, out = [], None, None, None, {}
+    injector = FaultInjector()
+    try:
+        for i, e in enumerate(engines):
+            await _serve(e, [list(range(1, 40))], tag=f"fault-warm-up-{i}")
+        for e in engines:
+            rt = await DistributedRuntime.connect(RuntimeConfig(coordinator_url=srv.url,
+                                                                lease_ttl_s=10.0))
+            await rt.namespace(ns).component(comp).endpoint(ep).serve(e)
+            runtimes.append(rt)
+        fe = await DistributedRuntime.connect(RuntimeConfig(coordinator_url=srv.url))
+        runtimes.append(fe)
+        client = await fe.namespace(ns).component(comp).endpoint(ep).client()
+        await client.wait_for_instances(2, timeout=30)
+        mon = HealthMonitor(client, **FAULT_HEALTH)
+        client.health = mon
+        # the first pick is the lowest healthy instance id, so the worker a
+        # request lands on is known before it is sent
+        mig = MigratingClient(client, backoff_s=0.05,
+                              pick=lambda exclude: min(client._candidate_ids(exclude)))
+        hops = _hops(client)
+        mcard = ModelDeploymentCard(name="fault", tokenizer_path=str(FRONT_DIR / "tokenizer.json"),
+                                    context_length=DEFAULT_PATH["max_model_len"])
+        manager = ModelManager()
+        manager.add_model("fault", build_serving_pipeline(mig, mcard), mcard)
+        admission = AdmissionController(AdmissionConfig(
+            max_concurrent=8, rate_tokens_per_s=0.01, burst_tokens=float(FAULT_BUCKET)))
+        http = HttpService(manager, port=0, admission=admission)
+        await http.start()
+        url = f"http://127.0.0.1:{http.port}"
+        first = min(client.instance_ids())
+        cut = runtimes[[rt.instance_id for rt in runtimes[:2]].index(first)]
+        cut_engine, survivor = (engines[0], engines[1]) if cut is runtimes[0] else (
+            engines[1], engines[0])
+        surv_rt = runtimes[1] if cut is runtimes[0] else runtimes[0]
+        prompt = model_prompts(model)[FAULT_PROMPT]
+        async with aiohttp.ClientSession() as s:
+            # (a) migration
+            wrappers = _kernel_wrappers()
+            for fn in wrappers.values():
+                fn.launches = 0
+            before = (survivor.core.prefill_counters.dispatches_total,
+                      survivor.core.prefill_counters.tokens_total)
+            cut_reqs = []
+            real_submit = cut_engine.core.submit
+            cut_engine.core.submit = lambda req: (cut_reqs.append(req), real_submit(req))[1]
+            injector.sever_after(cut, n_items=FAULT_CUT_ITEMS)
+            with launches_by_thread() as by_thread:
+                a = await _fault_post(s, url, prompt, "fault-a", MAX_TOKENS)
+                # both engines at a step boundary with no block held: the
+                # cut request's release has landed and no burst is running
+                out["cut_held"] = await _wait_idle(cut_engine)
+                await _wait_idle(survivor)
+            injector.clear(cut)
+            del cut_engine.core.submit
+            out["cut_finish"] = [(str(r.finish_reason and r.finish_reason.value), r.generated)
+                                 for r in cut_reqs]
+            out["launches"] = {k: fn.launches for k, fn in wrappers.items()}
+            out["survivor_launches"] = by_thread.get(survivor._thread.ident, {})
+            out["cut_launches"] = by_thread.get(cut_engine._thread.ident, {})
+            rec = hops.get("fault-a", [])
+            out["a"] = a
+            out["tokens"] = [t for _, _, toks in rec for t in toks]
+            from_cut = [r for r in rec if r[1] == cut.instance_id]
+            from_surv = [r for r in rec if r[1] == surv_rt.instance_id]
+            out["emitted_before_cut"] = sum(len(r[2]) for r in from_cut)
+            out["gap_ms"] = (1e3 * (from_surv[0][0] - from_cut[-1][0])
+                             if from_cut and from_surv else None)
+            out["reprefill"] = (survivor.core.prefill_counters.dispatches_total - before[0],
+                                survivor.core.prefill_counters.tokens_total - before[1])
+            out["migrations_a"] = counters.migrations_total
+            # (b) the same cut, opted out of migration
+            injector.sever_after(cut, n_items=FAULT_CUT_ITEMS)
+            b = await _fault_post(s, url, prompt[:300], "fault-b", MAX_TOKENS,
+                                  headers={"x-migration-limit": "0"})
+            injector.clear(cut)
+            out["b"] = b
+            out["migrations_b"] = counters.migrations_total - out["migrations_a"]
+            out["cut_held_b"] = await _wait_idle(cut_engine)
+            # (d) admission: one tenant's burst against a bucket of FAULT_BUCKET
+            short = model_prompts(model, seed=5)
+            burst = await asyncio.gather(*(
+                _fault_post(s, url, short[0], "fault-burst", FAULT_SHORT_TOKENS, stream=False,
+                            headers={"x-request-id": f"fault-burst-{i}"})
+                for i in range(FAULT_BURST)))
+            out["burst"] = burst
+            text = await (await s.get(url + "/metrics")).text()
+            out["shed_metric"] = _metric(text, HM.ADMISSION_SHED_TOTAL)
+            out["shed_total"] = dict(admission.shed_total)
+            # (c) kill the first worker's request plane: suspect, then the
+            # next requests on the survivor
+            await mon.start()
+            await asyncio.sleep(2 * FAULT_HEALTH["interval_s"])
+            check(not mon.suspect_ids(), f"fault (c): suspects {mon.suspect_ids()} before the kill")
+            t0 = time.perf_counter()
+            await injector.kill_tcp_server(cut)
+            while cut.instance_id not in mon.suspect_ids():
+                check(time.perf_counter() - t0 < 30, "fault (c): no suspect after 30 s")
+                await asyncio.sleep(0.01)
+            out["suspect_s"] = time.perf_counter() - t0
+            text = await (await s.get(url + "/metrics")).text()
+            out["suspect_metric"] = _metric(text, FM.SUSPECT_INSTANCES)
+            nxt = [await _fault_post(s, url, short[1 + i][:100], f"fault-next-{i}",
+                                     FAULT_SHORT_TOKENS, stream=False)
+                   for i in range(FAULT_NEXT)]
+            out["survivor_id"] = surv_rt.instance_id
+            out["next"] = [dict(status=r["status"], migrated=r["migrated"],
+                                workers=sorted({h[1] for h in hops.get(f"fault-next-{i}", [])}))
+                           for i, r in enumerate(nxt)]
+            # drain the survivor with two streams live
+            live = [asyncio.ensure_future(_fault_post(s, url, short[4 + i][:200],
+                                                      f"fault-drain-{i}", MAX_TOKENS))
+                    for i in range(2)]
+            while not all(hops.get(f"fault-drain-{i}") for i in range(2)):
+                check(time.perf_counter() - t0 < 120, "fault (c): the drain's streams never started")
+                await asyncio.sleep(0.01)
+            drain = asyncio.ensure_future(
+                surv_rt.namespace(ns).component(comp).endpoint(ep).drain(timeout=60.0))
+            await asyncio.sleep(0)
+            out["drains_in_progress"] = counters.drains_in_progress
+            out["drained"] = await drain
+            out["drain"] = await asyncio.gather(*live)
+            out["drain_tokens"] = [sum(len(h[2]) for h in hops[f"fault-drain-{i}"])
+                                   for i in range(2)]
+            out["drains_after"] = counters.drains_in_progress
+        del client.direct
+        return out
+    finally:
+        if http is not None:
+            await http.stop()
+        if mon is not None:
+            await mon.stop()
+        injector.release_all()
+        if client is not None:
+            await client.close()
+        for rt in runtimes:
+            await rt.shutdown()
+        await srv.stop()
+        for e in engines:
+            e.shutdown()
+        counters.reset()
+
+
+def fault_phase(torch, model, card: str) -> dict:
+    """The fault plane on the loaded Llama-3-8B (``_fault_serve``), held:
+    the migrated stream ends with MAX_TOKENS tokens and ``x-migrated 1``,
+    one migration, the survivor's one prefill of the prompt and the tokens
+    the cut worker delivered, which launched only B1 and B2 (as the whole
+    run did), the cut worker's engine stopping early (its request cancelled
+    within two decode bursts past the cut) and holding no block; its tokens equal
+    the request served unbroken by a fresh engine, or part only at a near
+    tie; the opted-out request ends in an error, unmigrated; FAULT_BURST -
+    FAULT_BUCKET of the burst shed with Retry-After and counted, the rest
+    answered; the killed worker suspect within fail_threshold x interval_s
+    (plus one probe's timeout), counted on /metrics, the next requests on
+    the survivor alone; the drain finishing both live streams.  Logs and
+    returns the ``{"fault": ...}`` line."""
+    from dynamo_tpu_torch.engine import AsyncLLMEngine, EngineConfig, EngineCore
+
+    t0 = time.perf_counter()
+    prompt = model_prompts(model)[FAULT_PROMPT]
+    ref_engine = AsyncLLMEngine(EngineCore(model, EngineConfig(**DEFAULT_PATH),
+                                           device="cuda")).start()
+    try:
+        asyncio.run(_serve(ref_engine, [list(range(1, 40))], tag="fault-ref-warm-up"))
+        ref = _streams(asyncio.run(_serve(ref_engine, [prompt], tag="fault-ref")))[0]
+    finally:
+        ref_engine.shutdown()
+    r = asyncio.run(_fault_serve(torch, model, card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    a, b = r["a"], r["b"]
+    check(a["status"] == 200 and a["finishes"][-1] == "length" and len(r["tokens"]) == MAX_TOKENS,
+          f"fault (a): status {a['status']}, finishes {a['finishes'][-3:]}, "
+          f"{len(r['tokens'])} tokens")
+    check("x-migrated 1" in a["comments"] and r["migrations_a"] == 1,
+          f"fault (a): comments {a['comments']}, migrations {r['migrations_a']}")
+    emitted = r["emitted_before_cut"]
+    check(emitted == FAULT_CUT_ITEMS - 1, f"fault (a): {emitted} tokens before the cut")
+    check(r["reprefill"] == (1, len(prompt) + emitted),
+          f"fault (a): the survivor's prefills {r['reprefill']}, expected one of "
+          f"{len(prompt) + emitted} tokens")
+    surv = r["survivor_launches"]
+    check(set(surv) == {"decode", "prefill"} and all(surv.values()),
+          f"fault (a): the survivor launched {surv}, expected B1 and B2 only")
+    check(all(v == 0 for k, v in r["launches"].items() if k not in ("decode", "prefill"))
+          and all(r["launches"][k] == surv.get(k, 0) + r["cut_launches"].get(k, 0)
+                  for k in ("decode", "prefill")),
+          f"fault (a): launches {r['launches']}, by engine {surv} + {r['cut_launches']}")
+    check(r["cut_held"] == 0 and r["cut_held_b"] == 0,
+          f"fault: the cut worker's engine holds {r['cut_held']} / {r['cut_held_b']} blocks")
+    # the cut engine stops early: its request ends cancelled, and it ran at
+    # most two decode bursts past the one that made the cut item
+    steps = DEFAULT_PATH["decode_steps"]
+    cut_steps = steps * (-(-(FAULT_CUT_ITEMS - 1) // steps) + 2)
+    cut_b1 = r["cut_launches"].get("decode", 0)
+    check(r["cut_finish"] and all(f == "cancelled" and g <= 1 + cut_steps
+                                  for f, g in r["cut_finish"])
+          and cut_b1 <= cut_steps * model.config.num_layers,
+          f"fault (a): the cut engine's request ended {r['cut_finish']} (finish, tokens) with "
+          f"{cut_b1} B1 launches; expected cancelled within {cut_steps} decode steps "
+          f"({cut_steps * model.config.num_layers} launches)")
+    parted = spec_near_ties(torch, model, dict(streams=[ref]),
+                            dict(streams=[r["tokens"]], label="fault (a) migrated"), card,
+                            bs=DEFAULT_PATH["block_size"], prompts=[prompt],
+                            sampling=[{"temperature": 0.0}], against="the unbroken stream")
+    check(b["status"] == 200 and b["finishes"][-1] == "error" and not b["comments"]
+          and r["migrations_b"] == 0,
+          f"fault (b): finishes {b['finishes'][-2:]}, comments {b['comments']}, "
+          f"migrations {r['migrations_b']}")
+    shed = [x for x in r["burst"] if x["status"] == 429]
+    ok = [x for x in r["burst"] if x["status"] == 200]
+    check(len(shed) == FAULT_BURST - FAULT_BUCKET and len(ok) == FAULT_BUCKET
+          and all(int(x["retry_after"]) >= 1 for x in shed)
+          and all(x["body"]["usage"]["completion_tokens"] == FAULT_SHORT_TOKENS for x in ok)
+          and r["shed_metric"] == len(shed) == sum(r["shed_total"].values()),
+          f"fault (d): statuses {[x['status'] for x in r['burst']]}, shed metric "
+          f"{r['shed_metric']}, controller {r['shed_total']}")
+    h = FAULT_HEALTH
+    bound = h["fail_threshold"] * h["interval_s"] + h["timeout_s"]
+    check(r["suspect_s"] <= bound and r["suspect_metric"] == 1,
+          f"fault (c): suspect after {r['suspect_s']:.3f} s (bound {bound} s), gauge "
+          f"{r['suspect_metric']}")
+    check(all(n["status"] == 200 and not n["migrated"] and n["workers"] == [r["survivor_id"]]
+              for n in r["next"]),
+          f"fault (c): the next requests {r['next']}")
+    check(r["drained"] and r["drains_in_progress"] == 1 and r["drains_after"] == 0
+          and all(d["status"] == 200 and d["finishes"][-1] == "length" for d in r["drain"])
+          and r["drain_tokens"] == [MAX_TOKENS, MAX_TOKENS],
+          f"fault (c): drained {r['drained']}, gauge {r['drains_in_progress']} then "
+          f"{r['drains_after']}, streams {[d['finishes'][-1:] for d in r['drain']]} "
+          f"{r['drain_tokens']}")
+    line = dict(
+        label="fault plane: Llama-3-8B bf16, default path, two workers in one process",
+        prompt_tokens=len(prompt), cut_at_item=FAULT_CUT_ITEMS, tokens=len(r["tokens"]),
+        emitted_before_cut=emitted, migrated=a["comments"], gap_ms=r["gap_ms"],
+        reprefilled_tokens=r["reprefill"][1], survivor_launches=surv,
+        cut_worker_launches=r["cut_launches"], cut_worker_finish=r["cut_finish"],
+        launches=r["launches"], parted_from_unbroken=parted,
+        opt_out_finish=b["finishes"][-1], seconds_to_suspect=r["suspect_s"],
+        suspect_bound_s=bound, shed_429=len(shed), admitted=len(ok),
+        next_on_survivor=len(r["next"]), drained=r["drained"], seconds=time.perf_counter() - t0,
+        card=card)
+    log(f"fault phase: {line['seconds']:.1f} s, migration gap {line['gap_ms']:.1f} ms, "
+        f"{line['reprefilled_tokens']} tokens re-prefilled, the cut engine's request "
+        f"{r['cut_finish']} (finish, tokens) after {cut_b1} B1 launches, suspect after "
+        f"{line['seconds_to_suspect']:.3f} s, {len(shed)} shed ({card})")
+    return line
+
+
+# ------------------------------------------------------- checkpoint formats
+# the front-door checkpoint as a native int8 checkpoint, as a Q8_0 GGUF file
+# and pulled through the model store, each into this git-ignored directory
+FORMATS_DIR = ROOT / "_formats"
+FORMATS_TOKENS = 16
+# the GGUF's card-packed Q8_0 bytes held to llm/gguf.py's writer: one whole
+# matrix, and this many rows (from a seed) of every other one
+FORMATS_Q8_WHOLE = "blk.0.attn_k.weight"
+FORMATS_Q8_ROWS, FORMATS_Q8_SEED = 64, 7
+FORMATS_MODEL = "front"
+FORMATS_FILES = ("config.json", "tokenizer.json", "tokenizer_config.json",
+                 "model.safetensors.index.json")
+
+
+def _q8_0_bytes(torch, w) -> bytes:
+    """``w`` as GGUF Q8_0 blocks, packed on the card: per 32 values an f16
+    scale amax / 127 and 32 int8 codes, in the arithmetic of ``llm/gguf.py``'s
+    writer (f32 division, round half to even).  The divisor 127 is a card
+    tensor: a Python scalar divisor makes the card multiply by its
+    reciprocal, which is off by one bit for some scales."""
+    flat = w.reshape(-1, 32).float()
+    amax = flat.abs().amax(dim=1)
+    d = amax / torch.full_like(amax, 127.0)
+    safe = torch.where(d == 0, torch.ones_like(d), d)
+    qs = torch.round(flat / safe[:, None]).clamp(-127, 127).to(torch.int8)
+    rec = torch.cat([d.to(torch.float16).view(torch.uint8).reshape(-1, 2), qs.view(torch.uint8)],
+                    dim=1)
+    return rec.cpu().numpy().tobytes()
+
+
+def write_front_gguf(torch, path: Path) -> dict:
+    """The front-door checkpoint's weights as a Q8_0 GGUF file with its
+    vocabulary: every matrix Q8_0 (Q and K rope-permuted as llama.cpp's
+    converter stores them), packed on the card and held to ``llm/gguf.py``'s
+    writer on the rows FORMATS_Q8_* name; the norms f32.  Returns sizes,
+    seconds and the rows held."""
+    from safetensors import safe_open
+    from tokenizers import Tokenizer
+
+    from dynamo_tpu_torch.llm import gguf
+
+    t0 = time.perf_counter()
+    cfg = llama3_8b(FRONT_LAYERS)
+    index = json.loads((FRONT_DIR / "model.safetensors.index.json").read_text())["weight_map"]
+    # HF name -> llama.cpp name: the GGUF loader's own map
+    names = dict(gguf._GGUFStateDict._MAP)
+    for i in range(FRONT_LAYERS):
+        names.update({f"model.layers.{i}.{k}": f"blk.{i}.{v}"
+                      for k, v in gguf._GGUFStateDict._LAYER_MAP.items()})
+    tensors, raw, rows_checked = {}, {}, 0
+    gen = torch.Generator().manual_seed(FORMATS_Q8_SEED)
+    for hf, name in names.items():
+        with safe_open(FRONT_DIR / index[hf], framework="pt", device="cuda") as f:
+            w = f.get_tensor(hf)
+        if w.ndim == 1:
+            tensors[name] = w.float().cpu().numpy()
+            continue
+        heads = cfg.num_heads if "q_proj" in hf else cfg.num_kv_heads if "k_proj" in hf else 0
+        if heads:  # llama.cpp's permutation, gguf.permute_qk on the card
+            w = w.reshape(heads, 2, w.shape[0] // heads // 2, -1).transpose(1, 2).reshape(w.shape)
+        packed = _q8_0_bytes(torch, w)
+        raw[name] = (gguf.GGML_Q8_0, tuple(w.shape), packed)
+        # the bytes written against the package's writer on the same rows:
+        # every row of FORMATS_Q8_WHOLE, FORMATS_Q8_ROWS seeded rows of the rest
+        rows = (list(range(w.shape[0])) if name == FORMATS_Q8_WHOLE else
+                sorted(torch.randperm(w.shape[0], generator=gen)[:FORMATS_Q8_ROWS].tolist()))
+        row_bytes = len(packed) // w.shape[0]
+        got = b"".join(packed[i * row_bytes:(i + 1) * row_bytes] for i in rows)
+        check(got == gguf._quant_q8_0(w[rows].float().cpu().numpy()),
+              f"formats: the card's Q8_0 packing of {name} differs from llm/gguf.py's "
+              f"on rows {rows[:8]}")
+        rows_checked += len(rows)
+    vocab = Tokenizer.from_file(str(FRONT_DIR / "tokenizer.json")).get_vocab(with_added_tokens=True)
+    tokens = [t for t, _ in sorted(vocab.items(), key=lambda x: x[1])]
+    check(len(tokens) == cfg.vocab_size, f"formats: vocabulary of {len(tokens)} tokens")
+    sp = specials()
+    meta = {"general.architecture": "llama", "general.name": FORMATS_MODEL,
+            "llama.block_count": FRONT_LAYERS, "llama.embedding_length": cfg.hidden_size,
+            "llama.feed_forward_length": cfg.intermediate_size,
+            "llama.attention.head_count": cfg.num_heads,
+            "llama.attention.head_count_kv": cfg.num_kv_heads,
+            "llama.rope.freq_base": float(cfg.rope_theta),
+            "llama.attention.layer_norm_rms_epsilon": 1e-5,
+            "llama.context_length": cfg.max_position_embeddings,
+            "llama.vocab_size": cfg.vocab_size, "tokenizer.ggml.model": "llama",
+            "tokenizer.ggml.tokens": tokens, "tokenizer.ggml.scores": [0.0] * len(tokens),
+            "tokenizer.ggml.bos_token_id": sp["<|begin_of_text|>"],
+            "tokenizer.ggml.eos_token_id": sp["<|eot_id|>"]}
+    gguf.write_gguf(path, meta, tensors, raw=raw)
+    return dict(bytes=path.stat().st_size, seconds=time.perf_counter() - t0,
+                q8_rows_checked=rows_checked)
+
+
+async def _manifest(url: str, name: str) -> dict:
+    from dynamo_tpu_torch.llm.model_store import manifest_key
+    from dynamo_tpu_torch.runtime.transports.coordinator import CoordinatorClient
+
+    c = await CoordinatorClient(url).connect()
+    try:
+        return await c.kv_get(manifest_key(name))
+    finally:
+        await c.close()
+
+
+def _formats_engine(args: list[str]):
+    from dynamo_tpu_torch.cli import build_local_engine, parse_args
+
+    return build_local_engine(parse_args(["run", "in=http", "out=gpu", "--model-name",
+                                          FORMATS_MODEL, *FRONT_FLAGS, *args]))
+
+
+def _formats_serve(engine, prompt: list[int], tag: str) -> tuple[list[int], dict]:
+    """One greedy request of FORMATS_TOKENS tokens, alone, with every
+    kernel counter zeroed just before and read just after: (tokens,
+    launches)."""
+    wrappers = _kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    toks = _streams(asyncio.run(_serve(engine, [prompt], max_tokens=FORMATS_TOKENS, tag=tag)))[0]
+    return toks, {k: fn.launches for k, fn in wrappers.items()}
+
+
+def formats_phase(torch, card: str) -> dict:
+    """The checkpoint formats on the 2-layer Llama-3-8B-width front-door
+    checkpoint, in process.  Native: ``quantize`` to an int8 checkpoint,
+    its tensors bit-equal to ``--quantize int8``'s load of the directory,
+    its load beside that load plus quantisation, and one greedy request
+    served from each, equal, launching B5.  GGUF: the weights as a Q8_0
+    file written with ``write_gguf``, served through the checkpoint
+    dispatch (B1 and B2 launched, no B5), its card logits held to the CPU's
+    on the same weights.  Model store: ``models push`` of the directory to
+    a coordinator on a thread of this process, ``dyn://models/front``
+    pulled into a fresh cache (every file's sha256 equal to the source's,
+    the pull's MB/s), served through ``--model-path dyn://models/front`` as
+    the directory serves.  Logs and returns the ``{"formats": ...}`` line."""
+    import dataclasses
+    import os
+    import shutil
+
+    import numpy as np
+
+    from dynamo_tpu_torch import cli
+    from dynamo_tpu_torch.llm import model_store
+    from dynamo_tpu_torch.models.checkpoint import load_checkpoint
+    from dynamo_tpu_torch.models.llama import LlamaModel
+    from dynamo_tpu_torch.models.loader import load_model_dir
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(FORMATS_DIR, ignore_errors=True)
+    FORMATS_DIR.mkdir()
+    native = FORMATS_DIR / "native-int8"
+    prompt = np.random.default_rng(7).integers(0, LLAMA3_VOCAB - 256, 300).tolist()
+    out = dict(label="checkpoint formats: 2-layer Llama-3-8B width", card=card)
+    launches = {}
+
+    # native int8 checkpoint
+    t0 = time.perf_counter()
+    cli.main(["quantize", str(FRONT_DIR), str(native)])
+    out["quantize_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, nstate, quantized = load_checkpoint(native, device="cuda")
+    torch.cuda.synchronize()
+    out["native_load_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, hstate = load_model_dir(FRONT_DIR, device="cuda", quantize=True)
+    torch.cuda.synchronize()
+    out["hf_load_quantize_s"] = time.perf_counter() - t0
+    differ = sorted(k for k in hstate if not (k in nstate and nstate[k].dtype == hstate[k].dtype
+                                              and torch.equal(nstate[k], hstate[k])))
+    check(quantized and set(nstate) == set(hstate) and not differ,
+          f"formats native: tensors {differ[:5]} differ from --quantize int8's")
+    out["native_tensors"] = len(nstate)
+    out["native_int8_tensors"] = sum(t.dtype == torch.int8 for t in nstate.values())
+    out["native_bytes"] = (native / "params.safetensors").stat().st_size
+    del nstate, hstate
+    torch.cuda.empty_cache()
+    streams = {}
+    for label, args in (("hf --quantize int8", ["--model-path", str(FRONT_DIR), "--quantize",
+                                                "int8"]),
+                        ("native int8", ["--model-path", str(native)])):
+        engine, _ = _formats_engine(args)
+        try:
+            streams[label], launches[label] = _formats_serve(engine, prompt, f"formats-{label}")
+        finally:
+            engine.shutdown()
+        gc.collect()
+        torch.cuda.empty_cache()
+    nl = launches["native int8"]
+    check(streams["native int8"] == streams["hf --quantize int8"] and streams["native int8"],
+          f"formats native: stream {streams['native int8']} != --quantize int8's "
+          f"{streams['hf --quantize int8']}")
+    check(nl["matmul"] > 0 and nl["decode"] > 0 and nl["prefill"] > 0
+          and not any(v for k, v in nl.items() if k not in ("matmul", "decode", "prefill")),
+          f"formats native: launches {nl}, need B5, B1 and B2 and no other")
+
+    # GGUF
+    gpath = FORMATS_DIR / "front-q8_0.gguf"
+    out["gguf_write"] = write_front_gguf(torch, gpath)
+    t0 = time.perf_counter()
+    engine, gcard = _formats_engine(["--model-path", str(gpath)])
+    out["gguf_load_s"] = time.perf_counter() - t0
+    try:
+        streams["gguf"], launches["gguf"] = _formats_serve(engine, prompt, "formats-gguf")
+        model = engine.core.model
+        state = {k: v.float().cpu() for k, v in model.state_dict().items()}
+        cfg = dataclasses.replace(model.config, dtype="float32")
+        cpu = LlamaModel.from_state(cfg, state)
+        rng = np.random.default_rng(1)
+        p300, steps = rng.integers(0, cfg.vocab_size, 300).tolist(), rng.integers(
+            0, cfg.vocab_size, 8).tolist()
+        _hold_card_to_cpu(
+            torch, "GGUF Q8_0: 2-layer 8B width, 300-token prompt over a 128-token prefix + 8 "
+            "decode steps",
+            lambda: _forward_logits(torch, model, torch.device("cuda"), p300, steps, 128),
+            lambda: _forward_logits(torch, cpu, torch.device("cpu"), p300, steps, 128), card)
+        del model, cpu, state
+    finally:
+        engine.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    gl = launches["gguf"]
+    check(len(streams["gguf"]) > 0 and gl["decode"] > 0 and gl["prefill"] > 0
+          and not any(v for k, v in gl.items() if k not in ("decode", "prefill")),
+          f"formats GGUF: {len(streams['gguf'])} tokens, launches {gl}, need B1 and B2 only")
+    check(gcard.name == FORMATS_MODEL and gcard.eos_token_ids == [specials()["<|eot_id|>"]],
+          f"formats GGUF: card {gcard.name} eos {gcard.eos_token_ids}")
+
+    # model store
+    src = FORMATS_DIR / "hf"
+    src.mkdir()
+    index = json.loads((FRONT_DIR / "model.safetensors.index.json").read_text())["weight_map"]
+    for name in sorted(set(FORMATS_FILES) | set(index.values())):
+        (src / name).symlink_to(FRONT_DIR / name)
+    cache = FORMATS_DIR / "cache"
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    with background_coordinator() as url:
+        t0 = time.perf_counter()
+        push = subprocess.run([sys.executable, "-m", "dynamo_tpu_torch", "models", "push",
+                               FORMATS_MODEL, str(src), "--coordinator", url], cwd=str(ROOT),
+                              env=env, capture_output=True, text=True, timeout=300)
+        out["push_s"] = time.perf_counter() - t0
+        check(push.returncode == 0, f"formats store: models push exited {push.returncode}: "
+              f"{push.stderr[-2000:]}")
+        t0 = time.perf_counter()
+        pulled = Path(model_store.resolve_model_sync(f"dyn://models/{FORMATS_MODEL}", url,
+                                                     cache_dir=cache))
+        out["pull_s"] = time.perf_counter() - t0
+        files = sorted(p.name for p in src.iterdir())
+        nbytes = sum((src / f).stat().st_size for f in files)
+        # the pushed digests: the manifest push_model hashed from the source
+        pushed = asyncio.run(_manifest(url, FORMATS_MODEL))["files"]
+        same = [model_store.file_sha256(pulled / f) == pushed[f]["sha256"] for f in files]
+        check(all(same) and sorted(pushed) == files
+              and sorted(p.name for p in pulled.iterdir()) == files,
+              f"formats store: pushed {sorted(pushed)}, pulled "
+              f"{sorted(p.name for p in pulled.iterdir())}, digests equal {same}")
+        out.update(pushed=push.stdout.strip(), files=len(files), pull_bytes=nbytes,
+                   pull_mb_s=nbytes / out["pull_s"] / 1e6)
+        # served through the ref: a cache hit, verified against the manifest
+        real_cache = model_store.DEFAULT_CACHE
+        model_store.DEFAULT_CACHE = cache
+        try:
+            for label, args in (("directory", ["--model-path", str(FRONT_DIR)]),
+                                ("dyn://models/front", ["--model-path",
+                                                        f"dyn://models/{FORMATS_MODEL}",
+                                                        "--coordinator", url])):
+                engine, mcard = _formats_engine(args)
+                try:
+                    streams[label], launches[label] = _formats_serve(engine, prompt,
+                                                                     f"formats-{label}")
+                finally:
+                    engine.shutdown()
+                gc.collect()
+                torch.cuda.empty_cache()
+            check(mcard.model_path == str(pulled),
+                  f"formats store: served from {mcard.model_path}, not the pulled {pulled}")
+        finally:
+            model_store.DEFAULT_CACHE = real_cache
+    check(streams["dyn://models/front"] == streams["directory"] and streams["directory"],
+          f"formats store: the pulled copy's stream {streams['dyn://models/front']} != the "
+          f"directory's {streams['directory']}")
+    out.update(streams={k: len(v) for k, v in streams.items()}, launches=launches,
+               launches_total={k: sum(l[k] for l in launches.values()) for k in nl},
+               seconds=time.perf_counter() - t_phase)
+    log(f"formats: native int8 load {out['native_load_s']:.2f} s vs HF load + quantise "
+        f"{out['hf_load_quantize_s']:.2f} s (warm page cache); GGUF Q8_0 "
+        f"{out['gguf_write']['bytes'] / 1e9:.2f} GB written in {out['gguf_write']['seconds']:.1f} s, "
+        f"loaded in {out['gguf_load_s']:.1f} s; pull {nbytes / 1e9:.2f} GB at "
+        f"{out['pull_mb_s']:.0f} MB/s; phase {out['seconds']:.1f} s ({card})")
+    shutil.rmtree(FORMATS_DIR, ignore_errors=True)
+    return out
+
+
 # --------------------------------------------------------------------- main
 def phase_clock():
     """A function that logs, under a phase's name, the seconds since its
@@ -5365,6 +6075,7 @@ def main() -> int:
 
     shutil.rmtree(FRONT_DIR, ignore_errors=True)
     shutil.rmtree(PERSIST_DIR, ignore_errors=True)
+    shutil.rmtree(FORMATS_DIR, ignore_errors=True)
     mark = phase_clock()
     try:
         card = card_line()
@@ -5388,7 +6099,7 @@ def main() -> int:
         mla = mla_timing(torch, card)
         mark("kernel timings")
         write_tokenizer(FRONT_DIR)
-        default, budget, mixed, spec, disagg, tier = serving_phase(torch, card)
+        default, budget, mixed, spec, disagg, tier, fault = serving_phase(torch, card)
         times["ragged"] = ragged_timing(torch, card, mixed)
         times["ragged_err"] = times["ragged"].pop("err")
         mark("Llama-3-8B bf16 serving")
@@ -5403,7 +6114,7 @@ def main() -> int:
         parity_phase(torch, card, verify=True)
         parity_phase(torch, card, quant=True)
         mark("Llama-3-8B parity")
-        graphs = front_door_phase(torch, card)
+        graphs, formats = front_door_phase(torch, card)
         mark("Llama-3-8B front door")
         moe_default, moe_budget = moe_serving_phase(torch, card)
         mark("Qwen3-30B-A3B serving")
@@ -5424,6 +6135,7 @@ def main() -> int:
     finally:
         shutil.rmtree(FRONT_DIR, ignore_errors=True)
         shutil.rmtree(PERSIST_DIR, ignore_errors=True)
+        shutil.rmtree(FORMATS_DIR, ignore_errors=True)
     # launches: each kernel's count over the serving run of the path it
     # carries (decode and prefill: the default path; ragged: the token-budget
     # path; the int8 kernels: the same paths on the int8 model; the grouped
@@ -5454,6 +6166,8 @@ def main() -> int:
              launches_disagg=disagg_launches["decode"],
              launches_tier=tier_launches["decode"],
              launches_graphs=graph_launches["decode"],
+             launches_fault=fault["launches"]["decode"],
+             launches_formats=formats["launches_total"]["decode"],
              max_abs_err=max(errs["decode"], times["decode_err"]), **times["decode"],
              verify=dict(times["decode_verify"], launches=verify_launches["B1"])),
         dict(name="paged_prefill_attention", route="cuda",
@@ -5463,6 +6177,8 @@ def main() -> int:
              launches_disagg=disagg_launches["prefill"],
              launches_tier=tier_launches["prefill"],
              launches_graphs=graph_launches["prefill"],
+             launches_fault=fault["launches"]["prefill"],
+             launches_formats=formats["launches_total"]["prefill"],
              max_abs_err=max(errs["prefill"], times["prefill_err"]), **times["prefill"]),
         dict(name="ragged_paged_prefill_attention", route="cuda",
              source="dynamo_tpu_torch/csrc/ragged_prefill_attention.cu",
@@ -5471,6 +6187,8 @@ def main() -> int:
              launches_disagg=disagg_launches["ragged"],
              launches_tier=tier_launches["ragged"],
              launches_graphs=graph_launches["ragged"],
+             launches_fault=fault["launches"]["ragged"],
+             launches_formats=formats["launches_total"]["ragged"],
              max_abs_err=max(errs["ragged"], times["ragged_err"]), **times["ragged"]),
         dict(name="paged_decode_attention_q8", route="cuda",
              source="dynamo_tpu_torch/csrc/decode_attention.cu",
@@ -5479,6 +6197,8 @@ def main() -> int:
              launches_disagg=disagg_launches["decode_q8"],
              launches_tier=tier_launches["decode_q8"],
              launches_graphs=graph_launches["decode_q8"],
+             launches_fault=fault["launches"]["decode_q8"],
+             launches_formats=formats["launches_total"]["decode_q8"],
              max_abs_err=max(errs["decode_q8"], times["decode_q8_err"]), **times["decode_q8"],
              verify=dict(times["decode_q8_verify"], launches=verify_launches["B4a"])),
         dict(name="paged_prefill_attention_q8", route="cuda",
@@ -5488,6 +6208,8 @@ def main() -> int:
              launches_disagg=disagg_launches["prefill_q8"],
              launches_tier=tier_launches["prefill_q8"],
              launches_graphs=graph_launches["prefill_q8"],
+             launches_fault=fault["launches"]["prefill_q8"],
+             launches_formats=formats["launches_total"]["prefill_q8"],
              max_abs_err=max(errs["prefill_q8"], times["prefill_q8_err"]), **times["prefill_q8"]),
         dict(name="ragged_paged_prefill_attention_q8", route="cuda",
              source="dynamo_tpu_torch/csrc/ragged_prefill_attention.cu",
@@ -5496,6 +6218,8 @@ def main() -> int:
              launches_disagg=disagg_launches["ragged_q8"],
              launches_tier=tier_launches["ragged_q8"],
              launches_graphs=graph_launches["ragged_q8"],
+             launches_fault=fault["launches"]["ragged_q8"],
+             launches_formats=formats["launches_total"]["ragged_q8"],
              max_abs_err=max(errs["ragged_q8"], times["ragged_q8_err"]), **times["ragged_q8"]),
         dict(name="int8_matmul", route="cuda",
              source="dynamo_tpu_torch/csrc/int8_matmul.cu",
@@ -5504,6 +6228,8 @@ def main() -> int:
              launches_disagg=disagg_launches["matmul"],
              launches_tier=tier_launches["matmul"],
              launches_graphs=graph_launches["matmul"],
+             launches_fault=fault["launches"]["matmul"],
+             launches_formats=formats["launches_total"]["matmul"],
              max_abs_err=max(errs["matmul"], times["matmul_err"]), **times["matmul"],
              verify=dict(times["matmul_verify"],
                          launches=spec["int8 ngram k=4"]["launches"]["matmul"])),
@@ -5514,6 +6240,8 @@ def main() -> int:
              launches_disagg=disagg_launches["moe"],
              launches_tier=tier_launches["moe"],
              launches_graphs=graph_launches["moe"],
+             launches_fault=fault["launches"]["moe"],
+             launches_formats=formats["launches_total"]["moe"],
              max_abs_err=max(errs["moe"], times["moe_err"]), **times["moe"]),
         dict(name="grouped_matmul_q8", route="cuda",
              source="dynamo_tpu_torch/csrc/grouped_matmul.cu",
@@ -5522,6 +6250,8 @@ def main() -> int:
              launches_disagg=disagg_launches["moe_q8"],
              launches_tier=tier_launches["moe_q8"],
              launches_graphs=graph_launches["moe_q8"],
+             launches_fault=fault["launches"]["moe_q8"],
+             launches_formats=formats["launches_total"]["moe_q8"],
              max_abs_err=max(errs["moe_q8"], times["moe_q8_err"]), **times["moe_q8"]),
     ]
     log(json.dumps({"spec": [{k: v for k, v in r.items() if k != "streams"}
@@ -5531,6 +6261,8 @@ def main() -> int:
     log(json.dumps({"tier": tier_out}))
     log(json.dumps({"router": tier["router"]}))
     log(json.dumps({"graphs": graphs}))
+    log(json.dumps({"fault": fault}))
+    log(json.dumps({"formats": formats}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                           "count": torch.cuda.device_count()}}))

@@ -1,20 +1,25 @@
 """The port's command line: ``run``, ``coordinator``, ``http``, ``router``,
-``models``, ``trace``, ``serve`` and ``package``.
+``models``, ``trace``, ``quantize``, ``serve`` and ``package``.
 
     python -m dynamo_tpu_torch run in=<http|text:PROMPT|stdin|batch:FILE|dyn://NS.COMP.EP> \\
         out=<gpu|echo|dyn://NS.COMP.EP> --model-path DIR [options]
 
 The counterpart of ``dynamo_tpu/cli.py``'s commands of the same names.
 ``run`` builds the local
-pipeline frontend → preprocessor → engine → detokenizer from a HuggingFace
-checkpoint directory and serves it over OpenAI HTTP (``in=http``), answers
-one prompt (``in=text:``), one prompt per line (``in=stdin``) or a JSONL
-file of prompts (``in=batch:``).  ``out=gpu`` serves the checkpoint on the
-PyTorch engine, on the GPU: a Llama-family directory (Mixtral and Qwen3-MoE
-included) or a DeepSeek-V2 one (``models/deepseek.py``; ``--quantize int8``
-is refused for it, as in the JAX CLI).  With no GPU present it fails rather
-than run on the CPU (``--device cpu`` is the plain PyTorch path the tests take);
-``out=echo`` echoes the prompt's tokens back with no model.
+pipeline frontend → preprocessor → engine → detokenizer from a checkpoint
+and serves it over OpenAI HTTP (``in=http``), answers one prompt
+(``in=text:``), one prompt per line (``in=stdin``) or a JSONL file of
+prompts (``in=batch:``).  ``out=gpu`` serves the checkpoint on the PyTorch
+engine, on the GPU.  ``--model-path`` is, in the JAX CLI's order of
+dispatch, a native checkpoint (``models/checkpoint.py``, written by
+``quantize``), a ``.gguf`` file (``llm/gguf.py``), or a HuggingFace
+directory: Llama-family (Mixtral and Qwen3-MoE included) or DeepSeek-V2
+(``models/deepseek.py``; ``--quantize int8`` is refused for it, as in the
+JAX CLI).  ``dyn://models/NAME`` pulls a model pushed with ``models push``
+from the coordinator's blob store into the local cache first.  With no
+GPU present it fails rather than run on the CPU (``--device cpu`` is the
+plain PyTorch path the tests take); ``out=echo`` echoes the prompt's
+tokens back with no model.
 ``--num-host-blocks N`` adds the host-RAM KV offload tier and
 ``--kv-persist-dir DIR`` (with ``--kv-persist-max-bytes``, ``--kv-persist-ttl``)
 the persistent tier below it, with the JAX CLI's defaults.
@@ -37,6 +42,9 @@ given by ``--coordinator tcp://HOST:PORT``, namespace ``--namespace``):
   remote worker, preprocessing and detokenizing here with DIR's tokenizer;
 * ``models add NAME dyn://NS.COMP.EP --model-path DIR`` registers a model
   under ``{ns}/models/``, ``models list|remove`` read and drop them;
+* ``models push NAME DIR`` uploads a model directory to the coordinator's
+  blob store and ``models pull NAME [--out DIR]`` fetches it into the
+  content-addressed cache (``llm/model_store.py``);
 * ``http`` is an OpenAI frontend that discovers the registered models and
   serves each through its worker endpoint;
 * ``router`` serves KV-aware routing decisions at ``dyn://NS.router.generate``;
@@ -46,7 +54,10 @@ given by ``--coordinator tcp://HOST:PORT``, namespace ``--namespace``):
 A worker serves the engine itself (tokens in, tokens out), which is what
 a frontend's preprocessing pipeline sends it; the JAX CLI's worker serves
 its text pipeline instead, which its own ``http`` frontend cannot call.
-The JAX CLI's ``models push|pull`` are not ported.
+
+``quantize SRC OUT [--scheme int8|none]`` converts an HF directory or a
+GGUF file into a native checkpoint once (on the GPU unless ``--device
+cpu``), so an engine starts without the per-start load and quantisation.
 
 Serving graphs (``sdk/``, ``examples/llm/graphs/``):
 
@@ -78,8 +89,8 @@ from typing import Optional
 
 log = logging.getLogger("dynamo_tpu_torch.cli")
 
-__all__ = ["build_local_engine", "attach_worker_publishers", "start_router_service",
-           "parse_args", "main"]
+__all__ = ["build_local_engine", "load_any_checkpoint", "model_card", "attach_worker_publishers",
+           "start_router_service", "parse_args", "main"]
 
 MODELS_PREFIX = "models/"  # under {namespace}/
 API_STORE = "http://127.0.0.1:7180"
@@ -87,14 +98,65 @@ API_STORE = "http://127.0.0.1:7180"
 PACKAGE_CACHE = Path("~/.cache/dynamo_tpu_torch/packages").expanduser()
 
 
+def load_any_checkpoint(path: str, dtype: Optional[str], device, quantize: bool):
+    """(model, quantized) for any checkpoint format, in the JAX CLI's order:
+    native (``quantize``'s output), GGUF, an HF directory (Llama family, or
+    DeepSeek by :func:`is_deepseek_dir`).  ``dtype`` None: a native
+    checkpoint keeps its stored dtype, the others load as bfloat16.
+    ``quantize``: int8 weights (a native int8 checkpoint already is)."""
+    from dynamo_tpu_torch.models.checkpoint import is_native_checkpoint, load_checkpoint
+    from dynamo_tpu_torch.models.deepseek import DeepseekModel
+    from dynamo_tpu_torch.models.llama import LlamaModel
+    from dynamo_tpu_torch.models.loader import (is_deepseek_dir, load_deepseek_dir,
+                                                load_model_dir, quantize_state)
+
+    if is_native_checkpoint(path):
+        # weights load as they are served: no per-start load + quantise
+        mcfg, state, quantized = load_checkpoint(path, dtype=dtype, device=device)
+        if quantize and not quantized:
+            state, quantized = quantize_state(mcfg, state), True
+        return LlamaModel.from_state(mcfg, state), quantized
+    if path.endswith(".gguf"):
+        from dynamo_tpu_torch.llm.gguf import load_gguf_model
+
+        mcfg, state = load_gguf_model(path, dtype=dtype or "bfloat16", device=device,
+                                      quantize=quantize)
+        return LlamaModel.from_state(mcfg, state), quantize
+    if is_deepseek_dir(path):  # the MLA family, as the JAX CLI dispatches it
+        if quantize:
+            raise SystemExit("--quantize int8 is not wired for this model family yet")
+        mcfg, state = load_deepseek_dir(path, dtype=dtype or "bfloat16", device=device)
+        return DeepseekModel.from_state(mcfg, state), False
+    mcfg, state = load_model_dir(path, dtype=dtype or "bfloat16", device=device, quantize=quantize)
+    return LlamaModel.from_state(mcfg, state), quantize
+
+
+def model_card(path: str, name: Optional[str] = None):
+    """The card of a checkpoint: from a GGUF file's metadata, else from the
+    directory (a native checkpoint carries its source's tokenizer files)."""
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+
+    if path.endswith(".gguf"):
+        return ModelDeploymentCard.from_gguf(path, name=name)
+    return ModelDeploymentCard.from_hf_dir(path, name=name)
+
+
 def build_local_engine(args) -> tuple[object, object]:
     """out=gpu|echo → (engine, card): the PyTorch engine on the checkpoint
-    in ``args.model_path``, started, or the echo stub."""
-    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    in ``args.model_path``, started, or the echo stub.  A
+    ``dyn://models/NAME`` path is pulled first (blocking this thread; an
+    event loop's caller resolves it with ``llm.model_store.resolve_model``
+    beforehand, as ``run`` does)."""
+    from dynamo_tpu_torch.llm.model_store import is_model_ref, resolve_model_sync
 
     if args.model_path is None:
         raise SystemExit(f"out={args.out} needs --model-path (weights + tokenizer)")
-    card = ModelDeploymentCard.from_hf_dir(args.model_path, name=args.model_name)
+    if is_model_ref(args.model_path):
+        ref = args.model_path
+        args.model_path = resolve_model_sync(
+            ref, getattr(args, "coordinator", None) or os.environ.get("DYNTPU_COORDINATOR"))
+        log.info("resolved %s -> %s", ref, args.model_path)
+    card = model_card(args.model_path, args.model_name)
     if args.out == "echo":
         from dynamo_tpu_torch.llm.engines import EchoEngineCore
 
@@ -106,9 +168,6 @@ def build_local_engine(args) -> tuple[object, object]:
 
     from dynamo_tpu_torch.device import resolve_device
     from dynamo_tpu_torch.engine import AsyncLLMEngine, EngineConfig, EngineCore
-    from dynamo_tpu_torch.models.deepseek import DeepseekModel
-    from dynamo_tpu_torch.models.llama import LlamaModel
-    from dynamo_tpu_torch.models.loader import is_deepseek_dir, load_deepseek_dir, load_model_dir
 
     try:
         # before the weights move: with no GPU and no --device this raises
@@ -139,28 +198,19 @@ def build_local_engine(args) -> tuple[object, object]:
     )
     if args.spec_draft_model and cfg.spec_tokens <= 0:
         raise SystemExit("--spec-draft-model requires --spec-tokens > 0")
-    quantize = args.quantize == "int8"
-    dtype = args.dtype or "bfloat16"
-
     def load(path, quantize):
         t0 = time.perf_counter()
-        if is_deepseek_dir(path):  # the MLA family, as the JAX CLI dispatches it
-            if quantize:
-                raise SystemExit("--quantize int8 is not wired for this model family yet")
-            mcfg, state = load_deepseek_dir(path, dtype=dtype, device=device)
-            model = DeepseekModel.from_state(mcfg, state)
-        else:
-            mcfg, state = load_model_dir(path, dtype=dtype, device=device, quantize=quantize)
-            model = LlamaModel.from_state(mcfg, state)
+        model, quantized = load_any_checkpoint(path, args.dtype, device, quantize)
         log.info("loaded %s (%s, %d layers%s) on %s%s in %.1f s", path, type(model).__name__,
-                 mcfg.num_layers, ", int8 weights" if quantize else "", device,
+                 model.config.num_layers, ", int8 weights" if quantized else "", device,
                  f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "",
                  time.perf_counter() - t0)
         return model
 
-    model = load(args.model_path, quantize)
+    model = load(args.model_path, args.quantize == "int8")
     # draft-model speculation: a small same-tokenizer model proposes, the
-    # target verifies (engine/draft.py); loaded unquantised, as in the JAX CLI
+    # target verifies (engine/draft.py); loaded unquantised, as in the JAX
+    # CLI, from any checkpoint format --model-path takes
     draft = load(args.spec_draft_model, False) if args.spec_draft_model else None
     try:
         core = EngineCore(model, cfg, eos_token_ids=card.eos_token_ids or None, device=device,
@@ -253,13 +303,15 @@ async def _cmd_run(args) -> None:
             from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 
             runtime = await DistributedRuntime.connect(_runtime_config(args))
+        if args.model_path is not None and args.model_path.startswith("dyn://models/"):
+            # pull on this loop, without blocking it (the runtime's lease
+            # keepalive rides it): only the pushing host needs the files
+            args.model_path = await _resolve_model(args)
         if args.out.startswith("dyn://"):
             # a remote worker: preprocess and detokenize here
-            from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
-
             if args.model_path is None:
                 raise SystemExit("out=dyn:// needs --model-path (the tokenizer and chat template)")
-            card = ModelDeploymentCard.from_hf_dir(args.model_path, name=args.model_name)
+            card = model_card(args.model_path, args.model_name)
             ns, comp, ep = parse_endpoint_url(args.out)
             client = await runtime.namespace(ns).component(comp).endpoint(ep).client()
             engine = build_serving_pipeline(client, card)
@@ -304,6 +356,23 @@ async def _cmd_run(args) -> None:
             await runtime.shutdown()
         if raw is not None:
             _shutdown(raw)
+
+
+async def _resolve_model(args) -> str:
+    """``dyn://models/NAME`` pulled into the local cache, on this loop."""
+    from dynamo_tpu_torch.llm.model_store import resolve_model
+    from dynamo_tpu_torch.runtime.transports.coordinator import CoordinatorClient
+
+    url = args.coordinator or os.environ.get("DYNTPU_COORDINATOR")
+    if not url:
+        raise SystemExit(f"--model-path {args.model_path}: needs --coordinator to pull from")
+    coord = await CoordinatorClient(url).connect()
+    try:
+        path = await resolve_model(args.model_path, coord)
+    finally:
+        await coord.close()
+    log.info("resolved %s -> %s", args.model_path, path)
+    return path
 
 
 async def _one_prompt(engine, model_name: str, prompt: str, args) -> None:
@@ -486,13 +555,31 @@ async def _cmd_router(args) -> None:
 
 async def _cmd_models(args) -> None:
     """Manage the model records on the coordinator that ``http``
-    frontends discover."""
+    frontends discover, and push or pull model directories through its
+    blob store."""
     from dynamo_tpu_torch.runtime.transports.coordinator import CoordinatorClient
 
     ns = args.namespace or "dynamo"
     coord = await CoordinatorClient(args.coordinator or "tcp://127.0.0.1:6180").connect()
     try:
-        if args.action == "add":
+        if args.action == "push":
+            # model-artifact distribution through the blob store: remote
+            # workers boot from dyn://models/NAME with the files on one host
+            from dynamo_tpu_torch.llm.model_store import push_model
+
+            if not args.name or not args.endpoint:
+                raise SystemExit("usage: models push NAME MODEL_DIR")
+            manifest = await push_model(coord, args.name, args.endpoint)
+            total = sum(f["size"] for f in manifest["files"].values())
+            print(f"pushed {args.name}: {len(manifest['files'])} files, "
+                  f"{total} bytes, digest {manifest['digest'][:12]}")
+        elif args.action == "pull":
+            from dynamo_tpu_torch.llm.model_store import pull_model
+
+            if not args.name:
+                raise SystemExit("usage: models pull NAME [--out DIR]")
+            print(await pull_model(coord, args.name, cache_dir=args.out))
+        elif args.action == "add":
             if not args.name or not args.endpoint:
                 raise SystemExit("usage: models add NAME dyn://NS.COMP.EP [--model-path DIR]")
             entry = {"endpoint": args.endpoint, "model_path": args.model_path}
@@ -527,6 +614,65 @@ async def _cmd_trace(args) -> None:
         print(args.out)
     else:
         print(body)
+
+
+# --------------------------------------------------------------- quantize -----
+
+
+async def _cmd_quantize(args) -> None:
+    """Offline conversion: an HF directory or a GGUF file to a native
+    checkpoint (int8 weights unless ``--scheme none``), with the
+    tokenizer and config beside it so ``--model-path`` takes the result
+    as it takes the source."""
+    import shutil
+
+    from dynamo_tpu_torch.device import resolve_device
+    from dynamo_tpu_torch.models.checkpoint import save_checkpoint
+    from dynamo_tpu_torch.models.loader import load_model_dir
+
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        raise SystemExit(f"quantize: {e}") from None
+    t0 = time.perf_counter()
+    quantized = args.scheme == "int8"
+    if args.src.endswith(".gguf"):
+        from dynamo_tpu_torch.llm.gguf import load_gguf_model
+
+        cfg, state = load_gguf_model(args.src, dtype=args.dtype, device=device,
+                                     quantize=quantized)
+    else:
+        try:
+            cfg, state = load_model_dir(args.src, dtype=args.dtype, device=device,
+                                        quantize=quantized)
+        except ValueError as e:  # a DeepSeek directory
+            raise SystemExit(f"quantize: {e}") from None
+    save_checkpoint(args.out, cfg, state, quantized=quantized)
+    del state
+    out, src = Path(args.out), Path(args.src)
+    if src.is_dir():
+        for name in ("tokenizer.json", "tokenizer_config.json", "config.json",
+                     "generation_config.json", "special_tokens_map.json"):
+            if (src / name).is_file():
+                shutil.copy2(src / name, out / name)
+    else:
+        card = model_card(args.src)
+        if card.tokenizer_path and Path(card.tokenizer_path).is_file():
+            shutil.copy2(card.tokenizer_path, out / "tokenizer.json")
+        else:
+            log.warning("the GGUF file carried no tokenizer; place a tokenizer.json in %s "
+                        "before serving", out)
+        if card.chat_template:
+            # from_hf_dir reads it, so chat rendering survives the conversion
+            (out / "chat_template.jinja").write_text(card.chat_template)
+        # the eos/bos ids and the context length the GGUF metadata carried
+        (out / "config.json").write_text(json.dumps({
+            "eos_token_id": card.eos_token_ids,
+            "bos_token_id": card.bos_token_id,
+            "max_position_embeddings": card.context_length,
+        }))
+    log.info("wrote %s (%s, scheme=%s) in %.1f s", out, cfg.dtype, args.scheme,
+             time.perf_counter() - t0)
 
 
 # ------------------------------------------------------------------ serve -----
@@ -660,7 +806,8 @@ def _parser() -> argparse.ArgumentParser:
     run = sub.add_parser("run", help="serve a checkpoint or answer prompts")
     run.add_argument("inout", nargs="+", help="in=<http|text:PROMPT|stdin|batch:FILE|"
                      "dyn://NS.COMP.EP> out=<gpu|echo|dyn://NS.COMP.EP>")
-    run.add_argument("--model-path", default=None, help="HuggingFace checkpoint directory")
+    run.add_argument("--model-path", default=None, help="native checkpoint dir, .gguf file, "
+                     "HuggingFace checkpoint directory, or dyn://models/NAME")
     run.add_argument("--model-name", default=None, help="served name (default: the "
                      "directory's name)")
     run.add_argument("--device", default=None,
@@ -748,12 +895,26 @@ def _parser() -> argparse.ArgumentParser:
                         "from the router")
     common(router)
 
-    models = sub.add_parser("models", help="manage model registrations")
-    models.add_argument("action", choices=["add", "list", "remove"])
+    models = sub.add_parser("models", help="manage model registrations and model files")
+    models.add_argument("action", choices=["add", "list", "remove", "push", "pull"])
     models.add_argument("name", nargs="?")
-    models.add_argument("endpoint", nargs="?", help="dyn://ns.component.endpoint (add)")
+    models.add_argument("endpoint", nargs="?",
+                        help="dyn://ns.component.endpoint (add) | model dir (push)")
     models.add_argument("--model-path", default=None)
+    models.add_argument("--out", default=None, help="pull: cache directory override")
     common(models)
+
+    quant = sub.add_parser("quantize", help="convert an HF directory or GGUF file to a native "
+                           "checkpoint (int8 weights by default), so engines start without "
+                           "the per-start load and quantisation")
+    quant.add_argument("src", help="HF model dir or .gguf file")
+    quant.add_argument("out", help="output checkpoint dir")
+    quant.add_argument("--scheme", choices=["int8", "none"], default="int8",
+                       help="none = convert and stack the weights, no quantisation")
+    quant.add_argument("--dtype", default="bfloat16")
+    quant.add_argument("--device", default=None,
+                       help="torch device to convert on (default: the current CUDA device; "
+                       "'cpu' for tests)")
 
     trace = sub.add_parser("trace", help="fetch one request's Chrome trace-event JSON from a "
                            "frontend's /debug/traces endpoint (server must run with --trace "
@@ -808,7 +969,7 @@ def parse_args(argv: Optional[list[str]] = None) -> argparse.Namespace:
 
 _COMMANDS = {"run": _cmd_run, "http": _cmd_http, "coordinator": _cmd_coordinator,
              "router": _cmd_router, "models": _cmd_models, "trace": _cmd_trace,
-             "serve": _cmd_serve, "package": _cmd_package}
+             "quantize": _cmd_quantize, "serve": _cmd_serve, "package": _cmd_package}
 
 
 def main(argv: Optional[list[str]] = None) -> None:

@@ -5,8 +5,9 @@ Implements the runtime's AsyncEngine contract (generate(Context[BackendInput])
 core runs on its own thread; tokens cross back via
 loop.call_soon_threadsafe into per-request asyncio queues.
 
-Cancellation: a stopped/killed Context aborts the request in the core at
-the next step boundary.
+Cancellation: a stopped/killed Context, or a consumer that drops the
+stream (a cancelled server task), aborts the request in the core at the
+next step boundary.
 
 Disaggregation: :meth:`AsyncLLMEngine.generate_ex` takes the remote
 prefill / remote decode flags, and :meth:`AsyncLLMEngine.run_on_engine`
@@ -135,6 +136,7 @@ class AsyncLLMEngine(AsyncEngine):
 
         cancel_task = asyncio.ensure_future(request.stopped())
         get_task: asyncio.Future | None = None
+        aborted = finished = False
         try:
             while True:
                 get_task = asyncio.ensure_future(out_q.get())
@@ -145,18 +147,21 @@ class AsyncLLMEngine(AsyncEngine):
                     out = get_task.result()
                     if req.queue_wait_s is not None and "queue_wait_s" not in request.annotations:
                         request.annotations["queue_wait_s"] = req.queue_wait_s
+                    finished = out.finished
                     yield out
-                    if out.finished:
+                    if finished:
                         return
                 else:
                     get_task.cancel()
                     self.core.abort(req.request_id)
+                    aborted = True
                     self._wake.set()
                     # drain until the core confirms cancellation
                     while True:
                         out = await out_q.get()
+                        finished = out.finished
                         yield out
-                        if out.finished:
+                        if finished:
                             return
         finally:
             # a consumer abandoning the stream lands here: without the
@@ -164,8 +169,13 @@ class AsyncLLMEngine(AsyncEngine):
             if get_task is not None and not get_task.done():
                 get_task.cancel()
             cancel_task.cancel()
-            if not request.is_stopped and req.finish_reason is None:
-                # consumer dropped the stream mid-generation
+            if not aborted and not finished and req.finish_reason is None:
+                # the consumer dropped the stream mid-generation, or the
+                # task was cancelled with the context killed (a server
+                # that lost its peer): either way nobody reads on.  Not
+                # after the final output: the engine thread sets
+                # finish_reason just after emitting it, and a late abort
+                # of a finished id would cancel the next request of it
                 self.core.abort(req.request_id)
                 self._wake.set()
             span.set(finish=str(req.finish_reason) if req.finish_reason else "",

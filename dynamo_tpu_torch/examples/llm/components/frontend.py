@@ -6,9 +6,10 @@ streaming, metrics, health) and bridges ParsedRequest → the Processor
 component over the distributed runtime.  Reference analogue:
 examples/llm/components/frontend.py.
 
-The JAX frontend's ``admission:`` block (rate limits, priority classes,
-deadline shedding) is refused by name: the port's HttpService has no
-admission controller yet (ROADMAP A15).
+An ``admission:`` block in the config (``planner.AdmissionConfig.from_dict``:
+rate limits, priority classes, deadline-aware shedding) puts an
+``AdmissionController`` in front of the HttpService, as in the JAX
+frontend.
 """
 
 from __future__ import annotations
@@ -88,20 +89,25 @@ class Frontend:
     async def boot(self):
         from dynamo_tpu_torch.llm.http import HttpService, ModelManager
 
-        if self._cfg.get("admission"):
-            raise ValueError(
-                "Frontend admission: the port's HttpService has no admission "
-                "controller yet (ROADMAP A15); remove the admission block")
         self.client = ServiceClient(self.dynamo_runtime, Processor)
         manager = ModelManager()
         manager.add_model(
             self._cfg.get("served_model_name", "dynamo-tpu"),
             _ProcessorEngine(self.client),
         )
+        # SLA admission control: an `admission:` block enables rate
+        # limits, priority classes and deadline-aware 429 shedding
+        admission = None
+        adm = self._cfg.get("admission")
+        if adm:
+            from dynamo_tpu_torch.planner import AdmissionConfig, AdmissionController
+
+            admission = AdmissionController(AdmissionConfig.from_dict(adm))
         self.http = HttpService(
             manager,
             host=self._cfg.get("host", "127.0.0.1"),
             port=int(self._cfg.get("port", 8000)),
+            admission=admission,
         )
         await self.http.start()
         self.port = self.http.port

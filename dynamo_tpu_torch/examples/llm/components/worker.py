@@ -9,7 +9,10 @@ the engine is the port's EngineCore.  Config (ServiceConfig YAML, see
   engine: echo | tiny | gpu     (tiny = random-weights EngineCore, used by
                                  serve-level tests; gpu needs model-path;
                                  default gpu when model-path is set)
-  model-path: HF dir            quantize: none | int8
+  model-path: checkpoint        (HF dir, native checkpoint, .gguf, or
+                                 dyn://models/NAME, pulled from the
+                                 coordinator's blob store at boot)
+  quantize: none | int8
   dtype                         (weights and activations; default bfloat16)
   device                        (torch device; default the current CUDA
                                  device, and no GPU raises; cpu is the
@@ -23,8 +26,7 @@ the engine is the port's EngineCore.  Config (ServiceConfig YAML, see
 
 Not served by the port yet, each refused by name: ``tp`` / ``dp`` above 1,
 ``nnodes`` above 1 and ``sp-prefill-threshold`` above 0 (more than one
-device, ROADMAP A10), and a ``dyn://models/...`` model-path (the model
-store, ROADMAP A15).
+device, ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -51,14 +53,17 @@ _MULTI_DEVICE_KEYS = {"tp": 1, "dp": 1, "nnodes": 1, "sp-prefill-threshold": 0}
 
 
 async def resolve_cfg_model(cfg: dict, rt) -> dict:
-    """The config with its model-path resolved.  The JAX worker pulls a
-    ``dyn://models/<name>`` path from the coordinator here; the port has no
-    model store yet, so such a path is a config error."""
+    """The config with a ``dyn://models/<name>`` model-path pulled into the
+    local cache, on the runtime's loop without blocking it: the engine
+    builder's blocking resolver would starve the coordinator lease
+    keepalives for the whole pull."""
     mp = cfg.get("model-path")
-    if mp and str(mp).startswith("dyn://models/"):
-        raise ValueError(
-            f"model-path {mp!r}: dyn://models/ paths need the model store, which the "
-            "port does not have yet (ROADMAP A15); give a checkpoint directory")
+    if mp and rt is not None:
+        from dynamo_tpu_torch.llm.model_store import is_model_ref, resolve_model
+
+        if is_model_ref(mp):
+            cfg = dict(cfg)
+            cfg["model-path"] = await resolve_model(mp, rt.coordinator)
     return cfg
 
 

@@ -2,17 +2,18 @@
 
 The counterpart of ``dynamo_tpu/llm/http/metrics.py`` for the families the
 port feeds: request counters by model/endpoint/status, the inflight gauge
-with its guard, output tokens, the TTFT, inter-token, queue-wait and
-request-duration histograms, the served engine's prefill,
-unified-dispatch and lookahead counters (``engine/counters.py``), the
-persistent KV tier's and the streamed KV handoff's counters, the served
-engine's step timeline (``obs/timeline.py``), the measured KV-transfer
-edges (``obs/costs.py``, rendered once an edge has a sample) and the
-served engine's predicted-vs-measured dispatch rows (``obs/perfmodel.py``,
-rendered once a kind has been dispatched).  Every
-name comes from ``obs/metric_names.py`` and every line is rendered as the
-JAX package renders it.  No prometheus client dependency — the text format
-is trivial to emit.
+with its guard, output tokens, the admission controller's sheds, the
+TTFT, inter-token, queue-wait and request-duration histograms, the fault
+plane's process-global counters (``fault/counters.py``), the served
+engine's prefill, unified-dispatch and lookahead counters
+(``engine/counters.py``), the persistent KV tier's and the streamed KV
+handoff's counters, the served engine's step timeline
+(``obs/timeline.py``), the measured KV-transfer edges (``obs/costs.py``,
+rendered once an edge has a sample) and the served engine's
+predicted-vs-measured dispatch rows (``obs/perfmodel.py``, rendered once a
+kind has been dispatched).  Every name comes from ``obs/metric_names.py``
+and every line is rendered as the JAX package renders it.  No prometheus
+client dependency — the text format is trivial to emit.
 """
 
 from __future__ import annotations
@@ -24,8 +25,10 @@ from typing import Iterator
 
 from dynamo_tpu_torch.engine.counters import (LookaheadCounters, PrefillCounters,
                                               kv_stream_counters, persist_counters)
+from dynamo_tpu_torch.fault.counters import counters as fault_counters
 from dynamo_tpu_torch.obs.costs import transfer_costs
 from dynamo_tpu_torch.obs.metric_names import EngineMetric as EM
+from dynamo_tpu_torch.obs.metric_names import FaultMetric as FM
 from dynamo_tpu_torch.obs.metric_names import HttpMetric as HM
 from dynamo_tpu_torch.obs.metric_names import KvStreamMetric as STM
 from dynamo_tpu_torch.obs.metric_names import KvTransferMetric as KM
@@ -87,6 +90,11 @@ class Metrics:
         # duration keyed by (model, status): near-zero error/disconnect
         # requests must not pull the success series' percentiles down
         self.duration: dict[tuple[str, str], Histogram] = defaultdict(Histogram)
+        # (model, priority) -> requests shed by admission control (429)
+        self.shed: dict[tuple[str, str], int] = defaultdict(int)
+        # live TTFT taps (seconds) — the admission controller subscribes
+        # here so its deadline estimates track the serving latency plane
+        self.ttft_listeners: list = []
 
     def guard(self, model: str, endpoint: str) -> "InflightGuard":
         return InflightGuard(self, model, endpoint)
@@ -104,6 +112,10 @@ class Metrics:
         lines.append(f"# TYPE {HM.OUTPUT_TOKENS_TOTAL} counter")
         for model, n in sorted(self.tokens_out.items()):
             lines.append(f'{HM.OUTPUT_TOKENS_TOTAL}{{model="{model}"}} {n}')
+        lines.append(f"# TYPE {HM.ADMISSION_SHED_TOTAL} counter")
+        for (model, priority), n in sorted(self.shed.items()):
+            lines.append(
+                f'{HM.ADMISSION_SHED_TOTAL}{{model="{model}",priority="{priority}"}} {n}')
         lines.append(f"# TYPE {HM.TTFT_SECONDS} histogram")
         for model, h in sorted(self.ttft.items()):
             lines.extend(h.render(HM.TTFT_SECONDS, f'model="{model}"'))
@@ -116,6 +128,14 @@ class Metrics:
         lines.append(f"# TYPE {HM.REQUEST_SECONDS} histogram")
         for (model, status), h in sorted(self.duration.items()):
             lines.extend(h.render(HM.REQUEST_SECONDS, f'model="{model}",status="{status}"'))
+        # fault plane (process-global): migrations performed, drains live,
+        # instances currently suspect per the health probes
+        for name, typ, val in (
+                (FM.MIGRATIONS_TOTAL, "counter", fault_counters.migrations_total),
+                (FM.DRAINS_IN_PROGRESS, "gauge", fault_counters.drains_in_progress),
+                (FM.SUSPECT_INSTANCES, "gauge", fault_counters.suspect_instances())):
+            lines.append(f"# TYPE {name} {typ}")
+            lines.append(f"{name} {val}")
         # prefill batching: how well the token-budget ragged prefill packs
         # the device
         if self.core is not None:
@@ -229,7 +249,10 @@ class InflightGuard:
             self._saw_first = True
             now = time.monotonic()
             self._last_tok = now
-            self._m.ttft[self.model].observe(now - self._t0)
+            dt = now - self._t0
+            self._m.ttft[self.model].observe(dt)
+            for listener in self._m.ttft_listeners:
+                listener(dt)
 
     def tokens(self, k: int) -> None:
         """Record a k-token emission: TTFT on the first, then the

@@ -15,8 +15,18 @@ echoed on the response.  Every request opens an ``http.request`` root
 span (``obs/tracing.py``; a no-op unless tracing is on), findable under
 the response id and the caller's id.  Models are served through a
 ModelManager registry.  Client disconnects kill the request context so
-engines stop generating.  Admission control, session affinity and
-mid-stream migration are not ported yet.
+engines stop generating.
+
+Three optional planes, as in the JAX service: ``admission=`` (a
+``planner.AdmissionController``: ``x-tenant`` / ``x-priority`` headers or
+a body ``priority``, 429 with ``Retry-After`` on a shed, counted in the
+shed family), ``affinity=`` (a ``SessionAffinity``: ``x-session-id`` or a
+body ``session_id``, the ``x-affinity-owner`` / ``x-affinity-source``
+headers and, with ``redirect``, a 307 to the owning frontend) and
+mid-stream migration, which the served engine does (a
+``fault.MigratingClient``): an ``x-migration-limit`` header sets the
+request's budget (0 opts out), and a migrated answer carries
+``x-migrated N`` (an SSE comment on a stream, a header otherwise).
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ from typing import AsyncIterator, Optional
 
 from aiohttp import web
 
+from dynamo_tpu_torch.llm.http.affinity import SessionAffinity
 from dynamo_tpu_torch.llm.http.metrics import Metrics
 from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
 from dynamo_tpu_torch.llm.openai import (
@@ -50,6 +61,7 @@ from dynamo_tpu_torch.llm.protocols import FinishReason, LLMEngineOutput
 from dynamo_tpu_torch.llm.tool_calls import ToolCallParser
 from dynamo_tpu_torch.obs import tracing
 from dynamo_tpu_torch.obs.export import trace_for_request
+from dynamo_tpu_torch.planner.admission import AdmissionRejected
 from dynamo_tpu_torch.runtime.engine import AsyncEngine, Context
 
 log = logging.getLogger("dynamo_tpu_torch.http")
@@ -63,6 +75,11 @@ def _tool_parser(parsed) -> ToolCallParser:
     if isinstance(parsed.tool_choice, dict):
         only = parsed.tool_choice.get("function", {}).get("name")
     return ToolCallParser(only=only)
+
+
+def _migrations(ctxs: list[Context]) -> int:
+    """The most hops any choice's stream was migrated (0: none)."""
+    return max((c.annotations.get("migrations", 0) for c in ctxs), default=0)
 
 
 @dataclass
@@ -95,11 +112,22 @@ class ModelManager:
 
 class HttpService:
     def __init__(self, manager: Optional[ModelManager] = None, host: str = "127.0.0.1",
-                 port: int = 8080, core=None):
+                 port: int = 8080, core=None, admission=None,
+                 affinity: Optional[SessionAffinity] = None):
         """``core``: the EngineCore behind the served model, whose counters
         ``/metrics`` renders (None renders them as zeros)."""
         self.manager = manager or ModelManager()
         self.metrics = Metrics(core)
+        # consistent-hash session affinity (llm/http/affinity.py): with N
+        # stateless frontends, route a multi-turn session to the replica
+        # whose persist tier is warm.  None = singleton frontend, no-op.
+        self.affinity = affinity
+        # optional planner AdmissionController: per-tenant rate limits,
+        # priority classes, deadline-aware shedding (429 + Retry-After).
+        # Its wait estimates feed off this service's live TTFT plane.
+        self.admission = admission
+        if admission is not None:
+            self.metrics.ttft_listeners.append(admission.observe_ttft)
         self.host = host
         self.port = port
         self._runner: Optional[web.AppRunner] = None
@@ -175,15 +203,42 @@ class HttpService:
             return web.json_response(err.body(), status=err.status)
 
         guard = None
+        ticket = None
         # client-supplied correlation id: accepted, propagated as the
         # engine-side request id, and echoed back on every response
         xrid = request.headers.get("x-request-id") or ""
+        # session affinity: multi-turn callers tag their session so all
+        # turns land where the persist tier is warm
+        session = request.headers.get("x-session-id") or body.get("session_id") or ""
+        affinity = None
+        if self.affinity is not None and session:
+            affinity = await self.affinity.resolve(session)
+            if not affinity.is_local and self.affinity.redirect and affinity.redirect_url:
+                return web.json_response(
+                    {"redirect": "session affinity"}, status=307,
+                    headers={"Location": affinity.redirect_url,
+                             "x-affinity-owner": affinity.owner,
+                             "x-affinity-source": affinity.source})
         # tracing root: every downstream span (engine, coordinator hop,
         # remote worker, KV transfer) parents under this one trace
         span = tracing.start_span("http.request", attrs={"endpoint": endpoint, "request_id": xrid})
         try:
             parsed = parse_request(body, chat=chat)
             entry = self.manager.get(parsed.model)
+            if self.admission is not None:
+                priority = request.headers.get("x-priority") or body.get("priority")
+                tenant = (request.headers.get("x-tenant")
+                          or request.headers.get("authorization") or "default")
+                try:
+                    ticket = await self.admission.acquire(tenant, priority)
+                except AdmissionRejected as e:
+                    # shed: Retry-After tells the client when capacity is
+                    # likely
+                    self.metrics.shed[(parsed.model, priority or "normal")] += 1
+                    self.metrics.requests[(parsed.model, endpoint, "shed")] += 1
+                    err = OpenAIError(str(e), status=429, err_type="overloaded")
+                    return web.json_response(err.body(), status=429,
+                                             headers={"Retry-After": str(e.retry_after_s)})
             guard = self.metrics.guard(parsed.model, endpoint)
             rid = new_id("chatcmpl" if chat else "cmpl")
             if tracing.enabled():
@@ -208,11 +263,28 @@ class HttpService:
                 # (choice-suffixed for n>1 so ids stay unique)
                 for i, c in enumerate(ctxs):
                     c.id = xrid if parsed.n == 1 else f"{xrid}-{i}"
+            # per-request migration budget: "x-migration-limit: 0" opts a
+            # request out of mid-stream migration entirely
+            mig_limit = request.headers.get("x-migration-limit")
+            if mig_limit is not None:
+                try:
+                    for c in ctxs:
+                        c.annotations["migration_limit"] = max(0, int(mig_limit))
+                except ValueError:
+                    pass
             streams = [entry.engine.generate(c) for c in ctxs]
             if parsed.stream:
-                return await self._stream_response(
-                    request, ctxs, streams, rid, parsed, chat, guard, xrid=xrid)
-            return await self._unary_response(ctxs, streams, rid, parsed, chat, guard, xrid=xrid)
+                resp = await self._stream_response(
+                    request, ctxs, streams, rid, parsed, chat, guard, xrid=xrid,
+                    affinity=affinity)
+            else:
+                resp = await self._unary_response(ctxs, streams, rid, parsed, chat, guard,
+                                                  xrid=xrid, affinity=affinity)
+            if self.affinity is not None and session:
+                # our persist tier is warm for this session now — record
+                # it so peers resolve future turns here on affinity miss
+                await self.affinity.note_served(session)
+            return resp
         except OpenAIError as e:
             if guard:
                 guard.status("error")
@@ -222,6 +294,8 @@ class HttpService:
             err = OpenAIError("internal error", status=500, err_type="internal_error")
             return web.json_response(err.body(), status=err.status)
         finally:
+            if ticket is not None:
+                ticket.release()
             if guard:
                 guard.close()
             span.end()
@@ -256,7 +330,7 @@ class HttpService:
     async def _stream_response(
         self, request: web.Request, ctxs: list[Context],
         streams: list[AsyncIterator[LLMEngineOutput]],
-        rid: str, parsed, chat: bool, guard, xrid: str = "",
+        rid: str, parsed, chat: bool, guard, xrid: str = "", affinity=None,
     ) -> web.StreamResponse:
         headers = {
             "Content-Type": "text/event-stream",
@@ -265,6 +339,9 @@ class HttpService:
         }
         if xrid:
             headers["x-request-id"] = xrid
+        if affinity is not None and affinity.owner:
+            headers["x-affinity-owner"] = affinity.owner
+            headers["x-affinity-source"] = affinity.source
         resp = web.StreamResponse(headers=headers)
         await resp.prepare(request)
         n = len(streams)
@@ -328,6 +405,11 @@ class HttpService:
             usage = usage_dict(ctxs[0].annotations.get("prompt_tokens", 0), n_out)
             if chat:
                 await resp.write(sse_encode(chat_chunk(rid, parsed.model, usage=usage)))
+            # headers are long gone on a stream, so the migration marker
+            # rides an SSE comment (spec-legal, ignored by parsers)
+            migrated = _migrations(ctxs)
+            if migrated:
+                await resp.write(f": x-migrated {migrated}\n\n".encode())
             await resp.write(SSE_DONE)
             guard.ok()
             self.metrics.tokens_out[parsed.model] += n_out
@@ -352,7 +434,7 @@ class HttpService:
 
     async def _unary_response(
         self, ctxs: list[Context], streams: list[AsyncIterator[LLMEngineOutput]],
-        rid: str, parsed, chat: bool, guard, xrid: str = "",
+        rid: str, parsed, chat: bool, guard, xrid: str = "", affinity=None,
     ) -> web.Response:
         n = len(streams)
         texts: list[list[str]] = [[] for _ in range(n)]
@@ -417,5 +499,13 @@ class HttpService:
         guard.ok()
         self.metrics.tokens_out[parsed.model] += n_out
         self._observe_queue_wait(parsed.model, ctxs)
-        headers = {"x-request-id": xrid} if xrid else None
-        return web.json_response(resp, headers=headers)
+        headers = {}
+        migrated = _migrations(ctxs)
+        if migrated:
+            headers["x-migrated"] = str(migrated)
+        if xrid:
+            headers["x-request-id"] = xrid
+        if affinity is not None and affinity.owner:
+            headers["x-affinity-owner"] = affinity.owner
+            headers["x-affinity-source"] = affinity.source
+        return web.json_response(resp, headers=headers or None)

@@ -4,9 +4,9 @@ Everything a frontend needs to know about a served model without loading
 its weights: tokenizer, chat template, context length, special tokens,
 checksum.  The counterpart of ``dynamo_tpu/llm/model_card.py``, with the
 same fields, dict form and checksum, so one card serves either package.
-Cards are built from HuggingFace directories; GGUF files and
-sentencepiece-only directories are not read yet (such a directory's card
-carries no tokenizer).
+Cards are built from HuggingFace directories (a sentencepiece-only one
+gets a ``tokenizer.json`` materialised beside its ``tokenizer.model``) or
+from a GGUF file's metadata and embedded vocabulary.
 """
 
 from __future__ import annotations
@@ -95,6 +95,15 @@ class ModelDeploymentCard:
             chat_template = sep.read_text()
 
         tok = d / "tokenizer.json"
+        if not tok.exists() and (d / "tokenizer.model").exists():
+            # sentencepiece-only checkpoint (older Llama/Mistral exports):
+            # materialise an equivalent tokenizer.json once
+            from dynamo_tpu_torch.llm.sentencepiece import materialize_tokenizer
+
+            try:
+                tok = materialize_tokenizer(d / "tokenizer.model")
+            except Exception:
+                pass  # unparseable/SP-BPE: card carries no tokenizer
         if not eos and eos_str and tok.exists():
             # config.json had no eos_token_id but tokenizer_config names
             # the token: resolve it here or the engine never receives an
@@ -116,5 +125,31 @@ class ModelDeploymentCard:
             bos_token_id=bos,
             bos_token=bos_str,
             eos_token=eos_str,
+            chat_template=chat_template,
+        )
+
+    @classmethod
+    def from_gguf(cls, gguf_path: str | Path, name: Optional[str] = None) -> "ModelDeploymentCard":
+        """Build a card from GGUF metadata, materialising the embedded
+        tokenizer as a tokenizer.json next to the checkpoint."""
+        from dynamo_tpu_torch.llm.gguf import GGUFFile
+
+        p = Path(gguf_path)
+        gf = GGUFFile(p)
+        tok_path = p.with_suffix(".tokenizer.json")
+        if not tok_path.exists():
+            try:
+                gf.build_hf_tokenizer().save(str(tok_path))
+            except ValueError:
+                tok_path = None  # no embedded vocab
+        chat_template = gf.metadata.get("tokenizer.chat_template")
+        bos = gf.metadata.get("tokenizer.ggml.bos_token_id")
+        return cls(
+            name=name or gf.metadata.get("general.name", p.stem),
+            model_path=str(p),
+            tokenizer_path=str(tok_path) if tok_path else None,
+            context_length=int(gf.field("context_length", 4096)),
+            eos_token_ids=gf.eos_token_ids(),
+            bos_token_id=int(bos) if bos is not None else None,
             chat_template=chat_template,
         )

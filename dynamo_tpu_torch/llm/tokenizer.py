@@ -4,7 +4,8 @@ Wraps a HuggingFace ``tokenizer.json`` through the ``tokenizers`` binding.
 The streaming decoder keeps prefix/read offsets so multi-token glyphs and
 sentencepiece space markers render correctly as tokens trickle in.  The
 counterpart of ``dynamo_tpu/llm/tokenizer.py``; a checkpoint that ships
-only a sentencepiece ``tokenizer.model`` is not read yet.
+only a sentencepiece ``tokenizer.model`` is read through an equivalent
+``tokenizer.json`` materialised beside it (``llm/sentencepiece.py``).
 """
 
 from __future__ import annotations
@@ -25,11 +26,18 @@ class TokenizerWrapper:
 
         p = Path(path)
         if p.is_dir():
-            p = p / "tokenizer.json"
-        if p.suffix == ".model" or not p.exists() and p.with_name("tokenizer.model").exists():
-            raise NotImplementedError(
-                f"{p}: sentencepiece tokenizer.model files are not read yet; "
-                "the checkpoint needs a tokenizer.json")
+            if not (p / "tokenizer.json").exists() and (p / "tokenizer.model").exists():
+                # sentencepiece-only checkpoint: materialise an equivalent
+                # tokenizer.json once (llm/sentencepiece.py)
+                from dynamo_tpu_torch.llm.sentencepiece import materialize_tokenizer
+
+                p = materialize_tokenizer(p / "tokenizer.model")
+            else:
+                p = p / "tokenizer.json"
+        elif p.suffix == ".model":
+            from dynamo_tpu_torch.llm.sentencepiece import materialize_tokenizer
+
+            p = materialize_tokenizer(p)
         return cls(Tokenizer.from_file(str(p)))
 
     def encode(self, text: str, add_special_tokens: bool = True) -> list[int]:

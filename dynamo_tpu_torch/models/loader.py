@@ -37,8 +37,8 @@ from dynamo_tpu_torch.models.deepseek import param_shapes as deepseek_param_shap
 from dynamo_tpu_torch.models.llama import SCALE, param_shapes
 from dynamo_tpu_torch.models.quant import CHANNEL_AXES, quantize, stacked_channel_axes
 
-__all__ = ["SafetensorsDir", "load_state_from_dir", "load_model_dir", "is_deepseek_dir",
-           "load_deepseek_dir"]
+__all__ = ["SafetensorsDir", "load_state_from_dir", "load_state", "quantize_state",
+           "load_model_dir", "is_deepseek_dir", "load_deepseek_dir"]
 
 
 class SafetensorsDir:
@@ -158,8 +158,16 @@ def load_state_from_dir(cfg: ModelConfig, model_dir: str | Path, device=None,
     """The state dict of the checkpoint in ``model_dir`` for ``cfg`` (whose
     dtype the dense parameters take), on ``device`` (cuda unless named)."""
     dev = resolve_device(device)
-    files = SafetensorsDir(model_dir, dev)
-    out = _Writer(cfg, dev, cfg.torch_dtype, quantize)
+    return load_state(cfg, SafetensorsDir(model_dir, dev), dev, quantize)
+
+
+def load_state(cfg: ModelConfig, files, device: torch.device,
+               quantize: bool = False) -> dict[str, torch.Tensor]:
+    """The state dict for ``cfg`` from ``files``, anything that answers
+    ``name in files`` and ``files.get(name)`` (a tensor in the HF layout)
+    for HF tensor names: a :class:`SafetensorsDir`, or a GGUF file's
+    adapter (``llm/gguf.py``)."""
+    out = _Writer(cfg, device, cfg.torch_dtype, quantize)
     hf = _hf_names(cfg, qwen3_moe="model.layers.0.mlp.gate.weight" in files)
     dh = cfg.head_dim
     sizes = {"layers.wq": cfg.num_heads * dh, "layers.wk": cfg.num_kv_heads * dh,
@@ -194,6 +202,20 @@ def load_state_from_dir(cfg: ModelConfig, model_dir: str | Path, device=None,
         else:
             w = files.get(fmt)
             out.put(name, w.t() if transpose else w)
+    return out.state
+
+
+def quantize_state(cfg: ModelConfig, state: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """A dense state dict's int8 counterpart, each matmul weight quantised
+    one layer at a time as :func:`load_state` quantises it."""
+    dev = next(iter(state.values())).device
+    out = _Writer(cfg, dev, cfg.torch_dtype, True)
+    for name, w in state.items():
+        if name.startswith("layers."):
+            for i in range(cfg.num_layers):
+                out.put(name, w[i], i)
+        else:
+            out.put(name, w)
     return out.state
 
 

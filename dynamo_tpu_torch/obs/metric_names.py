@@ -2,8 +2,9 @@
 
 A subset of ``dynamo_tpu/obs/metric_names.py``, spelled exactly as there,
 so a dashboard or scraper reads either package's endpoint: the HTTP
-service plane, the engine's prefill-batching, unified-dispatch,
-lookahead and persistent-tier families and its step timeline, the
+service plane (admission shedding included), the fault plane, the
+engine's prefill-batching, unified-dispatch, lookahead and
+persistent-tier families and its step timeline, the
 measured KV-transfer edges, the streamed KV handoff and the perf model's
 predicted-vs-measured rows (all but the JAX package's
 ``dynamo_tpu_perf_predicted_step_ms``, which it reads from a committed
@@ -13,7 +14,8 @@ never composed.
 
 from __future__ import annotations
 
-__all__ = ["HttpMetric", "EngineMetric", "KvTransferMetric", "KvStreamMetric", "PerfMetric"]
+__all__ = ["HttpMetric", "FaultMetric", "EngineMetric", "KvTransferMetric", "KvStreamMetric",
+           "PerfMetric"]
 
 
 class HttpMetric:
@@ -22,10 +24,19 @@ class HttpMetric:
     REQUESTS_TOTAL = "dynamo_tpu_http_service_requests_total"
     INFLIGHT_REQUESTS = "dynamo_tpu_http_service_inflight_requests"
     OUTPUT_TOKENS_TOTAL = "dynamo_tpu_http_service_output_tokens_total"
+    ADMISSION_SHED_TOTAL = "dynamo_tpu_http_service_admission_shed_total"
     TTFT_SECONDS = "dynamo_tpu_http_service_ttft_seconds"
     INTER_TOKEN_SECONDS = "dynamo_tpu_http_service_inter_token_seconds"
     QUEUE_WAIT_SECONDS = "dynamo_tpu_http_service_queue_wait_seconds"
     REQUEST_SECONDS = "dynamo_tpu_http_service_request_seconds"
+
+
+class FaultMetric:
+    """Fault plane (``fault/counters.py`` process-global counters)."""
+
+    MIGRATIONS_TOTAL = "dynamo_tpu_fault_migrations_total"
+    DRAINS_IN_PROGRESS = "dynamo_tpu_fault_drains_in_progress"
+    SUSPECT_INSTANCES = "dynamo_tpu_fault_suspect_instances"
 
 
 class EngineMetric:

@@ -3,9 +3,9 @@
 A copy of the JAX package's ``runtime/distributed.py`` on the port's
 coordinator client and TCP request plane: the same discovery keys,
 subjects and instance records, so port and JAX processes discover and
-call each other through either package's coordinator.  The JAX package's
-fault plane is not ported: ``drain`` keeps no drains-in-progress gauge and
-a ``Client``'s ``health`` is whatever object the caller sets.
+call each other through either package's coordinator.  ``drain`` keeps
+the fault plane's drains-in-progress gauge (``fault/counters.py``), and a
+``Client``'s ``health`` is a ``fault.HealthMonitor`` when a caller sets one.
 
 Namespace → Component → Endpoint naming, endpoint serving with lease-backed
 discovery, clients with watch-driven instance lists and routing modes.
@@ -216,30 +216,36 @@ class Endpoint:
 
         Returns True if the subject went idle inside ``timeout``.  Safe to
         call twice (the second delete/unregister is a no-op)."""
+        from dynamo_tpu_torch.fault.counters import counters
+
         rt = self.runtime
         iid = lease_id or rt.primary_lease
         subject = self.subject(iid)
+        counters.drains_in_progress += 1
         try:
-            # bounded: a stalled coordinator must not hold up process
-            # shutdown — if the delete can't land, the lease expiry
-            # deletes the key for us; keep draining local streams
-            await asyncio.wait_for(
-                rt.coordinator.kv_delete(f"{self.discovery_prefix}{iid:x}"),
-                min(2.0, timeout))
-        except (ConnectionError, RuntimeError, asyncio.TimeoutError):
-            log.warning("drain of %s: discovery delete failed", self.url)
-        rt._served = [(e, i) for e, i in rt._served
-                      if not (i == iid and e.subject(i) == subject)]
-        idle = True
-        if rt._tcp_server is not None:
-            idle = await rt._tcp_server.wait_idle(subject, timeout)
-            if not idle:
-                log.warning(
-                    "drain of %s instance %x timed out with %d streams live",
-                    self.url, iid, rt._tcp_server.inflight(subject))
-            rt._tcp_server.unregister(subject)
-        log.info("drained %s instance %x (idle=%s)", self.url, iid, idle)
-        return idle
+            try:
+                # bounded: a stalled coordinator must not hold up process
+                # shutdown — if the delete can't land, the lease expiry
+                # deletes the key for us; keep draining local streams
+                await asyncio.wait_for(
+                    rt.coordinator.kv_delete(f"{self.discovery_prefix}{iid:x}"),
+                    min(2.0, timeout))
+            except (ConnectionError, RuntimeError, asyncio.TimeoutError):
+                log.warning("drain of %s: discovery delete failed", self.url)
+            rt._served = [(e, i) for e, i in rt._served
+                          if not (i == iid and e.subject(i) == subject)]
+            idle = True
+            if rt._tcp_server is not None:
+                idle = await rt._tcp_server.wait_idle(subject, timeout)
+                if not idle:
+                    log.warning(
+                        "drain of %s instance %x timed out with %d streams live",
+                        self.url, iid, rt._tcp_server.inflight(subject))
+                rt._tcp_server.unregister(subject)
+            log.info("drained %s instance %x (idle=%s)", self.url, iid, idle)
+            return idle
+        finally:
+            counters.drains_in_progress -= 1
 
     # ----------------------------------------------------------------- client
     async def client(self) -> "Client":
@@ -263,8 +269,8 @@ class Client(AsyncEngine):
         # the id (not a list index) keeps rotation stable when membership
         # churn reshuffles the sorted id list under us.
         self._rr_last: Optional[int] = None
-        # optional health monitor (anything with is_suspect(instance_id));
-        # picks deprioritize suspect instances
+        # optional fault/health.HealthMonitor (anything with
+        # is_suspect(instance_id)); picks deprioritize suspect instances
         self.health = None
         self._watch_id: Optional[int] = None
         self._changed = asyncio.Event()

@@ -64,8 +64,8 @@ from dynamo_tpu_torch.llm.http.metrics import Metrics
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.models.convert import params_from_jax
 from dynamo_tpu_torch.models.llama import LlamaModel
-from dynamo_tpu_torch.obs.metric_names import (EngineMetric, HttpMetric, KvStreamMetric,
-                                                KvTransferMetric, PerfMetric)
+from dynamo_tpu_torch.obs.metric_names import (EngineMetric, FaultMetric, HttpMetric,
+                                                KvStreamMetric, KvTransferMetric, PerfMetric)
 from dynamo_tpu_torch.runtime.engine import Context
 from tests.test_chat_templates import LLAMA3_TEMPLATE, MISTRAL_TEMPLATE
 
@@ -648,7 +648,8 @@ def test_http_metrics_match_jax(served):
     # the transfer-cost families render once an edge has a sample, the perf
     # family once a kind has been dispatched
     assert families - names(KvTransferMetric) == (
-        names(HttpMetric) | names(EngineMetric) | names(KvStreamMetric) | names(PerfMetric))
+        names(HttpMetric) | names(FaultMetric) | names(EngineMetric) | names(KvStreamMetric)
+        | names(PerfMetric))
 
 
 def test_metrics_latency_histograms():

@@ -12,10 +12,13 @@ prompt prefilled remotely) and with a threshold that splits the prompts;
 the prefill worker must have handled as many prompts in both packages.  In
 the colocated graph every handoff is an on-card (here in-process) write,
 none over TCP.  The port's ``serve`` command runs the disagg graph as four
-processes and answers as the in-process graph does.  The refusals (an
-``admission:`` block, a ``dyn://models/`` path, ``tp: 2``, a ``gpu`` engine
-with no device on a machine without a GPU) raise by name, and
-``hello_world.py`` prints ``HELLO WORLD!``.
+processes and answers as the in-process graph does.  The Frontend builds
+an admission controller from an ``admission:`` block and sheds over its
+rate, and the GpuWorker serves a ``dyn://models/`` path pulled from the
+coordinator as the directory itself serves.  The refusals (``tp: 2``,
+``sp-prefill-threshold``, a ``gpu`` engine with no device on a machine
+without a GPU) raise by name, and ``hello_world.py`` prints ``HELLO
+WORLD!``.
 """
 
 import asyncio
@@ -305,12 +308,10 @@ def no_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("service,keys,error,match", [
-    ("Frontend", {"admission": {"rate": 1}}, ValueError, "admission.*ROADMAP A15"),
-    ("GpuWorker", {"model-path": "dyn://models/llama"}, ValueError, "model store.*ROADMAP A15"),
     ("GpuWorker", {"tp": 2}, ValueError, r"\{'tp': 2\}.*ROADMAP A10"),
     ("GpuWorker", {"sp-prefill-threshold": 512}, ValueError, "ROADMAP A10"),
     ("GpuWorker", {"engine": "gpu", "model-path": "MODEL"}, SystemExit, "no CUDA device"),
-], ids=["admission", "dyn-models", "tp", "sp-prefill", "no-gpu"])
+], ids=["tp", "sp-prefill", "no-gpu"])
 def test_refusals(no_cuda, model_dir, service, keys, error, match):
     cfg = json.loads(json.dumps(ECHO))
     cfg[service].update({k: (str(model_dir) if v == "MODEL" else v) for k, v in keys.items()})
@@ -326,6 +327,67 @@ def test_refusals(no_cuda, model_dir, service, keys, error, match):
             await srv.stop()
 
     run(go())
+
+
+@pytest.mark.parametrize("feature", ["admission", "dyn-models"])
+def test_admission_and_model_store(served, model_dir, tmp_path, monkeypatch, feature):
+    """``admission``: the Frontend builds an AdmissionController from its
+    config block; of two requests against a bucket of one, the second is
+    shed with 429 and Retry-After.  ``dyn-models``: the directory pushed
+    to the coordinator, the GpuWorker boots from ``dyn://models/tiny``
+    (pulled into the cache) and answers the first request as the agg graph
+    serving the directory did."""
+    from dynamo_tpu_torch.llm import model_store
+    from dynamo_tpu_torch.planner import AdmissionController
+    from dynamo_tpu_torch.runtime.transports.coordinator import CoordinatorClient
+
+    monkeypatch.setattr(model_store, "DEFAULT_CACHE", tmp_path / "cache")
+    mod = f"{GRAPHS}.agg"
+    cfg = graph_config("port", "agg", model_dir)
+    if feature == "admission":
+        cfg["GpuWorker"] = {"engine": "echo"}
+        cfg["Frontend"]["admission"] = {"rate_tokens_per_s": 0.01, "burst_tokens": 1,
+                                        "max_concurrent": 4}
+    else:
+        cfg["GpuWorker"]["model-path"] = "dyn://models/tiny"
+
+    async def go():
+        srv = await CoordinatorServer(port=0).start()
+        handle = None
+        try:
+            if feature == "dyn-models":
+                c = await CoordinatorClient(srv.url).connect()
+                await model_store.push_model(c, "tiny", model_dir)
+                await c.close()
+            handle = await serve_graph(importlib.import_module(mod).Frontend, ServiceConfig(cfg),
+                                       RuntimeConfig(coordinator_url=srv.url), graph=mod)
+            front = handle.instances["Frontend"]
+            if feature == "dyn-models":
+                return handle.instances["GpuWorker"].card.model_path, await post_all(
+                    front.port, REQUESTS[:1])
+            admission = front.http.admission
+            statuses = []
+            async with ClientSession() as s:
+                for _ in range(2):
+                    r = await s.post(f"http://127.0.0.1:{front.port}/v1/completions",
+                                     json={"model": "tiny", "prompt": [5, 6, 7], "max_tokens": 2})
+                    statuses.append((r.status, r.headers.get("Retry-After")))
+            return admission, statuses
+        finally:
+            if handle is not None:
+                await handle.stop()
+            await srv.stop()
+
+    if feature == "admission":
+        admission, statuses = run(go())
+        assert isinstance(admission, AdmissionController)
+        assert admission.config.burst_tokens == 1.0 and admission.config.max_concurrent == 4
+        assert statuses[0] == (200, None) and statuses[1][0] == 429
+        assert int(statuses[1][1]) >= 1 and admission.shed_total == {"normal": 1}
+    else:
+        path, bodies = run(go())
+        assert Path(path).parent == tmp_path / "cache"
+        assert _strip(bodies) == _strip(served("port", "agg")["bodies"][:1])
 
 
 def test_hello_world_example_runs():
