@@ -99,7 +99,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (``max_local_prefill_length=0``) and a prefill engine behind a
    ``PrefillWorker``, both on the default path and sharing the model.  On
    bf16: the colocated path (blocks copied on the card), the six prompts
-   one at a time (a1) and concurrently (a); (c) the streamed layer-wise
+   one at a time (a1; the concurrent colocated run is left out to keep the
+   script inside its time); (c) the streamed layer-wise
    handoff over TCP (``DYN_KV_TRANSFER_FORCE_TCP=1``, a prefill engine in
    256-token chunks); on int8 (weights and cache, Bs = 32): over TCP, one
    at a time (d1) and concurrently (d).  The blocking bf16 handoff over TCP
@@ -148,6 +149,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
    device-to-host and host-to-device copy of P's bytes, persist spill and
    load MB/s and the host gap per turn of h2 and h4; one ``{"router":
    ...}`` line the decisions, overlaps and the time of one decision.
+   The sharded router (s), its launches counted from 0: two engines on
+   the model with (r)'s wiring, registered as ``run in=dyn://`` workers
+   register, a singleton
+   router and a scatter-gather scheduler over three ``ShardReplica``s of
+   8 shards; (r)'s requests served where the sharded scheduler says, each
+   gathered overlap equal to the singleton's and each later request
+   hitting its prefix (B2 at the suffix's S); a fourth replica joins (one
+   generation everywhere, the moved shards' handoff frames, a warm gather)
+   and one dies (the next decision within the gather deadline, counted
+   partial, scores never rising); then a ``PlannerLoop`` and a
+   ``MetricsService`` over a burst of six requests (the idle snapshot the
+   engines' last published metrics, every plan the policy's, ``/metrics``
+   listing both workers).  One ``{"shards": ...}`` and one
+   ``{"planner": ...}`` line.
    Between the ``disagg`` and ``tier`` phases on the bf16 model, the
    ``fault`` phase: two workers of this process, each its own engine on
    the model (default path), at ``dyn://dynamo.backend.generate`` behind a
@@ -281,11 +296,13 @@ each beside its bound and SDPA on the same latent K/V.  Phase 4 prints
 one ``{"grammar": {...}}`` line (the grammar ops' and the seeded noise's
 times, launches and bounds, the table sizes, the constrained serving
 readings beside the unconstrained ones).  At the end one ``{"mla": [...]}``
-line, the ``{"disagg": ...}`` line, the ``{"tier": ...}`` and
-``{"router": ...}``, ``{"graphs": ...}``, ``{"fault": ...}`` and
+line, the ``{"disagg": ...}`` line, the ``{"tier": ...}``,
+``{"router": ...}``, ``{"shards": ...}``, ``{"planner": ...}``,
+``{"graphs": ...}``, ``{"fault": ...}`` and
 ``{"formats": ...}`` lines, one ``{"kernels": [...]}`` line (each
 kernel's row also holds its launches over the disaggregated runs under
-``launches_disagg``, over the KV-tier runs under ``launches_tier``, in the
+``launches_disagg``, over the KV-tier runs under ``launches_tier`` (the
+sharded router run's alone under ``launches_shards``), in the
 ``graphs`` phase's two worker processes under ``launches_graphs``, over
 the fault phase's migrated request under ``launches_fault`` and over the
 formats phase's five requests under ``launches_formats``; the grouped
@@ -3436,8 +3453,10 @@ def dyn_phase(card: str, texts: list[str], local_ttfts: list[float]) -> None:
         warm, answers = asyncio.run(go())
     rcs = {name: p.proc.returncode for name, p in procs.items()}
     worker_log = logs["worker"].read_text()
-    check(all(a[0] == 200 for a in warm + answers),
-          f"dyn: statuses {[a[0] for a in warm + answers]}")
+    if any(a[0] != 200 for a in warm + answers):
+        check(False, f"dyn: statuses {[a[0] for a in warm + answers]}, answers "
+              f"{[a[1] for a in warm + answers if a[0] != 200]}; the frontend's log: "
+              f"{logs['http'].read_text()[-6000:]}\nthe worker's log: {worker_log[-6000:]}")
     got = [_answer_text(a[1]) for a in answers]
     check(got == texts, f"dyn: answers {got} != a fresh engine's {texts}")
     loaded = [ln for ln in worker_log.splitlines() if "loaded" in ln and " on cuda" in ln]
@@ -3896,10 +3915,9 @@ def http_serving_run(torch, model, direct: dict, card: str) -> None:
     with the word-level tokenizer: the six prompts as token-id completions,
     concurrent and streamed, 32 greedy tokens each; TTFT at the client
     (first SSE event with text).  The host's speed drifts within a call, so
-    the HTTP runs alternate with direct runs (direct, HTTP, direct, HTTP,
-    direct, the first direct run being the default path's) and the front
-    door's cost is the median of the HTTP runs' TTFT medians minus that of
-    the direct runs'."""
+    the HTTP run sits between direct runs (direct, HTTP, direct, the first
+    direct run being the default path's) and the front door's cost is the
+    HTTP run's TTFT median minus the median of the direct runs'."""
     import statistics
 
     from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
@@ -3909,7 +3927,7 @@ def http_serving_run(torch, model, direct: dict, card: str) -> None:
                                 context_length=8192)
     tok = TokenizerWrapper.from_file(FRONT_DIR)
     runs = {"direct": [direct], "http": []}
-    for turn in range(2):
+    for turn in range(1):
         answers, wall = _http_run(model, mcard)
         ttfts = [a[2] for a in answers]
         runs["http"].append(dict(ttfts=ttfts, decode_tok_s=len(answers) * (MAX_TOKENS - 1) /
@@ -3929,7 +3947,7 @@ def http_serving_run(torch, model, direct: dict, card: str) -> None:
     cost = statistics.median(med["http"]) - statistics.median(med["direct"])
     log(f"front-door cost: TTFT medians over HTTP {[round(x, 3) for x in med['http']]} s, direct "
         f"{[round(x, 3) for x in med['direct']]} s: {1e3 * cost:.1f} ms per request (median of "
-        f"the HTTP runs minus median of the direct runs); decode tok/s over HTTP "
+        f"the HTTP run minus median of the direct runs); decode tok/s over HTTP "
         f"{[round(x, 1) for x in tps['http']]}, direct {[round(x, 1) for x in tps['direct']]} "
         f"({card})")
 
@@ -4150,7 +4168,6 @@ DISAGG_RUNS = {
     # label: (cache, path, streamed, one request at a time); every run on a
     # fresh engine pair, so no run hits another's prefix cache
     "a1": ("bf16", "colocated", False, True),
-    "a": ("bf16", "colocated", False, False),
     "c": ("bf16", "tcp", True, False),
     "d1": ("int8", "tcp", False, True),
     "d": ("int8", "tcp", False, False),
@@ -4297,6 +4314,20 @@ ROUTER_PREFIX = 1024
 ROUTER_SUFFIX = 64
 ROUTER_TOKENS = 8
 ROUTER_NS = "tier-router"
+# the sharded router run: the router run's requests, decided by the
+# singleton and by a scatter-gather scheduler over three shard replicas (a
+# fourth joins, one dies) of an index cut into SHARDS hash-prefix shards
+SHARDS = 8
+SHARD_REPLICAS = ("router-a", "router-b", "router-c")
+SHARD_JOINER = "router-d"
+SHARD_DEADLINE_S = 0.25  # a shard that has not answered by then is left out of that gather
+SHARD_NS = "tier-shards"
+SHARD_DECISIONS = 50     # decisions timed, each way
+# the planner and metrics burst: six concurrent requests over the two engines
+PLANNER_BURST = 6
+PLANNER_PROMPT = 512
+PLANNER_TOKENS = 24
+PLANNER_TICK_S = 0.25
 
 
 def tier_prompts(seed: int) -> dict:
@@ -4509,6 +4540,18 @@ class _Runtime:
             await fn()
 
 
+def router_requests() -> list:
+    """(prefix name, token ids): ABABAB over two 1,024-token prefixes, each
+    request with its own 64-token suffix."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    prefixes = {"A": rng.integers(0, LLAMA3_VOCAB, ROUTER_PREFIX).tolist(),
+                "B": rng.integers(0, LLAMA3_VOCAB, ROUTER_PREFIX).tolist()}
+    return [(name, prefixes[name] + rng.integers(0, LLAMA3_VOCAB, ROUTER_SUFFIX).tolist())
+            for name in "ABABAB"]
+
+
 def router_run(torch, model, card: str) -> dict:
     """(r): two engines on the one model, each behind the worker wiring
     (event and metrics publishers), a coordinator, a KvRouter and its
@@ -4519,18 +4562,12 @@ def router_run(torch, model, card: str) -> dict:
     the index holds each engine's registered blocks."""
     import random
 
-    import numpy as np
-
     from dynamo_tpu_torch.cli import attach_worker_publishers
     from dynamo_tpu_torch.llm.kv_router import DefaultWorkerSelector, KvRouter
     from dynamo_tpu_torch.llm.kv_router.metrics_aggregator import KvRouterSubscriber
     from dynamo_tpu_torch.runtime.transports.coordinator import CoordinatorClient, CoordinatorServer
 
-    rng = np.random.default_rng(7)
-    prefixes = {"A": rng.integers(0, LLAMA3_VOCAB, ROUTER_PREFIX).tolist(),
-                "B": rng.integers(0, LLAMA3_VOCAB, ROUTER_PREFIX).tolist()}
-    reqs = [(name, prefixes[name] + rng.integers(0, LLAMA3_VOCAB, ROUTER_SUFFIX).tolist())
-            for name in "ABABAB"]
+    reqs = router_requests()
     engines = {w: _tier_engine(model, DEFAULT_PATH) for w in (1, 2)}
 
     async def go():
@@ -4594,6 +4631,398 @@ def router_run(torch, model, card: str) -> dict:
                 decision_ms=schedule_ms, card=card)
 
 
+@contextlib.contextmanager
+def recorded_prefill():
+    """The fresh-query count S of every paged prefill call (B2 and B4b),
+    recorded by wrapping the routing's references (the wrappers and their
+    launch counts are untouched)."""
+    from dynamo_tpu_torch.ops import paged_attention as routing
+
+    names = ("paged_prefill_attention", "paged_prefill_attention_q8")
+    real = {n: getattr(routing, n) for n in names}
+    calls = []
+
+    def wrap(name):
+        def call(q, *args, **kw):
+            calls.append(q.shape[1])
+            return real[name](q, *args, **kw)
+        return call
+
+    for n in names:
+        setattr(routing, n, wrap(n))
+    try:
+        yield calls
+    finally:
+        for n in names:
+            setattr(routing, n, real[n])
+
+
+def _median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+async def _until(cond, what: str, limit_s: float = 10.0) -> None:
+    t0 = time.perf_counter()
+    while not cond():
+        check(time.perf_counter() - t0 < limit_s, f"shards: {what} within {limit_s} s")
+        await asyncio.sleep(0.01)
+
+
+def shard_run(torch, model, card: str) -> tuple[dict, dict]:
+    """(s): the router run's two engines and worker wiring, now registered as
+    ``run in=dyn://`` workers register (a lease each, the decode endpoint's
+    discovery key), with both a singleton KvRouter and a scatter-gather
+    scheduler over three ShardReplicas (SHARDS index shards, one
+    PubSubShardClient per shard) fed by the same KV events and metrics.
+
+    * Decisions: the router run's ABABAB requests, each gathered, decided by
+      the sharded scheduler and served there.  Every gathered overlap equals
+      the singleton index's; each prefix's later requests go to its first
+      worker and hit there: cached tokens cover the prefix and B2 runs over
+      the fresh suffix only.  Then one decision timed each way.
+    * A replica joins: every replica and the scheduler reach the new
+      membership's generation, the handoff frames carry exactly the moved
+      shards, and the joiner's ranges equal their old owners' (warm): the
+      next request over prefix A gathers the singleton's overlap.
+    * A replica dies (its connection closes, which revokes its lease at once;
+      no handoff ships): the next decision completes within the gather
+      deadline, the partial gather is counted, and after the rebind the
+      scores never rise and the request is served.
+    * The planner and metrics: during a burst of six concurrent requests a
+      PlannerLoop (LogActuator) over the decode pool ticks, and a
+      MetricsService listens; the loop's snapshots read the engines' last
+      published metrics, its plans are the policy's on them, and /metrics
+      lists both workers' gauges as published.
+
+    Returns the ``shards`` and ``planner`` lines."""
+    import random
+
+    import aiohttp
+
+    from dynamo_tpu_torch.cli import attach_worker_publishers
+    from dynamo_tpu_torch.components.metrics import MetricsService
+    from dynamo_tpu_torch.engine.counters import kv_shard_counters
+    from dynamo_tpu_torch.llm.kv_router import DefaultWorkerSelector, KvRouter
+    from dynamo_tpu_torch.llm.kv_router.metrics_aggregator import KvRouterSubscriber
+    from dynamo_tpu_torch.llm.kv_router.publisher import events_subject, metrics_subject
+    from dynamo_tpu_torch.llm.kv_router.scheduler import KvScheduler, WorkerMetrics
+    from dynamo_tpu_torch.llm.kv_router.shards import (PubSubShardClient, ScatterGatherScheduler,
+                                                       ShardMap, ShardReplica,
+                                                       membership_generation, shard_of)
+    from dynamo_tpu_torch.llm.kv_router.shards.lifecycle import DEFAULT_ROUTERS_PREFIX
+    from dynamo_tpu_torch.llm.kv_router.shards.wire import (decode_shard_handoff,
+                                                            shard_handoff_subject)
+    from dynamo_tpu_torch.obs.metric_names import RouterMetric as RM
+    from dynamo_tpu_torch.planner import LogActuator, PlannerLoop, PlannerPolicy
+    from dynamo_tpu_torch.runtime.transports.coordinator import CoordinatorClient, CoordinatorServer
+    from dynamo_tpu_torch.tokens import sequence_hashes
+
+    reqs = router_requests()
+    engines = [_tier_engine(model, DEFAULT_PATH) for _ in range(2)]
+    kv_shard_counters.reset()
+
+    async def go():
+        srv = await CoordinatorServer(port=0).start()
+        conns, stops = [], []
+
+        async def conn():
+            c = await CoordinatorClient(srv.url).connect()
+            conns.append(c)
+            return c
+
+        replicas, dead = {}, set()
+        try:
+            # the workers: a lease each, the publishers, the discovery key
+            wids, by_wid = [], {}
+            for engine in engines:
+                c = await conn()
+                wid = await c.lease_create(ttl=10.0)
+                rt = _Runtime(c, wid)
+                stops.append(rt.shutdown)
+                attach_worker_publishers(rt, engine, SHARD_NS)
+                created = await c.kv_create(
+                    f"{SHARD_NS}/components/decode/endpoints/generate/{wid:x}",
+                    {"instance_id": wid, "subject": f"{SHARD_NS}.decode.generate-{wid:x}"},
+                    lease_id=wid)
+                check(created, "shards: a worker's discovery key was taken")
+                wids.append(wid)
+                by_wid[wid] = engine
+            # the singleton router
+            router = KvRouter(block_size=BS, selector=DefaultWorkerSelector(random.Random(0)))
+            sub = await KvRouterSubscriber(router, await conn(), namespace=SHARD_NS).start()
+            stops.append(sub.stop)
+            # the replicas, on a connection each
+            for rid in SHARD_REPLICAS:
+                r = ShardReplica(await conn(), rid, SHARDS, namespace=SHARD_NS, lease_ttl_s=10.0)
+                await r.subscribe_events(events_subject(SHARD_NS))
+                replicas[rid] = await r.start()
+            # the sharded scheduler: fed the workers' metrics as the
+            # singleton's is, its generation kept from the membership
+            sc = await conn()
+            sched = KvScheduler(DefaultWorkerSelector(random.Random(0)), block_size=BS)
+
+            def on_metrics(subject, payload):
+                sched.update_worker(WorkerMetrics(**json.loads(payload)))
+
+            await sc.subscribe(metrics_subject(SHARD_NS), on_metrics)
+            clients = [await PubSubShardClient(sc, SHARD_NS, s, "scheduler").start()
+                       for s in range(SHARDS)]
+            stops += [c.stop for c in clients]
+            gate = ScatterGatherScheduler(sched, clients, SHARDS, deadline_s=SHARD_DEADLINE_S)
+            members = set()
+
+            def on_member(event, key, value):
+                rid = key.rsplit("/", 1)[-1]
+                (members.add if event == "put" else members.discard)(rid)
+                gate.set_generation(membership_generation(sorted(members), SHARDS))
+
+            _, existing = await sc.watch(DEFAULT_ROUTERS_PREFIX, on_member)
+            for key in existing:
+                on_member("put", key, None)
+            # the handoff frames, as a bystander sees them
+            frames = []
+            await sc.subscribe(shard_handoff_subject(SHARD_NS),
+                               lambda subj, pl: frames.append(decode_shard_handoff(pl)))
+
+            def settled(live):
+                gen = membership_generation(sorted(live), SHARDS)
+                return gate.generation == gen and all(
+                    replicas[r].map.generation == gen and not replicas[r]._bg_tasks
+                    and set(replicas[r]._subs) == set(replicas[r].map.shards_of(r))
+                    for r in live)
+
+            live = list(SHARD_REPLICAS)
+            await _until(lambda: settled(live), "three replicas at one generation")
+            await _until(lambda: set(wids) <= set(router.scheduler.workers())
+                         and set(wids) <= set(sched.workers()), "the workers' metrics")
+
+            async def gather(toks):
+                hashes = sequence_hashes(toks, BS)
+                ov, partial = await gate.overlaps(hashes)
+                return hashes, dict(ov.scores), partial
+
+            # decisions
+            rows = []
+            for i, (name, toks) in enumerate(reqs):
+                hashes, scores, partial = await gather(toks)
+                single = dict(router.indexer.find_matches(hashes).scores)
+                check(scores == single and not partial,
+                      f"shards: request {i} gathered {scores} (partial {partial}), "
+                      f"the singleton {single}")
+                wid = await gate.schedule(hashes, len(toks))
+                d = router.schedule(toks)
+                with recorded_prefill() as fresh:
+                    ((ttft, _, outs),) = await _serve(by_wid[wid], [toks],
+                                                      max_tokens=ROUTER_TOKENS, tag=f"shard-{i}")
+                rows.append(dict(prefix=name, worker=wids.index(wid) + 1,
+                                 singleton_worker=wids.index(d.worker_id) + 1,
+                                 overlap={wids.index(w) + 1: n for w, n in sorted(scores.items())},
+                                 cached=outs[-1].cached_tokens, prefill_s=sorted(set(fresh)),
+                                 ttft_ms=1e3 * ttft))
+                await asyncio.sleep(0.2)  # the publishers flush every 50 ms
+            # one decision timed each way: the singleton hashes, matches and
+            # scores; the sharded one hashes, scatters, gathers and scores
+            toks = reqs[0][1]
+            single_ms, shard_ms = [], []
+            for _ in range(SHARD_DECISIONS):
+                t0 = time.perf_counter()
+                router.schedule(toks)
+                single_ms.append(1e3 * (time.perf_counter() - t0))
+            for _ in range(SHARD_DECISIONS):
+                t0 = time.perf_counter()
+                await gate.schedule(sequence_hashes(toks, BS), len(toks))
+                shard_ms.append(1e3 * (time.perf_counter() - t0))
+            check(kv_shard_counters.gather_partial_total == 0,
+                  f"shards: {kv_shard_counters.gather_partial_total} partial gathers before "
+                  "the join")
+            # a replica joins
+            old_map = ShardMap.from_replicas(live, SHARDS)
+            del frames[:]
+            joiner = ShardReplica(await conn(), SHARD_JOINER, SHARDS, namespace=SHARD_NS,
+                                  lease_ttl_s=10.0)
+            await joiner.subscribe_events(events_subject(SHARD_NS))
+            replicas[SHARD_JOINER] = await joiner.start()
+            live.append(SHARD_JOINER)
+            await _until(lambda: settled(live), "four replicas and the scheduler at one generation")
+            gen4 = gate.generation
+            moved = old_map.moved_shards(replicas[SHARD_JOINER].map)
+            await _until(lambda: all(
+                joiner.index.export_shard(s) == replicas[old_map.owner(s)].index.export_shard(s)
+                for s in moved), "the joiner's handed-off ranges")
+            handoffs = sorted((f[0], f[2], len(f[3])) for f in frames)
+            check(sorted(f[0] for f in frames) == moved and all(f[1] == gen4 for f in frames)
+                  and moved, f"shards: handoff frames {handoffs}, moved {moved}")
+            toks_a = next(t for n, t in reqs if n == "A")
+            hashes_a, warm, partial = await gather(toks_a)
+            single_a = dict(router.indexer.find_matches(hashes_a).scores)
+            check(warm == single_a and not partial,
+                  f"shards: after the join prefix A gathered {warm}, the singleton {single_a}")
+            generations = {r: replicas[r].map.generation for r in live}
+            generations["scheduler"] = gate.generation
+            # a replica dies: the one owning prefix A's first block
+            victim = replicas[SHARD_JOINER].map.owner(shard_of(hashes_a[0], SHARDS))
+            victim_conn = replicas[victim].coord
+            partial0 = kv_shard_counters.gather_partial_total
+            await victim_conn.close()
+            for t in list(replicas[victim]._bg_tasks):
+                t.cancel()
+            dead.add(victim)
+            live.remove(victim)
+            t0 = time.perf_counter()
+            after_wid = await gate.schedule(hashes_a, len(toks_a))
+            death_ms = 1e3 * (time.perf_counter() - t0)
+            check(death_ms < 1e3 * SHARD_DEADLINE_S + 200,
+                  f"shards: the decision after the death took {death_ms:.1f} ms")
+            check(kv_shard_counters.gather_partial_total > partial0,
+                  "shards: the gather that missed the dead replica was not counted partial")
+            await _until(lambda: settled(live), "the survivors' rebind")
+            _, rebound, rpartial = await gather(toks_a)
+            check(all(n <= warm.get(w, 0) for w, n in rebound.items()),
+                  f"shards: after the rebind the overlap rose: {rebound} over {warm}")
+            wid = await gate.schedule(hashes_a, len(toks_a))
+            ((_, _, outs),) = await _serve(by_wid[wid], [toks_a], max_tokens=ROUTER_TOKENS,
+                                           tag="shard-after-death")
+            check(sum(len(o.token_ids) for o in outs) == ROUTER_TOKENS,
+                  "shards: the request after the death was not served")
+            death = dict(replica=victim, decision_ms=death_ms, decided_worker=wids.index(
+                after_wid) + 1, partial_gathers=kv_shard_counters.gather_partial_total - partial0,
+                overlap_before={wids.index(w) + 1: n for w, n in sorted(warm.items())},
+                overlap_after={wids.index(w) + 1: n for w, n in sorted(rebound.items())},
+                partial_after_rebind=rpartial, served_worker=wids.index(wid) + 1,
+                generation_after=gate.generation)
+            shards_line = dict(
+                card=card, shards=SHARDS, replicas=list(SHARD_REPLICAS), joiner=SHARD_JOINER,
+                deadline_ms=1e3 * SHARD_DEADLINE_S, decisions=rows,
+                decision_ms=dict(sharded_median=_median(shard_ms), singleton_median=_median(
+                    single_ms), sharded_mean=sum(shard_ms) / len(shard_ms),
+                    singleton_mean=sum(single_ms) / len(single_ms), n=SHARD_DECISIONS),
+                join=dict(generations=generations, moved_shards=moved, handoffs=handoffs,
+                          warm_overlap={wids.index(w) + 1: n for w, n in sorted(warm.items())}),
+                death=death, scatters_total=kv_shard_counters.scatters_total,
+                gather_partial_total=kv_shard_counters.gather_partial_total,
+                owned_index_blocks={r: sum(replicas[r].index.shard(s).num_blocks
+                                           for s in replicas[r].map.shards_of(r)) for r in live})
+            # the planner and the metrics service, during one burst
+            pc = await conn()
+            published = {}
+
+            def on_published(subject, payload):
+                d = json.loads(payload)
+                published[int(d["worker_id"])] = d
+
+            await pc.subscribe(metrics_subject(SHARD_NS), on_published)
+            svc = await MetricsService(await conn(), namespace=SHARD_NS, port=0).start()
+            stops.append(svc.stop)
+            loop = await PlannerLoop(pc, namespace=SHARD_NS, actuators=(LogActuator(),),
+                                     interval_s=PLANNER_TICK_S).attach()
+            stops.append(loop.stop)
+            snaps, real_plan = [], loop.policy.plan
+
+            def recorded_plan(snap):
+                snaps.append(snap)
+                return real_plan(snap)
+
+            loop.policy.plan = recorded_plan
+            await _until(lambda: set(wids) <= set(loop._metrics), "the planner's first metrics")
+            rng = __import__("numpy").random.default_rng(11)
+            burst = [rng.integers(0, LLAMA3_VOCAB, PLANNER_PROMPT).tolist()
+                     for _ in range(PLANNER_BURST)]
+            ticks = []
+
+            async def ticker():
+                while True:
+                    ticks.append(await loop.tick_once())
+                    await asyncio.sleep(PLANNER_TICK_S)
+
+            task = asyncio.ensure_future(ticker())
+            t0 = time.perf_counter()
+            await asyncio.gather(*(
+                _serve(engines[i % 2], [toks], max_tokens=PLANNER_TOKENS, tag=f"burst-{i}")
+                for i, toks in enumerate(burst)))
+            burst_s = time.perf_counter() - t0
+            task.cancel()
+            await asyncio.gather(task, return_exceptions=True)
+            # idle: one more publish each (1 s cadence), then the last tick
+            n_pub = {w: 0 for w in wids}
+
+            def count(subject, payload):
+                n_pub[int(json.loads(payload)["worker_id"])] += 1
+
+            await pc.subscribe(metrics_subject(SHARD_NS), count)
+            await _until(lambda: all(n >= 2 for n in n_pub.values()), "an idle metrics publish",
+                         limit_s=5.0)
+            last = await loop.tick_once()
+            snap = snaps[-1]
+            fields = ("request_active_slots", "request_total_slots", "kv_active_blocks",
+                      "kv_total_blocks", "num_requests_waiting")
+            read = {s.worker_id: {f: getattr(s, f) for f in fields} for s in snap.decode.samples}
+            want = {w: {f: published[w][f] for f in fields} for w in wids}
+            check(read == want, f"planner: the snapshot read {read}, the workers published {want}")
+            core_now = {w: {f: by_wid[w].core.metrics()[f] for f in fields} for w in wids}
+            check(core_now == want, f"planner: the engines' metrics {core_now}, published {want}")
+            replay = PlannerPolicy(loop.policy.config)
+            replayed = [replay.plan(sn) for sn in snaps]
+            check(replayed == ticks + [last], "planner: a plan differs from the policy's on its "
+                  "snapshot")
+            check(snap.decode.registered == 2 and len(ticks) >= 2,
+                  f"planner: registered {snap.decode.registered}, {len(ticks)} ticks in the burst")
+            async with aiohttp.ClientSession() as s:
+                async with s.get(f"http://127.0.0.1:{svc.port}/metrics") as r:
+                    text = await r.text()
+            for w in wids:
+                for name, f in ((RM.KV_BLOCKS_ACTIVE, "kv_active_blocks"),
+                                (RM.KV_BLOCKS_TOTAL, "kv_total_blocks"),
+                                (RM.REQUEST_ACTIVE_SLOTS, "request_active_slots"),
+                                (RM.REQUESTS_WAITING, "num_requests_waiting")):
+                    line = f'{name}{{worker="{w}"}} {published[w][f]}'
+                    check(line in text, f"planner: /metrics lacks {line}")
+            plans = ticks + [last]
+
+            def decision(p):
+                return p.prefill_replicas, p.decode_replicas, p.flip, p.decode_usage
+
+            changed = [p for i, p in enumerate(plans)
+                       if i == 0 or decision(p) != decision(plans[i - 1])]
+            planner_line = dict(
+                card=card, burst=dict(requests=PLANNER_BURST, prompt=PLANNER_PROMPT,
+                                      tokens=PLANNER_TOKENS, seconds=burst_s),
+                ticks=len(ticks) + 1,
+                # the plans at the ticks where the decision or its usage changed
+                plans=[dict(tick=p.tick, prefill=p.prefill_replicas, decode=p.decode_replicas,
+                            flip=p.flip, usage=p.decode_usage) for p in changed],
+                snapshot={wids.index(w) + 1: v for w, v in read.items()},
+                metrics_lines=sum(
+                    1 for line in text.splitlines() if line and not line.startswith("#")))
+            return shards_line, planner_line
+        finally:
+            for fn in reversed(stops):
+                await fn()
+            for rid, r in replicas.items():
+                if rid not in dead:
+                    await r.stop()
+            for c in conns:
+                await c.close()
+            await srv.stop()
+
+    try:
+        shards_line, planner_line = asyncio.run(go())
+    finally:
+        for e in engines:
+            _close(torch, e)
+    first = {}
+    for i, r in enumerate(shards_line["decisions"]):
+        if r["prefix"] not in first:
+            first[r["prefix"]] = r["worker"]
+            continue
+        fresh = len(reqs[i][1]) - r["cached"]
+        check(r["worker"] == first[r["prefix"]] and r["cached"] >= ROUTER_PREFIX
+              and r["prefill_s"] == [fresh],
+              f"shards: request {i} over {r['prefix']}: worker {r['worker']} (first "
+              f"{first[r['prefix']]}), cached {r['cached']}, B2 at S {r['prefill_s']}")
+    log(f"shards: {shards_line['decisions']}; one decision {shards_line['decision_ms']} ({card})")
+    return shards_line, planner_line
+
+
 def tier_phase(torch, model, card: str) -> dict:
     """The KV tiers on the bf16 Llama-3-8B: h1-h4 on prefix 0 (with the
     second engine's reference stream), h1, h2 and h4 again on three fresh
@@ -4609,6 +5038,16 @@ def tier_phase(torch, model, card: str) -> dict:
                for i in range(TIER_REPEATS)]
     persist = persist_run(torch, model, ps, first["runs"]["h4"]["stream"])
     router = router_run(torch, model, card)
+    # the sharded run's own launches: counted from 0, then added back
+    before = {name: fn.launches for name, fn in wrappers.items()}
+    for fn in wrappers.values():
+        fn.launches = 0
+    shards, planner = shard_run(torch, model, card)
+    shards["launches"] = {name: fn.launches for name, fn in wrappers.items()}
+    check(shards["launches"]["decode"] > 0 and shards["launches"]["prefill"] > 0,
+          f"shards: launches {shards['launches']}")
+    for name, fn in wrappers.items():
+        fn.launches += before[name]
     launches = {name: fn.launches for name, fn in wrappers.items()}
     check(launches["decode"] > 0 and launches["prefill"] > 0 and not any(
         launches[k] for k in ("decode_q8", "prefill_q8", "ragged", "ragged_q8", "matmul")),
@@ -4616,8 +5055,8 @@ def tier_phase(torch, model, card: str) -> dict:
     yard = tier_yardsticks(torch, TIER_PREFIX // BS * first["stats"]["offload_bytes"]
                            // max(1, first["stats"]["offload_blocks"]))
     log(f"tier phase (bf16): {time.perf_counter() - t0:.1f} s, launches {launches} ({card})")
-    return dict(first=first, repeats=repeats, persist=persist, router=router, yard=yard,
-                launches=launches)
+    return dict(first=first, repeats=repeats, persist=persist, router=router, shards=shards,
+                planner=planner, yard=yard, launches=launches)
 
 
 def tier_phase_q8(torch, model, card: str) -> dict:
@@ -6165,6 +6604,7 @@ def main() -> int:
              launches=default["launches"]["decode"],
              launches_disagg=disagg_launches["decode"],
              launches_tier=tier_launches["decode"],
+             launches_shards=tier["shards"]["launches"]["decode"],
              launches_graphs=graph_launches["decode"],
              launches_fault=fault["launches"]["decode"],
              launches_formats=formats["launches_total"]["decode"],
@@ -6176,6 +6616,7 @@ def main() -> int:
              launches=default["launches"]["prefill"],
              launches_disagg=disagg_launches["prefill"],
              launches_tier=tier_launches["prefill"],
+             launches_shards=tier["shards"]["launches"]["prefill"],
              launches_graphs=graph_launches["prefill"],
              launches_fault=fault["launches"]["prefill"],
              launches_formats=formats["launches_total"]["prefill"],
@@ -6186,6 +6627,7 @@ def main() -> int:
              launches=budget["launches"]["ragged"],
              launches_disagg=disagg_launches["ragged"],
              launches_tier=tier_launches["ragged"],
+             launches_shards=tier["shards"]["launches"]["ragged"],
              launches_graphs=graph_launches["ragged"],
              launches_fault=fault["launches"]["ragged"],
              launches_formats=formats["launches_total"]["ragged"],
@@ -6196,6 +6638,7 @@ def main() -> int:
              launches=q8_default["launches"]["decode_q8"],
              launches_disagg=disagg_launches["decode_q8"],
              launches_tier=tier_launches["decode_q8"],
+             launches_shards=tier["shards"]["launches"]["decode_q8"],
              launches_graphs=graph_launches["decode_q8"],
              launches_fault=fault["launches"]["decode_q8"],
              launches_formats=formats["launches_total"]["decode_q8"],
@@ -6207,6 +6650,7 @@ def main() -> int:
              launches=q8_default["launches"]["prefill_q8"],
              launches_disagg=disagg_launches["prefill_q8"],
              launches_tier=tier_launches["prefill_q8"],
+             launches_shards=tier["shards"]["launches"]["prefill_q8"],
              launches_graphs=graph_launches["prefill_q8"],
              launches_fault=fault["launches"]["prefill_q8"],
              launches_formats=formats["launches_total"]["prefill_q8"],
@@ -6217,6 +6661,7 @@ def main() -> int:
              launches=q8_budget["launches"]["ragged_q8"],
              launches_disagg=disagg_launches["ragged_q8"],
              launches_tier=tier_launches["ragged_q8"],
+             launches_shards=tier["shards"]["launches"]["ragged_q8"],
              launches_graphs=graph_launches["ragged_q8"],
              launches_fault=fault["launches"]["ragged_q8"],
              launches_formats=formats["launches_total"]["ragged_q8"],
@@ -6227,6 +6672,7 @@ def main() -> int:
              launches=q8_default["launches"]["matmul"],
              launches_disagg=disagg_launches["matmul"],
              launches_tier=tier_launches["matmul"],
+             launches_shards=tier["shards"]["launches"]["matmul"],
              launches_graphs=graph_launches["matmul"],
              launches_fault=fault["launches"]["matmul"],
              launches_formats=formats["launches_total"]["matmul"],
@@ -6239,6 +6685,7 @@ def main() -> int:
              launches=moe_default["launches"]["moe"],
              launches_disagg=disagg_launches["moe"],
              launches_tier=tier_launches["moe"],
+             launches_shards=tier["shards"]["launches"]["moe"],
              launches_graphs=graph_launches["moe"],
              launches_fault=fault["launches"]["moe"],
              launches_formats=formats["launches_total"]["moe"],
@@ -6249,6 +6696,7 @@ def main() -> int:
              launches=moe_budget["launches"]["moe_q8"],
              launches_disagg=disagg_launches["moe_q8"],
              launches_tier=tier_launches["moe_q8"],
+             launches_shards=tier["shards"]["launches"]["moe_q8"],
              launches_graphs=graph_launches["moe_q8"],
              launches_fault=fault["launches"]["moe_q8"],
              launches_formats=formats["launches_total"]["moe_q8"],
@@ -6260,6 +6708,8 @@ def main() -> int:
     log(json.dumps({"disagg": disagg_out}))
     log(json.dumps({"tier": tier_out}))
     log(json.dumps({"router": tier["router"]}))
+    log(json.dumps({"shards": tier["shards"]}))
+    log(json.dumps({"planner": tier["planner"]}))
     log(json.dumps({"graphs": graphs}))
     log(json.dumps({"fault": fault}))
     log(json.dumps({"formats": formats}))

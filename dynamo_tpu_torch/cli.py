@@ -1,5 +1,6 @@
 """The port's command line: ``run``, ``coordinator``, ``http``, ``router``,
-``models``, ``trace``, ``quantize``, ``serve`` and ``package``.
+``models``, ``trace``, ``quantize``, ``serve``, ``package``, ``planner``,
+``metrics``, ``mock-worker``, ``deploy``, ``operator`` and ``api-store``.
 
     python -m dynamo_tpu_torch run in=<http|text:PROMPT|stdin|batch:FILE|dyn://NS.COMP.EP> \\
         out=<gpu|echo|dyn://NS.COMP.EP> --model-path DIR [options]
@@ -71,7 +72,23 @@ Serving graphs (``sdk/``, ``examples/llm/graphs/``):
   (``--api-store URL``), unpacked into ``--package-cache``;
 * ``package build SRC --entry module:Service --name NAME -o FILE`` archives
   a graph's sources; ``package push|pull|list`` talk to an api-store over
-  HTTP (the store itself is the JAX package's; the port's is ROADMAP A17).
+  HTTP: the port's (``api-store``) or the JAX package's, which speak the
+  same REST surface.
+
+The control plane's components:
+
+* ``planner`` runs the planning loop over the live metrics plane and logs
+  each tick's plan (replica targets, role flips); scale-ups also publish
+  the persist pre-warm hint;
+* ``metrics`` serves the workers' ForwardPassMetrics and the router's hit
+  rates as Prometheus text (``--push-url`` pushes it instead);
+* ``mock-worker`` publishes fake metrics and KV events, no GPU needed;
+* ``deploy SPEC [-o DIR]`` renders a deployment spec's k8s manifests (GPU
+  resources, ``deploy/renderer.py``);
+* ``operator [SPECS_DIR] [--crd]`` reconciles specs into a cluster through
+  ``kubectl`` (``--dry-run``: an in-memory cluster), with live phases and
+  autoscaling given ``--coordinator``;
+* ``api-store`` serves the versioned graph and package registry.
 """
 
 from __future__ import annotations
@@ -316,7 +333,10 @@ async def _cmd_run(args) -> None:
             client = await runtime.namespace(ns).component(comp).endpoint(ep).client()
             engine = build_serving_pipeline(client, card)
         else:
-            raw, card = build_local_engine(args)
+            # off-loop: a model build (CUDA context, weights, engine start)
+            # blocks for seconds, and on the loop it would hold back the
+            # runtime's first lease keepalive until the lease had lapsed
+            raw, card = await asyncio.to_thread(build_local_engine, args)
             engine = build_serving_pipeline(raw, card)
         model_name = args.model_name or card.name
         if args.inp.startswith("dyn://"):
@@ -792,6 +812,140 @@ async def _cmd_package(args) -> None:
                 print(json.dumps(await resp.json()))
 
 
+# ------------------------------------------------------- control-plane parts --
+
+
+async def _coordinator_client(args):
+    from dynamo_tpu_torch.runtime.transports.coordinator import CoordinatorClient
+
+    return await CoordinatorClient(args.coordinator or "tcp://127.0.0.1:6180").connect()
+
+
+async def _cmd_operator(args) -> None:
+    """Reconcile a watched directory of DynamoTpuDeployment specs and/or the
+    DynamoTpuDeployment custom resources (``--crd``) into a cluster."""
+    from dynamo_tpu_torch.deploy.operator import (KubectlCluster, KubectlCrSource,
+                                                  MemoryCluster, Operator)
+    from dynamo_tpu_torch.runtime.transports.coordinator import CoordinatorClient
+
+    if not args.specs_dir and not args.crd:
+        raise SystemExit("operator needs a specs dir and/or --crd")
+    cluster = MemoryCluster() if args.dry_run else KubectlCluster(context=args.context)
+    coord = None
+    if args.coordinator:
+        coord = await CoordinatorClient(args.coordinator, reconnect=True).connect()
+    cr_source = (KubectlCrSource(context=args.context, read_only=args.dry_run)
+                 if args.crd else None)
+    op = Operator(cluster, interval_s=args.interval, watch_dir=args.specs_dir,
+                  coordinator=coord, cr_source=cr_source)
+    if args.specs_dir:
+        op.load_dir(args.specs_dir)
+    log.info("operator watching %s (crd=%s, %d specs, dry_run=%s, coordinator=%s)",
+             args.specs_dir, args.crd, len(op.specs), args.dry_run, args.coordinator)
+    op.start()
+    try:
+        await _until_signalled()
+    finally:
+        await op.stop()
+        if coord is not None:
+            await coord.close()
+
+
+async def _cmd_deploy(args) -> None:
+    """Render the k8s manifests of a DynamoTpuDeployment spec: one YAML file
+    per object under ``--out``, or every object on stdout."""
+    import yaml
+
+    from dynamo_tpu_torch.deploy.renderer import (DeploymentSpec, render_manifests,
+                                                  render_to_dir)
+
+    try:
+        spec = DeploymentSpec.from_yaml(Path(args.spec))
+    except (KeyError, TypeError, ValueError) as e:
+        raise SystemExit(f"deploy: {args.spec}: {e}") from None
+    if args.out:
+        for path in render_to_dir(spec, args.out):
+            print(path)
+    else:
+        print(yaml.safe_dump_all(render_manifests(spec), sort_keys=False))
+
+
+async def _cmd_api_store(args) -> None:
+    """The versioned graph and package registry, with manifest rendering."""
+    from dynamo_tpu_torch.components.api_store import ApiStore
+
+    store = await ApiStore(db_path=args.db, host=args.host, port=args.port).start()
+    log.info("api-store on http://%s:%s (db %s)", store.host, store.port, args.db)
+    try:
+        await _until_signalled()
+    finally:
+        await store.stop()
+
+
+async def _cmd_metrics(args) -> None:
+    """Prometheus ``/metrics`` fed by the workers' ForwardPassMetrics and the
+    router's ``kv_hit_rate`` events (``--push-url``: push mode)."""
+    from dynamo_tpu_torch.components.metrics import MetricsService
+
+    coord = await _coordinator_client(args)
+    try:
+        svc = await MetricsService(coord, namespace=args.namespace or "dynamo", host=args.host,
+                                   port=args.port, push_url=args.push_url).start()
+        log.info("metrics on http://%s:%s/metrics", svc.host, svc.port)
+        try:
+            await _until_signalled()
+        finally:
+            await svc.stop()
+    finally:
+        await coord.close()
+
+
+async def _cmd_planner(args) -> None:
+    """The planner loop over the live metrics plane: a per-tick plan (replica
+    targets, role flips) from pool saturation and the prefill queue, logged
+    (``LogActuator``); a scale-up also publishes the persist pre-warm hint,
+    so fresh workers pull the shared KV store at boot."""
+    from dynamo_tpu_torch.llm.kv.persist import PrewarmActuator
+    from dynamo_tpu_torch.planner import LogActuator, PlannerConfig, PlannerLoop
+
+    coord = await _coordinator_client(args)
+    ns = args.namespace or "dynamo"
+    try:
+        loop = await PlannerLoop(
+            coord, namespace=ns,
+            config=PlannerConfig(queue_target_per_replica=args.target_per_replica,
+                                 decode_target_usage=args.target_usage),
+            prefill_component=args.prefill_component, decode_component=args.decode_component,
+            interval_s=args.interval,
+            actuators=(LogActuator(), PrewarmActuator(coord, ns))).start()
+        log.info("planner loop on namespace %r", loop.namespace)
+        try:
+            await _until_signalled()
+        finally:
+            await loop.stop()
+    finally:
+        await coord.close()
+
+
+async def _cmd_mock_worker(args) -> None:
+    """GPU-free fake workers publishing metrics and KV events, for driving
+    the router and metrics stack."""
+    from dynamo_tpu_torch.components.mock_worker import MockWorker
+
+    coord = await _coordinator_client(args)
+    workers = []
+    try:
+        for i in range(args.count):
+            workers.append(await MockWorker(coord, worker_id=args.worker_id + i,
+                                            namespace=args.namespace or "dynamo").start())
+        log.info("%d mock worker(s) publishing", len(workers))
+        await _until_signalled()
+    finally:
+        for w in workers:
+            await w.stop()
+        await coord.close()
+
+
 # ------------------------------------------------------------------ parser ----
 
 
@@ -952,6 +1106,50 @@ def _parser() -> argparse.ArgumentParser:
     pl.add_argument("-o", "--out", default=str(PACKAGE_CACHE))
     pls = pkg_sub.add_parser("list", help="list packages in the api-store")
     pls.add_argument("--api-store", default=API_STORE, dest="api_store")
+
+    deploy = sub.add_parser("deploy", help="render k8s manifests from a deployment spec")
+    deploy.add_argument("spec", help="DynamoTpuDeployment YAML")
+    deploy.add_argument("-o", "--out", default=None, help="write one file per object")
+
+    operator = sub.add_parser("operator", help="watch a specs dir and reconcile deployments")
+    operator.add_argument("specs_dir", nargs="?", default=None,
+                          help="directory of DynamoTpuDeployment YAMLs")
+    operator.add_argument("--crd", action="store_true",
+                          help="watch DynamoTpuDeployment custom resources and write .status "
+                          "back via the status subresource")
+    operator.add_argument("--interval", type=float, default=5.0)
+    operator.add_argument("--context", default=None, help="kubectl context")
+    operator.add_argument("--dry-run", action="store_true",
+                          help="reconcile against an in-memory cluster")
+    operator.add_argument("--coordinator", default=None,
+                          help="coordinator URL: enables phases from live registrations and "
+                          "autoscaling")
+
+    store = sub.add_parser("api-store", help="versioned graph registry service")
+    store.add_argument("--db", default="graphs.db")
+    store.add_argument("--host", default="127.0.0.1")
+    store.add_argument("--port", type=int, default=7180)
+
+    metrics = sub.add_parser("metrics", help="metrics aggregation service (Prometheus)")
+    metrics.add_argument("--host", default="127.0.0.1")
+    metrics.add_argument("--port", type=int, default=9091)
+    metrics.add_argument("--push-url", default=None, help="pushgateway URL (push mode)")
+    common(metrics)
+
+    planner = sub.add_parser("planner", help="planner loop (replica targets + role flips)")
+    planner.add_argument("--interval", type=float, default=2.0)
+    planner.add_argument("--prefill-component", default="prefill")
+    planner.add_argument("--decode-component", default="decode")
+    planner.add_argument("--target-per-replica", type=int, default=4,
+                         help="prefill queue depth one replica absorbs")
+    planner.add_argument("--target-usage", type=float, default=0.7,
+                         help="decode saturation target")
+    common(planner)
+
+    mock = sub.add_parser("mock-worker", help="fake worker publishing metrics/KV events")
+    mock.add_argument("--worker-id", type=int, default=1)
+    mock.add_argument("--count", type=int, default=1)
+    common(mock)
     return p
 
 
@@ -969,7 +1167,9 @@ def parse_args(argv: Optional[list[str]] = None) -> argparse.Namespace:
 
 _COMMANDS = {"run": _cmd_run, "http": _cmd_http, "coordinator": _cmd_coordinator,
              "router": _cmd_router, "models": _cmd_models, "trace": _cmd_trace,
-             "quantize": _cmd_quantize, "serve": _cmd_serve, "package": _cmd_package}
+             "quantize": _cmd_quantize, "serve": _cmd_serve, "package": _cmd_package,
+             "deploy": _cmd_deploy, "operator": _cmd_operator, "api-store": _cmd_api_store,
+             "metrics": _cmd_metrics, "planner": _cmd_planner, "mock-worker": _cmd_mock_worker}
 
 
 def main(argv: Optional[list[str]] = None) -> None:

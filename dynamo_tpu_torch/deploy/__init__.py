@@ -1,7 +1,9 @@
-"""Deployment tooling: packaged serving graphs (``deploy/packaging.py``).
+"""Deployment tooling: packaged serving graphs (``deploy/packaging.py``),
+k8s manifest rendering for GPU serving graphs (``deploy/renderer.py``) and
+the operator that reconciles them (``deploy/operator.py``).
 
-The JAX package's manifest renderer and operator are not ported (ROADMAP
-A17).
+The counterpart of ``dynamo_tpu/deploy/``; the renderer's three
+translations for the GPU are listed in its module docstring.
 """
 
 from dynamo_tpu_torch.deploy.packaging import (
@@ -12,6 +14,7 @@ from dynamo_tpu_torch.deploy.packaging import (
     read_manifest,
     unpack_package,
 )
+from dynamo_tpu_torch.deploy.renderer import DeploymentSpec, render_manifests
 
-__all__ = ["build_package", "read_manifest", "unpack_package", "cache_lookup",
-           "cached_unpack", "PackageError"]
+__all__ = ["DeploymentSpec", "render_manifests", "build_package", "read_manifest",
+           "unpack_package", "cache_lookup", "cached_unpack", "PackageError"]

@@ -8,8 +8,9 @@ Reference parity: the reference's api-store + CLI package a serving graph
 (code + config + manifest) into a versioned archive that the operator and
 ``dynamo serve`` deploy from (deploy/dynamo/api-store, ~3k LoC Postgres +
 S3).  Lean shape: a deterministic tar.gz of the graph's Python
-sources plus a JSON manifest, stored versioned by an api-store (the JAX
-package's components/api_store.py; the port's own is ROADMAP A17) —
+sources plus a JSON manifest, stored versioned by an api-store
+(components/api_store.py; the JAX package's store speaks the same REST
+surface and either package's client talks to either store) —
 weights do NOT ride in the package (a worker's model-path names them).
 
 A package contains:

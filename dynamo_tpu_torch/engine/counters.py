@@ -26,13 +26,15 @@ one process do not add into each other.  The names rendered:
 
 The persistent tier's family (:class:`PersistCounters`) is process-global,
 as in the JAX package: the store records its spills and residency where
-it has no engine at hand.
+it has no engine at hand.  So are the streamed KV handoff's
+(:class:`KvStreamCounters`) and the sharded router control plane's
+(:class:`KvShardCounters`), which have no engine either.
 """
 
 from __future__ import annotations
 
 __all__ = ["PrefillCounters", "LookaheadCounters", "PersistCounters", "persist_counters",
-           "KvStreamCounters", "kv_stream_counters"]
+           "KvStreamCounters", "kv_stream_counters", "KvShardCounters", "kv_shard_counters"]
 
 
 class PrefillCounters:
@@ -247,3 +249,72 @@ class KvStreamCounters:
 
 
 kv_stream_counters = KvStreamCounters()
+
+
+class KvShardCounters:
+    """Sharded control plane (llm/kv_router/shards/) counters.
+
+        dynamo_tpu_kv_shard_scatters_total        counter (gather rounds)
+        dynamo_tpu_kv_shard_gather_partial_total  counter (rounds where a
+                                                  shard missed its deadline
+                                                  or answered stale)
+        dynamo_tpu_kv_shard_fanout_latency_ms     histogram (scatter issue
+                                                  → last reply/deadline)
+        dynamo_tpu_kv_shard_generation            gauge (current fence)
+        dynamo_tpu_kv_shard_last_fan_out          gauge (shards in the
+                                                  last scatter round)
+        dynamo_tpu_kv_shard_index_blocks{shard=}  gauge (device blocks)
+        dynamo_tpu_kv_shard_resident_keys{shard=} gauge (distinct keys,
+                                                  both tiers)
+
+    The fan-out histogram lives here (cumulative bucket counts over the
+    fixed ladder below) rather than in http/metrics.py's Histogram so
+    the router layer stays free of the HTTP module; the render side
+    turns the buckets into Prometheus histogram lines.
+    """
+
+    FANOUT_BUCKETS_MS = (0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0,
+                         25.0, 50.0, 100.0)
+
+    def __init__(self) -> None:
+        self.reset()
+
+    def record_scatter(self, fanout_ms: float, fan_out: int = 0) -> None:
+        """One scatter round completed (all replies in, or deadline)."""
+        self.scatters_total += 1
+        self.fanout_ms_sum += fanout_ms
+        self.last_fan_out = fan_out
+        for i, edge in enumerate(self.FANOUT_BUCKETS_MS):
+            if fanout_ms <= edge:
+                self.fanout_bucket_counts[i] += 1
+
+    def record_partial_gather(self) -> None:
+        self.gather_partial_total += 1
+
+    def set_generation(self, generation: int) -> None:
+        self.generation = generation
+
+    def set_shard_size(self, shard_id: int, index_blocks: int,
+                       resident_keys: int) -> None:
+        self.index_blocks[shard_id] = index_blocks
+        self.resident_keys[shard_id] = resident_keys
+
+    @property
+    def gather_partial_frac(self) -> float:
+        if not self.scatters_total:
+            return 0.0
+        return self.gather_partial_total / self.scatters_total
+
+    def reset(self) -> None:
+        """Test isolation hook — the counters are process-global."""
+        self.scatters_total = 0
+        self.gather_partial_total = 0
+        self.fanout_ms_sum = 0.0
+        self.fanout_bucket_counts = [0] * len(self.FANOUT_BUCKETS_MS)
+        self.last_fan_out = 0
+        self.generation = 0
+        self.index_blocks: dict[int, int] = {}
+        self.resident_keys: dict[int, int] = {}
+
+
+kv_shard_counters = KvShardCounters()

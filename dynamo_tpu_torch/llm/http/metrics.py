@@ -7,7 +7,8 @@ TTFT, inter-token, queue-wait and request-duration histograms, the fault
 plane's process-global counters (``fault/counters.py``), the served
 engine's prefill, unified-dispatch and lookahead counters
 (``engine/counters.py``), the persistent KV tier's and the streamed KV
-handoff's counters, the served engine's step timeline
+handoff's counters, the sharded router control plane's family, the served
+engine's step timeline
 (``obs/timeline.py``), the measured KV-transfer edges (``obs/costs.py``,
 rendered once an edge has a sample) and the served engine's
 predicted-vs-measured dispatch rows (``obs/perfmodel.py``, rendered once a
@@ -24,12 +25,14 @@ from collections import defaultdict
 from typing import Iterator
 
 from dynamo_tpu_torch.engine.counters import (LookaheadCounters, PrefillCounters,
-                                              kv_stream_counters, persist_counters)
+                                              kv_shard_counters, kv_stream_counters,
+                                              persist_counters)
 from dynamo_tpu_torch.fault.counters import counters as fault_counters
 from dynamo_tpu_torch.obs.costs import transfer_costs
 from dynamo_tpu_torch.obs.metric_names import EngineMetric as EM
 from dynamo_tpu_torch.obs.metric_names import FaultMetric as FM
 from dynamo_tpu_torch.obs.metric_names import HttpMetric as HM
+from dynamo_tpu_torch.obs.metric_names import KvShardMetric as SHM
 from dynamo_tpu_torch.obs.metric_names import KvStreamMetric as STM
 from dynamo_tpu_torch.obs.metric_names import KvTransferMetric as KM
 from dynamo_tpu_torch.obs.metric_names import PerfMetric as PM
@@ -179,6 +182,31 @@ class Metrics:
                 (STM.OVERLAP_RATIO, "gauge", round(kv_stream_counters.overlap_ratio, 6))):
             lines.append(f"# TYPE {name} {typ}")
             lines.append(f"{name} {val}")
+        # sharded router control plane (llm/kv_router/shards/, process-global):
+        # scatter rounds, partial gathers (a shard missed its deadline or
+        # answered behind the generation fence), fan-out latency, per-shard
+        # index gauges
+        sc = kv_shard_counters
+        for name, typ, val in (
+                (SHM.SCATTERS_TOTAL, "counter", sc.scatters_total),
+                (SHM.GATHER_PARTIAL_TOTAL, "counter", sc.gather_partial_total),
+                (SHM.GENERATION, "gauge", sc.generation),
+                (SHM.LAST_FAN_OUT, "gauge", sc.last_fan_out)):
+            lines.append(f"# TYPE {name} {typ}")
+            lines.append(f"{name} {val}")
+        lines.append(f"# TYPE {SHM.FANOUT_LATENCY_MS} histogram")
+        for edge, count in zip(sc.FANOUT_BUCKETS_MS, sc.fanout_bucket_counts):
+            lines.append(f'{SHM.FANOUT_LATENCY_MS}_bucket{{le="{edge}"}} {count}')
+        lines.append(f'{SHM.FANOUT_LATENCY_MS}_bucket{{le="+Inf"}} {sc.scatters_total}')
+        lines.append(f"{SHM.FANOUT_LATENCY_MS}_sum {round(sc.fanout_ms_sum, 6)}")
+        lines.append(f"{SHM.FANOUT_LATENCY_MS}_count {sc.scatters_total}")
+        if sc.index_blocks:
+            lines.append(f"# TYPE {SHM.INDEX_BLOCKS} gauge")
+            for shard_id, blocks in sorted(sc.index_blocks.items()):
+                lines.append(f'{SHM.INDEX_BLOCKS}{{shard="{shard_id}"}} {blocks}')
+            lines.append(f"# TYPE {SHM.RESIDENT_KEYS} gauge")
+            for shard_id, keys in sorted(sc.resident_keys.items()):
+                lines.append(f'{SHM.RESIDENT_KEYS}{{shard="{shard_id}"}} {keys}')
         # the served engine's step timeline: per-phase wall attribution plus
         # the host gap a dispatching step spends outside dispatch, overlap
         # and readback

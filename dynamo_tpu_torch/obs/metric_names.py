@@ -5,8 +5,9 @@ so a dashboard or scraper reads either package's endpoint: the HTTP
 service plane (admission shedding included), the fault plane, the
 engine's prefill-batching, unified-dispatch, lookahead and
 persistent-tier families and its step timeline, the
-measured KV-transfer edges, the streamed KV handoff and the perf model's
-predicted-vs-measured rows (all but the JAX package's
+measured KV-transfer edges, the streamed KV handoff, the sharded router
+control plane, the standalone metrics component's per-worker gauges and
+the perf model's predicted-vs-measured rows (all but the JAX package's
 ``dynamo_tpu_perf_predicted_step_ms``, which it reads from a committed
 perf manifest the port does not have).  Every name is a full literal,
 never composed.
@@ -14,8 +15,12 @@ never composed.
 
 from __future__ import annotations
 
-__all__ = ["HttpMetric", "FaultMetric", "EngineMetric", "KvTransferMetric", "KvStreamMetric",
-           "PerfMetric"]
+__all__ = ["SHARD_PREFIX", "HttpMetric", "FaultMetric", "EngineMetric", "KvTransferMetric",
+           "KvStreamMetric", "KvShardMetric", "PerfMetric", "RouterMetric"]
+
+# the sharded control plane's family prefix, kept only for prefix-scoped
+# scraping; the names below never compose it
+SHARD_PREFIX = "dynamo_tpu_kv_shard"
 
 
 class HttpMetric:
@@ -92,6 +97,18 @@ class KvStreamMetric:
     OVERLAP_RATIO = "dynamo_tpu_kv_stream_overlap_ratio"
 
 
+class KvShardMetric:
+    """Sharded control plane (``llm/kv_router/shards/`` counters)."""
+
+    SCATTERS_TOTAL = "dynamo_tpu_kv_shard_scatters_total"
+    GATHER_PARTIAL_TOTAL = "dynamo_tpu_kv_shard_gather_partial_total"
+    GENERATION = "dynamo_tpu_kv_shard_generation"
+    FANOUT_LATENCY_MS = "dynamo_tpu_kv_shard_fanout_latency_ms"
+    LAST_FAN_OUT = "dynamo_tpu_kv_shard_last_fan_out"
+    INDEX_BLOCKS = "dynamo_tpu_kv_shard_index_blocks"
+    RESIDENT_KEYS = "dynamo_tpu_kv_shard_resident_keys"
+
+
 class PerfMetric:
     """Runtime predicted-vs-measured dispatch rows (``obs/perfmodel.py``)."""
 
@@ -99,3 +116,16 @@ class PerfMetric:
     MEASURED_DISPATCH_MS = "dynamo_tpu_perf_measured_dispatch_ms"
     DISPATCHES_TOTAL = "dynamo_tpu_perf_dispatches_total"
     MODEL_ERROR_RATIO = "dynamo_tpu_perf_model_error_ratio"
+
+
+class RouterMetric:
+    """Standalone metrics aggregation component
+    (``components/metrics.py`` PrometheusMetricsCollector)."""
+
+    KV_BLOCKS_ACTIVE = "dynamo_tpu_kv_blocks_active"
+    KV_BLOCKS_TOTAL = "dynamo_tpu_kv_blocks_total"
+    REQUEST_ACTIVE_SLOTS = "dynamo_tpu_request_active_slots"
+    REQUESTS_WAITING = "dynamo_tpu_requests_waiting"
+    KV_CACHE_USAGE = "dynamo_tpu_kv_cache_usage"
+    ROUTING_DECISIONS_TOTAL = "dynamo_tpu_routing_decisions_total"
+    KV_HIT_RATE_PERCENT = "dynamo_tpu_kv_hit_rate_percent"

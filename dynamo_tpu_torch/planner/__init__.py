@@ -1,9 +1,9 @@
-"""The planner subsystem's admission control for the HTTP frontend.
+"""The planner subsystem: admission control for the HTTP frontend
+(``admission.py``), the pure planning policy over live ForwardPassMetrics
+(``policy.py``) and its loop and actuators (``core.py``: the log, the sdk
+supervisor, the persist pre-warm hint).
 
-The counterpart of ``dynamo_tpu/planner/``'s admission half
-(``admission.py``: per-tenant rate limits, priority classes,
-deadline-aware shedding).  The planning policy and its actuators
-(``policy.py``, ``core.py``) are not ported yet (ROADMAP A17).
+The counterpart of ``dynamo_tpu/planner/``, with the same exports.
 """
 
 from dynamo_tpu_torch.planner.admission import (
@@ -13,6 +13,25 @@ from dynamo_tpu_torch.planner.admission import (
     PriorityClass,
     TokenBucket,
 )
+from dynamo_tpu_torch.planner.core import (
+    LogActuator,
+    PlannerLoop,
+    PrewarmActuator,
+    SupervisorActuator,
+)
+from dynamo_tpu_torch.planner.policy import (
+    MetricsSnapshot,
+    Plan,
+    PlannerConfig,
+    PlannerPolicy,
+    PolicyState,
+    PoolSnapshot,
+    WorkerSample,
+    decode_replica_target,
+    plan,
+    prefill_replica_target,
+    step_replicas,
+)
 
 __all__ = [
     "AdmissionConfig",
@@ -20,4 +39,19 @@ __all__ = [
     "AdmissionRejected",
     "PriorityClass",
     "TokenBucket",
+    "LogActuator",
+    "PlannerLoop",
+    "PrewarmActuator",
+    "SupervisorActuator",
+    "MetricsSnapshot",
+    "Plan",
+    "PlannerConfig",
+    "PlannerPolicy",
+    "PolicyState",
+    "PoolSnapshot",
+    "WorkerSample",
+    "decode_replica_target",
+    "plan",
+    "prefill_replica_target",
+    "step_replicas",
 ]

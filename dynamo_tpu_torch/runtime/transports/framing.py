@@ -49,6 +49,14 @@ async def close_writer(writer: Optional[asyncio.StreamWriter],
         await asyncio.wait_for(writer.wait_closed(), timeout)
     except (asyncio.TimeoutError, OSError, RuntimeError):
         pass  # already-dead socket or closing loop: nothing left to tear down
+    except asyncio.CancelledError:
+        # every closer of one writer awaits the same close-waiter future,
+        # and cancelling one of them (a reconnect loop stopped by close())
+        # cancels that future under the others: only this task's own
+        # cancellation propagates
+        task = asyncio.current_task()
+        if task is None or task.cancelling():
+            raise
 
 
 def encode_frame(header: dict[str, Any], payload: bytes = b"") -> bytes:

@@ -3,9 +3,9 @@
 A copy of the JAX package's ``utils/chash.py``: the same points and owners
 for the same members and keys.  The HTTP frontends map session keys to
 the frontend that terminated the session's earlier turns
-(llm/http/affinity.py SessionAffinity); in the JAX package the sharded
-router also maps index shards to router replicas with it (not ported yet,
-ROADMAP A16).  The ring keeps two properties:
+(llm/http/affinity.py SessionAffinity), and the sharded router maps
+index shards to router replicas with it (llm/kv_router/shards/partition.py
+ShardMap).  The ring keeps two properties:
 
   * **uniformity** — with ``vnodes`` virtual points per node, key mass
     per node stays within a bounded factor of fair share;

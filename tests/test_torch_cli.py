@@ -18,8 +18,15 @@ checkpoint as its own draft), and ``--spec-draft-model`` without
 ``--spec-tokens`` exits with the JAX CLI's message.  On a tiny DeepSeek-V2 checkpoint ``build_local_engine`` (``--device
 cpu``) answers a greedy completion with transformers' greedy tokens, and
 ``--quantize int8`` exits with the JAX CLI's message.
+
+The control plane's commands: ``deploy`` prints the JAX CLI's manifests
+under the renderer's translations and refuses a ``tpu:`` block;
+``api-store``, ``metrics``, ``mock-worker``, ``planner`` and ``operator
+--dry-run`` start, answer (an HTTP body, published events and metrics, a
+plan's pre-warm hint, a reconcile) and stop with exit 0 on SIGTERM.
 """
 
+import asyncio
 import json
 import os
 import signal
@@ -32,6 +39,7 @@ from pathlib import Path
 
 import pytest
 import torch
+import yaml
 
 import dynamo_tpu_torch
 from dynamo_tpu_torch.llm.tokenizer import TokenizerWrapper
@@ -295,3 +303,215 @@ def test_quantize_int8_refused_for_deepseek_as_in_jax(deepseek_dir):
     ref = _run("dynamo_tpu.cli", ["run", "in=text:w5 w6", "out=tpu", "--model-path", str(path),
                                   "--quantize", "int8", *ENGINE_FLAGS])
     assert ref.returncode != 0 and msg in ref.stderr
+
+
+# ------------------------------------------------ the control-plane commands
+
+DEPLOY_SPEC = """
+name: llm
+namespace: serving
+image: img:1
+services:
+  decode:
+    command: [python3, -m, PKG, run, "in=dyn://dynamo.decode.generate", out=gpu]
+    replicas: 2
+    ACCEL
+""".replace("PKG", PKG)
+
+
+def test_deploy_renders_as_the_jax_cli_does(tmp_path):
+    """``deploy SPEC`` prints the JAX CLI's manifests under the renderer's
+    translations; ``-o DIR`` writes one file per object; a ``tpu:`` block
+    exits with the refusal."""
+    from dynamo_tpu_torch.deploy.renderer import CLI
+
+    port_spec, jax_spec = tmp_path / "gpu.yaml", tmp_path / "tpu.yaml"
+    port_spec.write_text(DEPLOY_SPEC.replace("ACCEL", "gpu: {count: 4}"))
+    jax_spec.write_text(DEPLOY_SPEC.replace("ACCEL", 'tpu: {type: v5e, topology: "2x2", '
+                                                     "chips: 4}"))
+    out = _run(PKG, ["deploy", str(port_spec)])
+    ref = _run("dynamo_tpu.cli", ["deploy", str(jax_spec)])
+    assert out.returncode == 0 == ref.returncode, out.stderr[-2000:]
+    docs = [d for d in yaml.safe_load_all(out.stdout) if d]
+    want = [d for d in yaml.safe_load_all(ref.stdout) if d]
+    for d in want:
+        pod = d["spec"]["template"]["spec"] if d["kind"] == "Deployment" else None
+        if pod is None:
+            continue
+        c = pod["containers"][0]
+        if c["command"][0] == "dynamo-tpu":
+            c["command"] = CLI + c["command"][1:]
+        if "resources" in c:
+            c["resources"] = {k: {"nvidia.com/gpu": v["google.com/tpu"]}
+                              for k, v in c["resources"].items()}
+            del pod["nodeSelector"]
+    assert docs == want and len(docs) == 7
+    written = _run(PKG, ["deploy", str(port_spec), "-o", str(tmp_path / "m")])
+    assert written.returncode == 0 and len(written.stdout.split()) == 7
+    refused = _run(PKG, ["deploy", str(jax_spec)])
+    assert refused.returncode != 0 and "tpu: block" in refused.stderr
+
+
+async def _serve_until(args, ready, up_line, timeout=30):
+    """Start a long-running command, wait until it has logged ``up_line``
+    (its signal handlers follow at once) and ``ready(stderr so far)`` (a
+    coroutine function) is true, then SIGTERM it; (result of ready, rc,
+    stderr)."""
+    proc = await asyncio.create_subprocess_exec(
+        sys.executable, "-m", PKG, *args, cwd=str(REPO), env=_env(),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    err = []
+
+    async def read_err():
+        async for line in proc.stderr:
+            err.append(line.decode())
+
+    reader = asyncio.ensure_future(read_err())
+    try:
+        deadline = time.monotonic() + timeout
+        got = None
+        while time.monotonic() < deadline and proc.returncode is None:
+            if any(up_line in line for line in err):
+                await asyncio.sleep(0.2)
+                got = await ready("".join(err))
+                if got:
+                    break
+            await asyncio.sleep(0.1)
+    finally:
+        if proc.returncode is None:
+            proc.send_signal(signal.SIGTERM)
+        await asyncio.wait_for(proc.wait(), 30)
+        await asyncio.wait_for(reader, 30)
+    return got, proc.returncode, "".join(err)
+
+
+def _on_coordinator(body):
+    from dynamo_tpu_torch.runtime.transports.coordinator import (CoordinatorClient,
+                                                                 CoordinatorServer)
+
+    async def go():
+        srv = await CoordinatorServer(port=0).start()
+        c = await CoordinatorClient(srv.url).connect()
+        try:
+            return await body(srv.url, c)
+        finally:
+            await c.close()
+            await srv.stop()
+
+    return asyncio.run(go())
+
+
+async def _http_get(url):
+    from aiohttp import ClientError, ClientSession
+
+    try:
+        async with ClientSession() as s:
+            async with s.get(url) as r:
+                return r.status, await r.text()
+    except (ClientError, OSError):
+        return None
+
+
+def test_api_store_and_metrics_commands_answer():
+    from dynamo_tpu_torch.llm.kv_router.publisher import metrics_subject
+    from dynamo_tpu_torch.obs.metric_names import RouterMetric
+
+    store_port, metrics_port = _free_port(), _free_port()
+
+    async def body(url, c):
+        async def store_ready(_):
+            got = await _http_get(f"http://127.0.0.1:{store_port}/api/v1/graphs")
+            return got if got and got[0] == 200 else None
+
+        store = await _serve_until(["api-store", "--db", ":memory:", "--port",
+                                    str(store_port)], store_ready, "api-store on")
+
+        async def metrics_ready(_):
+            await c.publish(metrics_subject("t", 5), {
+                "worker_id": 5, "request_active_slots": 1, "request_total_slots": 8,
+                "kv_active_blocks": 7, "kv_total_blocks": 64})
+            got = await _http_get(f"http://127.0.0.1:{metrics_port}/metrics")
+            return got if got and 'worker="5"' in got[1] else None
+
+        metrics = await _serve_until(["metrics", "--port", str(metrics_port), "--coordinator",
+                                      url, "--namespace", "t"], metrics_ready, "metrics on")
+        return store, metrics
+
+    (store, s_rc, s_err), (metrics, m_rc, m_err) = _on_coordinator(body)
+    assert store == (200, "[]") and s_rc == 0, s_err[-2000:]
+    assert metrics is not None and m_rc == 0, m_err[-2000:]
+    assert f'{RouterMetric.KV_BLOCKS_ACTIVE}{{worker="5"}} 7' in metrics[1]
+
+
+def test_planner_and_mock_worker_commands_answer():
+    from dynamo_tpu_torch.llm.kv.persist import prewarm_key
+    from dynamo_tpu_torch.llm.kv_router.publisher import events_subject, metrics_subject
+
+    async def body(url, c):
+        seen = {"events": 0, "metrics": 0}
+
+        def count(kind):
+            def cb(subject, payload):
+                seen[kind] += 1
+            return cb
+
+        await c.subscribe(events_subject("t"), count("events"))
+        await c.subscribe(metrics_subject("t"), count("metrics"))
+
+        async def workers_ready(_):
+            return seen["events"] > 0 and seen["metrics"] >= 2
+
+        mock = await _serve_until(["mock-worker", "--coordinator", url, "--namespace", "t",
+                                   "--worker-id", "3", "--count", "2"], workers_ready,
+                                  "mock worker(s) publishing")
+        # a decode pool of one worker reporting saturation, a deep prefill
+        # queue: the planner's first tick scales both up and publishes the
+        # pre-warm hint
+        lease = await c.lease_create(ttl=30.0)
+        for comp in ("prefill", "decode"):
+            await c.kv_put(f"t/components/{comp}/endpoints/generate/{lease:x}",
+                           {"instance_id": lease}, lease_id=lease)
+        for _ in range(9):
+            await c.queue_push("t_prefill_queue", {"r": 1})
+
+        async def planned(_):
+            await c.publish(metrics_subject("t", lease), {
+                "worker_id": lease, "request_active_slots": 8, "request_total_slots": 8,
+                "kv_active_blocks": 1, "kv_total_blocks": 10})
+            return await c.kv_get(prewarm_key("t"))
+
+        plan = await _serve_until(["planner", "--coordinator", url, "--namespace", "t",
+                                   "--interval", "0.2"], planned, "planner loop on")
+        return mock, plan
+
+    (mock_ok, mock_rc, mock_err), (hint, p_rc, p_err) = _on_coordinator(body)
+    assert mock_ok and mock_rc == 0, mock_err[-2000:]
+    assert "2 mock worker(s) publishing" in mock_err
+    assert hint is not None and p_rc == 0, p_err[-2000:]
+    assert hint["prefill_replicas"] == 3 and hint["decode_replicas"] >= 2
+    assert "plan tick=" in p_err
+
+
+def test_operator_command_reconciles_dry_run(tmp_path):
+    """``operator DIR --dry-run`` (an in-memory cluster: no kubectl) loads the
+    specs, reconciles on its interval, observing the coordinator's live
+    registrations, and stops on SIGTERM; without a specs dir or ``--crd``
+    it exits with the JAX CLI's message (the next test)."""
+    (tmp_path / "llm.yaml").write_text(DEPLOY_SPEC.replace("ACCEL", "gpu: {count: 1}"))
+
+    async def body(url, c):
+        async def ticked(err):  # a few reconcile intervals after start
+            await asyncio.sleep(0.3)
+            return True
+
+        return await _serve_until(["operator", str(tmp_path), "--dry-run", "--interval", "0.1",
+                                   "--coordinator", url], ticked, "operator watching")
+
+    _, rc, err = _on_coordinator(body)
+    assert rc == 0, err[-2000:]
+    assert "operator watching" in err and "1 specs, dry_run=True" in err
+
+
+def test_operator_command_needs_a_source():
+    bad = _run(PKG, ["operator"])
+    assert bad.returncode != 0 and "operator needs a specs dir and/or --crd" in bad.stderr

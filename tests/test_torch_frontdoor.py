@@ -65,7 +65,8 @@ from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.models.convert import params_from_jax
 from dynamo_tpu_torch.models.llama import LlamaModel
 from dynamo_tpu_torch.obs.metric_names import (EngineMetric, FaultMetric, HttpMetric,
-                                                KvStreamMetric, KvTransferMetric, PerfMetric)
+                                                KvShardMetric, KvStreamMetric, KvTransferMetric,
+                                                PerfMetric)
 from dynamo_tpu_torch.runtime.engine import Context
 from tests.test_chat_templates import LLAMA3_TEMPLATE, MISTRAL_TEMPLATE
 
@@ -646,10 +647,12 @@ def test_http_metrics_match_jax(served):
         return {v for k, v in vars(cls).items() if k.isupper()}
 
     # the transfer-cost families render once an edge has a sample, the perf
-    # family once a kind has been dispatched
-    assert families - names(KvTransferMetric) == (
+    # family once a kind has been dispatched, the per-shard index gauges once
+    # a sharded index has reported its sizes
+    per_shard = {KvShardMetric.INDEX_BLOCKS, KvShardMetric.RESIDENT_KEYS}
+    assert families - names(KvTransferMetric) - per_shard == (
         names(HttpMetric) | names(FaultMetric) | names(EngineMetric) | names(KvStreamMetric)
-        | names(PerfMetric))
+        | (names(KvShardMetric) - per_shard) | names(PerfMetric))
 
 
 def test_metrics_latency_histograms():

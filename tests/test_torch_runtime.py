@@ -19,6 +19,7 @@
 """
 
 import asyncio
+import dataclasses
 import json
 import os
 import signal
@@ -1007,3 +1008,71 @@ def test_coordinator_worker_models_http_subprocesses(tiny_dir):
         engine.shutdown()
     assert answer["choices"][0]["text"] == text
     assert answer["choices"][0]["finish_reason"] == "length"
+
+
+def test_worker_lease_outlives_a_slow_engine_build(tiny_dir, monkeypatch):
+    """``run in=dyn://`` builds its engine off the event loop: a build that
+    blocks for most of the lease TTL must not hold back the first
+    keepalive.  Held back, the lease lapses after the worker registered,
+    and discovery drops the worker (a delete) until the keepalive's heal
+    puts it back; a request routed in that window finds no instance."""
+    from dynamo_tpu_torch import cli
+
+    ttl, build_s = 3.0, 2.4
+    real_build, real_config = cli.build_local_engine, cli._runtime_config
+
+    def slow_build(args):
+        time.sleep(build_s)  # blocking, as a CUDA context and a weight load are
+        return real_build(args)
+
+    monkeypatch.setattr(cli, "build_local_engine", slow_build)
+    monkeypatch.setattr(cli, "_runtime_config",
+                        lambda args: dataclasses.replace(real_config(args), lease_ttl_s=ttl))
+
+    async def go():
+        srv = await CoordinatorServer(port=0).start()
+        watcher = await CoordinatorClient(srv.url).connect()
+        events = []
+        await watcher.watch("dynamo/components/backend/", lambda ev, key, value: events.append(ev))
+        args = cli.parse_args(["run", "in=dyn://dynamo.backend.generate", "out=echo",
+                               "--model-path", str(tiny_dir), "--coordinator", srv.url])
+        worker = asyncio.ensure_future(cli._cmd_run(args))
+        try:
+            t0 = time.monotonic()
+            while "put" not in events:
+                assert time.monotonic() - t0 < 10 and not worker.done(), events
+                await asyncio.sleep(0.05)
+            await asyncio.sleep(ttl + 1.5)  # past the lapse a held-back keepalive leaves
+            return list(events)
+        finally:
+            worker.cancel()
+            await asyncio.gather(worker, return_exceptions=True)
+            await watcher.close()
+            await srv.stop()
+
+    assert asyncio.run(go()) == ["put"]
+
+
+def test_close_writer_survives_a_cancelled_second_closer():
+    """Two closers await one writer's close (a reconnect loop tearing down
+    a severed socket, and ``close()`` stopping that loop): cancelling one
+    must not cancel the other's wait, which returns as the close lands."""
+    async def go():
+        peers = []
+        server = await asyncio.start_server(lambda r, w: peers.append(w), "127.0.0.1", 0)
+        _, writer = await asyncio.open_connection(
+            "127.0.0.1", server.sockets[0].getsockname()[1])
+        try:
+            first = asyncio.ensure_future(framing.close_writer(writer))
+            second = asyncio.ensure_future(framing.close_writer(writer))
+            await asyncio.sleep(0)  # both are awaiting the close now
+            first.cancel()
+            await asyncio.gather(first, second, return_exceptions=True)
+            return first.cancelled(), second.exception()
+        finally:
+            for peer in peers:
+                await framing.close_writer(peer)
+            server.close()
+            await server.wait_closed()
+
+    assert asyncio.run(go()) == (True, None)
