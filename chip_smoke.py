@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (``dynamo_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # one CUDA card; nvcc on PATH or in $CUDA_HOME/bin
+    python3 chip_smoke.py --mesh-cards    # every card of the machine, a rank each (NCCL)
 
 Phases, in order; any failure ends the run with a non-zero exit:
 
@@ -287,7 +288,25 @@ Phases, in order; any failure ends the run with a non-zero exit:
    width and tensor names (2.2 GB, 216 tensors) with a word-level tokenizer
    of 102,400 ids, served by the CLI and by ``build_local_engine`` with a
    bf16 and with an int8 cache (E1); ``--quantize int8`` refused with the
-   JAX CLI's message.
+   JAX CLI's message;
+13. mesh (more than one device): every kernel of the path against its
+   plain version at the shapes one rank of a tp = 2 mesh gives it
+   (attention at Hq 16 over Hk 4 and 2, B5 at the split matmuls and an
+   lm_head of 64,128 columns, E1/E2 at F = 384 and E1 at 704) and their
+   times; then ONE two-rank world on the card (this process rank 0, a
+   shard follower process rank 1, gloo: NCCL refuses two ranks on one
+   card): Llama-3-8B bf16 at full width and depth (first-token logits
+   against the one-card forward within the parity bounds, six requests'
+   greedy streams held to the one-card engine's but at near ties, a decode
+   turn's seconds and collective wait at tp = 1 and 2), int8 weights and
+   cache at 8 layers on the default and token-budget paths, Qwen3-30B-A3B
+   width at 4 layers, DeepSeek-V2-Lite width at 4 layers, and on the mesh
+   (2, 1) the sequence-parallel prefill of a 4,096-token prompt (8
+   layers; both ranks' cached KV equal and held to a one-card prefill's,
+   then 16 decode tokens).  Every rank's launches are zeroed before each
+   run and read after; rank 1 must launch what rank 0 does.  In the front
+   door, ``run in=http out=gpu --tp 2`` answers the front-door requests
+   over HTTP and stops both ranks on SIGTERM.
 
 The kernel timings also time E1 at one DeepSeek-V2-Lite MoE layer's
 launches (64 experts, top 6, [2048, 1408] and [1408, 2048]), and the MLA
@@ -298,14 +317,17 @@ times, launches and bounds, the table sizes, the constrained serving
 readings beside the unconstrained ones).  At the end one ``{"mla": [...]}``
 line, the ``{"disagg": ...}`` line, the ``{"tier": ...}``,
 ``{"router": ...}``, ``{"shards": ...}``, ``{"planner": ...}``,
-``{"graphs": ...}``, ``{"fault": ...}`` and
-``{"formats": ...}`` lines, one ``{"kernels": [...]}`` line (each
+``{"graphs": ...}``, ``{"fault": ...}``, ``{"formats": ...}`` and
+``{"mesh": ...}`` and ``{"mesh_cli": ...}`` lines, one ``{"kernels": [...]}``
+line (each
 kernel's row also holds its launches over the disaggregated runs under
 ``launches_disagg``, over the KV-tier runs under ``launches_tier`` (the
 sharded router run's alone under ``launches_shards``), in the
 ``graphs`` phase's two worker processes under ``launches_graphs``, over
 the fault phase's migrated request under ``launches_fault`` and over the
-formats phase's five requests under ``launches_formats``; the grouped
+formats phase's five requests under ``launches_formats``, each mesh
+rank's over the mesh runs under ``launches_mesh_rank0`` and
+``launches_mesh_rank1``; the grouped
 kernels' rows hold their T = 8 reading and, under ``t1504``, their T =
 1,504 one; E1's also its DeepSeek-V2-Lite readings and launches), and as
 the last line ``{"ok": true, "device": {...}}``.  Every line it logs is
@@ -316,6 +338,7 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -1935,13 +1958,20 @@ def serve_both(torch, model, card: str, quant: bool):
     return default, budget, mixed
 
 
+# The int8 Llama-3-8B serving runs at 16 of its 32 layers: the same widths
+# and kernels at half the forward, so the whole script keeps its margin to
+# the time limit on a slow host (the bf16 model stays at full depth)
+INT8_SERVING_LAYERS = 16
+
+
 def serving_phase_q8(torch, card: str):
     """The two serving runs on Llama-3-8B with int8 weights (drawn directly
-    on the card, the bf16 model never made) and an int8 KV cache."""
+    on the card, the bf16 model never made) and an int8 KV cache, at
+    INT8_SERVING_LAYERS layers."""
     from dynamo_tpu_torch.models.convert import init_params
     from dynamo_tpu_torch.models.llama import LlamaModel
 
-    cfg = llama3_8b()
+    cfg = llama3_8b(INT8_SERVING_LAYERS)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     t0 = time.perf_counter()
@@ -2165,7 +2195,7 @@ def _rescore(torch, model, seq, bs, cache_dtype):
     pad = -(-n // bs) * bs
     nb = pad // bs
     cache = model.init_kv_cache(nb + 1, bs, cache_dtype)
-    bt = torch.zeros((1, 2048 // bs), dtype=torch.int32, device="cuda")
+    bt = torch.zeros((1, max(2048 // bs, nb)), dtype=torch.int32, device="cuda")
     bt[0, :nb] = torch.arange(1, nb + 1, dtype=torch.int32)
     t = torch.zeros((1, pad), dtype=torch.int32, device="cuda")
     t[0, :n] = torch.tensor(seq, dtype=torch.int32)
@@ -3178,8 +3208,9 @@ def front_server(torch, flags: list[str], card: str, label: str, need: list[str]
     before and read just after (the kernels in ``need`` must have
     launched, those in ``none`` not), then each answer against a fresh
     engine's greedy tokens on the same model and config, one at a time.
-    Returns the fresh engine's texts and each HTTP answer's seconds to its
-    first text (``_timed_post``)."""
+    Returns the fresh engine's texts, each HTTP answer's seconds to its
+    first text (``_timed_post``) and, for each request, the prompt's ids and
+    the fresh engine's output ids."""
     import aiohttp
 
     from dynamo_tpu_torch.cli import build_local_engine, parse_args
@@ -3225,14 +3256,16 @@ def front_server(torch, flags: list[str], card: str, label: str, need: list[str]
     pre = OpenAIPreprocessor(mcard)
     try:
         async def direct():
-            out = []
+            out, ids = [], []
             for path, body in reqs:
                 ctx = await pre.forward(Context(parse_request(body, chat="chat" in path)))
+                prompt = list(ctx.data.token_ids)
                 toks = [t async for o in fresh.generate(Context(ctx.data)) for t in o.token_ids]
                 out.append(_detok(pre.tokenizer, toks))
-            return out
+                ids.append((prompt, toks))
+            return out, ids
 
-        texts = asyncio.run(direct())
+        texts, ids = asyncio.run(direct())
     finally:
         fresh.shutdown()
     got = [_answer_text(a[1]) for a in answers]
@@ -3240,7 +3273,7 @@ def front_server(torch, flags: list[str], card: str, label: str, need: list[str]
     log(f"front door {label}: build_local_engine({' '.join(flags)}) behind HttpService; "
         f"{len(reqs)} requests one at a time (unary, streamed token-id prompt, streamed chat, "
         f"logprobs) equal a fresh engine's greedy text; launches {launches} ({card})")
-    return texts, [a[2] for a in answers]
+    return texts, [a[2] for a in answers], ids
 
 
 def front_door_phase(torch, card: str) -> dict:
@@ -3250,10 +3283,11 @@ def front_door_phase(torch, card: str) -> dict:
         f"{nbytes / 1e9:.2f} GB in two shards, in {time.perf_counter() - t0:.1f} s")
     cli_phase(card)
     grammar_cli_phase(card)
-    texts, local_ttfts = front_server(
+    texts, local_ttfts, ids = front_server(
         torch, FRONT_FLAGS, card, "bf16 default path", ["decode", "prefill"],
         ["decode_q8", "prefill_q8", "ragged", "ragged_q8", "matmul", "moe", "moe_q8"])
     torch.cuda.empty_cache()
+    mesh_cli = mesh_cli_phase(torch, card, texts, ids)
     t1 = time.perf_counter()
     profile_phase(torch, card)
     torch.cuda.empty_cache()
@@ -3266,7 +3300,7 @@ def front_door_phase(torch, card: str) -> dict:
     torch.cuda.empty_cache()
     formats = formats_phase(torch, card)
     log(f"front door: phase wall {time.perf_counter() - t0:.1f} s ({card})")
-    return graphs, formats
+    return graphs, formats, mesh_cli
 
 
 PROFILE_STEPS = 4
@@ -6485,6 +6519,656 @@ def formats_phase(torch, card: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------- mesh
+# More than one device (slice 20): ONE two-rank world on the one card.  This
+# process is rank 0 (the engine); rank 1 is a shard follower process
+# (``engine/follower.py``).  NCCL refuses two ranks on one card, so the
+# world's backend is gloo (``DYN_MH_BACKEND=gloo``): every all-gather and
+# ring step is staged through pinned host buffers, and every collective of
+# a CUDA tensor waits for the card.
+MESH_Q8_LAYERS = 8        # int8 weights and cache
+MESH_MOE_LAYERS = 4       # Qwen3-30B-A3B width
+MESH_DS_LAYERS = 4        # DeepSeek-V2-Lite width
+MESH_SP_LAYERS = 8        # Llama-3-8B width, the sequence-parallel prefill
+MESH_SP_PROMPT = 4096
+MESH_SP_THRESHOLD = 2048
+MESH_SP_TOKENS = 16
+MESH_TIMEOUT_S = 300.0    # a collective's wait for its peers in the mesh phases
+# per-rank geometry at tp = 2: Llama-3-8B's (Hq 16, Hk 4) and Qwen3-30B-A3B's
+# (Hq 16, Hk 2) attention, D 128
+MESH_GEOMS = {"Llama-3-8B": (16, 4, 128), "Qwen3-30B-A3B": (16, 2, 128)}
+# Llama-3-8B's matmuls on one rank at tp = 2, [K, N]: q/k/v and gate/up split
+# by column, wo and w_down by row, the lm_head over the vocab
+MESH_MATMULS = {"wq": (4096, 2048), "wk/wv": (4096, 512), "wo": (2048, 4096),
+                "w_gate/w_up": (4096, 7168), "w_down": (7168, 4096), "lm_head": (4096, 64128)}
+# the experts' F on one rank: Qwen3-30B-A3B 768 / 2, DeepSeek-V2-Lite 1,408 / 2
+MESH_EXPERTS = {"Qwen3-30B-A3B": (128, 8, 2048, 384), "DeepSeek-V2-Lite": (64, 6, 2048, 704)}
+
+
+def _world_gather(ctx, t):
+    """Every rank's ``t``, stacked on the first axis in rank order (the
+    model axis gathered first: a rank's index is data * tp + model)."""
+    for axis in reversed(ctx.mesh.axis_names):
+        if ctx.mesh.axis_size(axis) > 1:
+            t = ctx.mesh.all_gather(t, axis, dim=0)
+    return t
+
+
+def mesh_zero_counts(ctx) -> None:
+    """Every rank: each kernel wrapper's launch count to 0."""
+    for fn in _kernel_wrappers().values():
+        fn.launches = 0
+
+
+def mesh_counts(ctx) -> list:
+    """Every rank: its launch counts, gathered (a list in rank order)."""
+    import torch
+
+    names = list(_kernel_wrappers())
+    mine = torch.tensor([[float(_kernel_wrappers()[n].launches) for n in names]],
+                        device=ctx.device)
+    return [dict(zip(names, map(int, row))) for row in _world_gather(ctx, mine).tolist()]
+
+
+def mesh_logits(ctx, prompt: list) -> object:
+    """Every rank: one prefill of ``prompt`` over a fresh cache (its slice of
+    the model, in step with the other rank); the logits after it."""
+    import torch
+
+    return _rescore(torch, ctx.model, prompt, BS, None)
+
+
+def mesh_blocks(ctx, block_ids: list) -> object:
+    """Every rank: its cache's ``block_ids`` ([L, n, 2, Bs, Hk*D]), the
+    ranks' gathered on the first axis."""
+    from dynamo_tpu_torch.ops.block_copy import gather_blocks
+
+    return _world_gather(ctx, gather_blocks(ctx.cache, block_ids)).float().cpu()
+
+
+class MeshWorld:
+    """This process as rank 0 of a world of ``n`` ranks on the card(s) and
+    the follower processes it starts (rank r on ``cuda:{r % cards}``), laid
+    out as the mesh ``shape``; ``backend`` None is NCCL, one rank a card.
+    :meth:`close` stops it."""
+
+    def __init__(self, n: int = 2, backend="gloo", shape=(1, 2)):
+        import os
+
+        from dynamo_tpu_torch.runtime.multihost import MultiHostSpec, bootstrap, free_port
+        from dynamo_tpu_torch.utils.mesh import MESH_AXES, build_mesh
+
+        addr = f"127.0.0.1:{free_port()}"
+        self.log_path = ROOT / "chiprun_out" / "mesh_follower.log"
+        self.log_path.parent.mkdir(exist_ok=True)
+        # a collective waits at most MESH_TIMEOUT_S for its peers: a failed
+        # check on one rank ends the phase instead of hanging the others
+        env = dict(os.environ, DYN_MH_NPROCS=str(n), DYN_MH_STORE=addr,
+                   DYN_MH_MESH=",".join(map(str, shape)), DYN_MH_TIMEOUT_S=str(MESH_TIMEOUT_S),
+                   PYTHONPATH=str(ROOT))
+        if backend:
+            env["DYN_MH_BACKEND"] = backend
+        with open(self.log_path, "w") as f:
+            self.procs = [subprocess.Popen(
+                [sys.executable, "-m", "dynamo_tpu_torch.engine.follower"], cwd=str(ROOT),
+                env=dict(env, DYN_MH_RANK=str(r), DYN_MH_LOCAL_RANK=str(r)), stdout=f,
+                stderr=subprocess.STDOUT) for r in range(1, n)]
+        try:
+            self.backend = bootstrap(MultiHostSpec(num_processes=n, process_id=0, store_addr=addr,
+                                                   backend=backend, timeout_s=MESH_TIMEOUT_S),
+                                     "cuda:0")
+            self.mesh = build_mesh(shape, MESH_AXES, device="cuda:0")
+        except BaseException:
+            for p in self.procs:
+                p.kill()
+            raise
+
+    def layout(self, shape):
+        from dynamo_tpu_torch.engine.follower import remesh
+
+        if tuple(self.mesh.sizes) != tuple(shape):
+            self.mesh = remesh(self.mesh, shape)
+        return self.mesh
+
+    def close(self) -> int:
+        from dynamo_tpu_torch.engine.follower import stop_followers
+        from dynamo_tpu_torch.runtime.multihost import shutdown
+
+        try:
+            if all(p.poll() is None for p in self.procs):
+                stop_followers(self.mesh)
+        finally:
+            # every rank leaves the world together (NCCL's teardown waits for
+            # its peers), then the followers' exits are read
+            shutdown()
+        try:
+            rcs = [p.wait(timeout=60) for p in self.procs]
+        except subprocess.TimeoutExpired:
+            for p in self.procs:
+                p.kill()
+            rcs = [p.wait() for p in self.procs]
+        return max(rcs, key=abs)
+
+
+def mesh_kernel_checks(torch, card: str) -> tuple[dict, dict]:
+    """Each kernel of the mesh's path against its plain version at the
+    shapes one rank gives it (``MESH_GEOMS``, ``MESH_MATMULS``,
+    ``MESH_EXPERTS``), pools NaN-poisoned as in the kernel phase; then
+    their times at one rank's serving shapes."""
+    from dynamo_tpu_torch.ops.kernels.decode_attention import paged_decode_attention
+    from dynamo_tpu_torch.ops.kernels.int8_matmul import int8_matmul, int8_matmul_ref
+    from dynamo_tpu_torch.ops.kernels.prefill_attention import paged_prefill_attention
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(20)
+    errs = {k: 0.0 for k in ("decode", "prefill", "ragged", "decode_q8", "prefill_q8",
+                             "ragged_q8", "matmul", "moe")}
+    mixed = [0, 1, 17, 100, 333, 1024, 1500, 2048]
+    unified = [(n - 1, 1) for n in (1, 17, 100, 333, 1024, 1500, 2047, 64)] + [(0, 300), (256, 200)]
+    for model, geom in MESH_GEOMS.items():
+        for quant, bs in ((False, BS), (True, BS_Q8)):
+            sfx = "_q8" if quant else ""
+            errs["decode" + sfx] = max(errs["decode" + sfx], *(
+                decode_case(torch, gen, mixed, s, None, geom=geom, bs=bs, quant=quant) for s in (1, 4)))
+            errs["prefill" + sfx] = max(errs["prefill" + sfx], prefill_case(
+                torch, gen, starts=[0, 256], fresh=[512, 500], s=512, geom=geom, bs=bs, quant=quant))
+            errs["ragged" + sfx] = max(errs["ragged" + sfx], ragged_case(
+                torch, gen, unified, 16, 6, geom=geom, bs=bs, quant=quant))
+        log(f"mesh kernels at one rank's {model} attention {geom}: B1/B4a S=1 and 4, B2/B4b, "
+            f"B3/B4c unified layout, bf16 Bs {BS} and int8 Bs {BS_Q8} ({card})")
+    for name, (k, n) in MESH_MATMULS.items():
+        out_dtype = torch.float32 if name == "lm_head" else torch.bfloat16
+        wq, scale = _q8_weight(torch, gen, k, n, "kn")
+        for m in (1, 8, 300):
+            x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+            errs["matmul"] = max(errs["matmul"], compare(
+                torch, f"mesh matmul {name} [{k}, {n}] M={m}", int8_matmul(x, wq, scale, out_dtype),
+                int8_matmul_ref(x, wq, scale, out_dtype)))
+        del wq, scale
+    log(f"mesh kernels: B5 at one rank's Llama-3-8B matmuls {MESH_MATMULS} (K, N), M 1/8/300: max "
+        f"abs err {errs['matmul']:.3g} ({card})")
+    errs["moe_q8"] = 0.0
+    for model, (experts, top_k, dm, f) in MESH_EXPERTS.items():
+        # E2 serves Qwen3-30B-A3B's int8 experts; DeepSeek has no int8 weights
+        for quant in (False, True) if model == "Qwen3-30B-A3B" else (False,):
+            key = "moe_q8" if quant else "moe"
+            kernel, plain = _grouped(quant)
+            for t in (8, 1504):
+                offsets = moe_offsets(gen, t, experts, top_k, "uniform")
+                for a, b in ((dm, f), (f, dm)):
+                    w = _expert_stack(torch, gen, experts, a, b, quant)
+                    x = torch.randn((t * top_k, a), generator=gen, device="cuda").to(torch.bfloat16)
+                    what = f"mesh {key} {model} [{a}, {b}] T={t}"
+                    out = kernel(x, w, offsets)
+                    check(torch.equal(out, kernel(x, w, offsets)), f"{what}: two launches differ")
+                    errs[key] = max(errs[key], compare(torch, what, out, plain(x, w, offsets)))
+    log(f"mesh kernels: E1 at one rank's F (Qwen3-30B-A3B 384, DeepSeek-V2-Lite 704) and E2 at "
+        f"384, T 8 and 1504: max abs err {errs['moe']:.3g} / {errs['moe_q8']:.3g} ({card})")
+    kernel, _ = _grouped(False)
+
+    # one rank's times: B1 one decode layer (8 rows, DECODE_LENS) as a graph;
+    # B2 a 1,504-token prefill; B5 one layer's seven projections at M = 8 as a
+    # graph; E1 one Qwen3 MoE layer's three launches at T = 8 as a graph
+    ms = {}
+    h, hk, d = MESH_GEOMS["Llama-3-8B"]
+    lens = DECODE_LENS
+    n_blocks = sum(-(-n // BS) for n in lens) + 8
+    bt = _tables(torch, lens, 2048 // BS, n_blocks, gen, BS)
+    cache = _poisoned_cache(torch, gen, n_blocks, bt.cpu(), lens, hk * d, BS)
+    q = torch.randn((8, 1, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+    sl = _ints(torch, lens)
+    q0 = (sl - 1).clamp_min(0)
+    ms["B1"] = graph_time_ms([lambda: paged_decode_attention(q, cache, LAYER, bt, sl, q0)], 50)
+    s = 1504
+    bt2 = _tables(torch, [s], 2048 // BS, 200, gen, BS)
+    cache2 = _poisoned_cache(torch, gen, 200, bt2.cpu(), [0], hk * d, BS)
+    qp = torch.randn((1, s, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+    kp = torch.randn((1, s, hk, d), generator=gen, device="cuda").to(torch.bfloat16)
+    vp = torch.randn((1, s, hk, d), generator=gen, device="cuda").to(torch.bfloat16)
+    args = (qp, kp, vp, cache2, LAYER, bt2, _ints(torch, [s]), _ints(torch, [0]))
+    ms["B2"] = cuda_time_ms(lambda i: paged_prefill_attention(*args), 20)
+    layer = [("wq", 1), ("wk/wv", 2), ("wo", 1), ("w_gate/w_up", 2), ("w_down", 1)]
+    calls = []
+    for name, reps in layer:
+        k, n = MESH_MATMULS[name]
+        wq, scale = _q8_weight(torch, gen, k, n, "kn")
+        x = torch.randn((8, k), generator=gen, device="cuda").to(torch.bfloat16)
+        calls += [lambda x=x, wq=wq, scale=scale: int8_matmul(x, wq, scale)] * reps
+    ms["B5"] = graph_time_ms(calls, 50)
+    experts, top_k, dm, f = MESH_EXPERTS["Qwen3-30B-A3B"]
+    offsets = moe_offsets(gen, 8, experts, top_k, "uniform")
+    wg, wd = (_expert_stack(torch, gen, experts, dm, f, False),
+              _expert_stack(torch, gen, experts, f, dm, False))
+    xg = torch.randn((8 * top_k, dm), generator=gen, device="cuda").to(torch.bfloat16)
+    xd = torch.randn((8 * top_k, f), generator=gen, device="cuda").to(torch.bfloat16)
+    ms["E1"] = graph_time_ms([lambda: kernel(xg, wg, offsets), lambda: kernel(xg, wg, offsets),
+                              lambda: kernel(xd, wd, offsets)], 50)
+    log(f"mesh kernels, one rank's times (ms): B1 one decode layer (8 rows) graph {ms['B1']:.4f}, "
+        f"B2 1,504-token prefill {ms['B2']:.4f}, B5 one layer's 7 projections at M=8 graph "
+        f"{ms['B5']:.4f}, E1 one Qwen3 MoE layer at T=8 graph {ms['E1']:.4f} ({card})")
+    del cache, cache2, wg, wd
+    torch.cuda.empty_cache()
+    return errs, ms
+
+
+def mesh_run(torch, mesh, model, config: dict, label: str, reqs: list, card: str,
+             max_tokens: int = MAX_TOKENS) -> dict:
+    """The requests at once through an ``EngineCore`` on ``model`` (on
+    ``mesh``, rank 0's, or one card's when None), stepped here so each
+    step's wall is read: greedy streams, every rank's launches (zeroed just
+    before), the seconds of a decode turn (the pure decode dispatches' walls
+    over their turns) and the collective wait of one."""
+    from dynamo_tpu_torch.engine import EngineConfig, EngineCore
+    from dynamo_tpu_torch.engine.follower import call_all
+    from dynamo_tpu_torch.engine.request import EngineRequest
+    from dynamo_tpu_torch.llm.protocols import FinishReason, SamplingOptions, StopConditions
+
+    core = EngineCore(model, EngineConfig(**config), device="cuda")
+
+    def submit(tag, prompts, n):
+        outs = {i: [] for i in range(len(prompts))}
+        for i, p in enumerate(prompts):
+            core.submit(EngineRequest(request_id=f"{tag}-{i}", prompt=list(p),
+                                      sampling=SamplingOptions(temperature=0.0),
+                                      stops=StopConditions(max_tokens=n), emit=outs[i].append))
+        return outs
+
+    try:
+        submit("warm-up", [list(range(1, 40))], 4)
+        while core.step():
+            pass
+        if mesh is not None:
+            call_all(mesh, "chip_smoke:mesh_zero_counts")
+        else:
+            mesh_zero_counts(None)
+        outs = submit(label, reqs, max_tokens)
+        decode_s = wait_s = 0.0
+        turns, steps0, sp0 = 0, core.steps, core.sp_prefills
+        t0 = time.perf_counter()
+        while True:
+            d0, p0 = core.decode_steps, core.prefill_steps
+            w0 = mesh.wait_s if mesh is not None else 0.0
+            s0 = time.perf_counter()
+            if not core.step():
+                break
+            if core.prefill_steps == p0 and core.decode_steps > d0:
+                decode_s += time.perf_counter() - s0
+                turns += core.decode_steps - d0
+                wait_s += (mesh.wait_s - w0) if mesh is not None else 0.0
+        wall = time.perf_counter() - t0
+        launches = (call_all(mesh, "chip_smoke:mesh_counts") if mesh is not None
+                    else [{k: fn.launches for k, fn in _kernel_wrappers().items()}])
+        dispatches, sp = core.steps - steps0, core.sp_prefills - sp0
+    finally:
+        core.close()
+    streams = []
+    for i in range(len(reqs)):
+        toks = [t for o in outs[i] for t in o.token_ids]
+        check(outs[i][-1].finish_reason is FinishReason.LENGTH and len(toks) == max_tokens
+              and all(0 <= t < model.config.vocab_size for t in toks),
+              f"mesh {label} request {i}: {len(toks)} tokens, finish {outs[i][-1].finish_reason}")
+        streams.append(toks)
+    out = dict(label=label, streams=streams, launches=launches, wall_s=wall, dispatches=dispatches,
+               decode_turns=turns, decode_s_per_turn=decode_s / max(1, turns),
+               collective_wait_s_per_turn=wait_s / max(1, turns), sp_prefills=sp)
+    log(f"mesh {label}: wall {wall:.3f} s, {dispatches} dispatches, a decode turn "
+        f"{1e3 * out['decode_s_per_turn']:.2f} ms (collective wait "
+        f"{1e3 * out['collective_wait_s_per_turn']:.2f} ms) over {turns} turns, launches "
+        f"{launches} ({card})")
+    return out
+
+
+def _mesh_pair(torch, world, spec: dict, config: dict, label: str, card: str, reqs=None,
+               bs: int = BS, cache_dtype=None, logits: bool = False,
+               shapes=((1, 2),)) -> tuple[dict, dict]:
+    """One model on one card (tp = 1) and on the world's meshes ``shapes``:
+    the same requests through each, every mesh's streams held to tp = 1's
+    but at a near tie (re-scored on the tp = 1 model), and with ``logits``
+    the first token's logits of the 300-token prompt within the parity
+    bounds.  Returns (the tp = 1 run, {mesh shape: its run})."""
+    from dynamo_tpu_torch.engine.follower import broadcast_model, call_all, free_followers
+    from dynamo_tpu_torch.models.loader import model_from_spec
+
+    full = model_from_spec(spec, "cuda", None)
+    reqs = reqs or model_prompts(full)
+    one = mesh_run(torch, None, full, config, f"{label} tp=1", reqs, card)
+    runs = {}
+    for shape in shapes:
+        mesh = world.layout(shape)
+        name = f"{label} mesh {shape}"
+        sharded = broadcast_model(spec, mesh, "cuda")
+        check(sharded.mesh is mesh, f"mesh {name}: the model is not on the mesh")
+        if logits:
+            a = call_all(mesh, "chip_smoke:mesh_logits", reqs[1], model=sharded)
+            b = _rescore(torch, full, reqs[1], BS, None)
+            _hold_logits(torch, f"mesh {name} first token (300-token prompt), vs tp=1",
+                         a[None], b[None], card)
+        run = mesh_run(torch, mesh, sharded, config, name, reqs, card)
+        run["parted"] = spec_near_ties(torch, full, one, run, card, bs=bs,
+                                       cache_dtype=cache_dtype, prompts=reqs,
+                                       sampling=[{"temperature": 0.0}] * len(reqs),
+                                       against=f"{label} tp=1")
+        runs[shape] = run
+        del sharded
+        free_followers(mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+    del full
+    gc.collect()
+    torch.cuda.empty_cache()
+    return one, runs
+
+
+def mesh_sp_run(torch, world, card: str, shape=(2, 1)) -> dict:
+    """The sequence-parallel prefill on the mesh ``shape``: a 4,096-token prompt
+    over ``sp_prefill_threshold`` 2,048 prefills in ONE dispatch with the
+    sequence split over "data" (ring attention), the fresh KV all-gathered
+    into both ranks' caches; each rank's blocks are held to a tp = 1
+    prefill's (per layer, within the parity bounds) and to each other's (the
+    same bits), and the run goes on for 16 decode tokens, held to tp = 1's
+    but at a near tie (re-scored on the tp = 1 model)."""
+    import numpy as np
+
+    from dynamo_tpu_torch.engine import EngineConfig, EngineCore
+    from dynamo_tpu_torch.engine.follower import broadcast_model, call_all, free_followers
+    from dynamo_tpu_torch.engine.request import EngineRequest, RequestState
+    from dynamo_tpu_torch.llm.protocols import SamplingOptions, StopConditions
+    from dynamo_tpu_torch.models.loader import model_from_spec
+    from dynamo_tpu_torch.ops.block_copy import gather_blocks
+
+    mesh = world.layout(shape)
+    spec = {"kind": "init", "family": "llama", "seed": 3,
+            "config": dataclasses.asdict(llama3_8b(MESH_SP_LAYERS))}
+    prompt = np.random.default_rng(7).integers(0, LLAMA3_VOCAB, MESH_SP_PROMPT).tolist()
+    nb = MESH_SP_PROMPT // BS
+    cfg = dict(max_batch_size=2, max_model_len=8192, block_size=BS, num_blocks=nb + 64,
+               decode_steps=8)
+
+    def serve(core, label):
+        outs = []
+        req = EngineRequest(request_id=label, prompt=prompt, sampling=SamplingOptions(temperature=0.0),
+                            stops=StopConditions(max_tokens=MESH_SP_TOKENS), emit=outs.append)
+        core.submit(req)
+        t0 = time.perf_counter()
+        while req.state is not RequestState.RUNNING:
+            check(core.step(), f"mesh SP {label}: the engine idled before the prefill")
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        ids = list(req.block_ids[:nb])
+        blocks = (call_all(mesh, "chip_smoke:mesh_blocks", ids, cache=core.cache)
+                  if core.mesh is not None else gather_blocks(core.cache, ids).float().cpu())
+        while core.step():
+            pass
+        core.close()
+        return [t for o in outs for t in o.token_ids], blocks, prefill_s
+
+    full = model_from_spec(spec, "cuda", None)
+    ref_toks, ref, ref_s = serve(EngineCore(full, EngineConfig(**cfg), device="cuda"), "sp-ref")
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded = broadcast_model(spec, mesh, "cuda")
+    call_all(mesh, "chip_smoke:mesh_zero_counts")
+    w0 = mesh.wait_s
+    core = EngineCore(sharded, EngineConfig(**cfg, sp_prefill_threshold=MESH_SP_THRESHOLD),
+                      device="cuda")
+    toks, got, sp_s = serve(core, "sp")
+    launches = call_all(mesh, "chip_smoke:mesh_counts")
+    check(core.sp_prefills == 1 and len(toks) == MESH_SP_TOKENS,
+          f"mesh SP: {core.sp_prefills} SP prefills, {len(toks)} tokens")
+    layers = ref.shape[0]
+    check(all(torch.equal(got[:layers], got[r * layers:(r + 1) * layers])
+              for r in range(1, got.shape[0] // layers)), "mesh SP: the ranks' cached KV differ")
+    rel = [((got[i] - ref[i]).norm() / ref[i].norm()).item() for i in range(layers)]
+    max_rel = [((got[i] - ref[i]).abs().max() / ref[i].abs().max()).item() for i in range(layers)]
+    log(f"mesh SP {shape}: {MESH_SP_PROMPT}-token prompt, {MESH_SP_LAYERS} layers: SP prefill "
+        f"{sp_s:.3f} s (tp=1 one-dispatch prefill {ref_s:.3f} s); every rank's cached KV bit-equal; vs tp=1 per "
+        f"layer rel L2 {max(rel):.3g} (tol {PARITY_REL_L2}; by layer {[round(r, 5) for r in rel]}), "
+        f"max |diff|/max {max(max_rel):.3g} (tol {PARITY_MAX_REL}); first token {toks[0]} vs tp=1 "
+        f"{ref_toks[0]}; collective wait {mesh.wait_s - w0:.3f} s ({card})")
+    check(max(rel) <= PARITY_REL_L2 and max(max_rel) <= PARITY_MAX_REL,
+          f"mesh SP: cached KV vs tp=1: rel L2 {max(rel)}, max rel {max(max_rel)}")
+    parted = spec_near_ties(torch, full, dict(streams=[ref_toks]),
+                            dict(streams=[toks], label=f"mesh SP {shape}"), card, prompts=[prompt],
+                            sampling=[{"temperature": 0.0}], against="tp=1")
+    del sharded, core, full
+    free_followers(mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(prompt=MESH_SP_PROMPT, layers=MESH_SP_LAYERS, sp_prefill_s=sp_s,
+                tp1_prefill_s=ref_s, kv_rel_l2=max(rel), kv_rel_l2_by_layer=rel,
+                kv_max_rel=max(max_rel), parted=parted, launches=launches)
+
+
+def mesh_nccl_refusal(card: str) -> None:
+    """Two ranks on the one card with the default backend (NCCL on CUDA):
+    both follower processes must stop in the bootstrap, naming the card,
+    before NCCL is asked; nothing gives way to gloo by itself."""
+    import os
+
+    from dynamo_tpu_torch.runtime.multihost import free_port
+
+    env = dict(os.environ, DYN_MH_NPROCS="2", DYN_MH_STORE=f"127.0.0.1:{free_port()}",
+               DYN_MH_MESH="1,2", PYTHONPATH=str(ROOT))
+    env.pop("DYN_MH_BACKEND", None)
+    procs = [subprocess.Popen([sys.executable, "-m", "dynamo_tpu_torch.engine.follower"],
+                              cwd=str(ROOT), env=dict(env, DYN_MH_RANK=str(r), DYN_MH_LOCAL_RANK=str(r)),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in (0, 1)]
+    outs = [p.communicate(timeout=180)[0] for p in procs]
+    refused = ["NCCL refuses two ranks on one card" in o for o in outs]
+    check(all(p.returncode != 0 for p in procs) and any(refused),
+          f"mesh: NCCL asked for two ranks on one card: exit codes "
+          f"{[p.returncode for p in procs]}: {outs[0][-1500:]} {outs[1][-1500:]}")
+    log(f"mesh: NCCL for two ranks on one card refused by the bootstrap, exit codes "
+        f"{[p.returncode for p in procs]}, the refusal in {sum(refused)} of 2 logs ({card})")
+
+
+def mesh_phase(torch, card: str) -> dict:
+    """The mesh phase: the kernels at one rank's shapes, NCCL refused for two
+    ranks on one card, then ONE two-rank gloo world: Llama-3-8B bf16 at full
+    width and depth (logits and streams against tp = 1), int8 weights and
+    cache (8 layers, default and token-budget paths), Qwen3-30B-A3B width (4
+    layers), DeepSeek-V2-Lite width (4 layers), and the sequence-parallel
+    prefill on (2, 1).  Rank 1 must launch what rank 0 does, B1, B2 and B5
+    among them.  Logs the ``{"mesh": ...}`` line."""
+    t_phase = time.perf_counter()
+    errs, kernel_ms = mesh_kernel_checks(torch, card)
+    mesh_nccl_refusal(card)
+    world = MeshWorld()
+    runs, sp = {}, None
+    tp2 = (1, 2)
+    try:
+        llama = {"kind": "init", "family": "llama", "seed": 0,
+                 "config": dataclasses.asdict(llama3_8b())}
+        one, two = _mesh_pair(torch, world, llama, DEFAULT_PATH, "Llama-3-8B bf16", card,
+                              logits=True)
+        runs["bf16 tp=1"], runs["bf16"] = one, two[tp2]
+        q8 = {"kind": "init", "family": "llama", "seed": 1, "quantized": True,
+              "config": dataclasses.asdict(llama3_8b(MESH_Q8_LAYERS))}
+        for path, cfg in (("default", INT8_DEFAULT_PATH),
+                          ("token budget", dict(INT8_BUDGET_PATH, lookahead_dispatch=False))):
+            one, two = _mesh_pair(torch, world, q8, cfg,
+                                  f"Llama-3-8B int8 {MESH_Q8_LAYERS} layers {path}", card,
+                                  bs=BS_Q8, cache_dtype="int8")
+            runs[f"int8 {path} tp=1"], runs[f"int8 {path}"] = one, two[tp2]
+        moe = {"kind": "init", "family": "llama", "seed": 2,
+               "config": dataclasses.asdict(qwen3_30b_a3b(MESH_MOE_LAYERS))}
+        one, two = _mesh_pair(torch, world, moe, DEFAULT_PATH,
+                              f"Qwen3-30B-A3B {MESH_MOE_LAYERS} layers", card)
+        runs["Qwen3 tp=1"], runs["Qwen3"] = one, two[tp2]
+        ds = {"kind": "init", "family": "deepseek", "seed": 4,
+              "config": dataclasses.asdict(deepseek_v2_lite(MESH_DS_LAYERS))}
+        one, two = _mesh_pair(torch, world, ds, DEFAULT_PATH,
+                              f"DeepSeek-V2-Lite {MESH_DS_LAYERS} layers", card)
+        runs["DeepSeek tp=1"], runs["DeepSeek"] = one, two[tp2]
+        sp = mesh_sp_run(torch, world, card)
+    finally:
+        rc = world.close()
+    check(rc == 0, f"mesh: a follower exited {rc}: " + world.log_path.read_text()[-3000:])
+    tp2_runs = {k: r for k, r in runs.items() if "tp=1" not in k}
+    per_rank = [{k: sum(r["launches"][rank][k] for r in tp2_runs.values())
+                 + sp["launches"][rank][k] for k in _kernel_wrappers()} for rank in (0, 1)]
+    check(all(per_rank[1][k] > 0 for k in ("decode", "prefill", "matmul", "ragged_q8", "moe"))
+          and per_rank[1] == per_rank[0],
+          f"mesh: rank 1 must launch what rank 0 launches, B1, B2, B5, B4c and E1 among them: "
+          f"{per_rank}")
+    line = dict(
+        backend=world.backend, world=2, meshes=["(1, 2)", "(2, 1)"],
+        launches_rank0=per_rank[0], launches_rank1=per_rank[1],
+        decode_turn_s={"tp1": runs["bf16 tp=1"]["decode_s_per_turn"],
+                       "tp2": runs["bf16"]["decode_s_per_turn"]},
+        collective_wait_s_per_turn=runs["bf16"]["collective_wait_s_per_turn"],
+        runs={k: _run_readings(r) for k, r in runs.items()},
+        sp={k: v for k, v in sp.items() if k != "launches"},
+        kernel_max_abs_err=errs, kernel_ms_one_rank=kernel_ms,
+        seconds=time.perf_counter() - t_phase, card=card)
+    log(json.dumps({"mesh": line}))
+    return dict(line, per_rank=per_rank, errs=errs)
+
+
+def _run_readings(r: dict) -> dict:
+    return {f: r.get(f) for f in ("wall_s", "dispatches", "decode_turns", "decode_s_per_turn",
+                                  "collective_wait_s_per_turn", "parted")}
+
+
+def mesh_allreduce(ctx, nbytes: int, iters: int) -> float:
+    """Every rank: the mean seconds of one all-reduce of ``nbytes`` of f32
+    over the "model" axis, by CUDA events over ``iters`` calls."""
+    import torch
+
+    from dynamo_tpu_torch.utils.mesh import AXIS_MODEL
+
+    x = torch.ones(nbytes // 4, device=ctx.device)
+    for _ in range(3):
+        ctx.mesh.all_reduce(x, AXIS_MODEL)
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        ctx.mesh.all_reduce(x, AXIS_MODEL)
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters / 1e3
+
+
+def mesh_cards_phase(torch, card: str) -> dict:
+    """``chip_smoke.py --mesh-cards``: ONE world of a rank a card over NCCL,
+    every card of the machine (4): an all-reduce's time over the model axis
+    beside ``obs/topology.py``'s NVLink price; Llama-3-8B bf16 at full width
+    and depth on the meshes (1, n) and (2, n / 2) against one card (logits,
+    near-tie streams, a decode turn and its collective wait); the
+    sequence-parallel prefill on (n, 1).  Logs the ``{"mesh_cards": ...}``
+    line."""
+    from dynamo_tpu_torch.engine.follower import call_all
+    from dynamo_tpu_torch.obs.topology import collective_cost_s
+
+    t_phase = time.perf_counter()
+    n = torch.cuda.device_count()
+    check(n >= 2 and n % 2 == 0, f"mesh cards: {n} cards, need an even number above 1")
+    world = MeshWorld(n=n, backend=None, shape=(1, n))
+    try:
+        check(world.backend == "nccl", f"mesh cards: backend {world.backend}, expected nccl")
+        ar = {}
+        for nbytes in (4096 * 4 * 6, 64 << 20):  # a decode step's partials; 64 MiB
+            got = call_all(world.mesh, "chip_smoke:mesh_allreduce", nbytes, 50)
+            ar[nbytes] = dict(measured_s=got, nvlink_priced_s=collective_cost_s(
+                "all_reduce", n, nbytes, link="nvlink"))
+            log(f"mesh cards: all-reduce of {nbytes} bytes over {n} cards (NCCL): "
+                f"{1e6 * got:.1f} us, NVLink-priced {1e6 * ar[nbytes]['nvlink_priced_s']:.1f} us "
+                f"({card})")
+        llama = {"kind": "init", "family": "llama", "seed": 0,
+                 "config": dataclasses.asdict(llama3_8b())}
+        shapes = ((1, n), (2, n // 2))
+        one, many = _mesh_pair(torch, world, llama, DEFAULT_PATH, "Llama-3-8B bf16", card,
+                               logits=True, shapes=shapes)
+        sp = mesh_sp_run(torch, world, card, shape=(n, 1))
+    finally:
+        rc = world.close()
+    check(rc == 0, f"mesh cards: a follower exited {rc}: " + world.log_path.read_text()[-3000:])
+    line = dict(backend="nccl", world=n, all_reduce={str(k): v for k, v in ar.items()},
+                runs={"tp=1": _run_readings(one),
+                      **{str(shape): _run_readings(r) for shape, r in many.items()}},
+                launches={str(shape): r["launches"] for shape, r in many.items()},
+                sp={k: v for k, v in sp.items() if k != "launches"},
+                seconds=time.perf_counter() - t_phase, card=card)
+    log(json.dumps({"mesh_cards": line}))
+    return line
+
+
+def mesh_cli_phase(torch, card: str, texts: list[str], ids: list[tuple[list, list]]) -> dict:
+    """``run in=http out=gpu --tp 2`` on the front-door checkpoint as a user
+    starts it on one card (``DYN_MH_BACKEND=gloo``): ``run`` is rank 0 and
+    starts rank 1, each loads its half of the checkpoint, and the front-door
+    requests are answered one at a time over HTTP; SIGTERM stops both ranks
+    with exit 0.  Each answer is held to the one-card answer ``texts`` (its
+    prompt and output ids in ``ids``) but at a near tie: two ranks round the
+    row-parallel sums differently, so where an answer parts, the common
+    prefix is re-scored on the checkpoint loaded on one card."""
+    import os
+    import socket
+
+    import aiohttp
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    base = f"http://127.0.0.1:{port}"
+    t0 = time.perf_counter()
+    log_path = FRONT_DIR / "cli_tp2.log"
+    env = dict(os.environ, DYN_MH_BACKEND="gloo")
+    with served_process("the --tp 2 CLI server", [
+            "run", "in=http", "out=gpu", "--model-path", str(FRONT_DIR), "--model-name",
+            FRONT_MODEL, "--http-port", str(port), "--tp", "2", *FRONT_FLAGS], log_path,
+            env=env, grace_s=60) as server:
+        async def go():
+            async with aiohttp.ClientSession() as s:
+                while True:
+                    try:
+                        async with s.get(f"{base}/health") as r:
+                            await r.json()
+                        break
+                    except aiohttp.ClientConnectionError:
+                        server.alive("did not come up", t0)
+                        await asyncio.sleep(0.25)
+                up = time.perf_counter() - t0
+                return up, [await _timed_post(s, base + path, body)
+                            for path, body in _front_requests()]
+
+        up, answers = asyncio.run(go())
+        served_log = log_path.read_text()
+    check(all(a[0] == 200 for a in answers) and all(_answer_text(a[1]) for a in answers),
+          f"mesh CLI --tp 2: statuses {[a[0] for a in answers]}: {served_log[-3000:]}")
+    check("1 followers started here" in served_log and "(gloo)" in served_log,
+          f"mesh CLI --tp 2: no follower rank in the log: {served_log[-3000:]}")
+    got = [_answer_text(a[1]) for a in answers]
+    same = sum(a == b for a, b in zip(got, texts))
+    parted = 0
+    if same < len(got):
+        from dynamo_tpu_torch.cli import load_any_checkpoint
+        from dynamo_tpu_torch.llm.tokenizer import TokenizerWrapper
+
+        model, _ = load_any_checkpoint(str(FRONT_DIR), None, torch.device("cuda"), False)
+        tok = TokenizerWrapper.from_file(FRONT_DIR)
+        try:
+            parted = spec_near_ties(
+                torch, model, dict(streams=[o for _, o in ids]),
+                dict(streams=[graph_stream(t, o, tok) for t, (_, o) in zip(got, ids)],
+                     label="mesh CLI --tp 2"),
+                card, prompts=[p for p, _ in ids], sampling=[{"temperature": 0.0}] * len(ids),
+                against="one card")
+        finally:
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+    out = dict(answered=len(answers), equal_to_tp1=same, parted_at_near_ties=parted, up_s=up,
+               ttft_s=[round(a[2], 4) for a in answers])
+    log(f"mesh CLI: run --tp 2 in=http on the {FRONT_LAYERS}-layer checkpoint: up in {up:.1f} s, "
+        f"{len(answers)} answers over HTTP, {same} equal the one-card texts, {parted} part at a "
+        f"near tie, seconds to first text {out['ttft_s']}, both ranks stopped on SIGTERM ({card})")
+    log_path.unlink(missing_ok=True)
+    return out
+
+
 # --------------------------------------------------------------------- main
 def phase_clock():
     """A function that logs, under a phase's name, the seconds since its
@@ -6516,6 +7200,22 @@ def main() -> int:
     shutil.rmtree(PERSIST_DIR, ignore_errors=True)
     shutil.rmtree(FORMATS_DIR, ignore_errors=True)
     mark = phase_clock()
+    if sys.argv[1:] == ["--mesh-cards"]:  # every card of the machine, a rank each
+        try:
+            card = card_line()
+            log(card)
+            build.build_library(verbose=True)
+            build.library()
+            mark("build")
+            mesh_cards_phase(torch, card)
+            mark("mesh cards")
+        except (SmokeFailure, RuntimeError) as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        log(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                              "kind": torch.cuda.get_device_name(0),
+                                              "count": torch.cuda.device_count()}}))
+        return 0
     try:
         card = card_line()
         log(card)
@@ -6553,7 +7253,7 @@ def main() -> int:
         parity_phase(torch, card, verify=True)
         parity_phase(torch, card, quant=True)
         mark("Llama-3-8B parity")
-        graphs, formats = front_door_phase(torch, card)
+        graphs, formats, mesh_cli = front_door_phase(torch, card)
         mark("Llama-3-8B front door")
         moe_default, moe_budget = moe_serving_phase(torch, card)
         mark("Qwen3-30B-A3B serving")
@@ -6568,6 +7268,8 @@ def main() -> int:
         mark("DeepSeek parity")
         deepseek_front_door_phase(torch, card)
         mark("DeepSeek front door")
+        mesh = mesh_phase(torch, card)
+        mark("mesh")
     except (SmokeFailure, RuntimeError) as e:  # a failed check, build or nvidia-smi
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6702,6 +7404,20 @@ def main() -> int:
              launches_formats=formats["launches_total"]["moe_q8"],
              max_abs_err=max(errs["moe_q8"], times["moe_q8_err"]), **times["moe_q8"]),
     ]
+    # and on the mesh, each rank's over the tp = 2 and SP runs (mesh_phase)
+    mesh_keys = {"paged_decode_attention": "decode", "paged_prefill_attention": "prefill",
+                 "ragged_paged_prefill_attention": "ragged",
+                 "paged_decode_attention_q8": "decode_q8",
+                 "paged_prefill_attention_q8": "prefill_q8",
+                 "ragged_paged_prefill_attention_q8": "ragged_q8", "int8_matmul": "matmul",
+                 "grouped_matmul": "moe", "grouped_matmul_q8": "moe_q8"}
+    for row in kernels:
+        key = mesh_keys[row["name"]]
+        row.update(launches_mesh_rank0=mesh["per_rank"][0][key],
+                   launches_mesh_rank1=mesh["per_rank"][1][key],
+                   max_abs_err_mesh=mesh["errs"].get(key))
+    mesh_cli.update(card=card)
+    log(json.dumps({"mesh_cli": mesh_cli}))
     log(json.dumps({"spec": [{k: v for k, v in r.items() if k != "streams"}
                              for r in spec.values()]}))
     log(json.dumps({"mla": mla}))

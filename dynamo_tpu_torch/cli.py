@@ -115,12 +115,13 @@ API_STORE = "http://127.0.0.1:7180"
 PACKAGE_CACHE = Path("~/.cache/dynamo_tpu_torch/packages").expanduser()
 
 
-def load_any_checkpoint(path: str, dtype: Optional[str], device, quantize: bool):
+def load_any_checkpoint(path: str, dtype: Optional[str], device, quantize: bool, mesh=None):
     """(model, quantized) for any checkpoint format, in the JAX CLI's order:
     native (``quantize``'s output), GGUF, an HF directory (Llama family, or
     DeepSeek by :func:`is_deepseek_dir`).  ``dtype`` None: a native
     checkpoint keeps its stored dtype, the others load as bfloat16.
-    ``quantize``: int8 weights (a native int8 checkpoint already is)."""
+    ``quantize``: int8 weights (a native int8 checkpoint already is).  On a
+    ``mesh``, this rank's slice of the model."""
     from dynamo_tpu_torch.models.checkpoint import is_native_checkpoint, load_checkpoint
     from dynamo_tpu_torch.models.deepseek import DeepseekModel
     from dynamo_tpu_torch.models.llama import LlamaModel
@@ -129,23 +130,34 @@ def load_any_checkpoint(path: str, dtype: Optional[str], device, quantize: bool)
 
     if is_native_checkpoint(path):
         # weights load as they are served: no per-start load + quantise
-        mcfg, state, quantized = load_checkpoint(path, dtype=dtype, device=device)
+        # an int8 weight's scales come from the whole weight: on a mesh,
+        # quantise on the host first and cut after
+        whole = quantize and mesh is not None and mesh.size > 1
+        mcfg, state, quantized = load_checkpoint(path, dtype=dtype,
+                                                 device="cpu" if whole else device,
+                                                 mesh=None if whole else mesh)
         if quantize and not quantized:
             state, quantized = quantize_state(mcfg, state), True
-        return LlamaModel.from_state(mcfg, state), quantized
+        if whole:
+            from dynamo_tpu_torch.device import resolve_device
+            from dynamo_tpu_torch.models.convert import shard_full_state
+
+            state = shard_full_state("llama", mcfg, state, mesh, resolve_device(device))
+        return LlamaModel.from_state(mcfg, state, mesh=mesh), quantized
     if path.endswith(".gguf"):
         from dynamo_tpu_torch.llm.gguf import load_gguf_model
 
         mcfg, state = load_gguf_model(path, dtype=dtype or "bfloat16", device=device,
-                                      quantize=quantize)
-        return LlamaModel.from_state(mcfg, state), quantize
+                                      quantize=quantize, mesh=mesh)
+        return LlamaModel.from_state(mcfg, state, mesh=mesh), quantize
     if is_deepseek_dir(path):  # the MLA family, as the JAX CLI dispatches it
         if quantize:
             raise SystemExit("--quantize int8 is not wired for this model family yet")
-        mcfg, state = load_deepseek_dir(path, dtype=dtype or "bfloat16", device=device)
-        return DeepseekModel.from_state(mcfg, state), False
-    mcfg, state = load_model_dir(path, dtype=dtype or "bfloat16", device=device, quantize=quantize)
-    return LlamaModel.from_state(mcfg, state), quantize
+        mcfg, state = load_deepseek_dir(path, dtype=dtype or "bfloat16", device=device, mesh=mesh)
+        return DeepseekModel.from_state(mcfg, state, mesh=mesh), False
+    mcfg, state = load_model_dir(path, dtype=dtype or "bfloat16", device=device, quantize=quantize,
+                                 mesh=mesh)
+    return LlamaModel.from_state(mcfg, state, mesh=mesh), quantize
 
 
 def model_card(path: str, name: Optional[str] = None):
@@ -156,6 +168,87 @@ def model_card(path: str, name: Optional[str] = None):
     if path.endswith(".gguf"):
         return ModelDeploymentCard.from_gguf(path, name=name)
     return ModelDeploymentCard.from_hf_dir(path, name=name)
+
+
+class RankWorld:
+    """This host's ranks of a ``run --tp/--dp`` mesh (``utils/mesh.py``):
+    the process running ``run`` is the host's first rank, and it starts the
+    others as shard followers (``engine/follower.py``), each bound to
+    ``cuda:{local rank % cards}`` (or to the CPU with ``--device cpu``).  On
+    one host the followers join through a TCPStore address passed to them;
+    with ``--nnodes`` every host's ranks join through the coordinator's
+    rendezvous (``runtime/multihost.py``).  :meth:`close` stops the
+    followers it started."""
+
+    def __init__(self, mesh, procs: list, is_root: bool):
+        self.mesh, self.procs, self.is_root = mesh, procs, is_root
+
+    @classmethod
+    def start(cls, args, device, dp: int, tp: int) -> "RankWorld":
+        import subprocess
+
+        from dynamo_tpu_torch.runtime.multihost import MultiHostSpec, bootstrap, free_port
+        from dynamo_tpu_torch.utils.mesh import MESH_AXES, build_mesh
+
+        world = dp * tp
+        nnodes = int(getattr(args, "nnodes", 1) or 1)
+        node = int(getattr(args, "node_rank", 0) or 0)
+        if world % nnodes:
+            raise SystemExit(f"--tp {tp} x --dp {dp} = {world} ranks do not split over "
+                             f"--nnodes {nnodes}")
+        per = world // nnodes
+        first = node * per
+        env = dict(os.environ, DYN_MH_NPROCS=str(world), DYN_MH_MESH=f"{dp},{tp}")
+        spec = MultiHostSpec(num_processes=world, process_id=first,
+                             backend=os.environ.get("DYN_MH_BACKEND") or None)
+        if nnodes > 1:
+            if not args.coordinator:
+                raise SystemExit("--nnodes > 1 joins the hosts through --coordinator")
+            spec.coordinator_url = args.coordinator
+            spec.group = args.namespace or "default"
+            env.update(DYN_MH_COORDINATOR=args.coordinator, DYN_MH_GROUP=spec.group)
+        else:
+            spec.store_addr = f"127.0.0.1:{free_port()}"
+            env.update(DYN_MH_STORE=spec.store_addr)
+        cmd = [sys.executable, "-m", "dynamo_tpu_torch.engine.follower"]
+        if device.type == "cpu":
+            cmd += ["--device", "cpu"]
+        procs = [subprocess.Popen(cmd, env=dict(env, DYN_MH_RANK=str(first + j),
+                                                DYN_MH_LOCAL_RANK=str(j)))
+                 for j in range(1, per)]
+        try:
+            bootstrap(spec, device)
+            mesh = build_mesh((dp, tp), MESH_AXES, device=device)
+        except BaseException:
+            cls(None, procs, False).close()
+            raise
+        log.info("rank %d of a (dp %d, tp %d) mesh on %s (%s); %d followers started here",
+                 first, dp, tp, device, mesh.backend, len(procs))
+        return cls(mesh, procs, first == 0)
+
+    def close(self) -> None:
+        """Stop the followers (rank 0 tells the world; every host then waits
+        for its own), and leave the world."""
+        import subprocess
+
+        from dynamo_tpu_torch.engine.follower import stop_followers
+        from dynamo_tpu_torch.runtime.multihost import shutdown
+
+        if self.mesh is not None and self.is_root:
+            try:
+                stop_followers(self.mesh)
+            except Exception:  # a broken world: the followers are going down anyway
+                log.exception("could not stop the shard followers")
+        # every rank leaves the world together (NCCL's teardown waits for
+        # its peers), then this host's followers are reaped
+        shutdown()
+        for p in self.procs:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        self.procs = []
 
 
 def build_local_engine(args) -> tuple[object, object]:
@@ -181,10 +274,8 @@ def build_local_engine(args) -> tuple[object, object]:
     if args.out != "gpu":
         raise SystemExit(f"unknown out={args.out}")
 
-    import torch
-
     from dynamo_tpu_torch.device import resolve_device
-    from dynamo_tpu_torch.engine import AsyncLLMEngine, EngineConfig, EngineCore
+    from dynamo_tpu_torch.engine import EngineConfig
 
     try:
         # before the weights move: with no GPU and no --device this raises
@@ -212,18 +303,52 @@ def build_local_engine(args) -> tuple[object, object]:
         # profile_steps dispatching steps
         profile_dir=args.profile_dir or None,
         profile_steps=args.profile_steps or 8,
+        sp_prefill_threshold=int(getattr(args, "sp_prefill_threshold", 0) or 0),
     )
     if args.spec_draft_model and cfg.spec_tokens <= 0:
         raise SystemExit("--spec-draft-model requires --spec-tokens > 0")
+    tp, dp = int(getattr(args, "tp", 1) or 1), int(getattr(args, "dp", 1) or 1)
+    world = RankWorld.start(args, device, dp, tp) if tp * dp > 1 else None
+    try:
+        return _build_on(args, cfg, card, device, world)
+    except BaseException:
+        if world is not None:
+            world.close()
+        raise
+
+
+def _build_on(args, cfg, card, device, world):
+    """The started engine of :func:`build_local_engine`, on ``world``'s mesh
+    when there is one (each rank loads its slice of the checkpoint)."""
+    import torch
+
+    from dynamo_tpu_torch.engine import AsyncLLMEngine, EngineCore
+
+    mesh = world.mesh if world is not None else None
+
     def load(path, quantize):
         t0 = time.perf_counter()
-        model, quantized = load_any_checkpoint(path, args.dtype, device, quantize)
+        if mesh is not None:
+            from dynamo_tpu_torch.engine.follower import broadcast_model
+
+            model = broadcast_model({"kind": "checkpoint", "path": path, "dtype": args.dtype,
+                                     "quantize": quantize}, mesh, device)
+            quantized = getattr(model, "quantized", False)
+        else:
+            model, quantized = load_any_checkpoint(path, args.dtype, device, quantize)
         log.info("loaded %s (%s, %d layers%s) on %s%s in %.1f s", path, type(model).__name__,
                  model.config.num_layers, ", int8 weights" if quantized else "", device,
                  f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "",
                  time.perf_counter() - t0)
         return model
 
+    if mesh is not None:
+        from dynamo_tpu_torch.utils.mesh import AXIS_DATA, AXIS_MODEL
+
+        cfg.mesh_shape = (mesh.axis_size(AXIS_DATA), mesh.axis_size(AXIS_MODEL))
+    if mesh is not None and args.spec_draft_model:
+        raise SystemExit("EngineConfig options not supported by the PyTorch engine on a mesh: "
+                         "['spec_tokens'] (a draft model)")
     model = load(args.model_path, args.quantize == "int8")
     # draft-model speculation: a small same-tokenizer model proposes, the
     # target verifies (engine/draft.py); loaded unquantised, as in the JAX
@@ -234,7 +359,9 @@ def build_local_engine(args) -> tuple[object, object]:
                           draft=draft)
     except ValueError as e:  # an option the PyTorch engine refuses
         raise SystemExit(str(e)) from None
-    return AsyncLLMEngine(core).start(), card
+    engine = AsyncLLMEngine(core)
+    engine.world = world
+    return engine.start(), card
 
 
 def attach_worker_publishers(runtime, engine, namespace: str) -> None:
@@ -280,6 +407,10 @@ def attach_worker_publishers(runtime, engine, namespace: str) -> None:
 def _shutdown(engine) -> None:
     if hasattr(engine, "shutdown"):
         engine.shutdown()
+    world = getattr(engine, "world", None)
+    if world is not None:  # stop the shard followers this run started
+        engine.world = None
+        world.close()
 
 
 # ------------------------------------------------------------------- run ------
@@ -296,14 +427,40 @@ def _runtime_config(args):
     return RuntimeConfig(**kw)
 
 
-async def _until_signalled() -> None:
+async def _until_signalled(engine=None) -> None:
     """Return on SIGINT or SIGTERM (a long-running command then stops
-    cleanly, exit 0)."""
+    cleanly, exit 0), or when ``engine`` (an engine on a mesh) stops after a
+    fatal step error, which raises SystemExit(1)."""
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()
     for sig in (signal.SIGINT, signal.SIGTERM):
         loop.add_signal_handler(sig, stop.set)
+    if engine is not None and hasattr(engine, "on_fatal"):
+        engine.on_fatal = lambda e: loop.call_soon_threadsafe(stop.set)
     await stop.wait()
+    _raise_if_fatal(engine)
+
+
+def _raise_if_fatal(engine) -> None:
+    """Exit non-zero when ``engine`` stopped after a fatal step error (a
+    broken mesh: a follower rank died)."""
+    error = getattr(engine, "error", None)
+    if error is not None:
+        raise SystemExit(f"the engine stopped: {error!r}")
+
+
+def _follow(args) -> None:
+    """``run --nnodes N --node-rank R`` with R > 0: this host's ranks only
+    follow rank 0 (``engine/follower.py``), each starting its followers."""
+    from dynamo_tpu_torch.device import resolve_device
+    from dynamo_tpu_torch.engine.follower import Follower
+
+    device = resolve_device(args.device)
+    world = RankWorld.start(args, device, int(args.dp or 1), int(args.tp or 1))
+    try:
+        Follower(world.mesh, device).run()
+    finally:
+        world.close()
 
 
 async def _cmd_run(args) -> None:
@@ -312,6 +469,9 @@ async def _cmd_run(args) -> None:
     from dynamo_tpu_torch.runtime.protocols import parse_endpoint_url
 
     serde.register_llm_types()
+    if int(getattr(args, "nnodes", 1) or 1) > 1 and int(getattr(args, "node_rank", 0) or 0) > 0:
+        await asyncio.to_thread(_follow, args)  # rank 0's host serves; this one follows
+        return
     if args.inp.startswith("dyn://") and args.out.startswith("dyn://"):
         raise SystemExit("in=dyn:// serves a local engine: out= must be gpu or echo")
     runtime = raw = None
@@ -347,7 +507,7 @@ async def _cmd_run(args) -> None:
             attach_worker_publishers(runtime, raw, ns)
             log.info("serving %s at %s as instance %x — ctrl-c or SIGTERM to stop", model_name,
                      args.inp, runtime.instance_id)
-            await _until_signalled()
+            await _until_signalled(raw)
         elif args.inp == "http":
             from dynamo_tpu_torch.llm.http.service import HttpService
 
@@ -357,7 +517,7 @@ async def _cmd_run(args) -> None:
             await svc.start()
             log.info("OpenAI server on %s:%s — ctrl-c or SIGTERM to stop", svc.host, svc.port)
             try:
-                await _until_signalled()
+                await _until_signalled(raw)
             finally:
                 await svc.stop()
         elif args.inp.startswith("text:"):
@@ -371,6 +531,7 @@ async def _cmd_run(args) -> None:
             await _batch(engine, model_name, Path(args.inp[6:]), args)
         else:
             raise SystemExit(f"unknown in={args.inp}")
+        _raise_if_fatal(raw)
     finally:
         if runtime is not None:
             await runtime.shutdown()
@@ -1017,6 +1178,20 @@ def _parser() -> argparse.ArgumentParser:
     run.add_argument("--spec-draft-num-blocks", type=int, default=0,
                      help="draft cache block count (0 = same as "
                      "--num-blocks; shrink on HBM-tight deployments)")
+    run.add_argument("--tp", type=int, default=1,
+                     help="tensor-parallel size: the model's heads, MLP and vocab split over "
+                     "this many ranks (one process each; run starts the others)")
+    run.add_argument("--dp", type=int, default=1, help="data-parallel size (the mesh's data "
+                     "axis; its ranks hold the same slices, and split long prompts with "
+                     "--sp-prefill-threshold)")
+    run.add_argument("--sp-prefill-threshold", type=int, default=0,
+                     help="prompts at least this long prefill in one dispatch with the "
+                     "sequence split over the mesh data axis (ring attention); 0 = off, "
+                     "needs --dp > 1")
+    run.add_argument("--nnodes", type=int, default=1,
+                     help="hosts whose ranks form ONE mesh (each runs this command with its "
+                     "--node-rank; they join through --coordinator)")
+    run.add_argument("--node-rank", type=int, default=0)
     run.add_argument("--max-tokens", type=int, default=128,
                      help="tokens per answer for in=text:, stdin and batch:")
     run.add_argument("--host", default="127.0.0.1")

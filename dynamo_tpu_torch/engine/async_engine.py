@@ -9,6 +9,12 @@ Cancellation: a stopped/killed Context, or a consumer that drops the
 stream (a cancelled server task), aborts the request in the core at the
 next step boundary.
 
+On a mesh (a core whose model holds a ``utils/mesh.py`` mesh) a failed step
+is fatal: a collective raised because a follower rank died (or the world
+is otherwise broken), and no later step can succeed.  The engine fails its
+requests, records the error in :attr:`AsyncLLMEngine.error`, calls
+``on_fatal`` and stops its thread; ``run`` then exits non-zero.
+
 Disaggregation: :meth:`AsyncLLMEngine.generate_ex` takes the remote
 prefill / remote decode flags, and :meth:`AsyncLLMEngine.run_on_engine`
 runs a function on the engine thread at a step boundary (the KV scatter,
@@ -39,6 +45,9 @@ class AsyncLLMEngine(AsyncEngine):
         self._wake = threading.Event()
         self._shutdown = False
         self._thread: threading.Thread | None = None
+        # a mesh's fatal step error, and who to tell
+        self.error: BaseException | None = None
+        self.on_fatal = None
 
     # --------------------------------------------------------------- lifecycle
     def start(self) -> "AsyncLLMEngine":
@@ -64,10 +73,17 @@ class AsyncLLMEngine(AsyncEngine):
         while not self._shutdown:
             try:
                 did_work = self.core.step()
-            except Exception:
+            except Exception as e:
                 log.exception("engine step failed; failing in-flight requests")
                 self.core.fail_all()
                 did_work = False
+                if getattr(self.core, "mesh", None) is not None:
+                    # a broken world: every later collective would fail too
+                    self.error = e
+                    self._shutdown = True
+                    if self.on_fatal is not None:
+                        self.on_fatal(e)
+                    return
             if not did_work:
                 self._wake.wait(timeout=0.05)
                 self._wake.clear()
@@ -107,6 +123,8 @@ class AsyncLLMEngine(AsyncEngine):
         remote_decode: bool = False,
         on_allocated=None,
     ) -> AsyncIterator[LLMEngineOutput]:
+        if self.error is not None:
+            raise RuntimeError(f"the engine stopped after a fatal step error: {self.error!r}")
         inp = request.data
         loop = asyncio.get_running_loop()
         out_q: asyncio.Queue[LLMEngineOutput] = asyncio.Queue()

@@ -3,7 +3,10 @@
 The same dataclass as ``dynamo_tpu.engine.config``, so one configuration
 drives either engine.  The PyTorch core serves the default path and the
 token-budget paths, with the model's cache dtype or an int8 KV cache
-(``cache_dtype="int8"``, ``ops/kv_quant.py``), and refuses at construction
+(``cache_dtype="int8"``, ``ops/kv_quant.py``), on one card or on the rank
+mesh its model was built on (``mesh_shape`` is that mesh's (dp, tp), or
+(1, 1) for "whatever the model's is"; ``sp_prefill_threshold`` needs a
+"data" axis above 1, as in the JAX package), and refuses at construction
 the options whose paths it does not carry yet
 (``EngineCore._check_supported``)."""
 

@@ -84,9 +84,28 @@ host gap from the timeline.  With ``profile_dir`` set, the first
 window (CPU, and CUDA on the card) whose Chrome trace lands under
 ``profile_dir/steps-NNNNNN/``, keyed by the starting step id.
 
-Not ported yet, and refused at construction (:meth:`EngineCore.
-_check_supported`): sequence-parallel prefill, cache dtypes other than int8
-and the model's, and meshes.
+More than one device (a model built on a ``utils/mesh.py`` mesh): the
+process model is one process per rank.  This core runs on rank 0 only — it
+holds the scheduler, the block manager, the sampler and the front door —
+and ranks 1..n-1 are shard followers (``engine/follower.py``) that run only
+what rank 0 broadcasts: each dispatch's forward operands (host arrays, one
+object broadcast before the dispatch), each cache mutation (a scatter of
+handed-off blocks, a gather for a handoff out) and the sequence-parallel
+prefill.  Every rank runs the same step function on its own slices, so the
+collectives inside the model (an all-reduce after ``wo`` and ``w_down``, the
+lm_head's all-gather) line up; rank 0 samples, and where a burst feeds a
+sampled token back, broadcasts it (:func:`_shared_tokens`) — a follower
+never touches a generator.  No rank runs a scheduler of its own: one
+diverging admission would hang a collective.  A follower that dies takes
+the world down: rank 0's next collective raises.  ``sp_prefill_threshold``
+with a mesh whose "data" axis is above 1 prefills long prompts in ONE
+dispatch with the sequence split over "data" (ring attention) and the fresh
+KV all-gathered so every data rank's cache holds the prompt.
+
+Refused at construction (:meth:`EngineCore._check_supported`): cache
+dtypes other than int8 and the model's, a ``mesh_shape`` that is not the
+model's mesh, and on a mesh of more than one rank the host-offload and
+persist tiers, speculation (n-gram and draft) and ``lookahead_dispatch``.
 
 Thread-safety: everything here runs on the engine thread; submit()/abort()
 and run_on_step() are the only cross-thread entry points and only touch
@@ -125,15 +144,18 @@ from dynamo_tpu_torch.llm.kv.host_pool import HostKvPool, flatten_blocks, unflat
 from dynamo_tpu_torch.llm.protocols import FinishReason, LLMEngineOutput
 from dynamo_tpu_torch.models.llama import LlamaModel
 from dynamo_tpu_torch.obs.perfmodel import PerfModel, model_shapes, visible_pairs
-from dynamo_tpu_torch.obs.timeline import StepTimeline
+from dynamo_tpu_torch.obs.timeline import COLLECTIVE, StepTimeline
 from dynamo_tpu_torch.ops.block_copy import gather_blocks_padded, scatter_blocks_inplace
-from dynamo_tpu_torch.ops.kv_quant import QuantKvCache
+from dynamo_tpu_torch.ops.kv_quant import (QuantKvCache, cache_data, pad_scales, quantize_kv_rows,
+                                           scale_tile)
 from dynamo_tpu_torch.tokens import TokenBlockSequence
+from dynamo_tpu_torch.utils.mesh import AXIS_DATA
 
 log = logging.getLogger("dynamo_tpu_torch.engine")
 
 __all__ = ["EngineCore", "unified_step", "multi_decode_step", "ragged_prefill_step",
-           "unified_token_step", "unified_burst_step", "spec_verify_step"]
+           "unified_token_step", "unified_burst_step", "spec_verify_step", "sp_prefill_step",
+           "STEP_FNS"]
 
 
 def _pack(sampled, lp, cids, clps) -> torch.Tensor:
@@ -178,13 +200,32 @@ def _sample(logits, generator, temp, top_k, top_p, pen_args: tuple, extras: dict
     jrows, state, depth, stack) in the argument order of ``grammar_mask``
     and ``grammar_advance`` (see :meth:`EngineCore._gram_kwargs`), or None
     when no row is constrained; ``steps`` [B] is each row's seed fold index
-    (the absolute position of the token being sampled)."""
+    (the absolute position of the token being sampled).
+
+    A shard follower has no generator (None): it samples nothing and gets
+    zero placeholders; the tokens a burst feeds back come from rank 0
+    (:func:`_shared_tokens`)."""
+    if generator is None:
+        b, dev = logits.shape[0], logits.device
+        return (torch.zeros(b, dtype=torch.int64, device=dev),
+                torch.zeros(b, device=dev), torch.zeros((b, 1), dtype=torch.int64, device=dev),
+                torch.zeros((b, 1), device=dev))
     if gram is not None:
         logits = grammar_mask(logits, *gram)
     if extras.get("seeds") is not None:
         extras = dict(extras, seed_steps=steps)
     return sample_full(logits, generator, temp, top_k, top_p, *pen_args, k_cand=k_cand,
                        **extras)
+
+
+def _shared_tokens(model, tokens: torch.Tensor) -> torch.Tensor:
+    """The sampled tokens a burst feeds back, as rank 0 sampled them, on
+    every rank of the model's mesh (one broadcast; as they are off a
+    mesh)."""
+    mesh = getattr(model, "mesh", None)
+    if mesh is None:
+        return tokens
+    return mesh.broadcast(tokens.to(torch.int64).contiguous())
 
 
 def _advance(gram, sampled):
@@ -220,6 +261,8 @@ def _decode_turns(model: LlamaModel, cache, toks, pos, lens, block_tables, limit
         outs.append(_pack(*out))
         lens = torch.minimum(lens + 1, limits)
         toks, pos = out[0], pos + 1
+        if len(outs) < num_steps:
+            toks = _shared_tokens(model, toks)
     return outs
 
 
@@ -403,6 +446,106 @@ def unified_burst_step(model: LlamaModel, cache, tokens, positions, block_tables
     return torch.stack([_pack(*out0)] + outs)
 
 
+@torch.no_grad()
+def sp_prefill_step(model, cache, tokens, positions, block_ids, generator, temp, top_k, top_p,
+                    *, last_idx: int, k_cand: int = K_MAX):
+    """Sequence-parallel prefill of one whole prompt (``tokens`` /
+    ``positions`` [1, S_pad], S_pad a multiple of Bs x the "data" size) in
+    ONE dispatch on every rank: each data rank takes its chunk of the
+    sequence through ring attention (``forward_seq_parallel``), the last
+    prompt token's hidden row reaches every rank (a sum over "data" of the
+    one rank's row), rank 0 samples the first token, and the fresh KV is
+    all-gathered over "data" and written, as whole blocks (int8-quantised
+    in the same pass for an int8 cache), into ``block_ids`` of every data
+    rank's cache.  Returns the packed [1, 2 + 2C] result."""
+    mesh = model.mesh
+    n, i = mesh.axis_size(AXIS_DATA), mesh.axis_index(AXIS_DATA)
+    chunk = tokens.shape[1] // n
+    lo = i * chunk
+    hidden, kv = model.forward_seq_parallel(tokens[:, lo:lo + chunk],
+                                            positions[:, lo:lo + chunk], sp_axis=AXIS_DATA)
+    last = hidden[0, last_idx - lo] if lo <= last_idx < lo + chunk else hidden.new_zeros(
+        hidden.shape[-1])
+    last = mesh.all_reduce(last, AXIS_DATA)
+    out = _sample(model.compute_logits(last[None]), generator, temp, top_k, top_p, (), {}, None,
+                  None, k_cand)
+    kv = mesh.all_gather(kv, AXIS_DATA, dim=3)  # [L, 2, 1, S_pad, Hk*D]
+    l, _, _, _, hkd = kv.shape
+    bs = cache_data(cache).shape[3]
+    nb = block_ids.shape[0]
+    blocks = kv[:, :, 0, :nb * bs].reshape(l, 2, nb, bs, hkd).transpose(1, 2).contiguous()
+    if isinstance(cache, QuantKvCache):
+        d = model.config.head_dim
+        hk = hkd // d
+        q8, sc = quantize_kv_rows(blocks.reshape(l, nb, 2, bs, hk, d))
+        blocks = QuantKvCache(q8.reshape(l, nb, 2, bs, hkd), pad_scales(sc.transpose(-1, -2)))
+    scatter_blocks_inplace(cache, block_ids, blocks)
+    return _pack(*out)
+
+
+def shard_blocks(model, parts: tuple) -> tuple:
+    """This rank's kv heads of whole handed-off blocks (host tensors
+    ``[L, n, 2, Bs, Hk*D]``, and for the int8 cache the scale tiles
+    ``[L, n, 2, Hp, Sp]``), the scales re-padded to this rank's tile."""
+    first, count = model.kv_heads()
+    cfg = model.config
+    if count == cfg.num_kv_heads:
+        return parts
+    d = cfg.head_dim
+    data = parts[0][..., first * d:(first + count) * d]
+    if len(parts) == 1:
+        return (data,)
+    bs = data.shape[3]
+    hp, sp = scale_tile(count, bs)
+    scale = torch.ones(tuple(parts[1].shape[:3]) + (hp, sp), dtype=torch.float32)
+    scale[..., :count, :] = parts[1][..., first:first + count, :sp]
+    return data, scale
+
+
+def gather_shard_blocks(model, cache, block_ids):
+    """Every rank's kv heads of ``block_ids``, assembled on each rank as the
+    whole blocks one card would hold (a gather over "model"; each rank's
+    heads land at their own offset, so ranks that share a head write the
+    same values)."""
+    from dynamo_tpu_torch.utils.mesh import AXIS_MODEL
+
+    mesh = model.mesh
+    local = gather_blocks_padded(cache, block_ids)
+    parts = tuple(local) if isinstance(local, QuantKvCache) else (local,)
+    cfg = model.config
+    tp = mesh.axis_size(AXIS_MODEL)
+    first, count = model.kv_heads()
+    if count == cfg.num_kv_heads:
+        return local
+    d, hk = cfg.head_dim, cfg.num_kv_heads
+    firsts = [model.kv_heads(m)[0] for m in range(tp)]
+    data = mesh.all_gather(parts[0], AXIS_MODEL, dim=0)  # [tp*L, n, 2, Bs, count*D]
+    l = parts[0].shape[0]
+    whole = parts[0].new_empty(parts[0].shape[:-1] + (hk * d,))
+    for m, f in enumerate(firsts):
+        whole[..., f * d:(f + count) * d] = data[m * l:(m + 1) * l]
+    if len(parts) == 1:
+        return whole
+    bs = whole.shape[3]
+    hp, sp = scale_tile(hk, bs)
+    sc = mesh.all_gather(parts[1], AXIS_MODEL, dim=0)  # [tp*L, n, 2, hp_r, sp]
+    scale = parts[1].new_ones(parts[1].shape[:3] + (hp, sp))
+    for m, f in enumerate(firsts):
+        scale[..., f:f + count, :] = sc[m * l:(m + 1) * l, ..., :count, :sp]
+    return QuantKvCache(whole, scale)
+
+
+# the dispatches a shard follower replays, by name: (function, the number of
+# forward operands before its generator argument)
+STEP_FNS = {
+    "unified_step": (unified_step, 6),
+    "ragged_prefill_step": (ragged_prefill_step, 9),
+    "unified_token_step": (unified_token_step, 9),
+    "multi_decode_step": (multi_decode_step, 5),
+    "sp_prefill_step": (sp_prefill_step, 3),
+}
+
+
 class EngineCore:
     def __init__(
         self,
@@ -416,7 +559,13 @@ class EngineCore:
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"the model lives on {model.device}, the engine on {self.device}")
-        self._check_supported(model, config)
+        # the model's rank mesh: this core is rank 0's, the followers replay
+        # what it broadcasts (engine/follower.py)
+        self.mesh = getattr(model, "mesh", None)
+        if self.mesh is not None and not self.mesh.is_root:
+            raise ValueError(f"rank {self.mesh.rank} is a shard follower: only rank 0 runs "
+                             "the engine (engine/follower.py)")
+        self._check_supported(model, config, draft)
         self.model = model
         self.config = config
         # draft-model speculation: a model (its weights in the module) with
@@ -453,6 +602,19 @@ class EngineCore:
         # pool), updated in place by every step
         cache_dtype = config.cache_dtype or model.config.dtype
         self.cache_quant = str(cache_dtype) == "int8"
+        # seq-parallel long prefill: ring attention over "data" (when the
+        # mesh has more than one data rank)
+        self._sp_size = 0
+        if config.sp_prefill_threshold > 0 and self.mesh is not None \
+                and self.mesh.axis_size(AXIS_DATA) > 1:
+            if not hasattr(model, "forward_seq_parallel") or not getattr(
+                    model, "supports_seq_parallel", True):
+                # fail at construction, not on the first long prompt
+                raise ValueError(f"{type(model).__name__} does not support seq-parallel "
+                                 "prefill (this config); disable sp_prefill_threshold")
+            self._sp_size = self.mesh.axis_size(AXIS_DATA)
+        # every follower builds its own cache, over its kv heads
+        self._send("engine", config.num_blocks, config.block_size, cache_dtype)
         self.cache = model.init_kv_cache(config.num_blocks, config.block_size, cache_dtype)
         self._init_tiers(model, config, cache_dtype)
         self._gen = torch.Generator(device=self.device)
@@ -479,6 +641,7 @@ class EngineCore:
         # perf counters
         self.steps = 0
         self.prefill_steps = 0
+        self.sp_prefills = 0             # seq-parallel long-prefill dispatches
         # prefill batching and unified mixed dispatch (dispatches, rows and
         # tokens packed, budget offered/used), and lookahead bursts with the
         # speculative next-turn prebuild commit/flush protocol: what
@@ -517,17 +680,55 @@ class EngineCore:
         self._last_was_prefill = False
 
     @staticmethod
-    def _check_supported(model: LlamaModel, cfg: EngineConfig) -> None:
+    def _check_supported(model: LlamaModel, cfg: EngineConfig, draft=None) -> None:
         """Refuse the options whose paths are not ported yet, instead of
-        serving them on a path that ignores them."""
+        serving them on a path that ignores them: on a mesh of more than one
+        rank, the host-offload and persist tiers, speculation and lookahead
+        dispatch (ROADMAP A10b)."""
+        mesh = getattr(model, "mesh", None)
+        shape = (1, 1) if mesh is None else (mesh.axis_size(AXIS_DATA), mesh.size
+                                             // mesh.axis_size(AXIS_DATA))
         unported = {
-            "sp_prefill_threshold": cfg.sp_prefill_threshold > 0,
             "cache_dtype": cfg.cache_dtype not in (None, "int8", model.config.dtype),
-            "mesh_shape": tuple(cfg.mesh_shape) != (1, 1),
+            "mesh_shape": tuple(cfg.mesh_shape) not in ((1, 1), shape),
         }
+        if mesh is not None:
+            unported.update({
+                "num_host_blocks": cfg.num_host_blocks > 0,
+                "kv_persist_dir": bool(cfg.kv_persist_dir),
+                "spec_tokens": cfg.spec_tokens > 0 or draft is not None,
+                "lookahead_dispatch": cfg.lookahead_dispatch,
+            })
         bad = [name for name, on in unported.items() if on]
         if bad:
-            raise ValueError(f"EngineConfig options not supported by the PyTorch engine: {bad}")
+            where = " on a mesh" if mesh is not None else ""
+            raise ValueError(
+                f"EngineConfig options not supported by the PyTorch engine{where}: {bad}")
+
+    def _send(self, op: str, *payload) -> None:
+        """Broadcast one operation to the shard followers (nothing off a
+        mesh): sent before rank 0 runs it, so every rank enters its
+        collectives in the same order."""
+        if self.mesh is not None:
+            self.mesh.broadcast_object((op,) + payload)
+
+    def _fwd(self, fn, host: tuple, **statics) -> tuple:
+        """A dispatch's forward operands (``host`` numpy arrays) on the
+        device; on a mesh, first broadcast to the followers with ``fn``'s
+        name (a :data:`STEP_FNS` entry) and the static keywords, which the
+        caller passes to ``fn`` too.  Sampling operands stay here."""
+        if self.mesh is not None:
+            self._send("step", fn.__name__, host, statics)
+            self.timeline.mark(COLLECTIVE)
+            self._wait0 = self.mesh.wait_s
+        return tuple(self._up(a) for a in host)
+
+    def _mark_dispatch(self, kind: str) -> None:
+        """The dispatch mark; on a mesh the forward's collective waits move
+        from ``dispatch`` to their own phase."""
+        self.timeline.mark("dispatch", kind=kind)
+        if self.mesh is not None:
+            self.timeline.move(self.mesh.wait_s - self._wait0, "dispatch", COLLECTIVE)
 
     # ------------------------------------------------------------ dispatch
     def _up(self, a: np.ndarray) -> torch.Tensor:
@@ -980,12 +1181,67 @@ class EngineCore:
         """One prefill turn over the READY requests (slot order): the
         token-budget ragged batch packs all of them, or, with batching off
         (prefill_token_budget=0) or a model without the ragged path, the
-        head request prefills alone."""
-        if self.config.prefill_token_budget > 0 and getattr(
+        head request prefills alone.  A seq-parallel long prompt at the head
+        dispatches alone (:meth:`_run_sp_prefill`) and stays out of a
+        batch."""
+        if self._sp_eligible(ready[0]):
+            self._run_sp_prefill(ready[0])
+        elif self.config.prefill_token_budget > 0 and getattr(
                 self.model, "supports_ragged_prefill", False):
-            self._run_prefill_batch(ready)
+            self._run_prefill_batch([r for r in ready if not self._sp_eligible(r)])
         else:
             self._run_prefill(ready[0])
+
+    # ------------------------------------------------ seq-parallel prefill
+    def _sp_eligible(self, req: EngineRequest) -> bool:
+        """A prompt for the sequence-parallel prefill: long enough, nothing
+        cached, and none of the sampling hooks its first-token sampler
+        lacks (grammar, bias, min_p, a seed), as in the JAX engine."""
+        sp = req.sampling
+        return (self._sp_size > 0 and req.computed_tokens == 0
+                and req.prompt_len >= self.config.sp_prefill_threshold
+                and not (sp.json_mode or sp.guided_choice or sp.guided_regex or sp.logit_bias
+                         or sp.min_p)
+                and not (sp.seed is not None and not sp.greedy))
+
+    def _run_sp_prefill(self, req: EngineRequest) -> None:
+        """The whole prompt in ONE dispatch with the sequence split over the
+        mesh's "data" axis (:func:`sp_prefill_step`).  The prompt is padded
+        to a power of two of units of Bs x the data size (the JAX engine's
+        bucketing); padding keys sit past every real query, causally
+        invisible."""
+        cfg = self.config
+        bs = cfg.block_size
+        unit = bs * self._sp_size
+        units = -(-req.prompt_len // unit)
+        s_pad = (1 << (units - 1).bit_length()) * unit
+        tokens = np.zeros((1, s_pad), np.int32)
+        tokens[0, :req.prompt_len] = req.prompt
+        positions = np.arange(s_pad, dtype=np.int32)[None, :]
+        nb = -(-req.prompt_len // bs)
+        block_ids = np.asarray(req.block_ids[:nb], np.int64)
+        tl = self.timeline
+        tl.mark("host_build")
+        last = req.prompt_len - 1
+        args = self._fwd(sp_prefill_step, (tokens, positions, block_ids), last_idx=last)
+        up = self._up
+        samp = (up(np.asarray([req.sampling.temperature], np.float32)),
+                up(np.asarray([req.sampling.top_k], np.int32)),
+                up(np.asarray([req.sampling.top_p], np.float32)))
+        tl.mark("upload")
+        packed = sp_prefill_step(self.model, self.cache, *args, self._gen, *samp, last_idx=last,
+                                 k_cand=self._k_cand([req]))
+        self._mark_dispatch("sp_prefill")
+        sampled, lps, cids, clps = _unpack(self._read(packed))
+        tl.mark("readback")
+        self.steps += 1
+        self.prefill_steps += 1
+        self.sp_prefills += 1
+        self.prefill_counters.record(rows=1, tokens=req.prompt_len)
+        self.prompt_tokens_computed += req.prompt_len
+        req.computed_tokens = req.prompt_len
+        self._commit_prefill_blocks(req)
+        self._complete_prefill(req, sampled, lps, cids, clps)
 
     def _process_ops(self) -> None:
         while True:
@@ -1185,8 +1441,10 @@ class EngineCore:
         tl = self.timeline
         tl.mark("host_build")
         up = self._up
-        args = (up(tokens), up(positions), up(bt), up(np.asarray([end], np.int32)),
-                up(slot_idx), up(np.asarray([take - 1], np.int32)))
+        pb = req.computed_tokens // bs
+        args = self._fwd(unified_step, (tokens, positions, bt, np.asarray([end], np.int32),
+                                        slot_idx, np.asarray([take - 1], np.int32)),
+                         prefix_blocks=pb)
         samp = (up(np.asarray([req.sampling.temperature], np.float32)),
                 up(np.asarray([req.sampling.top_k], np.int32)),
                 up(np.asarray([req.sampling.top_p], np.float32)))
@@ -1196,8 +1454,8 @@ class EngineCore:
             self.perf_model.offer("step", self._shapes(), tokens=take, sampled=1,
                                   pairs=visible_pairs([begin], [end]), kv_tokens=begin)
         packed = unified_step(self.model, self.cache, *args, self._gen, *samp,
-                              prefix_blocks=req.computed_tokens // bs, k_cand=k_cand, **extras)
-        tl.mark("dispatch", kind="step")
+                              prefix_blocks=pb, k_cand=k_cand, **extras)
+        self._mark_dispatch("step")
         self.steps += 1
         sampled, lps, cids, clps = _unpack(self._read(packed))
         tl.mark("readback")
@@ -1306,8 +1564,9 @@ class EngineCore:
         tl = self.timeline
         tl.mark("host_build")
         up = self._up
-        args = (up(tokens), up(positions), up(bt), up(seq_lens), up(slot_idx), up(seq_ids),
-                up(starts), up(roff), up(last_idx))
+        pb = self._prefix_bucket(max_pb)
+        args = self._fwd(ragged_prefill_step, (tokens, positions, bt, seq_lens, slot_idx, seq_ids,
+                                               starts, roff, last_idx), prefix_blocks=pb)
         samp = (up(temp), up(top_k), up(top_p))
         tl.mark("upload")
         if self.perf_model.wants("prefill_ragged"):
@@ -1317,9 +1576,8 @@ class EngineCore:
                 sampled=len(plan), kv_tokens=sum(begins),
                 pairs=visible_pairs(begins, [b + t for _, b, t, _ in plan]))
         packed = ragged_prefill_step(self.model, self.cache, *args, self._gen, *samp,
-                                     prefix_blocks=self._prefix_bucket(max_pb), k_cand=k_cand,
-                                     **extras)
-        tl.mark("dispatch", kind="prefill_ragged")
+                                     prefix_blocks=pb, k_cand=k_cand, **extras)
+        self._mark_dispatch("prefill_ragged")
         self.steps += 1
         if self._lookahead_enabled():
             self._overlap(self._drain_waiting)  # absorb arrivals under compute
@@ -1431,8 +1689,8 @@ class EngineCore:
         extras = self._sampling_extras(samp_reqs, rows=[r for r, _ in samp], b=r_pad)
         burst = lookahead and k_steps >= 2
         pen = self._unified_penalties(samp, r_pad, horizon=k_steps if burst else 1)
-        kw = dict(row_tokens=d_region, prefix_blocks=self._prefix_bucket(max_pb),
-                  k_cand=self._k_cand(samp_reqs), **extras)
+        statics = dict(row_tokens=d_region, prefix_blocks=self._prefix_bucket(max_pb))
+        kw = dict(statics, k_cand=self._k_cand(samp_reqs), **extras)
         # growth allocations above may have evicted registered blocks that
         # this very dispatch writes into — offload them first
         tl = self.timeline
@@ -1440,13 +1698,14 @@ class EngineCore:
         self._drain_offload()
         tl.mark("kv_spill_restore")
         up = self._up
-        args = (self.model, self.cache, up(tokens), up(positions), up(bt), up(seq_lens),
-                up(slot_idx), up(seq_ids), up(starts), up(roff), up(last_idx))
+        kind = "unified_burst" if burst else "unified"
+        host = (tokens, positions, bt, seq_lens, slot_idx, seq_ids, starts, roff, last_idx)
+        if burst:  # lookahead is refused on a mesh (A10b): a burst is never broadcast
+            args = (self.model, self.cache) + tuple(up(a) for a in host + (limits,))
+        else:
+            args = (self.model, self.cache) + self._fwd(unified_token_step, host, **statics)
         sampling = (self._gen, up(temp), up(top_k), up(top_p))
         pen = None if pen is None else tuple(up(a) for a in pen)
-        kind = "unified_burst" if burst else "unified"
-        if burst:
-            args += (up(limits),)
         tl.mark("upload")
         if self.perf_model.wants(kind):
             dec_lens = [int(seq_lens[r]) for r in range(n_dec)]
@@ -1466,7 +1725,7 @@ class EngineCore:
                                         block_size=bs, **kw)
         else:
             packed = unified_token_step(*args, *sampling, pen, **kw)
-        tl.mark("dispatch", kind=kind)
+        self._mark_dispatch(kind)
         self.steps += 1
         if lookahead:
             # overlap window: the dispatch above is enqueued — drain arrivals
@@ -1898,7 +2157,8 @@ class EngineCore:
         extras = self._sampling_extras(active, rows=[r.slot for r in active])
         tl.mark("host_build")
         up = self._up
-        args = (up(tokens), up(positions), up(bt), up(seq_lens), up(limits))
+        args = self._fwd(multi_decode_step, (tokens, positions, bt, seq_lens, limits),
+                         num_steps=k_steps, block_size=cfg.block_size)
         samp = (up(temp), up(top_k), up(top_p))
         pen = None if pen is None else tuple(up(a) for a in pen)
         tl.mark("upload")
@@ -1908,7 +2168,7 @@ class EngineCore:
         packed = multi_decode_step(self.model, self.cache, *args, self._gen, *samp, pen=pen,
                                    num_steps=k_steps, block_size=cfg.block_size, k_cand=k_cand,
                                    **extras)
-        tl.mark("dispatch", kind="decode_multi")
+        self._mark_dispatch("decode_multi")
         self.steps += 1
         if self._lookahead_enabled():
             # overlap window: absorb arrivals while the device runs the burst
@@ -2396,6 +2656,12 @@ class EngineCore:
         self._offload_thread = None
         if getattr(self, "persist_store", None) is not None:
             self.persist_store.close()
+        if self.mesh is not None and not getattr(self, "_closed", False):
+            self._closed = True
+            try:
+                self._send("close")  # the followers drop their caches
+            except RuntimeError as e:  # a broken world: nobody is left to tell
+                log.warning("could not tell the shard followers to close: %s", e)
 
     def _restore_from_host(self, req: EngineRequest) -> None:
         """Upload host-resident prefix blocks into the request's fresh device
@@ -2460,14 +2726,18 @@ class EngineCore:
         handoff hands this straight to the decode engine's scatter, an
         on-card copy.  Both engines' threads launch on the device's current
         stream, so the stream orders this gather before that scatter and
-        before any later write into these blocks."""
+        before any later write into these blocks.  On a mesh the blocks of
+        every rank's kv heads are gathered onto rank 0 (a collective)."""
+        if self.mesh is not None:
+            self._send("gather", list(block_ids))
+            return gather_shard_blocks(self.model, self.cache, block_ids)
         return gather_blocks_padded(self.cache, block_ids)
 
     def gather_blocks_np(self, block_ids: list[int]):
         """Stage blocks to host memory for the wire: ``[L, n, 2, Bs, HkD]``
         CPU tensors (a (data, scale) pair for the int8 cache), one batched
         device-to-host copy per part into pinned memory on the card."""
-        out = gather_blocks_padded(self.cache, block_ids)
+        out = self.gather_blocks_device(block_ids)
         parts = tuple(out) if isinstance(out, QuantKvCache) else (out,)
         if self.device.type == "cuda":
             host = []
@@ -2496,6 +2766,13 @@ class EngineCore:
                             request_id)
                 return
         parts = tuple(blocks) if isinstance(blocks, (tuple, list)) else (blocks,)
+        if self.mesh is not None:
+            # every rank keeps its own kv heads of the whole blocks: they
+            # travel to the followers from the host
+            parts = tuple(torch.from_numpy(np.ascontiguousarray(b)) if isinstance(b, np.ndarray)
+                          else b.cpu() for b in parts)
+            self._send("scatter", list(block_ids), parts)
+            parts = shard_blocks(self.model, parts)
         # one upload per part (a no-op for blocks already on the card)
         parts = tuple((torch.from_numpy(np.ascontiguousarray(b)) if isinstance(b, np.ndarray)
                        else b).to(self.device) for b in parts)
@@ -2551,6 +2828,13 @@ class EngineCore:
 
     def kv_bytes_per_block(self) -> int:
         """Wire bytes one KV block occupies (all layers, K and V, both parts
-        of the int8 cache) — the router's transfer-cost size input."""
-        parts = tuple(self.cache) if self.cache_quant else (self.cache,)
-        return sum(p[:, 0].numel() * p.element_size() for p in parts)
+        of the int8 cache, every kv head) — the router's transfer-cost size
+        input.  Read off the config, not this rank's cache, which holds only
+        its own kv heads on a mesh."""
+        cfg = self.model.config
+        hk, bs = cfg.num_kv_heads, self.config.block_size
+        row = cfg.num_layers * 2 * bs * hk * cfg.head_dim
+        if not self.cache_quant:
+            return row * self.cache.element_size()
+        hp, sp = scale_tile(hk, bs)
+        return row + cfg.num_layers * 2 * hp * sp * 4  # int8 payload + f32 scale tile

@@ -23,10 +23,16 @@ the engine is the port's EngineCore.  Config (ServiceConfig YAML, see
   remote-prefill: true          (disagg decode side: conditional remote
                                  prefill via the coordinator queue)
   max-local-prefill-length      (disagg router threshold)
+  tp / dp                       (the rank mesh: the worker's process is rank 0
+                                 and starts the other ranks of its host as
+                                 shard followers, engine/follower.py)
+  nnodes / node-rank            (hosts of one mesh, joined through the
+                                 worker's coordinator)
+  sp-prefill-threshold          (long prompts prefill with the sequence split
+                                 over the mesh's data axis; needs dp > 1)
 
-Not served by the port yet, each refused by name: ``tp`` / ``dp`` above 1,
-``nnodes`` above 1 and ``sp-prefill-threshold`` above 0 (more than one
-device, ROADMAP A10).
+The mesh keys need the gpu engine (a checkpoint); the echo and tiny engines
+refuse them by name.
 """
 
 from __future__ import annotations
@@ -48,8 +54,8 @@ log = logging.getLogger("dynamo_tpu_torch.examples.worker")
 
 NAMESPACE = "dynamo"
 
-# config keys that need more than one device, and the value each may take
-_MULTI_DEVICE_KEYS = {"tp": 1, "dp": 1, "nnodes": 1, "sp-prefill-threshold": 0}
+# the rank mesh's config keys, and the value each takes on one device
+_MESH_KEYS = {"tp": 1, "dp": 1, "nnodes": 1, "node-rank": 0, "sp-prefill-threshold": 0}
 
 
 async def resolve_cfg_model(cfg: dict, rt) -> dict:
@@ -78,18 +84,23 @@ def _kv_quant(cfg: dict) -> str:
     return kvq
 
 
-def _refuse_multi_device(cfg: dict) -> None:
-    bad = {k: cfg[k] for k, one in _MULTI_DEVICE_KEYS.items() if int(cfg.get(k, one)) != one}
-    if bad:
-        raise ValueError(
-            f"{bad}: serving over more than one device is not ported yet (ROADMAP A10)")
+def _mesh_keys(cfg: dict, kind: str) -> dict:
+    """The mesh keys as ``run``'s argument names; a mesh on an engine other
+    than gpu raises."""
+    keys = {k.replace("-", "_"): int(cfg.get(k, one)) for k, one in _MESH_KEYS.items()}
+    if kind != "gpu":
+        bad = {k: cfg[k] for k, one in _MESH_KEYS.items() if int(cfg.get(k, one)) != one}
+        if bad:
+            raise ValueError(f"{bad}: a rank mesh needs the gpu engine (a model-path), "
+                             f"not {kind}")
+    return keys
 
 
 def build_engine(cfg: dict):
     """(engine, card) from a service config dict (shared by GpuWorker and
     PrefillWorker so both sides of a disagg pair agree on the model)."""
-    _refuse_multi_device(cfg)
     kind = cfg.get("engine", "gpu" if cfg.get("model-path") else "echo")
+    mesh = _mesh_keys(cfg, kind)
     if kind == "echo":
         from dynamo_tpu_torch.llm.engines import EchoEngineCore
 
@@ -141,6 +152,8 @@ def build_engine(cfg: dict):
         prefill_chunk_tokens=0, prefill_token_budget=0,
         unified_token_dispatch=False, lookahead_dispatch=False,
         profile_dir=None, profile_steps=8,
+        coordinator=cfg.get("coordinator"), namespace=cfg.get("namespace"),
+        **mesh,
     )
     return build_local_engine(args)
 

@@ -425,19 +425,23 @@ class _GGUFStateDict:
 
 
 def load_gguf_model(path: str | Path, dtype: str = "bfloat16", device=None,
-                    quantize: bool = False):
+                    quantize: bool = False, mesh=None):
     """(ModelConfig, state dict on ``device``) straight from a GGUF file —
     the llama.cpp-model entry point the reference routes to an external
-    engine.  ``quantize``: int8 weights, quantised as they are read."""
+    engine.  ``quantize``: int8 weights, quantised as they are read.  On a
+    ``mesh``, this rank's slice (read on the host, then cut)."""
     from dynamo_tpu_torch.device import resolve_device
     from dynamo_tpu_torch.models.config import ModelConfig
     from dynamo_tpu_torch.models.loader import load_state
 
     gf = GGUFFile(path)
     cfg = ModelConfig.from_hf_config(gf.model_config_dict(), dtype=dtype)
+    import torch
+
     dev = resolve_device(device)
-    files = _GGUFStateDict(gf, cfg.num_heads, cfg.num_kv_heads, dev)
-    return cfg, load_state(cfg, files, dev, quantize)
+    read = torch.device("cpu") if mesh is not None and mesh.size > 1 else dev
+    files = _GGUFStateDict(gf, cfg.num_heads, cfg.num_kv_heads, read)
+    return cfg, load_state(cfg, files, dev, quantize, mesh=mesh)
 
 
 # -------------------------------------------------------------------- write --

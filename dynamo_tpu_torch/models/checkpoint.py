@@ -28,7 +28,8 @@ import torch
 
 from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.models.config import ModelConfig
-from dynamo_tpu_torch.models.llama import param_dtypes, param_shapes
+from dynamo_tpu_torch.models.llama import param_dtypes, param_shapes, shard_plan
+from dynamo_tpu_torch.models.quant import shard_state
 
 __all__ = ["save_checkpoint", "load_checkpoint", "is_native_checkpoint", "MANIFEST", "PARAMS"]
 
@@ -62,11 +63,13 @@ def save_checkpoint(path: str | Path, cfg: ModelConfig, state: dict[str, torch.T
     (path / MANIFEST).write_text(json.dumps(manifest, indent=2))
 
 
-def load_checkpoint(path: str | Path, dtype: Optional[str] = None, device=None
+def load_checkpoint(path: str | Path, dtype: Optional[str] = None, device=None, mesh=None
                     ) -> tuple[ModelConfig, dict[str, torch.Tensor], bool]:
     """(ModelConfig, state dict on ``device``, quantized).  ``dtype``
     overrides the saved dtype of the dense parameters (int8 weights and
-    their scales stay as stored); None keeps the saved one."""
+    their scales stay as stored); None keeps the saved one.  On a ``mesh``
+    each tensor is read onto the host and only this rank's slice moves to
+    ``device``."""
     from safetensors import safe_open
 
     path = Path(path).absolute()
@@ -87,8 +90,11 @@ def load_checkpoint(path: str | Path, dtype: Optional[str] = None, device=None
     quantized = bool(manifest.get("quantized"))
     shapes, dtypes = param_shapes(cfg, quantized), param_dtypes(cfg, quantized)
     dev = resolve_device(device)
+    sharded = mesh is not None and mesh.size > 1
+    if sharded:
+        specs, blocks = shard_plan(cfg, quantized, mesh)
     state = {}
-    with safe_open(str(path / PARAMS), framework="pt", device=str(dev)) as f:
+    with safe_open(str(path / PARAMS), framework="pt", device="cpu" if sharded else str(dev)) as f:
         names = set(f.keys())
         if names != set(shapes):
             raise ValueError(f"{path / PARAMS}: tensors {sorted(names ^ set(shapes))} do not "
@@ -98,4 +104,7 @@ def load_checkpoint(path: str | Path, dtype: Optional[str] = None, device=None
             if tuple(t.shape) != shape:
                 raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
             state[name] = t.to(dtypes[name])
+            if sharded:  # one tensor on the host at a time
+                state[name] = shard_state({name: state[name]}, specs, mesh, blocks,
+                                          device=dev)[name]
     return cfg, state, quantized

@@ -29,9 +29,19 @@ MLA kernel in either package.  The JAX package serves this family on plain
 XLA ops (``dynamo_tpu/models/deepseek.py:30-32``), because its attention
 kernels take lane-friendly head dims only; the absorbed form attends at
 width 576 and the expanded one at 192, outside the port's kernels too.
-No int8 weights, YaRN ``rope_scaling``, ragged or unified dispatch, or
-sequence-parallel prefill: the JAX package has none of these for this
-family except the last, which needs more than one device.
+No int8 weights, YaRN ``rope_scaling``, or ragged or unified dispatch: the
+JAX package has none of these for this family.
+
+Tensor parallelism (``mesh``): :func:`partition_specs` splits ``q_b`` (or
+``wq``) and ``kv_b`` by column (whole heads), ``wo`` by row, the dense MLP
+and the shared experts like a dense MLP, the routed experts over F and the
+lm_head over the vocab; an all-reduce after ``wo`` and after each MLP sums
+the partials, and the logits' vocab shards are all-gathered.  The absorbed
+latent cache (one shared row per token) and ``kv_a`` are whole on every
+rank.  :meth:`DeepseekModel.forward_seq_parallel` is the absorbed form's
+long-prompt prefill with the sequence split over a mesh axis
+(``ops/ring_attention.py``); the expanded oracle has none and says so
+through :attr:`DeepseekModel.supports_seq_parallel`.
 """
 
 from __future__ import annotations
@@ -45,13 +55,16 @@ from torch import nn
 
 from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.models.llama import grouped_expert_dispatch, rms_norm, rope_inv_freq
+from dynamo_tpu_torch.models.quant import prune_specs, shard_cutter
 from dynamo_tpu_torch.ops.kv_quant import QuantKvCache, gather_layer_blocks, is_quant, scale_tile
 from dynamo_tpu_torch.ops.paged_attention import paged_attention, write_kv_cache_layer
+from dynamo_tpu_torch.utils.mesh import AXIS_MODEL, AXIS_SP
 
 __all__ = ["DeepseekConfig", "DeepseekModel", "apply_rope_interleaved", "param_shapes",
-           "router_logits", "router_weights", "limited_groups"]
+           "router_logits", "router_weights", "limited_groups", "partition_specs"]
 
 GROUPS = ("dense_layers", "moe_layers")
+_TP = AXIS_MODEL
 
 
 @dataclass
@@ -205,6 +218,28 @@ def param_shapes(cfg: DeepseekConfig) -> dict[str, tuple[int, ...]]:
     }
 
 
+def partition_specs(cfg: DeepseekConfig) -> dict[str, tuple]:
+    """The split of every parameter over the mesh's "model" axis, by state
+    name (the JAX package's ``DeepseekModel.partition_specs``): attention
+    heads by column (``wq`` or ``q_b``, ``kv_b``), ``wo`` by row, the dense
+    MLP and the shared experts like a dense MLP, the routed experts over F,
+    the lm_head over the vocab; ``kv_a``, ``q_a``, the norms, the router
+    and the embedding whole (no entry)."""
+    col, row = (None, None, _TP), (None, _TP, None)
+    specs = {"lm_head": (None, _TP)}
+    for g in GROUPS:
+        specs.update({f"{g}.kv_b": col, f"{g}.wo": row,
+                      f"{g}.{'wq' if cfg.q_lora_rank is None else 'q_b'}": col})
+    specs.update({"dense_layers.w_gate": col, "dense_layers.w_up": col,
+                  "dense_layers.w_down": row,
+                  "moe_layers.w_gate": (None, None, None, _TP),
+                  "moe_layers.w_up": (None, None, None, _TP),
+                  "moe_layers.w_down": (None, None, _TP, None),
+                  "moe_layers.shared_gate": col, "moe_layers.shared_up": col,
+                  "moe_layers.shared_down": row})
+    return specs
+
+
 class DeepseekModel(nn.Module):
     """DeepSeek-V2 decoder over the paged KV cache, with the engine
     protocol of :class:`~dynamo_tpu_torch.models.llama.LlamaModel`.
@@ -214,13 +249,27 @@ class DeepseekModel(nn.Module):
     model straight from a state dict with :meth:`from_state`.
     """
 
-    def __init__(self, config: DeepseekConfig, device=None):
+    def __init__(self, config: DeepseekConfig, device=None, mesh=None):
         super().__init__()
         self.config = config
         dev = resolve_device(device)
         for group in GROUPS:
             setattr(self, group, nn.ParameterDict())
-        for name, shape in param_shapes(config).items():
+        shapes = param_shapes(config)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        # this rank's heads, and which products are split over "model"
+        self.num_heads = config.num_heads
+        self.split: dict[str, bool] = {}
+        if self.mesh is not None:
+            tp = self.mesh.axis_size(_TP)
+            if config.num_heads % tp:
+                raise ValueError(f"{config.num_heads} heads do not split over tp={tp}")
+            specs = prune_specs(shapes, partition_specs(config), self.mesh)
+            self.num_heads = config.num_heads // tp
+            self.split = {n: _TP in sp for n, sp in specs.items()}
+            cut = shard_cutter(shapes, specs, self.mesh)
+            shapes = {name: cut(name, shape) for name, shape in shapes.items()}
+        for name, shape in shapes.items():
             p = nn.Parameter(torch.empty(shape, dtype=config.torch_dtype, device=dev),
                              requires_grad=False)
             group, _, base = name.rpartition(".")
@@ -236,13 +285,15 @@ class DeepseekModel(nn.Module):
         return torch.from_numpy(rope_inv_freq(cfg.qk_rope_head_dim, cfg.rope_theta)).to(device)
 
     @classmethod
-    def from_state(cls, config: DeepseekConfig, state: dict[str, torch.Tensor]) -> "DeepseekModel":
+    def from_state(cls, config: DeepseekConfig, state: dict[str, torch.Tensor],
+                   mesh=None) -> "DeepseekModel":
         """A model whose parameters ARE the given tensors (no copy); they
-        must all lie on one device, which becomes the model's."""
+        must all lie on one device, which becomes the model's.  On a
+        ``mesh`` the state is this rank's slice."""
         devices = {t.device for t in state.values()}
         if len(devices) != 1:
             raise ValueError(f"state tensors span devices {devices}")
-        model = cls(config, device="meta")
+        model = cls(config, device="meta", mesh=mesh)
         model.load_state_dict(state, assign=True)
         for p in model.parameters():
             p.requires_grad_(False)
@@ -252,6 +303,38 @@ class DeepseekModel(nn.Module):
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    def partition_specs(self) -> dict[str, tuple]:
+        return partition_specs(self.config)
+
+    def cache_spec(self, quant: bool = False):
+        """The absorbed cache holds ONE latent row per token, the same on
+        every rank: nothing to split.  The expanded oracle's per-head rows
+        split by head."""
+        head = None if self.config.attn_impl == "absorbed" else _TP
+        data = (None, None, None, None, head)
+        return QuantKvCache(data, (None, None, None, head, None)) if quant else data
+
+    def kv_heads(self, rank: Optional[int] = None) -> tuple[int, int]:
+        """(first, count) of the cached heads model rank ``rank`` (this
+        rank when None) holds."""
+        if self.config.attn_impl == "absorbed" or self.mesh is None:
+            return 0, self.config.num_kv_heads
+        m = self.mesh.axis_index(_TP) if rank is None else rank
+        return m * self.num_heads, self.num_heads
+
+    @property
+    def supports_seq_parallel(self) -> bool:
+        """Ring-attention prefill exists only for the absorbed cache form
+        (the expanded oracle is not a deployment shape): the engine reads
+        this at construction, so an unsupported config fails at startup,
+        not on the first long prompt."""
+        return self.config.attn_impl == "absorbed"
+
+    def _reduce(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        """Sum a row-parallel product's partials over "model" (when its
+        weight is split there)."""
+        return self.mesh.all_reduce(x, _TP) if self.split.get(name) else x
 
     # --------------------------------------------------------------- kv cache
     def init_kv_cache(self, num_blocks: int, block_size: int, dtype=None):
@@ -264,7 +347,7 @@ class DeepseekModel(nn.Module):
         laid out by ``scale_tile`` (one scale row for the absorbed form's one
         latent head).  Any dtype but int8 and the model's raises."""
         cfg = self.config
-        hk = cfg.num_kv_heads
+        hk = self.kv_heads()[1]
         shape = (cfg.num_layers, num_blocks, 2, block_size, hk * cfg.head_dim)
         if str(dtype) in ("int8", "torch.int8"):
             hp, sp = scale_tile(hk, block_size)
@@ -299,10 +382,58 @@ class DeepseekModel(nn.Module):
             lp = self._layer("dense_layers", li) if dense else self._layer("moe_layers", li - ld)
             hidden = self._attention(lp, li, hidden, positions, kv_cache, block_tables, seq_lens,
                                      slot_idx)
-            x = rms_norm(hidden, lp["mlp_norm"], cfg.rms_norm_eps)
-            hidden = hidden + (_dense_mlp(lp, x) if dense else _moe_mlp(cfg, lp, x))
+            hidden = self._mlp(lp, hidden, dense)
         hidden = rms_norm(hidden, self.final_norm, cfg.rms_norm_eps)
         return hidden, kv_cache
+
+    def _mlp(self, lp: dict, hidden: torch.Tensor, dense: bool) -> torch.Tensor:
+        """The residual after the layer's MLP, its partials summed over the
+        mesh: the dense MLP, or the routed plus the shared experts."""
+        cfg = self.config
+        x = rms_norm(hidden, lp["mlp_norm"], cfg.rms_norm_eps)
+        if dense:
+            return hidden + self._reduce(_dense_mlp(lp, x), "dense_layers.w_down")
+        routed, shared = _moe_parts(cfg, lp, x)
+        if self.split.get("moe_layers.w_down") == self.split.get("moe_layers.shared_down"):
+            return hidden + self._reduce(routed + shared, "moe_layers.w_down")
+        return hidden + (self._reduce(routed, "moe_layers.w_down")
+                         + self._reduce(shared, "moe_layers.shared_down"))
+
+    @torch.no_grad()
+    def forward_seq_parallel(self, tokens: torch.Tensor, positions: torch.Tensor,
+                             sp_axis: str = AXIS_SP) -> tuple[torch.Tensor, torch.Tensor]:
+        """Long-context MLA prefill with ring attention: ``tokens`` /
+        ``positions`` [B, S/n] are this rank's chunk of the sequence over the
+        mesh's ``sp_axis``.  The absorbed form is ring-friendly: each chunk
+        computes its latent rows (c_hat ‖ k_pe) and latent-space queries,
+        attention runs as GQA with ONE shared KV head whose rows travel
+        around the ring, and the attended latent expands per head through
+        kv_b's V-half — the paged form's absorption identity, so the results
+        match it.
+
+        Returns (hidden [B, S/n, Dm], kv [L, 2, B, S/n, kv_lora+rope]): the
+        latent row in both planes, as the paged cache holds it."""
+        from dynamo_tpu_torch.ops.ring_attention import ring_attention
+
+        cfg = self.config
+        if cfg.attn_impl != "absorbed":
+            raise NotImplementedError("seq-parallel MLA prefill needs attn_impl='absorbed' "
+                                      "(the expanded oracle is not a deployment shape)")
+        if self.mesh is None:
+            raise ValueError("forward_seq_parallel needs a mesh of more than one rank")
+        hidden = self.embed[tokens.long()].to(cfg.torch_dtype)
+        ld = cfg.first_k_dense_replace
+        kvs = []
+        for li in range(cfg.num_layers):
+            dense = li < ld
+            lp = self._layer("dense_layers", li) if dense else self._layer("moe_layers", li - ld)
+            q_lat, row, w_v = self._absorbed_qkv(lp, hidden, positions)
+            attn = ring_attention(q_lat, row, row, positions, positions, mesh=self.mesh,
+                                  axis=sp_axis, sm_scale=self.sm_scale)
+            hidden = self._mlp(lp, self._absorbed_out(lp, hidden, attn, w_v), dense)
+            kvs.append(torch.stack([row[:, :, 0], row[:, :, 0]]))  # K == V == latent
+        hidden = rms_norm(hidden, self.final_norm, cfg.rms_norm_eps)
+        return hidden, torch.stack(kvs)
 
     def _layer(self, group: str, i: int) -> dict[str, torch.Tensor]:
         """Layer ``i`` of ``group``'s parameters by their JAX names."""
@@ -318,7 +449,7 @@ class DeepseekModel(nn.Module):
             q = x @ lp["wq"]
         else:
             q = rms_norm(x @ lp["q_a"], lp["q_a_norm"], cfg.rms_norm_eps) @ lp["q_b"]
-        q = q.reshape(b, s, cfg.num_heads, cfg.qk_head_dim)
+        q = q.reshape(b, s, self.num_heads, cfg.qk_head_dim)
         q_nope, q_pe = q[..., :nope], q[..., nope:]
         q_pe = apply_rope_interleaved(q_pe, positions, self.inv_freq)
 
@@ -341,7 +472,7 @@ class DeepseekModel(nn.Module):
         H·qk_head_dim, V padded)."""
         cfg = self.config
         b, s = positions.shape
-        nh, nope, vd = cfg.num_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
+        nh, nope, vd = self.num_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
         x = rms_norm(h_in, lp["attn_norm"], cfg.rms_norm_eps)
         q_nope, q_pe, c_hat, k_pe = self._qkv_latent(lp, x, positions)
         kv = (c_hat @ lp["kv_b"]).reshape(b, s, nh, nope + vd)
@@ -352,7 +483,7 @@ class DeepseekModel(nn.Module):
         write_kv_cache_layer(cache, li, k, v_pad, slot_idx)
         attn = self._paged(q, cache, li, block_tables, seq_lens, positions)
         attn = attn[..., :vd].reshape(b, s, nh * vd)
-        return h_in + attn @ lp["wo"]
+        return h_in + self._reduce(attn @ lp["wo"], "dense_layers.wo")
 
     def _absorbed_qkv(self, lp, h_in, positions):
         """Queries projected into the latent space through kv_b's K-half,
@@ -360,7 +491,7 @@ class DeepseekModel(nn.Module):
         [B,S,1,r+rope], w_v [r,H,v]).  The absorption identity:
           q_nope[h]·k_nope[h] = q_nope[h]·(Wk[h]ᵀ c_hat) = (Wk[h] q_nope[h])·c_hat."""
         cfg = self.config
-        nh, nope, vd, r = cfg.num_heads, cfg.qk_nope_head_dim, cfg.v_head_dim, cfg.kv_lora_rank
+        nh, nope, vd, r = self.num_heads, cfg.qk_nope_head_dim, cfg.v_head_dim, cfg.kv_lora_rank
         x = rms_norm(h_in, lp["attn_norm"], cfg.rms_norm_eps)
         q_nope, q_pe, c_hat, k_pe = self._qkv_latent(lp, x, positions)
         kv_b = lp["kv_b"].reshape(r, nh, nope + vd)
@@ -376,7 +507,8 @@ class DeepseekModel(nn.Module):
         cfg = self.config
         b, s = h_in.shape[:2]
         out = torch.einsum("bshr,rhv->bshv", attn[..., :cfg.kv_lora_rank], w_v)
-        return h_in + out.reshape(b, s, cfg.num_heads * cfg.v_head_dim) @ lp["wo"]
+        out = out.reshape(b, s, self.num_heads * cfg.v_head_dim) @ lp["wo"]
+        return h_in + self._reduce(out, "dense_layers.wo")
 
     def _attention_absorbed(self, lp, li, h_in, positions, cache, block_tables, seq_lens,
                             slot_idx):
@@ -392,7 +524,7 @@ class DeepseekModel(nn.Module):
         cache is dequantised for those blocks only (under local tables),
         not for the layer's whole pool."""
         cfg = self.config
-        hk, d = cfg.num_kv_heads, cfg.head_dim
+        hk, d = self.kv_heads()[1], cfg.head_dim
         if is_quant(cache):
             b, m = block_tables.shape
             pool = gather_layer_blocks(cache, li, block_tables, hk).reshape(b * m, 2, -1, hk * d)
@@ -409,8 +541,12 @@ class DeepseekModel(nn.Module):
         the weights' dtype with f32 accumulation and result."""
         w = self.lm_head
         if w.is_cuda and w.dtype != torch.float32:
-            return torch.mm(hidden.to(w.dtype), w, out_dtype=torch.float32)
-        return hidden.to(w.dtype).float() @ w.float()
+            logits = torch.mm(hidden.to(w.dtype), w, out_dtype=torch.float32)
+        else:
+            logits = hidden.to(w.dtype).float() @ w.float()
+        if self.split.get("lm_head"):  # this rank's vocab columns: gather them all
+            logits = self.mesh.all_gather(logits, _TP, dim=-1)
+        return logits
 
 
 def _dense_mlp(lp: dict, x: torch.Tensor) -> torch.Tensor:
@@ -460,10 +596,17 @@ def limited_groups(cfg: DeepseekConfig, scores: torch.Tensor) -> torch.Tensor:
 def _moe_mlp(cfg: DeepseekConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
     """DeepSeekMoE: the routed experts through the grouped dispatch, plus
     the shared experts as a dense SiLU MLP."""
+    routed, shared = _moe_parts(cfg, lp, x)
+    return routed + shared
+
+
+def _moe_parts(cfg: DeepseekConfig, lp: dict, x: torch.Tensor):
+    """(the routed experts' output, the shared experts'), each [B, S, Dm]:
+    on a mesh each is a partial sum until its all-reduce."""
     b, s, d = x.shape
     xf = x.reshape(b * s, d)
     weights, topi = _moe_router(cfg, lp, xf)
     routed = grouped_expert_dispatch(xf, weights, topi, cfg.n_routed_experts, lp["w_gate"],
                                      lp["w_up"], lp["w_down"], F.silu)
     shared = (F.silu(xf @ lp["shared_gate"]) * (xf @ lp["shared_up"])) @ lp["shared_down"]
-    return (routed + shared).reshape(b, s, d)
+    return routed.reshape(b, s, d), shared.reshape(b, s, d)

@@ -23,6 +23,23 @@ The large dense projections are ``torch.matmul`` calls (cuBLAS on the card),
 as the JAX package leaves them to XLA; int8 projections are the package's
 W8A16 kernel, the experts' products its grouped expert kernel, and
 attention its own kernels.
+
+Tensor parallelism (``mesh``, ``utils/mesh.py``): each rank of the mesh's
+"model" axis holds the slices :func:`partition_specs` names, the layout of
+the JAX package's specs — q/k/v and gate/up split by column (whole heads,
+whole F slices), ``wo`` and ``w_down`` by row, the lm_head over the vocab,
+MoE experts over F (TP within experts), the embedding, norms and router
+whole — and runs the same forward on them: an all-reduce after ``wo`` and
+after ``w_down`` (the MoE combine included) sums the row-parallel partial
+products, and :meth:`LlamaModel.compute_logits` all-gathers the vocab
+shards.  Ranks on the "data" axis hold the same slices.  Each rank's cache
+is ``[L, N, 2, Bs, Hk_r*D]`` over its own kv heads (:func:`kv_head_range`:
+Hk/tp of them when tp divides Hk; when Hk divides tp, the ONE kv head that
+every query head of the rank reads, the same head on tp/Hk ranks; other
+splits raise), and its int8 scale pool ``scale_tile(Hk_r, Bs)``.  The JAX
+package shards its padded scale tile instead; the values held are the same.
+:meth:`LlamaModel.forward_seq_parallel` is the long-prompt prefill with the
+sequence split over a mesh axis (``ops/ring_attention.py``).
 """
 
 from __future__ import annotations
@@ -38,7 +55,8 @@ from torch import nn
 from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.models.quant import (
-    CHANNEL_AXES, QTensor, dequantize, grouped_matmul, matmul, stacked_channel_axes, take_rows)
+    CHANNEL_AXES, QTensor, align_specs, dequantize, grouped_matmul, matmul, prune_specs,
+    shard_cutter, stacked_channel_axes, take_rows)
 from dynamo_tpu_torch.ops.kv_quant import QuantKvCache, scale_tile
 from dynamo_tpu_torch.ops.paged_attention import (
     paged_attention_layer,
@@ -47,11 +65,14 @@ from dynamo_tpu_torch.ops.paged_attention import (
     softcap,
     write_kv_cache_layer,
 )
+from dynamo_tpu_torch.utils.mesh import AXIS_MODEL, AXIS_SP
 
 __all__ = ["LlamaModel", "param_shapes", "param_dtypes", "rms_norm", "rope_inv_freq", "apply_rope",
-           "grouped_expert_dispatch", "router_weights"]
+           "grouped_expert_dispatch", "router_weights", "partition_specs", "kv_head_range",
+           "shard_plan"]
 
 SCALE = "_scale"  # state-dict suffix of a quantised weight's scale
+_TP = AXIS_MODEL
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
@@ -168,6 +189,63 @@ def param_dtypes(cfg: ModelConfig, quantized: bool = False) -> dict[str, torch.d
     return out
 
 
+def partition_specs(cfg: ModelConfig) -> dict[str, tuple]:
+    """The split of every parameter over the mesh's "model" axis, by state
+    name (the JAX package's ``LlamaModel.partition_specs``): q/k/v and
+    gate/up by column, ``wo`` and ``w_down`` by row, MoE experts over F,
+    the lm_head over the vocab; the embedding, norms and router whole (no
+    entry)."""
+    col, row = (None, None, _TP), (None, _TP, None)
+    specs = {"layers.wq": col, "layers.wk": col, "layers.wv": col, "layers.wo": row}
+    if cfg.attention_bias:
+        specs.update({"layers.bq": (None, _TP), "layers.bk": (None, _TP),
+                      "layers.bv": (None, _TP)})
+    if cfg.is_moe:
+        specs.update({"layers.w_gate": (None, None, None, _TP),
+                      "layers.w_up": (None, None, None, _TP),
+                      "layers.w_down": (None, None, _TP, None)})
+    else:
+        specs.update({"layers.w_gate": col, "layers.w_up": col, "layers.w_down": row})
+    if not cfg.tie_word_embeddings:
+        specs["lm_head"] = (None, _TP)
+    return specs
+
+
+def kv_head_range(num_heads: int, num_kv_heads: int, tp: int, rank: int) -> tuple[int, int]:
+    """(first, count) of the kv heads model rank ``rank`` of ``tp`` keeps:
+    the heads its query heads (``num_heads / tp`` consecutive ones) read.
+    Hk/tp heads when tp divides Hk; when Hk divides tp, one head, shared by
+    tp/Hk ranks.  Any other split would give a rank a ragged group of query
+    heads per kv head, and raises."""
+    if num_heads % tp:
+        raise ValueError(f"{num_heads} query heads do not split over tp={tp}")
+    if num_kv_heads % tp == 0:
+        count = num_kv_heads // tp
+        return rank * count, count
+    if tp % num_kv_heads == 0:
+        return rank // (tp // num_kv_heads), 1
+    raise ValueError(f"{num_kv_heads} kv heads split over tp={tp} neither evenly nor one "
+                     "per rank")
+
+
+def shard_plan(cfg: ModelConfig, quantized: bool, mesh) -> tuple[dict, dict]:
+    """(specs, blocks) of this rank's slice: :func:`partition_specs` pruned
+    against the mesh and aligned onto the int8 scales, and the explicit
+    kv-head column ranges (:func:`kv_head_range`) when tp does not divide
+    Hk."""
+    shapes = param_shapes(cfg, quantized)
+    specs = align_specs(shapes, prune_specs(shapes, partition_specs(cfg), mesh))
+    tp = mesh.axis_size(_TP)
+    blocks = {}
+    if tp > 1 and cfg.num_kv_heads % tp:
+        first, count = kv_head_range(cfg.num_heads, cfg.num_kv_heads, tp, mesh.axis_index(_TP))
+        cols = (-1, first * cfg.head_dim, (first + count) * cfg.head_dim)
+        for name in ("layers.wk", "layers.wv", "layers.bk", "layers.bv"):
+            if name in shapes:
+                blocks[name] = cols
+    return specs, blocks
+
+
 class LlamaModel(nn.Module):
     """Llama-family decoder (dense or mixture-of-experts) over the paged KV
     cache.
@@ -175,7 +253,9 @@ class LlamaModel(nn.Module):
     Parameters are allocated uninitialised on ``device`` (cuda unless the
     caller names another); fill them with ``load_state_dict`` or build the
     model straight from a state dict with :meth:`from_state`.  With
-    ``quantized`` the matmul weights are int8 with f32 scales.
+    ``quantized`` the matmul weights are int8 with f32 scales.  With a
+    ``mesh`` of more than one rank the parameters are this rank's slices
+    (:func:`shard_plan`) and the forward runs the mesh's collectives.
     """
 
     # forward() accepts the token-budget ragged prefill layout (the engine
@@ -186,14 +266,28 @@ class LlamaModel(nn.Module):
     # token-budget scheduler on this
     supports_unified_dispatch = True
 
-    def __init__(self, config: ModelConfig, device=None, quantized: bool = False):
+    def __init__(self, config: ModelConfig, device=None, quantized: bool = False, mesh=None):
         super().__init__()
         self.config = config
         self.quantized = quantized
         dev = resolve_device(device)
         dtypes = param_dtypes(config, quantized)
         self.layers = nn.ParameterDict()
-        for name, shape in param_shapes(config, quantized).items():
+        shapes = param_shapes(config, quantized)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        # this rank's query and kv heads, and which row-parallel products
+        # (and the lm_head's vocab) are split over "model"
+        self.heads = (config.num_heads, config.num_kv_heads)
+        self.split = dict.fromkeys(("layers.wo", "layers.w_down", "lm_head"), False)
+        if self.mesh is not None:
+            specs, blocks = shard_plan(config, quantized, self.mesh)
+            tp = self.mesh.axis_size(_TP)
+            self.heads = (config.num_heads // tp, kv_head_range(
+                config.num_heads, config.num_kv_heads, tp, self.mesh.axis_index(_TP))[1])
+            self.split = {n: _TP in specs.get(n, ()) for n in self.split}
+            cut = shard_cutter(shapes, specs, self.mesh, blocks)
+            shapes = {name: cut(name, shape) for name, shape in shapes.items()}
+        for name, shape in shapes.items():
             p = nn.Parameter(torch.empty(shape, dtype=dtypes[name], device=dev),
                              requires_grad=False)
             if name.startswith("layers."):
@@ -210,14 +304,16 @@ class LlamaModel(nn.Module):
         )
 
     @classmethod
-    def from_state(cls, config: ModelConfig, state: dict[str, torch.Tensor]) -> "LlamaModel":
+    def from_state(cls, config: ModelConfig, state: dict[str, torch.Tensor],
+                   mesh=None) -> "LlamaModel":
         """A model whose parameters ARE the given tensors (no copy); they
         must all lie on one device, which becomes the model's.  A state with
-        ``embed_scale`` is an int8 model."""
+        ``embed_scale`` is an int8 model.  On a ``mesh`` the state is this
+        rank's slice (``models/quant.py::shard_state``)."""
         devices = {t.device for t in state.values()}
         if len(devices) != 1:
             raise ValueError(f"state tensors span devices {devices}")
-        model = cls(config, device="meta", quantized="embed" + SCALE in state)
+        model = cls(config, device="meta", quantized="embed" + SCALE in state, mesh=mesh)
         model.load_state_dict(state, assign=True)
         for p in model.parameters():
             p.requires_grad_(False)
@@ -230,17 +326,39 @@ class LlamaModel(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    def partition_specs(self) -> dict[str, tuple]:
+        return partition_specs(self.config)
+
+    def cache_spec(self, quant: bool = False):
+        """The cache's split over "model": the trailing axis is
+        kv-head-major, so splitting it gives each rank whole kv heads
+        (:func:`kv_head_range` says which); the int8 scale pool splits its
+        head axis with them."""
+        data = (None, None, None, None, _TP)
+        return QuantKvCache(data, (None, None, None, _TP, None)) if quant else data
+
+    def kv_heads(self, rank: Optional[int] = None) -> tuple[int, int]:
+        """(first, count) of the kv heads the cache of model rank ``rank``
+        (this rank's when None) holds."""
+        if self.mesh is None:
+            return 0, self.config.num_kv_heads
+        return kv_head_range(self.config.num_heads, self.config.num_kv_heads,
+                             self.mesh.axis_size(_TP),
+                             self.mesh.axis_index(_TP) if rank is None else rank)
+
     # --------------------------------------------------------------- kv cache
     def init_kv_cache(self, num_blocks: int, block_size: int, dtype=None):
         """One tensor for the whole model: [L, N, 2, Bs, Hk*D], K and V of
-        a block adjacent — the layout of the JAX package's cache.
+        a block adjacent — the layout of the JAX package's cache (Hk: this
+        rank's kv heads on a mesh).
 
         ``dtype="int8"`` gives a :class:`QuantKvCache`: an int8 payload of
         that layout and a scale pool ``[L, N, 2, Hp, Sp]`` of ones."""
         cfg = self.config
-        shape = (cfg.num_layers, num_blocks, 2, block_size, cfg.num_kv_heads * cfg.head_dim)
+        hk = self.heads[1]
+        shape = (cfg.num_layers, num_blocks, 2, block_size, hk * cfg.head_dim)
         if str(dtype) in ("int8", "torch.int8"):
-            hp, sp = scale_tile(cfg.num_kv_heads, block_size)
+            hp, sp = scale_tile(hk, block_size)
             return QuantKvCache(
                 torch.zeros(shape, dtype=torch.int8, device=self.device),
                 torch.ones((cfg.num_layers, num_blocks, 2, hp, sp), dtype=torch.float32,
@@ -287,7 +405,6 @@ class LlamaModel(nn.Module):
         """
         cfg = self.config
         b, s = tokens.shape
-        dh, hq = cfg.head_dim, cfg.num_heads
         ragged_prefill = ragged is not None and prefix_blocks is not None and s > 1
         fast_prefill = prefix_blocks is not None and s > 1 and not ragged_prefill
         uo = cfg.rmsnorm_unit_offset
@@ -301,7 +418,7 @@ class LlamaModel(nn.Module):
         for li in range(cfg.num_layers):
             lp = self._layer(li)
             x = rms_norm(hidden, lp["attn_norm"], cfg.rms_norm_eps, uo)
-            q, k, v = _qkv_proj(cfg, lp, x, b, s)
+            q, k, v = _qkv_proj(cfg, lp, x, b, s, *self.heads)
             q = apply_rope(q, positions, self.inv_freq)
             k = apply_rope(k, positions, self.inv_freq)
             # both prefill layouts are block-aligned contiguous spans
@@ -326,18 +443,74 @@ class LlamaModel(nn.Module):
                     sm_scale=self.sm_scale, logit_cap=cfg.attn_logit_softcap,
                     window=cfg.sliding_window,
                 )
-            attn_out = matmul(attn.reshape(b, s, hq * dh), lp["wo"])
-            if cfg.post_norms:  # Gemma2 sandwich: norm the residual branch
-                attn_out = rms_norm(attn_out, lp["post_attn_norm"], cfg.rms_norm_eps, uo)
-            hidden = hidden + attn_out
-
-            x = rms_norm(hidden, lp["mlp_norm"], cfg.rms_norm_eps, uo)
-            mlp_out = _moe_mlp_grouped(cfg, lp, x) if cfg.is_moe else _dense_mlp(cfg, lp, x)
-            if cfg.post_norms:
-                mlp_out = rms_norm(mlp_out, lp["post_mlp_norm"], cfg.rms_norm_eps, uo)
-            hidden = hidden + mlp_out
+            hidden = self._mlp_block(lp, self._attn_block(lp, hidden, attn, b, s))
         hidden = rms_norm(hidden, self.final_norm, cfg.rms_norm_eps, uo)
         return hidden, kv_cache
+
+    def _reduce(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        """Sum a row-parallel product's partials over "model" (when its
+        weight is split there)."""
+        return self.mesh.all_reduce(x, _TP) if self.split[name] else x
+
+    def _attn_block(self, lp: dict, hidden: torch.Tensor, attn: torch.Tensor, b: int,
+                    s: int) -> torch.Tensor:
+        """The residual after attention: ``wo`` (summed over the mesh),
+        Gemma2's sandwich norm, the residual add."""
+        cfg = self.config
+        attn_out = self._reduce(matmul(attn.reshape(b, s, -1), lp["wo"]), "layers.wo")
+        if cfg.post_norms:  # Gemma2 sandwich: norm the residual branch
+            attn_out = rms_norm(attn_out, lp["post_attn_norm"], cfg.rms_norm_eps,
+                                cfg.rmsnorm_unit_offset)
+        return hidden + attn_out
+
+    def _mlp_block(self, lp: dict, hidden: torch.Tensor) -> torch.Tensor:
+        """The residual after the MLP (dense or MoE), summed over the mesh."""
+        cfg = self.config
+        uo = cfg.rmsnorm_unit_offset
+        x = rms_norm(hidden, lp["mlp_norm"], cfg.rms_norm_eps, uo)
+        mlp_out = _moe_mlp_grouped(cfg, lp, x) if cfg.is_moe else _dense_mlp(cfg, lp, x)
+        mlp_out = self._reduce(mlp_out, "layers.w_down")
+        if cfg.post_norms:
+            mlp_out = rms_norm(mlp_out, lp["post_mlp_norm"], cfg.rms_norm_eps, uo)
+        return hidden + mlp_out
+
+    @torch.no_grad()
+    def forward_seq_parallel(self, tokens: torch.Tensor, positions: torch.Tensor,
+                             sp_axis: str = AXIS_SP) -> tuple[torch.Tensor, torch.Tensor]:
+        """Long-context prefill with ring attention (context parallelism):
+        ``tokens``/``positions`` [B, S/n] are this rank's chunk of the
+        sequence, split over the mesh's ``sp_axis`` (rank i of the axis holds
+        chunk i, positions global); attention runs blockwise while the K/V
+        chunks travel around the ring (``ops/ring_attention.py``), and
+        "model" splits the heads as in :meth:`forward`.
+
+        Returns (hidden [B, S/n, Dm], kv [L, 2, B, S/n, Hk*D]) for this
+        rank's chunk (Hk: its kv heads); the kv is what the engine writes
+        into the paged cache after a long prefill."""
+        from dynamo_tpu_torch.ops.ring_attention import ring_attention
+
+        if self.mesh is None:
+            raise ValueError("forward_seq_parallel needs a mesh of more than one rank")
+        cfg = self.config
+        b, s = tokens.shape
+        hidden = take_rows(self._weight("embed"), tokens, cfg.torch_dtype)
+        if cfg.scale_embeddings:
+            hidden = hidden * torch.tensor(math.sqrt(cfg.hidden_size), dtype=hidden.dtype)
+        uo = cfg.rmsnorm_unit_offset
+        kvs = []
+        for li in range(cfg.num_layers):
+            lp = self._layer(li)
+            x = rms_norm(hidden, lp["attn_norm"], cfg.rms_norm_eps, uo)
+            q, k, v = _qkv_proj(cfg, lp, x, b, s, *self.heads)
+            q = apply_rope(q, positions, self.inv_freq)
+            k = apply_rope(k, positions, self.inv_freq)
+            attn = ring_attention(q, k, v, positions, positions, mesh=self.mesh, axis=sp_axis,
+                                  sm_scale=self.sm_scale, logit_cap=cfg.attn_logit_softcap,
+                                  window=cfg.sliding_window)
+            hidden = self._mlp_block(lp, self._attn_block(lp, hidden, attn, b, s))
+            kvs.append(torch.stack([k.reshape(b, s, -1), v.reshape(b, s, -1)]))
+        hidden = rms_norm(hidden, self.final_norm, cfg.rms_norm_eps, uo)
+        return hidden, torch.stack(kvs)
 
     def _weight(self, name: str):
         """Top-level parameter ``name`` as a matmul operand: a
@@ -374,14 +547,17 @@ class LlamaModel(nn.Module):
         else:
             logits = hidden.to(w.dtype).float() @ w.float()
         cap = cfg.final_logit_softcap
+        if self.split["lm_head"]:  # this rank's vocab columns: gather them all
+            logits = self.mesh.all_gather(logits, _TP, dim=-1)
         if cap:  # Gemma2 final logit softcap
             logits = softcap(logits, float(cap))
         return logits
 
 
-def _qkv_proj(cfg: ModelConfig, lp: dict, x: torch.Tensor, b: int, s: int):
-    """QKV projections (+ Qwen2 bias / Qwen3 per-head q-k norms)."""
-    dh, hq, hk = cfg.head_dim, cfg.num_heads, cfg.num_kv_heads
+def _qkv_proj(cfg: ModelConfig, lp: dict, x: torch.Tensor, b: int, s: int, hq: int, hk: int):
+    """QKV projections (+ Qwen2 bias / Qwen3 per-head q-k norms) into ``hq``
+    query and ``hk`` kv heads (this rank's, on a mesh)."""
+    dh = cfg.head_dim
     q, k, v = matmul(x, lp["wq"]), matmul(x, lp["wk"]), matmul(x, lp["wv"])
     if cfg.attention_bias:
         q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]

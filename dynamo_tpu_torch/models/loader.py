@@ -21,6 +21,14 @@ tensor only).  DeepSeek-V2 directories load through
 :func:`load_deepseek_dir` into ``models/deepseek.py``'s layout (the CLI picks
 it by :func:`is_deepseek_dir`, as the JAX package's does); given to
 :func:`load_model_dir` they raise.
+
+Every loader takes a ``mesh`` (``utils/mesh.py``): each tensor is then read
+onto the host, cut to this rank's slice (``models/llama.py::shard_plan``,
+after int8 quantisation, so a row-split weight keeps its whole
+per-output-channel scales) and only the slice moves to the card.
+:func:`model_from_spec` builds a rank's model from a description every rank
+of a mesh can follow: a checkpoint path, a seeded random init, or a state
+file.
 """
 
 from __future__ import annotations
@@ -34,11 +42,18 @@ from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.models.deepseek import DeepseekConfig
 from dynamo_tpu_torch.models.deepseek import param_shapes as deepseek_param_shapes
-from dynamo_tpu_torch.models.llama import SCALE, param_shapes
-from dynamo_tpu_torch.models.quant import CHANNEL_AXES, quantize, stacked_channel_axes
+from dynamo_tpu_torch.models.llama import SCALE, param_shapes, shard_plan
+from dynamo_tpu_torch.models.quant import (CHANNEL_AXES, prune_specs, quantize, shard_cutter,
+                                           stacked_channel_axes)
 
 __all__ = ["SafetensorsDir", "load_state_from_dir", "load_state", "quantize_state",
-           "load_model_dir", "is_deepseek_dir", "load_deepseek_dir"]
+           "load_model_dir", "is_deepseek_dir", "load_deepseek_dir", "model_from_spec"]
+
+
+def _read_device(device: torch.device, mesh) -> torch.device:
+    """Where a loader reads tensors: onto the card, or, on a mesh, onto the
+    host, so that only a rank's slice reaches the card."""
+    return torch.device("cpu") if mesh is not None and mesh.size > 1 else device
 
 
 class SafetensorsDir:
@@ -128,14 +143,20 @@ class _Writer:
     device in its dtype (int8 codes and f32 scales when it is quantised),
     filled one layer (or one whole unstacked tensor) at a time."""
 
-    def __init__(self, cfg: ModelConfig, device: torch.device, dtype: torch.dtype, quant: bool):
+    def __init__(self, cfg: ModelConfig, device: torch.device, dtype: torch.dtype, quant: bool,
+                 mesh=None):
         self.shapes = param_shapes(cfg, quant)
         self.device, self.dtype, self.quant = device, dtype, quant
+        # this rank's slice of each parameter's slots (all of it off a mesh)
+        self._cut = lambda name, x, index=(): x
+        if mesh is not None and mesh.size > 1:
+            specs, blocks = shard_plan(cfg, quant, mesh)
+            self._cut = shard_cutter(self.shapes, specs, mesh, blocks)
         self.state: dict[str, torch.Tensor] = {}
         for name, shape in self.shapes.items():
             dt = (torch.float32 if name.endswith(SCALE)
                   else torch.int8 if name + SCALE in self.shapes else dtype)
-            self.state[name] = torch.empty(shape, dtype=dt, device=device)
+            self.state[name] = torch.empty(self._cut(name, shape), dtype=dt, device=device)
 
     def put(self, name: str, w: torch.Tensor, *index: int) -> None:
         """Write ``w`` (already ``[in, out]``) as the whole parameter or its
@@ -143,31 +164,33 @@ class _Writer:
         model dtype first, then quantising when the parameter is int8."""
         w = w.to(self.dtype)
         if name + SCALE not in self.shapes:
-            self.state[name][index].copy_(w)
+            self.state[name][index].copy_(self._cut(name, w, index))
             return
         base = name.split(".", 1)[-1]
         axes = CHANNEL_AXES[base] if base == "embed" else stacked_channel_axes(w.ndim,
                                                                               CHANNEL_AXES[base])
-        qt = quantize(w, axes)
-        self.state[name][index].copy_(qt.q)
-        self.state[name + SCALE][index].copy_(qt.scale)
+        qt = quantize(w, axes)  # the whole weight's scales, then this rank's slice
+        self.state[name][index].copy_(self._cut(name, qt.q, index))
+        self.state[name + SCALE][index].copy_(self._cut(name + SCALE, qt.scale, index))
 
 
 def load_state_from_dir(cfg: ModelConfig, model_dir: str | Path, device=None,
-                        quantize: bool = False) -> dict[str, torch.Tensor]:
+                        quantize: bool = False, mesh=None) -> dict[str, torch.Tensor]:
     """The state dict of the checkpoint in ``model_dir`` for ``cfg`` (whose
-    dtype the dense parameters take), on ``device`` (cuda unless named)."""
+    dtype the dense parameters take), on ``device`` (cuda unless named);
+    this rank's slice on a ``mesh``."""
     dev = resolve_device(device)
-    return load_state(cfg, SafetensorsDir(model_dir, dev), dev, quantize)
+    return load_state(cfg, SafetensorsDir(model_dir, _read_device(dev, mesh)), dev, quantize,
+                      mesh=mesh)
 
 
 def load_state(cfg: ModelConfig, files, device: torch.device,
-               quantize: bool = False) -> dict[str, torch.Tensor]:
+               quantize: bool = False, mesh=None) -> dict[str, torch.Tensor]:
     """The state dict for ``cfg`` from ``files``, anything that answers
     ``name in files`` and ``files.get(name)`` (a tensor in the HF layout)
     for HF tensor names: a :class:`SafetensorsDir`, or a GGUF file's
-    adapter (``llm/gguf.py``)."""
-    out = _Writer(cfg, device, cfg.torch_dtype, quantize)
+    adapter (``llm/gguf.py``).  On a ``mesh``, this rank's slice."""
+    out = _Writer(cfg, device, cfg.torch_dtype, quantize, mesh)
     hf = _hf_names(cfg, qwen3_moe="model.layers.0.mlp.gate.weight" in files)
     dh = cfg.head_dim
     sizes = {"layers.wq": cfg.num_heads * dh, "layers.wk": cfg.num_kv_heads * dh,
@@ -232,13 +255,14 @@ def is_deepseek_dir(model_dir: str | Path) -> bool:
 
 
 def load_model_dir(model_dir: str | Path, dtype: str = "bfloat16", device=None,
-                   quantize: bool = False) -> tuple[ModelConfig, dict[str, torch.Tensor]]:
-    """(ModelConfig, state dict) from a local HF model directory."""
+                   quantize: bool = False, mesh=None) -> tuple[ModelConfig, dict[str, torch.Tensor]]:
+    """(ModelConfig, state dict) from a local HF model directory (this
+    rank's slice on a ``mesh``)."""
     if is_deepseek_dir(model_dir):
         raise ValueError(f"{model_dir} is a DeepSeek (MLA) checkpoint: load it with "
                          "load_deepseek_dir")
     cfg = ModelConfig.from_hf_config(model_dir, dtype=dtype)
-    return cfg, load_state_from_dir(cfg, model_dir, device=device, quantize=quantize)
+    return cfg, load_state_from_dir(cfg, model_dir, device=device, quantize=quantize, mesh=mesh)
 
 
 def _deepseek_hf_names() -> dict[str, tuple[str, bool]]:
@@ -272,18 +296,20 @@ def _deepseek_hf_names() -> dict[str, tuple[str, bool]]:
 
 
 def load_deepseek_dir(model_dir: str | Path, dtype: str = "bfloat16",
-                      device=None) -> tuple[DeepseekConfig, dict[str, torch.Tensor]]:
+                      device=None, mesh=None) -> tuple[DeepseekConfig, dict[str, torch.Tensor]]:
     """(DeepseekConfig, state dict) from a DeepSeek-V2 HF directory, on
     ``device`` (cuda unless named): each HF ``[out, in]`` matrix transposed
     into its layer's slot of the layer group's stack, the dense layers
     first (``first_k_dense_replace``) and the MoE layers after them, each
     expert's tensor into its slot of the ``[L, E, K, N]`` stack, read one
-    tensor at a time as :func:`load_state_from_dir` reads."""
+    tensor at a time as :func:`load_state_from_dir` reads (this rank's
+    slice on a ``mesh``)."""
     cfg = DeepseekConfig.from_hf(json.loads((Path(model_dir) / "config.json").read_text()))
     cfg.dtype = dtype
     dev = resolve_device(device)
-    files = SafetensorsDir(model_dir, dev)
+    files = SafetensorsDir(model_dir, _read_device(dev, mesh))
     hf = _deepseek_hf_names()
+    cut = deepseek_slicer(cfg, mesh)
 
     def read(name: str, transpose: bool) -> torch.Tensor:
         w = files.get(name)
@@ -292,17 +318,74 @@ def load_deepseek_dir(model_dir: str | Path, dtype: str = "bfloat16",
     state = {}
     for name, shape in deepseek_param_shapes(cfg).items():
         fmt, transpose = hf[name]
-        out = torch.empty(shape, dtype=cfg.torch_dtype, device=dev)
+        out = torch.empty(cut(name, shape), dtype=cfg.torch_dtype, device=dev)
         group = name.rpartition(".")[0]
         if not group:
-            out.copy_(read(fmt, transpose))
+            out.copy_(cut(name, read(fmt, transpose)))
         else:  # the group's j-th layer is HF layer first + j
             first = cfg.first_k_dense_replace if group == "moe_layers" else 0
             for j in range(shape[0]):
                 if "{e}" in fmt:
                     for e in range(shape[1]):
-                        out[j, e].copy_(read(fmt.format(i=first + j, e=e), transpose))
+                        out[j, e].copy_(cut(name, read(fmt.format(i=first + j, e=e), transpose),
+                                            (j, e)))
                 else:
-                    out[j].copy_(read(fmt.format(i=first + j), transpose))
+                    out[j].copy_(cut(name, read(fmt.format(i=first + j), transpose), (j,)))
         state[name] = out
     return cfg, state
+
+
+def deepseek_slicer(cfg: DeepseekConfig, mesh):
+    """``cut(name, x, index=())``: this rank's slice of parameter ``name``'s
+    slot ``index`` when ``x`` is a tensor, or its local shape when ``x`` is
+    the full shape (``x`` itself off a mesh)."""
+    from dynamo_tpu_torch.models.deepseek import partition_specs
+
+    if mesh is None or mesh.size == 1:
+        return lambda name, x, index=(): x
+    shapes = deepseek_param_shapes(cfg)
+    return shard_cutter(shapes, prune_specs(shapes, partition_specs(cfg), mesh), mesh)
+
+
+def model_from_spec(spec: dict, device=None, mesh=None):
+    """A rank's model (its slice on ``mesh``) from a description that every
+    rank of a mesh can follow, so the ranks build the same model:
+
+    * ``{"kind": "checkpoint", "path", "dtype"?, "quantize"?}`` — any
+      format ``cli.load_any_checkpoint`` reads;
+    * ``{"kind": "init", "family": "llama" | "deepseek", "config": {...},
+      "seed", "quantized"?}`` — random weights at full width drawn on the
+      device from ``seed`` (each full tensor drawn, then cut, so every tp
+      draws the same model);
+    * ``{"kind": "state", "family", "config", "path"}`` — a full state dict
+      saved with ``safetensors`` (an int8 one holds ``embed_scale``)."""
+    from dynamo_tpu_torch.models.convert import deepseek_init_params, init_params
+    from dynamo_tpu_torch.models.deepseek import DeepseekModel
+    from dynamo_tpu_torch.models.llama import LlamaModel
+
+    dev = resolve_device(device)
+    kind = spec["kind"]
+    if kind == "checkpoint":
+        from dynamo_tpu_torch.cli import load_any_checkpoint
+
+        return load_any_checkpoint(spec["path"], spec.get("dtype"), dev,
+                                   bool(spec.get("quantize")), mesh=mesh)[0]
+    family = spec.get("family", "llama")
+    cfg = (DeepseekConfig if family == "deepseek" else ModelConfig)(**spec["config"])
+    if kind == "init":
+        gen = torch.Generator(device=dev).manual_seed(int(spec["seed"]))
+        if family == "deepseek":
+            return DeepseekModel.from_state(cfg, deepseek_init_params(cfg, gen, dev, mesh=mesh),
+                                            mesh=mesh)
+        return LlamaModel.from_state(cfg, init_params(cfg, gen, dev, bool(spec.get("quantized")),
+                                                      mesh=mesh), mesh=mesh)
+    if kind == "state":
+        from safetensors.torch import load_file
+
+        from dynamo_tpu_torch.models.convert import shard_full_state
+
+        full = load_file(str(spec["path"]), device="cpu")
+        state = shard_full_state(family, cfg, full, mesh, dev)
+        cls = DeepseekModel if family == "deepseek" else LlamaModel
+        return cls.from_state(cfg, state, mesh=mesh)
+    raise ValueError(f"unknown model spec kind {kind!r}")

@@ -30,6 +30,13 @@ int8).
   activation dtype before the product, as the JAX package does.  The MoE
   router stays dense, as in the JAX package: it is small, and its logits
   choose the experts.
+* :func:`prune_specs`, :func:`align_specs` and :func:`shard_state` split a
+  state dict over the rank mesh (``utils/mesh.py``): a spec names, per
+  axis of a tensor, the mesh axis it is split over (or None).  An axis the
+  mesh does not divide is replicated; an int8 weight's scale takes its
+  weight's split on the axes where it has more than one entry, so a
+  column-split weight's scales are split with its codes and a row-split
+  weight keeps its per-output-channel scales whole.
 """
 
 from __future__ import annotations
@@ -42,7 +49,10 @@ from dynamo_tpu_torch.ops.kernels import grouped_matmul as gmm
 from dynamo_tpu_torch.ops.kernels.int8_matmul import int8_matmul
 
 __all__ = ["QTensor", "stacked_channel_axes", "quantize", "dequantize", "matmul", "grouped_matmul",
-           "take_rows", "quantize_params", "random_qtensor", "CHANNEL_AXES"]
+           "take_rows", "quantize_params", "random_qtensor", "CHANNEL_AXES", "prune_specs",
+           "align_specs", "shard_state", "shard_bounds", "shard_cutter"]
+
+SCALE = "_scale"  # state-dict suffix of a quantised weight's scale
 
 
 def stacked_channel_axes(ndim: int, channel_axes=(-1,)) -> tuple[int, ...]:
@@ -166,3 +176,86 @@ def random_qtensor(shape, fan_in: int, generator: torch.Generator, channel_axes=
     sshape = tuple(n if i in axes else 1 for i, n in enumerate(shape))
     scale = torch.full(sshape, 1.0 / (73.3 * fan_in ** 0.5), dtype=torch.float32, device=device)
     return QTensor(q, scale)
+
+
+# ------------------------------------------------------------- sharding
+def _shape_of(x) -> tuple[int, ...]:
+    return tuple(x.shape) if hasattr(x, "shape") else tuple(x)
+
+
+def prune_specs(state, specs: dict, mesh) -> dict:
+    """Drop the mesh axes that do not divide the dimension they split:
+    replicating that dimension is always correct (each rank keeps it
+    whole), so any model runs on any mesh, merely without that split.
+    ``state`` maps names to tensors or shapes; a name without a spec is
+    replicated.  Run before :func:`align_specs`."""
+    out = {}
+    for name, x in state.items():
+        if name.endswith(SCALE) and name[:-len(SCALE)] in state:
+            continue
+        shape = _shape_of(x)
+        spec = tuple(specs.get(name, ())) + (None,) * len(shape)
+        out[name] = tuple(e if e is not None and shape[i] % mesh.axis_size(e) == 0 else None
+                          for i, e in enumerate(spec[:len(shape)]))
+    return out
+
+
+def align_specs(state, specs: dict) -> dict:
+    """Give each int8 weight's ``<name>_scale`` its weight's spec on the axes
+    where the scale has more than one entry (the reduced axes replicate)."""
+    out = dict(specs)
+    for name, x in state.items():
+        base = name[:-len(SCALE)]
+        if name.endswith(SCALE) and base in specs:
+            shape = _shape_of(x)
+            out[name] = tuple(e if shape[i] != 1 else None for i, e in enumerate(specs[base]))
+    return out
+
+
+def shard_bounds(shape, spec, mesh, block=None) -> tuple[slice, ...]:
+    """This rank's slice of a tensor of ``shape`` split by ``spec``: an even
+    split of each axis named there by this rank's index on the mesh axis.
+    ``block`` = (axis, start, stop) overrides one axis with an explicit
+    range (the kv heads a rank's query heads read, ``models/llama.py``)."""
+    out = []
+    for i, n in enumerate(shape):
+        e = spec[i] if i < len(spec) else None
+        if block is not None and block[0] % len(shape) == i:
+            out.append(slice(block[1], block[2]))
+        elif e is None:
+            out.append(slice(None))
+        else:
+            k = mesh.axis_size(e)
+            j = mesh.axis_index(e)
+            out.append(slice(j * n // k, (j + 1) * n // k))
+    return tuple(out)
+
+
+def shard_cutter(shapes: dict, specs: dict, mesh, blocks: dict | None = None):
+    """``cut(name, x, index=())`` for parameters of full ``shapes``: this
+    rank's slice of ``x``, the slot ``index`` (leading indices) of parameter
+    ``name``, or, when ``x`` is the full shape (a tuple), this rank's shape.
+    ``blocks`` maps names to explicit ``(axis, start, stop)`` ranges for
+    this rank; an int8 weight's scale follows its weight's block on an axis
+    where the scale has more than one entry."""
+    blocks = blocks or {}
+
+    def cut(name: str, x, index: tuple = ()):
+        shape = shapes[name]
+        block = blocks.get(name[:-len(SCALE)] if name.endswith(SCALE) else name)
+        if block is not None and shape[block[0]] == 1:
+            block = None  # a reduced scale axis: whole
+        bounds = shard_bounds(shape, specs.get(name, ()), mesh, block)
+        if isinstance(x, tuple):
+            return tuple(len(range(*b.indices(n))) for b, n in zip(bounds, shape))
+        return x[bounds[len(index):]]
+
+    return cut
+
+
+def shard_state(state: dict, specs: dict, mesh, blocks: dict | None = None,
+                device=None) -> dict:
+    """One rank's slice of a state dict (:func:`shard_cutter`), each tensor
+    moved to ``device`` (its own when None), contiguous."""
+    cut = shard_cutter({k: tuple(t.shape) for k, t in state.items()}, specs, mesh, blocks)
+    return {name: cut(name, t).to(device or t.device).contiguous() for name, t in state.items()}

@@ -14,7 +14,14 @@ formula and readers), with two differences:
   forward (thousands of launches a decode step), not the asynchronous
   enqueue of one compiled program, so the dispatch phase is host time.
   The formula and the phase names are kept for parity; the host gap is
-  still wall - dispatch - overlap - readback.
+  still wall - dispatch - overlap - readback (- collective);
+* on a mesh of more than one rank the engine marks a ``collective`` phase
+  the JAX package has no counterpart of (there a collective is part of the
+  one compiled program): the broadcast of each dispatch to the shard
+  followers, and the waits inside the forward (all-reduce, all-gather,
+  the fed-back tokens), moved out of ``dispatch`` by :meth:`StepTimeline.
+  move` so that the host's enqueue does not absorb them.  Like readback it
+  is a wait, not a host bubble, and the host gap excludes it.
 
 The model is mark-based: :meth:`StepTimeline.begin` opens a step,
 ``mark(phase)`` attributes *all elapsed time since the previous mark*
@@ -33,6 +40,9 @@ Phases (what the marks mean, in step order):
     upload            the dispatch's host->device operand copies
     dispatch          the model call: the host enqueuing its kernels
                       (on CPU tensors this includes compute)
+    collective        (a mesh only, not one of PHASES) rank 0's waits in
+                      collectives: the dispatch broadcast and the
+                      forward's all-reduces and all-gathers
     overlap           host work performed *while the device computes*
                       (lookahead dispatch: next-turn speculative build
                       + waiting-queue drain between dispatch and
@@ -70,7 +80,7 @@ import time
 from collections import deque
 from typing import Callable, Optional
 
-__all__ = ["StepTimeline", "step_timeline", "PHASES"]
+__all__ = ["StepTimeline", "step_timeline", "PHASES", "COLLECTIVE"]
 
 PHASES = (
     "kv_spill_restore",
@@ -83,6 +93,11 @@ PHASES = (
     "readback",
     "host_post",
 )
+
+# the mesh's phase: marked only by an engine on a mesh of more than one rank,
+# so it is not among the JAX package's PHASES (the /metrics family renders
+# those); the snapshot adds it where it was marked
+COLLECTIVE = "collective"
 
 _DISPATCH_PHASES = ("upload", "dispatch", "readback")
 
@@ -148,6 +163,15 @@ class StepTimeline:
                 self._step_kinds.get(kind, 0.0) + delta
         self._last = now
 
+    def move(self, seconds: float, src: str, dst: str) -> None:
+        """Re-attribute ``seconds`` of this step already marked as ``src``
+        to ``dst`` (at most what ``src`` holds)."""
+        if self._t0 is None or seconds <= 0:
+            return
+        seconds = min(seconds, self._phases.get(src, 0.0))
+        self._phases[src] = self._phases.get(src, 0.0) - seconds
+        self._phases[dst] = self._phases.get(dst, 0.0) + seconds
+
     def end(self, trace: Optional[tuple] = None) -> None:
         if self._t0 is None:
             return
@@ -163,7 +187,8 @@ class StepTimeline:
             return  # idle polls would drown the per-turn numbers
         gap = (wall - phases.get("dispatch", 0.0)
                - phases.get("overlap", 0.0)
-               - phases.get("readback", 0.0))
+               - phases.get("readback", 0.0)
+               - phases.get(COLLECTIVE, 0.0))
         self.busy_steps_total += 1
         self.wall_s_total += wall
         self.host_gap_s_total += gap
@@ -238,7 +263,8 @@ class StepTimeline:
             "host_gap_ms_per_turn": self.host_gap_ms_per_turn,
             "ewma_wall_ms": self.ewma_wall_s * 1e3,
             "ewma_host_gap_ms": self.ewma_host_gap_s * 1e3,
-            "phases": {p: self.phase_s_total.get(p, 0.0) for p in PHASES},
+            "phases": {p: self.phase_s_total.get(p, 0.0) for p in PHASES
+                       + ((COLLECTIVE,) if COLLECTIVE in self.phase_s_total else ())},
             "dispatch_kinds": {
                 k: {
                     "seconds": self.dispatch_kind_s[k],

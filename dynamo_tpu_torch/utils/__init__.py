@@ -1,1 +1,2 @@
-"""Shared utilities: the consistent-hash ring (``chash.py``)."""
+"""Shared utilities: the consistent-hash ring (``chash.py``) and the rank
+mesh (``mesh.py``)."""

@@ -308,8 +308,9 @@ def no_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("service,keys,error,match", [
-    ("GpuWorker", {"tp": 2}, ValueError, r"\{'tp': 2\}.*ROADMAP A10"),
-    ("GpuWorker", {"sp-prefill-threshold": 512}, ValueError, "ROADMAP A10"),
+    # the mesh keys serve on the gpu engine only (a checkpoint); echo refuses them
+    ("GpuWorker", {"tp": 2}, ValueError, r"\{'tp': 2\}.*needs the gpu engine"),
+    ("GpuWorker", {"sp-prefill-threshold": 512}, ValueError, "needs the gpu engine"),
     ("GpuWorker", {"engine": "gpu", "model-path": "MODEL"}, SystemExit, "no CUDA device"),
 ], ids=["tp", "sp-prefill", "no-gpu"])
 def test_refusals(no_cuda, model_dir, service, keys, error, match):

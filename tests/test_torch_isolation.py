@@ -54,6 +54,10 @@ def _port_files() -> list[Path]:
 def test_port_imports_nothing_of_jax():
     files = _port_files()
     assert len(files) > 20 and all(f.exists() for f in files)
+    # the mesh's modules and the follower ranks' entry point are walked too
+    for rel in ("utils/mesh.py", "runtime/multihost.py", "ops/ring_attention.py",
+                "engine/follower.py"):
+        assert PKG / rel in files, rel
     bad = {str(f.relative_to(PKG.parent)): sorted(_imported_roots(f) & FORBIDDEN)
            for f in files if _imported_roots(f) & FORBIDDEN}
     assert not bad, f"the port imports JAX or the JAX package: {bad}"
@@ -75,14 +79,35 @@ def test_entry_points_raise_without_a_device(no_cuda):
         init_params(cfg, torch.Generator())
     # named explicitly, the CPU is fine
     EngineCore(model, EngineConfig(max_model_len=64, num_blocks=8), device="cpu")
+    # a follower rank's entry point picks cuda:{local rank % cards}: no card
+    from dynamo_tpu_torch.engine.follower import rank_device
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rank_device(None)
+    assert rank_device("cpu") == torch.device("cpu")
 
 
 def test_engine_refuses_unported_options():
+    """On a mesh of more than one rank the host-offload and persist tiers,
+    speculation and lookahead dispatch stay refused by name (ROADMAP A10b),
+    as does a mesh_shape that is not the model's mesh.  The refusal comes
+    before any collective, so a 2-rank mesh with no world behind it is
+    enough here."""
+    from dynamo_tpu_torch.utils.mesh import MESH_AXES, Mesh
+
     cfg = ModelConfig.tiny()
     model = LlamaModel.from_state(cfg, init_params(cfg, torch.Generator(), device="cpu"))
-    with pytest.raises(ValueError, match="sp_prefill_threshold"):
-        EngineCore(model, EngineConfig(max_model_len=64, num_blocks=8, sp_prefill_threshold=32),
+    with pytest.raises(ValueError, match="mesh_shape"):
+        EngineCore(model, EngineConfig(max_model_len=64, num_blocks=8, mesh_shape=(1, 2)),
                    device="cpu")
+    mesh = Mesh(MESH_AXES, (1, 2))
+    state = init_params(cfg, torch.Generator(), device="cpu", mesh=mesh)
+    sharded = LlamaModel.from_state(cfg, state, mesh=mesh)
+    for opt in (dict(num_host_blocks=8), dict(num_host_blocks=8, kv_persist_dir="/nonexistent"),
+                dict(spec_tokens=2), dict(lookahead_dispatch=True)):
+        with pytest.raises(ValueError, match=f"on a mesh: .*{next(iter(opt))}"):
+            EngineCore(sharded, EngineConfig(max_model_len=64, num_blocks=8, **opt),
+                       device="cpu")
 
 
 def _meta(*shape, dtype=torch.bfloat16):

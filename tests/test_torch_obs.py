@@ -325,7 +325,8 @@ def test_predicted_ms_is_the_bound_by_hand(tiny):
 def test_cost_priors_come_from_topology():
     """The transfer-cost table's cold-edge priors are the topology's, with
     the rates the port priced before the table existed; a collective is
-    free on one card and refused across cards."""
+    free on one card, priced at the NVLink datasheet rate across the cards
+    of a host, and refused on a link without a rate (gloo's host buffers)."""
     from dynamo_tpu_torch.obs import topology
     from dynamo_tpu_torch.obs.costs import TransferCostTable
 
@@ -340,8 +341,14 @@ def test_cost_priors_come_from_topology():
     assert topology.TOPOLOGIES["h100"]["hbm_bw"] == 3.35e12
     assert topology.TOPOLOGIES["h100"]["peak_flops"]["bfloat16"] == 989e12
     assert topology.collective_cost_s("psum", 1, 1 << 30) == 0.0
-    with pytest.raises(NotImplementedError):
-        topology.collective_cost_s("psum", 2, 1 << 30)
+    assert topology.TOPOLOGIES["h100"]["nvlink_bw"] == 450e9
+    # ring all-reduce over 2 cards: 2(n-1)/n of the payload, 2(n-1) hops
+    assert topology.collective_cost_s("psum", 2, 1 << 30) == pytest.approx(
+        (1 << 30) / 450e9 + 2 * 2e-6, rel=1e-12)
+    assert topology.collective_cost_s("all_gather", 4, 1 << 20, link="dcn") == pytest.approx(
+        0.75 * (1 << 20) / 3.125e9 + 3 * 50e-6, rel=1e-12)
+    with pytest.raises(NotImplementedError, match="gloo"):
+        topology.collective_cost_s("psum", 2, 1 << 30, link="gloo")
 
 
 # ----------------------------------------------------------------- profile
