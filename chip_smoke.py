@@ -101,15 +101,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``PrefillWorker``, both on the default path and sharing the model.  On
    bf16: the colocated path (blocks copied on the card), the six prompts
    one at a time (a1; the concurrent colocated run is left out to keep the
-   script inside its time); (c) the streamed layer-wise
-   handoff over TCP (``DYN_KV_TRANSFER_FORCE_TCP=1``, a prefill engine in
-   256-token chunks); on int8 (weights and cache, Bs = 32): over TCP, one
-   at a time (d1) and concurrently (d).  The blocking bf16 handoff over TCP
-   and HTTP through a decode worker are the front-door phase's ``graphs``
-   run, where the prefill worker is a process of its own.
+   script inside its time); on int8 (weights and cache, Bs = 32): over TCP,
+   one at a time (d1), and concurrently through the streamed layer-wise
+   handoff (d: ``DYN_KV_TRANSFER_FORCE_TCP=1``, a prefill engine in
+   256-token chunks; the bf16 streamed run c was cut to keep the script
+   inside its time).  The blocking bf16 handoff over TCP and
+   HTTP through a decode worker are the front-door phase's ``graphs`` run,
+   where the prefill worker is a process of its own.
    Each run on a fresh engine pair: its blocks moved only on its path
-   (``transfer.stats``), (c) sent
-   layers without a fallback, (d)'s parts int8 + float32, the decode
+   (``transfer.stats``), (d) sent
+   layers without a fallback, the int8 runs' parts int8 + float32, the decode
    engine made no prefill dispatch and the prefill engine no decode turn,
    the launches are its model's default-path kernels and no other, every
    handoff's blocks equal the prefill engine's held blocks bit for bit, no
@@ -299,12 +300,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
    against the one-card forward within the parity bounds, six requests'
    greedy streams held to the one-card engine's but at near ties, a decode
    turn's seconds and collective wait at tp = 1 and 2), int8 weights and
-   cache at 8 layers on the default and token-budget paths, Qwen3-30B-A3B
-   width at 4 layers, DeepSeek-V2-Lite width at 4 layers, and on the mesh
-   (2, 1) the sequence-parallel prefill of a 4,096-token prompt (8
-   layers; both ranks' cached KV equal and held to a one-card prefill's,
-   then 16 decode tokens).  Every rank's launches are zeroed before each
-   run and read after; rank 1 must launch what rank 0 does.  In the front
+   cache at 8 layers on the default path and at 2 on the token-budget path
+   (B4c on a rank's scale tiles, lookahead bursts on), Qwen3-30B-A3B width
+   at 4 layers, DeepSeek-V2-Lite width at 4 layers, the options a mesh serves beyond the dispatches at Llama-3-8B
+   width and 2 layers (n-gram speculation at k = 4, lookahead
+   bursts on the token-budget path, and the KV tiers over a 128-block pool
+   restoring a 640-token prompt from the host and, after a restart, from
+   the persist directory; each tp = 2 stream held to one card's but at a
+   near tie; B3, B4a, B4b and B4c also timed at one rank's shapes, and a
+   float16 KV cache refused on the card by name), and on the mesh (2, 1)
+   the sequence-parallel prefill of a 4,096-token prompt (8 layers; both
+   ranks' cached KV equal and held to a one-card prefill's, then 16 decode
+   tokens).  Every rank's launches are zeroed before each run and read
+   after; rank 1 must launch what rank 0 does.  In the front
    door, ``run in=http out=gpu --tp 2`` answers the front-door requests
    over HTTP and stops both ranks on SIGTERM.
 
@@ -339,6 +347,7 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import dataclasses
+import faulthandler
 import gc
 import json
 import math
@@ -354,8 +363,9 @@ if not (ROOT / "dynamo_tpu_torch").is_dir():
 sys.path.insert(0, str(ROOT))
 
 from dynamo_tpu_torch.tools.cuda_timing import (  # noqa: E402
-    DECODE_LENS, LM_HEAD, MOE_EXPERTS, MOE_LAUNCHES, MOE_TOKENS, MOE_TOP_K, PROJECTIONS, card_line,
-    cuda_time_ms, graph_time_ms, median_ms, moe_layer_work, moe_offsets, moe_stack, ragged_layout)
+    DECODE_LENS, LM_HEAD, MOE_EXPERTS, MOE_LAUNCHES, MOE_TOKENS, MOE_TOP_K, PROJECTIONS,
+    RAGGED_MIXED, card_line, cuda_time_ms, graph_time_ms, median_ms, moe_layer_work, moe_offsets,
+    moe_stack, ragged_layout)
 
 # published peaks of one H100 SXM (dense): HBM bytes/s and bf16 tensor FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -371,6 +381,9 @@ PROMPT_LENS = (17, 300, 640, 1500, 356, 956)
 SHARED_PREFIX = 256
 MAX_TOKENS = 32
 # the two serving configurations, on one model
+# every thread's stack goes to stderr if the script still runs at this
+# second, inside the 1,200 s a run is given
+SMOKE_STACK_DUMP_S = 1140
 DEFAULT_PATH = dict(max_batch_size=8, max_model_len=2048, block_size=16, decode_steps=8)
 BUDGET_PATH = dict(DEFAULT_PATH, prefill_token_budget=1024, unified_token_dispatch=True,
                    lookahead_dispatch=True)
@@ -4202,9 +4215,8 @@ DISAGG_RUNS = {
     # label: (cache, path, streamed, one request at a time); every run on a
     # fresh engine pair, so no run hits another's prefix cache
     "a1": ("bf16", "colocated", False, True),
-    "c": ("bf16", "tcp", True, False),
     "d1": ("int8", "tcp", False, True),
-    "d": ("int8", "tcp", False, False),
+    "d": ("int8", "tcp", True, False),
 }
 
 
@@ -4293,6 +4305,49 @@ def disagg_phase(torch, model, local: dict, card: str, quant: bool = False) -> d
             f"{r['handoff_ms'][-1]:.1f}, transfer {r['stats']}, costs {r['costs']}, "
             f"stream {r['stream']}, launches {r['launches']} ({card})")
     return runs
+
+
+# ``--disagg-soak``: the concurrent streamed bf16 handoff over TCP (bf16,
+# tcp, streamed, concurrent: the run DISAGG_RUNS no longer holds), repeated;
+# a run that outlasts DISAGG_SOAK_RUN_S dumps every thread's stack and exits
+DISAGG_SOAK_RUN_S = 180
+
+
+def disagg_soak(torch, card: str, n: int) -> list[float]:
+    """``chip_smoke.py --disagg-soak N``: the concurrent streamed bf16
+    handoff over TCP, N times on Llama-3-8B bf16 at full depth (random
+    weights), each on a fresh engine pair; checks each run streamed layers
+    without a fallback and held no block after.  Returns each run's
+    seconds."""
+    import faulthandler
+    import os
+
+    from dynamo_tpu_torch.models.convert import init_params
+    from dynamo_tpu_torch.models.llama import LlamaModel
+
+    cfg = llama3_8b()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    model = LlamaModel.from_state(cfg, init_params(cfg, gen, device="cuda"))
+    secs = []
+    os.environ["DYN_KV_TRANSFER_FORCE_TCP"] = "1"
+    try:
+        for i in range(n):
+            faulthandler.dump_traceback_later(DISAGG_SOAK_RUN_S, exit=True)
+            t0 = time.perf_counter()
+            r = asyncio.run(_disagg_serve(torch, model, DEFAULT_PATH, f"disagg-soak-{i}",
+                                          stream=True, one_by_one=False))
+            faulthandler.cancel_dump_traceback_later()
+            secs.append(time.perf_counter() - t0)
+            check(r["stream"]["layers_sent"] > 0 and r["stream"]["fallbacks"] == 0
+                  and r["held_after"] == 0,
+                  f"disagg soak {i}: stream {r['stream']}, {r['held_after']} held after")
+            log(f"disagg soak {i}: {secs[-1]:.1f} s, stream {r['stream']} ({card})")
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        os.environ.pop("DYN_KV_TRANSFER_FORCE_TCP", None)
+    return secs
 
 
 def disagg_line(torch, runs: dict, card: str) -> dict:
@@ -6534,6 +6589,15 @@ MESH_SP_PROMPT = 4096
 MESH_SP_THRESHOLD = 2048
 MESH_SP_TOKENS = 16
 MESH_TIMEOUT_S = 300.0    # a collective's wait for its peers in the mesh phases
+# the options a mesh serves beyond the dispatches, Llama-3-8B width (bf16)
+MESH_OPT_LAYERS = 2
+# (n-gram verifies at decode_steps 1: a turn speculates when any row proposes)
+MESH_OPT_PATHS = {"ngram k=4": dict(DEFAULT_PATH, spec_tokens=4, decode_steps=1),
+                  "lookahead": BUDGET_PATH}
+MESH_TIER_BLOCKS = 128        # an undersized pool: a 640-token prompt is pushed out
+MESH_TIER_HOST_BLOCKS = 512
+MESH_OPTION_METRICS = ("spec_steps", "spec_proposed", "spec_accepted", "lookahead_bursts_total",
+                       "unified_dispatches_total")
 # per-rank geometry at tp = 2: Llama-3-8B's (Hq 16, Hk 4) and Qwen3-30B-A3B's
 # (Hq 16, Hk 2) attention, D 128
 MESH_GEOMS = {"Llama-3-8B": (16, 4, 128), "Qwen3-30B-A3B": (16, 2, 128)}
@@ -6655,9 +6719,13 @@ def mesh_kernel_checks(torch, card: str) -> tuple[dict, dict]:
     shapes one rank gives it (``MESH_GEOMS``, ``MESH_MATMULS``,
     ``MESH_EXPERTS``), pools NaN-poisoned as in the kernel phase; then
     their times at one rank's serving shapes."""
-    from dynamo_tpu_torch.ops.kernels.decode_attention import paged_decode_attention
+    from dynamo_tpu_torch.ops.kernels.decode_attention import (paged_decode_attention,
+                                                               paged_decode_attention_q8)
     from dynamo_tpu_torch.ops.kernels.int8_matmul import int8_matmul, int8_matmul_ref
-    from dynamo_tpu_torch.ops.kernels.prefill_attention import paged_prefill_attention
+    from dynamo_tpu_torch.ops.kernels.prefill_attention import (paged_prefill_attention,
+                                                                paged_prefill_attention_q8)
+    from dynamo_tpu_torch.ops.kernels.ragged_prefill_attention import (
+        ragged_paged_prefill_attention, ragged_paged_prefill_attention_q8)
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(20)
@@ -6743,10 +6811,44 @@ def mesh_kernel_checks(torch, card: str) -> tuple[dict, dict]:
     xd = torch.randn((8 * top_k, f), generator=gen, device="cuda").to(torch.bfloat16)
     ms["E1"] = graph_time_ms([lambda: kernel(xg, wg, offsets), lambda: kernel(xg, wg, offsets),
                               lambda: kernel(xd, wd, offsets)], 50)
+    # the int8 and ragged attention kernels at one rank's Llama-3-8B heads:
+    # B4a the same decode layer over an int8 cache (Bs 32) as a graph; B4b
+    # the int8 prefix hit (start 256, 700 fresh); B3 and B4c one T = 1024
+    # mixed dispatch (cuda_timing.RAGGED_MIXED: eight decode rows, a
+    # 700-token span over a 256-token prefix and a 300-token span), bf16 Bs
+    # 16 and int8 Bs 32 (a 32-slot decode region)
+    bt3 = _tables(torch, lens, 2048 // BS_Q8, n_blocks, gen, BS_Q8)
+    cache3 = _q8_cache(torch, gen, n_blocks, hk, d, BS_Q8)
+    ms["B4a"] = graph_time_ms([lambda: paged_decode_attention_q8(q, cache3, LAYER, bt3, sl, q0)],
+                              50)
+    start, fresh = SHARED_PREFIX, PROMPT_LENS[-1] - SHARED_PREFIX
+    s4 = -(-fresh // BS_Q8) * BS_Q8
+    bt4 = _tables(torch, [start + fresh], 2048 // BS_Q8, 64, gen, BS_Q8)
+    cache4 = _q8_cache(torch, gen, 64, hk, d, BS_Q8)
+    q4, k4, v4 = (torch.randn((1, s4, x, d), generator=gen, device="cuda").to(torch.bfloat16)
+                  for x in (h, hk, hk))
+    args4 = (q4, k4, v4, cache4, LAYER, bt4, _ints(torch, [start + fresh]), _ints(torch, [start]))
+    ms["B4b"] = cuda_time_ms(lambda i: paged_prefill_attention_q8(*args4), 20)
+    rows, _ = RAGGED_MIXED
+    for key, quant, bs, region in (("B3", False, BS, 16), ("B4c", True, BS_Q8, BS_Q8)):
+        t, starts, seq_lens, offs = ragged_layout(rows, region, 0, bs)
+        nb = sum(-(-n // bs) for n in seq_lens) + 8
+        bt5 = _tables(torch, seq_lens, 2048 // bs, nb, gen, bs)
+        cache5 = _attention_cache(torch, gen, nb, bt5, starts, hk, d, bs, quant)
+        q5, k5, v5 = (torch.randn((1, t, x, d), generator=gen, device="cuda").to(torch.bfloat16)
+                      for x in (h, hk, hk))
+        args5 = (q5, k5, v5, cache5, LAYER, bt5, _ints(torch, seq_lens), _ints(torch, starts),
+                 _ints(torch, offs))
+        kernel5 = ragged_paged_prefill_attention_q8 if quant else ragged_paged_prefill_attention
+        ms[key] = cuda_time_ms(lambda i: kernel5(*args5), 20)
+        del cache5
     log(f"mesh kernels, one rank's times (ms): B1 one decode layer (8 rows) graph {ms['B1']:.4f}, "
-        f"B2 1,504-token prefill {ms['B2']:.4f}, B5 one layer's 7 projections at M=8 graph "
-        f"{ms['B5']:.4f}, E1 one Qwen3 MoE layer at T=8 graph {ms['E1']:.4f} ({card})")
-    del cache, cache2, wg, wd
+        f"B4a the same over int8 Bs {BS_Q8} graph {ms['B4a']:.4f}, B2 1,504-token prefill "
+        f"{ms['B2']:.4f}, B4b int8 prefix hit (start {start}, {fresh} fresh) {ms['B4b']:.4f}, B3 "
+        f"T=1024 mixed dispatch {ms['B3']:.4f}, B4c the same int8 {ms['B4c']:.4f}, B5 one layer's "
+        f"7 projections at M=8 graph {ms['B5']:.4f}, E1 one Qwen3 MoE layer at T=8 graph "
+        f"{ms['E1']:.4f} ({card})")
+    del cache, cache2, cache3, cache4, wg, wd
     torch.cuda.empty_cache()
     return errs, ms
 
@@ -6799,6 +6901,7 @@ def mesh_run(torch, mesh, model, config: dict, label: str, reqs: list, card: str
         launches = (call_all(mesh, "chip_smoke:mesh_counts") if mesh is not None
                     else [{k: fn.launches for k, fn in _kernel_wrappers().items()}])
         dispatches, sp = core.steps - steps0, core.sp_prefills - sp0
+        metrics = {k: v for k, v in core.metrics().items() if k in MESH_OPTION_METRICS}
     finally:
         core.close()
     streams = []
@@ -6810,12 +6913,146 @@ def mesh_run(torch, mesh, model, config: dict, label: str, reqs: list, card: str
         streams.append(toks)
     out = dict(label=label, streams=streams, launches=launches, wall_s=wall, dispatches=dispatches,
                decode_turns=turns, decode_s_per_turn=decode_s / max(1, turns),
-               collective_wait_s_per_turn=wait_s / max(1, turns), sp_prefills=sp)
+               collective_wait_s_per_turn=wait_s / max(1, turns), sp_prefills=sp, metrics=metrics)
     log(f"mesh {label}: wall {wall:.3f} s, {dispatches} dispatches, a decode turn "
         f"{1e3 * out['decode_s_per_turn']:.2f} ms (collective wait "
         f"{1e3 * out['collective_wait_s_per_turn']:.2f} ms) over {turns} turns, launches "
         f"{launches} ({card})")
     return out
+
+
+def mesh_tier_run(torch, mesh, model, label: str, card: str) -> dict:
+    """The KV tiers on ``model`` (rank 0's on ``mesh``, or one card's when
+    None), over an undersized device pool (``MESH_TIER_BLOCKS``): a 640-token
+    prompt served cold, pushed out by two longer ones, served again from the
+    host pool, then served by a restarted engine from the persist directory
+    alone.  Every rank's launches (zeroed first), rank 0's restored blocks
+    and the three streams."""
+    import shutil
+
+    from dynamo_tpu_torch.engine import EngineConfig, EngineCore
+    from dynamo_tpu_torch.engine.follower import call_all
+    from dynamo_tpu_torch.engine.request import EngineRequest
+    from dynamo_tpu_torch.llm.protocols import SamplingOptions, StopConditions
+
+    persist = PERSIST_DIR / ("mesh" if mesh is not None else "one")
+    shutil.rmtree(persist, ignore_errors=True)
+    config = dict(DEFAULT_PATH, num_blocks=MESH_TIER_BLOCKS, num_host_blocks=MESH_TIER_HOST_BLOCKS,
+                  kv_persist_dir=str(persist))
+    ps = model_prompts(model)
+    target, churn = ps[2], [ps[3], ps[5]]
+
+    def serve(core, tag, prompt):
+        outs = []
+        req = EngineRequest(request_id=tag, prompt=list(prompt),
+                            sampling=SamplingOptions(temperature=0.0),
+                            stops=StopConditions(max_tokens=MAX_TOKENS), emit=outs.append)
+        core.submit(req)
+        while core.step():
+            pass
+        toks = [t for o in outs for t in o.token_ids]
+        check(len(toks) == MAX_TOKENS, f"mesh tiers {label} {tag}: {len(toks)} tokens")
+        return toks, req.cached_tokens
+
+    if mesh is not None:
+        call_all(mesh, "chip_smoke:mesh_zero_counts")
+    else:
+        mesh_zero_counts(None)
+    t0 = time.perf_counter()
+    core = EngineCore(model, EngineConfig(**config), device="cuda")
+    try:
+        cold, _ = serve(core, "cold", target)
+        for i, p in enumerate(churn):
+            serve(core, f"churn{i}", p)
+        core.flush_host_offload()
+        host, host_cached = serve(core, "host", target)
+        stats = dict(core.tier_stats)
+    finally:
+        core.close()
+    core = EngineCore(model, EngineConfig(**config), device="cuda")
+    try:
+        check(core.host_pool.stored_blocks == 0, f"mesh tiers {label}: the restart's pool is warm")
+        disk, disk_cached = serve(core, "disk", target)
+        persist_hits = core.metrics()["persist_hits"]
+        disk_restored = core.tier_stats["restore_blocks"]
+    finally:
+        core.close()
+    wall = time.perf_counter() - t0
+    launches = (call_all(mesh, "chip_smoke:mesh_counts") if mesh is not None
+                else [{k: fn.launches for k, fn in _kernel_wrappers().items()}])
+    shutil.rmtree(persist, ignore_errors=True)
+    check(stats["restore_blocks"] > 0 and host_cached > 0 and disk_cached > 0 and persist_hits > 0,
+          f"mesh tiers {label}: host restore {stats['restore_blocks']} blocks ({host_cached} "
+          f"cached tokens), disk {persist_hits} hits ({disk_cached} cached tokens)")
+    out = dict(label=label, streams=[cold, host, disk], launches=launches, wall_s=wall,
+               restore_blocks=stats["restore_blocks"], offload_blocks=stats["offload_blocks"],
+               host_cached_tokens=host_cached, disk_cached_tokens=disk_cached,
+               disk_restore_blocks=disk_restored, persist_hits=persist_hits)
+    log(f"mesh tiers {label}: {MESH_TIER_BLOCKS}-block pool, {stats['offload_blocks']} blocks "
+        f"offloaded, {stats['restore_blocks']} restored from the host ({host_cached} cached tokens), "
+        f"{disk_restored} from disk after a restart ({disk_cached} cached tokens, {persist_hits} "
+        f"persist hits); wall {wall:.2f} s; launches {launches} ({card})")
+    return out
+
+
+def mesh_options_run(torch, world, card: str) -> dict:
+    """The options a mesh serves beyond the dispatches, at Llama-3-8B width
+    (``MESH_OPT_LAYERS`` layers, bf16) on one card and at tp = 2: n-gram
+    speculation (k = 4) on the spec phase's copy-task prompts, lookahead
+    bursts on the token-budget path, and the KV tiers (:func:`mesh_tier_run`).
+    Every tp = 2 stream is held to one card's but at a near tie."""
+    from dynamo_tpu_torch.engine.follower import broadcast_model, free_followers
+    from dynamo_tpu_torch.models.loader import model_from_spec
+
+    spec = {"kind": "init", "family": "llama", "seed": 5,
+            "config": dataclasses.asdict(llama3_8b(MESH_OPT_LAYERS))}
+    out = {}
+    for name, config in MESH_OPT_PATHS.items():
+        reqs = spec_prompts() if config.get("spec_tokens") else None
+        one, two = _mesh_pair(torch, world, spec, config,
+                              f"Llama-3-8B {MESH_OPT_LAYERS} layers {name}", card, reqs=reqs)
+        out[name], out[f"{name} tp=1"] = two[(1, 2)], one
+    check(out["ngram k=4"]["metrics"]["spec_steps"] > 0
+          and out["lookahead"]["metrics"]["lookahead_bursts_total"] > 0,
+          f"mesh options: no verify or no burst at tp=2: "
+          f"{ {k: r['metrics'] for k, r in out.items()} }")
+    mesh = world.layout((1, 2))
+    full = model_from_spec(spec, "cuda", None)
+    one = mesh_tier_run(torch, None, full, "tp=1", card)
+    sharded = broadcast_model(spec, mesh, "cuda")
+    two = mesh_tier_run(torch, mesh, sharded, "tp=2", card)
+    target = model_prompts(full)[2]
+    two["parted"] = spec_near_ties(torch, full, one, two, card, prompts=[target] * 3,
+                                   sampling=[{"temperature": 0.0}] * 3, against="tiers tp=1")
+    out["tiers"], out["tiers tp=1"] = two, one
+    del sharded, full
+    free_followers(mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def cache_dtype_refusal(torch, card: str) -> None:
+    """A18 on the card: an engine asked for a float KV cache dtype that no
+    attention kernel takes (fp16 under a bf16 model) is refused at
+    construction, by name and "no kernel"; an int8 cache is not."""
+    from dynamo_tpu_torch.engine import EngineConfig, EngineCore
+    from dynamo_tpu_torch.models.config import ModelConfig
+    from dynamo_tpu_torch.models.llama import LlamaModel
+
+    model = LlamaModel(ModelConfig.tiny(dtype="bfloat16"), device="cuda")
+    try:
+        EngineCore(model, EngineConfig(max_model_len=64, num_blocks=8, cache_dtype="float16"),
+                   device="cuda")
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    check(refused is not None and "float16" in refused and "no kernel" in refused,
+          f"A18: a float16 cache on cuda was not refused by name: {refused}")
+    EngineCore(model, EngineConfig(max_model_len=64, num_blocks=8, cache_dtype="int8"),
+               device="cuda").close()
+    log(f"A18: a float16 KV cache under a bf16 model refused on the card at construction: "
+        f"{refused!r}; an int8 cache accepted ({card})")
 
 
 def _mesh_pair(torch, world, spec: dict, config: dict, label: str, card: str, reqs=None,
@@ -6967,13 +7204,18 @@ def mesh_phase(torch, card: str) -> dict:
     """The mesh phase: the kernels at one rank's shapes, NCCL refused for two
     ranks on one card, then ONE two-rank gloo world: Llama-3-8B bf16 at full
     width and depth (logits and streams against tp = 1), int8 weights and
-    cache (8 layers, default and token-budget paths), Qwen3-30B-A3B width (4
-    layers), DeepSeek-V2-Lite width (4 layers), and the sequence-parallel
-    prefill on (2, 1).  Rank 1 must launch what rank 0 does, B1, B2 and B5
-    among them.  Logs the ``{"mesh": ...}`` line."""
+    cache (the default path at 8 layers, the token-budget path at 2),
+    Qwen3-30B-A3B width (4 layers),
+    DeepSeek-V2-Lite width (4 layers), the sequence-parallel prefill on (2,
+    1), and the options a mesh serves beyond the dispatches
+    (:func:`mesh_options_run`: n-gram speculation, lookahead bursts, the KV
+    tiers).  Rank 1 must launch what rank 0 does, B1, B2, B3, B4a, B4c, B5
+    and E1 among them.
+    Logs the ``{"mesh": ...}`` line."""
     t_phase = time.perf_counter()
     errs, kernel_ms = mesh_kernel_checks(torch, card)
     mesh_nccl_refusal(card)
+    cache_dtype_refusal(torch, card)
     world = MeshWorld()
     runs, sp = {}, None
     tp2 = (1, 2)
@@ -6983,12 +7225,15 @@ def mesh_phase(torch, card: str) -> dict:
         one, two = _mesh_pair(torch, world, llama, DEFAULT_PATH, "Llama-3-8B bf16", card,
                               logits=True)
         runs["bf16 tp=1"], runs["bf16"] = one, two[tp2]
-        q8 = {"kind": "init", "family": "llama", "seed": 1, "quantized": True,
-              "config": dataclasses.asdict(llama3_8b(MESH_Q8_LAYERS))}
-        for path, cfg in (("default", INT8_DEFAULT_PATH),
-                          ("token budget", dict(INT8_BUDGET_PATH, lookahead_dispatch=False))):
+        # int8 weights and cache: the default path at MESH_Q8_LAYERS, the
+        # token-budget path (B4c on the rank's scale tiles, lookahead bursts
+        # on) at MESH_OPT_LAYERS, which costs seconds
+        for path, cfg, layers in (("default", INT8_DEFAULT_PATH, MESH_Q8_LAYERS),
+                                  ("token budget", INT8_BUDGET_PATH, MESH_OPT_LAYERS)):
+            q8 = {"kind": "init", "family": "llama", "seed": 1, "quantized": True,
+                  "config": dataclasses.asdict(llama3_8b(layers))}
             one, two = _mesh_pair(torch, world, q8, cfg,
-                                  f"Llama-3-8B int8 {MESH_Q8_LAYERS} layers {path}", card,
+                                  f"Llama-3-8B int8 {layers} layers {path}", card,
                                   bs=BS_Q8, cache_dtype="int8")
             runs[f"int8 {path} tp=1"], runs[f"int8 {path}"] = one, two[tp2]
         moe = {"kind": "init", "family": "llama", "seed": 2,
@@ -7001,6 +7246,8 @@ def mesh_phase(torch, card: str) -> dict:
         one, two = _mesh_pair(torch, world, ds, DEFAULT_PATH,
                               f"DeepSeek-V2-Lite {MESH_DS_LAYERS} layers", card)
         runs["DeepSeek tp=1"], runs["DeepSeek"] = one, two[tp2]
+        options = mesh_options_run(torch, world, card)
+        runs.update(options)
         sp = mesh_sp_run(torch, world, card)
     finally:
         rc = world.close()
@@ -7008,10 +7255,11 @@ def mesh_phase(torch, card: str) -> dict:
     tp2_runs = {k: r for k, r in runs.items() if "tp=1" not in k}
     per_rank = [{k: sum(r["launches"][rank][k] for r in tp2_runs.values())
                  + sp["launches"][rank][k] for k in _kernel_wrappers()} for rank in (0, 1)]
-    check(all(per_rank[1][k] > 0 for k in ("decode", "prefill", "matmul", "ragged_q8", "moe"))
+    check(all(per_rank[1][k] > 0 for k in ("decode", "prefill", "matmul", "ragged", "decode_q8",
+                                            "ragged_q8", "moe"))
           and per_rank[1] == per_rank[0],
-          f"mesh: rank 1 must launch what rank 0 launches, B1, B2, B5, B4c and E1 among them: "
-          f"{per_rank}")
+          f"mesh: rank 1 must launch what rank 0 launches, B1, B2, B5, B3, B4a, B4c and E1 among "
+          f"them: {per_rank}")
     line = dict(
         backend=world.backend, world=2, meshes=["(1, 2)", "(2, 1)"],
         launches_rank0=per_rank[0], launches_rank1=per_rank[1],
@@ -7019,6 +7267,10 @@ def mesh_phase(torch, card: str) -> dict:
                        "tp2": runs["bf16"]["decode_s_per_turn"]},
         collective_wait_s_per_turn=runs["bf16"]["collective_wait_s_per_turn"],
         runs={k: _run_readings(r) for k, r in runs.items()},
+        options={k: dict(launches=r["launches"], parted=r.get("parted"),
+                         **{f: r[f] for f in ("metrics", "decode_s_per_turn", "restore_blocks",
+                                              "disk_restore_blocks", "persist_hits") if f in r})
+                 for k, r in options.items()},
         sp={k: v for k, v in sp.items() if k != "launches"},
         kernel_max_abs_err=errs, kernel_ms_one_rank=kernel_ms,
         seconds=time.perf_counter() - t_phase, card=card)
@@ -7200,6 +7452,20 @@ def main() -> int:
     shutil.rmtree(PERSIST_DIR, ignore_errors=True)
     shutil.rmtree(FORMATS_DIR, ignore_errors=True)
     mark = phase_clock()
+    # a hang leaves every thread's stack on stderr before the time limit
+    faulthandler.dump_traceback_later(SMOKE_STACK_DUMP_S, exit=False)
+    if sys.argv[1:2] == ["--disagg-soak"]:  # the streamed bf16 handoff, repeated
+        try:
+            card = card_line()
+            log(card)
+            build.build_library(verbose=True)
+            build.library()
+            secs = disagg_soak(torch, card, int(sys.argv[2]))
+            log(json.dumps({"disagg_soak": dict(runs=len(secs), seconds=secs, card=card)}))
+        except (SmokeFailure, RuntimeError) as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        return 0
     if sys.argv[1:] == ["--mesh-cards"]:  # every card of the machine, a rank each
         try:
             card = card_line()

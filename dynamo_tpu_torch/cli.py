@@ -326,9 +326,9 @@ def _build_on(args, cfg, card, device, world):
 
     mesh = world.mesh if world is not None else None
 
-    def load(path, quantize):
+    def load(path, quantize, sharded=True):
         t0 = time.perf_counter()
-        if mesh is not None:
+        if mesh is not None and sharded:
             from dynamo_tpu_torch.engine.follower import broadcast_model
 
             model = broadcast_model({"kind": "checkpoint", "path": path, "dtype": args.dtype,
@@ -346,14 +346,12 @@ def _build_on(args, cfg, card, device, world):
         from dynamo_tpu_torch.utils.mesh import AXIS_DATA, AXIS_MODEL
 
         cfg.mesh_shape = (mesh.axis_size(AXIS_DATA), mesh.axis_size(AXIS_MODEL))
-    if mesh is not None and args.spec_draft_model:
-        raise SystemExit("EngineConfig options not supported by the PyTorch engine on a mesh: "
-                         "['spec_tokens'] (a draft model)")
     model = load(args.model_path, args.quantize == "int8")
     # draft-model speculation: a small same-tokenizer model proposes, the
     # target verifies (engine/draft.py); loaded unquantised, as in the JAX
-    # CLI, from any checkpoint format --model-path takes
-    draft = load(args.spec_draft_model, False) if args.spec_draft_model else None
+    # CLI, from any checkpoint format --model-path takes, and whole on rank
+    # 0's device beside a sharded target (it takes part in no collective)
+    draft = load(args.spec_draft_model, False, sharded=False) if args.spec_draft_model else None
     try:
         core = EngineCore(model, cfg, eos_token_ids=card.eos_token_ids or None, device=device,
                           draft=draft)

@@ -1,13 +1,13 @@
 """Engine configuration: batching, cache sizing, bucketing, sharding.
 
 The same dataclass as ``dynamo_tpu.engine.config``, so one configuration
-drives either engine.  The PyTorch core serves the default path and the
-token-budget paths, with the model's cache dtype or an int8 KV cache
-(``cache_dtype="int8"``, ``ops/kv_quant.py``), on one card or on the rank
-mesh its model was built on (``mesh_shape`` is that mesh's (dp, tp), or
-(1, 1) for "whatever the model's is"; ``sp_prefill_threshold`` needs a
-"data" axis above 1, as in the JAX package), and refuses at construction
-the options whose paths it does not carry yet
+drives either engine.  The PyTorch core serves every option of it, with
+the model's cache dtype, an int8 KV cache (``cache_dtype="int8"``,
+``ops/kv_quant.py``) or another float cache dtype (on the CPU: no kernel
+takes one on the card), on one card or on the rank mesh its model was
+built on (``mesh_shape`` is that mesh's (dp, tp), or (1, 1) for "whatever
+the model's is"; ``sp_prefill_threshold`` needs a "data" axis above 1, as
+in the JAX package), and refuses at construction what it cannot serve
 (``EngineCore._check_supported``)."""
 
 from __future__ import annotations
@@ -125,7 +125,8 @@ class EngineConfig:
     kv_persist_ttl_s: float = 0.0
     # KV cache dtype: None = model dtype; "int8" = quantized cache with
     # per-token-per-head scales (ops/kv_quant.py) — half the KV HBM
-    # footprint and decode-step KV traffic
+    # footprint and decode-step KV traffic; another float dtype is cast to
+    # on the write and from on the read (the plain ops; refused on the card)
     cache_dtype: Optional[str] = None
     enable_prefix_reuse: bool = True
     # force exact top-k candidate selection in the sampler (the PyTorch

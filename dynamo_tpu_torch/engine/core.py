@@ -102,10 +102,25 @@ with a mesh whose "data" axis is above 1 prefills long prompts in ONE
 dispatch with the sequence split over "data" (ring attention) and the fresh
 KV all-gathered so every data rank's cache holds the prompt.
 
-Refused at construction (:meth:`EngineCore._check_supported`): cache
-dtypes other than int8 and the model's, a ``mesh_shape`` that is not the
-model's mesh, and on a mesh of more than one rank the host-offload and
-persist tiers, speculation (n-gram and draft) and ``lookahead_dispatch``.
+On a mesh the options below the dispatches work as on one card.  The KV
+tiers snapshot evicted blocks whole (every rank's kv heads gathered onto
+rank 0, a follower operation) before the kv-offload thread copies them to
+the host, and a restore scatters each rank its heads, so the host pool and
+the persist files hold the blocks one card would.  The speculative verify
+and the lookahead burst are broadcast dispatches like the others (the
+burst broadcasts the tokens each turn feeds back); the draft model stays
+unsharded on rank 0's device and takes part in no collective.  Acceptance
+and the rollback of rejected positions are host work on rank 0: every rank
+wrote the same slots in the verify, and the next dispatch overwrites them
+alike.
+
+A float cache dtype other than the model's is cast to on the write and
+from on the read by the plain ops, as in the JAX package.
+
+Refused at construction (:meth:`EngineCore._check_supported`): a
+``mesh_shape`` that is not the model's mesh, a cache dtype that is neither
+int8 nor a float dtype, and on the card a float cache dtype that no
+attention kernel takes (:func:`cuda_cache_refusal`).
 
 Thread-safety: everything here runs on the engine thread; submit()/abort()
 and run_on_step() are the only cross-thread entry points and only touch
@@ -147,7 +162,7 @@ from dynamo_tpu_torch.obs.perfmodel import PerfModel, model_shapes, visible_pair
 from dynamo_tpu_torch.obs.timeline import COLLECTIVE, StepTimeline
 from dynamo_tpu_torch.ops.block_copy import gather_blocks_padded, scatter_blocks_inplace
 from dynamo_tpu_torch.ops.kv_quant import (QuantKvCache, cache_data, pad_scales, quantize_kv_rows,
-                                           scale_tile)
+                                           resolve_cache_dtype, scale_tile)
 from dynamo_tpu_torch.tokens import TokenBlockSequence
 from dynamo_tpu_torch.utils.mesh import AXIS_DATA
 
@@ -331,7 +346,8 @@ def spec_verify_step(model: LlamaModel, cache, tokens, positions, block_tables, 
     (``positions + 1``), so their streams are the same with speculation on
     or off.  Each row's options are repeated over its S positions.
 
-    Returns the sampled tokens [B, S] int32 on the device."""
+    Returns the sampled tokens [B, S] int32 on the device (zeros on a
+    shard follower, which samples nothing)."""
     hidden, _ = model.forward(tokens, positions, cache, block_tables, seq_lens, slot_idx)
     b, s = tokens.shape
     logits = model.compute_logits(hidden.reshape(b * s, -1))  # [B*S, V] f32
@@ -339,10 +355,9 @@ def spec_verify_step(model: LlamaModel, cache, tokens, positions, block_tables, 
     def rep(a):
         return None if a is None else a.repeat_interleave(s)
 
-    sampled = sample_full(
-        logits, generator, rep(temp), rep(top_k), rep(top_p), min_p=rep(min_p),
-        seeds=rep(seeds), seed_rows=rep(seed_rows),
-        seed_steps=None if seeds is None else positions.reshape(b * s) + 1, k_cand=k_cand)[0]
+    extras = dict(min_p=rep(min_p), seeds=rep(seeds), seed_rows=rep(seed_rows))
+    sampled = _sample(logits, generator, rep(temp), rep(top_k), rep(top_p), (), extras, None,
+                      positions.reshape(b * s) + 1, k_cand)[0]
     return sampled.reshape(b, s)
 
 
@@ -438,9 +453,11 @@ def unified_burst_step(model: LlamaModel, cache, tokens, positions, block_tables
         pen = _append_sampled(pen, out0[0])
     gram = _advance(gram, out0[0])
     # the later turns start as the decode turn that would follow: turn 0's
-    # token sits at position seq_lens, the context now includes it (clamped
-    # at the block limit — past it no KV was written)
-    outs = _decode_turns(model, cache, out0[0], seq_lens, torch.minimum(seq_lens + 1, limits),
+    # token (rank 0's sample, on every rank) sits at position seq_lens, the
+    # context now includes it (clamped at the block limit — past it no KV
+    # was written)
+    toks = _shared_tokens(model, out0[0]) if num_steps > 1 else out0[0]
+    outs = _decode_turns(model, cache, toks, seq_lens, torch.minimum(seq_lens + 1, limits),
                          block_tables, limits, generator, temp, top_k, top_p, pen, extras,
                          gram, num_steps - 1, block_size, k_cand)
     return torch.stack([_pack(*out0)] + outs)
@@ -535,6 +552,21 @@ def gather_shard_blocks(model, cache, block_ids):
     return QuantKvCache(whole, scale)
 
 
+def cuda_cache_refusal(model_dtype: str, cache_dtype) -> Optional[str]:
+    """Why an engine on the card cannot serve a KV cache of ``cache_dtype``
+    under a model of ``model_dtype``, or None when it can.  The attention
+    kernels take a bf16 cache under bf16 queries (B1, B2, B3) or an int8
+    cache (B4a, B4b, B4c); no kernel is instantiated for another float
+    dtype, and the plain ops serve one only on the CPU."""
+    dt = resolve_cache_dtype(cache_dtype)
+    if dt in (None, "int8") or dt == getattr(torch, model_dtype):
+        return None
+    dt = str(dt).replace("torch.", "")
+    return (f"cache_dtype {dt!r} on cuda: no kernel takes a {dt} KV cache under "
+            f"{model_dtype} queries (the attention kernels take bfloat16 under bfloat16, "
+            "or int8)")
+
+
 # the dispatches a shard follower replays, by name: (function, the number of
 # forward operands before its generator argument)
 STEP_FNS = {
@@ -542,6 +574,8 @@ STEP_FNS = {
     "ragged_prefill_step": (ragged_prefill_step, 9),
     "unified_token_step": (unified_token_step, 9),
     "multi_decode_step": (multi_decode_step, 5),
+    "unified_burst_step": (unified_burst_step, 10),
+    "spec_verify_step": (spec_verify_step, 5),
     "sp_prefill_step": (sp_prefill_step, 3),
 }
 
@@ -565,7 +599,7 @@ class EngineCore:
         if self.mesh is not None and not self.mesh.is_root:
             raise ValueError(f"rank {self.mesh.rank} is a shard follower: only rank 0 runs "
                              "the engine (engine/follower.py)")
-        self._check_supported(model, config, draft)
+        self._check_supported(model, config, self.device)
         self.model = model
         self.config = config
         # draft-model speculation: a model (its weights in the module) with
@@ -680,30 +714,24 @@ class EngineCore:
         self._last_was_prefill = False
 
     @staticmethod
-    def _check_supported(model: LlamaModel, cfg: EngineConfig, draft=None) -> None:
-        """Refuse the options whose paths are not ported yet, instead of
-        serving them on a path that ignores them: on a mesh of more than one
-        rank, the host-offload and persist tiers, speculation and lookahead
-        dispatch (ROADMAP A10b)."""
+    def _check_supported(model: LlamaModel, cfg: EngineConfig, device) -> None:
+        """Refuse what this engine cannot serve, instead of serving it on a
+        path that ignores it: a ``mesh_shape`` that is not the model's mesh,
+        a cache dtype that is neither int8 nor a float dtype, and on the card
+        a float cache dtype no attention kernel takes
+        (:func:`cuda_cache_refusal`)."""
         mesh = getattr(model, "mesh", None)
         shape = (1, 1) if mesh is None else (mesh.axis_size(AXIS_DATA), mesh.size
                                              // mesh.axis_size(AXIS_DATA))
-        unported = {
-            "cache_dtype": cfg.cache_dtype not in (None, "int8", model.config.dtype),
-            "mesh_shape": tuple(cfg.mesh_shape) not in ((1, 1), shape),
-        }
-        if mesh is not None:
-            unported.update({
-                "num_host_blocks": cfg.num_host_blocks > 0,
-                "kv_persist_dir": bool(cfg.kv_persist_dir),
-                "spec_tokens": cfg.spec_tokens > 0 or draft is not None,
-                "lookahead_dispatch": cfg.lookahead_dispatch,
-            })
-        bad = [name for name, on in unported.items() if on]
-        if bad:
+        if tuple(cfg.mesh_shape) not in ((1, 1), shape):
             where = " on a mesh" if mesh is not None else ""
-            raise ValueError(
-                f"EngineConfig options not supported by the PyTorch engine{where}: {bad}")
+            raise ValueError(f"EngineConfig options not supported by the PyTorch engine{where}: "
+                             "['mesh_shape']")
+        resolve_cache_dtype(cfg.cache_dtype)
+        if torch.device(device).type == "cuda":
+            why = cuda_cache_refusal(model.config.dtype, cfg.cache_dtype)
+            if why:
+                raise ValueError(why)
 
     def _send(self, op: str, *payload) -> None:
         """Broadcast one operation to the shard followers (nothing off a
@@ -1700,8 +1728,9 @@ class EngineCore:
         up = self._up
         kind = "unified_burst" if burst else "unified"
         host = (tokens, positions, bt, seq_lens, slot_idx, seq_ids, starts, roff, last_idx)
-        if burst:  # lookahead is refused on a mesh (A10b): a burst is never broadcast
-            args = (self.model, self.cache) + tuple(up(a) for a in host + (limits,))
+        if burst:
+            args = (self.model, self.cache) + self._fwd(
+                unified_burst_step, host + (limits,), num_steps=k_steps, block_size=bs, **statics)
         else:
             args = (self.model, self.cache) + self._fwd(unified_token_step, host, **statics)
         sampling = (self._gen, up(temp), up(top_k), up(top_p))
@@ -2055,7 +2084,7 @@ class EngineCore:
         extras = self._sampling_extras(rows, rows=[r.slot for r in rows])
         k_cand = self._k_cand(rows)
         tl.mark("host_build")
-        args = (up(tokens), up(positions), up(bt[:, :m_used]), up(seq_lens), up(slot_idx))
+        args = self._fwd(spec_verify_step, (tokens, positions, bt[:, :m_used], seq_lens, slot_idx))
         samp = (up(temp), up(top_k), up(top_p))
         tl.mark("upload")
         if self.perf_model.wants("spec_verify"):
@@ -2067,7 +2096,7 @@ class EngineCore:
         packed = spec_verify_step(
             self.model, self.cache, *args, self._gen, *samp, min_p=extras.get("min_p"),
             seeds=extras.get("seeds"), seed_rows=extras.get("seed_rows"), k_cand=k_cand)
-        tl.mark("dispatch", kind="spec_verify")
+        self._mark_dispatch("spec_verify")
         verified = self._read(packed)
         tl.mark("readback")
         self.steps += 1
@@ -2537,7 +2566,16 @@ class EngineCore:
     def _snapshot(self, block_ids: list[int]):
         """The blocks gathered block-major, ``[n, L, 2, Bs, HkD]`` per part
         (one gather kernel a part, through the cache's ``[N, L, ...]``
-        view), so the copy to the host is one contiguous memcpy a part."""
+        view), so the copy to the host is one contiguous memcpy a part.
+
+        On a mesh these are the whole blocks one card would hold: every
+        rank's kv heads gathered onto rank 0 (a ``("gather", ids)``
+        follower operation, broadcast before any later write into the
+        ids), so the host pool and the persist files hold the same blocks
+        at every layout."""
+        if self.mesh is not None:
+            structure, parts = flatten_blocks(self.gather_blocks_device(block_ids))
+            return unflatten_blocks(structure, [p.movedim(1, 0).contiguous() for p in parts])
         ids = torch.as_tensor(block_ids, dtype=torch.long, device=self.device)
         structure, parts = flatten_blocks(self.cache)
         return unflatten_blocks(structure, [p.movedim(1, 0).index_select(0, ids) for p in parts])
@@ -2691,7 +2729,9 @@ class EngineCore:
             hit = self.host_pool.match_prefix(want)
             if not hit:
                 return
-            if self.device.type == "cuda":
+            # on a mesh the whole blocks travel to the followers from the
+            # host (scatter_external): no upload to rank 0's card first
+            if self.device.type == "cuda" and self.mesh is None:
                 out = [torch.empty((len(hit),) + shape, dtype=dt, device=self.device)
                        for shape, dt in self.host_pool.part_specs()]
                 start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -2781,7 +2821,7 @@ class EngineCore:
                 raise ValueError("an int8 cache takes (data, scale) blocks")
             parts = QuantKvCache(*parts)
         elif len(parts) != 1:
-            raise ValueError(f"a {self.model.config.dtype} cache takes one block tensor, "
+            raise ValueError(f"a {self.cache.dtype} cache takes one block tensor, "
                              f"not {len(parts)} parts")
         else:
             parts = parts[0]

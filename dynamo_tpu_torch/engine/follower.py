@@ -21,8 +21,9 @@ The operations, tuples rank 0 broadcasts with ``Mesh.broadcast_object``:
 * ``("step", name, host_arrays, statics)`` — one dispatch, a
   ``engine/core.py::STEP_FNS`` function on the uploaded arrays;
 * ``("scatter", block_ids, parts)`` — write this rank's kv heads of
-  handed-off whole blocks; ``("gather", block_ids)`` — take part in a
-  gather of blocks for a handoff out;
+  handed-off or restored whole blocks; ``("gather", block_ids)`` — take
+  part in a gather of whole blocks onto rank 0, for a handoff out or an
+  offload to the host tier;
 * ``("call", "module:function", args)`` — ``function(ctx, *args)`` on every
   rank (``ctx`` is the follower: ``.mesh``, ``.model``, ``.cache``,
   ``.device``), for per-rank work that is not a dispatch (the tests' and

@@ -56,7 +56,8 @@ from torch import nn
 from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.models.llama import grouped_expert_dispatch, rms_norm, rope_inv_freq
 from dynamo_tpu_torch.models.quant import prune_specs, shard_cutter
-from dynamo_tpu_torch.ops.kv_quant import QuantKvCache, gather_layer_blocks, is_quant, scale_tile
+from dynamo_tpu_torch.ops.kv_quant import (QuantKvCache, gather_layer_blocks, is_quant,
+                                           resolve_cache_dtype, scale_tile)
 from dynamo_tpu_torch.ops.paged_attention import paged_attention, write_kv_cache_layer
 from dynamo_tpu_torch.utils.mesh import AXIS_MODEL, AXIS_SP
 
@@ -307,6 +308,11 @@ class DeepseekModel(nn.Module):
     def partition_specs(self) -> dict[str, tuple]:
         return partition_specs(self.config)
 
+    def full_shapes(self) -> dict[str, tuple[int, ...]]:
+        """Every parameter's shape in the whole model, by state name (a mesh
+        rank holds slices of them)."""
+        return param_shapes(self.config)
+
     def cache_spec(self, quant: bool = False):
         """The absorbed cache holds ONE latent row per token, the same on
         every rank: nothing to split.  The expanded oracle's per-head rows
@@ -349,13 +355,14 @@ class DeepseekModel(nn.Module):
         cfg = self.config
         hk = self.kv_heads()[1]
         shape = (cfg.num_layers, num_blocks, 2, block_size, hk * cfg.head_dim)
-        if str(dtype) in ("int8", "torch.int8"):
+        dt = resolve_cache_dtype(dtype)
+        if dt == "int8":
             hp, sp = scale_tile(hk, block_size)
             return QuantKvCache(
                 torch.zeros(shape, dtype=torch.int8, device=self.device),
                 torch.ones((cfg.num_layers, num_blocks, 2, hp, sp), dtype=torch.float32,
                            device=self.device))
-        if dtype is not None and str(dtype).replace("torch.", "") != cfg.dtype:
+        if dt not in (None, cfg.torch_dtype):
             raise NotImplementedError(f"MLA cache dtype {dtype!r}")
         return torch.zeros(shape, dtype=cfg.torch_dtype, device=self.device)
 

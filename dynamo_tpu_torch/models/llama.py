@@ -57,7 +57,7 @@ from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.models.quant import (
     CHANNEL_AXES, QTensor, align_specs, dequantize, grouped_matmul, matmul, prune_specs,
     shard_cutter, stacked_channel_axes, take_rows)
-from dynamo_tpu_torch.ops.kv_quant import QuantKvCache, scale_tile
+from dynamo_tpu_torch.ops.kv_quant import QuantKvCache, resolve_cache_dtype, scale_tile
 from dynamo_tpu_torch.ops.paged_attention import (
     paged_attention_layer,
     prefill_attention,
@@ -329,6 +329,11 @@ class LlamaModel(nn.Module):
     def partition_specs(self) -> dict[str, tuple]:
         return partition_specs(self.config)
 
+    def full_shapes(self) -> dict[str, tuple[int, ...]]:
+        """Every parameter's shape in the whole model, by state name (a mesh
+        rank holds slices of them)."""
+        return param_shapes(self.config, self.quantized)
+
     def cache_spec(self, quant: bool = False):
         """The cache's split over "model": the trailing axis is
         kv-head-major, so splitting it gives each rank whole kv heads
@@ -353,19 +358,21 @@ class LlamaModel(nn.Module):
         rank's kv heads on a mesh).
 
         ``dtype="int8"`` gives a :class:`QuantKvCache`: an int8 payload of
-        that layout and a scale pool ``[L, N, 2, Hp, Sp]`` of ones."""
+        that layout and a scale pool ``[L, N, 2, Hp, Sp]`` of ones.  Any
+        other float dtype (a name or a ``torch.dtype``) is allocated as
+        given, as in the JAX package: the cache write casts the fresh K/V
+        to it and the plain attention ops read it back in f32."""
         cfg = self.config
         hk = self.heads[1]
         shape = (cfg.num_layers, num_blocks, 2, block_size, hk * cfg.head_dim)
-        if str(dtype) in ("int8", "torch.int8"):
+        dt = resolve_cache_dtype(dtype)
+        if dt == "int8":
             hp, sp = scale_tile(hk, block_size)
             return QuantKvCache(
                 torch.zeros(shape, dtype=torch.int8, device=self.device),
                 torch.ones((cfg.num_layers, num_blocks, 2, hp, sp), dtype=torch.float32,
                            device=self.device))
-        if dtype is not None and str(dtype).replace("torch.", "") != cfg.dtype:
-            raise ValueError(f"a KV cache is int8 or the model's dtype {cfg.dtype}, not {dtype}")
-        return torch.zeros(shape, dtype=cfg.torch_dtype, device=self.device)
+        return torch.zeros(shape, dtype=dt or cfg.torch_dtype, device=self.device)
 
     # ---------------------------------------------------------------- forward
     @torch.no_grad()

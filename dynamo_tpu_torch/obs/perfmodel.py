@@ -18,7 +18,10 @@ the port's records uses: the larger of
                           and layer (4·H·D when the two head dims agree)
 
 with the rates of ``obs/topology.py`` (the H100 SXM datasheet peaks).  A
-kind is priced at its first offer, as in the JAX package.
+kind is priced at its first offer, as in the JAX package.  The basis is
+the whole model on every layout: on a rank mesh, rank 0 prices the whole
+model's weights, heads and KV bytes (what one card would move), as the
+JAX package's trace of the global shapes does, not its own slice.
 
 ``reconcile(timeline)`` joins the predictions with a step timeline's
 per-kind measured dispatch seconds into the rows ``/metrics`` renders as
@@ -35,6 +38,7 @@ the engine: a pricing failure is recorded as None.
 
 from __future__ import annotations
 
+import math
 import threading
 from dataclasses import dataclass
 from typing import Optional
@@ -72,33 +76,42 @@ def model_shapes(model, kv_bytes_per_token: int) -> ModelShapes:
     """Read :class:`ModelShapes` off a port model's weights and config.
     Weight matrices are the stacked per-layer tensors (``[L, K, N]``), the
     routed experts' ``[L, E, K, N]``; the embedding is a gather, not read
-    whole, unless it doubles as the lm_head."""
+    whole, unless it doubles as the lm_head.
+
+    Every term is the whole model's, as the JAX package traces the global
+    shapes: each parameter's size is read off the model's whole shapes
+    (``full_shapes``; a mesh rank holds slices of them), beside the whole
+    model's heads and ``kv_bytes_per_token`` (every kv head).  Buffers
+    (``inv_freq``) are not in ``full_shapes`` and are read as they are."""
     cfg = model.config
     named = dict(model.named_parameters())
     named.update(dict(model.named_buffers()))
+    full = model.full_shapes()
     head_name = "lm_head" if "lm_head" in named else "embed"
     body = head = expert = 0
     wbytes = ebytes = 0
     experts = 0
     for name, t in named.items():
-        nbytes = t.numel() * t.element_size()
+        shape = full.get(name, tuple(t.shape))
+        numel = math.prod(shape)
+        nbytes = numel * t.element_size()
         base = name.rsplit(".", 1)[-1].removesuffix("_scale")
         if base == head_name:
             wbytes += nbytes
             if not name.endswith("_scale"):
-                head = t.numel()
+                head = numel
             continue
         if base in ("embed", "inv_freq"):
             continue
-        if t.dim() == 4:  # [L, E, K, N]: routed experts
+        if len(shape) == 4:  # [L, E, K, N]: routed experts
             ebytes += nbytes
             if not name.endswith("_scale"):
-                expert += t.numel()
-                experts = t.shape[1]
+                expert += numel
+                experts = shape[1]
             continue
         wbytes += nbytes
-        if t.dim() == 3 and not name.endswith("_scale"):
-            body += t.numel()
+        if len(shape) == 3 and not name.endswith("_scale"):
+            body += numel
     qk = getattr(cfg, "head_dim", None) or (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim)
     v = getattr(cfg, "v_head_dim", None) or qk
     return ModelShapes(

@@ -23,7 +23,7 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["QuantKvCache", "scale_tile", "pad_scales", "is_quant", "quantize_kv_rows",
+__all__ = ["QuantKvCache", "resolve_cache_dtype", "scale_tile", "pad_scales", "is_quant", "quantize_kv_rows",
            "dequant_layer_slice", "gather_layer_blocks", "cache_data", "check_quant_cache"]
 
 
@@ -32,6 +32,21 @@ class QuantKvCache(NamedTuple):
 
     data: torch.Tensor   # [L, N, 2, Bs, Hk*D] int8
     scale: torch.Tensor  # [L, N, 2, Hp, Sp] f32, token-minor; valid [..., :Hk, :Bs]
+
+
+def resolve_cache_dtype(dtype):
+    """A KV cache dtype, given as a name or a ``torch.dtype``, resolved to
+    None (the model's dtype), ``"int8"`` (a :class:`QuantKvCache`) or a
+    float ``torch.dtype``; anything else raises."""
+    if dtype is None:
+        return None
+    name = str(dtype).replace("torch.", "")
+    if name == "int8":
+        return "int8"
+    dt = getattr(torch, name, None)
+    if isinstance(dt, torch.dtype) and dt.is_floating_point:
+        return dt
+    raise ValueError(f"cache_dtype {dtype!r} is neither int8 nor a float dtype")
 
 
 def scale_tile(hk: int, bs: int) -> tuple[int, int]:

@@ -34,15 +34,17 @@ async def amain(graph: str, service_name: str) -> None:
     entry = getattr(importlib.import_module(mod_name), attr)
     svc = next(s for s in entry.closure(mod_name) if s.name == service_name)
 
-    cfg = RuntimeConfig(coordinator_url=os.environ["DYNTPU_COORDINATOR"])
-    runtime = await DistributedRuntime.connect(cfg)
-    obj = await serve_service(svc, runtime, ServiceConfig.from_env(), graph=mod_name)
-    log.info("%s serving (pid %s)", service_name, os.getpid())
-
+    # the handlers go in before the service does: a stop that arrives
+    # while the service starts (it may already answer requests) drains it
+    # once it is up instead of killing the process
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()
     for sig in (signal.SIGTERM, signal.SIGINT):
         loop.add_signal_handler(sig, stop.set)
+    cfg = RuntimeConfig(coordinator_url=os.environ["DYNTPU_COORDINATOR"])
+    runtime = await DistributedRuntime.connect(cfg)
+    obj = await serve_service(svc, runtime, ServiceConfig.from_env(), graph=mod_name)
+    log.info("%s serving (pid %s)", service_name, os.getpid())
     await stop.wait()
     # graceful drain: discovery keys go first so routing stops sending
     # work, in-flight streams finish, then the transport stops — a

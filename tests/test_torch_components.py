@@ -18,6 +18,7 @@
 
 import asyncio
 import copy
+import dataclasses
 import json
 import signal
 import subprocess
@@ -153,9 +154,23 @@ def test_metrics_service_fed_by_mock_workers_of_both_packages():
                 await w1.stop()
                 await w2.stop()
                 await sub.stop()
-            # both workers' last metrics, as each published them
-            last = {1: w1.metrics.snapshot(), 2: None}
-            await asyncio.sleep(0.2)
+            # both workers' last metrics, as each published them: wait until
+            # both collectors hold them, and hold the same for each worker
+            last = {1: w1.metrics.snapshot(), 2: w2.metrics.snapshot()}
+
+            def published(m):  # what a worker sent, not when it arrived
+                return {k: v for k, v in dataclasses.asdict(m).items() if k != "updated_at"}
+
+            def settled():
+                held = [svc.collector.workers for svc in (port_svc, jax_svc)]
+                return all(
+                    w in held[0] and w in held[1]
+                    and published(held[0][w]) == published(held[1][w])
+                    and (held[0][w].kv_active_blocks, held[0][w].kv_total_blocks)
+                    == (m.kv_active_blocks, m.kv_total_blocks)
+                    for w, m in last.items())
+
+            await _wait_for(settled)
             bodies = []
             async with ClientSession() as s:
                 for svc in (port_svc, jax_svc):

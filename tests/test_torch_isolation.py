@@ -88,11 +88,11 @@ def test_entry_points_raise_without_a_device(no_cuda):
 
 
 def test_engine_refuses_unported_options():
-    """On a mesh of more than one rank the host-offload and persist tiers,
-    speculation and lookahead dispatch stay refused by name (ROADMAP A10b),
-    as does a mesh_shape that is not the model's mesh.  The refusal comes
-    before any collective, so a 2-rank mesh with no world behind it is
-    enough here."""
+    """A mesh_shape that is not the model's mesh is refused by name, on one
+    rank and on a mesh.  The host-offload and persist tiers, speculation and
+    lookahead dispatch are served on a mesh of more than one rank: the
+    engine accepts them.  The check comes before any collective, so a
+    2-rank mesh with no world behind it is enough here."""
     from dynamo_tpu_torch.utils.mesh import MESH_AXES, Mesh
 
     cfg = ModelConfig.tiny()
@@ -103,11 +103,39 @@ def test_engine_refuses_unported_options():
     mesh = Mesh(MESH_AXES, (1, 2))
     state = init_params(cfg, torch.Generator(), device="cpu", mesh=mesh)
     sharded = LlamaModel.from_state(cfg, state, mesh=mesh)
+    with pytest.raises(ValueError, match=r"on a mesh: \['mesh_shape'\]"):
+        EngineCore(sharded, EngineConfig(max_model_len=64, num_blocks=8, mesh_shape=(2, 1)),
+                   device="cpu")
     for opt in (dict(num_host_blocks=8), dict(num_host_blocks=8, kv_persist_dir="/nonexistent"),
-                dict(spec_tokens=2), dict(lookahead_dispatch=True)):
-        with pytest.raises(ValueError, match=f"on a mesh: .*{next(iter(opt))}"):
-            EngineCore(sharded, EngineConfig(max_model_len=64, num_blocks=8, **opt),
-                       device="cpu")
+                dict(spec_tokens=2), dict(lookahead_dispatch=True), dict(cache_dtype="bfloat16")):
+        EngineCore._check_supported(sharded, EngineConfig(max_model_len=64, num_blocks=8, **opt),
+                                    "cpu")
+
+
+@pytest.mark.parametrize("model_dtype,cache_dtype,refused", [
+    ("bfloat16", "float16", True), ("bfloat16", "float32", True), ("float32", "bfloat16", True),
+    ("float32", "float16", True), ("bfloat16", None, False), ("bfloat16", "bfloat16", False),
+    ("bfloat16", "int8", False), ("float32", "int8", False), ("bfloat16", torch.float16, True)])
+def test_cuda_engine_refuses_a_cache_dtype_no_kernel_takes(model_dtype, cache_dtype, refused):
+    """On the card a float cache dtype other than the model's is refused at
+    construction, by name and with "no kernel": the attention kernels take a
+    bf16 cache under bf16 queries or an int8 cache, and nothing falls back
+    to the plain ops.  The CPU serves every one of them.  Checked without a
+    card, on the construction check itself."""
+    from dynamo_tpu_torch.engine.core import cuda_cache_refusal
+
+    cfg = ModelConfig(**{**vars(ModelConfig.tiny()), "dtype": model_dtype})
+    model = LlamaModel(cfg, device="meta")
+    ecfg = EngineConfig(max_model_len=64, num_blocks=8, cache_dtype=cache_dtype)
+    EngineCore._check_supported(model, ecfg, "cpu")
+    why = cuda_cache_refusal(model_dtype, cache_dtype)
+    assert bool(why) == refused
+    if not refused:
+        EngineCore._check_supported(model, ecfg, torch.device("cuda", 0))
+        return
+    name = str(cache_dtype).replace("torch.", "")
+    with pytest.raises(ValueError, match=rf"cache_dtype '{name}' on cuda: no kernel takes"):
+        EngineCore._check_supported(model, ecfg, torch.device("cuda", 0))
 
 
 def _meta(*shape, dtype=torch.bfloat16):
