@@ -101,15 +101,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``PrefillWorker``, both on the default path and sharing the model.  On
    bf16: the colocated path (blocks copied on the card), the six prompts
    one at a time (a1; the concurrent colocated run is left out to keep the
-   script inside its time); on int8 (weights and cache, Bs = 32): over TCP,
-   one at a time (d1), and concurrently through the streamed layer-wise
-   handoff (d: ``DYN_KV_TRANSFER_FORCE_TCP=1``, a prefill engine in
-   256-token chunks; the bf16 streamed run c was cut to keep the script
-   inside its time).  The blocking bf16 handoff over TCP and
+   script inside its time), and concurrently through the streamed
+   layer-wise handoff over TCP (c: ``DYN_KV_TRANSFER_FORCE_TCP=1``, a
+   prefill engine in 256-token chunks); on int8 (weights and cache,
+   Bs = 32): over TCP, one at a time (d1), and concurrently streamed as c
+   (d).  The blocking bf16 handoff over TCP and
    HTTP through a decode worker are the front-door phase's ``graphs`` run,
    where the prefill worker is a process of its own.
    Each run on a fresh engine pair: its blocks moved only on its path
-   (``transfer.stats``), (d) sent
+   (``transfer.stats``), (c) and (d) sent
    layers without a fallback, the int8 runs' parts int8 + float32, the decode
    engine made no prefill dispatch and the prefill engine no decode turn,
    the launches are its model's default-path kernels and no other, every
@@ -4215,6 +4215,7 @@ DISAGG_RUNS = {
     # label: (cache, path, streamed, one request at a time); every run on a
     # fresh engine pair, so no run hits another's prefix cache
     "a1": ("bf16", "colocated", False, True),
+    "c": ("bf16", "tcp", True, False),
     "d1": ("int8", "tcp", False, True),
     "d": ("int8", "tcp", True, False),
 }
@@ -4307,9 +4308,9 @@ def disagg_phase(torch, model, local: dict, card: str, quant: bool = False) -> d
     return runs
 
 
-# ``--disagg-soak``: the concurrent streamed bf16 handoff over TCP (bf16,
-# tcp, streamed, concurrent: the run DISAGG_RUNS no longer holds), repeated;
-# a run that outlasts DISAGG_SOAK_RUN_S dumps every thread's stack and exits
+# ``--disagg-soak``: the concurrent streamed bf16 handoff over TCP (run c of
+# DISAGG_RUNS), repeated; a run that outlasts DISAGG_SOAK_RUN_S dumps every
+# thread's stack and exits
 DISAGG_SOAK_RUN_S = 180
 
 

@@ -1,6 +1,7 @@
 """The port's command line: ``run``, ``coordinator``, ``http``, ``router``,
 ``models``, ``trace``, ``quantize``, ``serve``, ``package``, ``planner``,
-``metrics``, ``mock-worker``, ``deploy``, ``operator`` and ``api-store``.
+``metrics``, ``mock-worker``, ``deploy``, ``operator``, ``api-store`` and
+``lint``.
 
     python -m dynamo_tpu_torch run in=<http|text:PROMPT|stdin|batch:FILE|dyn://NS.COMP.EP> \\
         out=<gpu|echo|dyn://NS.COMP.EP> --model-path DIR [options]
@@ -89,6 +90,12 @@ The control plane's components:
   ``kubectl`` (``--dry-run``: an in-memory cluster), with live phases and
   autoscaling given ``--coordinator``;
 * ``api-store`` serves the versioned graph and package registry.
+
+``lint --proto`` runs the protocol plane (``analysis/protocheck.py``): the
+control plane's scenarios under seeded schedules and crash points, against
+the committed ``analysis/proto_manifest.json`` (``--replay TOKEN``,
+``--changed``, ``--update-baseline``, ``--format json``).  The JAX
+command's other planes exit 2, not yet ported.
 """
 
 from __future__ import annotations
@@ -1251,6 +1258,12 @@ def _parser() -> argparse.ArgumentParser:
     trace.add_argument("-o", "--out", default=None,
                        help="write the JSON here instead of stdout")
 
+    from dynamo_tpu_torch.analysis.cli import configure_parser as _lint_parser
+
+    _lint_parser(sub.add_parser(
+        "lint", help="the analysis planes (so far the protocol plane, --proto); exit 1 on "
+        "non-accepted findings"))
+
     serve = sub.add_parser("serve", help="serve a graph of @service components, one process "
                            "per service worker")
     serve.add_argument("graph", nargs="?", default="-",
@@ -1348,6 +1361,11 @@ _COMMANDS = {"run": _cmd_run, "http": _cmd_http, "coordinator": _cmd_coordinator
 def main(argv: Optional[list[str]] = None) -> None:
     logging.basicConfig(level=logging.INFO, stream=sys.stderr)
     args = parse_args(argv)
+    if args.cmd == "lint":
+        # synchronous: the protocol plane runs its own deterministic loops
+        from dynamo_tpu_torch.analysis.cli import run_lint
+
+        raise SystemExit(run_lint(args))
     if getattr(args, "trace", False) is True:
         from dynamo_tpu_torch.obs import tracing
 

@@ -70,29 +70,42 @@ class AsyncLLMEngine(AsyncEngine):
             import torch
 
             torch.cuda.set_device(self.core.device)
-        while not self._shutdown:
-            try:
-                did_work = self.core.step()
-            except Exception as e:
-                log.exception("engine step failed; failing in-flight requests")
-                self.core.fail_all()
-                did_work = False
-                if getattr(self.core, "mesh", None) is not None:
-                    # a broken world: every later collective would fail too
-                    self.error = e
-                    self._shutdown = True
-                    if self.on_fatal is not None:
-                        self.on_fatal(e)
-                    return
-            if not did_work:
-                self._wake.wait(timeout=0.05)
-                self._wake.clear()
+        try:
+            while not self._shutdown:
+                try:
+                    did_work = self.core.step()
+                except Exception as e:
+                    log.exception("engine step failed; failing in-flight requests")
+                    self.core.fail_all()
+                    did_work = False
+                    if getattr(self.core, "mesh", None) is not None:
+                        # a broken world: every later collective would fail too
+                        self.error = e
+                        self._shutdown = True
+                        if self.on_fatal is not None:
+                            self.on_fatal(e)
+                        return
+                if not did_work:
+                    self._wake.wait(timeout=0.05)
+                    self._wake.clear()
+        finally:
+            # no step boundary will come: an operation still queued would
+            # leave its awaiter waiting forever
+            self.core.fail_pending_ops(self._stopped_error())
+
+    def _stopped_error(self) -> RuntimeError:
+        return RuntimeError(f"the engine stopped{f' ({self.error!r})' if self.error else ''} "
+                            "before running the operation")
 
     async def run_on_engine(self, fn):
         """Run ``fn`` on the engine thread at a step boundary (cache/block
-        bookkeeping must stay single-writer); await its result."""
+        bookkeeping must stay single-writer); await its result.  Raises
+        once the engine thread has stopped (shutdown or a fatal step)."""
         fut = self.core.run_on_step(fn)
         self._wake.set()
+        if self._shutdown:
+            # the thread may have drained its queue before this put
+            self.core.fail_pending_ops(self._stopped_error())
         return await asyncio.wrap_future(fut)
 
     # ---------------------------------------------------------------- generate

@@ -993,6 +993,17 @@ class EngineCore:
         self._ops.put((fn, fut))
         return fut
 
+    def fail_pending_ops(self, error: BaseException) -> None:
+        """Fail every queued :meth:`run_on_step` operation with ``error``:
+        the engine thread has stopped, and no step boundary will run them."""
+        while True:
+            try:
+                _fn, fut = self._ops.get_nowait()
+            except queue.Empty:
+                return
+            if fut.set_running_or_notify_cancel():
+                fut.set_exception(error)
+
     def has_work(self) -> bool:
         return (
             not self.waiting.empty()

@@ -767,7 +767,18 @@ class CoordinatorServer:
         try:
             return await asyncio.wait_for(fut, timeout)
         except asyncio.TimeoutError:
+            # a delivery that landed in the loop turn the timeout fired is
+            # the puller's: wait_for cancels this task after the future
+            # already holds the item, and dropping it loses the message
+            # (its pusher's request then waits forever)
+            if fut.done() and not fut.cancelled():
+                return fut.result()
             return None
+        except asyncio.CancelledError:
+            # the pull itself was cancelled: hand a delivered item on
+            if fut.done() and not fut.cancelled():
+                self._queue_deliver(queue, fut.result())
+            raise
 
 
 # ============================================================ client ==========

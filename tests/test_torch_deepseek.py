@@ -12,9 +12,10 @@ shared), f32 on both sides, the same seeded numpy inputs:
   expanded cache forms;
 * the MoE block, greedy and group-limited routing, within 2e-4 (expert ids
   exact, weights within 1e-6);
-* the int8 cache: codes equal to JAX's, scales within 1e-5, logits within
-  ``tests/test_deepseek.py``'s int8 tolerance of the JAX int8 forward, and
-  the same greedy token as the f32 cache;
+* the int8 cache: codes equal to JAX's (within one code at a .5 rounding
+  tie), scales within 1e-5, logits within ``tests/test_deepseek.py``'s int8
+  tolerance of the JAX int8 forward, and the same greedy token as the f32
+  cache;
 * ``EngineCore`` greedy streams token-identical to the JAX engine's with an
   f32 cache, an int8 cache, and ``prefill_token_budget`` (which this family
   serves on the per-request path in both packages), and JSON-mode, choice,
@@ -29,6 +30,7 @@ fixtures, so their cost is set-up, not a test's call.
 """
 
 import dataclasses
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -51,6 +53,10 @@ LOGIT_ATOL = 2e-4
 ROPE_ATOL = 1e-6
 WEIGHT_ATOL = 1e-6
 SCALE_ATOL = 1e-5
+# int8 codes: the band around a .5 rounding tie (in code units) inside which
+# a code may differ from JAX's by one, and the most of a layer's codes that
+# may sit in it
+TIE_BAND, TIE_CAP = 1e-3, 0.01
 INT8_ATOL, INT8_RTOL = 0.15, 0.1  # tests/test_deepseek.py's int8-cache bounds
 BLOCK = 16
 PROMPT = [3, 17, 9, 41, 5, 88, 23, 7, 60, 11]
@@ -274,11 +280,48 @@ def int8_refs():
     return out
 
 
+def _tie_mask(pre, data, s):
+    """Where the cache ``data`` ``[L, N, 2, Bs, Hk*D]`` holds a code whose
+    f32 value before rounding (``pre``: one ``[1, S, Hk, D]`` array of
+    ``x / scale`` per K or V write, layer by layer) lies within TIE_BAND
+    code units of a .5 tie."""
+    tie = np.zeros(data.shape, bool)
+    for c, val in enumerate(pre):
+        li, kv = divmod(c, 2)
+        near = np.abs(np.abs(val - np.floor(val)) - 0.5) <= TIE_BAND
+        rows = tie[li][:, kv].reshape(-1, data.shape[-1])
+        rows[:s] = near.reshape(s, -1)
+        tie[li][:, kv] = rows.reshape(tie[li][:, kv].shape)
+    return tie
+
+
 @pytest.mark.parametrize("attn_impl", IMPLS)
-def test_int8_cache_matches_jax(int8_refs, attn_impl):
+def test_int8_cache_matches_jax(int8_refs, attn_impl, monkeypatch):
+    """The int8 codes: exactly JAX's at layer 0 and wherever the f32 value
+    before rounding is farther than TIE_BAND code units from a .5 tie;
+    within one code at such a tie, where at most TIE_CAP of a layer's codes
+    may sit.  The f32 K/V rows going in differ from JAX's by a few ulp (the
+    matmuls' accumulation order; rel 1.3e-7 at layer 0, 4.9e-7 at layer
+    2), and round half to even cannot hold that at a tie."""
     tree, ref, jcache, ref_f32 = int8_refs[attn_impl]
+    pa = sys.modules[ds.write_kv_cache_layer.__module__]
+    real, pre = pa.quantize_kv_rows, []
+
+    def recording(x):
+        q, scale = real(x)
+        pre.append((x.float() / scale[..., None]).numpy())
+        return q, scale
+
+    monkeypatch.setattr(pa, "quantize_kv_rows", recording)
     got, cache = _port_paged(_port(_configs(attn_impl)[1], tree), PROMPT, "int8")
-    np.testing.assert_array_equal(cache.data.numpy(), jcache.data)
+    data, jdata = cache.data.numpy(), np.asarray(jcache.data)
+    assert len(pre) == 2 * data.shape[0]
+    np.testing.assert_array_equal(data[0], jdata[0])
+    tie = _tie_mask(pre, data, len(PROMPT))
+    for li in range(data.shape[0]):
+        assert tie[li].mean() <= TIE_CAP, (li, int(tie[li].sum()))
+    np.testing.assert_array_equal(data[~tie], jdata[~tie])
+    assert np.abs(data[tie].astype(np.int32) - jdata[tie]).max(initial=0) <= 1
     np.testing.assert_allclose(cache.scale.numpy(), jcache.scale, atol=SCALE_ATOL)
     np.testing.assert_allclose(got, ref, atol=INT8_ATOL, rtol=INT8_RTOL)
     assert int(np.argmax(got[-1])) == int(np.argmax(ref_f32[-1]))

@@ -21,6 +21,8 @@ int8 cache, and each stream equals the JAX engine's local one.
 
 import asyncio
 import contextlib
+import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -344,11 +346,40 @@ def _ctx(prompt, n):
                                 stops=StopConditions(max_tokens=n)))
 
 
-async def _disagg_run(model, prompt, n, *, stream, chunk=16, sever_at=None, cache_dtype=None):
+# the longest the prefill engine holds its last chunk for the first layer
+# frame (seconds); a handoff that streams only after compute waits it out
+HOLD_LAST_CHUNK_S = 10.0
+
+
+def _hold_last_chunk(core, chunk: int, first_layer: threading.Event, hold: dict) -> None:
+    """Keep ``core`` from dispatching a request's last prefill chunk until
+    ``first_layer`` is set (the decode side's server took a layer frame) or
+    HOLD_LAST_CHUNK_S has passed (``hold["gave_up"]``).  The engine thread
+    goes on stepping meanwhile, so the stream's gathers still run."""
+    real = core._prefill_ready
+    hold["gave_up"] = False
+
+    def ready(req):
+        if not real(req):
+            return False
+        if req.prompt_len - req.computed_tokens > chunk or first_layer.is_set():
+            return True
+        deadline = hold.setdefault("deadline", time.monotonic() + HOLD_LAST_CHUNK_S)
+        if time.monotonic() < deadline:
+            return False
+        hold["gave_up"] = True
+        return True
+
+    core._prefill_ready = ready
+
+
+async def _disagg_run(model, prompt, n, *, stream, chunk=16, sever_at=None, cache_dtype=None,
+                      hold=None):
     """One in-process disagg generation on a fresh coordinator and engine
     pair (chunked prefill), streamed or blocking, optionally severing the
-    connection at the ``sever_at``-th layer frame.  Returns (tokens, root
-    span)."""
+    connection at the ``sever_at``-th layer frame, or (``hold``, a dict the
+    run fills) holding the prefill's last chunk until the first layer frame
+    has landed (:func:`_hold_last_chunk`).  Returns (tokens, root span)."""
     ctx = _ctx(prompt, n)
     srv = await CoordinatorServer(port=0).start()
     decode_engine = _engine(model, cache_dtype=cache_dtype)
@@ -371,6 +402,16 @@ async def _disagg_run(model, prompt, n, *, stream, chunk=16, sever_at=None, cach
                 return None
 
             worker._transfer.fault_hook = hook
+        if hold is not None:
+            first_layer = threading.Event()
+
+            def mark(frame):
+                if frame["type"] == TransferOp.WRITE_LAYER:
+                    first_layer.set()
+                return None
+
+            worker._transfer.fault_hook = mark
+            _hold_last_chunk(prefill_engine.core, chunk, first_layer, hold)
         prefill = PrefillWorker(prefill_engine, c_pre, "kvs", stream=stream)
         prefill_task = asyncio.ensure_future(prefill.run())
         root = tracing.start_span("http.request", attrs={"request_id": ctx.id})
@@ -407,8 +448,12 @@ def _span_descendants(spans, root_id):
 
 def test_disagg_streamed_parity_and_overlap(models, force_tcp, traced):
     """The streamed handoff gives the blocking push's tokens (the JAX
-    engine's local stream) and overlaps: the first layer frame is on the
-    wire before the prefill engine's generate span closes."""
+    engine's local stream) and overlaps: with the prefill engine's last
+    chunk held until the decode side's server has taken the first layer
+    frame (at most HOLD_LAST_CHUNK_S), that frame lands while compute is
+    still to come, so before the prefill engine's generate span closes.  A
+    handoff that sends only after compute never lands a frame during the
+    hold and fails."""
     _, _, model = models
     prompt = np.random.default_rng(5).integers(1, 256, size=64).tolist()
     expected = jax_local(models, prompt, 6)
@@ -418,8 +463,10 @@ def test_disagg_streamed_parity_and_overlap(models, force_tcp, traced):
     kv_stream_counters.reset()
     transfer_costs.reset()
     tracing.collector.reset()
-    toks_streamed, root = run(_disagg_run(model, prompt, 6, stream=True))
+    hold = {}
+    toks_streamed, root = run(_disagg_run(model, prompt, 6, stream=True, hold=hold))
     assert toks_streamed == expected
+    assert not hold["gave_up"], "no layer frame landed while the last chunk was held"
     assert kv_stream_counters.sessions_total == 1
     assert kv_stream_counters.fallbacks_total == 0
     # 64 tokens in 16-token chunks of 8-token blocks, 2 layers
