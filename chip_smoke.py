@@ -62,12 +62,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
    beside the perf model's prediction, and the host gap, wall - dispatch -
    overlap - readback, beside the earlier definition, wall - the blocking
    result reads); then the bf16 model is freed
-   and the same two runs are made on an int8 model (int8 weights drawn
+   and the same two runs are made on an int8 model at 8 layers (int8 weights drawn
    directly, ``cache_dtype="int8"``, ``block_size=32`` as ``bench.py``
    serves on an accelerator).  Every kernel's launch counter is zeroed just
    before each run and read just after; the ragged kernels are then timed
    at the largest mixed dispatch of each token-budget run, with its decode
-   rows and without them.  Before the bf16 model is freed it also serves
+   rows and without them.  The fault plane runs on the 32-layer model too;
+   the planes that follow on bf16 (HTTP, grammar, speculation,
+   disaggregation, the KV tiers and the router) run on the same widths at
+   8 layers (``BF16_PLANE_LAYERS``), read against a default-path run of
+   that model.  It serves
    the six prompts as token-id completions through the port's HTTP service
    (concurrent, streamed): TTFT at the client beside the direct run's; and
    it runs the ``grammar`` phase: a 128,256-token vocabulary of bytes from
@@ -186,6 +190,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``{"fault": ...}`` line, logged at the end: the migration's gap between
    the cut worker's last token and the survivor's first, the tokens
    re-prefilled, the survivor's launches, seconds to suspect, the 429s);
+   then the ``load`` phase, on the host and from runs already taken: the
+   load plane's serving figures read off the bf16 default-path run (its
+   timeline's ``step`` seconds over the fresh prompt tokens it prefilled,
+   its ``decode_multi`` seconds over the row-steps decoded, its engine's
+   ``kv_bytes_per_block()``) and the router run (one decision), one
+   ``{"load": ...}`` line with them beside the committed
+   ``load/card_latency.json`` figures, their ratios and each capacity
+   cell's knee swept at the measured figures beside the committed
+   ``analysis/load_manifest.json``'s; and ``python -m dynamo_tpu_torch
+   lint --load`` and ``lint --project``, subprocesses started while the
+   kernels build, each of which must have exited 0 (the committed surface
+   and baseline reproduce here);
 5. parity: 2-layer models at full 8B width on the card (kernels, bf16) and
    on the CPU (plain PyTorch, f32), bf16 weights with a bf16 cache and int8
    weights with an int8 cache: one 300-token prompt over a 128-token cached
@@ -258,7 +274,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    pull's MB/s) and served through ``--model-path dyn://models/front`` as
    the directory serves (one ``{"formats": ...}`` line, logged at the
    end);
-7. mixture of experts, serving: Qwen3-30B-A3B at full width, cut to 16 of
+7. mixture of experts, serving: Qwen3-30B-A3B at full width, cut to 8 of
    its 48 layers (128 experts, random weights from a seeded generator) behind
    ``AsyncLLMEngine``, the six requests on bf16 weights and the default
    path (decode, prefill and E1 kernels), then on int8 weights and an int8
@@ -274,8 +290,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    and E1; int8 token-budget path: int8 decode, int8 ragged, W8A16 and E2),
    the loaded tensors held to the shards and the answers to a fresh
    engine's;
-10. DeepSeek-V2, serving: DeepSeek-V2-Lite at full width and depth (27
-   layers, MLA with the absorbed latent cache, 64 routed experts top 6 and
+10. DeepSeek-V2, serving: DeepSeek-V2-Lite at full width, cut to 8 of its 27
+   layers (MLA with the absorbed latent cache, 64 routed experts top 6 and
    2 shared, random weights from a seeded generator; its YaRN
    ``rope_scaling`` dropped, as neither package implements it) behind
    ``AsyncLLMEngine``, the six requests on the default path with a bf16
@@ -296,7 +312,7 @@ Phases, in order; any failure ends the run with a non-zero exit:
    lm_head of 64,128 columns, E1/E2 at F = 384 and E1 at 704) and their
    times; then ONE two-rank world on the card (this process rank 0, a
    shard follower process rank 1, gloo: NCCL refuses two ranks on one
-   card): Llama-3-8B bf16 at full width and depth (first-token logits
+   card): Llama-3-8B bf16 at full width and 8 layers (first-token logits
    against the one-card forward within the parity bounds, six requests'
    greedy streams held to the one-card engine's but at near ties, a decode
    turn's seconds and collective wait at tp = 1 and 2), int8 weights and
@@ -354,6 +370,7 @@ import math
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -453,16 +470,32 @@ def check(cond: bool, msg: str) -> None:
 # the whole run's log, beside the script (the console keeps only its end)
 LOG_PATH = ROOT / "chiprun_out" / "chip_smoke.log"
 _log_file = None
+_log_lock = threading.Lock()  # whole lines from the threads of concurrently()
 
 
 def log(msg: str) -> None:
     global _log_file
-    print(msg, flush=True)
-    if _log_file is None:
-        LOG_PATH.parent.mkdir(exist_ok=True)
-        _log_file = open(LOG_PATH, "w")
-    _log_file.write(msg + "\n")
-    _log_file.flush()
+    with _log_lock:
+        print(msg, flush=True)
+        if _log_file is None:
+            LOG_PATH.parent.mkdir(exist_ok=True)
+            _log_file = open(LOG_PATH, "w")
+        _log_file.write(msg + "\n")
+        _log_file.flush()
+
+
+def concurrently(first, *others) -> None:
+    """``first()`` on this thread while each of ``others`` (functions of no
+    argument) runs on a thread of its own; waits for all of them and raises
+    the first one's failure.  For the checks that spend their time waiting
+    on a process's boot."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(others)) as pool:
+        futures = [pool.submit(c) for c in others]
+        first()
+    for f in futures:
+        f.result()
 
 
 # kernels whose every instantiation must be in the library: the paged
@@ -1801,7 +1834,9 @@ def serve_run(torch, model, config: dict, card: str, label: str, profile: bool =
     EngineConfig, with every kernel's launch counter zeroed just before and
     read just after; returns the streams, launches and engine counters
     (and, with ``timeline``, the run's step timeline line, the perf model
-    priced on the run's own first dispatch of each kind)."""
+    priced on the run's own first dispatch of each kind), the cached and
+    prompt tokens and the engine's KV bytes a block (the load phase's
+    inputs)."""
     from dynamo_tpu_torch.engine import AsyncLLMEngine, EngineConfig, EngineCore
     from dynamo_tpu_torch.llm.protocols import FinishReason
 
@@ -1823,6 +1858,7 @@ def serve_run(torch, model, config: dict, card: str, label: str, profile: bool =
         # a step boundary: the run's last step has ended on the timeline
         asyncio.run(engine.run_on_engine(lambda: None))
         metrics = core.metrics()
+        kv_block = core.kv_bytes_per_block()
         dispatches = core.steps - before[0]
         tl = timeline_line(core, before_tl, dispatches, label, card) if timeline else None
         overlap_ms = 1e3 * (core.overlap_s - before[1]) / dispatches
@@ -1857,7 +1893,92 @@ def serve_run(torch, model, config: dict, card: str, label: str, profile: bool =
         engine.shutdown()
     streams = [[t for o in outs for t in o.token_ids] for _, _, outs in results]
     return dict(launches=launches, metrics=metrics, streams=streams, ttfts=ttfts,
-                decode_tok_s=decode_tokens / decode_window, timeline=tl)
+                decode_tok_s=decode_tokens / decode_window, timeline=tl, cached=cached,
+                prompt_tokens=[len(p) for p in model_prompts(model)],
+                kv_bytes_per_block=kv_block)
+
+
+LOAD_FIGURES = ("prefill_ms_per_token", "decode_ms_per_step", "router_ms_per_decision",
+                "kv_bytes_per_block")
+LOAD_LINT_S = 120  # the lint subprocesses' limit
+LOAD_LINTS = ("--load", "--project")
+
+
+def start_lints() -> dict:
+    """``python -m dynamo_tpu_torch lint --load`` and ``lint --project`` as
+    subprocesses, started while the kernels build: the committed surface
+    and baseline, checked on this machine's Python.  The load phase reads
+    them; ``stop_lints`` ends whatever is left."""
+    return {flag: subprocess.Popen([sys.executable, "-m", "dynamo_tpu_torch", "lint", flag],
+                                   cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                   text=True)
+            for flag in LOAD_LINTS}
+
+
+def stop_lints(lints: dict) -> None:
+    for proc in lints.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def load_phase(default: dict, router: dict, lints: dict, card: str) -> dict:
+    """The load plane at this card's figures, from runs already taken: the
+    bf16 default-path run (``serve_run(timeline=True)``) gives the prefill
+    ms a fresh prompt token (its ``step`` dispatches' seconds over the
+    prompt tokens not served from cache) and the decode ms a row's step
+    (its ``decode_multi`` seconds over the row-steps decoded: each
+    request's tokens after its first), and its engine the KV bytes a
+    block; the router run gives one decision's ms.  Sweeps the capacity
+    grid at those figures and logs each cell's knee beside the committed
+    manifest's, then reads ``lint --load`` and ``lint --project``
+    (``lints``, from :func:`start_lints`): both must exit 0 here."""
+    from dynamo_tpu_torch.analysis.loadcheck import DEFAULT_LOAD_MANIFEST_PATH, LoadManifest
+    from dynamo_tpu_torch.load.sim import sweep
+    from dynamo_tpu_torch.load.workers import DEFAULT_CARD_LATENCY, LatencyModel
+
+    t0 = time.perf_counter()
+    try:
+        kinds = default["timeline"]["kinds"]
+        check({"step", "decode_multi"} <= set(kinds),
+              f"load: the default-path timeline has no step or decode_multi dispatch: {kinds}")
+        fresh = sum(default["prompt_tokens"]) - sum(default["cached"])
+        decoded = sum(len(s) - 1 for s in default["streams"])
+        measured = dict(
+            prefill_ms_per_token=round(kinds["step"]["count"] * kinds["step"]["ms"] / fresh, 6),
+            decode_ms_per_step=round(
+                kinds["decode_multi"]["count"] * kinds["decode_multi"]["ms"] / decoded, 6),
+            router_ms_per_decision=round(router["decision_ms"], 6),
+            kv_bytes_per_block=default["kv_bytes_per_block"])
+        committed = json.loads(DEFAULT_CARD_LATENCY.read_text())
+        ratios = {k: round(measured[k] / committed[k], 4) for k in LOAD_FIGURES}
+        facts = sweep(lat=LatencyModel(**measured, scale=1.0))
+        check(all(c["twin_match"] for c in facts["cells"].values()),
+              "load: a cell's twin runs at the measured figures differ")
+        manifest = LoadManifest.load(DEFAULT_LOAD_MANIFEST_PATH)
+        knees = {cell: dict(measured=c["knee_level"],
+                            committed=manifest.cells.get(cell, {}).get("knee_level"))
+                 for cell, c in facts["cells"].items()}
+        sweep_s = time.perf_counter() - t0
+        lint = {}
+        for flag, proc in lints.items():
+            stdout, stderr = proc.communicate(timeout=LOAD_LINT_S)
+            tail = (stdout.strip().splitlines() or [""])[-1]
+            lint[flag] = dict(rc=proc.returncode, summary=tail,
+                              read_at_s=round(time.perf_counter() - t0, 3))
+            check(proc.returncode == 0, f"load: lint {flag} exited {proc.returncode} on this "
+                  f"card's machine:\n{stdout[-4000:]}\n{stderr[-4000:]}")
+    finally:
+        stop_lints(lints)
+    out = dict(measured=measured, committed={k: committed[k] for k in LOAD_FIGURES},
+               measured_over_committed=ratios, committed_card=committed.get("card"),
+               fresh_prompt_tokens=fresh, decoded_row_steps=decoded,
+               step=kinds["step"], decode_multi=kinds["decode_multi"], knees=knees,
+               sweep_s=round(sweep_s, 3), lint=lint,
+               python=sys.version.split()[0], seconds=round(time.perf_counter() - t0, 3),
+               card=card)
+    log(json.dumps({"load": out}))
+    return out
 
 
 @contextlib.contextmanager
@@ -1908,28 +2029,49 @@ def largest_mixed(calls) -> dict:
     return best
 
 
+# The bf16 Llama-3-8B serves its default and token-budget paths and the
+# fault plane at full depth (the load plane's figures and the kernels'
+# launches come from those runs); HTTP, grammar, speculation,
+# disaggregation and the KV tiers serve the same widths and kernels at
+# this depth, so the whole script keeps its margin to the time limit on a
+# slow host
+BF16_PLANE_LAYERS = 8
+
+
 def serving_phase(torch, card: str):
     from dynamo_tpu_torch.models.convert import init_params
     from dynamo_tpu_torch.models.llama import LlamaModel
 
-    cfg = llama3_8b()
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
-    t0 = time.perf_counter()
-    model = LlamaModel.from_state(cfg, init_params(cfg, gen, device="cuda"))
-    torch.cuda.synchronize()
-    log(f"serving: Llama-3-8B, {cfg.num_layers} layers, random weights in "
-        f"{time.perf_counter() - t0:.1f} s")
+    def llama(layers):
+        cfg = llama3_8b(layers)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        t0 = time.perf_counter()
+        model = LlamaModel.from_state(cfg, init_params(cfg, gen, device="cuda"))
+        torch.cuda.synchronize()
+        log(f"serving: Llama-3-8B, {cfg.num_layers} layers, random weights in "
+            f"{time.perf_counter() - t0:.1f} s")
+        return model
+
+    model = llama(32)
     default, budget, mixed = serve_both(torch, model, card, quant=False)
-    http_serving_run(torch, model, default, card)
-    grammar_phase(torch, model, default, card)
+    # the cut engine's bound (two decode bursts past the cut) is set at
+    # this model's burst time
+    fault = fault_phase(torch, model, card)
+    del model
+    torch.cuda.empty_cache()
+    model = llama(BF16_PLANE_LAYERS)
+    # the reference the planes below are read against, on their model
+    local = serve_run(torch, model, DEFAULT_PATH, card,
+                      f"default path, {BF16_PLANE_LAYERS} layers")
+    http_serving_run(torch, model, local, card)
+    grammar_phase(torch, model, local, card)
     t0 = time.perf_counter()
     spec = spec_phase(torch, model, card)
     log(f"spec phase (bf16): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    disagg = disagg_phase(torch, model, default, card)
+    disagg = disagg_phase(torch, model, local, card)
     log(f"disagg phase (bf16): {time.perf_counter() - t0:.1f} s")
-    fault = fault_phase(torch, model, card)
     tier = tier_phase(torch, model, card)
     del model
     torch.cuda.empty_cache()
@@ -1971,10 +2113,11 @@ def serve_both(torch, model, card: str, quant: bool):
     return default, budget, mixed
 
 
-# The int8 Llama-3-8B serving runs at 16 of its 32 layers: the same widths
-# and kernels at half the forward, so the whole script keeps its margin to
-# the time limit on a slow host (the bf16 model stays at full depth)
-INT8_SERVING_LAYERS = 16
+# The int8 Llama-3-8B serving runs at 8 of its 32 layers: the same widths
+# and kernels at a quarter of the forward, so the whole script keeps its
+# margin to the time limit on a slow host (the bf16 default and
+# token-budget runs stay at full depth)
+INT8_SERVING_LAYERS = 8
 
 
 def serving_phase_q8(torch, card: str):
@@ -2033,13 +2176,18 @@ def verify_live(lens, s: int) -> list[int]:
     return [min(n, pattern[i % len(pattern)]) for i, n in enumerate(lens)]
 
 
-def llama32_1b():
+# the draft runs at 4 of Llama-3.2-1B's 16 layers, as the target runs at
+# BF16_PLANE_LAYERS: its autoregressive proposals are most of a verify turn
+SPEC_DRAFT_LAYERS = 4
+
+
+def llama32_1b(num_layers: int = 16):
     """Llama-3.2-1B's published geometry (meta-llama/Llama-3.2-1B
     config.json): Llama 3's tokenizer, so a draft for Llama-3-8B."""
     from dynamo_tpu_torch.models.config import ModelConfig
 
     return ModelConfig(vocab_size=LLAMA3_VOCAB, hidden_size=2048, intermediate_size=8192,
-                       num_layers=16, num_heads=32, num_kv_heads=8, head_dim=64,
+                       num_layers=num_layers, num_heads=32, num_kv_heads=8, head_dim=64,
                        max_position_embeddings=131072, rope_theta=500000.0,
                        rope_scaling={"rope_type": "llama3", "factor": 32.0,
                                      "low_freq_factor": 1.0, "high_freq_factor": 4.0,
@@ -2301,12 +2449,12 @@ def spec_phase(torch, model, card: str) -> dict:
     from dynamo_tpu_torch.models.llama import LlamaModel
 
     t0 = time.perf_counter()
-    cfg = llama32_1b()
+    cfg = llama32_1b(SPEC_DRAFT_LAYERS)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(13)
     draft = LlamaModel.from_state(cfg, init_params(cfg, gen, device="cuda"))
     n_params = sum(p.numel() for p in draft.parameters())
-    log(f"spec: Llama-3.2-1B-width draft, {n_params / 1e9:.3f} B parameters, "
+    log(f"spec: Llama-3.2-1B-width draft, {cfg.num_layers} layers, {n_params / 1e9:.3f} B parameters, "
         f"{2 * n_params / 1e9:.2f} GB bf16, random weights in {time.perf_counter() - t0:.1f} s")
     plan = (("off", 0, None), ("ngram k=4", 4, None), ("ngram k=7", 7, None),
             ("1B draft k=4", 4, draft))
@@ -2344,10 +2492,10 @@ def spec_phase_q8(torch, model, card: str) -> dict:
     return runs
 
 
-# Qwen3-30B-A3B's serving runs at 16 of its 48 layers: the same widths,
-# experts and kernels, a third of the forward, so the whole script keeps
+# Qwen3-30B-A3B's serving runs at 8 of its 48 layers: the same widths,
+# experts and kernels, a sixth of the forward, so the whole script keeps
 # its margin to the time limit on a slow host
-QWEN3_SERVING_LAYERS = 16
+QWEN3_SERVING_LAYERS = 8
 
 
 def moe_serving_phase(torch, card: str) -> tuple[dict, dict]:
@@ -3019,7 +3167,8 @@ def cli_server(model_dir: Path, flags=()):
     (with ``flags``) as a subprocess, as a user starts it; yields (its base
     URL, a coroutine function waiting for /health that returns the seconds
     it took), then stops it with SIGTERM, which must exit 0.  Its log is
-    ``_frontdoor/cli.log`` while it runs."""
+    ``cli.log`` in ``model_dir`` (``cli-quantize-int8.log`` with those
+    flags) while it runs, one a server, so servers may run at once."""
     import socket
 
     import aiohttp
@@ -3031,7 +3180,8 @@ def cli_server(model_dir: Path, flags=()):
     base = f"http://127.0.0.1:{port}"
     with served_process("the CLI server", [
             "run", "in=http", "out=gpu", "--model-path", str(model_dir), "--model-name",
-            FRONT_MODEL, "--http-port", str(port), *flags], FRONT_DIR / "cli.log",
+            FRONT_MODEL, "--http-port", str(port), *flags],
+            model_dir / ("-".join(["cli", *(f.lstrip("-") for f in flags)]) + ".log"),
             grace_s=60) as server:
         async def ready(s) -> float:
             while True:
@@ -3294,18 +3444,21 @@ def front_door_phase(torch, card: str) -> dict:
     nbytes = write_checkpoint(torch, FRONT_DIR)
     log(f"front door: wrote a {FRONT_LAYERS}-layer Llama-3-8B-width checkpoint, "
         f"{nbytes / 1e9:.2f} GB in two shards, in {time.perf_counter() - t0:.1f} s")
-    cli_phase(card)
-    grammar_cli_phase(card)
+    # the two CLI servers boot at once, each on its own port and log
+    concurrently(lambda: cli_phase(card), lambda: grammar_cli_phase(card))
     texts, local_ttfts, ids = front_server(
         torch, FRONT_FLAGS, card, "bf16 default path", ["decode", "prefill"],
         ["decode_q8", "prefill_q8", "ragged", "ragged_q8", "matmul", "moe", "moe_q8"])
     torch.cuda.empty_cache()
-    mesh_cli = mesh_cli_phase(torch, card, texts, ids)
     t1 = time.perf_counter()
     profile_phase(torch, card)
     torch.cuda.empty_cache()
-    dyn_phase(card, texts, local_ttfts)
-    log(f"front door: profile and dyn:// phases {time.perf_counter() - t1:.1f} s ({card})")
+    # the --tp 2 server's two ranks and the dyn:// worker boot at once
+    mesh_cli = {}
+    concurrently(lambda: mesh_cli.update(mesh_cli_phase(torch, card, texts, ids)),
+                 lambda: dyn_phase(card, texts, local_ttfts))
+    log(f"front door: profile, then --tp 2 and dyn:// phases at once, "
+        f"{time.perf_counter() - t1:.1f} s ({card})")
     graphs = graphs_phase(card)
     torch.cuda.empty_cache()
     front_server(torch, FRONT_INT8_FLAGS, card, "int8 token-budget path",
@@ -3884,7 +4037,7 @@ def write_moe_checkpoint(torch, d: Path) -> float:
 
 def moe_front_door_phase(torch, card: str) -> None:
     """The front door on the 2-layer Qwen3-MoE checkpoint: the CLI server
-    (bf16, then ``--quantize int8``), then ``build_local_engine`` in this
+    (bf16, and at once ``--quantize int8``), then ``build_local_engine`` in this
     process, bf16 on the default path (B1, B2, E1) and int8 weights and
     cache on the token-budget path (B4a, B4c, B5, E2)."""
     import shutil
@@ -3897,8 +4050,8 @@ def moe_front_door_phase(torch, card: str) -> None:
     n_files = len(json.loads((FRONT_DIR / "model.safetensors.index.json").read_text())["weight_map"])
     log(f"front door: wrote a {FRONT_LAYERS}-layer Qwen3-30B-A3B-width Qwen3-MoE checkpoint, "
         f"{nbytes / 1e9:.2f} GB, {n_files} tensors in two shards, in {time.perf_counter() - t0:.1f} s")
-    cli_phase(card, (), "Qwen3-MoE")
-    cli_phase(card, ("--quantize", "int8"), "Qwen3-MoE")
+    concurrently(lambda: cli_phase(card, (), "Qwen3-MoE"),
+                 lambda: cli_phase(card, ("--quantize", "int8"), "Qwen3-MoE"))
     front_server(torch, FRONT_FLAGS, card, "Qwen3-MoE bf16 default path", ["decode", "prefill", "moe"],
                  ["decode_q8", "prefill_q8", "ragged", "ragged_q8", "matmul", "moe_q8"],
                  MOE_FRONT_NAMES, cfg.num_experts)
@@ -3958,7 +4111,7 @@ def _http_run(model, mcard) -> tuple[list, float]:
 
 
 def http_serving_run(torch, model, direct: dict, card: str) -> None:
-    """The serving phase's 32-layer model behind the port's HttpService
+    """The serving phase's bf16 model at BF16_PLANE_LAYERS behind the port's HttpService
     with the word-level tokenizer: the six prompts as token-id completions,
     concurrent and streamed, 32 greedy tokens each; TTFT at the client
     (first SSE event with text).  The host's speed drifts within a call, so
@@ -5595,14 +5748,20 @@ def _deepseek_model(torch, cfg, seed: int = 0):
     return DeepseekModel.from_state(cfg, deepseek_init_params(cfg, gen, device="cuda"))
 
 
+# DeepSeek-V2-Lite's serving runs at 8 of its 27 layers (the first dense,
+# the rest MoE): the same widths, experts and kernels, for the time limit
+DEEPSEEK_SERVING_LAYERS = 8
+
+
 def deepseek_serving_phase(torch, card: str) -> tuple[dict, dict]:
-    """DeepSeek-V2-Lite at full width and depth behind ``AsyncLLMEngine``,
+    """DeepSeek-V2-Lite at full width, DEEPSEEK_SERVING_LAYERS of its 27
+    layers, behind ``AsyncLLMEngine``,
     the six requests on the default path: a bf16 cache (profiled), then an
     int8 cache in 32-token blocks.  Each run launches E1 and nothing else:
     no B kernel (MLA attention is the plain op) and no E2 (no int8
-    weights).  Every Qwen3 model is gone before: 31.4 GB of weights."""
+    weights).  Every Qwen3 model is gone before."""
     t0 = time.perf_counter()
-    cfg = deepseek_v2_lite()
+    cfg = deepseek_v2_lite(DEEPSEEK_SERVING_LAYERS)
     model = _deepseek_model(torch, cfg)
     torch.cuda.synchronize()
     weights = sum(p.numel() * p.element_size() for p in model.parameters())
@@ -5863,7 +6022,7 @@ def write_deepseek_checkpoint(torch, d: Path) -> float:
 
 def deepseek_front_door_phase(torch, card: str) -> None:
     """The front door on the 2-layer DeepSeek checkpoint: the CLI server
-    (bf16 cache), ``--quantize int8`` refused with the JAX CLI's message,
+    (bf16 cache) and, at once, ``--quantize int8`` refused with the JAX CLI's message,
     then ``build_local_engine`` in this process with a bf16 cache and with
     an int8 one (Bs 32), each launching E1 and nothing else, the loaded
     tensors held to the shards and the answers to a fresh engine's."""
@@ -5877,11 +6036,12 @@ def deepseek_front_door_phase(torch, card: str) -> None:
     n_files = len(json.loads((FRONT_DIR / "model.safetensors.index.json").read_text())["weight_map"])
     log(f"front door: wrote a {FRONT_LAYERS}-layer DeepSeek-V2-Lite-width checkpoint, "
         f"{nbytes / 1e9:.2f} GB, {n_files} tensors in two shards, in {time.perf_counter() - t0:.1f} s")
-    cli_phase(card, (), "DeepSeek-V2-Lite")
-    refused = subprocess.run(
-        [sys.executable, "-m", "dynamo_tpu_torch", "run", "in=text:w5 w6", "out=gpu", "--model-path",
-         str(FRONT_DIR), "--quantize", "int8"], cwd=str(ROOT), capture_output=True, text=True,
-        timeout=300)
+    refused = []
+    concurrently(lambda: cli_phase(card, (), "DeepSeek-V2-Lite"), lambda: refused.append(
+        subprocess.run([sys.executable, "-m", "dynamo_tpu_torch", "run", "in=text:w5 w6",
+                        "out=gpu", "--model-path", str(FRONT_DIR), "--quantize", "int8"],
+                       cwd=str(ROOT), capture_output=True, text=True, timeout=300)))
+    refused = refused[0]
     check(refused.returncode != 0 and QUANTIZE_REFUSED in refused.stderr and not refused.stdout,
           f"front door DeepSeek: --quantize int8 exited {refused.returncode}, stderr "
           f"{refused.stderr[-1000:]!r}")
@@ -6412,8 +6572,9 @@ def formats_phase(torch, card: str) -> dict:
     served from each, equal, launching B5.  GGUF: the weights as a Q8_0
     file written with ``write_gguf``, served through the checkpoint
     dispatch (B1 and B2 launched, no B5), its card logits held to the CPU's
-    on the same weights.  Model store: ``models push`` of the directory to
-    a coordinator on a thread of this process, ``dyn://models/front``
+    on the same weights.  Model store, on a thread beside the GGUF checks:
+    ``models push`` of the directory to a coordinator on a thread of this
+    process, ``dyn://models/front``
     pulled into a fresh cache (every file's sha256 equal to the source's,
     the pull's MB/s), served through ``--model-path dyn://models/front`` as
     the directory serves.  Logs and returns the ``{"formats": ...}`` line."""
@@ -6477,37 +6638,37 @@ def formats_phase(torch, card: str) -> dict:
           and not any(v for k, v in nl.items() if k not in ("matmul", "decode", "prefill")),
           f"formats native: launches {nl}, need B5, B1 and B2 and no other")
 
-    # GGUF
-    gpath = FORMATS_DIR / "front-q8_0.gguf"
-    out["gguf_write"] = write_front_gguf(torch, gpath)
-    t0 = time.perf_counter()
-    engine, gcard = _formats_engine(["--model-path", str(gpath)])
-    out["gguf_load_s"] = time.perf_counter() - t0
-    try:
-        streams["gguf"], launches["gguf"] = _formats_serve(engine, prompt, "formats-gguf")
-        model = engine.core.model
-        state = {k: v.float().cpu() for k, v in model.state_dict().items()}
-        cfg = dataclasses.replace(model.config, dtype="float32")
-        cpu = LlamaModel.from_state(cfg, state)
-        rng = np.random.default_rng(1)
-        p300, steps = rng.integers(0, cfg.vocab_size, 300).tolist(), rng.integers(
-            0, cfg.vocab_size, 8).tolist()
-        _hold_card_to_cpu(
-            torch, "GGUF Q8_0: 2-layer 8B width, 300-token prompt over a 128-token prefix + 8 "
-            "decode steps",
-            lambda: _forward_logits(torch, model, torch.device("cuda"), p300, steps, 128),
-            lambda: _forward_logits(torch, cpu, torch.device("cpu"), p300, steps, 128), card)
-        del model, cpu, state
-    finally:
-        engine.shutdown()
-    gc.collect()
-    torch.cuda.empty_cache()
-    gl = launches["gguf"]
-    check(len(streams["gguf"]) > 0 and gl["decode"] > 0 and gl["prefill"] > 0
-          and not any(v for k, v in gl.items() if k not in ("decode", "prefill")),
-          f"formats GGUF: {len(streams['gguf'])} tokens, launches {gl}, need B1 and B2 only")
-    check(gcard.name == FORMATS_MODEL and gcard.eos_token_ids == [specials()["<|eot_id|>"]],
-          f"formats GGUF: card {gcard.name} eos {gcard.eos_token_ids}")
+    def gguf():
+        gpath = FORMATS_DIR / "front-q8_0.gguf"
+        out["gguf_write"] = write_front_gguf(torch, gpath)
+        t0 = time.perf_counter()
+        engine, gcard = _formats_engine(["--model-path", str(gpath)])
+        out["gguf_load_s"] = time.perf_counter() - t0
+        try:
+            streams["gguf"], launches["gguf"] = _formats_serve(engine, prompt, "formats-gguf")
+            model = engine.core.model
+            state = {k: v.float().cpu() for k, v in model.state_dict().items()}
+            cfg = dataclasses.replace(model.config, dtype="float32")
+            cpu = LlamaModel.from_state(cfg, state)
+            rng = np.random.default_rng(1)
+            p300, steps = rng.integers(0, cfg.vocab_size, 300).tolist(), rng.integers(
+                0, cfg.vocab_size, 8).tolist()
+            _hold_card_to_cpu(
+                torch, "GGUF Q8_0: 2-layer 8B width, 300-token prompt over a 128-token prefix + "
+                "8 decode steps",
+                lambda: _forward_logits(torch, model, torch.device("cuda"), p300, steps, 128),
+                lambda: _forward_logits(torch, cpu, torch.device("cpu"), p300, steps, 128), card)
+            del model, cpu, state
+        finally:
+            engine.shutdown()
+        gc.collect()
+        torch.cuda.empty_cache()
+        gl = launches["gguf"]
+        check(len(streams["gguf"]) > 0 and gl["decode"] > 0 and gl["prefill"] > 0
+              and not any(v for k, v in gl.items() if k not in ("decode", "prefill")),
+              f"formats GGUF: {len(streams['gguf'])} tokens, launches {gl}, need B1 and B2 only")
+        check(gcard.name == FORMATS_MODEL and gcard.eos_token_ids == [specials()["<|eot_id|>"]],
+              f"formats GGUF: card {gcard.name} eos {gcard.eos_token_ids}")
 
     # model store
     src = FORMATS_DIR / "hf"
@@ -6517,7 +6678,11 @@ def formats_phase(torch, card: str) -> dict:
         (src / name).symlink_to(FRONT_DIR / name)
     cache = FORMATS_DIR / "cache"
     env = dict(os.environ, PYTHONPATH=str(ROOT))
-    with background_coordinator() as url:
+    files = sorted(p.name for p in src.iterdir())
+    nbytes = sum((src / f).stat().st_size for f in files)
+    pulled = []
+
+    def store(url):
         t0 = time.perf_counter()
         push = subprocess.run([sys.executable, "-m", "dynamo_tpu_torch", "models", "push",
                                FORMATS_MODEL, str(src), "--coordinator", url], cwd=str(ROOT),
@@ -6526,20 +6691,23 @@ def formats_phase(torch, card: str) -> dict:
         check(push.returncode == 0, f"formats store: models push exited {push.returncode}: "
               f"{push.stderr[-2000:]}")
         t0 = time.perf_counter()
-        pulled = Path(model_store.resolve_model_sync(f"dyn://models/{FORMATS_MODEL}", url,
-                                                     cache_dir=cache))
+        pulled.append(Path(model_store.resolve_model_sync(f"dyn://models/{FORMATS_MODEL}", url,
+                                                          cache_dir=cache)))
         out["pull_s"] = time.perf_counter() - t0
-        files = sorted(p.name for p in src.iterdir())
-        nbytes = sum((src / f).stat().st_size for f in files)
         # the pushed digests: the manifest push_model hashed from the source
         pushed = asyncio.run(_manifest(url, FORMATS_MODEL))["files"]
-        same = [model_store.file_sha256(pulled / f) == pushed[f]["sha256"] for f in files]
+        same = [model_store.file_sha256(pulled[0] / f) == pushed[f]["sha256"] for f in files]
         check(all(same) and sorted(pushed) == files
-              and sorted(p.name for p in pulled.iterdir()) == files,
+              and sorted(p.name for p in pulled[0].iterdir()) == files,
               f"formats store: pushed {sorted(pushed)}, pulled "
-              f"{sorted(p.name for p in pulled.iterdir())}, digests equal {same}")
+              f"{sorted(p.name for p in pulled[0].iterdir())}, digests equal {same}")
         out.update(pushed=push.stdout.strip(), files=len(files), pull_bytes=nbytes,
                    pull_mb_s=nbytes / out["pull_s"] / 1e6)
+
+    with background_coordinator() as url:
+        # GGUF beside the push and pull (disk, sockets and hashing, no kernel)
+        concurrently(gguf, lambda: store(url))
+        pulled = pulled[0]
         # served through the ref: a cache hit, verified against the manifest
         real_cache = model_store.DEFAULT_CACHE
         model_store.DEFAULT_CACHE = cache
@@ -6582,6 +6750,7 @@ def formats_phase(torch, card: str) -> dict:
 # world's backend is gloo (``DYN_MH_BACKEND=gloo``): every all-gather and
 # ring step is staged through pinned host buffers, and every collective of
 # a CUDA tensor waits for the card.
+MESH_BF16_LAYERS = 8      # Llama-3-8B width, bf16: the logits and the decode turn
 MESH_Q8_LAYERS = 8        # int8 weights and cache
 MESH_MOE_LAYERS = 4       # Qwen3-30B-A3B width
 MESH_DS_LAYERS = 4        # DeepSeek-V2-Lite width
@@ -7204,7 +7373,7 @@ def mesh_nccl_refusal(card: str) -> None:
 def mesh_phase(torch, card: str) -> dict:
     """The mesh phase: the kernels at one rank's shapes, NCCL refused for two
     ranks on one card, then ONE two-rank gloo world: Llama-3-8B bf16 at full
-    width and depth (logits and streams against tp = 1), int8 weights and
+    width, MESH_BF16_LAYERS layers (logits and streams against tp = 1), int8 weights and
     cache (the default path at 8 layers, the token-budget path at 2),
     Qwen3-30B-A3B width (4 layers),
     DeepSeek-V2-Lite width (4 layers), the sequence-parallel prefill on (2,
@@ -7215,15 +7384,22 @@ def mesh_phase(torch, card: str) -> dict:
     Logs the ``{"mesh": ...}`` line."""
     t_phase = time.perf_counter()
     errs, kernel_ms = mesh_kernel_checks(torch, card)
-    mesh_nccl_refusal(card)
     cache_dtype_refusal(torch, card)
-    world = MeshWorld()
+    worlds = []
+    try:  # the NCCL refusal's two processes boot beside the gloo world's follower
+        concurrently(lambda: worlds.append(MeshWorld()), lambda: mesh_nccl_refusal(card))
+    except BaseException:
+        for w in worlds:
+            w.close()
+        raise
+    world = worlds[0]
     runs, sp = {}, None
     tp2 = (1, 2)
     try:
         llama = {"kind": "init", "family": "llama", "seed": 0,
-                 "config": dataclasses.asdict(llama3_8b())}
-        one, two = _mesh_pair(torch, world, llama, DEFAULT_PATH, "Llama-3-8B bf16", card,
+                 "config": dataclasses.asdict(llama3_8b(MESH_BF16_LAYERS))}
+        one, two = _mesh_pair(torch, world, llama, DEFAULT_PATH,
+                              f"Llama-3-8B bf16 {MESH_BF16_LAYERS} layers", card,
                               logits=True)
         runs["bf16 tp=1"], runs["bf16"] = one, two[tp2]
         # int8 weights and cache: the default path at MESH_Q8_LAYERS, the
@@ -7483,9 +7659,11 @@ def main() -> int:
                                               "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))
         return 0
+    lints = {}
     try:
         card = card_line()
         log(card)
+        lints = start_lints()
         # the host RAM the KV tiers' pinned pools come out of
         log("free -g: " + " | ".join(subprocess.run(["free", "-g"], capture_output=True,
                                                     text=True).stdout.strip().splitlines()))
@@ -7509,6 +7687,8 @@ def main() -> int:
         times["ragged"] = ragged_timing(torch, card, mixed)
         times["ragged_err"] = times["ragged"].pop("err")
         mark("Llama-3-8B bf16 serving")
+        load_phase(default, tier["router"], lints, card)
+        mark("load")
         q8_default, q8_budget, q8_mixed, q8_spec, q8_disagg, q8_tier = serving_phase_q8(torch,
                                                                                        card)
         times["ragged_q8"] = ragged_timing(torch, card, q8_mixed, quant=True)
@@ -7541,6 +7721,7 @@ def main() -> int:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     finally:
+        stop_lints(lints)
         shutil.rmtree(FRONT_DIR, ignore_errors=True)
         shutil.rmtree(PERSIST_DIR, ignore_errors=True)
         shutil.rmtree(FORMATS_DIR, ignore_errors=True)

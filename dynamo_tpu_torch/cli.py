@@ -91,11 +91,17 @@ The control plane's components:
   autoscaling given ``--coordinator``;
 * ``api-store`` serves the versioned graph and package registry.
 
-``lint --proto`` runs the protocol plane (``analysis/protocheck.py``): the
-control plane's scenarios under seeded schedules and crash points, against
-the committed ``analysis/proto_manifest.json`` (``--replay TOKEN``,
-``--changed``, ``--update-baseline``, ``--format json``).  The JAX
-command's other planes exit 2, not yet ported.
+``lint [PATHS]`` runs the per-file source rules (DT001-DT004) over the
+package, ``--project`` adds the interprocedural rules (DT005-DT009), both
+against the committed ``analysis/baseline.json``.  ``lint --proto`` runs
+the protocol plane (``analysis/protocheck.py``): the control plane's
+scenarios under seeded schedules and crash points, against the committed
+``analysis/proto_manifest.json``.  ``lint --load`` runs the
+scale-simulation plane (``analysis/loadcheck.py``): the control plane at
+virtual time over simulated workers priced from the card
+(``load/card_latency.json``), against ``analysis/load_manifest.json``.
+Each takes ``--update-baseline`` and ``--format json``; ``--proto`` and
+``--load`` take ``--replay TOKEN``.  The JAX command's other planes exit 2.
 """
 
 from __future__ import annotations
@@ -1261,8 +1267,9 @@ def _parser() -> argparse.ArgumentParser:
     from dynamo_tpu_torch.analysis.cli import configure_parser as _lint_parser
 
     _lint_parser(sub.add_parser(
-        "lint", help="the analysis planes (so far the protocol plane, --proto); exit 1 on "
-        "non-accepted findings"))
+        "lint", help="the analysis planes: the source rules (bare, --project), the protocol "
+        "plane (--proto) and the scale-simulation plane (--load); exit 1 on non-accepted "
+        "findings"))
 
     serve = sub.add_parser("serve", help="serve a graph of @service components, one process "
                            "per service worker")
@@ -1362,7 +1369,7 @@ def main(argv: Optional[list[str]] = None) -> None:
     logging.basicConfig(level=logging.INFO, stream=sys.stderr)
     args = parse_args(argv)
     if args.cmd == "lint":
-        # synchronous: the protocol plane runs its own deterministic loops
+        # synchronous: the protocol and load planes run their own deterministic loops
         from dynamo_tpu_torch.analysis.cli import run_lint
 
         raise SystemExit(run_lint(args))

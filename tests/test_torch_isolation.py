@@ -57,11 +57,24 @@ def test_port_imports_nothing_of_jax():
     # the mesh's modules and the follower ranks' entry point are walked too
     for rel in ("utils/mesh.py", "runtime/multihost.py", "ops/ring_attention.py",
                 "engine/follower.py", "analysis/detloop.py", "analysis/protocheck.py",
-                "analysis/cli.py"):
+                "analysis/cli.py", "analysis/core.py", "analysis/rules_async.py",
+                "analysis/project.py", "analysis/loadcheck.py", "load/traffic.py",
+                "load/workers.py", "load/sim.py"):
         assert PKG / rel in files, rel
     bad = {str(f.relative_to(PKG.parent)): sorted(_imported_roots(f) & FORBIDDEN)
            for f in files if _imported_roots(f) & FORBIDDEN}
     assert not bad, f"the port imports JAX or the JAX package: {bad}"
+
+
+def test_port_reads_no_tpu_manifest():
+    """The load plane prices its workers from the card's figures
+    (``load/card_latency.json``): no file of the port names the JAX
+    package's perf manifest of TPU predictions, the only place its
+    latencies could come from."""
+    files = _port_files() + sorted(PKG.rglob("*.json"))
+    assert PKG / "load" / "card_latency.json" in files
+    named = [str(f.relative_to(PKG.parent)) for f in files if "perf_manifest" in f.read_text()]
+    assert not named, named
 
 
 @pytest.fixture

@@ -437,8 +437,8 @@ def test_update_baseline_refuses_partial_runs(monkeypatch, tmp_path):
 
 def test_lint_command_exit_codes(capsys):
     """The port's ``lint``: ``--proto --replay`` exits 0 on a clean token
-    and 1 on a violating one; every unported plane, and a bare ``lint``,
-    exit 2 naming the plane."""
+    and 1 on a violating one; every plane the port does not have exits 2
+    naming the plane."""
     for kind, code in (("pass", 0), ("violate", 1)):
         token = json.loads((FIXTURES / f"tcp_drain_{kind}.json").read_text())["token"]
         with pytest.raises(SystemExit) as e:
@@ -447,7 +447,7 @@ def test_lint_command_exit_codes(capsys):
         doc = json.loads(capsys.readouterr().out)
         assert doc["scenario"] == "tcp.drain" and doc["outcome"] == "ok"
     for flags, plane in ((["--wire"], "wire plane"), (["--trace"], "compile plane"),
-                         (["--all"], "every plane"), ([], "source planes")):
+                         (["--all"], "every plane"), (["--metrics"], "metrics plane")):
         with pytest.raises(SystemExit) as e:
             port_cli.main(["lint", *flags])
         assert e.value.code == 2
