@@ -1901,18 +1901,32 @@ def serve_run(torch, model, config: dict, card: str, label: str, profile: bool =
 LOAD_FIGURES = ("prefill_ms_per_token", "decode_ms_per_step", "router_ms_per_decision",
                 "kv_bytes_per_block")
 LOAD_LINT_S = 120  # the lint subprocesses' limit
-LOAD_LINTS = ("--load", "--project")
+LOAD_LINTS = ("--load", "--project", "--wire", "--metrics")
+
+
+def _lint_clock(proc) -> None:
+    """Wait for a lint subprocess and note its wall seconds from start to
+    exit (its output is a few lines, well inside the pipe's buffer)."""
+    proc.wait()
+    proc.seconds = time.perf_counter() - proc.started
 
 
 def start_lints() -> dict:
-    """``python -m dynamo_tpu_torch lint --load`` and ``lint --project`` as
-    subprocesses, started while the kernels build: the committed surface
-    and baseline, checked on this machine's Python.  The load phase reads
-    them; ``stop_lints`` ends whatever is left."""
-    return {flag: subprocess.Popen([sys.executable, "-m", "dynamo_tpu_torch", "lint", flag],
-                                   cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                   text=True)
-            for flag in LOAD_LINTS}
+    """``python -m dynamo_tpu_torch lint --load``, ``--project``,
+    ``--wire`` and ``--metrics`` as subprocesses, started while the
+    kernels build: the committed surfaces, baseline and manifests, checked
+    on this machine's Python.  The load phase reads them; ``stop_lints``
+    ends whatever is left."""
+    lints = {}
+    for flag in LOAD_LINTS:
+        proc = subprocess.Popen([sys.executable, "-m", "dynamo_tpu_torch", "lint", flag],
+                                cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+        proc.started, proc.seconds = time.perf_counter(), None
+        proc.clock = threading.Thread(target=_lint_clock, args=(proc,), daemon=True)
+        proc.clock.start()
+        lints[flag] = proc
+    return lints
 
 
 def stop_lints(lints: dict) -> None:
@@ -1931,8 +1945,9 @@ def load_phase(default: dict, router: dict, lints: dict, card: str) -> dict:
     request's tokens after its first), and its engine the KV bytes a
     block; the router run gives one decision's ms.  Sweeps the capacity
     grid at those figures and logs each cell's knee beside the committed
-    manifest's, then reads ``lint --load`` and ``lint --project``
-    (``lints``, from :func:`start_lints`): both must exit 0 here."""
+    manifest's, then reads ``lint --load``, ``--project``, ``--wire`` and
+    ``--metrics`` (``lints``, from :func:`start_lints`): each must exit 0
+    here."""
     from dynamo_tpu_torch.analysis.loadcheck import DEFAULT_LOAD_MANIFEST_PATH, LoadManifest
     from dynamo_tpu_torch.load.sim import sweep
     from dynamo_tpu_torch.load.workers import DEFAULT_CARD_LATENCY, LatencyModel
@@ -1963,8 +1978,10 @@ def load_phase(default: dict, router: dict, lints: dict, card: str) -> dict:
         lint = {}
         for flag, proc in lints.items():
             stdout, stderr = proc.communicate(timeout=LOAD_LINT_S)
+            proc.clock.join(timeout=5)
             tail = (stdout.strip().splitlines() or [""])[-1]
             lint[flag] = dict(rc=proc.returncode, summary=tail,
+                              seconds=None if proc.seconds is None else round(proc.seconds, 3),
                               read_at_s=round(time.perf_counter() - t0, 3))
             check(proc.returncode == 0, f"load: lint {flag} exited {proc.returncode} on this "
                   f"card's machine:\n{stdout[-4000:]}\n{stderr[-4000:]}")
@@ -4238,15 +4255,37 @@ def local_one_by_one(torch, model, config: dict, label: str) -> dict:
         engine.shutdown()
 
 
-async def _disagg_serve(torch, model, config: dict, label: str, *, stream: bool,
-                        one_by_one: bool) -> dict:
-    """One disaggregated run: a coordinator in this process, a decode
-    engine behind a DecodeWorker that sends every prompt to the prefill
-    queue, and a prefill engine behind a PrefillWorker (its prefill in
-    DISAGG_STREAM_CHUNK-token chunks when ``stream``), sharing ``model``.
-    A warm-up request, then every launch counter zeroed and the six prompts
-    served concurrently (``one_by_one``: one at a time)."""
+def _disagg_engines(torch, model, config: dict, *, stream: bool) -> tuple:
+    """The two engines of one disaggregated run, started, sharing
+    ``model``: (decode core, prefill core, decode engine, prefill engine);
+    the prefill engine's prefill in DISAGG_STREAM_CHUNK-token chunks when
+    ``stream``."""
     from dynamo_tpu_torch.engine import AsyncLLMEngine, EngineConfig, EngineCore
+
+    dec = EngineCore(model, EngineConfig(**config), device="cuda")
+    pre = EngineCore(model, EngineConfig(**(dict(config, prefill_chunk_tokens=DISAGG_STREAM_CHUNK)
+                                            if stream else config)), device="cuda")
+    dec_engine = AsyncLLMEngine(dec).start()
+    try:
+        return dec, pre, dec_engine, AsyncLLMEngine(pre).start()
+    except BaseException:
+        dec_engine.shutdown()
+        raise
+
+
+async def _disagg_serve(torch, engines: tuple, label: str, *, stream: bool, one_by_one: bool,
+                        sanitizer=None) -> dict:
+    """One disaggregated run on ``engines`` (:func:`_disagg_engines`): a
+    coordinator in this process, the decode engine behind a DecodeWorker
+    that sends every prompt to the prefill queue, and the prefill engine
+    behind a PrefillWorker (streamed when ``stream``).  A warm-up request,
+    then every launch counter zeroed and the six prompts served
+    concurrently (``one_by_one``: one at a time); both engines are shut
+    down before it returns.  Under ``sanitizer`` (the port's dtsan,
+    installed before this run's event loop was made) the watched window
+    opens here, inside the loop's main task, and is read after the servers
+    and engines have shut down, as the pytest plugin reads at a test
+    boundary: ``out["dtsan"]``."""
     from dynamo_tpu_torch.engine.counters import kv_stream_counters
     from dynamo_tpu_torch.llm.disagg_router import DisaggregatedRouter, DisaggRouterConf
     from dynamo_tpu_torch.llm.kv import transfer
@@ -4254,13 +4293,12 @@ async def _disagg_serve(torch, model, config: dict, label: str, *, stream: bool,
     from dynamo_tpu_torch.obs.costs import transfer_costs
     from dynamo_tpu_torch.runtime.transports.coordinator import CoordinatorClient, CoordinatorServer
 
-    dec = EngineCore(model, EngineConfig(**config), device="cuda")
-    pre = EngineCore(model, EngineConfig(**(dict(config, prefill_chunk_tokens=DISAGG_STREAM_CHUNK)
-                                            if stream else config)), device="cuda")
-    dec_engine, pre_engine = AsyncLLMEngine(dec).start(), AsyncLLMEngine(pre).start()
-    srv = await CoordinatorServer(port=0).start()
-    clients, unwrap, out = [], None, {}
+    dec, pre, dec_engine, pre_engine = engines
+    if sanitizer is not None:
+        sanitizer.begin_epoch()
+    clients, unwrap, out, srv = [], None, {}, None
     try:
+        srv = await CoordinatorServer(port=0).start()
         c_dec = await CoordinatorClient(srv.url).connect()
         c_pre = await CoordinatorClient(srv.url).connect()
         clients += [c_dec, c_pre]
@@ -4295,7 +4333,7 @@ async def _disagg_serve(torch, model, config: dict, label: str, *, stream: bool,
             transfer_costs.reset()
             kv_stream_counters.reset()
             before = (dec.metrics()["prefill_dispatches_total"], pre.decode_steps)
-            reqs = model_prompts(model)
+            reqs = model_prompts(dec.model)
             t0 = time.perf_counter()
             if one_by_one:
                 out.update(_readings(await _one_by_one(worker, reqs, f"{label}-"),
@@ -4326,15 +4364,155 @@ async def _disagg_serve(torch, model, config: dict, label: str, *, stream: bool,
             await prefill_task
             await worker.stop()
         out["held_after"] = len(pre._held)
-        return out
     finally:
         if unwrap is not None:
             unwrap()
         for c in clients:
             await c.close()
-        await srv.stop()
-        dec_engine.shutdown()
-        pre_engine.shutdown()
+        if srv is not None:
+            await srv.stop()
+        # off the loop: joining an engine's thread would hold the loop
+        await asyncio.to_thread(dec_engine.shutdown)
+        await asyncio.to_thread(pre_engine.shutdown)
+        if sanitizer is not None:
+            out["dtsan"] = dtsan_reading(sanitizer)
+    return out
+
+
+# the port's runtime sanitizer (dtsan) watches this disaggregated run: the
+# streamed bf16 handoff over TCP with concurrent requests
+DTSAN_RUN = "c"
+# its blocking-callback threshold: the sanitizer's default (the pytest
+# plugin's DYNAMO_SANITIZE_BLOCK_S unset)
+DTSAN_BLOCK_S = 0.25
+
+
+def dtsan_reading(san) -> dict:
+    """What the sanitizer saw in its current window: tasks and transports
+    made, the tasks still pending that nobody asked to cancel and the
+    transports neither closed nor closing (each with its creation stack),
+    frames written through the port's framing and the frame-protocol
+    violations, and the loop callbacks over the threshold (each with the
+    stack the watchdog sampled while it blocked and the garbage
+    collector's time inside it)."""
+    return dict(
+        tasks_tracked=san.tasks.tracked_in_epoch(),
+        leaked_tasks=[rec.render() for _, rec in san.tasks.pending_in_epoch()],
+        transports_tracked=san.transports.tracked_in_epoch(),
+        live_transports=[rec.render(t) for t, rec in san.transports.unclosed_in_epoch()],
+        frames_checked=san.framing.frames_in_epoch,
+        frame_violations=san.framing.violations_in_epoch(),
+        blocking_callbacks=[dict(where=r.where, ms=round(1e3 * r.duration_s, 3),
+                                 gc_ms=round(1e3 * r.gc_s, 3), stack=r.blocked_stack)
+                            for r in san.blocking.reports_in_epoch()],
+        threshold_s=san.blocking.threshold_s)
+
+
+def disagg_run(torch, model, config: dict, label: str, *, stream: bool, one_by_one: bool,
+               sanitize: bool = False) -> dict:
+    """:func:`_disagg_serve` on a fresh engine pair in an event loop of its
+    own; with ``sanitize``, the port's sanitizer in full mode is installed
+    after the engines are built and before the loop is made, and
+    uninstalled after it closes.  Adds ``serve_s`` (the loop's seconds) and,
+    sanitized, the blocking callbacks seen up to the loop's close."""
+    from dynamo_tpu_torch.analysis.sanitizer import MODE_FULL, Sanitizer
+
+    engines = _disagg_engines(torch, model, config, stream=stream)
+    san = Sanitizer(MODE_FULL, blocking_threshold_s=DTSAN_BLOCK_S).install() if sanitize else None
+    t0 = time.perf_counter()
+    try:
+        r = asyncio.run(_disagg_serve(torch, engines, label, stream=stream,
+                                      one_by_one=one_by_one, sanitizer=san))
+        r["serve_s"] = time.perf_counter() - t0
+        if san is not None:
+            # asyncio.run's own teardown ran after the reading
+            r["dtsan"]["blocking_callbacks"] = dtsan_reading(san)["blocking_callbacks"]
+    finally:
+        if san is not None:
+            san.uninstall()
+    return r
+
+
+def dtsan_check(r: dict, plain: dict, name: str, card: str) -> None:
+    """The ``{"dtsan": ...}`` line of the sanitized run ``r`` beside its
+    unsanitized twin ``plain`` (the same run on a fresh engine pair, just
+    after): what the sanitizer saw, each run's loop seconds and TTFTs, and
+    the card.  Fails on any leaked task, live transport, frame violation
+    or blocking callback, and if the twin did not stream as ``r`` did."""
+    d = r["dtsan"]
+    line = dict(run=name, mode="full", **d, seconds_sanitized=round(r["serve_s"], 3),
+                seconds_plain=round(plain["serve_s"], 3),
+                cost_ratio=round(r["serve_s"] / plain["serve_s"], 4),
+                ttft_median_s=dict(sanitized=sorted(r["ttfts"])[len(r["ttfts"]) // 2],
+                                   plain=sorted(plain["ttfts"])[len(plain["ttfts"]) // 2]),
+                decode_tok_s=dict(sanitized=r["decode_tok_s"], plain=plain["decode_tok_s"]),
+                card=card)
+    log(json.dumps({"dtsan": line}))
+    check(plain["stream"]["layers_sent"] > 0 and plain["stream"]["fallbacks"] == 0
+          and plain["held_after"] == 0,
+          f"{name} without the sanitizer: stream {plain['stream']}, {plain['held_after']} held")
+    dtsan_clean(d, name)
+
+
+def dtsan_clean(d: dict, name: str) -> None:
+    """Fail on any leaked task, live transport, frame violation or
+    blocking callback in the reading ``d``, each with its stack."""
+    check(not (d["leaked_tasks"] or d["live_transports"] or d["frame_violations"]
+               or d["blocking_callbacks"]),
+          f"{name}: the sanitizer found {len(d['leaked_tasks'])} leaked tasks, "
+          f"{len(d['live_transports'])} live transports, {len(d['frame_violations'])} frame "
+          f"violations and {len(d['blocking_callbacks'])} callbacks over {d['threshold_s']} s:\n"
+          + "\n\n".join(d["leaked_tasks"] + d["live_transports"] + d["frame_violations"]
+                          + [f"{b['ms']} ms ({b['gc_ms']} ms in gc): {b['where']}\n{b['stack']}"
+                             for b in d["blocking_callbacks"]]))
+
+
+def dtsan_cost(torch, card: str, pairs: int) -> None:
+    """``chip_smoke.py --dtsan-cost N``: DTSAN_RUN on the
+    BF16_PLANE_LAYERS-layer bf16 Llama-3-8B (random weights), after one
+    unmeasured warm-up run, N times under the sanitizer and N times without
+    it in turns (on, off, off, on, ...), each on a fresh engine pair.
+    Every sanitized run must find nothing and every run must stream without
+    a fallback.  Logs one ``{"dtsan_cost": ...}`` line: each run's loop
+    seconds and TTFT median, each side's median loop seconds, and their
+    ratio."""
+    import os
+    import statistics
+
+    from dynamo_tpu_torch.models.convert import init_params
+    from dynamo_tpu_torch.models.llama import LlamaModel
+
+    cfg = llama3_8b(BF16_PLANE_LAYERS)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    model = LlamaModel.from_state(cfg, init_params(cfg, gen, device="cuda"))
+    _, _, stream, one_by_one = DISAGG_RUNS[DTSAN_RUN]
+    sides = {True: [], False: []}
+    os.environ["DYN_KV_TRANSFER_FORCE_TCP"] = "1"
+    try:
+        for i in range(-1, 2 * pairs):
+            on = i >= 0 and i % 4 in (0, 3)
+            name = f"dtsan cost {i} ({'on' if on else 'off'})" if i >= 0 else "dtsan warm-up"
+            r = disagg_run(torch, model, DEFAULT_PATH, f"dtsan-cost-{i}", stream=stream,
+                           one_by_one=one_by_one, sanitize=on)
+            check(r["stream"]["layers_sent"] > 0 and r["stream"]["fallbacks"] == 0
+                  and r["held_after"] == 0, f"{name}: stream {r['stream']}, "
+                  f"{r['held_after']} held")
+            if i >= 0:
+                if on:
+                    dtsan_clean(r["dtsan"], name)
+                sides[on].append(dict(serve_s=round(r["serve_s"], 3),
+                                      ttft_median_s=statistics.median(r["ttfts"])))
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        os.environ.pop("DYN_KV_TRANSFER_FORCE_TCP", None)
+    med = {on: statistics.median(x["serve_s"] for x in runs) for on, runs in sides.items()}
+    log(json.dumps({"dtsan_cost": dict(
+        run=f"disagg ({DTSAN_RUN})", layers=BF16_PLANE_LAYERS, pairs=pairs,
+        order="on, off, off, on, ...", sanitized=sides[True], plain=sides[False],
+        median_sanitized_s=med[True], median_plain_s=med[False],
+        ratio_of_medians=round(med[True] / med[False], 4), card=card)}))
 
 
 def copy_yardsticks(torch, nbytes: int) -> dict:
@@ -4385,8 +4563,11 @@ def disagg_phase(torch, model, local: dict, card: str, quant: bool = False) -> d
     equal the prefill engine's held blocks bit for bit, no block stays
     held, the streams served one at a time equal a local engine's one at a
     time, and concurrent streams part from ``local`` (the default path's
-    run of this call) only at near-ties.  Returns the runs' readings, each
-    beside the local run it is read against."""
+    run of this call) only at near-ties.  DTSAN_RUN runs under the port's
+    sanitizer in full mode, then once more without it for the sanitizer's
+    cost (:func:`dtsan_check`: the ``dtsan`` line; any leak, live
+    transport, frame violation or blocking callback fails).  Returns the
+    runs' readings, each beside the local run it is read against."""
     import os
 
     config = INT8_DEFAULT_PATH if quant else DEFAULT_PATH
@@ -4400,16 +4581,25 @@ def disagg_phase(torch, model, local: dict, card: str, quant: bool = False) -> d
             os.environ["DYN_KV_TRANSFER_FORCE_TCP"] = "1"
         t0 = time.perf_counter()
         try:
-            r = asyncio.run(_disagg_serve(torch, model, config, f"disagg-{label}", stream=stream,
-                                          one_by_one=one_by_one))
+            r = disagg_run(torch, model, config, f"disagg-{label}", stream=stream,
+                           one_by_one=one_by_one, sanitize=label == DTSAN_RUN)
+            r["seconds"] = time.perf_counter() - t0
+            if label == DTSAN_RUN:
+                # the same run on a fresh pair without the sanitizer: its cost
+                gc.collect()
+                torch.cuda.empty_cache()
+                plain = disagg_run(torch, model, config, f"disagg-{label}-plain", stream=stream,
+                                   one_by_one=one_by_one)
         finally:
             os.environ.pop("DYN_KV_TRANSFER_FORCE_TCP", None)
+        if label == DTSAN_RUN:
+            dtsan_check(r, plain, f"disagg ({label})", card)
         gc.collect()
         torch.cuda.empty_cache()
         base = alone if one_by_one else local
         lt = sorted(base["ttfts"])
         r.update(label=f"disagg ({label})", cache=cache, path=path, streamed=stream,
-                 one_by_one=one_by_one, seconds=time.perf_counter() - t0,
+                 one_by_one=one_by_one,
                  local=dict(one_by_one=one_by_one, ttft_median_s=lt[len(lt) // 2],
                             ttft_max_s=lt[-1], decode_tok_s=base["decode_tok_s"]))
         name = f"disagg ({label}, {cache}, {path}{', streamed' if stream else ''})"
@@ -4489,8 +4679,8 @@ def disagg_soak(torch, card: str, n: int) -> list[float]:
         for i in range(n):
             faulthandler.dump_traceback_later(DISAGG_SOAK_RUN_S, exit=True)
             t0 = time.perf_counter()
-            r = asyncio.run(_disagg_serve(torch, model, DEFAULT_PATH, f"disagg-soak-{i}",
-                                          stream=True, one_by_one=False))
+            r = disagg_run(torch, model, DEFAULT_PATH, f"disagg-soak-{i}", stream=True,
+                           one_by_one=False)
             faulthandler.cancel_dump_traceback_later()
             secs.append(time.perf_counter() - t0)
             check(r["stream"]["layers_sent"] > 0 and r["stream"]["fallbacks"] == 0
@@ -7639,6 +7829,17 @@ def main() -> int:
             build.library()
             secs = disagg_soak(torch, card, int(sys.argv[2]))
             log(json.dumps({"disagg_soak": dict(runs=len(secs), seconds=secs, card=card)}))
+        except (SmokeFailure, RuntimeError) as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        return 0
+    if sys.argv[1:2] == ["--dtsan-cost"]:  # run c with and without the sanitizer, in turns
+        try:
+            card = card_line()
+            log(card)
+            build.build_library(verbose=True)
+            build.library()
+            dtsan_cost(torch, card, int(sys.argv[2]))
         except (SmokeFailure, RuntimeError) as e:
             print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
             return 1

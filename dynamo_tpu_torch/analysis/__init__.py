@@ -11,9 +11,19 @@
 - The scale-simulation plane: ``loadcheck.py`` sweeps ``load/``'s
   capacity grid against the committed ``load_manifest.json`` (``lint
   --load``).
+- The wire plane: ``wirecheck.py`` extracts the cross-process message
+  contracts (WR001-WR007) against the committed ``wire_manifest.json``
+  (``lint --wire``).
+- The metrics plane: ``metcheck.py`` audits the /metrics surface
+  (MT001-MT005) against the committed ``metrics_manifest.json``,
+  ``obs/metric_names.SCHEMA`` and ``docs/torch_observability.md``
+  (``lint --metrics``).
+- The runtime sanitizer (dtsan): ``sanitizer.py`` (task leaks, blocking
+  callbacks, unclosed transports, the framing guard) and its standalone
+  pytest plugin ``pytest_sanitizer.py``.
 
-``cli.py`` is the ``lint`` command.  The JAX package's other planes are
-either not port targets or not ported yet (ROADMAP, Queue A).
+``cli.py`` is the ``lint`` command.  The JAX package's other planes
+(trace, perf, shard, kern) are not port targets (ROADMAP).
 """
 
 from dynamo_tpu_torch.analysis.core import (
@@ -41,6 +51,15 @@ from dynamo_tpu_torch.analysis.loadcheck import (
     check_load,
     run_load,
 )
+from dynamo_tpu_torch.analysis.metcheck import (
+    DEFAULT_METRICS_MANIFEST_PATH,
+    MET_RULES,
+    MetricFinding,
+    MetricsManifest,
+    check_metric_facts,
+    collect_metric_facts,
+    run_metrics,
+)
 from dynamo_tpu_torch.analysis.project import (
     ProjectIndex,
     ProjectRule,
@@ -60,6 +79,23 @@ from dynamo_tpu_torch.analysis.protocheck import (
     replay_token,
     run_one,
     run_proto,
+)
+from dynamo_tpu_torch.analysis.sanitizer import (
+    MODE_FULL,
+    MODE_LEAKS,
+    MODE_OFF,
+    FramingGuard,
+    Sanitizer,
+    mode_from_env,
+)
+from dynamo_tpu_torch.analysis.wirecheck import (
+    DEFAULT_WIRE_MANIFEST_PATH,
+    WIRE_RULES,
+    WireFinding,
+    WireManifest,
+    check_wire,
+    collect_wire_facts,
+    run_wire,
 )
 
 __all__ = [
@@ -98,4 +134,24 @@ __all__ = [
     "LoadManifest",
     "check_load",
     "run_load",
+    "DEFAULT_WIRE_MANIFEST_PATH",
+    "WIRE_RULES",
+    "WireFinding",
+    "WireManifest",
+    "check_wire",
+    "collect_wire_facts",
+    "run_wire",
+    "DEFAULT_METRICS_MANIFEST_PATH",
+    "MET_RULES",
+    "MetricFinding",
+    "MetricsManifest",
+    "check_metric_facts",
+    "collect_metric_facts",
+    "run_metrics",
+    "MODE_FULL",
+    "MODE_LEAKS",
+    "MODE_OFF",
+    "FramingGuard",
+    "Sanitizer",
+    "mode_from_env",
 ]

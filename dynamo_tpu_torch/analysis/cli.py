@@ -11,9 +11,12 @@ diffing, exit 1 on any non-baselined finding, 2 on an unknown rule.
 ``--update-baseline`` rewrites the baseline from the current findings,
 carrying existing justifications over where the (path, rule, content)
 key still matches.  ``--proto`` runs the protocol plane
-(``protocheck.py``) and ``--load`` the scale-simulation plane
-(``loadcheck.py``), each against its own committed manifest.  The JAX
-command's other plane flags exit 2, naming the plane as not ported.
+(``protocheck.py``), ``--load`` the scale-simulation plane
+(``loadcheck.py``), ``--wire`` the wire plane (``wirecheck.py``) and
+``--metrics`` the metrics plane (``metcheck.py``), each against its own
+committed manifest.  The JAX command's other plane flags (``--trace``,
+``--perf``, ``--shard``, ``--kern``, and ``--all``, which runs them too)
+exit 2, naming the plane as not a port target.
 """
 
 from __future__ import annotations
@@ -37,14 +40,11 @@ __all__ = ["configure_parser", "run_lint", "main"]
 # exits 2
 _UNPORTED = {
     "trace": "the compile plane is not a port target (it reads jaxprs and HLO)",
-    "wire": "the wire plane is not yet ported to this package",
     "perf": "the perf plane is not a port target (it prices jaxprs against TPU numbers)",
     "shard": "the sharding plane is not a port target (it reads GSPMD placements)",
     "kern": "the kernel plane is not a port target (it audits pallas_call sites)",
-    "metrics": "the metrics plane is not yet ported to this package",
     "all": "every plane at once is refused: the JAX command's --all also runs the "
-           "trace, shard, kern and perf planes, which are not port targets, and "
-           "the metrics plane is not yet ported",
+           "trace, perf, shard and kern planes, which are not port targets",
 }
 
 
@@ -71,6 +71,17 @@ def configure_parser(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                         "serving figures — p99 TTFT / shed / knee per "
                         "topology x load level) against the committed load "
                         "manifest")
+    p.add_argument("--wire", action="store_true",
+                   help="run the wire-plane pass instead (WR001-WR007: "
+                        "extracted cross-process message contracts, "
+                        "producer/consumer drift) against the committed "
+                        "wire manifest")
+    p.add_argument("--metrics", action="store_true",
+                   help="run the metrics-plane pass instead (MT001-MT005: "
+                        "static producer->renderer->scraper audit of the "
+                        "/metrics surface: dead telemetry, stale scrape "
+                        "keys, label cardinality, type misuse, census "
+                        "drift) against the committed metrics manifest")
     for flag, why in _UNPORTED.items():
         p.add_argument(f"--{flag}", action="store_true", help=f"{why} (exits 2)")
     p.add_argument("--replay", default=None, metavar="TOKEN",
@@ -81,11 +92,12 @@ def configure_parser(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--changed", action="store_true",
                    help="restrict the per-file pass to git-dirty files (the "
                         "project pass stays whole-program); with --proto, the "
-                        "scenarios whose protocol code is dirty; with --load, "
-                        "skip the sweep unless control-plane code is dirty")
+                        "scenarios whose protocol code is dirty; with --load or "
+                        "--metrics, skip the pass unless its inputs are dirty")
     p.add_argument("--manifest", default=None, metavar="PATH",
                    help="manifest file (default: the committed "
-                        "analysis/proto_manifest.json or load_manifest.json)")
+                        "analysis/proto_manifest.json, load_manifest.json, "
+                        "wire_manifest.json or metrics_manifest.json)")
     p.add_argument("--select", default=None, metavar="DT001,DT005",
                    help="comma-separated rule codes to run (default: all)")
     p.add_argument("--baseline", default=None, metavar="PATH",
@@ -94,9 +106,10 @@ def configure_parser(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--no-baseline", action="store_true",
                    help="report every finding, ignoring the baseline")
     p.add_argument("--update-baseline", action="store_true",
-                   help="rewrite the baseline (or, with --proto/--load, the "
-                        "manifest) from current findings, carrying "
-                        "justifications over by key")
+                   help="rewrite the baseline (or, with --proto, --load, --wire "
+                        "or --metrics, the manifest; --metrics also rewrites "
+                        "docs/torch_observability.md's table) from current "
+                        "findings, carrying justifications over by key")
     p.add_argument("--root", default=None,
                    help="paths in output are relative to this directory "
                         "(default: the checkout holding this package for a "
@@ -142,6 +155,14 @@ def run_lint(args: argparse.Namespace, out=None) -> int:
         from dynamo_tpu_torch.analysis.loadcheck import run_load
 
         return run_load(args, out)
+    if getattr(args, "wire", False):
+        from dynamo_tpu_torch.analysis.wirecheck import run_wire
+
+        return run_wire(args, out)
+    if getattr(args, "metrics", False):
+        from dynamo_tpu_torch.analysis.metcheck import run_metrics
+
+        return run_metrics(args, out)
     paths = [Path(p) for p in (getattr(args, "paths", None) or [])]
     if getattr(args, "root", None):
         root = Path(args.root)

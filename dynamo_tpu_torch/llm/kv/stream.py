@@ -279,7 +279,9 @@ class KvStreamAssembler:
         if header.get("sha") != digest:
             self.rejected += 1
             raise ValueError("completion sha mismatch (torn stream = miss)")
-        ids, arr = sess.assemble()
+        # the assembly copies every staged frame into the cache layout:
+        # hundreds of ms for a long prompt, so off the event loop
+        ids, arr = await asyncio.to_thread(sess.assemble)
         await self.write_sink(ids, arr, sess.request_id)
         self.completed += 1
         return {"applied_blocks": len(ids)}

@@ -10,13 +10,14 @@ control plane, the standalone metrics component's per-worker gauges and
 the perf model's predicted-vs-measured rows (all but the JAX package's
 ``dynamo_tpu_perf_predicted_step_ms``, which it reads from a committed
 perf manifest the port does not have).  Every name is a full literal,
-never composed.
+never composed.  ``SCHEMA`` is the name -> (type, labels) contract the
+metrics plane (``analysis/metcheck.py``) holds the rendered census to.
 """
 
 from __future__ import annotations
 
 __all__ = ["SHARD_PREFIX", "HttpMetric", "FaultMetric", "EngineMetric", "KvTransferMetric",
-           "KvStreamMetric", "KvShardMetric", "PerfMetric", "RouterMetric"]
+           "KvStreamMetric", "KvShardMetric", "PerfMetric", "RouterMetric", "SCHEMA"]
 
 # the sharded control plane's family prefix, kept only for prefix-scoped
 # scraping; the names below never compose it
@@ -129,3 +130,77 @@ class RouterMetric:
     KV_CACHE_USAGE = "dynamo_tpu_kv_cache_usage"
     ROUTING_DECISIONS_TOTAL = "dynamo_tpu_routing_decisions_total"
     KV_HIT_RATE_PERCENT = "dynamo_tpu_kv_hit_rate_percent"
+
+
+# name -> (type, labels): the committed label-schema contract, exactly the
+# names the port renders, each entry equal to the JAX package's.  Histogram
+# entries list their sample labels WITHOUT the implicit "le" (the render
+# side adds it on _bucket lines); the metrics plane's census
+# (analysis/metcheck.py) normalizes the same way before comparing.
+SCHEMA: dict[str, tuple[str, tuple[str, ...]]] = {
+    HttpMetric.REQUESTS_TOTAL: ("counter", ("model", "endpoint", "status")),
+    HttpMetric.INFLIGHT_REQUESTS: ("gauge", ("model",)),
+    HttpMetric.OUTPUT_TOKENS_TOTAL: ("counter", ("model",)),
+    HttpMetric.ADMISSION_SHED_TOTAL: ("counter", ("model", "priority")),
+    HttpMetric.TTFT_SECONDS: ("histogram", ("model",)),
+    HttpMetric.INTER_TOKEN_SECONDS: ("histogram", ("model",)),
+    HttpMetric.QUEUE_WAIT_SECONDS: ("histogram", ("model",)),
+    HttpMetric.REQUEST_SECONDS: ("histogram", ("model", "status")),
+    FaultMetric.MIGRATIONS_TOTAL: ("counter", ()),
+    FaultMetric.DRAINS_IN_PROGRESS: ("gauge", ()),
+    FaultMetric.SUSPECT_INSTANCES: ("gauge", ()),
+    EngineMetric.PREFILL_DISPATCHES_TOTAL: ("counter", ()),
+    EngineMetric.PREFILL_TOKENS_TOTAL: ("counter", ()),
+    EngineMetric.PREFILL_BATCH_OCCUPANCY: ("gauge", ()),
+    EngineMetric.PREFILL_BUDGET_UTILIZATION: ("gauge", ()),
+    EngineMetric.UNIFIED_DISPATCHES_TOTAL: ("counter", ()),
+    EngineMetric.UNIFIED_DECODE_ROWS_TOTAL: ("counter", ()),
+    EngineMetric.UNIFIED_PREFILL_TOKENS_TOTAL: ("counter", ()),
+    EngineMetric.UNIFIED_BUDGET_UTILIZATION: ("gauge", ()),
+    EngineMetric.LOOKAHEAD_BURSTS_TOTAL: ("counter", ()),
+    EngineMetric.LOOKAHEAD_HITS_TOTAL: ("counter", ()),
+    EngineMetric.LOOKAHEAD_MISPREDICTS_TOTAL: ("counter", ()),
+    EngineMetric.LOOKAHEAD_COMMITS_TOTAL: ("counter", ()),
+    EngineMetric.LOOKAHEAD_FLUSHES_TOTAL: ("counter", ()),
+    EngineMetric.LOOKAHEAD_DISPATCH_DEPTH: ("gauge", ()),
+    EngineMetric.PERSIST_HITS_TOTAL: ("counter", ()),
+    EngineMetric.PERSIST_MISSES_TOTAL: ("counter", ()),
+    EngineMetric.PERSIST_RESTORED_TOKENS_TOTAL: ("counter", ()),
+    EngineMetric.PERSIST_SPILL_BYTES_TOTAL: ("counter", ()),
+    EngineMetric.PERSIST_RESIDENT_BYTES: ("gauge", ()),
+    EngineMetric.STEPS_TOTAL: ("counter", ()),
+    EngineMetric.BUSY_STEPS_TOTAL: ("counter", ()),
+    EngineMetric.STEP_WALL_SECONDS_TOTAL: ("counter", ()),
+    EngineMetric.STEP_PHASE_SECONDS_TOTAL: ("counter", ("phase",)),
+    EngineMetric.HOST_GAP_MS_PER_TURN: ("gauge", ()),
+    EngineMetric.STEP_WALL_MS_EWMA: ("gauge", ()),
+    EngineMetric.HOST_GAP_MS_EWMA: ("gauge", ()),
+    KvTransferMetric.CALLS_TOTAL: ("counter", ("src", "dst", "path")),
+    KvTransferMetric.BYTES_TOTAL: ("counter", ("src", "dst", "path")),
+    KvTransferMetric.SECONDS_TOTAL: ("counter", ("src", "dst", "path")),
+    KvTransferMetric.MBPS: ("gauge", ("src", "dst", "path")),
+    KvTransferMetric.LATENCY_MS: ("gauge", ("src", "dst", "path")),
+    KvStreamMetric.SESSIONS_TOTAL: ("counter", ()),
+    KvStreamMetric.LAYERS_SENT_TOTAL: ("counter", ()),
+    KvStreamMetric.BYTES_TOTAL: ("counter", ()),
+    KvStreamMetric.FALLBACKS_TOTAL: ("counter", ()),
+    KvStreamMetric.OVERLAP_RATIO: ("gauge", ()),
+    KvShardMetric.SCATTERS_TOTAL: ("counter", ()),
+    KvShardMetric.GATHER_PARTIAL_TOTAL: ("counter", ()),
+    KvShardMetric.GENERATION: ("gauge", ()),
+    KvShardMetric.FANOUT_LATENCY_MS: ("histogram", ()),
+    KvShardMetric.LAST_FAN_OUT: ("gauge", ()),
+    KvShardMetric.INDEX_BLOCKS: ("gauge", ("shard",)),
+    KvShardMetric.RESIDENT_KEYS: ("gauge", ("shard",)),
+    PerfMetric.PREDICTED_DISPATCH_MS: ("gauge", ("kind",)),
+    PerfMetric.MEASURED_DISPATCH_MS: ("gauge", ("kind",)),
+    PerfMetric.DISPATCHES_TOTAL: ("counter", ("kind",)),
+    PerfMetric.MODEL_ERROR_RATIO: ("gauge", ("kind",)),
+    RouterMetric.KV_BLOCKS_ACTIVE: ("gauge", ("worker",)),
+    RouterMetric.KV_BLOCKS_TOTAL: ("gauge", ("worker",)),
+    RouterMetric.REQUEST_ACTIVE_SLOTS: ("gauge", ("worker",)),
+    RouterMetric.REQUESTS_WAITING: ("gauge", ("worker",)),
+    RouterMetric.KV_CACHE_USAGE: ("gauge", ("worker",)),
+    RouterMetric.ROUTING_DECISIONS_TOTAL: ("counter", ("worker",)),
+    RouterMetric.KV_HIT_RATE_PERCENT: ("gauge", ("worker",)),
+}

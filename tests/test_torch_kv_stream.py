@@ -710,3 +710,51 @@ def test_cross_package_handoff_over_tcp(models, cache_dtype, direction):
         jax_engine.shutdown()
         port_engine.shutdown()
     assert seen == [["int8", "float32"] if cache_dtype else ["float32"]]
+
+
+def test_stream_end_assembles_off_the_event_loop(monkeypatch):
+    """The decode side's END copies every staged layer frame into the
+    cache layout before the write; for a long prompt that copy takes
+    hundreds of ms, so it runs off the event loop: the sanitizer's
+    blocking monitor sees no loop callback over its 0.25 s threshold while
+    an assembly that takes 0.3 s runs, and the session still applies."""
+    import hashlib
+
+    from dynamo_tpu_torch.analysis.sanitizer import BlockingCallbackMonitor
+    from dynamo_tpu_torch.llm.kv import stream as port_stream
+
+    real = port_stream._Assembly.assemble
+
+    def slow(self):
+        time.sleep(0.3)
+        return real(self)
+
+    monkeypatch.setattr(port_stream._Assembly, "assemble", slow)
+    applied = []
+
+    async def sink(ids, arr, rid):
+        applied.append((ids, arr, rid))
+
+    async def run():
+        asm = port_stream.KvStreamAssembler(sink)
+        asm.begin({"v": port_stream.STREAM_VERSION, "session": "s", "request_id": "r",
+                   "num_layers": 2, "op": TransferOp.STREAM_BEGIN})
+        sha = hashlib.sha256()
+        for layer in range(2):
+            meta, data = transfer.pack_blocks(torch.full((1, 8), float(layer + 1)))
+            sha.update(data)
+            asm.write_layer({"session": "s", "seq": layer, "chunk": 0, "layer": layer,
+                             "block_ids": [0], **meta}, data)
+        return await asm.end({"session": "s", "frames": 2, "sha": sha.hexdigest()})
+
+    mon = BlockingCallbackMonitor(threshold_s=0.25)
+    mon.install()
+    try:
+        mon.begin_epoch()
+        assert asyncio.run(run()) == {"applied_blocks": 1}
+        reports = mon.reports_in_epoch()
+    finally:
+        mon.uninstall()
+    assert not reports, [r.render() for r in reports]
+    ((ids, arr, rid),) = applied
+    assert ids == [0] and rid == "r" and tuple(arr.shape) == (2, 1, 8)

@@ -252,7 +252,7 @@ def test_select_routes_project_codes():
 def test_lint_command_exit_codes(capsys):
     """``python -m <the port> lint``: 0 bare and with ``--project`` against
     the committed baseline, 1 on a fresh finding, 2 for a JAX-only rule
-    (``--select DT101``) or a plane that is not ported."""
+    (``--select DT101``) or a plane that is not a port target."""
     for flags, summary in (([], "0 findings (6 baselined)"),
                            (["--project"], "0 findings (23 baselined)")):
         with pytest.raises(SystemExit) as e:
@@ -264,7 +264,7 @@ def test_lint_command_exit_codes(capsys):
     assert e.value.code == 1
     assert "DT003" in capsys.readouterr().out
     for flags, words in ((["--select", "DT101"], "unknown rule"),
-                         (["--metrics"], "metrics plane"),
+                         (["--kern"], "kernel plane"),
                          (["--all"], "not port targets")):
         with pytest.raises(SystemExit) as e:
             port_cli.main(["lint", *flags])
