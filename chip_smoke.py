@@ -49,8 +49,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
    readings; every SDPA yardstick as a CUDA graph, the card's time, and
    eagerly for the log; for the grouped launches ``torch._grouped_mm`` and
    a per-expert cuBLAS loop, both as CUDA graphs), and their bound on this
-   card; the decode kernel over both caches also at the verify's S = 5 and
-   8 and the matmul at its M = 40;
+   card (every bound the kernel registry's work cost at its geometry,
+   ``ops/kernels/registry.py``); the decode kernel over both caches also
+   at the verify's S = 5 and 8 and the matmul at its M = 40.  Before the
+   timings, the ``kern`` phase: each of the nine kernels at every run case
+   of the registry's audit matrix (the matrix ``lint --kern`` audits on the
+   CPU: JAX's adversarial rows at D = 64, the verify's S = 5 and 8, the
+   int8 prefix hit, the grouped launches at T = 8 and 1,504), inputs from
+   the cases' numpy seeds, NaN-poisoned as the kernel plane poisons them,
+   held to the plain version on the same inputs: 0 leaks, every padding and
+   zero-length lane exactly 0 (one ``{"kern": ...}`` line);
 4. serving: Llama-3-8B at full width and depth (random weights from a
    seeded generator) behind ``AsyncLLMEngine``, six concurrent greedy
    requests (17 to 1500 prompt tokens, two sharing a 256-token prefix),
@@ -61,7 +69,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    run (the phases' ms a busy step, each dispatch kind's count and ms
    beside the perf model's prediction, and the host gap, wall - dispatch -
    overlap - readback, beside the earlier definition, wall - the blocking
-   result reads); then the bf16 model is freed
+   result reads); the bf16 default path's profiled run also marks each
+   forward on the stream and prints one ``{"perf": ...}`` line: the perf
+   plane's predicted ms of ``models.llama.forward[llama3-8b-h100]`` (decode
+   [8, 1], prefill [1, 1504], from ``analysis/perf_manifest.json``) beside
+   the profiled device ms of the run's forwards of those shapes; then the
+   bf16 model is freed
    and the same two runs are made on an int8 model at 8 layers (int8 weights drawn
    directly, ``cache_dtype="int8"``, ``block_size=32`` as ``bench.py``
    serves on an accelerator).  Every kernel's launch counter is zeroed just
@@ -199,9 +212,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``load/card_latency.json`` figures, their ratios and each capacity
    cell's knee swept at the measured figures beside the committed
    ``analysis/load_manifest.json``'s; and ``python -m dynamo_tpu_torch
-   lint --load`` and ``lint --project``, subprocesses started while the
-   kernels build, each of which must have exited 0 (the committed surface
-   and baseline reproduce here);
+   lint --load``, ``--project``, ``--wire``, ``--metrics``, ``--kern`` and
+   ``--perf``, subprocesses started while the kernels build, each of which
+   must have exited 0 (the committed surfaces, baseline and manifests
+   reproduce here);
 5. parity: 2-layer models at full 8B width on the card (kernels, bf16) and
    on the CPU (plain PyTorch, f32), bf16 weights with a bf16 cache and int8
    weights with an int8 cache: one 300-token prompt over a 128-token cached
@@ -381,13 +395,15 @@ sys.path.insert(0, str(ROOT))
 
 from dynamo_tpu_torch.tools.cuda_timing import (  # noqa: E402
     DECODE_LENS, LM_HEAD, MOE_EXPERTS, MOE_LAUNCHES, MOE_TOKENS, MOE_TOP_K, PROJECTIONS,
-    RAGGED_MIXED, card_line, cuda_time_ms, graph_time_ms, median_ms, moe_layer_work, moe_offsets,
-    moe_stack, ragged_layout)
+    RAGGED_MIXED, card_line, cuda_time_ms, graph_time_ms, median_ms, moe_offsets, moe_stack,
+    ragged_layout)
+from dynamo_tpu_torch.ops.kernels import registry as kreg  # noqa: E402
 
-# published peaks of one H100 SXM (dense): HBM bytes/s and bf16 tensor FLOP/s
+# published peaks of one H100 SXM (dense): HBM bytes/s and f32 FLOP/s
+# outside the tensor cores (the grammar ops' bound; every kernel's bound is
+# the registry's, ops/kernels/registry.py)
 HBM_BYTES_PER_S = 3.35e12
-BF16_FLOP_PER_S = 989e12
-F32_FLOP_PER_S = 67e12  # outside the tensor cores
+F32_FLOP_PER_S = 67e12
 
 # Llama-3-8B attention geometry
 H, HK, D, BS, L = 32, 8, 128, 16, 32
@@ -800,6 +816,57 @@ def kernel_phase(torch) -> dict:
     return errs
 
 
+def kern_phase(torch, card: str) -> None:
+    """The kernel plane's run cases on the card: each of the nine kernels
+    at every geometry of the registry matrix it takes (``ops/kernels/
+    registry.py`` ``audit_cases``, the matrix ``lint --kern`` audits on the
+    CPU with the plain versions: JAX's adversarial rows at D = 64, the
+    verify's S = 5 and 8, the int8 prefix hit, the grouped launches at T =
+    8 and 1,504), its inputs drawn from the case's numpy seed (bf16, or
+    int8 codes with f32 scales), NaN-poisoned as the plane poisons them
+    (cache slots past each row's context and every unreferenced block, the
+    int8 scales of both and their pad lanes, fresh padding rows, tokens in
+    no span, unrouted experts' weights and scales) and held against its
+    plain version on the same poisoned inputs within PERF.md §2's
+    tolerance.  A leak is a non-finite value in a live lane; padding and
+    zero-length rows must be exactly 0.  Prints the ``kern`` line: for each
+    kernel its cases, max abs error, leaks and exact zeros."""
+    t0 = time.perf_counter()
+    out: dict[str, dict] = {}
+    for case in kreg.audit_cases():
+        if case["mode"] != "run":
+            continue
+        what = f"kern {case['kernel']} [{case['name']}]"
+        poisoned = kreg.poison(case, kreg.build(case, device="cuda", dtype=torch.bfloat16))
+        got = kreg.run(case, poisoned).float()
+        ref = kreg.run_plain(case, poisoned).float()
+        torch.cuda.synchronize()
+        live, zero = (torch.as_tensor(m, device="cuda") for m in kreg.lanes(case, tuple(got.shape)))
+        leaks = int((~torch.isfinite(got[live])).sum())
+        diff = (got - ref).abs()[live]
+        excess = (diff - KERNEL_RTOL * ref.abs()[live]).max().item() if live.any() else 0.0
+        zeros = int((got[zero] == 0).sum())
+        row = out.setdefault(case["kernel"], dict(id=kreg.KERNELS[case["kernel"]]["id"], cases=0,
+                                                  max_abs_err=0.0, leaks=0, zero_lanes=0,
+                                                  exact_zeros=0, geometries=[]))
+        row["cases"] += 1
+        row["geometries"].append(case["name"])
+        row["max_abs_err"] = max(row["max_abs_err"], diff.max().item() if live.any() else 0.0)
+        row["leaks"] += leaks
+        row["zero_lanes"] += int(zero.sum())
+        row["exact_zeros"] += zeros
+        check(leaks == 0, f"{what}: {leaks} non-finite live lanes: the NaN poison leaked")
+        check(excess <= KERNEL_ATOL, f"{what}: |out - ref| exceeds {KERNEL_ATOL} + {KERNEL_RTOL} |ref| "
+              f"by {excess - KERNEL_ATOL}")
+        check(zeros == int(zero.sum()), f"{what}: {int(zero.sum()) - zeros} padding or zero-length "
+              "lanes are not exactly 0")
+    check(set(out) == {k for k, m in kreg.KERNELS.items() if not m["placeholder"]},
+          f"kern: the run cases reached {sorted(out)}, not every kernel")
+    log(json.dumps({"kern": dict(kernels=out, cases=sum(r["cases"] for r in out.values()),
+                                 leaks=sum(r["leaks"] for r in out.values()),
+                                 seconds=round(time.perf_counter() - t0, 3), card=card)}))
+
+
 def q8_kernel_phase(torch, gen) -> dict:
     """The three int8 attention kernels against their plain version, at
     the bf16 checks' layouts and at both block sizes."""
@@ -1075,12 +1142,8 @@ def timing_phase(torch, card: str) -> dict:
     library_ms, library_eager_ms = _sdpa_decode_ms(
         torch, q, lens, lambda layer: _dense_kv(torch, cache, bt, lens, layer, BS))
     ctx = sum(lens)
-    dec_bytes = 2 * (2 * b * H * D) + 2 * ctx * HK * D * 2 + 4 * (b * m + 2 * b)
-    dec_flops = 4 * H * D * ctx
     out["decode"] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                         bound_ms=1e3 * max(dec_bytes / HBM_BYTES_PER_S, dec_flops / BF16_FLOP_PER_S),
-                         bound_by="bytes" if dec_bytes / HBM_BYTES_PER_S >= dec_flops / BF16_FLOP_PER_S
-                         else "operations")
+                         **_bound("paged_decode_attention", b=b, s=1, h=H, hk=HK, d=D, m=m, lens=lens))
     log(f"time decode  B={b} S=1 ctx={ctx}: kernel {kernel_ms:.4f} ms (CUDA graph; eager {eager_ms:.4f}), "
         f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms (CUDA graph; eager {library_eager_ms:.4f}), "
         f"bound {out['decode']['bound_ms']:.4f} ms, "
@@ -1108,13 +1171,9 @@ def timing_phase(torch, card: str) -> dict:
     vs = vp[:, :fresh].transpose(1, 2).contiguous()
     library_ms, library_eager_ms = _sdpa_ms(
         lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True))
-    pairs = fresh * (fresh + 1) // 2
-    pre_flops = 4 * H * D * pairs
-    pre_bytes = 2 * (2 * fresh * H * D + 2 * fresh * HK * D) + 4 * (m + 2)
     out["prefill"] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                          bound_ms=1e3 * max(pre_flops / BF16_FLOP_PER_S, pre_bytes / HBM_BYTES_PER_S),
-                          bound_by="operations" if pre_flops / BF16_FLOP_PER_S >= pre_bytes / HBM_BYTES_PER_S
-                          else "bytes")
+                          **_bound("paged_prefill_attention", b=1, s=s, h=H, hk=HK, d=D, m=m, starts=[0],
+                                   lens=[fresh]))
     log(f"time prefill B=1 S={s} fresh={fresh} start=0: kernel {kernel_ms:.4f} ms (CUDA graph "
         f"{kernel_graph_ms:.4f}), plain {plain_ms:.4f} ms, "
         f"sdpa {library_ms:.4f} ms (CUDA graph; eager {library_eager_ms:.4f}), "
@@ -1123,12 +1182,12 @@ def timing_phase(torch, card: str) -> dict:
     return out
 
 
-def _bound(flops: float, nbytes: float) -> dict:
-    """The least time the card could take: the larger of the operations
-    over the bf16 tensor-core peak and the bytes over the memory rate."""
-    t_ops, t_bytes = flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
-    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes")
+def _bound(kernel: str, **geometry) -> dict:
+    """The least time the card could take for one launch of ``kernel`` at
+    ``geometry`` (or, with ``calls``, for several): the registry's work
+    cost, the larger of its operations over the bf16 tensor-core peak and
+    its bytes over the memory rate (``ops/kernels/registry.py``)."""
+    return kreg.bound(kreg.work_cost(kernel, geometry))
 
 
 def _dequant_rows(torch, cache, rows, n, layer=LAYER):
@@ -1206,11 +1265,9 @@ def q8_timing_phase(torch, card: str) -> dict:
     library_ms, library_eager_ms = _sdpa_decode_ms(
         torch, q, lens, lambda layer: _dense_kv(torch, cache, bt, lens, layer, bs))
     ctx = sum(lens)
-    # q and out bf16; the int8 K/V payload of the live context and the f32
-    # scale of each (token, KV head, K or V) it reads; the tables
-    nbytes = 2 * (2 * b * H * D) + 2 * ctx * HK * D + 2 * ctx * HK * 4 + 4 * (b * m + 2 * b)
     out["decode_q8"] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                            **_bound(4 * H * D * ctx, nbytes))
+                            **_bound("paged_decode_attention_q8", b=b, s=1, h=H, hk=HK, d=D, m=m,
+                                     lens=lens))
     log(f"time decode int8 B={b} S=1 Bs={bs} ctx={ctx}: kernel {kernel_ms:.4f} ms (CUDA graph; eager "
         f"{eager_ms:.4f}), plain "
         f"{plain_ms:.4f} ms, sdpa on bf16 K/V (twice the cache bytes) {library_ms:.4f} ms (CUDA graph; eager "
@@ -1240,11 +1297,9 @@ def q8_timing_phase(torch, card: str) -> dict:
     pmask = (j[None, :] < start) | (j[None, :] - start <= i[:, None])
     library_ms, library_eager_ms = _sdpa_ms(
         lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=pmask, enable_gqa=True))
-    pairs = fresh * start + fresh * (fresh + 1) // 2
-    nbytes = (2 * (2 * fresh * H * D + 2 * fresh * HK * D) + 2 * start * HK * D
-              + 2 * start * HK * 4 + 4 * (m + 2))
     out["prefill_q8"] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                             **_bound(4 * H * D * pairs, nbytes))
+                             **_bound("paged_prefill_attention_q8", b=1, s=s, h=H, hk=HK, d=D, m=m,
+                                      starts=[start], lens=[start + fresh]))
     log(f"time prefill int8 B=1 S={s} fresh={fresh} start={start} Bs={bs}: kernel {kernel_ms:.4f} ms "
         f"(CUDA graph {kernel_graph_ms:.4f}), "
         f"plain {plain_ms:.4f} ms, sdpa on bf16 K/V {library_ms:.4f} ms (CUDA graph; eager "
@@ -1299,9 +1354,7 @@ def matmul_timing(torch, card: str) -> dict:
         return cuda_time_ms(lambda i: [c() for c in calls], iters) / 4
 
     def layer_bound(m):
-        flops = sum(2 * m * k * n for k, n in PROJECTIONS.values())
-        nbytes = sum(k * n + 2 * m * k + 2 * m * n + 4 * n for k, n in PROJECTIONS.values())
-        return _bound(flops, nbytes)
+        return _bound("int8_matmul", calls=[dict(m=m, k=k, n=n) for k, n in PROJECTIONS.values()])
 
     out = {}
     xs = rows(8)
@@ -1318,7 +1371,7 @@ def matmul_timing(torch, card: str) -> dict:
         f"cuBLAS {median_ms(lambda: eager_ms(library, xs, 16)):.4f} ms; "
         f"max abs err {out['matmul_err']:.3g} ({card})")
     per = {name: graph_time_ms(layer_calls(kernel, xs, (name,)), 40) / 4 for name in PROJECTIONS}
-    bounds = {name: _bound(2 * 8 * k * n, k * n + 16 * k + 16 * n + 4 * n)["bound_ms"]
+    bounds = {name: _bound("int8_matmul", m=8, k=k, n=n)["bound_ms"]
               for name, (k, n) in PROJECTIONS.items()}
     log("time matmul int8 at M=8 by projection (CUDA graph): " + ", ".join(
         f"{name} [{k}, {n}] {per[name]:.4f} ms (bound {bounds[name]:.4f})"
@@ -1352,7 +1405,7 @@ def matmul_timing(torch, card: str) -> dict:
     dense_head = heads[0][0].to(torch.bfloat16) * heads[0][1].to(torch.bfloat16)
     head_lib = median_ms(lambda: cuda_time_ms(
         lambda i: torch.mm(x, dense_head, out_dtype=torch.float32), 16))
-    hb = _bound(2 * 8 * k * n, k * n + 16 * k + 32 * n + 4 * n)
+    hb = _bound("int8_matmul", m=8, k=k, n=n, out_bytes=4)
     log(f"time matmul int8 lm_head [{k}, {n}] at M=8, f32 out (CUDA graph): kernel {head_ms:.4f} ms, cuBLAS "
         f"bf16 {head_lib:.4f} ms (one weight, L2-warm for weights under 50 MB), bound {hb['bound_ms']:.4f} ms "
         f"({hb['bound_by']}) ({card})")
@@ -1402,12 +1455,10 @@ def verify_timing(torch, card: str) -> dict:
             library_ms, library_eager_ms = _sdpa_decode_ms(
                 torch, q, lens, lambda layer: _dense_kv(torch, cache, bt, lens, layer, bs), q0=q0)
             ctx = sum(lens)
-            pairs = sum(min(n, max(n - s, 0) + j + 1) for n in lens for j in range(s))
-            kv_bytes = 2 * ctx * HK * D * (1 if quant else 2) + (2 * ctx * HK * 4 if quant else 0)
-            nbytes = 2 * (2 * b * s * H * D) + kv_bytes + 4 * (b * m + 2 * b)
-            out[key][f"S={s}"] = r = dict(ms=kernel_ms, eager_ms=eager_ms, plain_ms=plain_ms,
-                                          library_ms=library_ms, max_abs_err=err,
-                                          **_bound(4 * H * D * pairs, nbytes))
+            out[key][f"S={s}"] = r = dict(
+                ms=kernel_ms, eager_ms=eager_ms, plain_ms=plain_ms, library_ms=library_ms, max_abs_err=err,
+                **_bound("paged_decode_attention_q8" if quant else "paged_decode_attention", b=b, s=s,
+                         h=H, hk=HK, d=D, m=m, lens=lens))
             log(f"time decode {'int8 Bs=32' if quant else 'bf16 Bs=16'} B={b} S={s} (verify) "
                 f"ctx={ctx}: kernel {kernel_ms:.4f} ms (CUDA graph; eager {eager_ms:.4f}), plain "
                 f"{plain_ms:.4f} ms, sdpa{' on bf16 K/V' if quant else ''} {library_ms:.4f} ms "
@@ -1486,13 +1537,9 @@ def ragged_timing(torch, card: str, mixed: dict, quant: bool = False) -> dict:
     library_ms = median_ms(lambda: cuda_time_ms(lambda i: F.scaled_dot_product_attention(
         qd, kd, vd, attn_mask=mask, enable_gqa=True), 10))
 
-    r_rows, m = bt.shape
-    flops = 4 * H * D * ragged_work(starts, lens)
-    # q, out and the fresh K/V bf16; each row's prefix K/V, bf16 or int8
-    # plus the f32 scale of each (token, KV head, K or V); the tables
-    prefix = 2 * sum(starts) * HK * (D + 4 if quant else 2 * D)
-    nbytes = 2 * (2 * t * H * D + 2 * t * HK * D) + prefix + 4 * (r_rows * m + 3 * r_rows)
-    out = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms, **_bound(flops, nbytes))
+    out = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+               **_bound("ragged_paged_prefill_attention" + ("_q8" if quant else ""), t=t, h=H, hk=HK,
+                        d=D, m=bt.shape[1], starts=list(starts), lens=list(lens)))
     log(f"time {label} T={t} Bs={bs} rows={len(spans)}, starts {starts}, seq_lens {lens}: kernel "
         f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
         f"{out['bound_ms']:.4f} ms ({out['bound_by']}), max abs err {err:.3g}; without its "
@@ -1645,7 +1692,7 @@ def moe_timing(torch, card: str) -> dict:
     torch has it (the ``library_ms``; int8: on dequantised experts), and the
     bound: the weight bytes of the experts the rows route to (counted), x
     and every launch's input and output once, against 2 R K N per launch
-    (``cuda_timing.moe_layer_work``).  Returns each kernel's Qwen3 T = 8
+    (the registry's work cost of the three launches).  Returns each kernel's Qwen3 T = 8
     row, with its T = 1,504 row under ``t1504`` and E1's DeepSeek-V2-Lite
     rows under ``deepseek_v2_lite``."""
     gen = torch.Generator(device="cuda")
@@ -1711,8 +1758,10 @@ def _moe_layer_times(torch, card: str, gen, quant: bool, model: str, experts: in
                 log(f"time {key}: torch._grouped_mm did not run here: {str(e)[:200]}")
         err = max(compare(torch, f"{key} {model} timing {n} T={t}", calls(kernel)[i](), calls(plain)[i]())
                   for i, n in enumerate(names))
-        flops, nbytes = moe_layer_work(r, len(groups), quant, names)
-        b = _bound(flops, nbytes)
+        cost = kreg.work_cost(key.replace("moe", "grouped_matmul"), {"calls": [
+            dict(r=r, k=kd, n=nd, live=len(groups)) for kd, nd in names.values()]})
+        flops, nbytes = cost["flops"], cost["hbm_bytes"]
+        b = kreg.bound(cost)
         out[t] = (dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **b), err)
         log(f"time {key} one {model} layer's 3 grouped launches at T={t} ({r} rows, "
             f"{len(groups)} of {experts} experts routed to): kernel {ms:.4f} ms (CUDA graph), "
@@ -1829,14 +1878,16 @@ def timeline_line(core, before: dict, dispatches: int, label: str, card: str) ->
 
 
 def serve_run(torch, model, config: dict, card: str, label: str, profile: bool = False,
-              timeline: bool = False) -> dict:
+              timeline: bool = False, perf: bool = False) -> dict:
     """Serve the six requests once through ``AsyncLLMEngine`` under one
     EngineConfig, with every kernel's launch counter zeroed just before and
     read just after; returns the streams, launches and engine counters
     (and, with ``timeline``, the run's step timeline line, the perf model
     priced on the run's own first dispatch of each kind), the cached and
     prompt tokens and the engine's KV bytes a block (the load phase's
-    inputs)."""
+    inputs).  With ``profile`` the traffic runs once more under the
+    profiler, and with ``perf`` too that run's forwards are timed on the
+    card for the ``perf`` line."""
     from dynamo_tpu_torch.engine import AsyncLLMEngine, EngineConfig, EngineCore
     from dynamo_tpu_torch.llm.protocols import FinishReason
 
@@ -1888,7 +1939,8 @@ def serve_run(torch, model, config: dict, card: str, label: str, profile: bool =
             f"per dispatch: overlap-window host work {overlap_ms:.2f} ms, result-read wait "
             f"{wait_ms:.2f} ms, launches {launches}, counters {json.dumps(counters)} ({card})")
         if profile:
-            profile_serving(torch, engine, model_prompts(model, seed=1), card)
+            profile_serving(torch, engine, model_prompts(model, seed=1), card,
+                            model=model if perf else None)
     finally:
         engine.shutdown()
     streams = [[t for o in outs for t in o.token_ids] for _, _, outs in results]
@@ -1901,7 +1953,7 @@ def serve_run(torch, model, config: dict, card: str, label: str, profile: bool =
 LOAD_FIGURES = ("prefill_ms_per_token", "decode_ms_per_step", "router_ms_per_decision",
                 "kv_bytes_per_block")
 LOAD_LINT_S = 120  # the lint subprocesses' limit
-LOAD_LINTS = ("--load", "--project", "--wire", "--metrics")
+LOAD_LINTS = ("--load", "--project", "--wire", "--metrics", "--kern", "--perf")
 
 
 def _lint_clock(proc) -> None:
@@ -1913,10 +1965,10 @@ def _lint_clock(proc) -> None:
 
 def start_lints() -> dict:
     """``python -m dynamo_tpu_torch lint --load``, ``--project``,
-    ``--wire`` and ``--metrics`` as subprocesses, started while the
-    kernels build: the committed surfaces, baseline and manifests, checked
-    on this machine's Python.  The load phase reads them; ``stop_lints``
-    ends whatever is left."""
+    ``--wire``, ``--metrics``, ``--kern`` and ``--perf`` as subprocesses,
+    started while the kernels build: the committed surfaces, baseline and
+    manifests, checked on this machine's Python and torch.  The load phase
+    reads them; ``stop_lints`` ends whatever is left."""
     lints = {}
     for flag in LOAD_LINTS:
         proc = subprocess.Popen([sys.executable, "-m", "dynamo_tpu_torch", "lint", flag],
@@ -1945,9 +1997,9 @@ def load_phase(default: dict, router: dict, lints: dict, card: str) -> dict:
     request's tokens after its first), and its engine the KV bytes a
     block; the router run gives one decision's ms.  Sweeps the capacity
     grid at those figures and logs each cell's knee beside the committed
-    manifest's, then reads ``lint --load``, ``--project``, ``--wire`` and
-    ``--metrics`` (``lints``, from :func:`start_lints`): each must exit 0
-    here."""
+    manifest's, then reads ``lint --load``, ``--project``, ``--wire``,
+    ``--metrics``, ``--kern`` and ``--perf`` (``lints``, from
+    :func:`start_lints`): each must exit 0 here."""
     from dynamo_tpu_torch.analysis.loadcheck import DEFAULT_LOAD_MANIFEST_PATH, LoadManifest
     from dynamo_tpu_torch.load.sim import sweep
     from dynamo_tpu_torch.load.workers import DEFAULT_CARD_LATENCY, LatencyModel
@@ -2025,12 +2077,6 @@ def recorded_ragged_calls(name: str = "ragged_paged_prefill_attention"):
         setattr(routing, name, real)
 
 
-def ragged_work(starts, lens) -> int:
-    """Visible (query, key) pairs of a ragged dispatch: each row's fresh
-    tokens see its whole prefix and their own span causally."""
-    return sum((n - st) * st + (n - st) * (n - st + 1) // 2 for st, n in zip(starts, lens))
-
-
 def largest_mixed(calls) -> dict:
     """The recorded dispatch with the most attention work among those that
     mix decode rows (1-token rows at the head of the axis) with spans."""
@@ -2039,7 +2085,7 @@ def largest_mixed(calls) -> dict:
         lens, starts, offs = lens.tolist(), starts.tolist(), offs.tolist()
         fresh = [n - st for n, st in zip(lens, starts)]
         mixed = fresh and fresh[0] == 1 and offs[0] == 0 and max(fresh) > 1
-        if mixed and (best is None or ragged_work(starts, lens) > ragged_work(best["starts"],
+        if mixed and (best is None or kreg.span_pairs(starts, lens) > kreg.span_pairs(best["starts"],
                                                                                best["lens"])):
             best = dict(t=t, bt=bt, lens=lens, starts=starts, offs=offs, bs=bs)
     check(best is not None, "the token-budget run made no mixed dispatch")
@@ -2105,7 +2151,7 @@ def serve_both(torch, model, card: str, quant: bool):
     other = (("decode", "prefill", "ragged", "moe", "moe_q8") if quant
              else ("decode_q8", "prefill_q8", "ragged_q8", "matmul", "moe", "moe_q8"))
     default = serve_run(torch, model, INT8_DEFAULT_PATH if quant else DEFAULT_PATH, card,
-                        f"{tag}default path", profile=True, timeline=True)
+                        f"{tag}default path", profile=True, timeline=True, perf=not quant)
     need = ["decode" + q8, "prefill" + q8] + (["matmul"] if quant else [])
     check(all(default["launches"][k] > 0 for k in need) and
           not any(default["launches"][k] for k in other),
@@ -2558,13 +2604,99 @@ def moe_serving_phase(torch, card: str) -> tuple[dict, dict]:
     return runs[0], runs[1]
 
 
-def profile_serving(torch, engine, reqs, card: str) -> None:
+# the perf plane's full-width forward (analysis/perf_manifest.json): the
+# default path's decode forward [8, 1] and its longest prompt's prefill
+# forward [1, 1504]
+PERF_ENTRY = "models.llama.forward[llama3-8b-h100]"
+PERF_SHAPES = {"decode": (8, 1), "prefill": (1, 1504)}
+# torch.cuda._sleep's kernel: one launch of it marks each end of a forward
+# on the stream, so the profile can cut the stream's kernels into forwards
+FORWARD_MARK = "spin_kernel"
+
+
+@contextlib.contextmanager
+def marked_forwards(torch, model, shapes: list):
+    """``model.forward`` with a mark launched on its stream before and
+    after it, and each call's token shape appended to ``shapes``."""
+    real = model.forward
+
+    def forward(tokens, *args, **kwargs):
+        shapes.append(tuple(tokens.shape))
+        torch.cuda._sleep(0)
+        try:
+            return real(tokens, *args, **kwargs)
+        finally:
+            torch.cuda._sleep(0)
+
+    model.forward = forward
+    try:
+        yield
+    finally:
+        del model.forward
+
+
+def forward_device_ms(device_events, shapes: list) -> list:
+    """Each marked forward's device ms: the kernels and copies its marks'
+    stream ran between its two marks.  ``device_events`` are (start ns,
+    duration ns, name, stream) tuples; None when the marks do not pair up
+    with the forwards."""
+    import bisect
+
+    events = sorted(device_events)
+    marks = [e for e in events if FORWARD_MARK in e[2]]
+    if not marks or len(marks) != 2 * len(shapes):
+        log(f"perf: {len(marks)} forward marks on the card for {len(shapes)} forwards")
+        return None
+    stream = marks[0][3]
+    work = [e for e in events if e[3] == stream and FORWARD_MARK not in e[2]]
+    starts = [e[0] for e in work]
+    total = [0]
+    for e in work:
+        total.append(total[-1] + e[1])
+    out = []
+    for i in range(len(shapes)):
+        lo = bisect.bisect_right(starts, marks[2 * i][0])
+        hi = bisect.bisect_left(starts, marks[2 * i + 1][0])
+        out.append((total[hi] - total[lo]) / 1e6)
+    return out
+
+
+def perf_line(forwards: list, card: str) -> None:
+    """The perf plane's predicted ms of ``PERF_ENTRY``'s decode and
+    prefill forwards (the committed manifest, read as ``/metrics`` reads
+    it) beside the profiled device ms of the run's forwards of the same
+    shapes."""
+    from dynamo_tpu_torch.analysis.perfcheck import manifest_predictions
+
+    base, _, config = PERF_ENTRY.partition("[")
+    pred = {r["signature"]: r for r in manifest_predictions()
+            if r["entrypoint"] == base and r["config"] == config.rstrip("]")}
+    line = dict(entry=PERF_ENTRY, card=card)
+    for sig, shape in PERF_SHAPES.items():
+        ms = sorted(t for s, t in forwards if tuple(s) == shape)
+        row = dict(shape=list(shape), predicted_ms=pred[sig]["predicted_ms"], bound=pred[sig]["bound"],
+                   forwards=len(ms))
+        if ms:
+            row.update(device_ms_mean=sum(ms) / len(ms), device_ms_median=ms[len(ms) // 2],
+                       device_ms_min=ms[0], device_ms_max=ms[-1],
+                       device_over_predicted=sum(ms) / len(ms) / pred[sig]["predicted_ms"])
+        line[sig] = row
+    line["other_forwards"] = sum(1 for s, _ in forwards if tuple(s) not in PERF_SHAPES.values())
+    log(json.dumps({"perf": line}))
+
+
+def profile_serving(torch, engine, reqs, card: str, model=None) -> None:
     """The same traffic (fresh prompts, so no prefix is cached) once more
     under torch.profiler: the share of wall time the card ran a kernel,
-    and the kernels that took the most device time."""
+    and the kernels that took the most device time.  With ``model`` (the
+    bf16 Llama-3-8B default path) each of its forwards is marked on the
+    stream and the ``perf`` line prints their device ms beside the perf
+    plane's prediction."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    shapes: list = []
+    marking = marked_forwards(torch, model, shapes) if model is not None else contextlib.nullcontext()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, marking:
         t0 = time.perf_counter()
         asyncio.run(_serve(engine, reqs))
         torch.cuda.synchronize()
@@ -2575,16 +2707,22 @@ def profile_serving(torch, engine, reqs, card: str) -> None:
     # launches and took up to 160 s for one Qwen3-30B-A3B run
     t0 = time.perf_counter()
     per_name: dict[str, tuple[float, int]] = {}
+    device_events = []
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == torch.autograd.DeviceType.CUDA:
             us, n = per_name.get(e.name(), (0.0, 0))
             per_name[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+            if model is not None:
+                device_events.append((e.start_ns(), e.duration_ns(), e.name(), e.device_resource_id()))
     events = sorted(per_name.items(), key=lambda kv: kv[1][0], reverse=True)
     busy_s = sum(us for us, _ in per_name.values()) / 1e6
     top = ", ".join(f"{name[:48]} {us / 1e3:.1f} ms x{n}" for name, (us, n) in events[:6])
     log(f"profile: device busy {busy_s:.3f} s of {wall:.3f} s wall ({100 * busy_s / wall:.1f}%); "
         f"top kernels: {top}; {len(events)} device event names summed in "
         f"{time.perf_counter() - t0:.1f} s ({card})")
+    if model is not None:
+        times = forward_device_ms(device_events, shapes)
+        perf_line(list(zip(shapes, times)) if times is not None else [], card)
     grouped = {}  # the grouped expert kernel's device time by (E1 or E2, rows a tile)
     for name, (us, count) in events:
         m = re.search(r"grouped_wgmma_kernel<(\d+), (true|false)>", name)
@@ -6033,8 +6171,8 @@ def mla_timing(torch, card: str) -> list[dict]:
     rows = []
 
     def work(pairs, q_rows, ctx_rows, what):
-        nbytes = 2 * ctx_rows * d + 2 * q_rows * h * (d + latent)
-        return dict(name=what, **_bound(2 * h * (d + latent) * pairs, nbytes))
+        return dict(name=what, **kreg.bound(kreg.latent_attention_work(h, d, latent, pairs, q_rows,
+                                                                        ctx_rows)))
 
     # decode
     lens = list(DECODE_LENS)
@@ -7876,6 +8014,8 @@ def main() -> int:
         sass_check(torch, lib_path)
         errs = kernel_phase(torch)
         mark("kernel checks")
+        kern_phase(torch, card)
+        mark("kern")
         times = timing_phase(torch, card)
         times.update(q8_timing_phase(torch, card))
         times.update(matmul_timing(torch, card))

@@ -18,12 +18,20 @@
   (MT001-MT005) against the committed ``metrics_manifest.json``,
   ``obs/metric_names.SCHEMA`` and ``docs/torch_observability.md``
   (``lint --metrics``).
+- The kernel plane: ``kerncheck.py`` audits the CUDA kernels of
+  ``ops/kernels/registry.py`` (KN001-KN006: budgets, plan walks, the plain
+  versions' NaN-poisoned padding oracles, work and plan costs, the census)
+  against the committed ``kern_manifest.json`` (``lint --kern``).
+- The perf plane: ``perfcheck.py`` prices every step function on meta
+  tensors against the H100's rates (PF001-PF004) against the committed
+  ``perf_manifest.json`` (``lint --perf``); ``/metrics`` renders its
+  predictions as ``dynamo_tpu_perf_predicted_step_ms``.
 - The runtime sanitizer (dtsan): ``sanitizer.py`` (task leaks, blocking
   callbacks, unclosed transports, the framing guard) and its standalone
   pytest plugin ``pytest_sanitizer.py``.
 
-``cli.py`` is the ``lint`` command.  The JAX package's other planes
-(trace, perf, shard, kern) are not port targets (ROADMAP).
+``cli.py`` is the ``lint`` command.  The JAX package's trace and shard
+planes are not port targets (ROADMAP).
 """
 
 from dynamo_tpu_torch.analysis.core import (
@@ -43,6 +51,13 @@ from dynamo_tpu_torch.analysis.detloop import (
     SimulatedCrash,
     run_deterministic,
 )
+from dynamo_tpu_torch.analysis.kerncheck import (
+    DEFAULT_KERN_MANIFEST_PATH,
+    KERN_RULES,
+    check_kern_facts,
+    collect_kern_facts,
+    run_kern,
+)
 from dynamo_tpu_torch.analysis.loadcheck import (
     DEFAULT_LOAD_MANIFEST_PATH,
     LOAD_RULES,
@@ -59,6 +74,14 @@ from dynamo_tpu_torch.analysis.metcheck import (
     check_metric_facts,
     collect_metric_facts,
     run_metrics,
+)
+from dynamo_tpu_torch.analysis.perfcheck import (
+    DEFAULT_PERF_MANIFEST_PATH,
+    PERF_RULES,
+    check_perf_facts,
+    collect_perf_facts,
+    manifest_predictions,
+    run_perf,
 )
 from dynamo_tpu_torch.analysis.project import (
     ProjectIndex,
@@ -148,6 +171,17 @@ __all__ = [
     "check_metric_facts",
     "collect_metric_facts",
     "run_metrics",
+    "DEFAULT_KERN_MANIFEST_PATH",
+    "KERN_RULES",
+    "check_kern_facts",
+    "collect_kern_facts",
+    "run_kern",
+    "DEFAULT_PERF_MANIFEST_PATH",
+    "PERF_RULES",
+    "check_perf_facts",
+    "collect_perf_facts",
+    "manifest_predictions",
+    "run_perf",
     "MODE_FULL",
     "MODE_LEAKS",
     "MODE_OFF",

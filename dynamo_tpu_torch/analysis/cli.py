@@ -12,11 +12,12 @@ diffing, exit 1 on any non-baselined finding, 2 on an unknown rule.
 carrying existing justifications over where the (path, rule, content)
 key still matches.  ``--proto`` runs the protocol plane
 (``protocheck.py``), ``--load`` the scale-simulation plane
-(``loadcheck.py``), ``--wire`` the wire plane (``wirecheck.py``) and
-``--metrics`` the metrics plane (``metcheck.py``), each against its own
-committed manifest.  The JAX command's other plane flags (``--trace``,
-``--perf``, ``--shard``, ``--kern``, and ``--all``, which runs them too)
-exit 2, naming the plane as not a port target.
+(``loadcheck.py``), ``--wire`` the wire plane (``wirecheck.py``),
+``--metrics`` the metrics plane (``metcheck.py``), ``--kern`` the kernel
+plane (``kerncheck.py``) and ``--perf`` the perf plane (``perfcheck.py``),
+each against its own committed manifest.  The JAX command's other plane
+flags (``--trace``, ``--shard``, and ``--all``, which runs them too) exit
+2, naming the plane as not a port target.
 """
 
 from __future__ import annotations
@@ -39,12 +40,12 @@ __all__ = ["configure_parser", "run_lint", "main"]
 # the JAX command's plane flags the port has no plane for, and why each
 # exits 2
 _UNPORTED = {
-    "trace": "the compile plane is not a port target (it reads jaxprs and HLO)",
-    "perf": "the perf plane is not a port target (it prices jaxprs against TPU numbers)",
-    "shard": "the sharding plane is not a port target (it reads GSPMD placements)",
-    "kern": "the kernel plane is not a port target (it audits pallas_call sites)",
+    "trace": "the compile plane is not a port target (it reads jaxprs and HLO and proves one "
+             "compile per bucket; eager PyTorch compiles nothing)",
+    "shard": "the sharding plane is not a port target (it reads GSPMD placements; the port "
+             "runs one process per rank)",
     "all": "every plane at once is refused: the JAX command's --all also runs the "
-           "trace, perf, shard and kern planes, which are not port targets",
+           "trace and shard planes, which are not port targets",
 }
 
 
@@ -82,22 +83,32 @@ def configure_parser(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                         "/metrics surface: dead telemetry, stale scrape "
                         "keys, label cardinality, type misuse, census "
                         "drift) against the committed metrics manifest")
+    p.add_argument("--kern", action="store_true",
+                   help="run the kernel-plane pass instead (KN001-KN006: launch budgets, "
+                        "plan walks, NaN-poisoned padding oracles of the plain versions, "
+                        "work and plan costs, the kernel census) against the committed "
+                        "kern manifest")
+    p.add_argument("--perf", action="store_true",
+                   help="run the perf-plane pass instead (PF001-PF004: the H100 roofline "
+                        "of every step function, priced on meta tensors, and its "
+                        "collective census) against the committed perf manifest")
     for flag, why in _UNPORTED.items():
         p.add_argument(f"--{flag}", action="store_true", help=f"{why} (exits 2)")
     p.add_argument("--replay", default=None, metavar="TOKEN",
-                   help="with --proto or --load: re-execute one recorded run "
-                        "from a dtp1. interleaving token or a dtl1. cell token "
-                        "instead of sweeping; exit 1 if a replayed dtp1. run "
-                        "still violates")
+                   help="with --proto, --load or --kern: re-execute one recorded run "
+                        "from a dtp1. interleaving token, a dtl1. cell token or a "
+                        "dtk1. fuzz geometry token instead of sweeping; exit 1 if a "
+                        "replayed dtp1. run still violates or a dtk1. geometry leaks")
     p.add_argument("--changed", action="store_true",
                    help="restrict the per-file pass to git-dirty files (the "
                         "project pass stays whole-program); with --proto, the "
-                        "scenarios whose protocol code is dirty; with --load or "
-                        "--metrics, skip the pass unless its inputs are dirty")
+                        "scenarios whose protocol code is dirty; with --load, "
+                        "--metrics or --kern, skip the pass unless its inputs are dirty")
     p.add_argument("--manifest", default=None, metavar="PATH",
                    help="manifest file (default: the committed "
                         "analysis/proto_manifest.json, load_manifest.json, "
-                        "wire_manifest.json or metrics_manifest.json)")
+                        "wire_manifest.json, metrics_manifest.json, "
+                        "kern_manifest.json or perf_manifest.json)")
     p.add_argument("--select", default=None, metavar="DT001,DT005",
                    help="comma-separated rule codes to run (default: all)")
     p.add_argument("--baseline", default=None, metavar="PATH",
@@ -106,8 +117,8 @@ def configure_parser(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--no-baseline", action="store_true",
                    help="report every finding, ignoring the baseline")
     p.add_argument("--update-baseline", action="store_true",
-                   help="rewrite the baseline (or, with --proto, --load, --wire "
-                        "or --metrics, the manifest; --metrics also rewrites "
+                   help="rewrite the baseline (or, with --proto, --load, --wire, "
+                        "--metrics, --kern or --perf, the manifest; --metrics also rewrites "
                         "docs/torch_observability.md's table) from current "
                         "findings, carrying justifications over by key")
     p.add_argument("--root", default=None,
@@ -163,6 +174,14 @@ def run_lint(args: argparse.Namespace, out=None) -> int:
         from dynamo_tpu_torch.analysis.metcheck import run_metrics
 
         return run_metrics(args, out)
+    if getattr(args, "kern", False):
+        from dynamo_tpu_torch.analysis.kerncheck import run_kern
+
+        return run_kern(args, out)
+    if getattr(args, "perf", False):
+        from dynamo_tpu_torch.analysis.perfcheck import run_perf
+
+        return run_perf(args, out)
     paths = [Path(p) for p in (getattr(args, "paths", None) or [])]
     if getattr(args, "root", None):
         root = Path(args.root)

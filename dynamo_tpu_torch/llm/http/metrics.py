@@ -78,6 +78,14 @@ class Metrics:
         # the served EngineCore whose counters the engine families render
         # (None, as for out=echo: they render as zeros)
         self.core = core
+        # the perf plane's predicted step latencies, from the port's committed
+        # perf manifest (a JSON read, once; nothing is priced here)
+        try:
+            from dynamo_tpu_torch.analysis.perfcheck import manifest_predictions
+
+            self.predicted_steps = manifest_predictions()
+        except Exception:
+            self.predicted_steps = []
         # (model, endpoint, status) -> count
         self.requests: dict[tuple[str, str, str], int] = defaultdict(int)
         # model -> inflight
@@ -241,6 +249,19 @@ class Metrics:
                            KM.MBPS: round(e["ewma_mbps"], 6),
                            KM.LATENCY_MS: round(e["ewma_latency_s"] * 1e3, 6)}[name]
                     lines.append(f'{name}{{src="{src}",dst="{dst}",path="{path}"}} {val}')
+        # the perf plane's roofline-predicted step latency per (entrypoint,
+        # config, signature), read from the committed manifest at start
+        rows = self.predicted_steps
+        if rows:
+            lines.append(f"# TYPE {PM.PREDICTED_STEP_MS} gauge")
+            for r in rows:
+                labels = (f'entrypoint="{r["entrypoint"]}",'
+                          f'config="{r["config"]}",'
+                          f'signature="{r["signature"]}",'
+                          f'bound="{r["bound"]}"')
+                lines.append(
+                    f"{PM.PREDICTED_STEP_MS}{{{labels}}} "
+                    f"{r['predicted_ms']}")
         # the served engine's roofline against its measured dispatch phase,
         # per dispatch kind
         recon = (self.core.perf_model.reconcile(self.core.timeline)

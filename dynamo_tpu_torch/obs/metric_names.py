@@ -7,9 +7,9 @@ engine's prefill-batching, unified-dispatch, lookahead and
 persistent-tier families and its step timeline, the
 measured KV-transfer edges, the streamed KV handoff, the sharded router
 control plane, the standalone metrics component's per-worker gauges and
-the perf model's predicted-vs-measured rows (all but the JAX package's
-``dynamo_tpu_perf_predicted_step_ms``, which it reads from a committed
-perf manifest the port does not have).  Every name is a full literal,
+the perf model's predicted-vs-measured rows and the perf plane's
+``dynamo_tpu_perf_predicted_step_ms``, read from the port's committed
+``analysis/perf_manifest.json``.  Every name is a full literal,
 never composed.  ``SCHEMA`` is the name -> (type, labels) contract the
 metrics plane (``analysis/metcheck.py``) holds the rendered census to.
 """
@@ -111,8 +111,11 @@ class KvShardMetric:
 
 
 class PerfMetric:
-    """Runtime predicted-vs-measured dispatch rows (``obs/perfmodel.py``)."""
+    """The perf plane's predicted step latency (``analysis/perfcheck.py``)
+    and the runtime predicted-vs-measured dispatch rows
+    (``obs/perfmodel.py``)."""
 
+    PREDICTED_STEP_MS = "dynamo_tpu_perf_predicted_step_ms"
     PREDICTED_DISPATCH_MS = "dynamo_tpu_perf_predicted_dispatch_ms"
     MEASURED_DISPATCH_MS = "dynamo_tpu_perf_measured_dispatch_ms"
     DISPATCHES_TOTAL = "dynamo_tpu_perf_dispatches_total"
@@ -192,6 +195,8 @@ SCHEMA: dict[str, tuple[str, tuple[str, ...]]] = {
     KvShardMetric.LAST_FAN_OUT: ("gauge", ()),
     KvShardMetric.INDEX_BLOCKS: ("gauge", ("shard",)),
     KvShardMetric.RESIDENT_KEYS: ("gauge", ("shard",)),
+    PerfMetric.PREDICTED_STEP_MS: (
+        "gauge", ("entrypoint", "config", "signature", "bound")),
     PerfMetric.PREDICTED_DISPATCH_MS: ("gauge", ("kind",)),
     PerfMetric.MEASURED_DISPATCH_MS: ("gauge", ("kind",)),
     PerfMetric.DISPATCHES_TOTAL: ("counter", ("kind",)),

@@ -28,8 +28,9 @@ per-kind measured dispatch seconds into the rows ``/metrics`` renders as
 the perf family.  The measured side is the timeline's dispatch phase: in
 eager PyTorch that is the host enqueuing the forward's kernels, so the
 ratio reads the launch cost against the card's bound, not the card's own
-time.  The JAX package's ``predicted_step_ms`` (read from its committed
-perf manifest) has no counterpart here.
+time.  The static side, the JAX package's ``predicted_step_ms``, is the
+port's perf plane (``analysis/perfcheck.py``): ``/metrics`` reads it from
+the committed ``analysis/perf_manifest.json``.
 
 Each ``EngineCore`` owns a ``PerfModel``; the module-level ``perf_model``
 stays for code written against the JAX package's global.  Never raises into

@@ -31,6 +31,7 @@ import asyncio
 import dataclasses
 import json
 import math
+import re
 
 import jax
 import numpy as np
@@ -626,7 +627,17 @@ def _samples(text):
 def test_http_metrics_match_jax(served):
     _, _, ref_text, _, out_text = served
     ref, out = _samples(ref_text), _samples(out_text)
-    assert set(out) <= set(ref)
+    # each package renders its own perf manifest's predicted step latencies
+    # (the port's priced on the H100): the same entry points and signatures,
+    # the full-width config Llama-3-8B on the card where JAX's is llama3b-v5e
+    predicted = {k for k in out if k.startswith(PerfMetric.PREDICTED_STEP_MS + "{")}
+    jax_predicted = {k for k in ref if k.startswith(PerfMetric.PREDICTED_STEP_MS + "{")}
+
+    def rows(keys):
+        return {re.sub(r',bound="\w+"', "", k).replace("llama3b-v5e", "llama3-8b-h100") for k in keys}
+
+    assert predicted and rows(predicted) == rows(jax_predicted)
+    assert set(out) - predicted <= set(ref)
     for name, val in out.items():
         if name.startswith((HttpMetric.REQUESTS_TOTAL, HttpMetric.OUTPUT_TOKENS_TOTAL,
                             HttpMetric.INFLIGHT_REQUESTS)) or "_count{" in name:

@@ -6,6 +6,8 @@
   the imported package, not through a path spelled out here).
 * The port's serving graphs resolve to the port's components only, and its
   supervisor spawns the port's worker entry.
+* No file of the port names the JAX package's perf manifest, the load
+  plane names no perf manifest, and the port's own pins the H100.
 * The entry points raise when no device is named and no CUDA device
   exists.
 * Each kernel wrapper takes its plain version only for CPU tensors; on any
@@ -16,6 +18,8 @@
 import ast
 import asyncio
 import importlib
+import json
+import re
 import sys
 from pathlib import Path
 
@@ -66,15 +70,29 @@ def test_port_imports_nothing_of_jax():
     assert not bad, f"the port imports JAX or the JAX package: {bad}"
 
 
+# the JAX package's perf manifest, by path or module path ("dynamo_tpu"
+# then a separator: the port's own package name does not match)
+JAX_PERF_MANIFEST = re.compile(r"(?<![\w])dynamo_tpu[/.]analysis[/.]perf_manifest")
+
+
 def test_port_reads_no_tpu_manifest():
-    """The load plane prices its workers from the card's figures
-    (``load/card_latency.json``): no file of the port names the JAX
-    package's perf manifest of TPU predictions, the only place its
-    latencies could come from."""
+    """No file of the port names the JAX package's perf manifest of TPU
+    predictions; the load plane prices its workers from the card's figures
+    (``load/card_latency.json``) and names no perf manifest at all; the
+    port's own perf manifest (the H100 roofline ``/metrics`` renders) pins
+    an H100 constants version."""
     files = _port_files() + sorted(PKG.rglob("*.json"))
     assert PKG / "load" / "card_latency.json" in files
-    named = [str(f.relative_to(PKG.parent)) for f in files if "perf_manifest" in f.read_text()]
+    named = [str(f.relative_to(PKG.parent)) for f in files if JAX_PERF_MANIFEST.search(f.read_text())]
     assert not named, named
+    load = [f for f in files if f.is_relative_to(PKG / "load")]
+    assert PKG / "load" / "card_latency.json" in load
+    named = [str(f.relative_to(PKG.parent)) for f in load if "perf_manifest" in f.read_text()]
+    assert not named, named
+    header = json.loads((PKG / "analysis" / "perf_manifest.json").read_text())["header"]
+    assert header["constants_version"].startswith("h100-"), header["constants_version"]
+    assert JAX_PERF_MANIFEST.search("dynamo_tpu/analysis/perf_manifest.json")
+    assert not JAX_PERF_MANIFEST.search(PKG.name + "/analysis/perf_manifest.json")
 
 
 @pytest.fixture

@@ -264,7 +264,7 @@ def test_lint_command_exit_codes(capsys):
     assert e.value.code == 1
     assert "DT003" in capsys.readouterr().out
     for flags, words in ((["--select", "DT101"], "unknown rule"),
-                         (["--kern"], "kernel plane"),
+                         (["--shard"], "sharding plane"),
                          (["--all"], "not port targets")):
         with pytest.raises(SystemExit) as e:
             port_cli.main(["lint", *flags])

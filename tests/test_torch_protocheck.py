@@ -446,9 +446,8 @@ def test_lint_command_exit_codes(capsys):
         assert e.value.code == code
         doc = json.loads(capsys.readouterr().out)
         assert doc["scenario"] == "tcp.drain" and doc["outcome"] == "ok"
-    for flags, plane in ((["--perf"], "perf plane"), (["--trace"], "compile plane"),
-                         (["--all"], "every plane"), (["--shard"], "sharding plane"),
-                         (["--kern"], "kernel plane")):
+    for flags, plane in ((["--trace"], "compile plane"), (["--all"], "every plane"),
+                         (["--shard"], "sharding plane")):
         with pytest.raises(SystemExit) as e:
             port_cli.main(["lint", *flags])
         assert e.value.code == 2
