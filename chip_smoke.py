@@ -4885,6 +4885,7 @@ ROUTER_PREFIX = 1024
 ROUTER_SUFFIX = 64
 ROUTER_TOKENS = 8
 ROUTER_NS = "tier-router"
+HOST_COPY_REPEATS = 7  # readings of each host copy timed (the median is kept)
 # the sharded router run: the router run's requests, decided by the
 # singleton and by a scatter-gather scheduler over three shard replicas (a
 # fourth joins, one dies) of an index cut into SHARDS hash-prefix shards
@@ -5094,6 +5095,56 @@ def tier_yardsticks(torch, nbytes: int) -> dict:
                 d2h_pinned_gb_s=nbytes / d2h / 1e6, h2d_pinned_gb_s=nbytes / h2d / 1e6)
 
 
+def host_copies(torch, model, card: str) -> dict:
+    """The native block copies on the tier phase's own block shape: 64 blocks
+    of ``[L, 2, Bs, Hk*D]`` bf16 (a 1,024-token prefix) scattered into and
+    gathered out of a pinned pool of TIER_HOST_BLOCKS rows.  Checks: the
+    scatter equals ``index_copy_`` and the gather ``index_select`` bit for
+    bit.  Times (host clock, medians of HOST_COPY_REPEATS) of each beside
+    the torch copy, and their GB/s over the 64 blocks' bytes."""
+    from dynamo_tpu_torch import native
+
+    cfg = model.config
+    shape = (cfg.num_layers, 2, BS, cfg.num_kv_heads * cfg.head_dim)
+    n = TIER_PREFIX // BS
+    gen = torch.Generator().manual_seed(0)
+    pool = torch.zeros((TIER_HOST_BLOCKS,) + shape, dtype=torch.bfloat16, pin_memory=True)
+    twin = torch.zeros_like(pool, pin_memory=True)
+    src = torch.randn((n,) + shape, generator=gen).to(torch.bfloat16).pin_memory()
+    ids = torch.randperm(TIER_HOST_BLOCKS, generator=gen)[:n]
+    native.blocks_scatter(pool, ids, src)
+    twin.index_copy_(0, ids, src)
+    check(torch.equal(pool.view(torch.int16), twin.view(torch.int16)),
+          "native: blocks_scatter differs from index_copy_")
+    out = torch.empty_like(src, pin_memory=True)
+    ref = torch.empty_like(src, pin_memory=True)
+    native.blocks_gather(pool, ids, out=out)
+    torch.index_select(pool, 0, ids, out=ref)
+    check(torch.equal(out.view(torch.int16), ref.view(torch.int16))
+          and torch.equal(ref.view(torch.int16), src.view(torch.int16)),
+          "native: blocks_gather differs from index_select")
+
+    def host_ms(fn):
+        def once():
+            t0 = time.perf_counter()
+            fn()
+            return 1e3 * (time.perf_counter() - t0)
+        fn()
+        return median_ms(once, HOST_COPY_REPEATS)
+
+    nbytes = src.numel() * src.element_size()
+    ms = dict(scatter=host_ms(lambda: native.blocks_scatter(pool, ids, src)),
+              index_copy=host_ms(lambda: twin.index_copy_(0, ids, src)),
+              gather=host_ms(lambda: native.blocks_gather(pool, ids, out=out)),
+              index_select=host_ms(lambda: torch.index_select(pool, 0, ids, out=ref)))
+    del pool, twin
+    log(f"native copies: 64 blocks of {list(shape)} bf16 ({nbytes} bytes), " + ", ".join(
+        f"{k} {v:.3f} ms ({nbytes / v / 1e6:.2f} GB/s)" for k, v in ms.items()) + f" ({card})")
+    return dict(blocks=n, block_shape=list(shape), dtype="bfloat16", bytes=nbytes,
+                bit_equal=True, ms=ms, gb_s={k: nbytes / v / 1e6 for k, v in ms.items()},
+                repeats=HOST_COPY_REPEATS, clock="host perf_counter")
+
+
 class _Runtime:
     """The duck-typed runtime the worker wiring takes: an instance id, a
     coordinator client and the stops to await at shutdown."""
@@ -5130,13 +5181,18 @@ def router_run(torch, model, card: str) -> dict:
     turn, each sent where the router says.  Checks: each prefix's later
     requests go to the worker that served its first, with an overlap of at
     least P's blocks, and hit them there (cached tokens); after the flush,
-    the index holds each engine's registered blocks."""
+    the index holds each engine's registered blocks.  The router's index is
+    the native one: a Python ``KvIndexer(use_native=False)`` fed the same
+    events gives the same scores at every decision (so the same decisions)
+    and holds the same blocks; then one native ``find_matches`` over each
+    request's hashes is timed against the Python index's."""
     import random
 
     from dynamo_tpu_torch.cli import attach_worker_publishers
-    from dynamo_tpu_torch.llm.kv_router import DefaultWorkerSelector, KvRouter
+    from dynamo_tpu_torch.llm.kv_router import DefaultWorkerSelector, KvIndexer, KvRouter
     from dynamo_tpu_torch.llm.kv_router.metrics_aggregator import KvRouterSubscriber
     from dynamo_tpu_torch.runtime.transports.coordinator import CoordinatorClient, CoordinatorServer
+    from dynamo_tpu_torch.tokens import sequence_hashes
 
     reqs = router_requests()
     engines = {w: _tier_engine(model, DEFAULT_PATH) for w in (1, 2)}
@@ -5150,6 +5206,15 @@ def router_run(torch, model, card: str) -> dict:
             for w, engine in engines.items():
                 attach_worker_publishers(runtimes[w], engine, ROUTER_NS)
             router = KvRouter(block_size=BS, selector=DefaultWorkerSelector(random.Random(0)))
+            check(router.indexer.is_native, "router: the default index is not the native one")
+            shadow = KvIndexer(use_native=False)
+            native_apply = router.indexer.apply_event
+
+            def apply_both(worker_id, event, event_id=None):  # the same events, both indexes
+                shadow.apply_event(worker_id, event, event_id=event_id)
+                native_apply(worker_id, event, event_id=event_id)
+
+            router.indexer.apply_event = apply_both
             subscriber = await KvRouterSubscriber(router, clients[2], namespace=ROUTER_NS).start()
             for _ in range(500):
                 if len(router.scheduler.workers()) == 2:
@@ -5158,20 +5223,41 @@ def router_run(torch, model, card: str) -> dict:
             check(len(router.scheduler.workers()) == 2, "router: the workers' metrics never came")
             rows = []
             for i, (name, toks) in enumerate(reqs):
+                hashes = sequence_hashes(toks, BS)
+                scores = router.indexer.find_matches(hashes).scores
+                check(scores == shadow.find_matches(hashes).scores,
+                      f"router: request {i}: native scores {scores} vs Python "
+                      f"{shadow.find_matches(hashes).scores}")
                 d = router.schedule(toks)
+                check(d.overlap_blocks == scores.get(d.worker_id, 0),
+                      f"router: request {i}: overlap {d.overlap_blocks} vs scores {scores}")
                 ((ttft, _, outs),) = await _serve(engines[d.worker_id], [toks],
                                                   max_tokens=ROUTER_TOKENS, tag=f"router-{i}")
                 rows.append(dict(prefix=name, worker=d.worker_id, overlap_blocks=d.overlap_blocks,
                                  cached=outs[-1].cached_tokens, ttft_ms=1e3 * ttft))
                 await asyncio.sleep(0.2)  # the publishers flush every 50 ms
             index = {w: router.indexer.worker_blocks(w) for w in engines}
+            check(index == {w: shadow.worker_blocks(w) for w in engines},
+                  f"router: the native index holds {index}, the Python index "
+                  f"{ {w: shadow.worker_blocks(w) for w in engines} }")
             registered = {w: len(e.core.block_manager._table) for w, e in engines.items()}
             # one routing decision: hash the prompt, match, score, pick
             t0 = time.perf_counter()
             for _ in range(50):
                 router.schedule(reqs[0][1])
             schedule_ms = 1e3 * (time.perf_counter() - t0) / 50
-            return rows, index, registered, schedule_ms
+            # the match alone, native and Python, over each request's hashes
+            every = [sequence_hashes(toks, BS) for _, toks in reqs]
+            match_ms = {}
+            for label, ix in (("native", router.indexer), ("python", shadow)):
+                def once():
+                    t0 = time.perf_counter()
+                    for _ in range(50):
+                        for hashes in every:
+                            ix.find_matches(hashes)
+                    return 1e3 * (time.perf_counter() - t0) / (50 * len(every))
+                match_ms[label] = median_ms(once, 5)
+            return rows, index, registered, schedule_ms, match_ms
         finally:
             if subscriber is not None:
                 await subscriber.stop()
@@ -5182,7 +5268,7 @@ def router_run(torch, model, card: str) -> dict:
             await srv.stop()
 
     try:
-        rows, index, registered, schedule_ms = asyncio.run(go())
+        rows, index, registered, schedule_ms, match_ms = asyncio.run(go())
     finally:
         for e in engines.values():
             _close(torch, e)
@@ -5197,9 +5283,11 @@ def router_run(torch, model, card: str) -> dict:
         check(r["overlap_blocks"] >= ROUTER_PREFIX // BS and r["cached"] >= ROUTER_PREFIX,
               f"router: request {i}: overlap {r['overlap_blocks']}, cached {r['cached']}")
     check(index == registered, f"router: the index holds {index}, the engines {registered}")
-    log(f"router: {rows}; index {index}, one decision {schedule_ms:.3f} ms ({card})")
+    log(f"router: {rows}; index {index}, one decision {schedule_ms:.3f} ms, find_matches "
+        f"native {match_ms['native']:.4f} ms, Python {match_ms['python']:.4f} ms ({card})")
     return dict(decisions=rows, index_blocks=index, registered_blocks=registered,
-                decision_ms=schedule_ms, card=card)
+                decision_ms=schedule_ms, native_index=True, python_index_agrees=True,
+                find_matches_ms=match_ms, card=card)
 
 
 @contextlib.contextmanager
@@ -5598,15 +5686,28 @@ def tier_phase(torch, model, card: str) -> dict:
     """The KV tiers on the bf16 Llama-3-8B: h1-h4 on prefix 0 (with the
     second engine's reference stream), h1, h2 and h4 again on three fresh
     prefixes (h5), the persist restart (p), the router (r), and the pinned
-    copy yardsticks of P's bytes; each kernel's launches over all of it."""
+    copy yardsticks of P's bytes; each kernel's launches over all of it.
+    The host pool's stores over h1-h5 are native scatters (counted), and
+    its restores onto the card stay pinned asynchronous copies (no native
+    gather counted); then the native copies are checked and timed on the
+    phase's block shape (``host_copies``)."""
+    from dynamo_tpu_torch import native
+
     wrappers = _kernel_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
     t0 = time.perf_counter()
     ps = tier_prompts(0)
+    native.calls.update(gather=0, scatter=0)
     first = tier_run(torch, model, TIER_PATH, ps, "h")
     repeats = [tier_run(torch, model, TIER_PATH, tier_prompts(1 + i), f"h5.{i}", reference=False)
                for i in range(TIER_REPEATS)]
+    copies = dict(native.calls)
+    stored = sum(r["metrics"]["host_blocks_stored"] for r in [first] + repeats)
+    restored = sum(r["stats"]["restore_blocks"] for r in [first] + repeats)
+    check(copies["scatter"] > 0 and stored > 0 and restored > 0 and copies["gather"] == 0,
+          f"native: the tier runs stored {stored} and restored {restored} blocks with "
+          f"{copies} native copies (scatters > 0 and no gather wanted)")
     persist = persist_run(torch, model, ps, first["runs"]["h4"]["stream"])
     router = router_run(torch, model, card)
     # the sharded run's own launches: counted from 0, then added back
@@ -5625,9 +5726,11 @@ def tier_phase(torch, model, card: str) -> dict:
           f"tier phase: launches {launches}")
     yard = tier_yardsticks(torch, TIER_PREFIX // BS * first["stats"]["offload_bytes"]
                            // max(1, first["stats"]["offload_blocks"]))
+    host = host_copies(torch, model, card)
+    host.update(tier_calls=copies, tier_blocks_stored=stored, tier_blocks_restored=restored)
     log(f"tier phase (bf16): {time.perf_counter() - t0:.1f} s, launches {launches} ({card})")
     return dict(first=first, repeats=repeats, persist=persist, router=router, shards=shards,
-                planner=planner, yard=yard, launches=launches)
+                planner=planner, yard=yard, launches=launches, host=host)
 
 
 def tier_phase_q8(torch, model, card: str) -> dict:
@@ -7951,6 +8054,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     import shutil
 
+    from dynamo_tpu_torch import native
     from dynamo_tpu_torch.ops.kernels import build
 
     shutil.rmtree(FRONT_DIR, ignore_errors=True)
@@ -8010,6 +8114,11 @@ def main() -> int:
         lib_path = build.build_library(verbose=True)
         build.library()
         log(f"build: {time.perf_counter() - t0:.1f} s ({card})")
+        t0 = time.perf_counter()
+        host_lib = native.build_library()
+        native.load()
+        host_build_s = time.perf_counter() - t0
+        log(f"host library build: {host_build_s:.2f} s, {host_lib.name} ({card})")
         mark("build")
         sass_check(torch, lib_path)
         errs = kernel_phase(torch)
@@ -8213,6 +8322,12 @@ def main() -> int:
     log(json.dumps({"disagg": disagg_out}))
     log(json.dumps({"tier": tier_out}))
     log(json.dumps({"router": tier["router"]}))
+    r = tier["router"]
+    log(json.dumps({"native": dict(
+        card=card, build_s=host_build_s, copies=tier["host"],
+        router=dict(native_index=r["native_index"], python_index_agrees=r["python_index_agrees"],
+                    decisions=len(r["decisions"]), find_matches_ms=r["find_matches_ms"],
+                    decision_ms=r["decision_ms"]))}))
     log(json.dumps({"shards": tier["shards"]}))
     log(json.dumps({"planner": tier["planner"]}))
     log(json.dumps({"graphs": graphs}))

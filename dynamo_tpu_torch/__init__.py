@@ -5,7 +5,9 @@ The package mirrors ``dynamo_tpu``'s layout module for module
 ``dynamo_tpu/engine/core.py``, and so on) but imports nothing of it and no
 JAX.  Plain tensor code is PyTorch; the kernels the serving paths run are
 CUDA C++ under ``csrc/``, compiled with ``nvcc`` for ``sm_90a`` at first use
-(``ops/kernels/build.py``).
+(``ops/kernels/build.py``); the host helpers (the KV prefix index, block
+copies and event queue) are C++ under ``csrc/host/``, compiled with ``g++``
+at first use (``native.py``).
 
 Entry points (``python -m dynamo_tpu_torch run``, ``EngineCore``,
 ``LlamaModel``, ``models.convert.init_params``, ``models.loader``) run on

@@ -710,9 +710,12 @@ async def start_router_service(runtime, namespace: str = "default", block_size: 
     ``workers_endpoint`` ("component/endpoint", e.g. "backend/generate")
     watches that endpoint's discovery prefix so a dead worker's delete
     event evicts it from the router's candidate set immediately."""
+    from dynamo_tpu_torch import native
     from dynamo_tpu_torch.llm.kv_router.metrics_aggregator import KvRouterSubscriber
     from dynamo_tpu_torch.llm.kv_router.router import KvRouter
 
+    # the router's native index: build (or load) the host library off the loop
+    await asyncio.to_thread(native.load)
     workers_prefix = None
     if workers_endpoint:
         comp, _, ep = workers_endpoint.partition("/")

@@ -11,6 +11,7 @@ components/router/src/main.rs.
 
 from __future__ import annotations
 
+import asyncio
 import logging
 
 from dynamo_tpu_torch.sdk import async_on_start, dynamo_endpoint, service
@@ -28,9 +29,12 @@ class Router:
 
     @async_on_start
     async def boot(self):
+        from dynamo_tpu_torch import native
         from dynamo_tpu_torch.llm.kv_router.metrics_aggregator import KvRouterSubscriber
         from dynamo_tpu_torch.llm.kv_router.router import KvRouter
 
+        # the router's native index: build (or load) the host library off the loop
+        await asyncio.to_thread(native.load)
         self.router = KvRouter(block_size=int(self._cfg.get("block-size", 16)))
         self.subscriber = await KvRouterSubscriber(
             self.router, self.dynamo_runtime.coordinator, NAMESPACE

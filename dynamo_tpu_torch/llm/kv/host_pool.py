@@ -7,11 +7,12 @@ per cache part, block-major so a block is one contiguous row, pinned when
 the engine serves on the card — and the hash→row bookkeeping: LRU
 eviction, chained-sequence-hash prefix matching, content-addressed dedupe.
 
-The JAX package moves rows with a threaded C++ memcpy; here a store is
-``index_copy_`` and a gather ``index_select(out=)`` on the CPU tensors
-(torch's intra-op threads take the C++ threads' place), and a gather into
-tensors on the card is one asynchronous copy per run of consecutive rows,
-straight from the pinned pool.
+Rows move host to host as in the JAX package, by the threaded C++ memcpy
+(``dynamo_tpu_torch/native.py``): a store scatters blocks into the pool's
+rows, a gather into CPU tensors gathers rows out.  A gather into tensors
+on the card is one asynchronous copy per run of consecutive rows, straight
+from the pinned pool (the native copy is host to host and has no part
+there).
 
 Concurrency: NOT internally synchronised.  The engine's kv-offload thread
 calls ``store`` while the engine loop calls ``match_prefix``/``gather``/
@@ -27,6 +28,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from dynamo_tpu_torch import native
 from dynamo_tpu_torch.ops.kv_quant import QuantKvCache
 
 log = logging.getLogger("dynamo_tpu_torch.kv.host_pool")
@@ -81,6 +83,9 @@ class HostKvPool:
             raise ValueError("num_blocks must be positive")
         self.num_blocks = num_blocks
         self.pin_memory = pin_memory
+        # the native row copies: the host library is built (or loaded) here,
+        # at construction, never by a store or a gather
+        self._copies = native.BlockCopies()
         # one pool tensor per cache part: [t] for a bf16/f32 cache, [data,
         # scale] for the int8 cache; the structure captured at the first
         # store lets gather() return exactly the structure store() received
@@ -189,13 +194,13 @@ class HostKvPool:
     def write_rows(self, hids: list[int], blocks, rows: list[int]) -> None:
         """Store phase 2 (NO lock needed — the rows are reserved, hence
         invisible and un-evictable): copy the blocks' ``rows`` into the pool
-        rows ``hids``.  The blocks are CPU tensors (or numpy arrays)."""
+        rows ``hids``, by native memcpy.  The blocks are CPU tensors (or
+        numpy arrays)."""
         _, parts = flatten_blocks(blocks)
-        dst = torch.as_tensor(hids, dtype=torch.long)
         every = list(rows) == list(range(len(parts[0])))
         src = torch.as_tensor(rows, dtype=torch.long)
         for arr, p in zip(self._arrs, parts):
-            arr.index_copy_(0, dst, p if every else p.index_select(0, src))
+            self._copies.scatter(arr, hids, p if every else p.index_select(0, src))
 
     def publish(self, hids: list[int], seq_hashes: list[int]) -> int:
         """Store phase 3 (hold the lock): make written rows visible.  A hash
@@ -249,7 +254,8 @@ class HostKvPool:
     def gather(self, seq_hashes: Sequence[int], out: Optional[list[torch.Tensor]] = None):
         """Fetch resident blocks (block-major) in exactly the structure
         ``store`` received: new CPU tensors, or written into ``out`` (one
-        ``[n, ...]`` tensor per part).  Into tensors on the card each run of
+        ``[n, ...]`` tensor per part).  Into CPU tensors the rows move by
+        native memcpy.  Into tensors on the card each run of
         consecutive rows is one asynchronous copy on the current stream,
         from the pinned pool: the caller must keep these rows from being
         rewritten (hold the lock) until the copies have completed."""
@@ -262,12 +268,11 @@ class HostKvPool:
             hids.append(hid)
         self.restored_blocks += len(hids)
         if out is None:
-            idx = torch.as_tensor(hids, dtype=torch.long)
-            parts = [a.index_select(0, idx) for a in self._arrs]
+            parts = [self._copies.gather(a, hids) for a in self._arrs]
         else:
             for a, o in zip(self._arrs, out):
                 if o.device.type == "cpu":
-                    torch.index_select(a, 0, torch.as_tensor(hids, dtype=torch.long), out=o)
+                    self._copies.gather(a, hids, out=o)
                     continue
                 for pos, hid, n in _runs(hids):
                     o[pos:pos + n].copy_(a[hid:hid + n], non_blocking=self.pin_memory)

@@ -1,17 +1,19 @@
 """KvIndexer — the global prefix index: block hash → workers holding it.
 
-The counterpart of ``dynamo_tpu/llm/kv_router/indexer.py``, its Python
-path (the JAX package's C++ index, ``native/src/kv_index.cpp``, has the
-same semantics and is not ported; ``use_native=True`` raises as the JAX
-indexer does when that library is absent).  The chained sequence hashes
-(dynamo_tpu_torch.tokens) make a radix tree redundant — a block hash
-already commits to its entire prefix, so a flat hash→workers map gives the
-same match semantics with O(1) lookups, plus per-worker hash sets for
-O(worker's blocks) teardown on failure.  Blocks of the persistent tier
-(``tier="persist"`` events) are indexed apart and scored apart.
+The counterpart of ``dynamo_tpu/llm/kv_router/indexer.py``, with its split:
+the device tier lives in the C++ index (``dynamo_tpu_torch/native.py``,
+``csrc/host/kv_index.cpp``) unless ``use_native=False`` asks for the Python
+one, which the sharded replicas and the planes' reference indexes do.  The
+persistent tier (``tier="persist"`` events) is always indexed in Python and
+scored apart.  The chained sequence hashes (dynamo_tpu_torch.tokens) make a
+radix tree redundant — a block hash already commits to its entire prefix,
+so a flat hash→workers map gives the same match semantics with O(1)
+lookups, plus per-worker hash sets for O(worker's blocks) teardown.
 
 The index is single-writer: apply events from one task/thread;
-find_matches is read-only.
+find_matches is read-only.  The first native index builds the host library
+(seconds): an async caller loads it off the loop first
+(``await asyncio.to_thread(native.load)``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import logging
 from dataclasses import dataclass, field
 from typing import Sequence
 
+from dynamo_tpu_torch import native
 from dynamo_tpu_torch.llm.kv.events import (
     TIER_DEVICE,
     TIER_PERSIST,
@@ -54,13 +57,16 @@ class OverlapScores:
 
 class KvIndexer:
     def __init__(self, use_native: bool | None = None) -> None:
-        if use_native:
-            raise RuntimeError("native KV index requested but unavailable")
-        # block sequence-hash → set of worker ids holding it
+        # the C++ index unless the Python one is asked for; a failed build
+        # of the host library raises (no quiet fallback)
+        self._native = native.NativeKvIndex() if use_native is not False else None
+        # block sequence-hash → set of worker ids holding it (Python path)
         self._holders: dict[int, set[int]] = {}
-        # worker id → hashes it holds (for teardown)
+        # worker id → hashes it holds (for teardown); on the native path the
+        # workers that have stored, with no hashes (workers() lists them)
         self._worker_blocks: dict[int, set[int]] = {}
-        # persistent tier (tier="persist" events)
+        # persistent tier (tier="persist" events) — always Python-side:
+        # the native index only models the device tier
         self._persist_holders: dict[int, set[int]] = {}
         self._persist_worker_blocks: dict[int, set[int]] = {}
         # per-worker last event id (gap/ordering diagnostics)
@@ -68,12 +74,14 @@ class KvIndexer:
 
     @property
     def is_native(self) -> bool:
-        return False
+        return self._native is not None
 
     # ---------------------------------------------------------------- queries
     def find_matches(self, seq_hashes: Sequence[int]) -> OverlapScores:
         """Longest-prefix match per worker over the request's block hashes."""
         persist = self._persist_matches(seq_hashes)
+        if self._native is not None:
+            return OverlapScores(self._native.find_matches(seq_hashes), persist)
         scores: dict[int, int] = {}
         live: set[int] | None = None  # workers matching every block so far
         for i, h in enumerate(seq_hashes):
@@ -110,9 +118,13 @@ class KvIndexer:
                 scores[w] = i + 1
         return scores
 
-    # per-position probes: the holder set of exactly one hash
+    # per-position probes for the sharded control plane: the holder set of
+    # exactly one hash.  Python path only — shard replicas are built with
+    # use_native=False, and the native index exposes no single-hash probe.
     def holders_of(self, h: int) -> frozenset[int]:
         """Device-tier workers holding block hash ``h``."""
+        if self._native is not None:
+            raise RuntimeError("holders_of: native index has no probe path")
         return frozenset(self._holders.get(h, ()))
 
     def persist_holders_of(self, h: int) -> frozenset[int]:
@@ -128,10 +140,14 @@ class KvIndexer:
 
     @property
     def num_blocks(self) -> int:
+        if self._native is not None:
+            return self._native.num_blocks
         return len(self._holders)
 
     def worker_blocks(self, worker_id: int) -> int:
         """How many device-tier blocks the index holds for one worker."""
+        if self._native is not None:
+            return self._native.worker_blocks(worker_id)
         return len(self._worker_blocks.get(worker_id, ()))
 
     def workers(self) -> list[int]:
@@ -164,6 +180,15 @@ class KvIndexer:
                     blocks.discard(h)
             return
 
+        if self._native is not None:
+            if isinstance(event, KvStoredEvent):
+                # workers() tracks Stored only (as the Python path does)
+                self._worker_blocks.setdefault(worker_id, set())
+                self._native.store(worker_id, event.block_hashes)
+            elif isinstance(event, KvRemovedEvent):
+                self._native.remove(worker_id, event.block_hashes)
+            return
+
         if isinstance(event, KvStoredEvent):
             blocks = self._worker_blocks.setdefault(worker_id, set())
             for h in event.block_hashes:
@@ -188,6 +213,11 @@ class KvIndexer:
                 holders.discard(worker_id)
                 if not holders:
                     del self._persist_holders[h]
+        if self._native is not None:
+            self._native.remove_worker(worker_id)
+            self._worker_blocks.pop(worker_id, None)
+            self._last_event_id.pop(worker_id, None)
+            return
         for h in self._worker_blocks.pop(worker_id, set()):
             holders = self._holders.get(h)
             if holders:
@@ -197,6 +227,8 @@ class KvIndexer:
         self._last_event_id.pop(worker_id, None)
 
     def clear(self) -> None:
+        if self._native is not None:
+            self._native.clear()
         self._holders.clear()
         self._worker_blocks.clear()
         self._persist_holders.clear()

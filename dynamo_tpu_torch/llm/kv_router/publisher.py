@@ -10,12 +10,14 @@ subjects and payloads.  Workers publish two things the router needs:
     (active slots, kv blocks, queue depth) scraped into the scheduler's
     cost model, on the coordinator's pub/sub plane.
 
-The JAX publisher can also drain a native C++ event queue
-(``native_queue``); that queue is not ported, so events come from the
-block manager's ``event_sink`` (and the engine's persist-tier events)
-alone.  The engine thread appends to the buffer and ``flush`` swaps it
-out on the event loop: a list append and a rebinding, each atomic under
-the GIL, so neither side takes a lock the other could block on.
+Events come from the block manager's ``event_sink`` (and the engine's
+persist-tier events) and, as in the JAX publisher, from a native C++
+event queue when one is given (``native_queue``, a
+``dynamo_tpu_torch.native.NativeEventQueue``: the C-bindings surface a
+native engine publishes into), drained first on the same cadence.  The
+engine thread appends to the buffer and ``flush`` swaps it out on the
+event loop: a list append and a rebinding, each atomic under the GIL, so
+neither side takes a lock the other could block on.
 """
 
 from __future__ import annotations
@@ -26,7 +28,9 @@ import json
 import logging
 from typing import Callable, Optional
 
-from dynamo_tpu_torch.llm.kv.events import KvCacheEvent, event_to_wire
+from dynamo_tpu_torch import native
+from dynamo_tpu_torch.llm.kv.events import (KvCacheEvent, KvRemovedEvent, KvStoredEvent,
+                                            event_to_wire)
 from dynamo_tpu_torch.llm.kv_router.scheduler import WorkerMetrics
 
 log = logging.getLogger("dynamo_tpu_torch.kv_router")
@@ -59,11 +63,13 @@ class KvEventPublisher:
         worker_id: int,
         namespace: str = "default",
         flush_interval_s: float = 0.05,
+        native_queue=None,  # Optional[native.NativeEventQueue]
     ):
         self.coord = coordinator
         self.worker_id = worker_id
         self.namespace = namespace
         self.flush_interval_s = flush_interval_s
+        self.native_queue = native_queue
         self._buf: list[KvCacheEvent] = []
         self._next_event_id = 0
         self._task: Optional[asyncio.Task] = None
@@ -73,8 +79,18 @@ class KvEventPublisher:
     def sink(self, ev: KvCacheEvent) -> None:
         self._buf.append(ev)
 
+    def _drain_native(self) -> None:
+        if self.native_queue is None:
+            return
+        for kind, parent, hashes in self.native_queue.drain():
+            if kind == native.EVENT_STORED:
+                self._buf.append(KvStoredEvent(block_hashes=hashes, parent_hash=parent or None))
+            else:
+                self._buf.append(KvRemovedEvent(block_hashes=hashes))
+
     async def flush(self) -> int:
         """Publish all buffered events; returns how many went out."""
+        self._drain_native()
         if not self._buf:
             return 0
         batch, self._buf = self._buf, []

@@ -39,6 +39,7 @@ import dynamo_tpu_torch.components.mock_worker as mock
 import dynamo_tpu_torch.deploy.renderer as renderer
 import dynamo_tpu_torch.llm.kv_router.scheduler as scheduler
 import dynamo_tpu_torch.runtime.transports.coordinator as coord
+from dynamo_tpu_torch import native
 from dynamo_tpu_torch.llm.kv_router.metrics_aggregator import KvRouterSubscriber
 from dynamo_tpu_torch.llm.kv_router.router import KvRouter
 from dynamo_tpu_torch.obs.metric_names import RouterMetric as RM
@@ -122,7 +123,23 @@ def test_mock_worker_streams_equal_jax():
 # ----------------------------------------------------------- metrics service
 
 
-def test_metrics_service_fed_by_mock_workers_of_both_packages():
+DECISIONS = 5
+
+
+@pytest.fixture(scope="module")
+def host_library():
+    """The router's native index needs the host library: build (or load) it
+    here, not on the event loop of the test that makes the router."""
+    native.load()
+
+
+def _metrics_bodies(hit_delay_s: float = 0.0):
+    """Both packages' ``MetricsService`` fed over one coordinator by a port
+    and a JAX mock worker and a port KV router's hit-rate events
+    (``DECISIONS`` routing decisions); returns each service's ``/metrics``
+    (status, body), the port collector's blocks per worker and each worker's
+    last published metrics.  With ``hit_delay_s`` the port service takes its
+    k-th hit-rate event k times that late."""
     async def go():
         srv = await coord.CoordinatorServer(port=0).start()
         conns = []
@@ -133,8 +150,17 @@ def test_metrics_service_fed_by_mock_workers_of_both_packages():
             return c
 
         try:
-            port_svc = await metrics.MetricsService(await conn(coord), namespace="t",
-                                                    port=0).start()
+            port_svc = metrics.MetricsService(await conn(coord), namespace="t", port=0)
+            if hit_delay_s:
+                on_hit, late = port_svc._on_hit_rate, []
+
+                def delayed(subject, payload):
+                    late.append(payload)
+                    asyncio.get_running_loop().call_later(hit_delay_s * len(late), on_hit,
+                                                          subject, payload)
+
+                port_svc._on_hit_rate = delayed
+            port_svc = await port_svc.start()
             jax_svc = await jax_metrics.MetricsService(await conn(jax_coord), namespace="t",
                                                        port=0).start()
             router = KvRouter(block_size=16)
@@ -144,22 +170,38 @@ def test_metrics_service_fed_by_mock_workers_of_both_packages():
                                        interval_s=0.05).start()
             w2 = await jax_mock.MockWorker(await conn(jax_coord), worker_id=2, namespace="t",
                                            interval_s=0.05).start()
+
+            def decisions(svc):
+                return sum(s.decisions for s in svc.collector.hits.values())
+
             try:
                 await _wait_for(lambda: {1, 2} <= set(router.scheduler.workers()))
                 await _wait_for(lambda: router.indexer.num_blocks > 0)
-                for _ in range(5):
+                for _ in range(DECISIONS):
                     router.schedule([1] * 32)
-                await _wait_for(lambda: port_svc.collector.hits and jax_svc.collector.hits)
+                # every decision's hit-rate event reached both collectors
+                # before the subscriber that publishes them stops
+                await _wait_for(lambda: decisions(port_svc) == decisions(jax_svc) == DECISIONS)
             finally:
                 await w1.stop()
                 await w2.stop()
                 await sub.stop()
+            # a worker's metrics publisher stops without a last publish, and
+            # its engine may have ticked since the one before: each worker
+            # publishes its final state once more, so what it last published
+            # is what it holds
+            for w in (w1, w2):
+                await w.metrics.publish_once()
             # both workers' last metrics, as each published them: wait until
-            # both collectors hold them, and hold the same for each worker
+            # both collectors hold them, and hold the same for each worker,
+            # and the same hit-rate counts, of all the decisions
             last = {1: w1.metrics.snapshot(), 2: w2.metrics.snapshot()}
 
             def published(m):  # what a worker sent, not when it arrived
                 return {k: v for k, v in dataclasses.asdict(m).items() if k != "updated_at"}
+
+            def hits(svc):
+                return {w: dataclasses.astuple(s) for w, s in svc.collector.hits.items()}
 
             def settled():
                 held = [svc.collector.workers for svc in (port_svc, jax_svc)]
@@ -168,7 +210,8 @@ def test_metrics_service_fed_by_mock_workers_of_both_packages():
                     and published(held[0][w]) == published(held[1][w])
                     and (held[0][w].kv_active_blocks, held[0][w].kv_total_blocks)
                     == (m.kv_active_blocks, m.kv_total_blocks)
-                    for w, m in last.items())
+                    for w, m in last.items()
+                ) and hits(port_svc) == hits(jax_svc) and decisions(port_svc) == DECISIONS
 
             await _wait_for(settled)
             bodies = []
@@ -186,7 +229,10 @@ def test_metrics_service_fed_by_mock_workers_of_both_packages():
                 await c.close()
             await srv.stop()
 
-    (port_body, jax_body), seen, last = run(go())
+    return run(go())
+
+
+def _check_bodies(port_body, jax_body, seen, last):
     assert port_body == jax_body and port_body[0] == 200
     text = port_body[1]
     for wid in (1, 2):
@@ -194,6 +240,22 @@ def test_metrics_service_fed_by_mock_workers_of_both_packages():
         assert f'{RM.KV_BLOCKS_TOTAL}{{worker="{wid}"}} {seen[wid][1]}' in text
     assert seen[1] == (last[1].kv_active_blocks, last[1].kv_total_blocks)
     assert RM.ROUTING_DECISIONS_TOTAL in text and RM.KV_HIT_RATE_PERCENT in text
+    total = sum(int(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+                if line.startswith(RM.ROUTING_DECISIONS_TOTAL + "{"))
+    assert total == DECISIONS
+
+
+def test_metrics_service_fed_by_mock_workers_of_both_packages(host_library):
+    (port_body, jax_body), seen, last = _metrics_bodies()
+    _check_bodies(port_body, jax_body, seen, last)
+
+
+def test_metrics_service_bodies_equal_with_late_hit_events(host_library):
+    """One collector takes its hit-rate events late, one after another: the
+    bodies are read only once both hold every decision's event, so they
+    are still equal."""
+    (port_body, jax_body), seen, last = _metrics_bodies(hit_delay_s=0.2)
+    _check_bodies(port_body, jax_body, seen, last)
 
 
 # ----------------------------------------------------------------- api-store

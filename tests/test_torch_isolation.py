@@ -70,6 +70,36 @@ def test_port_imports_nothing_of_jax():
     assert not bad, f"the port imports JAX or the JAX package: {bad}"
 
 
+# what loading the JAX package's native library, or building it from the
+# root native/ directory, would have to spell
+JAX_NATIVE = re.compile(r"libdynamo_native|(?<![\w])_lib[/\\]|(?<![\w])native[/\\](src|include)"
+                        r"|\bmake\b.*-C|^make$")
+
+
+def test_port_builds_its_own_host_library():
+    """No module of the port, and not ``chip_smoke.py``, loads the JAX
+    package's native library or runs the root ``native/`` Makefile (no string
+    of theirs names either): the port's host library is built by g++ from
+    the port's own sources (``csrc/host/``) into the port's ``_build``, and
+    that is the file loaded."""
+    from dynamo_tpu_torch import native
+
+    named = {}
+    for f in _port_files():
+        strings = [n.value for n in ast.walk(ast.parse(f.read_text()))
+                   if isinstance(n, ast.Constant) and isinstance(n.value, str)]
+        hits = [s for s in strings if JAX_NATIVE.search(s)]
+        if hits:
+            named[str(f.relative_to(PKG.parent))] = hits
+    assert not named, named
+    assert JAX_NATIVE.search("dynamo_tpu/_lib/libdynamo_native.so")
+    assert JAX_NATIVE.search("make") and JAX_NATIVE.search("native/src/kv_index.cpp")
+    assert not JAX_NATIVE.search("csrc/host/kv_index.cpp")
+    lib = native.build_library()
+    assert native.SRC.is_relative_to(PKG) and lib.parent == PKG / "_build"
+    assert Path(native.load()._name) == lib
+
+
 # the JAX package's perf manifest, by path or module path ("dynamo_tpu"
 # then a separator: the port's own package name does not match)
 JAX_PERF_MANIFEST = re.compile(r"(?<![\w])dynamo_tpu[/.]analysis[/.]perf_manifest")

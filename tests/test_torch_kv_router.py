@@ -95,9 +95,16 @@ def test_indexer_removal_and_worker_teardown():
 
 
 def test_indexer_python_path_only():
-    assert not KvIndexer().is_native
-    with pytest.raises(RuntimeError, match="native KV index"):
-        KvIndexer(use_native=True)
+    """The default and ``use_native=True`` are the C++ index; the Python
+    index is reached only by ``use_native=False``, and only it has the
+    single-hash probe."""
+    assert KvIndexer().is_native and KvIndexer(use_native=True).is_native
+    py = KvIndexer(use_native=False)
+    assert not py.is_native
+    py.apply_event(1, KvStoredEvent(block_hashes=[11]))
+    assert py.holders_of(11) == {1}
+    with pytest.raises(RuntimeError, match="native index has no probe path"):
+        KvIndexer().holders_of(11)
 
 
 def test_scheduler_prefers_overlap():
