@@ -203,7 +203,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``{"fault": ...}`` line, logged at the end: the migration's gap between
    the cut worker's last token and the survivor's first, the tokens
    re-prefilled, the survivor's launches, seconds to suspect, the 429s);
-   then the ``load`` phase, on the host and from runs already taken: the
+   before it, the ``{"trace": ...}`` line: the compile plane's predicted
+   footprint of the 32-layer bf16 default run's EngineConfig (params, KV
+   pool and the meta walk's peak of live temporaries, ``analysis/
+   tracecheck.py::footprint``, walked in a subprocess started with the
+   lints) beside that run's ``torch.cuda.max_memory_allocated()`` (its
+   peak reset before the engine was built), and the dispatch signatures
+   the run made, every one of which must be in the config's declared
+   matrix; then the ``load`` phase, on the host and from runs already taken: the
    load plane's serving figures read off the bf16 default-path run (its
    timeline's ``step`` seconds over the fresh prompt tokens it prefilled,
    its ``decode_multi`` seconds over the row-steps decoded, its engine's
@@ -212,10 +219,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    ``load/card_latency.json`` figures, their ratios and each capacity
    cell's knee swept at the measured figures beside the committed
    ``analysis/load_manifest.json``'s; and ``python -m dynamo_tpu_torch
-   lint --load``, ``--project``, ``--wire``, ``--metrics``, ``--kern`` and
-   ``--perf``, subprocesses started while the kernels build, each of which
-   must have exited 0 (the committed surfaces, baseline and manifests
-   reproduce here);
+   lint --load``, ``--project``, ``--wire``, ``--metrics``, ``--kern``,
+   ``--perf``, ``--trace`` and ``--shard``, subprocesses started while the
+   kernels build, each of which must have exited 0 (the committed surfaces,
+   baseline and manifests reproduce here);
 5. parity: 2-layer models at full 8B width on the card (kernels, bf16) and
    on the CPU (plain PyTorch, f32), bf16 weights with a bf16 cache and int8
    weights with an int8 cache: one 300-token prompt over a 128-token cached
@@ -342,7 +349,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the sequence-parallel prefill of a 4,096-token prompt (8 layers; both
    ranks' cached KV equal and held to a one-card prefill's, then 16 decode
    tokens).  Every rank's launches are zeroed before each run and read
-   after; rank 1 must launch what rank 0 does.  In the front
+   after; rank 1 must launch what rank 0 does.  The bf16 pair's tp = 2 run
+   gives the ``{"shard": ...}`` line: each rank's bytes of params and
+   cache beside the sharding plane's census at (1, 2)
+   (``analysis/shardcheck.py::census_at``, from the same subprocess), and
+   rank 0's collectives in each pure decode dispatch, counted on the
+   world, beside the census's, per dispatch and per turn; bytes and counts
+   must be the census's.  In the front
    door, ``run in=http out=gpu --tp 2`` answers the front-door requests
    over HTTP and stops both ranks on SIGTERM.
 
@@ -1878,7 +1891,7 @@ def timeline_line(core, before: dict, dispatches: int, label: str, card: str) ->
 
 
 def serve_run(torch, model, config: dict, card: str, label: str, profile: bool = False,
-              timeline: bool = False, perf: bool = False) -> dict:
+              timeline: bool = False, perf: bool = False, trace: bool = False) -> dict:
     """Serve the six requests once through ``AsyncLLMEngine`` under one
     EngineConfig, with every kernel's launch counter zeroed just before and
     read just after; returns the streams, launches and engine counters
@@ -1887,7 +1900,34 @@ def serve_run(torch, model, config: dict, card: str, label: str, profile: bool =
     prompt tokens and the engine's KV bytes a block (the load phase's
     inputs).  With ``profile`` the traffic runs once more under the
     profiler, and with ``perf`` too that run's forwards are timed on the
-    card for the ``perf`` line."""
+    card for the ``perf`` line.  With ``trace`` the card's peak memory is
+    reset before the engine is built and read after the run, and every
+    dispatch is recorded (``analysis/tracecheck.py``) for the ``trace``
+    line."""
+    from dynamo_tpu_torch.analysis.tracecheck import record_dispatches, undeclared_dispatches
+    from dynamo_tpu_torch.engine import AsyncLLMEngine, EngineConfig, EngineCore
+    from dynamo_tpu_torch.llm.protocols import FinishReason
+
+    if trace:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+    recording = record_dispatches(EngineConfig(**config)) if trace else contextlib.nullcontext()
+    with recording as dispatched:
+        out = _serve_run(torch, model, config, card, label, profile, timeline, perf)
+    if trace:
+        torch.cuda.synchronize()
+        out["trace"] = dict(max_memory_allocated=torch.cuda.max_memory_allocated(),
+                            allocated_before_engine=before,
+                            weights=sum(p.numel() * p.element_size() for p in model.parameters()),
+                            dispatches=dispatched.total(),
+                            signatures={k: sorted(v) for k, v in dispatched.labels().items()},
+                            undeclared=undeclared_dispatches(dispatched, model.config))
+    return out
+
+
+def _serve_run(torch, model, config: dict, card: str, label: str, profile: bool,
+               timeline: bool, perf: bool) -> dict:
     from dynamo_tpu_torch.engine import AsyncLLMEngine, EngineConfig, EngineCore
     from dynamo_tpu_torch.llm.protocols import FinishReason
 
@@ -1953,7 +1993,8 @@ def serve_run(torch, model, config: dict, card: str, label: str, profile: bool =
 LOAD_FIGURES = ("prefill_ms_per_token", "decode_ms_per_step", "router_ms_per_decision",
                 "kv_bytes_per_block")
 LOAD_LINT_S = 120  # the lint subprocesses' limit
-LOAD_LINTS = ("--load", "--project", "--wire", "--metrics", "--kern", "--perf")
+LOAD_LINTS = ("--load", "--project", "--wire", "--metrics", "--kern", "--perf", "--trace",
+              "--shard")
 
 
 def _lint_clock(proc) -> None:
@@ -1965,7 +2006,8 @@ def _lint_clock(proc) -> None:
 
 def start_lints() -> dict:
     """``python -m dynamo_tpu_torch lint --load``, ``--project``,
-    ``--wire``, ``--metrics``, ``--kern`` and ``--perf`` as subprocesses,
+    ``--wire``, ``--metrics``, ``--kern``, ``--perf``, ``--trace`` and
+    ``--shard`` as subprocesses,
     started while the kernels build: the committed surfaces, baseline and
     manifests, checked on this machine's Python and torch.  The load phase
     reads them; ``stop_lints`` ends whatever is left."""
@@ -1979,6 +2021,124 @@ def start_lints() -> dict:
         proc.clock.start()
         lints[flag] = proc
     return lints
+
+
+# the compile and sharding planes' predictions for this run's configs, walked
+# on meta tensors in a subprocess started with the lints (the walk patches
+# the kernel wrappers process-wide, so it never runs beside the card's work)
+ANALYSIS_SCRIPT = """
+import json, sys
+from dynamo_tpu_torch.analysis.shardcheck import census_at
+from dynamo_tpu_torch.analysis.tracecheck import footprint
+from dynamo_tpu_torch.engine.config import EngineConfig
+from dynamo_tpu_torch.models.config import ModelConfig
+a = json.loads(sys.argv[1])
+cfg = EngineConfig(**a["engine"])
+print(json.dumps(dict(
+    footprint=footprint(ModelConfig(**a["trace_model"]), cfg),
+    census=census_at(ModelConfig(**a["shard_model"]), (1, 2), cfg.num_blocks, cfg.block_size,
+                     batch=cfg.max_batch_size, m=cfg.max_blocks_per_seq,
+                     num_steps=cfg.decode_steps))))
+"""
+
+
+def start_analysis() -> subprocess.Popen:
+    """TR007's footprint of the 32-layer bf16 default run's config and the
+    shard census at (1, 2) of the mesh phase's bf16 pair (MESH_BF16_LAYERS
+    layers, the same config), as one JSON document on the subprocess's
+    stdout; read by :func:`trace_line` and the mesh phase's ``shard``
+    line."""
+    arg = json.dumps(dict(engine=DEFAULT_PATH,
+                          trace_model=dataclasses.asdict(llama3_8b(32)),
+                          shard_model=dataclasses.asdict(llama3_8b(MESH_BF16_LAYERS))))
+    proc = subprocess.Popen([sys.executable, "-c", ANALYSIS_SCRIPT, arg], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    proc.started = time.perf_counter()
+    return proc
+
+
+# the walk is read after the bf16 serving phase, ~200 s into the run; it took
+# 209-217 s beside the build on an H100 host
+ANALYSIS_WAIT_S = 600
+
+
+def read_analysis(proc: subprocess.Popen) -> dict:
+    try:
+        stdout, stderr = proc.communicate(timeout=ANALYSIS_WAIT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        stdout, stderr = proc.communicate()
+        check(False, f"trace: the footprint and census walk ran past {ANALYSIS_WAIT_S} s")
+    check(proc.returncode == 0, f"trace: the footprint and census walk exited {proc.returncode}:"
+          f"\n{stderr[-4000:]}")
+    out = json.loads(stdout.strip().splitlines()[-1])
+    out["seconds"] = round(time.perf_counter() - proc.started, 3)
+    return out
+
+
+def trace_line(default: dict, analysis: dict, card: str) -> None:
+    """The ``{"trace": ...}`` line: TR007's predicted footprint of the
+    32-layer bf16 default run's EngineConfig (params + KV pool + the meta
+    walk's peak of live temporaries) beside the run's
+    ``torch.cuda.max_memory_allocated()`` (peak reset before its engine was
+    built), and the dispatch signatures the run made (warm-up and profiled
+    rerun included), every one of which must be in the config's declared
+    matrix."""
+    t = default["trace"]
+    fp = analysis["footprint"]
+    line = dict(config="bf16 default path, 32 layers", predicted_bytes=fp["total_bytes"],
+                params_bytes=fp["params_bytes"], kv_bytes=fp["kv_bytes"],
+                peak_temp_bytes=fp["peak_temp_bytes"], budget_bytes=fp["budget_bytes"],
+                max_memory_allocated_bytes=t["max_memory_allocated"],
+                measured_over_predicted=round(t["max_memory_allocated"] / fp["total_bytes"], 4),
+                # the split: what was live before the engine (the weights and what
+                # earlier phases still hold), and the engine's own peak above it
+                # beside the predicted KV pool + peak temporaries
+                allocated_before_engine_bytes=t["allocated_before_engine"],
+                weights_bytes=t["weights"],
+                engine_peak_bytes=t["max_memory_allocated"] - t["allocated_before_engine"],
+                predicted_engine_bytes=fp["total_bytes"] - fp["params_bytes"],
+                dispatches=t["dispatches"], signatures=t["signatures"],
+                undeclared=t["undeclared"], walk_s=analysis["seconds"], card=card)
+    log(json.dumps({"trace": line}))
+    check(not t["undeclared"], f"trace: the default run dispatched signatures outside its "
+          f"config's declared matrix: {t['undeclared']}")
+    check(t["max_memory_allocated"] <= fp["budget_bytes"],
+          f"trace: the run's peak {t['max_memory_allocated']} B is over the budget")
+
+
+def shard_line(run: dict, census: dict, card: str) -> dict:
+    """The ``{"shard": ...}`` line of the mesh phase's bf16 pair at (1, 2):
+    each rank's bytes of params and cache beside the census's, and rank 0's
+    collectives a decode dispatch (counted on the gloo world) beside the
+    census's, per dispatch and per turn.  The bytes and the counts must
+    equal the census."""
+    want = {k: v["count"] for k, v in census["collectives"].items()}
+    steps = run["decode_dispatch_collectives"]
+    full = [d for d in steps if d["turns"] == DEFAULT_PATH["decode_steps"]]
+    turns = DEFAULT_PATH["decode_steps"]
+    per_dispatch = {k: sum(d["counts"].get(k, {}).get("count", 0) for d in full) / max(1, len(full))
+                    for k in sorted(set(want) | {k for d in full for k in d["counts"]})}
+    line = dict(mesh="(1, 2)", layers=MESH_BF16_LAYERS, backend="gloo, one card",
+                ranks=[dict(rank=r, params_bytes=m["params"], cache_bytes=m["cache"],
+                            census_params_bytes=c["params"], census_cache_bytes=c["cache"])
+                       for r, (m, c) in enumerate(zip(run["resident"], census["ranks"]))],
+                decode_dispatches=len(steps), full_bursts=len(full), turns_per_burst=turns,
+                collectives_per_dispatch=per_dispatch, census_per_dispatch=want,
+                collectives_per_turn={k: round(v / turns, 4) for k, v in per_dispatch.items()},
+                census_per_turn={k: round(v / turns, 4) for k, v in want.items()},
+                payload_bytes_per_dispatch={k: v["payload_bytes"] for k, v in (
+                    full[0]["counts"].items() if full else {})},
+                census_payload_bytes={k: v["payload_bytes"]
+                                      for k, v in census["collectives"].items()},
+                card=card)
+    log(json.dumps({"shard": line}))
+    check(run["resident"] == census["ranks"], f"shard: the ranks' resident bytes "
+          f"{run['resident']} are not the census's {census['ranks']}")
+    check(full and all({k: v["count"] for k, v in d["counts"].items()} == want for d in full),
+          f"shard: rank 0's collectives a decode dispatch {[d['counts'] for d in full]} are not "
+          f"the census's {want}")
+    return line
 
 
 def stop_lints(lints: dict) -> None:
@@ -1998,8 +2158,8 @@ def load_phase(default: dict, router: dict, lints: dict, card: str) -> dict:
     block; the router run gives one decision's ms.  Sweeps the capacity
     grid at those figures and logs each cell's knee beside the committed
     manifest's, then reads ``lint --load``, ``--project``, ``--wire``,
-    ``--metrics``, ``--kern`` and ``--perf`` (``lints``, from
-    :func:`start_lints`): each must exit 0 here."""
+    ``--metrics``, ``--kern``, ``--perf``, ``--trace`` and ``--shard``
+    (``lints``, from :func:`start_lints`): each must exit 0 here."""
     from dynamo_tpu_torch.analysis.loadcheck import DEFAULT_LOAD_MANIFEST_PATH, LoadManifest
     from dynamo_tpu_torch.load.sim import sweep
     from dynamo_tpu_torch.load.workers import DEFAULT_CARD_LATENCY, LatencyModel
@@ -2151,7 +2311,8 @@ def serve_both(torch, model, card: str, quant: bool):
     other = (("decode", "prefill", "ragged", "moe", "moe_q8") if quant
              else ("decode_q8", "prefill_q8", "ragged_q8", "matmul", "moe", "moe_q8"))
     default = serve_run(torch, model, INT8_DEFAULT_PATH if quant else DEFAULT_PATH, card,
-                        f"{tag}default path", profile=True, timeline=True, perf=not quant)
+                        f"{tag}default path", profile=True, timeline=True, perf=not quant,
+                        trace=not quant)
     need = ["decode" + q8, "prefill" + q8] + (["matmul"] if quant else [])
     check(all(default["launches"][k] > 0 for k in need) and
           not any(default["launches"][k] for k in other),
@@ -7455,12 +7616,18 @@ def mesh_kernel_checks(torch, card: str) -> tuple[dict, dict]:
 
 
 def mesh_run(torch, mesh, model, config: dict, label: str, reqs: list, card: str,
-             max_tokens: int = MAX_TOKENS) -> dict:
+             max_tokens: int = MAX_TOKENS, shard: bool = False) -> dict:
     """The requests at once through an ``EngineCore`` on ``model`` (on
     ``mesh``, rank 0's, or one card's when None), stepped here so each
     step's wall is read: greedy streams, every rank's launches (zeroed just
     before), the seconds of a decode turn (the pure decode dispatches' walls
-    over their turns) and the collective wait of one."""
+    over their turns) and the collective wait of one.  With ``shard`` (on a
+    mesh) also rank 0's collectives in each pure decode dispatch
+    (``shardcheck.counted_collectives``) and every rank's resident bytes of
+    params and cache, for the ``shard`` line."""
+    import copy
+
+    from dynamo_tpu_torch.analysis.shardcheck import counted_collectives
     from dynamo_tpu_torch.engine import EngineConfig, EngineCore
     from dynamo_tpu_torch.engine.follower import call_all
     from dynamo_tpu_torch.engine.request import EngineRequest
@@ -7487,18 +7654,30 @@ def mesh_run(torch, mesh, model, config: dict, label: str, reqs: list, card: str
         outs = submit(label, reqs, max_tokens)
         decode_s = wait_s = 0.0
         turns, steps0, sp0 = 0, core.steps, core.sp_prefills
+        decode_collectives = []
+        counting = (counted_collectives(mesh) if shard and mesh is not None
+                    else contextlib.nullcontext({}))
         t0 = time.perf_counter()
-        while True:
-            d0, p0 = core.decode_steps, core.prefill_steps
-            w0 = mesh.wait_s if mesh is not None else 0.0
-            s0 = time.perf_counter()
-            if not core.step():
-                break
-            if core.prefill_steps == p0 and core.decode_steps > d0:
-                decode_s += time.perf_counter() - s0
-                turns += core.decode_steps - d0
-                wait_s += (mesh.wait_s - w0) if mesh is not None else 0.0
+        with counting as counts:
+            while True:
+                d0, p0 = core.decode_steps, core.prefill_steps
+                w0 = mesh.wait_s if mesh is not None else 0.0
+                c0 = copy.deepcopy(counts)
+                s0 = time.perf_counter()
+                if not core.step():
+                    break
+                if core.prefill_steps == p0 and core.decode_steps > d0:
+                    decode_s += time.perf_counter() - s0
+                    turns += core.decode_steps - d0
+                    wait_s += (mesh.wait_s - w0) if mesh is not None else 0.0
+                    if shard:
+                        decode_collectives.append(dict(turns=core.decode_steps - d0, counts={
+                            k: {f: v[f] - c0.get(k, {}).get(f, 0) for f in v}
+                            for k, v in counts.items()
+                            if v["count"] > c0.get(k, {}).get("count", 0)}))
         wall = time.perf_counter() - t0
+        resident = (call_all(mesh, "dynamo_tpu_torch.analysis.shardcheck:gathered_resident_bytes",
+                             model=model, cache=core.cache) if shard and mesh is not None else None)
         launches = (call_all(mesh, "chip_smoke:mesh_counts") if mesh is not None
                     else [{k: fn.launches for k, fn in _kernel_wrappers().items()}])
         dispatches, sp = core.steps - steps0, core.sp_prefills - sp0
@@ -7514,7 +7693,8 @@ def mesh_run(torch, mesh, model, config: dict, label: str, reqs: list, card: str
         streams.append(toks)
     out = dict(label=label, streams=streams, launches=launches, wall_s=wall, dispatches=dispatches,
                decode_turns=turns, decode_s_per_turn=decode_s / max(1, turns),
-               collective_wait_s_per_turn=wait_s / max(1, turns), sp_prefills=sp, metrics=metrics)
+               collective_wait_s_per_turn=wait_s / max(1, turns), sp_prefills=sp, metrics=metrics,
+               decode_dispatch_collectives=decode_collectives, resident=resident)
     log(f"mesh {label}: wall {wall:.3f} s, {dispatches} dispatches, a decode turn "
         f"{1e3 * out['decode_s_per_turn']:.2f} ms (collective wait "
         f"{1e3 * out['collective_wait_s_per_turn']:.2f} ms) over {turns} turns, launches "
@@ -7658,7 +7838,7 @@ def cache_dtype_refusal(torch, card: str) -> None:
 
 def _mesh_pair(torch, world, spec: dict, config: dict, label: str, card: str, reqs=None,
                bs: int = BS, cache_dtype=None, logits: bool = False,
-               shapes=((1, 2),)) -> tuple[dict, dict]:
+               shapes=((1, 2),), shard: bool = False) -> tuple[dict, dict]:
     """One model on one card (tp = 1) and on the world's meshes ``shapes``:
     the same requests through each, every mesh's streams held to tp = 1's
     but at a near tie (re-scored on the tp = 1 model), and with ``logits``
@@ -7681,7 +7861,7 @@ def _mesh_pair(torch, world, spec: dict, config: dict, label: str, card: str, re
             b = _rescore(torch, full, reqs[1], BS, None)
             _hold_logits(torch, f"mesh {name} first token (300-token prompt), vs tp=1",
                          a[None], b[None], card)
-        run = mesh_run(torch, mesh, sharded, config, name, reqs, card)
+        run = mesh_run(torch, mesh, sharded, config, name, reqs, card, shard=shard)
         run["parted"] = spec_near_ties(torch, full, one, run, card, bs=bs,
                                        cache_dtype=cache_dtype, prompts=reqs,
                                        sampling=[{"temperature": 0.0}] * len(reqs),
@@ -7801,7 +7981,7 @@ def mesh_nccl_refusal(card: str) -> None:
         f"{[p.returncode for p in procs]}, the refusal in {sum(refused)} of 2 logs ({card})")
 
 
-def mesh_phase(torch, card: str) -> dict:
+def mesh_phase(torch, card: str, census: dict) -> dict:
     """The mesh phase: the kernels at one rank's shapes, NCCL refused for two
     ranks on one card, then ONE two-rank gloo world: Llama-3-8B bf16 at full
     width, MESH_BF16_LAYERS layers (logits and streams against tp = 1), int8 weights and
@@ -7811,7 +7991,8 @@ def mesh_phase(torch, card: str) -> dict:
     1), and the options a mesh serves beyond the dispatches
     (:func:`mesh_options_run`: n-gram speculation, lookahead bursts, the KV
     tiers).  Rank 1 must launch what rank 0 does, B1, B2, B3, B4a, B4c, B5
-    and E1 among them.
+    and E1 among them.  The bf16 pair's tp = 2 run also gives the
+    ``{"shard": ...}`` line against ``census`` (:func:`shard_line`).
     Logs the ``{"mesh": ...}`` line."""
     t_phase = time.perf_counter()
     errs, kernel_ms = mesh_kernel_checks(torch, card)
@@ -7831,8 +8012,9 @@ def mesh_phase(torch, card: str) -> dict:
                  "config": dataclasses.asdict(llama3_8b(MESH_BF16_LAYERS))}
         one, two = _mesh_pair(torch, world, llama, DEFAULT_PATH,
                               f"Llama-3-8B bf16 {MESH_BF16_LAYERS} layers", card,
-                              logits=True)
+                              logits=True, shard=True)
         runs["bf16 tp=1"], runs["bf16"] = one, two[tp2]
+        shard = shard_line(runs["bf16"], census, card)
         # int8 weights and cache: the default path at MESH_Q8_LAYERS, the
         # token-budget path (B4c on the rank's scale tiles, lookahead bursts
         # on) at MESH_OPT_LAYERS, which costs seconds
@@ -7883,7 +8065,7 @@ def mesh_phase(torch, card: str) -> dict:
         kernel_max_abs_err=errs, kernel_ms_one_rank=kernel_ms,
         seconds=time.perf_counter() - t_phase, card=card)
     log(json.dumps({"mesh": line}))
-    return dict(line, per_rank=per_rank, errs=errs)
+    return dict(line, per_rank=per_rank, errs=errs, shard=shard)
 
 
 def _run_readings(r: dict) -> dict:
@@ -8102,11 +8284,12 @@ def main() -> int:
                                               "kind": torch.cuda.get_device_name(0),
                                               "count": torch.cuda.device_count()}}))
         return 0
-    lints = {}
+    lints, analysis_proc = {}, None
     try:
         card = card_line()
         log(card)
         lints = start_lints()
+        analysis_proc = start_analysis()
         # the host RAM the KV tiers' pinned pools come out of
         log("free -g: " + " | ".join(subprocess.run(["free", "-g"], capture_output=True,
                                                     text=True).stdout.strip().splitlines()))
@@ -8137,6 +8320,8 @@ def main() -> int:
         times["ragged"] = ragged_timing(torch, card, mixed)
         times["ragged_err"] = times["ragged"].pop("err")
         mark("Llama-3-8B bf16 serving")
+        analysis = read_analysis(analysis_proc)
+        trace_line(default, analysis, card)
         load_phase(default, tier["router"], lints, card)
         mark("load")
         q8_default, q8_budget, q8_mixed, q8_spec, q8_disagg, q8_tier = serving_phase_q8(torch,
@@ -8165,13 +8350,16 @@ def main() -> int:
         mark("DeepSeek parity")
         deepseek_front_door_phase(torch, card)
         mark("DeepSeek front door")
-        mesh = mesh_phase(torch, card)
+        mesh = mesh_phase(torch, card, analysis["census"])
         mark("mesh")
     except (SmokeFailure, RuntimeError) as e:  # a failed check, build or nvidia-smi
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     finally:
         stop_lints(lints)
+        if analysis_proc is not None and analysis_proc.poll() is None:
+            analysis_proc.kill()
+            analysis_proc.wait()
         shutil.rmtree(FRONT_DIR, ignore_errors=True)
         shutil.rmtree(PERSIST_DIR, ignore_errors=True)
         shutil.rmtree(FORMATS_DIR, ignore_errors=True)

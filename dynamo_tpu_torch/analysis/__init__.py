@@ -1,8 +1,9 @@
 """The port's analysis planes.
 
 - The source planes: ``core.py`` (rule registry, noqa, baseline, the
-  per-file driver), ``rules_async.py`` (DT001-DT004) and ``project.py``
-  (the interprocedural index, DT005-DT009), against the port's committed
+  per-file driver), ``rules_async.py`` (DT001-DT004), ``rules_torch.py``
+  (the hot-path rules, DT101-DT105) and ``project.py`` (the
+  interprocedural index, DT005-DT009), against the port's committed
   ``baseline.json``: ``python -m dynamo_tpu_torch lint [--project]``.
 - The protocol plane: ``detloop.py`` is the deterministic event loop,
   schedulers and in-memory network; ``protocheck.py`` runs the control
@@ -26,12 +27,22 @@
   tensors against the H100's rates (PF001-PF004) against the committed
   ``perf_manifest.json`` (``lint --perf``); ``/metrics`` renders its
   predictions as ``dynamo_tpu_perf_predicted_step_ms``.
+- The compile plane: ``tracecheck.py`` holds the entry points' dispatch
+  signature census, in-place cache writes, f32 upcasts and footprint
+  (TR001-TR007) against the committed ``trace_manifest.json`` (``lint
+  --trace``), and records a run's dispatches against its declared matrix.
+- The sharding plane: ``shardcheck.py`` holds what each rank of the
+  (1, 4) audit mesh holds, rank 0's collectives a decode turn and each
+  rank's in-place cache write (SH001-SH005) against the committed
+  ``shard_manifest.json`` (``lint --shard``).
 - The runtime sanitizer (dtsan): ``sanitizer.py`` (task leaks, blocking
   callbacks, unclosed transports, the framing guard) and its standalone
   pytest plugin ``pytest_sanitizer.py``.
 
-``cli.py`` is the ``lint`` command.  The JAX package's trace and shard
-planes are not port targets (ROADMAP).
+``cli.py`` is the ``lint`` command; ``lint --all`` runs the ten passes.
+The perf, trace and shard planes read one registry of entry points
+(``perfcheck.build_perf_registry``) and walk it the same way
+(``perfcheck.walk``).
 """
 
 from dynamo_tpu_torch.analysis.core import (
@@ -111,6 +122,21 @@ from dynamo_tpu_torch.analysis.sanitizer import (
     Sanitizer,
     mode_from_env,
 )
+from dynamo_tpu_torch.analysis.shardcheck import (
+    DEFAULT_SHARD_MANIFEST_PATH,
+    SHARD_RULES,
+    check_shard_facts,
+    collect_shard_facts,
+    run_shard,
+)
+from dynamo_tpu_torch.analysis.tracecheck import (
+    DEFAULT_TRACE_MANIFEST_PATH,
+    TRACE_RULES,
+    check_trace_facts,
+    collect_trace_facts,
+    record_dispatches,
+    run_trace,
+)
 from dynamo_tpu_torch.analysis.wirecheck import (
     DEFAULT_WIRE_MANIFEST_PATH,
     WIRE_RULES,
@@ -182,6 +208,17 @@ __all__ = [
     "collect_perf_facts",
     "manifest_predictions",
     "run_perf",
+    "DEFAULT_TRACE_MANIFEST_PATH",
+    "TRACE_RULES",
+    "check_trace_facts",
+    "collect_trace_facts",
+    "record_dispatches",
+    "run_trace",
+    "DEFAULT_SHARD_MANIFEST_PATH",
+    "SHARD_RULES",
+    "check_shard_facts",
+    "collect_shard_facts",
+    "run_shard",
     "MODE_FULL",
     "MODE_LEAKS",
     "MODE_OFF",

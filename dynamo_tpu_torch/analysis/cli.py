@@ -3,21 +3,25 @@ analysis planes.
 
 The counterpart of the JAX package's ``analysis/cli.py``, with the JAX
 command's flags and exit codes.  A bare ``lint [paths]`` runs the
-per-file source rules (DT001-DT004, ``rules_async.py``) over the port's
-package, ``--project`` adds the interprocedural rules (DT005-DT009,
-``project.py``), both against the port's ``analysis/baseline.json``:
-text output for humans, ``--format json`` (stable-sorted) for CI
-diffing, exit 1 on any non-baselined finding, 2 on an unknown rule.
-``--update-baseline`` rewrites the baseline from the current findings,
-carrying existing justifications over where the (path, rule, content)
-key still matches.  ``--proto`` runs the protocol plane
-(``protocheck.py``), ``--load`` the scale-simulation plane
-(``loadcheck.py``), ``--wire`` the wire plane (``wirecheck.py``),
-``--metrics`` the metrics plane (``metcheck.py``), ``--kern`` the kernel
-plane (``kerncheck.py``) and ``--perf`` the perf plane (``perfcheck.py``),
-each against its own committed manifest.  The JAX command's other plane
-flags (``--trace``, ``--shard``, and ``--all``, which runs them too) exit
-2, naming the plane as not a port target.
+per-file source rules over the port's package (DT001-DT004,
+``rules_async.py``, and DT101-DT105, ``rules_torch.py``), ``--project``
+adds the interprocedural rules (DT005-DT009, ``project.py``), both
+against the port's ``analysis/baseline.json``: text output for humans,
+``--format json`` (stable-sorted) for CI diffing, exit 1 on any
+non-baselined finding, 2 on an unknown rule.  ``--update-baseline``
+rewrites the baseline from the current findings, carrying existing
+justifications over where the (path, rule, content) key still matches.
+The other planes run each against its own committed manifest: ``--trace``
+the compile plane (``tracecheck.py``), ``--wire`` the wire plane
+(``wirecheck.py``), ``--perf`` the perf plane (``perfcheck.py``),
+``--shard`` the sharding plane (``shardcheck.py``), ``--proto`` the
+protocol plane (``protocheck.py``), ``--load`` the scale-simulation plane
+(``loadcheck.py``), ``--kern`` the kernel plane (``kerncheck.py``) and
+``--metrics`` the metrics plane (``metcheck.py``).  ``--all`` runs the ten
+passes in that order (source and project first) in one process and exits
+with the largest of their codes; on a clean tree each prints its summary
+line ("0 findings (N baselined)", "0 trace findings (N accepted) over N
+entrypoints", ...) and the command exits 0.
 """
 
 from __future__ import annotations
@@ -35,19 +39,7 @@ from dynamo_tpu_torch.analysis.core import (
     lint_paths,
 )
 
-__all__ = ["configure_parser", "run_lint", "main"]
-
-# the JAX command's plane flags the port has no plane for, and why each
-# exits 2
-_UNPORTED = {
-    "trace": "the compile plane is not a port target (it reads jaxprs and HLO and proves one "
-             "compile per bucket; eager PyTorch compiles nothing)",
-    "shard": "the sharding plane is not a port target (it reads GSPMD placements; the port "
-             "runs one process per rank)",
-    "all": "every plane at once is refused: the JAX command's --all also runs the "
-           "trace and shard planes, which are not port targets",
-}
-
+__all__ = ["configure_parser", "run_lint", "run_all", "main"]
 
 def configure_parser(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("paths", nargs="*", default=None,
@@ -92,8 +84,19 @@ def configure_parser(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                    help="run the perf-plane pass instead (PF001-PF004: the H100 roofline "
                         "of every step function, priced on meta tensors, and its "
                         "collective census) against the committed perf manifest")
-    for flag, why in _UNPORTED.items():
-        p.add_argument(f"--{flag}", action="store_true", help=f"{why} (exits 2)")
+    p.add_argument("--trace", action="store_true",
+                   help="run the compile-plane pass instead (TR001-TR007: the dispatch-"
+                        "signature census a CUDA graph capture keys on, the in-place cache "
+                        "audit, f32 upcasts, the footprint against the card's memory) against "
+                        "the committed trace manifest")
+    p.add_argument("--shard", action="store_true",
+                   help="run the sharding-plane pass instead (SH001-SH005: what each rank of "
+                        "the (1, 4) audit mesh holds, rank 0's collectives a decode turn, each "
+                        "rank's in-place cache write) against the committed shard manifest")
+    p.add_argument("--all", action="store_true",
+                   help="run all ten passes (per-file + project, trace, wire, perf, shard, "
+                        "proto, load, kern, metrics) in one process; exit with the largest of "
+                        "their codes")
     p.add_argument("--replay", default=None, metavar="TOKEN",
                    help="with --proto, --load or --kern: re-execute one recorded run "
                         "from a dtp1. interleaving token, a dtl1. cell token or a "
@@ -105,10 +108,8 @@ def configure_parser(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                         "scenarios whose protocol code is dirty; with --load, "
                         "--metrics or --kern, skip the pass unless its inputs are dirty")
     p.add_argument("--manifest", default=None, metavar="PATH",
-                   help="manifest file (default: the committed "
-                        "analysis/proto_manifest.json, load_manifest.json, "
-                        "wire_manifest.json, metrics_manifest.json, "
-                        "kern_manifest.json or perf_manifest.json)")
+                   help="manifest file (default: the plane's committed "
+                        "analysis/<plane>_manifest.json; single-plane modes only)")
     p.add_argument("--select", default=None, metavar="DT001,DT005",
                    help="comma-separated rule codes to run (default: all)")
     p.add_argument("--baseline", default=None, metavar="PATH",
@@ -117,10 +118,9 @@ def configure_parser(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("--no-baseline", action="store_true",
                    help="report every finding, ignoring the baseline")
     p.add_argument("--update-baseline", action="store_true",
-                   help="rewrite the baseline (or, with --proto, --load, --wire, "
-                        "--metrics, --kern or --perf, the manifest; --metrics also rewrites "
-                        "docs/torch_observability.md's table) from current "
-                        "findings, carrying justifications over by key")
+                   help="rewrite the baseline (or, with a plane's flag, its manifest; "
+                        "--metrics also rewrites docs/torch_observability.md's table; --all "
+                        "every one) from current findings, carrying justifications over by key")
     p.add_argument("--root", default=None,
                    help="paths in output are relative to this directory "
                         "(default: the checkout holding this package for a "
@@ -154,34 +154,12 @@ def _git_changed_paths(root: Path, suffixes: tuple[str, ...] = (".py",)) -> list
 
 def run_lint(args: argparse.Namespace, out=None) -> int:
     out = out if out is not None else sys.stdout
-    asked = [why for flag, why in _UNPORTED.items() if getattr(args, flag, False)]
-    if asked:
-        print(f"lint: {asked[0]}", file=sys.stderr)
-        return 2
-    if getattr(args, "proto", False):
-        from dynamo_tpu_torch.analysis.protocheck import run_proto
-
-        return run_proto(args, out)
-    if getattr(args, "load", False):
-        from dynamo_tpu_torch.analysis.loadcheck import run_load
-
-        return run_load(args, out)
-    if getattr(args, "wire", False):
-        from dynamo_tpu_torch.analysis.wirecheck import run_wire
-
-        return run_wire(args, out)
-    if getattr(args, "metrics", False):
-        from dynamo_tpu_torch.analysis.metcheck import run_metrics
-
-        return run_metrics(args, out)
-    if getattr(args, "kern", False):
-        from dynamo_tpu_torch.analysis.kerncheck import run_kern
-
-        return run_kern(args, out)
-    if getattr(args, "perf", False):
-        from dynamo_tpu_torch.analysis.perfcheck import run_perf
-
-        return run_perf(args, out)
+    if getattr(args, "all", False):
+        return run_all(args, out)
+    # one plane a run, picked in the JAX command's order
+    for flag in PLANES:
+        if getattr(args, flag, False):
+            return _plane(flag)(args, out)
     paths = [Path(p) for p in (getattr(args, "paths", None) or [])]
     if getattr(args, "root", None):
         root = Path(args.root)
@@ -263,6 +241,39 @@ def run_lint(args: argparse.Namespace, out=None) -> int:
         )
         print(summary, file=out)
     return 1 if fresh else 0
+
+
+# the plane flags, in the JAX command's order (its ``run_all``'s)
+PLANES = ("trace", "wire", "perf", "shard", "proto", "load", "kern", "metrics")
+
+
+def _plane(flag: str):
+    """The ``run_<plane>(args, out)`` of a plane flag, imported on use."""
+    import importlib
+
+    module = {"trace": "tracecheck", "wire": "wirecheck", "perf": "perfcheck",
+              "shard": "shardcheck", "proto": "protocheck", "load": "loadcheck",
+              "kern": "kerncheck", "metrics": "metcheck"}[flag]
+    return getattr(importlib.import_module(f"{__package__}.{module}"), f"run_{flag}")
+
+
+def run_all(args: argparse.Namespace, out=None) -> int:
+    """All ten passes in one process, in the JAX command's order: per-file +
+    project rules, then the compile plane, the wire plane, the perf plane,
+    the sharding plane, the protocol plane, the scale simulation, the
+    kernel plane and the metrics plane.  The exit code is the largest of
+    theirs; ``--update-baseline`` rewrites every committed baseline."""
+    out = out if out is not None else sys.stdout
+    sub = argparse.Namespace(**vars(args))
+    sub.all = False
+    sub.project = True
+    sub.manifest = None  # each plane's own; one --manifest would be ambiguous
+    sub.replay = None
+    for flag in PLANES:
+        setattr(sub, flag, False)
+    codes = [run_lint(sub, out)]
+    codes += [_plane(flag)(sub, out) for flag in PLANES]
+    return max(codes)
 
 
 def main(argv: Optional[list[str]] = None) -> int:

@@ -1,13 +1,14 @@
 """AST checker framework for the port's source planes.
 
 The counterpart of the JAX package's ``analysis/core.py``: a rule
-registry (``rules_async.py``, DT001-DT004), per-line suppression
+registry (``rules_async.py``, DT001-DT004, and ``rules_torch.py``,
+DT101-DT105, the counterpart of the JAX package's ``rules_jax.py`` read
+for eager PyTorch and the hand-written kernels), per-line suppression
 (``# dt: noqa[DTxxx]``), and a committed baseline (the port's own
 ``analysis/baseline.json``) for grandfathered findings, so the tier-1
-gate starts green and stays zero-findings.  The JAX package's JAX rules
-(``rules_jax.py``, DT101-DT105) are not port targets: the port has no
-jit or Pallas call sites, so only the async rules register here, and
-the jit registry the JAX pre-scan builds for them is left out.
+gate starts green and stays zero-findings.  The jit registry the JAX
+pre-scan builds for its rules is left out: the port's rules read
+function names, decorators and paths.
 
 Performance contract: each file is parsed ONCE and all rules run off the
 same tree — one cheap pre-scan walk (the import table, shared by every
@@ -104,7 +105,7 @@ def register(cls: type[Rule]) -> type[Rule]:
 
 def all_rules(select: Optional[Sequence[str]] = None) -> list[Rule]:
     # importing the rule module populates the registry
-    from dynamo_tpu_torch.analysis import rules_async  # noqa: F401
+    from dynamo_tpu_torch.analysis import rules_async, rules_torch  # noqa: F401
 
     codes = sorted(_REGISTRY)
     if select:

@@ -54,6 +54,7 @@ from __future__ import annotations
 import contextlib
 import inspect
 import json
+import math
 import sys
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -64,7 +65,9 @@ from dynamo_tpu_torch.analysis.metcheck import MetricsManifest as PerfManifest
 from dynamo_tpu_torch.obs import topology
 
 __all__ = [
+    "Call",
     "DEFAULT_PERF_MANIFEST_PATH",
+    "Dispatch",
     "PERF_RULES",
     "PerfEntry",
     "PerfFinding",
@@ -75,6 +78,7 @@ __all__ = [
     "estimate_callable",
     "manifest_predictions",
     "run_perf",
+    "walk",
 ]
 
 DEFAULT_PERF_MANIFEST_PATH = Path(__file__).parent / "perf_manifest.json"
@@ -283,9 +287,12 @@ def card_route():
 
 class _Pricer:
     """The walk's dispatch mode, with a stack of accumulators (a kernel
-    call's plain version prices into its own)."""
+    call's plain version prices into its own).  ``observers`` see every op
+    (``op(func, args, kwargs, out, depth)``) and every kernel call
+    (``kernel(name, operands, depth)``); depth 1 is the card's route, a
+    deeper one a plain version walked beside its kernel."""
 
-    def __init__(self):
+    def __init__(self, observers=(), plain: bool = True):
         from torch.utils._python_dispatch import TorchDispatchMode
 
         pricer = self
@@ -294,9 +301,13 @@ class _Pricer:
             def __torch_dispatch__(self, func, types, args=(), kwargs=None):
                 out = func(*args, **(kwargs or {}))
                 price_op(pricer.stack[-1], func, args, kwargs, out)
+                for o in pricer.observers:
+                    o.op(func, args, kwargs, out, len(pricer.stack))
                 return out
 
         self.stack = [Costs()]
+        self.observers = tuple(observers)
+        self.plain = plain
         self.mode = Mode()
 
 
@@ -336,7 +347,9 @@ def _stand_in(kernel: str, wrapper, pricer: _Pricer):
             row[key] += cost[key]
         acc.add_flops("bfloat16", cost["flops"])
         acc.bytes += cost["hbm_bytes"]
-        if meta["plain_reads_host"]:
+        for o in pricer.observers:
+            o.kernel(kernel, a, len(pricer.stack))
+        if meta["plain_reads_host"] or not pricer.plain:
             acc.plain[kernel] = None
         else:
             side = Costs()
@@ -417,20 +430,29 @@ def _facts(acc: Costs) -> dict:
 _WALK = {"pricer": None}
 
 
+def walk(thunk: Callable[[], object], observers=(), plain: bool = True) -> tuple[object, "Costs"]:
+    """Run ``thunk()`` once under the pricing mode on the card's route, with
+    ``observers`` watching (see :class:`_Pricer`); (its result, its costs).
+    ``plain=False`` skips walking the plain versions beside their kernels
+    (their costs are then not in the ``plain`` rows).  The perf, trace and
+    shard planes all walk through here."""
+    import torch
+
+    pricer = _Pricer(observers, plain)
+    _WALK["pricer"] = pricer
+    try:
+        with torch.no_grad(), card_route(), _kernels_stood_in(pricer), pricer.mode:
+            out = thunk()
+    finally:
+        _WALK["pricer"] = None
+    return out, pricer.stack[0]
+
+
 def estimate_callable(fn: Callable, *args, **kwargs) -> dict:
     """Run ``fn(*args, **kwargs)`` (meta tensors, or a thunk building them
     when called with no arguments) once under the pricing mode on the
     card's route and return its facts."""
-    import torch
-
-    pricer = _Pricer()
-    _WALK["pricer"] = pricer
-    try:
-        with torch.no_grad(), card_route(), _kernels_stood_in(pricer), pricer.mode:
-            fn(*args, **kwargs)
-    finally:
-        _WALK["pricer"] = None
-    return _facts(pricer.stack[0])
+    return _facts(walk(lambda: fn(*args, **kwargs))[1])
 
 
 # --------------------------------------------------------- recording mesh ----
@@ -439,8 +461,10 @@ def estimate_callable(fn: Callable, *args, **kwargs) -> dict:
 @dataclass(frozen=True)
 class RecordingMesh:
     """A stand-in for ``utils/mesh.Mesh`` that exists only in the walk:
-    axis names and sizes, and collectives that record into the census and
-    return tensors of the shapes a real mesh would."""
+    axis names and sizes, one rank's coordinates, and collectives that
+    record into the census and return tensors of the shapes a real mesh
+    would.  A model built on it (``device="meta"``) holds that rank's
+    slices, as on a real mesh."""
 
     axis_names: tuple[str, ...]
     sizes: tuple[int, ...]
@@ -451,16 +475,36 @@ class RecordingMesh:
     def shape(self) -> dict[str, int]:
         return dict(zip(self.axis_names, self.sizes))
 
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes)
+
+    @property
+    def is_root(self) -> bool:
+        return self.rank == 0
+
+    @property
+    def wait_s(self) -> float:
+        return 0.0
+
     def axis_size(self, axis: str) -> int:
         return self.shape.get(axis, 1)
 
     def axis_index(self, axis: str) -> int:
+        """This rank's index on ``axis`` (row-major, the last axis fastest,
+        as ``Mesh.coords``)."""
+        r = self.rank
+        for name, n in reversed(list(self.shape.items())):
+            if name == axis:
+                return r % n
+            r //= n
         return 0
 
     def _record(self, op: str, axis: str, payload: int) -> None:
         pricer = _WALK["pricer"]
         if pricer is not None:
-            pricer.stack[-1].add_collective(op, axis, self.axis_size(axis), payload)
+            n = self.size if axis == "world" else self.axis_size(axis)
+            pricer.stack[-1].add_collective(op, axis, n, payload)
 
     def ring_shift(self, tensors, axis: str):
         for t in tensors:
@@ -477,17 +521,74 @@ class RecordingMesh:
         self._record("all_gather", axis, _nbytes(t))
         return torch.cat([t] * self.axis_size(axis), dim=dim)
 
+    def broadcast(self, t):
+        """Rank 0's tensor on every rank (``Mesh.broadcast``), over the
+        whole world."""
+        self._record("broadcast", "world", _nbytes(t))
+        return t
+
+    def broadcast_object(self, obj=None):
+        """Rank 0's object on every rank (``Mesh.broadcast_object``): its
+        pickled bytes, which is what the world moves."""
+        import pickle
+
+        self._record("broadcast_object", "world", len(pickle.dumps(obj)))
+        return obj
+
 
 # -------------------------------------------------------------- registry ----
 
 
 @dataclass
+class Call:
+    """One dispatch made: ``fn(*args, **kwargs)`` on meta operands, and the
+    KV cache it writes in place (None for a call that writes none)."""
+
+    fn: Callable
+    args: tuple
+    kwargs: dict
+    cache: object = None
+
+    def __call__(self):
+        return self.fn(*self.args, **self.kwargs)
+
+
+@dataclass
+class Dispatch:
+    """One declared dispatch signature: its label and ``make(base=None)``,
+    which builds its :class:`Call` on meta operands (on ``base``, the
+    entry's ``setup()``, when given; else on a fresh one)."""
+
+    label: str
+    make: Callable[..., Call]
+
+
+@dataclass
 class PerfEntry:
-    """One priced entry point: ``signatures`` maps a label to a thunk that
-    builds its meta operands and runs the entry point once."""
+    """One registered entry point.  ``axes`` is the matrix of signatures the
+    scheduler can produce and ``build(**values)`` one of them (None for a
+    combination that cannot occur); ``representatives`` are the ones walked.
+    ``signatures`` maps a representative's label to a thunk that builds its
+    meta operands and runs it once: what the perf plane prices (given
+    directly for an entry with no matrix).  The trace and shard planes read
+    the same entries (``analysis/tracecheck.py``)."""
 
     name: str
-    signatures: dict[str, Callable[[], object]]
+    signatures: dict[str, Callable[[], object]] = field(default_factory=dict)
+    axes: dict[str, list] = field(default_factory=dict)
+    build: Optional[Callable[..., Optional[Dispatch]]] = None
+    representatives: list[dict] = field(default_factory=list)
+    setup: Optional[Callable[[], object]] = None
+    # TR006's floor: a cast below this many elements is not counted
+    upcast_min_elems: int = 0
+    # the forward whose footprint TR007 holds against the card's memory
+    footprint: bool = False
+
+    def __post_init__(self):
+        if self.build is not None and not self.signatures:
+            for values in self.representatives:
+                d = self.build(**values)
+                self.signatures[d.label] = lambda d=d: d.make()()
 
 
 def _pow2s_upto(n: int) -> list[int]:
@@ -542,6 +643,16 @@ def llama3_8b_config(num_layers: int = 32):
                        max_position_embeddings=8192, rope_theta=500000.0, dtype="bfloat16")
 
 
+def tiny_deepseek_config():
+    """The JAX trace, perf and shard planes' tiny absorbed-MLA DeepSeek."""
+    from dynamo_tpu_torch.models.deepseek import DeepseekConfig
+
+    return DeepseekConfig(vocab_size=64, hidden_size=32, num_layers=2, num_heads=2,
+                          qk_nope_head_dim=8, qk_rope_head_dim=4, v_head_dim=8, kv_lora_rank=16,
+                          intermediate_size=64, moe_intermediate_size=32, n_routed_experts=4,
+                          num_experts_per_tok=2, first_k_dense_replace=1, dtype="bfloat16")
+
+
 def _llama(cfg):
     from dynamo_tpu_torch.models.llama import LlamaModel
 
@@ -554,144 +665,220 @@ def _sampling(rows: int) -> tuple:
 
 def _engine_entries(tag: str, model_cfg, cfg) -> list[PerfEntry]:
     """The step functions of ``engine/core.py::STEP_FNS`` (and the draft
-    proposer) under one (model, engine) config, by JAX's entry names and
-    signature labels, at the JAX registry's representative signatures."""
+    proposer) under one (model, engine) config, by JAX's entry names, axes
+    and signature labels (its tracecheck.py ``_engine_entrypoints``), the
+    JAX registry's representatives walked."""
     from dynamo_tpu_torch.engine import core as ec
 
     m, b, bs = cfg.max_blocks_per_seq, cfg.max_batch_size, cfg.block_size
     pb_axis = [0] + _pow2s_upto(m)
     cache_dtype = cfg.cache_dtype or model_cfg.dtype
+    hidden = model_cfg.hidden_size
 
     def setup():
         model = _llama(model_cfg)
         return model, model.init_kv_cache(cfg.num_blocks, bs, cache_dtype)
 
-    def step(s, pb):
-        model, cache = setup()
-        ec.unified_step(model, cache, _i32(1, s), _i32(1, s), _i32(1, m), _i32(1), _i32(1, s), _i32(1),
-                        *_sampling(1), prefix_blocks=pb)
+    def entry(name, axes, build, reps):
+        return PerfEntry(f"{name}[{tag}]", axes=axes, build=build, representatives=reps,
+                         setup=setup, upcast_min_elems=hidden)
 
-    entries = [PerfEntry(f"engine.step[{tag}]", {
-        f"s={cfg.prefill_buckets[-1]},pb=0": lambda: step(cfg.prefill_buckets[-1], 0),
-        f"s={cfg.prefill_buckets[0]},pb={pb_axis[-1]}": lambda: step(cfg.prefill_buckets[0], pb_axis[-1]),
-    })]
+    def step(s_bucket, prefix_blocks):
+        def make(base=None):
+            model, cache = base or setup()
+            s = s_bucket
+            return Call(ec.unified_step, (model, cache, _i32(1, s), _i32(1, s), _i32(1, m), _i32(1),
+                                          _i32(1, s), _i32(1), *_sampling(1)),
+                        dict(prefix_blocks=prefix_blocks), cache)
+        return Dispatch(f"s={s_bucket},pb={prefix_blocks}", make)
 
-    k_burst = sorted({cfg.interactive_decode_steps, max(1, cfg.decode_steps)})[-1]
+    buckets = list(cfg.prefill_buckets)
+    entries = [entry("engine.step", {"s_bucket": buckets, "prefix_blocks": pb_axis}, step,
+                     [dict(s_bucket=buckets[-1], prefix_blocks=0),
+                      dict(s_bucket=buckets[0], prefix_blocks=pb_axis[-1])])]
 
-    def multi():
-        model, cache = setup()
-        ec.multi_decode_step(model, cache, _i32(b), _i32(b), _i32(b, m), _i32(b), _i32(b), *_sampling(b),
-                             num_steps=k_burst, block_size=bs)
+    # the burst lengths the default path dispatches: the interactive and the full burst
+    bursts = sorted({cfg.interactive_decode_steps, max(1, cfg.decode_steps)})
 
-    entries.append(PerfEntry(f"engine.decode_multi[{tag}]", {f"k={k_burst}": multi}))
+    def multi(num_steps):
+        def make(base=None):
+            model, cache = base or setup()
+            return Call(ec.multi_decode_step, (model, cache, _i32(b), _i32(b), _i32(b, m), _i32(b),
+                                               _i32(b), *_sampling(b)),
+                        dict(num_steps=num_steps, block_size=bs), cache)
+        return Dispatch(f"k={num_steps}", make)
+
+    entries.append(entry("engine.decode_multi", {"num_steps": bursts}, multi,
+                         [dict(num_steps=bursts[-1])]))
 
     if cfg.spec_tokens > 0:
         s = cfg.spec_tokens + 1
-        m_used = _pow2s_upto(m)[-1]
 
-        def spec():
-            model, cache = setup()
-            ec.spec_verify_step(model, cache, _i32(b, s), _i32(b, s), _i32(b, m_used), _i32(b),
-                                _i32(b, s), *_sampling(b))
+        def spec(m_used):
+            def make(base=None):
+                model, cache = base or setup()
+                return Call(ec.spec_verify_step, (model, cache, _i32(b, s), _i32(b, s),
+                                                  _i32(b, m_used), _i32(b), _i32(b, s),
+                                                  *_sampling(b)), {}, cache)
+            return Dispatch(f"m_used={m_used}", make)
 
-        entries.append(PerfEntry(f"engine.spec_verify[{tag}]", {f"m_used={m_used}": spec}))
+        entries.append(entry("engine.spec_verify", {"m_used": _pow2s_upto(m)}, spec,
+                             [dict(m_used=_pow2s_upto(m)[-1])]))
 
+    r_all = _pow2s_upto(1 << max(0, (b - 1).bit_length()))
     if cfg.prefill_token_budget > 0:
-        t = [x for x in cfg.prefill_buckets if x <= cfg.bucket_for(cfg.prefill_token_budget)][-1]
-        r = _pow2s_upto(1 << max(0, (b - 1).bit_length()))[-1]
+        t_axis = [x for x in cfg.prefill_buckets if x <= cfg.bucket_for(cfg.prefill_token_budget)]
 
-        def ragged_args():
-            return (_i32(1, t), _i32(1, t), _i32(r, m), _i32(r), _i32(1, t), _i32(1, t), _i32(r),
-                    _i32(r), _i32(r))
+        def ragged(t_bucket, r_pad, prefix_blocks):
+            # pow2ceil(r_real) == r_pad needs r_real > r_pad/2 rows, each at
+            # least one block wide on the flat axis
+            min_rows = r_pad // 2 + 1 if r_pad > 1 else 1
+            if min_rows * bs > t_bucket:
+                return None
+            t, r = t_bucket, r_pad
 
-        def ragged():
-            model, cache = setup()
-            ec.ragged_prefill_step(model, cache, *ragged_args(), *_sampling(r), prefix_blocks=0)
+            def make(base=None):
+                model, cache = base or setup()
+                return Call(ec.ragged_prefill_step,
+                            (model, cache, _i32(1, t), _i32(1, t), _i32(r, m), _i32(r), _i32(1, t),
+                             _i32(1, t), _i32(r), _i32(r), _i32(r), *_sampling(r)),
+                            dict(prefix_blocks=prefix_blocks), cache)
+            return Dispatch(f"t={t},r={r},pb={prefix_blocks}", make)
 
-        entries.append(PerfEntry(f"engine.prefill_ragged[{tag}]", {f"t={t},r={r},pb=0": ragged}))
+        entries.append(entry("engine.prefill_ragged",
+                             {"t_bucket": t_axis, "r_pad": r_all, "prefix_blocks": pb_axis}, ragged,
+                             [dict(t_bucket=t_axis[-1], r_pad=r_all[-1], prefix_blocks=0)]))
 
         if cfg.unified_token_dispatch or cfg.lookahead_dispatch:
+            # engine _run_unified's flat-axis math: a static decode region
+            # leads the axis, prefill spans pack the remainder
             d_region = -(-b // bs) * bs
             pf = min(max(bs, cfg.prefill_token_budget - d_region), cfg.max_model_len - d_region)
-            tu = [x for x in cfg.prefill_buckets
-                  if cfg.bucket_for(d_region + bs) <= x <= cfg.bucket_for(d_region + pf)][-1]
-            ru = [x for x in _pow2s_upto(1 << max(0, (b - 1).bit_length())) if x >= 2][-1]
+            tu_axis = [x for x in cfg.prefill_buckets
+                       if cfg.bucket_for(d_region + bs) <= x <= cfg.bucket_for(d_region + pf)]
+            ru_axis = [x for x in r_all if x >= 2]  # a mixed dispatch has >= 2 rows
 
-            def unified_args():
-                return (_i32(1, tu), _i32(1, tu), _i32(ru, m), _i32(ru), _i32(1, tu), _i32(1, tu),
-                        _i32(ru), _i32(ru), _i32(ru))
+            def mixed(t_bucket, r_pad):
+                # pow2ceil(r_real) == r_pad needs more rows than the slots
+                # can supply, or no block-wide span fits past the region
+                min_rows = r_pad // 2 + 1 if r_pad > 1 else 1
+                return min_rows <= b and (t_bucket - d_region) // bs >= 1
 
-            def unified():
-                model, cache = setup()
-                ec.unified_token_step(model, cache, *unified_args(), *_sampling(ru),
-                                      row_tokens=d_region, prefix_blocks=0)
+            def unified(t_bucket, r_pad, prefix_blocks):
+                if not mixed(t_bucket, r_pad):
+                    return None
+                t, r = t_bucket, r_pad
 
-            entries.append(PerfEntry(f"engine.unified[{tag}]", {f"t={tu},r={ru},pb=0": unified}))
+                def make(base=None):
+                    model, cache = base or setup()
+                    return Call(ec.unified_token_step,
+                                (model, cache, _i32(1, t), _i32(1, t), _i32(r, m), _i32(r),
+                                 _i32(1, t), _i32(1, t), _i32(r), _i32(r), _i32(r), *_sampling(r)),
+                                dict(row_tokens=d_region, prefix_blocks=prefix_blocks), cache)
+                return Dispatch(f"t={t},r={r},pb={prefix_blocks}", make)
+
+            axes = {"t_bucket": tu_axis, "r_pad": ru_axis, "prefix_blocks": pb_axis}
+            entries.append(entry("engine.unified", axes, unified,
+                                 [dict(t_bucket=tu_axis[-1], r_pad=ru_axis[-1], prefix_blocks=0)]))
 
             if cfg.lookahead_dispatch and cfg.interactive_decode_steps >= 2:
+                # the fused burst: the unified step's axes, the per-row limits
+                # operand and one burst depth (the interactive burst length,
+                # the only depth _run_unified dispatches)
                 kb = cfg.interactive_decode_steps
 
-                def burst():
-                    model, cache = setup()
-                    ec.unified_burst_step(model, cache, *unified_args(), _i32(ru), *_sampling(ru),
-                                          num_steps=kb, block_size=bs, row_tokens=d_region,
-                                          prefix_blocks=0)
+                def burst(t_bucket, r_pad, prefix_blocks, num_steps):
+                    if not mixed(t_bucket, r_pad):
+                        return None
+                    t, r = t_bucket, r_pad
 
-                entries.append(PerfEntry(f"engine.unified_burst[{tag}]",
-                                         {f"t={tu},r={ru},pb=0,k={kb}": burst}))
+                    def make(base=None):
+                        model, cache = base or setup()
+                        return Call(ec.unified_burst_step,
+                                    (model, cache, _i32(1, t), _i32(1, t), _i32(r, m), _i32(r),
+                                     _i32(1, t), _i32(1, t), _i32(r), _i32(r), _i32(r), _i32(r),
+                                     *_sampling(r)),
+                                    dict(num_steps=num_steps, block_size=bs, row_tokens=d_region,
+                                         prefix_blocks=prefix_blocks), cache)
+                    return Dispatch(f"t={t},r={r},pb={prefix_blocks},k={num_steps}", make)
+
+                entries.append(entry("engine.unified_burst", dict(axes, num_steps=[kb]), burst,
+                                     [dict(t_bucket=tu_axis[-1], r_pad=ru_axis[-1],
+                                           prefix_blocks=0, num_steps=kb)]))
 
     if cfg.spec_tokens > 0:
-        m_used = _pow2s_upto(m)[-1]
-        u, k = 4, cfg.spec_tokens
-
-        def draft():
-            import torch
-
+        def draft_setup():
             from dynamo_tpu_torch.engine.draft import DraftProposer
 
-            proposer = DraftProposer(_llama(model_cfg), cfg)
-            proposer._impl(_i32(b, u), _i32(b, u), _i32(b, m_used), _i32(b), _i32(b, u), _i32(b),
-                           torch.zeros(b, dtype=torch.bool, device=META), k)
+            return DraftProposer(_llama(model_cfg), cfg)
 
-        entries.append(PerfEntry(f"engine.draft_propose[{tag}]", {f"u={u},m={m_used},k={k}": draft}))
+        def draft(u, m_used, k):
+            def make(base=None):
+                import torch
+
+                proposer = base or draft_setup()
+                return Call(proposer._impl, (_i32(b, u), _i32(b, u), _i32(b, m_used), _i32(b),
+                                             _i32(b, u), _i32(b),
+                                             torch.zeros(b, dtype=torch.bool, device=META), k),
+                            {}, proposer.cache)
+            return Dispatch(f"u={u},m={m_used},k={k}", make)
+
+        entries.append(PerfEntry(
+            f"engine.draft_propose[{tag}]",
+            axes={"u": _pow2s_upto(16), "m_used": _pow2s_upto(m), "k": sorted({1, cfg.spec_tokens})},
+            build=draft, representatives=[dict(u=4, m_used=_pow2s_upto(m)[-1], k=cfg.spec_tokens)],
+            setup=draft_setup, upcast_min_elems=hidden))
     return entries
 
 
 def _llama_forward_entry(tag: str, model_cfg, *, num_blocks: int, block_size: int, batch: int,
-                         max_model_len: int, prefill_tokens: int) -> PerfEntry:
+                         max_model_len: int, prefill_tokens: int,
+                         footprint: bool = False) -> PerfEntry:
     """The model forward, decode ([batch, 1]) and prefill ([1,
     prefill_tokens] from 0)."""
     m = -(-max_model_len // block_size)
 
-    def run(b, s, prefix_blocks):
+    def setup():
         model = _llama(model_cfg)
-        cache = model.init_kv_cache(num_blocks, block_size)
-        model.forward(_i32(b, s), _i32(b, s), cache, _i32(b, m), _i32(b), _i32(b, s),
-                      prefix_blocks=prefix_blocks)
+        return model, model.init_kv_cache(num_blocks, block_size)
 
-    return PerfEntry(f"models.llama.forward[{tag}]", {
-        "decode": lambda: run(batch, 1, None),
-        "prefill": lambda: run(1, prefill_tokens, 0),
-    })
+    def build(phase):
+        b, s, pb = (batch, 1, None) if phase == "decode" else (1, prefill_tokens, 0)
+
+        def make(base=None):
+            model, cache = base or setup()
+            return Call(model.forward, (_i32(b, s), _i32(b, s), cache, _i32(b, m), _i32(b),
+                                        _i32(b, s)), dict(prefix_blocks=pb), cache)
+        return Dispatch(phase, make)
+
+    return PerfEntry(f"models.llama.forward[{tag}]", axes={"phase": ["decode", "prefill"]},
+                     build=build, representatives=[dict(phase="decode"), dict(phase="prefill")],
+                     setup=setup, upcast_min_elems=model_cfg.hidden_size, footprint=footprint)
 
 
 def _deepseek_forward_entry() -> PerfEntry:
     """The JAX registry's tiny absorbed-MLA DeepSeek forward."""
-    from dynamo_tpu_torch.models.deepseek import DeepseekConfig, DeepseekModel
+    from dynamo_tpu_torch.models.deepseek import DeepseekModel
 
-    cfg = DeepseekConfig(vocab_size=64, hidden_size=32, num_layers=2, num_heads=2,
-                         qk_nope_head_dim=8, qk_rope_head_dim=4, v_head_dim=8, kv_lora_rank=16,
-                         intermediate_size=64, moe_intermediate_size=32, n_routed_experts=4,
-                         num_experts_per_tok=2, first_k_dense_replace=1, dtype="bfloat16")
+    cfg = tiny_deepseek_config()
     m, b = 8, 2
 
-    def run(bb, s):
+    def setup():
         model = DeepseekModel(cfg, device=META)
-        cache = model.init_kv_cache(16, 8)
-        model.forward(_i32(bb, s), _i32(bb, s), cache, _i32(bb, m), _i32(bb), _i32(bb, s))
+        return model, model.init_kv_cache(16, 8)
 
-    return PerfEntry("models.deepseek.forward[tiny-mla]", {
-        "decode": lambda: run(b, 1), "prefill": lambda: run(1, 16)})
+    def build(phase):
+        bb, s = (b, 1) if phase == "decode" else (1, 16)
+
+        def make(base=None):
+            model, cache = base or setup()
+            return Call(model.forward, (_i32(bb, s), _i32(bb, s), cache, _i32(bb, m), _i32(bb),
+                                        _i32(bb, s)), {}, cache)
+        return Dispatch(phase, make)
+
+    return PerfEntry("models.deepseek.forward[tiny-mla]", axes={"phase": ["decode", "prefill"]},
+                     build=build, representatives=[dict(phase="decode"), dict(phase="prefill")],
+                     setup=setup, upcast_min_elems=cfg.hidden_size)
 
 
 def _ops_entries(model_cfg, cfg) -> list[PerfEntry]:
@@ -710,20 +897,34 @@ def _ops_entries(model_cfg, cfg) -> list[PerfEntry]:
     def bf16(*shape):
         return torch.zeros(shape, dtype=torch.bfloat16, device=META)
 
-    def decode(s=1):
-        pa.paged_attention_layer(bf16(b, s, h, d), cache(), 0, _i32(b, m), _i32(b), _i32(b, s))
+    def decode(s):
+        def make(base=None):
+            return Call(pa.paged_attention_layer, (bf16(b, s, h, d), cache() if base is None else base, 0,
+                                                   _i32(b, m), _i32(b), _i32(b, s)), {})
+        return Dispatch(f"s={s}", make)
 
-    def ragged(t=64, r=2):
-        pa.ragged_prefill_attention(bf16(1, t, h, d), bf16(1, t, hk, d), bf16(1, t, hk, d), cache(), 0,
-                                    _i32(r, m), _i32(r), _i32(r), _i32(r), _i32(1, t), 2)
+    def ragged(t, r):
+        def make(base=None):
+            return Call(pa.ragged_prefill_attention,
+                        (bf16(1, t, h, d), bf16(1, t, hk, d), bf16(1, t, hk, d), cache() if base is None else base, 0,
+                         _i32(r, m), _i32(r), _i32(r), _i32(r), _i32(1, t), 2), {})
+        return Dispatch(f"t={t},r={r}", make)
 
-    def scatter(n=4):
-        blocks = bf16(model_cfg.num_layers, n, 2, cfg.block_size, hk * d)
-        block_copy.scatter_blocks_inplace(cache(), _i32(n), blocks)
+    def scatter(n):
+        def make(base=None):
+            blocks = bf16(model_cfg.num_layers, n, 2, cfg.block_size, hk * d)
+            c = cache() if base is None else base
+            return Call(block_copy.scatter_blocks_inplace, (c, _i32(n), blocks), {}, c)
+        return Dispatch(f"n={n}", make)
 
-    return [PerfEntry("ops.paged_attention_layer[tiny-llama]", {"s=1": decode}),
-            PerfEntry("ops.ragged_prefill_attention[tiny-llama]", {"t=64,r=2": ragged}),
-            PerfEntry("ops.scatter_blocks_inplace[tiny-llama]", {"n=4": scatter})]
+    # the multi-query verify's S = 3 beside the decode step's S = 1
+    return [PerfEntry("ops.paged_attention_layer[tiny-llama]", axes={"s": [1, 3]}, build=decode,
+                      representatives=[dict(s=1)], setup=cache, upcast_min_elems=hk * d),
+            PerfEntry("ops.ragged_prefill_attention[tiny-llama]", axes={"t": [32, 64], "r": [2]},
+                      build=ragged, representatives=[dict(t=64, r=2)], setup=cache,
+                      upcast_min_elems=hk * d),
+            PerfEntry("ops.scatter_blocks_inplace[tiny-llama]", axes={"n": _pow2s_upto(8)},
+                      build=scatter, representatives=[dict(n=4)], setup=cache)]
 
 
 def _ring_attention_entry(axis_size: int = 4) -> PerfEntry:
@@ -735,16 +936,21 @@ def _ring_attention_entry(axis_size: int = 4) -> PerfEntry:
     from dynamo_tpu_torch.ops.ring_attention import ring_attention_inner
     from dynamo_tpu_torch.utils.mesh import AXIS_SP
 
-    h, hk, d, s = 4, 2, 8, 128
-    c = s // axis_size
+    h, hk, d = 4, 2, 8
 
-    def run():
-        bf16 = dict(dtype=torch.bfloat16, device=META)
-        mesh = RecordingMesh((AXIS_SP,), (axis_size,))
-        ring_attention_inner(torch.zeros((1, c, h, d), **bf16), torch.zeros((1, c, hk, d), **bf16),
-                             torch.zeros((1, c, hk, d), **bf16), _i32(1, c), _i32(1, c), mesh, AXIS_SP)
+    def build(s):
+        c = s // axis_size
 
-    return PerfEntry(f"ops.ring_attention[sp{axis_size}]", {f"s={s}": run})
+        def make(base=None):
+            bf16 = dict(dtype=torch.bfloat16, device=META)
+            mesh = RecordingMesh((AXIS_SP,), (axis_size,))
+            return Call(ring_attention_inner, (
+                torch.zeros((1, c, h, d), **bf16), torch.zeros((1, c, hk, d), **bf16),
+                torch.zeros((1, c, hk, d), **bf16), _i32(1, c), _i32(1, c), mesh, AXIS_SP), {})
+        return Dispatch(f"s={s}", make)
+
+    return PerfEntry(f"ops.ring_attention[sp{axis_size}]", axes={"s": [128]}, build=build,
+                     representatives=[dict(s=128)], upcast_min_elems=hk * d)
 
 
 def _mlp_reference_entry() -> PerfEntry:
@@ -753,16 +959,19 @@ def _mlp_reference_entry() -> PerfEntry:
     in the manifest."""
     import torch
 
-    hidden, inter, tokens = 4096, 14336, 8192
+    hidden, inter = 4096, 14336
 
-    def run():
-        bf16 = dict(dtype=torch.bfloat16, device=META)
-        x = torch.zeros((tokens, hidden), **bf16)
-        wg, wu = torch.zeros((hidden, inter), **bf16), torch.zeros((hidden, inter), **bf16)
-        wd = torch.zeros((inter, hidden), **bf16)
-        (torch.nn.functional.silu(x @ wg) * (x @ wu)) @ wd
+    def build(t):
+        def make(base=None):
+            bf16 = dict(dtype=torch.bfloat16, device=META)
+            x = torch.zeros((t, hidden), **bf16)
+            wg, wu = torch.zeros((hidden, inter), **bf16), torch.zeros((hidden, inter), **bf16)
+            wd = torch.zeros((inter, hidden), **bf16)
+            return Call(lambda: (torch.nn.functional.silu(x @ wg) * (x @ wu)) @ wd, (), {})
+        return Dispatch(f"t={t}", make)
 
-    return PerfEntry("roofline.mlp_reference[llama3-8b-h100]", {f"t={tokens}": run})
+    return PerfEntry("roofline.mlp_reference[llama3-8b-h100]", axes={"t": [8192]}, build=build,
+                     representatives=[dict(t=8192)], upcast_min_elems=hidden)
 
 
 # the serving shapes of the full-width forward: chip_smoke.py's default
@@ -773,10 +982,12 @@ LLAMA3_8B_SHAPES = dict(num_blocks=1024, block_size=16, batch=8, max_model_len=2
 
 
 def build_perf_registry() -> list[PerfEntry]:
-    """JAX's perf registry under the port's names: the step functions at
-    the tiny configs, the model forwards (Llama-3-8B, the port's serving
-    model, in place of JAX's llama3b-v5e), the serving ops, ring attention
-    over a 4-rank axis and the MLP reference."""
+    """The one registry of entry points, which the perf, trace and shard
+    planes read: JAX's 17 trace entries under the port's names (the step
+    functions at the tiny configs, the model forwards with Llama-3-8B, the
+    port's serving model, in place of JAX's llama3b-v5e, the serving ops),
+    and JAX's two perf extras (ring attention over a 4-rank axis, the MLP
+    reference)."""
     tiny = tiny_model_config()
     entries = _engine_entries("tiny-llama", tiny, tiny_engine_config(
         decode_steps=16, spec_tokens=2, prefill_token_budget=64, lookahead_dispatch=True))
@@ -785,7 +996,8 @@ def build_perf_registry() -> list[PerfEntry]:
     entries.append(_llama_forward_entry("tiny-llama", tiny, num_blocks=64, block_size=8, batch=4,
                                         max_model_len=128, prefill_tokens=128))
     entries.append(_deepseek_forward_entry())
-    entries.append(_llama_forward_entry("llama3-8b-h100", llama3_8b_config(), **LLAMA3_8B_SHAPES))
+    entries.append(_llama_forward_entry("llama3-8b-h100", llama3_8b_config(), **LLAMA3_8B_SHAPES,
+                                        footprint=True))
     entries += _ops_entries(tiny, tiny_engine_config())
     entries.append(_ring_attention_entry())
     entries.append(_mlp_reference_entry())

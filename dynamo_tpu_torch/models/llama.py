@@ -337,10 +337,17 @@ class LlamaModel(nn.Module):
     def cache_spec(self, quant: bool = False):
         """The cache's split over "model": the trailing axis is
         kv-head-major, so splitting it gives each rank whole kv heads
-        (:func:`kv_head_range` says which); the int8 scale pool splits its
-        head axis with them."""
+        (:func:`kv_head_range` says which).  The int8 scale pool splits its
+        head axis with them only when Hk is tile-exact (Hk % 8 == 0, so the
+        padded head axis holds real heads only), as the JAX package's spec
+        does; otherwise every rank re-pads its own heads' scales to a whole
+        (8, Sp) tile (``ops/kv_quant.py::scale_tile``), the pool's bytes on
+        every rank: replicated."""
         data = (None, None, None, None, _TP)
-        return QuantKvCache(data, (None, None, None, _TP, None)) if quant else data
+        if not quant:
+            return data
+        head = _TP if self.config.num_kv_heads % 8 == 0 else None
+        return QuantKvCache(data, (None, None, None, head, None))
 
     def kv_heads(self, rank: Optional[int] = None) -> tuple[int, int]:
         """(first, count) of the kv heads the cache of model rank ``rank``

@@ -7,8 +7,9 @@ together; over the port's package the two planes find the same things
 (the JAX plane with ``--select DT001..DT009``).  Then the gate: the port's
 ``lint`` and ``lint --project`` find nothing outside the port's committed
 ``analysis/baseline.json``, and every entry there is justified and live.
-Last, noqa, the baseline round trip, the JSON output, ``--select`` of a
-JAX-only rule (exit 2) and the command's exit codes.
+Last, noqa, the baseline round trip, the JSON output, ``--select`` of an
+unknown rule (exit 2) and the command's exit codes.  The port's own
+DT101-DT105 (``rules_torch.py``) are held in ``test_torch_rules_torch.py``.
 """
 
 import argparse
@@ -32,13 +33,14 @@ from dynamo_tpu_torch.analysis import (
     project_rules,
 )
 from dynamo_tpu_torch.analysis import core
-from dynamo_tpu_torch.analysis.cli import run_lint
+from dynamo_tpu_torch.analysis.cli import configure_parser, run_lint
 
 PKG = Path(dynamo_tpu_torch.__file__).resolve().parent
 ROOT = PKG.parent
 FIXTURES = Path(__file__).parent / "lint_fixtures"
 FILE_RULES = ["DT001", "DT002", "DT003", "DT004"]
 PROJECT_RULES = ["DT005", "DT006", "DT007", "DT008", "DT009"]
+TORCH_RULES = ["DT101", "DT102", "DT103", "DT104", "DT105"]
 
 
 def _jax_findings(paths):
@@ -50,7 +52,9 @@ def _jax_findings(paths):
 
 
 def _port_findings(paths):
-    found = lint_paths(paths, all_rules(), root=ROOT) + lint_project(paths, root=ROOT)
+    """The port's per-file + project findings of the rules JAX's plane
+    shares (the port's DT101-DT105 read PyTorch, JAX's read JAX)."""
+    found = lint_paths(paths, all_rules(FILE_RULES), root=ROOT) + lint_project(paths, root=ROOT)
     return [f.to_json() for f in sorted(found)]
 
 
@@ -75,14 +79,16 @@ def test_fixture_findings_match_jax(code, kind):
 
 def test_rule_registries():
     """DT001-DT004 per file and DT005-DT009 over the project: the JAX
-    rules' codes, summaries and names; none of the JAX-only DT1xx rules."""
-    ours = {r.code: (r.name, r.summary) for r in all_rules()}
+    rules' codes, summaries and names.  DT101-DT105 are the port's own
+    reading of JAX's codes (``rules_torch.py``), registered per file too."""
+    ours = {r.code: (r.name, r.summary) for r in all_rules(FILE_RULES)}
     ref = {r.code: (r.name, r.summary) for r in jax_core.all_rules(FILE_RULES)}
-    assert ours == ref and sorted(ours) == FILE_RULES
+    assert ours == ref
+    assert sorted(r.code for r in all_rules()) == FILE_RULES + TORCH_RULES
     ours = {r.code: (r.name, r.summary) for r in project_rules()}
     ref = {r.code: (r.name, r.summary) for r in jax_project.project_rules()}
     assert ours == ref and sorted(ours) == PROJECT_RULES
-    for code in ("DT101", "DT105"):
+    for code in ("DT106", "DT199"):
         with pytest.raises(ValueError, match="unknown rule"):
             all_rules([code])
 
@@ -92,7 +98,9 @@ def test_package_findings_match_jax():
     name-resolution false positive at ``runtime/pipeline.py`` included."""
     ours = _port_findings([PKG])
     assert ours == _jax_findings([PKG])
-    assert len(ours) == len(Baseline.load(DEFAULT_BASELINE_PATH).entries)
+    shared = [e for e in Baseline.load(DEFAULT_BASELINE_PATH).entries
+              if e["rule"] not in TORCH_RULES]
+    assert len(ours) == len(shared)
     assert {f["rule"] for f in ours} <= set(FILE_RULES + PROJECT_RULES)
 
 
@@ -223,7 +231,8 @@ def test_json_output_is_stable_and_equal_to_jax():
     for _ in range(2):
         out = io.StringIO()
         assert run_lint(_args(paths=[str(FIXTURES)], fmt="json", no_baseline=True,
-                              project=True, root=str(ROOT)), out=out) == 1
+                              project=True, root=str(ROOT),
+                              select=",".join(FILE_RULES + PROJECT_RULES)), out=out) == 1
         outs.append(out.getvalue())
     assert outs[0] == outs[1]
     doc = json.loads(outs[0])
@@ -251,10 +260,10 @@ def test_select_routes_project_codes():
 
 def test_lint_command_exit_codes(capsys):
     """``python -m <the port> lint``: 0 bare and with ``--project`` against
-    the committed baseline, 1 on a fresh finding, 2 for a JAX-only rule
-    (``--select DT101``) or a plane that is not a port target."""
-    for flags, summary in (([], "0 findings (6 baselined)"),
-                           (["--project"], "0 findings (23 baselined)")):
+    the committed baseline, 1 on a fresh finding, 2 for an unknown rule.
+    ``--select DT101`` is a port rule now, and no plane flag is refused."""
+    for flags, summary in (([], "0 findings (8 baselined)"),
+                           (["--project"], "0 findings (25 baselined)")):
         with pytest.raises(SystemExit) as e:
             port_cli.main(["lint", *flags])
         assert e.value.code == 0
@@ -263,13 +272,13 @@ def test_lint_command_exit_codes(capsys):
         port_cli.main(["lint", "--no-baseline", str(FIXTURES / "dt003_bad.py")])
     assert e.value.code == 1
     assert "DT003" in capsys.readouterr().out
-    for flags, words in ((["--select", "DT101"], "unknown rule"),
-                         (["--shard"], "sharding plane"),
-                         (["--all"], "not port targets")):
-        with pytest.raises(SystemExit) as e:
-            port_cli.main(["lint", *flags])
-        assert e.value.code == 2
-        assert words in capsys.readouterr().err
+    with pytest.raises(SystemExit) as e:
+        port_cli.main(["lint", "--select", "DT199"])
+    assert e.value.code == 2
+    assert "unknown rule" in capsys.readouterr().err
+    help_text = configure_parser(argparse.ArgumentParser()).format_help()
+    for flag in ("--trace", "--shard", "--all"):
+        assert flag in help_text
 
 
 def test_syntax_error_is_a_finding(tmp_path):

@@ -282,24 +282,35 @@ LOOKAHEAD = dict(BASE, prefill_token_budget=32, unified_token_dispatch=True,
                  lookahead_dispatch=True, decode_steps=4, interactive_decode_steps=3)
 
 
-@pytest.mark.parametrize("cache_dtype", [None, "int8"], ids=["f32", "int8"])
-def test_lookahead_bursts_at_tp2_match_jax(world, dense, cache_dtype):
+@pytest.fixture(scope="module", params=[None, "int8"], ids=["f32", "int8"])
+def lookahead_ref(request, dense):
+    """(cache dtype, JAX's streams, JAX's lookahead burst count) of the
+    lookahead workload, computed once per cache dtype.  The JAX side's
+    compiles are nearly all of its cost (~10 s cold on a CPU against the port's
+    ~0.5 s serve), and under a loaded parallel run they pushed the test's
+    call past the per-test guard."""
+    cfg = dict(LOOKAHEAD, cache_dtype=request.param)
+    jcore = _jax_core(dense, **cfg)
+    ref = _serve(jcore, True, _specs(seeded=True), stagger=2)
+    jcore.close()
+    return request.param, ref, jcore.metrics()["lookahead_bursts_total"]
+
+
+def test_lookahead_bursts_at_tp2_match_jax(world, dense, lookahead_ref):
     """Fused unified bursts broadcast to the follower, turn 0's tokens
     broadcast back into the later turns; a seeded row rides along.  The
     int8 cache's bursts write each rank's own scale tiles."""
+    cache_dtype, ref, jax_bursts = lookahead_ref
     cfg = dict(LOOKAHEAD, cache_dtype=cache_dtype)
     model = _sharded(world, dense)
     core = _port_core(model, **cfg)
     out, replayed = _replayed(world, model,
                               lambda: _serve(core, False, _specs(seeded=True), stagger=2))
     core.close()
-    jcore = _jax_core(dense, **cfg)
-    ref = _serve(jcore, True, _specs(seeded=True), stagger=2)
-    jcore.close()
     assert out == ref
     m = core.metrics()
     assert m["lookahead_bursts_total"] > 0
-    assert m["lookahead_bursts_total"] == jcore.metrics()["lookahead_bursts_total"]
+    assert m["lookahead_bursts_total"] == jax_bursts
     assert replayed == core.steps
 
 

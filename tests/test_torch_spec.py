@@ -520,32 +520,45 @@ def test_draft_model_with_int8_caches_still_exact(tiny, samp):
 
 
 # ---------------------------------------------------------- beyond JAX's ----
-def test_deepseek_v2_spec_matches_jax():
-    """A tiny DeepSeek-V2 (MLA over the absorbed latent cache, MoE) with
-    speculation on: the JAX engine's streams and counters, and the port's
-    own streams with speculation off."""
+DS_SPEC = dict(max_batch_size=4, max_model_len=128, block_size=16, num_blocks=32,
+               prefill_buckets=[32, 64, 128], decode_steps=4, spec_tokens=4)
+
+
+@pytest.fixture(scope="module")
+def deepseek_spec_jax():
+    """(port config, weights, requests, JAX's streams, JAX's counters) of the
+    DeepSeek-V2 speculation case, JAX's side run once for the module: its
+    compiles are most of the case's cost, and under a loaded parallel run
+    they pushed the test's call past the per-test guard."""
     jcfg, cfg = deepseek_configs()
     tree = _perturbed_tree(jcfg, 4)
-    model = _port(cfg, tree)
     rng = np.random.RandomState(5)
     seg = [int(v) for v in rng.randint(3, 96, size=6)]
     specs = [("rep", seg * 4, 12), ("rand", [int(v) for v in rng.randint(3, 96, size=19)], 10),
              ("late", seg * 2 + [9, 9], 12)]
-    kw = dict(max_batch_size=4, max_model_len=128, block_size=16, num_blocks=32,
-              prefill_buckets=[32, 64, 128], decode_steps=4, spec_tokens=4)
     jcore = JaxEngineCore(jds.DeepseekModel(jcfg), jax.tree.map(jnp.asarray, tree),
-                          JaxEngineConfig(**kw), eos_token_ids=[])
+                          JaxEngineConfig(**DS_SPEC), eos_token_ids=[])
     try:
         ref = _serve(jcore, JaxEngineRequest, jax_protocols, specs)
     finally:
         jcore.close()
+    return cfg, tree, specs, ref, _counters(jcore, COUNTERS)
+
+
+def test_deepseek_v2_spec_matches_jax(deepseek_spec_jax):
+    """A tiny DeepSeek-V2 (MLA over the absorbed latent cache, MoE) with
+    speculation on: the JAX engine's streams and counters, and the port's
+    own streams with speculation off."""
+    cfg, tree, specs, ref, jax_counters = deepseek_spec_jax
+    model = _port(cfg, tree)
+    kw = DS_SPEC
     core = EngineCore(model, EngineConfig(**kw), eos_token_ids=[], device="cpu")
     out = _serve(core, EngineRequest, protocols, specs)
     off = _serve(EngineCore(model, EngineConfig(**dict(kw, spec_tokens=0)), eos_token_ids=[],
                             device="cpu"), EngineRequest, protocols, specs)
     assert out == ref
     assert {rid: v[:2] for rid, v in out.items()} == {rid: v[:2] for rid, v in off.items()}
-    assert _counters(core, COUNTERS) == _counters(jcore, COUNTERS)
+    assert _counters(core, COUNTERS) == jax_counters
     assert core.spec_steps > 0
 
 
