@@ -359,6 +359,24 @@ Phases, in order; any failure ends the run with a non-zero exit:
    door, ``run in=http out=gpu --tp 2`` answers the front-door requests
    over HTTP and stops both ranks on SIGTERM.
 
+The fp16 bodies (each of B1–B5 in float16: q, the fresh K/V, a float
+cache, x and out) are checked after the bf16 kernels against their plain
+versions on the same NaN-poisoned pools and at the same tolerance
+(``fp16_kernel_phase``; the ``kern`` phase's fp16 cases too), timed at the
+same serving shapes beside SDPA and cuBLAS in fp16 (``timing_phase``,
+``q8_timing_phase``, ``matmul_timing`` and ``ragged_timing`` with ``dtype``
+float16), and served after the int8 model (``fp16_serving_phase``): the six
+requests on Llama-3-8B in float16 at full width and 32 layers on the
+default path, then at 8 layers on the token-budget path and with int8
+weights and cache on both paths, every fp16 body launched and no bf16 one;
+an fp32 model and an fp16 Qwen3-MoE refused at construction
+(``fp16_refusals``); a 2-layer fp16 card-vs-CPU parity; after the front
+door ``run --dtype float16``, a native fp16 checkpoint and ``run --dtype
+float32`` (which must exit with the refusal) over HTTP
+(``fp16_cli_phase``).  One ``{"fp16": ...}`` line holds the fp16 runs'
+TTFT, decode tok/s and launches beside the bf16 default run's, and the
+``kernels`` line a row for each fp16 body (``*_fp16``, ``dtype`` float16).
+
 The kernel timings also time E1 at one DeepSeek-V2-Lite MoE layer's
 launches (64 experts, top 6, [2048, 1408] and [1408, 2048]), and the MLA
 latent attention (the plain op) at B1's decode step and B2's prefill,
@@ -527,15 +545,21 @@ def concurrently(first, *others) -> None:
         f.result()
 
 
-# kernels whose every instantiation must be in the library: the paged
-# prefill kernel at three head dims over bf16 and int8 caches; the decode
-# kernel over each cache (its mangled name's first template argument:
-# __nv_bfloat16 for B1, `a`, signed char, for B4a) at D = 64 and 128 with
-# 4, 8 or 16 query rows and at D = 256 with 4 or 8; the grouped expert
-# kernel at 8, 32 and 128 rows a tile over bf16 and int8 experts
+# kernels whose every instantiation must be in the library: the paged and
+# ragged prefill kernels at three head dims over bf16, fp16 and int8 caches
+# under bf16 and fp16 activations; the decode kernel over each cache (its
+# mangled name's first template argument: __nv_bfloat16 for B1, __half for
+# its fp16 body, `a`, signed char, for B4a under either) at D = 64 and 128
+# with 4, 8 or 16 query rows and at D = 256 with 4 or 8; B5 in both regimes
+# (decode at 8 and 16 rows) for both layouts and copies, bf16 and fp16 x;
+# the grouped expert kernel at 8, 32 and 128 rows a tile over bf16 and int8
+# experts
 DECODE_BF16, DECODE_INT8 = "13decode_kernelI13__nv_bfloat16", "13decode_kernelIa"
+DECODE_F16 = "13decode_kernelI6__half"
 GROUPED = "grouped_wgmma_kernel"
-SASS_INSTANTIATIONS = {"wgmma_prefill_kernel": 6, DECODE_BF16: 8, DECODE_INT8: 8, GROUPED: 6}
+SASS_INSTANTIATIONS = {"wgmma_prefill_kernel": 12, "ragged_kernel": 12, "w8a16_wgmma_kernel": 8,
+                       "w8a16_decode_kernel": 16, DECODE_BF16: 8, DECODE_F16: 8, DECODE_INT8: 16,
+                       GROUPED: 6}
 # SASS of the instructions counted per kernel: the wgmma, the cp.async
 # copy, the TMA tile load and a 16-byte shared-memory store
 SASS_OPS = {"hgmma": "HGMMA", "ldgsts": "LDGSTS", "tma": "UTMALDG", "sts128": "STS.128"}
@@ -572,7 +596,8 @@ def sass_check(torch, lib_path) -> None:
         return m is None or m.group(1).endswith("Lb1")
 
     want = {"w8a16_wgmma_kernel": True, "wgmma_prefill_kernel": True, "ragged_kernel": True,
-            "w8a16_decode_kernel": False, DECODE_BF16: False, DECODE_INT8: False, GROUPED: True}
+            "w8a16_decode_kernel": False, DECODE_BF16: False, DECODE_F16: False, DECODE_INT8: False,
+            GROUPED: True}
     for key, needs_hgmma in want.items():
         found = {n: c for n, c in counts.items() if key in n}
         check(bool(found), f"sass: no {key} in the library")
@@ -596,11 +621,11 @@ def _live_slots(torch, n_blocks, tables, lens, bs):
     return live.cuda()
 
 
-def _poisoned_cache(torch, gen, n_blocks, tables, lens, hkd, bs=BS):
-    """A random bf16 cache [L, N, 2, Bs, Hk*D] whose every slot no row
-    owns below its length is NaN, in every layer."""
+def _poisoned_cache(torch, gen, n_blocks, tables, lens, hkd, bs=BS, dtype=None):
+    """A random bf16 (or ``dtype``) cache [L, N, 2, Bs, Hk*D] whose every
+    slot no row owns below its length is NaN, in every layer."""
     cache = torch.randn((L, n_blocks, 2, bs, hkd), generator=gen, device="cuda",
-                        dtype=torch.float32).to(torch.bfloat16)
+                        dtype=torch.float32).to(dtype or torch.bfloat16)
     live = _live_slots(torch, n_blocks, tables, lens, bs)
     cache.masked_fill_(~live[None, :, None, :, None], float("nan"))
     return cache
@@ -658,18 +683,27 @@ def compare(torch, what: str, out, ref) -> float:
     return diff.max().item()
 
 
-def _attention_cache(torch, gen, n_blocks, bt, live_lens, hk, d, bs, quant):
-    """The poisoned cache of a kernel check: bf16, or int8 (``quant``)."""
+def _attention_cache(torch, gen, n_blocks, bt, live_lens, hk, d, bs, quant, dtype=None):
+    """The poisoned cache of a kernel check: bf16 (or ``dtype``), or int8
+    (``quant``)."""
     if quant:
         return _q8_cache(torch, gen, n_blocks, hk, d, bs, bt.cpu(), live_lens)
-    return _poisoned_cache(torch, gen, n_blocks, bt.cpu(), live_lens, hk * d, bs)
+    return _poisoned_cache(torch, gen, n_blocks, bt.cpu(), live_lens, hk * d, bs, dtype)
 
 
-def decode_case(torch, gen, lens, s, logit_cap, geom=(H, HK, D), bs=BS, quant=False, live=None):
-    """B1 or B4a (``quant``) against its plain version over a poisoned pool;
-    ``live`` gives each row's live queries (S unless named: a verify row
-    with fewer proposals than k), the queries past them are padding at
-    q0 + j as the engine lays them out."""
+def _act(torch, dtype) -> tuple:
+    """(the activation dtype, bf16 unless named; its label prefix)."""
+    dtype = dtype or torch.bfloat16
+    return dtype, ("fp16 " if dtype == torch.float16 else "")
+
+
+def decode_case(torch, gen, lens, s, logit_cap, geom=(H, HK, D), bs=BS, quant=False, live=None,
+                dtype=None):
+    """B1 or B4a (``quant``) against its plain version over a poisoned pool,
+    q (and a float cache) in bf16 or ``dtype`` (the fp16 bodies); ``live``
+    gives each row's live queries (S unless named: a verify row with fewer
+    proposals than k), the queries past them are padding at q0 + j as the
+    engine lays them out."""
     from dynamo_tpu_torch.ops.kernels.decode_attention import (
         decode_attention_ref, paged_decode_attention, paged_decode_attention_q8)
 
@@ -677,15 +711,16 @@ def decode_case(torch, gen, lens, s, logit_cap, geom=(H, HK, D), bs=BS, quant=Fa
     n_blocks = sum(-(-n // bs) for n in lens) + 8
     bt = _tables(torch, lens, m, n_blocks, gen, bs)
     h, hk, d = geom
-    cache = _attention_cache(torch, gen, n_blocks, bt, lens, hk, d, bs, quant)
+    act, tag = _act(torch, dtype)
+    cache = _attention_cache(torch, gen, n_blocks, bt, lens, hk, d, bs, quant, act)
     b = len(lens)
-    q = torch.randn((b, s, h, d), generator=gen, device="cuda").to(torch.bfloat16)
+    q = torch.randn((b, s, h, d), generator=gen, device="cuda").to(act)
     seq_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
     q0 = (seq_lens - torch.tensor(live or [s] * b, dtype=torch.int32, device="cuda")).clamp_min(0)
     args = (q, cache, LAYER, bt, seq_lens, q0)
     kernel = paged_decode_attention_q8 if quant else paged_decode_attention
     out = kernel(*args, logit_cap=logit_cap)
-    what = (f"decode {'int8 ' if quant else ''}{geom} Bs={bs} S={s} cap={logit_cap} lens={lens}"
+    what = (f"{tag}decode {'int8 ' if quant else ''}{geom} Bs={bs} S={s} cap={logit_cap} lens={lens}"
             f"{f' live={live}' if live else ''}")
     err = compare(torch, what, out, decode_attention_ref(*args, logit_cap=logit_cap))
     for i, n in enumerate(lens):
@@ -696,7 +731,8 @@ def decode_case(torch, gen, lens, s, logit_cap, geom=(H, HK, D), bs=BS, quant=Fa
     return err
 
 
-def prefill_case(torch, gen, starts, fresh, s, geom=(H, HK, D), bs=BS, quant=False, logit_cap=None):
+def prefill_case(torch, gen, starts, fresh, s, geom=(H, HK, D), bs=BS, quant=False, logit_cap=None,
+                 dtype=None):
     from dynamo_tpu_torch.ops.kernels.prefill_attention import (
         paged_prefill_attention, paged_prefill_attention_q8, prefill_attention_ref)
 
@@ -706,11 +742,12 @@ def prefill_case(torch, gen, starts, fresh, s, geom=(H, HK, D), bs=BS, quant=Fal
     bt = _tables(torch, lens, m, n_blocks, gen, bs)
     # only the cached prefix is live in the cache; fresh slots stay poisoned
     h, hk, d = geom
-    cache = _attention_cache(torch, gen, n_blocks, bt, starts, hk, d, bs, quant)
+    act, tag = _act(torch, dtype)
+    cache = _attention_cache(torch, gen, n_blocks, bt, starts, hk, d, bs, quant, act)
     b = len(starts)
-    q = torch.randn((b, s, h, d), generator=gen, device="cuda").to(torch.bfloat16)
-    k_new = torch.randn((b, s, hk, d), generator=gen, device="cuda").to(torch.bfloat16)
-    v_new = torch.randn((b, s, hk, d), generator=gen, device="cuda").to(torch.bfloat16)
+    q = torch.randn((b, s, h, d), generator=gen, device="cuda").to(act)
+    k_new = torch.randn((b, s, hk, d), generator=gen, device="cuda").to(act)
+    v_new = torch.randn((b, s, hk, d), generator=gen, device="cuda").to(act)
     for i, f in enumerate(fresh):  # padding rows of the fresh K/V are NaN too
         k_new[i, f:] = float("nan")
         v_new[i, f:] = float("nan")
@@ -719,7 +756,8 @@ def prefill_case(torch, gen, starts, fresh, s, geom=(H, HK, D), bs=BS, quant=Fal
             torch.tensor(starts, dtype=torch.int32, device="cuda"))
     kernel = paged_prefill_attention_q8 if quant else paged_prefill_attention
     out = kernel(*args, logit_cap=logit_cap)
-    err = compare(torch, f"prefill {'int8 ' if quant else ''}{geom} Bs={bs} starts={starts} fresh={fresh} "
+    err = compare(torch, f"{tag}prefill {'int8 ' if quant else ''}{geom} Bs={bs} starts={starts} "
+                  f"fresh={fresh} "
                   f"cap={logit_cap}", out, prefill_attention_ref(*args, logit_cap=logit_cap))
     for i, f in enumerate(fresh):
         check(bool((out[i, f:] == 0).all()), f"prefill: padding rows of row {i} are not 0")
@@ -727,7 +765,7 @@ def prefill_case(torch, gen, starts, fresh, s, geom=(H, HK, D), bs=BS, quant=Fal
 
 
 def ragged_case(torch, gen, rows, region, n_pad, geom=(H, HK, D), logit_cap=None, bs=BS,
-                quant=False):
+                quant=False, dtype=None):
     """The ragged kernel against its plain version on one layout: the pool
     is poisoned except each row's live prefix, and padding K/V is NaN;
     padding tokens must come out exactly 0, and a second launch must give
@@ -741,10 +779,11 @@ def ragged_case(torch, gen, rows, region, n_pad, geom=(H, HK, D), logit_cap=None
     n_blocks = sum(-(-n // bs) for n in lens) + 8
     bt = _tables(torch, lens, m, n_blocks, gen, bs)
     h, hk, d = geom
-    cache = _attention_cache(torch, gen, n_blocks, bt, starts, hk, d, bs, quant)
-    q = torch.randn((1, t, h, d), generator=gen, device="cuda").to(torch.bfloat16)
-    k_new = torch.randn((1, t, hk, d), generator=gen, device="cuda").to(torch.bfloat16)
-    v_new = torch.randn((1, t, hk, d), generator=gen, device="cuda").to(torch.bfloat16)
+    act, tag = _act(torch, dtype)
+    cache = _attention_cache(torch, gen, n_blocks, bt, starts, hk, d, bs, quant, act)
+    q = torch.randn((1, t, h, d), generator=gen, device="cuda").to(act)
+    k_new = torch.randn((1, t, hk, d), generator=gen, device="cuda").to(act)
+    v_new = torch.randn((1, t, hk, d), generator=gen, device="cuda").to(act)
     live = torch.zeros(t, dtype=torch.bool, device="cuda")
     for st, n, o in zip(starts, lens, offs):
         live[o:o + n - st] = True
@@ -754,7 +793,7 @@ def ragged_case(torch, gen, rows, region, n_pad, geom=(H, HK, D), logit_cap=None
             _ints(torch, offs))
     kernel = ragged_paged_prefill_attention_q8 if quant else ragged_paged_prefill_attention
     out = kernel(*args, logit_cap=logit_cap)
-    what = f"ragged {'int8 ' if quant else ''}{geom} Bs={bs} rows={rows}"
+    what = f"{tag}ragged {'int8 ' if quant else ''}{geom} Bs={bs} rows={rows}"
     err = compare(torch, what, out, ragged_prefill_attention_ref(*args, logit_cap=logit_cap))
     check(bool((out[0, ~live] == 0).all()), f"{what}: padding tokens are not 0")
     check(torch.equal(out, kernel(*args, logit_cap=logit_cap)), f"{what}: two launches differ")
@@ -829,14 +868,109 @@ def kernel_phase(torch) -> dict:
     return errs
 
 
+# the fp16 bodies' matmul rows: one decode row, a decode step at 8 slots,
+# both sides of the decode regime's 16-row limit, a 1,504-token prefill
+FP16_MATMUL_ROWS = (1, 8, 16, 17, 1504)
+
+
+def fp16_kernel_phase(torch) -> dict:
+    """The fp16 bodies (q, the fresh K/V, a float cache, x and out in
+    float16) against their plain versions on the same NaN-poisoned pools
+    and at the same tolerance as the bf16 checks: B1 at S = 1, 5 and 8 (Bs
+    16, contexts 0 to 2048, softcap on and off at S = 1, a verify with rows
+    of fewer live queries than S = 8), B4a the same at Bs 16 and 32; B2 from
+    0 and over a 256-token prefix, from a start inside a 64-key tile and with
+    softcap; B4b over the int8 prefix hit (256 + 700) and a start inside a
+    key tile, Bs 16 and 32; B3 and B4c on the unified layout (8 decode rows
+    with contexts 1 to 2047 ahead of two spans, softcap on and off) and B3 on
+    a packed prefill; each attention kernel also at (H, Hk, D) = (8, 8, 64)
+    and (16, 2, 256); B5 at every Llama-3-8B projection and the lm_head (f32
+    out) at M in FP16_MATMUL_ROWS, both weight layouts, and a split-K launch
+    twice for the same bits.  Every decode and ragged launch is run twice
+    for the same bits (``decode_case``, ``ragged_case``).  Returns each
+    body's max abs error, keyed as the bf16 ones with ``_fp16``."""
+    from dynamo_tpu_torch.ops.kernels.int8_matmul import int8_matmul, int8_matmul_ref
+
+    f16 = torch.float16
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(28)
+    errs = dict.fromkeys(("decode", "prefill", "ragged", "decode_q8", "prefill_q8", "ragged_q8",
+                          "matmul"), 0.0)
+
+    def note(key, e, what):
+        errs[key] = max(errs[key], e)
+        log(f"kernel fp16 {what}: max abs err {e:.3g}")
+
+    mixed = [0, 1, 17, 100, 333, 1024, 1500, 2048]
+    for quant, bs in ((False, BS), (True, BS), (True, BS_Q8)):
+        key, kind = ("decode_q8", f"decode int8 Bs={bs}") if quant else ("decode", f"decode Bs={bs}")
+        for s in (1, 5, 8):
+            for cap in ((None, 50.0) if s == 1 else (None,)):
+                note(key, decode_case(torch, gen, mixed, s, cap, bs=bs, quant=quant, dtype=f16),
+                     f"{kind} B=8 S={s} softcap={cap}")
+        live = verify_live(mixed, 8)
+        note(key, decode_case(torch, gen, mixed, 8, None, bs=bs, quant=quant, live=live, dtype=f16),
+             f"{kind} B=8 S=8 (verify) live queries {live}")
+    for starts, fresh, sl, cap in (([0, 256], [512, 500], 512, None), ([80, 1040], [45, 1], 64, None),
+                                   ([0, 80], [77, 301], 320, 50.0)):
+        note("prefill", prefill_case(torch, gen, starts, fresh, sl, logit_cap=cap, dtype=f16),
+             f"prefill start={starts} fresh={fresh} softcap={cap}")
+    for bs in (16, BS_Q8):
+        for starts, fresh, sl in (([SHARED_PREFIX], [700], 704), ([bs * 3, 0], [155, 77], 160)):
+            note("prefill_q8", prefill_case(torch, gen, starts, fresh, sl, bs=bs, quant=True, dtype=f16),
+                 f"prefill int8 Bs={bs} start={starts} fresh={fresh}")
+    decode_rows = [(n - 1, 1) for n in (1, 17, 100, 333, 1024, 1500, 2047, 64)]
+    for quant, bs in ((False, BS), (True, 16), (True, BS_Q8)):
+        key = "ragged_q8" if quant else "ragged"
+        for cap in (None, 50.0):
+            note(key, ragged_case(torch, gen, decode_rows + [(0, 300), (256, 200)], 16, 6, logit_cap=cap,
+                                  bs=bs, quant=quant, dtype=f16),
+                 f"ragged {'int8 ' if quant else ''}Bs={bs} unified layout softcap={cap}")
+    note("ragged", ragged_case(torch, gen, [(0, 17), (0, 300), (0, 640), (0, 48)], 0, 0, dtype=f16),
+         "ragged packed prefill spans 17/300/640/48")
+    for geom in ((8, 8, 64), (16, 2, 256)):
+        for quant in (False, True):
+            q8 = "_q8" if quant else ""
+            note("decode" + q8, decode_case(torch, gen, [0, 5, 300], 2, None, geom=geom, quant=quant,
+                                            dtype=f16), f"{'int8 ' if quant else ''}decode {geom} S=2")
+            note("prefill" + q8, prefill_case(torch, gen, [64], [90], 96, geom=geom, quant=quant,
+                                              dtype=f16), f"{'int8 ' if quant else ''}prefill {geom}")
+            note("ragged" + q8, ragged_case(torch, gen, [(4, 1), (299, 1), (76, 1), (0, 90), (64, 45)],
+                                            16, 3, geom=geom, quant=quant, dtype=f16),
+                 f"{'int8 ' if quant else ''}ragged {geom} 3 decode rows + 2 spans")
+    for name, (k, n) in dict(PROJECTIONS, lm_head=LM_HEAD).items():
+        out_dtype = torch.float32 if name == "lm_head" else f16
+        worst = 0.0
+        for layout in ("kn", "nk"):
+            wq, scale = _q8_weight(torch, gen, k, n, layout)
+            for m in FP16_MATMUL_ROWS:
+                x = torch.randn((m, k), generator=gen, device="cuda").to(f16)
+                out = int8_matmul(x, wq, scale, out_dtype)
+                check(out.dtype == out_dtype and out.shape == (m, n), f"fp16 matmul {name}: {out.dtype}")
+                worst = max(worst, compare(torch, f"fp16 matmul {name} [{k}, {n}] {layout} M={m}", out,
+                                           int8_matmul_ref(x, wq, scale, out_dtype)))
+            del wq, scale
+        note("matmul", worst, f"matmul {name} [K, N]=[{k}, {n}] M in {FP16_MATMUL_ROWS}, both layouts")
+    k, n = PROJECTIONS["wk"]
+    wq, scale = _q8_weight(torch, gen, k, n, "kn")
+    for m in (8, 64):
+        x = torch.randn((m, k), generator=gen, device="cuda").to(f16)
+        check(torch.equal(int8_matmul(x, wq, scale), int8_matmul(x, wq, scale)),
+              f"fp16 matmul wk M={m}: two runs of the split-K launch differ")
+    log("kernel fp16 matmul split K, wk at M=8 and M=64: two runs bit-identical")
+    return {f"{k}_fp16": v for k, v in errs.items()}
+
+
 def kern_phase(torch, card: str) -> None:
     """The kernel plane's run cases on the card: each of the nine kernels
     at every geometry of the registry matrix it takes (``ops/kernels/
     registry.py`` ``audit_cases``, the matrix ``lint --kern`` audits on the
     CPU with the plain versions: JAX's adversarial rows at D = 64, the
     verify's S = 5 and 8, the int8 prefix hit, the grouped launches at T =
-    8 and 1,504), its inputs drawn from the case's numpy seed (bf16, or
-    int8 codes with f32 scales), NaN-poisoned as the plane poisons them
+    8 and 1,504, and the fp16 bodies' twins of the bf16 cases, keyed
+    ``<kernel>/fp16``), its inputs drawn from the case's numpy seed (bf16,
+    or fp16 for an fp16 case, or int8 codes with f32 scales), NaN-poisoned
+    as the plane poisons them
     (cache slots past each row's context and every unreferenced block, the
     int8 scales of both and their pad lanes, fresh padding rows, tokens in
     no span, unrouted experts' weights and scales) and held against its
@@ -859,7 +993,8 @@ def kern_phase(torch, card: str) -> None:
         diff = (got - ref).abs()[live]
         excess = (diff - KERNEL_RTOL * ref.abs()[live]).max().item() if live.any() else 0.0
         zeros = int((got[zero] == 0).sum())
-        row = out.setdefault(case["kernel"], dict(id=kreg.KERNELS[case["kernel"]]["id"], cases=0,
+        key = case["kernel"] + ("/fp16" if case.get("dtype") == "float16" else "")
+        row = out.setdefault(key, dict(id=kreg.KERNELS[case["kernel"]]["id"], cases=0,
                                                   max_abs_err=0.0, leaks=0, zero_lanes=0,
                                                   exact_zeros=0, geometries=[]))
         row["cases"] += 1
@@ -873,8 +1008,9 @@ def kern_phase(torch, card: str) -> None:
               f"by {excess - KERNEL_ATOL}")
         check(zeros == int(zero.sum()), f"{what}: {int(zero.sum()) - zeros} padding or zero-length "
               "lanes are not exactly 0")
-    check(set(out) == {k for k, m in kreg.KERNELS.items() if not m["placeholder"]},
-          f"kern: the run cases reached {sorted(out)}, not every kernel")
+    real = {k: m for k, m in kreg.KERNELS.items() if not m["placeholder"]}
+    check(set(out) == set(real) | {f"{k}/fp16" for k, m in real.items() if "float16" in m["dtypes"]},
+          f"kern: the run cases reached {sorted(out)}, not every kernel and fp16 body")
     log(json.dumps({"kern": dict(kernels=out, cases=sum(r["cases"] for r in out.values()),
                                  leaks=sum(r["leaks"] for r in out.values()),
                                  seconds=round(time.perf_counter() - t0, 3), card=card)}))
@@ -1112,13 +1248,14 @@ def _check_graph_replay(torch, call, what: str) -> None:
     check(torch.equal(captured, eager), f"{what}: a CUDA graph replay differs from the eager launch")
 
 
-def timing_phase(torch, card: str) -> dict:
+def timing_phase(torch, card: str, dtype=None) -> dict:
     """Decode and prefill at the default path's shapes, timed and checked
     against their plain versions there: decode is one layer of a burst step
     (B = 8 slots, S = 1, the six requests mid-generation; timed as a CUDA
     graph, as the int8 decode kernel is, and a graph replay held to the
     eager launch's bits), and prefill the longest prompt's one dispatch
-    (S = 1504, start = 0)."""
+    (S = 1504, start = 0).  bf16, or the fp16 bodies for ``dtype`` float16
+    (their readings keyed with ``_fp16``; SDPA in fp16 beside them)."""
     import torch.nn.functional as F
 
     from dynamo_tpu_torch.ops.kernels.decode_attention import (
@@ -1130,14 +1267,16 @@ def timing_phase(torch, card: str) -> dict:
     gen.manual_seed(1)
     m = 2048 // BS
     out = {}
+    act, tag = _act(torch, dtype)
+    sfx, dt = ("_fp16", "float16") if tag else ("", "bfloat16")
 
     # decode
     lens = [n + MAX_TOKENS // 2 for n in PROMPT_LENS] + [0, 0]
     b = len(lens)
     n_blocks = sum(-(-n // BS) for n in lens) + 8
     bt = _tables(torch, lens, m, n_blocks, gen)
-    cache = torch.randn((L, n_blocks, 2, BS, HK * D), generator=gen, device="cuda").to(torch.bfloat16)
-    q = torch.randn((b, 1, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+    cache = torch.randn((L, n_blocks, 2, BS, HK * D), generator=gen, device="cuda").to(act)
+    q = torch.randn((b, 1, H, D), generator=gen, device="cuda").to(act)
     seq_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
     q0 = (seq_lens - 1).clamp_min(0)
     # successive launches walk the 32 layers, as a decode step does, so
@@ -1147,84 +1286,90 @@ def timing_phase(torch, card: str) -> dict:
     kernel_ms = graph_time_ms(calls, 20) / L
     eager_ms = cuda_time_ms(lambda i: calls[i % L](), 64)
     plain_ms = cuda_time_ms(lambda i: decode_attention_ref(q, cache, i % L, bt, seq_lens, q0), 8)
-    out["decode_err"] = compare(torch, "decode at the serving shapes",
+    out["decode_err" + sfx] = compare(torch, f"{tag}decode at the serving shapes",
                                 paged_decode_attention(q, cache, LAYER, bt, seq_lens, q0),
                                 decode_attention_ref(q, cache, LAYER, bt, seq_lens, q0))
-    _check_graph_replay(torch, lambda: paged_decode_attention(q, cache, LAYER, bt, seq_lens, q0), "decode")
+    _check_graph_replay(torch, lambda: paged_decode_attention(q, cache, LAYER, bt, seq_lens, q0),
+                        f"{tag}decode")
 
     library_ms, library_eager_ms = _sdpa_decode_ms(
-        torch, q, lens, lambda layer: _dense_kv(torch, cache, bt, lens, layer, BS))
+        torch, q, lens, lambda layer: _dense_kv(torch, cache, bt, lens, layer, BS, act))
     ctx = sum(lens)
-    out["decode"] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                         **_bound("paged_decode_attention", b=b, s=1, h=H, hk=HK, d=D, m=m, lens=lens))
-    log(f"time decode  B={b} S=1 ctx={ctx}: kernel {kernel_ms:.4f} ms (CUDA graph; eager {eager_ms:.4f}), "
+    out["decode" + sfx] = r = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                                   **_bound("paged_decode_attention", dt, b=b, s=1, h=H, hk=HK, d=D, m=m,
+                                            lens=lens))
+    log(f"time {tag}decode  B={b} S=1 ctx={ctx}: kernel {kernel_ms:.4f} ms (CUDA graph; eager "
+        f"{eager_ms:.4f}), "
         f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms (CUDA graph; eager {library_eager_ms:.4f}), "
-        f"bound {out['decode']['bound_ms']:.4f} ms, "
-        f"max abs err {out['decode_err']:.3g}, a CUDA graph replay bit-identical to the eager launch ({card})")
+        f"bound {r['bound_ms']:.4f} ms, "
+        f"max abs err {out['decode_err' + sfx]:.3g}, a CUDA graph replay bit-identical to the eager "
+        f"launch ({card})")
 
     # prefill
     s = -(-max(PROMPT_LENS) // BS) * BS
     fresh = max(PROMPT_LENS)
     bt1 = _tables(torch, [fresh], m, -(-fresh // BS) + 8, gen)
     cache1 = torch.randn((L, bt1.max().item() + 1, 2, BS, HK * D), generator=gen,
-                         device="cuda").to(torch.bfloat16)
-    qp = torch.randn((1, s, H, D), generator=gen, device="cuda").to(torch.bfloat16)
-    kp = torch.randn((1, s, HK, D), generator=gen, device="cuda").to(torch.bfloat16)
-    vp = torch.randn((1, s, HK, D), generator=gen, device="cuda").to(torch.bfloat16)
+                         device="cuda").to(act)
+    qp = torch.randn((1, s, H, D), generator=gen, device="cuda").to(act)
+    kp = torch.randn((1, s, HK, D), generator=gen, device="cuda").to(act)
+    vp = torch.randn((1, s, HK, D), generator=gen, device="cuda").to(act)
     lens1 = torch.tensor([fresh], dtype=torch.int32, device="cuda")
     st1 = torch.zeros(1, dtype=torch.int32, device="cuda")
     pargs = (qp, kp, vp, cache1, LAYER, bt1, lens1, st1)
     kernel_ms = cuda_time_ms(lambda i: paged_prefill_attention(*pargs), 10)
     kernel_graph_ms = graph_time_ms([lambda: paged_prefill_attention(*pargs)], 10)
     plain_ms = cuda_time_ms(lambda i: prefill_attention_ref(*pargs), 3, warmup=1)
-    out["prefill_err"] = compare(torch, "prefill at the serving shapes",
+    out["prefill_err" + sfx] = compare(torch, f"{tag}prefill at the serving shapes",
                                  paged_prefill_attention(*pargs), prefill_attention_ref(*pargs))
     qs = qp[:, :fresh].transpose(1, 2).contiguous()
     ks = kp[:, :fresh].transpose(1, 2).contiguous()
     vs = vp[:, :fresh].transpose(1, 2).contiguous()
     library_ms, library_eager_ms = _sdpa_ms(
         lambda: F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True))
-    out["prefill"] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                          **_bound("paged_prefill_attention", b=1, s=s, h=H, hk=HK, d=D, m=m, starts=[0],
-                                   lens=[fresh]))
-    log(f"time prefill B=1 S={s} fresh={fresh} start=0: kernel {kernel_ms:.4f} ms (CUDA graph "
+    out["prefill" + sfx] = r = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                                    **_bound("paged_prefill_attention", dt, b=1, s=s, h=H, hk=HK, d=D, m=m,
+                                             starts=[0], lens=[fresh]))
+    log(f"time {tag}prefill B=1 S={s} fresh={fresh} start=0: kernel {kernel_ms:.4f} ms (CUDA graph "
         f"{kernel_graph_ms:.4f}), plain {plain_ms:.4f} ms, "
         f"sdpa {library_ms:.4f} ms (CUDA graph; eager {library_eager_ms:.4f}), "
-        f"bound {out['prefill']['bound_ms']:.4f} ms, "
-        f"max abs err {out['prefill_err']:.3g} ({card})")
+        f"bound {r['bound_ms']:.4f} ms, "
+        f"max abs err {out['prefill_err' + sfx]:.3g} ({card})")
     return out
 
 
-def _bound(kernel: str, **geometry) -> dict:
+def _bound(kernel: str, dtype: str = "bfloat16", **geometry) -> dict:
     """The least time the card could take for one launch of ``kernel`` at
     ``geometry`` (or, with ``calls``, for several): the registry's work
-    cost, the larger of its operations over the bf16 tensor-core peak and
-    its bytes over the memory rate (``ops/kernels/registry.py``)."""
-    return kreg.bound(kreg.work_cost(kernel, geometry))
+    cost, the larger of its operations over the tensor-core peak of
+    ``dtype`` (bf16 and fp16 alike) and its bytes over the memory rate
+    (``ops/kernels/registry.py``)."""
+    return kreg.bound(kreg.work_cost(kernel, geometry), dtype)
 
 
-def _dequant_rows(torch, cache, rows, n, layer=LAYER):
-    """The first ``n`` K and V rows [n, Hk, D] (bf16) of blocks ``rows`` of
-    ``layer`` of an int8 cache."""
+def _dequant_rows(torch, cache, rows, n, layer=LAYER, dtype=None):
+    """The first ``n`` K and V rows [n, Hk, D] (bf16, or ``dtype``) of
+    blocks ``rows`` of ``layer`` of an int8 cache."""
     from dynamo_tpu_torch.ops.kv_quant import gather_layer_blocks
 
-    kv = gather_layer_blocks(cache, layer, rows, HK).to(torch.bfloat16)
+    kv = gather_layer_blocks(cache, layer, rows, HK).to(dtype or torch.bfloat16)
     return kv[:, 0].reshape(-1, HK, D)[:n], kv[:, 1].reshape(-1, HK, D)[:n]
 
 
-def _dense_kv(torch, cache, bt, lens, layer: int, bs: int):
+def _dense_kv(torch, cache, bt, lens, layer: int, bs: int, dtype=None):
     """Layer ``layer``'s K and V of each row's live context, laid out dense
-    for SDPA ([B, Hk, T, D] bf16 each; an int8 cache dequantised)."""
+    for SDPA ([B, Hk, T, D] bf16, or ``dtype``, each; an int8 cache
+    dequantised)."""
     from dynamo_tpu_torch.ops.kv_quant import is_quant
 
     quant = is_quant(cache)
-    kd = torch.zeros((len(lens), HK, max(lens), D), dtype=torch.bfloat16, device="cuda")
+    kd = torch.zeros((len(lens), HK, max(lens), D), dtype=dtype or torch.bfloat16, device="cuda")
     vd = torch.zeros_like(kd)
     for i, n in enumerate(lens):
         if not n:
             continue
         if quant:
-            k_rows, v_rows = _dequant_rows(torch, cache, bt[i, :-(-n // bs)], n, layer)
+            k_rows, v_rows = _dequant_rows(torch, cache, bt[i, :-(-n // bs)], n, layer, dtype)
         else:
             rows = bt[i, :-(-n // bs)].long()
             k_rows = cache[layer, rows, 0].reshape(-1, HK, D)[:n]
@@ -1233,7 +1378,7 @@ def _dense_kv(torch, cache, bt, lens, layer: int, bs: int):
     return kd, vd
 
 
-def q8_timing_phase(torch, card: str) -> dict:
+def q8_timing_phase(torch, card: str, dtype=None) -> dict:
     """The int8 decode and prefill kernels at the int8 default path's
     shapes (Bs = 32), timed and checked against their plain version there:
     decode is one layer of a burst step (B = 8 slots, S = 1, the six
@@ -1243,7 +1388,9 @@ def q8_timing_phase(torch, card: str) -> dict:
     hits the shared prefix (start = 256, 700 fresh tokens).  The library
     yardstick is SDPA on K/V dequantised to bf16 beforehand (for decode,
     each layer's, timed as the kernel is): it reads twice the cache bytes
-    the kernel reads, and the dequantisation is not timed."""
+    the kernel reads, and the dequantisation is not timed.  bf16 queries,
+    or the fp16 bodies for ``dtype`` float16 (readings keyed with ``_fp16``,
+    SDPA on K/V dequantised to fp16)."""
     import torch.nn.functional as F
 
     from dynamo_tpu_torch.ops.kernels.decode_attention import (
@@ -1255,6 +1402,8 @@ def q8_timing_phase(torch, card: str) -> dict:
     gen.manual_seed(3)
     bs, m = BS_Q8, 2048 // BS_Q8
     out = {}
+    act, tag = _act(torch, dtype)
+    sfx, dt = ("_fp16", "float16") if tag else ("", "bfloat16")
 
     # decode
     lens = [n + MAX_TOKENS // 2 for n in PROMPT_LENS] + [0, 0]
@@ -1262,46 +1411,46 @@ def q8_timing_phase(torch, card: str) -> dict:
     n_blocks = sum(-(-n // bs) for n in lens) + 8
     bt = _tables(torch, lens, m, n_blocks, gen, bs)
     cache = _q8_cache(torch, gen, n_blocks, HK, D, bs)
-    q = torch.randn((b, 1, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+    q = torch.randn((b, 1, H, D), generator=gen, device="cuda").to(act)
     seq_lens = _ints(torch, lens)
     q0 = (seq_lens - 1).clamp_min(0)
     calls = [lambda i=i: paged_decode_attention_q8(q, cache, i, bt, seq_lens, q0) for i in range(L)]
     kernel_ms = graph_time_ms(calls, 20) / L  # the card's time: the kernel is shorter than its launch
     eager_ms = cuda_time_ms(lambda i: calls[i % L](), 64)
     plain_ms = cuda_time_ms(lambda i: decode_attention_ref(q, cache, i % L, bt, seq_lens, q0), 8)
-    out["decode_q8_err"] = compare(torch, "int8 decode at the serving shapes",
+    out["decode_q8_err" + sfx] = compare(torch, f"{tag}int8 decode at the serving shapes",
                                    paged_decode_attention_q8(q, cache, LAYER, bt, seq_lens, q0),
                                    decode_attention_ref(q, cache, LAYER, bt, seq_lens, q0))
     _check_graph_replay(torch, lambda: paged_decode_attention_q8(q, cache, LAYER, bt, seq_lens, q0),
-                        "int8 decode")
+                        f"{tag}int8 decode")
 
     library_ms, library_eager_ms = _sdpa_decode_ms(
-        torch, q, lens, lambda layer: _dense_kv(torch, cache, bt, lens, layer, bs))
+        torch, q, lens, lambda layer: _dense_kv(torch, cache, bt, lens, layer, bs, act))
     ctx = sum(lens)
-    out["decode_q8"] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                            **_bound("paged_decode_attention_q8", b=b, s=1, h=H, hk=HK, d=D, m=m,
-                                     lens=lens))
-    log(f"time decode int8 B={b} S=1 Bs={bs} ctx={ctx}: kernel {kernel_ms:.4f} ms (CUDA graph; eager "
+    out["decode_q8" + sfx] = r = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                                      **_bound("paged_decode_attention_q8", dt, b=b, s=1, h=H, hk=HK, d=D,
+                                               m=m, lens=lens))
+    log(f"time {tag}decode int8 B={b} S=1 Bs={bs} ctx={ctx}: kernel {kernel_ms:.4f} ms (CUDA graph; eager "
         f"{eager_ms:.4f}), plain "
-        f"{plain_ms:.4f} ms, sdpa on bf16 K/V (twice the cache bytes) {library_ms:.4f} ms (CUDA graph; eager "
-        f"{library_eager_ms:.4f}), bound "
-        f"{out['decode_q8']['bound_ms']:.4f} ms ({out['decode_q8']['bound_by']}), max abs err "
-        f"{out['decode_q8_err']:.3g}, a CUDA graph replay bit-identical to the eager launch ({card})")
+        f"{plain_ms:.4f} ms, sdpa on {dt} K/V (twice the cache bytes) {library_ms:.4f} ms (CUDA graph; "
+        f"eager {library_eager_ms:.4f}), bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max abs err "
+        f"{out['decode_q8_err' + sfx]:.3g}, a CUDA graph replay bit-identical to the eager launch ({card})")
 
     # prefill over a cached prefix
     start, fresh = SHARED_PREFIX, PROMPT_LENS[-1] - SHARED_PREFIX
     s = -(-fresh // bs) * bs
     bt1 = _tables(torch, [start + fresh], m, -(-(start + fresh) // bs) + 8, gen, bs)
     cache1 = _q8_cache(torch, gen, int(bt1.max()) + 1, HK, D, bs)
-    qp, kp, vp = (torch.randn((1, s, x, D), generator=gen, device="cuda").to(torch.bfloat16)
+    qp, kp, vp = (torch.randn((1, s, x, D), generator=gen, device="cuda").to(act)
                   for x in (H, HK, HK))
     pargs = (qp, kp, vp, cache1, LAYER, bt1, _ints(torch, [start + fresh]), _ints(torch, [start]))
     kernel_ms = cuda_time_ms(lambda i: paged_prefill_attention_q8(*pargs), 10)
     kernel_graph_ms = graph_time_ms([lambda: paged_prefill_attention_q8(*pargs)], 10)
     plain_ms = cuda_time_ms(lambda i: prefill_attention_ref(*pargs), 3, warmup=1)
-    out["prefill_q8_err"] = compare(torch, "int8 prefill at the serving shapes",
+    out["prefill_q8_err" + sfx] = compare(torch, f"{tag}int8 prefill at the serving shapes",
                                     paged_prefill_attention_q8(*pargs), prefill_attention_ref(*pargs))
-    k_pre, v_pre = _dequant_rows(torch, cache1, bt1[0, :start // bs], start)
+    k_pre, v_pre = _dequant_rows(torch, cache1, bt1[0, :start // bs], start, dtype=act)
     ks = torch.cat([k_pre, kp[0, :fresh]]).transpose(0, 1)[None].contiguous()
     vs = torch.cat([v_pre, vp[0, :fresh]]).transpose(0, 1)[None].contiguous()
     qs = qp[:, :fresh].transpose(1, 2).contiguous()
@@ -1310,19 +1459,19 @@ def q8_timing_phase(torch, card: str) -> dict:
     pmask = (j[None, :] < start) | (j[None, :] - start <= i[:, None])
     library_ms, library_eager_ms = _sdpa_ms(
         lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=pmask, enable_gqa=True))
-    out["prefill_q8"] = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                             **_bound("paged_prefill_attention_q8", b=1, s=s, h=H, hk=HK, d=D, m=m,
-                                      starts=[start], lens=[start + fresh]))
-    log(f"time prefill int8 B=1 S={s} fresh={fresh} start={start} Bs={bs}: kernel {kernel_ms:.4f} ms "
+    out["prefill_q8" + sfx] = r = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                                       **_bound("paged_prefill_attention_q8", dt, b=1, s=s, h=H, hk=HK, d=D,
+                                                m=m, starts=[start], lens=[start + fresh]))
+    log(f"time {tag}prefill int8 B=1 S={s} fresh={fresh} start={start} Bs={bs}: kernel {kernel_ms:.4f} ms "
         f"(CUDA graph {kernel_graph_ms:.4f}), "
-        f"plain {plain_ms:.4f} ms, sdpa on bf16 K/V {library_ms:.4f} ms (CUDA graph; eager "
+        f"plain {plain_ms:.4f} ms, sdpa on {dt} K/V {library_ms:.4f} ms (CUDA graph; eager "
         f"{library_eager_ms:.4f}), bound "
-        f"{out['prefill_q8']['bound_ms']:.4f} ms ({out['prefill_q8']['bound_by']}), max abs err "
-        f"{out['prefill_q8_err']:.3g} ({card})")
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']}), max abs err "
+        f"{out['prefill_q8_err' + sfx]:.3g} ({card})")
     return out
 
 
-def matmul_timing(torch, card: str) -> dict:
+def matmul_timing(torch, card: str, dtype=None) -> dict:
     """The W8A16 kernel on one decode step's layer of the int8 model: the
     seven projections at M = 8 rows, in order, with four layers' distinct
     weights in turn (875 MB, far past the 50 MB L2), beside the plain
@@ -1332,18 +1481,23 @@ def matmul_timing(torch, card: str) -> dict:
     host launches slower than the card runs, so eager timing measures the
     host) and, for the log, eagerly.  Also logged: each projection at M = 8,
     the layer at a prefill's M = 1504, and the lm_head at M = 8 with f32
-    logits."""
+    logits.  For ``dtype`` float16, the fp16 body beside cuBLAS fp16 (its
+    readings keyed with ``_fp16``: M = 8, and the prefill's M = 1504 as
+    ``matmul_prefill_fp16``; the per-projection and verify readings are the
+    bf16 body's only)."""
     from dynamo_tpu_torch.ops.kernels.int8_matmul import int8_matmul, int8_matmul_ref
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
+    act, tag = _act(torch, dtype)
+    sfx, dt = ("_fp16", "float16") if tag else ("", "bfloat16")
     layers = [{name: _q8_weight(torch, gen, k, n, "kn") for name, (k, n) in PROJECTIONS.items()}
               for _ in range(4)]
-    dense = [{name: (wq.to(torch.bfloat16) * scale.to(torch.bfloat16)) for name, (wq, scale)
+    dense = [{name: (wq.to(act) * scale.to(act)) for name, (wq, scale)
               in layer.items()} for layer in layers]
 
     def rows(m):
-        return {name: torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+        return {name: torch.randn((m, k), generator=gen, device="cuda").to(act)
                 for name, (k, _) in PROJECTIONS.items()}
 
     def kernel(x, li, name):
@@ -1367,22 +1521,35 @@ def matmul_timing(torch, card: str) -> dict:
         return cuda_time_ms(lambda i: [c() for c in calls], iters) / 4
 
     def layer_bound(m):
-        return _bound("int8_matmul", calls=[dict(m=m, k=k, n=n) for k, n in PROJECTIONS.values()])
+        return _bound("int8_matmul", dt, calls=[dict(m=m, k=k, n=n) for k, n in PROJECTIONS.values()])
 
     out = {}
     xs = rows(8)
-    out["matmul"] = dict(ms=layer_ms(kernel, xs, 40), plain_ms=layer_ms(plain, xs, 8),
-                         library_ms=median_ms(lambda: layer_ms(library, xs, 40)), **layer_bound(8))
-    errs = [compare(torch, f"matmul {name} at M=8", kernel(xs[name], 0, name),
+    out["matmul" + sfx] = r = dict(ms=layer_ms(kernel, xs, 40), plain_ms=layer_ms(plain, xs, 8),
+                                   library_ms=median_ms(lambda: layer_ms(library, xs, 40)), **layer_bound(8))
+    errs = [compare(torch, f"{tag}matmul {name} at M=8", kernel(xs[name], 0, name),
                     plain(xs[name], 0, name)) for name in PROJECTIONS]
-    out["matmul_err"] = max(errs)
-    r = out["matmul"]
-    log(f"time matmul int8 one layer's 7 projections at M=8 (CUDA graph): kernel {r['ms']:.4f} ms, plain "
-        f"{r['plain_ms']:.4f} ms, cuBLAS bf16 on dequantised weights (twice the weight bytes) "
+    out["matmul_err" + sfx] = max(errs)
+    log(f"time {tag}matmul int8 one layer's 7 projections at M=8 (CUDA graph): kernel {r['ms']:.4f} ms, "
+        f"plain {r['plain_ms']:.4f} ms, cuBLAS {dt} on dequantised weights (twice the weight bytes) "
         f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); launched eagerly: "
         f"kernel {eager_ms(kernel, xs, 16):.4f} ms, "
         f"cuBLAS {median_ms(lambda: eager_ms(library, xs, 16)):.4f} ms; "
-        f"max abs err {out['matmul_err']:.3g} ({card})")
+        f"max abs err {out['matmul_err' + sfx]:.3g} ({card})")
+    if tag:  # the fp16 body: the layer at a prefill's rows, then done
+        xp = rows(1504)
+        out["matmul_prefill" + sfx] = pre = dict(
+            m=1504, ms=layer_ms(kernel, xp, 8), plain_ms=layer_ms(plain, xp, 2),
+            library_ms=median_ms(lambda: layer_ms(library, xp, 8)), **layer_bound(1504),
+            max_abs_err=max(compare(torch, f"{tag}matmul {name} at M=1504", kernel(xp[name], 0, name),
+                                    plain(xp[name], 0, name)) for name in PROJECTIONS))
+        log(f"time {tag}matmul int8 one layer's 7 projections at M=1504 (CUDA graph): kernel "
+            f"{pre['ms']:.4f} ms, plain {pre['plain_ms']:.4f} ms, cuBLAS {dt} {pre['library_ms']:.4f} ms, "
+            f"bound {pre['bound_ms']:.4f} ms ({pre['bound_by']}), max abs err {pre['max_abs_err']:.3g} "
+            f"({card})")
+        del layers, dense
+        torch.cuda.empty_cache()
+        return out
     per = {name: graph_time_ms(layer_calls(kernel, xs, (name,)), 40) / 4 for name in PROJECTIONS}
     bounds = {name: _bound("int8_matmul", m=8, k=k, n=n)["bound_ms"]
               for name, (k, n) in PROJECTIONS.items()}
@@ -1481,13 +1648,14 @@ def verify_timing(torch, card: str) -> dict:
     return out
 
 
-def ragged_timing(torch, card: str, mixed: dict, quant: bool = False) -> dict:
+def ragged_timing(torch, card: str, mixed: dict, quant: bool = False, dtype=None) -> dict:
     """The ragged kernel at the largest mixed dispatch a token-budget
     serving run made (its row table and block size as recorded; random bf16
-    q and K/V, a random bf16 or int8 pool), timed beside its plain version,
-    one SDPA call on the same work laid out dense with a block-diagonal
-    causal mask (the prefix gather, and for an int8 pool its dequantisation
-    to bf16, excluded), and its bound on this card."""
+    q and K/V, a random bf16 or int8 pool; fp16 for ``dtype`` float16, the
+    fp16 bodies), timed beside its plain version, one SDPA call on the same
+    work laid out dense with a block-diagonal causal mask (the prefix
+    gather, and for an int8 pool its dequantisation to the activation type,
+    excluded), and its bound on this card."""
     import torch.nn.functional as F
 
     from dynamo_tpu_torch.ops.kernels.ragged_prefill_attention import (
@@ -1498,22 +1666,23 @@ def ragged_timing(torch, card: str, mixed: dict, quant: bool = False) -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     t, bt, lens, starts, offs, bs = (mixed[k] for k in ("t", "bt", "lens", "starts", "offs", "bs"))
+    act, tag = _act(torch, dtype)
     n_blocks = int(bt.max()) + 1
     if quant:
         cache = _q8_cache(torch, gen, n_blocks, HK, D, bs)
     else:
         cache = torch.randn((L, n_blocks, 2, bs, HK * D), generator=gen,
-                            device="cuda").to(torch.bfloat16)
+                            device="cuda").to(act)
     kernel = ragged_paged_prefill_attention_q8 if quant else ragged_paged_prefill_attention
-    q = torch.randn((1, t, H, D), generator=gen, device="cuda").to(torch.bfloat16)
-    k = torch.randn((1, t, HK, D), generator=gen, device="cuda").to(torch.bfloat16)
-    v = torch.randn((1, t, HK, D), generator=gen, device="cuda").to(torch.bfloat16)
+    q = torch.randn((1, t, H, D), generator=gen, device="cuda").to(act)
+    k = torch.randn((1, t, HK, D), generator=gen, device="cuda").to(act)
+    v = torch.randn((1, t, HK, D), generator=gen, device="cuda").to(act)
     rows = (_ints(torch, lens), _ints(torch, starts), _ints(torch, offs))
     # successive launches walk the 32 layers, as a serving dispatch does
     kernel_ms = cuda_time_ms(lambda i: kernel(q, k, v, cache, i % L, bt, *rows), 32)
     plain_ms = cuda_time_ms(lambda i: ragged_prefill_attention_ref(
         q, k, v, cache, i % L, bt, *rows), 3, warmup=1)
-    label = "int8 ragged" if quant else "ragged"
+    label = tag + ("int8 ragged" if quant else "ragged")
     err = compare(torch, f"{label} at the serving dispatch",
                   kernel(q, k, v, cache, LAYER, bt, *rows),
                   ragged_prefill_attention_ref(q, k, v, cache, LAYER, bt, *rows))
@@ -1531,7 +1700,7 @@ def ragged_timing(torch, card: str, mixed: dict, quant: bool = False) -> dict:
         f = n - st
         if f <= 0:
             continue
-        kv = gather_layer_blocks(cache, LAYER, bt[r, :-(-st // bs)], HK).to(torch.bfloat16)
+        kv = gather_layer_blocks(cache, LAYER, bt[r, :-(-st // bs)], HK).to(act)
         ks += [kv[:, 0].reshape(-1, HK, D)[:st], k[0, o:o + f]]
         vs += [kv[:, 1].reshape(-1, HK, D)[:st], v[0, o:o + f]]
         qs.append(q[0, o:o + f])
@@ -1551,8 +1720,9 @@ def ragged_timing(torch, card: str, mixed: dict, quant: bool = False) -> dict:
         qd, kd, vd, attn_mask=mask, enable_gqa=True), 10))
 
     out = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-               **_bound("ragged_paged_prefill_attention" + ("_q8" if quant else ""), t=t, h=H, hk=HK,
-                        d=D, m=bt.shape[1], starts=list(starts), lens=list(lens)))
+               **_bound("ragged_paged_prefill_attention" + ("_q8" if quant else ""),
+                        "float16" if tag else "bfloat16", t=t, h=H, hk=HK, d=D, m=bt.shape[1],
+                        starts=list(starts), lens=list(lens)))
     log(f"time {label} T={t} Bs={bs} rows={len(spans)}, starts {starts}, seq_lens {lens}: kernel "
         f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
         f"{out['bound_ms']:.4f} ms ({out['bound_by']}), max abs err {err:.3g}; without its "
@@ -1939,6 +2109,8 @@ def _serve_run(torch, model, config: dict, card: str, label: str, profile: bool,
         wrappers = _kernel_wrappers()
         for fn in wrappers.values():
             fn.launches = 0
+            if hasattr(fn, "launches_fp16"):
+                fn.launches_fp16 = 0
         core.perf_model.reset()
         before_tl = _timeline_state(core)
         before = (core.steps, core.overlap_s, core.read_wait_s)
@@ -1946,6 +2118,8 @@ def _serve_run(torch, model, config: dict, card: str, label: str, profile: bool,
         results = asyncio.run(_serve(engine, model_prompts(model)))
         wall = time.perf_counter() - t0
         launches = {name: fn.launches for name, fn in wrappers.items()}
+        launches_fp16 = {name: fn.launches_fp16 for name, fn in wrappers.items()
+                         if hasattr(fn, "launches_fp16")}
         # a step boundary: the run's last step has ended on the timeline
         asyncio.run(engine.run_on_engine(lambda: None))
         metrics = core.metrics()
@@ -1984,8 +2158,8 @@ def _serve_run(torch, model, config: dict, card: str, label: str, profile: bool,
     finally:
         engine.shutdown()
     streams = [[t for o in outs for t in o.token_ids] for _, _, outs in results]
-    return dict(launches=launches, metrics=metrics, streams=streams, ttfts=ttfts,
-                decode_tok_s=decode_tokens / decode_window, timeline=tl, cached=cached,
+    return dict(launches=launches, launches_fp16=launches_fp16, metrics=metrics, streams=streams,
+                ttfts=ttfts, decode_tok_s=decode_tokens / decode_window, timeline=tl, cached=cached,
                 prompt_tokens=[len(p) for p in model_prompts(model)],
                 kv_bytes_per_block=kv_block)
 
@@ -3193,6 +3367,187 @@ def parity_phase(torch, card: str, quant: bool = False, make_cfg=None, width: st
             lambda: _verify_logits(torch, cpu, torch.device("cpu"), rows, bs, kv), card)
     del gpu, cpu, state
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------- fp16
+# The fp16 model (Llama-3-8B architecture in float16, as Llama-2's published
+# checkpoints are stored and `--dtype half` serves): the default path at
+# full depth, the planes that carry the other fp16 bodies (token budget,
+# int8 weights and cache) at this depth, as the bf16 planes
+FP16_PLANE_LAYERS = BF16_PLANE_LAYERS
+
+
+def llama3_8b_fp16(num_layers: int = 32):
+    cfg = llama3_8b(num_layers)
+    cfg.dtype = "float16"
+    return cfg
+
+
+def _fp16_model(torch, layers: int, quantized: bool = False):
+    from dynamo_tpu_torch.models.convert import init_params
+    from dynamo_tpu_torch.models.llama import LlamaModel
+
+    cfg = llama3_8b_fp16(layers)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    t0 = time.perf_counter()
+    model = LlamaModel.from_state(cfg, init_params(cfg, gen, device="cuda", quantized=quantized))
+    torch.cuda.synchronize()
+    dtypes = {p.dtype for p in model.parameters()}
+    check(dtypes <= {torch.float16, torch.int8, torch.float32} and torch.float16 in dtypes,
+          f"fp16 model: parameter dtypes {dtypes}")
+    log(f"serving: Llama-3-8B fp16{' int8 weights' if quantized else ''}, {layers} layers, random "
+        f"weights in {time.perf_counter() - t0:.1f} s")
+    return model
+
+
+def fp16_serving_phase(torch, card: str) -> dict:
+    """The six requests on the Llama-3-8B architecture in float16 through
+    ``AsyncLLMEngine``: the default path at full width and 32 layers (B1,
+    B2), then at FP16_PLANE_LAYERS the token-budget path (B3, B1) and int8
+    weights with an int8 cache, Bs 32, on the default and token-budget paths
+    (B5, B4a, B4b; B4c).  Every kernel's counters are zeroed just before
+    each run and read just after: the run's path must have launched each of
+    its fp16 bodies and no bf16 body.  The 32-layer model's logits over a
+    300-token prompt and 8 decode steps must be finite.  Returns each run
+    by its label."""
+    import numpy as np
+
+    from dynamo_tpu_torch.ops.kernels import wrappers
+
+    runs = {}
+
+    def run(model, config, label, need):
+        r = serve_run(torch, model, config, card, label)
+        hf = r["launches_fp16"]
+        bf = {k: n - hf.get(k, 0) for k, n in r["launches"].items()}
+        check(all(hf[k] > 0 for k in need) and not any(bf.values()),
+              f"{label}: fp16 launches {hf}, need {need} > 0; bf16 launches {bf} must be 0")
+        runs[label] = r
+
+    model = _fp16_model(torch, 32)
+    run(model, DEFAULT_PATH, "fp16 default path", ["decode", "prefill"])
+    rng = np.random.default_rng(3)
+    prompt = rng.integers(0, LLAMA3_VOCAB, 300).tolist()
+    logits = _forward_logits(torch, model, torch.device("cuda"), prompt,
+                             rng.integers(0, LLAMA3_VOCAB, 8).tolist(), 128)
+    check(bool(torch.isfinite(logits).all()), "fp16 32-layer model: non-finite logits")
+    log(f"fp16 32-layer model: logits of 9 dispatches finite, max |logit| "
+        f"{logits.abs().max().item():.3f} ({card})")
+    del model
+    torch.cuda.empty_cache()
+    model = _fp16_model(torch, FP16_PLANE_LAYERS)
+    run(model, BUDGET_PATH, f"fp16 token-budget path, {FP16_PLANE_LAYERS} layers", ["ragged", "decode"])
+    del model
+    torch.cuda.empty_cache()
+    model = _fp16_model(torch, FP16_PLANE_LAYERS, quantized=True)
+    run(model, INT8_DEFAULT_PATH, f"fp16 int8 default path, {FP16_PLANE_LAYERS} layers",
+        ["decode_q8", "prefill_q8", "matmul"])
+    run(model, INT8_BUDGET_PATH, f"fp16 int8 token-budget path, {FP16_PLANE_LAYERS} layers",
+        ["ragged_q8", "decode_q8", "matmul"])
+    del model
+    torch.cuda.empty_cache()
+    check(not any(getattr(fn, "launches_fp16", 0) for k, fn in wrappers().items() if k.startswith("moe")),
+          "fp16: a grouped expert kernel counted an fp16 launch")
+    return runs
+
+
+def fp16_refusals(torch, card: str) -> None:
+    """On the card a float32 model and a float16 Qwen3-MoE model (2 layers
+    at Qwen3-30B-A3B width) are refused at construction, each naming the
+    kernel that has no body for it; a float16 dense model with an int8
+    cache is accepted."""
+    from dynamo_tpu_torch.engine import EngineConfig, EngineCore
+    from dynamo_tpu_torch.models.config import ModelConfig
+    from dynamo_tpu_torch.models.llama import LlamaModel
+
+    def refusal(cfg):
+        model = LlamaModel(cfg, device="cuda")
+        try:
+            EngineCore(model, EngineConfig(max_model_len=64, num_blocks=8), device="cuda").close()
+            return None
+        except ValueError as e:
+            return str(e)
+        finally:
+            del model
+            torch.cuda.empty_cache()
+
+    fp32 = refusal(ModelConfig.tiny(dtype="float32"))
+    check(fp32 is not None and "float32" in fp32 and "no kernel" in fp32,
+          f"fp16 refusals: a float32 model on cuda was not refused by name: {fp32}")
+    moe_cfg = qwen3_30b_a3b(2)
+    moe_cfg.dtype = "float16"
+    moe = refusal(moe_cfg)
+    check(moe is not None and "mixture-of-experts" in moe and "E1/E2" in moe,
+          f"fp16 refusals: a float16 Qwen3-MoE model on cuda was not refused by name: {moe}")
+    EngineCore(LlamaModel(ModelConfig.tiny(dtype="float16"), device="cuda"),
+               EngineConfig(max_model_len=64, num_blocks=8, cache_dtype="int8"), device="cuda").close()
+    log(f"fp16 refusals on the card at construction: float32 {fp32!r}; float16 Qwen3-MoE {moe!r}; a "
+        f"float16 dense model with an int8 cache accepted ({card})")
+
+
+FP16_CLI_TOKENS = 16
+
+
+def fp16_cli_phase(card: str) -> dict:
+    """The front door in float16, at once: ``run in=http out=gpu --dtype
+    float16`` on the 2-layer checkpoint, and the same checkpoint converted
+    by ``quantize --scheme none --dtype float16`` into a native fp16
+    checkpoint, served without ``--dtype`` (it keeps its stored dtype):
+    one streamed 300-token completion each, the same greedy text from both;
+    and ``run ... --dtype float32``, which must exit non-zero at
+    construction with the refusal."""
+    import aiohttp
+
+    body = {"model": FRONT_MODEL, "max_tokens": FP16_CLI_TOKENS, "temperature": 0, "stream": True,
+            "prompt": list(range(4000, 4300))}
+    out = {}
+    native_dir = FRONT_DIR / "native-fp16"
+
+    def serve(key, model_dir, flags=()):
+        with cli_server(model_dir, flags) as (base, wait_ready):
+            async def go():
+                async with aiohttp.ClientSession() as s:
+                    ready = await wait_ready(s)
+                    return ready, await _post(s, base + "/v1/completions", body)
+
+            ready, (status, events, first) = asyncio.run(go())
+        check(status == 200 and events[-1] == "[DONE]" and
+              events[-2]["choices"][0]["finish_reason"] == "length",
+              f"fp16 CLI {key}: {status} {events[-3:]}")
+        out[key] = dict(ready_s=ready, first_s=first, text=_text(events))
+
+    def native():
+        t0 = time.perf_counter()
+        q = subprocess.run([sys.executable, "-m", "dynamo_tpu_torch", "quantize", str(FRONT_DIR),
+                            str(native_dir), "--scheme", "none", "--dtype", "float16"],
+                           cwd=str(ROOT), capture_output=True, text=True, timeout=300)
+        check(q.returncode == 0, f"fp16 quantize --scheme none: {q.stderr[-2000:]}")
+        out["quantize_s"] = time.perf_counter() - t0
+        serve("native fp16 checkpoint", native_dir)
+
+    def refused():
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "dynamo_tpu_torch", "run", "in=http", "out=gpu",
+                            "--model-path", str(FRONT_DIR), "--model-name", FRONT_MODEL, "--http-port",
+                            "0", "--dtype", "float32"], cwd=str(ROOT), capture_output=True, text=True,
+                           timeout=300)
+        check(r.returncode != 0 and "model dtype 'float32' on cuda: no kernel" in r.stderr,
+              f"run --dtype float32: exit {r.returncode}, {r.stderr[-2000:]}")
+        out["fp32_refused"] = dict(rc=r.returncode, s=time.perf_counter() - t0,
+                                   message=r.stderr.strip().splitlines()[-1])
+
+    concurrently(lambda: serve("--dtype float16", FRONT_DIR, ("--dtype", "float16")), native, refused)
+    check(out["--dtype float16"]["text"] == out["native fp16 checkpoint"]["text"],
+          f"fp16 CLI: run --dtype float16 answered {out['--dtype float16']['text']!r}, the native fp16 "
+          f"checkpoint {out['native fp16 checkpoint']['text']!r}")
+    log(f"fp16 front door: `run in=http out=gpu --dtype float16` answered a streamed completion "
+        f"(/health after {out['--dtype float16']['ready_s']:.1f} s, first text "
+        f"{out['--dtype float16']['first_s']:.3f} s); `quantize --scheme none --dtype float16` "
+        f"({out['quantize_s']:.1f} s) then `run` on the native checkpoint gave the same text; `run "
+        f"--dtype float32` exited {out['fp32_refused']['rc']} at construction: "
+        f"{out['fp32_refused']['message']!r} ({card})")
+    return out
 
 
 # --------------------------------------------------------------- front door
@@ -8306,6 +8661,8 @@ def main() -> int:
         sass_check(torch, lib_path)
         errs = kernel_phase(torch)
         mark("kernel checks")
+        errs.update(fp16_kernel_phase(torch))
+        mark("fp16 kernel checks")
         kern_phase(torch, card)
         mark("kern")
         times = timing_phase(torch, card)
@@ -8315,10 +8672,17 @@ def main() -> int:
         times.update(moe_timing(torch, card))
         mla = mla_timing(torch, card)
         mark("kernel timings")
+        f16 = torch.float16
+        times.update(timing_phase(torch, card, f16))
+        times.update(q8_timing_phase(torch, card, f16))
+        times.update(matmul_timing(torch, card, f16))
+        mark("fp16 kernel timings")
         write_tokenizer(FRONT_DIR)
         default, budget, mixed, spec, disagg, tier, fault = serving_phase(torch, card)
         times["ragged"] = ragged_timing(torch, card, mixed)
         times["ragged_err"] = times["ragged"].pop("err")
+        times["ragged_fp16"] = ragged_timing(torch, card, mixed, dtype=f16)
+        times["ragged_err_fp16"] = times["ragged_fp16"].pop("err")
         mark("Llama-3-8B bf16 serving")
         analysis = read_analysis(analysis_proc)
         trace_line(default, analysis, card)
@@ -8328,15 +8692,23 @@ def main() -> int:
                                                                                        card)
         times["ragged_q8"] = ragged_timing(torch, card, q8_mixed, quant=True)
         times["ragged_q8_err"] = times["ragged_q8"].pop("err")
+        times["ragged_q8_fp16"] = ragged_timing(torch, card, q8_mixed, quant=True, dtype=f16)
+        times["ragged_q8_err_fp16"] = times["ragged_q8_fp16"].pop("err")
         disagg.update(q8_disagg)
         disagg_out = disagg_line(torch, disagg, card)
         tier_out = tier_line(tier, q8_tier, card)
         mark("Llama-3-8B int8 serving")
+        fp16 = fp16_serving_phase(torch, card)
+        fp16_refusals(torch, card)
+        mark("Llama-3-8B fp16 serving")
         parity_phase(torch, card, verify=True)
         parity_phase(torch, card, quant=True)
+        parity_phase(torch, card, make_cfg=llama3_8b_fp16, width="8B fp16")
         mark("Llama-3-8B parity")
         graphs, formats, mesh_cli = front_door_phase(torch, card)
         mark("Llama-3-8B front door")
+        fp16_cli = fp16_cli_phase(card)
+        mark("Llama-3-8B fp16 front door")
         moe_default, moe_budget = moe_serving_phase(torch, card)
         mark("Qwen3-30B-A3B serving")
         parity_phase(torch, card, make_cfg=qwen3_30b_a3b, width="Qwen3-30B-A3B")
@@ -8490,6 +8862,36 @@ def main() -> int:
              launches_formats=formats["launches_total"]["moe_q8"],
              max_abs_err=max(errs["moe_q8"], times["moe_q8_err"]), **times["moe_q8"]),
     ]
+    # the fp16 bodies: launches over the fp16 serving run of the path each
+    # carries (decode and prefill: the 32-layer default path; ragged: the
+    # token-budget path; the int8 bodies: the int8 model's two paths)
+    fp16_runs = {"default": fp16["fp16 default path"],
+                 "budget": fp16[f"fp16 token-budget path, {FP16_PLANE_LAYERS} layers"],
+                 "q8_default": fp16[f"fp16 int8 default path, {FP16_PLANE_LAYERS} layers"],
+                 "q8_budget": fp16[f"fp16 int8 token-budget path, {FP16_PLANE_LAYERS} layers"]}
+    fp16_rows = []
+    for name, key, run, source, replaces in (
+            ("paged_decode_attention", "decode", "default", "decode_attention.cu", "decode_attention.py:281"),
+            ("paged_prefill_attention", "prefill", "default", "prefill_attention.cu",
+             "prefill_attention.py:246"),
+            ("ragged_paged_prefill_attention", "ragged", "budget", "ragged_prefill_attention.cu",
+             "prefill_attention.py:593"),
+            ("paged_decode_attention_q8", "decode_q8", "q8_default", "decode_attention.cu",
+             "decode_attention.py:94"),
+            ("paged_prefill_attention_q8", "prefill_q8", "q8_default", "prefill_attention.cu",
+             "prefill_attention.py:57"),
+            ("ragged_paged_prefill_attention_q8", "ragged_q8", "q8_budget", "ragged_prefill_attention.cu",
+             "prefill_attention.py:384"),
+            ("int8_matmul", "matmul", "q8_default", "int8_matmul.cu", "int8_matmul.py:64")):
+        t = times[key + "_fp16"]
+        fp16_rows.append(dict(
+            name=f"{name}_fp16", route="cuda", source=f"dynamo_tpu_torch/csrc/{source}",
+            replaces=f"dynamo_tpu/ops/pallas/{replaces}", dtype="float16",
+            launches=fp16_runs[run]["launches_fp16"][key],
+            max_abs_err=max(errs[key + "_fp16"], times[key + "_err_fp16"]),
+            ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=t["library_ms"], **({"prefill": times["matmul_prefill_fp16"]}
+                                            if key == "matmul" else {})))
     # and on the mesh, each rank's over the tp = 2 and SP runs (mesh_phase)
     mesh_keys = {"paged_decode_attention": "decode", "paged_prefill_attention": "prefill",
                  "ragged_paged_prefill_attention": "ragged",
@@ -8521,7 +8923,16 @@ def main() -> int:
     log(json.dumps({"graphs": graphs}))
     log(json.dumps({"fault": fault}))
     log(json.dumps({"formats": formats}))
-    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"fp16": dict(
+        card=card, layers={label: FP16_PLANE_LAYERS if "layers" in label else 32 for label in fp16},
+        runs={label: dict(ttft_median_s=sorted(r["ttfts"])[len(r["ttfts"]) // 2],
+                          ttft_max_s=max(r["ttfts"]), decode_tok_s=r["decode_tok_s"],
+                          launches_fp16=r["launches_fp16"]) for label, r in fp16.items()},
+        bf16_default=dict(ttft_median_s=sorted(default["ttfts"])[len(default["ttfts"]) // 2],
+                          ttft_max_s=max(default["ttfts"]), decode_tok_s=default["decode_tok_s"]),
+        cli={k: ({kk: vv for kk, vv in v.items() if kk != "text"} if isinstance(v, dict) else v)
+             for k, v in fp16_cli.items()})}))
+    log(json.dumps({"kernels": kernels + fp16_rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                           "count": torch.cuda.device_count()}}))
     return 0

@@ -30,9 +30,11 @@ cases with the same poison, is ``chip_smoke.py``'s ``kern`` phase.
   ``plan_cost`` per (kernel, geometry) against the committed manifest.
 - **KN006, census**: each registered kernel needs its wrapper, its plain
   version, its launch counter and a ``chip_smoke.py`` probe, and every
-  wrapper of ``ops/kernels.wrappers()`` must be registered.  The two-kernel
-  split (B1 and B3 separate, the unified kernel a placeholder) is a
-  permanent finding whose accepted entry is its pin, as in the JAX plane.
+  wrapper of ``ops/kernels.wrappers()`` must be registered; a kernel with a
+  float16 body (its ``dtypes``) also needs its ``launches_fp16`` counter
+  and a float16 run case.  The two-kernel split (B1 and B3 separate, the
+  unified kernel a placeholder) is a permanent finding whose accepted
+  entry is its pin, as in the JAX plane.
 
 Facts commit to ``analysis/kern_manifest.json`` under the manifest contract
 the metrics plane keeps (``metcheck.MetricsManifest``).  ``DTKERN_BUDGET`` /
@@ -367,11 +369,13 @@ def _census_facts(root: Path) -> dict:
     from dynamo_tpu_torch.ops.kernels import registry, wrappers
 
     geoms: dict[str, list] = {}
-    run_cases = set()
+    run_cases, fp16_runs = set(), set()
     for case in registry.audit_cases():
         geoms.setdefault(case["kernel"], []).append(case["name"])
         if case["mode"] == "run":
             run_cases.add(case["kernel"])
+            if case.get("dtype") == "float16":
+                fp16_runs.add(case["kernel"])
     probes = _smoke_functions(root)
     kernels = {}
     for name, meta in sorted(registry.KERNELS.items()):
@@ -390,7 +394,11 @@ def _census_facts(root: Path) -> dict:
             "counter": isinstance(getattr(fn, meta["counter"], None), int),
             "probed": meta["probe"] in probes and name in run_cases,
             "geometries": sorted(geoms.get(name, [])),
+            "dtypes": list(meta["dtypes"]),
         }
+        if "float16" in meta["dtypes"]:
+            kernels[name].update(counter_fp16=isinstance(getattr(fn, "launches_fp16", None), int),
+                                 probed_fp16=meta["probe"] in probes and name in fp16_runs)
     return {"kernels": kernels, "split": dict(registry.SPLIT),
             "unregistered": sorted(fn.__name__ for fn in wrappers().values()
                                    if fn.__name__ not in registry.KERNELS)}
@@ -439,7 +447,10 @@ def _check_census(census: dict) -> list[KernFinding]:
     for kname, meta in sorted(kernels.items()):
         if meta.get("placeholder"):
             continue
-        for part in ("wrapper", "plain", "counter", "probed"):
+        parts = ("wrapper", "plain", "counter", "probed")
+        if "float16" in meta.get("dtypes", ()):
+            parts += ("counter_fp16", "probed_fp16")
+        for part in parts:
             if not meta.get(part):
                 findings.append(KernFinding(
                     CENSUS, "KN006", f"{part}:{kname}",

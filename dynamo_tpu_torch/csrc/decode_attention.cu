@@ -18,9 +18,10 @@
 // serving shapes that is a few microseconds, so what a call costs is its
 // latency: the dependent loads of a block's walk and the launches.
 //
-// One kernel serves both caches, a template over the cache's element type
-// (decode_kernel<E, D, R>: E = __nv_bfloat16 for B1, int8_t for B4a), in
-// one launch.  The context is split into chunks of `chunk` tokens (the
+// One kernel serves both caches and both activation types, a template over
+// the cache's element type and the type of q and out (decode_kernel<E, A,
+// D, R>: E = A for B1, int8_t for B4a; A = __nv_bfloat16, or __half for
+// the fp16 bodies, whose cache is fp16 or int8), in one launch.  The context is split into chunks of `chunk` tokens (the
 // caller's plan: a multiple of 64, the shortest that keeps a full table's
 // grid within about two waves of blocks and a row at DYN_B4A_MAX_CHUNKS
 // chunks), one block per (KV head, group of query rows, row, chunk), so a
@@ -38,8 +39,8 @@
 // products of a 64-key chunk are a few hundred FMAs a thread, and the
 // warps' partials merge in shared memory once.  In a tile, lane (key j,
 // half h) computes key j's scores over half the head dims for every query
-// row from f32 Q in shared memory (bf16 -> f32 is a shift; int8 -> f32
-// exact, one PRMT and one FADD a value), the two halves meet in one
+// row from f32 Q in shared memory (bf16 -> f32 is a shift, fp16 -> f32 one
+// convert a pair; int8 -> f32 exact, one PRMT and one FADD a value), the two halves meet in one
 // shuffle, the softmax runs in base 2 over the 16 keys by shuffles, and P
 // goes through shared memory to the P V product, where each lane owns
 // D / 32 output columns.  Over an int8 cache the K scale multiplies the
@@ -116,8 +117,8 @@ __device__ __forceinline__ float i8_to_f32(uint32_t biased) {
   return __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7440 | K)) - 8388736.f;
 }
 
-// The 32-bit word w of E values as f32: four int8 or two bf16 (a bf16 is
-// the top half of its f32).
+// The 32-bit word w of E values as f32: four int8, two fp16 or two bf16
+// (a bf16 is the top half of its f32).
 template <class E>
 __device__ __forceinline__ void word_to_f32(uint32_t w, float* f) {
   if constexpr (kQuant<E>) {
@@ -126,6 +127,10 @@ __device__ __forceinline__ void word_to_f32(uint32_t w, float* f) {
     f[1] = i8_to_f32<1>(x);
     f[2] = i8_to_f32<2>(x);
     f[3] = i8_to_f32<3>(x);
+  } else if constexpr (std::is_same<E, __half>::value) {
+    const float2 v = __half22float2(*reinterpret_cast<const __half2*>(&w));
+    f[0] = v.x;
+    f[1] = v.y;
   } else {
     f[0] = __uint_as_float(w << 16);
     f[1] = __uint_as_float(w & 0xffff0000u);
@@ -157,17 +162,18 @@ __device__ __forceinline__ void load_f32(const uint8_t* p, float (&f)[N]) {
 }
 }  // namespace dec
 
-// Block (KV head x row group, row b, chunk c) of the decode kernel: query
+// Block (KV head x row group, row b, chunk c) of the decode kernel, q and
+// out of A (__nv_bfloat16 or __half), the cache of E (A or int8_t): query
 // rows r0 .. r0 + R - 1 of the row's S * G (R = 4, 8 or 16; the plan's row
 // groups cover them), keys [c * chunk, (c + 1) * chunk) of its context.
 // `ws` holds a partial of R * (D + 2) floats per (row, KV head, row group,
 // chunk); `tickets` one zeroed int per (row, KV head, row group).  `scale`,
 // Hp and Sp are read over an int8 cache only.
-template <class E, int D, int R>
+template <class E, class A, int D, int R>
 __global__ void __launch_bounds__(dec::kThreads)
-decode_kernel(const __nv_bfloat16* __restrict__ q, const E* __restrict__ cache, const float* __restrict__ scale,
+decode_kernel(const A* __restrict__ q, const E* __restrict__ cache, const float* __restrict__ scale,
               const int* __restrict__ block_tables, const int* __restrict__ seq_lens, const int* __restrict__ q0_pos,
-              __nv_bfloat16* __restrict__ out, float* __restrict__ ws, int* __restrict__ tickets, int S, int H,
+              A* __restrict__ out, float* __restrict__ ws, int* __restrict__ tickets, int S, int H,
               int Hk, int N, int Bs, int M, int layer, int Hp, int Sp, int chunk, int row_groups, float sm_scale,
               float logit_cap) {
   using namespace hopper;
@@ -259,10 +265,10 @@ decode_kernel(const __nv_bfloat16* __restrict__ q, const E* __restrict__ cache, 
     uint4 raw = make_uint4(0, 0, 0, 0);
     if (r < nr) raw = __ldg(reinterpret_cast<const uint4*>(q + row_off(r)) + part);
     float f[8];
-    dec::word_to_f32<__nv_bfloat16>(raw.x, f);
-    dec::word_to_f32<__nv_bfloat16>(raw.y, f + 2);
-    dec::word_to_f32<__nv_bfloat16>(raw.z, f + 4);
-    dec::word_to_f32<__nv_bfloat16>(raw.w, f + 6);
+    dec::word_to_f32<A>(raw.x, f);
+    dec::word_to_f32<A>(raw.y, f + 2);
+    dec::word_to_f32<A>(raw.z, f + 4);
+    dec::word_to_f32<A>(raw.w, f + 6);
     float4* dst = reinterpret_cast<float4*>(qs + r * D + part * 8);
     dst[0] = make_float4(f[0] * qk_scale, f[1] * qk_scale, f[2] * qk_scale, f[3] * qk_scale);
     dst[1] = make_float4(f[4] * qk_scale, f[5] * qk_scale, f[6] * qk_scale, f[7] * qk_scale);
@@ -393,7 +399,7 @@ decode_kernel(const __nv_bfloat16* __restrict__ q, const E* __restrict__ cache, 
       ll += wt * wp[R * D + R + r];
     }
     if (n_live == 1) {  // the row's only chunk: the output
-      if (r < nr) out[row_off(r) + e % D] = __float2bfloat16(acc / fmaxf(ll, 1e-9f));
+      if (r < nr) out[row_off(r) + e % D] = from_f32<A>(acc / fmaxf(ll, 1e-9f));
     } else {
       part[e] = acc;
       if (e % D == 0) {
@@ -462,11 +468,11 @@ decode_kernel(const __nv_bfloat16* __restrict__ q, const E* __restrict__ cache, 
 #pragma unroll
   for (int k = 0; k < kE; ++k) {
     const int e = tid + k * kThreads, r = e / D;
-    if (r < nr) out[row_off(r) + e % D] = __float2bfloat16(acc[k] * inv[r]);
+    if (r < nr) out[row_off(r) + e % D] = from_f32<A>(acc[k] * inv[r]);
   }
 }
 
-template <class E, int D, int R>
+template <class E, class A, int D, int R>
 int launch(const void* q, const void* cache, const void* scale, const void* bt, const void* lens, const void* q0,
            void* out, void* ws, void* tickets, int B, int S, int H, int Hk, int N, int Bs, int M, int layer, int Hp,
            int Sp, int chunk, int n_chunks, int row_groups, float sm_scale, float logit_cap, cudaStream_t stream) {
@@ -474,20 +480,20 @@ int launch(const void* q, const void* cache, const void* scale, const void* bt, 
     return cudaErrorInvalidValue;
   } else {
     constexpr size_t kSmem = dec::Geometry<E, D, R>::kSmem;
-    static const cudaError_t attr = allow_smem(decode_kernel<E, D, R>, kSmem);  // once
+    static const cudaError_t attr = allow_smem(decode_kernel<E, A, D, R>, kSmem);  // once
     if (attr != cudaSuccess) return attr;
-    decode_kernel<E, D, R><<<dim3(Hk * row_groups, B, n_chunks), dec::kThreads, kSmem, stream>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const E*>(cache), static_cast<const float*>(scale),
+    decode_kernel<E, A, D, R><<<dim3(Hk * row_groups, B, n_chunks), dec::kThreads, kSmem, stream>>>(
+        static_cast<const A*>(q), static_cast<const E*>(cache), static_cast<const float*>(scale),
         static_cast<const int*>(bt), static_cast<const int*>(lens), static_cast<const int*>(q0),
-        static_cast<__nv_bfloat16*>(out), static_cast<float*>(ws), static_cast<int*>(tickets), S, H, Hk, N, Bs, M,
+        static_cast<A*>(out), static_cast<float*>(ws), static_cast<int*>(tickets), S, H, Hk, N, Bs, M,
         layer, Hp, Sp, chunk, row_groups, sm_scale, logit_cap);
     return cudaGetLastError();
   }
 }
 
-// The plan's launch over a cache of E, after checking that it fits the
-// shapes (see dynamo_decode_attention below).
-template <class E>
+// The plan's launch over a cache of E under q and out of A, after checking
+// that it fits the shapes (see dynamo_decode_attention below).
+template <class E, class A>
 int launch_plan(const void* q, const void* cache, const void* scale, const void* bt, const void* lens,
                 const void* q0, void* out, void* ws, void* tickets, int B, int S, int H, int Hk, int D, int N, int Bs,
                 int M, int layer, int Hp, int Sp, int chunk, int n_chunks, int rows, int row_groups, float sm_scale,
@@ -501,7 +507,7 @@ int launch_plan(const void* q, const void* cache, const void* scale, const void*
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define DYNAMO_DECODE_LAUNCH(DIM, R)                                                                              \
-  return launch<E, DIM, R>(q, cache, scale, bt, lens, q0, out, ws, tickets, B, S, H, Hk, N, Bs, M, layer, Hp, Sp, \
+  return launch<E, A, DIM, R>(q, cache, scale, bt, lens, q0, out, ws, tickets, B, S, H, Hk, N, Bs, M, layer, Hp, Sp, \
                            chunk, n_chunks, row_groups, sm_scale, logit_cap, st)
 #define DYNAMO_DECODE_ROWS(DIM)     \
   switch (rows) {                   \
@@ -547,9 +553,21 @@ extern "C" int dynamo_decode_attention(const void* q, const void* cache, const v
                                        void* tickets, int B, int S, int H, int Hk, int D, int N, int Bs, int M,
                                        int layer, int chunk, int n_chunks, int rows, int row_groups, float sm_scale,
                                        float logit_cap, void* stream) {
-  return dynamo::launch_plan<__nv_bfloat16>(q, cache, nullptr, block_tables, seq_lens, q0_pos, out, workspace,
-                                            tickets, B, S, H, Hk, D, N, Bs, M, layer, 0, 0, chunk, n_chunks, rows,
-                                            row_groups, sm_scale, logit_cap, stream);
+  return dynamo::launch_plan<__nv_bfloat16, __nv_bfloat16>(q, cache, nullptr, block_tables, seq_lens, q0_pos, out,
+                                                           workspace, tickets, B, S, H, Hk, D, N, Bs, M, layer, 0, 0,
+                                                           chunk, n_chunks, rows, row_groups, sm_scale, logit_cap,
+                                                           stream);
+}
+
+// The fp16 body: q, cache and out float16, the other arguments as above.
+extern "C" int dynamo_decode_attention_f16(const void* q, const void* cache, const void* block_tables,
+                                           const void* seq_lens, const void* q0_pos, void* out, void* workspace,
+                                           void* tickets, int B, int S, int H, int Hk, int D, int N, int Bs, int M,
+                                           int layer, int chunk, int n_chunks, int rows, int row_groups,
+                                           float sm_scale, float logit_cap, void* stream) {
+  return dynamo::launch_plan<__half, __half>(q, cache, nullptr, block_tables, seq_lens, q0_pos, out, workspace,
+                                             tickets, B, S, H, Hk, D, N, Bs, M, layer, 0, 0, chunk, n_chunks, rows,
+                                             row_groups, sm_scale, logit_cap, stream);
 }
 
 // The same over an int8 cache: cache [L, N, 2, Bs, Hk*D] int8 and scale
@@ -561,7 +579,20 @@ extern "C" int dynamo_decode_attention_q8(const void* q, const void* cache, cons
                                           int D, int N, int Bs, int M, int layer, int Hp, int Sp, int chunk,
                                           int n_chunks, int rows, int row_groups, float sm_scale, float logit_cap,
                                           void* stream) {
-  return dynamo::launch_plan<int8_t>(q, cache, scale, block_tables, seq_lens, q0_pos, out, workspace, tickets, B, S,
-                                     H, Hk, D, N, Bs, M, layer, Hp, Sp, chunk, n_chunks, rows, row_groups, sm_scale,
-                                     logit_cap, stream);
+  return dynamo::launch_plan<int8_t, __nv_bfloat16>(q, cache, scale, block_tables, seq_lens, q0_pos, out, workspace,
+                                                    tickets, B, S, H, Hk, D, N, Bs, M, layer, Hp, Sp, chunk, n_chunks,
+                                                    rows, row_groups, sm_scale, logit_cap, stream);
+}
+
+// The fp16 body over an int8 cache: q and out float16, the other arguments
+// as above.
+extern "C" int dynamo_decode_attention_q8_f16(const void* q, const void* cache, const void* scale,
+                                              const void* block_tables, const void* seq_lens, const void* q0_pos,
+                                              void* out, void* workspace, void* tickets, int B, int S, int H, int Hk,
+                                              int D, int N, int Bs, int M, int layer, int Hp, int Sp, int chunk,
+                                              int n_chunks, int rows, int row_groups, float sm_scale,
+                                              float logit_cap, void* stream) {
+  return dynamo::launch_plan<int8_t, __half>(q, cache, scale, block_tables, seq_lens, q0_pos, out, workspace, tickets,
+                                             B, S, H, Hk, D, N, Bs, M, layer, Hp, Sp, chunk, n_chunks, rows,
+                                             row_groups, sm_scale, logit_cap, stream);
 }

@@ -6,7 +6,13 @@
 // f32 accumulation and the scale in the epilogue.  The weight is [K, N]
 // row-major (a projection) or [N, K] row-major (its transpose: the tied
 // embedding [V, Dm] used as the lm_head), read as it lies, never copied.
-// Out is bf16 or f32 (logits).  M, N and K may be any size: tile edges are
+// Out is bf16 or f32 (logits).  The fp16 body (dynamo_int8_matmul_f16)
+// is the same kernels for x [M, K] float16 and out float16 or f32: the int8
+// codes convert exactly to fp16 (|v| <= 127; 0x6400 | u minus 1152, see
+// hopper.cuh), the products run as mma.sync / wgmma .f16 with f32
+// accumulation, and x is multiplied as it is: the TPU kernel rounds x to
+// bf16 first (int8_matmul.py:48), which an fp16 model has no reason to
+// copy.  M, N and K may be any size: tile edges are
 // zero-filled on load and masked on store.  Rows whose length is a
 // multiple of 16 bytes (and 16-byte aligned pointers) are copied with
 // 16-byte cp.async; otherwise (a vocabulary of 32002, say) each 16-byte
@@ -86,17 +92,20 @@ constexpr int kBK = DYN_B5_BK;                    // contracted depth per stage,
 constexpr int kDecodeMaxM = DYN_B5_DECODE_MAX_M;  // crossover: M at or below runs the decode regime
 static_assert(kBK == 64 && kDecodeMaxM == 16, "the copy and fragment mappings below are written for these");
 
-// Bytes (a, b) of the eight in (lo, hi), selected as __byte_perm does, as bf16x2.
-template <int A, int B>
-__device__ __forceinline__ uint32_t bytes_to_bf16x2(uint32_t lo, uint32_t hi) {
-  return i8x2_to_bf16x2(__byte_perm(lo, hi, A | (B << 8)));
+// Bytes (a, b) of the eight in (lo, hi), selected as __byte_perm does, as
+// a pair of T (bf16 or fp16).
+template <class T, int A, int B>
+__device__ __forceinline__ uint32_t bytes_to_x2(uint32_t lo, uint32_t hi) {
+  return i8x2_to_x2<T>(__byte_perm(lo, hi, A | (B << 8)));
 }
 
+// y into element o of out: f32, or rounded to T.
+template <class T>
 __device__ __forceinline__ void store_out(void* out, size_t o, float y, int out_f32) {
   if (out_f32)
     static_cast<float*>(out)[o] = y;
   else
-    static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16(y);
+    static_cast<T*>(out)[o] = from_f32<T>(y);
 }
 
 // One 16-byte chunk of a row into shared memory at `dst`: the first `valid`
@@ -126,8 +135,8 @@ __device__ __forceinline__ void copy_chunk(uint8_t* dst, const T* src, int valid
 // adds the slices in split order, scales and rounds once, and zeroes the
 // ticket for the next launch on the stream; sync() synchronises the
 // participating threads.  Each thread sums two float4 columns at once, so
-// 16 loads are in flight.
-template <class Sync>
+// 16 loads are in flight.  A non-f32 out is of T.
+template <class T, class Sync>
 __device__ void finish_split(Sync sync, const float* __restrict__ partials, int* __restrict__ ticket,
                              const float* __restrict__ scale, void* __restrict__ out, int M, int N, int m0, int rows,
                              int n0, int cols, int splits, int out_f32, int tid, int nthreads, int* s_last) {
@@ -172,7 +181,7 @@ __device__ void finish_split(Sync sync, const float* __restrict__ partials, int*
       const float y[4] = {s[h].x, s[h].y, s[h].z, s[h].w};
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        if (n[h] + e < N) store_out(out, (size_t)m[h] * N + n[h] + e, y[e] * __ldg(scale + n[h] + e), out_f32);
+        if (n[h] + e < N) store_out<T>(out, (size_t)m[h] * N + n[h] + e, y[e] * __ldg(scale + n[h] + e), out_f32);
     }
   }
 }
@@ -183,7 +192,7 @@ constexpr int kBC = DYN_B5_PF_CHANNELS, kBT = DYN_B5_PF_TOKENS;  // channels (2 
 constexpr int kStages = DYN_B5_PF_STAGES;
 constexpr int kThreads = DYN_B5_PF_THREADS;
 constexpr int kRawBytes = kBC * kBK;       // int8 weight tile as copied
-constexpr int kXBytes = kBT * kBK * 2;     // bf16 x tile, K-major SW128 (the B operand)
+constexpr int kXBytes = kBT * kBK * 2;     // x tile (bf16 or fp16), K-major SW128 (the B operand)
 constexpr int kStageBytes = kXBytes + kRawBytes;
 constexpr size_t kSmem = DYN_B5_PF_SMEM;
 static_assert(kBC == 128 && kBT == 128 && kThreads == 384, "the copy and fragment mappings below are written for these");
@@ -193,10 +202,11 @@ static_assert(1024 + (size_t)kStages * kStageBytes + 2 * kStages * sizeof(uint64
 
 // out^T = W^T x^T on wgmma: the A operand (64 channels of a warpgroup x 16
 // deep) is built in registers straight from the int8 tile, B is the x tile.
+// T: the type of x (and of a non-f32 out), __nv_bfloat16 or __half.
 // VEC: every copy is a whole aligned 16 bytes (copy_chunk).
-template <bool NK, bool VEC>
+template <class T, bool NK, bool VEC>
 __global__ void __launch_bounds__(pf::kThreads, 1)
-w8a16_wgmma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
+w8a16_wgmma_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
                    const float* __restrict__ scale, void* __restrict__ out, float* __restrict__ partials,
                    int* __restrict__ tickets, int M, int N, int K, int k_steps, int out_f32) {
   using namespace pf;
@@ -278,8 +288,8 @@ w8a16_wgmma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict
             const uint8_t* row = raw + r * 64 + 2 * t;
             const uint32_t lo = *reinterpret_cast<const uint16_t*>(row + ((kk ^ ((r >> 1) & 3)) << 4));
             const uint32_t hi = *reinterpret_cast<const uint16_t*>(row + ((kk ^ ((r >> 1) & 3)) << 4) + 8);
-            a[kk][h] = bytes_to_bf16x2<0, 1>(lo, 0);
-            a[kk][2 + h] = bytes_to_bf16x2<0, 1>(hi, 0);
+            a[kk][h] = bytes_to_x2<T, 0, 1>(lo, 0);
+            a[kk][2 + h] = bytes_to_x2<T, 0, 1>(hi, 0);
           }
         } else {
           uint32_t v[4];
@@ -290,17 +300,17 @@ w8a16_wgmma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict
             v[j] = *reinterpret_cast<const uint16_t*>(raw + kr * 128 + (((col >> 4) ^ ((kr >> 1) & 3)) << 4) +
                                                       (col & 15));
           }
-          a[kk][0] = bytes_to_bf16x2<0, 4>(v[0], v[1]);
-          a[kk][1] = bytes_to_bf16x2<1, 5>(v[0], v[1]);
-          a[kk][2] = bytes_to_bf16x2<0, 4>(v[2], v[3]);
-          a[kk][3] = bytes_to_bf16x2<1, 5>(v[2], v[3]);
+          a[kk][0] = bytes_to_x2<T, 0, 4>(v[0], v[1]);
+          a[kk][1] = bytes_to_x2<T, 1, 5>(v[0], v[1]);
+          a[kk][2] = bytes_to_x2<T, 0, 4>(v[2], v[3]);
+          a[kk][3] = bytes_to_x2<T, 1, 5>(v[2], v[3]);
         }
       }
       const uint32_t xb = smem_u32(smem + s * kStageBytes);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk)
-        Wgmma<128, 0>::rs(acc, a[kk][0], a[kk][1], a[kk][2], a[kk][3], sw128_desc(xb + kk * 32, 16, 1024),
+        Wgmma<128, 0, 0, T>::rs(acc, a[kk][0], a[kk][1], a[kk][2], a[kk][3], sw128_desc(xb + kk * 32, 16, 1024),
                           (kt > 0 || kk > 0) ? 1 : 0);
       wgmma_commit();
       wgmma_wait<1>();  // stage kt - 1's group has retired: its slot and A registers are free
@@ -333,7 +343,7 @@ w8a16_wgmma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict
       const int np = (N + 3) & ~3;
       float* part = partials + blockIdx.z * (size_t)M * np;
       for_each([&](int i, int m, int n) { part[(size_t)m * np + n] = acc[i]; });
-      finish_split([] { named_sync(1, 256); }, partials, tickets + blockIdx.y * gridDim.x + blockIdx.x, scale,
+      finish_split<T>([] { named_sync(1, 256); }, partials, tickets + blockIdx.y * gridDim.x + blockIdx.x, scale,
                    out, M, N, m0, kBT, n0, kBC, gridDim.z, out_f32, tid, 256, &s_last);
     } else if (!NK && VEC) {  // channels 2g, 2g + 1 of one token are adjacent (N even): one paired store
 #pragma unroll
@@ -346,10 +356,10 @@ w8a16_wgmma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict
         if (out_f32)
           *reinterpret_cast<float2*>(static_cast<float*>(out) + o) = make_float2(y0, y1);
         else
-          *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(out) + o) = __floats2bfloat162_rn(y0, y1);
+          *reinterpret_cast<uint32_t*>(static_cast<T*>(out) + o) = pack_x2<T>(y0, y1);
       }
     } else {
-      for_each([&](int i, int m, int n) { store_out(out, (size_t)m * N + n, acc[i] * __ldg(scale + n), out_f32); });
+      for_each([&](int i, int m, int n) { store_out<T>(out, (size_t)m * N + n, acc[i] * __ldg(scale + n), out_f32); });
     }
   }
 }
@@ -360,17 +370,17 @@ constexpr int kBN = DYN_B5_DC_CHANNELS;        // channels per block: 4 warps x 
 constexpr int kStages = DYN_B5_DC_STAGES;
 constexpr int kThreads = DYN_B5_DC_THREADS;
 constexpr int kWBytes = kBN * kBK;             // 8 KB of int8 weight
-constexpr int kStageBytes = kWBytes + kDecodeMaxM * kBK * 2;  // + the x rows [16, 64] bf16
+constexpr int kStageBytes = kWBytes + kDecodeMaxM * kBK * 2;  // + the x rows [16, 64] (bf16 or fp16)
 constexpr size_t kSmem = DYN_B5_DC_SMEM;
 static_assert(kBN == 128 && kThreads == 128, "the copy and fragment mappings below are written for these");
 static_assert((size_t)kStages * kStageBytes == kSmem, "DYN_B5_DC_SMEM must be the shared memory this layout takes");
 }  // namespace dc
 
-// NT fragments of 8 token rows (M <= 8 * NT); VEC: every copy is a whole
-// aligned 16 bytes (copy_chunk).
-template <bool NK, int NT, bool VEC>
+// NT fragments of 8 token rows (M <= 8 * NT); T the type of x (and of a
+// non-f32 out); VEC: every copy is a whole aligned 16 bytes (copy_chunk).
+template <class T, bool NK, int NT, bool VEC>
 __global__ void __launch_bounds__(dc::kThreads)
-w8a16_decode_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ w,
+w8a16_decode_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
                     const float* __restrict__ scale, void* __restrict__ out, float* __restrict__ partials,
                     int* __restrict__ tickets, int M, int N, int K, int k_steps, int out_f32) {
   using namespace dc;
@@ -385,7 +395,7 @@ w8a16_decode_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restric
   // One stage: 512 chunks of 16 weight bytes, 4 per thread.  [N, K]: 128
   // channel rows of 64 bytes, chunk kc at kc ^ ((row / 2) % 4).  [K, N]: 64
   // depth rows of 128 bytes, chunk nc at nc ^ 2 ((row / 4) % 4).  Then the
-  // x rows [16, 64] bf16, one chunk per thread, chunk c of row r at c ^ (r % 8)
+  // x rows [16, 64] of T, one chunk per thread, chunk c of row r at c ^ (r % 8)
   // (rows past M zero-filled).  Every fragment read is free of bank conflicts.
   auto issue = [&](int it) {
     uint8_t* st = ring + (it % kStages) * kStageBytes;
@@ -448,8 +458,8 @@ w8a16_decode_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restric
             const int r = 32 * warp + 16 * f + g + 8 * h;
             const uint32_t wv =
                 *reinterpret_cast<const uint32_t*>(st + r * 64 + ((kk ^ ((r >> 1) & 3)) << 4) + 4 * t);
-            a[f][h] = bytes_to_bf16x2<0, 1>(wv, 0);
-            a[f][2 + h] = bytes_to_bf16x2<2, 3>(wv, 0);
+            a[f][h] = bytes_to_x2<T, 0, 1>(wv, 0);
+            a[f][2 + h] = bytes_to_x2<T, 2, 3>(wv, 0);
           }
         }
       } else {   // fragment f, row g (+8): channel 32 warp + 4 g + 2 f (+1)
@@ -461,19 +471,19 @@ w8a16_decode_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restric
           wv[jj] = *reinterpret_cast<const uint32_t*>(st + kr * 128 + ((chunk ^ (((kr >> 2) & 3) << 1)) << 4) +
                                                       4 * (g & 3));
         }
-        a[0][0] = bytes_to_bf16x2<0, 4>(wv[0], wv[1]);
-        a[0][1] = bytes_to_bf16x2<1, 5>(wv[0], wv[1]);
-        a[0][2] = bytes_to_bf16x2<0, 4>(wv[2], wv[3]);
-        a[0][3] = bytes_to_bf16x2<1, 5>(wv[2], wv[3]);
-        a[1][0] = bytes_to_bf16x2<2, 6>(wv[0], wv[1]);
-        a[1][1] = bytes_to_bf16x2<3, 7>(wv[0], wv[1]);
-        a[1][2] = bytes_to_bf16x2<2, 6>(wv[2], wv[3]);
-        a[1][3] = bytes_to_bf16x2<3, 7>(wv[2], wv[3]);
+        a[0][0] = bytes_to_x2<T, 0, 4>(wv[0], wv[1]);
+        a[0][1] = bytes_to_x2<T, 1, 5>(wv[0], wv[1]);
+        a[0][2] = bytes_to_x2<T, 0, 4>(wv[2], wv[3]);
+        a[0][3] = bytes_to_x2<T, 1, 5>(wv[2], wv[3]);
+        a[1][0] = bytes_to_x2<T, 2, 6>(wv[0], wv[1]);
+        a[1][1] = bytes_to_x2<T, 3, 7>(wv[0], wv[1]);
+        a[1][2] = bytes_to_x2<T, 2, 6>(wv[2], wv[3]);
+        a[1][3] = bytes_to_x2<T, 3, 7>(wv[2], wv[3]);
       }
 #pragma unroll
       for (int f = 0; f < 2; ++f)
 #pragma unroll
-        for (int j = 0; j < NT; ++j) mma_bf16(acc[f][j], a[f][0], a[f][1], a[f][2], a[f][3], b[j][0], b[j][1]);
+        for (int j = 0; j < NT; ++j) mma_16816<T>(acc[f][j], a[f][0], a[f][1], a[f][2], a[f][3], b[j][0], b[j][1]);
     }
   }
 
@@ -491,56 +501,44 @@ w8a16_decode_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restric
         }
   };
   if (partials == nullptr) {
-    for_each([&](float v, int m, int n) { store_out(out, (size_t)m * N + n, v * __ldg(scale + n), out_f32); });
+    for_each([&](float v, int m, int n) { store_out<T>(out, (size_t)m * N + n, v * __ldg(scale + n), out_f32); });
     return;
   }
   const int np = (N + 3) & ~3;
   float* part = partials + blockIdx.z * (size_t)M * np;
   for_each([&](float v, int m, int n) { part[(size_t)m * np + n] = v; });
-  finish_split([] { __syncthreads(); }, partials, tickets + blockIdx.x, scale, out, M, N, 0, M, n0, kBN,
+  finish_split<T>([] { __syncthreads(); }, partials, tickets + blockIdx.x, scale, out, M, N, 0, M, n0, kBN,
                gridDim.z, out_f32, tid, dc::kThreads, &s_last);
 }
 
-// One launch of `Kernel`; the opt-in for its dynamic shared memory is set
-// once per kernel (a static per instantiation of this template).
-template <auto Kernel>
+// One launch of `Kernel` on x of T; the opt-in for its dynamic shared
+// memory is set once per kernel (a static per instantiation of this template).
+template <class T, auto Kernel>
 cudaError_t launch(dim3 grid, int threads, size_t smem, cudaStream_t stream, const void* x, const void* w,
                    const void* scale, void* out, float* partials, int* tickets, int M, int N, int K, int k_steps,
                    int out_f32) {
   static const cudaError_t attr = allow_smem(Kernel, smem);
   if (attr != cudaSuccess) return attr;
-  Kernel<<<grid, threads, smem, stream>>>(static_cast<const __nv_bfloat16*>(x), static_cast<const int8_t*>(w),
+  Kernel<<<grid, threads, smem, stream>>>(static_cast<const T*>(x), static_cast<const int8_t*>(w),
                                           static_cast<const float*>(scale), out, partials, tickets, M, N, K,
                                           k_steps, out_f32);
   return cudaGetLastError();
 }
 
-// The kernel for the regime (M), the token fragments (decode) and the copy.
-template <bool NK, bool VEC, class Args>
+// The kernel for x of T, the regime (M), the token fragments (decode) and
+// the copy.
+template <class T, bool NK, bool VEC, class Args>
 cudaError_t dispatch(int M, const Args& decode_args, const Args& wgmma_args) {
-  if (M > kDecodeMaxM) return std::apply(launch<w8a16_wgmma_kernel<NK, VEC>>, wgmma_args);
-  return M <= 8 ? std::apply(launch<w8a16_decode_kernel<NK, 1, VEC>>, decode_args)
-                : std::apply(launch<w8a16_decode_kernel<NK, 2, VEC>>, decode_args);
+  if (M > kDecodeMaxM) return std::apply(launch<T, w8a16_wgmma_kernel<T, NK, VEC>>, wgmma_args);
+  return M <= 8 ? std::apply(launch<T, w8a16_decode_kernel<T, NK, 1, VEC>>, decode_args)
+                : std::apply(launch<T, w8a16_decode_kernel<T, NK, 2, VEC>>, decode_args);
 }
 
-}  // namespace
-}  // namespace dynamo
-
-// x [M, K] bf16; w int8 [K, N] row-major (w_nk = 0) or [N, K] row-major
-// (w_nk = 1); scale [N] f32; out [M, N] bf16 (out_f32 = 0) or f32; all
-// contiguous.  The launch is the caller's plan (launch_geometry.cuh): a
-// grid of grid_n x grid_m output tiles (128 channels; 128 token rows above
-// M = 16, every row at or below) times `splits` ranges of `k_steps` 64-deep
-// steps, which must cover N, M and K once with no empty split.  With
-// splits > 1, `partials` holds splits * M * round_up(N, 4) floats and
-// `tickets` grid_n * grid_m zeroed ints, which the launch leaves zeroed
-// (one ticket buffer per stream serves every launch on it).  Returns the
-// launch's cudaGetLastError(), or cudaErrorInvalidValue for a plan that
-// does not fit the shapes.
-extern "C" int dynamo_int8_matmul(const void* x, const void* w, const void* scale, void* out, void* partials,
-                                  void* tickets, int M, int N, int K, int w_nk, int out_f32, int grid_n, int grid_m,
-                                  int splits, int k_steps, void* stream) {
-  using namespace dynamo;
+// The plan's launch for x of T, after checking that it fits the shapes (see
+// dynamo_int8_matmul below).
+template <class T>
+int matmul(const void* x, const void* w, const void* scale, void* out, void* partials, void* tickets, int M, int N,
+           int K, int w_nk, int out_f32, int grid_n, int grid_m, int splits, int k_steps, void* stream) {
   if (M < 1 || N < 1 || K < 1 || grid_n < 1 || grid_m < 1 || grid_m > 65535 || splits < 1 || splits > 65535 ||
       k_steps < 1)
     return cudaErrorInvalidValue;
@@ -564,6 +562,38 @@ extern "C" int dynamo_int8_matmul(const void* x, const void* w, const void* scal
   const bool vec = (K % 8 == 0) && (w_nk ? K % 16 == 0 : N % 16 == 0) &&
                    reinterpret_cast<uintptr_t>(x) % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
   if (w_nk)
-    return vec ? dispatch<true, true>(M, decode_args, wgmma_args) : dispatch<true, false>(M, decode_args, wgmma_args);
-  return vec ? dispatch<false, true>(M, decode_args, wgmma_args) : dispatch<false, false>(M, decode_args, wgmma_args);
+    return vec ? dispatch<T, true, true>(M, decode_args, wgmma_args)
+               : dispatch<T, true, false>(M, decode_args, wgmma_args);
+  return vec ? dispatch<T, false, true>(M, decode_args, wgmma_args)
+             : dispatch<T, false, false>(M, decode_args, wgmma_args);
+}
+
+}  // namespace
+}  // namespace dynamo
+
+// x [M, K] bf16; w int8 [K, N] row-major (w_nk = 0) or [N, K] row-major
+// (w_nk = 1); scale [N] f32; out [M, N] bf16 (out_f32 = 0) or f32; all
+// contiguous.  The launch is the caller's plan (launch_geometry.cuh): a
+// grid of grid_n x grid_m output tiles (128 channels; 128 token rows above
+// M = 16, every row at or below) times `splits` ranges of `k_steps` 64-deep
+// steps, which must cover N, M and K once with no empty split.  With
+// splits > 1, `partials` holds splits * M * round_up(N, 4) floats and
+// `tickets` grid_n * grid_m zeroed ints, which the launch leaves zeroed
+// (one ticket buffer per stream serves every launch on it).  Returns the
+// launch's cudaGetLastError(), or cudaErrorInvalidValue for a plan that
+// does not fit the shapes.
+extern "C" int dynamo_int8_matmul(const void* x, const void* w, const void* scale, void* out, void* partials,
+                                  void* tickets, int M, int N, int K, int w_nk, int out_f32, int grid_n, int grid_m,
+                                  int splits, int k_steps, void* stream) {
+  return dynamo::matmul<__nv_bfloat16>(x, w, scale, out, partials, tickets, M, N, K, w_nk, out_f32, grid_n, grid_m,
+                                       splits, k_steps, stream);
+}
+
+// The fp16 body: x [M, K] float16, out [M, N] float16 (out_f32 = 0) or
+// f32, the other arguments as above.
+extern "C" int dynamo_int8_matmul_f16(const void* x, const void* w, const void* scale, void* out, void* partials,
+                                      void* tickets, int M, int N, int K, int w_nk, int out_f32, int grid_n,
+                                      int grid_m, int splits, int k_steps, void* stream) {
+  return dynamo::matmul<__half>(x, w, scale, out, partials, tickets, M, N, K, w_nk, out_f32, grid_n, grid_m, splits,
+                                k_steps, stream);
 }

@@ -9,7 +9,11 @@
 // layer index, and their own fresh K/V causally, masked at seq_len - start.
 // Padding query rows (index >= seq_len - start) come out exactly 0.  GQA,
 // optional tanh softcap.  Over an int8 cache the prefix is int8 payload plus
-// per-(token, KV head) f32 scales; the fresh K/V stay bf16.
+// per-(token, KV head) f32 scales; the fresh K/V stay bf16.  The fp16
+// bodies (dynamo_prefill_attention_f16 and _q8_f16) are the same kernels
+// with q, the fresh K/V, a float cache and out in float16: the products
+// run as wgmma .f16, an int8 prefix converts exactly to fp16 (0x6400 | u
+// minus 1152, hopper.cuh) and P is rounded to fp16.
 //
 // What bounds it on this card: at long S, tensor-core flops.  A block's
 // query tile reuses every K/V byte it reads once per query row, so past a
@@ -48,36 +52,35 @@ namespace dynamo {
 namespace {
 
 // The caller's plan (launch_geometry.cuh) must fit a block's rows and cover
-// S once; then one launch of wgmma_prefill_kernel<D, E>.
-template <class E>
+// S once; then one launch of wgmma_prefill_kernel<D, E, A>.
+template <class E, class A>
 int launch(const void* q, const void* k_new, const void* v_new, const void* cache, const void* scale,
            const void* block_tables, const void* seq_lens, const void* start, void* out, int B, int S, int H, int Hk,
            int D, int N, int Bs, int M, int layer, int Hp, int Sp, int tq, int tiles, float sm_scale, float logit_cap,
            void* stream) {
-  constexpr bool kQuant = !std::is_same<E, __nv_bfloat16>::value;
+  constexpr bool kQuant = std::is_same<E, int8_t>::value;
   if (B < 1 || S < 1 || Hk < 1 || H % Hk || tq < 1 || (long long)tq * (H / Hk) > wg::kRows ||
       (long long)tiles * tq < S || (long long)(tiles - 1) * tq >= S)
     return cudaErrorInvalidValue;
   const dim3 grid(Hk, B, tiles);
   auto go = [&](auto kernel, size_t bytes) -> int {
     kernel<<<grid, wg::kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_new),
-        static_cast<const __nv_bfloat16*>(v_new), static_cast<const E*>(cache), static_cast<const float*>(scale),
-        static_cast<const int*>(block_tables), static_cast<const int*>(seq_lens), static_cast<const int*>(start),
-        static_cast<__nv_bfloat16*>(out), S, H, Hk, N, Bs, M, layer, Hp, Sp, tq, sm_scale, logit_cap);
+        static_cast<const A*>(q), static_cast<const A*>(k_new), static_cast<const A*>(v_new),
+        static_cast<const E*>(cache), static_cast<const float*>(scale), static_cast<const int*>(block_tables),
+        static_cast<const int*>(seq_lens), static_cast<const int*>(start), static_cast<A*>(out), S, H, Hk, N, Bs, M, layer, Hp, Sp, tq, sm_scale, logit_cap);
     return cudaGetLastError();
   };
   // the opt-in above 48 KB, once per instantiation
-  static const cudaError_t attr64 = allow_smem(wgmma_prefill_kernel<64, E>, PrefillSmem<64, kQuant>::kBytes);
-  static const cudaError_t attr128 = allow_smem(wgmma_prefill_kernel<128, E>, PrefillSmem<128, kQuant>::kBytes);
-  static const cudaError_t attr256 = allow_smem(wgmma_prefill_kernel<256, E>, PrefillSmem<256, kQuant>::kBytes);
+  static const cudaError_t attr64 = allow_smem(wgmma_prefill_kernel<64, E, A>, PrefillSmem<64, kQuant>::kBytes);
+  static const cudaError_t attr128 = allow_smem(wgmma_prefill_kernel<128, E, A>, PrefillSmem<128, kQuant>::kBytes);
+  static const cudaError_t attr256 = allow_smem(wgmma_prefill_kernel<256, E, A>, PrefillSmem<256, kQuant>::kBytes);
   switch (D) {
     case 64:
-      return attr64 != cudaSuccess ? attr64 : go(wgmma_prefill_kernel<64, E>, PrefillSmem<64, kQuant>::kBytes);
+      return attr64 != cudaSuccess ? attr64 : go(wgmma_prefill_kernel<64, E, A>, PrefillSmem<64, kQuant>::kBytes);
     case 128:
-      return attr128 != cudaSuccess ? attr128 : go(wgmma_prefill_kernel<128, E>, PrefillSmem<128, kQuant>::kBytes);
+      return attr128 != cudaSuccess ? attr128 : go(wgmma_prefill_kernel<128, E, A>, PrefillSmem<128, kQuant>::kBytes);
     case 256:
-      return attr256 != cudaSuccess ? attr256 : go(wgmma_prefill_kernel<256, E>, PrefillSmem<256, kQuant>::kBytes);
+      return attr256 != cudaSuccess ? attr256 : go(wgmma_prefill_kernel<256, E, A>, PrefillSmem<256, kQuant>::kBytes);
     default:
       return cudaErrorInvalidValue;
   }
@@ -100,8 +103,20 @@ extern "C" int dynamo_prefill_attention(const void* q, const void* k_new, const 
                                         const void* start, void* out, int B, int S, int H, int Hk, int D,
                                         int N, int Bs, int M, int layer, int tq, int tiles, float sm_scale,
                                         float logit_cap, void* stream) {
-  return dynamo::launch<__nv_bfloat16>(q, k_new, v_new, cache, nullptr, block_tables, seq_lens, start, out, B, S, H,
-                                       Hk, D, N, Bs, M, layer, 0, 0, tq, tiles, sm_scale, logit_cap, stream);
+  return dynamo::launch<__nv_bfloat16, __nv_bfloat16>(q, k_new, v_new, cache, nullptr, block_tables, seq_lens, start,
+                                                       out, B, S, H, Hk, D, N, Bs, M, layer, 0, 0, tq, tiles,
+                                                       sm_scale, logit_cap, stream);
+}
+
+// The fp16 body: q, k_new, v_new, cache and out float16, the other
+// arguments as above.
+extern "C" int dynamo_prefill_attention_f16(const void* q, const void* k_new, const void* v_new,
+                                            const void* cache, const void* block_tables, const void* seq_lens,
+                                            const void* start, void* out, int B, int S, int H, int Hk, int D,
+                                            int N, int Bs, int M, int layer, int tq, int tiles, float sm_scale,
+                                            float logit_cap, void* stream) {
+  return dynamo::launch<__half, __half>(q, k_new, v_new, cache, nullptr, block_tables, seq_lens, start, out, B, S, H,
+                                        Hk, D, N, Bs, M, layer, 0, 0, tq, tiles, sm_scale, logit_cap, stream);
 }
 
 // The same over an int8 cache, with the same plan: cache [L, N, 2, Bs,
@@ -112,6 +127,19 @@ extern "C" int dynamo_prefill_attention_q8(const void* q, const void* k_new, con
                                            const void* seq_lens, const void* start, void* out, int B, int S,
                                            int H, int Hk, int D, int N, int Bs, int M, int layer, int Hp, int Sp,
                                            int tq, int tiles, float sm_scale, float logit_cap, void* stream) {
-  return dynamo::launch<int8_t>(q, k_new, v_new, cache, scale, block_tables, seq_lens, start, out, B, S, H, Hk, D,
-                                N, Bs, M, layer, Hp, Sp, tq, tiles, sm_scale, logit_cap, stream);
+  return dynamo::launch<int8_t, __nv_bfloat16>(q, k_new, v_new, cache, scale, block_tables, seq_lens, start, out, B,
+                                               S, H, Hk, D, N, Bs, M, layer, Hp, Sp, tq, tiles, sm_scale, logit_cap,
+                                               stream);
+}
+
+// The fp16 body over an int8 cache: q, k_new, v_new and out float16, the
+// other arguments as above.
+extern "C" int dynamo_prefill_attention_q8_f16(const void* q, const void* k_new, const void* v_new,
+                                               const void* cache, const void* scale, const void* block_tables,
+                                               const void* seq_lens, const void* start, void* out, int B, int S,
+                                               int H, int Hk, int D, int N, int Bs, int M, int layer, int Hp,
+                                               int Sp, int tq, int tiles, float sm_scale, float logit_cap,
+                                               void* stream) {
+  return dynamo::launch<int8_t, __half>(q, k_new, v_new, cache, scale, block_tables, seq_lens, start, out, B, S, H,
+                                        Hk, D, N, Bs, M, layer, Hp, Sp, tq, tiles, sm_scale, logit_cap, stream);
 }

@@ -49,7 +49,9 @@
 // cache the producer copies the int8 rows and their scales (zero for dead
 // slots) and converts the rows to bf16 into the swizzled tile; the scores
 // take the K scale before the softcap and P V the V scale (the row sums do
-// not).
+// not).  The fp16 bodies (the _f16 entry points) are the same kernels with
+// q, the fresh K/V, a float cache and out in float16 (wgmma .f16, int8
+// prefix rows converted exactly to fp16, P rounded to fp16).
 #include <limits.h>
 
 #include <type_traits>
@@ -225,20 +227,21 @@ __device__ void build_table(RaggedTable* tb, int i0, int tq, int group, int rows
   __syncthreads();
 }
 
-// E is the cache's element type: __nv_bfloat16, or int8_t with `scale` the
-// int8 cache's scale pool [L, N, 2, Hp, Sp] (unused for bf16).  Grid
-// (Hk, R + span blocks): y < R is row y's decode-row block, the rest span
-// blocks, the last flat tile first.
-template <int D, class E>
+// E is the cache's element type: A, or int8_t with `scale` the int8
+// cache's scale pool [L, N, 2, Hp, Sp] (unused for a float cache); A is the
+// type of q, the fresh K/V and out (__nv_bfloat16 or __half).  Grid (Hk, R
+// + span blocks): y < R is row y's decode-row block, the rest span blocks,
+// the last flat tile first.
+template <int D, class E, class A>
 __global__ void __launch_bounds__(wg::kThreads, 1)
-ragged_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k_new,
-              const __nv_bfloat16* __restrict__ v_new, const E* __restrict__ cache, const float* __restrict__ scale,
-              const int* __restrict__ block_tables, const int* __restrict__ seq_lens,
-              const int* __restrict__ starts, const int* __restrict__ row_offsets, __nv_bfloat16* __restrict__ out,
+ragged_kernel(const A* __restrict__ q, const A* __restrict__ k_new, const A* __restrict__ v_new,
+              const E* __restrict__ cache, const float* __restrict__ scale, const int* __restrict__ block_tables,
+              const int* __restrict__ seq_lens, const int* __restrict__ starts,
+              const int* __restrict__ row_offsets, A* __restrict__ out,
               int T, int H, int Hk, int N, int Bs, int M, int R, int layer, int Hp, int Sp, int tq, float sm_scale,
               float logit_cap) {
   using namespace hopper;
-  constexpr bool kQuant = !std::is_same<E, __nv_bfloat16>::value;
+  constexpr bool kQuant = std::is_same<E, int8_t>::value;
   using G = wg::Geometry<D>;
   using RG = RaggedGeometry<D, kQuant>;
   // setmaxnreg, 128 x producer + 256 x consumer <= 384 x 168: the D = 256
@@ -282,7 +285,7 @@ ragged_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
     if (rs.n_tiles == 0) {  // no span row: padding tokens are 0, nothing to read
       if (tid < 256) {
         const float zo[D / 2] = {}, zl[2] = {};
-        store_rows<D>(rs, out, zo, zl);
+        store_rows<D, A>(rs, out, zo, zl);
       }
       return;
     }
@@ -300,17 +303,17 @@ ragged_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   if (tid >= 256) {
     regs_dealloc<kProducerRegs>();
     if constexpr (kQuant)
-      produce_q8<D>(rs, ring, stage8, scales, full, empty, k_new, v_new, cache, scale, block_tables, Hk, N, Bs, M,
+      produce_q8<D, A>(rs, ring, stage8, scales, full, empty, k_new, v_new, cache, scale, block_tables, Hk, N, Bs, M,
                     layer, Hp, Sp, tid - 256);
     else
-      produce<D>(rs, ring, full, empty, k_new, v_new, cache, block_tables, Hk, N, Bs, M, layer, tid - 256);
+      produce<D, A>(rs, ring, full, empty, k_new, v_new, cache, block_tables, Hk, N, Bs, M, layer, tid - 256);
     return;
   }
   regs_alloc<kConsumerRegs>();
   float o[D / 2], l[2] = {0.f, 0.f}, m[2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-  consume<D, kQuant>(rs, qs, ring, scales, full, empty, q, sm_scale, logit_cap, o, l, m);
+  consume<D, A, kQuant>(rs, qs, ring, scales, full, empty, q, sm_scale, logit_cap, o, l, m);
   if (rs.decode) {
     // warpgroup 1 hands its state to the thread of warpgroup 0 that holds
     // the same rows and columns, through the ring (both are done with it)
@@ -337,27 +340,27 @@ ragged_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] = o[i] * a[(i >> 1) & 1] + xch[i] * b[(i >> 1) & 1];
   }
-  store_rows<D>(rs, out, o, l);
+  store_rows<D, A>(rs, out, o, l);
 }
 
-template <int D, class E>
+template <int D, class E, class A>
 int launch(const void* q, const void* k_new, const void* v_new, const void* cache, const void* scale, const void* bt,
            const void* lens, const void* starts, const void* roff, void* out, int T, int H, int Hk, int N, int Bs,
            int M, int R, int layer, int Hp, int Sp, int tq, int span_blocks, float sm_scale, float logit_cap,
            cudaStream_t stream) {
-  constexpr size_t kSmem = RaggedGeometry<D, !std::is_same<E, __nv_bfloat16>::value>::kSmem;
-  static const cudaError_t attr = allow_smem(ragged_kernel<D, E>, kSmem);  // once per instantiation
+  constexpr size_t kSmem = RaggedGeometry<D, std::is_same<E, int8_t>::value>::kSmem;
+  static const cudaError_t attr = allow_smem(ragged_kernel<D, E, A>, kSmem);  // once per instantiation
   if (attr != cudaSuccess) return attr;
-  ragged_kernel<D, E><<<dim3(Hk, R + span_blocks), wg::kThreads, kSmem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_new),
-      static_cast<const __nv_bfloat16*>(v_new), static_cast<const E*>(cache), static_cast<const float*>(scale),
-      static_cast<const int*>(bt), static_cast<const int*>(lens), static_cast<const int*>(starts),
-      static_cast<const int*>(roff), static_cast<__nv_bfloat16*>(out), T, H, Hk, N, Bs, M, R, layer, Hp, Sp, tq,
+  ragged_kernel<D, E, A><<<dim3(Hk, R + span_blocks), wg::kThreads, kSmem, stream>>>(
+      static_cast<const A*>(q), static_cast<const A*>(k_new), static_cast<const A*>(v_new),
+      static_cast<const E*>(cache), static_cast<const float*>(scale), static_cast<const int*>(bt),
+      static_cast<const int*>(lens), static_cast<const int*>(starts), static_cast<const int*>(roff),
+      static_cast<A*>(out), T, H, Hk, N, Bs, M, R, layer, Hp, Sp, tq,
       sm_scale, logit_cap);
   return cudaGetLastError();
 }
 
-template <class E>
+template <class E, class A>
 int dispatch(const void* q, const void* k_new, const void* v_new, const void* cache, const void* scale,
              const void* bt, const void* lens, const void* starts, const void* roff, void* out, int T, int H, int Hk,
              int D, int N, int Bs, int M, int R, int layer, int Hp, int Sp, int tq, int span_blocks, float sm_scale,
@@ -370,13 +373,13 @@ int dispatch(const void* q, const void* k_new, const void* v_new, const void* ca
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch<64, E>(q, k_new, v_new, cache, scale, bt, lens, starts, roff, out, T, H, Hk, N, Bs, M, R, layer,
+      return launch<64, E, A>(q, k_new, v_new, cache, scale, bt, lens, starts, roff, out, T, H, Hk, N, Bs, M, R, layer,
                            Hp, Sp, tq, span_blocks, sm_scale, logit_cap, st);
     case 128:
-      return launch<128, E>(q, k_new, v_new, cache, scale, bt, lens, starts, roff, out, T, H, Hk, N, Bs, M, R, layer,
+      return launch<128, E, A>(q, k_new, v_new, cache, scale, bt, lens, starts, roff, out, T, H, Hk, N, Bs, M, R, layer,
                             Hp, Sp, tq, span_blocks, sm_scale, logit_cap, st);
     case 256:
-      return launch<256, E>(q, k_new, v_new, cache, scale, bt, lens, starts, roff, out, T, H, Hk, N, Bs, M, R, layer,
+      return launch<256, E, A>(q, k_new, v_new, cache, scale, bt, lens, starts, roff, out, T, H, Hk, N, Bs, M, R, layer,
                             Hp, Sp, tq, span_blocks, sm_scale, logit_cap, st);
     default:
       return cudaErrorInvalidValue;
@@ -401,9 +404,23 @@ extern "C" int dynamo_ragged_prefill_attention(const void* q, const void* k_new,
                                                const void* row_offsets, void* out, int T, int H, int Hk,
                                                int D, int N, int Bs, int M, int R, int layer, int tq,
                                                int span_blocks, float sm_scale, float logit_cap, void* stream) {
-  return dynamo::dispatch<__nv_bfloat16>(q, k_new, v_new, cache, nullptr, block_tables, seq_lens, starts,
-                                         row_offsets, out, T, H, Hk, D, N, Bs, M, R, layer, 0, 0, tq, span_blocks,
-                                         sm_scale, logit_cap, stream);
+  return dynamo::dispatch<__nv_bfloat16, __nv_bfloat16>(q, k_new, v_new, cache, nullptr, block_tables, seq_lens,
+                                                         starts, row_offsets, out, T, H, Hk, D, N, Bs, M, R, layer,
+                                                         0, 0, tq, span_blocks, sm_scale, logit_cap, stream);
+}
+
+// The fp16 body: q, k_new, v_new, cache and out float16, the other
+// arguments as above.
+extern "C" int dynamo_ragged_prefill_attention_f16(const void* q, const void* k_new, const void* v_new,
+                                                   const void* cache, const void* block_tables,
+                                                   const void* seq_lens, const void* starts,
+                                                   const void* row_offsets, void* out, int T, int H, int Hk,
+                                                   int D, int N, int Bs, int M, int R, int layer, int tq,
+                                                   int span_blocks, float sm_scale, float logit_cap,
+                                                   void* stream) {
+  return dynamo::dispatch<__half, __half>(q, k_new, v_new, cache, nullptr, block_tables, seq_lens, starts,
+                                          row_offsets, out, T, H, Hk, D, N, Bs, M, R, layer, 0, 0, tq, span_blocks,
+                                          sm_scale, logit_cap, stream);
 }
 
 // The same over an int8 cache: cache [L, N, 2, Bs, Hk*D] int8 and scale
@@ -416,6 +433,21 @@ extern "C" int dynamo_ragged_prefill_attention_q8(const void* q, const void* k_n
                                                   int D, int N, int Bs, int M, int R, int layer, int Hp, int Sp,
                                                   int tq, int span_blocks, float sm_scale, float logit_cap,
                                                   void* stream) {
-  return dynamo::dispatch<int8_t>(q, k_new, v_new, cache, scale, block_tables, seq_lens, starts, row_offsets, out, T,
-                                  H, Hk, D, N, Bs, M, R, layer, Hp, Sp, tq, span_blocks, sm_scale, logit_cap, stream);
+  return dynamo::dispatch<int8_t, __nv_bfloat16>(q, k_new, v_new, cache, scale, block_tables, seq_lens, starts,
+                                                  row_offsets, out, T, H, Hk, D, N, Bs, M, R, layer, Hp, Sp, tq,
+                                                  span_blocks, sm_scale, logit_cap, stream);
+}
+
+// The fp16 body over an int8 cache: q, k_new, v_new and out float16, the
+// other arguments as above.
+extern "C" int dynamo_ragged_prefill_attention_q8_f16(const void* q, const void* k_new, const void* v_new,
+                                                      const void* cache, const void* scale,
+                                                      const void* block_tables, const void* seq_lens,
+                                                      const void* starts, const void* row_offsets, void* out, int T,
+                                                      int H, int Hk, int D, int N, int Bs, int M, int R, int layer,
+                                                      int Hp, int Sp, int tq, int span_blocks, float sm_scale,
+                                                      float logit_cap, void* stream) {
+  return dynamo::dispatch<int8_t, __half>(q, k_new, v_new, cache, scale, block_tables, seq_lens, starts, row_offsets,
+                                          out, T, H, Hk, D, N, Bs, M, R, layer, Hp, Sp, tq, span_blocks, sm_scale,
+                                          logit_cap, stream);
 }

@@ -1,7 +1,11 @@
 // Warpgroup (wgmma) flash-attention tile shared by the paged prefill
 // kernels (prefill_attention.cu: B2 over a bf16 cache, B4b over an int8 one)
 // and the ragged prefill kernels (ragged_prefill_attention.cu: B3 and B4c).
-// See those files for the designs.
+// See those files for the designs.  Every piece is a template over A, the
+// type of q, the fresh K/V, a float cache and out: __nv_bfloat16, or __half
+// for the fp16 bodies (the same tile, descriptors and swizzles: both are
+// 2-byte types; the products run as wgmma .f16 in place of .bf16, int8
+// prefix rows convert exactly to A, and P is rounded to A).
 //
 // A block holds 128 query rows, (token, query head of the KV head's group)
 // pairs, in two consumer warpgroups of 64 rows, plus one producer
@@ -11,18 +15,18 @@
 //   - the producer (registers handed to the consumers with setmaxnreg)
 //     streams K/V tiles of kKeys keys through a ring of kStages stages with
 //     16-byte cp.async.  Dead keys are zero-filled instead of read, so NaN
-//     in the pool or in padding K/V never reaches shared memory.  bf16 rows
+//     in the pool or in padding K/V never reaches shared memory.  Float rows
 //     arrive on the stage's `full` mbarrier by themselves as they land
 //     (cp.async.mbarrier.arrive), so the producer never waits on its own
 //     loads.  int8 rows (and their f32 scales, zero for dead slots) land in
-//     a staging ring first; the producer converts each tile to bf16 into the
+//     a staging ring first; the producer converts each tile to A into the
 //     swizzled tile while the next two tiles' copies fly.  Consumers free a
 //     stage on its `empty` mbarrier;
 //   - S = Q K^T runs as wgmma m64n{kKeys}k16 with K as K-major B and Q from
 //     registers (up to D = 128; from shared memory at D = 256); the online
 //     softmax stays in registers in base 2 (the softmax scale folded into
 //     log2 e); an int8 tile's K scale multiplies its score column before the
-//     softcap; P is rounded to bf16 in registers (times the V scale for an
+//     softcap; P is rounded to A in registers (times the V scale for an
 //     int8 tile; the row sums take P unscaled) and is the register A operand
 //     of O += P V, wgmma m64n{D}k16 with V as MN-major B;
 //   - the two products of neighbouring tiles overlap: tile i's S is issued
@@ -85,7 +89,7 @@ struct Geometry {
   static constexpr int kKvPanel = kKeys * 128;        // bytes of one K or V panel
   static constexpr int kTile = kPanels * kKvPanel;    // bytes of K (or V) of one tile
   static constexpr int kQBytes = kPanels * kQPanel;
-  static constexpr int kRing = kStages * 2 * kTile;   // bytes of the bf16 K/V ring
+  static constexpr int kRing = kStages * 2 * kTile;   // bytes of the K/V ring (2-byte values)
   static constexpr int kStage8 = 2 * kKeys * D;       // bytes of one tile's int8 K and V rows
   static constexpr int kStage8Ring = kStages * kStage8;  // an int8 cache's staging slots
   static constexpr int kScaleBytes = 2 * kStages * 2 * kKeys * 4;  // f32 K and V scales: tiles, then staging
@@ -129,14 +133,13 @@ struct ThreadRow {
   int own, lo, tok;
 };
 
-// Producer warpgroup over a bf16 cache: thread `pl` copies the fixed
+// Producer warpgroup over a float cache of A: thread `pl` copies the fixed
 // 16-byte column `part` of every (128 / kParts)-th key row of each tile,
 // K and V.
-template <int D, class Sched>
+template <int D, class A, class Sched>
 __device__ __forceinline__ void produce(const Sched& sched, uint8_t* ring, uint64_t* full, uint64_t* empty,
-                                        const __nv_bfloat16* __restrict__ k_new,
-                                        const __nv_bfloat16* __restrict__ v_new,
-                                        const __nv_bfloat16* __restrict__ cache,
+                                        const A* __restrict__ k_new, const A* __restrict__ v_new,
+                                        const A* __restrict__ cache,
                                         const int* __restrict__ block_tables, int Hk, int N, int Bs, int M,
                                         int layer, int pl) {
   using namespace hopper;
@@ -144,8 +147,8 @@ __device__ __forceinline__ void produce(const Sched& sched, uint8_t* ring, uint6
   constexpr int kKeys = G::kKeys, kParts = D / 8, kRowStep = 128 / kParts, kIters = kKeys / kRowStep;
   const int part = pl % kParts, row0 = pl / kParts, hkd = Hk * D;
   const size_t col = (size_t)sched.head * D + part * 8;
-  const __nv_bfloat16* fresh_k = k_new + sched.fresh_base + col;
-  const __nv_bfloat16* fresh_v = v_new + sched.fresh_base + col;
+  const A* fresh_k = k_new + sched.fresh_base + col;
+  const A* fresh_v = v_new + sched.fresh_base + col;
   for (int it = 0; it < sched.n_tiles; ++it) {
     const int s = it % wg::kStages;
     mbar_wait(&empty[s], ((it / wg::kStages) & 1) ^ 1);
@@ -155,8 +158,8 @@ __device__ __forceinline__ void produce(const Sched& sched, uint8_t* ring, uint6
 #pragma unroll
     for (int i = 0; i < kIters; ++i) {
       const int j = row0 + i * kRowStep, pos = t.t0 + j;
-      const __nv_bfloat16* kr = k_new;
-      const __nv_bfloat16* vr = k_new;
+      const A* kr = k_new;
+      const A* vr = k_new;
       bool live;
       if (t.row >= 0) {
         live = pos < t.start;
@@ -186,22 +189,22 @@ __device__ __forceinline__ void produce(const Sched& sched, uint8_t* ring, uint6
 // scales (zero for dead slots) land in the stage's staging slot (thread
 // `pl` copies the 16-byte column `part8` of every (128 / kParts8)-th key
 // row); the same thread then converts exactly the bytes it copied into the
-// swizzled bf16 tile and moves its scale beside the tile (`scales` holds
+// swizzled tile of A and moves its scale beside the tile (`scales` holds
 // kStages slots beside the tiles, then kStages staging slots), so it waits
 // only on its own copies.  Tile
 // it's copies are issued before tile it - 2 is converted.  Fresh tiles are
-// bf16 and copied as produce() does.
-template <int D, class Sched>
+// of A and copied as produce() does.
+template <int D, class A, class Sched>
 __device__ __forceinline__ void produce_q8(const Sched& sched, uint8_t* ring, int8_t* stage8, float* scales,
-                                           uint64_t* full, uint64_t* empty, const __nv_bfloat16* __restrict__ k_new,
-                                           const __nv_bfloat16* __restrict__ v_new,
+                                           uint64_t* full, uint64_t* empty, const A* __restrict__ k_new,
+                                           const A* __restrict__ v_new,
                                            const int8_t* __restrict__ cache, const float* __restrict__ scale,
                                            const int* __restrict__ block_tables, int Hk, int N, int Bs, int M,
                                            int layer, int Hp, int Sp, int pl) {
   using namespace hopper;
   using G = wg::Geometry<D>;
   constexpr int kKeys = G::kKeys;
-  constexpr int kParts = D / 8, kRowStep = 128 / kParts, kIters = kKeys / kRowStep;          // bf16 rows
+  constexpr int kParts = D / 8, kRowStep = 128 / kParts, kIters = kKeys / kRowStep;          // rows of A
   constexpr int kParts8 = D / 16, kRowStep8 = 128 / kParts8, kIters8 = kKeys / kRowStep8;  // int8 rows
   static_assert(2 * kKeys <= 128, "one scale per producer thread");
   const int hkd = Hk * D, head = sched.head;
@@ -209,8 +212,8 @@ __device__ __forceinline__ void produce_q8(const Sched& sched, uint8_t* ring, in
   const int part8 = pl % kParts8, row08 = pl / kParts8;
   float* staged_scales = scales + wg::kStages * 2 * kKeys;  // the copies' landing slots
   const size_t col = (size_t)head * D + part * 8;
-  const __nv_bfloat16* fresh_k = k_new + sched.fresh_base + col;
-  const __nv_bfloat16* fresh_v = v_new + sched.fresh_base + col;
+  const A* fresh_k = k_new + sched.fresh_base + col;
+  const A* fresh_v = v_new + sched.fresh_base + col;
 
   // a prefix tile's int8 rows and scales into its staging slot
   auto issue_prefix = [&](int it, const KvTile& t) {
@@ -243,7 +246,7 @@ __device__ __forceinline__ void produce_q8(const Sched& sched, uint8_t* ring, in
     cp_async_commit();
   };
   // a prefix tile whose copies by this thread have landed: once its stage
-  // is free, its rows as bf16 into the swizzled tile
+  // is free, its rows as A into the swizzled tile
   auto convert = [&](int it) {
     const int s = it % wg::kStages;
     mbar_wait(&empty[s], ((it / wg::kStages) & 1) ^ 1);
@@ -256,11 +259,11 @@ __device__ __forceinline__ void produce_q8(const Sched& sched, uint8_t* ring, in
       for (int kv = 0; kv < 2; ++kv) {
         const uint4 raw = *reinterpret_cast<const uint4*>(st8 + kv * kKeys * D + j * D + part8 * 16);
         const uint4 lo = make_uint4(
-            i8x2_to_bf16x2(__byte_perm(raw.x, 0, 0x4140)), i8x2_to_bf16x2(__byte_perm(raw.x, 0, 0x4342)),
-            i8x2_to_bf16x2(__byte_perm(raw.y, 0, 0x4140)), i8x2_to_bf16x2(__byte_perm(raw.y, 0, 0x4342)));
+            i8x2_to_x2<A>(__byte_perm(raw.x, 0, 0x4140)), i8x2_to_x2<A>(__byte_perm(raw.x, 0, 0x4342)),
+            i8x2_to_x2<A>(__byte_perm(raw.y, 0, 0x4140)), i8x2_to_x2<A>(__byte_perm(raw.y, 0, 0x4342)));
         const uint4 hi = make_uint4(
-            i8x2_to_bf16x2(__byte_perm(raw.z, 0, 0x4140)), i8x2_to_bf16x2(__byte_perm(raw.z, 0, 0x4342)),
-            i8x2_to_bf16x2(__byte_perm(raw.w, 0, 0x4140)), i8x2_to_bf16x2(__byte_perm(raw.w, 0, 0x4342)));
+            i8x2_to_x2<A>(__byte_perm(raw.z, 0, 0x4140)), i8x2_to_x2<A>(__byte_perm(raw.z, 0, 0x4342)),
+            i8x2_to_x2<A>(__byte_perm(raw.w, 0, 0x4140)), i8x2_to_x2<A>(__byte_perm(raw.w, 0, 0x4342)));
         uint8_t* dst = ks + kv * G::kTile;
         *reinterpret_cast<uint4*>(dst + wg::sw_off(j, 2 * part8, G::kKvPanel)) = lo;
         *reinterpret_cast<uint4*>(dst + wg::sw_off(j, 2 * part8 + 1, G::kKvPanel)) = hi;
@@ -318,10 +321,10 @@ __device__ __forceinline__ void produce_q8(const Sched& sched, uint8_t* ring, in
 // Returns the unnormalised output rows `o`, their softmax sums `l` (summed
 // over the quad) and running maxima `m` (base 2).  kScaled: prefix tiles
 // are int8, with their K and V scales at `scales` (2 * kKeys floats per
-// stage).
-template <int D, bool kScaled, class Sched>
+// stage).  Q, K, V and P are of A.
+template <int D, class A, bool kScaled, class Sched>
 __device__ __forceinline__ void consume(const Sched& sched, uint8_t* qs, uint8_t* ring, const float* scales,
-                                        uint64_t* full, uint64_t* empty, const __nv_bfloat16* __restrict__ q,
+                                        uint64_t* full, uint64_t* empty, const A* __restrict__ q,
                                         float sm_scale, float logit_cap, float (&o)[D / 2], float (&l)[2],
                                         float (&m)[2]) {
   using namespace hopper;
@@ -335,7 +338,7 @@ __device__ __forceinline__ void consume(const Sched& sched, uint8_t* qs, uint8_t
     if constexpr (Sched::kPrefill) {  // rows past S are 0
       const int tok = sched.i0 + r / sched.group;
       const bool live = r < sched.rows && tok < sched.S;
-      const __nv_bfloat16* src = q + sched.row_offset(r) + part * 8;
+      const A* src = q + sched.row_offset(r) + part * 8;
       cp_async_16(smem_u32(qs + wg::sw_off(r, part, G::kQPanel)), live ? src : q, live ? 16 : 0);
     } else {
       const long off = sched.row_offset(r);
@@ -388,9 +391,9 @@ __device__ __forceinline__ void consume(const Sched& sched, uint8_t* qs, uint8_t
       const uint32_t panel = kk >> 2, col = (kk & 3) * 32;
       const uint64_t kd = sw128_desc(k_base + panel * G::kKvPanel + col, 16, 1024);
       if constexpr (G::kQRegs)
-        Wgmma<kKeys, 0>::rs(sc, qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3], kd, kk > 0 ? 1 : 0);
+        Wgmma<kKeys, 0, 0, A>::rs(sc, qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3], kd, kk > 0 ? 1 : 0);
       else
-        Wgmma<kKeys, 0>::ss(sc, sw128_desc(q_base + panel * G::kQPanel + col, 16, 1024), kd, kk > 0 ? 1 : 0);
+        Wgmma<kKeys, 0, 0, A>::ss(sc, sw128_desc(q_base + panel * G::kQPanel + col, 16, 1024), kd, kk > 0 ? 1 : 0);
     }
     wgmma_commit();
   };
@@ -439,7 +442,7 @@ __device__ __forceinline__ void consume(const Sched& sched, uint8_t* qs, uint8_t
 #pragma unroll
     for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + sum[h];
   };
-  // P of the last softmax in bf16 (times the V scale on an int8 tile): key
+  // P of the last softmax in A (times the V scale on an int8 tile): key
   // slice j is the A fragment {p 8j .. 8j + 7}
   uint32_t pf[kKeys / 16][4];
   auto rescale_and_pack = [&](int it, const KvTile& t, const float (&alpha)[2]) {
@@ -455,7 +458,7 @@ __device__ __forceinline__ void consume(const Sched& sched, uint8_t* qs, uint8_t
 #pragma unroll
     for (int j = 0; j < kKeys / 16; ++j)
 #pragma unroll
-      for (int r = 0; r < 4; ++r) pf[j][r] = pack_bf16x2(sc[8 * j + 2 * r], sc[8 * j + 2 * r + 1]);
+      for (int r = 0; r < 4; ++r) pf[j][r] = pack_x2<A>(sc[8 * j + 2 * r], sc[8 * j + 2 * r + 1]);
   };
   // O += P V of tile `it`, issued and committed
   auto pv = [&](int it) {
@@ -463,7 +466,7 @@ __device__ __forceinline__ void consume(const Sched& sched, uint8_t* qs, uint8_t
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < kKeys / 16; ++j)
-      Wgmma<D, 1>::rs(o, pf[j][0], pf[j][1], pf[j][2], pf[j][3], sw128_desc(v_base + j * 2048, G::kKvPanel, 1024), 1);
+      Wgmma<D, 1, 0, A>::rs(o, pf[j][0], pf[j][1], pf[j][2], pf[j][3], sw128_desc(v_base + j * 2048, G::kKvPanel, 1024), 1);
     wgmma_commit();
   };
   auto release = [&](int it) { mbar_arrive(&empty[it % wg::kStages]); };
@@ -537,16 +540,16 @@ __device__ __forceinline__ void consume(const Sched& sched, uint8_t* qs, uint8_t
 
 // Store consumer thread rows ra and ra + 8: live rows o / l, other rows
 // that have an output row (and every row when `o` is all zeros and l = 0)
-// exactly 0.
-template <int D, class Sched>
-__device__ __forceinline__ void store_rows(const Sched& sched, __nv_bfloat16* __restrict__ out,
+// exactly 0, rounded to A.
+template <int D, class A, class Sched>
+__device__ __forceinline__ void store_rows(const Sched& sched, A* __restrict__ out,
                                            const float (&o)[D / 2], const float (&l)[2]) {
   const int tid = threadIdx.x, wgi = tid >> 7, t4 = tid & 3;
   const int ra = wgi * 64 + ((tid & 127) >> 5) * 16 + ((tid & 31) >> 2);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = ra + 8 * h;
-    __nv_bfloat16* dst;
+    A* dst;
     bool live;
     if constexpr (Sched::kPrefill) {
       const int tok = sched.i0 + r / sched.group;
@@ -563,8 +566,8 @@ __device__ __forceinline__ void store_rows(const Sched& sched, __nv_bfloat16* __
 #pragma unroll
     for (int i = 0; i < D / 2; i += 4) {
       const int e = i + 2 * h;  // the pair (e, e + 1): columns 8 (i / 4) + 2 t4 + {0, 1}
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * (i >> 2)) =
-          __floats2bfloat162_rn(live ? o[e] * inv : 0.f, live ? o[e + 1] * inv : 0.f);
+      *reinterpret_cast<uint32_t*>(dst + 8 * (i >> 2)) =
+          hopper::pack_x2<A>(live ? o[e] * inv : 0.f, live ? o[e + 1] * inv : 0.f);
     }
   }
 }
@@ -619,21 +622,22 @@ struct PrefillSmem {
                 "DYN_B2_*SMEM_D* must be the shared memory this layout takes");
 };
 
-// E is the cache's element type: __nv_bfloat16 (B2), or int8_t (B4b) with
-// `scale` the int8 cache's scale pool [L, N, 2, Hp, Sp] (unused for bf16).
-template <int D, class E>
+// E is the cache's element type: A (B2), or int8_t (B4b) with `scale` the
+// int8 cache's scale pool [L, N, 2, Hp, Sp] (unused for a float cache); A
+// is the type of q, the fresh K/V and out: __nv_bfloat16, or __half.
+template <int D, class E, class A>
 __global__ void __launch_bounds__(wg::kThreads, 1)
-wgmma_prefill_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k_new,
-                     const __nv_bfloat16* __restrict__ v_new, const E* __restrict__ cache,
-                     const float* __restrict__ scale, const int* __restrict__ block_tables,
-                     const int* __restrict__ seq_lens, const int* __restrict__ starts, __nv_bfloat16* __restrict__ out,
+wgmma_prefill_kernel(const A* __restrict__ q, const A* __restrict__ k_new, const A* __restrict__ v_new,
+                     const E* __restrict__ cache, const float* __restrict__ scale,
+                     const int* __restrict__ block_tables, const int* __restrict__ seq_lens,
+                     const int* __restrict__ starts, A* __restrict__ out,
                      int S, int H, int Hk, int N, int Bs, int M, int layer, int Hp, int Sp, int TQ, float sm_scale,
                      float logit_cap) {
   using namespace hopper;
-  constexpr bool kQuant = !std::is_same<E, __nv_bfloat16>::value;
+  constexpr bool kQuant = std::is_same<E, int8_t>::value;
   using G = wg::Geometry<D>;
   constexpr int kKeys = G::kKeys;
-  // setmaxnreg: bf16 128 x 40 + 256 x 232 <= 384 x 168; int8 as B4c
+  // setmaxnreg: a float cache 128 x 40 + 256 x 232 <= 384 x 168; int8 as B4c
   constexpr int kProducerRegs = kQuant ? wg::Q8Regs<D>::kProducer : 40;
   constexpr int kConsumerRegs = kQuant ? wg::Q8Regs<D>::kConsumer : 232;
 
@@ -653,7 +657,7 @@ wgmma_prefill_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   if (ps.i0 >= ps.fresh) {  // only padding rows: zeros, nothing to read
     if (tid < 256) {
       const float zo[D / 2] = {}, zl[2] = {};
-      store_rows<D>(ps, out, zo, zl);
+      store_rows<D, A>(ps, out, zo, zl);
     }
     return;
   }
@@ -683,17 +687,17 @@ wgmma_prefill_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   if (tid >= 256) {
     regs_dealloc<kProducerRegs>();
     if constexpr (kQuant)
-      produce_q8<D>(ps, ring, stage8, scales, full, empty, k_new, v_new, cache, scale, block_tables, Hk, N, Bs, M,
+      produce_q8<D, A>(ps, ring, stage8, scales, full, empty, k_new, v_new, cache, scale, block_tables, Hk, N, Bs, M,
                     layer, Hp, Sp, tid - 256);
     else
-      produce<D>(ps, ring, full, empty, k_new, v_new, cache, block_tables, Hk, N, Bs, M, layer, tid - 256);
+      produce<D, A>(ps, ring, full, empty, k_new, v_new, cache, block_tables, Hk, N, Bs, M, layer, tid - 256);
   } else {
     regs_alloc<kConsumerRegs>();
     float o[D / 2], l[2] = {0.f, 0.f}, m[2];
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-    consume<D, kQuant>(ps, qs, ring, scales, full, empty, q, sm_scale, logit_cap, o, l, m);
-    store_rows<D>(ps, out, o, l);
+    consume<D, A, kQuant>(ps, qs, ring, scales, full, empty, q, sm_scale, logit_cap, o, l, m);
+    store_rows<D, A>(ps, out, o, l);
   }
 }
 

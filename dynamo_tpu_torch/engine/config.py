@@ -4,8 +4,9 @@ The same dataclass as ``dynamo_tpu.engine.config``, so one configuration
 drives either engine.  The PyTorch core serves every option of it, with
 the model's cache dtype, an int8 KV cache (``cache_dtype="int8"``,
 ``ops/kv_quant.py``) or another float cache dtype (on the CPU: no kernel
-takes one on the card), on one card or on the rank mesh its model was
-built on (``mesh_shape`` is that mesh's (dp, tp), or (1, 1) for "whatever
+takes one on the card, where the model itself is bfloat16 or float16
+and a mixture of experts bfloat16), on one card or on the rank mesh its
+model was built on (``mesh_shape`` is that mesh's (dp, tp), or (1, 1) for "whatever
 the model's is"; ``sp_prefill_threshold`` needs a "data" axis above 1, as
 in the JAX package), and refuses at construction what it cannot serve
 (``EngineCore._check_supported``)."""

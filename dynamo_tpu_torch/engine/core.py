@@ -119,8 +119,10 @@ from on the read by the plain ops, as in the JAX package.
 
 Refused at construction (:meth:`EngineCore._check_supported`): a
 ``mesh_shape`` that is not the model's mesh, a cache dtype that is neither
-int8 nor a float dtype, and on the card a float cache dtype that no
-attention kernel takes (:func:`cuda_cache_refusal`).
+int8 nor a float dtype, and on the card whatever no kernel on the model's
+route takes (:func:`cuda_route_refusal`): a model dtype but bfloat16 and
+float16, a float16 mixture of experts, a float cache dtype other than the
+model's.  No request reaches a kernel wrapper that refuses its dtype.
 
 Thread-safety: everything here runs on the engine thread; submit()/abort()
 and run_on_step() are the only cross-thread entry points and only touch
@@ -161,6 +163,7 @@ from dynamo_tpu_torch.models.llama import LlamaModel
 from dynamo_tpu_torch.obs.perfmodel import PerfModel, model_shapes, visible_pairs
 from dynamo_tpu_torch.obs.timeline import COLLECTIVE, StepTimeline
 from dynamo_tpu_torch.ops.block_copy import gather_blocks_padded, scatter_blocks_inplace
+from dynamo_tpu_torch.ops.kernels.registry import route_dtypes
 from dynamo_tpu_torch.ops.kv_quant import (QuantKvCache, cache_data, pad_scales, quantize_kv_rows,
                                            resolve_cache_dtype, scale_tile)
 from dynamo_tpu_torch.tokens import TokenBlockSequence
@@ -554,17 +557,39 @@ def gather_shard_blocks(model, cache, block_ids):
 
 def cuda_cache_refusal(model_dtype: str, cache_dtype) -> Optional[str]:
     """Why an engine on the card cannot serve a KV cache of ``cache_dtype``
-    under a model of ``model_dtype``, or None when it can.  The attention
-    kernels take a bf16 cache under bf16 queries (B1, B2, B3) or an int8
-    cache (B4a, B4b, B4c); no kernel is instantiated for another float
-    dtype, and the plain ops serve one only on the CPU."""
+    under a model of ``model_dtype``, or None when it can (the cache clause
+    of :func:`cuda_route_refusal`).  The attention kernels take a float
+    cache of the queries' own dtype (B1, B2, B3) or an int8 cache (B4a,
+    B4b, B4c); no kernel takes a float cache of another dtype, and the
+    plain ops serve one only on the CPU."""
     dt = resolve_cache_dtype(cache_dtype)
     if dt in (None, "int8") or dt == getattr(torch, model_dtype):
         return None
     dt = str(dt).replace("torch.", "")
     return (f"cache_dtype {dt!r} on cuda: no kernel takes a {dt} KV cache under "
-            f"{model_dtype} queries (the attention kernels take bfloat16 under bfloat16, "
+            f"{model_dtype} queries (the attention kernels take a cache of the queries' dtype, "
             "or int8)")
+
+
+def cuda_route_refusal(model_cfg, cache_dtype) -> Optional[str]:
+    """Why an engine on the card cannot serve ``model_cfg`` (a Llama-family
+    or DeepSeek config) with a KV cache of ``cache_dtype``, or None when
+    every kernel on its route takes it (``ops/kernels/registry.py``'s
+    ``route_dtypes``: the attention kernels B1-B4c and the W8A16 matmul B5
+    have bfloat16 and float16 bodies, the grouped expert kernels E1/E2 a
+    bfloat16 one).  Checked at construction, so no request reaches a
+    wrapper that would refuse its tensors."""
+    dtype, dense = model_cfg.dtype, route_dtypes()
+    if dtype not in dense:
+        return (f"model dtype {dtype!r} on cuda: no kernel takes {dtype} activations (the "
+                f"attention kernels B1-B4c and the W8A16 matmul B5 have {' and '.join(dense)} "
+                "bodies); serve it in one of those or on the CPU")
+    moe = getattr(model_cfg, "is_moe", False) or getattr(model_cfg, "n_routed_experts", 0) > 0
+    if moe and dtype not in route_dtypes(moe=True):
+        return (f"{dtype} mixture-of-experts model on cuda: no grouped expert kernel (E1/E2) "
+                f"takes {dtype} (they have {' and '.join(route_dtypes(moe=True))} bodies); serve "
+                "it in one of those or on the CPU")
+    return cuda_cache_refusal(dtype, cache_dtype)
 
 
 # the dispatches a shard follower replays, by name: (function, the number of
@@ -718,8 +743,8 @@ class EngineCore:
         """Refuse what this engine cannot serve, instead of serving it on a
         path that ignores it: a ``mesh_shape`` that is not the model's mesh,
         a cache dtype that is neither int8 nor a float dtype, and on the card
-        a float cache dtype no attention kernel takes
-        (:func:`cuda_cache_refusal`)."""
+        a model dtype, a family in that dtype or a cache dtype that no kernel
+        on the route takes (:func:`cuda_route_refusal`)."""
         mesh = getattr(model, "mesh", None)
         shape = (1, 1) if mesh is None else (mesh.axis_size(AXIS_DATA), mesh.size
                                              // mesh.axis_size(AXIS_DATA))
@@ -729,7 +754,7 @@ class EngineCore:
                              "['mesh_shape']")
         resolve_cache_dtype(cfg.cache_dtype)
         if torch.device(device).type == "cuda":
-            why = cuda_cache_refusal(model.config.dtype, cfg.cache_dtype)
+            why = cuda_route_refusal(model.config, cfg.cache_dtype)
             if why:
                 raise ValueError(why)
 

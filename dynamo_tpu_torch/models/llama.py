@@ -8,7 +8,8 @@ The counterpart of ``dynamo_tpu/models/llama.py``:
     and layouts as the JAX params tree (``wq`` is ``[L, Dm, H*D]`` and the
     product is ``x @ wq[l]``), so a JAX checkpoint carries over by
     ``models/convert.py::params_from_jax``;
-  * bf16 weights and activations, f32 norms, rotary angles and logits;
+  * weights and activations in the config's dtype (bf16, or fp16, on the
+    card; any float dtype on the CPU), f32 norms, rotary angles and logits;
   * or int8 weight-only serving (``quantized``): every projection, the
     lm_head and the embedding are int8 with per-output-channel f32 scales
     (``models/quant.py``), held as ``<name>`` int8 and ``<name>_scale``

@@ -26,7 +26,8 @@ import tempfile
 import threading
 from pathlib import Path
 
-__all__ = ["library", "build_library", "check", "geometry", "sm_count", "NVCC_FLAGS"]
+__all__ = ["library", "build_library", "check", "entry", "geometry", "sm_count", "NVCC_FLAGS",
+           "ACTIVATIONS"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -69,9 +70,30 @@ _SIGNATURES = {
     # x, w, scale, offsets, out, R, N, K, E, quant, rows, grid_n, blocks, stream
     "dynamo_grouped_matmul": [_P] * 5 + [_I] * 8 + [_P],
 }
+# the fp16 bodies: the same arguments, q / x, the fresh K/V, a float cache
+# and out in float16
+_SIGNATURES.update({f"{name}_f16": _SIGNATURES[name] for name in (
+    "dynamo_decode_attention", "dynamo_prefill_attention", "dynamo_ragged_prefill_attention",
+    "dynamo_decode_attention_q8", "dynamo_prefill_attention_q8", "dynamo_ragged_prefill_attention_q8",
+    "dynamo_int8_matmul")})
+
+# the activation dtypes the kernels have bodies for (q, the fresh K/V, a
+# float cache, x and out), by the suffix of their C entry points
+ACTIVATIONS = {"bfloat16": "", "float16": "_f16"}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+
+
+def entry(name: str, dtype) -> str:
+    """The C entry point of ``name``'s body for activations of ``dtype``
+    (a torch dtype): ``name`` for bfloat16, ``name + "_f16"`` for float16.
+    Any other dtype has no body: TypeError."""
+    key = str(dtype).replace("torch.", "")
+    if key not in ACTIVATIONS:
+        raise TypeError(f"{name} has no {key} body: the kernels take "
+                        f"{' or '.join(ACTIVATIONS)} activations")
+    return name + ACTIVATIONS[key]
 
 
 @functools.lru_cache(maxsize=None)

@@ -2,16 +2,19 @@
 
 The kernel (``csrc/decode_attention.cu``) replaces the TPU kernel
 ``dynamo_tpu/ops/pallas/decode_attention.py::paged_decode_attention_mq``,
-its bf16 and its int8 body: each of B rows has S trailing queries at
-positions ``q0 .. q0+S-1`` that attend causally over slots ``[0, seq_len)``
-of the row's block table in the paged cache ``[L, N, 2, Bs, Hk*D]``, at a
-runtime layer index.  Rows with ``seq_len == 0`` give 0.
+its bf16 and its int8 body, each with a bf16 and an fp16 build (q, a
+float cache and out in float16: the ``_f16`` C entry points): each of B
+rows has S trailing queries at positions ``q0 .. q0+S-1`` that attend
+causally over slots ``[0, seq_len)`` of the row's block table in the paged
+cache ``[L, N, 2, Bs, Hk*D]``, at a runtime layer index.  Rows with
+``seq_len == 0`` give 0.
 
-:func:`paged_decode_attention` (a bf16 cache) and
+:func:`paged_decode_attention` (a bf16 or fp16 cache) and
 :func:`paged_decode_attention_q8` (a :class:`QuantKvCache`) launch the
 kernel for CUDA tensors and take :func:`decode_attention_ref` only for CPU
 tensors; on any other device they raise.  Each wrapper's ``launches``
-counts its calls that launched.
+counts its calls that launched, and ``launches_fp16`` those of them that
+launched the fp16 body.
 
 One design serves both caches: a call is one launch of the pipelined
 split-K kernel, compiled for each cache's element type.  :func:`plan` is
@@ -187,9 +190,10 @@ def _check(q, cache, layer, block_tables, seq_lens, q0_pos) -> None:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    build.entry("dynamo_decode_attention", q.dtype)  # a dtype with a body
     for name in ("q",) if quant else ("q", "cache"):
-        if tensors[name].dtype != torch.bfloat16:
-            raise TypeError(f"{name} must be bfloat16, got {tensors[name].dtype}")
+        if tensors[name].dtype != q.dtype:
+            raise TypeError(f"{name} must be {q.dtype}, as q, got {tensors[name].dtype}")
         if tensors[name].data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     for name in ("block_tables", "seq_lens", "q0_pos"):
@@ -232,15 +236,15 @@ def _launch(q, cache, layer, block_tables, seq_lens, q0_pos, sm_scale, logit_cap
             block_tables.data_ptr(), seq_lens.data_ptr(), q0_pos.data_ptr(), out.data_ptr(),
             workspace.data_ptr(), tickets.data_ptr())
     dims = (b, s, h, hk, d, n, bs, m, layer, *(cache.scale.shape[3:] if quant else ()))
-    name = "dynamo_decode_attention_q8" if quant else "dynamo_decode_attention"
+    name = build.entry("dynamo_decode_attention_q8" if quant else "dynamo_decode_attention", q.dtype)
     build.check(getattr(lib, name)(*ptrs, *dims, p.chunk, p.n_chunks, p.rows, p.row_groups, float(sm_scale),
                                    float(logit_cap or 0.0), stream), name)
     return out
 
 
 def paged_decode_attention(
-    q: torch.Tensor,             # [B, S, H, D] bf16
-    cache: torch.Tensor,         # [L, N, 2, Bs, Hk*D] bf16
+    q: torch.Tensor,             # [B, S, H, D] bf16 or fp16
+    cache: torch.Tensor,         # [L, N, 2, Bs, Hk*D], q's dtype
     layer: int,
     block_tables: torch.Tensor,  # [B, M] int32
     seq_lens: torch.Tensor,      # [B] int32
@@ -248,22 +252,24 @@ def paged_decode_attention(
     sm_scale: float | None = None,
     logit_cap: float | None = None,
 ) -> torch.Tensor:
-    """Multi-query flash decode over the bf16 paged cache.  Returns [B, S, H, D]."""
+    """Multi-query flash decode over a bf16 or fp16 paged cache (q's dtype).
+    Returns [B, S, H, D]."""
     if q.device.type == "cpu":
         return decode_attention_ref(q, cache, layer, block_tables, seq_lens,
                                     q0_pos, sm_scale, logit_cap)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_attention runs on cuda or cpu, not {q.device}")
     if isinstance(cache, QuantKvCache):
-        raise TypeError("paged_decode_attention takes a bf16 cache; an int8 one goes to "
+        raise TypeError("paged_decode_attention takes a float cache; an int8 one goes to "
                         "paged_decode_attention_q8")
     out = _launch(q, cache, layer, block_tables, seq_lens, q0_pos, sm_scale, logit_cap)
     paged_decode_attention.launches += 1
+    paged_decode_attention.launches_fp16 += q.dtype == torch.float16
     return out
 
 
 def paged_decode_attention_q8(
-    q: torch.Tensor,             # [B, S, H, D] bf16
+    q: torch.Tensor,             # [B, S, H, D] bf16 or fp16
     cache: QuantKvCache,         # data [L, N, 2, Bs, Hk*D] int8, scale [L, N, 2, Hp, Sp] f32
     layer: int,
     block_tables: torch.Tensor,  # [B, M] int32
@@ -282,8 +288,9 @@ def paged_decode_attention_q8(
         raise TypeError("paged_decode_attention_q8 takes a QuantKvCache")
     out = _launch(q, cache, layer, block_tables, seq_lens, q0_pos, sm_scale, logit_cap)
     paged_decode_attention_q8.launches += 1
+    paged_decode_attention_q8.launches_fp16 += q.dtype == torch.float16
     return out
 
 
-paged_decode_attention.launches = 0
-paged_decode_attention_q8.launches = 0
+paged_decode_attention.launches = paged_decode_attention.launches_fp16 = 0
+paged_decode_attention_q8.launches = paged_decode_attention_q8.launches_fp16 = 0

@@ -5,7 +5,10 @@ The kernel (``csrc/int8_matmul.cu``) replaces the TPU kernel
 for x ``[M, K]`` bf16, an int8 weight ``[K, N]`` and one f32 scale per
 output channel ``[N]``, with the int8 -> bf16 convert inside the kernel, f32
 accumulation and the scale applied in f32 before the one rounding to the
-output dtype (bf16, or f32 for logits).  The weight may be a row-major
+output dtype (bf16, or f32 for logits).  The fp16 body (the ``_f16`` C
+entry point) takes x in float16 and returns float16 or f32: the int8 codes
+convert exactly to fp16 and x is multiplied as it is, where the TPU kernel
+rounds x to bf16 first (``int8_matmul.py:48``).  The weight may be a row-major
 ``[K, N]`` tensor or the transpose view of a row-major ``[N, K]`` one (the
 tied embedding as the lm_head), which the kernel reads as it lies.
 
@@ -20,7 +23,8 @@ and K; rows off 16 bytes take a slower element-wise copy in the kernel.
 
 :func:`int8_matmul` launches the kernel for CUDA tensors and takes
 :func:`int8_matmul_ref` only for CPU tensors; on any other device it raises.
-``int8_matmul.launches`` counts calls that launched.
+``int8_matmul.launches`` counts calls that launched, ``launches_fp16``
+those of them that launched the fp16 body.
 """
 
 from __future__ import annotations
@@ -128,10 +132,11 @@ def _check(x, wq, scale, out_dtype) -> None:
     for name, t in (("wq", wq), ("scale", scale)):
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-    if x.dtype != torch.bfloat16 or wq.dtype != torch.int8 or scale.dtype != torch.float32:
-        raise TypeError(f"x bf16, wq int8, scale f32 expected; got {x.dtype}, {wq.dtype}, {scale.dtype}")
-    if out_dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"out_dtype must be bf16 or f32, got {out_dtype}")
+    build.entry("dynamo_int8_matmul", x.dtype)  # a dtype with a body
+    if wq.dtype != torch.int8 or scale.dtype != torch.float32:
+        raise TypeError(f"wq int8, scale f32 expected; got {wq.dtype}, {scale.dtype}")
+    if out_dtype not in (x.dtype, torch.float32):
+        raise TypeError(f"out_dtype must be x's ({x.dtype}) or f32, got {out_dtype}")
     if x.dim() != 2 or wq.dim() != 2 or x.shape[1] != wq.shape[0] or scale.shape != (wq.shape[1],):
         raise ValueError(f"shapes x {tuple(x.shape)}, wq {tuple(wq.shape)}, scale {tuple(scale.shape)}")
     if not x.is_contiguous() or not scale.is_contiguous():
@@ -140,7 +145,7 @@ def _check(x, wq, scale, out_dtype) -> None:
 
 def int8_matmul(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
                 out_dtype: torch.dtype | None = None) -> torch.Tensor:
-    """``(x @ wq) * scale``: x [M, K] bf16, wq [K, N] int8, scale [N] f32.
+    """``(x @ wq) * scale``: x [M, K] bf16 or fp16, wq [K, N] int8, scale [N] f32.
     Returns [M, N] in ``out_dtype`` (``x``'s when None)."""
     if x.device.type == "cpu":
         return int8_matmul_ref(x, wq, scale, out_dtype)
@@ -170,14 +175,16 @@ def _launch(x, wq, scale, out_dtype) -> torch.Tensor:
         scratch = torch.empty(p.scratch, dtype=torch.float32, device=x.device)
         partials = scratch.data_ptr()
         tickets = _stream_tickets(x.device, stream).data_ptr()
-    rc = build.library().dynamo_int8_matmul(
+    name = build.entry("dynamo_int8_matmul", x.dtype)
+    rc = getattr(build.library(), name)(
         x.data_ptr(), w.data_ptr(), scale.data_ptr(), out.data_ptr(), partials, tickets,
         m, n, k, nk, int(out_dtype == torch.float32), p.grid[0], p.grid[1], p.splits, p.k_steps, stream,
     )
     del scratch  # enqueued: a later allocation's work runs after this launch
-    build.check(rc, "dynamo_int8_matmul")
+    build.check(rc, name)
     int8_matmul.launches += 1
+    int8_matmul.launches_fp16 += x.dtype == torch.float16
     return out
 
 
-int8_matmul.launches = 0
+int8_matmul.launches = int8_matmul.launches_fp16 = 0

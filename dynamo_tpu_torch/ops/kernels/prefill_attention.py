@@ -3,7 +3,9 @@
 The kernels (``csrc/prefill_attention.cu``) replace the TPU kernel
 ``dynamo_tpu/ops/pallas/prefill_attention.py::paged_prefill_attention``,
 its bf16 and its int8 body (the cached prefix read from a
-:class:`QuantKvCache`, the fresh K/V unquantised): each of B rows has S
+:class:`QuantKvCache`, the fresh K/V unquantised), each with a bf16 and an
+fp16 build (q, the fresh K/V, a float cache and out in float16: the
+``_f16`` C entry points): each of B rows has S
 fresh queries from the block-aligned position ``start``; they attend the cached prefix ``[0, start)`` in full, read from
 the paged cache ``[L, N, 2, Bs, Hk*D]`` at a runtime layer index, and their
 own fresh K/V causally, masked at ``seq_len - start``.  Padding query rows
@@ -15,11 +17,11 @@ an int8 cache the producer converts the prefix to bf16 as it stages it);
 :func:`plan` is the launch of both, from the geometry they compile with
 (``csrc/launch_geometry.cuh``), and the C entry points launch that plan.
 
-:func:`paged_prefill_attention` (a bf16 cache) and
+:func:`paged_prefill_attention` (a bf16 or fp16 cache) and
 :func:`paged_prefill_attention_q8` (an int8 one) launch their kernel for
 CUDA tensors and take :func:`prefill_attention_ref` only for CPU tensors; on
 any other device they raise.  Each wrapper's ``launches`` counts its
-launches.
+launches, and ``launches_fp16`` those of the fp16 body.
 """
 
 from __future__ import annotations
@@ -130,9 +132,10 @@ def _check(q, k_new, v_new, cache, layer, block_tables, seq_lens, start) -> None
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    build.entry("dynamo_prefill_attention", q.dtype)  # a dtype with a body
     for name in ("q", "k_new", "v_new") + (() if quant else ("cache",)):
-        if tensors[name].dtype != torch.bfloat16:
-            raise TypeError(f"{name} must be bfloat16, got {tensors[name].dtype}")
+        if tensors[name].dtype != q.dtype:
+            raise TypeError(f"{name} must be {q.dtype}, as q, got {tensors[name].dtype}")
         if tensors[name].data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     for name in ("block_tables", "seq_lens", "start"):
@@ -173,22 +176,22 @@ def _launch(q, k_new, v_new, cache, layer, block_tables, seq_lens, start, sm_sca
     fresh = (q.data_ptr(), k_new.data_ptr(), v_new.data_ptr())
     if isinstance(cache, QuantKvCache):
         p = plan(b, s, h, hk, d, quant=True)
-        rc = lib.dynamo_prefill_attention_q8(
-            *fresh, cache.data.data_ptr(), cache.scale.data_ptr(), *rows, *dims,
-            *cache.scale.shape[3:], p.tq, p.grid[2], *tail)
-        build.check(rc, "dynamo_prefill_attention_q8")
+        name = build.entry("dynamo_prefill_attention_q8", q.dtype)
+        rc = getattr(lib, name)(*fresh, cache.data.data_ptr(), cache.scale.data_ptr(), *rows, *dims,
+                                *cache.scale.shape[3:], p.tq, p.grid[2], *tail)
     else:
         p = plan(b, s, h, hk, d)
-        rc = lib.dynamo_prefill_attention(*fresh, cache.data_ptr(), *rows, *dims, p.tq, p.grid[2], *tail)
-        build.check(rc, "dynamo_prefill_attention")
+        name = build.entry("dynamo_prefill_attention", q.dtype)
+        rc = getattr(lib, name)(*fresh, cache.data_ptr(), *rows, *dims, p.tq, p.grid[2], *tail)
+    build.check(rc, name)
     return out
 
 
 def paged_prefill_attention(
-    q: torch.Tensor,             # [B, S, H, D] bf16
-    k_new: torch.Tensor,         # [B, S, Hk, D] bf16
-    v_new: torch.Tensor,         # [B, S, Hk, D] bf16
-    cache: torch.Tensor,         # [L, N, 2, Bs, Hk*D] bf16
+    q: torch.Tensor,             # [B, S, H, D] bf16 or fp16
+    k_new: torch.Tensor,         # [B, S, Hk, D], q's dtype
+    v_new: torch.Tensor,         # [B, S, Hk, D], q's dtype
+    cache: torch.Tensor,         # [L, N, 2, Bs, Hk*D], q's dtype
     layer: int,
     block_tables: torch.Tensor,  # [B, M] int32
     seq_lens: torch.Tensor,      # [B] int32
@@ -197,24 +200,25 @@ def paged_prefill_attention(
     logit_cap: float | None = None,
 ) -> torch.Tensor:
     """Flash prefill for S fresh tokens against fresh K/V + a cached prefix
-    in the bf16 cache.  Returns [B, S, H, D]."""
+    in a bf16 or fp16 cache (q's dtype).  Returns [B, S, H, D]."""
     if q.device.type == "cpu":
         return prefill_attention_ref(q, k_new, v_new, cache, layer, block_tables,
                                      seq_lens, start, sm_scale, logit_cap)
     if q.device.type != "cuda":
         raise ValueError(f"paged_prefill_attention runs on cuda or cpu, not {q.device}")
     if isinstance(cache, QuantKvCache):
-        raise TypeError("paged_prefill_attention takes a bf16 cache; an int8 one goes to "
+        raise TypeError("paged_prefill_attention takes a float cache; an int8 one goes to "
                         "paged_prefill_attention_q8")
     out = _launch(q, k_new, v_new, cache, layer, block_tables, seq_lens, start, sm_scale, logit_cap)
     paged_prefill_attention.launches += 1
+    paged_prefill_attention.launches_fp16 += q.dtype == torch.float16
     return out
 
 
 def paged_prefill_attention_q8(
-    q: torch.Tensor,             # [B, S, H, D] bf16
-    k_new: torch.Tensor,         # [B, S, Hk, D] bf16
-    v_new: torch.Tensor,         # [B, S, Hk, D] bf16
+    q: torch.Tensor,             # [B, S, H, D] bf16 or fp16
+    k_new: torch.Tensor,         # [B, S, Hk, D], q's dtype
+    v_new: torch.Tensor,         # [B, S, Hk, D], q's dtype
     cache: QuantKvCache,         # data [L, N, 2, Bs, Hk*D] int8, scale [L, N, 2, Hp, Sp] f32
     layer: int,
     block_tables: torch.Tensor,  # [B, M] int32
@@ -234,8 +238,9 @@ def paged_prefill_attention_q8(
         raise TypeError("paged_prefill_attention_q8 takes a QuantKvCache")
     out = _launch(q, k_new, v_new, cache, layer, block_tables, seq_lens, start, sm_scale, logit_cap)
     paged_prefill_attention_q8.launches += 1
+    paged_prefill_attention_q8.launches_fp16 += q.dtype == torch.float16
     return out
 
 
-paged_prefill_attention.launches = 0
-paged_prefill_attention_q8.launches = 0
+paged_prefill_attention.launches = paged_prefill_attention.launches_fp16 = 0
+paged_prefill_attention_q8.launches = paged_prefill_attention_q8.launches_fp16 = 0

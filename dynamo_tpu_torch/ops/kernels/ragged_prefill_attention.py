@@ -3,7 +3,9 @@
 The kernels (``csrc/ragged_prefill_attention.cu``) replace the TPU kernel
 ``dynamo_tpu/ops/pallas/prefill_attention.py::ragged_paged_prefill_attention``,
 its bf16 and its int8 body (each row's cached prefix read from a
-:class:`QuantKvCache`, the fresh K/V unquantised): one flat axis of T
+:class:`QuantKvCache`, the fresh K/V unquantised), each with a bf16 and an
+fp16 build (q, the fresh K/V, a float cache and out in float16: the
+``_f16`` C entry points): one flat axis of T
 tokens packs R rows, and row r owns the real tokens ``[row_offsets[r], row_offsets[r] + seq_lens[r] - starts[r])``.  A row is a
 prefill span or a 1-token decode row, whose ``start`` (context - 1) need not
 be block-aligned.  Each token attends its own row's cached prefix
@@ -19,11 +21,11 @@ per KV head, and one decode-row block per (KV head, row) that computes a
 geometry the kernels compile with (``csrc/launch_geometry.cuh``); the C
 entry points launch that plan.
 
-:func:`ragged_paged_prefill_attention` (a bf16 cache) and
+:func:`ragged_paged_prefill_attention` (a bf16 or fp16 cache) and
 :func:`ragged_paged_prefill_attention_q8` (an int8 one) launch their kernel
 for CUDA tensors and take :func:`ragged_prefill_attention_ref` only for CPU
 tensors; on any other device they raise.  Each wrapper's ``launches``
-counts its launches.
+counts its launches, and ``launches_fp16`` those of the fp16 body.
 """
 
 from __future__ import annotations
@@ -141,9 +143,10 @@ def _check(q, k_new, v_new, cache, layer, block_tables, seq_lens, starts, row_of
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    build.entry("dynamo_ragged_prefill_attention", q.dtype)  # a dtype with a body
     for name in ("q", "k_new", "v_new") + (() if quant else ("cache",)):
-        if tensors[name].dtype != torch.bfloat16:
-            raise TypeError(f"{name} must be bfloat16, got {tensors[name].dtype}")
+        if tensors[name].dtype != q.dtype:
+            raise TypeError(f"{name} must be {q.dtype}, as q, got {tensors[name].dtype}")
         if tensors[name].data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     for name in ("block_tables", "seq_lens", "starts", "row_offsets"):
@@ -187,21 +190,21 @@ def _launch(q, k_new, v_new, cache, layer, block_tables, seq_lens, starts, row_o
             torch.cuda.current_stream(q.device).cuda_stream)
     fresh = (q.data_ptr(), k_new.data_ptr(), v_new.data_ptr())
     if quant:
-        rc = lib.dynamo_ragged_prefill_attention_q8(
-            *fresh, cache.data.data_ptr(), cache.scale.data_ptr(), *rows, *dims,
-            *cache.scale.shape[3:], *tail)
-        build.check(rc, "dynamo_ragged_prefill_attention_q8")
+        name = build.entry("dynamo_ragged_prefill_attention_q8", q.dtype)
+        rc = getattr(lib, name)(*fresh, cache.data.data_ptr(), cache.scale.data_ptr(), *rows, *dims,
+                                *cache.scale.shape[3:], *tail)
     else:
-        rc = lib.dynamo_ragged_prefill_attention(*fresh, cache.data_ptr(), *rows, *dims, *tail)
-        build.check(rc, "dynamo_ragged_prefill_attention")
+        name = build.entry("dynamo_ragged_prefill_attention", q.dtype)
+        rc = getattr(lib, name)(*fresh, cache.data_ptr(), *rows, *dims, *tail)
+    build.check(rc, name)
     return out
 
 
 def ragged_paged_prefill_attention(
-    q: torch.Tensor,             # [1, T, H, D] bf16
-    k_new: torch.Tensor,         # [1, T, Hk, D] bf16
-    v_new: torch.Tensor,         # [1, T, Hk, D] bf16
-    cache: torch.Tensor,         # [L, N, 2, Bs, Hk*D] bf16
+    q: torch.Tensor,             # [1, T, H, D] bf16 or fp16
+    k_new: torch.Tensor,         # [1, T, Hk, D], q's dtype
+    v_new: torch.Tensor,         # [1, T, Hk, D], q's dtype
+    cache: torch.Tensor,         # [L, N, 2, Bs, Hk*D], q's dtype
     layer: int,
     block_tables: torch.Tensor,  # [R, M] int32
     seq_lens: torch.Tensor,      # [R] int32
@@ -211,25 +214,27 @@ def ragged_paged_prefill_attention(
     logit_cap: float | None = None,
 ) -> torch.Tensor:
     """Flash attention of T packed tokens of R rows against their own
-    fresh K/V and cached prefix in the bf16 cache.  Returns [1, T, H, D]."""
+    fresh K/V and cached prefix in a bf16 or fp16 cache (q's dtype).  Returns
+    [1, T, H, D]."""
     if q.device.type == "cpu":
         return ragged_prefill_attention_ref(q, k_new, v_new, cache, layer, block_tables,
                                             seq_lens, starts, row_offsets, sm_scale, logit_cap)
     if q.device.type != "cuda":
         raise ValueError(f"ragged_paged_prefill_attention runs on cuda or cpu, not {q.device}")
     if isinstance(cache, QuantKvCache):
-        raise TypeError("ragged_paged_prefill_attention takes a bf16 cache; an int8 one goes to "
+        raise TypeError("ragged_paged_prefill_attention takes a float cache; an int8 one goes to "
                         "ragged_paged_prefill_attention_q8")
     out = _launch(q, k_new, v_new, cache, layer, block_tables, seq_lens, starts, row_offsets,
                   sm_scale, logit_cap)
     ragged_paged_prefill_attention.launches += 1
+    ragged_paged_prefill_attention.launches_fp16 += q.dtype == torch.float16
     return out
 
 
 def ragged_paged_prefill_attention_q8(
-    q: torch.Tensor,             # [1, T, H, D] bf16
-    k_new: torch.Tensor,         # [1, T, Hk, D] bf16
-    v_new: torch.Tensor,         # [1, T, Hk, D] bf16
+    q: torch.Tensor,             # [1, T, H, D] bf16 or fp16
+    k_new: torch.Tensor,         # [1, T, Hk, D], q's dtype
+    v_new: torch.Tensor,         # [1, T, Hk, D], q's dtype
     cache: QuantKvCache,         # data [L, N, 2, Bs, Hk*D] int8, scale [L, N, 2, Hp, Sp] f32
     layer: int,
     block_tables: torch.Tensor,  # [R, M] int32
@@ -251,8 +256,9 @@ def ragged_paged_prefill_attention_q8(
     out = _launch(q, k_new, v_new, cache, layer, block_tables, seq_lens, starts, row_offsets,
                   sm_scale, logit_cap)
     ragged_paged_prefill_attention_q8.launches += 1
+    ragged_paged_prefill_attention_q8.launches_fp16 += q.dtype == torch.float16
     return out
 
 
-ragged_paged_prefill_attention.launches = 0
-ragged_paged_prefill_attention_q8.launches = 0
+ragged_paged_prefill_attention.launches = ragged_paged_prefill_attention.launches_fp16 = 0
+ragged_paged_prefill_attention_q8.launches = ragged_paged_prefill_attention_q8.launches_fp16 = 0

@@ -1,4 +1,5 @@
-"""Kernel registry: one census and one cost table for the nine CUDA kernels.
+"""Kernel registry: one census and one cost table for the nine CUDA kernels
+and their float16 bodies.
 
 The counterpart of ``dynamo_tpu/ops/pallas/registry.py``.  Every hand-written
 kernel the port launches is registered here with the facts that the kernel
@@ -9,9 +10,12 @@ plane (``analysis/kerncheck.py``, ``lint --kern``), the perf plane
   ``ops/kernels/__init__.py::wrappers()`` by its function name, with the
   TPU site it replaces, its C entry and source, its plain version, its
   launch counter and the ``chip_smoke.py`` function that holds it to that
-  plain version on the card.  ``unified_ragged_attention`` stays a
-  placeholder with no module, as in the JAX package: decode and ragged
-  prefill are two kernels.
+  plain version on the card, and the activation dtypes it has a body for
+  (``dtypes``: bfloat16, and float16 for all but the grouped kernels E1/E2,
+  each fp16 body counted in the wrapper's ``launches_fp16`` as well; what
+  a model's route takes on the card, :func:`route_dtypes`).
+  ``unified_ragged_attention`` stays a placeholder with no module, as in
+  the JAX package: decode and ragged prefill are two kernels.
 - **two cost functions per kernel**, each a dict of ``hbm_bytes``,
   ``flops``, ``transcendentals`` and ``intensity``:
   :func:`work_cost` is the work itself, whatever implements it (each input
@@ -31,10 +35,11 @@ plane (``analysis/kerncheck.py``, ``lint --kern``), the perf plane
   the least the kernels take (JAX audits D = 16; ``tests/
   test_torch_kerncheck.py`` holds the plain versions to JAX's kernels at
   JAX's own geometry), the port's additions (the verify's S = 5 and 8,
-  the int8 prefill, the grouped kernels at T = 8 and 1,504), and a
-  spec-only case at each serving shape ``PERF.md`` §6 times.  Run cases
-  build their inputs from a numpy seed; :func:`poison` NaN-poisons what no
-  live lane may read.
+  the int8 prefill, the grouped kernels at T = 8 and 1,504, and each fp16
+  body at its bf16 twin's geometry, ``dtype`` float16), and a spec-only
+  case at each serving shape ``PERF.md`` §6 times.  Run cases build their
+  inputs from a numpy seed; :func:`poison` NaN-poisons what no live lane
+  may read.
 
 Nothing here builds or launches a kernel: the plans come from the wrappers'
 ``plan`` functions and ``build.geometry()``, which read
@@ -47,6 +52,7 @@ import dataclasses
 import math
 
 from dynamo_tpu_torch.obs.topology import DEFAULT_TOPOLOGY, TOPOLOGIES
+from dynamo_tpu_torch.ops.kernels.build import ACTIVATIONS
 from dynamo_tpu_torch.tools.cuda_timing import (
     DECODE_LENS,
     MOE_EXPERTS,
@@ -93,11 +99,18 @@ LIMITS = {
 # ------------------------------------------------------------ the census ----
 
 
-def _kernel(kid, module, wrapper, plain, entry, source, replaces, probe, plain_reads_host=False):
+# the activation dtypes of a kernel with an fp16 body (its C entry + "_f16",
+# counted in ``launches_fp16`` too), and of one without
+HALF = tuple(ACTIVATIONS)
+BF16 = ("bfloat16",)
+
+
+def _kernel(kid, module, wrapper, plain, entry, source, replaces, probe, plain_reads_host=False,
+            dtypes=HALF):
     return {"id": kid, "module": f"{_KMOD}.{module}", "wrapper": wrapper, "plain": plain,
             "entry": entry, "source": f"{_PKG}/csrc/{source}", "replaces": replaces,
             "counter": "launches", "probe": probe, "plain_reads_host": plain_reads_host,
-            "placeholder": False}
+            "placeholder": False, "dtypes": dtypes}
 
 
 _DEC, _PRE = "dynamo_tpu/ops/pallas/decode_attention.py", "dynamo_tpu/ops/pallas/prefill_attention.py"
@@ -131,15 +144,32 @@ KERNELS = {
         "int8_matmul.cu", "dynamo_tpu/ops/pallas/int8_matmul.py:64", "kern_phase"),
     "grouped_matmul": _kernel(
         "E1", "grouped_matmul", "grouped_matmul", "grouped_matmul_ref", "dynamo_grouped_matmul",
-        "grouped_matmul.cu", "dynamo_tpu/models/llama.py:631", "kern_phase", plain_reads_host=True),
+        "grouped_matmul.cu", "dynamo_tpu/models/llama.py:631", "kern_phase", plain_reads_host=True,
+        dtypes=BF16),
     "grouped_matmul_q8": _kernel(
         "E2", "grouped_matmul", "grouped_matmul_q8", "grouped_matmul_q8_ref",
         "dynamo_grouped_matmul", "grouped_matmul.cu", "dynamo_tpu/models/llama.py:660",
-        "kern_phase", plain_reads_host=True),
+        "kern_phase", plain_reads_host=True, dtypes=BF16),
     # the JAX registry's placeholder (its registry.py:106): one kernel for
     # decode and ragged prefill, not yet written in either package
     "unified_ragged_attention": {"id": None, "module": None, "placeholder": True},
 }
+
+# the kernels a dense Llama-family model's route launches on the card, and
+# the grouped expert kernels a mixture of experts adds
+DENSE_ROUTE = ("paged_decode_attention", "paged_prefill_attention", "ragged_paged_prefill_attention",
+               "paged_decode_attention_q8", "paged_prefill_attention_q8",
+               "ragged_paged_prefill_attention_q8", "int8_matmul")
+MOE_ROUTE = ("grouped_matmul", "grouped_matmul_q8")
+
+
+def route_dtypes(moe: bool = False) -> tuple[str, ...]:
+    """The activation dtypes every kernel on a dense model's route (and,
+    with ``moe``, a mixture of experts') has a body for: what an engine on
+    the card can serve."""
+    names = DENSE_ROUTE + (MOE_ROUTE if moe else ())
+    return tuple(d for d in HALF if all(d in KERNELS[n]["dtypes"] for n in names))
+
 
 # the decode / ragged-prefill split the placeholder would end
 SPLIT = {"decode": "paged_decode_attention", "ragged_prefill": "ragged_paged_prefill_attention",
@@ -792,6 +822,23 @@ def _case(name, kernel, mode, geometry, **kw) -> dict:
     return case
 
 
+# the fp16 cases' canary tolerance on the CPU, where the plain version and
+# the oracle both round their outputs to fp16: one ulp at the attention
+# outputs' magnitude (|out| < 4, ulp 2^-9 ~ 2e-3; over an int8 cache < 8,
+# 2^-8), and for the W8A16 product (|out| < 1,024 at K = 1,024) one ulp,
+# 0.5, beside the f32 oracle's half-ulp rounding
+FP16_ATOL = {"attention": 2e-3, "attention_q8": 4e-3, "matmul": 1.0}
+
+
+def fp16_twin(case: dict, atol: float) -> dict:
+    """``case``'s float16 twin: the same geometry and seed, its inputs (q,
+    the fresh K/V, a float cache, x) and outputs in float16; named with
+    ``fp16`` in place of ``bf16``, or after the name."""
+    name = case["name"]
+    name = name.replace("-bf16", "-fp16") if "-bf16" in name else f"{name}-fp16"
+    return dict(case, name=name, dtype="float16", atol=atol)
+
+
 def _decode_case(name: str, quant: bool, s: int = 1, lens=None) -> dict:
     b = len(lens) if lens is not None else (8 if s == 1 else 4)
     if lens is None:
@@ -855,18 +902,20 @@ def _moe_case(name: str, quant: bool, t: int) -> dict:
 
 def build(case: dict, device="cpu", dtype=None) -> dict:
     """A run case's inputs from its numpy seed, on ``device``; attention q,
-    k_new, v_new and a bf16 cache in ``dtype`` (f32 on the CPU by default,
-    bf16 for the kernels)."""
+    k_new, v_new and a float cache in ``dtype`` (f32 on the CPU by default,
+    bf16 for the kernels), or in the case's own ``dtype`` (an fp16 case:
+    float16 everywhere, the W8A16 product's x too)."""
     import torch
 
     np = _np()
     kind, g = case["kernel"], case["geometry"]
-    dtype = dtype or torch.float32
+    dtype = getattr(torch, case["dtype"]) if "dtype" in case else dtype or torch.float32
     if kind.startswith(("paged_", "ragged")):
         return _attention_inputs(kind, g, case["seed"], device, dtype)
     rng = np.random.default_rng(case["seed"])
     if kind == "int8_matmul":
-        x = torch.as_tensor(rng.normal(size=(g["m"], g["k"])), dtype=torch.float32).to(torch.bfloat16)
+        x_dtype = torch.float16 if case.get("dtype") == "float16" else torch.bfloat16
+        x = torch.as_tensor(rng.normal(size=(g["m"], g["k"])), dtype=torch.float32).to(x_dtype)
         wq = torch.as_tensor(rng.integers(-127, 128, size=(g["k"], g["n"])), dtype=torch.int8)
         scale = torch.as_tensor(rng.uniform(0.01, 0.1, size=(g["n"],)), dtype=torch.float32)
         return to_device({"x": x, "wq": wq, "scale": scale}, device)
@@ -1010,7 +1059,27 @@ def audit_cases() -> list[dict]:
               {"b": 1, "s": 2048, "h": 32, "hk": 4, "d": 128, "m": 128, "bs": 16, "starts": [0],
                "lens": [2048]}),
     ]
+    cases += fp16_cases(cases)
     return cases + serving_cases()
+
+
+# the fp16 bodies' run cases: each attention kernel at S = 1 (decode also at
+# the verify's S = 8), the prefill and ragged kernels at their bf16 cases'
+# rows, the W8A16 product at JAX's geometry
+FP16_TWINS = ("decode-bf16", "decode-int8", "decode-verify-s8", "decode-int8-verify-s8",
+              "prefill-bf16", "prefill-int8", "ragged-bf16", "ragged-int8", "int8-matmul")
+
+
+def fp16_cases(cases: list[dict]) -> list[dict]:
+    """The float16 twins of :data:`FP16_TWINS` among ``cases``."""
+    by_name = {c["name"]: c for c in cases}
+    out = []
+    for name in FP16_TWINS:
+        c = by_name[name]
+        kind = ("matmul" if c["kernel"] == "int8_matmul"
+                else "attention_q8" if c["kernel"].endswith("_q8") else "attention")
+        out.append(fp16_twin(c, FP16_ATOL[kind]))
+    return out
 
 
 def fuzz_case(seed: int) -> dict:

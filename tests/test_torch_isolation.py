@@ -180,10 +180,12 @@ def test_engine_refuses_unported_options():
     ("bfloat16", "int8", False), ("float32", "int8", False), ("bfloat16", torch.float16, True)])
 def test_cuda_engine_refuses_a_cache_dtype_no_kernel_takes(model_dtype, cache_dtype, refused):
     """On the card a float cache dtype other than the model's is refused at
-    construction, by name and with "no kernel": the attention kernels take a
-    bf16 cache under bf16 queries or an int8 cache, and nothing falls back
-    to the plain ops.  The CPU serves every one of them.  Checked without a
-    card, on the construction check itself."""
+    construction, by name and with "no kernel" (``refused``: the route
+    check's cache clause): the attention kernels take a cache of the
+    queries' dtype or an int8 cache, and nothing falls back to the plain
+    ops.  A float32 model is refused on the card whatever its cache, by its
+    dtype: no kernel has a float32 body.  The CPU serves every one of them.
+    Checked without a card, on the construction check itself."""
     from dynamo_tpu_torch.engine.core import cuda_cache_refusal
 
     cfg = ModelConfig(**{**vars(ModelConfig.tiny()), "dtype": model_dtype})
@@ -192,6 +194,10 @@ def test_cuda_engine_refuses_a_cache_dtype_no_kernel_takes(model_dtype, cache_dt
     EngineCore._check_supported(model, ecfg, "cpu")
     why = cuda_cache_refusal(model_dtype, cache_dtype)
     assert bool(why) == refused
+    if model_dtype == "float32":
+        with pytest.raises(ValueError, match=r"model dtype 'float32' on cuda: no kernel takes"):
+            EngineCore._check_supported(model, ecfg, torch.device("cuda", 0))
+        return
     if not refused:
         EngineCore._check_supported(model, ecfg, torch.device("cuda", 0))
         return

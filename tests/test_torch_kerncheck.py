@@ -101,8 +101,9 @@ def test_manifest_covers_every_registry_geometry(real_facts):
 def test_full_adversarial_matrix_canaries_ran_and_clean(real_facts):
     """KN004 ran on every run case (decode bf16 / int8 / multi-query / the
     verify's S = 5 and 8, prefill bf16 / int8, ragged bf16 / int8, the
-    W8A16 product, the grouped launches at T = 8 and 1,504), clean, with
-    its padding and zero-length lanes exactly 0; spec cases skip it."""
+    W8A16 product, the grouped launches at T = 8 and 1,504, and the nine
+    float16 twins of ``registry.FP16_TWINS``), clean, with its padding and
+    zero-length lanes exactly 0; spec cases skip it."""
     ran = []
     for name, f in real_facts.items():
         if name == kc.CENSUS:
@@ -112,7 +113,7 @@ def test_full_adversarial_matrix_canaries_ran_and_clean(real_facts):
             ran.append(name)
         else:
             assert f["mode"] == "spec" and not f["canary"]["ran"], name
-    assert len(ran) == 16, ran
+    assert len(ran) == 16 + len(registry.FP16_TWINS), ran
     zeros = sum(real_facts[n]["canary"]["zero_lanes"] for n in ran)
     assert zeros > 0
 
@@ -491,3 +492,54 @@ def test_poison_reaches_only_dead_lanes():
             held += keep
     assert torch.isnan(cache[:, 0]).all()  # block 0 is no row's
     assert held == sum(g["lens"])
+
+
+# ---------------------------------------------------- the float16 bodies ----
+
+
+def test_fp16_twins_take_their_bf16_plan_and_cost(real_facts):
+    """Each float16 run case is its bf16 twin's geometry and seed in
+    float16: the same launch plan, work cost and plan cost (both types are
+    2 bytes and the tensor cores' rates are the same), canaried at its own
+    tolerance in float16 on the CPU."""
+    cases = {c["name"]: c for c in registry.audit_cases()}
+    twins = [c for c in cases.values() if c.get("dtype") == "float16"]
+    assert sorted(registry.fp16_twin(cases[n], 0)["name"] for n in registry.FP16_TWINS) == \
+        sorted(c["name"] for c in twins)
+    for name in registry.FP16_TWINS:
+        bf, hf = cases[name], registry.fp16_twin(cases[name], 0)
+        fb = real_facts[f"cuda.{bf['kernel']}[{bf['name']}]"]
+        fh = real_facts[f"cuda.{hf['kernel']}[{hf['name']}]"]
+        for key in ("plan", "work", "plan_cost", "walk"):
+            assert fh[key] == fb[key], (name, key)
+        assert fh["canary"]["ran"] and fh["canary"]["atol"] in registry.FP16_ATOL.values()
+    inp = registry.build(next(c for c in twins if c["kernel"] == "paged_prefill_attention"))
+    assert {inp[k].dtype for k in ("q", "k_new", "v_new", "cache")} == {torch.float16}
+    inp = registry.build(next(c for c in twins if c["kernel"] == "int8_matmul"))
+    assert inp["x"].dtype == torch.float16
+
+
+def test_fp16_census_needs_counter_and_run_case(real_facts):
+    """Every kernel with a float16 body has its ``launches_fp16`` counter
+    and a float16 run case; the grouped kernels have none, so a dense
+    model's route takes bf16 and fp16 and a mixture of experts' bf16 only
+    (``route_dtypes``, which the engine's refusal reads).  Dropping either
+    from the census re-trips KN006."""
+    census = real_facts[kc.CENSUS]
+    assert registry.route_dtypes() == ("bfloat16", "float16")
+    assert registry.route_dtypes(moe=True) == ("bfloat16",)
+    for name, meta in registry.KERNELS.items():
+        if meta["placeholder"]:
+            continue
+        facts = census["kernels"][name]
+        if name.startswith("grouped"):
+            assert facts["dtypes"] == ["bfloat16"] and "counter_fp16" not in facts
+            continue
+        assert facts["dtypes"] == ["bfloat16", "float16"]
+        assert facts["counter_fp16"] and facts["probed_fp16"], name
+        assert isinstance(registry.wrapper_fn(name).launches_fp16, int)
+    for part in ("counter_fp16", "probed_fp16"):
+        broken = json.loads(json.dumps(census))
+        broken["kernels"]["int8_matmul"][part] = False
+        keys = {f.key for f in kc._check_census(broken)}
+        assert f"{part}:int8_matmul" in keys
